@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``prob_mbrl_tpu_torch``) on one NVIDIA
 card: builds the CUDA kernels from ``prob_mbrl_tpu_torch/csrc``, holds each
 against its plain PyTorch version, then drives MC-PILCO policy optimisation on
-Cartpole at full width through the kernels.
+Cartpole at full width through the kernels, on both of its routes.
 
     python3 chip_smoke.py
 
@@ -10,16 +10,23 @@ Phases (any failure exits non-zero and prints no result line):
   0. needs CUDA; TF32 off for matmul and cuDNN; prints the card's name and
      power limit as ``nvidia-smi`` reports them.
   1. builds the kernels (one ``nvcc`` per source, all started together).
-  2. each kernel against its plain version on the card, at the policy
-     (5->200->200->2, Bernoulli masks) and dynamics (6->200->200->10,
-     concrete masks) shapes, B in {1, 37, 100, 1500}: forward output, dx,
-     dW, db and d(mask). Times at the main-path shapes (B = 100) replay the
-     work in a CUDA graph, timed with CUDA events.
-  3. the main path: ``mc_pilco`` with B = 100 particles, horizon 15,
-     moment matching of states and rewards, on dynamics and policy MLPs of
-     [200, 200]. Launch counts show every MLP call went through the kernels;
-     one iteration is compared with the plain (unfused) path on the same
-     initial states and noise.
+  2. each kernel against its plain version on the card. The fused MLP at
+     the policy (5->200->200->2, Bernoulli masks) and dynamics
+     (6->200->200->10, concrete masks) shapes, B in {1, 37, 100, 1500}:
+     forward output, dx, dW, db and d(mask). The rollout step at the main
+     path's widths, B in {2, 37, 100, 1500}: (nxt, r) and the cotangents of
+     the policy params, the states and eps. Times at the main-path shapes
+     (B = 100) replay the work in a CUDA graph, timed with CUDA events.
+  3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
+     particles, horizon 15, moment matching of states and rewards, on
+     dynamics and policy MLPs of [200, 200], every MLP call through the
+     fused-MLP kernels (launch counts 2*T*iters each); one iteration is
+     compared with the plain (unfused) path on the same initial states and
+     noise.
+  4. the main path: the same ``mc_pilco`` call with the default
+     ``fused_rollout``, which on CUDA takes the step tier: the step kernels
+     launch T*iters times each and the fused-MLP kernels never; one
+     iteration is compared with the plain path as in phase 3.
 
 ``tools/profile_torch_main_path.py`` breaks a main-path iteration down
 (host split and a torch.profiler trace) on the same setup.
@@ -45,6 +52,8 @@ from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
                                         cdropout)
 from prob_mbrl_tpu_torch.ops.cuda import build
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
+from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
+from prob_mbrl_tpu_torch.ops.moment_matching import standardize_noise
 from prob_mbrl_tpu_torch.utils.core import tree_leaves
 
 # published H100 SXM peaks: HBM bytes/s, float32 FLOP/s outside the tensor
@@ -58,14 +67,22 @@ BATCHES = (1, 37, 100, 1500)
 MAIN_B = 100
 MAIN_T = 15
 ITERS = 100  # MC-PILCO iterations of the main path (an episode runs 1000)
+ROUTE_ITERS = 30  # iterations of the fused-MLP route (phase 3)
+STEP_BATCHES = (2, 37, 100, 1500)
 SEED = 1
 # kernel vs plain version: |kernel - plain| <= REL_TOL * max(1, max|plain|)
 # (float32 products summed in another order; no TF32 on either side)
 REL_TOL = 1e-4
+STEP_TOL = 1e-3
 
-SOURCE = 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu'
+SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
+           'fused_mlp_bwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
+           'fused_step_fwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu',
+           'fused_step_bwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu'}
 REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
-            'fused_mlp_bwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247'}
+            'fused_mlp_bwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247',
+            'fused_step_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1166',
+            'fused_step_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1206'}
 
 
 def log(*args):
@@ -221,7 +238,7 @@ def kernel_timings(dims, masks):
     return t
 
 
-def phase_kernels():
+def phase_mlp_kernels():
     names = ['fused_mlp_fwd', 'fused_mlp_bwd']
     worst = {n: 0.0 for n in names}
     labels = ['out', 'dx'] + ['dW%d' % i for i in range(3)] + [
@@ -274,6 +291,164 @@ def phase_kernels():
     return rows
 
 
+def step_problem(B, seed):
+    """One rollout step at the main path's widths (embedded Cartpole state
+    D = 5, U = 1, [200, 200] MLPs), its inputs made from a seed. The state
+    resample needs a full-rank particle covariance, B > D: below that its
+    factor is float32 rounding noise (ROADMAP Queue 3), so B = 2 resamples
+    the rewards only. Returns (kernel step, plain step, policy leaves,
+    states, eps, (g_nxt, g_r), timing inputs)."""
+    rng = np.random.RandomState(seed)
+    D, U = 5, 1
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device='cuda')
+
+    dyn, pol = build_models(D, U, (10.0,), envs.cartpole_reward())
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    dyn_params = dyn.init(gen, device='cuda')
+    pol_params = pol.init(gen, device='cuda')
+    leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
+    stats = dyn.fit_stats(t(rng.randn(200, D + U) * [1, 2, 3, 0.7, 0.7, 5]),
+                          t(0.1 * rng.randn(200, D)))
+    dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
+    pol_noise = pol.sample_noise(gen, (B,), device='cuda')
+    th = rng.randn(B) * 0.5
+    states = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
+                         np.sin(th), np.cos(th)], 1))
+    eps = t(0.1 * rng.randn(B, U))
+    z_mm = standardize_noise(t(rng.randn(B, D)))
+    z_rr = standardize_noise(t(rng.randn(B, 1)))
+    cot = (t(rng.randn(B, D)), t(rng.randn(B, 1)))
+    mm_states = B > D
+    k = fr.StepKernel(dyn, pol, mm_states, True, pol_params, dyn_params,
+                      stats, dyn_noise, pol_noise, B, states.device)
+    plain = fr.make_step_plain(dyn, pol, mm_states, True)
+
+    def kernel(s, e):
+        return k(s, e, z_mm, z_rr)
+
+    def plain_step(s, e):
+        return plain(pol_params, s, z_mm, z_rr, e, dyn_params, stats,
+                     dyn_noise, pol_noise)
+
+    return kernel, plain_step, leaves, states, eps, cot, (k, z_mm, z_rr)
+
+
+def step_outputs(step, leaves, states, eps, cot):
+    """(nxt, r) and the cotangents of the policy leaves, states and eps."""
+    s = states.detach().clone().requires_grad_(True)
+    e = eps.detach().clone().requires_grad_(True)
+    nxt, r = step(s, e)
+    grads = torch.autograd.grad((nxt * cot[0]).sum() + (r * cot[1]).sum(),
+                                leaves + [s, e])
+    return [nxt.detach(), r.detach()] + list(grads)
+
+
+def step_bytes_flops(B, pol_dims, dyn_dims, D, U):
+    """Bytes each step kernel must move (inputs read once, outputs written
+    once) and the operations it does, for one call at batch B. The backward
+    takes the step's inputs and its pre-MM outputs, so it recomputes both
+    MLPs' forward; its products are that, both dx chains and the policy's
+    dW."""
+    def weights(dims):
+        return sum(a * b for a, b in zip(dims[:-1], dims[1:])) + sum(dims[1:])
+
+    wp, wd = weights(pol_dims), weights(dyn_dims)
+    masks = B * (sum(pol_dims[1:-1]) + sum(dyn_dims[1:-1]))
+    state = B * (2 * D + 2 * U + D + 1)  # states, eps, both noises, MM noise
+    stats = 2 * (D + U) + 2 * D
+    mults = 2 * B * (wp + wd)  # products of both MLPs (bias adds included)
+    elem = 3 * (masks + B * (D + U)) + B * D * (3 * D + 4)  # epilogues + MM
+    fwd_bytes = 4 * (wp + wd + masks + state + stats + 2 * B * (D + 1))
+    bwd_bytes = 4 * (wp + wd + masks + state + stats + 2 * B * (D + 1)
+                     + B * (D + U) + wp)
+    wpp = sum(a * b for a, b in zip(pol_dims[:-1], pol_dims[1:]))
+    wdd = sum(a * b for a, b in zip(dyn_dims[:-1], dyn_dims[1:]))
+    bwd_flops = mults + 2 * B * (2 * wpp + wdd) + 3 * elem
+    return {'fused_step_fwd': (fwd_bytes, mults + elem),
+            'fused_step_bwd': (bwd_bytes, bwd_flops)}
+
+
+def step_timings():
+    """ms of each step kernel and of the plain step at the main-path batch.
+    The plain backward is its forward and ``torch.autograd.grad`` in one
+    graph, less the plain forward's. No single PyTorch call computes a
+    rollout step, so there is no library time."""
+    kernel, plain, leaves, states, eps, cot, (k, z_mm, z_rr) = step_problem(
+        MAIN_B, seed=7)
+    _, _, nxt_raw, r_raw = k.forward(states, eps, z_mm, z_rr)
+
+    def plain_fwd_bwd():
+        step_outputs(plain, leaves, states, eps, cot)
+
+    plain_fwd_ms = time_graph(lambda: plain(states, eps))
+    t = {
+        'fused_step_fwd': dict(
+            ms=time_graph(lambda: k.forward(states, eps, z_mm, z_rr)),
+            plain_ms=plain_fwd_ms),
+        'fused_step_bwd': dict(
+            ms=time_graph(lambda: k.backward(states, eps, z_mm, z_rr,
+                                             nxt_raw, r_raw, cot[0], cot[1],
+                                             True)),
+            plain_ms=time_graph(plain_fwd_bwd) - plain_fwd_ms),
+    }
+    dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
+    for name, (nbytes, flops) in step_bytes_flops(MAIN_B, *dims, 5, 1).items():
+        t[name]['bound_ms'], t[name]['bound_by'] = bound(nbytes, flops)
+        t[name]['library_ms'] = None
+    return t
+
+
+def phase_step_kernels():
+    """The step kernels against the plain step. Tolerance per output:
+    STEP_TOL * max(1, max|plain|) (float32 sums in another order, amplified
+    by the 5x5 Cholesky and its adjoint), or 3x the plain step's own change
+    when the states move by 1e-6 relative, whichever is larger."""
+    names = ['fused_step_fwd', 'fused_step_bwd']
+    worst = {n: 0.0 for n in names}
+    for B in STEP_BATCHES:
+        kernel, plain, leaves, states, eps, cot, _ = step_problem(B, seed=B)
+        got = step_outputs(kernel, leaves, states, eps, cot)
+        ref = step_outputs(plain, leaves, states, eps, cot)
+        moved = step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
+        torch.cuda.synchronize()
+        labels = (['nxt', 'r'] + [f'd pol leaf {i}' for i in
+                                  range(len(leaves))] + ['d states', 'd eps'])
+        here = {n: 0.0 for n in names}
+        rel = 0.0
+        for lab, a, r, m in zip(labels, got, ref, moved):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f'step B={B} {lab}: kernel output is '
+                                     'not finite')
+            err = float((a - r).abs().max())
+            scale = max(1.0, float(r.abs().max()))
+            tol = max(STEP_TOL * scale, 3 * float((m - r).abs().max()))
+            kern = 'fused_step_fwd' if lab in ('nxt', 'r') else \
+                'fused_step_bwd'
+            here[kern] = max(here[kern], err)
+            rel = max(rel, err / scale)
+            if err > tol:
+                raise AssertionError(f'step B={B} {lab}: max abs err '
+                                     f'{err:.3e} > tolerance {tol:.3e}')
+        for n in names:
+            worst[n] = max(worst[n], here[n])
+        state_mm = 'on' if B > 5 else 'off'
+        log(f'[phase 2] rollout step B={B} (state MM {state_mm}'
+            f'): kernel vs plain max abs err fwd {here["fused_step_fwd"]:.3e} '
+            f'bwd {here["fused_step_bwd"]:.3e}, relative to max(1, '
+            f'max|plain|) {rel:.3e} (tolerance {STEP_TOL:.0e} or the plain '
+            'step\'s sensitivity) ok')
+    rows = step_timings()
+    for name, v in rows.items():
+        v['max_abs_err'] = worst[name]
+        log(f'[phase 2] {name} B={MAIN_B}: kernel {v["ms"]:.4f} ms, plain '
+            f'{v["plain_ms"]:.4f} ms, no single library call, bound '
+            f'{v["bound_ms"]:.6f} ms ({v["bound_by"]})')
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -306,34 +481,29 @@ def build_models(D, U, max_u, reward_func):
     return dyn, pol
 
 
-def unfused(spec):
-    """The same dynamics/policy spec with the plain (unfused) MLP path."""
-    if isinstance(spec, DynamicsModel):
-        reg = spec.regressor
-        return dataclasses.replace(spec, regressor=dataclasses.replace(
-            reg, mlp=dataclasses.replace(reg.mlp, fused=False)))
-    return dataclasses.replace(spec, mlp=dataclasses.replace(spec.mlp,
-                                                             fused=False))
-
-
 def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise):
+    """One iteration's loss and policy grads by ``opt``'s route on CUDA."""
     params = tree_leaves(pol_params)
-    loss, _ = opt.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise)
+    loss, _ = opt.loss(pol_params, x0, dyn_params, dyn_stats,
+                       opt.prepare_noise(noise, 'cuda'))
     grads = torch.autograd.grad(loss, params)
     return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads])
 
 
 def compare_paths(dyn, pol, pol_params, dyn_params, dyn_stats, x0_pool,
-                  init_noise, seed, T, B):
+                  init_noise, seed, T, B, fused_rollout, tag):
     """One iteration's loss and policy grads on the same initial states and
-    noise, through the kernels and through the plain (unfused) MLP path.
-    The tolerance is the plain path's own sensitivity to x0 moved by 1e-6
+    noise, through the kernels of the route ``fused_rollout`` picks and
+    through the plain path (``utils.rollout`` on unfused MLPs). The
+    tolerance is the plain path's own sensitivity to x0 moved by 1e-6
     relative (times 3), at least 1e-4 relative on the loss and 1e-3 of
     max|grad| on the grads."""
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                         mm_rewards=True)
-    opt_k = make_mc_pilco_fn(dyn, pol, cfg)
-    opt_p = make_mc_pilco_fn(unfused(dyn), unfused(pol), cfg)
+    opt_k = make_mc_pilco_fn(dyn, pol, dataclasses.replace(
+        cfg, fused_rollout=fused_rollout))
+    opt_p = make_mc_pilco_fn(fr.unfused(dyn), fr.unfused(pol),
+                             dataclasses.replace(cfg, fused_rollout=False))
     D = x0_pool.shape[-1]
     noise = opt_k.sample_noise(seeded_generator('cuda', seed, 1), D, 'cuda')
     x0 = opt_k.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
@@ -347,7 +517,7 @@ def compare_paths(dyn, pol, pol_params, dyn_params, dyn_stats, x0_pool,
     l_tol = max(1e-4 * abs(lp), 3 * abs(ls - lp))
     g_tol = max(1e-3 * float(gp.abs().max()), 3 * float((gs - gp).abs().max()))
     l_err, g_err = abs(lk - lp), float((gk - gp).abs().max())
-    log(f'[phase 3] one iteration, kernel vs plain path: loss {lk:.7f} vs '
+    log(f'[{tag}] one iteration, kernel vs plain path: loss {lk:.7f} vs '
         f'{lp:.7f} (err {l_err:.3e}, tolerance {l_tol:.3e}); grads max abs '
         f'err {g_err:.3e} (tolerance {g_tol:.3e}, max|grad| '
         f'{float(gp.abs().max()):.3e})')
@@ -376,20 +546,26 @@ def main_path_setup(seed=SEED):
     return dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise
 
 
-def phase_main_path(iters=ITERS, seed=SEED, T=MAIN_T, B=MAIN_B):
+def phase_main_path(iters, fused_rollout, tag, seed=SEED, T=MAIN_T,
+                    B=MAIN_B):
+    """``mc_pilco`` for ``iters`` iterations by the route ``fused_rollout``
+    picks. Returns the launch counts of the run: every count is set to 0
+    just before it and read just after."""
     (dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool,
      init_noise) = main_path_setup(seed)
     stamps = []
     fm.reset_launch_counts()
+    fr.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pol_params, _, metrics, n_steps = mc_pilco(
         x0_pool, dyn, pol, T, dyn_params, dyn_stats, pol_params,
         opt_iters=iters, mm_states=True, mm_rewards=True,
         init_state_noise=init_noise, n_particles=B, seed=seed, chunk=1,
-        on_iteration=lambda done, m: stamps.append(time.perf_counter()))
+        on_iteration=lambda done, m: stamps.append(time.perf_counter()),
+        fused_rollout=fused_rollout)
     torch.cuda.synchronize()
-    launches = dict(fm.LAUNCHES)
+    launches = {**fm.LAUNCHES, **fr.LAUNCHES}
     wall = time.perf_counter() - t0
 
     losses, rets = metrics['loss'], metrics['mean_return']
@@ -398,24 +574,28 @@ def phase_main_path(iters=ITERS, seed=SEED, T=MAIN_T, B=MAIN_B):
     if len(losses) != iters or n_steps != iters:
         raise AssertionError(f'{len(losses)} losses, {n_steps} steps '
                              f'for {iters} iterations')
-    want = 2 * T * iters
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f'{name} launched {n} times on the main '
-                                 f'path, expected 2*T*iters = {want}')
+    if fused_rollout is False:
+        want = {'fused_mlp_fwd': 2 * T * iters, 'fused_mlp_bwd': 2 * T * iters,
+                'fused_step_fwd': 0, 'fused_step_bwd': 0}
+    else:
+        want = {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0,
+                'fused_step_fwd': T * iters, 'fused_step_bwd': T * iters}
+    if launches != want:
+        raise AssertionError(f'launches {launches} on the {tag} run, '
+                             f'expected {want}')
     per_iter = np.diff([t0] + stamps)
     ms_iter = float(np.median(per_iter) * 1e3)
-    log(f'[phase 3] mc_pilco Cartpole B={B} T={T} [200,200] mm_states '
-        f'mm_rewards: {iters} iterations in {wall:.3f} s; launches {launches} '
-        f'(2*T*iters = {want})')
-    log(f'[phase 3] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
+    log(f'[{tag}] mc_pilco Cartpole B={B} T={T} [200,200] mm_states '
+        f'mm_rewards fused_rollout={fused_rollout}: {iters} iterations in '
+        f'{wall:.3f} s; launches {launches} (expected {want})')
+    log(f'[{tag}] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
         f'loss first {losses[0]:.6f} last {losses[-1]:.6f}')
-    log(f'[phase 3] median {ms_iter:.3f} ms per iteration (host clock, '
+    log(f'[{tag}] median {ms_iter:.3f} ms per iteration (host clock, '
         f'synchronised each iteration) = '
         f'{B * T / (ms_iter / 1e3):.1f} particle-steps/s on '
         f'{torch.cuda.get_device_name(0)}')
     compare_paths(dyn, pol, pol_params, dyn_params, dyn_stats, x0_pool,
-                  init_noise, seed, T, B)
+                  init_noise, seed, T, B, fused_rollout, tag)
     return launches
 
 
@@ -433,11 +613,12 @@ def start(name):
         f'{torch.version.cuda}; TF32 off')
 
     t = time.perf_counter()
-    logs = build.build(['fused_mlp'])
+    logs = build.build(['fused_mlp', 'fused_step'])
     log(f'[phase 1] built {list(logs)} in {time.perf_counter() - t:.1f} s')
-    for line in logs['fused_mlp'].splitlines():
-        if 'registers' in line or 'spill' in line or 'Compiling' in line:
-            log('[phase 1]   ' + line.strip())
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
+                log(f'[phase 1]   {name}: ' + line.strip())
     return card
 
 
@@ -446,10 +627,14 @@ def main():
     if card is None:
         return 1
 
-    rows = phase_kernels()
-    launches = phase_main_path()
+    rows = {**phase_mlp_kernels(), **phase_step_kernels()}
+    # each kernel's launches come from the run of its own route
+    route = phase_main_path(ROUTE_ITERS, False, 'phase 3')
+    main_path = phase_main_path(ITERS, None, 'phase 4')
+    launches = {n: (route if n.startswith('fused_mlp') else main_path)[n]
+                for n in REPLACES}
 
-    kernels = [dict(name=name, route='cuda', source=SOURCE,
+    kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=rows[name]['max_abs_err'],
                     ms=rows[name]['ms'], plain_ms=rows[name]['plain_ms'],

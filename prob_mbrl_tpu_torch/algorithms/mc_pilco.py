@@ -11,6 +11,14 @@ PEGASUS: dropout masks, density noise and the MM noise change only every
 (initial-state indices and noise) from one seeded from (seed, global step), so
 a loop split across calls draws exactly what one long call would.
 
+Two routes compute an iteration's loss. The step tier
+(``ops.cuda.fused_rollout``: one forward and one backward kernel per rollout
+step, the counterpart of JAX's ``mode='step'``) is taken when
+``fused_rollout`` is True, or when it is None and the tensors are on CUDA and
+``fused_rollout.fused_mode`` admits the configuration; otherwise the rollout
+of ``utils.rollout`` (whose MLPs may use the fused-MLP kernels). Both routes
+draw the same random numbers in the same order.
+
 Not ported yet (raise NotImplementedError): non-PEGASUS per-step noise,
 ``mm_method='mix'``, ``infer_noise_variables``, prioritized replay and the
 value bootstrap.
@@ -21,6 +29,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..ops.cuda import fused_rollout as fr
 from ..ops.math import clip_grad_norm
 from ..utils.core import tile, tree_leaves
 from ..utils.rollout import rollout as rollout_fn
@@ -76,6 +85,12 @@ class MCPILCOConfig:
     init_state_noise: float = 0.0
     resampling_period: int = 499
     with_priorities: bool = False
+    # The step tier of ops.cuda.fused_rollout. None = on for CUDA tensors
+    # when fused_rollout.fused_mode admits the configuration; True = always
+    # (the plain version of the step on CPU tensors), and a configuration
+    # the tier cannot take is refused when the optimizer is built; False =
+    # the utils.rollout route.
+    fused_rollout: Optional[bool] = None
 
 
 def seeded_generator(device, *keys):
@@ -111,6 +126,21 @@ class MCPILCO:
         # shortcut (utils.rollout._mm_rewards_batched).
         cvar_active = (-1.0 < cfg.cvar_eps < 1.0) and cfg.cvar_eps != 0.0
         self.mr_mean_only = cfg.mm_rewards and not cvar_active
+        why = fr.refuses(cfg, dyn, pol)
+        if cfg.fused_rollout and why is not None:
+            raise ValueError('fused_rollout=True but the step tier does not '
+                             f'take this configuration: {why}')
+        self.step_loss = None if why is not None else fr.make_stepwise_loss(
+            dyn, pol, cfg.steps, self.w_t, cfg.mm_states, cfg.mm_rewards,
+            cfg.maximize)
+
+    def uses_step_tier(self, device):
+        """True when iterations on ``device`` take the step tier."""
+        fused = self.cfg.fused_rollout
+        if fused is None:
+            return self.step_loss is not None and \
+                torch.device(device).type == 'cuda'
+        return bool(fused)
 
     def sample_noise(self, generator, D, device):
         """One PEGASUS epoch's noise: (dyn_noise, pol_noise, z_mm, z_rr)."""
@@ -121,9 +151,36 @@ class MCPILCO:
         z_rr = torch.randn((B, 1), generator=generator, device=device)
         return dyn_noise, pol_noise, z_mm, z_rr
 
+    def prepare_noise(self, noise, device):
+        """An epoch's noise in the form the route on ``device`` takes: as
+        drawn, or for the step tier with the MM noise standardized and
+        cyclically pre-rolled to [T, B, zD] once (None without that
+        resample)."""
+        if not self.uses_step_tier(device):
+            return noise
+        cfg = self.cfg
+        dyn_noise, pol_noise, z_mm, z_rr = noise
+        return (dyn_noise, pol_noise,
+                fr.prepare_mm_noise(z_mm, cfg.steps, self.B)
+                if cfg.mm_states else None,
+                fr.prepare_mm_noise(z_rr, cfg.steps, self.B)
+                if cfg.mm_rewards else None)
+
+    def loss(self, pol_params, x0, dyn_params, dyn_stats, noise):
+        """(loss, mean_return) by the route ``x0``'s device takes, with
+        ``noise`` from ``prepare_noise``."""
+        if not self.uses_step_tier(x0.device):
+            return self.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise)
+        dyn_noise, pol_noise, z_mm_t, z_rr_t = noise
+        loss, mean_return, _ = self.step_loss(
+            pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+            z_mm_t, z_rr_t)
+        return loss, mean_return
+
     def loss_fn(self, pol_params, x0, dyn_params, dyn_stats, noise,
                 action_eps=None):
-        """(loss, mean_return) for explicit initial states and noise."""
+        """(loss, mean_return) through ``utils.rollout`` for explicit initial
+        states and noise as drawn."""
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise
         _, _, rewards = rollout_fn(
@@ -162,10 +219,11 @@ class MCPILCO:
 
     def iteration(self, pol_params, optimizer, dyn_params, dyn_stats,
                   x0_pool, noise, generator, init_noise=None):
-        """One optimizer step; returns detached (loss, mean_return)."""
+        """One optimizer step; returns detached (loss, mean_return).
+        ``noise`` comes from ``prepare_noise``."""
         x0 = self.sample_x0(x0_pool, generator, init_noise)
-        loss, mean_return = self.loss_fn(pol_params, x0, dyn_params,
-                                         dyn_stats, noise)
+        loss, mean_return = self.loss(pol_params, x0, dyn_params, dyn_stats,
+                                      noise)
         params = tree_leaves(pol_params)
         grads = torch.autograd.grad(loss, params)
         if self.cfg.clip_grad is not None:
@@ -190,9 +248,9 @@ class MCPILCO:
         for n in range(n_opt_steps, n_opt_steps + iters):
             if n // period != epoch:
                 epoch = n // period
-                noise = self.sample_noise(
+                noise = self.prepare_noise(self.sample_noise(
                     seeded_generator(device, seed, _EPOCH_TAG, epoch), D,
-                    device)
+                    device), device)
             gen = seeded_generator(device, seed, _ITER_TAG, n)
             loss, mean_return = self.iteration(
                 pol_params, optimizer, dyn_params, dyn_stats, x0_pool, noise,
@@ -214,7 +272,8 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
              mm_rewards=False, mm_groups=None, maximize=True, clip_grad=1.0,
              cvar_eps=0.0, reg_weight=0.0, discount=None,
              init_state_noise=0.0, resampling_period=499, n_particles=100,
-             seed=None, n_opt_steps=0, on_iteration=None, chunk=None):
+             seed=None, n_opt_steps=0, on_iteration=None, chunk=None,
+             fused_rollout=None):
     """Host-level MC-PILCO loop.
 
     The policy params are optimized in place (their leaves are made leaf
@@ -223,6 +282,7 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     ``init_state_noise``: scalar or per-dim [D] Gaussian noise scale added to
     sampled initial states. ``on_iteration(done, metrics)`` runs after each
     chunk of ``chunk`` iterations (all of them when None).
+    ``fused_rollout``: ``MCPILCOConfig.fused_rollout``.
 
     Returns (pol_params, optimizer, metrics (numpy), n_opt_steps).
     """
@@ -237,7 +297,8 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         n_particles=n_particles, steps=steps, mm_states=mm_states,
         mm_rewards=mm_rewards, mm_groups=mm_groups, maximize=maximize,
         clip_grad=clip_grad, cvar_eps=cvar_eps, reg_weight=reg_weight,
-        discount=discount, resampling_period=resampling_period)
+        discount=discount, resampling_period=resampling_period,
+        fused_rollout=fused_rollout)
     opt_fn = make_mc_pilco_fn(dyn, pol, cfg)
     init_noise = None
     if np.any(np.asarray(init_state_noise) > 0):

@@ -6,13 +6,13 @@ differentiable reward and a thin ``GymEnv`` wrapper with the gym API.
 """
 import dataclasses
 from enum import IntEnum
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.angles import embedded_size, to_complex
-from ..utils.core import resolve_device
+from ..utils.core import device_constant, resolve_device
 
 
 class Integrator(IntEnum):
@@ -187,7 +187,9 @@ class ExpQuadTipReward:
 
     ``tip_fn`` maps an angle-embedded state to tip xy; ``norm`` normalizes
     the error. Takes raw states (angle-embeds first) or embedded states,
-    told apart by the trailing dim.
+    told apart by the trailing dim. ``tip_matrix``: the same tip as a
+    [n_tip, embedded dims] matrix where it is linear in the embedded state
+    (the fused rollout-step kernel takes only such rewards), else None.
     """
     tip_fn: Callable
     target_tip: Tuple[float, ...]
@@ -196,13 +198,15 @@ class ExpQuadTipReward:
     raw_size: int
     angle_dims: Tuple[int, ...]
     norm: float
+    tip_matrix: Optional[Tuple[Tuple[float, ...], ...]] = None
 
     def __call__(self, x, u):
         x = torch.atleast_2d(x)
         u = torch.atleast_2d(u)
         xa = to_complex(x, self.angle_dims) if x.shape[-1] == self.raw_size \
             else x
-        delta = (self.tip_fn(xa) - x.new_tensor(self.target_tip)) / self.norm
+        target = device_constant(tuple(self.target_tip), x.device, x.dtype)
+        delta = (self.tip_fn(xa) - target) / self.norm
         cost = 0.5 * (self.q_scale * torch.sum(delta ** 2, -1, keepdim=True)
                       + self.r_scale * torch.sum(u ** 2, -1, keepdim=True))
         return torch.exp(-cost)

@@ -52,7 +52,9 @@ def cartpole_reward(pole_length=0.5):
 
     return ExpQuadTipReward(tip_fn=tip, target_tip=(0.0, lp), q_scale=16.0,
                             r_scale=1e-4, raw_size=4, angle_dims=(2,),
-                            norm=2 * lp)
+                            norm=2 * lp,
+                            tip_matrix=((1.0, 0.0, 0.0, lp, 0.0),
+                                        (0.0, 0.0, 0.0, 0.0, -lp)))
 
 
 class Cartpole(GymEnv):

@@ -1,11 +1,13 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
-into ``BUILD_DIR/lib<name>.so``, for ``sm_90a`` (Hopper). ``BUILD_DIR`` is
-``build/`` at the root of the checkout (listed in ``.gitignore``); for an
-installed package it is a directory of its own, keyed by the package's path,
-under ``~/.cache/prob_mbrl_tpu_torch``. A library newer than its source is
-reused. Nothing here runs at import time.
+into ``BUILD_DIR/lib<name>.so``, for ``sm_90a`` (Hopper), with ``csrc/`` on
+the include path for the headers the sources share (``*.cuh``).
+``BUILD_DIR`` is ``build/`` at the root of the checkout (listed in
+``.gitignore``); for an installed package it is a directory of its own, keyed
+by the package's path, under ``~/.cache/prob_mbrl_tpu_torch``. A library
+newer than its source and than every shared header is reused. Nothing here
+runs at import time.
 """
 import ctypes
 import hashlib
@@ -41,8 +43,10 @@ def _lib_path(name):
 
 def _fresh(name):
     lib = _lib_path(name)
-    return (lib.exists()
-            and lib.stat().st_mtime >= (CSRC / f'{name}.cu').stat().st_mtime)
+    if not lib.exists():
+        return False
+    sources = [CSRC / f'{name}.cu', *CSRC.glob('*.cuh')]
+    return lib.stat().st_mtime >= max(p.stat().st_mtime for p in sources)
 
 
 def build(names):
@@ -61,7 +65,8 @@ def build(names):
     procs = {}
     for n in todo:
         tmp = BUILD_DIR / f'lib{n}.so.{os.getpid()}.tmp'
-        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{n}.cu')]
+        cmd = [nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
+               str(CSRC / f'{n}.cu')]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

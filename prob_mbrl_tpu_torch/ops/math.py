@@ -4,11 +4,10 @@ clipping (counterpart of ``prob_mbrl_tpu/ops/math.py``).
 ``safe_cholesky`` picks its jitter on the device, with no host round trip and
 no data-dependent branch, as the JAX version does under ``jit``.
 """
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.core import tree_leaves, tree_map
+from ..utils.core import device_constant, tree_leaves, tree_map
 
 
 def softplus_upper_clip(x, upper):
@@ -69,8 +68,9 @@ def safe_cholesky(S, initial_jitter=1e-12, max_tries=8, factor=100.0):
         S_ng = S.detach()
         diag = torch.diagonal(S_ng, dim1=-2, dim2=-1)
         scale = diag.abs().mean(-1, keepdim=True)[..., None] + 1e-30
-        jitters = torch.tensor(initial_jitter * factor ** np.arange(max_tries),
-                               dtype=S.dtype, device=S.device)
+        jitters = device_constant(
+            tuple(float(initial_jitter * factor ** i)
+                  for i in range(max_tries)), S.device, S.dtype)
         tol = 1e-5 * torch.sqrt(scale.max())
         jit_b = jitters.reshape((max_tries,) + (1,) * S.dim())
         Ls = _cholesky(S_ng + (jit_b * scale) * eye)
@@ -79,7 +79,9 @@ def safe_cholesky(S, initial_jitter=1e-12, max_tries=8, factor=100.0):
         ok = finite & (pivots > tol).flatten(1).all(1)
         first_ok = torch.argmax(ok.to(torch.int32))
         idx = torch.where(ok.any(), first_ok, max_tries - 1)
-        jitter = jitters[idx]
+        # index_select, not jitters[idx]: a tensor used as a Python index is
+        # read back to the host, which stalls the stream every call
+        jitter = jitters.index_select(0, idx.reshape(1)).reshape(())
     return _cholesky(S + (jitter * scale) * eye)
 
 

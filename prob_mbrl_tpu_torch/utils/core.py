@@ -1,11 +1,22 @@
-"""Small helpers: device choice, nested-dict trees, tiling
-(counterpart of ``prob_mbrl_tpu/utils/core.py`` and ``jax.tree_util``)."""
+"""Small helpers: device choice, constants on a device, nested-dict trees,
+tiling (counterpart of ``prob_mbrl_tpu/utils/core.py`` and
+``jax.tree_util``)."""
+import functools
+
 import torch
 
 
 def resolve_device(device=None):
     """The port's entry points run on the card unless asked for another."""
     return torch.device('cuda' if device is None else device)
+
+
+@functools.lru_cache(maxsize=256)
+def device_constant(values, device, dtype):
+    """A tensor of the (hashable, nested) tuple ``values`` on ``device``, made
+    once: a host-to-device copy on every call would cost a copy each time and
+    cannot be captured in a CUDA graph. Callers must not modify it."""
+    return torch.tensor(values, device=device, dtype=dtype)
 
 
 def tree_map(fn, tree):

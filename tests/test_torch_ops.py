@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from prob_mbrl_tpu.ops import angles as jang
 from prob_mbrl_tpu.ops import math as jmath
@@ -199,3 +200,25 @@ def test_to_complex_matches_jax():
                                ref, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(tang.to_complex(x, (0, 2)),
                                jang.to_complex(x, (0, 2)), rtol=1e-6)
+
+
+class _RecordOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_mm_resample_reads_nothing_back_to_the_host():
+    """The jitter is chosen on the device: no op reads a tensor's value back
+    to the host (``_local_scalar_dense``, which stalls a CUDA stream and
+    cannot be captured in a CUDA graph)."""
+    rng = np.random.RandomState(11)
+    x = torch.tensor(rng.randn(12, 5).astype(np.float32))
+    z = torch.tensor(rng.randn(12, 5).astype(np.float32))
+    with _RecordOps() as rec:
+        tmm.mm_resample(x, z)
+    assert rec.ops and not [o for o in rec.ops if 'local_scalar' in o]

@@ -2,9 +2,13 @@
 """Where one MC-PILCO iteration of the PyTorch/CUDA port
 (``prob_mbrl_tpu_torch``) spends its time, on one NVIDIA card, with the main
 path of ``chip_smoke.py`` (Cartpole, B = 100 particles, horizon 15, moment
-matching of states and rewards, [200, 200] MLPs through the fused kernels).
+matching of states and rewards, [200, 200] MLPs).
 
-    python3 tools/profile_torch_main_path.py
+    python3 tools/profile_torch_main_path.py [--fused-rollout false]
+
+By default the iteration takes the route ``mc_pilco`` takes on CUDA (the
+step tier, ``ops.cuda.fused_rollout``); ``--fused-rollout false`` profiles
+the ``utils.rollout`` route with the fused-MLP kernels instead.
 
 Prints the card's name and power limit, then:
   - the host time of the loss (rollout), backward and clip + Adam step of an
@@ -15,6 +19,7 @@ Prints the card's name and power limit, then:
 
 It imports nothing of JAX and nothing of the JAX package.
 """
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -46,24 +51,30 @@ def busy_time(events):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--fused-rollout', choices=('auto', 'false'),
+                    default='auto')
+    fused = None if ap.parse_args().fused_rollout == 'auto' else False
     if chip_smoke.start('profile_torch_main_path') is None:
         return 1
     T, B, seed = chip_smoke.MAIN_T, chip_smoke.MAIN_B, chip_smoke.SEED
     (dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool,
      init_noise) = chip_smoke.main_path_setup(seed)
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
-                        mm_rewards=True)
+                        mm_rewards=True, fused_rollout=fused)
     opt = make_mc_pilco_fn(dyn, pol, cfg)
     params = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
     adam = torch.optim.Adam(params, lr=1e-3)
-    noise = opt.sample_noise(seeded_generator('cuda', seed, 3),
-                             x0_pool.shape[-1], 'cuda')
+    noise = opt.prepare_noise(opt.sample_noise(
+        seeded_generator('cuda', seed, 3), x0_pool.shape[-1], 'cuda'), 'cuda')
+    route = 'step tier' if opt.uses_step_tier('cuda') else 'utils.rollout'
+    print(f'route: {route}', flush=True)
     init = torch.tensor(init_noise, device='cuda')
 
     def iteration(n, parts=None):
         t = [time.perf_counter()]
         x0 = opt.sample_x0(x0_pool, seeded_generator('cuda', seed, 4, n), init)
-        loss, _ = opt.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise)
+        loss, _ = opt.loss(pol_params, x0, dyn_params, dyn_stats, noise)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         grads = torch.autograd.grad(loss, params)
