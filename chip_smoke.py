@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``prob_mbrl_tpu_torch``) on one NVIDIA
 card: builds the CUDA kernels from ``prob_mbrl_tpu_torch/csrc``, holds each
 against its plain PyTorch version, then drives MC-PILCO policy optimisation on
-Cartpole at full width through the kernels, on both of its routes.
+Cartpole at full width through the kernels, on each of its routes.
 
     python3 chip_smoke.py
 
@@ -15,25 +15,47 @@ Phases (any failure exits non-zero and prints no result line):
      (6->200->200->10, concrete masks) shapes, B in {1, 37, 100, 1500}:
      forward output, dx, dW, db and d(mask). The rollout step at the main
      path's widths, B in {2, 37, 100, 1500}: (nxt, r) and the cotangents of
-     the policy params, the states and eps. Times at the main-path shapes
-     (B = 100) replay the work in a CUDA graph, timed with CUDA events.
+     the policy params, the states and eps. The whole rollout at the main
+     path's widths and T = 15, B in {16, 37, 100, 1500} with the reward
+     mean-only shortcut (and B = 100 without it): loss, mean_return and the
+     gradients wrt the policy params and action_eps, by the forward and
+     backward kernels and by the one-launch value-and-grad. The step and
+     rollout inputs put the pole all round the circle, so rewards range
+     from exp(-8) to 1. Each output is held to a tolerance relative to its
+     own largest plain value (``hold``). Times at the
+     main-path shapes (B = 100): the MLP and step kernels replay the work in
+     a CUDA graph, timed with CUDA events; the rollout kernels (cooperative
+     launches) are timed with CUDA events around 20 launches in a row.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
      fused-MLP kernels (launch counts 2*T*iters each); one iteration is
      compared with the plain (unfused) path on the same initial states and
      noise.
-  4. the main path: the same ``mc_pilco`` call with the default
-     ``fused_rollout``, which on CUDA takes the step tier: the step kernels
-     launch T*iters times each and the fused-MLP kernels never; one
-     iteration is compared with the plain path as in phase 3.
+  4. the step tier on the same setup: a loop of
+     ``make_fused_value_and_grad(mode='step')``, clip and Adam; the step
+     kernels launch T*iters times each; one iteration is compared with the
+     plain path. 4b: ``mc_pilco`` on the step tier as the gate picks it, at
+     a batch one block of particles beyond what the card holds of the
+     whole-rollout kernel at once (T*iters step launches each, one
+     iteration compared with the plain path).
+  5. the main path: the same ``mc_pilco`` call as phase 3 with the default
+     ``fused_rollout``, which on CUDA takes the whole-rollout tier: one
+     ``fused_rollout_vg`` launch per iteration and no step or fused-MLP
+     launch; one iteration through the differentiable whole-rollout loss
+     (``fused_rollout_fwd`` and ``_bwd``) is compared with the plain path.
+  6. the route of ``MCPILCO.loss`` on that tier: a loop of the
+     differentiable loss (one forward and one backward kernel per
+     iteration), clip and Adam.
+
+Each kernel's launches in the ``kernels`` line come from the run of its own
+route (phase 3, 4, 5 or 6), with every count set to 0 just before the run.
 
 ``tools/profile_torch_main_path.py`` breaks a main-path iteration down
 (host split and a torch.profiler trace) on the same setup.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
-import dataclasses
 import json
 import subprocess
 import sys
@@ -53,6 +75,7 @@ from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
 from prob_mbrl_tpu_torch.ops.cuda import build
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
+from prob_mbrl_tpu_torch.ops.math import clip_grad_norm
 from prob_mbrl_tpu_torch.ops.moment_matching import standardize_noise
 from prob_mbrl_tpu_torch.utils.core import tree_leaves
 
@@ -68,21 +91,34 @@ MAIN_B = 100
 MAIN_T = 15
 ITERS = 100  # MC-PILCO iterations of the main path (an episode runs 1000)
 ROUTE_ITERS = 30  # iterations of the fused-MLP route (phase 3)
+STEP_ITERS = 100  # iterations of the step tier (phase 4)
+STEP_ROUTE_ITERS = 10  # mc_pilco iterations on the step tier (phase 4b)
+LOSS_ITERS = 30  # iterations of the differentiable rollout loss (phase 6)
 STEP_BATCHES = (2, 37, 100, 1500)
+ROLLOUT_BATCHES = (16, 37, 100, 1500)
+ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
 SEED = 1
-# kernel vs plain version: |kernel - plain| <= REL_TOL * max(1, max|plain|)
-# (float32 products summed in another order; no TF32 on either side)
+# kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
+# max|plain| (float32 products summed in another order; no TF32 on either
+# side); the step and the rollout STEP_TOL * max|plain|, or the plain
+# version's own sensitivity (see phase_step_kernels)
 REL_TOL = 1e-4
 STEP_TOL = 1e-3
 
 SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_mlp_bwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_step_fwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu',
-           'fused_step_bwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu'}
+           'fused_step_bwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu',
+           'fused_rollout_fwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
+           'fused_rollout_bwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
+           'fused_rollout_vg': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu'}
 REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
             'fused_mlp_bwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247',
             'fused_step_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1166',
-            'fused_step_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1206'}
+            'fused_step_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1206',
+            'fused_rollout_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:813',
+            'fused_rollout_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:859',
+            'fused_rollout_vg': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:981'}
 
 
 def log(*args):
@@ -120,6 +156,27 @@ def mlp_problem(dims, masks, B, seed):
         ms.append(t((u < 0.9) / 0.9 if masks == 'bernoulli' else u < 0.9))
     g = t(rng.randn(B, dims[-1]))
     return x, ws, bs, ms, g
+
+
+def hold(what, a, r, rel_tol, moved=None):
+    """Hold a kernel's output ``a`` against the plain version's ``r``: ``a``
+    is finite and max|a - r| <= rel_tol * max|r|, or, given the plain
+    version's output ``moved`` on inputs moved by 1e-6 relative, 3 *
+    max|moved - r| where that is larger. Returns (max abs err, err /
+    max|r|, tolerance / max|r|)."""
+    if not torch.isfinite(a).all():
+        raise AssertionError(f'{what}: kernel output is not finite')
+    err = float((a - r).abs().max())
+    scale = float(r.abs().max())
+    tol = rel_tol * scale
+    if moved is not None:
+        tol = max(tol, 3 * float((moved - r).abs().max()))
+    if err > tol:
+        raise AssertionError(f'{what}: max abs err {err:.3e} > tolerance '
+                             f'{tol:.3e} (max|plain| {scale:.3e})')
+    if not scale:
+        return err, 0.0, 0.0
+    return err, err / scale, tol / scale
 
 
 def grads_through(fn, x, ws, bs, ms, g):
@@ -250,26 +307,18 @@ def phase_mlp_kernels():
             ref = grads_through(fm.fused_mlp_plain, x, ws, bs, ms, g)
             torch.cuda.synchronize()
             here = {n: 0.0 for n in names}
-            rel = 0.0  # worst err / max(1, max|plain|), the tolerance's unit
+            rel = 0.0  # worst err / max|plain| of an output
             for lab, a, r in zip(labels, got, ref):
-                if not torch.isfinite(a).all():
-                    raise AssertionError(f'{net} B={B} {lab}: kernel output '
-                                         'is not finite')
-                err = float((a - r).abs().max())
-                scale = max(1.0, float(r.abs().max()))
+                err, r_err, _ = hold(f'{net} B={B} {lab}', a, r, REL_TOL)
                 kern = 'fused_mlp_fwd' if lab == 'out' else 'fused_mlp_bwd'
                 here[kern] = max(here[kern], err)
-                rel = max(rel, err / scale)
-                if err > REL_TOL * scale:
-                    raise AssertionError(
-                        f'{net} B={B} {lab}: max abs err {err:.3e} > '
-                        f'{REL_TOL:.0e} * {scale:.3e}')
+                rel = max(rel, r_err)
             for n in names:
                 worst[n] = max(worst[n], here[n])
             log(f'[phase 2] {net} {dims} B={B}: kernel vs plain max abs err '
                 f'fwd {here["fused_mlp_fwd"]:.3e} bwd '
-                f'{here["fused_mlp_bwd"]:.3e}, relative to max(1, max|plain|) '
-                f'{rel:.3e} (tolerance {REL_TOL:.0e}) ok')
+                f'{here["fused_mlp_bwd"]:.3e}, worst of an output relative to '
+                f'its max|plain| {rel:.3e} (tolerance {REL_TOL:.0e}) ok')
     per_net = {net: kernel_timings(dims, masks)
                for net, (dims, masks) in SHAPES.items()}
     for net, tt in per_net.items():
@@ -314,7 +363,8 @@ def step_problem(B, seed):
                           t(0.1 * rng.randn(200, D)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
-    th = rng.randn(B) * 0.5
+    # pole angles all round the circle: rewards from exp(-8) (hanging) to 1
+    th = rng.uniform(-np.pi, np.pi, B)
     states = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
                          np.sin(th), np.cos(th)], 1))
     eps = t(0.1 * rng.randn(B, U))
@@ -403,9 +453,10 @@ def step_timings():
 
 def phase_step_kernels():
     """The step kernels against the plain step. Tolerance per output:
-    STEP_TOL * max(1, max|plain|) (float32 sums in another order, amplified
-    by the 5x5 Cholesky and its adjoint), or 3x the plain step's own change
-    when the states move by 1e-6 relative, whichever is larger."""
+    STEP_TOL * max|plain| of that output (float32 sums in another order,
+    amplified by the 5x5 Cholesky and its adjoint), or 3x the plain step's
+    own change when the states move by 1e-6 relative, whichever is
+    larger."""
     names = ['fused_step_fwd', 'fused_step_bwd']
     worst = {n: 0.0 for n in names}
     for B in STEP_BATCHES:
@@ -417,29 +468,21 @@ def phase_step_kernels():
         labels = (['nxt', 'r'] + [f'd pol leaf {i}' for i in
                                   range(len(leaves))] + ['d states', 'd eps'])
         here = {n: 0.0 for n in names}
-        rel = 0.0
+        rel = loose = 0.0
         for lab, a, r, m in zip(labels, got, ref, moved):
-            if not torch.isfinite(a).all():
-                raise AssertionError(f'step B={B} {lab}: kernel output is '
-                                     'not finite')
-            err = float((a - r).abs().max())
-            scale = max(1.0, float(r.abs().max()))
-            tol = max(STEP_TOL * scale, 3 * float((m - r).abs().max()))
+            err, r_err, r_tol = hold(f'step B={B} {lab}', a, r, STEP_TOL, m)
             kern = 'fused_step_fwd' if lab in ('nxt', 'r') else \
                 'fused_step_bwd'
             here[kern] = max(here[kern], err)
-            rel = max(rel, err / scale)
-            if err > tol:
-                raise AssertionError(f'step B={B} {lab}: max abs err '
-                                     f'{err:.3e} > tolerance {tol:.3e}')
+            rel, loose = max(rel, r_err), max(loose, r_tol)
         for n in names:
             worst[n] = max(worst[n], here[n])
         state_mm = 'on' if B > 5 else 'off'
         log(f'[phase 2] rollout step B={B} (state MM {state_mm}'
             f'): kernel vs plain max abs err fwd {here["fused_step_fwd"]:.3e} '
-            f'bwd {here["fused_step_bwd"]:.3e}, relative to max(1, '
-            f'max|plain|) {rel:.3e} (tolerance {STEP_TOL:.0e} or the plain '
-            'step\'s sensitivity) ok')
+            f'bwd {here["fused_step_bwd"]:.3e}; worst of an output relative '
+            f'to its max|plain| {rel:.3e}, loosest tolerance {loose:.3e} '
+            f'relative ({STEP_TOL:.0e} or the plain step\'s sensitivity) ok')
     rows = step_timings()
     for name, v in rows.items():
         v['max_abs_err'] = worst[name]
@@ -449,8 +492,212 @@ def phase_step_kernels():
     return rows
 
 
+def rollout_problem(B, seed, mean_only=True, T=MAIN_T):
+    """The whole rollout at the main path's widths (embedded Cartpole state
+    D = 5, U = 1, [200, 200] MLPs, states and rewards moment-matched,
+    discount 0.9), its inputs made from a seed. Returns (kernel loss, kernel
+    value-and-grad, plain loss, policy params, policy leaves, the arguments
+    after the policy params, (dyn, pol, w_t))."""
+    rng = np.random.RandomState(seed)
+    D, U = 5, 1
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device='cuda')
+
+    dyn, pol = build_models(D, U, (10.0,), envs.cartpole_reward())
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    dyn_params = dyn.init(gen, device='cuda')
+    pol_params = pol.init(gen, device='cuda')
+    leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
+    stats = dyn.fit_stats(t(rng.randn(200, D + U) * [1, 2, 3, 0.7, 0.7, 5]),
+                          t(0.1 * rng.randn(200, D)))
+    dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
+    pol_noise = pol.sample_noise(gen, (B,), device='cuda')
+    # pole angles all round the circle (the main path starts hanging, where
+    # the reward is about exp(-8))
+    th = rng.uniform(-np.pi, np.pi, B)
+    x0 = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
+                     np.sin(th), np.cos(th)], 1))
+    z_mm = fr.prepare_mm_noise(t(rng.randn(B, D)), T, B)
+    z_rr = fr.prepare_mm_noise(t(rng.randn(B, 1)), T, B)
+    eps = t(0.1 * rng.randn(T, B, U))
+    w_t = 0.9 ** np.arange(T, dtype=np.float32)
+    make = (dyn, pol, T, w_t, True, True, True)
+    kw = dict(mm_rewards_mean_only=mean_only)
+    return (fr.make_fused_loss(*make, mode='full', **kw),
+            fr.make_fused_value_and_grad(*make, mode='full', **kw),
+            fr.make_loss_plain(*make, **kw), pol_params, leaves,
+            [x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps],
+            (dyn, pol, w_t))
+
+
+def rollout_outputs(loss_fn, pol_params, leaves, args, x0_scale=1.0,
+                    g=(0.7, 1.3)):
+    """loss, mean_return and the gradients wrt the policy leaves and
+    action_eps of g[0] * loss + g[1] * mean_return."""
+    a = list(args)
+    a[0] = a[0] * x0_scale
+    a[-1] = a[-1].clone().requires_grad_(True)
+    loss, mret, _ = loss_fn(pol_params, *a)
+    grads = torch.autograd.grad(g[0] * loss + g[1] * mret, leaves + [a[-1]])
+    return [loss.detach(), mret.detach(), *grads]
+
+
+def time_launches(fn, n=ROLLOUT_LAUNCHES, reps=5):
+    """Median device time of one ``fn()`` in ms: CUDA events around ``n``
+    calls in a row (the host enqueues them faster than the card runs them,
+    so the span is the card's), repeated ``reps`` times."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def rollout_timings():
+    """ms of each rollout kernel (CUDA events around launches in a row: a
+    cooperative launch is not captured in a graph here) and of the plain
+    version (CUDA graph replay) at the main-path batch and horizon. The
+    plain backward is the plain forward and ``torch.autograd.grad`` in one
+    graph, less the plain forward; the plain value-and-grad is that graph.
+    No single PyTorch call computes a rollout, so there is no library
+    time."""
+    _, _, plain, pol_params, leaves, args, (dyn, pol, w_t) = rollout_problem(
+        MAIN_B, 7)
+    x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
+    k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, True, True, True, True,
+                         MAIN_B, x0.device)
+    sk = k.bind(pol_params, x0, dyn_params, stats, dyn_noise, pol_noise,
+                z_mm, z_rr, eps)
+    _, _, res = k.forward(sk)
+    g_loss = torch.ones((), device='cuda')
+    g_mret = torch.zeros((), device='cuda')
+
+    def plain_fwd():
+        return plain(pol_params, *args)
+
+    def plain_vg():
+        torch.autograd.grad(plain_fwd()[0], leaves)
+
+    plain_fwd_ms = time_graph(plain_fwd, n=5)
+    plain_vg_ms = time_graph(plain_vg, n=5)
+    t = {
+        'fused_rollout_fwd': dict(ms=time_launches(lambda: k.forward(sk)),
+                                  plain_ms=plain_fwd_ms),
+        'fused_rollout_bwd': dict(
+            ms=time_launches(lambda: k.backward(sk, res, g_loss, g_mret,
+                                                True)),
+            plain_ms=plain_vg_ms - plain_fwd_ms),
+        'fused_rollout_vg': dict(ms=time_launches(lambda: k.value_and_grad(
+            sk)), plain_ms=plain_vg_ms),
+    }
+    dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
+    work = rollout_bytes_flops(MAIN_B, MAIN_T, *dims, 5, 1, r_mm=False)
+    for name, (nbytes, flops) in work.items():
+        t[name]['bound_ms'], t[name]['bound_by'] = bound(nbytes, flops)
+        t[name]['library_ms'] = None
+    return t
+
+
+def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
+    """Bytes each rollout kernel must move (inputs read once, outputs
+    written once) and the operations it does, for one call at batch B and
+    horizon T (``r_mm``: the rewards are resampled, not reduced by the
+    mean-only shortcut). The operations are T times the step's
+    (``step_bytes_flops``). Row 4 takes only the boundary states and pre-MM
+    outputs, no pre-activations, so its count includes the recompute of
+    both MLPs' forward products, as the step backward's does; row 5 is one
+    forward and its VJP, so it counts those products once."""
+    step = step_bytes_flops(B, pol_dims, dyn_dims, D, U)
+    f_fwd, f_bwd = step['fused_step_fwd'][1], step['fused_step_bwd'][1]
+
+    def weights(dims):
+        return sum(a * b for a, b in zip(dims[:-1], dims[1:])) + sum(dims[1:])
+
+    wp, wd = weights(pol_dims), weights(dyn_dims)
+    mults = 2 * B * (wp + wd)  # both MLPs' products in one step
+    masks = B * (sum(pol_dims[1:-1]) + sum(dyn_dims[1:-1]))
+    stats = 2 * (D + U) + 2 * D
+    # weights, masks, stats, x0, both density noises, w_t, the MM noise
+    # stacks and action_eps
+    inputs = (wp + wd + masks + stats + B * (2 * D + U) + T
+              + T * B * (D + U + (1 if r_mm else 0)))
+    residuals = (T + 1) * B * D + T * B * (D + 1)  # boundary states, pre-MM
+    return {'fused_rollout_fwd': (4 * (inputs + residuals + 2), T * f_fwd),
+            'fused_rollout_bwd': (4 * (inputs + residuals + 2 + wp
+                                       + T * B * U), T * f_bwd),
+            'fused_rollout_vg': (4 * (inputs + 2 + wp),
+                                 T * (f_fwd + f_bwd - mults))}
+
+
+def phase_rollout_kernels():
+    """The whole-rollout kernels against the plain version. Tolerance per
+    output: STEP_TOL * max|plain| of that output, or 3x the plain version's
+    own change when x0 moves by 1e-6 relative, whichever is larger (T
+    chained resamples amplify float32 differences in the sums' order)."""
+    names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
+    worst = {n: 0.0 for n in names}
+    cases = [(B, True) for B in ROLLOUT_BATCHES] + [(MAIN_B, False)]
+    for B, mean_only in cases:
+        kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(B, B,
+                                                                  mean_only)
+        got = rollout_outputs(kloss, pp, leaves, args)
+        ref = rollout_outputs(plain, pp, leaves, args)
+        moved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
+        vl, vm, vgrads, _ = kvg(pp, *args)
+        vref = rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
+        vmoved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                                 g=(1.0, 0.0))[:-1]
+        torch.cuda.synchronize()
+        n = len(leaves)
+        labels = (['loss', 'mean_return']
+                  + [f'd pol leaf {i}' for i in range(n)] + ['d eps'])
+        checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
+                   zip(labels[:2], got[:2], ref[:2], moved[:2])]
+                  + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
+                     zip(labels[2:], got[2:], ref[2:], moved[2:])]
+                  + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
+                     zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref,
+                         vmoved)])
+        here = {nm: 0.0 for nm in names}
+        rel = loose = 0.0
+        for kern, lab, a, r, m in checks:
+            err, r_err, r_tol = hold(f'rollout B={B} {kern} {lab}', a, r,
+                                     STEP_TOL, m)
+            here[kern] = max(here[kern], err)
+            rel, loose = max(rel, r_err), max(loose, r_tol)
+        for nm in names:
+            worst[nm] = max(worst[nm], here[nm])
+        log(f'[phase 2] rollout B={B} T={MAIN_T} (reward mean-only '
+            f'{"on" if mean_only else "off"}; loss {float(ref[0]):.6f}, '
+            f'mean_return {float(ref[1]):.6f}): kernel vs plain max abs err '
+            + ', '.join(f'{nm[len("fused_rollout_"):]} {here[nm]:.3e}'
+                        for nm in names)
+            + f'; worst of an output relative to its max|plain| {rel:.3e}, '
+            f'loosest tolerance {loose:.3e} relative ({STEP_TOL:.0e} or the '
+            'plain version\'s sensitivity) ok')
+    rows = rollout_timings()
+    for name, v in rows.items():
+        v['max_abs_err'] = worst[name]
+        log(f'[phase 2] {name} B={MAIN_B} T={MAIN_T}: kernel {v["ms"]:.4f} ms '
+            f'(CUDA events around {ROLLOUT_LAUNCHES} launches), plain '
+            f'{v["plain_ms"]:.4f} ms (graph replay), no single library call, '
+            f'bound {v["bound_ms"]:.6f} ms ({v["bound_by"]})')
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phases 3-6: the routes, the main path among them
 # ---------------------------------------------------------------------------
 
 
@@ -482,7 +729,8 @@ def build_models(D, U, max_u, reward_func):
 
 
 def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise):
-    """One iteration's loss and policy grads by ``opt``'s route on CUDA."""
+    """One iteration's loss and policy grads through ``opt.loss`` (on the
+    whole-rollout tier, its forward and backward kernels) on CUDA."""
     params = tree_leaves(pol_params)
     loss, _ = opt.loss(pol_params, x0, dyn_params, dyn_stats,
                        opt.prepare_noise(noise, 'cuda'))
@@ -490,26 +738,22 @@ def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise):
     return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads])
 
 
-def compare_paths(dyn, pol, pol_params, dyn_params, dyn_stats, x0_pool,
-                  init_noise, seed, T, B, fused_rollout, tag):
+def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B):
     """One iteration's loss and policy grads on the same initial states and
-    noise, through the kernels of the route ``fused_rollout`` picks and
-    through the plain path (``utils.rollout`` on unfused MLPs). The
-    tolerance is the plain path's own sensitivity to x0 moved by 1e-6
-    relative (times 3), at least 1e-4 relative on the loss and 1e-3 of
+    noise, through ``kernel_path(pol_params, x0, noise as drawn) -> (loss,
+    flat grads)`` and through the plain path (``utils.rollout`` on unfused
+    MLPs). The tolerance is the plain path's own sensitivity to x0 moved by
+    1e-6 relative (times 3), at least 1e-4 relative on the loss and 1e-3 of
     max|grad| on the grads."""
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
-                        mm_rewards=True)
-    opt_k = make_mc_pilco_fn(dyn, pol, dataclasses.replace(
-        cfg, fused_rollout=fused_rollout))
-    opt_p = make_mc_pilco_fn(fr.unfused(dyn), fr.unfused(pol),
-                             dataclasses.replace(cfg, fused_rollout=False))
+                        mm_rewards=True, fused_rollout=False)
+    opt_p = make_mc_pilco_fn(fr.unfused(dyn), fr.unfused(pol), cfg, 'cuda')
     D = x0_pool.shape[-1]
-    noise = opt_k.sample_noise(seeded_generator('cuda', seed, 1), D, 'cuda')
-    x0 = opt_k.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
+    noise = opt_p.sample_noise(seeded_generator('cuda', seed, 1), D, 'cuda')
+    x0 = opt_p.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
                          torch.tensor(init_noise, device='cuda'))
-    lk, gk = loss_and_grads(opt_k, pol_params, x0, dyn_params, dyn_stats,
-                            noise)
+    lk, gk = kernel_path(pol_params, x0, noise)
     lp, gp = loss_and_grads(opt_p, pol_params, x0, dyn_params, dyn_stats,
                             noise)
     ls, gs = loss_and_grads(opt_p, pol_params, x0 * (1 + 1e-6), dyn_params,
@@ -546,16 +790,60 @@ def main_path_setup(seed=SEED):
     return dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise
 
 
-def phase_main_path(iters, fused_rollout, tag, seed=SEED, T=MAIN_T,
-                    B=MAIN_B):
-    """``mc_pilco`` for ``iters`` iterations by the route ``fused_rollout``
-    picks. Returns the launch counts of the run: every count is set to 0
-    just before it and read just after."""
-    (dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool,
-     init_noise) = main_path_setup(seed)
-    stamps = []
+def counts():
+    return {**fm.LAUNCHES, **fr.LAUNCHES}
+
+
+def reset_counts():
     fm.reset_launch_counts()
     fr.reset_launch_counts()
+
+
+def expect(**nonzero):
+    """Launch counts of a run: ``nonzero`` and 0 for every other kernel."""
+    return {n: nonzero.get(n, 0) for n in REPLACES}
+
+
+def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
+           T=MAIN_T, B=MAIN_B):
+    """Check a run's losses and launch counts and log its iteration time."""
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(rets))):
+        raise AssertionError(f'non-finite loss or mean_return on the {tag} '
+                             'run')
+    if len(losses) != iters:
+        raise AssertionError(f'{len(losses)} losses for {iters} iterations')
+    if launches != want:
+        raise AssertionError(f'launches {launches} on the {tag} run, '
+                             f'expected {want}')
+    ms_iter = float(np.median(np.diff([t0] + stamps)) * 1e3)
+    log(f'[{tag}] {what}, Cartpole B={B} T={T} [200,200] mm_states '
+        f'mm_rewards: {iters} iterations in {stamps[-1] - t0:.3f} s; '
+        f'launches {launches} (expected {want})')
+    log(f'[{tag}] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
+        f'loss first {losses[0]:.6f} last {losses[-1]:.6f}')
+    log(f'[{tag}] median {ms_iter:.3f} ms per iteration (host clock, '
+        f'synchronised each iteration) = '
+        f'{B * T / (ms_iter / 1e3):.1f} particle-steps/s on '
+        f'{torch.cuda.get_device_name(0)}')
+
+
+def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
+                   T=MAIN_T, B=MAIN_B):
+    """``mc_pilco`` for ``iters`` iterations by the route ``fused_rollout``
+    picks, whose tier the gate must name ``tier``, then one iteration
+    through ``MCPILCO.loss`` on that route against the plain path. Returns
+    the launch counts of the run: every count is set to 0 just before it
+    and read just after."""
+    setup = main_path_setup(seed)
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
+                        mm_rewards=True, fused_rollout=fused_rollout)
+    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda')
+    if opt.tier('cuda') != tier:
+        raise AssertionError(f'the gate names {opt.tier("cuda")!r} for B={B} '
+                             f'on this card, expected {tier!r}')
+    stamps = []
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pol_params, _, metrics, n_steps = mc_pilco(
@@ -565,37 +853,77 @@ def phase_main_path(iters, fused_rollout, tag, seed=SEED, T=MAIN_T,
         on_iteration=lambda done, m: stamps.append(time.perf_counter()),
         fused_rollout=fused_rollout)
     torch.cuda.synchronize()
-    launches = {**fm.LAUNCHES, **fr.LAUNCHES}
-    wall = time.perf_counter() - t0
+    launches = counts()
+    if n_steps != iters:
+        raise AssertionError(f'{n_steps} steps for {iters} iterations')
+    report(tag, f'mc_pilco fused_rollout={fused_rollout}', iters, t0, stamps,
+           metrics['loss'], metrics['mean_return'], launches, want, T, B)
+    log(f'[{tag}] tier {opt.tier("cuda")}')
+    compare_paths((dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool,
+                   init_noise),
+                  lambda p, x0, noise: loss_and_grads(opt, p, x0, dyn_params,
+                                                      dyn_stats, noise),
+                  tag, seed, T, B)
+    return launches
 
-    losses, rets = metrics['loss'], metrics['mean_return']
-    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(rets))):
-        raise AssertionError('non-finite loss or mean_return on the main path')
-    if len(losses) != iters or n_steps != iters:
-        raise AssertionError(f'{len(losses)} losses, {n_steps} steps '
-                             f'for {iters} iterations')
-    if fused_rollout is False:
-        want = {'fused_mlp_fwd': 2 * T * iters, 'fused_mlp_bwd': 2 * T * iters,
-                'fused_step_fwd': 0, 'fused_step_bwd': 0}
-    else:
-        want = {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0,
-                'fused_step_fwd': T * iters, 'fused_step_bwd': T * iters}
-    if launches != want:
-        raise AssertionError(f'launches {launches} on the {tag} run, '
-                             f'expected {want}')
-    per_iter = np.diff([t0] + stamps)
-    ms_iter = float(np.median(per_iter) * 1e3)
-    log(f'[{tag}] mc_pilco Cartpole B={B} T={T} [200,200] mm_states '
-        f'mm_rewards fused_rollout={fused_rollout}: {iters} iterations in '
-        f'{wall:.3f} s; launches {launches} (expected {want})')
-    log(f'[{tag}] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
-        f'loss first {losses[0]:.6f} last {losses[-1]:.6f}')
-    log(f'[{tag}] median {ms_iter:.3f} ms per iteration (host clock, '
-        f'synchronised each iteration) = '
-        f'{B * T / (ms_iter / 1e3):.1f} particle-steps/s on '
-        f'{torch.cuda.get_device_name(0)}')
-    compare_paths(dyn, pol, pol_params, dyn_params, dyn_stats, x0_pool,
-                  init_noise, seed, T, B, fused_rollout, tag)
+
+def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
+    """A loop of ``iters`` iterations (x0 draw, loss and grads, clip, Adam)
+    on the main path's setup, with the loss and grads of ``tier``:
+    ``'step'``, ``make_fused_value_and_grad(mode='step')`` (the step
+    kernels); ``'loss'``, ``MCPILCO.loss`` on the whole-rollout tier and
+    autograd (``fused_rollout_fwd`` and ``_bwd``). Returns the launch counts
+    of the loop, set to 0 just before it."""
+    setup = main_path_setup(seed)
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
+                        mm_rewards=True)
+    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda')
+    if opt.tier('cuda') != 'full':
+        raise AssertionError(f'the gate names {opt.tier("cuda")!r} for the '
+                             'main configuration on this card')
+    vg = fr.make_fused_value_and_grad(dyn, pol, T, opt.w_t, True, True, True,
+                                      mode='step')
+
+    def loss_grads(p, x0, noise):
+        if tier == 'step':
+            loss, mret, grads, _ = vg(p, x0, dyn_params, dyn_stats, *noise)
+            return loss, mret, tree_leaves(grads)
+        loss, mret = opt.loss(p, x0, dyn_params, dyn_stats, noise)
+        return loss, mret, torch.autograd.grad(loss, tree_leaves(p))
+
+    params = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
+    adam = torch.optim.Adam(params, lr=1e-3)
+    D = x0_pool.shape[-1]
+    noise = opt.prepare_noise(opt.sample_noise(
+        seeded_generator('cuda', seed, 0), D, 'cuda'), 'cuda')
+    init = torch.tensor(init_noise, device='cuda')
+    losses, rets, stamps = [], [], []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in range(iters):
+        x0 = opt.sample_x0(x0_pool, seeded_generator('cuda', seed, n), init)
+        loss, mret, grads = loss_grads(pol_params, x0, noise)
+        for p, g in zip(params, clip_grad_norm(list(grads), 1.0)):
+            p.grad = g
+        adam.step()
+        losses.append(loss.detach())
+        rets.append(mret.detach())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    launches = counts()
+    report(tag, {'step': "make_fused_value_and_grad(mode='step')",
+                 'loss': 'MCPILCO.loss + autograd'}[tier] + ' + clip + Adam',
+           iters, t0, stamps, torch.stack(losses).cpu().numpy(),
+           torch.stack(rets).cpu().numpy(), launches, want, T, B)
+    if tier == 'step':
+        def kernel_path(p, x0, noise):
+            loss, _, grads = loss_grads(p, x0, opt.prepare_noise(noise,
+                                                                 'cuda'))
+            return float(loss), torch.cat([g.reshape(-1) for g in grads])
+
+        compare_paths(setup, kernel_path, tag, seed, T, B)
     return launches
 
 
@@ -613,7 +941,7 @@ def start(name):
         f'{torch.version.cuda}; TF32 off')
 
     t = time.perf_counter()
-    logs = build.build(['fused_mlp', 'fused_step'])
+    logs = build.build(['fused_mlp', 'fused_step', 'fused_rollout'])
     log(f'[phase 1] built {list(logs)} in {time.perf_counter() - t:.1f} s')
     for name, text in logs.items():
         for line in text.splitlines():
@@ -627,11 +955,34 @@ def main():
     if card is None:
         return 1
 
-    rows = {**phase_mlp_kernels(), **phase_step_kernels()}
+    rows = {**phase_mlp_kernels(), **phase_step_kernels(),
+            **phase_rollout_kernels()}
+    T = MAIN_T
     # each kernel's launches come from the run of its own route
-    route = phase_main_path(ROUTE_ITERS, False, 'phase 3')
-    main_path = phase_main_path(ITERS, None, 'phase 4')
-    launches = {n: (route if n.startswith('fused_mlp') else main_path)[n]
+    route = phase_mc_pilco(ROUTE_ITERS, False, 'phase 3', expect(
+        fused_mlp_fwd=2 * T * ROUTE_ITERS, fused_mlp_bwd=2 * T * ROUTE_ITERS),
+        None)
+    step = phase_loop(STEP_ITERS, 'step', 'phase 4', expect(
+        fused_step_fwd=T * STEP_ITERS, fused_step_bwd=T * STEP_ITERS))
+    # the step tier as mc_pilco takes it: a batch one block beyond what the
+    # card holds at once, so the gate names 'step'
+    dyn, pol = build_models(5, 1, (10.0,), envs.cartpole_reward())
+    capacity = fr.rollout_capacity(dyn, pol, 'cuda')
+    big_b = fr.TM * (capacity + 1)
+    log(f'[phase 4b] the card holds {capacity} blocks of the whole-rollout '
+        f'kernel at once ({fr.TM} particles each): B={big_b} takes the step '
+        'tier')
+    phase_mc_pilco(STEP_ROUTE_ITERS, None, 'phase 4b', expect(
+        fused_step_fwd=T * STEP_ROUTE_ITERS,
+        fused_step_bwd=T * STEP_ROUTE_ITERS), 'step', B=big_b)
+    main_path = phase_mc_pilco(ITERS, None, 'phase 5',
+                               expect(fused_rollout_vg=ITERS), 'full')
+    loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
+        fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
+    runs = {'fused_mlp': route, 'fused_step': step, 'fused_rollout_vg':
+            main_path, 'fused_rollout_fwd': loss_route,
+            'fused_rollout_bwd': loss_route}
+    launches = {n: next(v for k, v in runs.items() if n.startswith(k))[n]
                 for n in REPLACES}
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],

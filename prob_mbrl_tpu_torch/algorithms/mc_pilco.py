@@ -11,13 +11,20 @@ PEGASUS: dropout masks, density noise and the MM noise change only every
 (initial-state indices and noise) from one seeded from (seed, global step), so
 a loop split across calls draws exactly what one long call would.
 
-Two routes compute an iteration's loss. The step tier
-(``ops.cuda.fused_rollout``: one forward and one backward kernel per rollout
-step, the counterpart of JAX's ``mode='step'``) is taken when
-``fused_rollout`` is True, or when it is None and the tensors are on CUDA and
-``fused_rollout.fused_mode`` admits the configuration; otherwise the rollout
-of ``utils.rollout`` (whose MLPs may use the fused-MLP kernels). Both routes
-draw the same random numbers in the same order.
+Three routes compute an iteration (mirroring JAX's ``mc_pilco.py:241-292,
+462-478``). When ``fused_rollout`` is True, or None and the tensors are on
+CUDA, the tier that ``ops.cuda.fused_rollout.fused_mode`` names when the
+optimizer is built is taken:
+  - ``'full'``: one launch of the whole-rollout value-and-grad kernel per
+    iteration (``make_fused_value_and_grad``, no autograd), then clip and
+    the optimizer step; ``MCPILCO.loss`` goes through the differentiable
+    whole-rollout loss (forward and backward kernels);
+  - ``'step'`` (when the card cannot hold the whole rollout's blocks at
+    once): one forward and one backward kernel per rollout step;
+otherwise (``fused_rollout`` False, a configuration no tier takes, or None
+on the CPU) the rollout of ``utils.rollout``, whose MLPs may use the
+fused-MLP kernels. All routes draw the same random numbers in the same
+order.
 
 Not ported yet (raise NotImplementedError): non-PEGASUS per-step noise,
 ``mm_method='mix'``, ``infer_noise_variables``, prioritized replay and the
@@ -85,11 +92,11 @@ class MCPILCOConfig:
     init_state_noise: float = 0.0
     resampling_period: int = 499
     with_priorities: bool = False
-    # The step tier of ops.cuda.fused_rollout. None = on for CUDA tensors
+    # The fused tiers of ops.cuda.fused_rollout. None = on for CUDA tensors
     # when fused_rollout.fused_mode admits the configuration; True = always
-    # (the plain version of the step on CPU tensors), and a configuration
-    # the tier cannot take is refused when the optimizer is built; False =
-    # the utils.rollout route.
+    # (their plain versions on CPU tensors), and a configuration no tier
+    # takes is refused when the optimizer is built; False = the
+    # utils.rollout route.
     fused_rollout: Optional[bool] = None
 
 
@@ -106,9 +113,14 @@ _EPOCH_TAG, _ITER_TAG = 0x5EED, 0x17E4
 
 
 class MCPILCO:
-    """The policy optimizer for one (dynamics, policy, config)."""
+    """The policy optimizer for one (dynamics, policy, config).
 
-    def __init__(self, dyn, pol, config):
+    ``device``: where the iterations will run. The fused tier is chosen when
+    the optimizer is built; for a CUDA device the gate checks that the card
+    holds the whole-rollout kernel's blocks at once (``mc_pilco`` passes the
+    pool's device)."""
+
+    def __init__(self, dyn, pol, config, device):
         cfg = config
         if not cfg.pegasus:
             raise NotImplementedError('non-PEGASUS noise is not ported yet')
@@ -123,24 +135,34 @@ class MCPILCO:
         self.w_t, self.w_H = discount_weights(cfg.discount, cfg.steps)
         # With CVaR off the loss reduces rewards with a plain particle mean,
         # which the reward MM resample leaves unchanged: take the mean-only
-        # shortcut (utils.rollout._mm_rewards_batched).
+        # shortcut (utils.rollout._mm_rewards_batched; JAX mc_pilco.py:266-268,
+        # which also needs no value update and no infer_noise_variables,
+        # neither ported).
         cvar_active = (-1.0 < cfg.cvar_eps < 1.0) and cfg.cvar_eps != 0.0
         self.mr_mean_only = cfg.mm_rewards and not cvar_active
         why = fr.refuses(cfg, dyn, pol)
         if cfg.fused_rollout and why is not None:
-            raise ValueError('fused_rollout=True but the step tier does not '
-                             f'take this configuration: {why}')
-        self.step_loss = None if why is not None else fr.make_stepwise_loss(
-            dyn, pol, cfg.steps, self.w_t, cfg.mm_states, cfg.mm_rewards,
-            cfg.maximize)
+            raise ValueError('fused_rollout=True but no fused tier takes '
+                             f'this configuration: {why}')
+        self.mode = None
+        if cfg.fused_rollout is not False and why is None:
+            self.mode = fr.fused_mode(cfg, dyn, pol, device=device)
+        self.fused_loss = self.fused_vg = None
+        if self.mode is not None:
+            args = (dyn, pol, cfg.steps, self.w_t, cfg.mm_states,
+                    cfg.mm_rewards, cfg.maximize)
+            kw = dict(mode=self.mode, mm_rewards_mean_only=self.mr_mean_only)
+            self.fused_loss = fr.make_fused_loss(*args, **kw)
+            if self.mode == 'full':
+                self.fused_vg = fr.make_fused_value_and_grad(*args, **kw)
 
-    def uses_step_tier(self, device):
-        """True when iterations on ``device`` take the step tier."""
-        fused = self.cfg.fused_rollout
-        if fused is None:
-            return self.step_loss is not None and \
-                torch.device(device).type == 'cuda'
-        return bool(fused)
+    def tier(self, device):
+        """The fused tier iterations on ``device`` take (``'full'`` or
+        ``'step'``), or None for the ``utils.rollout`` route."""
+        if self.cfg.fused_rollout is None and \
+                torch.device(device).type != 'cuda':
+            return None
+        return self.mode
 
     def sample_noise(self, generator, D, device):
         """One PEGASUS epoch's noise: (dyn_noise, pol_noise, z_mm, z_rr)."""
@@ -153,10 +175,10 @@ class MCPILCO:
 
     def prepare_noise(self, noise, device):
         """An epoch's noise in the form the route on ``device`` takes: as
-        drawn, or for the step tier with the MM noise standardized and
+        drawn, or for either fused tier with the MM noise standardized and
         cyclically pre-rolled to [T, B, zD] once (None without that
         resample)."""
-        if not self.uses_step_tier(device):
+        if self.tier(device) is None:
             return noise
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise
@@ -167,14 +189,12 @@ class MCPILCO:
                 if cfg.mm_rewards else None)
 
     def loss(self, pol_params, x0, dyn_params, dyn_stats, noise):
-        """(loss, mean_return) by the route ``x0``'s device takes, with
-        ``noise`` from ``prepare_noise``."""
-        if not self.uses_step_tier(x0.device):
+        """(loss, mean_return), differentiable, by the route ``x0``'s device
+        takes, with ``noise`` from ``prepare_noise``."""
+        if self.tier(x0.device) is None:
             return self.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise)
-        dyn_noise, pol_noise, z_mm_t, z_rr_t = noise
-        loss, mean_return, _ = self.step_loss(
-            pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
-            z_mm_t, z_rr_t)
+        loss, mean_return, _ = self.fused_loss(pol_params, x0, dyn_params,
+                                               dyn_stats, *noise)
         return loss, mean_return
 
     def loss_fn(self, pol_params, x0, dyn_params, dyn_stats, noise,
@@ -222,10 +242,15 @@ class MCPILCO:
         """One optimizer step; returns detached (loss, mean_return).
         ``noise`` comes from ``prepare_noise``."""
         x0 = self.sample_x0(x0_pool, generator, init_noise)
-        loss, mean_return = self.loss(pol_params, x0, dyn_params, dyn_stats,
-                                      noise)
         params = tree_leaves(pol_params)
-        grads = torch.autograd.grad(loss, params)
+        if self.tier(x0.device) == 'full':
+            loss, mean_return, grads, _ = self.fused_vg(
+                pol_params, x0, dyn_params, dyn_stats, *noise)
+            grads = tree_leaves(grads)
+        else:
+            loss, mean_return = self.loss(pol_params, x0, dyn_params,
+                                          dyn_stats, noise)
+            grads = torch.autograd.grad(loss, params)
         if self.cfg.clip_grad is not None:
             grads = clip_grad_norm(list(grads), self.cfg.clip_grad)
         for p, g in zip(params, grads):
@@ -262,9 +287,10 @@ class MCPILCO:
         return metrics, n_opt_steps + iters
 
 
-def make_mc_pilco_fn(dyn, pol, config):
-    """The policy optimizer (``MCPILCO``) for these specs and config."""
-    return MCPILCO(dyn, pol, config)
+def make_mc_pilco_fn(dyn, pol, config, device):
+    """The policy optimizer (``MCPILCO``) for these specs and config, for
+    iterations on ``device`` (see ``MCPILCO``)."""
+    return MCPILCO(dyn, pol, config, device)
 
 
 def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
@@ -299,7 +325,7 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         clip_grad=clip_grad, cvar_eps=cvar_eps, reg_weight=reg_weight,
         discount=discount, resampling_period=resampling_period,
         fused_rollout=fused_rollout)
-    opt_fn = make_mc_pilco_fn(dyn, pol, cfg)
+    opt_fn = make_mc_pilco_fn(dyn, pol, cfg, x0_pool.device)
     init_noise = None
     if np.any(np.asarray(init_state_noise) > 0):
         init_noise = torch.as_tensor(np.asarray(init_state_noise, np.float32),

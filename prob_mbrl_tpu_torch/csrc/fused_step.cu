@@ -36,161 +36,25 @@
 // and in the backward the policy's pre-activations and their gradients for
 // wgrad_kernel. Dynamics parameters and masks get no gradient (the step
 // differentiates wrt the policy parameters, the states and eps only).
-// Reductions run in a fixed order; no atomics.
+// Reductions run in a fixed order; no atomics. The step's device code (tile
+// forward and backward, moments, safe Cholesky and adjoint, the resample and
+// its VJP) lives in rollout_step.cuh, shared with fused_rollout.cu.
 
-#include "mlp_tile.cuh"
+#include "rollout_step.cuh"
 
 namespace {
 
-constexpr int kMaxD = 8;     // state dims
-constexpr int kMaxU = 4;     // action dims
-constexpr int kMaxTip = 4;   // coordinates of the reward's tip
-constexpr int kTries = 8;    // jitters of the safe Cholesky
 constexpr int kMMThreads = 256;
-
-}  // namespace
-
-// ---- the C interface's argument block (mirrored by ctypes) ----------------
-// Outside the unnamed namespace: the extern "C" functions that take it must
-// keep external linkage.
-
-struct MlpArgs {
-  int n;  // hidden layers
-  int dims[kMaxLayers + 1];
-  int act[kMaxLayers];
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];  // null where absent
-  const float* m[kMaxLayers];  // hidden-layer masks [B, d] or null
-};
-
-struct StepArgs {
-  int B, D, U, ntip;
-  MlpArgs pol, dyn;
-  const float* states;  // [B, D]
-  const float* eps;     // [B, U] or null (zero)
-  const float* z_pol;   // [B, U] policy density noise
-  const float* z_dyn;   // [B, D] dynamics density noise
-  const float* mx;      // [D + U] input whitening: (x - mx) * isx
-  const float* isx;
-  const float* my;      // [D] output scaling: mean * sy + my, log_std + log(sy)
-  const float* sy;
-  const float* z_mm;    // [B, D] standardized MM noise of this step (or null)
-  const float* z_rr;    // [B, 1]
-  float pol_upper, dyn_upper;  // log(max_noise_std) of each density
-  float act_scale[kMaxU], act_bias[kMaxU];
-  float tip[kMaxTip * kMaxD];  // tip = tip_matrix @ nxt, [ntip, D] row-major
-  float target[kMaxTip];
-  float norm, q_scale, r_scale;
-};
-
-namespace {
-
-// ---- what the kernels take --------------------------------------------------
-
-struct Step {
-  Net pol, dyn;
-  int B, D, U, ntip;
-  const float *states, *eps, *z_pol, *z_dyn, *mx, *isx, *my, *sy;
-  float pol_upper, dyn_upper;
-  float act_scale[kMaxU], act_bias[kMaxU];
-  float tip[kMaxTip * kMaxD], target[kMaxTip];
-  float norm, q_scale, r_scale;
-};
-
-// one tile's small per-row quantities, [feature][row]
-struct TileSm {
-  float s[kMaxD][TM];
-  float u[kMaxU][TM];        // policy sample before the squash
-  float act[kMaxU][TM];      // action (+ eps)
-  float p[2 * kMaxU][TM];    // policy output: mean, raw log_std
-  float o[2 * kMaxD][TM];    // dynamics output: mean, raw log_std
-  float nxt[kMaxD][TM];      // next state before moment matching
-  float r[TM];               // reward
-  float g_nxt[kMaxD][TM];    // backward: gradient wrt the pre-MM nxt
-  float g_act[kMaxU][TM];    // backward: the reward's gradient wrt the action
-  float g_s[kMaxD][TM];      // backward: gradient wrt the states, dynamics part
-};
-
-__device__ __forceinline__ float softplus_f(float y) {
-  return y > 20.f ? y : log1pf(expf(y));  // torch.nn.functional.softplus
-}
-
-// ops.math.softplus_upper_clip: -softplus(upper - x) + upper; its derivative
-// is sigmoid(upper - x).
-__device__ __forceinline__ float upper_clip(float x, float upper) {
-  return -softplus_f(upper - x) + upper;
-}
-
-__device__ __forceinline__ float sigmoid_f(float y) { return 1.f / (1.f + expf(-y)); }
-
-// The step's forward for one tile of rows; leaves its per-row results in tl.
-// pol_a_sm / dyn_a_sm: where to keep the hidden pre-activations (backward).
-__device__ void tile_fwd(const Step& st, TileSm& tl, float* buf0, float* buf1, int row0,
-                         int nrows, float* const* pol_a_sm, float* const* dyn_a_sm) {
-  const int D = st.D, U = st.U, nt = blockDim.x, tid = threadIdx.x;
-  for (int i = tid; i < TM * D; i += nt) {
-    const int r = i / D, k = i - r * D;
-    const float v = r < nrows ? st.states[(size_t)(row0 + r) * D + k] : 0.f;
-    tl.s[k][r] = v;
-    buf0[k * TMP + r] = v;
-  }
-  __syncthreads();
-  float* P = mlp_rows_fwd(st.pol, buf0, buf1, row0, nrows, pol_a_sm, nullptr);
-  for (int i = tid; i < TM * U; i += nt) {
-    const int r = i / U, k = i - r * U;
-    const size_t o = (size_t)(row0 + r) * U + k;
-    const float mean = P[k * TMP + r], lsr = P[(U + k) * TMP + r];
-    const float z = r < nrows ? st.z_pol[o] : 0.f;
-    const float u = mean + z * expf(upper_clip(lsr, st.pol_upper));
-    float a = st.act_scale[k] * tanhf(u) + st.act_bias[k];
-    if (st.eps && r < nrows) a += st.eps[o];
-    tl.p[k][r] = mean;
-    tl.p[U + k][r] = lsr;
-    tl.u[k][r] = u;
-    tl.act[k][r] = a;
-  }
-  __syncthreads();
-  float* xin = P == buf0 ? buf1 : buf0;
-  for (int i = tid; i < TM * (D + U); i += nt) {
-    const int r = i / (D + U), k = i - r * (D + U);
-    const float v = k < D ? tl.s[k][r] : tl.act[k - D][r];
-    xin[k * TMP + r] = r < nrows ? (v - st.mx[k]) * st.isx[k] : 0.f;
-  }
-  __syncthreads();
-  float* O = mlp_rows_fwd(st.dyn, xin, P, row0, nrows, dyn_a_sm, nullptr);
-  for (int i = tid; i < TM * D; i += nt) {
-    const int r = i / D, k = i - r * D;
-    const float mr = O[k * TMP + r], lsr = O[(D + k) * TMP + r];
-    const float ls = upper_clip(lsr, st.dyn_upper) + logf(st.sy[k]);
-    const float mean = mr * st.sy[k] + st.my[k];
-    const float z = r < nrows ? st.z_dyn[(size_t)(row0 + r) * D + k] : 0.f;
-    tl.o[k][r] = mr;
-    tl.o[D + k][r] = lsr;
-    tl.nxt[k][r] = tl.s[k][r] + (mean + z * expf(ls));
-  }
-  __syncthreads();
-  for (int r = tid; r < TM; r += nt) {
-    float q = 0.f, ua = 0.f;
-    for (int j = 0; j < st.ntip; ++j) {
-      float tip = 0.f;
-      for (int k = 0; k < D; ++k) tip += st.tip[j * D + k] * tl.nxt[k][r];
-      const float d = (tip - st.target[j]) / st.norm;
-      q += d * d;
-    }
-    for (int k = 0; k < U; ++k) ua += tl.act[k][r] * tl.act[k][r];
-    tl.r[r] = expf(-(0.5f * (st.q_scale * q + st.r_scale * ua)));
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(1024)
 rows_fwd_kernel(Step st, float* __restrict__ nxt_raw, float* __restrict__ r_raw) {
   extern __shared__ __align__(16) float smem[];
   __shared__ TileSm tl;
-  const int maxw = max(st.pol.maxw, st.dyn.maxw);
+  const int maxw = max_width(st);
   const int row0 = blockIdx.x * TM;
   const int nrows = min(TM, st.B - row0);
-  tile_fwd(st, tl, smem, smem + maxw * TMP, row0, nrows, nullptr, nullptr);
+  tile_fwd(st, st.pol, st.states, st.eps, tl, smem, smem + maxw * TMP, row0, nrows, nullptr,
+           nullptr);
   const int D = st.D;
   for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
     const int r = i / D, k = i - r * D;
@@ -199,101 +63,12 @@ rows_fwd_kernel(Step st, float* __restrict__ nxt_raw, float* __restrict__ r_raw)
   for (int r = threadIdx.x; r < nrows; r += blockDim.x) r_raw[row0 + r] = tl.r[r];
 }
 
-// Backward of one tile: recompute, then the VJPs in reverse order.
-struct StepGrads {
-  const float* g_nxt;  // [B, D] gradient wrt the pre-MM nxt
-  const float* g_r;    // [B] gradient wrt the pre-MM r
-  float* g_states;     // [B, D]
-  float* g_eps;        // [B, U] or null
-  float* g_pout;       // [B, 2U] gradient wrt the policy MLP's output
-  Grads pol;           // the policy's ga scratch (dw/db are wgrad_kernel's)
-};
-
 __global__ void __launch_bounds__(1024)
 rows_bwd_kernel(Step st, StepGrads sg) {
   extern __shared__ __align__(16) float smem[];
   __shared__ TileSm tl;
-  const int maxw = max(st.pol.maxw, st.dyn.maxw);
-  const int D = st.D, U = st.U, nt = blockDim.x, tid = threadIdx.x;
   const int row0 = blockIdx.x * TM;
-  const int nrows = min(TM, st.B - row0);
-  float* buf0 = smem;
-  float* buf1 = smem + maxw * TMP;
-  float* pol_a[kMaxLayers];
-  float* dyn_a[kMaxLayers];
-  float* next = buf1 + maxw * TMP;
-  for (int l = 0; l < st.pol.n; ++l) {
-    pol_a[l] = next;
-    next += st.pol.dims[l + 1] * TMP;
-  }
-  for (int l = 0; l < st.dyn.n; ++l) {
-    dyn_a[l] = next;
-    next += st.dyn.dims[l + 1] * TMP;
-  }
-  tile_fwd(st, tl, buf0, buf1, row0, nrows, pol_a, dyn_a);
-
-  // reward: r = exp(-cost), cost = 0.5 (q |(tip - target) / norm|^2 + rs |a|^2)
-  for (int r = tid; r < TM; r += nt) {
-    const float gr = r < nrows ? sg.g_r[row0 + r] : 0.f;
-    const float gc = -gr * tl.r[r];
-    float gtip[kMaxTip];
-    for (int j = 0; j < st.ntip; ++j) {
-      float tip = 0.f;
-      for (int k = 0; k < D; ++k) tip += st.tip[j * D + k] * tl.nxt[k][r];
-      const float d = (tip - st.target[j]) / st.norm;
-      gtip[j] = gc * 0.5f * st.q_scale * 2.f * d / st.norm;
-    }
-    for (int k = 0; k < D; ++k) {
-      float g = r < nrows ? sg.g_nxt[(size_t)(row0 + r) * D + k] : 0.f;
-      for (int j = 0; j < st.ntip; ++j) g += st.tip[j * D + k] * gtip[j];
-      tl.g_nxt[k][r] = g;
-    }
-    for (int k = 0; k < U; ++k) tl.g_act[k][r] = gc * 0.5f * st.r_scale * 2.f * tl.act[k][r];
-  }
-  __syncthreads();
-  // nxt = s + mean * sy + my + z * exp(upper_clip(lsr) + log sy)
-  for (int i = tid; i < TM * D; i += nt) {
-    const int r = i / D, k = i - r * D;
-    const float g = tl.g_nxt[k][r];
-    const float lsr = tl.o[D + k][r];
-    const float ls = upper_clip(lsr, st.dyn_upper) + logf(st.sy[k]);
-    const float z = r < nrows ? st.z_dyn[(size_t)(row0 + r) * D + k] : 0.f;
-    buf0[k * TMP + r] = g * st.sy[k];
-    buf0[(D + k) * TMP + r] = (g * z) * expf(ls) * sigmoid_f(st.dyn_upper - lsr);
-  }
-  __syncthreads();
-  Grads none = {};
-  float* G = mlp_rows_bwd(st.dyn, none, buf0, buf1, row0, nrows, dyn_a, nullptr);
-  float* gp = G == buf0 ? buf1 : buf0;
-  for (int i = tid; i < TM * D; i += nt) {
-    const int r = i / D, k = i - r * D;
-    tl.g_s[k][r] = tl.g_nxt[k][r] + G[k * TMP + r] * st.isx[k];
-  }
-  // a = scale tanh(u) + bias + eps, u = mean + z exp(upper_clip(lsr))
-  for (int i = tid; i < TM * U; i += nt) {
-    const int r = i / U, k = i - r * U;
-    const size_t o = (size_t)(row0 + r) * U + k;
-    const float ga = tl.g_act[k][r] + G[(D + k) * TMP + r] * st.isx[D + k];
-    if (sg.g_eps && r < nrows) sg.g_eps[o] = ga;
-    const float t = tanhf(tl.u[k][r]);
-    const float gu = ga * st.act_scale[k] * (1.f - t * t);
-    const float lsr = tl.p[U + k][r];
-    const float z = r < nrows ? st.z_pol[o] : 0.f;
-    const float glsr = (gu * z) * expf(upper_clip(lsr, st.pol_upper))
-                       * sigmoid_f(st.pol_upper - lsr);
-    gp[k * TMP + r] = gu;
-    gp[(U + k) * TMP + r] = glsr;
-    if (r < nrows) {
-      sg.g_pout[(size_t)(row0 + r) * 2 * U + k] = gu;
-      sg.g_pout[(size_t)(row0 + r) * 2 * U + U + k] = glsr;
-    }
-  }
-  __syncthreads();
-  float* dx = mlp_rows_bwd(st.pol, sg.pol, gp, G, row0, nrows, pol_a, nullptr);
-  for (int i = tid; i < nrows * D; i += nt) {
-    const int r = i / D, k = i - r * D;
-    sg.g_states[(size_t)(row0 + r) * D + k] = tl.g_s[k][r] + dx[k * TMP + r];
-  }
+  tile_bwd(st, st.pol, st.states, st.eps, sg, tl, smem, row0, min(TM, st.B - row0));
 }
 
 // ---- moment matching: one block per resampled quantity ----------------------
@@ -306,98 +81,6 @@ struct MMSite {
   int D;
 };
 
-// Sum of v over the block (blockDim.x a multiple of 32), in a fixed order;
-// every thread gets the total. All threads must call it.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read from the previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
-  return t;
-}
-
-// Mean m, unbiased covariance S (lower triangle filled, both halves) and the
-// sum of the centred particles sd (zero up to rounding) of x [B, D].
-__device__ void moments(const float* __restrict__ x, int B, int D, float* m, float* S, float* sd,
-                        float* red) {
-  for (int c = 0; c < D; ++c) {
-    float p = 0.f;
-    for (int b = threadIdx.x; b < B; b += blockDim.x) p += x[(size_t)b * D + c];
-    const float t = block_sum(p, red);
-    if (threadIdx.x == 0) m[c] = t / B;
-  }
-  __syncthreads();
-  for (int c = 0; c < D; ++c) {
-    float p = 0.f;
-    for (int b = threadIdx.x; b < B; b += blockDim.x) p += x[(size_t)b * D + c] - m[c];
-    const float t = block_sum(p, red);
-    if (threadIdx.x == 0) sd[c] = t;
-    for (int c2 = 0; c2 <= c; ++c2) {
-      float q = 0.f;
-      for (int b = threadIdx.x; b < B; b += blockDim.x)
-        q += (x[(size_t)b * D + c] - m[c]) * (x[(size_t)b * D + c2] - m[c2]);
-      const float s = block_sum(q, red) / (B - 1);
-      if (threadIdx.x == 0) S[c * D + c2] = S[c2 * D + c] = s;
-    }
-  }
-  __syncthreads();
-}
-
-// Outer-product Cholesky of S + jitter I (the unrolled small_cholesky). False
-// as soon as a pivot^2 <= tol2 (the block is bad, _safe_cholesky_kf's test).
-__device__ bool chol_try(const float* S, int D, float jitter, float tol2, float* L) {
-  float A[kMaxD * kMaxD];
-  for (int i = 0; i < D * D; ++i) A[i] = S[i];
-  for (int i = 0; i < D; ++i) A[i * D + i] += jitter;
-  for (int j = 0; j < D; ++j) {
-    const float piv2 = A[j * D + j];
-    if (!(piv2 > tol2)) return false;
-    const float p = sqrtf(piv2);
-    for (int i = 0; i < D; ++i) L[i * D + j] = i >= j ? A[i * D + j] / p : 0.f;
-    for (int i = j + 1; i < D; ++i)
-      for (int k = j + 1; k < D; ++k) A[i * D + k] -= L[i * D + j] * L[k * D + j];
-  }
-  return true;
-}
-
-// _safe_cholesky_kf: jitters 1e-12 * 100^i times mean|diag S| (no gradient),
-// the first whose pivots all exceed 1e-5 sqrt(scale); NaN when none does.
-__device__ bool safe_chol(const float* S, int D, float* L) {
-  float scale = 0.f;
-  for (int i = 0; i < D; ++i) scale += fabsf(S[i * D + i]);
-  scale = scale / D + 1e-30f;
-  const float tol = 1e-5f * sqrtf(scale);
-  const float jitters[kTries] = {1e-12f, 1e-10f, 1e-8f, 1e-6f, 1e-4f, 1e-2f, 1.f, 1e2f};
-  for (int g = 0; g < kTries; ++g)
-    if (chol_try(S, D, jitters[g] * scale, tol * tol, L)) return true;
-  for (int i = 0; i < D * D; ++i) L[i] = __int_as_float(0x7fc00000);
-  return false;
-}
-
-// Reverse of chol_try's loop at the chosen jitter: gradient wrt S (lower
-// triangle, where the loop reads) from the gradient gL wrt L (lower part).
-// Uses A_j[i, j] = L[i, j] * L[j, j] for i >= j.
-__device__ void chol_vjp(const float* L, const float* gL, int D, float* gS) {
-  for (int i = 0; i < D * D; ++i) gS[i] = 0.f;
-  for (int j = D - 1; j >= 0; --j) {
-    const float p = L[j * D + j];
-    float gc[kMaxD];
-    for (int i = j; i < D; ++i) {
-      float g = gL[i * D + j];
-      for (int k = j; k < D; ++k) g -= (gS[i * D + k] + gS[k * D + i]) * L[k * D + j];
-      gc[i] = g;
-    }
-    float gp = 0.f;
-    for (int i = j; i < D; ++i) {
-      gp -= gc[i] * L[i * D + j] / p;
-      gS[i * D + j] += gc[i] / p;
-    }
-    gS[j * D + j] += gp / (2.f * p);
-  }
-}
-
 __global__ void __launch_bounds__(kMMThreads)
 mm_fwd_kernel(MMSite s0, MMSite s1, int B) {
   const MMSite s = blockIdx.x == 0 ? s0 : s1;
@@ -407,17 +90,11 @@ mm_fwd_kernel(MMSite s0, MMSite s1, int B) {
   moments(s.x, B, D, m, S, sd, red);
   if (threadIdx.x == 0) safe_chol(S, D, L);
   __syncthreads();
-  for (int i = threadIdx.x; i < B * D; i += blockDim.x) {
-    const int b = i / D, c = i - b * D;
-    float acc = 0.f;
-    for (int j = 0; j <= c; ++j) acc += s.z[(size_t)b * D + j] * L[c * D + j];
-    s.out[i] = m[c] + acc;
-  }
+  mm_apply(s.z, m, L, D, 0, B, s.out);
 }
 
-// out = m + z L^T: g_m = sum_b g[b]; g_L[i, j] = sum_b g[b, i] z[b, j]; the
-// Cholesky adjoint gives G wrt S; S = d^T d / (B - 1), d = x - m, so
-// g_x[b] = (G + G^T) d[b] / (B - 1) + (g_m - (G + G^T) sum_b d[b] / (B - 1)) / B.
+// out = m + z L^T: g_m = sum_b g[b]; g_L[i, j] = sum_b g[b, i] z[b, j]; then
+// mm_vjp_coeffs and mm_vjp_apply.
 __global__ void __launch_bounds__(kMMThreads)
 mm_bwd_kernel(MMSite s0, MMSite s1, int B) {
   const MMSite s = blockIdx.x == 0 ? s0 : s1;
@@ -442,90 +119,12 @@ mm_bwd_kernel(MMSite s0, MMSite s1, int B) {
       }
     }
   }
-  if (threadIdx.x == 0) {
-    float G[kMaxD * kMaxD];
-    if (safe_chol(S, D, L)) {
-      chol_vjp(L, gL, D, G);
-    } else {
-      for (int i = 0; i < D * D; ++i) G[i] = __int_as_float(0x7fc00000);
-    }
-    for (int i = 0; i < D; ++i)
-      for (int k = 0; k < D; ++k) H[i * D + k] = (G[i * D + k] + G[k * D + i]) / (B - 1);
-    for (int i = 0; i < D; ++i) {
-      float hs = 0.f;
-      for (int k = 0; k < D; ++k) hs += H[i * D + k] * sd[k];
-      c0[i] = (gm[i] - hs) / B;
-    }
-  }
+  if (threadIdx.x == 0) mm_vjp_coeffs(L, safe_chol(S, D, L), gm, gL, sd, B, D, H, c0);
   __syncthreads();
-  for (int i = threadIdx.x; i < B * D; i += blockDim.x) {
-    const int b = i / D, c = i - b * D;
-    float acc = 0.f;
-    for (int k = 0; k < D; ++k) acc += H[c * D + k] * (s.x[(size_t)b * D + k] - m[k]);
-    s.out[i] = acc + c0[c];
-  }
+  mm_vjp_apply(s.x, m, H, c0, D, 0, B, s.out);
 }
 
 // ---- host side ----------------------------------------------------------------
-
-bool fill_mlp(Net& net, const MlpArgs& a, int B) {
-  if (a.n < 0 || a.n + 1 > kMaxLayers) return false;
-  net.n = a.n;
-  net.B = B;
-  net.maxw = 0;
-  for (int l = 0; l <= a.n + 1; ++l) {
-    if (a.dims[l] < 1 || a.dims[l] > kMaxWidth) return false;
-    net.dims[l] = a.dims[l];
-    net.maxw = a.dims[l] > net.maxw ? a.dims[l] : net.maxw;
-  }
-  for (int l = 0; l < kMaxLayers; ++l) {
-    const bool lin = l <= a.n, hid = l < a.n;
-    net.w[l] = lin ? a.w[l] : nullptr;
-    net.b[l] = lin ? a.b[l] : nullptr;
-    net.m[l] = hid ? a.m[l] : nullptr;
-    net.a[l] = nullptr;
-    net.act[l] = hid ? a.act[l] : kIdentity;
-    if (lin && !net.w[l]) return false;
-    if (hid && (a.act[l] < 0 || a.act[l] >= kNumActs)) return false;
-  }
-  return true;
-}
-
-bool fill_step(Step& st, const StepArgs* a) {
-  if (!a || a->B < 2 || a->D < 1 || a->D > kMaxD || a->U < 1 || a->U > kMaxU
-      || a->ntip < 0 || a->ntip > kMaxTip)
-    return false;
-  if (!fill_mlp(st.pol, a->pol, a->B) || !fill_mlp(st.dyn, a->dyn, a->B)) return false;
-  const int D = a->D, U = a->U;
-  if (st.pol.dims[0] != D || st.pol.dims[st.pol.n + 1] != 2 * U
-      || st.dyn.dims[0] != D + U || st.dyn.dims[st.dyn.n + 1] != 2 * D)
-    return false;
-  st.B = a->B;
-  st.D = D;
-  st.U = U;
-  st.ntip = a->ntip;
-  st.states = a->states;
-  st.eps = a->eps;
-  st.z_pol = a->z_pol;
-  st.z_dyn = a->z_dyn;
-  st.mx = a->mx;
-  st.isx = a->isx;
-  st.my = a->my;
-  st.sy = a->sy;
-  if (!st.states || !st.z_pol || !st.z_dyn || !st.mx || !st.isx || !st.my || !st.sy) return false;
-  st.pol_upper = a->pol_upper;
-  st.dyn_upper = a->dyn_upper;
-  for (int k = 0; k < kMaxU; ++k) {
-    st.act_scale[k] = a->act_scale[k];
-    st.act_bias[k] = a->act_bias[k];
-  }
-  for (int i = 0; i < kMaxTip * kMaxD; ++i) st.tip[i] = a->tip[i];
-  for (int j = 0; j < kMaxTip; ++j) st.target[j] = a->target[j];
-  st.norm = a->norm;
-  st.q_scale = a->q_scale;
-  st.r_scale = a->r_scale;
-  return true;
-}
 
 // Dynamic shared memory beside the kernel's static TileSm: above 48 KB in
 // all, the kernel has to be allowed the dynamic part explicitly. The largest
@@ -541,16 +140,7 @@ int allow_smem(const void* kernel, size_t bytes, size_t& allowed) {
 
 size_t g_fwd_allowed = 0, g_bwd_allowed = 0;
 
-int max_width(const Step& st) { return st.pol.maxw > st.dyn.maxw ? st.pol.maxw : st.dyn.maxw; }
-
 size_t fwd_smem(const Step& st) { return 2 * (size_t)max_width(st) * TMP * sizeof(float); }
-
-size_t bwd_smem(const Step& st) {
-  size_t f = 2 * (size_t)max_width(st);
-  for (int l = 0; l < st.pol.n; ++l) f += st.pol.dims[l + 1];
-  for (int l = 0; l < st.dyn.n; ++l) f += st.dyn.dims[l + 1];
-  return f * TMP * sizeof(float);
-}
 
 // The resample sites of one direction: states first, then rewards; unused
 // slots repeat the last used one and are not launched.

@@ -1,6 +1,7 @@
 // Device code of a dropout MLP walked one tile of batch rows at a time, shared
-// by fused_mlp.cu (the fused dropout-MLP kernels) and fused_step.cu (the
-// rollout-step kernels). Everything is float32 FMA.
+// by fused_mlp.cu (the fused dropout-MLP kernels), fused_step.cu (the
+// rollout-step kernels) and fused_rollout.cu (the whole-rollout kernels,
+// through rollout_step.cuh). Everything is float32 FMA.
 //
 // Layout: a tile's activations sit in shared memory feature-major,
 // h[k * TMP + r] for feature k and tile row r < TM, read as float4
@@ -228,28 +229,33 @@ __device__ float* mlp_rows_bwd(const Net& net, const Grads& gr, float* gcur, flo
   return gcur;
 }
 
-// One block per WT x WT tile of some layer's dW. It recomputes the layer
-// input h = act(a) * mask (x for layer 0) from net.a and sums h^T g over the
-// batch in row order (g = gr.ga of the layer, or g_out for the output
-// layer); the blocks of the first row of tiles also sum db. 256 threads:
-// warp ty owns dW rows ty, ty + 8, ..., lane tx owns column tx. No atomics:
-// results repeat bit for bit.
-__global__ void __launch_bounds__(256)
-wgrad_kernel(Net net, Grads gr, const float* __restrict__ x, const float* __restrict__ g_out) {
+// Tile t of some layer's dW (WT x WT). It recomputes the layer input
+// h = act(a) * mask (x for layer 0) from net.a and sums h^T g over the
+// net.B batch rows in row order (g = gr.ga of the layer, or g_out for the
+// output layer); the tiles of the first row of tiles also sum db. Row r
+// takes mask row r % mask_rows (masks shared by the steps of a rollout).
+// The first 256 threads work: warp ty owns dW rows ty, ty + 8, ..., lane tx
+// owns column tx; all threads of the block must call it. No atomics:
+// results repeat bit for bit. The inputs may have been written earlier in
+// the same launch by other blocks, so nothing is read through the
+// read-only path.
+__device__ void wgrad_tile(const Net& net, const Grads& gr, const float* x, const float* g_out,
+                           int t, int mask_rows) {
   __shared__ float hs[WT][WT + 1];
   __shared__ float gs[WT][WT + 1];
-  int t = blockIdx.x, l = 0;
+  int l = 0;
   while (t >= gr.tile_start[l + 1]) ++l;
   t -= gr.tile_start[l];
   const int din = net.dims[l], dout = net.dims[l + 1];
   const int jtiles = (dout + WT - 1) / WT;
   const int kt = t / jtiles, jt = t - kt * jtiles;
   const int k0 = kt * WT, j0 = jt * WT;
-  const float* __restrict__ G = l == net.n ? g_out : gr.ga[l];
+  const float* G = l == net.n ? g_out : gr.ga[l];
   const float* A = l > 0 ? net.a[l - 1] : nullptr;
   const float* M = l > 0 ? net.m[l - 1] : nullptr;
   const int act = l > 0 ? net.act[l - 1] : kIdentity;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const bool on = threadIdx.x < 256;
   const int B = net.B;
 
   float acc[WT / 8];
@@ -257,38 +263,42 @@ wgrad_kernel(Net net, Grads gr, const float* __restrict__ x, const float* __rest
   for (int q = 0; q < WT / 8; ++q) acc[q] = 0.f;
   float bsum = 0.f;
   for (int r0 = 0; r0 < B; r0 += WT) {
+    if (on) {
 #pragma unroll
-    for (int q = 0; q < WT / 8; ++q) {
-      const int rr = ty + 8 * q, row = r0 + rr;
-      const int kc = k0 + tx, jc = j0 + tx;
-      float hv = 0.f, gv = 0.f;
-      if (row < B) {
-        if (kc < din) {
-          const size_t o = (size_t)row * din + kc;
-          if (l == 0) {
-            hv = x[o];
-          } else {
-            hv = act_fwd(act, A[o]);
-            if (M) hv *= M[o];
+      for (int q = 0; q < WT / 8; ++q) {
+        const int rr = ty + 8 * q, row = r0 + rr;
+        const int kc = k0 + tx, jc = j0 + tx;
+        float hv = 0.f, gv = 0.f;
+        if (row < B) {
+          if (kc < din) {
+            const size_t o = (size_t)row * din + kc;
+            if (l == 0) {
+              hv = x[o];
+            } else {
+              hv = act_fwd(act, A[o]);
+              if (M) hv *= M[(size_t)(row % mask_rows) * din + kc];
+            }
           }
+          if (jc < dout) gv = G[(size_t)row * dout + jc];
         }
-        if (jc < dout) gv = G[(size_t)row * dout + jc];
+        hs[rr][tx] = hv;
+        gs[rr][tx] = gv;
       }
-      hs[rr][tx] = hv;
-      gs[rr][tx] = gv;
     }
     __syncthreads();
     const int rn = min(WT, B - r0);
-    for (int rr = 0; rr < rn; ++rr) {
-      const float gv = gs[rr][tx];
-      bsum += gv;
+    if (on) {
+      for (int rr = 0; rr < rn; ++rr) {
+        const float gv = gs[rr][tx];
+        bsum += gv;
 #pragma unroll
-      for (int q = 0; q < WT / 8; ++q) acc[q] = fmaf(hs[rr][ty + 8 * q], gv, acc[q]);
+        for (int q = 0; q < WT / 8; ++q) acc[q] = fmaf(hs[rr][ty + 8 * q], gv, acc[q]);
+      }
     }
     __syncthreads();
   }
   const int jc = j0 + tx;
-  if (jc < dout) {
+  if (on && jc < dout) {
 #pragma unroll
     for (int q = 0; q < WT / 8; ++q) {
       const int kr = k0 + ty + 8 * q;
@@ -296,6 +306,12 @@ wgrad_kernel(Net net, Grads gr, const float* __restrict__ x, const float* __rest
     }
     if (kt == 0 && ty == 0 && gr.db[l]) gr.db[l][jc] = bsum;
   }
+}
+
+// One block of 256 threads per dW tile (see wgrad_tile).
+__global__ void __launch_bounds__(256)
+wgrad_kernel(Net net, Grads gr, const float* __restrict__ x, const float* __restrict__ g_out) {
+  wgrad_tile(net, gr, x, g_out, blockIdx.x, net.B);
 }
 
 // Fills the dW tiling of gr (tile_start) for net's layers.

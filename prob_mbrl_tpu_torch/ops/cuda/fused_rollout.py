@@ -1,29 +1,41 @@
-"""The per-step fused rollout tier: one MC-PILCO rollout step as hand-written
-CUDA kernels for Hopper, its plain PyTorch version, and the T-step loss and
-value-and-grad built from it.
+"""The fused rollout tiers: one MC-PILCO rollout step, and the whole T-step
+rollout with its loss, as hand-written CUDA kernels for Hopper, their plain
+PyTorch versions, and the losses and value-and-grads built from them.
 
-Counterpart of the step tier of ``prob_mbrl_tpu/ops/pallas/fused_rollout.py``:
-``make_step_impl`` (the step's math), ``make_fused_step`` (forward kernel,
-``_fwd_pallas`` at :1166, and backward kernel, ``_bwd_pallas`` at :1206),
-``make_stepwise_loss`` / ``make_stepwise_value_and_grad``, the
-``make_fused_loss`` / ``make_fused_value_and_grad`` entry points with
-``mode='step'``, ``prepare_mm_noise`` and the gate ``fused_mode``.
-``csrc/fused_step.cu`` holds the kernels and says how they are laid out.
+Counterpart of ``prob_mbrl_tpu/ops/pallas/fused_rollout.py``:
+  - the whole-rollout tier (``mode='full'``, also ``'remat'``):
+    ``make_loss_impl`` (the loss's math, :472-667, here ``make_loss_plain``),
+    ``make_fused_loss`` (forward kernel ``_fwd_pallas``, the call at :813,
+    and backward kernel ``_bwd_pallas``, :859) and
+    ``make_fused_value_and_grad`` (one launch, ``fused_vg``, :981);
+    ``csrc/fused_rollout.cu`` holds the kernels and says how they are laid
+    out;
+  - the step tier (``mode='step'``): ``make_step_impl`` (the step's math),
+    ``make_fused_step`` (forward kernel ``_fwd_pallas`` at :1166, backward
+    ``_bwd_pallas`` at :1206), ``make_stepwise_loss`` /
+    ``make_stepwise_value_and_grad``, in ``csrc/fused_step.cu``;
+  - ``prepare_mm_noise`` and the gate ``fused_mode``.
+Both sources share the step's device code, ``csrc/rollout_step.cuh``.
 
 One step: policy -> DiagGaussian sample -> ``max_u * tanh(.) + eps`` ->
 dynamics (whitened input, scaled DiagGaussian sample of the deltas) ->
 ``nxt = s + delta`` -> the reward on the pre-MM ``nxt`` -> the moment-matching
-resample of ``nxt`` and of ``r`` against this step's pre-standardized noise.
-The T loop and the return accumulation run in Python between launches, as
-the JAX ``lax.scan`` does.
+resample of ``nxt`` and of ``r`` against this step's pre-standardized noise
+(or, with the reward mean-only shortcut of the whole-rollout tier, ``r``'s
+particle mean). The loss is ``mean(sum_t w_t r_t)``, negated when maximizing.
+In the step tier the T loop and the return accumulation run in Python between
+launches, as the JAX ``lax.scan`` does; the whole-rollout tier runs them in
+the kernel.
 
-For CPU tensors the step is the plain version (``make_step_plain``): the
-port's ``Policy.apply``, ``DynamicsModel.apply`` on unfused MLPs, the reward
-and ``ops.moment_matching.mm_resample``, differentiated by autograd. For CUDA
-tensors it launches the kernels or raises; the plain version never stands in.
+For CPU tensors each tier is its plain version (``make_loss_plain``,
+``make_step_plain``): the port's ``Policy.apply``, ``DynamicsModel.apply`` on
+unfused MLPs, the reward and ``ops.moment_matching.mm_resample``,
+differentiated by autograd. For CUDA tensors they launch the kernels or
+raise; the plain version never stands in.
 """
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -43,18 +55,22 @@ MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
 MAX_SMEM = 232448  # shared memory a Hopper block can use, bytes
 _TILE_SMEM = 2208  # sizeof(TileSm), the backward tile's static part
 
-_NOT_PORTED = {
-    'full': 'the whole-rollout kernels (PERF.md rows 3-4)',
-    'remat': 'the whole-rollout kernels (PERF.md rows 3-4)',
-    'grid': 'the grid rollout kernels (PERF.md rows 8-9)',
-}
+TM = 8           # particles per block of the whole-rollout kernel (csrc TM)
+_STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
+_PART = 48       # kPart: partial MM-backward sums of one block
+
+TIERS = ('full', 'remat', 'step')
+_GRID_NOT_PORTED = ("mode='grid': the grid rollout kernels (PERF.md rows "
+                    "8-9) are still to port")
 _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
-                      'resample (ROADMAP K6), not ported to the step tier yet')
-_VALUE_NOT_PORTED = ('the value bootstrap (value_update) is not ported to the '
-                     'step tier yet')
+                      'resample (ROADMAP K6), not ported to the fused tiers '
+                      'yet')
+_VALUE_NOT_PORTED = ('the value bootstrap (value_update, ROADMAP Queue 1 item '
+                     '9) is not ported to the fused tiers yet')
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {'fused_step_fwd': 0, 'fused_step_bwd': 0}
+LAUNCHES = {'fused_step_fwd': 0, 'fused_step_bwd': 0, 'fused_rollout_fwd': 0,
+            'fused_rollout_bwd': 0, 'fused_rollout_vg': 0}
 
 
 def reset_launch_counts():
@@ -118,9 +134,71 @@ def make_step_plain(dyn, pol, mm_states, mm_rewards):
     return step
 
 
+def _rollout_loss(step, x0, steps, w_list, maximize, mean_only, action_eps,
+                  z_mm_t, z_rr_t):
+    """The T loop of both tiers: ``step(s, eps_s, z_mm_s, z_rr_s) -> (nxt,
+    r)``; ``disc += w_t * r; raw += r``; (±mean(disc), mean(raw), ())."""
+    B = x0.shape[0]
+    disc = torch.zeros((B, 1), dtype=x0.dtype, device=x0.device)
+    raw = torch.zeros_like(disc)
+    s = x0
+    for t in range(steps):
+        s, r = step(s, None if action_eps is None else action_eps[t],
+                    None if z_mm_t is None else z_mm_t[t],
+                    None if z_rr_t is None else z_rr_t[t])
+        if mean_only:
+            r = r.mean(0, keepdim=True).expand_as(r)
+        disc = disc + w_list[t] * r
+        raw = raw + r
+    loss = disc.mean()
+    if maximize:
+        loss = -loss
+    return loss, raw.mean(), ()
+
+
+def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
+                    mm_groups=None, value_update=None, w_H=None,
+                    mm_rewards_mean_only=False):
+    """Plain PyTorch version of the whole-rollout loss (``make_loss_impl``,
+    ``fused_rollout.py:472-667``, ungrouped, no value bootstrap):
+    ``loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+    z_mm_t, z_rr_t, action_eps=None) -> (loss, mean_return, ())``, the T
+    loop over ``make_step_plain``, differentiated by autograd. With
+    ``mm_rewards_mean_only`` (and ``mm_rewards``) each step's reward is its
+    particle mean, broadcast to [B, 1], and is not resampled (``:583-591``).
+    ``z_mm_t`` / ``z_rr_t``: [T, B, zD] from ``prepare_mm_noise`` (None
+    where unused); ``action_eps``: [T, B, U] or None."""
+    if mm_groups:
+        raise NotImplementedError(_GROUPS_NOT_PORTED)
+    if value_update is not None:
+        raise NotImplementedError(_VALUE_NOT_PORTED)
+    mean_only = bool(mm_rewards_mean_only and mm_rewards)
+    plain = make_step_plain(dyn, pol, mm_states, mm_rewards and not mean_only)
+    w_list = [float(w) for w in np.asarray(w_t)]
+
+    def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+                z_mm_t, z_rr_t, action_eps=None, extras=()):
+        def step(s, eps, zm, zr):
+            return plain(pol_params, s, zm, zr, eps, dyn_params, dyn_stats,
+                         dyn_noise, pol_noise)
+
+        return _rollout_loss(step, x0, steps, w_list, maximize, mean_only,
+                             action_eps, z_mm_t, z_rr_t)
+
+    return loss_fn
+
+
 # ---------------------------------------------------------------------------
 # what the kernels take
 # ---------------------------------------------------------------------------
+
+
+def _widths(dyn, pol):
+    """(widest layer, hidden units of both MLPs): what sizes a tile's shared
+    memory."""
+    specs = (pol.mlp, dyn.regressor.mlp)
+    maxw = max(max(s.input_dims, s.output_dims, *s.hidden_dims) for s in specs)
+    return maxw, sum(sum(s.hidden_dims) for s in specs)
 
 
 def kernel_refuses(dyn, pol):
@@ -148,8 +226,6 @@ def kernel_refuses(dyn, pol):
     if len(pol.max_u) not in (1, U) or (pol.min_u is not None
                                         and len(pol.min_u) not in (1, U)):
         return 'action bounds must have 1 or U entries'
-    hidden = 0
-    maxw = 0
     for spec, din, dout in ((pol.mlp, D, 2 * U), (reg.mlp, D + U, 2 * D)):
         dims = (spec.input_dims,) + spec.hidden_dims + (spec.output_dims,)
         if (spec.input_dims, spec.output_dims) != (din, dout):
@@ -158,50 +234,63 @@ def kernel_refuses(dyn, pol):
             return 'input dropout and output nonlinearities are not taken'
         if not fm.fused_mlp_supported(dims, spec.nonlin):
             return f'the MLP tile walk does not take dims {dims}'
-        hidden += sum(spec.hidden_dims)
-        maxw = max(maxw, max(dims))
+    maxw, hidden = _widths(dyn, pol)
     if 4 * 12 * (2 * maxw + hidden) + _TILE_SMEM > MAX_SMEM:
         return 'the backward tile does not fit in shared memory'
     return None
 
 
 def refuses(cfg, dyn, pol, value_update=None, mesh=None):
-    """Why the step tier cannot take this MC-PILCO configuration, or None."""
+    """Why the fused tiers cannot take this MC-PILCO configuration, or
+    None."""
     if value_update is not None:
         return _VALUE_NOT_PORTED
     if mesh is not None:
         return 'meshes are not ported'
     if cfg.mm_groups:
         return _GROUPS_NOT_PORTED
+    if cfg.n_particles < 2:
+        return 'the fused tiers take B >= 2 particles'
     if cfg.mm_method != 'cholesky' or cfg.infer_noise_variables:
-        return 'only Cholesky moment matching is in the step tier'
+        return 'only Cholesky moment matching is in the fused tiers'
     if not cfg.pegasus:
-        return 'the step tier takes PEGASUS (pinned) noise only'
+        return 'the fused tiers take PEGASUS (pinned) noise only'
     if cfg.cvar_eps != 0.0:
-        return 'CVaR needs per-particle returns (not in the step tier)'
+        return 'CVaR needs per-particle returns (not in the fused tiers)'
     if cfg.reg_weight != 0.0:
-        return 'reg_weight is not in the step tier'
+        return 'reg_weight is not in the fused tiers'
     if cfg.with_priorities:
-        return 'prioritized replay is not in the step tier'
+        return 'prioritized replay is not in the fused tiers'
     return kernel_refuses(dyn, pol)
 
 
-def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
-    """The fused tier that takes this configuration: ``'step'`` or None.
+def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
+               *, device):
+    """The fused tier that takes this configuration on ``device``:
+    ``'full'`` (the whole-rollout kernels), ``'step'`` (the per-step kernels)
+    or None.
 
     Capability only (the port's own gate, ROADMAP K9): Cholesky MM without
     groups, PEGASUS, no CVaR, ``reg_weight`` 0, no priorities, no
     ``infer_noise_variables``, no value update, float32, and models the step
-    kernels take (``kernel_refuses``). None of the TPU's VMEM budgets or
+    kernels take (``kernel_refuses``) admit both tiers. The whole-rollout
+    kernel also needs its ceil(B / 8) blocks resident on the card at once:
+    for a CUDA ``device`` that is checked against the card
+    (``rollout_capacity``); on the CPU, where both tiers run their plain
+    versions, the gate gives ``'full'``. None of the TPU's VMEM budgets or
     crossovers is carried over."""
-    return 'step' if refuses(cfg, dyn, pol, value_update, mesh) is None \
-        else None
+    if refuses(cfg, dyn, pol, value_update, mesh) is not None:
+        return None
+    if torch.device(device).type == 'cuda':
+        if -(-cfg.n_particles // TM) > rollout_capacity(dyn, pol, device):
+            return 'step'
+    return 'full'
 
 
 def supports(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
-    """True when the step tier covers this MC-PILCO configuration."""
-    return fused_mode(cfg, dyn, pol, value_update, mesh, value_spec) \
-        is not None
+    """True when a fused tier covers this MC-PILCO configuration (on any
+    device: the step tier takes every batch the whole rollout does not)."""
+    return refuses(cfg, dyn, pol, value_update, mesh) is None
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +307,7 @@ class _MlpArgs(ctypes.Structure):
 
 
 class _StepArgs(ctypes.Structure):
-    """Mirror of ``StepArgs`` in ``csrc/fused_step.cu``."""
+    """Mirror of ``StepArgs`` in ``csrc/rollout_step.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in ('B', 'D', 'U', 'ntip')]
                 + [('pol', _MlpArgs), ('dyn', _MlpArgs)]
                 + [(n, ctypes.c_void_p) for n in (
@@ -255,10 +344,47 @@ def _lib():
     return lib
 
 
+class _RollArgs(ctypes.Structure):
+    """Mirror of ``RollArgs`` in ``csrc/fused_rollout.cu``."""
+    _fields_ = ([(n, ctypes.c_int) for n in ('T', 'mm_states', 'mm_rewards',
+                                              'mean_only')]
+                + [('sign', ctypes.c_float)]
+                + [(n, ctypes.c_void_p) for n in (
+                    'w_t', 'g_loss', 'g_mret', 's_all', 'nxt_raw', 'r_raw',
+                    'stats', 'loss', 'mret', 'g_eps', 'rowsum', 'part', 'g_s',
+                    'g_nxt', 'g_r', 'g_pout')]
+                + [(n, ctypes.c_void_p * _ML) for n in ('pol_a', 'pol_ga',
+                                                         'dw', 'db')])
+
+
+def _rollout_lib():
+    lib = build.load('fused_rollout')
+    if not getattr(lib, 'typed', False):
+        i, p = ctypes.c_int, ctypes.c_void_p
+        for fn, mirror in (('fused_rollout_args_size', _StepArgs),
+                           ('fused_rollout_roll_size', _RollArgs)):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+            if getattr(lib, fn)() != ctypes.sizeof(mirror):
+                raise RuntimeError(f'csrc/fused_rollout.cu and the ctypes '
+                                   f'mirror {mirror.__name__} differ in size')
+        for fn in ('fused_rollout_fwd', 'fused_rollout_bwd',
+                   'fused_rollout_vg'):
+            getattr(lib, fn).argtypes = [p, p, p]
+            getattr(lib, fn).restype = i
+        lib.fused_rollout_capacity.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.fused_rollout_capacity.restype = i
+        lib.fused_rollout_error.argtypes = [i]
+        lib.fused_rollout_error.restype = ctypes.c_char_p
+        lib.typed = True
+    return lib
+
+
 def _check(lib, name, rc):
+    """Raise on a failed launch; count a launched one."""
     if rc != 0:
-        raise RuntimeError(f'{name} failed: {rc} '
-                           f'({lib.fused_step_error(rc).decode()})')
+        error = getattr(lib, name.rsplit('_', 1)[0] + '_error')
+        raise RuntimeError(f'{name} failed: {rc} ({error(rc).decode()})')
     LAUNCHES[name] += 1
 
 
@@ -268,10 +394,10 @@ def _ptr(t):
 
 def _kernel_tensor(t, device, what):
     if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f'the step kernels take float32 tensors on one '
+        raise ValueError(f'the fused kernels take float32 tensors on one '
                          f'device; {what} is {t.dtype} on {t.device}')
     if not t.is_contiguous():
-        raise ValueError(f'the step kernels take contiguous tensors; {what} '
+        raise ValueError(f'the fused kernels take contiguous tensors; {what} '
                          'is not')
     return t
 
@@ -503,35 +629,44 @@ def make_stepwise_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
         raise NotImplementedError(_VALUE_NOT_PORTED)
     if mm_groups:
         raise NotImplementedError(_GROUPS_NOT_PORTED)
-    plain = make_step_plain(dyn, pol, mm_states, mm_rewards)
+    plain = make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards,
+                            maximize)
     w_list = [float(w) for w in np.asarray(w_t)]
 
     def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
                 z_mm_t, z_rr_t, action_eps=None, extras=()):
-        B = x0.shape[0]
         if x0.device.type == 'cpu':
-            def step(s, eps, zm, zr):
-                return plain(pol_params, s, zm, zr, eps, dyn_params,
-                             dyn_stats, dyn_noise, pol_noise)
-        else:
-            step = StepKernel(dyn, pol, mm_states, mm_rewards, pol_params,
-                              dyn_params, dyn_stats, dyn_noise, pol_noise,
-                              B, x0.device)
-        disc = torch.zeros((B, 1), dtype=x0.dtype, device=x0.device)
-        raw = torch.zeros_like(disc)
-        s = x0
-        for t in range(steps):
-            s, r = step(s, None if action_eps is None else action_eps[t],
-                        None if z_mm_t is None else z_mm_t[t],
-                        None if z_rr_t is None else z_rr_t[t])
-            disc = disc + w_list[t] * r
-            raw = raw + r
-        loss = disc.mean()
-        if maximize:
-            loss = -loss
-        return loss, raw.mean(), ()
+            return plain(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
+                         pol_noise, z_mm_t, z_rr_t, action_eps)
+        step = StepKernel(dyn, pol, mm_states, mm_rewards, pol_params,
+                          dyn_params, dyn_stats, dyn_noise, pol_noise,
+                          x0.shape[0], x0.device)
+        return _rollout_loss(step, x0, steps, w_list, maximize, False,
+                             action_eps, z_mm_t, z_rr_t)
 
     return loss_fn
+
+
+def _grads_like(pol_params, by_id):
+    """``pol_params``' tree with each leaf's gradient from ``by_id`` (keyed
+    by the leaf's id; zeros for a leaf that has none)."""
+    return tree_map(lambda p: by_id[id(p)] if id(p) in by_id
+                    else torch.zeros_like(p), pol_params)
+
+
+def _autograd_value_and_grad(loss_fn):
+    """(loss, mean_return, grads shaped like pol_params, aux) by autograd
+    through ``loss_fn``."""
+
+    def fused_vg(pol_params, *args, **kwargs):
+        loss, mret, aux = loss_fn(pol_params, *args, **kwargs)
+        leaves = tree_leaves(pol_params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        by_id = {id(p): g for p, g in zip(leaves, grads) if g is not None}
+        return (loss.detach(), mret.detach(), _grads_like(pol_params, by_id),
+                aux)
+
+    return fused_vg
 
 
 def make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
@@ -539,44 +674,303 @@ def make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
                                  value_update=None, w_H=None):
     """``vg(*loss_args) -> (loss, mean_return, grads, ())`` with ``grads``
     shaped like ``pol_params`` (``fused_rollout.py:1316-1344``)."""
-    loss_fn = make_stepwise_loss(dyn, pol, steps, w_t, mm_states,
-                                 mm_rewards, maximize, mm_groups,
-                                 value_update, w_H)
+    return _autograd_value_and_grad(make_stepwise_loss(
+        dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
+        value_update, w_H))
 
-    def fused_vg(pol_params, *args, **kwargs):
-        loss, mret, aux = loss_fn(pol_params, *args, **kwargs)
-        leaves = tree_leaves(pol_params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_id = {id(p): (torch.zeros_like(p) if g is None else g)
-                 for p, g in zip(leaves, grads)}
-        return (loss.detach(), mret.detach(),
-                tree_map(lambda p: by_id[id(p)], pol_params), aux)
+
+# ---------------------------------------------------------------------------
+# the whole-rollout kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(device_index, maxw, hidden):
+    lib = _rollout_lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fused_rollout_capacity(maxw, hidden, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f'fused_rollout_capacity failed: {rc} '
+                           f'({lib.fused_rollout_error(rc).decode()})')
+    return blocks.value
+
+
+def rollout_capacity(dyn, pol, device):
+    """How many blocks (of ``TM`` particles each) of the whole-rollout kernel
+    the card of ``device`` holds at once for these models' widths (the
+    occupancy API times the SM count, queried once per card and widths).
+    The kernel's cooperative launch needs all ceil(B / TM) of them."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _capacity(index, *_widths(dyn, pol))
+
+
+class RolloutKernel:
+    """The whole-rollout kernels for one loss configuration, batch size and
+    device: the scratch workspace (allocated once) and the three launches.
+    ``bind`` builds one call's argument block (weights, masks, stats, noise,
+    x0, eps and the prepared MM noise stacks)."""
+
+    def __init__(self, dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
+                 mean_only, B, device):
+        why = kernel_refuses(dyn, pol)
+        if why is not None:
+            raise ValueError(f'the rollout kernels do not take these models: '
+                             f'{why}')
+        self.dyn, self.pol, self.T, self.B, self.device = (dyn, pol, steps, B,
+                                                           device)
+        self.mm_states = bool(mm_states)
+        self.mean_only = bool(mean_only and mm_rewards)
+        self.r_mm = bool(mm_rewards) and not self.mean_only
+        self.D = dyn.regressor.output_density.output_dims
+        self.U = pol.output_density.output_dims
+        self.pol_dims = [pol.mlp.input_dims, *pol.mlp.hidden_dims,
+                         pol.mlp.output_dims]
+        T, D, U = steps, self.D, self.U
+        a = self.args = _RollArgs()
+        a.T, a.mm_states, a.mm_rewards = T, self.mm_states, bool(mm_rewards)
+        a.mean_only = self.mean_only
+        a.sign = -1.0 if maximize else 1.0
+        self._w = torch.tensor(np.asarray(w_t, np.float32), device=device)
+        a.w_t = self._w.data_ptr()
+        ws = self._work = {
+            'rowsum': self._empty(2, B),
+            'part': self._empty(T, -(-B // TM), _PART),
+            'g_s': self._empty(B, D), 'g_nxt': self._empty(B, D),
+            'g_r': self._empty(B), 'g_pout': self._empty(T, B, 2 * U)}
+        for k, v in ws.items():
+            setattr(a, k, v.data_ptr())
+        self._pol_a = [self._empty(T, B, w) for w in self.pol_dims[1:-1]]
+        self._pol_ga = [self._empty(T, B, w) for w in self.pol_dims[1:-1]]
+        for i, (pa, pg) in enumerate(zip(self._pol_a, self._pol_ga)):
+            a.pol_a[i], a.pol_ga[i] = pa.data_ptr(), pg.data_ptr()
+        self._vg_res = self._residuals()
+
+    def _empty(self, *shape):
+        return torch.empty(shape, device=self.device)
+
+    def _residuals(self):
+        T, B, D = self.T, self.B, self.D
+        return (self._empty(T + 1, B, D), self._empty(T, B, D),
+                self._empty(T, B), self._empty(T, 2, _STAT))
+
+    def bind(self, pol_params, x0, dyn_params, dyn_stats, dyn_noise,
+             pol_noise, z_mm_t, z_rr_t, action_eps):
+        """One call's argument block (a ``StepKernel`` whose states, eps and
+        MM-noise pointers are the rollout's x0 and [T, ...] stacks)."""
+        T, B, D, U = self.T, self.B, self.D, self.U
+        need = [(x0, (B, D), 'x0'), (action_eps, (T, B, U), 'action_eps')]
+        if self.mm_states:
+            need.append((z_mm_t, (T, B, D), 'z_mm_t'))
+        if self.r_mm:
+            need.append((z_rr_t, (T, B, 1), 'z_rr_t'))
+        for x, shape, what in need:
+            if x is None and what == 'action_eps':
+                continue
+            if x is None or tuple(x.shape) != shape:
+                raise ValueError(f'{what} must be a tensor of shape {shape}')
+            _kernel_tensor(x, self.device, what)
+        sk = StepKernel(self.dyn, self.pol, self.mm_states, self.r_mm,
+                        pol_params, dyn_params, dyn_stats, dyn_noise,
+                        pol_noise, B, self.device)
+        sk._set(x0, action_eps, z_mm_t, z_rr_t)
+        return sk
+
+    def _grads(self, sk):
+        dims = self.pol_dims
+        dws = [self._empty(a, b) for a, b in zip(dims[:-1], dims[1:])]
+        dbs = [None if b is None else self._empty(dims[i + 1])
+               for i, b in enumerate(sk.pol_bs)]
+        return dws, dbs
+
+    def _launch(self, name, sk, res, loss=None, mret=None, g_loss=None,
+                g_mret=None, g_eps=None, dws=(), dbs=()):
+        a = self.args
+        a.s_all, a.nxt_raw, a.r_raw, a.stats = [t.data_ptr() for t in res]
+        a.loss, a.mret = _ptr(loss), _ptr(mret)
+        a.g_loss, a.g_mret, a.g_eps = _ptr(g_loss), _ptr(g_mret), _ptr(g_eps)
+        for i in range(_ML):
+            a.dw[i] = _ptr(dws[i]) if i < len(dws) else None
+            a.db[i] = _ptr(dbs[i]) if i < len(dbs) else None
+        lib = _rollout_lib()
+        with torch.cuda.device(self.device):
+            rc = getattr(lib, name)(ctypes.byref(sk.args), ctypes.byref(a),
+                                    torch.cuda.current_stream().cuda_stream)
+        _check(lib, name, rc)
+
+    def forward(self, sk):
+        """Row 3: (loss, mean_return, residuals for ``backward``)."""
+        res = self._residuals()
+        loss, mret = self._empty(), self._empty()
+        self._launch('fused_rollout_fwd', sk, res, loss=loss, mret=mret)
+        return loss, mret, res
+
+    def backward(self, sk, res, g_loss, g_mret, want_eps):
+        """Row 4: (policy dws, dbs, g_eps or None) for the cotangents of
+        loss and mean_return (0-dim tensors on the device)."""
+        dws, dbs = self._grads(sk)
+        g_eps = self._empty(self.T, self.B, self.U) if want_eps else None
+        g = [_kernel_tensor(x.reshape(()).contiguous(), self.device, what)
+             for x, what in ((g_loss, 'g_loss'), (g_mret, 'g_mret'))]
+        self._launch('fused_rollout_bwd', sk, res, g_loss=g[0], g_mret=g[1],
+                     g_eps=g_eps, dws=dws, dbs=dbs)
+        return dws, dbs, g_eps
+
+    def value_and_grad(self, sk):
+        """Row 5: (loss, mean_return, policy dws, dbs) in one launch."""
+        dws, dbs = self._grads(sk)
+        loss, mret = self._empty(), self._empty()
+        self._launch('fused_rollout_vg', sk, self._vg_res, loss=loss,
+                     mret=mret, dws=dws, dbs=dbs)
+        return loss, mret, dws, dbs
+
+
+class _FusedRollout(torch.autograd.Function):
+    """Forward: ``fused_rollout_fwd``; backward: ``fused_rollout_bwd``, which
+    recomputes each step from its boundary state. Gradients reach the policy
+    weights and biases and ``action_eps``."""
+
+    @staticmethod
+    def forward(ctx, rk, sk, x0, eps, z_mm, z_rr, *pol_flat):
+        loss, mret, res = rk.forward(sk)
+        ctx.rk, ctx.sk, ctx.res = rk, sk, res
+        ctx.has_eps = eps is not None
+        # the argument block points at these: keep them alive
+        ctx.save_for_backward(x0, eps, z_mm, z_rr)
+        return loss, mret
+
+    @staticmethod
+    def backward(ctx, g_loss, g_mret):
+        want_eps = ctx.has_eps and ctx.needs_input_grad[3]
+        dws, dbs, g_eps = ctx.rk.backward(ctx.sk, ctx.res, g_loss, g_mret,
+                                          want_eps)
+        return (None, None, None, g_eps, None, None, *dws,
+                *[d for d in dbs if d is not None])
+
+
+def _whole_rollout(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
+                   mm_groups, value_update, mm_rewards_mean_only):
+    """(plain loss_fn, kernel_for(x0) -> RolloutKernel, cached per batch
+    size and device) of one whole-rollout configuration."""
+    plain = make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards,
+                            maximize, mm_groups, value_update,
+                            mm_rewards_mean_only=mm_rewards_mean_only)
+    kernels = {}
+
+    def kernel_for(x0):
+        key = (x0.shape[0], x0.device)
+        if key not in kernels:
+            kernels[key] = RolloutKernel(dyn, pol, steps, w_t, mm_states,
+                                         mm_rewards, maximize,
+                                         mm_rewards_mean_only, x0.shape[0],
+                                         x0.device)
+        return kernels[key]
+
+    return plain, kernel_for
+
+
+def make_whole_rollout_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
+                            maximize, mm_groups=None, value_update=None,
+                            w_H=None, mm_rewards_mean_only=False):
+    """Rows 3-4 (``make_fused_loss``, ``fused_rollout.py:759-903``):
+    ``loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+    z_mm_t, z_rr_t, action_eps=None) -> (loss, mean_return, ())``,
+    differentiable through both outputs wrt the policy weights and biases and
+    ``action_eps`` (the other inputs get no gradient, as in JAX). The
+    forward launches ``fused_rollout_fwd`` and keeps the boundary states and
+    pre-MM outputs; the backward launches ``fused_rollout_bwd``, which
+    recomputes each step from its boundary state: the port's design is the
+    remat design, for ``mode='full'`` and ``'remat'`` alike. CPU tensors run
+    ``make_loss_plain``; CUDA tensors launch the kernels or raise."""
+    plain, kernel_for = _whole_rollout(
+        dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
+        value_update, mm_rewards_mean_only)
+
+    def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+                z_mm_t, z_rr_t, action_eps=None, extras=()):
+        if x0.device.type == 'cpu':
+            return plain(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
+                         pol_noise, z_mm_t, z_rr_t, action_eps)
+        rk = kernel_for(x0)
+        sk = rk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
+                     pol_noise, z_mm_t, z_rr_t, action_eps)
+        flat = sk.pol_ws + [b for b in sk.pol_bs if b is not None]
+        loss, mret = _FusedRollout.apply(rk, sk, x0, action_eps, z_mm_t,
+                                         z_rr_t, *flat)
+        return loss, mret, ()
+
+    return loss_fn
+
+
+def make_whole_rollout_value_and_grad(dyn, pol, steps, w_t, mm_states,
+                                      mm_rewards, maximize, mm_groups=None,
+                                      value_update=None, w_H=None,
+                                      mm_rewards_mean_only=False):
+    """Row 5 (``make_fused_value_and_grad``, ``fused_rollout.py:906-1007``):
+    ``vg(*loss_args) -> (loss, mean_return, grads, ())`` with ``grads``
+    shaped like ``pol_params``, in one launch of ``fused_rollout_vg`` (the
+    forward and the reverse sweep with ``g_loss = 1``, ``g_mret = 0``). Not
+    differentiable. CPU tensors take autograd through ``make_loss_plain``."""
+    plain, kernel_for = _whole_rollout(
+        dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
+        value_update, mm_rewards_mean_only)
+    plain_vg = _autograd_value_and_grad(plain)
+
+    def fused_vg(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+                 z_mm_t, z_rr_t, action_eps=None, extras=()):
+        if x0.device.type == 'cpu':
+            return plain_vg(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
+                            pol_noise, z_mm_t, z_rr_t, action_eps)
+        rk = kernel_for(x0)
+        sk = rk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
+                     pol_noise, z_mm_t, z_rr_t, action_eps)
+        loss, mret, dws, dbs = rk.value_and_grad(sk)
+        by_id = {id(p): g for p, g in zip(sk.pol_ws + sk.pol_bs, dws + dbs)
+                 if p is not None}
+        return loss, mret, _grads_like(pol_params, by_id), ()
 
     return fused_vg
 
 
 def _tier(mode):
-    if mode != 'step':
-        raise NotImplementedError(
-            f"mode={mode!r}: only the step tier is ported; "
-            f"{_NOT_PORTED.get(mode, 'that tier')} are still to port")
+    if mode is None:
+        return 'full'
+    if mode == 'grid':
+        raise NotImplementedError(_GRID_NOT_PORTED)
+    if mode not in TIERS:
+        raise ValueError(f'mode must be one of {TIERS} or None, not {mode!r}')
+    return mode
 
 
 def make_fused_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
-                    mm_groups=None, value_update=None, w_H=None, mode='step'):
-    """The fused (loss, mean_return, aux) of ``fused_rollout.py:759``; only
-    ``mode='step'`` is ported."""
-    _tier(mode)
-    return make_stepwise_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
-                              maximize, mm_groups, value_update, w_H)
+                    mm_groups=None, value_update=None, w_H=None, mode=None,
+                    mm_rewards_mean_only=False):
+    """The fused (loss, mean_return, aux) of ``fused_rollout.py:759``:
+    ``mode`` None or ``'full'`` / ``'remat'`` (both the whole-rollout
+    kernels, ``make_whole_rollout_loss``) or ``'step'``
+    (``make_stepwise_loss``, which, as in JAX, resamples the rewards in
+    full)."""
+    if _tier(mode) == 'step':
+        return make_stepwise_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
+                                  maximize, mm_groups, value_update, w_H)
+    return make_whole_rollout_loss(dyn, pol, steps, w_t, mm_states,
+                                   mm_rewards, maximize, mm_groups,
+                                   value_update, w_H, mm_rewards_mean_only)
 
 
 def make_fused_value_and_grad(dyn, pol, steps, w_t, mm_states, mm_rewards,
                               maximize, mm_groups=None, value_update=None,
-                              w_H=None, mode='step'):
-    """The fused value-and-grad of ``fused_rollout.py:906``; only
-    ``mode='step'`` is ported."""
-    _tier(mode)
-    return make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
-                                        mm_rewards, maximize, mm_groups,
-                                        value_update, w_H)
+                              w_H=None, mode=None,
+                              mm_rewards_mean_only=False):
+    """The fused value-and-grad of ``fused_rollout.py:906``: ``mode`` None or
+    ``'full'`` / ``'remat'`` (one launch, ``make_whole_rollout_value_and_
+    grad``) or ``'step'`` (``make_stepwise_value_and_grad``)."""
+    if _tier(mode) == 'step':
+        return make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
+                                            mm_rewards, maximize, mm_groups,
+                                            value_update, w_H)
+    return make_whole_rollout_value_and_grad(
+        dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
+        value_update, w_H, mm_rewards_mean_only)

@@ -1,18 +1,24 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on the
 same CUDA tensors: the fused MLP for every activation of its kernel set, the
 rollout step (forward values and the cotangents of the policy params, the
-states and eps), the launch counters, and the wrappers' refusal to fall back
-when the kernels cannot be built.
+states and eps), the whole rollout (loss, mean_return and the gradients wrt
+the policy params and action_eps, by the forward + backward kernels and by
+the one-launch value-and-grad), the launch counters, the tier ``mc_pilco``
+takes, and the wrappers' refusal to fall back when the kernels cannot be
+built.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q`` (the repo's
 ``conftest.py`` imports JAX).
 
-Tolerance: |kernel - plain| <= 1e-4 * max(1, max|plain|) for the MLP's
-output and every gradient (float32 sums in another order; TF32 off on the
-plain side); 1e-3 * max(1, max|plain|) for the step, whose 5x5 Cholesky and
-its adjoint amplify those differences.
+Tolerance, per output and relative to that output's own max|plain|:
+|kernel - plain| <= 1e-4 * max|plain| for the MLP's output and every
+gradient (float32 sums in another order; TF32 off on the plain side);
+1e-3 * max|plain| for the step and the rollout, whose 5x5 Cholesky and its
+adjoint amplify those differences, or 3x the plain version's own change when
+its states (x0 for the rollout) move by 1e-6 relative, whichever is larger
+(T chained resamples amplify them further).
 """
 import numpy as np
 import pytest
@@ -36,6 +42,16 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     yield
     torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _hold(a, r, rel_tol, moved=None):
+    """a is finite and max|a - r| <= rel_tol * max|r|, or 3 max|moved - r|
+    where that is larger."""
+    assert torch.isfinite(a).all()
+    tol = rel_tol * float(r.abs().max())
+    if moved is not None:
+        tol = max(tol, 3 * float((moved - r).abs().max()))
+    assert float((a - r).abs().max()) <= tol
 
 
 def _problem(seed, B, dims, device='cuda'):
@@ -68,9 +84,7 @@ def test_kernel_matches_plain_version_on_the_card(cuda, nonlin, B):
     ref = _grads(fm.fused_mlp_plain, B, B, dims, (nonlin, nonlin))
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
-        assert torch.isfinite(a).all()
-        scale = max(1.0, float(r.abs().max()))
-        assert float((a - r).abs().max()) <= 1e-4 * scale
+        _hold(a, r, 1e-4)
 
 
 def test_launches_are_counted(cuda):
@@ -119,7 +133,7 @@ def _step(B, seed, hidden=(200, 200)):
                           t(0.1 * rng.randn(100, D)))
     dn = dyn.sample_noise(gen, (B,), device='cuda')
     pn = pol.sample_noise(gen, (B,), device='cuda')
-    th = rng.randn(B)
+    th = rng.uniform(-np.pi, np.pi, B)
     states = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
                          np.sin(th), np.cos(th)], 1))
     eps = t(0.1 * rng.randn(B, U))
@@ -148,11 +162,10 @@ def test_step_kernels_match_the_plain_step_on_the_card(cuda, B):
     kernel, plain, leaves, states, eps, cot = _step(B, B)
     got = _step_outputs(kernel, leaves, states, eps, cot)
     ref = _step_outputs(plain, leaves, states, eps, cot)
+    moved = _step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
     torch.cuda.synchronize()
-    for a, r in zip(got, ref):
-        assert torch.isfinite(a).all()
-        scale = max(1.0, float(r.abs().max()))
-        assert float((a - r).abs().max()) <= 1e-3 * scale
+    for a, r, m in zip(got, ref, moved):
+        _hold(a, r, 1e-3, m)
 
 
 def test_step_launches_are_counted(cuda):
@@ -161,14 +174,18 @@ def test_step_launches_are_counted(cuda):
     fm.reset_launch_counts()
     _step_outputs(kernel, leaves, states, eps, cot)
     torch.cuda.synchronize()
-    assert fr.LAUNCHES == {'fused_step_fwd': 1, 'fused_step_bwd': 1}
+    assert fr.LAUNCHES == {'fused_step_fwd': 1, 'fused_step_bwd': 1,
+                           'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
+                           'fused_rollout_vg': 0}
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
-def test_mc_pilco_takes_the_step_tier_on_the_card(cuda):
-    """The default route on CUDA: T step launches of each kind per
-    iteration and no fused-MLP launch."""
+def test_mc_pilco_takes_the_step_tier_on_the_card(cuda, monkeypatch):
+    """The step tier on CUDA (the gate names it where the card cannot hold
+    the whole rollout at once; here it is made to): T step launches of each
+    kind per iteration and no fused-MLP or rollout launch."""
     from prob_mbrl_tpu_torch.algorithms.mc_pilco import mc_pilco
+    monkeypatch.setattr(fr, 'fused_mode', lambda *a, **k: 'step')
     D, U, T, iters = 5, 1, 4, 2
     dyn = models.DynamicsModel(models.Regressor(
         models.MLPSpec(D + U, 2 * D, (32, 32), dropout=models.cdropout(0.1)),
@@ -188,7 +205,9 @@ def test_mc_pilco_takes_the_step_tier_on_the_card(cuda):
         seed=0)
     assert np.all(np.isfinite(metrics['loss']))
     assert fr.LAUNCHES == {'fused_step_fwd': T * iters,
-                           'fused_step_bwd': T * iters}
+                           'fused_step_bwd': T * iters,
+                           'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
+                           'fused_rollout_vg': 0}
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
@@ -203,3 +222,145 @@ def test_step_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
     kernel, _, _, states, eps, _ = _step(8, 0, hidden=(16, 16))
     with pytest.raises(RuntimeError, match='nvcc'):
         kernel(states, eps)
+
+
+def _rollout(B, seed, mean_only, T=15, hidden=(200, 200)):
+    """The whole rollout on Cartpole (embedded D = 5, U = 1) with its inputs:
+    (kernel loss, kernel value-and-grad, plain loss, policy leaves, args
+    after the policy params: x0, dynamics params, stats, noise, MM noise
+    stacks, action_eps)."""
+    D, U = 5, 1
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device='cuda')
+
+    dyn = models.DynamicsModel(models.Regressor(
+        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1)),
+        models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
+    pol = models.Policy(models.MLPSpec(D, 2 * U, hidden,
+                                       dropout=models.bdropout(0.1)),
+                        models.DiagGaussianDensity(U), max_u=(10.0,))
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
+    leaves = [p.requires_grad_(True) for p in tree_leaves(pp)]
+    stats = dyn.fit_stats(t(rng.randn(100, D + U) * [1, 2, 3, .7, .7, 5]),
+                          t(0.1 * rng.randn(100, D)))
+    dn = dyn.sample_noise(gen, (B,), device='cuda')
+    pn = pol.sample_noise(gen, (B,), device='cuda')
+    th = rng.uniform(-np.pi, np.pi, B)  # rewards from exp(-8) to 1
+    x0 = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
+                     np.sin(th), np.cos(th)], 1))
+    zm = fr.prepare_mm_noise(t(rng.randn(B, D)), T, B)
+    zr = fr.prepare_mm_noise(t(rng.randn(B, 1)), T, B)
+    eps = t(0.1 * rng.randn(T, B, U))
+    w_t = 0.9 ** np.arange(T, dtype=np.float32)
+    make = (dyn, pol, T, w_t, True, True, True)
+    kw = dict(mm_rewards_mean_only=mean_only)
+    return (fr.make_fused_loss(*make, mode='full', **kw),
+            fr.make_fused_value_and_grad(*make, mode='full', **kw),
+            fr.make_loss_plain(*make, **kw), pp, leaves,
+            [x0, dp, stats, dn, pn, zm, zr, eps])
+
+
+def _rollout_outputs(loss_fn, pp, leaves, args, x0_scale=1.0, g=(0.7, 1.3)):
+    """loss, mean_return and the gradients wrt the policy leaves and eps of
+    g[0] loss + g[1] mean_return."""
+    a = list(args)
+    a[0] = a[0] * x0_scale
+    a[-1] = a[-1].clone().requires_grad_(True)
+    loss, mret, _ = loss_fn(pp, *a)
+    grads = torch.autograd.grad(g[0] * loss + g[1] * mret, leaves + [a[-1]])
+    return [loss.detach(), mret.detach(), *grads]
+
+
+@pytest.mark.parametrize('mean_only', [True, False])
+@pytest.mark.parametrize('B', [16, 37, 100, 1500])
+def test_rollout_kernels_match_the_plain_version_on_the_card(cuda, B,
+                                                             mean_only):
+    kloss, kvg, plain, pp, leaves, args = _rollout(B, B, mean_only)
+    got = _rollout_outputs(kloss, pp, leaves, args)
+    ref = _rollout_outputs(plain, pp, leaves, args)
+    moved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
+    vl, vm, vgrads, _ = kvg(pp, *args)
+    vref = _rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
+    vmoved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                              g=(1.0, 0.0))[:-1]
+    pairs = list(zip(got, ref, moved)) + list(zip(
+        [vl, vm, *tree_leaves(vgrads)], vref, vmoved))
+    torch.cuda.synchronize()
+    for a, r, m in pairs:
+        _hold(a, r, 1e-3, m)
+
+
+def test_rollout_launches_are_counted(cuda):
+    kloss, kvg, _, pp, leaves, args = _rollout(16, 0, True, T=3,
+                                               hidden=(32, 32))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _rollout_outputs(kloss, pp, leaves, args)
+    kvg(pp, *args)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
+                           'fused_rollout_fwd': 1, 'fused_rollout_bwd': 1,
+                           'fused_rollout_vg': 1}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+
+
+def test_mc_pilco_takes_the_full_tier_on_the_card(cuda):
+    """The default route on CUDA for the main configuration: one launch of
+    the rollout value-and-grad kernel per iteration and nothing else."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    D, U, T, iters = 5, 1, 4, 3
+    dyn = models.DynamicsModel(models.Regressor(
+        models.MLPSpec(D + U, 2 * D, (32, 32), dropout=models.cdropout(0.1)),
+        models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
+    pol = models.Policy(models.MLPSpec(D, 2 * U, (32, 32),
+                                       dropout=models.bdropout(0.1)),
+                        models.DiagGaussianDensity(U), max_u=(10.0,))
+    cfg = MCPILCOConfig(n_particles=16, steps=T, mm_states=True,
+                        mm_rewards=True)
+    assert make_mc_pilco_fn(dyn, pol, cfg, 'cuda').tier('cuda') == 'full'
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    pool = torch.randn((20, D), generator=gen, device='cuda')
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(
+        pool, dyn, pol, T, dyn.init(gen, device='cuda'),
+        dyn.init_stats(device='cuda'), pol.init(gen, device='cuda'),
+        opt_iters=iters, mm_states=True, mm_rewards=True, n_particles=16,
+        seed=0)
+    assert np.all(np.isfinite(metrics['loss']))
+    assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
+                           'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
+                           'fused_rollout_vg': iters}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+
+
+def test_rollout_capacity_holds_the_main_path(cuda):
+    """The card holds the main path's ceil(100 / 8) blocks, and the
+    B = 1500 check's 188, at once."""
+    dyn = models.DynamicsModel(models.Regressor(
+        models.MLPSpec(6, 10, (200, 200), dropout=models.cdropout(0.1)),
+        models.DiagGaussianDensity(5)), reward_func=envs.cartpole_reward())
+    pol = models.Policy(models.MLPSpec(5, 2, (200, 200),
+                                       dropout=models.bdropout(0.1)),
+                        models.DiagGaussianDensity(1), max_u=(10.0,))
+    assert fr.rollout_capacity(dyn, pol, 'cuda') >= 188
+
+
+def test_rollout_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
+    monkeypatch.setattr(build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(build, '_LIBS', {})
+
+    def no_nvcc():
+        raise RuntimeError('nvcc not found')
+
+    monkeypatch.setattr(build, '_nvcc', no_nvcc)
+    _, kvg, _, pp, _, args = _rollout(16, 0, True, T=2, hidden=(16, 16))
+    with pytest.raises(RuntimeError, match='nvcc'):
+        kvg(pp, *args)

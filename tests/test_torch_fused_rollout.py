@@ -240,17 +240,22 @@ def _cfg(**kw):
     return tmc.MCPILCOConfig(**base)
 
 
-def test_mc_pilco_iterations_through_the_step_tier_match_the_rollout(setups):
-    """Two ``MCPILCO`` iterations with ``fused_rollout=True`` (the plain
-    step on the CPU) against the ``utils.rollout`` route, on the same x0
-    draws and noise: losses, mean returns and the Adam-updated params."""
+def test_mc_pilco_iterations_through_the_step_tier_match_the_rollout(
+        setups, monkeypatch):
+    """Two ``MCPILCO`` iterations with ``fused_rollout=True`` on the step
+    tier (the gate made to name it, as it does for a batch the card cannot
+    hold at once; the plain step on the CPU) against the ``utils.rollout``
+    route, on the same x0 draws and noise: losses, mean returns and the
+    Adam-updated params."""
     s = setups['emb5']
     _, _, tdyn, tpol = s['specs']
     pool = torch.tensor(s['x0'])
+    monkeypatch.setattr(tfr, 'fused_mode', lambda *a, **k: 'step')
     out = {}
     for fused in (True, False):
-        opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(fused_rollout=fused))
-        assert opt.uses_step_tier('cpu') is fused
+        opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(fused_rollout=fused),
+                                   'cpu')
+        assert opt.tier('cpu') == ('step' if fused else None)
         t = _torch(s)
         adam = torch.optim.Adam(tree_leaves(t['pol_params']), lr=1e-3)
         noise = opt.prepare_noise(opt.sample_noise(
@@ -271,40 +276,57 @@ def test_mc_pilco_iterations_through_the_step_tier_match_the_rollout(setups):
 
 def test_the_gate_admits_the_main_config_and_nothing_else(setups):
     _, _, tdyn, tpol = setups['emb5']['specs']
-    assert tfr.fused_mode(_cfg(), tdyn, tpol) == 'step'
+    cpu = dict(device='cpu')
+    assert tfr.fused_mode(_cfg(), tdyn, tpol, **cpu) == 'full'
+    with pytest.raises(TypeError, match='device'):
+        tfr.fused_mode(_cfg(), tdyn, tpol)
     assert tfr.supports(_cfg(mm_states=False, mm_rewards=False), tdyn, tpol)
     for kw in (dict(mm_groups=2), dict(cvar_eps=0.25), dict(reg_weight=0.1),
                dict(with_priorities=True), dict(infer_noise_variables=True)):
-        assert tfr.fused_mode(_cfg(**kw), tdyn, tpol) is None, kw
-    assert tfr.fused_mode(_cfg(), tdyn, tpol, value_update=object()) is None
+        assert tfr.fused_mode(_cfg(**kw), tdyn, tpol, **cpu) is None, kw
+        assert not tfr.supports(_cfg(**kw), tdyn, tpol), kw
+    assert tfr.fused_mode(_cfg(), tdyn, tpol, value_update=object(),
+                          **cpu) is None
     # models the kernels do not take: raw states the reward angle-embeds,
     # a learned reward, a tip that is not linear
     _, _, rdyn, rpol = setups['raw4']['specs']
-    assert tfr.fused_mode(_cfg(), rdyn, rpol) is None
+    assert tfr.fused_mode(_cfg(), rdyn, rpol, **cpu) is None
     learned = dataclasses.replace(tdyn, reward_func=None)
-    assert tfr.fused_mode(_cfg(), learned, tpol) is None
+    assert tfr.fused_mode(_cfg(), learned, tpol, **cpu) is None
     bent = dataclasses.replace(tdyn, reward_func=dataclasses.replace(
         tdyn.reward_func, tip_matrix=None))
-    assert tfr.fused_mode(_cfg(), bent, tpol) is None
+    assert tfr.fused_mode(_cfg(), bent, tpol, **cpu) is None
 
 
 def test_unsupported_configs_and_tiers_raise(setups):
     _, _, tdyn, tpol = setups['emb5']['specs']
     with pytest.raises(ValueError, match='fused_rollout=True'):
         tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(cvar_eps=0.25,
-                                              fused_rollout=True))
-    # None and False route around the step tier instead
-    opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(cvar_eps=0.25))
-    assert not opt.uses_step_tier('cuda')
-    assert not tmc.make_mc_pilco_fn(
-        tdyn, tpol, _cfg(fused_rollout=False)).uses_step_tier('cuda')
-    assert tmc.make_mc_pilco_fn(tdyn, tpol, _cfg()).uses_step_tier('cuda')
-    assert not tmc.make_mc_pilco_fn(tdyn, tpol, _cfg()).uses_step_tier('cpu')
+                                              fused_rollout=True), 'cpu')
+    with pytest.raises(TypeError, match='device'):
+        tmc.make_mc_pilco_fn(tdyn, tpol, _cfg())
+    # None and False route around the fused tiers instead
+    opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(cvar_eps=0.25), 'cpu')
+    assert opt.mode is None and opt.tier('cuda') is None
+    opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(fused_rollout=False), 'cpu')
+    assert opt.mode is None and opt.tier('cuda') is None
+    # None takes the gate's tier for CUDA tensors only
+    opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(), 'cpu')
+    assert opt.mode == 'full' and opt.tier('cpu') is None
     w_t = np.ones(T, np.float32) / T
-    for mode, row in (('full', '3-4'), ('remat', '3-4'), ('grid', '8-9')):
-        for make in (tfr.make_fused_loss, tfr.make_fused_value_and_grad):
-            with pytest.raises(NotImplementedError, match=row):
-                make(tdyn, tpol, T, w_t, True, True, True, mode=mode)
+    for make in (tfr.make_fused_loss, tfr.make_fused_value_and_grad):
+        for mode in ('full', 'remat', None):
+            assert callable(make(tdyn, tpol, T, w_t, True, True, True,
+                                 mode=mode))
+        with pytest.raises(NotImplementedError, match='8-9'):
+            make(tdyn, tpol, T, w_t, True, True, True, mode='grid')
+        for mode in ('full', 'step'):
+            with pytest.raises(NotImplementedError, match='item 9'):
+                make(tdyn, tpol, T, w_t, True, True, True, mode=mode,
+                     value_update=object())
+            with pytest.raises(NotImplementedError, match='K6'):
+                make(tdyn, tpol, T, w_t, True, True, True, mode=mode,
+                     mm_groups=2)
     with pytest.raises(NotImplementedError, match='value'):
         tfr.make_stepwise_loss(tdyn, tpol, T, w_t, True, True, True,
                                value_update=object())

@@ -182,7 +182,8 @@ def test_one_iteration_loss_and_clipped_grads_match_jax(setup, cvar_eps,
     jg = j_clip(jg, 1.0)
 
     _, _, tdyn, tpol = setup['specs']
-    opt = tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**cfg_kw))
+    opt = tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**cfg_kw),
+                               'cpu')
     tp, dp, st, noise = _torch_inputs(setup)
     tl, tr = opt.loss_fn(tp, torch.tensor(setup['x0']), dp, st, noise)
     tg = tmc.clip_grad_norm(list(torch.autograd.grad(tl, tree_leaves(tp))),
@@ -205,7 +206,8 @@ def test_five_adam_iterations_match_optax(setup):
     state = optimizer.init(jp)
 
     _, _, tdyn, tpol = setup['specs']
-    opt = tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**cfg_kw))
+    opt = tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**cfg_kw),
+                               'cpu')
     tp, dp, st, noise = _torch_inputs(setup)
     adam = torch.optim.Adam(tree_leaves(tp), lr=1e-3)
     pool = torch.tensor(setup['pool'])
@@ -229,7 +231,7 @@ def test_pegasus_noise_is_keyed_by_the_global_step(setup):
     _, _, tdyn, tpol = setup['specs']
     cfg = tmc.MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                             mm_rewards=True, resampling_period=4)
-    opt = tmc.make_mc_pilco_fn(tdyn, tpol, cfg)
+    opt = tmc.make_mc_pilco_fn(tdyn, tpol, cfg, 'cpu')
     pool = torch.tensor(setup['pool'])
     runs = []
     for chunks in ((6,), (3, 3)):
@@ -281,7 +283,7 @@ def test_unported_options_raise(setup):
     for kw in (dict(pegasus=False), dict(mm_method='mix'),
                dict(infer_noise_variables=True), dict(with_priorities=True)):
         with pytest.raises(NotImplementedError):
-            tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw))
+            tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu')
     tp, dp, st, (dn, pn, _, _) = _torch_inputs(setup)
     x0 = torch.tensor(setup['x0'])
     for kw in (dict(mm_method='mix'), dict(value_fn=lambda s: s),
