@@ -21,11 +21,18 @@ Phases (any failure exits non-zero and prints no result line):
      gradients wrt the policy params and action_eps, by the forward and
      backward kernels and by the one-launch value-and-grad. The step and
      rollout inputs put the pole all round the circle, so rewards range
-     from exp(-8) to 1. Each output is held to a tolerance relative to its
+     from exp(-8) to 1. The grid rollout at the main path's widths and
+     T = 15, B in {16, 37, 1000, 1500}, states and rewards moment-matched
+     (states only at B = 37): disc, raw, vret, states_all and the gradients
+     wrt the policy params and action_eps of random cotangents of all four.
+     Each output is held to a tolerance relative to its
      own largest plain value (``hold``). Times at the
      main-path shapes (B = 100): the MLP and step kernels replay the work in
      a CUDA graph, timed with CUDA events; the rollout kernels (cooperative
-     launches) are timed with CUDA events around 20 launches in a row.
+     launches) are timed with CUDA events around 20 launches in a row; the
+     grid kernels the same way at B = 1000 (the value path's) and B = 100,
+     with the kernel's own time split at B = 1000 (``%globaltimer`` laps of
+     block 0: MLP walk, moment matching, MM adjoint, recompute + VJP, dW).
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -47,9 +54,19 @@ Phases (any failure exits non-zero and prints no result line):
   6. the route of ``MCPILCO.loss`` on that tier: a loop of the
      differentiable loss (one forward and one backward kernel per
      iteration), clip and Adam.
+  7. the value path: ``mc_pilco`` at B = 1000 with a TD(H) critic (the
+     Deep-PILCO with-value driver's default: a [200, 200] concrete-dropout
+     MSE critic, Adam 1e-4, polyak 1, H = 15), where the gate names the grid
+     tier: one ``fused_grid_fwd`` and one ``fused_grid_bwd`` per iteration,
+     the critic's MLP through the fused-MLP kernels (3 forward, 2 backward
+     calls per iteration), nothing else; the host split of an iteration
+     (grid forward, critic refit, bootstrap + backward, clip + Adam); one
+     iteration compared with the plain path (loss, mean_return, v_loss,
+     clipped grads, refit critic).
 
 Each kernel's launches in the ``kernels`` line come from the run of its own
-route (phase 3, 4, 5 or 6), with every count set to 0 just before the run.
+route (phase 3, 4, 5, 6 or 7), with every count set to 0 just before the
+run.
 
 ``tools/profile_torch_main_path.py`` breaks a main-path iteration down
 (host split and a torch.profiler trace) on the same setup.
@@ -69,6 +86,7 @@ from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
                                                      make_mc_pilco_fn,
                                                      mc_pilco,
                                                      seeded_generator)
+from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
 from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
                                         MLPSpec, Policy, Regressor, bdropout,
                                         cdropout)
@@ -77,7 +95,7 @@ from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
 from prob_mbrl_tpu_torch.ops.math import clip_grad_norm
 from prob_mbrl_tpu_torch.ops.moment_matching import standardize_noise
-from prob_mbrl_tpu_torch.utils.core import tree_leaves
+from prob_mbrl_tpu_torch.utils.core import tree_leaves, tree_map
 
 # published H100 SXM peaks: HBM bytes/s, float32 FLOP/s outside the tensor
 # cores (the kernels use float32 FMA)
@@ -96,6 +114,9 @@ STEP_ROUTE_ITERS = 10  # mc_pilco iterations on the step tier (phase 4b)
 LOSS_ITERS = 30  # iterations of the differentiable rollout loss (phase 6)
 STEP_BATCHES = (2, 37, 100, 1500)
 ROLLOUT_BATCHES = (16, 37, 100, 1500)
+GRID_BATCHES = (16, 37, 1000, 1500)
+GRID_B = 1000  # particles of the value path (phase 7)
+VALUE_ITERS = 100  # mc_pilco iterations of the value path
 ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
 SEED = 1
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
@@ -111,14 +132,18 @@ SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_step_bwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu',
            'fused_rollout_fwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
            'fused_rollout_bwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
-           'fused_rollout_vg': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu'}
+           'fused_rollout_vg': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
+           'fused_grid_fwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
+           'fused_grid_bwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu'}
 REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
             'fused_mlp_bwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247',
             'fused_step_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1166',
             'fused_step_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1206',
             'fused_rollout_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:813',
             'fused_rollout_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:859',
-            'fused_rollout_vg': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:981'}
+            'fused_rollout_vg': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:981',
+            'fused_grid_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1462',
+            'fused_grid_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1542'}
 
 
 def log(*args):
@@ -177,6 +202,38 @@ def hold(what, a, r, rel_tol, moved=None):
     if not scale:
         return err, 0.0, 0.0
     return err, err / scale, tol / scale
+
+
+def hold_rows(what, a, r, rel_tol, moved=None):
+    """Hold a per-particle gradient (the grid rollout's d action_eps): the
+    2-norm of ``a - r`` within ``rel_tol`` of ``r``'s, and at most one
+    element in 1000 beyond ``hold``'s elementwise tolerance. A ReLU unit
+    whose pre-activation lies within float32 rounding of 0 takes the other
+    branch in one of the two versions (their sums run in another order);
+    that moves one particle's entry alone, far beyond the elementwise
+    tolerance at B = 1000 (the plain version in float32 against float64
+    does the same at other places), while a fault in a row, a step or a
+    block moves the norm. Returns (max abs err, the norm's relative error,
+    rel_tol)."""
+    if not torch.isfinite(a).all():
+        raise AssertionError(f'{what}: kernel output is not finite')
+    scale = float(r.abs().max())
+    tol = rel_tol * scale
+    if moved is not None:
+        tol = max(tol, 3 * float((moved - r).abs().max()))
+    d = (a - r).abs()
+    off = int((d > tol).sum())
+    n_err, n_ref = float(torch.linalg.vector_norm(a - r)), float(
+        torch.linalg.vector_norm(r))
+    if n_err > rel_tol * n_ref or off * 1000 > d.numel():
+        raise AssertionError(f'{what}: |kernel - plain| {n_err:.3e} against '
+                             f'|plain| {n_ref:.3e}, {off} of {d.numel()} '
+                             f'elements beyond {tol:.3e}')
+    if off:
+        log(f'[phase 2] {what}: {off} of {d.numel()} elements beyond '
+            f'{tol:.3e} (largest {float(d.max()):.3e}), norm relative error '
+            f'{n_err / n_ref:.3e}')
+    return float(d.max()), n_err / max(n_ref, 1e-30), rel_tol
 
 
 def grads_through(fn, x, ws, bs, ms, g):
@@ -603,8 +660,8 @@ def rollout_timings():
     }
     dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
     work = rollout_bytes_flops(MAIN_B, MAIN_T, *dims, 5, 1, r_mm=False)
-    for name, (nbytes, flops) in work.items():
-        t[name]['bound_ms'], t[name]['bound_by'] = bound(nbytes, flops)
+    for name in t:
+        t[name]['bound_ms'], t[name]['bound_by'] = bound(*work[name])
         t[name]['library_ms'] = None
     return t
 
@@ -617,7 +674,11 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
     (``step_bytes_flops``). Row 4 takes only the boundary states and pre-MM
     outputs, no pre-activations, so its count includes the recompute of
     both MLPs' forward products, as the step backward's does; row 5 is one
-    forward and its VJP, so it counts those products once."""
+    forward and its VJP, so it counts those products once. The grid kernels
+    (rows 8-9) are rows 3-4 with per-particle outputs: the forward writes
+    states_all [T, B, D] (the boundary states after x0) and disc, raw, vret
+    [B] and reads vw_t; the backward reads those, the cotangents of disc,
+    raw, vret and g_sall [T, B, D]."""
     step = step_bytes_flops(B, pol_dims, dyn_dims, D, U)
     f_fwd, f_bwd = step['fused_step_fwd'][1], step['fused_step_bwd'][1]
 
@@ -633,11 +694,19 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
     inputs = (wp + wd + masks + stats + B * (2 * D + U) + T
               + T * B * (D + U + (1 if r_mm else 0)))
     residuals = (T + 1) * B * D + T * B * (D + 1)  # boundary states, pre-MM
+    sall, per_particle = T * B * D, 3 * B  # states_all; disc, raw, vret
+    pre = B * D + T * B * (D + 1)  # the other residuals: x0's slot, pre-MM
+    # the grid forward's bytes; the backward reads the same but for disc,
+    # raw, vret their cotangents, and g_sall besides
+    grid = inputs + T + sall + pre + per_particle
     return {'fused_rollout_fwd': (4 * (inputs + residuals + 2), T * f_fwd),
             'fused_rollout_bwd': (4 * (inputs + residuals + 2 + wp
                                        + T * B * U), T * f_bwd),
             'fused_rollout_vg': (4 * (inputs + 2 + wp),
-                                 T * (f_fwd + f_bwd - mults))}
+                                 T * (f_fwd + f_bwd - mults)),
+            'fused_grid_fwd': (4 * grid, T * f_fwd),
+            'fused_grid_bwd': (4 * (grid + sall + wp + T * B * U),
+                               T * f_bwd)}
 
 
 def phase_rollout_kernels():
@@ -696,8 +765,145 @@ def phase_rollout_kernels():
     return rows
 
 
+def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T):
+    """The grid rollout on ``rollout_problem``'s inputs: (kernel rollout,
+    plain rollout, policy params, leaves, the rollout's arguments after the
+    policy params, cotangents of disc, raw, vret and states_all, (dyn, pol,
+    w_t, vw_t)); vret weighs step t by (T - 1 - t) / T."""
+    _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
+        B, seed, False, T)
+    x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
+    rng = np.random.RandomState(seed + 1)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device='cuda')
+
+    vw_t = (T - 1 - np.arange(T)) / T  # 0 at the last step
+    cot = [t(rng.randn(B, 1)) for _ in range(3)] + [t(rng.randn(T, B, 5))]
+    make = (dyn, pol, T, mm_states, mm_rewards)
+    return (fr.make_grid_rollout(*make), fr.make_grid_rollout_plain(*make),
+            pp, leaves, [x0, z_mm if mm_states else None,
+                         z_rr if mm_rewards else None, eps, dyn_params, stats,
+                         dyn_noise, pol_noise, w_t, vw_t], cot,
+            (dyn, pol, w_t, vw_t))
+
+
+def grid_outputs(fn, pp, leaves, args, cot, x0_scale=1.0):
+    """disc, raw, vret, states_all and the gradients wrt the policy leaves
+    and action_eps of sum(output * cotangent) over the four outputs."""
+    a = list(args)
+    a[0] = a[0] * x0_scale
+    a[3] = a[3].clone().requires_grad_(True)
+    outs = fn(pp, *a)
+    grads = torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cot)),
+                                leaves + [a[3]])
+    return [o.detach() for o in outs] + list(grads)
+
+
+SPLIT = ('MLP walk (forward)', 'moment matching (forward)',
+         'MM adjoint (backward)', 'recompute + VJP (backward)', 'dW')
+
+
+def grid_timings(B, split=False):
+    """ms of each grid kernel and of the plain version at batch B, T = 15
+    (CUDA events around launches in a row, as ``rollout_timings``; the plain
+    backward is the plain forward and ``torch.autograd.grad`` in one graph
+    less the forward), and with ``split`` the kernel's own time split in ms
+    per launch."""
+    _, plain, pp, leaves, args, cot, (dyn, pol, w_t, vw_t) = grid_problem(
+        B, 7)
+    x0, z_mm, z_rr, eps, dyn_params, stats, dyn_noise, pol_noise = args[:8]
+    k = fr.GridKernel(dyn, pol, MAIN_T, w_t, vw_t, True, True, B, x0.device)
+    sk = k.bind(pp, x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr,
+                eps)
+    res = k.forward(sk)[-1]
+
+    def plain_fwd():
+        return plain(pp, *args)
+
+    def plain_fwd_bwd():
+        outs = plain_fwd()
+        torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cot)),
+                            leaves)
+
+    def bwd():
+        k.backward(sk, res, *cot, True)
+
+    plain_fwd_ms = time_graph(plain_fwd, n=5)
+    t = {'fused_grid_fwd': dict(ms=time_launches(lambda: k.forward(sk)),
+                                plain_ms=plain_fwd_ms),
+         'fused_grid_bwd': dict(ms=time_launches(bwd),
+                                plain_ms=time_graph(plain_fwd_bwd, n=5)
+                                - plain_fwd_ms)}
+    dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
+    work = rollout_bytes_flops(B, MAIN_T, *dims, 5, 1, r_mm=True)
+    for name in t:
+        t[name]['bound_ms'], t[name]['bound_by'] = bound(*work[name])
+        t[name]['library_ms'] = None
+    parts = None
+    if split:
+        n = ROLLOUT_LAUNCHES
+        k.split = torch.zeros(5, dtype=torch.int64, device='cuda')
+        for _ in range(n):
+            k.forward(sk)
+            bwd()
+        parts = (k.split.double() / n / 1e6).tolist()
+        k.split = None
+    return t, parts
+
+
+def phase_grid_kernels():
+    """The grid kernels against the plain grid rollout (tolerances as
+    ``phase_rollout_kernels``); times at B = 1000 (the value path's) and
+    B = 100 (the main path's). Returns the B = 1000 rows."""
+    names = ['fused_grid_fwd', 'fused_grid_bwd']
+    worst = {n: 0.0 for n in names}
+    cases = [(B, True) for B in GRID_BATCHES] + [(37, False)]
+    labels = None
+    for B, mm_rewards in cases:
+        kern, plain, pp, leaves, args, cot, _ = grid_problem(B, B, True,
+                                                             mm_rewards)
+        got = grid_outputs(kern, pp, leaves, args, cot)
+        ref = grid_outputs(plain, pp, leaves, args, cot)
+        moved = grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
+        torch.cuda.synchronize()
+        labels = (['disc', 'raw', 'vret', 'states_all']
+                  + [f'd pol leaf {i}' for i in range(len(leaves))]
+                  + ['d eps'])
+        here = {n: 0.0 for n in names}
+        rel = loose = 0.0
+        for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
+            kern_name = names[0] if i < 4 else names[1]
+            check = hold_rows if lab == 'd eps' else hold
+            err, r_err, r_tol = check(f'grid B={B} {lab}', a, r, STEP_TOL, m)
+            here[kern_name] = max(here[kern_name], err)
+            rel, loose = max(rel, r_err), max(loose, r_tol)
+        for n in names:
+            worst[n] = max(worst[n], here[n])
+        log(f'[phase 2] grid B={B} T={MAIN_T} (states'
+            f'{" and rewards" if mm_rewards else " only"} moment-matched; '
+            f'mean disc {float(ref[0].mean()):.6f}): kernel vs plain max abs '
+            f'err fwd {here[names[0]]:.3e}, bwd {here[names[1]]:.3e}; worst '
+            f'of an output relative to its max|plain| {rel:.3e}, loosest '
+            f'tolerance {loose:.3e} relative ({STEP_TOL:.0e} or the plain '
+            'version\'s sensitivity) ok')
+    rows, parts = grid_timings(GRID_B, split=True)
+    for B, tt in ((GRID_B, rows), (MAIN_B, grid_timings(MAIN_B)[0])):
+        for name, v in tt.items():
+            log(f'[phase 2] {name} B={B} T={MAIN_T}: kernel {v["ms"]:.4f} ms '
+                f'(CUDA events around {ROLLOUT_LAUNCHES} launches), plain '
+                f'{v["plain_ms"]:.4f} ms (graph replay), no single library '
+                f'call, bound {v["bound_ms"]:.6f} ms ({v["bound_by"]})')
+    log(f'[phase 2] grid B={GRID_B} time split per forward + backward '
+        '(block 0\'s clock, barrier waits included): '
+        + ', '.join(f'{lab} {ms:.4f} ms' for lab, ms in zip(SPLIT, parts)))
+    for name, v in rows.items():
+        v['max_abs_err'] = worst[name]
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phases 3-6: the routes, the main path among them
+# phases 3-7: the routes, the main path among them
 # ---------------------------------------------------------------------------
 
 
@@ -927,6 +1133,182 @@ def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
     return launches
 
 
+def critic_setup(D, seed=SEED, T=MAIN_T):
+    """The Deep-PILCO with-value driver's default critic
+    (``examples/deep_pilco_common.py:177-202``): a [200, 200] relu MLP with
+    concrete dropout 0.1 and a plain head, MSE TD(H) loss with H = T,
+    reg_weight 1e-4, Adam 1e-4, polyak 1. Returns (V, update, value_state,
+    stats)."""
+    V = Regressor(MLPSpec(D, 1, (200, 200), dropout=cdropout(0.1)))
+    adam = Adam(1e-4)
+    update = make_value_update_fn(V, adam, T, polyak=1.0, use_density=False)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 100)
+    vp = V.init(gen, device='cuda')
+    return (V, update, dict(params=vp, target=vp, opt_state=adam.init(vp)),
+            V.init_stats(device='cuda'))
+
+
+def value_iteration_split(opt, setup, V, update, state, vstats, n=20,
+                          seed=SEED, T=MAIN_T):
+    """Host ms of each part of a grid-tier iteration with the critic, each
+    part ended by a synchronise (median of n): the grid forward, the critic
+    refit, the bootstrap with the loss's backward (the critic's VJP and the
+    grid backward), clip + Adam. Runs on copies of the policy and critic."""
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    pol_params = tree_map(lambda v: v.detach().clone().requires_grad_(True),
+                          pol_params)
+    roll = fr.make_grid_rollout(dyn, pol, T, True, True)
+    dn, pn, zm, zr, vn = opt.prepare_noise(opt.sample_noise(
+        seeded_generator('cuda', seed, 0), x0_pool.shape[-1], 'cuda'), 'cuda')
+    params = tree_leaves(pol_params)
+    adam = torch.optim.Adam(params, lr=1e-3)
+    carry = (state['params'], state['target'], state['opt_state'])
+    init = torch.tensor(init_noise, device='cuda')
+    times = []
+    for i in range(n):
+        x0 = opt.sample_x0(x0_pool, seeded_generator('cuda', seed, i), init)
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        disc, _, vret, sall = roll(pol_params, x0, zm, zr, None, dyn_params,
+                                   dyn_stats, dn, pn, opt.w_t, update.w_t)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        *carry, _ = update.core(*carry, vstats, x0, sall[T - 1].detach(),
+                                vret.detach(), vn)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        v_end = V.apply(tree_map(torch.Tensor.detach, carry[0]), vstats,
+                        sall[-1], vn, return_samples=True)
+        loss = -(disc + float(opt.w_H) * v_end).mean()
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        for q, g in zip(params, clip_grad_norm(list(grads), 1.0)):
+            q.grad = g
+        adam.step()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        times.append(np.diff(stamps) * 1e3)
+    names = ('grid forward', 'critic refit', 'bootstrap + backward',
+             'clip + Adam')
+    return dict(zip(names, np.median(times, 0).tolist()))
+
+
+def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
+                        B=GRID_B):
+    """One iteration with the critic on the same initial states and noise,
+    through ``opt`` (the grid tier) and through its plain path
+    (``make_loss_plain`` with the value update: the per-step rollout, the
+    rewards resampled step by step, on unfused MLPs, the critic unfused
+    too): loss, mean_return, v_loss, the clipped policy grads and the refit
+    critic's params. The ``utils.rollout`` route is not this path's plain
+    version: it resamples the [T, B, 1] rewards in one call, whose jitter
+    JAX's safe Cholesky chooses for all steps at once, so a step whose
+    reward variance is ~1e-10 of the largest step's gets a larger jitter,
+    which moves per-particle rewards (what the critic reads) and not their
+    means. Tolerance: the plain path's own change under a 1e-6 relative move
+    of x0 (times 3), at least 1e-4 relative on the three scalars, 1e-3 of
+    max|grad| on the grads and 1e-3 of the refit's largest step on the
+    critic's params."""
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    update_p = make_value_update_fn(fr.unfused(V), Adam(1e-4), T, polyak=1.0,
+                                    use_density=False)
+    plain = fr.make_loss_plain(fr.unfused(dyn), fr.unfused(pol), T, opt.w_t,
+                               True, True, True, value_update=update_p,
+                               w_H=opt.w_H)
+    noise = opt.prepare_noise(opt.sample_noise(
+        seeded_generator('cuda', seed, 1), x0_pool.shape[-1], 'cuda'), 'cuda')
+    x0 = opt.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
+                       torch.tensor(init_noise, device='cuda'))
+    carry = (state['params'], state['target'], state['opt_state'])
+    params = [q.requires_grad_(True) for q in tree_leaves(pol_params)]
+    before = torch.cat([v.reshape(-1) for v in tree_leaves(carry[0])])
+
+    def run(loss_fn):
+        loss, mret, aux = loss_fn()
+        grads = clip_grad_norm(list(torch.autograd.grad(loss, params)), 1.0)
+        return {'loss': loss.detach(), 'mean_return': mret.detach(),
+                'v_loss': aux[3],
+                'grads': torch.cat([g.reshape(-1) for g in grads]),
+                'critic': torch.cat([v.reshape(-1)
+                                     for v in tree_leaves(aux[0])])}
+
+    def plain_at(x):
+        return lambda: plain(pol_params, x, dyn_params, dyn_stats,
+                             *noise[:4], extras=(*carry, vstats, noise[4]))
+
+    got = run(lambda: opt.loss(pol_params, x0, dyn_params, dyn_stats, noise,
+                               carry, vstats))
+    ref, moved = run(plain_at(x0)), run(plain_at(x0 * (1 + 1e-6)))
+    floor = {'loss': 1e-4 * float(ref['loss'].abs()),
+             'mean_return': 1e-4 * float(ref['mean_return'].abs()),
+             'v_loss': 1e-4 * float(ref['v_loss'].abs()),
+             'grads': 1e-3 * float(ref['grads'].abs().max()),
+             'critic': 1e-3 * float((ref['critic'] - before).abs().max())}
+    bad = []
+    for k, f in floor.items():
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f'non-finite {k} on the kernel path')
+        err = float((got[k] - ref[k]).abs().max())
+        tol = max(f, 3 * float((moved[k] - ref[k]).abs().max()))
+        log(f'[phase 7] one iteration, kernel vs plain path: {k} max abs err '
+            f'{err:.3e} (tolerance {tol:.3e}; plain '
+            f'{float(ref[k].abs().max()):.6e} max abs)')
+        if err > tol:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f'kernel path and plain path disagree: {bad}')
+
+
+def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
+    """``mc_pilco`` at B = 1000 with the critic of ``critic_setup``, where
+    the gate must name the grid tier; the launch counts of the run (set to
+    0 just before it), the host split and the check against the plain
+    path. Returns the launch counts."""
+    setup = main_path_setup(seed)
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    V, update, state, vstats = critic_setup(x0_pool.shape[-1], seed, T)
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
+                        mm_rewards=True)
+    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V, update)
+    if opt.tier('cuda') != 'grid':
+        raise AssertionError(f'the gate names {opt.tier("cuda")!r} for the '
+                             f'value path at B={B}, expected \'grid\'')
+    stamps = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pol_params, _, metrics, n_steps = mc_pilco(
+        x0_pool, dyn, pol, T, dyn_params, dyn_stats, pol_params,
+        opt_iters=iters, mm_states=True, mm_rewards=True,
+        init_state_noise=init_noise, n_particles=B, seed=seed, chunk=1,
+        on_iteration=lambda done, m: stamps.append(time.perf_counter()),
+        value_spec=V, value_stats=vstats, value_update_fn=update,
+        value_state=state)
+    torch.cuda.synchronize()
+    launches = counts()
+    if n_steps != iters or int(state['opt_state'].count) != iters:
+        raise AssertionError('the run did not take every iteration')
+    report('phase 7', 'mc_pilco with a TD(H) critic (tier grid)', iters, t0,
+           stamps, metrics['loss'], metrics['mean_return'], launches,
+           expect(fused_grid_fwd=iters, fused_grid_bwd=iters,
+                  fused_mlp_fwd=3 * iters, fused_mlp_bwd=2 * iters), T, B)
+    v = metrics['v_loss']
+    if not np.all(np.isfinite(v)):
+        raise AssertionError('non-finite v_loss on the value path')
+    log(f'[phase 7] v_loss first {v[0]:.6e} last {v[-1]:.6e} (min '
+        f'{v.min():.6e}, max {v.max():.6e}), all finite')
+    split = value_iteration_split(opt, setup, V, update, state, vstats,
+                                  seed=seed, T=T)
+    log('[phase 7] host split of an iteration (median of 20, each part '
+        'ended by a synchronise): '
+        + ', '.join(f'{k} {ms:.3f} ms' for k, ms in split.items())
+        + f' = {sum(split.values()):.3f} ms')
+    compare_value_paths(setup, opt, V, state, vstats, seed, T, B)
+    return launches
+
+
 def start(name):
     """Phases 0 and 1: the card's name and power limit, TF32 off, the
     kernels built. Returns the ``nvidia-smi`` line, or None without CUDA."""
@@ -956,7 +1338,7 @@ def main():
         return 1
 
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
-            **phase_rollout_kernels()}
+            **phase_rollout_kernels(), **phase_grid_kernels()}
     T = MAIN_T
     # each kernel's launches come from the run of its own route
     route = phase_mc_pilco(ROUTE_ITERS, False, 'phase 3', expect(
@@ -979,9 +1361,10 @@ def main():
                                expect(fused_rollout_vg=ITERS), 'full')
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
+    value_path = phase_value_path()
     runs = {'fused_mlp': route, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
-            'fused_rollout_bwd': loss_route}
+            'fused_rollout_bwd': loss_route, 'fused_grid': value_path}
     launches = {n: next(v for k, v in runs.items() if n.startswith(k))[n]
                 for n in REPLACES}
 

@@ -19,6 +19,8 @@ optimizer is built is taken:
     iteration (``make_fused_value_and_grad``, no autograd), then clip and
     the optimizer step; ``MCPILCO.loss`` goes through the differentiable
     whole-rollout loss (forward and backward kernels);
+  - ``'grid'`` (with a value update): one launch of each grid kernel per
+    iteration, the critic refit and the bootstrap between them;
   - ``'step'`` (when the card cannot hold the whole rollout's blocks at
     once): one forward and one backward kernel per rollout step;
 otherwise (``fused_rollout`` False, a configuration no tier takes, or None
@@ -26,9 +28,16 @@ on the CPU) the rollout of ``utils.rollout``, whose MLPs may use the
 fused-MLP kernels. All routes draw the same random numbers in the same
 order.
 
+Value bootstrap (``value_spec`` and ``value_update`` from
+``algorithms.value.make_value_update_fn``; JAX ``mc_pilco.py:397-440``): each
+iteration refits the critic on the detached imagined trajectory (TD(H)), then
+adds ``w_H * V(s_T)`` under the refit critic's detached params to every
+particle's discounted return. The critic's masks are the epoch noise's
+(``val_mask_mode='epoch'``).
+
 Not ported yet (raise NotImplementedError): non-PEGASUS per-step noise,
-``mm_method='mix'``, ``infer_noise_variables``, prioritized replay and the
-value bootstrap.
+``mm_method='mix'``, ``infer_noise_variables``, prioritized replay and fresh
+critic masks every iteration (``val_mask_mode='iter'``).
 """
 import dataclasses
 from typing import Callable, Optional, Union
@@ -38,7 +47,7 @@ import torch
 
 from ..ops.cuda import fused_rollout as fr
 from ..ops.math import clip_grad_norm
-from ..utils.core import tile, tree_leaves
+from ..utils.core import tile, tree_leaves, tree_map
 from ..utils.rollout import rollout as rollout_fn
 
 
@@ -92,6 +101,9 @@ class MCPILCOConfig:
     init_state_noise: float = 0.0
     resampling_period: int = 499
     with_priorities: bool = False
+    # the critic's dropout masks: 'epoch' (the epoch noise, the reference's)
+    # or 'iter' (fresh every iteration; not ported)
+    val_mask_mode: str = 'epoch'
     # The fused tiers of ops.cuda.fused_rollout. None = on for CUDA tensors
     # when fused_rollout.fused_mode admits the configuration; True = always
     # (their plain versions on CPU tensors), and a configuration no tier
@@ -118,9 +130,11 @@ class MCPILCO:
     ``device``: where the iterations will run. The fused tier is chosen when
     the optimizer is built; for a CUDA device the gate checks that the card
     holds the whole-rollout kernel's blocks at once (``mc_pilco`` passes the
-    pool's device)."""
+    pool's device). ``value_spec`` / ``value_update``: the critic's
+    ``Regressor`` and its update, for the value bootstrap."""
 
-    def __init__(self, dyn, pol, config, device):
+    def __init__(self, dyn, pol, config, device, value_spec=None,
+                 value_update=None):
         cfg = config
         if not cfg.pegasus:
             raise NotImplementedError('non-PEGASUS noise is not ported yet')
@@ -129,81 +143,109 @@ class MCPILCO:
                                       'ported')
         if cfg.with_priorities:
             raise NotImplementedError('prioritized replay is not ported yet')
+        if (value_spec is None) != (value_update is None):
+            raise NotImplementedError(
+                'the value bootstrap takes value_spec with value_update (a '
+                'bootstrap under a fixed critic is not ported)')
+        if value_update is not None and cfg.val_mask_mode != 'epoch':
+            raise NotImplementedError("val_mask_mode='iter' (fresh critic "
+                                      'masks every iteration) is not ported '
+                                      'yet')
         self.dyn, self.pol, self.cfg = dyn, pol, cfg
+        self.value_spec, self.value_update = value_spec, value_update
         self.B = cfg.n_particles
         self.G = cfg.mm_groups if cfg.mm_groups else self.B
         self.w_t, self.w_H = discount_weights(cfg.discount, cfg.steps)
-        # With CVaR off the loss reduces rewards with a plain particle mean,
-        # which the reward MM resample leaves unchanged: take the mean-only
+        # With CVaR off and no critic refit (which reads per-particle
+        # rewards) the loss reduces rewards with a plain particle mean, which
+        # the reward MM resample leaves unchanged: take the mean-only
         # shortcut (utils.rollout._mm_rewards_batched; JAX mc_pilco.py:266-268,
-        # which also needs no value update and no infer_noise_variables,
-        # neither ported).
+        # which also needs no infer_noise_variables, not ported).
         cvar_active = (-1.0 < cfg.cvar_eps < 1.0) and cfg.cvar_eps != 0.0
-        self.mr_mean_only = cfg.mm_rewards and not cvar_active
-        why = fr.refuses(cfg, dyn, pol)
+        self.mr_mean_only = (cfg.mm_rewards and not cvar_active
+                             and value_update is None)
+        why = fr.refuses(cfg, dyn, pol, value_update, value_spec=value_spec)
         if cfg.fused_rollout and why is not None:
             raise ValueError('fused_rollout=True but no fused tier takes '
                              f'this configuration: {why}')
         self.mode = None
         if cfg.fused_rollout is not False and why is None:
-            self.mode = fr.fused_mode(cfg, dyn, pol, device=device)
+            self.mode = fr.fused_mode(cfg, dyn, pol, value_update,
+                                      value_spec=value_spec, device=device)
         self.fused_loss = self.fused_vg = None
         if self.mode is not None:
             args = (dyn, pol, cfg.steps, self.w_t, cfg.mm_states,
                     cfg.mm_rewards, cfg.maximize)
-            kw = dict(mode=self.mode, mm_rewards_mean_only=self.mr_mean_only)
+            kw = dict(mode=self.mode, mm_rewards_mean_only=self.mr_mean_only,
+                      value_update=value_update, w_H=self.w_H)
             self.fused_loss = fr.make_fused_loss(*args, **kw)
             if self.mode == 'full':
                 self.fused_vg = fr.make_fused_value_and_grad(*args, **kw)
 
     def tier(self, device):
-        """The fused tier iterations on ``device`` take (``'full'`` or
-        ``'step'``), or None for the ``utils.rollout`` route."""
+        """The fused tier iterations on ``device`` take (``'full'``,
+        ``'grid'`` or ``'step'``), or None for the ``utils.rollout`` route."""
         if self.cfg.fused_rollout is None and \
                 torch.device(device).type != 'cuda':
             return None
         return self.mode
 
     def sample_noise(self, generator, D, device):
-        """One PEGASUS epoch's noise: (dyn_noise, pol_noise, z_mm, z_rr)."""
+        """One PEGASUS epoch's noise: (dyn_noise, pol_noise, z_mm, z_rr), and
+        the critic's noise after them with a value spec."""
         B = self.B
         dyn_noise = self.dyn.sample_noise(generator, (B,), device=device)
         pol_noise = self.pol.sample_noise(generator, (B,), device=device)
         z_mm = torch.randn((B, D), generator=generator, device=device)
         z_rr = torch.randn((B, 1), generator=generator, device=device)
-        return dyn_noise, pol_noise, z_mm, z_rr
+        if self.value_spec is None:
+            return dyn_noise, pol_noise, z_mm, z_rr
+        v_noise = self.value_spec.sample_noise(generator, (B,), device=device)
+        return dyn_noise, pol_noise, z_mm, z_rr, v_noise
 
     def prepare_noise(self, noise, device):
         """An epoch's noise in the form the route on ``device`` takes: as
-        drawn, or for either fused tier with the MM noise standardized and
+        drawn, or for a fused tier with the MM noise standardized and
         cyclically pre-rolled to [T, B, zD] once (None without that
         resample)."""
         if self.tier(device) is None:
             return noise
         cfg = self.cfg
-        dyn_noise, pol_noise, z_mm, z_rr = noise
+        dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
         return (dyn_noise, pol_noise,
                 fr.prepare_mm_noise(z_mm, cfg.steps, self.B)
                 if cfg.mm_states else None,
                 fr.prepare_mm_noise(z_rr, cfg.steps, self.B)
-                if cfg.mm_rewards else None)
+                if cfg.mm_rewards else None) + tuple(noise[4:])
 
-    def loss(self, pol_params, x0, dyn_params, dyn_stats, noise):
+    def _extras(self, noise, value_carry, value_stats):
+        if self.value_update is None:
+            return ()
+        return (*value_carry, value_stats, noise[4])
+
+    def loss(self, pol_params, x0, dyn_params, dyn_stats, noise,
+             value_carry=None, value_stats=None):
         """(loss, mean_return), differentiable, by the route ``x0``'s device
-        takes, with ``noise`` from ``prepare_noise``."""
+        takes, with ``noise`` from ``prepare_noise``; with a value update,
+        given ``value_carry`` = (v_params, v_target, v_opt_state) and the
+        critic's stats, (loss, mean_return, (v_params', v_target',
+        v_opt_state', v_loss)) after the critic refit."""
         if self.tier(x0.device) is None:
-            return self.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise)
-        loss, mean_return, _ = self.fused_loss(pol_params, x0, dyn_params,
-                                               dyn_stats, *noise)
-        return loss, mean_return
+            return self.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise,
+                                value_carry=value_carry,
+                                value_stats=value_stats)
+        loss, mean_return, aux = self.fused_loss(
+            pol_params, x0, dyn_params, dyn_stats, *noise[:4],
+            extras=self._extras(noise, value_carry, value_stats))
+        return (loss, mean_return) + ((aux,) if aux else ())
 
     def loss_fn(self, pol_params, x0, dyn_params, dyn_stats, noise,
-                action_eps=None):
-        """(loss, mean_return) through ``utils.rollout`` for explicit initial
-        states and noise as drawn."""
+                action_eps=None, value_carry=None, value_stats=None):
+        """``loss``'s result through ``utils.rollout`` for explicit initial
+        states and noise as drawn (JAX ``mc_pilco.py:380-440``)."""
         cfg = self.cfg
-        dyn_noise, pol_noise, z_mm, z_rr = noise
-        _, _, rewards = rollout_fn(
+        dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
+        states, _, rewards = rollout_fn(
             x0, self.dyn, self.pol, cfg.steps, dyn_params, dyn_stats,
             pol_params, dyn_noise, pol_noise, mm_states=cfg.mm_states,
             mm_rewards=cfg.mm_rewards, z_mm=z_mm, z_rr=z_rr,
@@ -211,6 +253,20 @@ class MCPILCO:
             mm_rewards_mean_only=self.mr_mean_only)
         w_t = torch.as_tensor(self.w_t, device=rewards.device)
         returns = torch.sum(rewards[..., 0] * w_t[:, None], 0)
+        aux = ()
+        if self.value_update is not None:
+            # the critic refit on the detached trajectory, then the bootstrap
+            # under its detached params (JAX mc_pilco.py:397-431)
+            v_params, v_tgt, v_opt = value_carry
+            v_noise = noise[4]
+            *vc, v_loss = self.value_update(
+                v_params, v_tgt, v_opt, value_stats, states.detach(),
+                rewards.detach(), noise=v_noise)
+            v_end = self.value_spec.apply(
+                tree_map(torch.Tensor.detach, vc[0]), value_stats, states[-1],
+                v_noise, return_samples=True)
+            returns = returns + float(self.w_H) * v_end[..., 0]
+            aux = (*vc, v_loss)
         if cfg.maximize:
             returns = -returns
         selected, _ = cvar_filter(returns, cfg.cvar_eps)
@@ -219,7 +275,7 @@ class MCPILCO:
             loss = loss + cfg.reg_weight * self.pol.regularization_loss(
                 pol_params)
         mean_return = torch.sum(rewards[..., 0], 0).mean()
-        return loss, mean_return
+        return (loss, mean_return) + ((aux,) if aux else ())
 
     def sample_x0(self, x0_pool, generator, init_noise=None):
         """Initial particles drawn from the pool (tiled per MM group), plus
@@ -238,38 +294,52 @@ class MCPILCO:
         return x0
 
     def iteration(self, pol_params, optimizer, dyn_params, dyn_stats,
-                  x0_pool, noise, generator, init_noise=None):
-        """One optimizer step; returns detached (loss, mean_return).
-        ``noise`` comes from ``prepare_noise``."""
+                  x0_pool, noise, generator, init_noise=None,
+                  value_carry=None, value_stats=None):
+        """One optimizer step; returns detached (loss, mean_return), and with
+        a value update (v_loss, value_carry') after them (JAX
+        ``mc_pilco.py:442-506``). ``noise`` comes from ``prepare_noise``."""
         x0 = self.sample_x0(x0_pool, generator, init_noise)
         params = tree_leaves(pol_params)
         if self.tier(x0.device) == 'full':
-            loss, mean_return, grads, _ = self.fused_vg(
+            loss, mean_return, grads, aux = self.fused_vg(
                 pol_params, x0, dyn_params, dyn_stats, *noise)
             grads = tree_leaves(grads)
         else:
-            loss, mean_return = self.loss(pol_params, x0, dyn_params,
-                                          dyn_stats, noise)
+            loss, mean_return, *aux = self.loss(
+                pol_params, x0, dyn_params, dyn_stats, noise,
+                value_carry=value_carry, value_stats=value_stats)
+            aux = aux[0] if aux else ()
             grads = torch.autograd.grad(loss, params)
         if self.cfg.clip_grad is not None:
             grads = clip_grad_norm(list(grads), self.cfg.clip_grad)
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
-        return loss.detach(), mean_return.detach()
+        out = (loss.detach(), mean_return.detach())
+        if self.value_update is not None:
+            out += (aux[3], tuple(aux[:3]))
+        return out
 
     def __call__(self, pol_params, optimizer, dyn_params, dyn_stats, x0_pool,
-                 seed, n_opt_steps, iters, init_state_noise=None):
+                 seed, n_opt_steps, iters, init_state_noise=None,
+                 value_state=None, value_stats=None):
         """Run ``iters`` iterations from the global step ``n_opt_steps``.
+        With a value update, ``value_state`` (a dict with 'params',
+        'target', 'opt_state') is carried through them and updated in place.
 
-        Returns ({'loss': [iters], 'mean_return': [iters]} on the device,
-        n_opt_steps + iters).
+        Returns ({'loss': [iters], 'mean_return': [iters], and 'v_loss'
+        [iters] with a value update} on the device, n_opt_steps + iters).
         """
         device = x0_pool.device
         D = x0_pool.shape[-1]
         period = self.cfg.resampling_period
         epoch, noise = None, None
-        losses, returns = [], []
+        carry = None
+        if self.value_update is not None:
+            carry = (value_state['params'], value_state['target'],
+                     value_state['opt_state'])
+        hist = []
         for n in range(n_opt_steps, n_opt_steps + iters):
             if n // period != epoch:
                 epoch = n // period
@@ -277,20 +347,24 @@ class MCPILCO:
                     seeded_generator(device, seed, _EPOCH_TAG, epoch), D,
                     device), device)
             gen = seeded_generator(device, seed, _ITER_TAG, n)
-            loss, mean_return = self.iteration(
-                pol_params, optimizer, dyn_params, dyn_stats, x0_pool, noise,
-                gen, init_state_noise)
-            losses.append(loss)
-            returns.append(mean_return)
-        metrics = {'loss': torch.stack(losses),
-                   'mean_return': torch.stack(returns)}
+            out = self.iteration(pol_params, optimizer, dyn_params, dyn_stats,
+                                 x0_pool, noise, gen, init_state_noise, carry,
+                                 value_stats)
+            if carry is not None:
+                carry = out[3]
+            hist.append(out[:3])
+        names = ('loss', 'mean_return', 'v_loss')
+        metrics = {k: torch.stack(v) for k, v in zip(names, zip(*hist))}
+        if carry is not None:
+            value_state.update(zip(('params', 'target', 'opt_state'), carry))
         return metrics, n_opt_steps + iters
 
 
-def make_mc_pilco_fn(dyn, pol, config, device):
+def make_mc_pilco_fn(dyn, pol, config, device, value_spec=None,
+                     value_update=None):
     """The policy optimizer (``MCPILCO``) for these specs and config, for
     iterations on ``device`` (see ``MCPILCO``)."""
-    return MCPILCO(dyn, pol, config, device)
+    return MCPILCO(dyn, pol, config, device, value_spec, value_update)
 
 
 def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
@@ -299,8 +373,9 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
              cvar_eps=0.0, reg_weight=0.0, discount=None,
              init_state_noise=0.0, resampling_period=499, n_particles=100,
              seed=None, n_opt_steps=0, on_iteration=None, chunk=None,
-             fused_rollout=None):
-    """Host-level MC-PILCO loop.
+             fused_rollout=None, value_spec=None, value_stats=None,
+             value_update_fn=None, value_state=None, val_mask_mode='epoch'):
+    """Host-level MC-PILCO loop (JAX ``mc_pilco.py:574-716``).
 
     The policy params are optimized in place (their leaves are made leaf
     tensors that require grad). ``optimizer`` defaults to
@@ -308,7 +383,11 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     ``init_state_noise``: scalar or per-dim [D] Gaussian noise scale added to
     sampled initial states. ``on_iteration(done, metrics)`` runs after each
     chunk of ``chunk`` iterations (all of them when None).
-    ``fused_rollout``: ``MCPILCOConfig.fused_rollout``.
+    ``fused_rollout``: ``MCPILCOConfig.fused_rollout``. With
+    ``value_update_fn`` and ``value_state`` (a dict with 'params', 'target',
+    'opt_state'), the critic ``value_spec`` refits every iteration and
+    ``value_state`` is updated in place; ``metrics`` then also holds
+    ``v_loss``.
 
     Returns (pol_params, optimizer, metrics (numpy), n_opt_steps).
     """
@@ -324,8 +403,10 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         mm_rewards=mm_rewards, mm_groups=mm_groups, maximize=maximize,
         clip_grad=clip_grad, cvar_eps=cvar_eps, reg_weight=reg_weight,
         discount=discount, resampling_period=resampling_period,
-        fused_rollout=fused_rollout)
-    opt_fn = make_mc_pilco_fn(dyn, pol, cfg, x0_pool.device)
+        val_mask_mode=val_mask_mode, fused_rollout=fused_rollout)
+    use_value = value_update_fn is not None and value_state is not None
+    opt_fn = make_mc_pilco_fn(dyn, pol, cfg, x0_pool.device, value_spec,
+                              value_update_fn if use_value else None)
     init_noise = None
     if np.any(np.asarray(init_state_noise) > 0):
         init_noise = torch.as_tensor(np.asarray(init_state_noise, np.float32),
@@ -337,7 +418,9 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         n = min(chunk, opt_iters - done)
         metrics, n_opt_steps = opt_fn(pol_params, optimizer, dyn_params,
                                       dyn_stats, x0_pool, seed, n_opt_steps,
-                                      n, init_state_noise=init_noise)
+                                      n, init_state_noise=init_noise,
+                                      value_state=value_state,
+                                      value_stats=value_stats)
         metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         all_metrics.append(metrics)
         done += n

@@ -1,11 +1,14 @@
 """Conversion between JAX pytrees (as numpy arrays) and the port's tensors.
 
 Both packages use the same nested-dict names and the same ``(din, dout)``
-weight layout, so conversion is a name-for-name copy.
+weight layout, so conversion is a name-for-name copy. An ``optax.adam`` state
+(``(ScaleByAdamState(count, mu, nu), EmptyState())``) carries across to the
+port's ``algorithms.value.AdamState`` and back.
 """
 import numpy as np
 import torch
 
+from .algorithms.value import AdamState
 from .utils.core import resolve_device, tree_map
 
 
@@ -29,3 +32,29 @@ def noise_from_jax(np_tree, device=None):
 def params_to_numpy(tree):
     """The port's tensors -> the same tree of numpy arrays."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _adam_part(np_state):
+    """The ``ScaleByAdamState`` (the part with count, mu, nu) of an optax
+    state."""
+    return next(x for x in np_state if hasattr(x, 'mu') and hasattr(x, 'nu'))
+
+
+def adam_state_from_jax(np_state, device=None):
+    """An ``optax.adam`` state with numpy leaves -> ``AdamState`` on
+    ``device``."""
+    s = _adam_part(np_state)
+    device = resolve_device(device)
+    return AdamState(torch.tensor(np.asarray(s.count), dtype=torch.int32,
+                                  device=device),
+                     params_from_jax(s.mu, device),
+                     params_from_jax(s.nu, device))
+
+
+def adam_state_to_jax(state, like):
+    """``AdamState`` -> an optax state of the structure of ``like`` (an
+    ``optax.adam`` state) with numpy leaves."""
+    return type(like)(
+        x._replace(count=np.asarray(state.count.cpu().numpy(), np.int32),
+                   mu=params_to_numpy(state.mu), nu=params_to_numpy(state.nu))
+        if x is _adam_part(like) else x for x in like)

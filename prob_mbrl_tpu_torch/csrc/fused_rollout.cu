@@ -8,10 +8,23 @@
 //   fused_rollout_fwd <- make_fused_loss._fwd_pallas (the call at :813)
 //   fused_rollout_bwd <- make_fused_loss._bwd_pallas (the call at :859)
 //   fused_rollout_vg  <- make_fused_value_and_grad.fused_vg (the call at :981)
+// and the grid tier's two kernels (make_grid_rollout, :1368-1602, ungrouped):
+//   fused_grid_fwd <- make_grid_rollout._fwd_pallas (the call at :1462)
+//   fused_grid_bwd <- make_grid_rollout._bwd_pallas (the call at :1542)
 // Per step t: the step of rollout_step.cuh on the states s_t, then
 // s_{t+1} = resample(nxt) (or nxt), r = resample(r) (or its particle mean
 // with the reward mean-only shortcut, :583-591, or r itself);
 // disc += w_t r, raw += r; loss = sign * mean(disc), mean_return = mean(raw).
+// The grid kernels run the same sweeps with per-particle outputs: the forward
+// also accumulates vret += vw_t r and writes disc, raw, vret [B] and the
+// boundary states (states_all = s_all[1:]) instead of loss and mean_return;
+// the backward takes a cotangent per particle for each of disc, raw, vret,
+// so the reward cotangent of row b at step t is
+// c[b] = w_t g_disc[b] + g_raw[b] + vw_t g_vret[b] (:1534) where rows 3-5 have
+// the uniform (sign g_loss w_t + g_mret) / B, and it adds g_sall[t], the
+// cotangent of states_all[t], to the state cotangent before step t's MM
+// backward (:1530-1531). No mean-only shortcut there: the critic reads
+// per-particle rewards.
 //
 // Bound at the main-path shapes (B = 100, T = 15; policy 5->200->200->2,
 // dynamics 6->200->200->10): T times the step's work, ~15 x 17 MFLOP of
@@ -19,6 +32,9 @@
 // and ~15 x 42 MFLOP backward (the recompute, both dx chains and the
 // policy's dW). Like the step, it is a chain of dependent products and of
 // reductions over all particles, so latency, not either bound, sets its time.
+// The grid kernels at the value path's B = 1000 do 10x that work (~39 us
+// forward, ~96 us backward at that peak) on 125 row blocks, one per SM; the
+// backward's dW then sums T B = 15000 rows per tile, one tile per block.
 //
 // Design. One cooperative launch, all blocks co-resident (checked with the
 // occupancy API before the launch). Block k < ceil(B / TM) owns rows
@@ -53,6 +69,13 @@
 //     backward's 4.1 at the main path; one tile per block removes most).
 // No atomics anywhere: results repeat bit for bit. The backward recomputes
 // each step from its boundary state (the remat design).
+//
+// Time split. Given RollArgs::split, thread 0 of block 0 adds the
+// %globaltimer nanoseconds of each part of the launch to split[part]: the
+// forward's step (MLP walk), its barrier and moment matching, the backward's
+// barrier and MM adjoint, its recompute and VJP, and the dW (barrier
+// included). Block 0's clock includes its wait at each barrier for the
+// slowest block. Off (null) it costs one test per part.
 
 #include <cooperative_groups.h>
 
@@ -65,6 +88,8 @@ namespace {
 constexpr int kStat = 2 * kMaxD + kMaxD * kMaxD;  // m, sd, L of one resample site
 constexpr int kPart = 48;  // partial sums of one block: D + D(D+1)/2 + 2 <= 46
 constexpr int kFwd = 1, kBwd = 2;
+// parts of RollArgs::split
+constexpr int kFwdStep = 0, kFwdMM = 1, kBwdMM = 2, kBwdStep = 3, kDW = 4;
 // Threads of a block, at most: the launch bound leaves each thread 128
 // registers. With a bound of 1024 (64 registers) the kernel spilled heavily
 // and ran markedly slower at the main path on an H100; 256 was no faster
@@ -82,6 +107,15 @@ struct RollArgs {
   const float* w_t;      // [T] discount weights
   const float* g_loss;   // backward: cotangents of loss and mean_return (device
   const float* g_mret;   //   scalars); null in value-and-grad (1 and 0)
+  const float* vw_t;     // grid: [T] weights of vret
+  const float* g_disc;   // grid backward: [B] cotangents of disc, raw and vret
+  const float* g_raw;
+  const float* g_vret;
+  const float* g_sall;   // grid backward: [T, B, D] cotangent of s_all[1:]
+  float* disc;           // grid forward: [B] per-particle disc, raw and vret
+  float* raw;
+  float* vret;
+  unsigned long long* split;  // [5] nanoseconds of each part, or null
   float* s_all;          // [T + 1, B, D] boundary states (s_0 = x0)
   float* nxt_raw;        // [T, B, D] pre-MM next states
   float* r_raw;          // [T, B] pre-MM rewards
@@ -106,8 +140,9 @@ namespace {
 struct Roll {
   int T, nrb, mm_states, r_mm, mean_only;  // nrb: blocks that own rows
   float sign;
-  const float *w_t, *g_loss, *g_mret;
-  float *s_all, *nxt_raw, *r_raw, *stats, *loss, *mret, *g_eps;
+  const float *w_t, *g_loss, *g_mret, *vw_t, *g_disc, *g_raw, *g_vret, *g_sall;
+  float *s_all, *nxt_raw, *r_raw, *stats, *loss, *mret, *g_eps, *disc, *raw, *vret;
+  unsigned long long* split;
   float *rowsum, *part, *g_s, *g_nxt, *g_r, *g_pout;
   float* pol_a[kMaxLayers];
   Grads pw;  // dw, db, ga = pol_ga; tile_start over the policy's layers
@@ -123,8 +158,31 @@ struct RollSm {
   Site s, r;  // states, rewards
   float red[32];
   float tot[kPart];
-  float disc[TM], raw[TM], rpost[TM];
+  float disc[TM], raw[TM], vret[TM], rpost[TM];
+  unsigned long long last_lap;  // the time split's clock at the last lap
 };
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// With ro.split, thread 0 of block 0 adds the time since the last lap to
+// ro.split[part] (the clock lives in shared memory, the pointer in the
+// kernel's parameters: no register is held for it).
+__device__ __forceinline__ void lap(const Roll& ro, RollSm& sh, int part) {
+  if (!ro.split || blockIdx.x != 0 || threadIdx.x != 0) return;
+  const unsigned long long t = globaltimer();
+  ro.split[part] += t - sh.last_lap;
+  sh.last_lap = t;
+}
+
+// The cotangent of row b's post-MM reward at step t: per particle on the grid
+// tier, else the loss's uniform c.
+__device__ __forceinline__ float reward_cot(const Roll& ro, int t, int b, float c) {
+  return ro.g_disc ? ro.w_t[t] * ro.g_disc[b] + ro.g_raw[b] + ro.vw_t[t] * ro.g_vret[b] : c;
+}
 
 __device__ void save_site(const Site& x, int D, float* dst) {
   for (int i = 0; i < D; ++i) {
@@ -154,7 +212,7 @@ __device__ void forward_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
     for (int i = tid; i < nrows * D; i += nt)
       ro.s_all[(size_t)row0 * D + i] = st.states[(size_t)row0 * D + i];
   }
-  for (int r = tid; r < TM; r += nt) sh.disc[r] = sh.raw[r] = 0.f;
+  for (int r = tid; r < TM; r += nt) sh.disc[r] = sh.raw[r] = sh.vret[r] = 0.f;
   __syncthreads();
   for (int t = 0; t < ro.T; ++t) {
     if (!owner) {
@@ -173,6 +231,7 @@ __device__ void forward_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
       x_t[(size_t)(row0 + r) * D + k] = tl.nxt[k][r];
     }
     for (int r = tid; r < nrows; r += nt) r_t[row0 + r] = tl.r[r];
+    lap(ro, sh, kFwdStep);
     grid.sync();
     if (ro.mm_states) {
       moments(x_t, B, D, sh.s.m, sh.s.S, sh.s.sd, sh.red);
@@ -209,8 +268,20 @@ __device__ void forward_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
     for (int r = tid; r < nrows; r += nt) {
       sh.disc[r] = sh.disc[r] + ro.w_t[t] * sh.rpost[r];
       sh.raw[r] = sh.raw[r] + sh.rpost[r];
+      if (ro.vw_t) sh.vret[r] = sh.vret[r] + ro.vw_t[t] * sh.rpost[r];
     }
     __syncthreads();
+    lap(ro, sh, kFwdMM);
+  }
+  if (ro.disc) {  // the grid tier: per-particle outputs, no reduction
+    if (owner) {
+      for (int r = tid; r < nrows; r += nt) {
+        ro.disc[row0 + r] = sh.disc[r];
+        ro.raw[row0 + r] = sh.raw[r];
+        ro.vret[row0 + r] = sh.vret[r];
+      }
+    }
+    return;
   }
   if (owner) {
     for (int r = tid; r < nrows; r += nt) {
@@ -232,6 +303,7 @@ __device__ void forward_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
       *ro.mret = raw / B;
     }
   }
+  lap(ro, sh, kFwdMM);
 }
 
 __device__ void reverse_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm& sh,
@@ -251,7 +323,13 @@ __device__ void reverse_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
       grid.sync();
       continue;
     }
-    // gradient wrt every particle's post-MM reward of step t
+    if (ro.g_sall) {  // the grid tier: the cotangent of states_all[t] joins g_s
+      const float* gs = ro.g_sall + (size_t)t * B * D + (size_t)row0 * D;
+      for (int i = tid; i < nrows * D; i += nt) ro.g_s[(size_t)row0 * D + i] += gs[i];
+      __syncthreads();
+    }
+    // gradient wrt every particle's post-MM reward of step t (the loss's;
+    // reward_cot gives the grid tier's per-particle one)
     const float c = (ro.sign * g_loss * ro.w_t[t] + g_mret) / B;
     const float* zm = st.z_mm ? st.z_mm + (size_t)t * B * D : nullptr;
     const float* zr = st.z_rr ? st.z_rr + (size_t)t * B : nullptr;
@@ -267,9 +345,9 @@ __device__ void reverse_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
         for (int r = 0; r < nrows; ++r)
           v += ro.g_s[(size_t)(row0 + r) * D + i] * zm[(size_t)(row0 + r) * D + j];
       } else if (ro.r_mm && tid == D + nL) {
-        for (int r = 0; r < nrows; ++r) v += c;
+        for (int r = 0; r < nrows; ++r) v += reward_cot(ro, t, row0 + r, c);
       } else if (ro.r_mm && tid == D + nL + 1) {
-        for (int r = 0; r < nrows; ++r) v += c * zr[row0 + r];
+        for (int r = 0; r < nrows; ++r) v += reward_cot(ro, t, row0 + r, c) * zr[row0 + r];
       }
       ro.part[((size_t)t * ro.nrb + blk) * kPart + tid] = v;
     }
@@ -309,9 +387,10 @@ __device__ void reverse_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
     if (ro.r_mm) {
       mm_vjp_apply(ro.r_raw + (size_t)t * B, sh.r.m, sh.r.H, sh.r.c0, 1, row0, nrows, ro.g_r);
     } else {
-      for (int r = tid; r < nrows; r += nt) ro.g_r[row0 + r] = c;
+      for (int r = tid; r < nrows; r += nt) ro.g_r[row0 + r] = reward_cot(ro, t, row0 + r, c);
     }
     __syncthreads();
+    lap(ro, sh, kBwdMM);
     Net pol = st.pol;
     StepGrads sg;
     sg.g_nxt = ro.g_nxt;
@@ -327,6 +406,7 @@ __device__ void reverse_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
     tile_bwd(st, pol, ro.s_all + (size_t)t * B * D,
              st.eps ? st.eps + (size_t)t * B * U : nullptr, sg, tl, smem, row0, nrows);
     __syncthreads();
+    lap(ro, sh, kBwdStep);
   }
   grid.sync();
   // the policy's dW and db over all T B rows (inputs s_0 ... s_{T-1}), the
@@ -336,6 +416,7 @@ __device__ void reverse_sweep(const Step& st, const Roll& ro, TileSm& tl, RollSm
   for (int l = 0; l < pw.n; ++l) pw.a[l] = ro.pol_a[l];
   for (int t = blk; t < ro.pw.tile_start[pw.n + 1]; t += gridDim.x)
     wgrad_tile(pw, ro.pw, ro.s_all, ro.g_pout, t, B);
+  lap(ro, sh, kDW);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -344,6 +425,7 @@ rollout_kernel(Step st, Roll ro, int phases) {
   __shared__ TileSm tl;
   __shared__ RollSm sh;
   cg::grid_group grid = cg::this_grid();
+  if (ro.split && blockIdx.x == 0 && threadIdx.x == 0) sh.last_lap = globaltimer();
   // the forward's last grid sync already orders block 0's stats before the
   // backward reads them
   if (phases & kFwd) forward_sweep(st, ro, tl, sh, smem, grid);
@@ -392,7 +474,12 @@ int launch(const StepArgs* a, const RollArgs* r, int phases, void* stream) {
     return -1;
   const int r_mm = r->mm_rewards && !r->mean_only;
   if ((r->mm_states && !st.z_mm) || (r_mm && !st.z_rr)) return -1;
-  if ((phases & kFwd) && (!r->loss || !r->mret || !r->rowsum)) return -1;
+  const bool grid_fwd = r->disc != nullptr;
+  if ((phases & kFwd) && !(grid_fwd ? r->raw && r->vret && r->vw_t
+                                    : r->loss && r->mret && r->rowsum))
+    return -1;
+  if (r->g_disc && !(r->g_raw && r->g_vret && r->g_sall && r->vw_t)) return -1;
+  if ((grid_fwd || r->g_disc) && r->mean_only) return -1;
   Roll ro = {};
   ro.T = r->T;
   ro.nrb = (st.B + TM - 1) / TM;
@@ -403,6 +490,15 @@ int launch(const StepArgs* a, const RollArgs* r, int phases, void* stream) {
   ro.w_t = r->w_t;
   ro.g_loss = r->g_loss;
   ro.g_mret = r->g_mret;
+  ro.vw_t = r->vw_t;
+  ro.g_disc = r->g_disc;
+  ro.g_raw = r->g_raw;
+  ro.g_vret = r->g_vret;
+  ro.g_sall = r->g_sall;
+  ro.disc = r->disc;
+  ro.raw = r->raw;
+  ro.vret = r->vret;
+  ro.split = r->split;
   ro.s_all = r->s_all;
   ro.nxt_raw = r->nxt_raw;
   ro.r_raw = r->r_raw;
@@ -475,6 +571,7 @@ int fused_rollout_capacity(int maxw, int hidden, int* blocks) {
 // [T, B, 1]. Writes loss, mret and the residuals s_all, nxt_raw, r_raw, stats
 // that the backward takes. Returns 0, a cudaError_t, -1 or -2.
 int fused_rollout_fwd(const StepArgs* a, const RollArgs* r, void* stream) {
+  if (!r || r->disc) return -1;
   return launch(a, r, kFwd, stream);
 }
 
@@ -482,15 +579,31 @@ int fused_rollout_fwd(const StepArgs* a, const RollArgs* r, void* stream) {
 // r->g_loss, r->g_mret: policy dW, db and (when r->g_eps) the gradient wrt
 // the action noise.
 int fused_rollout_bwd(const StepArgs* a, const RollArgs* r, void* stream) {
-  if (!r || !r->g_loss || !r->g_mret) return -1;
+  if (!r || !r->g_loss || !r->g_mret || r->g_disc) return -1;
   return launch(a, r, kBwd, stream);
 }
 
 // Value and grad (row 5): both sweeps in one launch with g_loss = 1 and
 // g_mret = 0.
 int fused_rollout_vg(const StepArgs* a, const RollArgs* r, void* stream) {
-  if (!r || r->g_loss || r->g_mret) return -1;
+  if (!r || r->g_loss || r->g_mret || r->disc || r->g_disc) return -1;
   return launch(a, r, kFwd | kBwd, stream);
+}
+
+// The grid tier's forward (row 8): as fused_rollout_fwd with r->vw_t, but
+// writes the per-particle r->disc, r->raw, r->vret [B] (no loss, no
+// mean_return); the boundary states r->s_all[1:] are states_all.
+int fused_grid_fwd(const StepArgs* a, const RollArgs* r, void* stream) {
+  if (!r || !r->disc || r->loss || r->mret || r->g_disc) return -1;
+  return launch(a, r, kFwd, stream);
+}
+
+// The grid tier's backward (row 9) from fused_grid_fwd's residuals and the
+// cotangents r->g_disc, r->g_raw, r->g_vret [B] and r->g_sall [T, B, D]:
+// policy dW, db and (when r->g_eps) the gradient wrt the action noise.
+int fused_grid_bwd(const StepArgs* a, const RollArgs* r, void* stream) {
+  if (!r || !r->g_disc || r->g_loss || r->g_mret || r->disc) return -1;
+  return launch(a, r, kBwd, stream);
 }
 
 }  // extern "C"

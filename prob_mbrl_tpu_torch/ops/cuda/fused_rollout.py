@@ -14,8 +14,20 @@ Counterpart of ``prob_mbrl_tpu/ops/pallas/fused_rollout.py``:
     ``make_fused_step`` (forward kernel ``_fwd_pallas`` at :1166, backward
     ``_bwd_pallas`` at :1206), ``make_stepwise_loss`` /
     ``make_stepwise_value_and_grad``, in ``csrc/fused_step.cu``;
+  - the grid tier (``mode='grid'``): ``make_grid_rollout`` (forward kernel
+    ``_fwd_pallas`` at :1462, backward ``_bwd_pallas`` at :1542; per-particle
+    returns and the post-MM states, for the value bootstrap),
+    ``make_grid_loss`` / ``make_grid_value_and_grad``, as two more entry
+    points of the whole-rollout kernel in ``csrc/fused_rollout.cu``;
   - ``prepare_mm_noise`` and the gate ``fused_mode``.
 Both sources share the step's device code, ``csrc/rollout_step.cuh``.
+
+With a value update (``algorithms.value.make_value_update_fn``) the step and
+grid tiers and the plain loss run the TD(H) critic refit on the detached
+trajectory, then add the bootstrap ``w_H * V(s_T)`` under the refit critic's
+detached params to the discounted return, as plain PyTorch between the
+kernels (``_value_loss``); the in-kernel refit of JAX's ``'full'`` tier
+(``make_loss_impl`` :621-660) is not ported.
 
 One step: policy -> DiagGaussian sample -> ``max_u * tanh(.) + eps`` ->
 dynamics (whitened input, scaled DiagGaussian sample of the deltas) ->
@@ -59,18 +71,18 @@ TM = 8           # particles per block of the whole-rollout kernel (csrc TM)
 _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
 _PART = 48       # kPart: partial MM-backward sums of one block
 
-TIERS = ('full', 'remat', 'step')
-_GRID_NOT_PORTED = ("mode='grid': the grid rollout kernels (PERF.md rows "
-                    "8-9) are still to port")
+TIERS = ('full', 'remat', 'step', 'grid')
 _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
                       'resample (ROADMAP K6), not ported to the fused tiers '
                       'yet')
-_VALUE_NOT_PORTED = ('the value bootstrap (value_update, ROADMAP Queue 1 item '
-                     '9) is not ported to the fused tiers yet')
+_REFIT_NOT_PORTED = ("the in-kernel critic refit of mode='full' (PERF.md row "
+                     "5, make_loss_impl :621-660) is not ported: mode='grid' "
+                     "or 'step' take the value bootstrap")
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {'fused_step_fwd': 0, 'fused_step_bwd': 0, 'fused_rollout_fwd': 0,
-            'fused_rollout_bwd': 0, 'fused_rollout_vg': 0}
+            'fused_rollout_bwd': 0, 'fused_rollout_vg': 0,
+            'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
 
 
 def reset_launch_counts():
@@ -134,14 +146,15 @@ def make_step_plain(dyn, pol, mm_states, mm_rewards):
     return step
 
 
-def _rollout_loss(step, x0, steps, w_list, maximize, mean_only, action_eps,
-                  z_mm_t, z_rr_t):
-    """The T loop of both tiers: ``step(s, eps_s, z_mm_s, z_rr_s) -> (nxt,
-    r)``; ``disc += w_t * r; raw += r``; (±mean(disc), mean(raw), ())."""
+def _rollout(step, x0, steps, w_list, vw_list, mean_only, action_eps, z_mm_t,
+             z_rr_t):
+    """The T loop of every tier: ``step(s, eps_s, z_mm_s, z_rr_s) -> (nxt,
+    r)``; ``disc += w_t * r; raw += r; vret += vw_t * r`` per particle.
+    Returns (disc, raw, vret, [the post-MM states s_1 ... s_T])."""
     B = x0.shape[0]
     disc = torch.zeros((B, 1), dtype=x0.dtype, device=x0.device)
-    raw = torch.zeros_like(disc)
-    s = x0
+    raw, vret = torch.zeros_like(disc), torch.zeros_like(disc)
+    s, states = x0, []
     for t in range(steps):
         s, r = step(s, None if action_eps is None else action_eps[t],
                     None if z_mm_t is None else z_mm_t[t],
@@ -150,31 +163,77 @@ def _rollout_loss(step, x0, steps, w_list, maximize, mean_only, action_eps,
             r = r.mean(0, keepdim=True).expand_as(r)
         disc = disc + w_list[t] * r
         raw = raw + r
+        if vw_list is not None:
+            vret = vret + vw_list[t] * r
+        states.append(s)
+    return disc, raw, vret, states
+
+
+def _value_weights(value_update, steps):
+    """``vw_t``: the critic's TD weights over its H steps, 0 after (JAX
+    ``make_grid_loss`` :1628-1630); None without a value update."""
+    if value_update is None:
+        return None
+    for attr in ('core', 'spec', 'H', 'w_t'):
+        if not hasattr(value_update, attr):
+            raise ValueError('value_update must come from '
+                             'algorithms.value.make_value_update_fn (it has '
+                             f'no .{attr})')
+    if value_update.H > steps:
+        raise ValueError(f'the value horizon H={value_update.H} exceeds the '
+                         f'rollout ({steps} steps)')
+    vw = np.zeros(steps)
+    vw[:value_update.H] = np.asarray(value_update.w_t)[:value_update.H]
+    return [float(w) for w in vw]
+
+
+def _value_loss(disc, raw, vret, states, x0, maximize, value_update, w_H,
+                extras):
+    """(loss, mean_return, aux) from the per-particle accumulators. With a
+    value update: the TD(H) critic refit on the detached (x0, s_H, vret),
+    then ``disc += w_H * V(s_T)`` under the refit critic's detached params,
+    differentiable through s_T (JAX ``make_loss_impl`` :621-665,
+    ``make_stepwise_loss`` :1294-1311, ``make_grid_loss`` :1636-1651);
+    ``extras`` = (v_params, v_target, v_opt_state, v_stats, v_noise), aux =
+    (v_params', v_target', v_opt_state', v_loss). Else aux is ()."""
+    aux = ()
+    if value_update is not None:
+        v_params, v_tgt, v_opt, v_stats, v_noise = extras
+        vp2, vt2, vo2, v_loss = value_update.core(
+            v_params, v_tgt, v_opt, v_stats, x0.detach(),
+            states[value_update.H - 1].detach(), vret.detach(), v_noise)
+        v_end = value_update.spec.apply(
+            tree_map(torch.Tensor.detach, vp2), v_stats, states[-1], v_noise,
+            return_samples=True)
+        disc = disc + float(w_H) * v_end
+        aux = (vp2, vt2, vo2, v_loss)
     loss = disc.mean()
     if maximize:
         loss = -loss
-    return loss, raw.mean(), ()
+    return loss, raw.mean(), aux
 
 
 def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                     mm_groups=None, value_update=None, w_H=None,
                     mm_rewards_mean_only=False):
     """Plain PyTorch version of the whole-rollout loss (``make_loss_impl``,
-    ``fused_rollout.py:472-667``, ungrouped, no value bootstrap):
+    ``fused_rollout.py:472-667``, ungrouped):
     ``loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
-    z_mm_t, z_rr_t, action_eps=None) -> (loss, mean_return, ())``, the T
-    loop over ``make_step_plain``, differentiated by autograd. With
-    ``mm_rewards_mean_only`` (and ``mm_rewards``) each step's reward is its
-    particle mean, broadcast to [B, 1], and is not resampled (``:583-591``).
-    ``z_mm_t`` / ``z_rr_t``: [T, B, zD] from ``prepare_mm_noise`` (None
-    where unused); ``action_eps``: [T, B, U] or None."""
+    z_mm_t, z_rr_t, action_eps=None, extras=()) -> (loss, mean_return,
+    aux)``, the T loop over ``make_step_plain``, differentiated by autograd.
+    With ``mm_rewards_mean_only`` (and ``mm_rewards``, and no value update)
+    each step's reward is its particle mean, broadcast to [B, 1], and is not
+    resampled (``:507-508``, ``:583-591``). With ``value_update`` the critic
+    refit and the bootstrap of ``_value_loss`` (``extras`` and ``aux`` as
+    there). ``z_mm_t`` / ``z_rr_t``: [T, B, zD] from ``prepare_mm_noise``
+    (None where unused); ``action_eps``: [T, B, U] or None."""
     if mm_groups:
         raise NotImplementedError(_GROUPS_NOT_PORTED)
-    if value_update is not None:
-        raise NotImplementedError(_VALUE_NOT_PORTED)
-    mean_only = bool(mm_rewards_mean_only and mm_rewards)
+    mean_only = bool(mm_rewards_mean_only and mm_rewards
+                     and value_update is None)
     plain = make_step_plain(dyn, pol, mm_states, mm_rewards and not mean_only)
     w_list = [float(w) for w in np.asarray(w_t)]
+    vw_list = _value_weights(value_update, steps)
 
     def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
                 z_mm_t, z_rr_t, action_eps=None, extras=()):
@@ -182,8 +241,11 @@ def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
             return plain(pol_params, s, zm, zr, eps, dyn_params, dyn_stats,
                          dyn_noise, pol_noise)
 
-        return _rollout_loss(step, x0, steps, w_list, maximize, mean_only,
-                             action_eps, z_mm_t, z_rr_t)
+        disc, raw, vret, states = _rollout(step, x0, steps, w_list, vw_list,
+                                           mean_only, action_eps, z_mm_t,
+                                           z_rr_t)
+        return _value_loss(disc, raw, vret, states, x0, maximize,
+                           value_update, w_H, extras)
 
     return loss_fn
 
@@ -240,11 +302,19 @@ def kernel_refuses(dyn, pol):
     return None
 
 
-def refuses(cfg, dyn, pol, value_update=None, mesh=None):
+def refuses(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
     """Why the fused tiers cannot take this MC-PILCO configuration, or
     None."""
     if value_update is not None:
-        return _VALUE_NOT_PORTED
+        # JAX's conditions (fused_rollout.py:1800-1808)
+        if value_spec is None or getattr(value_update, 'core', None) is None:
+            return ('the value bootstrap needs value_spec and an update from '
+                    'make_value_update_fn (with .core)')
+        if getattr(cfg, 'val_mask_mode', 'epoch') != 'epoch':
+            return ("val_mask_mode='iter' draws fresh critic masks every "
+                    'iteration; the fused tiers take the epoch noise')
+        if value_update.H > cfg.steps:
+            return 'the value horizon H exceeds the rollout'
     if mesh is not None:
         return 'meshes are not ported'
     if cfg.mm_groups:
@@ -267,30 +337,34 @@ def refuses(cfg, dyn, pol, value_update=None, mesh=None):
 def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
                *, device):
     """The fused tier that takes this configuration on ``device``:
-    ``'full'`` (the whole-rollout kernels), ``'step'`` (the per-step kernels)
-    or None.
+    ``'full'`` (the whole-rollout kernels), ``'grid'`` (the grid kernels,
+    for a value update), ``'step'`` (the per-step kernels) or None.
 
     Capability only (the port's own gate, ROADMAP K9): Cholesky MM without
     groups, PEGASUS, no CVaR, ``reg_weight`` 0, no priorities, no
-    ``infer_noise_variables``, no value update, float32, and models the step
-    kernels take (``kernel_refuses``) admit both tiers. The whole-rollout
-    kernel also needs its ceil(B / 8) blocks resident on the card at once:
-    for a CUDA ``device`` that is checked against the card
-    (``rollout_capacity``); on the CPU, where both tiers run their plain
-    versions, the gate gives ``'full'``. None of the TPU's VMEM budgets or
-    crossovers is carried over."""
-    if refuses(cfg, dyn, pol, value_update, mesh) is not None:
+    ``infer_noise_variables``, float32, and models the step kernels take
+    (``kernel_refuses``) admit the tiers; a value update also needs
+    ``value_spec``, ``val_mask_mode='epoch'`` and H <= steps, and takes
+    ``'grid'`` (the critic refit between the grid kernels; the in-kernel
+    refit of ``'full'`` is not ported). The whole-rollout and grid kernels
+    (one cooperative kernel) need their ceil(B / 8) blocks resident on the
+    card at once: for a CUDA ``device`` that is checked against the card
+    (``rollout_capacity``), and a batch beyond it takes ``'step'``; on the
+    CPU, where every tier runs its plain version, the gate gives ``'full'``
+    or ``'grid'``. None of the TPU's VMEM budgets or crossovers is carried
+    over."""
+    if refuses(cfg, dyn, pol, value_update, mesh, value_spec) is not None:
         return None
     if torch.device(device).type == 'cuda':
         if -(-cfg.n_particles // TM) > rollout_capacity(dyn, pol, device):
             return 'step'
-    return 'full'
+    return 'full' if value_update is None else 'grid'
 
 
 def supports(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
     """True when a fused tier covers this MC-PILCO configuration (on any
     device: the step tier takes every batch the whole rollout does not)."""
-    return refuses(cfg, dyn, pol, value_update, mesh) is None
+    return refuses(cfg, dyn, pol, value_update, mesh, value_spec) is None
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +424,11 @@ class _RollArgs(ctypes.Structure):
                                               'mean_only')]
                 + [('sign', ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in (
-                    'w_t', 'g_loss', 'g_mret', 's_all', 'nxt_raw', 'r_raw',
-                    'stats', 'loss', 'mret', 'g_eps', 'rowsum', 'part', 'g_s',
-                    'g_nxt', 'g_r', 'g_pout')]
+                    'w_t', 'g_loss', 'g_mret', 'vw_t', 'g_disc', 'g_raw',
+                    'g_vret', 'g_sall', 'disc', 'raw', 'vret', 'split',
+                    's_all', 'nxt_raw', 'r_raw', 'stats', 'loss', 'mret',
+                    'g_eps', 'rowsum', 'part', 'g_s', 'g_nxt', 'g_r',
+                    'g_pout')]
                 + [(n, ctypes.c_void_p * _ML) for n in ('pol_a', 'pol_ga',
                                                          'dw', 'db')])
 
@@ -369,7 +445,7 @@ def _rollout_lib():
                 raise RuntimeError(f'csrc/fused_rollout.cu and the ctypes '
                                    f'mirror {mirror.__name__} differ in size')
         for fn in ('fused_rollout_fwd', 'fused_rollout_bwd',
-                   'fused_rollout_vg'):
+                   'fused_rollout_vg', 'fused_grid_fwd', 'fused_grid_bwd'):
             getattr(lib, fn).argtypes = [p, p, p]
             getattr(lib, fn).restype = i
         lib.fused_rollout_capacity.argtypes = [i, i, ctypes.POINTER(i)]
@@ -380,10 +456,10 @@ def _rollout_lib():
     return lib
 
 
-def _check(lib, name, rc):
+def _check(lib, name, rc, error=None):
     """Raise on a failed launch; count a launched one."""
     if rc != 0:
-        error = getattr(lib, name.rsplit('_', 1)[0] + '_error')
+        error = getattr(lib, error or name.rsplit('_', 1)[0] + '_error')
         raise RuntimeError(f'{name} failed: {rc} ({error(rc).decode()})')
     LAUNCHES[name] += 1
 
@@ -618,31 +694,34 @@ def make_fused_step(dyn, pol, mm_states, mm_rewards, mm_groups=None):
 def make_stepwise_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
                        maximize, mm_groups=None, value_update=None, w_H=None):
     """``loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
-    pol_noise, z_mm_t, z_rr_t, action_eps=None) -> (loss, mean_return,
-    ())`` (``make_stepwise_loss``, ``fused_rollout.py:1247-1313``): T steps,
+    pol_noise, z_mm_t, z_rr_t, action_eps=None, extras=()) -> (loss,
+    mean_return, aux)`` (``make_stepwise_loss``, ``fused_rollout.py:1247-1313``): T steps,
     ``disc += w_t * r; raw += r`` between them; loss ``mean(disc)``, negated
     when ``maximize``. ``z_mm_t`` / ``z_rr_t``: [T, B, zD] from
     ``prepare_mm_noise`` (None without that resample); ``action_eps``:
     [T, B, U] or None. The reward resample runs in full (no mean-only
-    shortcut), as in JAX."""
-    if value_update is not None:
-        raise NotImplementedError(_VALUE_NOT_PORTED)
+    shortcut), as in JAX. With ``value_update``: the critic refit and the
+    bootstrap of ``_value_loss`` between the kernels (``extras`` and the
+    returned aux as there)."""
     if mm_groups:
         raise NotImplementedError(_GROUPS_NOT_PORTED)
     plain = make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards,
-                            maximize)
+                            maximize, value_update=value_update, w_H=w_H)
     w_list = [float(w) for w in np.asarray(w_t)]
+    vw_list = _value_weights(value_update, steps)
 
     def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
                 z_mm_t, z_rr_t, action_eps=None, extras=()):
         if x0.device.type == 'cpu':
             return plain(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
-                         pol_noise, z_mm_t, z_rr_t, action_eps)
+                         pol_noise, z_mm_t, z_rr_t, action_eps, extras)
         step = StepKernel(dyn, pol, mm_states, mm_rewards, pol_params,
                           dyn_params, dyn_stats, dyn_noise, pol_noise,
                           x0.shape[0], x0.device)
-        return _rollout_loss(step, x0, steps, w_list, maximize, False,
-                             action_eps, z_mm_t, z_rr_t)
+        disc, raw, vret, states = _rollout(step, x0, steps, w_list, vw_list,
+                                           False, action_eps, z_mm_t, z_rr_t)
+        return _value_loss(disc, raw, vret, states, x0, maximize,
+                           value_update, w_H, extras)
 
     return loss_fn
 
@@ -742,6 +821,9 @@ class RolloutKernel:
             'g_r': self._empty(B), 'g_pout': self._empty(T, B, 2 * U)}
         for k, v in ws.items():
             setattr(a, k, v.data_ptr())
+        # [5] int64 nanoseconds of each part of a launch (the kernel's
+        # time split), added to by every launch while set
+        self.split = None
         self._pol_a = [self._empty(T, B, w) for w in self.pol_dims[1:-1]]
         self._pol_ga = [self._empty(T, B, w) for w in self.pol_dims[1:-1]]
         for i, (pa, pg) in enumerate(zip(self._pol_a, self._pol_ga)):
@@ -785,12 +867,15 @@ class RolloutKernel:
                for i, b in enumerate(sk.pol_bs)]
         return dws, dbs
 
-    def _launch(self, name, sk, res, loss=None, mret=None, g_loss=None,
-                g_mret=None, g_eps=None, dws=(), dbs=()):
+    def _launch(self, name, sk, res, g_eps=None, dws=(), dbs=(), **ptrs):
+        """Launch ``name`` with the residuals ``res``; ``ptrs``: the
+        RollArgs pointers of this launch (the others are null)."""
         a = self.args
         a.s_all, a.nxt_raw, a.r_raw, a.stats = [t.data_ptr() for t in res]
-        a.loss, a.mret = _ptr(loss), _ptr(mret)
-        a.g_loss, a.g_mret, a.g_eps = _ptr(g_loss), _ptr(g_mret), _ptr(g_eps)
+        for k in ('loss', 'mret', 'g_loss', 'g_mret', 'vw_t', 'g_disc',
+                  'g_raw', 'g_vret', 'g_sall', 'disc', 'raw', 'vret'):
+            setattr(a, k, _ptr(ptrs.get(k)))
+        a.g_eps, a.split = _ptr(g_eps), _ptr(self.split)
         for i in range(_ML):
             a.dw[i] = _ptr(dws[i]) if i < len(dws) else None
             a.db[i] = _ptr(dbs[i]) if i < len(dbs) else None
@@ -798,7 +883,7 @@ class RolloutKernel:
         with torch.cuda.device(self.device):
             rc = getattr(lib, name)(ctypes.byref(sk.args), ctypes.byref(a),
                                     torch.cuda.current_stream().cuda_stream)
-        _check(lib, name, rc)
+        _check(lib, name, rc, 'fused_rollout_error')
 
     def forward(self, sk):
         """Row 3: (loss, mean_return, residuals for ``backward``)."""
@@ -854,6 +939,8 @@ def _whole_rollout(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                    mm_groups, value_update, mm_rewards_mean_only):
     """(plain loss_fn, kernel_for(x0) -> RolloutKernel, cached per batch
     size and device) of one whole-rollout configuration."""
+    if value_update is not None:
+        raise NotImplementedError(_REFIT_NOT_PORTED)
     plain = make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards,
                             maximize, mm_groups, value_update,
                             mm_rewards_mean_only=mm_rewards_mean_only)
@@ -934,11 +1021,178 @@ def make_whole_rollout_value_and_grad(dyn, pol, steps, w_t, mm_states,
     return fused_vg
 
 
+# ---------------------------------------------------------------------------
+# the grid kernels
+# ---------------------------------------------------------------------------
+
+
+def _floats(w):
+    return [float(x) for x in np.asarray(w)]
+
+
+def make_grid_rollout_plain(dyn, pol, steps, mm_states, mm_rewards):
+    """Plain PyTorch version of the grid rollout (``make_grid_rollout``,
+    ``fused_rollout.py:1368-1602``, ungrouped): ``rollout(pol_params, x0,
+    z_mm_t, z_rr_t, action_eps, dyn_params, dyn_stats, dyn_noise, pol_noise,
+    w_t, vw_t) -> (disc, raw, vret, states_all)``: the T loop of
+    ``make_step_plain`` with ``disc[b] = sum_t w_t r_t[b]``, ``raw[b] =
+    sum_t r_t[b]``, ``vret[b] = sum_t vw_t r_t[b]`` ([B, 1] each; the reward
+    resampled in full) and ``states_all[t]`` the post-MM state after step t
+    ([T, B, D]), differentiated by autograd. ``z_mm_t`` / ``z_rr_t``: [T, B,
+    zD] from ``prepare_mm_noise`` (None where unused); ``action_eps``:
+    [T, B, U] or None; ``w_t``, ``vw_t``: [T] numbers."""
+    plain = make_step_plain(dyn, pol, mm_states, mm_rewards)
+
+    def rollout(pol_params, x0, z_mm_t, z_rr_t, action_eps, dyn_params,
+                dyn_stats, dyn_noise, pol_noise, w_t, vw_t):
+        def step(s, eps, zm, zr):
+            return plain(pol_params, s, zm, zr, eps, dyn_params, dyn_stats,
+                         dyn_noise, pol_noise)
+
+        disc, raw, vret, states = _rollout(step, x0, steps, _floats(w_t),
+                                           _floats(vw_t), False, action_eps,
+                                           z_mm_t, z_rr_t)
+        return disc, raw, vret, torch.stack(states)
+
+    return rollout
+
+
+class GridKernel(RolloutKernel):
+    """The grid kernels (rows 8-9) for one rollout configuration, batch size,
+    device and pair of weight vectors: ``RolloutKernel``'s workspace and
+    argument block (allocated once), launched through ``fused_grid_fwd`` and
+    ``fused_grid_bwd``, with the reward resampled in full."""
+
+    def __init__(self, dyn, pol, steps, w_t, vw_t, mm_states, mm_rewards, B,
+                 device):
+        super().__init__(dyn, pol, steps, w_t, mm_states, mm_rewards, False,
+                         False, B, device)
+        self._vw = torch.tensor(np.asarray(vw_t, np.float32), device=device)
+
+    def forward(self, sk):
+        """Row 8: (disc, raw, vret [B, 1], states_all [T, B, D], residuals
+        for ``backward``); states_all is a view of the residual boundary
+        states s_1 ... s_T."""
+        res = self._residuals()
+        disc, raw, vret = (self._empty(self.B, 1) for _ in range(3))
+        self._launch('fused_grid_fwd', sk, res, vw_t=self._vw, disc=disc,
+                     raw=raw, vret=vret)
+        return disc, raw, vret, res[0][1:], res
+
+    def backward(self, sk, res, g_disc, g_raw, g_vret, g_sall, want_eps):
+        """Row 9: (policy dws, dbs, g_eps or None) for the cotangents of
+        disc, raw, vret [B, 1] and states_all [T, B, D]."""
+        T, B, D = self.T, self.B, self.D
+        g = {}
+        for k, x, shape in (('g_disc', g_disc, (B, 1)), ('g_raw', g_raw, (B, 1)),
+                            ('g_vret', g_vret, (B, 1)),
+                            ('g_sall', g_sall, (T, B, D))):
+            if tuple(x.shape) != shape:
+                raise ValueError(f'{k} must have shape {shape}')
+            g[k] = _kernel_tensor(x.contiguous(), self.device, k)
+        dws, dbs = self._grads(sk)
+        g_eps = self._empty(T, B, self.U) if want_eps else None
+        self._launch('fused_grid_bwd', sk, res, vw_t=self._vw, g_eps=g_eps,
+                     dws=dws, dbs=dbs, **g)
+        return dws, dbs, g_eps
+
+
+class _GridRollout(torch.autograd.Function):
+    """Forward: ``fused_grid_fwd``; backward: ``fused_grid_bwd``, which
+    recomputes each step from its boundary state. Gradients reach the policy
+    weights and biases and ``action_eps`` (JAX ``roll_bwd`` :1576-1599)."""
+
+    @staticmethod
+    def forward(ctx, gk, sk, x0, eps, z_mm, z_rr, *pol_flat):
+        disc, raw, vret, sall, res = gk.forward(sk)
+        ctx.gk, ctx.sk, ctx.res = gk, sk, res
+        ctx.has_eps = eps is not None
+        # the argument block points at these: keep them alive
+        ctx.save_for_backward(x0, eps, z_mm, z_rr)
+        return disc, raw, vret, sall
+
+    @staticmethod
+    def backward(ctx, g_disc, g_raw, g_vret, g_sall):
+        want_eps = ctx.has_eps and ctx.needs_input_grad[3]
+        dws, dbs, g_eps = ctx.gk.backward(ctx.sk, ctx.res, g_disc, g_raw,
+                                          g_vret, g_sall, want_eps)
+        return (None, None, None, g_eps, None, None, *dws,
+                *[d for d in dbs if d is not None])
+
+
+def make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards, mm_groups=None):
+    """Rows 8-9 (``make_grid_rollout``, ``fused_rollout.py:1368-1602``):
+    ``make_grid_rollout_plain``'s contract, differentiable through all four
+    outputs wrt the policy weights and biases and ``action_eps`` (the other
+    inputs get no gradient, as in JAX). CPU tensors run the plain version;
+    CUDA tensors launch ``fused_grid_fwd`` (forward) and ``fused_grid_bwd``
+    (backward, the cotangent of ``states_all`` joining the state cotangent)
+    or raise. The kernels are cached per batch size, device and weights."""
+    if mm_groups:
+        raise NotImplementedError(_GROUPS_NOT_PORTED)
+    plain = make_grid_rollout_plain(dyn, pol, steps, mm_states, mm_rewards)
+    kernels = {}
+
+    def rollout(pol_params, x0, z_mm_t, z_rr_t, action_eps, dyn_params,
+                dyn_stats, dyn_noise, pol_noise, w_t, vw_t):
+        if x0.device.type == 'cpu':
+            return plain(pol_params, x0, z_mm_t, z_rr_t, action_eps,
+                         dyn_params, dyn_stats, dyn_noise, pol_noise, w_t,
+                         vw_t)
+        w, vw = tuple(_floats(w_t)), tuple(_floats(vw_t))
+        key = (x0.shape[0], x0.device, w, vw)
+        if key not in kernels:
+            kernels[key] = GridKernel(dyn, pol, steps, w, vw, mm_states,
+                                      mm_rewards, x0.shape[0], x0.device)
+        gk = kernels[key]
+        sk = gk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
+                     pol_noise, z_mm_t, z_rr_t, action_eps)
+        flat = sk.pol_ws + [b for b in sk.pol_bs if b is not None]
+        return _GridRollout.apply(gk, sk, x0, action_eps, z_mm_t, z_rr_t,
+                                  *flat)
+
+    return rollout
+
+
+def make_grid_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
+                   mm_groups=None, value_update=None, w_H=None):
+    """The grid tier's ``loss_fn(pol_params, x0, dyn_params, dyn_stats,
+    dyn_noise, pol_noise, z_mm_t, z_rr_t, action_eps=None, extras=()) ->
+    (loss, mean_return, aux)`` (``make_grid_loss``,
+    ``fused_rollout.py:1605-1653``): one grid rollout, then (with
+    ``value_update``) the critic refit and the bootstrap of ``_value_loss``
+    on its outputs; the bootstrap's gradient reaches the policy through the
+    cotangent of ``states_all[-1]``."""
+    rollout = make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards,
+                                mm_groups)
+    w_list = _floats(w_t)
+    vw_list = _value_weights(value_update, steps) or [0.0] * steps
+
+    def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+                z_mm_t, z_rr_t, action_eps=None, extras=()):
+        disc, raw, vret, sall = rollout(
+            pol_params, x0, z_mm_t, z_rr_t, action_eps, dyn_params,
+            dyn_stats, dyn_noise, pol_noise, w_list, vw_list)
+        return _value_loss(disc, raw, vret, sall, x0, maximize,
+                           value_update, w_H, extras)
+
+    return loss_fn
+
+
+def make_grid_value_and_grad(dyn, pol, steps, w_t, mm_states, mm_rewards,
+                             maximize, mm_groups=None, value_update=None,
+                             w_H=None):
+    """``vg(*loss_args) -> (loss, mean_return, grads, aux)`` with ``grads``
+    shaped like ``pol_params`` (``fused_rollout.py:1656-1676``): autograd
+    through ``make_grid_loss``, one launch of each grid kernel."""
+    return _autograd_value_and_grad(make_grid_loss(
+        dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
+        value_update, w_H))
+
+
 def _tier(mode):
     if mode is None:
         return 'full'
-    if mode == 'grid':
-        raise NotImplementedError(_GRID_NOT_PORTED)
     if mode not in TIERS:
         raise ValueError(f'mode must be one of {TIERS} or None, not {mode!r}')
     return mode
@@ -949,12 +1203,14 @@ def make_fused_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                     mm_rewards_mean_only=False):
     """The fused (loss, mean_return, aux) of ``fused_rollout.py:759``:
     ``mode`` None or ``'full'`` / ``'remat'`` (both the whole-rollout
-    kernels, ``make_whole_rollout_loss``) or ``'step'``
-    (``make_stepwise_loss``, which, as in JAX, resamples the rewards in
-    full)."""
-    if _tier(mode) == 'step':
-        return make_stepwise_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
-                                  maximize, mm_groups, value_update, w_H)
+    kernels, ``make_whole_rollout_loss``; no value update), ``'step'``
+    (``make_stepwise_loss``) or ``'grid'`` (``make_grid_loss``); the last
+    two, as in JAX, resample the rewards in full."""
+    tier = _tier(mode)
+    if tier in ('step', 'grid'):
+        make = make_stepwise_loss if tier == 'step' else make_grid_loss
+        return make(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
+                    mm_groups, value_update, w_H)
     return make_whole_rollout_loss(dyn, pol, steps, w_t, mm_states,
                                    mm_rewards, maximize, mm_groups,
                                    value_update, w_H, mm_rewards_mean_only)
@@ -966,11 +1222,14 @@ def make_fused_value_and_grad(dyn, pol, steps, w_t, mm_states, mm_rewards,
                               mm_rewards_mean_only=False):
     """The fused value-and-grad of ``fused_rollout.py:906``: ``mode`` None or
     ``'full'`` / ``'remat'`` (one launch, ``make_whole_rollout_value_and_
-    grad``) or ``'step'`` (``make_stepwise_value_and_grad``)."""
-    if _tier(mode) == 'step':
-        return make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
-                                            mm_rewards, maximize, mm_groups,
-                                            value_update, w_H)
+    grad``), ``'step'`` (``make_stepwise_value_and_grad``) or ``'grid'``
+    (``make_grid_value_and_grad``)."""
+    tier = _tier(mode)
+    if tier in ('step', 'grid'):
+        make = (make_stepwise_value_and_grad if tier == 'step'
+                else make_grid_value_and_grad)
+        return make(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
+                    mm_groups, value_update, w_H)
     return make_whole_rollout_value_and_grad(
         dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
         value_update, w_H, mm_rewards_mean_only)

@@ -1,6 +1,6 @@
 """Small helpers: device choice, constants on a device, nested-dict trees,
-tiling (counterpart of ``prob_mbrl_tpu/utils/core.py`` and
-``jax.tree_util``)."""
+tiling, the polyak target update (counterpart of
+``prob_mbrl_tpu/utils/core.py`` and ``jax.tree_util``)."""
 import functools
 
 import torch
@@ -19,15 +19,19 @@ def device_constant(values, device, dtype):
     return torch.tensor(values, device=device, dtype=dtype)
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict/list/tuple."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor leaf of a nested dict/list/tuple (and the
+    leaves at the same places of the trees ``rest``, of the same
+    structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     if tree is None:
         return None
-    return fn(tree)
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):
@@ -44,3 +48,10 @@ def tile(x, n, dim=0):
     """Repeat-interleave ``x`` n times along ``dim``: [G, ...] -> [G*n, ...]
     with each row repeated n times contiguously (the mm_groups layout)."""
     return torch.repeat_interleave(x, n, dim=dim)
+
+
+def polyak_averaging(params, target_params, tau=0.005):
+    """Soft target update: ``tau * params + (1 - tau) * target`` per leaf
+    (``prob_mbrl_tpu/utils/core.py:6``). Returns the new target tree."""
+    return tree_map(lambda p, t: tau * p + (1.0 - tau) * t, params,
+                    target_params)

@@ -7,11 +7,12 @@ the next states against cyclically indexed fixed noise (PEGASUS). The reward
 pipeline never feeds back into the state recursion, so it runs after the time
 loop, batched over [T, B], on the next states before moment matching.
 
-Outputs: states [T+1, B, D], actions [T, B, U], rewards [T, B, 1].
+Outputs: states [T+1, B, D], actions [T, B, U], rewards [T, B, 1], and
+with ``value_fn`` the values [T+1, B, 1] (``rollout_with_values``).
 
 Not ported yet (raise NotImplementedError): ``mm_method='mix'``,
-``infer_noise_variables``, ``value_fn``, ``q_fn`` and per-step noise
-resampling (non-PEGASUS).
+``infer_noise_variables``, ``q_fn`` and per-step noise resampling
+(non-PEGASUS).
 """
 import numpy as np
 import torch
@@ -76,14 +77,19 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
       mm_rewards_mean_only: replace the reward resample by its per-step
         particle mean; valid only when every consumer of the rewards takes a
         plain particle mean.
+      value_fn: optional ``states [B, D] -> values [B, 1]``; evaluated on
+        each step's detached states and on the last states (not detached),
+        as JAX's ``rollout`` does (``utils/rollout.py:307-335``).
 
     Returns:
-      (states [T+1, B, D], actions [T, B, U], rewards [T, B, 1]).
+      (states [T+1, B, D], actions [T, B, U], rewards [T, B, 1]), and values
+      [T+1, B, 1] after them with ``value_fn``.
     """
     if mm_method != 'cholesky' or infer_noise_variables:
         raise NotImplementedError('only Cholesky moment matching is ported')
-    if value_fn is not None or q_fn is not None:
-        raise NotImplementedError('value_fn and q_fn are not ported yet')
+    if q_fn is not None:
+        raise NotImplementedError('q_fn is not ported yet (it waits for '
+                                  'MBDDPG)')
     B = x0.shape[0]
     known_reward = dyn.reward_func is not None
 
@@ -96,9 +102,11 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         else:
             z_steps = z_mm[tb]
 
-    states, actions, raw_next, rewards = [x0], [], [], []
+    states, actions, raw_next, rewards, values = [x0], [], [], [], []
     s = x0
     for t in range(steps):
+        if value_fn is not None:
+            values.append(value_fn(s.detach()))
         a = pol.apply(pol_params, s, pol_noise, return_samples=True)
         if action_eps is not None:
             a = a + action_eps[t]
@@ -130,4 +138,21 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     if mm_rewards:
         rewards = _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups,
                                       mean_only=mm_rewards_mean_only)
-    return states, actions, rewards
+    if value_fn is None:
+        return states, actions, rewards
+    values.append(value_fn(s))
+    return states, actions, rewards, torch.stack(values, 0)
+
+
+def rollout_with_values(x0, dyn, pol, steps, V, dyn_params, dyn_stats,
+                        pol_params, dyn_noise, pol_noise, value_params,
+                        value_stats, value_noise=None, **kwargs):
+    """``rollout`` with per-step V(s) samples of the critic ``V`` (JAX
+    ``utils/rollout.py:345-357``): (states, actions, rewards, values
+    [T+1, B, 1])."""
+    def value_fn(states):
+        return V.apply(value_params, value_stats, states, value_noise,
+                       return_samples=True)
+
+    return rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
+                   dyn_noise, pol_noise, value_fn=value_fn, **kwargs)

@@ -3,9 +3,10 @@ same CUDA tensors: the fused MLP for every activation of its kernel set, the
 rollout step (forward values and the cotangents of the policy params, the
 states and eps), the whole rollout (loss, mean_return and the gradients wrt
 the policy params and action_eps, by the forward + backward kernels and by
-the one-launch value-and-grad), the launch counters, the tier ``mc_pilco``
-takes, and the wrappers' refusal to fall back when the kernels cannot be
-built.
+the one-launch value-and-grad), the grid rollout (disc, raw, vret,
+states_all and the VJP of cotangents of all four), the launch counters, the
+tier ``mc_pilco`` takes (``'grid'`` with a critic), and the wrappers'
+refusal to fall back when the kernels cannot be built.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -18,7 +19,12 @@ gradient (float32 sums in another order; TF32 off on the plain side);
 1e-3 * max|plain| for the step and the rollout, whose 5x5 Cholesky and its
 adjoint amplify those differences, or 3x the plain version's own change when
 its states (x0 for the rollout) move by 1e-6 relative, whichever is larger
-(T chained resamples amplify them further).
+(T chained resamples amplify them further). The grid rollout's gradient wrt
+action_eps, one entry per particle and step, is held by its 2-norm (within
+1e-3 of the plain version's) with at most 1 element in 1000 beyond the
+elementwise tolerance: a ReLU unit whose pre-activation lies within float32
+rounding of 0 takes the other branch in one of the two versions and moves
+that entry alone.
 """
 import numpy as np
 import pytest
@@ -176,7 +182,8 @@ def test_step_launches_are_counted(cuda):
     torch.cuda.synchronize()
     assert fr.LAUNCHES == {'fused_step_fwd': 1, 'fused_step_bwd': 1,
                            'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
-                           'fused_rollout_vg': 0}
+                           'fused_rollout_vg': 0,
+                           'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
@@ -207,7 +214,8 @@ def test_mc_pilco_takes_the_step_tier_on_the_card(cuda, monkeypatch):
     assert fr.LAUNCHES == {'fused_step_fwd': T * iters,
                            'fused_step_bwd': T * iters,
                            'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
-                           'fused_rollout_vg': 0}
+                           'fused_rollout_vg': 0,
+                           'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
@@ -304,7 +312,8 @@ def test_rollout_launches_are_counted(cuda):
     torch.cuda.synchronize()
     assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
                            'fused_rollout_fwd': 1, 'fused_rollout_bwd': 1,
-                           'fused_rollout_vg': 1}
+                           'fused_rollout_vg': 1,
+                           'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
@@ -337,7 +346,8 @@ def test_mc_pilco_takes_the_full_tier_on_the_card(cuda):
     assert np.all(np.isfinite(metrics['loss']))
     assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
                            'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
-                           'fused_rollout_vg': iters}
+                           'fused_rollout_vg': iters,
+                           'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
@@ -364,3 +374,141 @@ def test_rollout_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
     _, kvg, _, pp, _, args = _rollout(16, 0, True, T=2, hidden=(16, 16))
     with pytest.raises(RuntimeError, match='nvcc'):
         kvg(pp, *args)
+
+
+def _grid(B, seed, mm_states=True, mm_rewards=True, T=15, hidden=(200, 200)):
+    """The grid rollout on ``_rollout``'s inputs: (kernel rollout, plain
+    rollout, policy params, leaves, args, cotangents of the four outputs);
+    args = [x0, z_mm, z_rr, eps, dynamics params, stats, noise, w_t, vw_t]."""
+    _, _, _, pp, leaves, (x0, dp, stats, dn, pn, zm, zr, eps) = _rollout(
+        B, seed, False, T, hidden)
+    rng = np.random.RandomState(seed + 1)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device='cuda')
+
+    w_t = 0.9 ** np.arange(T, dtype=np.float32)
+    vw_t = (T - 1 - np.arange(T)) / T  # 0 at the last step
+    make = (*models_of(hidden), T, mm_states, mm_rewards)
+    cot = [t(rng.randn(B, 1)) for _ in range(3)] + [t(rng.randn(T, B, 5))]
+    args = [x0, zm if mm_states else None, zr if mm_rewards else None, eps,
+            dp, stats, dn, pn, w_t, vw_t]
+    return (fr.make_grid_rollout(*make), fr.make_grid_rollout_plain(*make),
+            pp, leaves, args, cot)
+
+
+def models_of(hidden):
+    D, U = 5, 1
+    dyn = models.DynamicsModel(models.Regressor(
+        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1)),
+        models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
+    pol = models.Policy(models.MLPSpec(D, 2 * U, hidden,
+                                       dropout=models.bdropout(0.1)),
+                        models.DiagGaussianDensity(U), max_u=(10.0,))
+    return dyn, pol
+
+
+def _grid_outputs(fn, pp, leaves, args, cot, x0_scale=1.0):
+    """disc, raw, vret, states_all and the gradients wrt the policy leaves
+    and eps of sum(output * cotangent)."""
+    a = list(args)
+    a[0] = a[0] * x0_scale
+    a[3] = a[3].clone().requires_grad_(True)
+    outs = fn(pp, *a)
+    grads = torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cot)),
+                                leaves + [a[3]])
+    return [o.detach() for o in outs] + list(grads)
+
+
+@pytest.mark.parametrize('mm_states,mm_rewards', [(True, True),
+                                                   (True, False)])
+@pytest.mark.parametrize('B', [16, 1000])
+def test_grid_kernels_match_the_plain_version_on_the_card(cuda, B, mm_states,
+                                                          mm_rewards):
+    kern, plain, pp, leaves, args, cot = _grid(B, B, mm_states, mm_rewards)
+    got = _grid_outputs(kern, pp, leaves, args, cot)
+    ref = _grid_outputs(plain, pp, leaves, args, cot)
+    moved = _grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
+    torch.cuda.synchronize()
+    for a, r, m in zip(got[:-1], ref[:-1], moved[:-1]):
+        _hold(a, r, 1e-3, m)
+    # d action_eps per particle: a ReLU unit within float32 rounding of 0
+    # takes the other branch in one version and moves that entry alone
+    # (chip_smoke.hold_rows): the norm within 1e-3, at most 1 element in
+    # 1000 beyond the elementwise tolerance
+    a, r, m = got[-1], ref[-1], moved[-1]
+    assert torch.isfinite(a).all()
+    tol = max(1e-3 * float(r.abs().max()), 3 * float((m - r).abs().max()))
+    assert float(torch.linalg.vector_norm(a - r)) <= 1e-3 * float(
+        torch.linalg.vector_norm(r))
+    assert int(((a - r).abs() > tol).sum()) * 1000 <= a.numel()
+
+
+def test_grid_launches_are_counted(cuda):
+    kern, _, pp, leaves, args, cot = _grid(16, 0, T=3, hidden=(32, 32))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _grid_outputs(kern, pp, leaves, args, cot)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
+                           'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
+                           'fused_rollout_vg': 0, 'fused_grid_fwd': 1,
+                           'fused_grid_bwd': 1}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+
+
+def test_mc_pilco_takes_the_grid_tier_with_a_critic_on_the_card(cuda):
+    """With a TD(H) critic the gate names the grid tier on the card: one
+    launch of each grid kernel per iteration, the critic's MLP through the
+    fused-MLP kernels (two forward calls in the refit and one for the
+    bootstrap, the refit's and the bootstrap's backward), nothing else."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    from prob_mbrl_tpu_torch.algorithms.value import (Adam,
+                                                      make_value_update_fn)
+    D, T, iters = 5, 4, 3
+    dyn, pol = models_of((32, 32))
+    V = models.Regressor(models.MLPSpec(D, 1, (32, 32),
+                                        dropout=models.cdropout(0.1)))
+    adam = Adam(1e-4)
+    update = make_value_update_fn(V, adam, T, polyak=1.0, use_density=False)
+    cfg = MCPILCOConfig(n_particles=16, steps=T, mm_states=True,
+                        mm_rewards=True)
+    assert make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V,
+                            update).tier('cuda') == 'grid'
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    pool = torch.randn((20, D), generator=gen, device='cuda')
+    vp = V.init(gen, device='cuda')
+    state = dict(params=vp, target=vp, opt_state=adam.init(vp))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(
+        pool, dyn, pol, T, dyn.init(gen, device='cuda'),
+        dyn.init_stats(device='cuda'), pol.init(gen, device='cuda'),
+        opt_iters=iters, mm_states=True, mm_rewards=True, n_particles=16,
+        seed=0, value_spec=V, value_stats=V.init_stats(device='cuda'),
+        value_update_fn=update, value_state=state)
+    assert np.all(np.isfinite(metrics['loss']))
+    assert np.all(np.isfinite(metrics['v_loss']))
+    assert int(state['opt_state'].count) == iters
+    assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
+                           'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
+                           'fused_rollout_vg': 0, 'fused_grid_fwd': iters,
+                           'fused_grid_bwd': iters}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 3 * iters,
+                           'fused_mlp_bwd': 2 * iters}
+
+
+def test_grid_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
+    monkeypatch.setattr(build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(build, '_LIBS', {})
+
+    def no_nvcc():
+        raise RuntimeError('nvcc not found')
+
+    monkeypatch.setattr(build, '_nvcc', no_nvcc)
+    kern, _, pp, leaves, args, cot = _grid(16, 0, T=2, hidden=(16, 16))
+    with pytest.raises(RuntimeError, match='nvcc'):
+        _grid_outputs(kern, pp, leaves, args, cot)

@@ -285,8 +285,20 @@ def test_the_gate_admits_the_main_config_and_nothing_else(setups):
                dict(with_priorities=True), dict(infer_noise_variables=True)):
         assert tfr.fused_mode(_cfg(**kw), tdyn, tpol, **cpu) is None, kw
         assert not tfr.supports(_cfg(**kw), tdyn, tpol), kw
-    assert tfr.fused_mode(_cfg(), tdyn, tpol, value_update=object(),
+    # the value bootstrap takes the grid tier, under JAX's conditions
+    from test_torch_value import critic_specs
+    from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
+    _, tV = critic_specs(False)
+    upd = make_value_update_fn(tV, Adam(1e-3), T)
+    assert tfr.fused_mode(_cfg(), tdyn, tpol, upd, value_spec=tV,
+                          **cpu) == 'grid'
+    assert tfr.fused_mode(_cfg(), tdyn, tpol, upd, **cpu) is None
+    assert tfr.fused_mode(_cfg(val_mask_mode='iter'), tdyn, tpol, upd,
+                          value_spec=tV, **cpu) is None
+    assert tfr.fused_mode(_cfg(steps=T - 1), tdyn, tpol, upd, value_spec=tV,
                           **cpu) is None
+    assert tfr.fused_mode(_cfg(), tdyn, tpol, value_update=object(),
+                          value_spec=tV, **cpu) is None
     # models the kernels do not take: raw states the reward angle-embeds,
     # a learned reward, a tip that is not linear
     _, _, rdyn, rpol = setups['raw4']['specs']
@@ -314,20 +326,28 @@ def test_unsupported_configs_and_tiers_raise(setups):
     opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(), 'cpu')
     assert opt.mode == 'full' and opt.tier('cpu') is None
     w_t = np.ones(T, np.float32) / T
+    from test_torch_value import critic_specs
+    from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
+    upd = make_value_update_fn(critic_specs(False)[1], Adam(1e-3), T)
     for make in (tfr.make_fused_loss, tfr.make_fused_value_and_grad):
-        for mode in ('full', 'remat', None):
+        for mode in ('full', 'remat', None, 'grid', 'step'):
             assert callable(make(tdyn, tpol, T, w_t, True, True, True,
                                  mode=mode))
-        with pytest.raises(NotImplementedError, match='8-9'):
-            make(tdyn, tpol, T, w_t, True, True, True, mode='grid')
-        for mode in ('full', 'step'):
-            with pytest.raises(NotImplementedError, match='item 9'):
+        for mode in ('grid', 'step'):
+            assert callable(make(tdyn, tpol, T, w_t, True, True, True,
+                                 mode=mode, value_update=upd, w_H=1 / T))
+        # the in-kernel critic refit of row 5 is not ported
+        for mode in ('full', 'remat', None):
+            with pytest.raises(NotImplementedError, match='in-kernel'):
                 make(tdyn, tpol, T, w_t, True, True, True, mode=mode,
-                     value_update=object())
+                     value_update=upd, w_H=1 / T)
+        with pytest.raises(ValueError, match='mode'):
+            make(tdyn, tpol, T, w_t, True, True, True, mode='nope')
+        for mode in ('full', 'step', 'grid'):
             with pytest.raises(NotImplementedError, match='K6'):
                 make(tdyn, tpol, T, w_t, True, True, True, mode=mode,
                      mm_groups=2)
-    with pytest.raises(NotImplementedError, match='value'):
+    with pytest.raises(ValueError, match='value'):
         tfr.make_stepwise_loss(tdyn, tpol, T, w_t, True, True, True,
                                value_update=object())
     with pytest.raises(NotImplementedError, match='K6'):

@@ -286,8 +286,18 @@ def test_unported_options_raise(setup):
             tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu')
     tp, dp, st, (dn, pn, _, _) = _torch_inputs(setup)
     x0 = torch.tensor(setup['x0'])
-    for kw in (dict(mm_method='mix'), dict(value_fn=lambda s: s),
+    for kw in (dict(mm_method='mix'), dict(q_fn=lambda s, a: s),
                dict(infer_noise_variables=True)):
         with pytest.raises(NotImplementedError):
             t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn, **kw)
+    # value_fn is ported: values of each step's states and the last ones
+    out = t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn,
+                    value_fn=lambda s: s[:, :1])
+    assert len(out) == 4 and out[3].shape == (T + 1, B, 1)
+    torch.testing.assert_close(out[3][..., 0], out[0][..., 0].detach())
+    for kw in (dict(val_mask_mode='iter'), dict()):
+        with pytest.raises(NotImplementedError):
+            tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu',
+                                 value_spec=tdyn.regressor,
+                                 value_update=None if not kw else object())
     assert dataclasses.replace(tmc.MCPILCOConfig(), steps=3).steps == 3

@@ -124,6 +124,16 @@ def test_the_gate_names_the_step_tier_when_the_card_cannot_hold_the_rollout(
         assert (opt.fused_vg is None) == (tier == 'step')
     assert tfr.fused_mode(_cfg(cvar_eps=0.25), tdyn, tpol,
                           device='cuda') is None
+    # a value update takes the grid kernels, with the same capacity
+    from test_torch_value import critic_specs
+    from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
+    V = critic_specs(False)[1]
+    upd = make_value_update_fn(V, Adam(1e-3), T)
+    for capacity, tier in ((need - 1, 'step'), (need, 'grid')):
+        monkeypatch.setattr(tfr, 'rollout_capacity',
+                            lambda *a, c=capacity: c)
+        assert tfr.fused_mode(_cfg(), tdyn, tpol, upd, value_spec=V,
+                              device='cuda') == tier
 
 
 def test_the_plain_whole_rollout_is_the_stepwise_loss_without_the_shortcut(
