@@ -12,8 +12,11 @@ Phases (any failure exits non-zero and prints no result line):
   1. builds the kernels (one ``nvcc`` per source, all started together).
   2. each kernel against its plain version on the card. The fused MLP at
      the policy (5->200->200->2, Bernoulli masks) and dynamics
-     (6->200->200->10, concrete masks) shapes, B in {1, 37, 100, 1500}:
-     forward output, dx, dW, db and d(mask). The rollout step at the main
+     (6->200->200->10, concrete masks) shapes, B in {1, 37, 100, 1500},
+     and the value path's critic (5->200->200->1, concrete masks) at
+     B = 1000: forward output, dx, dW, db and d(mask); each launch plan
+     (clusters of 8 CTAs) with the clusters of it the card holds at once.
+     The rollout step at the main
      path's widths, B in {2, 37, 100, 1500}: (nxt, r) and the cotangents of
      the policy params, the states and eps. The whole rollout at the main
      path's widths and T = 15, B in {16, 37, 100, 1500} with the reward
@@ -104,6 +107,8 @@ F32_FLOP_PER_S = 67e12
 
 SHAPES = {'policy': ((5, 200, 200, 2), 'bernoulli'),
           'dynamics': ((6, 200, 200, 10), 'concrete')}
+# the value path's critic (phase 7), whose refit runs the fused MLP at B = 1000
+CRITIC = ((5, 200, 200, 1), 'concrete')
 BATCHES = (1, 37, 100, 1500)
 MAIN_B = 100
 MAIN_T = 15
@@ -297,13 +302,13 @@ def time_graph(fn, n=50, reps=9):
     return float(np.median(times))
 
 
-def kernel_timings(dims, masks):
+def kernel_timings(dims, masks, B=MAIN_B):
     """ms of each kernel, its plain version and the torch.matmul chain of the
-    same products, at the main-path batch. The plain backward is autograd
-    through ``fused_mlp_plain``: its time is that of the plain forward and
+    same products, at batch B. The plain backward is autograd through
+    ``fused_mlp_plain``: its time is that of the plain forward and
     ``torch.autograd.grad`` in one graph, less the plain forward's."""
     nl = ('relu', 'relu')
-    x, ws, bs, ms, g = mlp_problem(dims, masks, MAIN_B, seed=7)
+    x, ws, bs, ms, g = mlp_problem(dims, masks, B, seed=7)
     _, a_res = fm._fwd_cuda(x, ws, bs, ms, nl)
     posts = [torch.relu(a) for a in a_res]
     hs = [x] + [p * m for p, m in zip(posts, ms)]
@@ -346,41 +351,58 @@ def kernel_timings(dims, masks):
             plain_ms=time_graph(plain_fwd_bwd) - plain_fwd_ms,
             library_ms=time_graph(lib_bwd)),
     }
-    for name, (nbytes, flops) in mlp_bytes_flops(dims, MAIN_B).items():
+    for name, (nbytes, flops) in mlp_bytes_flops(dims, B).items():
         t[name].update(bytes=nbytes, flops=flops)
         t[name]['bound_ms'], t[name]['bound_by'] = bound(nbytes, flops)
     return t
 
 
 def phase_mlp_kernels():
+    """The fused-MLP kernels against the plain version at the policy and
+    dynamics shapes (B in BATCHES) and the critic's (B = GRID_B); each
+    launch plan and the clusters of it the card holds; times at the main
+    path's batch (the kernels line: the mean of policy and dynamics) and
+    the critic's."""
     names = ['fused_mlp_fwd', 'fused_mlp_bwd']
     worst = {n: 0.0 for n in names}
     labels = ['out', 'dx'] + ['dW%d' % i for i in range(3)] + [
         'db%d' % i for i in range(3)] + ['dmask0', 'dmask1']
-    for net, (dims, masks) in SHAPES.items():
-        for B in BATCHES:
-            x, ws, bs, ms, g = mlp_problem(dims, masks, B, seed=B)
-            got = grads_through(fm.fused_mlp, x, ws, bs, ms, g)
-            ref = grads_through(fm.fused_mlp_plain, x, ws, bs, ms, g)
-            torch.cuda.synchronize()
-            here = {n: 0.0 for n in names}
-            rel = 0.0  # worst err / max|plain| of an output
-            for lab, a, r in zip(labels, got, ref):
-                err, r_err, _ = hold(f'{net} B={B} {lab}', a, r, REL_TOL)
-                kern = 'fused_mlp_fwd' if lab == 'out' else 'fused_mlp_bwd'
-                here[kern] = max(here[kern], err)
-                rel = max(rel, r_err)
-            for n in names:
-                worst[n] = max(worst[n], here[n])
-            log(f'[phase 2] {net} {dims} B={B}: kernel vs plain max abs err '
-                f'fwd {here["fused_mlp_fwd"]:.3e} bwd '
-                f'{here["fused_mlp_bwd"]:.3e}, worst of an output relative to '
-                f'its max|plain| {rel:.3e} (tolerance {REL_TOL:.0e}) ok')
+    cases = [(net, dims, masks, B) for net, (dims, masks) in SHAPES.items()
+             for B in BATCHES] + [('critic', *CRITIC, GRID_B)]
+    for net, dims, masks, B in cases:
+        x, ws, bs, ms, g = mlp_problem(dims, masks, B, seed=B)
+        got = grads_through(fm.fused_mlp, x, ws, bs, ms, g)
+        ref = grads_through(fm.fused_mlp_plain, x, ws, bs, ms, g)
+        torch.cuda.synchronize()
+        here = {n: 0.0 for n in names}
+        rel = 0.0  # worst err / max|plain| of an output
+        for lab, a, r in zip(labels, got, ref):
+            err, r_err, _ = hold(f'{net} B={B} {lab}', a, r, REL_TOL)
+            kern = 'fused_mlp_fwd' if lab == 'out' else 'fused_mlp_bwd'
+            here[kern] = max(here[kern], err)
+            rel = max(rel, r_err)
+        for n in names:
+            worst[n] = max(worst[n], here[n])
+        log(f'[phase 2] {net} {dims} B={B}: kernel vs plain max abs err '
+            f'fwd {here["fused_mlp_fwd"]:.3e} bwd '
+            f'{here["fused_mlp_bwd"]:.3e}, worst of an output relative to '
+            f'its max|plain| {rel:.3e} (tolerance {REL_TOL:.0e}) ok')
+    for net, dims, B in [(net, dims, MAIN_B)
+                         for net, (dims, _) in SHAPES.items()] + [
+                             ('critic', CRITIC[0], GRID_B)]:
+        plan = fm.launch_plan(dims, B)
+        log(f'[phase 2] {net} {dims} B={B}: {plan}; the card holds '
+            f'{fm.max_clusters("cuda", False, plan.threads, plan.fwd_smem)} '
+            'forward and '
+            f'{fm.max_clusters("cuda", True, plan.threads, plan.bwd_smem)} '
+            'backward clusters of it at once')
     per_net = {net: kernel_timings(dims, masks)
                for net, (dims, masks) in SHAPES.items()}
-    for net, tt in per_net.items():
+    timed = [(net, MAIN_B, tt) for net, tt in per_net.items()] + [
+        ('critic', GRID_B, kernel_timings(*CRITIC, B=GRID_B))]
+    for net, B, tt in timed:
         for name, v in tt.items():
-            log(f'[phase 2] {name} {net} B={MAIN_B}: kernel {v["ms"]:.4f} ms, '
+            log(f'[phase 2] {name} {net} B={B}: kernel {v["ms"]:.4f} ms, '
                 f'plain {v["plain_ms"]:.4f} ms, torch.matmul chain '
                 f'{v["library_ms"]:.4f} ms, bound {v["bound_ms"]:.6f} ms '
                 f'({v["bound_by"]})')

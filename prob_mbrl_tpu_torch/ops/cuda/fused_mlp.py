@@ -5,16 +5,22 @@ Counterpart of ``prob_mbrl_tpu/ops/pallas/fused_mlp.py``. The whole
 Linear -> activation -> dropout-mask chain runs in one kernel
 (``csrc/fused_mlp.cu``: ``fused_mlp_fwd`` replaces ``_fwd_kernel``,
 ``fused_mlp_bwd`` replaces ``_bwd_kernel``); the source says what bounds them
-and how they are laid out. Masks are differentiable inputs: the backward
-returns ``d(mask) = g_h * act(a)``, which carries the straight-through
-concrete-dropout gradient to ``logit_p`` outside the kernel.
+and how they are laid out: thread-block clusters walk tiles of batch rows,
+each layer's weight rows split over a cluster's CTAs. ``launch_plan`` sizes
+the launch from the widths and the batch; ``max_clusters`` asks the card how
+many clusters of it fit, and a launch raises if not one does. Masks are
+differentiable inputs: the backward returns ``d(mask) = g_h * act(a)``,
+which carries the straight-through concrete-dropout gradient to
+``logit_p`` outside the kernel.
 
 ``fused_mlp`` launches the kernels for CUDA tensors and raises if it cannot.
 For CPU tensors it runs the plain version ``fused_mlp_plain``, whose gradients
 come from autograd; that is the only case in which the plain version stands
 in for a kernel.
 """
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -43,6 +49,89 @@ def fused_mlp_supported(dims, nonlins):
     if not 3 <= len(dims) <= MAX_LAYERS + 1 or max(dims) > MAX_WIDTH:
         return False
     return all(isinstance(nl, str) and nl in KERNEL_ACTS for nl in nonlins)
+
+
+# ---------------------------------------------------------------------------
+# launch plan (csrc/fused_mlp.cu checks it against the same formulas)
+# ---------------------------------------------------------------------------
+
+CLUSTER = 8           # kCluster: CTAs per thread-block cluster
+ROW_GROUP = 4         # RB: rows of a thread's item
+FWD_ITEMS = 8         # kMaxItems: forward product items a thread may hold
+MIN_THREADS = 256
+MAX_THREADS = 512     # kMaxThreads
+MAX_STAGES = 8        # kMaxStages: depth of the weight ring
+MAX_TILE_ROWS = 128   # kMaxTileRows
+STAGE_MAX = 8192      # floats of a ring stage, at most (but a whole row)
+SMEM_MAX = 232448     # shared memory a CTA may use on Hopper
+TARGET_CLUSTERS = 15  # clusters of 8 CTAs an H100 holds at once
+SCRATCH_MAX = 1 << 25  # floats of dW and db partials (128 MiB)
+
+# field order = the PlanField enum of csrc/fused_mlp.cu
+Plan = collections.namedtuple('Plan', [
+    'cluster', 'tile_rows', 'row_tiles', 'clusters', 'threads', 'stage',
+    'fwd_stages', 'fwd_smem', 'bwd_stages', 'bwd_smem', 'scratch'])
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(dims, B):
+    """The kernels' launch plan for an MLP of widths ``dims`` at batch B.
+
+    ``row_tiles`` tiles of ``tile_rows`` batch rows, walked by ``clusters``
+    clusters of ``CLUSTER`` CTAs (cluster c takes tiles c, c + clusters,
+    ...; the grid is ``CLUSTER * clusters`` CTAs) of ``threads`` threads.
+    CTA r owns rows [r kw, (r + 1) kw) of each W_l, kw = ceil(d_l /
+    CLUSTER), and streams them through a ring of ``*_stages`` stages of
+    ``stage`` floats (whole rows, plus 4 for the 16-byte phase). Besides
+    the ring, a forward CTA holds two sets of partials [CLUSTER, kw, rows]
+    and its slice of the layer input [kw, rows]; a backward CTA two
+    gathered g_a tiles [d, rows] and its slice of the layer input; rows are
+    padded by 4. ``*_smem``: bytes of shared memory per CTA. ``scratch``:
+    floats of the dW and db partials, one [d_l + 1, d_{l+1}] per layer and
+    cluster (0 with one cluster, whose partials are dW and db). Tiles of up
+    to ``MAX_TILE_ROWS`` rows aim at ``TARGET_CLUSTERS`` clusters, fewer
+    rows where threads or shared memory run short; clusters are fewer than
+    tiles where the partials would pass ``SCRATCH_MAX`` floats.
+    """
+    dims = tuple(int(d) for d in dims)
+    B = int(B)
+    layers = list(zip(dims[:-1], dims[1:]))
+    kw = max(_cdiv(d, CLUSTER) for d in dims)
+    gw = max(dims[1:])
+    block = max(_cdiv(a, CLUSTER) * b for a, b in layers)
+    stage = 4 * _cdiv(max(min(STAGE_MAX, block), gw) + 4, 4)
+    n_stages = sum(max(1, _cdiv(_cdiv(a, CLUSTER), max(1, (stage - 4) // b)))
+                   for a, b in layers)
+    tr = min(MAX_TILE_ROWS, ROW_GROUP * _cdiv(_cdiv(B, TARGET_CLUSTERS),
+                                              ROW_GROUP))
+    while True:
+        groups, trp = tr // ROW_GROUP, tr + 4
+        # a thread holds up to FWD_ITEMS forward product items (one where
+        # MAX_THREADS allow), one forward epilogue item (groups * kw at
+        # most) and one backward item
+        items = max(_cdiv(groups * gw, FWD_ITEMS), groups * kw)
+        threads = min(MAX_THREADS, max(MIN_THREADS, 32 * _cdiv(
+            max(items, groups * gw), 32)))
+        fixed_f = 2 * CLUSTER * kw * trp + kw * trp
+        fixed_b = 2 * gw * trp + kw * trp
+        ns_f = min(MAX_STAGES, n_stages, (SMEM_MAX // 4 - fixed_f) // stage)
+        ns_b = min(MAX_STAGES, n_stages, (SMEM_MAX // 4 - fixed_b) // stage)
+        if ns_f >= 2 and ns_b >= 2 and items <= threads:
+            break
+        if tr == ROW_GROUP:
+            raise ValueError(f'no launch plan holds dims {dims}')
+        tr -= ROW_GROUP
+    tiles = _cdiv(B, tr)
+    per_cluster = sum((a + 1) * b for a, b in layers)
+    clusters = max(1, min(tiles, TARGET_CLUSTERS, SCRATCH_MAX // per_cluster))
+    scratch = 0 if clusters == 1 else clusters * per_cluster
+    return Plan(CLUSTER, tr, tiles, clusters, threads, stage,
+                ns_f, 4 * (fixed_f + ns_f * stage),
+                ns_b, 4 * (fixed_b + ns_b * stage), scratch)
 
 
 # ---------------------------------------------------------------------------
@@ -75,11 +164,14 @@ def _lib():
     if not getattr(lib, 'typed', False):
         i, p = ctypes.c_int, ctypes.c_void_p
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-        lib.fused_mlp_fwd.argtypes = [i, i, ip, ip, pp, pp, pp, pp, p, p, p]
+        lib.fused_mlp_fwd.argtypes = [i, i, ip, ip, pp, pp, pp, pp, p, p, ip,
+                                      p]
         lib.fused_mlp_fwd.restype = i
         lib.fused_mlp_bwd.argtypes = [i, i, ip, ip, pp, pp, pp, p, p, p, pp,
-                                      pp, pp, pp, p]
+                                      pp, pp, p, ip, p]
         lib.fused_mlp_bwd.restype = i
+        lib.fused_mlp_max_clusters.argtypes = [i, i, i, ip]
+        lib.fused_mlp_max_clusters.restype = i
         lib.fused_mlp_error.argtypes = [i]
         lib.fused_mlp_error.restype = ctypes.c_char_p
         lib.typed = True
@@ -95,10 +187,14 @@ def _ints(vals):
     return (ctypes.c_int * max(len(vals), 1))(*vals)
 
 
+def _raise(lib, name, rc):
+    raise RuntimeError(f'{name} failed: {rc} '
+                       f'({lib.fused_mlp_error(rc).decode()})')
+
+
 def _check(lib, name, rc):
     if rc != 0:
-        raise RuntimeError(f'{name} failed: {rc} '
-                           f'({lib.fused_mlp_error(rc).decode()})')
+        _raise(lib, name, rc)
     LAUNCHES[name] += 1
 
 
@@ -143,11 +239,43 @@ def _validate(x, ws, bs, masks, nonlins):
     return 'cuda'
 
 
+_CLUSTERS = {}  # (device, kernel, threads, smem) -> clusters the card holds
+
+
+def max_clusters(device, backward, threads, smem):
+    """Clusters of the forward (or backward) kernel that the card holds at
+    once with ``threads`` threads and ``smem`` bytes of shared memory per
+    CTA (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+    key = (torch.device(device).index, bool(backward), threads, smem)
+    if key not in _CLUSTERS:
+        lib = _lib()
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.fused_mlp_max_clusters(int(backward), threads, smem,
+                                            ctypes.byref(n))
+        if rc != 0:
+            _raise(lib, 'fused_mlp_max_clusters', rc)
+        _CLUSTERS[key] = n.value
+    return _CLUSTERS[key]
+
+
+def _fits(device, plan, backward):
+    """Raises unless the card holds one cluster of the plan's kernel."""
+    smem = plan.bwd_smem if backward else plan.fwd_smem
+    if max_clusters(device, backward, plan.threads, smem) < 1:
+        raise RuntimeError(
+            f'the card cannot hold a cluster of {plan.cluster} CTAs of '
+            f'{plan.threads} threads and {smem} bytes of shared memory '
+            f'({"backward" if backward else "forward"} kernel)')
+
+
 def _fwd_cuda(x, ws, bs, masks, nonlins):
     lib = _lib()
     n = len(ws) - 1
     B = x.shape[0]
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
+    plan = launch_plan(tuple(dims), B)
+    _fits(x.device, plan, False)
     out = torch.empty((B, dims[-1]), device=x.device, dtype=x.dtype)
     a_res = [torch.empty((B, dims[i + 1]), device=x.device, dtype=x.dtype)
              for i in range(n)]
@@ -156,7 +284,7 @@ def _fwd_cuda(x, ws, bs, masks, nonlins):
         rc = lib.fused_mlp_fwd(
             n, B, _ints(dims), _ints([KERNEL_ACTS.index(a) for a in nonlins]),
             _ptrs(ws), _ptrs(bs), _ptrs(masks), _ptrs(a_res),
-            x.data_ptr(), out.data_ptr(), stream)
+            x.data_ptr(), out.data_ptr(), _ints(plan), stream)
     _check(lib, 'fused_mlp_fwd', rc)
     return out, a_res
 
@@ -166,6 +294,8 @@ def _bwd_cuda(x, ws, has_b, masks, a_res, nonlins, g):
     n = len(ws) - 1
     B = x.shape[0]
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
+    plan = launch_plan(tuple(dims), B)
+    _fits(x.device, plan, True)
 
     def empty(*shape):
         return torch.empty(shape, device=x.device, dtype=x.dtype)
@@ -175,14 +305,15 @@ def _bwd_cuda(x, ws, has_b, masks, a_res, nonlins, g):
     dbs = [empty(dims[i + 1]) if has_b[i] else None for i in range(n + 1)]
     dms = [None if masks[i] is None else empty(B, dims[i + 1])
            for i in range(n)]
-    ga = [empty(B, dims[i + 1]) for i in range(n)]
+    scratch = empty(plan.scratch) if plan.scratch else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_mlp_bwd(
             n, B, _ints(dims), _ints([KERNEL_ACTS.index(a) for a in nonlins]),
             _ptrs(ws), _ptrs(masks), _ptrs(a_res), x.data_ptr(),
             g.data_ptr(), dx.data_ptr(), _ptrs(dws), _ptrs(dbs), _ptrs(dms),
-            _ptrs(ga), stream)
+            None if scratch is None else scratch.data_ptr(), _ints(plan),
+            stream)
     _check(lib, 'fused_mlp_bwd', rc)
     return dx, dws, dbs, dms
 

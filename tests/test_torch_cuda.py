@@ -1,5 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on the
-same CUDA tensors: the fused MLP for every activation of its kernel set, the
+same CUDA tensors: the fused MLP for every activation of its kernel set and
+at the main path's widths, a 1000-wide layer, odd widths, eight layers and
+no biases or masks, B from 1 to 1030 (and its bits from call to call, and
+its refusal of a launch plan the card cannot hold), the
 rollout step (forward values and the cotangents of the policy params, the
 states and eps), the whole rollout (loss, mean_return and the gradients wrt
 the policy params and action_eps, by the forward + backward kernels and by
@@ -60,7 +63,7 @@ def _hold(a, r, rel_tol, moved=None):
     assert float((a - r).abs().max()) <= tol
 
 
-def _problem(seed, B, dims, device='cuda'):
+def _problem(seed, B, dims, device='cuda', biases=True, masks=True):
     rng = np.random.RandomState(seed)
 
     def t(a):
@@ -69,26 +72,90 @@ def _problem(seed, B, dims, device='cuda'):
 
     x = t(rng.randn(B, dims[0]))
     ws = [t(rng.randn(a, b) / np.sqrt(a)) for a, b in zip(dims[:-1], dims[1:])]
-    bs = [t(0.1 * rng.randn(b)) for b in dims[1:]]
-    ms = [t(rng.rand(B, d) < 0.8) for d in dims[1:-1]]
+    bs = [t(0.1 * rng.randn(b)) if biases else None for b in dims[1:]]
+    ms = [t(rng.rand(B, d) < 0.8) if masks else None for d in dims[1:-1]]
     g = torch.tensor(rng.randn(B, dims[-1]).astype(np.float32), device=device)
     return x, ws, bs, ms, g
 
 
-def _grads(fn, seed, B, dims, nonlins):
-    x, ws, bs, ms, g = _problem(seed, B, dims)
+def _grads(fn, seed, B, dims, nonlins, biases=True, masks=True):
+    x, ws, bs, ms, g = _problem(seed, B, dims, biases=biases, masks=masks)
     out = fn(x, ws, bs, ms, nonlins)
     out.backward(g)
-    return [out.detach()] + [v.grad for v in [x, *ws, *bs, *ms]]
+    return [out.detach()] + [v.grad for v in [x, *ws, *bs, *ms]
+                             if v is not None]
 
 
-@pytest.mark.parametrize('nonlin', fm.KERNEL_ACTS)
-@pytest.mark.parametrize('B', [1, 37, 1030])
-def test_kernel_matches_plain_version_on_the_card(cuda, nonlin, B):
-    dims = (6, 64, 48, 10)
-    got = _grads(fm.fused_mlp, B, B, dims, (nonlin, nonlin))
-    ref = _grads(fm.fused_mlp_plain, B, B, dims, (nonlin, nonlin))
+# (dims, activation, biases and masks present): every activation at small
+# widths; the main path's policy, dynamics and critic; a 1000-wide layer
+# (streamed through the weight ring a few rows at a time), and one 1000 wide
+# on both sides (the largest forward partials, the most ring stages a
+# layer); odd widths; seven hidden layers; no biases and no masks
+MLP_CASES = ([((6, 64, 48, 10), nl, True) for nl in fm.KERNEL_ACTS]
+             + [((5, 200, 200, 2), 'relu', True),
+                ((6, 200, 200, 10), 'relu', True),
+                ((5, 200, 200, 1), 'relu', True),
+                ((7, 1000, 37, 3), 'tanh', True),
+                ((1000, 1000, 1000), 'relu', True),
+                ((37, 37, 37), 'swish', True),
+                ((4,) + (32,) * 7 + (3,), 'sinlu', True),
+                ((6, 200, 200, 10), 'relu', False)])
+
+
+@pytest.mark.parametrize('dims,nonlin,present', MLP_CASES,
+                         ids=[f'{"x".join(map(str, d))}-{nl}-{p}'
+                              for d, nl, p in MLP_CASES])
+@pytest.mark.parametrize('B', [1, 37, 100, 1000, 1030])
+def test_kernel_matches_plain_version_on_the_card(cuda, dims, nonlin, present,
+                                                  B):
+    nl = (nonlin,) * (len(dims) - 2)
+    got = _grads(fm.fused_mlp, B, B, dims, nl, present, present)
+    ref = _grads(fm.fused_mlp_plain, B, B, dims, nl, present, present)
     torch.cuda.synchronize()
+    assert len(got) == len(ref)
+    for a, r in zip(got, ref):
+        _hold(a, r, 1e-4)
+
+
+def test_kernels_repeat_their_bits(cuda):
+    """No atomics on values: two calls on the same inputs give the same
+    bits (forward output and every gradient), here with 13 clusters whose
+    dW partials a second launch sums."""
+    dims = (6, 200, 200, 10)
+    a = _grads(fm.fused_mlp, 3, 100, dims, ('relu', 'relu'))
+    b = _grads(fm.fused_mlp, 3, 100, dims, ('relu', 'relu'))
+    torch.cuda.synchronize()
+    assert fm.launch_plan(dims, 100).clusters > 1
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_a_plan_the_card_cannot_hold_raises(cuda, monkeypatch):
+    """The wrapper asks the card whether a cluster of the plan fits
+    (cudaOccupancyMaxActiveClusters) and raises before any launch; the
+    refusal leaves no error behind, so the next launch runs."""
+    dims, B = (6, 200, 200, 10), 37
+    x, ws, bs, ms, g = _problem(0, B, dims)
+    nl = ('relu', 'relu')
+    plan = fm.launch_plan(dims, B)
+    fm.reset_launch_counts()
+    with monkeypatch.context() as mp:
+        # more shared memory than a CTA may have on the card
+        mp.setattr(fm, 'launch_plan',
+                   lambda *a: plan._replace(fwd_smem=fm.SMEM_MAX + 4096))
+        with pytest.raises(RuntimeError):
+            fm.fused_mlp(x, ws, bs, ms, nl)
+    with monkeypatch.context() as mp:
+        # a card that holds no cluster of this plan
+        mp.setattr(fm, 'max_clusters', lambda *a: 0)
+        with pytest.raises(RuntimeError, match='cannot hold'):
+            fm.fused_mlp(x, ws, bs, ms, nl)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+    got = _grads(fm.fused_mlp, 0, B, dims, nl)
+    ref = _grads(fm.fused_mlp_plain, 0, B, dims, nl)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 1, 'fused_mlp_bwd': 1}
     for a, r in zip(got, ref):
         _hold(a, r, 1e-4)
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``prob_mbrl_tpu_torch``, not
-``chip_smoke.py`` and not ``tools/profile_torch_main_path.py`` imports JAX or
-the JAX package ``prob_mbrl_tpu``, and none
+``chip_smoke.py`` and not the tools that run on the card without JAX
+(``tools/profile_torch_main_path.py``, ``tools/torch_mlp_timings.py``)
+imports JAX or the JAX package ``prob_mbrl_tpu``, and none
 hands the main path to ``torch.compile``. Checked by parsing the sources,
 so nothing is imported here."""
 import ast
@@ -11,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'prob_mbrl_tpu_torch'
 FILES = sorted(PORT.rglob('*.py')) + [
-    ROOT / 'chip_smoke.py', ROOT / 'tools' / 'profile_torch_main_path.py']
+    ROOT / 'chip_smoke.py', ROOT / 'tools' / 'profile_torch_main_path.py',
+    ROOT / 'tools' / 'torch_mlp_timings.py']
 
 
 def _forbidden(name):
