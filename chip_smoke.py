@@ -34,8 +34,11 @@ Phases (any failure exits non-zero and prints no result line):
      a CUDA graph, timed with CUDA events; the rollout kernels (cooperative
      launches) are timed with CUDA events around 20 launches in a row; the
      grid kernels the same way at B = 1000 (the value path's) and B = 100,
-     with the kernel's own time split at B = 1000 (``%globaltimer`` laps of
-     block 0: MLP walk, moment matching, MM adjoint, recompute + VJP, dW).
+     with the kernel's own time split (``%globaltimer`` laps of CTA 0:
+     weight staging, MLP walk, per-cluster moments, grid barriers, MM
+     adjoint, recompute, VJP + dW accumulation, final sums) of the grid
+     kernels at B = 1000 and of the one-launch value-and-grad at B = 100,
+     each with its launch plan.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -46,8 +49,8 @@ Phases (any failure exits non-zero and prints no result line):
      ``make_fused_value_and_grad(mode='step')``, clip and Adam; the step
      kernels launch T*iters times each; one iteration is compared with the
      plain path. 4b: ``mc_pilco`` on the step tier as the gate picks it, at
-     a batch one block of particles beyond what the card holds of the
-     whole-rollout kernel at once (T*iters step launches each, one
+     a batch one particle beyond what the card holds of the whole-rollout
+     kernel at once (``rollout_capacity``; T*iters step launches each, one
      iteration compared with the plain path).
   5. the main path: the same ``mc_pilco`` call as phase 3 with the default
      ``fused_rollout``, which on CUDA takes the whole-rollout tier: one
@@ -685,7 +688,20 @@ def rollout_timings():
     for name in t:
         t[name]['bound_ms'], t[name]['bound_by'] = bound(*work[name])
         t[name]['library_ms'] = None
+    log_split(f'fused_rollout_vg B={MAIN_B} ({k_plan(MAIN_B)})',
+              time_split(k, lambda: k.value_and_grad(sk)))
     return t
+
+
+def k_plan(B):
+    """The whole-rollout kernel's launch plan at the main widths and batch
+    B on this card, as text."""
+    p = fr.rollout_plan(SHAPES['policy'][0], SHAPES['dynamics'][0], 5, B,
+                        MAIN_T, fr.max_clusters(torch.cuda.current_device()))
+    return (f'{p.clusters} clusters of {p.particles} particles in '
+            f'{p.tiles} tile(s) of {p.tile_rows} rows, weights '
+            f'{"resident" if p.resident else "read in place"}, {p.smem} '
+            'bytes of shared memory a CTA')
 
 
 def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
@@ -822,8 +838,29 @@ def grid_outputs(fn, pp, leaves, args, cot, x0_scale=1.0):
     return [o.detach() for o in outs] + list(grads)
 
 
-SPLIT = ('MLP walk (forward)', 'moment matching (forward)',
-         'MM adjoint (backward)', 'recompute + VJP (backward)', 'dW')
+SPLIT = ('weight staging', 'MLP walk (forward)',
+         'per-cluster moments + merge + resample (forward)', 'grid barriers',
+         'MM adjoint (backward)', 'recompute (backward)',
+         'VJP + dW accumulation (backward)', 'loss and dW sums')
+
+
+def time_split(k, launch, n=ROLLOUT_LAUNCHES):
+    """The kernel's own time split in ms per ``launch()`` (``%globaltimer``
+    laps of CTA 0, its waits at the barriers included), over n launches."""
+    k.split = torch.zeros(fr.SPLIT_PARTS, dtype=torch.int64, device='cuda')
+    for _ in range(n):
+        launch()
+    torch.cuda.synchronize()
+    parts = (k.split.double() / n / 1e6).tolist()
+    k.split = None
+    return parts
+
+
+def log_split(what, parts):
+    log(f'[phase 2] {what} time split (CTA 0\'s clock, barrier waits '
+        'included): ' + ', '.join(f'{lab} {ms:.4f} ms'
+                                  for lab, ms in zip(SPLIT, parts))
+        + f' = {sum(parts):.4f} ms')
 
 
 def grid_timings(B, split=False):
@@ -864,13 +901,7 @@ def grid_timings(B, split=False):
         t[name]['library_ms'] = None
     parts = None
     if split:
-        n = ROLLOUT_LAUNCHES
-        k.split = torch.zeros(5, dtype=torch.int64, device='cuda')
-        for _ in range(n):
-            k.forward(sk)
-            bwd()
-        parts = (k.split.double() / n / 1e6).tolist()
-        k.split = None
+        parts = time_split(k, lambda: (k.forward(sk), bwd()))
     return t, parts
 
 
@@ -916,9 +947,8 @@ def phase_grid_kernels():
                 f'(CUDA events around {ROLLOUT_LAUNCHES} launches), plain '
                 f'{v["plain_ms"]:.4f} ms (graph replay), no single library '
                 f'call, bound {v["bound_ms"]:.6f} ms ({v["bound_by"]})')
-    log(f'[phase 2] grid B={GRID_B} time split per forward + backward '
-        '(block 0\'s clock, barrier waits included): '
-        + ', '.join(f'{lab} {ms:.4f} ms' for lab, ms in zip(SPLIT, parts)))
+    log_split(f'grid B={GRID_B} forward + backward ({k_plan(GRID_B)})',
+              parts)
     for name, v in rows.items():
         v['max_abs_err'] = worst[name]
     return rows
@@ -1368,14 +1398,14 @@ def main():
         None)
     step = phase_loop(STEP_ITERS, 'step', 'phase 4', expect(
         fused_step_fwd=T * STEP_ITERS, fused_step_bwd=T * STEP_ITERS))
-    # the step tier as mc_pilco takes it: a batch one block beyond what the
-    # card holds at once, so the gate names 'step'
+    # the step tier as mc_pilco takes it: a batch one particle beyond what
+    # the card holds at once, so the gate names 'step'
     dyn, pol = build_models(5, 1, (10.0,), envs.cartpole_reward())
     capacity = fr.rollout_capacity(dyn, pol, 'cuda')
-    big_b = fr.TM * (capacity + 1)
-    log(f'[phase 4b] the card holds {capacity} blocks of the whole-rollout '
-        f'kernel at once ({fr.TM} particles each): B={big_b} takes the step '
-        'tier')
+    big_b = capacity + 1
+    log(f'[phase 4b] the card holds {capacity} particles of the '
+        f'whole-rollout kernel at once ({fr.max_clusters(0)} clusters of 8 '
+        f'CTAs): B={big_b} takes the step tier')
     phase_mc_pilco(STEP_ROUTE_ITERS, None, 'phase 4b', expect(
         fused_step_fwd=T * STEP_ROUTE_ITERS,
         fused_step_bwd=T * STEP_ROUTE_ITERS), 'step', B=big_b)

@@ -21,8 +21,9 @@ optimizer is built is taken:
     whole-rollout loss (forward and backward kernels);
   - ``'grid'`` (with a value update): one launch of each grid kernel per
     iteration, the critic refit and the bootstrap between them;
-  - ``'step'`` (when the card cannot hold the whole rollout's blocks at
-    once): one forward and one backward kernel per rollout step;
+  - ``'step'`` (when the batch is beyond the particles the card holds of
+    the whole rollout at once): one forward and one backward kernel per
+    rollout step;
 otherwise (``fused_rollout`` False, a configuration no tier takes, or None
 on the CPU) the rollout of ``utils.rollout``, whose MLPs may use the
 fused-MLP kernels. All routes draw the same random numbers in the same
@@ -129,8 +130,8 @@ class MCPILCO:
 
     ``device``: where the iterations will run. The fused tier is chosen when
     the optimizer is built; for a CUDA device the gate checks that the card
-    holds the whole-rollout kernel's blocks at once (``mc_pilco`` passes the
-    pool's device). ``value_spec`` / ``value_update``: the critic's
+    holds the whole-rollout kernel's clusters for the batch at once
+    (``mc_pilco`` passes the pool's device). ``value_spec`` / ``value_update``: the critic's
     ``Regressor`` and its update, for the value bootstrap."""
 
     def __init__(self, dyn, pol, config, device, value_spec=None,

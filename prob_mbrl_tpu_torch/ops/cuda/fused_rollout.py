@@ -45,6 +45,7 @@ unfused MLPs, the reward and ``ops.moment_matching.mm_resample``,
 differentiated by autograd. For CUDA tensors they launch the kernels or
 raise; the plain version never stands in.
 """
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -67,9 +68,7 @@ MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
 MAX_SMEM = 232448  # shared memory a Hopper block can use, bytes
 _TILE_SMEM = 2208  # sizeof(TileSm), the backward tile's static part
 
-TM = 8           # particles per block of the whole-rollout kernel (csrc TM)
 _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
-_PART = 48       # kPart: partial MM-backward sums of one block
 
 TIERS = ('full', 'remat', 'step', 'grid')
 _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
@@ -347,16 +346,17 @@ def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
     ``value_spec``, ``val_mask_mode='epoch'`` and H <= steps, and takes
     ``'grid'`` (the critic refit between the grid kernels; the in-kernel
     refit of ``'full'`` is not ported). The whole-rollout and grid kernels
-    (one cooperative kernel) need their ceil(B / 8) blocks resident on the
-    card at once: for a CUDA ``device`` that is checked against the card
-    (``rollout_capacity``), and a batch beyond it takes ``'step'``; on the
+    (one cooperative cluster kernel) need a launch plan whose clusters are
+    all resident on the card at once: for a CUDA ``device`` the batch is
+    checked against the particles the card holds (``rollout_capacity``),
+    and a batch beyond it takes ``'step'``; on the
     CPU, where every tier runs its plain version, the gate gives ``'full'``
     or ``'grid'``. None of the TPU's VMEM budgets or crossovers is carried
     over."""
     if refuses(cfg, dyn, pol, value_update, mesh, value_spec) is not None:
         return None
     if torch.device(device).type == 'cuda':
-        if -(-cfg.n_particles // TM) > rollout_capacity(dyn, pol, device):
+        if cfg.n_particles > rollout_capacity(dyn, pol, device):
             return 'step'
     return 'full' if value_update is None else 'grid'
 
@@ -365,6 +365,138 @@ def supports(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
     """True when a fused tier covers this MC-PILCO configuration (on any
     device: the step tier takes every batch the whole rollout does not)."""
     return refuses(cfg, dyn, pol, value_update, mesh, value_spec) is None
+
+
+# ---------------------------------------------------------------------------
+# launch plan of the whole-rollout kernel (csrc/fused_rollout.cu checks it
+# against the same formulas, lay_of)
+# ---------------------------------------------------------------------------
+
+CLUSTER = 8            # kCluster: CTAs per thread-block cluster
+ROW_GROUP = 4          # RB: rows of a row group
+THREADS = 512          # kMaxThreads
+MAX_TILE_ROWS = 128    # kMaxTileRows
+MAX_TILES = 8          # kMaxTiles: row tiles a cluster walks, at most
+SMEM_MAX = 232448 - 8192  # kSmemMax: dynamic shared memory of a CTA, bytes
+PART = 64              # kPart: floats of one cluster's partial sums
+TILE_SMALL = 80        # kTSmall: the tile's small per-row arrays
+SPLIT_PARTS = 8        # kSplitParts: parts of the kernel's time split
+TARGET_CLUSTERS = 15   # clusters of 8 CTAs an H100 holds at once
+
+# field order = the PlanField enum of csrc/fused_rollout.cu
+RolloutPlan = collections.namedtuple('RolloutPlan', [
+    'cluster', 'clusters', 'particles', 'tile_rows', 'tiles', 'threads',
+    'resident', 'smem', 'scratch'])
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _r4(a):
+    return (a + 3) & ~3
+
+
+def _layers(dims):
+    return list(zip(dims[:-1], dims[1:]))
+
+
+def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
+                   resident):
+    """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
+    dW accumulator, floats of the policy's dW and db) of a launch (``lay_of``
+    in the source): the staged weights of both MLPs, all of W_0 and a block
+    of ceil(d_l / 8) rows (to 4) of each later W_l, rows padded to 4, and
+    the dW accumulator (resident plans only); every layer's bias (to 4);
+    two exchange regions; the layer-input slice (the backward's recomputed
+    input); both MLPs' whole inputs and the gradient wrt one ([MAX_D +
+    MAX_U] rows each); the kept hidden pre-activation slices and the tile's
+    mask slices of the hidden layers; the tile's small arrays
+    (feature-major, rows padded by 4); the cluster's per-particle arrays
+    (5 D + 6 floats each) and one partial per cluster."""
+    nets = (tuple(pol_dims), tuple(dyn_dims))
+    trp = tile_rows + 4
+    dw = sum(_r4(_cdiv(a, CLUSTER)) * _r4(b) + _r4(b)
+             for a, b in _layers(nets[0]))
+    flat = sum(a * b + b for a, b in _layers(nets[0]))
+    off = 0
+    if resident:
+        off += sum((_r4(_cdiv(a, CLUSTER)) if l else a) * _r4(b)
+                   for dims in nets
+                   for l, (a, b) in enumerate(_layers(dims))) + dw
+    off += sum(_r4(b) for dims in nets for _, b in _layers(dims))
+    kwmax = max(_cdiv(d, CLUSTER) for dims in nets for d in dims)
+    outmax = max(nets[0][-1], nets[1][-1])
+    rw = max(CLUSTER * kwmax, max(max(d) for d in nets), CLUSTER * outmax)
+    off += 2 * rw * trp + _r4(kwmax) * trp + 3 * (MAX_D + MAX_U) * trp
+    off += 2 * sum(_r4(_cdiv(w, CLUSTER)) * trp for dims in nets
+                   for w in dims[1:-1])
+    off += TILE_SMALL * trp + _r4(particles * (5 * D + 6)) + clusters * PART
+    return off, dw, flat
+
+
+def _scratch(T, clusters, resident, dw, flat):
+    multi = clusters > 1
+    return ((2 * T * clusters * PART + 2 * clusters + clusters * flat
+             if multi else 0)
+            + (0 if resident else clusters * CLUSTER * dw))
+
+
+@functools.lru_cache(maxsize=None)
+def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS):
+    """The whole-rollout kernel's launch plan for these MLP widths (policy
+    ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``) at batch B and
+    horizon T, on a card that holds ``max_clusters`` clusters at once; None
+    when B is beyond what such a card holds (``max_particles``).
+
+    ``clusters`` clusters of ``CLUSTER`` CTAs of ``threads`` threads; cluster
+    c owns particles [c P, c P + P), P = ``particles`` = ``tiles`` row tiles
+    of ``tile_rows`` rows. The batch is spread over up to ``max_clusters``
+    clusters (P the fewest particles, to 4, that do); P is walked in the
+    fewest tiles whose shared memory fits in ``SMEM_MAX``, with the weight
+    rows resident in shared memory where any tiling lets them, else read
+    from L2 in place (``resident`` 0). ``smem``: bytes of dynamic shared
+    memory per CTA; ``scratch``: floats of device scratch (the clusters'
+    partial sums and dW partials with several clusters; the CTAs' dW
+    accumulators when not resident)."""
+    pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
+    per = _r4(_cdiv(B, max_clusters))
+    for resident in (1, 0):
+        for tiles in range(1, MAX_TILES + 1):
+            tr = _r4(_cdiv(per, tiles))
+            if tr > MAX_TILE_ROWS:
+                continue
+            P = tiles * tr
+            clusters = _cdiv(B, P)
+            floats, dw, flat = rollout_layout(pol_dims, dyn_dims, D, tr, P,
+                                              clusters, resident)
+            if 4 * floats <= SMEM_MAX:
+                return RolloutPlan(CLUSTER, clusters, P, tr, tiles, THREADS,
+                                   resident, 4 * floats,
+                                   _scratch(T, clusters, resident, dw, flat))
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS):
+    """The largest batch that ``rollout_plan`` takes on a card holding
+    ``max_clusters`` clusters: ``max_clusters`` times the most particles a
+    cluster can walk (at most ``MAX_TILES`` tiles of up to ``MAX_TILE_ROWS``
+    rows whose shared memory fits, resident or not)."""
+    best = 0
+    for resident in (1, 0):
+        for tiles in range(1, MAX_TILES + 1):
+            for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP):
+                floats = rollout_layout(pol_dims, dyn_dims, D, tr, tiles * tr,
+                                        max_clusters, resident)[0]
+                if 4 * floats <= SMEM_MAX:
+                    best = max(best, tiles * tr)
+                    break
+    return max_clusters * best
+
+
+def _mlp_dims(spec):
+    return (spec.input_dims,) + tuple(spec.hidden_dims) + (spec.output_dims,)
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +559,8 @@ class _RollArgs(ctypes.Structure):
                     'w_t', 'g_loss', 'g_mret', 'vw_t', 'g_disc', 'g_raw',
                     'g_vret', 'g_sall', 'disc', 'raw', 'vret', 'split',
                     's_all', 'nxt_raw', 'r_raw', 'stats', 'loss', 'mret',
-                    'g_eps', 'rowsum', 'part', 'g_s', 'g_nxt', 'g_r',
-                    'g_pout')]
-                + [(n, ctypes.c_void_p * _ML) for n in ('pol_a', 'pol_ga',
-                                                         'dw', 'db')])
+                    'g_eps', 'scratch')]
+                + [(n, ctypes.c_void_p * _ML) for n in ('dw', 'db')])
 
 
 def _rollout_lib():
@@ -444,12 +574,13 @@ def _rollout_lib():
             if getattr(lib, fn)() != ctypes.sizeof(mirror):
                 raise RuntimeError(f'csrc/fused_rollout.cu and the ctypes '
                                    f'mirror {mirror.__name__} differ in size')
+        ip = ctypes.POINTER(i)
         for fn in ('fused_rollout_fwd', 'fused_rollout_bwd',
                    'fused_rollout_vg', 'fused_grid_fwd', 'fused_grid_bwd'):
-            getattr(lib, fn).argtypes = [p, p, p]
+            getattr(lib, fn).argtypes = [p, p, ip, p]
             getattr(lib, fn).restype = i
-        lib.fused_rollout_capacity.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.fused_rollout_capacity.restype = i
+        lib.fused_rollout_max_clusters.argtypes = [i, i, ip]
+        lib.fused_rollout_max_clusters.restype = i
         lib.fused_rollout_error.argtypes = [i]
         lib.fused_rollout_error.restype = ctypes.c_char_p
         lib.typed = True
@@ -764,33 +895,42 @@ def make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(device_index, maxw, hidden):
+def max_clusters(device_index):
+    """Clusters of the whole-rollout kernel the card holds at once with
+    ``THREADS`` threads and ``SMEM_MAX`` bytes of shared memory per CTA
+    (``cudaOccupancyMaxActiveClusters``; no plan asks for more shared
+    memory, so at least as many of any plan fit). Queried once per card."""
     lib = _rollout_lib()
-    blocks = ctypes.c_int(0)
+    n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = lib.fused_rollout_capacity(maxw, hidden, ctypes.byref(blocks))
+        rc = lib.fused_rollout_max_clusters(THREADS, SMEM_MAX, ctypes.byref(n))
     if rc != 0:
-        raise RuntimeError(f'fused_rollout_capacity failed: {rc} '
+        raise RuntimeError(f'fused_rollout_max_clusters failed: {rc} '
                            f'({lib.fused_rollout_error(rc).decode()})')
-    return blocks.value
+    return n.value
+
+
+def _device_index(device):
+    device = torch.device(device)
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
 
 
 def rollout_capacity(dyn, pol, device):
-    """How many blocks (of ``TM`` particles each) of the whole-rollout kernel
-    the card of ``device`` holds at once for these models' widths (the
-    occupancy API times the SM count, queried once per card and widths).
-    The kernel's cooperative launch needs all ceil(B / TM) of them."""
-    device = torch.device(device)
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    return _capacity(index, *_widths(dyn, pol))
+    """How many particles the whole-rollout kernel takes on the card of
+    ``device`` for these models' widths: ``max_particles`` with the clusters
+    the card holds at once (``max_clusters``). Its cooperative launch needs
+    every cluster of the plan resident at once."""
+    return max_particles(_mlp_dims(pol.mlp), _mlp_dims(dyn.regressor.mlp),
+                         dyn.regressor.output_density.output_dims,
+                         max_clusters(_device_index(device)))
 
 
 class RolloutKernel:
     """The whole-rollout kernels for one loss configuration, batch size and
-    device: the scratch workspace (allocated once) and the three launches.
-    ``bind`` builds one call's argument block (weights, masks, stats, noise,
-    x0, eps and the prepared MM noise stacks)."""
+    device: the launch plan and its scratch (allocated once) and the three
+    launches. ``bind`` builds one call's argument block (weights, masks,
+    stats, noise, x0, eps and the prepared MM noise stacks)."""
 
     def __init__(self, dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                  mean_only, B, device):
@@ -805,29 +945,30 @@ class RolloutKernel:
         self.r_mm = bool(mm_rewards) and not self.mean_only
         self.D = dyn.regressor.output_density.output_dims
         self.U = pol.output_density.output_dims
-        self.pol_dims = [pol.mlp.input_dims, *pol.mlp.hidden_dims,
-                         pol.mlp.output_dims]
-        T, D, U = steps, self.D, self.U
+        self.pol_dims = list(_mlp_dims(pol.mlp))
+        clusters = max_clusters(_device_index(device))
+        self.plan = rollout_plan(_mlp_dims(pol.mlp),
+                                 _mlp_dims(dyn.regressor.mlp), self.D, B,
+                                 steps, clusters)
+        if self.plan is None:
+            raise RuntimeError(
+                f'the card holds {clusters} clusters of the rollout kernel '
+                f'at once, {rollout_capacity(dyn, pol, device)} particles '
+                f'at these widths: B={B} cannot all be resident at once')
+        self._plan = (ctypes.c_int * len(self.plan))(*self.plan)
+        T = steps
         a = self.args = _RollArgs()
         a.T, a.mm_states, a.mm_rewards = T, self.mm_states, bool(mm_rewards)
         a.mean_only = self.mean_only
         a.sign = -1.0 if maximize else 1.0
         self._w = torch.tensor(np.asarray(w_t, np.float32), device=device)
         a.w_t = self._w.data_ptr()
-        ws = self._work = {
-            'rowsum': self._empty(2, B),
-            'part': self._empty(T, -(-B // TM), _PART),
-            'g_s': self._empty(B, D), 'g_nxt': self._empty(B, D),
-            'g_r': self._empty(B), 'g_pout': self._empty(T, B, 2 * U)}
-        for k, v in ws.items():
-            setattr(a, k, v.data_ptr())
-        # [5] int64 nanoseconds of each part of a launch (the kernel's
-        # time split), added to by every launch while set
+        self._scratch = (self._empty(self.plan.scratch) if self.plan.scratch
+                         else None)
+        a.scratch = _ptr(self._scratch)
+        # [SPLIT_PARTS] int64 nanoseconds of each part of a launch (the
+        # kernel's time split), added to by every launch while set
         self.split = None
-        self._pol_a = [self._empty(T, B, w) for w in self.pol_dims[1:-1]]
-        self._pol_ga = [self._empty(T, B, w) for w in self.pol_dims[1:-1]]
-        for i, (pa, pg) in enumerate(zip(self._pol_a, self._pol_ga)):
-            a.pol_a[i], a.pol_ga[i] = pa.data_ptr(), pg.data_ptr()
         self._vg_res = self._residuals()
 
     def _empty(self, *shape):
@@ -882,6 +1023,7 @@ class RolloutKernel:
         lib = _rollout_lib()
         with torch.cuda.device(self.device):
             rc = getattr(lib, name)(ctypes.byref(sk.args), ctypes.byref(a),
+                                    self._plan,
                                     torch.cuda.current_stream().cuda_stream)
         _check(lib, name, rc, 'fused_rollout_error')
 

@@ -299,7 +299,7 @@ def test_step_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
         kernel(states, eps)
 
 
-def _rollout(B, seed, mean_only, T=15, hidden=(200, 200)):
+def _rollout(B, seed, mean_only, T=15, hidden=(200, 200), nonlin='relu'):
     """The whole rollout on Cartpole (embedded D = 5, U = 1) with its inputs:
     (kernel loss, kernel value-and-grad, plain loss, policy leaves, args
     after the policy params: x0, dynamics params, stats, noise, MM noise
@@ -311,10 +311,12 @@ def _rollout(B, seed, mean_only, T=15, hidden=(200, 200)):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
     dyn = models.DynamicsModel(models.Regressor(
-        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1)),
+        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1),
+                       nonlin=nonlin),
         models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
     pol = models.Policy(models.MLPSpec(D, 2 * U, hidden,
-                                       dropout=models.bdropout(0.1)),
+                                       dropout=models.bdropout(0.1),
+                                       nonlin=nonlin),
                         models.DiagGaussianDensity(U), max_u=(10.0,))
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
@@ -369,6 +371,92 @@ def test_rollout_kernels_match_the_plain_version_on_the_card(cuda, B,
         _hold(a, r, 1e-3, m)
 
 
+@pytest.mark.parametrize('nonlin', ['tanh', 'swish', ('relu', 'sin')])
+def test_rollout_kernels_with_other_activations_match_the_plain_version(
+        cuda, nonlin):
+    """MLPs that are not all relu take the kernel's generic instances, which
+    choose the activation at run time; rows 3-5 against the plain version
+    at B = 37."""
+    kloss, kvg, plain, pp, leaves, args = _rollout(37, 5, False,
+                                                   hidden=(64, 64),
+                                                   nonlin=nonlin)
+    got = _rollout_outputs(kloss, pp, leaves, args)
+    ref = _rollout_outputs(plain, pp, leaves, args)
+    moved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
+    vl, vm, vgrads, _ = kvg(pp, *args)
+    vref = _rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
+    vmoved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                              g=(1.0, 0.0))[:-1]
+    pairs = list(zip(got, ref, moved)) + list(zip(
+        [vl, vm, *tree_leaves(vgrads)], vref, vmoved))
+    torch.cuda.synchronize()
+    for a, r, m in pairs:
+        _hold(a, r, 1e-3, m)
+
+
+@pytest.mark.parametrize('mean_only', [True, False])
+def test_rollout_kernels_with_weights_read_in_place_match_the_plain_version(
+        cuda, mean_only):
+    """Hidden widths of 512: the weights do not fit in shared memory, so the
+    plan reads them from L2 in place (and keeps the dW accumulators in
+    scratch); rows 3-5 against the plain version at B = 37."""
+    kloss, kvg, plain, pp, leaves, args = _rollout(37, 37, mean_only,
+                                                   hidden=(512, 512))
+    plan = fr.rollout_plan((5, 512, 512, 2), (6, 512, 512, 10), 5, 37, 15,
+                           fr.max_clusters(torch.cuda.current_device()))
+    assert plan.resident == 0
+    got = _rollout_outputs(kloss, pp, leaves, args)
+    ref = _rollout_outputs(plain, pp, leaves, args)
+    moved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
+    vl, vm, vgrads, _ = kvg(pp, *args)
+    vref = _rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
+    vmoved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                              g=(1.0, 0.0))[:-1]
+    pairs = list(zip(got, ref, moved)) + list(zip(
+        [vl, vm, *tree_leaves(vgrads)], vref, vmoved))
+    torch.cuda.synchronize()
+    for a, r, m in pairs:
+        _hold(a, r, 1e-3, m)
+
+
+def test_rollout_value_and_grad_repeats_its_bits(cuda):
+    """No atomics on values: two launches of the one-launch value-and-grad
+    on the same inputs give the same bits, with 13 clusters whose partials
+    meet at grid barriers."""
+    _, kvg, _, pp, _, args = _rollout(100, 3, True)
+    a = kvg(pp, *args)
+    b = kvg(pp, *args)
+    torch.cuda.synchronize()
+    assert fr.rollout_plan((5, 200, 200, 2), (6, 200, 200, 10), 5, 100, 15,
+                           fr.max_clusters(0)).clusters > 1
+    for u, v in zip([a[0], a[1], *tree_leaves(a[2])],
+                    [b[0], b[1], *tree_leaves(b[2])]):
+        assert torch.equal(u, v)
+
+
+def test_a_rollout_plan_the_card_cannot_hold_raises(cuda, monkeypatch):
+    """A plan with more clusters than the card holds at once is refused by
+    the cooperative launch; the wrapper raises, nothing is counted, and the
+    refusal leaves no error behind: the next launch runs and agrees with
+    the plain version."""
+    with monkeypatch.context() as mp:
+        mp.setattr(fr, 'max_clusters', lambda *a: 200)
+        _, kvg, _, pp, _, args = _rollout(1500, 5, True)
+        fr.reset_launch_counts()
+        with pytest.raises(RuntimeError, match='fused_rollout_vg failed'):
+            kvg(pp, *args)
+        assert fr.LAUNCHES['fused_rollout_vg'] == 0
+    _, kvg, plain, pp, leaves, args = _rollout(1500, 5, True)
+    vl, vm, vgrads, _ = kvg(pp, *args)
+    vref = _rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
+    vmoved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                              g=(1.0, 0.0))[:-1]
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES['fused_rollout_vg'] == 1
+    for a, r, m in zip([vl, vm, *tree_leaves(vgrads)], vref, vmoved):
+        _hold(a, r, 1e-3, m)
+
+
 def test_rollout_launches_are_counted(cuda):
     kloss, kvg, _, pp, leaves, args = _rollout(16, 0, True, T=3,
                                                hidden=(32, 32))
@@ -419,15 +507,15 @@ def test_mc_pilco_takes_the_full_tier_on_the_card(cuda):
 
 
 def test_rollout_capacity_holds_the_main_path(cuda):
-    """The card holds the main path's ceil(100 / 8) blocks, and the
-    B = 1500 check's 188, at once."""
+    """The card holds the clusters of the main path's 100 particles, and of
+    the B = 1500 check's, at once: the capacity is counted in particles."""
     dyn = models.DynamicsModel(models.Regressor(
         models.MLPSpec(6, 10, (200, 200), dropout=models.cdropout(0.1)),
         models.DiagGaussianDensity(5)), reward_func=envs.cartpole_reward())
     pol = models.Policy(models.MLPSpec(5, 2, (200, 200),
                                        dropout=models.bdropout(0.1)),
                         models.DiagGaussianDensity(1), max_u=(10.0,))
-    assert fr.rollout_capacity(dyn, pol, 'cuda') >= 188
+    assert fr.rollout_capacity(dyn, pol, 'cuda') >= 1500
 
 
 def test_rollout_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
@@ -509,6 +597,36 @@ def test_grid_kernels_match_the_plain_version_on_the_card(cuda, B, mm_states,
     assert float(torch.linalg.vector_norm(a - r)) <= 1e-3 * float(
         torch.linalg.vector_norm(r))
     assert int(((a - r).abs() > tol).sum()) * 1000 <= a.numel()
+
+
+@pytest.mark.parametrize('mm_rewards', [True, False])
+def test_grid_kernels_with_weights_read_in_place_match_the_plain_version(
+        cuda, mm_rewards):
+    """Rows 8-9 at hidden widths of 512 (weights read from L2 in place),
+    B = 37, against the plain version."""
+    kern, plain, pp, leaves, args, cot = _grid(37, 37, True, mm_rewards,
+                                               hidden=(512, 512))
+    got = _grid_outputs(kern, pp, leaves, args, cot)
+    ref = _grid_outputs(plain, pp, leaves, args, cot)
+    moved = _grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
+    torch.cuda.synchronize()
+    for a, r, m in zip(got[:-1], ref[:-1], moved[:-1]):
+        _hold(a, r, 1e-3, m)
+    a, r, m = got[-1], ref[-1], moved[-1]
+    assert torch.isfinite(a).all()
+    assert float(torch.linalg.vector_norm(a - r)) <= 1e-3 * float(
+        torch.linalg.vector_norm(r))
+
+
+def test_grid_kernels_repeat_their_bits(cuda):
+    """Two forward + backward launches of the grid kernels at B = 1000 (14
+    clusters, two row tiles each) give the same bits."""
+    kern, _, pp, leaves, args, cot = _grid(1000, 2)
+    a = _grid_outputs(kern, pp, leaves, args, cot)
+    b = _grid_outputs(kern, pp, leaves, args, cot)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 def test_grid_launches_are_counted(cuda):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``prob_mbrl_tpu_torch``, not
 ``chip_smoke.py`` and not the tools that run on the card without JAX
-(``tools/profile_torch_main_path.py``, ``tools/torch_mlp_timings.py``)
+(``tools/profile_torch_main_path.py``, ``tools/torch_mlp_timings.py``,
+``tools/torch_cluster_probe.py``, ``tools/torch_rollout_laps.py``)
 imports JAX or the JAX package ``prob_mbrl_tpu``, and none
 hands the main path to ``torch.compile``. Checked by parsing the sources,
 so nothing is imported here."""
@@ -13,7 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'prob_mbrl_tpu_torch'
 FILES = sorted(PORT.rglob('*.py')) + [
     ROOT / 'chip_smoke.py', ROOT / 'tools' / 'profile_torch_main_path.py',
-    ROOT / 'tools' / 'torch_mlp_timings.py']
+    ROOT / 'tools' / 'torch_mlp_timings.py',
+    ROOT / 'tools' / 'torch_cluster_probe.py',
+    ROOT / 'tools' / 'torch_rollout_laps.py']
 
 
 def _forbidden(name):

@@ -109,33 +109,6 @@ def test_mc_pilco_iterations_on_the_full_tier_match_the_rollout(setups):
                                    rtol=0, atol=1e-6)
 
 
-def test_the_gate_names_the_step_tier_when_the_card_cannot_hold_the_rollout(
-        setups, monkeypatch):
-    """On a CUDA device the gate asks how many blocks of TM particles the
-    card holds at once: the whole rollout needs ceil(B / TM) of them."""
-    _, _, tdyn, tpol = setups['emb5']['specs']
-    need = -(-_cfg().n_particles // tfr.TM)
-    for capacity, tier in ((need - 1, 'step'), (need, 'full')):
-        monkeypatch.setattr(tfr, 'rollout_capacity',
-                            lambda *a, c=capacity: c)
-        assert tfr.fused_mode(_cfg(), tdyn, tpol, device='cuda') == tier
-        opt = tmc.make_mc_pilco_fn(tdyn, tpol, _cfg(), device='cuda')
-        assert opt.tier('cuda') == tier
-        assert (opt.fused_vg is None) == (tier == 'step')
-    assert tfr.fused_mode(_cfg(cvar_eps=0.25), tdyn, tpol,
-                          device='cuda') is None
-    # a value update takes the grid kernels, with the same capacity
-    from test_torch_value import critic_specs
-    from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
-    V = critic_specs(False)[1]
-    upd = make_value_update_fn(V, Adam(1e-3), T)
-    for capacity, tier in ((need - 1, 'step'), (need, 'grid')):
-        monkeypatch.setattr(tfr, 'rollout_capacity',
-                            lambda *a, c=capacity: c)
-        assert tfr.fused_mode(_cfg(), tdyn, tpol, upd, value_spec=V,
-                              device='cuda') == tier
-
-
 def test_the_plain_whole_rollout_is_the_stepwise_loss_without_the_shortcut(
         setups):
     """Without the mean-only shortcut the two tiers' plain versions compute
