@@ -16,10 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
      and the value path's critic (5->200->200->1, concrete masks) at
      B = 1000: forward output, dx, dW, db and d(mask); each launch plan
      (clusters of 8 CTAs) with the clusters of it the card holds at once.
-     The rollout step at the main
-     path's widths, B in {2, 37, 100, 1500}: (nxt, r) and the cotangents of
-     the policy params, the states and eps. The whole rollout at the main
-     path's widths and T = 15, B in {16, 37, 100, 1500} with the reward
+     The rollout step at the main path's widths, B in {2, 37, 100, 1500,
+     5761}: (nxt, r) and the cotangents of the policy params, the states
+     and eps; its times and launch plans at B = 100 and 5761 (phase 4b's
+     batch). The whole rollout at the main path's widths and T = 15,
+     B in {16, 37, 100, 1500} with the reward
      mean-only shortcut (and B = 100 without it): loss, mean_return and the
      gradients wrt the policy params and action_eps, by the forward and
      backward kernels and by the one-launch value-and-grad. The step and
@@ -120,7 +121,10 @@ ROUTE_ITERS = 30  # iterations of the fused-MLP route (phase 3)
 STEP_ITERS = 100  # iterations of the step tier (phase 4)
 STEP_ROUTE_ITERS = 10  # mc_pilco iterations on the step tier (phase 4b)
 LOSS_ITERS = 30  # iterations of the differentiable rollout loss (phase 6)
-STEP_BATCHES = (2, 37, 100, 1500)
+STEP_BATCHES = (2, 37, 100, 1500, 5761)
+# the step tier's batch where the gate sends it (phase 4b: one particle
+# beyond what an H100 holds of the whole-rollout kernel at once)
+STEP_BIG_B = 5761
 ROLLOUT_BATCHES = (16, 37, 100, 1500)
 GRID_BATCHES = (16, 37, 1000, 1500)
 GRID_B = 1000  # particles of the value path (phase 7)
@@ -503,14 +507,25 @@ def step_bytes_flops(B, pol_dims, dyn_dims, D, U):
             'fused_step_bwd': (bwd_bytes, bwd_flops)}
 
 
-def step_timings():
-    """ms of each step kernel and of the plain step at the main-path batch.
-    The plain backward is its forward and ``torch.autograd.grad`` in one
-    graph, less the plain forward's. No single PyTorch call computes a
-    rollout step, so there is no library time."""
+def step_plans(k):
+    """The step kernels' launch plans of ``k`` on this card, as text."""
+    return '; '.join(
+        f'{name}: {p.clusters} clusters of 8 CTAs walk {p.tiles} tiles of '
+        f'{p.tile_rows} rows, weights '
+        f'{"resident" if p.resident else "read in place"}, {p.smem} bytes of '
+        'shared memory a CTA' for name, p in zip(('forward', 'backward'),
+                                                  k.plans()))
+
+
+def step_timings(B):
+    """ms of each step kernel and of the plain step at batch B, and the
+    kernels' launch plans. The plain backward is its forward and
+    ``torch.autograd.grad`` in one graph, less the plain forward's. No
+    single PyTorch call computes a rollout step, so there is no library
+    time."""
     kernel, plain, leaves, states, eps, cot, (k, z_mm, z_rr) = step_problem(
-        MAIN_B, seed=7)
-    _, _, nxt_raw, r_raw = k.forward(states, eps, z_mm, z_rr)
+        B, seed=7)
+    residuals = k.forward(states, eps, z_mm, z_rr)[2:]
 
     def plain_fwd_bwd():
         step_outputs(plain, leaves, states, eps, cot)
@@ -522,15 +537,15 @@ def step_timings():
             plain_ms=plain_fwd_ms),
         'fused_step_bwd': dict(
             ms=time_graph(lambda: k.backward(states, eps, z_mm, z_rr,
-                                             nxt_raw, r_raw, cot[0], cot[1],
+                                             *residuals, cot[0], cot[1],
                                              True)),
             plain_ms=time_graph(plain_fwd_bwd) - plain_fwd_ms),
     }
     dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
-    for name, (nbytes, flops) in step_bytes_flops(MAIN_B, *dims, 5, 1).items():
+    for name, (nbytes, flops) in step_bytes_flops(B, *dims, 5, 1).items():
         t[name]['bound_ms'], t[name]['bound_by'] = bound(nbytes, flops)
         t[name]['library_ms'] = None
-    return t
+    return t, step_plans(k)
 
 
 def phase_step_kernels():
@@ -565,12 +580,17 @@ def phase_step_kernels():
             f'bwd {here["fused_step_bwd"]:.3e}; worst of an output relative '
             f'to its max|plain| {rel:.3e}, loosest tolerance {loose:.3e} '
             f'relative ({STEP_TOL:.0e} or the plain step\'s sensitivity) ok')
-    rows = step_timings()
+    rows = None
+    for B in (MAIN_B, STEP_BIG_B):
+        tt, plans = step_timings(B)
+        log(f'[phase 2] rollout step B={B}: {plans}')
+        for name, v in tt.items():
+            log(f'[phase 2] {name} B={B}: kernel {v["ms"]:.4f} ms, plain '
+                f'{v["plain_ms"]:.4f} ms, no single library call, bound '
+                f'{v["bound_ms"]:.6f} ms ({v["bound_by"]})')
+        rows = rows or tt
     for name, v in rows.items():
         v['max_abs_err'] = worst[name]
-        log(f'[phase 2] {name} B={MAIN_B}: kernel {v["ms"]:.4f} ms, plain '
-            f'{v["plain_ms"]:.4f} ms, no single library call, bound '
-            f'{v["bound_ms"]:.6f} ms ({v["bound_by"]})')
     return rows
 
 

@@ -65,8 +65,6 @@ from . import fused_mlp as fm
 MAX_D = 8        # kMaxD of csrc/fused_step.cu: state dims
 MAX_U = 4        # kMaxU: action dims
 MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
-MAX_SMEM = 232448  # shared memory a Hopper block can use, bytes
-_TILE_SMEM = 2208  # sizeof(TileSm), the backward tile's static part
 
 _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
 
@@ -254,14 +252,6 @@ def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
 # ---------------------------------------------------------------------------
 
 
-def _widths(dyn, pol):
-    """(widest layer, hidden units of both MLPs): what sizes a tile's shared
-    memory."""
-    specs = (pol.mlp, dyn.regressor.mlp)
-    maxw = max(max(s.input_dims, s.output_dims, *s.hidden_dims) for s in specs)
-    return maxw, sum(sum(s.hidden_dims) for s in specs)
-
-
 def kernel_refuses(dyn, pol):
     """Why the step kernels cannot take these models, or None if they can."""
     reg = dyn.regressor
@@ -295,9 +285,8 @@ def kernel_refuses(dyn, pol):
             return 'input dropout and output nonlinearities are not taken'
         if not fm.fused_mlp_supported(dims, spec.nonlin):
             return f'the MLP tile walk does not take dims {dims}'
-    maxw, hidden = _widths(dyn, pol)
-    if 4 * 12 * (2 * maxw + hidden) + _TILE_SMEM > MAX_SMEM:
-        return 'the backward tile does not fit in shared memory'
+    if step_plan(_mlp_dims(pol.mlp), _mlp_dims(reg.mlp), D, 2, True) is None:
+        return 'the step kernels\' tiles do not fit in shared memory'
     return None
 
 
@@ -401,19 +390,18 @@ def _layers(dims):
     return list(zip(dims[:-1], dims[1:]))
 
 
-def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
-                   resident):
-    """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
-    dW accumulator, floats of the policy's dW and db) of a launch (``lay_of``
-    in the source): the staged weights of both MLPs, all of W_0 and a block
-    of ceil(d_l / 8) rows (to 4) of each later W_l, rows padded to 4, and
-    the dW accumulator (resident plans only); every layer's bias (to 4);
-    two exchange regions; the layer-input slice (the backward's recomputed
+def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd):
+    """(floats, floats of one CTA's policy dW accumulator, floats of the
+    policy's dW and db) of the cluster walk's shared memory for tiles of
+    ``tile_rows`` rows (``walk_lay`` in ``csrc/cluster_walk.cuh``): the
+    staged weights of both MLPs, all of W_0 and a block of ceil(d_l / 8)
+    rows (to 4) of each later W_l, rows padded to 4, and with ``bwd`` the dW
+    accumulator (resident plans only); every layer's bias (to 4); two
+    exchange regions; the layer-input slice (the backward's recomputed
     input); both MLPs' whole inputs and the gradient wrt one ([MAX_D +
-    MAX_U] rows each); the kept hidden pre-activation slices and the tile's
-    mask slices of the hidden layers; the tile's small arrays
-    (feature-major, rows padded by 4); the cluster's per-particle arrays
-    (5 D + 6 floats each) and one partial per cluster."""
+    MAX_U] rows each); the tile's mask slices of the hidden layers and, with
+    ``bwd``, the kept hidden pre-activation slices; the tile's small arrays
+    (feature-major, rows padded by 4)."""
     nets = (tuple(pol_dims), tuple(dyn_dims))
     trp = tile_rows + 4
     dw = sum(_r4(_cdiv(a, CLUSTER)) * _r4(b) + _r4(b)
@@ -423,16 +411,28 @@ def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
     if resident:
         off += sum((_r4(_cdiv(a, CLUSTER)) if l else a) * _r4(b)
                    for dims in nets
-                   for l, (a, b) in enumerate(_layers(dims))) + dw
+                   for l, (a, b) in enumerate(_layers(dims)))
+        off += dw if bwd else 0
     off += sum(_r4(b) for dims in nets for _, b in _layers(dims))
     kwmax = max(_cdiv(d, CLUSTER) for dims in nets for d in dims)
     outmax = max(nets[0][-1], nets[1][-1])
     rw = max(CLUSTER * kwmax, max(max(d) for d in nets), CLUSTER * outmax)
     off += 2 * rw * trp + _r4(kwmax) * trp + 3 * (MAX_D + MAX_U) * trp
-    off += 2 * sum(_r4(_cdiv(w, CLUSTER)) * trp for dims in nets
-                   for w in dims[1:-1])
-    off += TILE_SMALL * trp + _r4(particles * (5 * D + 6)) + clusters * PART
+    off += (2 if bwd else 1) * sum(_r4(_cdiv(w, CLUSTER)) * trp
+                                   for dims in nets for w in dims[1:-1])
+    off += TILE_SMALL * trp
     return off, dw, flat
+
+
+def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
+                   resident):
+    """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
+    dW accumulator, floats of the policy's dW and db) of a launch (``lay_of``
+    in the source): the cluster walk's (``_walk_floats``, with the
+    backward's buffers), then the cluster's per-particle arrays (5 D + 6
+    floats each) and one partial per cluster."""
+    off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident, True)
+    return off + _r4(particles * (5 * D + 6)) + clusters * PART, dw, flat
 
 
 def _scratch(T, clusters, resident, dw, flat):
@@ -495,6 +495,86 @@ def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS):
     return max_clusters * best
 
 
+# ---------------------------------------------------------------------------
+# launch plan of the step kernels (csrc/fused_step.cu checks it against the
+# same formulas, step_lay_of)
+# ---------------------------------------------------------------------------
+
+SUM_THREADS = 256      # kSumThreads: rows of a block of the MM adjoint's sums
+PART_B = 48            # kPartB: floats of one block's partial of those sums
+COEF = MAX_D * MAX_D + MAX_D  # kCoef: H and c0 of one resample site
+TICKETS = 3            # kTickets: the launches' counters
+
+# field order = the StepPlanField enum of csrc/fused_step.cu
+StepPlan = collections.namedtuple('StepPlan', [
+    'cluster', 'clusters', 'tile_rows', 'tiles', 'threads', 'resident',
+    'smem', 'sum_blocks', 'scratch'])
+
+
+def step_layout(pol_dims, dyn_dims, tile_rows, resident, backward):
+    """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
+    dW accumulator, floats of the policy's dW and db) of a step launch
+    (``step_lay_of``): the cluster walk's (``_walk_floats``; the backward's
+    buffers with ``backward``), then for the backward the tile's gradient
+    wrt its pre-MM outputs ([tile_rows, MAX_D + 1], to 4)."""
+    off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident,
+                                 backward)
+    return off + (_r4(tile_rows * (MAX_D + 1)) if backward else 0), dw, flat
+
+
+def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat):
+    """Floats of device scratch of a step launch: the forward's one partial
+    of the moments per cluster; the backward's partials of the MM adjoint's
+    sums (one per block), both sites' (H, c0), the clusters' dW partials
+    (several clusters; each padded to 4 floats) and the CTAs' dW
+    accumulators (streamed plans)."""
+    if not backward:
+        return clusters * PART
+    return (sum_blocks * PART_B + 2 * COEF
+            + (clusters * _r4(flat) if clusters > 1 else 0)
+            + (0 if resident else clusters * CLUSTER * dw))
+
+
+@functools.lru_cache(maxsize=None)
+def step_plan(pol_dims, dyn_dims, D, B, backward,
+              max_clusters=TARGET_CLUSTERS):
+    """The launch plan of one step kernel (``backward``: ``fused_step_bwd``'s
+    walk, else ``fused_step_fwd``) for these MLP widths at batch B, on a card
+    that holds ``max_clusters`` clusters at once; None when no tile fits in
+    shared memory.
+
+    The B rows are cut into ``tiles`` row tiles of ``tile_rows`` rows
+    (a multiple of 4, at most ``MAX_TILE_ROWS``); ``clusters`` = min(tiles,
+    max_clusters) clusters of ``CLUSTER`` CTAs of ``threads`` threads walk
+    them, cluster c the tiles c, c + clusters, ... The batch is spread over
+    up to ``max_clusters`` clusters (at B = 100 and 15 clusters: 13 tiles of
+    8 rows); where a cluster's share is more than the largest tile that
+    fits, it walks the fewest tiles of equal rows that do. The weight rows
+    are resident in shared memory where any tile fits beside them, else read
+    from L2 in place (``resident`` 0). ``smem``: bytes of dynamic shared
+    memory per CTA; ``sum_blocks``: blocks of the backward's MM-adjoint
+    sums (0 for the forward); ``scratch``: floats of device scratch."""
+    pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
+    per = _r4(_cdiv(B, max_clusters))
+    for resident in (1, 0):
+        fit = next((tr for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP)
+                    if 4 * step_layout(pol_dims, dyn_dims, tr, resident,
+                                       backward)[0] <= SMEM_MAX), None)
+        if fit is None:
+            continue
+        tr = _r4(_cdiv(per, _cdiv(per, fit)))
+        tiles = _cdiv(B, tr)
+        clusters = min(tiles, max_clusters)
+        floats, dw, flat = step_layout(pol_dims, dyn_dims, tr, resident,
+                                       backward)
+        sum_blocks = _cdiv(B, SUM_THREADS) if backward else 0
+        return StepPlan(CLUSTER, clusters, tr, tiles, THREADS, resident,
+                        4 * floats, sum_blocks,
+                        _step_scratch(clusters, sum_blocks, resident,
+                                      backward, dw, flat))
+    return None
+
+
 def _mlp_dims(spec):
     return (spec.input_dims,) + tuple(spec.hidden_dims) + (spec.output_dims,)
 
@@ -539,11 +619,14 @@ def _lib():
         if lib.fused_step_args_size() != ctypes.sizeof(_StepArgs):
             raise RuntimeError('csrc/fused_step.cu StepArgs and its ctypes '
                                'mirror differ in size')
-        lib.fused_step_fwd.argtypes = [p, i, i, p, p, p, p, p]
+        ip = ctypes.POINTER(i)
+        lib.fused_step_fwd.argtypes = [p, ip, i, i, p, p, p, p, p, p, p, p]
         lib.fused_step_fwd.restype = i
-        lib.fused_step_bwd.argtypes = [p, i, i, p, p, p, p, p, p, p, p, pp,
-                                       pp, pp, pp, p, p]
+        lib.fused_step_bwd.argtypes = [p, ip, i, i, p, p, p, p, p, p, p, pp,
+                                       pp, p, p, p]
         lib.fused_step_bwd.restype = i
+        lib.fused_step_max_clusters.argtypes = [i, i, ip]
+        lib.fused_step_max_clusters.restype = i
         lib.fused_step_error.argtypes = [i]
         lib.fused_step_error.restype = ctypes.c_char_p
         lib.typed = True
@@ -621,11 +704,37 @@ def _masks(spec, params, noise, B):
     return out
 
 
+def _clusters_held(lib, query, error, device_index):
+    """``lib.query``: how many clusters of a kernel's instances the card
+    holds at once with ``THREADS`` threads and ``SMEM_MAX`` bytes of shared
+    memory per CTA (``cudaOccupancyMaxActiveClusters``; no plan asks for
+    more shared memory, so at least as many of any plan fit)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = getattr(lib, query)(THREADS, SMEM_MAX, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f'{query} failed: {rc} '
+                           f'({getattr(lib, error)(rc).decode()})')
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def step_max_clusters(device_index):
+    """Clusters of the step kernels the card holds at once, queried once per
+    card (``_clusters_held``). A plan may launch more: the clusters run in
+    turns."""
+    return _clusters_held(_lib(), 'fused_step_max_clusters',
+                          'fused_step_error', device_index)
+
+
 class StepKernel:
     """The kernels' view of one loss: weights, masks, stats and noise,
     formed once (the masks from the pinned noise, outside the kernel) and
     held in a ctypes argument block; each step sets only its own states,
-    eps and MM noise. ``__call__`` is the differentiable step."""
+    eps and MM noise. The launch plans, the scratch and the launches'
+    counters are made at the first launch and kept for every later one (a
+    CUDA graph replays them; each launch leaves the counters zero).
+    ``__call__`` is the differentiable step."""
 
     def __init__(self, dyn, pol, mm_states, mm_rewards, pol_params,
                  dyn_params, dyn_stats, dyn_noise, pol_noise, B, device):
@@ -637,6 +746,8 @@ class StepKernel:
         reg = dyn.regressor
         D, U = reg.output_density.output_dims, pol.output_density.output_dims
         self.B, self.D, self.U, self.device = B, D, U, device
+        self.dims = (_mlp_dims(pol.mlp), _mlp_dims(reg.mlp))
+        self._work = None
         a = self.args = _StepArgs()
         a.B, a.D, a.U = B, D, U
         keep = []  # the tensors whose pointers the argument block holds
@@ -673,8 +784,7 @@ class StepKernel:
                                        pol_noise.get('mlp'), 'policy')
         mlp(a.dyn, reg.mlp, dyn_params['mlp'], dyn_noise.get('mlp'),
             'dynamics')
-        self.pol_dims = [pol.mlp.input_dims, *pol.mlp.hidden_dims,
-                         pol.mlp.output_dims]
+        self.pol_dims = list(self.dims[0])
         a.z_pol = t(pol_noise['density']['z'], 'policy density noise', (B, U))
         a.z_dyn = t(dyn_noise['density']['z'], 'dynamics density noise',
                     (B, D))
@@ -696,6 +806,24 @@ class StepKernel:
                 a.tip[j * D + k] = v
         a.norm, a.q_scale, a.r_scale = rf.norm, rf.q_scale, rf.r_scale
         self._keep = keep
+
+    def plans(self):
+        """(forward plan, backward plan) on this card (``step_plan``)."""
+        clusters = step_max_clusters(_device_index(self.device))
+        return tuple(step_plan(*self.dims, self.D, self.B, bwd, clusters)
+                     for bwd in (False, True))
+
+    def _workspace(self):
+        """(forward plan, backward plan, each as C ints, scratch, counters),
+        made at the first launch; the counters start at zero."""
+        if self._work is None:
+            plans = self.plans()
+            scratch = max(p.scratch for p in plans)
+            self._work = (
+                *[(ctypes.c_int * len(p))(*p) for p in plans],
+                torch.empty(scratch, device=self.device),
+                torch.zeros(TICKETS, dtype=torch.int32, device=self.device))
+        return self._work
 
     def _set(self, states, eps, z_mm, z_rr):
         a = self.args
@@ -719,51 +847,53 @@ class StepKernel:
             _kernel_tensor(x, self.device, what)
 
     def forward(self, states, eps, z_mm, z_rr):
-        """Launch the forward: (nxt, r, nxt_raw, r_raw)."""
+        """Launch the forward: (nxt, r, nxt_raw, r_raw, stats); the last
+        three are the backward's residuals (stats: the (m, sd, L) of each
+        resample, [2, kStat])."""
         lib = _lib()
         B, D = self.B, self.D
+        plan, _, scratch, tickets = self._workspace()
         self._set(states, eps, z_mm, z_rr)
         nxt_raw = torch.empty((B, D), device=self.device)
         r_raw = torch.empty((B, 1), device=self.device)
         nxt = torch.empty_like(nxt_raw) if self.mm_states else nxt_raw
         r = torch.empty_like(r_raw) if self.mm_rewards else r_raw
+        stats = torch.empty((2, _STAT), device=self.device)
         with torch.cuda.device(self.device):
             rc = lib.fused_step_fwd(
-                ctypes.byref(self.args), self.mm_states, self.mm_rewards,
-                nxt_raw.data_ptr(), r_raw.data_ptr(), nxt.data_ptr(),
-                r.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                ctypes.byref(self.args), plan, self.mm_states,
+                self.mm_rewards, nxt_raw.data_ptr(), r_raw.data_ptr(),
+                nxt.data_ptr(), r.data_ptr(), stats.data_ptr(),
+                scratch.data_ptr(), tickets.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         _check(lib, 'fused_step_fwd', rc)
-        return nxt, r, nxt_raw, r_raw
+        return nxt, r, nxt_raw, r_raw, stats
 
-    def backward(self, states, eps, z_mm, z_rr, nxt_raw, r_raw, g_nxt, g_r,
-                 want_eps):
+    def backward(self, states, eps, z_mm, z_rr, nxt_raw, r_raw, stats, g_nxt,
+                 g_r, want_eps):
         """Launch the backward: (g_states, g_eps or None, dws, dbs)."""
         lib = _lib()
         B, D, U = self.B, self.D, self.U
+        _, plan, scratch, tickets = self._workspace()
         self._set(states, eps, z_mm, z_rr)
 
         def empty(*shape):
             return torch.empty(shape, device=self.device)
 
-        g_nxt_raw = empty(B, D) if self.mm_states else g_nxt
-        g_r_raw = empty(B, 1) if self.mm_rewards else g_r
         g_states = empty(B, D)
         g_eps = empty(B, U) if want_eps else None
         dims = self.pol_dims
         dws = [empty(a, b) for a, b in zip(dims[:-1], dims[1:])]
         dbs = [None if b is None else empty(dims[i + 1])
                for i, b in enumerate(self.pol_bs)]
-        pol_a = [empty(B, w) for w in dims[1:-1]]
-        pol_ga = [empty(B, w) for w in dims[1:-1]]
-        g_pout = empty(B, 2 * U)
         with torch.cuda.device(self.device):
             rc = lib.fused_step_bwd(
-                ctypes.byref(self.args), self.mm_states, self.mm_rewards,
-                nxt_raw.data_ptr(), r_raw.data_ptr(), g_nxt.data_ptr(),
-                g_r.data_ptr(), g_nxt_raw.data_ptr(), g_r_raw.data_ptr(),
+                ctypes.byref(self.args), plan, self.mm_states,
+                self.mm_rewards, nxt_raw.data_ptr(), r_raw.data_ptr(),
+                stats.data_ptr(), g_nxt.data_ptr(), g_r.data_ptr(),
                 g_states.data_ptr(), _ptr(g_eps), fm._ptrs(dws),
-                fm._ptrs(dbs), fm._ptrs(pol_a), fm._ptrs(pol_ga),
-                g_pout.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                fm._ptrs(dbs), scratch.data_ptr(), tickets.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         _check(lib, 'fused_step_bwd', rc)
         return g_states, g_eps, dws, dbs
 
@@ -777,22 +907,23 @@ class StepKernel:
 
 class _FusedStep(torch.autograd.Function):
     """Forward: ``fused_step_fwd``; backward: ``fused_step_bwd``, which
-    recomputes the step from its inputs (and the pre-MM outputs)."""
+    recomputes the step from its inputs (and the forward's pre-MM outputs
+    and moments)."""
 
     @staticmethod
     def forward(ctx, k, states, eps, z_mm, z_rr, *pol_flat):
-        nxt, r, nxt_raw, r_raw = k.forward(states, eps, z_mm, z_rr)
+        nxt, r, *res = k.forward(states, eps, z_mm, z_rr)
         ctx.k = k
-        ctx.save_for_backward(states, eps, z_mm, z_rr, nxt_raw, r_raw)
+        ctx.save_for_backward(states, eps, z_mm, z_rr, *res)
         return nxt, r
 
     @staticmethod
     def backward(ctx, g_nxt, g_r):
-        states, eps, z_mm, z_rr, nxt_raw, r_raw = ctx.saved_tensors
+        states, eps, z_mm, z_rr, *res = ctx.saved_tensors
         k = ctx.k
         want_eps = eps is not None and ctx.needs_input_grad[2]
         g_states, g_eps, dws, dbs = k.backward(
-            states, eps, z_mm, z_rr, nxt_raw, r_raw, g_nxt.contiguous(),
+            states, eps, z_mm, z_rr, *res, g_nxt.contiguous(),
             g_r.contiguous(), want_eps)
         return (None, g_states, g_eps, None, None, *dws,
                 *[d for d in dbs if d is not None])
@@ -896,18 +1027,11 @@ def make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
 
 @functools.lru_cache(maxsize=None)
 def max_clusters(device_index):
-    """Clusters of the whole-rollout kernel the card holds at once with
-    ``THREADS`` threads and ``SMEM_MAX`` bytes of shared memory per CTA
-    (``cudaOccupancyMaxActiveClusters``; no plan asks for more shared
-    memory, so at least as many of any plan fit). Queried once per card."""
-    lib = _rollout_lib()
-    n = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        rc = lib.fused_rollout_max_clusters(THREADS, SMEM_MAX, ctypes.byref(n))
-    if rc != 0:
-        raise RuntimeError(f'fused_rollout_max_clusters failed: {rc} '
-                           f'({lib.fused_rollout_error(rc).decode()})')
-    return n.value
+    """Clusters of the whole-rollout kernel the card holds at once, queried
+    once per card (``_clusters_held``): its cooperative launch needs all of
+    a plan's clusters resident."""
+    return _clusters_held(_rollout_lib(), 'fused_rollout_max_clusters',
+                          'fused_rollout_error', device_index)
 
 
 def _device_index(device):

@@ -4,7 +4,9 @@ at the main path's widths, a 1000-wide layer, odd widths, eight layers and
 no biases or masks, B from 1 to 1030 (and its bits from call to call, and
 its refusal of a launch plan the card cannot hold), the
 rollout step (forward values and the cotangents of the policy params, the
-states and eps), the whole rollout (loss, mean_return and the gradients wrt
+states and eps, up to B = 5761 and with other activations; its bits from
+launch to launch, in a CUDA graph's replays, and with more clusters than
+the card holds), the whole rollout (loss, mean_return and the gradients wrt
 the policy params and action_eps, by the forward + backward kernels and by
 the one-launch value-and-grad), the grid rollout (disc, raw, vret,
 states_all and the VJP of cotangents of all four), the launch counters, the
@@ -182,10 +184,11 @@ def test_cuda_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
         fm.fused_mlp(x, ws, bs, ms, ('relu',))
 
 
-def _step(B, seed, hidden=(200, 200)):
+def _step(B, seed, hidden=(200, 200), nonlin='relu', kernel=False):
     """One Cartpole rollout step (embedded D = 5, U = 1) with its inputs:
-    (kernel step, plain step, policy leaves, states, eps, cotangents). The
-    state resample needs B > D (a full-rank particle covariance)."""
+    (kernel step, plain step, policy leaves, states, eps, cotangents), and
+    with ``kernel`` the ``StepKernel`` and the MM noise besides. The state
+    resample needs B > D (a full-rank particle covariance)."""
     D, U = 5, 1
     rng = np.random.RandomState(seed)
 
@@ -193,10 +196,12 @@ def _step(B, seed, hidden=(200, 200)):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
     dyn = models.DynamicsModel(models.Regressor(
-        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1)),
+        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1),
+                       nonlin=nonlin),
         models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
     pol = models.Policy(models.MLPSpec(D, 2 * U, hidden,
-                                       dropout=models.bdropout(0.1)),
+                                       dropout=models.bdropout(0.1),
+                                       nonlin=nonlin),
                         models.DiagGaussianDensity(U), max_u=(10.0,))
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
@@ -216,9 +221,10 @@ def _step(B, seed, hidden=(200, 200)):
     k = fr.StepKernel(dyn, pol, mm_states, True, pp, dp, stats, dn, pn, B,
                       states.device)
     plain = fr.make_step_plain(dyn, pol, mm_states, True)
-    return (lambda s, e: k(s, e, zm, zr),
-            lambda s, e: plain(pp, s, zm, zr, e, dp, stats, dn, pn),
-            leaves, states, eps, (t(rng.randn(B, D)), t(rng.randn(B, 1))))
+    out = (lambda s, e: k(s, e, zm, zr),
+           lambda s, e: plain(pp, s, zm, zr, e, dp, stats, dn, pn),
+           leaves, states, eps, (t(rng.randn(B, D)), t(rng.randn(B, 1))))
+    return out + (k, zm, zr) if kernel else out
 
 
 def _step_outputs(step, leaves, states, eps, cot):
@@ -230,15 +236,87 @@ def _step_outputs(step, leaves, states, eps, cot):
     return [nxt.detach(), r.detach(), *grads]
 
 
-@pytest.mark.parametrize('B', [2, 37, 1030])
-def test_step_kernels_match_the_plain_step_on_the_card(cuda, B):
-    kernel, plain, leaves, states, eps, cot = _step(B, B)
+def _hold_step(kernel, plain, leaves, states, eps, cot):
     got = _step_outputs(kernel, leaves, states, eps, cot)
     ref = _step_outputs(plain, leaves, states, eps, cot)
     moved = _step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
     torch.cuda.synchronize()
     for a, r, m in zip(got, ref, moved):
         _hold(a, r, 1e-3, m)
+
+
+@pytest.mark.parametrize('B', [2, 37, 1030, 5761])
+def test_step_kernels_match_the_plain_step_on_the_card(cuda, B):
+    """B = 5761: the batch the gate sends to the step tier on an H100 (one
+    particle beyond what it holds of the whole rollout at once), ten row
+    tiles a cluster in the backward."""
+    _hold_step(*_step(B, B))
+
+
+@pytest.mark.parametrize('nonlin', ['tanh', 'swish'])
+def test_step_kernels_with_other_activations_match_the_plain_step(cuda,
+                                                                  nonlin):
+    """The instances that choose the activation at run time."""
+    _hold_step(*_step(100, 3, nonlin=nonlin))
+
+
+def test_step_kernels_repeat_their_bits(cuda):
+    """No atomics on values: two launches on the same inputs give the same
+    bits, forward and backward, with several clusters and tiles a cluster
+    (the forward's moments and the backward's dW merged in cluster
+    order)."""
+    kernel, _, leaves, states, eps, cot, k, _, _ = _step(1500, 5,
+                                                         kernel=True)
+    fwd, bwd = k.plans()
+    assert fwd.clusters > 1 and fwd.tiles > fwd.clusters
+    assert bwd.clusters > 1 and bwd.tiles > bwd.clusters
+    a = _step_outputs(kernel, leaves, states, eps, cot)
+    b = _step_outputs(kernel, leaves, states, eps, cot)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_a_step_plan_of_more_clusters_than_the_card_holds_is_right(
+        cuda, monkeypatch):
+    """The step kernels are normal cluster launches that never wait on each
+    other: a plan of more clusters than the card holds at once runs them in
+    turns, and the last one to finish still merges everything."""
+    held = fr.step_max_clusters(torch.cuda.current_device())
+    monkeypatch.setattr(fr, 'step_max_clusters', lambda *a: 64)
+    kernel, plain, leaves, states, eps, cot, k, _, _ = _step(1500, 6,
+                                                             kernel=True)
+    assert all(p.clusters > held for p in k.plans())
+    _hold_step(kernel, plain, leaves, states, eps, cot)
+
+
+def test_step_kernels_replay_in_a_cuda_graph(cuda):
+    """A CUDA graph of the forward and the backward replays to the bits of
+    eager launches, twice: each launch leaves its counters zero for the
+    next."""
+    _, _, _, states, eps, cot, k, zm, zr = _step(1500, 7, kernel=True)
+
+    def run():
+        nxt, r, *res = k.forward(states, eps, zm, zr)
+        return [nxt, r, *k.backward(states, eps, zm, zr, *res, *cot,
+                                    True)[:2]]
+
+    eager = [v.clone() for v in run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        for v in outs:
+            v.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for u, v in zip(eager, outs):
+            assert torch.equal(u, v)
 
 
 def test_step_launches_are_counted(cuda):

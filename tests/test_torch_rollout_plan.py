@@ -149,7 +149,10 @@ def test_every_configuration_the_old_kernel_took_still_gets_a_plan(hidden,
     pol, dyn = _dims(hidden, D, U)
     maxw = max(max(pol), max(dyn))
     hsum = sum(pol[1:-1]) + sum(dyn[1:-1])
-    assert 4 * 12 * (2 * maxw + hsum) + tfr._TILE_SMEM <= tfr.MAX_SMEM
+    # the row-walk step kernel's tile: 12-float rows of two work buffers and
+    # every hidden pre-activation, beside 2208 bytes of static shared memory,
+    # in the 232448 a block may use
+    assert 4 * 12 * (2 * maxw + hsum) + 2208 <= 232448
     old = _old_capacity(pol, dyn)
     assert old is not None
     assert tfr.max_particles(pol, dyn, D, 15) >= old
@@ -162,7 +165,8 @@ def test_the_plan_is_what_the_kernel_takes():
     enum, and its constants are the source's."""
     p = tfr.rollout_plan(*_dims((200, 200), 5, 1), 5, 100, 15)
     assert list(p) == [int(v) for v in p]
-    src = (build.CSRC / 'fused_rollout.cu').read_text()
+    src = ''.join((build.CSRC / f).read_text()
+                  for f in ('fused_rollout.cu', 'cluster_walk.cuh'))
 
     def const(name):
         return int(re.search(rf'\b{name} = (\d+)[;,]', src).group(1))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Finer time split of the whole-rollout kernel on the card: copies
 ``prob_mbrl_tpu_torch/csrc`` to ``build/rollout_laps/<variant>/csrc`` with
-extra ``%globaltimer`` laps of CTA 0 inside the MLP walks (layer 0, partial
-products and sends, cluster barrier, epilogue; backward products,
+extra ``%globaltimer`` laps of CTA 0 inside the MLP walks of
+``cluster_walk.cuh`` (layer 0, partial products and sends, cluster
+barrier, epilogue; backward products,
 epilogue, all-gather sends, dW accumulation, cluster barrier, layer 0; the
 reward VJP), builds it and prints the parts in ms per launch of the
 one-launch value-and-grad at B = 100 (row 5) and of a grid forward +
@@ -42,16 +43,17 @@ LAP0 = 8  # the first of the extra parts
 
 
 def patched(generic):
-    """The source with the extra laps (and, with generic, the generic
-    instances launched for every model); raises if the source no longer has
-    a patched spot."""
-    s = (build.CSRC / 'fused_rollout.cu').read_text()
+    """(fused_rollout.cu, cluster_walk.cuh) with the extra laps (and, with
+    generic, the generic instances launched for every model); raises if the
+    sources no longer have a patched spot."""
+    src = {f: (build.CSRC / f).read_text()
+           for f in ('fused_rollout.cu', 'cluster_walk.cuh')}
 
     def rep(a, b, count=1):
-        nonlocal s
-        if s.count(a) != count:
-            raise RuntimeError(f'fused_rollout.cu changed: {a[:60]!r}')
-        s = s.replace(a, b)
+        found = [f for f, text in src.items() if text.count(a) == count]
+        if len(found) != 1 or sum(t.count(a) for t in src.values()) != count:
+            raise RuntimeError(f'the sources changed: {a[:60]!r}')
+        src[found[0]] = src[found[0]].replace(a, b)
 
     n = LAP0 + len(PARTS) - 8
     rep('kLapSums = 7, kSplitParts = 8;', f'kLapSums = 7, kSplitParts = {n};')
@@ -60,6 +62,10 @@ def patched(generic):
     rep('struct Ctx {\n  float* sm;',
         'struct Roll;\nstruct RollSm;\nstruct Ctx {\n'
         '  const Roll* ro;\n  RollSm* shp;\n  float* sm;')
+    # the walks (cluster_walk.cuh) come before fused_rollout.cu defines dlap
+    rep('// p in the shared memory of CTA `rank` of this cluster\n',
+        '__device__ __forceinline__ void dlap(const Ctx& c, int part);\n\n'
+        '// p in the shared memory of CTA `rank` of this cluster\n')
     rep('__device__ __forceinline__ void grid_sync(',
         '__device__ __forceinline__ void dlap(const Ctx& c, int part) {\n'
         '  __syncthreads();\n  lap(*c.ro, *c.shp, part);\n}\n\n'
@@ -99,7 +105,7 @@ def patched(generic):
     if generic:
         rep('kKernels[relu_only(st.pol) && relu_only(st.dyn)][kind]',
             'kKernels[0][kind]')
-    return s, n
+    return src, n
 
 
 def main():
@@ -114,13 +120,15 @@ def main():
     variant = 'generic' if args.generic else 'laps'
     src, n = patched(args.generic)
     dst = build.BUILD_DIR / 'rollout_laps' / variant
-    cu = dst / 'csrc' / 'fused_rollout.cu'
-    if not cu.exists() or cu.read_text() != src:  # else reuse its build
-        if cu.parent.exists():
-            shutil.rmtree(cu.parent)
-        shutil.copytree(build.CSRC, cu.parent)
-        cu.write_text(src)
-    build.CSRC, build.BUILD_DIR = cu.parent, dst / 'lib'
+    csrc = dst / 'csrc'
+    if not all((csrc / f).exists() and (csrc / f).read_text() == text
+               for f, text in src.items()):  # else reuse its build
+        if csrc.exists():
+            shutil.rmtree(csrc)
+        shutil.copytree(build.CSRC, csrc)
+        for f, text in src.items():
+            (csrc / f).write_text(text)
+    build.CSRC, build.BUILD_DIR = csrc, dst / 'lib'
     build.build(['fused_rollout'])
     fr.SPLIT_PARTS = n
 
