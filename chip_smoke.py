@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``prob_mbrl_tpu_torch``) on one NVIDIA
 card: builds the CUDA kernels from ``prob_mbrl_tpu_torch/csrc``, holds each
-against its plain PyTorch version, then drives MC-PILCO policy optimisation on
-Cartpole at full width through the kernels, on each of its routes.
+against its plain PyTorch version, drives MC-PILCO policy optimisation on
+Cartpole at full width through the kernels, on each of its routes, then
+three Deep-PILCO episodes through the driver.
 
     python3 chip_smoke.py
 
@@ -70,10 +71,25 @@ Phases (any failure exits non-zero and prints no result line):
      (grid forward, critic refit, bootstrap + backward, clip + Adam); one
      iteration compared with the plain path (loss, mean_return, v_loss,
      clipped grads, refit critic).
+  8. the episode: the torch ``deep_pilco_mm`` driver (``main`` through the
+     port's parser with the entry point's settings) on Cartpole into a
+     temporary folder under ``build/``, at full width (dynamics and policy
+     [200, 200], fit batch 100, 2000 fit steps, 100 particles, horizon 15,
+     40 control steps) with two cuts: 3 episodes instead of 100 and 200
+     policy iterations an episode instead of 1000. Per episode: E_lml (and
+     its first- and last-50 means, the last above the first), imagined and
+     real return, ms per fit step and per policy iteration; every value
+     finite; launch counts exactly fused-MLP forward 3*(2000 + 40) (a fit
+     step and a control step each launch one), backward 3*2000 and
+     ``fused_rollout_vg`` 3*200, nothing else; the tier the gate names for
+     the driver's configuration (``'full'``); from the checkpoint, one fit
+     step through the kernels against the plain path on the same minibatch
+     and noise (loss and every grad, logit_p's among them) and the fit's
+     device-busy share over 50 steps under torch.profiler.
 
-Each kernel's launches in the ``kernels`` line come from the run of its own
-route (phase 3, 4, 5, 6 or 7), with every count set to 0 just before the
-run.
+Each kernel's launches in the ``kernels`` line come from the run of the
+route that carries it (rows 1-2 phase 8, the episode; the others phase 4,
+5, 6 or 7), with every count set to 0 just before the run.
 
 ``tools/profile_torch_main_path.py`` breaks a main-path iteration down
 (host split and a torch.profiler trace) on the same setup.
@@ -81,9 +97,12 @@ run.
 It imports nothing of JAX and nothing of the JAX package.
 """
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -94,6 +113,8 @@ from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
                                                      mc_pilco,
                                                      seeded_generator)
 from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
+from prob_mbrl_tpu_torch.examples import deep_pilco_common as dpc
+from prob_mbrl_tpu_torch.examples import deep_pilco_mm as dpm
 from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
                                         MLPSpec, Policy, Regressor, bdropout,
                                         cdropout)
@@ -102,7 +123,11 @@ from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
 from prob_mbrl_tpu_torch.ops.math import clip_grad_norm
 from prob_mbrl_tpu_torch.ops.moment_matching import standardize_noise
+from prob_mbrl_tpu_torch.utils.checkpoint import load_checkpoint
 from prob_mbrl_tpu_torch.utils.core import tree_leaves, tree_map
+from prob_mbrl_tpu_torch.utils.experience import ExperienceDataset
+from prob_mbrl_tpu_torch.utils.train_regressor import (make_train_fn,
+                                                       normalize_dataset)
 
 # published H100 SXM peaks: HBM bytes/s, float32 FLOP/s outside the tensor
 # cores (the kernels use float32 FMA)
@@ -131,6 +156,20 @@ GRID_B = 1000  # particles of the value path (phase 7)
 VALUE_ITERS = 100  # mc_pilco iterations of the value path
 ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
 SEED = 1
+# phase 8, the episode: the deep_pilco_mm driver at its full widths and
+# default fit, with the episodes cut from 100 to 3 and the policy
+# iterations from 1000 to 200
+EPISODES = 3
+EPISODE_POL_ITERS = 200
+FIT_ITERS = 2000
+CONTROL_H = 40
+EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
+                '--pol_opt_iters', str(EPISODE_POL_ITERS),
+                '--dyn_opt_iters', str(FIT_ITERS), '--dyn_batch_size', '100',
+                '--pol_batch_size', str(MAIN_B), '--pred_H', str(MAIN_T),
+                '--control_H', str(CONTROL_H), '--dyn_shape', '200,200',
+                '--pol_shape', '200,200']
+BUSY_STEPS = 50  # fit steps under torch.profiler
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
 # max|plain| (float32 products summed in another order; no TF32 on either
 # side); the step and the rollout STEP_TOL * max|plain|, or the plain
@@ -1381,6 +1420,172 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the episode
+# ---------------------------------------------------------------------------
+
+
+def busy_time(events):
+    """Union of the events' device intervals (us) and the window they span."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, end - spans[0][0]
+
+
+def device_events(prof):
+    """Device work of a torch.profiler run: kernels and copies, not the
+    spans of user annotations it also files under the device."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)
+            and '#' not in e.name]
+
+
+def flat_leaves(tree, prefix=''):
+    """(path, tensor) pairs of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in flat_leaves(tree[k], f'{prefix}/{k}')]
+    return [(prefix, tree)]
+
+
+def episode_fit_checks(results, args):
+    """From the run's checkpoint (experience and dynamics params): one fit
+    step of the kernel path against the plain path (fused=False) on the same
+    minibatch and noise, loss and every grad (logit_p among them) held to
+    REL_TOL of the leaf's own max|plain|; then the fit's device-busy share
+    over BUSY_STEPS steps under torch.profiler."""
+    exp = ExperienceDataset()
+    ck = load_checkpoint(results, exp=exp, device='cuda')
+    X, Y = (torch.as_tensor(a, device='cuda')
+            for a in exp.get_dynmodel_dataset(deltas=True))
+    env = envs.make(args.env, device='cuda')
+    dyn, _ = dpc.build_models(
+        env.observation_size, env.action_size, env.action_space.high,
+        env.action_space.low, args, False, env.reward_func)
+    Xn, Yn = normalize_dataset(dyn.fit_stats(X, Y), X, Y)
+    n, B = Xn.shape[0], args.dyn_batch_size
+    gen = seeded_generator('cuda', SEED, 8)
+    idx = torch.randint(0, n, (B,), generator=gen, device='cuda')
+    noise = dyn.regressor.sample_noise(gen, (B,), device='cuda')
+    ones = torch.ones((B,), device='cuda')
+    out = {}
+    for tag, reg in (('kernel', dyn.regressor),
+                     ('plain', fr.unfused(dyn.regressor))):
+        train = make_train_fn(reg, Adam(args.dyn_lr), B)
+        loss, _, grads = train.value_and_grad(ck['dyn'], Xn[idx], Yn[idx],
+                                              noise, ones, n)
+        out[tag] = [('loss', loss)] + flat_leaves(grads)
+    errs = []
+    for (name, a), (_, r) in zip(out['kernel'], out['plain']):
+        _, rel, _ = hold(f'[phase 8] fit step {name}', a, r, REL_TOL)
+        errs.append(f'{name} {rel:.2e}')
+    log(f'[phase 8] one fit step ({n} rows, B={B}), kernel vs plain path, '
+        f'error / max|plain| per output (tolerance {REL_TOL:g}): '
+        + ', '.join(errs))
+
+    from torch.profiler import ProfilerActivity, profile
+    train = make_train_fn(dyn.regressor, Adam(args.dyn_lr), B)
+    params, state = ck['dyn'], Adam(args.dyn_lr).init(ck['dyn'])
+    params, state, _, _ = train(params, state, Xn, Yn, gen, 5)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train(params, state, Xn, Yn, gen, BUSY_STEPS)
+    dev = device_events(prof)
+    if not dev:
+        raise AssertionError('the profiler recorded no device activity')
+    busy, window = busy_time(dev)
+    by_name = {}
+    for e in dev:
+        k = by_name.setdefault(e.name, [0.0, 0])
+        k[0] += e.time_range.end - e.time_range.start
+        k[1] += 1
+    log(f'[phase 8] fit under torch.profiler, {BUSY_STEPS} steps: '
+        f'{len(dev) / BUSY_STEPS:.0f} device activities a step; device busy '
+        f'{busy / BUSY_STEPS / 1e3:.4f} ms a step, {100 * busy / window:.1f}% '
+        f'of the {window / BUSY_STEPS / 1e3:.4f} ms a step between the first '
+        f'and last kernel (idle {100 * (1 - busy / window):.1f}%)')
+    for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f'[phase 8]   {us / BUSY_STEPS / 1e3:.4f} ms a step, '
+            f'{cnt / BUSY_STEPS:.0f} a step, {100 * us / busy:.1f}% of busy: '
+            f'{name[:80]}')
+
+
+def phase_episode():
+    """The torch ``deep_pilco_mm`` driver (``run`` through its parser and
+    the entry point's settings) for EPISODES full-width Cartpole episodes
+    into a temporary folder under ``build/``; every count set to 0 just
+    before it. Checks every value finite, E_lml rising within each fit and
+    the exact launch counts; then ``episode_fit_checks`` on its checkpoint.
+    Returns the launch counts."""
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    folder = tempfile.mkdtemp(prefix='chip_smoke_episode_', dir=root)
+    try:
+        argv = EPISODE_ARGV + ['-o', folder]
+        records = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        returns, results = dpc.main(**dpm.SETTINGS, argv=argv, device='cuda',
+                                    on_episode=records.append)
+        torch.cuda.synchronize()
+        launches = counts()
+        wall = time.perf_counter() - t0
+        if len(records) != EPISODES or len(returns) != EPISODES:
+            raise AssertionError(f'{len(records)} episodes, expected '
+                                 f'{EPISODES}')
+        for r in records:
+            dm, pm = r['dyn_metrics'], r['pol_metrics']
+            vals = [dm['loss'], dm['E_lml'], pm['loss'], pm['mean_return'],
+                    [r['real_return'], r['imagined_return'], r['E_lml']]]
+            if not all(np.all(np.isfinite(v)) for v in vals):
+                raise AssertionError(f'non-finite value in episode '
+                                     f'{r["episode"]}')
+            first, last = dm['E_lml'][:50].mean(), dm['E_lml'][-50:].mean()
+            log(f'[phase 8] episode {r["episode"]}: E_lml {r["E_lml"]:.6f} '
+                f'(fit: first-50 mean {first:.6f}, last-50 mean {last:.6f}); '
+                f'imagined return {r["imagined_return"]:.6f}; real return '
+                f'{r["real_return"]:.6f}; fit {1e3 * r["fit_s"] / FIT_ITERS:.4f}'
+                f' ms a step ({FIT_ITERS} in {r["fit_s"]:.3f} s); policy '
+                f'{1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an iteration '
+                f'({EPISODE_POL_ITERS} in {r["pol_s"]:.3f} s, the optimizer\'s '
+                'build included)')
+            if not last > first:
+                raise AssertionError(f'E_lml did not rise in the fit of '
+                                     f'episode {r["episode"]}')
+        want = expect(fused_mlp_fwd=EPISODES * (FIT_ITERS + CONTROL_H),
+                      fused_mlp_bwd=EPISODES * FIT_ITERS,
+                      fused_rollout_vg=EPISODES * EPISODE_POL_ITERS)
+        log(f'[phase 8] {EPISODES} episodes in {wall:.3f} s; launches '
+            f'{launches} (expected {want})')
+        if launches != want:
+            raise AssertionError('launch counts of the episode run differ')
+        args = dpc.get_argument_parser().parse_args(argv)
+        for k, v in dpm.SETTINGS['arg_overrides'].items():
+            setattr(args, k, v)
+        env = envs.make(args.env, device='cuda')
+        dyn, pol = dpc.build_models(
+            env.observation_size, env.action_size, env.action_space.high,
+            env.action_space.low, args, False, env.reward_func)
+        cfg = MCPILCOConfig(n_particles=args.pol_batch_size, steps=args.pred_H,
+                            mm_states=True, mm_rewards=True)
+        tier = make_mc_pilco_fn(dyn, pol, cfg, 'cuda').tier('cuda')
+        log(f'[phase 8] the tier mc_pilco takes for the driver\'s '
+            f'configuration: {tier!r}')
+        if tier != 'full':
+            raise AssertionError(f'the gate names {tier!r}, expected \'full\'')
+        episode_fit_checks(results, args)
+        return launches
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def start(name):
     """Phases 0 and 1: the card's name and power limit, TF32 off, the
     kernels built. Returns the ``nvidia-smi`` line, or None without CUDA."""
@@ -1412,8 +1617,9 @@ def main():
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
             **phase_rollout_kernels(), **phase_grid_kernels()}
     T = MAIN_T
-    # each kernel's launches come from the run of its own route
-    route = phase_mc_pilco(ROUTE_ITERS, False, 'phase 3', expect(
+    # each kernel's launches come from the run of the route that carries it:
+    # rows 1-2 the episode's (phase 8)
+    phase_mc_pilco(ROUTE_ITERS, False, 'phase 3', expect(
         fused_mlp_fwd=2 * T * ROUTE_ITERS, fused_mlp_bwd=2 * T * ROUTE_ITERS),
         None)
     step = phase_loop(STEP_ITERS, 'step', 'phase 4', expect(
@@ -1434,7 +1640,8 @@ def main():
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
     value_path = phase_value_path()
-    runs = {'fused_mlp': route, 'fused_step': step, 'fused_rollout_vg':
+    episode = phase_episode()
+    runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': value_path}
     launches = {n: next(v for k, v in runs.items() if n.startswith(k))[n]

@@ -36,11 +36,20 @@ adds ``w_H * V(s_T)`` under the refit critic's detached params to every
 particle's discounted return. The critic's masks are the epoch noise's
 (``val_mask_mode='epoch'``).
 
-Not ported yet (raise NotImplementedError): non-PEGASUS per-step noise,
-``mm_method='mix'``, ``infer_noise_variables``, prioritized replay and fresh
-critic masks every iteration (``val_mask_mode='iter'``).
+``mc_pilco`` is the host loop over chunks of iterations (hooks, writer,
+progress line) and ``MCPILCOAgent`` bundles specs, params, dataset and
+optimizers.
+
+Not ported yet (raise NotImplementedError, naming their ``ROADMAP.md``
+item): non-PEGASUS per-step noise, ``mm_method='mix'``,
+``infer_noise_variables``, initial-state prioritized replay, a bootstrap
+under a fixed critic, fresh critic masks every iteration
+(``val_mask_mode='iter'``) and particle sharding (``mesh``).
 """
 import dataclasses
+import functools
+import inspect
+import time
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -48,7 +57,7 @@ import torch
 
 from ..ops.cuda import fused_rollout as fr
 from ..ops.math import clip_grad_norm
-from ..utils.core import tile, tree_leaves, tree_map
+from ..utils.core import resolve_device, tile, tree_leaves, tree_map
 from ..utils.rollout import rollout as rollout_fn
 
 
@@ -113,12 +122,16 @@ class MCPILCOConfig:
     fused_rollout: Optional[bool] = None
 
 
+def derive_seed(*keys):
+    """A 63-bit seed derived from a tuple of ints."""
+    return int(np.random.SeedSequence([int(k) for k in keys])
+               .generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
 def seeded_generator(device, *keys):
     """A ``torch.Generator`` on ``device`` seeded from a tuple of ints."""
-    seed = int(np.random.SeedSequence([int(k) for k in keys])
-               .generate_state(1, np.uint64)[0] >> np.uint64(1))
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen.manual_seed(derive_seed(*keys))
     return gen
 
 
@@ -138,20 +151,27 @@ class MCPILCO:
                  value_update=None):
         cfg = config
         if not cfg.pegasus:
-            raise NotImplementedError('non-PEGASUS noise is not ported yet')
+            raise NotImplementedError('non-PEGASUS noise is not ported yet '
+                                      '(ROADMAP.md Queue 1: Other '
+                                      'moment-matching variants)')
         if cfg.mm_method != 'cholesky' or cfg.infer_noise_variables:
             raise NotImplementedError('only Cholesky moment matching is '
-                                      'ported')
+                                      'ported (ROADMAP.md Queue 1: Other '
+                                      'moment-matching variants)')
         if cfg.with_priorities:
-            raise NotImplementedError('prioritized replay is not ported yet')
+            raise NotImplementedError('initial-state prioritized replay is '
+                                      'not ported yet (ROADMAP.md Queue 1: '
+                                      'Native sum tree and tooling)')
         if (value_spec is None) != (value_update is None):
             raise NotImplementedError(
                 'the value bootstrap takes value_spec with value_update (a '
-                'bootstrap under a fixed critic is not ported)')
+                'bootstrap under a fixed critic is not ported: ROADMAP.md '
+                'Queue 1, The rest of the value bootstrap)')
         if value_update is not None and cfg.val_mask_mode != 'epoch':
             raise NotImplementedError("val_mask_mode='iter' (fresh critic "
                                       'masks every iteration) is not ported '
-                                      'yet')
+                                      'yet (ROADMAP.md Queue 1: The rest of '
+                                      'the value bootstrap)')
         self.dyn, self.pol, self.cfg = dyn, pol, cfg
         self.value_spec, self.value_update = value_spec, value_update
         self.B = cfg.n_particles
@@ -369,42 +389,69 @@ def make_mc_pilco_fn(dyn, pol, config, device, value_spec=None,
 
 
 def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
-             optimizer=None, opt_iters=1000, mm_states=False,
-             mm_rewards=False, mm_groups=None, maximize=True, clip_grad=1.0,
-             cvar_eps=0.0, reg_weight=0.0, discount=None,
-             init_state_noise=0.0, resampling_period=499, n_particles=100,
-             seed=None, n_opt_steps=0, on_iteration=None, chunk=None,
-             fused_rollout=None, value_spec=None, value_stats=None,
-             value_update_fn=None, value_state=None, val_mask_mode='epoch'):
+             opt_state=None, optimizer=None, exp=None, opt_iters=1000,
+             value_spec=None, value_params=None, value_stats=None,
+             value_update_fn=None, value_state=None, val_mask_mode='epoch',
+             fused_rollout=None, pegasus=True, mm_states=False,
+             mm_rewards=False, mm_groups=None, mm_method='cholesky',
+             maximize=True, clip_grad=1.0, cvar_eps=0.0, reg_weight=0.0,
+             discount=None, init_state_noise=0.0, resampling_period=499,
+             n_particles=100, seed=None, n_opt_steps=0, on_iteration=None,
+             prioritized_replay=False, chunk=None, writer=None,
+             writer_scope='mc_pilco', verbose=False, mesh=None):
     """Host-level MC-PILCO loop (JAX ``mc_pilco.py:574-716``).
 
-    The policy params are optimized in place (their leaves are made leaf
-    tensors that require grad). ``optimizer`` defaults to
-    ``torch.optim.Adam(lr=1e-3)``, the counterpart of ``optax.adam(1e-3)``.
+    ``opt_state``: the ``torch.optim.Optimizer`` over the leaves of
+    ``pol_params`` (JAX's optimizer state: it is carried across calls and
+    returned); when None it is made by ``optimizer(leaves)``, which defaults
+    to ``torch.optim.Adam`` at lr 1e-3, the counterpart of
+    ``optax.adam(1e-3)``. The policy params are optimized in place: their
+    leaves are made leaf tensors that require grad, and must be the tensors
+    ``opt_state`` holds. ``exp`` is unused, as in JAX. ``seed``: the int
+    the iterations' generators are seeded from (JAX's ``key``).
     ``init_state_noise``: scalar or per-dim [D] Gaussian noise scale added to
-    sampled initial states. ``on_iteration(done, metrics)`` runs after each
-    chunk of ``chunk`` iterations (all of them when None).
-    ``fused_rollout``: ``MCPILCOConfig.fused_rollout``. With
-    ``value_update_fn`` and ``value_state`` (a dict with 'params', 'target',
-    'opt_state'), the critic ``value_spec`` refits every iteration and
-    ``value_state`` is updated in place; ``metrics`` then also holds
-    ``v_loss``.
+    sampled initial states. ``on_iteration(done, metrics)`` or
+    ``on_iteration(done, metrics, pol_params)`` (a hook of three parameters
+    gets the live policy params) runs after each chunk of ``chunk``
+    iterations (all of them, or 100 with a hook, a writer or ``verbose``).
+    ``writer``: an object with ``add_scalar(tag, value, step)`` (a
+    tensorboardX ``SummaryWriter``), given each chunk's mean loss,
+    mean_return and v_loss under ``writer_scope``; ``verbose`` prints a
+    progress line per chunk. ``fused_rollout``:
+    ``MCPILCOConfig.fused_rollout``. With ``value_update_fn`` and
+    ``value_state`` (a dict with 'params', 'target', 'opt_state'), the
+    critic ``value_spec`` refits every iteration and ``value_state`` is
+    updated in place; ``metrics`` then also holds ``v_loss``.
 
-    Returns (pol_params, optimizer, metrics (numpy), n_opt_steps).
+    Returns (pol_params, opt_state, metrics (numpy), n_opt_steps).
     """
+    if mesh is not None:
+        raise NotImplementedError('particle sharding (mesh) is not ported '
+                                  'yet (ROADMAP.md Queue 1: Parallel)')
+    if value_params is not None and value_update_fn is None:
+        raise NotImplementedError(
+            'a bootstrap under a fixed critic (value_params without '
+            'value_update_fn) is not ported yet (ROADMAP.md Queue 1: The '
+            'rest of the value bootstrap)')
     params = tree_leaves(pol_params)
     for p in params:
         p.requires_grad_(True)
-    if optimizer is None:
-        optimizer = torch.optim.Adam(params, lr=1e-3)
+    if opt_state is None:
+        optimizer = optimizer or functools.partial(torch.optim.Adam, lr=1e-3)
+        opt_state = optimizer(params)
+    held = {id(p) for g in opt_state.param_groups for p in g['params']}
+    if held != {id(p) for p in params}:
+        raise ValueError('opt_state must hold the leaves of pol_params')
     if seed is None:
         seed = np.random.randint(2 ** 31)
     cfg = MCPILCOConfig(
-        n_particles=n_particles, steps=steps, mm_states=mm_states,
-        mm_rewards=mm_rewards, mm_groups=mm_groups, maximize=maximize,
-        clip_grad=clip_grad, cvar_eps=cvar_eps, reg_weight=reg_weight,
-        discount=discount, resampling_period=resampling_period,
-        val_mask_mode=val_mask_mode, fused_rollout=fused_rollout)
+        n_particles=n_particles, steps=steps, pegasus=pegasus,
+        mm_states=mm_states, mm_rewards=mm_rewards, mm_groups=mm_groups,
+        mm_method=mm_method, maximize=maximize, clip_grad=clip_grad,
+        cvar_eps=cvar_eps, reg_weight=reg_weight, discount=discount,
+        resampling_period=resampling_period,
+        with_priorities=prioritized_replay, val_mask_mode=val_mask_mode,
+        fused_rollout=fused_rollout)
     use_value = value_update_fn is not None and value_state is not None
     opt_fn = make_mc_pilco_fn(dyn, pol, cfg, x0_pool.device, value_spec,
                               value_update_fn if use_value else None)
@@ -412,21 +459,153 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     if np.any(np.asarray(init_state_noise) > 0):
         init_noise = torch.as_tensor(np.asarray(init_state_noise, np.float32),
                                      device=x0_pool.device)
-    chunk = chunk or opt_iters
+    if chunk is None:
+        chunk = (opt_iters if on_iteration is None and writer is None
+                 and not verbose else 100)
+    n_hook_args = 2
+    if callable(on_iteration):
+        try:
+            n_hook_args = len(inspect.signature(on_iteration).parameters)
+        except (TypeError, ValueError):
+            pass
     all_metrics = []
     done = 0
+    t_start = time.perf_counter()
     while done < opt_iters:
         n = min(chunk, opt_iters - done)
-        metrics, n_opt_steps = opt_fn(pol_params, optimizer, dyn_params,
+        metrics, n_opt_steps = opt_fn(pol_params, opt_state, dyn_params,
                                       dyn_stats, x0_pool, seed, n_opt_steps,
                                       n, init_state_noise=init_noise,
                                       value_state=value_state,
                                       value_stats=value_stats)
         metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         all_metrics.append(metrics)
-        done += n
+        if writer is not None:
+            writer.add_scalar('%s/training loss' % writer_scope,
+                              float(metrics['loss'].mean()), done + n)
+            writer.add_scalar('%s/mean_return' % writer_scope,
+                              float(metrics['mean_return'].mean()), done + n)
+            if 'v_loss' in metrics:
+                writer.add_scalar('%s/value loss' % writer_scope,
+                                  float(metrics['v_loss'].mean()), done + n)
+        if verbose:
+            rate = (done + n) / (time.perf_counter() - t_start)
+            msg = ('Pred. Cumm. rewards: %f' if maximize
+                   else 'Pred. Cumm. costs: %f')
+            print(('[mc_pilco] iter %d/%d (%.0f it/s) ' + msg)
+                  % (done + n, opt_iters, rate,
+                     float(metrics['mean_return'][-1])), flush=True)
         if callable(on_iteration):
-            on_iteration(done, metrics)
+            if n_hook_args >= 3:
+                on_iteration(done + n, metrics, pol_params)
+            else:
+                on_iteration(done + n, metrics)
+        done += n
     merged = {k: np.concatenate([m[k] for m in all_metrics])
               for k in all_metrics[0]}
-    return pol_params, optimizer, merged, n_opt_steps
+    return pol_params, opt_state, merged, n_opt_steps
+
+
+_AGENT_INIT, _AGENT_FIT, _AGENT_TRAIN = 0xA6E0, 0xA6E1, 0xA6E2
+
+
+class MCPILCOAgent:
+    """Policy and dynamics specs, their params, the dataset and the
+    optimizers in one object (JAX ``mc_pilco.py:719-799``).
+
+    Its draws come from generators made from ``seed``: the initial params',
+    the dynamics fit's (one ``torch.Generator`` on ``device`` that carries
+    across fits), each ``train`` call's (``mc_pilco``'s seed, derived from
+    ``seed`` and the call's number) and the host's (a
+    ``np.random.RandomState`` for initial states and their noise).
+    ``pol_optimizer`` makes the policy's ``torch.optim.Optimizer`` from its
+    leaves (default Adam 1e-3); ``dyn_optimizer`` is an
+    ``algorithms.value.Adam`` (default 1e-4).
+    """
+
+    def __init__(self, policy, dynamics, dataset, pol_optimizer=None,
+                 dyn_optimizer=None, seed=0, device=None):
+        from .value import Adam  # value.py imports this module
+        self.device = resolve_device(device)
+        self.pol = policy
+        self.dyn = dynamics
+        self.exp = dataset
+        self.seed = seed
+        self.pol_optimizer = pol_optimizer or functools.partial(
+            torch.optim.Adam, lr=1e-3)
+        self.dyn_optimizer = dyn_optimizer or Adam(1e-4)
+        gen = seeded_generator(self.device, seed, _AGENT_INIT)
+        self.dyn_params = self.dyn.init(gen, device=self.device)
+        self.pol_params = self.pol.init(gen, device=self.device)
+        self.dyn_stats = self.dyn.init_stats(device=self.device)
+        for p in tree_leaves(self.pol_params):
+            p.requires_grad_(True)
+        self.pol_opt_state = self.pol_optimizer(tree_leaves(self.pol_params))
+        self.dyn_opt_state = self.dyn_optimizer.init(self.dyn_params)
+        self.fit_generator = seeded_generator(self.device, seed, _AGENT_FIT)
+        self.rng = np.random.RandomState(seed)
+        self.policy_update_counter = 0
+        self.train_calls = 0
+
+    def sample_initial_states(self, batch_size, step_idx_to_sample=None,
+                              init_state_noise=0.0):
+        """``batch_size`` states from the dataset at the given steps, with
+        optional Gaussian noise, as a tensor on the agent's device."""
+        x0 = self.exp.sample_states(batch_size, timestep=step_idx_to_sample,
+                                    rng=self.rng)
+        x0 = np.asarray(x0, np.float32)
+        if init_state_noise > 0:
+            x0 = x0 + init_state_noise * self.rng.randn(*x0.shape)
+        return torch.as_tensor(np.asarray(x0, np.float32),
+                               device=self.device)
+
+    def fit_dynamics(self, iters=2000, batchsize=100, reg_weight=1.0):
+        """Fit the dynamics model to the dataset; returns the fit's
+        metrics."""
+        # train_regressor imports value.py, which imports this module
+        from ..utils.train_regressor import train_regressor
+        learn_reward = self.dyn.reward_func is None
+        X, Y = self.exp.get_dynmodel_dataset(deltas=True,
+                                             return_costs=learn_reward)
+        X = torch.as_tensor(X, device=self.device)
+        Y = torch.as_tensor(Y, device=self.device)
+        self.dyn_stats = self.dyn.fit_stats(X, Y)
+        self.dyn_params, self.dyn_opt_state, metrics = train_regressor(
+            self.dyn.regressor, self.dyn_params, self.dyn_stats, X, Y,
+            self.fit_generator, iters=iters, batchsize=batchsize,
+            optimizer=self.dyn_optimizer, opt_state=self.dyn_opt_state,
+            reg_weight=reg_weight)
+        return metrics
+
+    def train(self, steps, batch_size=100, opt_iters=1000, pegasus=True,
+              mm_states=False, mm_rewards=False, maximize=True,
+              clip_grad=1.0, cvar_eps=0.0, reg_weight=0.0, discount=None,
+              on_iteration=None, step_idx_to_sample=None,
+              init_state_noise=0.0, resampling_period=500, **kwargs):
+        """Policy optimization on the learned model; returns its
+        metrics."""
+        x0_pool = self.sample_initial_states(2 * batch_size,
+                                             step_idx_to_sample)
+        seed = derive_seed(self.seed, _AGENT_TRAIN, self.train_calls)
+        self.train_calls += 1
+        (self.pol_params, self.pol_opt_state, metrics,
+         self.policy_update_counter) = mc_pilco(
+            x0_pool, self.dyn, self.pol, steps, self.dyn_params,
+            self.dyn_stats, self.pol_params, opt_state=self.pol_opt_state,
+            opt_iters=opt_iters, pegasus=pegasus, mm_states=mm_states,
+            mm_rewards=mm_rewards, maximize=maximize, clip_grad=clip_grad,
+            cvar_eps=cvar_eps, reg_weight=reg_weight, discount=discount,
+            init_state_noise=init_state_noise,
+            resampling_period=resampling_period, n_particles=batch_size,
+            seed=seed, n_opt_steps=self.policy_update_counter,
+            on_iteration=on_iteration, **kwargs)
+        return metrics
+
+    def __call__(self, state, deterministic=True):
+        """Greedy (mean) action for a single host-side state."""
+        s = torch.as_tensor(np.asarray(state, np.float32).reshape(1, -1),
+                            device=self.device)
+        with torch.no_grad():
+            u = self.pol.apply(self.pol_params, s, noise=None,
+                               return_samples=not deterministic)
+        return u.cpu().numpy().flatten()

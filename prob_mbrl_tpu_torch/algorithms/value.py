@@ -1,5 +1,6 @@
 """The fitted-value TD(H) update with a target network (counterpart of
-``prob_mbrl_tpu/algorithms/value.py``) and the functional Adam it steps with.
+``prob_mbrl_tpu/algorithms/value.py``) and the functional Adam and SGD it and
+the dynamics fit step with.
 
 TD(H) (``value.py:9-12``): ``targets = sum_{j<H} w_j r_j + w_H V_tgt(s_H)``,
 detached, with V(s_0) and V_tgt(s_H) evaluated under one noise dict (the same
@@ -53,6 +54,22 @@ class Adam:
         new = tree_map(lambda p, m, v: p + -self.lr * (
             (m / bc1) / (torch.sqrt(v / bc2) + self.eps)), params, mu, nu)
         return new, AdamState(count, mu, nu)
+
+
+class SGD:
+    """``optax.sgd(learning_rate)`` without momentum as a pure function; its
+    state is empty."""
+
+    def __init__(self, learning_rate):
+        self.lr = learning_rate
+
+    def init(self, params):
+        return ()
+
+    @torch.no_grad()
+    def step(self, grads, state, params):
+        """(params + updates, the state)."""
+        return tree_map(lambda p, g: p + -self.lr * g, params, grads), state
 
 
 def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,

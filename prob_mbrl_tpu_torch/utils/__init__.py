@@ -1,1 +1,2 @@
-"""Rollout engine and helpers."""
+"""Rollout engine, experience dataset, controller runner, dynamics fit,
+checkpoints and experiment helpers."""

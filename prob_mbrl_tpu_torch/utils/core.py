@@ -1,6 +1,6 @@
 """Small helpers: device choice, constants on a device, nested-dict trees,
-tiling, the polyak target update (counterpart of
-``prob_mbrl_tpu/utils/core.py`` and ``jax.tree_util``)."""
+tiling, the polyak target update, PILCO's sin squashing and Jacobians
+(counterpart of ``prob_mbrl_tpu/utils/core.py`` and ``jax.tree_util``)."""
 import functools
 
 import torch
@@ -55,3 +55,18 @@ def polyak_averaging(params, target_params, tau=0.005):
     (``prob_mbrl_tpu/utils/core.py:6``). Returns the new target tree."""
     return tree_map(lambda p, t: tau * p + (1.0 - tau) * t, params,
                     target_params)
+
+
+def sin_squashing_fn(x):
+    """PILCO's smooth saturation: 0.125 * (9 sin x + sin 3x) in [-1, 1]."""
+    return 0.125 * (9.0 * torch.sin(x) + torch.sin(3.0 * x))
+
+
+def jacobian(f, x):
+    """Jacobian of ``f`` at a single input (``torch.func.jacrev``)."""
+    return torch.func.jacrev(f)(x)
+
+
+def batch_jacobian(f, x):
+    """Jacobian of ``f`` over a batch: [B, Din] -> [B, Dout, Din]."""
+    return torch.func.vmap(torch.func.jacrev(f))(x)

@@ -9,7 +9,8 @@ launch to launch, in a CUDA graph's replays, and with more clusters than
 the card holds), the whole rollout (loss, mean_return and the gradients wrt
 the policy params and action_eps, by the forward + backward kernels and by
 the one-launch value-and-grad), the grid rollout (disc, raw, vret,
-states_all and the VJP of cotangents of all four), the launch counters, the
+states_all and the VJP of cotangents of all four), one step of the
+dynamics fit (loss and grads, logit_p's among them), the launch counters, the
 tier ``mc_pilco`` takes (``'grid'`` with a critic), and the wrappers'
 refusal to fall back when the kernels cannot be built.
 
@@ -775,3 +776,43 @@ def test_grid_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
     kern, _, pp, leaves, args, cot = _grid(16, 0, T=2, hidden=(16, 16))
     with pytest.raises(RuntimeError, match='nvcc'):
         _grid_outputs(kern, pp, leaves, args, cot)
+
+
+def test_the_dynamics_fit_step_through_the_kernels_matches_the_plain_path(
+        cuda):
+    """One fit step of the Deep-PILCO dynamics model (6 -> [200, 200] -> 10,
+    concrete dropout, B = 100, train=True) through the fused-MLP kernels and
+    through the unfused path: the loss and every grad, logit_p's among them
+    (the kernel's d(mask) carries it), within 1e-4 of the leaf's max|plain|;
+    then ``train`` on the card launches one forward and one backward a step
+    and raises E_lml."""
+    from prob_mbrl_tpu_torch.algorithms.value import Adam
+    from prob_mbrl_tpu_torch.utils.train_regressor import make_train_fn
+    reg = models.Regressor(models.MLPSpec(6, 10, (200, 200),
+                                          dropout=models.cdropout(0.1)),
+                           models.DiagGaussianDensity(5))
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    params = reg.init(gen, device='cuda')
+    Xn = torch.randn((120, 6), generator=gen, device='cuda')
+    Yn = 0.3 * Xn[:, :5] + 0.1 * torch.randn((120, 5), generator=gen,
+                                             device='cuda')
+    idx = torch.randint(0, 120, (100,), generator=gen, device='cuda')
+    noise = reg.sample_noise(gen, (100,), device='cuda')
+    ones = torch.ones((100,), device='cuda')
+    out = []
+    for r in (reg, fr.unfused(reg)):
+        loss, _, grads = make_train_fn(r, Adam(1e-4), 100).value_and_grad(
+            params, Xn[idx], Yn[idx], noise, ones, 120)
+        out.append([loss] + tree_leaves(grads))
+        if r is reg:
+            assert float(grads['mlp']['drop_0']['logit_p'].abs().max()) > 0
+    for a, r in zip(*out):
+        _hold(a, r, 1e-4)
+    fm.reset_launch_counts()
+    train = make_train_fn(reg, Adam(1e-3), 100)
+    _, _, metrics, _ = train(params, Adam(1e-3).init(params), Xn, Yn, gen,
+                             200)
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 200, 'fused_mlp_bwd': 200}
+    e = metrics['E_lml']
+    assert np.all(np.isfinite(e)) and e[-20:].mean() > e[:20].mean()
+

@@ -15,6 +15,7 @@ parameter differences stay near float32 rounding).
 """
 import dataclasses
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -301,3 +302,114 @@ def test_unported_options_raise(setup):
                                  value_spec=tdyn.regressor,
                                  value_update=None if not kw else object())
     assert dataclasses.replace(tmc.MCPILCOConfig(), steps=3).steps == 3
+
+
+class _Writer:
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+
+def test_a_three_parameter_hook_gets_the_live_policy_params(setup):
+    """JAX ``mc_pilco`` hands a hook of three parameters the live policy
+    params (``mc_pilco.py:698-711``); two-parameter hooks keep working."""
+    _, _, tdyn, tpol = setup['specs']
+    tp, dp, st, _ = _torch_inputs(setup, requires_grad=False)
+    seen, seen2 = [], []
+
+    def hook(done, metrics, pol_params):
+        seen.append((done, metrics['loss'].shape,
+                     [p.detach().clone() for p in tree_leaves(pol_params)]))
+
+    out, _, _, _ = tmc.mc_pilco(
+        torch.tensor(setup['pool']), tdyn, tpol, T, dp, st, tp, opt_iters=4,
+        mm_states=True, mm_rewards=True, n_particles=B, seed=0, chunk=2,
+        on_iteration=hook)
+    assert [(d, s) for d, s, _ in seen] == [(2, (2,)), (4, (2,))]
+    for a, b in zip(seen[-1][2], tree_leaves(out)):
+        torch.testing.assert_close(a, b.detach(), rtol=0, atol=0)
+    assert any(not torch.equal(a, b) for a, b in zip(seen[0][2], seen[1][2]))
+    tmc.mc_pilco(torch.tensor(setup['pool']), tdyn, tpol, T, dp, st, tp,
+                 opt_iters=2, n_particles=B, seed=0,
+                 on_iteration=lambda done, m: seen2.append(done))
+    assert seen2 == [2]
+
+
+def test_writer_verbose_and_optimizer_state_carry_across_calls(setup,
+                                                                capsys):
+    """The writer gets JAX's scalar names (``mc_pilco.py:665-673``) with the
+    global step of each chunk of 100; ``verbose`` prints JAX's line; the
+    optimizer returned is the state the next call carries on."""
+    _, _, tdyn, tpol = setup['specs']
+    tp, dp, st, _ = _torch_inputs(setup, requires_grad=False)
+    writer = _Writer()
+    pool = torch.tensor(setup['pool'])
+    kw = dict(mm_states=True, mm_rewards=True, n_particles=B, seed=0)
+    tp, opt, m1, n = tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp,
+                                  opt_iters=3, writer=writer,
+                                  writer_scope='mc_pilco/episode_0',
+                                  verbose=True, **kw)
+    assert [(t, s) for t, _, s in writer.scalars] == [
+        ('mc_pilco/episode_0/training loss', 3),
+        ('mc_pilco/episode_0/mean_return', 3)]
+    np.testing.assert_allclose(writer.scalars[0][1], m1['loss'].mean(),
+                               rtol=1e-6)
+    line = capsys.readouterr().out.strip()
+    assert re.fullmatch(r'\[mc_pilco\] iter 3/3 \(\d+ it/s\) Pred\. Cumm\. '
+                        r'rewards: \S+', line), line
+    assert line.split()[-1] == '%f' % float(m1['mean_return'][-1])
+    steps = int(opt.state[tree_leaves(tp)[0]]['step'])
+    assert steps == 3
+    tp2, opt2, _, n = tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp,
+                                   opt_state=opt, opt_iters=2, n_opt_steps=n,
+                                   **kw)
+    assert opt2 is opt and tp2 is tp and n == 5
+    assert int(opt.state[tree_leaves(tp)[0]]['step']) == steps + 2
+    other = torch.optim.Adam([torch.zeros(1, requires_grad=True)])
+    with pytest.raises(ValueError, match='leaves of pol_params'):
+        tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp, opt_state=other,
+                     opt_iters=1, **kw)
+    for bad in (dict(mesh=object()), dict(value_params={}),
+                dict(prioritized_replay=True), dict(pegasus=False),
+                dict(mm_method='mix')):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp, opt_iters=1,
+                         **kw, **bad)
+
+
+def test_agent_fit_dynamics_is_train_regressor_on_its_generator(setup):
+    """``MCPILCOAgent.fit_dynamics`` fits on the dataset exactly as
+    ``train_regressor`` does when fed the same draws (a generator of the
+    agent's fit seed); ``train`` then optimizes the policy and ``__call__``
+    gives the greedy action."""
+    from prob_mbrl_tpu_torch.algorithms.value import Adam
+    from prob_mbrl_tpu_torch.utils.experience import ExperienceDataset
+    from prob_mbrl_tpu_torch.utils.train_regressor import train_regressor
+    _, _, tdyn, tpol = setup['specs']
+    exp = ExperienceDataset()
+    rng = np.random.RandomState(3)
+    for H in (9, 11):
+        exp.append_episode(list(rng.randn(H, D).astype(np.float32)),
+                           list(rng.uniform(-10, 10, (H, U))),
+                           list(rng.rand(H, 1)))
+    agent = tmc.MCPILCOAgent(tpol, tdyn, exp, seed=4, device='cpu')
+    dyn0 = tmc.tree_map(torch.clone, agent.dyn_params)
+    gen = tmc.seeded_generator('cpu', 4, tmc._AGENT_FIT)
+    metrics = agent.fit_dynamics(iters=6, batchsize=8)
+    X, Y = (torch.as_tensor(a) for a in exp.get_dynmodel_dataset())
+    stats = tdyn.fit_stats(X, Y)
+    opt = Adam(1e-4)
+    params, state, ref = train_regressor(
+        tdyn.regressor, dyn0, stats, X, Y, gen, iters=6, batchsize=8,
+        optimizer=opt, opt_state=opt.init(dyn0))
+    np.testing.assert_array_equal(metrics['loss'], ref['loss'])
+    for a, b in zip(tree_leaves(agent.dyn_params), tree_leaves(params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int(agent.dyn_opt_state.count) == 6
+    m = agent.train(T, batch_size=B, opt_iters=2, mm_states=True,
+                    mm_rewards=True)
+    assert m['loss'].shape == (2,) and agent.policy_update_counter == 2
+    u = agent(exp.states[0][0])
+    assert u.shape == (U,) and np.all(np.abs(u) <= 10.0)

@@ -44,17 +44,6 @@ from prob_mbrl_tpu_torch.utils.core import tree_leaves  # noqa: E402
 PROFILED_ITERS = 5
 
 
-def busy_time(events):
-    """Union of the events' device intervals (us) and the window they span."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy, end - spans[0][0]
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--fused-rollout', choices=('auto', 'step', 'false'),
@@ -125,17 +114,11 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         for n in range(PROFILED_ITERS):
             iteration(n)
-    # device work only: kernels and copies, not the spans of user
-    # annotations such as 'Optimizer.step#Adam.step' that the profiler also
-    # files under the device
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, 'is_user_annotation', False)
-           and '#' not in e.name]
+    dev = chip_smoke.device_events(prof)
     if not dev:
         print('the profiler recorded no device activity', file=sys.stderr)
         return 1
-    busy, window = busy_time(dev)
+    busy, window = chip_smoke.busy_time(dev)
     by_name = {}
     for e in dev:
         k = by_name.setdefault(e.name, [0.0, 0])
