@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``prob_mbrl_tpu_torch``) on one NVIDIA
 card: builds the CUDA kernels from ``prob_mbrl_tpu_torch/csrc``, holds each
-against its plain PyTorch version, drives MC-PILCO policy optimisation on
-Cartpole at full width through the kernels, on each of its routes, then
-three Deep-PILCO episodes through the driver.
+against its plain PyTorch version (on Cartpole's shapes, then on those of
+the other analytic envs), drives MC-PILCO policy optimisation on Cartpole at
+full width through the kernels, on each of its routes, then three
+Deep-PILCO episodes through the driver on Cartpole and one on each of the
+other four analytic envs.
 
     python3 chip_smoke.py
 
@@ -41,6 +43,15 @@ Phases (any failure exits non-zero and prints no result line):
      adjoint, recompute, VJP + dW accumulation, final sums) of the grid
      kernels at B = 1000 and of the one-launch value-and-grad at B = 100,
      each with its launch plan.
+  2b. rows 3-9 at the other analytic envs' shapes ([200, 200] MLPs, seeded
+     weights, states whose angles span the circle): the double cartpole
+     (embedded D = 8, U = 1, exp-quadratic tip reward), rendezvous (D = 8,
+     U = 4, four tip rows, the negative quadratic reward, rewards ~ -10^2 to
+     -5 10^4) and the pendulum (D = 3); the step (rows 6-7) and the whole
+     rollout (rows 3-5, reward mean-only on and off) at B = 100, T = 15,
+     the grid kernels (rows 8-9) at B = 1000, states and rewards
+     moment-matched, each output held as in phase 2; at D = 8 each row's
+     time, plain time and bound printed beside phase 2's D = 5 ones.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -86,6 +97,16 @@ Phases (any failure exits non-zero and prints no result line):
      step through the kernels against the plain path on the same minibatch
      and noise (loss and every grad, logit_p's among them) and the fit's
      device-busy share over 50 steps under torch.profiler.
+  9. the envs: one episode of phase 8's driver, widths and cuts (2000 fit
+     steps, 200 policy iterations, 40 control steps, seed 1) on each of
+     Pendulum, DoubleCartpole, CartAcrobot and Rendezvous (``-e``): every
+     value finite, E_lml rising within the fit, launch counts exactly
+     fused-MLP forward 2000 + 40, backward 2000 and ``fused_rollout_vg``
+     200, the gate's tier ``'full'``; from the checkpoint one fit step
+     (loss and every grad within 1e-4 of its max|plain|) and one policy
+     iteration through row 5 (loss and grads within the plain path's
+     sensitivity, at least 1e-4 of |loss| and 1e-3 of max|grad|) against
+     their plain paths; ms a fit step and a policy iteration per env.
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; the others phase 4,
@@ -155,6 +176,9 @@ GRID_BATCHES = (16, 37, 1000, 1500)
 GRID_B = 1000  # particles of the value path (phase 7)
 VALUE_ITERS = 100  # mc_pilco iterations of the value path
 ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
+# phase 2b: rows 3-9 at these envs' shapes (rows 3-7 at B = MAIN_B, rows 8-9
+# at B = GRID_B), each row timed at D = 8
+ENV_KERNEL_ENVS = ('DoubleCartpole', 'Rendezvous', 'Pendulum')
 SEED = 1
 # phase 8, the episode: the deep_pilco_mm driver at its full widths and
 # default fit, with the episodes cut from 100 to 3 and the policy
@@ -170,6 +194,8 @@ EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
                 '--control_H', str(CONTROL_H), '--dyn_shape', '200,200',
                 '--pol_shape', '200,200']
 BUSY_STEPS = 50  # fit steps under torch.profiler
+# phase 9: one episode of the same driver and cuts on each of these envs
+ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous')
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
 # max|plain| (float32 products summed in another order; no TF32 on either
 # side); the step and the rollout STEP_TOL * max|plain|, or the plain
@@ -465,33 +491,77 @@ def phase_mlp_kernels():
     return rows
 
 
-def step_problem(B, seed):
-    """One rollout step at the main path's widths (embedded Cartpole state
-    D = 5, U = 1, [200, 200] MLPs), its inputs made from a seed. The state
-    resample needs a full-rank particle covariance, B > D: below that its
-    factor is float32 rounding noise (ROADMAP Queue 3), so B = 2 resamples
-    the rewards only. Returns (kernel step, plain step, policy leaves,
-    states, eps, (g_nxt, g_r), timing inputs)."""
+def env_models(env, hidden=(200, 200), nonlin='relu'):
+    """The Deep-PILCO drivers' default models ([200, 200] relu MLPs, or
+    these widths and activations) for ``env``, with its reward and action
+    bounds: (dyn, pol, D, U)."""
+    if env == 'Cartpole':
+        return build_models(5, 1, (10.0,), envs.cartpole_reward(), hidden,
+                            nonlin) + (5, 1)
+    e = envs.make(env, device='cpu')
+    D, U = e.observation_size, e.action_size
+    return build_models(D, U, [float(v) for v in e.action_space.high],
+                        e.reward_func, hidden, nonlin) + (D, U)
+
+
+def net_dims(dyn, pol):
+    """(policy MLP dims, dynamics MLP dims) of the models."""
+    return [fr._mlp_dims(pol.mlp), fr._mlp_dims(dyn.regressor.mlp)]
+
+
+def stats_data(env, rng, n=200):
+    """[n, D + U] inputs and [n, D] targets the dynamics' whitening stats
+    are fit to, drawn from ``rng`` at each env's scales."""
+    scale = {'Cartpole': [1, 2, 3, 0.7, 0.7, 5],
+             'Pendulum': [3, 0.7, 0.7, 2.5],
+             'DoubleCartpole': [1, 2, 3, 3, 0.7, 0.7, 0.7, 0.7, 20],
+             'Rendezvous': [10] * 4 + [1] * 4 + [100] * 4}[env]
+    D = len(scale) - (4 if env == 'Rendezvous' else 1)
+    return rng.randn(n, len(scale)) * scale, 0.1 * rng.randn(n, D)
+
+
+def env_states(env, rng, B):
+    """Embedded states whose angles span the circle (Cartpole's pole:
+    rewards from exp(-8), hanging, to 1; the pendulum; both poles of the
+    double cartpole), or rendezvous's positions ~10 and velocities ~1
+    (relative-state costs ~10^2 to 10^3; with the untrained policy's forces
+    of up to 100 a dim, rewards down to ~-5 10^4)."""
+    if env == 'Rendezvous':
+        return np.concatenate([10 * rng.randn(B, 4), rng.randn(B, 4)], 1)
+    if env == 'Cartpole':
+        th = rng.uniform(-np.pi, np.pi, B)
+        return np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
+                         np.sin(th), np.cos(th)], 1)
+    if env == 'Pendulum':
+        th = rng.uniform(-np.pi, np.pi, B)
+        return np.stack([2 * rng.randn(B), np.sin(th), np.cos(th)], 1)
+    th = rng.uniform(-np.pi, np.pi, (B, 2))
+    return np.concatenate([0.3 * rng.randn(B, 1), rng.randn(B, 3),
+                           np.sin(th), np.cos(th)], 1)
+
+
+def step_problem(B, seed, env='Cartpole'):
+    """One rollout step at the main path's widths ([200, 200] MLPs; by
+    default embedded Cartpole, D = 5, U = 1), its inputs made from a seed.
+    The state resample needs a full-rank particle covariance, B > D: below
+    that its factor is float32 rounding noise (ROADMAP Queue 3), so B = 2
+    resamples the rewards only. Returns (kernel step, plain step, policy
+    leaves, states, eps, (g_nxt, g_r), timing inputs)."""
     rng = np.random.RandomState(seed)
-    D, U = 5, 1
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol = build_models(D, U, (10.0,), envs.cartpole_reward())
+    dyn, pol, D, U = env_models(env)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
     pol_params = pol.init(gen, device='cuda')
     leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
-    stats = dyn.fit_stats(t(rng.randn(200, D + U) * [1, 2, 3, 0.7, 0.7, 5]),
-                          t(0.1 * rng.randn(200, D)))
+    stats = dyn.fit_stats(*map(t, stats_data(env, rng)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
-    # pole angles all round the circle: rewards from exp(-8) (hanging) to 1
-    th = rng.uniform(-np.pi, np.pi, B)
-    states = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
-                         np.sin(th), np.cos(th)], 1))
+    states = t(env_states(env, rng, B))
     eps = t(0.1 * rng.randn(B, U))
     z_mm = standardize_noise(t(rng.randn(B, D)))
     z_rr = standardize_noise(t(rng.randn(B, 1)))
@@ -556,14 +626,14 @@ def step_plans(k):
                                                   k.plans()))
 
 
-def step_timings(B):
+def step_timings(B, env='Cartpole'):
     """ms of each step kernel and of the plain step at batch B, and the
     kernels' launch plans. The plain backward is its forward and
     ``torch.autograd.grad`` in one graph, less the plain forward's. No
     single PyTorch call computes a rollout step, so there is no library
     time."""
     kernel, plain, leaves, states, eps, cot, (k, z_mm, z_rr) = step_problem(
-        B, seed=7)
+        B, seed=7, env=env)
     residuals = k.forward(states, eps, z_mm, z_rr)[2:]
 
     def plain_fwd_bwd():
@@ -580,11 +650,40 @@ def step_timings(B):
                                              True)),
             plain_ms=time_graph(plain_fwd_bwd) - plain_fwd_ms),
     }
-    dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
-    for name, (nbytes, flops) in step_bytes_flops(B, *dims, 5, 1).items():
+    for name, (nbytes, flops) in step_bytes_flops(B, *k.dims, k.D,
+                                                  k.U).items():
         t[name]['bound_ms'], t[name]['bound_by'] = bound(nbytes, flops)
         t[name]['library_ms'] = None
     return t, step_plans(k)
+
+
+def check_step(B, env='Cartpole', tag='phase 2'):
+    """The step kernels against the plain step at batch B on ``env``'s
+    shapes (``phase_step_kernels``' tolerance); the largest error of each."""
+    kernel, plain, leaves, states, eps, cot, (k, _, _) = step_problem(
+        B, seed=B, env=env)
+    got = step_outputs(kernel, leaves, states, eps, cot)
+    ref = step_outputs(plain, leaves, states, eps, cot)
+    moved = step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
+    torch.cuda.synchronize()
+    labels = (['nxt', 'r'] + [f'd pol leaf {i}' for i in
+                              range(len(leaves))] + ['d states', 'd eps'])
+    here = {'fused_step_fwd': 0.0, 'fused_step_bwd': 0.0}
+    rel = loose = 0.0
+    for lab, a, r, m in zip(labels, got, ref, moved):
+        err, r_err, r_tol = hold(f'{env} step B={B} {lab}', a, r, STEP_TOL,
+                                 m)
+        kern = 'fused_step_fwd' if lab in ('nxt', 'r') else 'fused_step_bwd'
+        here[kern] = max(here[kern], err)
+        rel, loose = max(rel, r_err), max(loose, r_tol)
+    state_mm = 'on' if B > k.D else 'off'
+    log(f'[{tag}] {env} (D={k.D}, U={k.U}) rollout step B={B} (state MM '
+        f'{state_mm}; max|r| {float(ref[1].abs().max()):.4g}): kernel vs '
+        f'plain max abs err fwd {here["fused_step_fwd"]:.3e} bwd '
+        f'{here["fused_step_bwd"]:.3e}; worst of an output relative to its '
+        f'max|plain| {rel:.3e}, loosest tolerance {loose:.3e} relative '
+        f'({STEP_TOL:.0e} or the plain step\'s sensitivity) ok')
+    return here
 
 
 def phase_step_kernels():
@@ -596,29 +695,9 @@ def phase_step_kernels():
     names = ['fused_step_fwd', 'fused_step_bwd']
     worst = {n: 0.0 for n in names}
     for B in STEP_BATCHES:
-        kernel, plain, leaves, states, eps, cot, _ = step_problem(B, seed=B)
-        got = step_outputs(kernel, leaves, states, eps, cot)
-        ref = step_outputs(plain, leaves, states, eps, cot)
-        moved = step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
-        torch.cuda.synchronize()
-        labels = (['nxt', 'r'] + [f'd pol leaf {i}' for i in
-                                  range(len(leaves))] + ['d states', 'd eps'])
-        here = {n: 0.0 for n in names}
-        rel = loose = 0.0
-        for lab, a, r, m in zip(labels, got, ref, moved):
-            err, r_err, r_tol = hold(f'step B={B} {lab}', a, r, STEP_TOL, m)
-            kern = 'fused_step_fwd' if lab in ('nxt', 'r') else \
-                'fused_step_bwd'
-            here[kern] = max(here[kern], err)
-            rel, loose = max(rel, r_err), max(loose, r_tol)
+        here = check_step(B)
         for n in names:
             worst[n] = max(worst[n], here[n])
-        state_mm = 'on' if B > 5 else 'off'
-        log(f'[phase 2] rollout step B={B} (state MM {state_mm}'
-            f'): kernel vs plain max abs err fwd {here["fused_step_fwd"]:.3e} '
-            f'bwd {here["fused_step_bwd"]:.3e}; worst of an output relative '
-            f'to its max|plain| {rel:.3e}, loosest tolerance {loose:.3e} '
-            f'relative ({STEP_TOL:.0e} or the plain step\'s sensitivity) ok')
     rows = None
     for B in (MAIN_B, STEP_BIG_B):
         tt, plans = step_timings(B)
@@ -633,33 +712,29 @@ def phase_step_kernels():
     return rows
 
 
-def rollout_problem(B, seed, mean_only=True, T=MAIN_T):
-    """The whole rollout at the main path's widths (embedded Cartpole state
-    D = 5, U = 1, [200, 200] MLPs, states and rewards moment-matched,
-    discount 0.9), its inputs made from a seed. Returns (kernel loss, kernel
-    value-and-grad, plain loss, policy params, policy leaves, the arguments
-    after the policy params, (dyn, pol, w_t))."""
+def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole'):
+    """The whole rollout at the main path's widths ([200, 200] MLPs; by
+    default embedded Cartpole, D = 5, U = 1; states and rewards
+    moment-matched, discount 0.9), its inputs made from a seed. Returns
+    (kernel loss, kernel value-and-grad, plain loss, policy params, policy
+    leaves, the arguments after the policy params, (dyn, pol, w_t))."""
     rng = np.random.RandomState(seed)
-    D, U = 5, 1
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol = build_models(D, U, (10.0,), envs.cartpole_reward())
+    dyn, pol, D, U = env_models(env)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
     pol_params = pol.init(gen, device='cuda')
     leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
-    stats = dyn.fit_stats(t(rng.randn(200, D + U) * [1, 2, 3, 0.7, 0.7, 5]),
-                          t(0.1 * rng.randn(200, D)))
+    stats = dyn.fit_stats(*map(t, stats_data(env, rng)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
-    # pole angles all round the circle (the main path starts hanging, where
-    # the reward is about exp(-8))
-    th = rng.uniform(-np.pi, np.pi, B)
-    x0 = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
-                     np.sin(th), np.cos(th)], 1))
+    # angles all round the circle (the main path starts hanging, where the
+    # reward is about exp(-8))
+    x0 = t(env_states(env, rng, B))
     z_mm = fr.prepare_mm_noise(t(rng.randn(B, D)), T, B)
     z_rr = fr.prepare_mm_noise(t(rng.randn(B, 1)), T, B)
     eps = t(0.1 * rng.randn(T, B, U))
@@ -705,16 +780,16 @@ def time_launches(fn, n=ROLLOUT_LAUNCHES, reps=5):
     return float(np.median(times))
 
 
-def rollout_timings():
+def rollout_timings(env='Cartpole', split=True):
     """ms of each rollout kernel (CUDA events around launches in a row: a
     cooperative launch is not captured in a graph here) and of the plain
     version (CUDA graph replay) at the main-path batch and horizon. The
     plain backward is the plain forward and ``torch.autograd.grad`` in one
     graph, less the plain forward; the plain value-and-grad is that graph.
     No single PyTorch call computes a rollout, so there is no library
-    time."""
+    time. With ``split`` it logs the kernel's own time split of row 5."""
     _, _, plain, pol_params, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        MAIN_B, 7)
+        MAIN_B, 7, env=env)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, True, True, True, True,
                          MAIN_B, x0.device)
@@ -742,21 +817,24 @@ def rollout_timings():
         'fused_rollout_vg': dict(ms=time_launches(lambda: k.value_and_grad(
             sk)), plain_ms=plain_vg_ms),
     }
-    dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
-    work = rollout_bytes_flops(MAIN_B, MAIN_T, *dims, 5, 1, r_mm=False)
+    D, U = x0.shape[1], eps.shape[2]
+    work = rollout_bytes_flops(MAIN_B, MAIN_T, *net_dims(dyn, pol), D, U,
+                               r_mm=False)
     for name in t:
         t[name]['bound_ms'], t[name]['bound_by'] = bound(*work[name])
         t[name]['library_ms'] = None
-    log_split(f'fused_rollout_vg B={MAIN_B} ({k_plan(MAIN_B)})',
-              time_split(k, lambda: k.value_and_grad(sk)))
+    if split:
+        log_split(f'fused_rollout_vg B={MAIN_B} ({k_plan(MAIN_B)})',
+                  time_split(k, lambda: k.value_and_grad(sk)))
     return t
 
 
-def k_plan(B):
+def k_plan(B, env='Cartpole'):
     """The whole-rollout kernel's launch plan at the main widths and batch
-    B on this card, as text."""
-    p = fr.rollout_plan(SHAPES['policy'][0], SHAPES['dynamics'][0], 5, B,
-                        MAIN_T, fr.max_clusters(torch.cuda.current_device()))
+    B on this card for ``env``'s shapes, as text."""
+    dyn, pol, D, _ = env_models(env)
+    p = fr.rollout_plan(*net_dims(dyn, pol), D, B, MAIN_T,
+                        fr.max_clusters(torch.cuda.current_device()))
     return (f'{p.clusters} clusters of {p.particles} particles in '
             f'{p.tiles} tile(s) of {p.tile_rows} rows, weights '
             f'{"resident" if p.resident else "read in place"}, {p.smem} '
@@ -806,6 +884,49 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
                                T * f_bwd)}
 
 
+def check_rollout(B, mean_only, env='Cartpole', tag='phase 2'):
+    """The whole-rollout kernels against the plain version at batch B on
+    ``env``'s shapes (``phase_rollout_kernels``' tolerance); the largest
+    error of each."""
+    kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(
+        B, B, mean_only, env=env)
+    got = rollout_outputs(kloss, pp, leaves, args)
+    ref = rollout_outputs(plain, pp, leaves, args)
+    moved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
+    vl, vm, vgrads, _ = kvg(pp, *args)
+    vref = rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
+    vmoved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                             g=(1.0, 0.0))[:-1]
+    torch.cuda.synchronize()
+    n = len(leaves)
+    labels = (['loss', 'mean_return']
+              + [f'd pol leaf {i}' for i in range(n)] + ['d eps'])
+    checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
+               zip(labels[:2], got[:2], ref[:2], moved[:2])]
+              + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
+                 zip(labels[2:], got[2:], ref[2:], moved[2:])]
+              + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
+                 zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref,
+                     vmoved)])
+    names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
+    here = {nm: 0.0 for nm in names}
+    rel = loose = 0.0
+    for kern, lab, a, r, m in checks:
+        err, r_err, r_tol = hold(f'{env} rollout B={B} {kern} {lab}', a, r,
+                                 STEP_TOL, m)
+        here[kern] = max(here[kern], err)
+        rel, loose = max(rel, r_err), max(loose, r_tol)
+    log(f'[{tag}] {env} rollout B={B} T={MAIN_T} (reward mean-only '
+        f'{"on" if mean_only else "off"}; loss {float(ref[0]):.6f}, '
+        f'mean_return {float(ref[1]):.6f}): kernel vs plain max abs err '
+        + ', '.join(f'{nm[len("fused_rollout_"):]} {here[nm]:.3e}'
+                    for nm in names)
+        + f'; worst of an output relative to its max|plain| {rel:.3e}, '
+        f'loosest tolerance {loose:.3e} relative ({STEP_TOL:.0e} or the '
+        'plain version\'s sensitivity) ok')
+    return here
+
+
 def phase_rollout_kernels():
     """The whole-rollout kernels against the plain version. Tolerance per
     output: STEP_TOL * max|plain| of that output, or 3x the plain version's
@@ -815,43 +936,9 @@ def phase_rollout_kernels():
     worst = {n: 0.0 for n in names}
     cases = [(B, True) for B in ROLLOUT_BATCHES] + [(MAIN_B, False)]
     for B, mean_only in cases:
-        kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(B, B,
-                                                                  mean_only)
-        got = rollout_outputs(kloss, pp, leaves, args)
-        ref = rollout_outputs(plain, pp, leaves, args)
-        moved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
-        vl, vm, vgrads, _ = kvg(pp, *args)
-        vref = rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
-        vmoved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
-                                 g=(1.0, 0.0))[:-1]
-        torch.cuda.synchronize()
-        n = len(leaves)
-        labels = (['loss', 'mean_return']
-                  + [f'd pol leaf {i}' for i in range(n)] + ['d eps'])
-        checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
-                   zip(labels[:2], got[:2], ref[:2], moved[:2])]
-                  + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
-                     zip(labels[2:], got[2:], ref[2:], moved[2:])]
-                  + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
-                     zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref,
-                         vmoved)])
-        here = {nm: 0.0 for nm in names}
-        rel = loose = 0.0
-        for kern, lab, a, r, m in checks:
-            err, r_err, r_tol = hold(f'rollout B={B} {kern} {lab}', a, r,
-                                     STEP_TOL, m)
-            here[kern] = max(here[kern], err)
-            rel, loose = max(rel, r_err), max(loose, r_tol)
+        here = check_rollout(B, mean_only)
         for nm in names:
             worst[nm] = max(worst[nm], here[nm])
-        log(f'[phase 2] rollout B={B} T={MAIN_T} (reward mean-only '
-            f'{"on" if mean_only else "off"}; loss {float(ref[0]):.6f}, '
-            f'mean_return {float(ref[1]):.6f}): kernel vs plain max abs err '
-            + ', '.join(f'{nm[len("fused_rollout_"):]} {here[nm]:.3e}'
-                        for nm in names)
-            + f'; worst of an output relative to its max|plain| {rel:.3e}, '
-            f'loosest tolerance {loose:.3e} relative ({STEP_TOL:.0e} or the '
-            'plain version\'s sensitivity) ok')
     rows = rollout_timings()
     for name, v in rows.items():
         v['max_abs_err'] = worst[name]
@@ -862,13 +949,14 @@ def phase_rollout_kernels():
     return rows
 
 
-def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T):
+def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
+                 env='Cartpole'):
     """The grid rollout on ``rollout_problem``'s inputs: (kernel rollout,
     plain rollout, policy params, leaves, the rollout's arguments after the
     policy params, cotangents of disc, raw, vret and states_all, (dyn, pol,
     w_t, vw_t)); vret weighs step t by (T - 1 - t) / T."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        B, seed, False, T)
+        B, seed, False, T, env=env)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     rng = np.random.RandomState(seed + 1)
 
@@ -876,7 +964,8 @@ def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
     vw_t = (T - 1 - np.arange(T)) / T  # 0 at the last step
-    cot = [t(rng.randn(B, 1)) for _ in range(3)] + [t(rng.randn(T, B, 5))]
+    cot = [t(rng.randn(B, 1)) for _ in range(3)] + [
+        t(rng.randn(T, B, x0.shape[1]))]
     make = (dyn, pol, T, mm_states, mm_rewards)
     return (fr.make_grid_rollout(*make), fr.make_grid_rollout_plain(*make),
             pp, leaves, [x0, z_mm if mm_states else None,
@@ -922,14 +1011,14 @@ def log_split(what, parts):
         + f' = {sum(parts):.4f} ms')
 
 
-def grid_timings(B, split=False):
+def grid_timings(B, split=False, env='Cartpole'):
     """ms of each grid kernel and of the plain version at batch B, T = 15
     (CUDA events around launches in a row, as ``rollout_timings``; the plain
     backward is the plain forward and ``torch.autograd.grad`` in one graph
     less the forward), and with ``split`` the kernel's own time split in ms
     per launch."""
     _, plain, pp, leaves, args, cot, (dyn, pol, w_t, vw_t) = grid_problem(
-        B, 7)
+        B, 7, env=env)
     x0, z_mm, z_rr, eps, dyn_params, stats, dyn_noise, pol_noise = args[:8]
     k = fr.GridKernel(dyn, pol, MAIN_T, w_t, vw_t, True, True, B, x0.device)
     sk = k.bind(pp, x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr,
@@ -953,8 +1042,8 @@ def grid_timings(B, split=False):
          'fused_grid_bwd': dict(ms=time_launches(bwd),
                                 plain_ms=time_graph(plain_fwd_bwd, n=5)
                                 - plain_fwd_ms)}
-    dims = [SHAPES['policy'][0], SHAPES['dynamics'][0]]
-    work = rollout_bytes_flops(B, MAIN_T, *dims, 5, 1, r_mm=True)
+    work = rollout_bytes_flops(B, MAIN_T, *net_dims(dyn, pol), x0.shape[1],
+                               eps.shape[2], r_mm=True)
     for name in t:
         t[name]['bound_ms'], t[name]['bound_by'] = bound(*work[name])
         t[name]['library_ms'] = None
@@ -964,6 +1053,38 @@ def grid_timings(B, split=False):
     return t, parts
 
 
+def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2'):
+    """The grid kernels against the plain grid rollout at batch B on
+    ``env``'s shapes, states moment-matched (``phase_grid_kernels``'
+    tolerance); the largest error of each."""
+    names = ['fused_grid_fwd', 'fused_grid_bwd']
+    kern, plain, pp, leaves, args, cot, _ = grid_problem(B, B, True,
+                                                         mm_rewards, env=env)
+    got = grid_outputs(kern, pp, leaves, args, cot)
+    ref = grid_outputs(plain, pp, leaves, args, cot)
+    moved = grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
+    torch.cuda.synchronize()
+    labels = (['disc', 'raw', 'vret', 'states_all']
+              + [f'd pol leaf {i}' for i in range(len(leaves))] + ['d eps'])
+    here = {n: 0.0 for n in names}
+    rel = loose = 0.0
+    for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
+        kern_name = names[0] if i < 4 else names[1]
+        check = hold_rows if lab == 'd eps' else hold
+        err, r_err, r_tol = check(f'{env} grid B={B} {lab}', a, r, STEP_TOL,
+                                  m)
+        here[kern_name] = max(here[kern_name], err)
+        rel, loose = max(rel, r_err), max(loose, r_tol)
+    log(f'[{tag}] {env} grid B={B} T={MAIN_T} (states'
+        f'{" and rewards" if mm_rewards else " only"} moment-matched; '
+        f'mean disc {float(ref[0].mean()):.6f}): kernel vs plain max abs '
+        f'err fwd {here[names[0]]:.3e}, bwd {here[names[1]]:.3e}; worst '
+        f'of an output relative to its max|plain| {rel:.3e}, loosest '
+        f'tolerance {loose:.3e} relative ({STEP_TOL:.0e} or the plain '
+        'version\'s sensitivity) ok')
+    return here
+
+
 def phase_grid_kernels():
     """The grid kernels against the plain grid rollout (tolerances as
     ``phase_rollout_kernels``); times at B = 1000 (the value path's) and
@@ -971,34 +1092,10 @@ def phase_grid_kernels():
     names = ['fused_grid_fwd', 'fused_grid_bwd']
     worst = {n: 0.0 for n in names}
     cases = [(B, True) for B in GRID_BATCHES] + [(37, False)]
-    labels = None
     for B, mm_rewards in cases:
-        kern, plain, pp, leaves, args, cot, _ = grid_problem(B, B, True,
-                                                             mm_rewards)
-        got = grid_outputs(kern, pp, leaves, args, cot)
-        ref = grid_outputs(plain, pp, leaves, args, cot)
-        moved = grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
-        torch.cuda.synchronize()
-        labels = (['disc', 'raw', 'vret', 'states_all']
-                  + [f'd pol leaf {i}' for i in range(len(leaves))]
-                  + ['d eps'])
-        here = {n: 0.0 for n in names}
-        rel = loose = 0.0
-        for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
-            kern_name = names[0] if i < 4 else names[1]
-            check = hold_rows if lab == 'd eps' else hold
-            err, r_err, r_tol = check(f'grid B={B} {lab}', a, r, STEP_TOL, m)
-            here[kern_name] = max(here[kern_name], err)
-            rel, loose = max(rel, r_err), max(loose, r_tol)
+        here = check_grid(B, mm_rewards)
         for n in names:
             worst[n] = max(worst[n], here[n])
-        log(f'[phase 2] grid B={B} T={MAIN_T} (states'
-            f'{" and rewards" if mm_rewards else " only"} moment-matched; '
-            f'mean disc {float(ref[0].mean()):.6f}): kernel vs plain max abs '
-            f'err fwd {here[names[0]]:.3e}, bwd {here[names[1]]:.3e}; worst '
-            f'of an output relative to its max|plain| {rel:.3e}, loosest '
-            f'tolerance {loose:.3e} relative ({STEP_TOL:.0e} or the plain '
-            'version\'s sensitivity) ok')
     rows, parts = grid_timings(GRID_B, split=True)
     for B, tt in ((GRID_B, rows), (MAIN_B, grid_timings(MAIN_B)[0])):
         for name, v in tt.items():
@@ -1011,6 +1108,44 @@ def phase_grid_kernels():
     for name, v in rows.items():
         v['max_abs_err'] = worst[name]
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: rows 3-9 at the envs' shapes
+# ---------------------------------------------------------------------------
+
+
+def phase_env_kernels(rows):
+    """Rows 3-9 against their plain versions (``hold``, ``hold_rows``) at the
+    shapes of the envs beside Cartpole, states and rewards moment-matched:
+    the double cartpole (embedded D = 8 = kMaxD, U = 1, the exp-quadratic tip
+    reward), rendezvous (D = 8, U = 4 = kMaxU, four tip rows, the quadratic
+    reward) and the pendulum (D = 3). Rows 6-7 and 3-5 at B = 100, T = 15
+    (3-5 with the reward mean-only shortcut and without), rows 8-9 at
+    B = 1000. At D = 8 each row's time, its bound and its plain version's
+    time beside the D = 5 time of phase 2 (``rows``) from this call."""
+    for env in ENV_KERNEL_ENVS:
+        check_step(MAIN_B, env, 'phase 2b')
+        for mean_only in (True, False):
+            check_rollout(MAIN_B, mean_only, env, 'phase 2b')
+        check_grid(GRID_B, True, env, 'phase 2b')
+        _, _, D, U = env_models(env)
+        if D != fr.MAX_D:
+            continue
+        steps, plans = step_timings(MAIN_B, env)
+        log(f'[phase 2b] {env} launch plans: step B={MAIN_B} {plans}; '
+            f'rollout B={MAIN_B} {k_plan(MAIN_B, env)}; grid B={GRID_B} '
+            f'{k_plan(GRID_B, env)}')
+        times = {**steps, **rollout_timings(env, split=False),
+                 **grid_timings(GRID_B, env=env)[0]}
+        for name, v in times.items():
+            B = GRID_B if name.startswith('fused_grid') else MAIN_B
+            log(f'[phase 2b] {name} B={B}: {env} (D={D}, U={U}) kernel '
+                f'{v["ms"]:.4f} ms beside Cartpole (D=5, U=1) '
+                f'{rows[name]["ms"]:.4f} ms; plain {v["plain_ms"]:.4f} ms '
+                f'(Cartpole {rows[name]["plain_ms"]:.4f}); bound '
+                f'{v["bound_ms"]:.6f} ms ({v["bound_by"]}; Cartpole '
+                f'{rows[name]["bound_ms"]:.6f})')
 
 
 # ---------------------------------------------------------------------------
@@ -1033,14 +1168,18 @@ def random_episode(env, steps, seed):
     return np.stack(obs).astype(np.float32), np.stack(acts)
 
 
-def build_models(D, U, max_u, reward_func):
-    """The Deep-PILCO examples' default Cartpole models: [200, 200] relu MLPs,
-    concrete dropout 0.1 on the dynamics, Bernoulli 0.1 on the policy."""
+def build_models(D, U, max_u, reward_func, hidden=(200, 200),
+                 nonlin='relu'):
+    """The Deep-PILCO examples' default models (by default [200, 200] relu
+    MLPs), concrete dropout 0.1 on the dynamics, Bernoulli 0.1 on the
+    policy."""
     dyn = DynamicsModel(
-        Regressor(MLPSpec(D + U, 2 * D, (200, 200), dropout=cdropout(0.1)),
+        Regressor(MLPSpec(D + U, 2 * D, hidden, dropout=cdropout(0.1),
+                          nonlin=nonlin),
                   DiagGaussianDensity(D)),
         reward_func=reward_func)
-    pol = Policy(MLPSpec(D, 2 * U, (200, 200), dropout=bdropout(0.1)),
+    pol = Policy(MLPSpec(D, 2 * U, hidden, dropout=bdropout(0.1),
+                         nonlin=nonlin),
                  DiagGaussianDensity(U), max_u=tuple(max_u))
     return dyn, pol
 
@@ -1453,12 +1592,12 @@ def flat_leaves(tree, prefix=''):
     return [(prefix, tree)]
 
 
-def episode_fit_checks(results, args):
+def episode_fit_checks(results, args, tag='phase 8', profile=True):
     """From the run's checkpoint (experience and dynamics params): one fit
     step of the kernel path against the plain path (fused=False) on the same
     minibatch and noise, loss and every grad (logit_p among them) held to
-    REL_TOL of the leaf's own max|plain|; then the fit's device-busy share
-    over BUSY_STEPS steps under torch.profiler."""
+    REL_TOL of the leaf's own max|plain|; then, with ``profile``, the fit's
+    device-busy share over BUSY_STEPS steps under torch.profiler."""
     exp = ExperienceDataset()
     ck = load_checkpoint(results, exp=exp, device='cuda')
     X, Y = (torch.as_tensor(a, device='cuda')
@@ -1474,19 +1613,21 @@ def episode_fit_checks(results, args):
     noise = dyn.regressor.sample_noise(gen, (B,), device='cuda')
     ones = torch.ones((B,), device='cuda')
     out = {}
-    for tag, reg in (('kernel', dyn.regressor),
-                     ('plain', fr.unfused(dyn.regressor))):
+    for path, reg in (('kernel', dyn.regressor),
+                      ('plain', fr.unfused(dyn.regressor))):
         train = make_train_fn(reg, Adam(args.dyn_lr), B)
         loss, _, grads = train.value_and_grad(ck['dyn'], Xn[idx], Yn[idx],
                                               noise, ones, n)
-        out[tag] = [('loss', loss)] + flat_leaves(grads)
+        out[path] = [('loss', loss)] + flat_leaves(grads)
     errs = []
     for (name, a), (_, r) in zip(out['kernel'], out['plain']):
-        _, rel, _ = hold(f'[phase 8] fit step {name}', a, r, REL_TOL)
+        _, rel, _ = hold(f'[{tag}] fit step {name}', a, r, REL_TOL)
         errs.append(f'{name} {rel:.2e}')
-    log(f'[phase 8] one fit step ({n} rows, B={B}), kernel vs plain path, '
+    log(f'[{tag}] one fit step ({n} rows, B={B}), kernel vs plain path, '
         f'error / max|plain| per output (tolerance {REL_TOL:g}): '
         + ', '.join(errs))
+    if not profile:
+        return
 
     from torch.profiler import ProfilerActivity, profile
     train = make_train_fn(dyn.regressor, Adam(args.dyn_lr), B)
@@ -1516,18 +1657,56 @@ def episode_fit_checks(results, args):
             f'{name[:80]}')
 
 
-def phase_episode():
-    """The torch ``deep_pilco_mm`` driver (``run`` through its parser and
-    the entry point's settings) for EPISODES full-width Cartpole episodes
-    into a temporary folder under ``build/``; every count set to 0 just
-    before it. Checks every value finite, E_lml rising within each fit and
-    the exact launch counts; then ``episode_fit_checks`` on its checkpoint.
-    Returns the launch counts."""
+def episode_policy_check(results, args, tag):
+    """From the run's checkpoint (experience, fitted dynamics and trained
+    policy params): one policy iteration's loss and grads through row 5 (the
+    value-and-grad ``MCPILCO`` takes on the ``'full'`` tier) against the
+    plain path (``compare_paths``: ``utils.rollout`` on unfused MLPs, the
+    same x0 and noise, the tolerance the plain path's own sensitivity, at
+    least 1e-4 of |loss| and 1e-3 of max|grad|), with the experience's
+    states as the x0 pool, as phase 5 does."""
+    exp = ExperienceDataset()
+    ck = load_checkpoint(results, exp=exp, device='cuda')
+    X, Y = (torch.as_tensor(a, device='cuda')
+            for a in exp.get_dynmodel_dataset(deltas=True))
+    env = envs.make(args.env, device='cuda')
+    dyn, pol = dpc.build_models(
+        env.observation_size, env.action_size, env.action_space.high,
+        env.action_space.low, args, False, env.reward_func)
+    stats = dyn.fit_stats(X, Y)
+    pool = np.concatenate([np.asarray(ep, np.float32) for ep in exp.states])
+    pol_params = tree_map(lambda p: p.requires_grad_(True), ck['pol'])
+    B, T = args.pol_batch_size, args.pred_H
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
+                        mm_rewards=True)
+    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda')
+    if opt.tier('cuda') != 'full':
+        raise AssertionError(f'the gate names {opt.tier("cuda")!r}')
+
+    def row5(p, x0, noise):
+        loss, _, grads, _ = opt.fused_vg(p, x0, ck['dyn'], stats,
+                                         *opt.prepare_noise(noise, 'cuda'))
+        return float(loss), torch.cat([g.reshape(-1)
+                                       for g in tree_leaves(grads)])
+
+    compare_paths((dyn, pol, ck['dyn'], pol_params, stats,
+                   torch.as_tensor(pool, device='cuda'),
+                   1e-2 * pool.std(0)), row5, tag, SEED, T, B)
+
+
+def run_episodes(argv, episodes, tag, checks):
+    """The torch ``deep_pilco_mm`` driver (``main`` through its parser and
+    the entry point's settings) with ``argv`` into a temporary folder under
+    ``build/``, every count set to 0 just before it. Checks every value
+    finite, E_lml rising within each fit, the exact launch counts and the
+    tier the gate names for the driver's configuration (``'full'``); then
+    ``checks(results folder, args)`` on its checkpoint. Returns the launch
+    counts and the per-episode records."""
     root = Path(__file__).resolve().parent / 'build'
     root.mkdir(exist_ok=True)
     folder = tempfile.mkdtemp(prefix='chip_smoke_episode_', dir=root)
     try:
-        argv = EPISODE_ARGV + ['-o', folder]
+        argv = argv + ['-o', folder]
         records = []
         reset_counts()
         torch.cuda.synchronize()
@@ -1537,9 +1716,9 @@ def phase_episode():
         torch.cuda.synchronize()
         launches = counts()
         wall = time.perf_counter() - t0
-        if len(records) != EPISODES or len(returns) != EPISODES:
+        if len(records) != episodes or len(returns) != episodes:
             raise AssertionError(f'{len(records)} episodes, expected '
-                                 f'{EPISODES}')
+                                 f'{episodes}')
         for r in records:
             dm, pm = r['dyn_metrics'], r['pol_metrics']
             vals = [dm['loss'], dm['E_lml'], pm['loss'], pm['mean_return'],
@@ -1548,7 +1727,7 @@ def phase_episode():
                 raise AssertionError(f'non-finite value in episode '
                                      f'{r["episode"]}')
             first, last = dm['E_lml'][:50].mean(), dm['E_lml'][-50:].mean()
-            log(f'[phase 8] episode {r["episode"]}: E_lml {r["E_lml"]:.6f} '
+            log(f'[{tag}] episode {r["episode"]}: E_lml {r["E_lml"]:.6f} '
                 f'(fit: first-50 mean {first:.6f}, last-50 mean {last:.6f}); '
                 f'imagined return {r["imagined_return"]:.6f}; real return '
                 f'{r["real_return"]:.6f}; fit {1e3 * r["fit_s"] / FIT_ITERS:.4f}'
@@ -1559,10 +1738,10 @@ def phase_episode():
             if not last > first:
                 raise AssertionError(f'E_lml did not rise in the fit of '
                                      f'episode {r["episode"]}')
-        want = expect(fused_mlp_fwd=EPISODES * (FIT_ITERS + CONTROL_H),
-                      fused_mlp_bwd=EPISODES * FIT_ITERS,
-                      fused_rollout_vg=EPISODES * EPISODE_POL_ITERS)
-        log(f'[phase 8] {EPISODES} episodes in {wall:.3f} s; launches '
+        want = expect(fused_mlp_fwd=episodes * (FIT_ITERS + CONTROL_H),
+                      fused_mlp_bwd=episodes * FIT_ITERS,
+                      fused_rollout_vg=episodes * EPISODE_POL_ITERS)
+        log(f'[{tag}] {episodes} episode(s) in {wall:.3f} s; launches '
             f'{launches} (expected {want})')
         if launches != want:
             raise AssertionError('launch counts of the episode run differ')
@@ -1576,14 +1755,41 @@ def phase_episode():
         cfg = MCPILCOConfig(n_particles=args.pol_batch_size, steps=args.pred_H,
                             mm_states=True, mm_rewards=True)
         tier = make_mc_pilco_fn(dyn, pol, cfg, 'cuda').tier('cuda')
-        log(f'[phase 8] the tier mc_pilco takes for the driver\'s '
+        log(f'[{tag}] the tier mc_pilco takes for the driver\'s '
             f'configuration: {tier!r}')
         if tier != 'full':
             raise AssertionError(f'the gate names {tier!r}, expected \'full\'')
-        episode_fit_checks(results, args)
-        return launches
+        checks(results, args)
+        return launches, records
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+
+
+def phase_episode():
+    """Phase 8: EPISODES full-width Cartpole episodes (``run_episodes``),
+    then ``episode_fit_checks`` on the checkpoint. Returns the launch
+    counts."""
+    return run_episodes(EPISODE_ARGV, EPISODES, 'phase 8',
+                        episode_fit_checks)[0]
+
+
+def phase_env_episodes():
+    """Phase 9: one full-width episode of the same driver and cuts on each
+    of ENV_EPISODE_ENVS (``run_episodes``), each checked by one fit step
+    and one policy iteration against their plain paths; logs each env's
+    fit ms a step and policy ms an iteration."""
+    for env in ENV_EPISODE_ENVS:
+        tag = f'phase 9 {env}'
+
+        def checks(results, args):
+            episode_fit_checks(results, args, tag, profile=False)
+            episode_policy_check(results, args, tag)
+
+        _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1', '-e', env],
+                               1, tag, checks)
+        log(f'[{tag}] fit {1e3 * r["fit_s"] / FIT_ITERS:.4f} ms a step, '
+            f'policy {1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an '
+            'iteration')
 
 
 def start(name):
@@ -1616,6 +1822,7 @@ def main():
 
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
             **phase_rollout_kernels(), **phase_grid_kernels()}
+    phase_env_kernels(rows)
     T = MAIN_T
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)
@@ -1641,6 +1848,7 @@ def main():
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
     value_path = phase_value_path()
     episode = phase_episode()
+    phase_env_episodes()
     runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': value_path}

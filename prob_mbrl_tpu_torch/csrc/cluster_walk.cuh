@@ -682,7 +682,11 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
       q += d * d;
     }
     for (int k = 0; k < U; ++k) ua += ts[(kTAct + k) * TRP + r] * ts[(kTAct + k) * TRP + r];
-    ts[kTR * TRP + r] = r < nrows ? expf(-(0.5f * (st.q_scale * q + st.r_scale * ua))) : 0.f;
+    float rew = 0.f;
+    if (r < nrows)
+      rew = st.reward_kind == kExpQuadReward ? expf(-(0.5f * (st.q_scale * q + st.r_scale * ua)))
+                                             : -(st.q_scale * q + st.r_scale * ua);
+    ts[kTR * TRP + r] = rew;
   }
   __syncthreads();
 }
@@ -701,24 +705,35 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   const int D = st.D, U = st.U, tid = threadIdx.x, nt = blockDim.x;
   const int TR = c.lay.TR, TRP = c.lay.TRP;
   float* ts = c.sm + c.lay.tsm;
-  // reward: r = exp(-cost), cost = 0.5 (q |(tip - target) / norm|^2 + rs |a|^2)
+  // reward, d = (tip - target) / norm: kind 0 r = exp(-cost), cost = 0.5 (q
+  // |d|^2 + rs |a|^2), so dr/dtip_j = -r q d_j / norm, dr/da_k = -r rs a_k;
+  // kind 1 r = -(q |d|^2 + rs |a|^2), dr/dtip_j = -2 q d_j / norm, dr/da_k =
+  // -2 rs a_k. gq d_j / norm and ga a_k are the cotangents.
   for (int r = tid; r < TR; r += nt) {
     const bool in = r < nrows;
-    const float gc = -(in ? g_r[r] : 0.f) * ts[kTR * TRP + r];
+    const float gr = in ? g_r[r] : 0.f;
+    float gq, ga;
+    if (st.reward_kind == kExpQuadReward) {
+      const float gc = -gr * ts[kTR * TRP + r];
+      gq = gc * 0.5f * st.q_scale * 2.f;
+      ga = gc * 0.5f * st.r_scale * 2.f;
+    } else {
+      gq = -2.f * st.q_scale * gr;
+      ga = -2.f * st.r_scale * gr;
+    }
     float gtip[kMaxTip];
     for (int j = 0; j < st.ntip; ++j) {
       float tip = 0.f;
       for (int k = 0; k < D; ++k) tip += st.tip[j * D + k] * ts[(kTNxt + k) * TRP + r];
       const float d = (tip - st.target[j]) / st.norm;
-      gtip[j] = gc * 0.5f * st.q_scale * 2.f * d / st.norm;
+      gtip[j] = gq * d / st.norm;
     }
     for (int k = 0; k < D; ++k) {
       float g = in ? g_nxt[r * D + k] : 0.f;
       for (int j = 0; j < st.ntip; ++j) g += st.tip[j * D + k] * gtip[j];
       ts[(kTGnxt + k) * TRP + r] = in ? g : 0.f;
     }
-    for (int k = 0; k < U; ++k)
-      ts[(kTGact + k) * TRP + r] = gc * 0.5f * st.r_scale * 2.f * ts[(kTAct + k) * TRP + r];
+    for (int k = 0; k < U; ++k) ts[(kTGact + k) * TRP + r] = ga * ts[(kTAct + k) * TRP + r];
   }
   __syncthreads();
   // nxt = s + mean * sy + my + z * exp(upper_clip(lsr) + log sy): the dynamics

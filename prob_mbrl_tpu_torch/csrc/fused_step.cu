@@ -8,7 +8,8 @@
 // whose body is make_step_impl (:1079-1129):
 //   policy MLP -> DiagGaussian sample -> max_u * tanh(.) + eps
 //   -> whitened cat(s, a) -> dynamics MLP -> scaled DiagGaussian sample
-//   -> nxt = s + delta -> exp-quadratic tip reward on the pre-MM nxt
+//   -> nxt = s + delta -> the reward on the pre-MM nxt (StepArgs::reward_kind:
+//      the exp-quadratic tip reward, or rendezvous's negative quadratic)
 //   -> moment-matching resample of nxt (D) and of r (D = 1), Cholesky path
 //      with the escalating jitter of _safe_cholesky_kf (:117-203).
 //

@@ -9,7 +9,10 @@
 // :1079-1129):
 //   policy MLP -> DiagGaussian sample -> max_u * tanh(.) + eps
 //   -> whitened cat(s, a) -> dynamics MLP -> scaled DiagGaussian sample
-//   -> nxt = s + delta -> exp-quadratic tip reward on the pre-MM nxt
+//   -> nxt = s + delta -> the reward on the pre-MM nxt (JAX calls the env's
+//      reward closure there, :579 and :1122; here one of two kinds, both of
+//      the linear tip M nxt: the exp-quadratic tip reward of the swing-up
+//      envs, or the negative quadratic cost of rendezvous)
 //   -> moment-matching resample of nxt (D) and of r (D = 1), Cholesky path
 //      with the escalating jitter of _safe_cholesky_kf (:117-203).
 #pragma once
@@ -22,6 +25,10 @@ constexpr int kMaxD = 8;     // state dims
 constexpr int kMaxU = 4;     // action dims
 constexpr int kMaxTip = 4;   // coordinates of the reward's tip
 constexpr int kTries = 8;    // jitters of the safe Cholesky
+
+// StepArgs::reward_kind, with d = (M nxt - target) / norm:
+constexpr int kExpQuadReward = 0;  // r = exp(-0.5 (q |d|^2 + r_u |a|^2))
+constexpr int kQuadReward = 1;     // r = -(q |d|^2 + r_u |a|^2)
 
 }  // namespace
 
@@ -40,6 +47,7 @@ struct MlpArgs {
 
 struct StepArgs {
   int B, D, U, ntip;
+  int reward_kind;      // kExpQuadReward or kQuadReward
   MlpArgs pol, dyn;
   const float* states;  // [B, D]
   const float* eps;     // [B, U] or null (zero)
@@ -64,7 +72,7 @@ namespace {
 
 struct Step {
   Net pol, dyn;
-  int B, D, U, ntip;
+  int B, D, U, ntip, reward_kind;
   const float *states, *eps, *z_pol, *z_dyn, *mx, *isx, *my, *sy, *z_mm, *z_rr;
   float pol_upper, dyn_upper;
   float act_scale[kMaxU], act_bias[kMaxU];
@@ -192,7 +200,8 @@ bool fill_mlp(Net& net, const MlpArgs& a, int B) {
 
 bool fill_step(Step& st, const StepArgs* a) {
   if (!a || a->B < 2 || a->D < 1 || a->D > kMaxD || a->U < 1 || a->U > kMaxU
-      || a->ntip < 0 || a->ntip > kMaxTip)
+      || a->ntip < 0 || a->ntip > kMaxTip
+      || (a->reward_kind != kExpQuadReward && a->reward_kind != kQuadReward))
     return false;
   if (!fill_mlp(st.pol, a->pol, a->B) || !fill_mlp(st.dyn, a->dyn, a->B)) return false;
   const int D = a->D, U = a->U;
@@ -203,6 +212,7 @@ bool fill_step(Step& st, const StepArgs* a) {
   st.D = D;
   st.U = U;
   st.ntip = a->ntip;
+  st.reward_kind = a->reward_kind;
   st.states = a->states;
   st.eps = a->eps;
   st.z_pol = a->z_pol;

@@ -210,3 +210,32 @@ class ExpQuadTipReward:
         cost = 0.5 * (self.q_scale * torch.sum(delta ** 2, -1, keepdim=True)
                       + self.r_scale * torch.sum(u ** 2, -1, keepdim=True))
         return torch.exp(-cost)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadTipReward:
+    """-(q |delta|^2 + r |u|^2), the non-saturating quadratic cost of a tip
+    linear in the embedded state: delta = (tip_matrix x - target_tip) /
+    norm (differentiable; the rollout kernels' second reward kind). Takes
+    raw states (angle-embeds first) or embedded states, told apart by the
+    trailing dim.
+    """
+    tip_matrix: Tuple[Tuple[float, ...], ...]
+    target_tip: Tuple[float, ...]
+    q_scale: float
+    r_scale: float
+    raw_size: int
+    angle_dims: Tuple[int, ...] = ()
+    norm: float = 1.0
+
+    def __call__(self, x, u):
+        x = torch.atleast_2d(x)
+        u = torch.atleast_2d(u)
+        xa = to_complex(x, self.angle_dims) if x.shape[-1] == self.raw_size \
+            else x
+        m = device_constant(self.tip_matrix, x.device, x.dtype)
+        target = device_constant(tuple(self.target_tip), x.device, x.dtype)
+        # products and sums, not a matmul: exact for S's 0/1 entries
+        delta = (torch.sum(xa[..., None, :] * m, -1) - target) / self.norm
+        return -(self.q_scale * torch.sum(delta ** 2, -1, keepdim=True)
+                 + self.r_scale * torch.sum(u ** 2, -1, keepdim=True))

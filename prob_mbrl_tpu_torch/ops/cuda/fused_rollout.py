@@ -54,7 +54,7 @@ import math
 import numpy as np
 import torch
 
-from ...envs.base import ExpQuadTipReward
+from ...envs.base import ExpQuadTipReward, QuadTipReward
 from ...models.densities import DiagGaussianDensity
 from ...models.regressor import DynamicsModel
 from ...utils.core import tree_leaves, tree_map
@@ -67,6 +67,11 @@ MAX_U = 4        # kMaxU: action dims
 MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
 
 _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
+
+# the rewards the kernels take, at the index of their StepArgs::reward_kind
+# (csrc/rollout_step.cuh): kExpQuadReward, exp(-0.5 (q |d|^2 + r |a|^2)), and
+# kQuadReward, -(q |d|^2 + r |a|^2), both of d = (M nxt - target) / norm
+REWARD_KINDS = (ExpQuadTipReward, QuadTipReward)
 
 TIERS = ('full', 'remat', 'step', 'grid')
 _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
@@ -258,9 +263,10 @@ def kernel_refuses(dyn, pol):
     rf = dyn.reward_func
     if rf is None:
         return 'a learned reward is not in the step kernels yet'
-    if not isinstance(rf, ExpQuadTipReward) or rf.tip_matrix is None:
+    if reward_kind(rf) is None or rf.tip_matrix is None:
         return ('the step kernels take an ExpQuadTipReward whose tip is '
-                'linear in the embedded state (tip_matrix)')
+                'linear in the embedded state (tip_matrix), or a '
+                'QuadTipReward')
     if pol.angle_dims or reg.angle_dims:
         return 'angle embedding inside the models is not in the step kernels'
     for d in (pol.output_density, reg.output_density):
@@ -288,6 +294,13 @@ def kernel_refuses(dyn, pol):
     if step_plan(_mlp_dims(pol.mlp), _mlp_dims(reg.mlp), D, 2, True) is None:
         return 'the step kernels\' tiles do not fit in shared memory'
     return None
+
+
+def reward_kind(rf):
+    """``StepArgs::reward_kind`` of the reward ``rf`` (its index in
+    ``REWARD_KINDS``), or None for a reward the kernels do not take."""
+    return next((i for i, kind in enumerate(REWARD_KINDS)
+                 if isinstance(rf, kind)), None)
 
 
 def refuses(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
@@ -594,7 +607,8 @@ class _MlpArgs(ctypes.Structure):
 
 class _StepArgs(ctypes.Structure):
     """Mirror of ``StepArgs`` in ``csrc/rollout_step.cuh``."""
-    _fields_ = ([(n, ctypes.c_int) for n in ('B', 'D', 'U', 'ntip')]
+    _fields_ = ([(n, ctypes.c_int) for n in ('B', 'D', 'U', 'ntip',
+                                              'reward_kind')]
                 + [('pol', _MlpArgs), ('dyn', _MlpArgs)]
                 + [(n, ctypes.c_void_p) for n in (
                     'states', 'eps', 'z_pol', 'z_dyn', 'mx', 'isx', 'my',
@@ -799,6 +813,7 @@ class StepKernel:
             a.act_scale[k] = scale[k if len(scale) > 1 else 0]
             a.act_bias[k] = bias[k if len(bias) > 1 else 0]
         rf = dyn.reward_func
+        a.reward_kind = reward_kind(rf)
         a.ntip = len(rf.tip_matrix)
         for j, row in enumerate(rf.tip_matrix):
             a.target[j] = rf.target_tip[j]

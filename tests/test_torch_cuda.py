@@ -9,7 +9,9 @@ launch to launch, in a CUDA graph's replays, and with more clusters than
 the card holds), the whole rollout (loss, mean_return and the gradients wrt
 the policy params and action_eps, by the forward + backward kernels and by
 the one-launch value-and-grad), the grid rollout (disc, raw, vret,
-states_all and the VJP of cotangents of all four), one step of the
+states_all and the VJP of cotangents of all four), the last three on
+Cartpole (D = 5, U = 1), the double cartpole (D = 8, U = 1) and rendezvous
+(D = 8, U = 4, the quadratic reward), one step of the
 dynamics fit (loss and grads, logit_p's among them), the launch counters, the
 tier ``mc_pilco`` takes (``'grid'`` with a critic), and the wrappers'
 refusal to fall back when the kernels cannot be built.
@@ -22,10 +24,13 @@ JAX nor the JAX package, so on a machine without JAX they run with
 Tolerance, per output and relative to that output's own max|plain|:
 |kernel - plain| <= 1e-4 * max|plain| for the MLP's output and every
 gradient (float32 sums in another order; TF32 off on the plain side);
-1e-3 * max|plain| for the step and the rollout, whose 5x5 Cholesky and its
+1e-3 * max|plain| for the step and the rollout, whose DxD Cholesky and its
 adjoint amplify those differences, or 3x the plain version's own change when
 its states (x0 for the rollout) move by 1e-6 relative, whichever is larger
-(T chained resamples amplify them further). The grid rollout's gradient wrt
+(T chained resamples amplify them further); on rendezvous, rows 3-5's
+gradients are held by ``_hold_knife_edge`` against the free-running plain
+version, and elementwise against the plain version forced along the walk's
+own states. The grid rollout's gradient wrt
 action_eps, one entry per particle and step, is held by its 2-norm (within
 1e-3 of the plain version's) with at most 1 element in 1000 beyond the
 elementwise tolerance: a ReLU unit whose pre-activation lies within float32
@@ -36,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from prob_mbrl_tpu_torch import envs, models
 from prob_mbrl_tpu_torch.ops.cuda import build
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
@@ -185,36 +191,57 @@ def test_cuda_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
         fm.fused_mlp(x, ws, bs, ms, ('relu',))
 
 
-def _step(B, seed, hidden=(200, 200), nonlin='relu', kernel=False):
-    """One Cartpole rollout step (embedded D = 5, U = 1) with its inputs:
-    (kernel step, plain step, policy leaves, states, eps, cotangents), and
-    with ``kernel`` the ``StepKernel`` and the MM noise besides. The state
-    resample needs B > D (a full-rank particle covariance)."""
-    D, U = 5, 1
+# (D, U, reward kind) of the card cases of rows 3-9, and their envs: Cartpole
+# (embedded D = 5, the main path's), the double cartpole (embedded D = 8 =
+# kMaxD) and rendezvous (D = 8, U = 4 = kMaxU, four tip rows, the quadratic
+# reward); models, stats data and states are ``chip_smoke``'s, as phase 2b
+# makes them
+CARTPOLE = (5, 1, 'exp')
+QUAD = (8, 4, 'quad')
+ENV_OF = {CARTPOLE: 'Cartpole', (8, 1, 'exp'): 'DoubleCartpole',
+          QUAD: 'Rendezvous'}
+SHAPES = list(ENV_OF)
+SHAPE_IDS = ['-'.join(map(str, shape)) for shape in SHAPES]
+
+
+def _env_models(shape, hidden, nonlin='relu'):
+    """Dynamics and policy of the env of ``shape`` at these widths, with the
+    env's reward and action bounds."""
+    return cs.env_models(ENV_OF[shape], hidden, nonlin)[:2]
+
+
+def _stats_data(shape, rng):
+    """[100, D + U] inputs and [100, D] targets the whitening stats are fit
+    to."""
+    return cs.stats_data(ENV_OF[shape], rng, 100)
+
+
+def _env_states(shape, rng, B):
+    return cs.env_states(ENV_OF[shape], rng, B)
+
+
+def _step(B, seed, hidden=(200, 200), nonlin='relu', kernel=False,
+          shape=CARTPOLE):
+    """One rollout step of the env of ``shape`` (Cartpole: embedded D = 5,
+    U = 1) with its inputs: (kernel step, plain step, policy leaves, states,
+    eps, cotangents), and with ``kernel`` the ``StepKernel`` and the MM
+    noise besides. The state resample needs B > D (a full-rank particle
+    covariance)."""
+    D, U, _ = shape
     rng = np.random.RandomState(seed)
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn = models.DynamicsModel(models.Regressor(
-        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1),
-                       nonlin=nonlin),
-        models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
-    pol = models.Policy(models.MLPSpec(D, 2 * U, hidden,
-                                       dropout=models.bdropout(0.1),
-                                       nonlin=nonlin),
-                        models.DiagGaussianDensity(U), max_u=(10.0,))
+    dyn, pol = _env_models(shape, hidden, nonlin)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
     leaves = [p.requires_grad_(True) for p in tree_leaves(pp)]
-    stats = dyn.fit_stats(t(rng.randn(100, D + U) * [1, 2, 3, .7, .7, 5]),
-                          t(0.1 * rng.randn(100, D)))
+    stats = dyn.fit_stats(*map(t, _stats_data(shape, rng)))
     dn = dyn.sample_noise(gen, (B,), device='cuda')
     pn = pol.sample_noise(gen, (B,), device='cuda')
-    th = rng.uniform(-np.pi, np.pi, B)
-    states = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
-                         np.sin(th), np.cos(th)], 1))
+    states = t(_env_states(shape, rng, B))
     eps = t(0.1 * rng.randn(B, U))
     zm = standardize_noise(t(rng.randn(B, D)))
     zr = standardize_noise(t(rng.randn(B, 1)))
@@ -247,11 +274,12 @@ def _hold_step(kernel, plain, leaves, states, eps, cot):
 
 
 @pytest.mark.parametrize('B', [2, 37, 1030, 5761])
-def test_step_kernels_match_the_plain_step_on_the_card(cuda, B):
+@pytest.mark.parametrize('shape', SHAPES, ids=SHAPE_IDS)
+def test_step_kernels_match_the_plain_step_on_the_card(cuda, B, shape):
     """B = 5761: the batch the gate sends to the step tier on an H100 (one
     particle beyond what it holds of the whole rollout at once), ten row
     tiles a cluster in the backward."""
-    _hold_step(*_step(B, B))
+    _hold_step(*_step(B, B, shape=shape))
 
 
 @pytest.mark.parametrize('nonlin', ['tanh', 'swish'])
@@ -378,36 +406,27 @@ def test_step_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
         kernel(states, eps)
 
 
-def _rollout(B, seed, mean_only, T=15, hidden=(200, 200), nonlin='relu'):
-    """The whole rollout on Cartpole (embedded D = 5, U = 1) with its inputs:
-    (kernel loss, kernel value-and-grad, plain loss, policy leaves, args
-    after the policy params: x0, dynamics params, stats, noise, MM noise
-    stacks, action_eps)."""
-    D, U = 5, 1
+def _rollout(B, seed, mean_only, T=15, hidden=(200, 200), nonlin='relu',
+             shape=CARTPOLE):
+    """The whole rollout on the env of ``shape`` (Cartpole: embedded D = 5,
+    U = 1) with its inputs: (kernel loss, kernel value-and-grad, plain loss,
+    policy leaves, args after the policy params: x0, dynamics params, stats,
+    noise, MM noise stacks, action_eps)."""
+    D, U, _ = shape
     rng = np.random.RandomState(seed)
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn = models.DynamicsModel(models.Regressor(
-        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1),
-                       nonlin=nonlin),
-        models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
-    pol = models.Policy(models.MLPSpec(D, 2 * U, hidden,
-                                       dropout=models.bdropout(0.1),
-                                       nonlin=nonlin),
-                        models.DiagGaussianDensity(U), max_u=(10.0,))
+    dyn, pol = _env_models(shape, hidden, nonlin)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
     leaves = [p.requires_grad_(True) for p in tree_leaves(pp)]
-    stats = dyn.fit_stats(t(rng.randn(100, D + U) * [1, 2, 3, .7, .7, 5]),
-                          t(0.1 * rng.randn(100, D)))
+    stats = dyn.fit_stats(*map(t, _stats_data(shape, rng)))
     dn = dyn.sample_noise(gen, (B,), device='cuda')
     pn = pol.sample_noise(gen, (B,), device='cuda')
-    th = rng.uniform(-np.pi, np.pi, B)  # rewards from exp(-8) to 1
-    x0 = t(np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
-                     np.sin(th), np.cos(th)], 1))
+    x0 = t(_env_states(shape, rng, B))
     zm = fr.prepare_mm_noise(t(rng.randn(B, D)), T, B)
     zr = fr.prepare_mm_noise(t(rng.randn(B, 1)), T, B)
     eps = t(0.1 * rng.randn(T, B, U))
@@ -431,11 +450,77 @@ def _rollout_outputs(loss_fn, pp, leaves, args, x0_scale=1.0, g=(0.7, 1.3)):
     return [loss.detach(), mret.detach(), *grads]
 
 
+def _trajectories(shape, pp, args, x0_scale=1.0, T=15, hidden=(200, 200)):
+    """The post-MM states s_1 ... s_T [T, B, D] of the kernel's forward walk
+    (the grid forward's states_all: the walk of rows 3-5) and of the
+    free-running plain version, on ``_rollout``'s arguments."""
+    x0, dp, stats, dn, pn, zm, zr, eps = args
+    make = (*_env_models(shape, hidden), T, True, True)
+    gargs = [x0 * x0_scale, zm, zr, eps, dp, stats, dn, pn,
+             0.9 ** np.arange(T, dtype=np.float32), np.zeros(T)]
+    with torch.no_grad():
+        return tuple(fn(pp, *gargs)[3] for fn in (
+            fr.make_grid_rollout(*make), fr.make_grid_rollout_plain(*make)))
+
+
+def _forced_loss(shape, mean_only, states, T=15, hidden=(200, 200)):
+    """``make_loss_plain``'s loss (maximizing, discount 0.9) along the given
+    trajectory ``states`` [T, B, D]: step t runs the plain step from s_t and
+    its next state takes the value of states[t] through a straight-through
+    term, so the gradients are the plain step's VJPs chained along that
+    trajectory. Along the kernel's own trajectory every ReLU decides on the
+    states the kernel's did: a unit within float32 rounding of 0 cannot take
+    the other branch in one of the two versions, as it can against the
+    free-running plain version, whose states drift from the kernel's by
+    that rounding over T resamples."""
+    dyn, pol = _env_models(shape, hidden)
+    w_t = 0.9 ** np.arange(T)
+    step = fr.make_step_plain(dyn, pol, True, not mean_only)
+
+    def loss_fn(pp, x0, dp, stats, dn, pn, zm, zr, eps):
+        s, disc, raw = x0, 0.0, 0.0
+        for t in range(T):
+            nxt, r = step(pp, s, zm[t], zr[t], eps[t], dp, stats, dn, pn)
+            if mean_only:
+                r = r.mean(0, keepdim=True).expand_as(r)
+            disc = disc + float(w_t[t]) * r
+            raw = raw + r
+            s = nxt + (states[t] - nxt).detach()
+        return -disc.mean(), raw.mean(), ()
+
+    return loss_fn
+
+
+def _hold_knife_edge(a, r, moved, B):
+    """A gradient summed over B particles against the free-running plain
+    version, where a ReLU unit within the versions' drift of 0 may take the
+    other branch in one of them and move one particle's term (~max|r| / B)
+    of a few entries: a is finite, at most 1 entry in 50 lies beyond
+    ``_hold``'s tolerance (1e-3 max|r|, or 3 max|moved - r|), and none
+    beyond that tolerance plus 4 max|r| / B."""
+    assert torch.isfinite(a).all()
+    tol = max(1e-3 * float(r.abs().max()), 3 * float((moved - r).abs().max()))
+    err = (a - r).abs()
+    assert int((err > tol).sum()) * 50 <= a.numel()
+    assert float(err.max()) <= tol + 4 * float(r.abs().max()) / B
+
+
 @pytest.mark.parametrize('mean_only', [True, False])
 @pytest.mark.parametrize('B', [16, 37, 100, 1500])
+@pytest.mark.parametrize('shape', SHAPES, ids=SHAPE_IDS)
 def test_rollout_kernels_match_the_plain_version_on_the_card(cuda, B,
-                                                             mean_only):
-    kloss, kvg, plain, pp, leaves, args = _rollout(B, B, mean_only)
+                                                             mean_only,
+                                                             shape):
+    """Rows 3-5 against the free-running plain version: loss, mean_return
+    and the gradients, of the forward + backward kernels and of the
+    one-launch value-and-grad. Rendezvous's policy reads raw states of ~10,
+    and over 15 resamples the two versions' states drift apart by ~1e-4 in
+    a pre-activation: there the gradients are held by
+    ``_hold_knife_edge``, and elementwise against the plain version forced
+    along the walk's own states (``_forced_loss``; the walk's states, the
+    grid forward's, held against the plain version's)."""
+    kloss, kvg, plain, pp, leaves, args = _rollout(B, B, mean_only,
+                                                   shape=shape)
     got = _rollout_outputs(kloss, pp, leaves, args)
     ref = _rollout_outputs(plain, pp, leaves, args)
     moved = _rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
@@ -445,8 +530,30 @@ def test_rollout_kernels_match_the_plain_version_on_the_card(cuda, B,
                               g=(1.0, 0.0))[:-1]
     pairs = list(zip(got, ref, moved)) + list(zip(
         [vl, vm, *tree_leaves(vgrads)], vref, vmoved))
+    if shape != QUAD:
+        torch.cuda.synchronize()
+        for a, r, m in pairs:
+            _hold(a, r, 1e-3, m)
+        return
+    ks, ps = _trajectories(shape, pp, args)
+    ks_m, ps_m = _trajectories(shape, pp, args, 1 + 1e-6)
+    forced = [_rollout_outputs(_forced_loss(shape, mean_only, states), pp,
+                               leaves, args, scale, g)
+              for states, scale, g in ((ks, 1.0, (0.7, 1.3)),
+                                       (ks_m, 1 + 1e-6, (0.7, 1.3)),
+                                       (ks, 1.0, (1.0, 0.0)),
+                                       (ks_m, 1 + 1e-6, (1.0, 0.0)))]
     torch.cuda.synchronize()
-    for a, r, m in pairs:
+    n = len(got)  # loss, mean_return, then the gradients
+    for i, (a, r, m) in enumerate(pairs):
+        if i % n < 2:
+            _hold(a, r, 1e-3, m)
+        else:
+            _hold_knife_edge(a, r, m, B)
+    _hold(ks, ps, 1e-3, ps_m)
+    for a, r, m in (list(zip(got[2:], forced[0][2:], forced[1][2:]))
+                    + list(zip(tree_leaves(vgrads), forced[2][2:-1],
+                               forced[3][2:-1]))):
         _hold(a, r, 1e-3, m)
 
 
@@ -610,12 +717,13 @@ def test_rollout_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
         kvg(pp, *args)
 
 
-def _grid(B, seed, mm_states=True, mm_rewards=True, T=15, hidden=(200, 200)):
+def _grid(B, seed, mm_states=True, mm_rewards=True, T=15, hidden=(200, 200),
+          shape=CARTPOLE):
     """The grid rollout on ``_rollout``'s inputs: (kernel rollout, plain
     rollout, policy params, leaves, args, cotangents of the four outputs);
     args = [x0, z_mm, z_rr, eps, dynamics params, stats, noise, w_t, vw_t]."""
     _, _, _, pp, leaves, (x0, dp, stats, dn, pn, zm, zr, eps) = _rollout(
-        B, seed, False, T, hidden)
+        B, seed, False, T, hidden, shape=shape)
     rng = np.random.RandomState(seed + 1)
 
     def t(a):
@@ -623,23 +731,13 @@ def _grid(B, seed, mm_states=True, mm_rewards=True, T=15, hidden=(200, 200)):
 
     w_t = 0.9 ** np.arange(T, dtype=np.float32)
     vw_t = (T - 1 - np.arange(T)) / T  # 0 at the last step
-    make = (*models_of(hidden), T, mm_states, mm_rewards)
-    cot = [t(rng.randn(B, 1)) for _ in range(3)] + [t(rng.randn(T, B, 5))]
+    make = (*_env_models(shape, hidden), T, mm_states, mm_rewards)
+    cot = [t(rng.randn(B, 1)) for _ in range(3)] + [t(rng.randn(T, B,
+                                                                 shape[0]))]
     args = [x0, zm if mm_states else None, zr if mm_rewards else None, eps,
             dp, stats, dn, pn, w_t, vw_t]
     return (fr.make_grid_rollout(*make), fr.make_grid_rollout_plain(*make),
             pp, leaves, args, cot)
-
-
-def models_of(hidden):
-    D, U = 5, 1
-    dyn = models.DynamicsModel(models.Regressor(
-        models.MLPSpec(D + U, 2 * D, hidden, dropout=models.cdropout(0.1)),
-        models.DiagGaussianDensity(D)), reward_func=envs.cartpole_reward())
-    pol = models.Policy(models.MLPSpec(D, 2 * U, hidden,
-                                       dropout=models.bdropout(0.1)),
-                        models.DiagGaussianDensity(U), max_u=(10.0,))
-    return dyn, pol
 
 
 def _grid_outputs(fn, pp, leaves, args, cot, x0_scale=1.0):
@@ -657,9 +755,11 @@ def _grid_outputs(fn, pp, leaves, args, cot, x0_scale=1.0):
 @pytest.mark.parametrize('mm_states,mm_rewards', [(True, True),
                                                    (True, False)])
 @pytest.mark.parametrize('B', [16, 1000])
+@pytest.mark.parametrize('shape', SHAPES, ids=SHAPE_IDS)
 def test_grid_kernels_match_the_plain_version_on_the_card(cuda, B, mm_states,
-                                                          mm_rewards):
-    kern, plain, pp, leaves, args, cot = _grid(B, B, mm_states, mm_rewards)
+                                                          mm_rewards, shape):
+    kern, plain, pp, leaves, args, cot = _grid(B, B, mm_states, mm_rewards,
+                                               shape=shape)
     got = _grid_outputs(kern, pp, leaves, args, cot)
     ref = _grid_outputs(plain, pp, leaves, args, cot)
     moved = _grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
@@ -732,7 +832,7 @@ def test_mc_pilco_takes_the_grid_tier_with_a_critic_on_the_card(cuda):
     from prob_mbrl_tpu_torch.algorithms.value import (Adam,
                                                       make_value_update_fn)
     D, T, iters = 5, 4, 3
-    dyn, pol = models_of((32, 32))
+    dyn, pol = _env_models(CARTPOLE, (32, 32))
     V = models.Regressor(models.MLPSpec(D, 1, (32, 32),
                                         dropout=models.cdropout(0.1)))
     adam = Adam(1e-4)

@@ -1,8 +1,13 @@
-"""The port's Cartpole (dynamics, integrators, reward, gym-style env) against
+"""The port's envs (dynamics, integrators, rewards, gym-style envs) against
 the JAX package's, value and gradient, on states made with numpy from a seed.
 
-Tolerances: values rtol 1e-5/atol 1e-5; gradients rtol 1e-4/atol 1e-5
-(float32 transcendental functions of two libraries).
+Tolerances. Cartpole: values rtol 1e-5/atol 1e-5; gradients rtol 1e-4/atol
+1e-5 (float32 transcendental functions of two libraries). Pendulum and
+rendezvous: rtol 1e-5 with atol 1e-5 of the output's max|value|, values and
+gradients alike. Double cartpole and cart-acrobot: 1e-4 of the output's
+max|value| (the port solves the 3x3 system in closed form, JAX by LU with
+pivoting: the two round differently). Episodes are teacher-forced (each step
+starts from JAX's state), since the double pendulums are chaotic.
 """
 import jax
 import jax.numpy as jnp
@@ -102,8 +107,163 @@ def test_batch_step_matches_jax():
     _vg(je.batch_step, te.batch_step, x, u)
 
 
-def test_make_raises_for_unported_and_unknown_envs():
-    with pytest.raises(NotImplementedError):
-        tenvs.make('Pendulum')
-    with pytest.raises(KeyError):
-        tenvs.make('NoSuchEnv')
+# --- the other analytic envs --------------------------------------------
+
+# (rtol, atol as a share of max|ref|) of each env's values and gradients
+TOL = {'Pendulum': (1e-5, 1e-5), 'Rendezvous': (1e-5, 1e-5),
+       'DoubleCartpole': (0.0, 1e-4), 'CartAcrobot': (0.0, 1e-4)}
+# (model, reward) constructor names in each package's envs module
+PARTS = {'Pendulum': ('PendulumModel', 'pendulum_reward'),
+         'DoubleCartpole': ('DoubleCartpoleModel', 'double_cartpole_reward'),
+         'CartAcrobot': ('CartAcrobotModel', None),
+         'Rendezvous': ('RendezvousModel', 'RendezvousReward')}
+N = 64  # seeded states and actions per check
+
+
+def _parts(mod, name):
+    """(model, reward) of env ``name`` from the envs module ``mod``."""
+    model_name, reward_name = PARTS[name]
+    if name == 'CartAcrobot':
+        return (mod.CartAcrobotModel(),
+                mod.double_cartpole_reward(q_scale=8.0, r_scale=1e-4))
+    return getattr(mod, model_name)(), getattr(mod, reward_name)()
+
+
+def _env_states(name, seed, n=N):
+    """Raw states and actions: angles all round the circle, velocities of
+    a few units, actions over the env's whole range."""
+    rng = np.random.RandomState(seed)
+    if name == 'Pendulum':
+        x = np.stack([rng.uniform(-np.pi, np.pi, n), 3 * rng.randn(n)], 1)
+        u = rng.uniform(-2.5, 2.5, (n, 1))
+    elif name == 'Rendezvous':
+        x = np.concatenate([10 * rng.randn(n, 4), 2 * rng.randn(n, 4)], 1)
+        u = rng.uniform(-100, 100, (n, 4))
+    else:
+        x = np.stack([rng.randn(n), 2 * rng.randn(n),
+                      rng.uniform(-np.pi, np.pi, n), 3 * rng.randn(n),
+                      rng.uniform(-np.pi, np.pi, n), 3 * rng.randn(n)], 1)
+        umax = 20.0 if name == 'DoubleCartpole' else 1.0
+        u = rng.uniform(-umax, umax, (n, 1))
+    return x.astype(np.float32), u.astype(np.float32)
+
+
+def _hold(got, ref, tol, what):
+    ref = np.asarray(ref)
+    rtol, share = tol
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=share * float(np.abs(ref).max()),
+                               err_msg=what)
+
+
+def _vg_env(j_fn, t_fn, tol, *inputs, seed=3):
+    """Values and the VJP of a seeded cotangent w (input gradients of
+    sum(f * w): rewards reach ~1e4, where sin(f) would be all rounding),
+    held to ``tol``."""
+    xs = [jnp.asarray(a) for a in inputs]
+    shape = jax.eval_shape(j_fn, *xs).shape
+    w = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+    def j_loss(*xs):
+        y = j_fn(*xs)
+        return jnp.sum(y * w), y
+
+    (_, ref), jg = jax.jit(jax.value_and_grad(
+        j_loss, argnums=tuple(range(len(inputs))), has_aux=True))(*xs)
+    ts = [torch.tensor(a, requires_grad=True) for a in inputs]
+    out = t_fn(*ts)
+    tg = torch.autograd.grad(torch.sum(out * torch.tensor(w)), ts)
+    _hold(out.detach().numpy(), ref, tol, 'value')
+    for i, (a, b) in enumerate(zip(tg, jg)):
+        _hold(a.numpy(), b, tol, f'gradient wrt input {i}')
+
+
+@pytest.mark.parametrize('method', ['dynamics', jenvs.Integrator.FW_EULER,
+                                    jenvs.Integrator.MIDPOINT,
+                                    jenvs.Integrator.RUNGE_KUTTA])
+@pytest.mark.parametrize('name', list(PARTS))
+def test_env_dynamics_and_integrate_match_jax(name, method):
+    (jm, _), (tm, _) = _parts(jenvs, name), _parts(tenvs, name)
+    x, u = _env_states(name, 10)
+    if method == 'dynamics':
+        _vg_env(jm.dynamics, tm.dynamics, TOL[name], x, u)
+        return
+    tmethod = tenvs.Integrator(int(method))
+    _vg_env(lambda x, u: jenvs.integrate(jm.dynamics, x, u, jm.dt, method),
+            lambda x, u: tenvs.integrate(tm.dynamics, x, u, tm.dt, tmethod),
+            TOL[name], x, u)
+
+
+@pytest.mark.parametrize('name', list(PARTS))
+def test_env_reward_matches_jax_raw_and_embedded(name):
+    (_, jr), (_, tr) = _parts(jenvs, name), _parts(tenvs, name)
+    x, u = _env_states(name, 11)
+    _vg_env(jr, tr, TOL[name], x, u)  # raw: the tip rewards embed first
+    dims = tenvs.make(name, device='cpu').angle_dims
+    if dims:
+        xa = np.asarray(jenvs.base.to_complex(x, dims))
+        _vg_env(jr, tr, TOL[name], xa, u)
+
+
+@pytest.mark.parametrize('name', list(PARTS))
+def test_tip_matrix_is_the_tip(name):
+    """The matrix the kernels take is the reward's own tip (for rendezvous
+    the relative state S x)."""
+    _, rf = _parts(tenvs, name)
+    x, _ = _env_states(name, 12)
+    env = tenvs.make(name, device='cpu')
+    xa = torch.tensor(np.asarray(tenvs.base.to_complex(x, env.angle_dims)))
+    got = xa @ torch.tensor(rf.tip_matrix).t()
+    if name == 'Rendezvous':
+        want = torch.cat([xa[:, :2], xa[:, 4:6]], -1) - torch.cat(
+            [xa[:, 2:4], xa[:, 6:8]], -1)
+    else:
+        want = rf.tip_fn(xa)
+    assert tuple(got.shape) == (N, len(rf.tip_matrix))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize('name', list(PARTS))
+def test_env_episode_matches_jax_teacher_forced(name):
+    """Same seed, same actions: the reset observation, then each step from
+    JAX's state at t gives the same observation (measurement noise drawn
+    from the same seeded RNG) and reward; spaces and sizes agree."""
+    je, te = jenvs.make(name), tenvs.make(name, device='cpu')
+    je.seed(5)
+    te.seed(5)
+    np.testing.assert_allclose(te.reset(), je.reset(), rtol=1e-6, atol=1e-7)
+    rng = np.random.RandomState(6)
+    high = je.action_space.high
+    for _ in range(12):
+        te.state = np.array(je.state)
+        u = rng.uniform(-high, high)
+        jo, jr, jd, _ = je.step(u)
+        to, tr, td, _ = te.step(u)
+        _hold(to, jo, TOL[name], 'observation')
+        _hold(tr, jr, TOL[name], 'reward')
+        assert td == jd
+    assert te.observation_size == je.observation_size
+    assert te.action_size == je.action_size
+    np.testing.assert_array_equal(te.action_space.high, je.action_space.high)
+    np.testing.assert_array_equal(te.observation_space.high,
+                                  je.observation_space.high)
+
+
+@pytest.mark.parametrize('name', ['Cartpole', 'Pendulum', 'DoubleCartpole',
+                                  'CartAcrobot', 'Rendezvous', 'LunarLander',
+                                  'NoSuchEnv'])
+def test_make_raises_for_unported_and_unknown_envs(name):
+    """``make`` builds the analytic envs of JAX's registry, raises
+    NotImplementedError naming the roadmap item for the lander and KeyError
+    for a name JAX does not register."""
+    if name == 'LunarLander':
+        with pytest.raises(NotImplementedError, match='Other envs'):
+            tenvs.make(name)
+    elif name == 'NoSuchEnv':
+        with pytest.raises(KeyError):
+            tenvs.make(name)
+    else:
+        env = tenvs.make(name, device='cpu')
+        assert type(env).__name__ == name
+        assert type(env).__name__ == type(jenvs.make(name)).__name__
