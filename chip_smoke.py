@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``prob_mbrl_tpu_torch``) on one NVIDIA
 card: builds the CUDA kernels from ``prob_mbrl_tpu_torch/csrc``, holds each
 against its plain PyTorch version (on Cartpole's shapes, then on those of
-the other analytic envs), drives MC-PILCO policy optimisation on Cartpole at
+the other envs), drives MC-PILCO policy optimisation on Cartpole at
 full width through the kernels, on each of its routes, then three
 Deep-PILCO episodes through the driver on Cartpole and one on each of the
-other four analytic envs.
+other four analytic envs and on the lunar lander, whose run is then
+replayed by ``evaluate_policy``.
 
     python3 chip_smoke.py
 
@@ -43,15 +44,20 @@ Phases (any failure exits non-zero and prints no result line):
      adjoint, recompute, VJP + dW accumulation, final sums) of the grid
      kernels at B = 1000 and of the one-launch value-and-grad at B = 100,
      each with its launch plan.
-  2b. rows 3-9 at the other analytic envs' shapes ([200, 200] MLPs, seeded
+  2b. rows 3-9 at the other envs' shapes ([200, 200] MLPs, seeded
      weights, states whose angles span the circle): the double cartpole
      (embedded D = 8, U = 1, exp-quadratic tip reward), rendezvous (D = 8,
      U = 4, four tip rows, the negative quadratic reward, rewards ~ -10^2 to
-     -5 10^4) and the pendulum (D = 3); the step (rows 6-7) and the whole
-     rollout (rows 3-5, reward mean-only on and off) at B = 100, T = 15,
-     the grid kernels (rows 8-9) at B = 1000, states and rewards
-     moment-matched, each output held as in phase 2; at D = 8 each row's
-     time, plain time and bound printed beside phase 2's D = 5 ones.
+     -5 10^4), the pendulum (D = 3) and the differentiable lunar lander
+     (``JaxLunarLander``, built directly: D = 8, U = 2, the lander's reward,
+     reward kind 2), the lander a second time with its policy saturated so
+     that the actions sit exactly on the reward's kinks (+-1, the clip's
+     ties, and the gates' edges, some |a1| 2^-12 from 0.5); the step (rows
+     6-7) and the whole rollout (rows 3-5, reward mean-only on and off) at
+     B = 100, T = 15, the grid kernels (rows 8-9) at B = 1000, states and
+     rewards moment-matched, each output held as in phase 2; at D = 8 each
+     row's time, plain time and bound printed beside phase 2's D = 5 ones
+     and the card's name and power limit.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -99,14 +105,23 @@ Phases (any failure exits non-zero and prints no result line):
      device-busy share over 50 steps under torch.profiler.
   9. the envs: one episode of phase 8's driver, widths and cuts (2000 fit
      steps, 200 policy iterations, 40 control steps, seed 1) on each of
-     Pendulum, DoubleCartpole, CartAcrobot and Rendezvous (``-e``): every
-     value finite, E_lml rising within the fit, launch counts exactly
-     fused-MLP forward 2000 + 40, backward 2000 and ``fused_rollout_vg``
-     200, the gate's tier ``'full'``; from the checkpoint one fit step
-     (loss and every grad within 1e-4 of its max|plain|) and one policy
-     iteration through row 5 (loss and grads within the plain path's
-     sensitivity, at least 1e-4 of |loss| and 1e-3 of max|grad|) against
-     their plain paths; ms a fit step and a policy iteration per env.
+     Pendulum, DoubleCartpole, CartAcrobot, Rendezvous and LunarLander
+     (``-e``; the class ``make('LunarLander')`` gives is printed: the
+     differentiable lander without Box2D, as the JAX registry has it, else
+     the Box2D one): every value finite, E_lml rising within the fit, the
+     gate's tier ``'full'`` and launch counts exactly fused-MLP forward
+     2000 + the control steps taken (40, or fewer where the lander's
+     episode ends), backward 2000 and ``fused_rollout_vg`` 200 (on the
+     Box2D lander, which has no reward function, the driver learns the
+     reward: the ``utils.rollout`` route, and 2 T fused-MLP launches each
+     way a policy iteration instead); from the checkpoint one fit step
+     (loss and every grad within 1e-4 of its max|plain|) and, on 'full',
+     one policy iteration through row 5 (loss and grads within the plain
+     path's sensitivity, at least 1e-4 of |loss| and 1e-3 of max|grad|)
+     against their plain paths; ms a fit step and a policy iteration per
+     env; then the lander's run replayed by ``evaluate_policy.evaluate``
+     once a snapshot on the card (one finite return per snapshot, no
+     matplotlib imported).
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; the others phase 4,
@@ -136,6 +151,7 @@ from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
 from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
 from prob_mbrl_tpu_torch.examples import deep_pilco_common as dpc
 from prob_mbrl_tpu_torch.examples import deep_pilco_mm as dpm
+from prob_mbrl_tpu_torch.examples import evaluate_policy
 from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
                                         MLPSpec, Policy, Regressor, bdropout,
                                         cdropout)
@@ -178,7 +194,8 @@ VALUE_ITERS = 100  # mc_pilco iterations of the value path
 ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
 # phase 2b: rows 3-9 at these envs' shapes (rows 3-7 at B = MAIN_B, rows 8-9
 # at B = GRID_B), each row timed at D = 8
-ENV_KERNEL_ENVS = ('DoubleCartpole', 'Rendezvous', 'Pendulum')
+ENV_KERNEL_ENVS = ('DoubleCartpole', 'Rendezvous', 'Pendulum',
+                   'JaxLunarLander')
 SEED = 1
 # phase 8, the episode: the deep_pilco_mm driver at its full widths and
 # default fit, with the episodes cut from 100 to 3 and the policy
@@ -195,7 +212,8 @@ EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
                 '--pol_shape', '200,200']
 BUSY_STEPS = 50  # fit steps under torch.profiler
 # phase 9: one episode of the same driver and cuts on each of these envs
-ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous')
+ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous',
+                    'LunarLander')
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
 # max|plain| (float32 products summed in another order; no TF32 on either
 # side); the step and the rollout STEP_TOL * max|plain|, or the plain
@@ -494,11 +512,14 @@ def phase_mlp_kernels():
 def env_models(env, hidden=(200, 200), nonlin='relu'):
     """The Deep-PILCO drivers' default models ([200, 200] relu MLPs, or
     these widths and activations) for ``env``, with its reward and action
-    bounds: (dyn, pol, D, U)."""
+    bounds: (dyn, pol, D, U). ``'JaxLunarLander'`` is the differentiable
+    lander, built directly (``make('LunarLander')`` gives the Box2D lander
+    where Box2D is installed)."""
     if env == 'Cartpole':
         return build_models(5, 1, (10.0,), envs.cartpole_reward(), hidden,
                             nonlin) + (5, 1)
-    e = envs.make(env, device='cpu')
+    e = (envs.JaxLunarLander(device='cpu') if env == 'JaxLunarLander'
+         else envs.make(env, device='cpu'))
     D, U = e.observation_size, e.action_size
     return build_models(D, U, [float(v) for v in e.action_space.high],
                         e.reward_func, hidden, nonlin) + (D, U)
@@ -515,8 +536,9 @@ def stats_data(env, rng, n=200):
     scale = {'Cartpole': [1, 2, 3, 0.7, 0.7, 5],
              'Pendulum': [3, 0.7, 0.7, 2.5],
              'DoubleCartpole': [1, 2, 3, 3, 0.7, 0.7, 0.7, 0.7, 20],
-             'Rendezvous': [10] * 4 + [1] * 4 + [100] * 4}[env]
-    D = len(scale) - (4 if env == 'Rendezvous' else 1)
+             'Rendezvous': [10] * 4 + [1] * 4 + [100] * 4,
+             'JaxLunarLander': [0.5] * 4 + [0.3, 0.5, 0.5, 0.5, 1, 1]}[env]
+    D = len(scale) - {'Rendezvous': 4, 'JaxLunarLander': 2}.get(env, 1)
     return rng.randn(n, len(scale)) * scale, 0.1 * rng.randn(n, D)
 
 
@@ -525,9 +547,17 @@ def env_states(env, rng, B):
     rewards from exp(-8), hanging, to 1; the pendulum; both poles of the
     double cartpole), or rendezvous's positions ~10 and velocities ~1
     (relative-state costs ~10^2 to 10^3; with the untrained policy's forces
-    of up to 100 a dim, rewards down to ~-5 10^4)."""
+    of up to 100 a dim, rewards down to ~-5 10^4), or the lander's states
+    (``'JaxLunarLander'``)."""
     if env == 'Rendezvous':
         return np.concatenate([10 * rng.randn(B, 4), rng.randn(B, 4)], 1)
+    if env == 'JaxLunarLander':
+        # over the pad and beside it, moving, tilted, legs in and out of
+        # contact
+        return np.stack([rng.uniform(-1, 1, B), rng.uniform(0, 1.4, B),
+                         0.5 * rng.randn(B), 0.5 * rng.randn(B),
+                         0.3 * rng.randn(B), 0.5 * rng.randn(B),
+                         rng.uniform(0, 1, B), rng.uniform(0, 1, B)], 1)
     if env == 'Cartpole':
         th = rng.uniform(-np.pi, np.pi, B)
         return np.stack([0.3 * rng.randn(B), rng.randn(B), rng.randn(B),
@@ -540,13 +570,42 @@ def env_states(env, rng, B):
                            np.sin(th), np.cos(th)], 1)
 
 
-def step_problem(B, seed, env='Cartpole'):
+# the lander's saturated problems (phase 2b): the policy's mean outputs
+# biased to SATURATE_BIAS, so that tanh gives actions of exactly 1 (torch's
+# tanh and the kernels' tanhf alike), and action noise from TIE_EPS, per
+# action dim, so that a = 1 + eps lands on the reward's kinks: a0 on 1 and -1
+# (the clip's ties), 0 (the main gate's edge), inside and beyond; a1 on 1 and
+# -1, on 0.5 and -0.5 (the side gate's edges), 2^-12 either side of 0.5,
+# inside and beyond
+SATURATE_BIAS = 60.0
+TIE_EPS = ((0.0, -2.0, -0.5, 0.5, -1.0, -0.25),
+           (0.0, -2.0, -0.5, -1.5, -0.5 - 2 ** -12, -0.5 + 2 ** -12, 0.5,
+            -1.25))
+
+
+def saturate(pol_params, U):
+    """Bias the policy's U mean outputs to SATURATE_BIAS, in place."""
+    with torch.no_grad():
+        pol_params['mlp']['linear_out']['b'][:U] = SATURATE_BIAS
+
+
+def tie_eps(seed, shape):
+    """Action noise of ``shape`` [..., 2], each dim's entries drawn from
+    its TIE_EPS."""
+    rng = np.random.RandomState(seed)
+    return np.stack([rng.choice(TIE_EPS[k], shape[:-1]) for k in range(2)],
+                    -1)
+
+
+def step_problem(B, seed, env='Cartpole', saturated=False):
     """One rollout step at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1), its inputs made from a seed.
     The state resample needs a full-rank particle covariance, B > D: below
     that its factor is float32 rounding noise (ROADMAP Queue 3), so B = 2
-    resamples the rewards only. Returns (kernel step, plain step, policy
-    leaves, states, eps, (g_nxt, g_r), timing inputs)."""
+    resamples the rewards only. ``saturated`` (the lander): the policy
+    saturated and the actions on the reward's kinks (``saturate``,
+    ``tie_eps``). Returns (kernel step, plain step, policy leaves, states,
+    eps, (g_nxt, g_r), timing inputs)."""
     rng = np.random.RandomState(seed)
 
     def t(a):
@@ -557,12 +616,16 @@ def step_problem(B, seed, env='Cartpole'):
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
     pol_params = pol.init(gen, device='cuda')
+    if saturated:
+        saturate(pol_params, U)
     leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
     stats = dyn.fit_stats(*map(t, stats_data(env, rng)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
     states = t(env_states(env, rng, B))
     eps = t(0.1 * rng.randn(B, U))
+    if saturated:
+        eps = t(tie_eps(seed + 2, (B, U)))
     z_mm = standardize_noise(t(rng.randn(B, D)))
     z_rr = standardize_noise(t(rng.randn(B, 1)))
     cot = (t(rng.randn(B, D)), t(rng.randn(B, 1)))
@@ -657,11 +720,12 @@ def step_timings(B, env='Cartpole'):
     return t, step_plans(k)
 
 
-def check_step(B, env='Cartpole', tag='phase 2'):
+def check_step(B, env='Cartpole', tag='phase 2', saturated=False):
     """The step kernels against the plain step at batch B on ``env``'s
-    shapes (``phase_step_kernels``' tolerance); the largest error of each."""
+    shapes (``phase_step_kernels``' tolerance; ``saturated`` as
+    ``step_problem``); the largest error of each."""
     kernel, plain, leaves, states, eps, cot, (k, _, _) = step_problem(
-        B, seed=B, env=env)
+        B, seed=B, env=env, saturated=saturated)
     got = step_outputs(kernel, leaves, states, eps, cot)
     ref = step_outputs(plain, leaves, states, eps, cot)
     moved = step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
@@ -677,6 +741,8 @@ def check_step(B, env='Cartpole', tag='phase 2'):
         here[kern] = max(here[kern], err)
         rel, loose = max(rel, r_err), max(loose, r_tol)
     state_mm = 'on' if B > k.D else 'off'
+    if saturated:
+        env = f'{env} saturated'
     log(f'[{tag}] {env} (D={k.D}, U={k.U}) rollout step B={B} (state MM '
         f'{state_mm}; max|r| {float(ref[1].abs().max()):.4g}): kernel vs '
         f'plain max abs err fwd {here["fused_step_fwd"]:.3e} bwd '
@@ -712,12 +778,14 @@ def phase_step_kernels():
     return rows
 
 
-def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole'):
+def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
+                    saturated=False):
     """The whole rollout at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1; states and rewards
-    moment-matched, discount 0.9), its inputs made from a seed. Returns
-    (kernel loss, kernel value-and-grad, plain loss, policy params, policy
-    leaves, the arguments after the policy params, (dyn, pol, w_t))."""
+    moment-matched, discount 0.9), its inputs made from a seed
+    (``saturated`` as ``step_problem``). Returns (kernel loss, kernel
+    value-and-grad, plain loss, policy params, policy leaves, the arguments
+    after the policy params, (dyn, pol, w_t))."""
     rng = np.random.RandomState(seed)
 
     def t(a):
@@ -728,6 +796,8 @@ def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole'):
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
     pol_params = pol.init(gen, device='cuda')
+    if saturated:
+        saturate(pol_params, U)
     leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
     stats = dyn.fit_stats(*map(t, stats_data(env, rng)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
@@ -738,6 +808,8 @@ def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole'):
     z_mm = fr.prepare_mm_noise(t(rng.randn(B, D)), T, B)
     z_rr = fr.prepare_mm_noise(t(rng.randn(B, 1)), T, B)
     eps = t(0.1 * rng.randn(T, B, U))
+    if saturated:
+        eps = t(tie_eps(seed + 2, (T, B, U)))
     w_t = 0.9 ** np.arange(T, dtype=np.float32)
     make = (dyn, pol, T, w_t, True, True, True)
     kw = dict(mm_rewards_mean_only=mean_only)
@@ -884,12 +956,13 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
                                T * f_bwd)}
 
 
-def check_rollout(B, mean_only, env='Cartpole', tag='phase 2'):
+def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
+                  saturated=False):
     """The whole-rollout kernels against the plain version at batch B on
-    ``env``'s shapes (``phase_rollout_kernels``' tolerance); the largest
-    error of each."""
+    ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated`` as
+    ``step_problem``); the largest error of each."""
     kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(
-        B, B, mean_only, env=env)
+        B, B, mean_only, env=env, saturated=saturated)
     got = rollout_outputs(kloss, pp, leaves, args)
     ref = rollout_outputs(plain, pp, leaves, args)
     moved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
@@ -911,9 +984,16 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2'):
     names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
     here = {nm: 0.0 for nm in names}
     rel = loose = 0.0
+    # the lander's d action_eps per particle and step: a ReLU unit of the
+    # dynamics within float32 rounding of 0 moves one particle's entries
+    # alone (seen at B = 1500, saturated), held as the grid's (hold_rows)
+    eps_by_rows = env == 'JaxLunarLander'
+    if saturated:
+        env = f'{env} saturated'
     for kern, lab, a, r, m in checks:
-        err, r_err, r_tol = hold(f'{env} rollout B={B} {kern} {lab}', a, r,
-                                 STEP_TOL, m)
+        check = hold_rows if eps_by_rows and lab == 'd eps' else hold
+        err, r_err, r_tol = check(f'{env} rollout B={B} {kern} {lab}', a, r,
+                                  STEP_TOL, m)
         here[kern] = max(here[kern], err)
         rel, loose = max(rel, r_err), max(loose, r_tol)
     log(f'[{tag}] {env} rollout B={B} T={MAIN_T} (reward mean-only '
@@ -950,13 +1030,13 @@ def phase_rollout_kernels():
 
 
 def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
-                 env='Cartpole'):
+                 env='Cartpole', saturated=False):
     """The grid rollout on ``rollout_problem``'s inputs: (kernel rollout,
     plain rollout, policy params, leaves, the rollout's arguments after the
     policy params, cotangents of disc, raw, vret and states_all, (dyn, pol,
     w_t, vw_t)); vret weighs step t by (T - 1 - t) / T."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        B, seed, False, T, env=env)
+        B, seed, False, T, env=env, saturated=saturated)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     rng = np.random.RandomState(seed + 1)
 
@@ -1053,13 +1133,15 @@ def grid_timings(B, split=False, env='Cartpole'):
     return t, parts
 
 
-def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2'):
+def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
+               saturated=False):
     """The grid kernels against the plain grid rollout at batch B on
     ``env``'s shapes, states moment-matched (``phase_grid_kernels``'
-    tolerance); the largest error of each."""
+    tolerance; ``saturated`` as ``step_problem``); the largest error of
+    each."""
     names = ['fused_grid_fwd', 'fused_grid_bwd']
-    kern, plain, pp, leaves, args, cot, _ = grid_problem(B, B, True,
-                                                         mm_rewards, env=env)
+    kern, plain, pp, leaves, args, cot, _ = grid_problem(
+        B, B, True, mm_rewards, env=env, saturated=saturated)
     got = grid_outputs(kern, pp, leaves, args, cot)
     ref = grid_outputs(plain, pp, leaves, args, cot)
     moved = grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
@@ -1068,6 +1150,8 @@ def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2'):
               + [f'd pol leaf {i}' for i in range(len(leaves))] + ['d eps'])
     here = {n: 0.0 for n in names}
     rel = loose = 0.0
+    if saturated:
+        env = f'{env} saturated'
     for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
         kern_name = names[0] if i < 4 else names[1]
         check = hold_rows if lab == 'd eps' else hold
@@ -1115,20 +1199,30 @@ def phase_grid_kernels():
 # ---------------------------------------------------------------------------
 
 
-def phase_env_kernels(rows):
+def phase_env_kernels(rows, card):
     """Rows 3-9 against their plain versions (``hold``, ``hold_rows``) at the
     shapes of the envs beside Cartpole, states and rewards moment-matched:
     the double cartpole (embedded D = 8 = kMaxD, U = 1, the exp-quadratic tip
     reward), rendezvous (D = 8, U = 4 = kMaxU, four tip rows, the quadratic
-    reward) and the pendulum (D = 3). Rows 6-7 and 3-5 at B = 100, T = 15
+    reward), the pendulum (D = 3) and the differentiable lander (D = 8,
+    U = 2, the lander's reward, kind 2; built directly, whatever ``make``
+    gives), the lander once more saturated (``step_problem``: actions
+    exactly on the reward's kinks). Rows 6-7 and 3-5 at B = 100, T = 15
     (3-5 with the reward mean-only shortcut and without), rows 8-9 at
     B = 1000. At D = 8 each row's time, its bound and its plain version's
-    time beside the D = 5 time of phase 2 (``rows``) from this call."""
+    time beside the D = 5 time of phase 2 (``rows``) from this call and the
+    card's name and power limit (``card``)."""
     for env in ENV_KERNEL_ENVS:
         check_step(MAIN_B, env, 'phase 2b')
         for mean_only in (True, False):
             check_rollout(MAIN_B, mean_only, env, 'phase 2b')
         check_grid(GRID_B, True, env, 'phase 2b')
+        if env == 'JaxLunarLander':
+            check_step(MAIN_B, env, 'phase 2b', saturated=True)
+            for mean_only in (True, False):
+                check_rollout(MAIN_B, mean_only, env, 'phase 2b',
+                              saturated=True)
+            check_grid(GRID_B, True, env, 'phase 2b', saturated=True)
         _, _, D, U = env_models(env)
         if D != fr.MAX_D:
             continue
@@ -1145,7 +1239,7 @@ def phase_env_kernels(rows):
                 f'{rows[name]["ms"]:.4f} ms; plain {v["plain_ms"]:.4f} ms '
                 f'(Cartpole {rows[name]["plain_ms"]:.4f}); bound '
                 f'{v["bound_ms"]:.6f} ms ({v["bound_by"]}; Cartpole '
-                f'{rows[name]["bound_ms"]:.6f})')
+                f'{rows[name]["bound_ms"]:.6f}); {card}')
 
 
 # ---------------------------------------------------------------------------
@@ -1592,6 +1686,19 @@ def flat_leaves(tree, prefix=''):
     return [(prefix, tree)]
 
 
+def driver_models(args):
+    """The env ``args.env`` on the card and the models the driver builds
+    for it: (env, dyn, pol), the reward learned where the env has none
+    (the Box2D lander) or ``--learn_reward`` asks."""
+    env = envs.make(args.env, device='cuda')
+    rf = getattr(env, 'reward_func', None)
+    dyn, pol = dpc.build_models(
+        env.observation_size, env.action_size, env.action_space.high,
+        env.action_space.low, args, args.learn_reward or not callable(rf),
+        rf)
+    return env, dyn, pol
+
+
 def episode_fit_checks(results, args, tag='phase 8', profile=True):
     """From the run's checkpoint (experience and dynamics params): one fit
     step of the kernel path against the plain path (fused=False) on the same
@@ -1600,12 +1707,10 @@ def episode_fit_checks(results, args, tag='phase 8', profile=True):
     device-busy share over BUSY_STEPS steps under torch.profiler."""
     exp = ExperienceDataset()
     ck = load_checkpoint(results, exp=exp, device='cuda')
+    _, dyn, _ = driver_models(args)
     X, Y = (torch.as_tensor(a, device='cuda')
-            for a in exp.get_dynmodel_dataset(deltas=True))
-    env = envs.make(args.env, device='cuda')
-    dyn, _ = dpc.build_models(
-        env.observation_size, env.action_size, env.action_space.high,
-        env.action_space.low, args, False, env.reward_func)
+            for a in exp.get_dynmodel_dataset(
+                deltas=True, return_costs=dyn.reward_func is None))
     Xn, Yn = normalize_dataset(dyn.fit_stats(X, Y), X, Y)
     n, B = Xn.shape[0], args.dyn_batch_size
     gen = seeded_generator('cuda', SEED, 8)
@@ -1669,10 +1774,7 @@ def episode_policy_check(results, args, tag):
     ck = load_checkpoint(results, exp=exp, device='cuda')
     X, Y = (torch.as_tensor(a, device='cuda')
             for a in exp.get_dynmodel_dataset(deltas=True))
-    env = envs.make(args.env, device='cuda')
-    dyn, pol = dpc.build_models(
-        env.observation_size, env.action_size, env.action_space.high,
-        env.action_space.low, args, False, env.reward_func)
+    _, dyn, pol = driver_models(args)
     stats = dyn.fit_stats(X, Y)
     pool = np.concatenate([np.asarray(ep, np.float32) for ep in exp.states])
     pol_params = tree_map(lambda p: p.requires_grad_(True), ck['pol'])
@@ -1698,8 +1800,14 @@ def run_episodes(argv, episodes, tag, checks):
     """The torch ``deep_pilco_mm`` driver (``main`` through its parser and
     the entry point's settings) with ``argv`` into a temporary folder under
     ``build/``, every count set to 0 just before it. Checks every value
-    finite, E_lml rising within each fit, the exact launch counts and the
-    tier the gate names for the driver's configuration (``'full'``); then
+    finite, E_lml rising within each fit, the tier the gate names for the
+    driver's configuration (``'full'`` where the env gives the reward, None
+    for the ``utils.rollout`` route where the driver learns it) and that
+    route's exact launch counts: fused-MLP forward one a fit step and one a
+    control step taken (the lander may end an episode early; counted from
+    the experience), backward one a fit step, and ``fused_rollout_vg`` one a
+    policy iteration on ``'full'``, or 2 T fused-MLP forward and backward
+    launches a policy iteration on the ``utils.rollout`` route; then
     ``checks(results folder, args)`` on its checkpoint. Returns the launch
     counts and the per-episode records."""
     root = Path(__file__).resolve().parent / 'build'
@@ -1738,27 +1846,34 @@ def run_episodes(argv, episodes, tag, checks):
             if not last > first:
                 raise AssertionError(f'E_lml did not rise in the fit of '
                                      f'episode {r["episode"]}')
-        want = expect(fused_mlp_fwd=episodes * (FIT_ITERS + CONTROL_H),
-                      fused_mlp_bwd=episodes * FIT_ITERS,
-                      fused_rollout_vg=episodes * EPISODE_POL_ITERS)
-        log(f'[{tag}] {episodes} episode(s) in {wall:.3f} s; launches '
-            f'{launches} (expected {want})')
-        if launches != want:
-            raise AssertionError('launch counts of the episode run differ')
         args = dpc.get_argument_parser().parse_args(argv)
         for k, v in dpm.SETTINGS['arg_overrides'].items():
             setattr(args, k, v)
-        env = envs.make(args.env, device='cuda')
-        dyn, pol = dpc.build_models(
-            env.observation_size, env.action_size, env.action_space.high,
-            env.action_space.low, args, False, env.reward_func)
+        _, dyn, pol = driver_models(args)
         cfg = MCPILCOConfig(n_particles=args.pol_batch_size, steps=args.pred_H,
                             mm_states=True, mm_rewards=True)
         tier = make_mc_pilco_fn(dyn, pol, cfg, 'cuda').tier('cuda')
+        learned = dyn.reward_func is None
         log(f'[{tag}] the tier mc_pilco takes for the driver\'s '
             f'configuration: {tier!r}')
-        if tier != 'full':
-            raise AssertionError(f'the gate names {tier!r}, expected \'full\'')
+        if tier != (None if learned else 'full'):
+            raise AssertionError(f'the gate names {tier!r}')
+        exp = ExperienceDataset()
+        exp.load(str(Path(results) / 'experience.pkl'))
+        steps = sum(len(ep) for ep in exp.states)
+        pol_iters = episodes * EPISODE_POL_ITERS
+        if learned:
+            route = 2 * args.pred_H * pol_iters
+            want = expect(fused_mlp_fwd=episodes * FIT_ITERS + steps + route,
+                          fused_mlp_bwd=episodes * FIT_ITERS + route)
+        else:
+            want = expect(fused_mlp_fwd=episodes * FIT_ITERS + steps,
+                          fused_mlp_bwd=episodes * FIT_ITERS,
+                          fused_rollout_vg=pol_iters)
+        log(f'[{tag}] {episodes} episode(s) in {wall:.3f} s, {steps} control '
+            f'steps taken; launches {launches} (expected {want})')
+        if launches != want:
+            raise AssertionError('launch counts of the episode run differ')
         checks(results, args)
         return launches, records
     finally:
@@ -1773,17 +1888,43 @@ def phase_episode():
                         episode_fit_checks)[0]
 
 
+def evaluate_check(results, tag):
+    """The ``evaluate_policy`` replay of the run in ``results`` on the card,
+    once a snapshot: one point per policy snapshot, every return finite,
+    and matplotlib not imported by it."""
+    had_mpl = 'matplotlib' in sys.modules
+    curve = evaluate_policy.evaluate(results, n_evals=1, device='cuda')
+    exp = ExperienceDataset()
+    exp.load(str(Path(results) / 'experience.pkl'))
+    snapshots = sum(1 for p in exp.policy_parameters if p)
+    log(f'[{tag}] evaluate_policy: {len(curve)} point(s) for {snapshots} '
+        f'snapshot(s): ' + ', '.join(f'{n} steps, return {m:.6f}'
+                                     for n, m, _ in curve))
+    if len(curve) != snapshots or not np.all(np.isfinite(curve)):
+        raise AssertionError('evaluate_policy gave a wrong curve')
+    if 'matplotlib' in sys.modules and not had_mpl:
+        raise AssertionError('the replay imported matplotlib')
+
+
 def phase_env_episodes():
     """Phase 9: one full-width episode of the same driver and cuts on each
     of ENV_EPISODE_ENVS (``run_episodes``), each checked by one fit step
-    and one policy iteration against their plain paths; logs each env's
-    fit ms a step and policy ms an iteration."""
+    against its plain path and, where the env gives the reward (every env
+    but the Box2D lander), one policy iteration; the lander's run then
+    replayed by ``evaluate_policy``. Logs which class ``make('LunarLander')``
+    gives and each env's fit ms a step and policy ms an iteration."""
     for env in ENV_EPISODE_ENVS:
         tag = f'phase 9 {env}'
+        if env == 'LunarLander':
+            log(f'[{tag}] make(\'LunarLander\') gives '
+                f'{type(envs.make(env, device="cuda")).__name__}')
 
         def checks(results, args):
             episode_fit_checks(results, args, tag, profile=False)
-            episode_policy_check(results, args, tag)
+            if driver_models(args)[1].reward_func is not None:
+                episode_policy_check(results, args, tag)
+            if args.env == 'LunarLander':
+                evaluate_check(results, tag)
 
         _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1', '-e', env],
                                1, tag, checks)
@@ -1822,7 +1963,7 @@ def main():
 
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
             **phase_rollout_kernels(), **phase_grid_kernels()}
-    phase_env_kernels(rows)
+    phase_env_kernels(rows, card)
     T = MAIN_T
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)

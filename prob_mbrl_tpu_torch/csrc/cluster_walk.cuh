@@ -674,6 +674,13 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
   }
   __syncthreads();
   for (int r = tid; r < TR; r += nt) {
+    if (st.reward_kind == kLanderReward) {  // D = 8, U = 2 (fill_step)
+      float x[kMaxD], a[2];
+      for (int k = 0; k < kMaxD; ++k) x[k] = ts[(kTNxt + k) * TRP + r];
+      for (int k = 0; k < 2; ++k) a[k] = ts[(kTAct + k) * TRP + r];
+      ts[kTR * TRP + r] = r < nrows ? lander_reward(x, a) : 0.f;
+      continue;
+    }
     float q = 0.f, ua = 0.f;
     for (int j = 0; j < st.ntip; ++j) {
       float tip = 0.f;
@@ -708,10 +715,21 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   // reward, d = (tip - target) / norm: kind 0 r = exp(-cost), cost = 0.5 (q
   // |d|^2 + rs |a|^2), so dr/dtip_j = -r q d_j / norm, dr/da_k = -r rs a_k;
   // kind 1 r = -(q |d|^2 + rs |a|^2), dr/dtip_j = -2 q d_j / norm, dr/da_k =
-  // -2 rs a_k. gq d_j / norm and ga a_k are the cotangents.
+  // -2 rs a_k. gq d_j / norm and ga a_k are the cotangents. Kind 2, the
+  // lander: lander_reward_vjp, zero past nrows (a norm of 0 there is NaN).
   for (int r = tid; r < TR; r += nt) {
     const bool in = r < nrows;
     const float gr = in ? g_r[r] : 0.f;
+    if (st.reward_kind == kLanderReward) {  // D = 8, U = 2 (fill_step)
+      float x[kMaxD], a[2], gx[kMaxD], gu[2];
+      for (int k = 0; k < kMaxD; ++k) x[k] = ts[(kTNxt + k) * TRP + r];
+      for (int k = 0; k < 2; ++k) a[k] = ts[(kTAct + k) * TRP + r];
+      lander_reward_vjp(x, a, gr, gx, gu);
+      for (int k = 0; k < kMaxD; ++k)
+        ts[(kTGnxt + k) * TRP + r] = in ? g_nxt[r * D + k] + gx[k] : 0.f;
+      for (int k = 0; k < 2; ++k) ts[(kTGact + k) * TRP + r] = in ? gu[k] : 0.f;
+      continue;
+    }
     float gq, ga;
     if (st.reward_kind == kExpQuadReward) {
       const float gc = -gr * ts[kTR * TRP + r];

@@ -10,9 +10,10 @@
 //   policy MLP -> DiagGaussian sample -> max_u * tanh(.) + eps
 //   -> whitened cat(s, a) -> dynamics MLP -> scaled DiagGaussian sample
 //   -> nxt = s + delta -> the reward on the pre-MM nxt (JAX calls the env's
-//      reward closure there, :579 and :1122; here one of two kinds, both of
-//      the linear tip M nxt: the exp-quadratic tip reward of the swing-up
-//      envs, or the negative quadratic cost of rendezvous)
+//      reward closure there, :579 and :1122; here one of three kinds: two of
+//      the linear tip M nxt, the exp-quadratic tip reward of the swing-up
+//      envs or the negative quadratic cost of rendezvous, and the lunar
+//      lander's shaping potential with its gated fuel costs)
 //   -> moment-matching resample of nxt (D) and of r (D = 1), Cholesky path
 //      with the escalating jitter of _safe_cholesky_kf (:117-203).
 #pragma once
@@ -29,6 +30,10 @@ constexpr int kTries = 8;    // jitters of the safe Cholesky
 // StepArgs::reward_kind, with d = (M nxt - target) / norm:
 constexpr int kExpQuadReward = 0;  // r = exp(-0.5 (q |d|^2 + r_u |a|^2))
 constexpr int kQuadReward = 1;     // r = -(q |d|^2 + r_u |a|^2)
+// the lander (envs/jax_lander.py LanderReward; D = 8, U = 2, no tip): r =
+// -(|(x0, x1)| + |(x2, x3)| + |x4|) + 0.1 (x6 + x7) - 0.3 m - 0.03 s, m and s
+// the gated engine powers of the clipped action (lander_reward below)
+constexpr int kLanderReward = 2;
 
 }  // namespace
 
@@ -47,7 +52,7 @@ struct MlpArgs {
 
 struct StepArgs {
   int B, D, U, ntip;
-  int reward_kind;      // kExpQuadReward or kQuadReward
+  int reward_kind;      // kExpQuadReward, kQuadReward or kLanderReward
   MlpArgs pol, dyn;
   const float* states;  // [B, D]
   const float* eps;     // [B, U] or null (zero)
@@ -91,6 +96,53 @@ __device__ __forceinline__ float upper_clip(float x, float upper) {
 }
 
 __device__ __forceinline__ float sigmoid_f(float y) { return 1.f / (1.f + expf(-y)); }
+
+// ---- the lander's reward (kLanderReward) and its VJP, one row ---------------
+
+// clip(a, -1, 1) and its derivative as JAX's min-of-max clip has it: 1 inside,
+// 0.5 at exactly +-1 (the tie splits), 0 outside. A saturated tanh policy
+// with max_u = 1 sits exactly on the tie.
+__device__ __forceinline__ float clip1(float a) { return fminf(fmaxf(a, -1.f), 1.f); }
+__device__ __forceinline__ float clip1_grad(float a) {
+  return (a > -1.f && a < 1.f) ? 1.f : (a == 1.f || a == -1.f) ? 0.5f : 0.f;
+}
+
+// r(x, a) in the plain version's order of operations: 0.01 shaping - 0.3 m -
+// 0.03 s, shaping = -100 |(x0, x1)| - 100 |(x2, x3)| - 100 |x4| + 10 x6 + 10 x7,
+// m = 0.5 + 0.5 c0 where c0 > 0, s = |c1| where |c1| > 0.5 (c = clip1(a)).
+__device__ __forceinline__ float lander_reward(const float* x, const float* a) {
+  const float c0 = clip1(a[0]), c1 = clip1(a[1]);
+  const float m = c0 > 0.f ? 0.5f + 0.5f * c0 : 0.f;
+  const float ac1 = c1 >= 0.f ? c1 : -c1;
+  const float s = ac1 > 0.5f ? ac1 : 0.f;
+  const float ax4 = x[4] >= 0.f ? x[4] : -x[4];
+  const float shaping = -100.f * sqrtf(x[0] * x[0] + x[1] * x[1])
+                        - 100.f * sqrtf(x[2] * x[2] + x[3] * x[3]) - 100.f * ax4
+                        + 10.f * x[6] + 10.f * x[7];
+  return 0.01f * shaping - 0.3f * m - 0.03f * s;
+}
+
+// gr times the reward's gradient wrt x (gx [8]) and wrt a (ga [2]), with JAX's
+// conventions at the kinks: d|x4|/dx4 = +1 at 0, clip1_grad at the bounds, and
+// NaN from a norm at exactly 0 (-0 / 0), as the plain version has it.
+__device__ __forceinline__ void lander_reward_vjp(const float* x, const float* a, float gr,
+                                                  float* gx, float* ga) {
+  const float n1 = sqrtf(x[0] * x[0] + x[1] * x[1]);
+  const float n2 = sqrtf(x[2] * x[2] + x[3] * x[3]);
+  gx[0] = gr * (-x[0] / n1);
+  gx[1] = gr * (-x[1] / n1);
+  gx[2] = gr * (-x[2] / n2);
+  gx[3] = gr * (-x[3] / n2);
+  gx[4] = x[4] >= 0.f ? -gr : gr;
+  gx[5] = 0.f;
+  gx[6] = 0.1f * gr;
+  gx[7] = 0.1f * gr;
+  const float c0 = clip1(a[0]), c1 = clip1(a[1]);
+  ga[0] = c0 > 0.f ? (-0.3f * 0.5f) * clip1_grad(a[0]) * gr : 0.f;
+  ga[1] = (c1 > 0.5f || c1 < -0.5f)
+              ? -0.03f * (c1 >= 0.f ? 1.f : -1.f) * clip1_grad(a[1]) * gr
+              : 0.f;
+}
 
 __host__ __device__ inline int max_width(const Step& st) {
   return st.pol.maxw > st.dyn.maxw ? st.pol.maxw : st.dyn.maxw;
@@ -201,8 +253,10 @@ bool fill_mlp(Net& net, const MlpArgs& a, int B) {
 bool fill_step(Step& st, const StepArgs* a) {
   if (!a || a->B < 2 || a->D < 1 || a->D > kMaxD || a->U < 1 || a->U > kMaxU
       || a->ntip < 0 || a->ntip > kMaxTip
-      || (a->reward_kind != kExpQuadReward && a->reward_kind != kQuadReward))
+      || (a->reward_kind != kExpQuadReward && a->reward_kind != kQuadReward
+          && a->reward_kind != kLanderReward))
     return false;
+  if (a->reward_kind == kLanderReward && (a->D != 8 || a->U != 2 || a->ntip != 0)) return false;
   if (!fill_mlp(st.pol, a->pol, a->B) || !fill_mlp(st.dyn, a->dyn, a->B)) return false;
   const int D = a->D, U = a->U;
   if (st.pol.dims[0] != D || st.pol.dims[st.pol.n + 1] != 2 * U

@@ -1,5 +1,5 @@
-"""Environments (counterpart of ``prob_mbrl_tpu/envs``; every analytic env,
-the landers not yet)."""
+"""Environments (counterpart of ``prob_mbrl_tpu/envs``): the analytic envs,
+the differentiable lunar lander and, where Box2D imports, the Box2D one."""
 from .base import (AnalyticModel, Box, ExpQuadTipReward, GymEnv, Integrator,
                    QuadTipReward, integrate)
 from .cartpole import Cartpole, CartpoleModel, cartpole_reward
@@ -8,6 +8,15 @@ from .double_cartpole import (DoubleCartpole, DoubleCartpoleModel,
                               double_cartpole_reward)
 from .cart_acrobot import CartAcrobot, CartAcrobotModel
 from .rendezvous import Rendezvous, RendezvousModel, RendezvousReward
+from .jax_lander import (JaxLanderModel, JaxLunarLander, LanderReward,
+                         lander_reward)
+
+# the Box2D lander where Box2D imports, else the differentiable one (as the
+# JAX registry chooses)
+try:
+    from .lunar_lander import LunarLander
+except ImportError:
+    LunarLander = JaxLunarLander
 
 __all__ = [
     'AnalyticModel', 'Box', 'ExpQuadTipReward', 'GymEnv', 'Integrator',
@@ -15,7 +24,8 @@ __all__ = [
     'cartpole_reward', 'Pendulum', 'PendulumModel', 'pendulum_reward',
     'DoubleCartpole', 'DoubleCartpoleModel', 'double_cartpole_reward',
     'CartAcrobot', 'CartAcrobotModel', 'Rendezvous', 'RendezvousModel',
-    'RendezvousReward', 'make',
+    'RendezvousReward', 'JaxLunarLander', 'JaxLanderModel', 'LanderReward',
+    'lander_reward', 'LunarLander', 'make',
 ]
 
 _REGISTRY = {
@@ -24,18 +34,13 @@ _REGISTRY = {
     'DoubleCartpole': DoubleCartpole,
     'CartAcrobot': CartAcrobot,
     'Rendezvous': Rendezvous,
+    'LunarLander': LunarLander,
 }
-# names the JAX package registers that the port does not have yet
-_NOT_PORTED = ('LunarLander',)
 
 
 def make(name, **kwargs):
     """Construct an environment by registry name."""
-    if name in _REGISTRY:
-        return _REGISTRY[name](**kwargs)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f'env {name!r} is not ported yet (ROADMAP.md Queue 1, "Other '
-            'envs")')
-    raise KeyError(f'unknown env {name!r}; available: '
-                   f'{sorted(_REGISTRY)}')
+    if name not in _REGISTRY:
+        raise KeyError(f'unknown env {name!r}; available: '
+                       f'{sorted(_REGISTRY)}')
+    return _REGISTRY[name](**kwargs)

@@ -36,8 +36,105 @@ def integrate(dynamics, x, u, dt, method=Integrator.RUNGE_KUTTA):
         d4 = dynamics(x + d3 * dt, u)
         return x + (d1 + 2 * d2 + 2 * d3 + d4) * (dt / 6)
     if method == Integrator.DOPRI5:
-        raise NotImplementedError('DOPRI5 is not ported yet')
+        return dopri5(dynamics, x, u, dt)
     raise ValueError(f'unknown integrator {method}')
+
+
+# Dormand-Prince 5(4): the stages' weights, the fifth-order solution, the
+# error estimate (fifth less fourth order) and the midpoint of the
+# fourth-order dense output (the dynamics do not depend on time, so the
+# stages' nodes are not needed)
+_DP_BETA = ((1 / 5,), (3 / 40, 9 / 40), (44 / 45, -56 / 15, 32 / 9),
+            (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+            (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+            (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84))
+_DP_SOL = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_DP_ERR = (35 / 384 - 1951 / 21600, 0.0, 500 / 1113 - 22642 / 50085,
+           125 / 192 - 451 / 720, -2187 / 6784 - -12231 / 42400,
+           11 / 84 - 649 / 6300, -1 / 60)
+_DP_MID = (6025192743 / 30085553152 / 2, 0.0, 51252292925 / 65400821598 / 2,
+           -2691868925 / 45128329728 / 2, 187940372067 / 1594534317056 / 2,
+           -1776094331 / 19743644256 / 2, 11237099 / 235043384 / 2)
+
+
+def _combo(coeffs, k):
+    """sum_j coeffs[j] k[j] over the stages with a nonzero weight."""
+    return sum(c * kj for c, kj in zip(coeffs, k) if c != 0.0)
+
+
+def _f32(v):
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _initial_step(f, y0, f0, order, rtol, atol):
+    """Hairer, Norsett and Wanner's initial step (Solving ODEs I, II.4), as
+    ``jax.experimental.ode.initial_step_size`` takes it: the 2-norms over the
+    whole batch, in float32 on the host."""
+    with torch.no_grad():
+        scale = atol + torch.abs(y0) * rtol
+        d0 = torch.linalg.vector_norm(y0 / scale).cpu()
+        d1 = torch.linalg.vector_norm(f0 / scale).cpu()
+        h0 = _f32(1e-6) if (d0 < 1e-5) | (d1 < 1e-5) else 0.01 * d0 / d1
+        f1 = f(y0 + h0.to(y0.device) * f0)
+        d2 = torch.linalg.vector_norm((f1 - f0) / scale).cpu() / h0
+        if (d1 <= 1e-15) & (d2 <= 1e-15):
+            h1 = torch.maximum(_f32(1e-6), h0 * 1e-3)
+        else:
+            h1 = (0.01 / torch.maximum(d1, d2)) ** (1.0 / (order + 1.0))
+        return torch.minimum(100.0 * h0, h1)
+
+
+def dopri5(dynamics, x, u, dt, rtol=1e-9, atol=1e-9):
+    """x at time dt of dx/dt = dynamics(x, u) from x at 0, by adaptive
+    Dormand-Prince 5(4) (the counterpart of JAX's
+    ``jax.experimental.ode.odeint`` at rtol = atol = 1e-9, which JAX's
+    ``integrate`` calls). It follows that solver's algorithm: the same
+    initial step, one RMS error ratio over the whole batch (all particles
+    share one step size), the same step controller (safety 0.9, growth at
+    most 10, shrink at least 0.2, order 5) and the same fourth-order
+    interpolation back to t = dt. Differentiable through the accepted steps,
+    whose sizes are held fixed (JAX differentiates the continuous adjoint;
+    both approximate the same derivative). The accept test reads a scalar on
+    the host every step: DOPRI5 is off the main path."""
+    def f(y):
+        return dynamics(y, u)
+
+    y, f0 = x, f(x)
+    t, last_t, target = _f32(0.0), _f32(0.0), _f32(dt)
+    h = _initial_step(f, y, f0, 4, rtol, atol)
+    coeffs = [y] * 5
+    while bool(t < target) and bool(h > 0):
+        hd = h.to(y.device)
+        k = [f0]
+        for beta in _DP_BETA:
+            k.append(f(y + hd * _combo(beta, k)))
+        y1 = hd * _combo(_DP_SOL, k) + y
+        with torch.no_grad():
+            err = hd * _combo(_DP_ERR, k)
+            tol = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y1))
+            ratio = torch.sqrt(torch.mean((err / tol) ** 2)).cpu()
+        if bool(ratio <= 1.0):  # accept the step
+            # the fourth-order polynomial through y, y1 and the midpoint,
+            # with the end slopes k[0] and k[6]
+            y_mid = y + hd * _combo(_DP_MID, k)
+            d0, d1 = hd * k[0], hd * k[-1]
+            coeffs = [-2.0 * d0 + 2.0 * d1 - 8.0 * y - 8.0 * y1 + 16.0 * y_mid,
+                      5.0 * d0 - 3.0 * d1 + 18.0 * y + 14.0 * y1
+                      - 32.0 * y_mid,
+                      -4.0 * d0 + d1 - 11.0 * y - 5.0 * y1 + 16.0 * y_mid,
+                      d0, y]
+            last_t, t = t, t + h
+            y, f0 = y1, k[-1]
+        # the step controller
+        dfactor = 1.0 if ratio < 1 else 0.2
+        factor = torch.minimum(_f32(10.0), torch.maximum(
+            ratio ** (-1.0 / 5.0) * 0.9, _f32(dfactor)))
+        h = torch.clamp(h * 10.0 if ratio == 0 else h * factor, min=0.0)
+    s = ((target - last_t) / (t - last_t)).to(y.device)
+    out = coeffs[0]
+    for c in coeffs[1:]:
+        out = out * s + c
+    return out
 
 
 class AnalyticModel:
@@ -108,6 +205,7 @@ class GymEnv:
         self.state = None
         self.steps = 0
         self.np_random = np.random.RandomState()
+        self.viewer = None
 
     # -- gym API -----------------------------------------------------------
     def seed(self, seed=None):
@@ -159,11 +257,34 @@ class GymEnv:
             obs = to_complex(obs, self.angle_dims)
         return obs
 
+    # subclasses set a ``(model, state) -> scene dict`` (envs/rendering.py)
+    # to render, and the viewer's bounds with _viewer_kwargs
+    _scene_fn = None
+
+    def _viewer_kwargs(self):
+        return {}
+
     def render(self, mode="human", **kwargs):
-        raise NotImplementedError('rendering is not ported yet')
+        """Matplotlib render (the counterpart of the reference's pyglet
+        viewers, `prob_mbrl/envs/cartpole/env.py:174-248`, ghost trail
+        included). ``mode='human'`` updates a live figure (returns None)
+        when the backend is interactive, else gives the RGB array;
+        ``mode='rgb_array'`` returns an [H, W, 3] uint8 frame."""
+        if self._scene_fn is None:
+            raise NotImplementedError(
+                f'rendering is not implemented for {type(self).__name__}')
+        if self.state is None:
+            raise RuntimeError('render() before reset()')
+        if self.viewer is None:
+            from .rendering import MplViewer
+            self.viewer = MplViewer(**self._viewer_kwargs())
+        return self.viewer.render(type(self)._scene_fn(self.model,
+                                                       self.state), mode)
 
     def close(self):
-        pass
+        if self.viewer is not None:
+            self.viewer.close()
+            self.viewer = None
 
     # -- framework API ------------------------------------------------------
     @property

@@ -9,6 +9,7 @@ import torch
 
 from .base import Box, GymEnv
 from .double_cartpole import DoubleCartpoleModel, double_cartpole_reward
+from .rendering import double_cartpole_scene
 
 
 class CartAcrobotModel(DoubleCartpoleModel):
@@ -24,6 +25,10 @@ class CartAcrobotModel(DoubleCartpoleModel):
 
 
 class CartAcrobot(GymEnv):
+    _scene_fn = staticmethod(double_cartpole_scene)
+
+    def _viewer_kwargs(self):
+        return dict(xlim=(-3.5, 3.5), ylim=(-1.5, 1.5))
 
     def __init__(self, model=None, reward_func=None, **kwargs):
         model = model or CartAcrobotModel()

@@ -10,6 +10,7 @@ import torch
 
 from ..ops.angles import to_complex
 from .base import AnalyticModel, Box, ExpQuadTipReward, GymEnv
+from .rendering import cartpole_scene
 
 
 class CartpoleModel(AnalyticModel):
@@ -58,6 +59,10 @@ def cartpole_reward(pole_length=0.5):
 
 
 class Cartpole(GymEnv):
+    _scene_fn = staticmethod(cartpole_scene)
+
+    def _viewer_kwargs(self):
+        return dict(xlim=(-3.5, 3.5), ylim=(-1.0, 1.0))
 
     def __init__(self, model=None, reward_func=None, **kwargs):
         model = model or CartpoleModel()

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from .base import AnalyticModel, Box, ExpQuadTipReward, GymEnv
+from .rendering import double_cartpole_scene
 
 
 def solve3(A, b):
@@ -106,6 +107,10 @@ def double_cartpole_reward(pole1_length=0.6, pole2_length=0.6,
 
 
 class DoubleCartpole(GymEnv):
+    _scene_fn = staticmethod(double_cartpole_scene)
+
+    def _viewer_kwargs(self):
+        return dict(xlim=(-3.5, 3.5), ylim=(-1.5, 1.5))
 
     def __init__(self, model=None, reward_func=None, **kwargs):
         model = model or DoubleCartpoleModel()

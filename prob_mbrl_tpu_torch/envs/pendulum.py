@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from .base import AnalyticModel, Box, ExpQuadTipReward, GymEnv
+from .rendering import pendulum_scene
 
 
 class PendulumModel(AnalyticModel):
@@ -45,6 +46,10 @@ def pendulum_reward(pole_length=1.0):
 
 
 class Pendulum(GymEnv):
+    _scene_fn = staticmethod(pendulum_scene)
+
+    def _viewer_kwargs(self):
+        return dict(xlim=(-1.5, 1.5), ylim=(-1.5, 1.5))
 
     def __init__(self, model=None, reward_func=None, **kwargs):
         model = model or PendulumModel()

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .base import AnalyticModel, Box, GymEnv, QuadTipReward
+from .rendering import rendezvous_scene
 
 
 class RendezvousModel(AnalyticModel):
@@ -49,6 +50,10 @@ class RendezvousReward(QuadTipReward):
 
 
 class Rendezvous(GymEnv):
+    _scene_fn = staticmethod(rendezvous_scene)
+
+    def _viewer_kwargs(self):
+        return dict(xlim=(-14.0, 14.0), ylim=(-14.0, 14.0))
 
     def __init__(self, model=None, reward_func=None, **kwargs):
         model = model or RendezvousModel()

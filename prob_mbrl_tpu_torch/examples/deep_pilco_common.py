@@ -194,6 +194,17 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     host_policy = make_host_policy(pol, args.expl_noise, args.seed,
                                    minU, maxU, stochastic=True,
                                    device=device)
+    render_cb = None
+    if args.render:
+        if getattr(type(env), '_scene_fn', None) is not None:
+            # the live matplotlib viewer with its ghost trail
+            # (envs/rendering.py), stepped by apply_controller's per-step
+            # callback
+            def render_cb(*_):
+                env.render()
+        else:
+            print(f'[{experiment_name}] --render: no renderer for '
+                  f'{type(env).__name__}; flag ignored', flush=True)
 
     # initial random episodes (the default n_initial_epi=0 collects none and
     # relies on the episode gathered with the untrained stochastic policy)
@@ -215,7 +226,8 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     for ps_it in range(args.ps_iters):
         # ---- collect real experience with the current stochastic policy
         ret = apply_controller(env, host_policy(pol_params), args.control_H,
-                               stop_when_done=args.stop_when_done)
+                               stop_when_done=args.stop_when_done,
+                               callback=render_cb)
         exp.append_episode(*ret, policy_params=_numpy(pol_params))
         ep_return = float(np.sum([np.sum(r) for r in ret[2]]))
         eval_returns.append(ep_return)

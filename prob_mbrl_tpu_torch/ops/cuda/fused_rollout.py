@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ...envs.base import ExpQuadTipReward, QuadTipReward
+from ...envs.jax_lander import LanderReward
 from ...models.densities import DiagGaussianDensity
 from ...models.regressor import DynamicsModel
 from ...utils.core import tree_leaves, tree_map
@@ -70,8 +71,10 @@ _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
 
 # the rewards the kernels take, at the index of their StepArgs::reward_kind
 # (csrc/rollout_step.cuh): kExpQuadReward, exp(-0.5 (q |d|^2 + r |a|^2)), and
-# kQuadReward, -(q |d|^2 + r |a|^2), both of d = (M nxt - target) / norm
-REWARD_KINDS = (ExpQuadTipReward, QuadTipReward)
+# kQuadReward, -(q |d|^2 + r |a|^2), both of d = (M nxt - target) / norm; and
+# kLanderReward, the lunar lander's (D = 8, U = 2, no tip matrix)
+REWARD_KINDS = (ExpQuadTipReward, QuadTipReward, LanderReward)
+LANDER_KIND = REWARD_KINDS.index(LanderReward)
 
 TIERS = ('full', 'remat', 'step', 'grid')
 _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
@@ -263,10 +266,11 @@ def kernel_refuses(dyn, pol):
     rf = dyn.reward_func
     if rf is None:
         return 'a learned reward is not in the step kernels yet'
-    if reward_kind(rf) is None or rf.tip_matrix is None:
+    kind = reward_kind(rf)
+    if kind is None or (kind != LANDER_KIND and rf.tip_matrix is None):
         return ('the step kernels take an ExpQuadTipReward whose tip is '
-                'linear in the embedded state (tip_matrix), or a '
-                'QuadTipReward')
+                'linear in the embedded state (tip_matrix), a '
+                'QuadTipReward or a LanderReward')
     if pol.angle_dims or reg.angle_dims:
         return 'angle embedding inside the models is not in the step kernels'
     for d in (pol.output_density, reg.output_density):
@@ -275,10 +279,13 @@ def kernel_refuses(dyn, pol):
     D, U = reg.output_density.output_dims, pol.output_density.output_dims
     if not (1 <= D <= MAX_D and 1 <= U <= MAX_U):
         return f'the step kernels take D <= {MAX_D}, U <= {MAX_U}'
-    if len(rf.tip_matrix) > MAX_TIP or any(len(row) != D
-                                           for row in rf.tip_matrix):
+    if kind == LANDER_KIND:
+        if (D, U) != (8, 2):
+            return f'the lander\'s reward needs D = 8, U = 2, not {D}, {U}'
+    elif len(rf.tip_matrix) > MAX_TIP or any(len(row) != D
+                                             for row in rf.tip_matrix):
         return f'tip_matrix must be [<= {MAX_TIP}, {D}]'
-    if rf.angle_dims and rf.raw_size == D:
+    elif rf.angle_dims and rf.raw_size == D:
         return 'the reward would angle-embed the states'
     if len(pol.max_u) not in (1, U) or (pol.min_u is not None
                                         and len(pol.min_u) not in (1, U)):
@@ -814,12 +821,15 @@ class StepKernel:
             a.act_bias[k] = bias[k if len(bias) > 1 else 0]
         rf = dyn.reward_func
         a.reward_kind = reward_kind(rf)
-        a.ntip = len(rf.tip_matrix)
-        for j, row in enumerate(rf.tip_matrix):
-            a.target[j] = rf.target_tip[j]
-            for k, v in enumerate(row):
-                a.tip[j * D + k] = v
-        a.norm, a.q_scale, a.r_scale = rf.norm, rf.q_scale, rf.r_scale
+        if a.reward_kind == LANDER_KIND:  # no tip: ntip 0, norm 1, scales 0
+            a.ntip, a.norm = 0, 1.0
+        else:
+            a.ntip = len(rf.tip_matrix)
+            for j, row in enumerate(rf.tip_matrix):
+                a.target[j] = rf.target_tip[j]
+                for k, v in enumerate(row):
+                    a.tip[j * D + k] = v
+            a.norm, a.q_scale, a.r_scale = rf.norm, rf.q_scale, rf.r_scale
         self._keep = keep
 
     def plans(self):

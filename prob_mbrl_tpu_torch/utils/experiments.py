@@ -120,7 +120,6 @@ def refuse_unported(args):
          'prioritized replay in mc_pilco)', 'Native sum tree and tooling'),
         (args.plot_level > 0, '--plot_level > 0 (rollout plots)',
          'Native sum tree and tooling'),
-        (args.render, '--render (env rendering)', 'Other envs'),
     ]
     for hit, what, item in refused:
         if hit:

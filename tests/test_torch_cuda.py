@@ -10,8 +10,10 @@ the card holds), the whole rollout (loss, mean_return and the gradients wrt
 the policy params and action_eps, by the forward + backward kernels and by
 the one-launch value-and-grad), the grid rollout (disc, raw, vret,
 states_all and the VJP of cotangents of all four), the last three on
-Cartpole (D = 5, U = 1), the double cartpole (D = 8, U = 1) and rendezvous
-(D = 8, U = 4, the quadratic reward), one step of the
+Cartpole (D = 5, U = 1), the double cartpole (D = 8, U = 1), rendezvous
+(D = 8, U = 4, the quadratic reward) and the differentiable lunar lander
+(D = 8, U = 2, the lander's reward, kind 2; once more with its policy
+saturated and its actions on the reward's kinks), one step of the
 dynamics fit (loss and grads, logit_p's among them), the launch counters, the
 tier ``mc_pilco`` takes (``'grid'`` with a critic), and the wrappers'
 refusal to fall back when the kernels cannot be built.
@@ -35,7 +37,9 @@ action_eps, one entry per particle and step, is held by its 2-norm (within
 1e-3 of the plain version's) with at most 1 element in 1000 beyond the
 elementwise tolerance: a ReLU unit whose pre-activation lies within float32
 rounding of 0 takes the other branch in one of the two versions and moves
-that entry alone.
+that entry alone. On the lander rows 3-5's gradient wrt action_eps is held
+the same way (``_hold_rows``): at B = 1500 a dynamics ReLU on that edge
+moved one particle's two entries of one step by 10%.
 """
 import numpy as np
 import pytest
@@ -198,8 +202,9 @@ def test_cuda_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
 # makes them
 CARTPOLE = (5, 1, 'exp')
 QUAD = (8, 4, 'quad')
+LANDER = (8, 2, 'lander')
 ENV_OF = {CARTPOLE: 'Cartpole', (8, 1, 'exp'): 'DoubleCartpole',
-          QUAD: 'Rendezvous'}
+          QUAD: 'Rendezvous', LANDER: 'JaxLunarLander'}
 SHAPES = list(ENV_OF)
 SHAPE_IDS = ['-'.join(map(str, shape)) for shape in SHAPES]
 
@@ -491,6 +496,19 @@ def _forced_loss(shape, mean_only, states, T=15, hidden=(200, 200)):
     return loss_fn
 
 
+def _hold_rows(a, r, m):
+    """A gradient with one entry per particle and step (d action_eps):
+    finite, its error's 2-norm within 1e-3 of the plain version's norm,
+    and at most 1 element in 1000 beyond ``_hold``'s elementwise tolerance
+    (a ReLU unit within float32 rounding of 0 moves one particle's entries
+    alone; ``chip_smoke.hold_rows``)."""
+    assert torch.isfinite(a).all()
+    tol = max(1e-3 * float(r.abs().max()), 3 * float((m - r).abs().max()))
+    assert float(torch.linalg.vector_norm(a - r)) <= 1e-3 * float(
+        torch.linalg.vector_norm(r))
+    assert int(((a - r).abs() > tol).sum()) * 1000 <= a.numel()
+
+
 def _hold_knife_edge(a, r, moved, B):
     """A gradient summed over B particles against the free-running plain
     version, where a ReLU unit within the versions' drift of 0 may take the
@@ -532,8 +550,11 @@ def test_rollout_kernels_match_the_plain_version_on_the_card(cuda, B,
         [vl, vm, *tree_leaves(vgrads)], vref, vmoved))
     if shape != QUAD:
         torch.cuda.synchronize()
-        for a, r, m in pairs:
-            _hold(a, r, 1e-3, m)
+        for i, (a, r, m) in enumerate(pairs):
+            if shape == LANDER and i == len(got) - 1:  # d action_eps
+                _hold_rows(a, r, m)
+            else:
+                _hold(a, r, 1e-3, m)
         return
     ks, ps = _trajectories(shape, pp, args)
     ks_m, ps_m = _trajectories(shape, pp, args, 1 + 1e-6)
@@ -768,14 +789,7 @@ def test_grid_kernels_match_the_plain_version_on_the_card(cuda, B, mm_states,
         _hold(a, r, 1e-3, m)
     # d action_eps per particle: a ReLU unit within float32 rounding of 0
     # takes the other branch in one version and moves that entry alone
-    # (chip_smoke.hold_rows): the norm within 1e-3, at most 1 element in
-    # 1000 beyond the elementwise tolerance
-    a, r, m = got[-1], ref[-1], moved[-1]
-    assert torch.isfinite(a).all()
-    tol = max(1e-3 * float(r.abs().max()), 3 * float((m - r).abs().max()))
-    assert float(torch.linalg.vector_norm(a - r)) <= 1e-3 * float(
-        torch.linalg.vector_norm(r))
-    assert int(((a - r).abs() > tol).sum()) * 1000 <= a.numel()
+    _hold_rows(got[-1], ref[-1], moved[-1])
 
 
 @pytest.mark.parametrize('mm_rewards', [True, False])
@@ -795,6 +809,26 @@ def test_grid_kernels_with_weights_read_in_place_match_the_plain_version(
     assert torch.isfinite(a).all()
     assert float(torch.linalg.vector_norm(a - r)) <= 1e-3 * float(
         torch.linalg.vector_norm(r))
+
+
+@pytest.mark.parametrize('tier', ['step', 'rollout-mean-only', 'rollout',
+                                  'grid'])
+def test_the_lander_reward_kinks_match_the_plain_version_on_the_card(cuda,
+                                                                     tier):
+    """Rows 3-9 on the lander with its policy saturated (tanh exactly 1)
+    and its actions on the reward's kinks (``chip_smoke.saturate``,
+    ``tie_eps``: a0 and a1 on +-1, on the gates' edges and 2^-12 beside
+    them), held as phase 2b holds them: the step (rows 6-7) and the whole
+    rollout (rows 3-5) at B = 100, the grid kernels (rows 8-9) at
+    B = 1000."""
+    env = 'JaxLunarLander'
+    if tier == 'step':
+        cs.check_step(100, env, 'card test', saturated=True)
+    elif tier == 'grid':
+        cs.check_grid(1000, True, env, 'card test', saturated=True)
+    else:
+        cs.check_rollout(100, tier == 'rollout-mean-only', env, 'card test',
+                         saturated=True)
 
 
 def test_grid_kernels_repeat_their_bits(cuda):

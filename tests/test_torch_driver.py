@@ -102,8 +102,40 @@ def test_the_other_entry_points_and_options_run(tmp_path, module, argv):
 @pytest.mark.parametrize('argv', [
     ['--n_devices', '2'], ['--dtype', 'bfloat16'], ['--dyn_components', '2'],
     ['--mm_method', 'experimental_mix'], ['--prioritized_replay'],
-    ['--plot_level', '1'], ['--render']])
+    ['--plot_level', '1']])
 def test_unported_flags_raise_naming_their_roadmap_item(tmp_path, argv):
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
         _run(deep_pilco_mm.SETTINGS, argv, tmp_path)
     assert not os.path.exists(tmp_path / 'mc_pilco_mm')
+
+
+@pytest.mark.parametrize('env', ['Cartpole', 'JaxLunarLander'])
+def test_render_draws_every_control_step(tmp_path, monkeypatch, env):
+    """``--render`` draws the env after every real-env step through the
+    matplotlib viewer (headless: Agg); an env without a renderer (the
+    differentiable lander) is run without it and says so, as JAX's driver
+    does."""
+    import matplotlib
+    matplotlib.use('Agg')
+    from prob_mbrl_tpu_torch import envs as tenvs
+    from prob_mbrl_tpu_torch.envs import rendering
+
+    frames = []
+    real = rendering.MplViewer.render
+
+    def render(self, scene, mode='human'):
+        frames.append(real(self, scene, mode))
+        return frames[-1]
+
+    monkeypatch.setattr(rendering.MplViewer, 'render', render)
+    monkeypatch.setitem(tenvs._REGISTRY, 'Lander', tenvs.JaxLunarLander)
+    name = 'Lander' if env == 'JaxLunarLander' else env
+    returns, _, _ = _run(deep_pilco_mm.SETTINGS,
+                         ['--ps_iters', '1', '--render', '-e', name,
+                          '--pol_opt_iters', '2'], tmp_path)
+    assert np.isfinite(returns[0])
+    if env == 'Cartpole':
+        assert len(frames) == 10
+        assert all(f.dtype == np.uint8 and f.ndim == 3 for f in frames)
+    else:
+        assert frames == []

@@ -71,7 +71,8 @@ def test_no_jax_or_jax_package_import(path):
     'utils/train_regressor.py', 'utils/checkpoint.py',
     'utils/experiments.py', 'examples/deep_pilco_common.py',
     'examples/deep_pilco_mm.py', 'examples/deep_pilco_no_mm.py',
-    'examples/deep_pilco_no_mm_with_value.py'])
+    'examples/deep_pilco_no_mm_with_value.py', 'examples/evaluate_policy.py',
+    'envs/jax_lander.py', 'envs/lunar_lander.py', 'envs/rendering.py'])
 def test_the_episode_modules_are_checked(name):
     assert PORT / name in FILES
 
