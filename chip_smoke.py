@@ -6,7 +6,7 @@ the other envs), drives MC-PILCO policy optimisation on Cartpole at
 full width through the kernels, on each of its routes, then three
 Deep-PILCO episodes through the driver on Cartpole and one on each of the
 other four analytic envs and on the lunar lander, whose run is then
-replayed by ``evaluate_policy``.
+replayed by ``evaluate_policy``, and one on Cartpole learning the reward.
 
     python3 chip_smoke.py
 
@@ -52,12 +52,16 @@ Phases (any failure exits non-zero and prints no result line):
      (``JaxLunarLander``, built directly: D = 8, U = 2, the lander's reward,
      reward kind 2), the lander a second time with its policy saturated so
      that the actions sit exactly on the reward's kinks (+-1, the clip's
-     ties, and the gates' edges, some |a1| 2^-12 from 0.5); the step (rows
-     6-7) and the whole rollout (rows 3-5, reward mean-only on and off) at
-     B = 100, T = 15, the grid kernels (rows 8-9) at B = 1000, states and
-     rewards moment-matched, each output held as in phase 2; at D = 8 each
-     row's time, plain time and bound printed beside phase 2's D = 5 ones
-     and the card's name and power limit.
+     ties, and the gates' edges, some |a1| 2^-12 from 0.5), and a learned
+     reward (reward kind 3: no reward function, a dynamics head of 2 (D + 1)
+     whose output D is the reward) at Cartpole's shapes (D = 5, U = 1) and
+     at the lander's (D = 8, U = 2, the Box2D lander's head of 18, states at
+     the lander's scales); the step (rows 6-7) and the whole rollout (rows
+     3-5, reward mean-only on and off) at B = 100, T = 15, the grid kernels
+     (rows 8-9) at B = 1000, states and rewards moment-matched, each output
+     held as in phase 2; at D = 8 and with a learned reward each row's
+     time, plain time and bound printed beside phase 2's D = 5 ones and the
+     card's name and power limit.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -87,7 +91,11 @@ Phases (any failure exits non-zero and prints no result line):
      calls per iteration), nothing else; the host split of an iteration
      (grid forward, critic refit, bootstrap + backward, clip + Adam); one
      iteration compared with the plain path (loss, mean_return, v_loss,
-     clipped grads, refit critic).
+     clipped grads, refit critic). Then the same under a fixed critic
+     (``value_spec`` and ``value_params``, no update; 30 iterations): the
+     grid tier, one ``fused_grid_fwd`` and ``_bwd`` and one fused-MLP
+     launch each way (the bootstrap) an iteration, no refit, the critic's
+     params unmoved; one iteration held against the plain path.
   8. the episode: the torch ``deep_pilco_mm`` driver (``main`` through the
      port's parser with the entry point's settings) on Cartpole into a
      temporary folder under ``build/``, at full width (dynamics and policy
@@ -113,15 +121,18 @@ Phases (any failure exits non-zero and prints no result line):
      2000 + the control steps taken (40, or fewer where the lander's
      episode ends), backward 2000 and ``fused_rollout_vg`` 200 (on the
      Box2D lander, which has no reward function, the driver learns the
-     reward: the ``utils.rollout`` route, and 2 T fused-MLP launches each
-     way a policy iteration instead); from the checkpoint one fit step
-     (loss and every grad within 1e-4 of its max|plain|) and, on 'full',
-     one policy iteration through row 5 (loss and grads within the plain
+     reward, which row 5 takes as reward kind 3); from the checkpoint one
+     fit step (loss and every grad within 1e-4 of its max|plain|) and one
+     policy iteration through row 5 (loss and grads within the plain
      path's sensitivity, at least 1e-4 of |loss| and 1e-3 of max|grad|)
      against their plain paths; ms a fit step and a policy iteration per
      env; then the lander's run replayed by ``evaluate_policy.evaluate``
      once a snapshot on the card (one finite return per snapshot, no
-     matplotlib imported).
+     matplotlib imported). Last, one such episode of ``deep_pilco_mm
+     --learn_reward`` on Cartpole: the learned reward on the whole-rollout
+     kernel (kind 3), ``fused_rollout_vg`` 200 and no fused-MLP launch from
+     the policy loop, E_lml rising, a fit step and a row-5 policy iteration
+     held against their plain paths.
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; the others phase 4,
@@ -191,11 +202,16 @@ ROLLOUT_BATCHES = (16, 37, 100, 1500)
 GRID_BATCHES = (16, 37, 1000, 1500)
 GRID_B = 1000  # particles of the value path (phase 7)
 VALUE_ITERS = 100  # mc_pilco iterations of the value path
+FIXED_ITERS = 10  # mc_pilco iterations under a fixed critic (phase 7)
 ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
 # phase 2b: rows 3-9 at these envs' shapes (rows 3-7 at B = MAIN_B, rows 8-9
-# at B = GRID_B), each row timed at D = 8
-ENV_KERNEL_ENVS = ('DoubleCartpole', 'Rendezvous', 'Pendulum',
-                   'JaxLunarLander')
+# at B = GRID_B), each row timed at D = 8 and with a learned reward: (env,
+# learned); the last two learn the reward (the kernels' reward kind 3):
+# Cartpole's shapes (a head of 12) and the lander's (D = 8, U = 2, a head of
+# 18: the Box2D lander's, whose reward the driver learns)
+ENV_KERNEL_ENVS = (('DoubleCartpole', False), ('Rendezvous', False),
+                   ('Pendulum', False), ('JaxLunarLander', False),
+                   ('Cartpole', True), ('JaxLunarLander', True))
 SEED = 1
 # phase 8, the episode: the deep_pilco_mm driver at its full widths and
 # default fit, with the episodes cut from 100 to 3 and the policy
@@ -211,7 +227,8 @@ EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
                 '--control_H', str(CONTROL_H), '--dyn_shape', '200,200',
                 '--pol_shape', '200,200']
 BUSY_STEPS = 50  # fit steps under torch.profiler
-# phase 9: one episode of the same driver and cuts on each of these envs
+# phase 9: one episode of the same driver and cuts on each of these envs, then
+# one on Cartpole with --learn_reward (the rollout kernels' reward kind 3)
 ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous',
                     'LunarLander')
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
@@ -299,7 +316,7 @@ def hold(what, a, r, rel_tol, moved=None):
     return err, err / scale, tol / scale
 
 
-def hold_rows(what, a, r, rel_tol, moved=None):
+def hold_rows(what, a, r, rel_tol, moved=None, along=None):
     """Hold a per-particle gradient (the grid rollout's d action_eps): the
     2-norm of ``a - r`` within ``rel_tol`` of ``r``'s, and at most one
     element in 1000 beyond ``hold``'s elementwise tolerance. A ReLU unit
@@ -308,8 +325,12 @@ def hold_rows(what, a, r, rel_tol, moved=None):
     that moves one particle's entry alone, far beyond the elementwise
     tolerance at B = 1000 (the plain version in float32 against float64
     does the same at other places), while a fault in a row, a step or a
-    block moves the norm. Returns (max abs err, the norm's relative error,
-    rel_tol)."""
+    block moves the norm. Given ``along``, the plain version forced along
+    the kernel's own states (``hold_grid_eps_on_edge``), the worst particle
+    in each 1000 is left out of the norm and each of its entries must lie
+    within the elementwise tolerance of ``along``'s: a particle that the
+    trajectories' drift moved across a ReLU's edge. Returns (max abs err,
+    the norm's relative error, rel_tol)."""
     if not torch.isfinite(a).all():
         raise AssertionError(f'{what}: kernel output is not finite')
     scale = float(r.abs().max())
@@ -318,16 +339,30 @@ def hold_rows(what, a, r, rel_tol, moved=None):
         tol = max(tol, 3 * float((moved - r).abs().max()))
     d = (a - r).abs()
     off = int((d > tol).sum())
-    n_err, n_ref = float(torch.linalg.vector_norm(a - r)), float(
+    diff, left = a - r, []
+    if along is not None:
+        per = diff.double().pow(2).sum((0, 2))
+        left = torch.topk(per, a.shape[1] // 1000).indices.tolist()
+        off_along = float((a - along)[:, left].abs().max()) if left else 0.0
+        if off_along > tol:
+            raise AssertionError(f'{what}: particle(s) {left} left out of '
+                                 f'the norm lie {off_along:.3e} from the '
+                                 f'plain version along the kernel\'s '
+                                 f'states, beyond {tol:.3e}')
+        diff = diff.clone()
+        diff[:, left] = 0
+    n_err, n_ref = float(torch.linalg.vector_norm(diff)), float(
         torch.linalg.vector_norm(r))
     if n_err > rel_tol * n_ref or off * 1000 > d.numel():
         raise AssertionError(f'{what}: |kernel - plain| {n_err:.3e} against '
                              f'|plain| {n_ref:.3e}, {off} of {d.numel()} '
                              f'elements beyond {tol:.3e}')
-    if off:
+    if off or left:
         log(f'[phase 2] {what}: {off} of {d.numel()} elements beyond '
             f'{tol:.3e} (largest {float(d.max()):.3e}), norm relative error '
-            f'{n_err / n_ref:.3e}')
+            f'{float(torch.linalg.vector_norm(a - r)) / n_ref:.3e}'
+            + (f', {n_err / n_ref:.3e} without particle(s) {left}'
+               if left else ''))
     return float(d.max()), n_err / max(n_ref, 1e-30), rel_tol
 
 
@@ -509,20 +544,30 @@ def phase_mlp_kernels():
     return rows
 
 
-def env_models(env, hidden=(200, 200), nonlin='relu'):
+def env_models(env, hidden=(200, 200), nonlin='relu', learned=False):
     """The Deep-PILCO drivers' default models ([200, 200] relu MLPs, or
     these widths and activations) for ``env``, with its reward and action
     bounds: (dyn, pol, D, U). ``'JaxLunarLander'`` is the differentiable
     lander, built directly (``make('LunarLander')`` gives the Box2D lander
-    where Box2D is installed)."""
+    where Box2D is installed). ``learned``: the env's shapes with the
+    reward learned (no reward_func, a dynamics head of 2 (D + 1); the
+    kernels' reward kind 3), as the driver builds them with --learn_reward
+    or for the Box2D lander, which has no reward function (the
+    differentiable lander's D = 8, U = 2)."""
     if env == 'Cartpole':
-        return build_models(5, 1, (10.0,), envs.cartpole_reward(), hidden,
-                            nonlin) + (5, 1)
-    e = (envs.JaxLunarLander(device='cpu') if env == 'JaxLunarLander'
-         else envs.make(env, device='cpu'))
-    D, U = e.observation_size, e.action_size
-    return build_models(D, U, [float(v) for v in e.action_space.high],
-                        e.reward_func, hidden, nonlin) + (D, U)
+        D, U, high, rf = 5, 1, (10.0,), envs.cartpole_reward()
+    else:
+        e = (envs.JaxLunarLander(device='cpu') if env == 'JaxLunarLander'
+             else envs.make(env, device='cpu'))
+        D, U = e.observation_size, e.action_size
+        high, rf = [float(v) for v in e.action_space.high], e.reward_func
+    return build_models(D, U, high, None if learned else rf, hidden,
+                        nonlin) + (D, U)
+
+
+def env_label(env, learned=False):
+    """``env`` as the logs name it, with ``learned`` as ``env_models``."""
+    return f'{env} (reward learned)' if learned else env
 
 
 def net_dims(dyn, pol):
@@ -530,9 +575,13 @@ def net_dims(dyn, pol):
     return [fr._mlp_dims(pol.mlp), fr._mlp_dims(dyn.regressor.mlp)]
 
 
-def stats_data(env, rng, n=200):
+def stats_data(env, rng, n=200, learned=False):
     """[n, D + U] inputs and [n, D] targets the dynamics' whitening stats
-    are fit to, drawn from ``rng`` at each env's scales."""
+    are fit to, drawn from ``rng`` at each env's scales; with a learned
+    reward the targets have a rewards' column after them ([n, D + 1])."""
+    if learned:
+        X, Y = stats_data(env, rng, n)
+        return X, np.concatenate([Y, rng.randn(n, 1)], 1)
     scale = {'Cartpole': [1, 2, 3, 0.7, 0.7, 5],
              'Pendulum': [3, 0.7, 0.7, 2.5],
              'DoubleCartpole': [1, 2, 3, 3, 0.7, 0.7, 0.7, 0.7, 20],
@@ -597,21 +646,22 @@ def tie_eps(seed, shape):
                     -1)
 
 
-def step_problem(B, seed, env='Cartpole', saturated=False):
+def step_problem(B, seed, env='Cartpole', saturated=False, learned=False):
     """One rollout step at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1), its inputs made from a seed.
     The state resample needs a full-rank particle covariance, B > D: below
     that its factor is float32 rounding noise (ROADMAP Queue 3), so B = 2
     resamples the rewards only. ``saturated`` (the lander): the policy
     saturated and the actions on the reward's kinks (``saturate``,
-    ``tie_eps``). Returns (kernel step, plain step, policy leaves, states,
-    eps, (g_nxt, g_r), timing inputs)."""
+    ``tie_eps``); ``learned`` as ``env_models``. Returns (kernel step,
+    plain step, policy leaves, states, eps, (g_nxt, g_r), timing
+    inputs)."""
     rng = np.random.RandomState(seed)
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol, D, U = env_models(env)
+    dyn, pol, D, U = env_models(env, learned=learned)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
@@ -619,7 +669,7 @@ def step_problem(B, seed, env='Cartpole', saturated=False):
     if saturated:
         saturate(pol_params, U)
     leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
-    stats = dyn.fit_stats(*map(t, stats_data(env, rng)))
+    stats = dyn.fit_stats(*map(t, stats_data(env, rng, learned=learned)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
     states = t(env_states(env, rng, B))
@@ -659,14 +709,17 @@ def step_bytes_flops(B, pol_dims, dyn_dims, D, U):
     once) and the operations it does, for one call at batch B. The backward
     takes the step's inputs and its pre-MM outputs, so it recomputes both
     MLPs' forward; its products are that, both dx chains and the policy's
-    dW."""
+    dW. The dynamics head has 2 E outputs: E = D, or D + 1 with a learned
+    reward, whose density noise and output scaling are E wide."""
     def weights(dims):
         return sum(a * b for a, b in zip(dims[:-1], dims[1:])) + sum(dims[1:])
 
+    E = dyn_dims[-1] // 2
     wp, wd = weights(pol_dims), weights(dyn_dims)
     masks = B * (sum(pol_dims[1:-1]) + sum(dyn_dims[1:-1]))
-    state = B * (2 * D + 2 * U + D + 1)  # states, eps, both noises, MM noise
-    stats = 2 * (D + U) + 2 * D
+    # states, eps, both density noises, the MM noise
+    state = B * (D + 2 * U + E + D + 1)
+    stats = 2 * (D + U) + 2 * E
     mults = 2 * B * (wp + wd)  # products of both MLPs (bias adds included)
     elem = 3 * (masks + B * (D + U)) + B * D * (3 * D + 4)  # epilogues + MM
     fwd_bytes = 4 * (wp + wd + masks + state + stats + 2 * B * (D + 1))
@@ -689,14 +742,14 @@ def step_plans(k):
                                                   k.plans()))
 
 
-def step_timings(B, env='Cartpole'):
+def step_timings(B, env='Cartpole', learned=False):
     """ms of each step kernel and of the plain step at batch B, and the
     kernels' launch plans. The plain backward is its forward and
     ``torch.autograd.grad`` in one graph, less the plain forward's. No
     single PyTorch call computes a rollout step, so there is no library
     time."""
     kernel, plain, leaves, states, eps, cot, (k, z_mm, z_rr) = step_problem(
-        B, seed=7, env=env)
+        B, seed=7, env=env, learned=learned)
     residuals = k.forward(states, eps, z_mm, z_rr)[2:]
 
     def plain_fwd_bwd():
@@ -720,12 +773,14 @@ def step_timings(B, env='Cartpole'):
     return t, step_plans(k)
 
 
-def check_step(B, env='Cartpole', tag='phase 2', saturated=False):
+def check_step(B, env='Cartpole', tag='phase 2', saturated=False,
+               learned=False):
     """The step kernels against the plain step at batch B on ``env``'s
-    shapes (``phase_step_kernels``' tolerance; ``saturated`` as
-    ``step_problem``); the largest error of each."""
+    shapes (``phase_step_kernels``' tolerance; ``saturated`` and
+    ``learned`` as ``step_problem``); the largest error of each."""
     kernel, plain, leaves, states, eps, cot, (k, _, _) = step_problem(
-        B, seed=B, env=env, saturated=saturated)
+        B, seed=B, env=env, saturated=saturated, learned=learned)
+    env = env_label(env, learned)
     got = step_outputs(kernel, leaves, states, eps, cot)
     ref = step_outputs(plain, leaves, states, eps, cot)
     moved = step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
@@ -779,11 +834,12 @@ def phase_step_kernels():
 
 
 def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
-                    saturated=False):
+                    saturated=False, learned=False):
     """The whole rollout at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1; states and rewards
     moment-matched, discount 0.9), its inputs made from a seed
-    (``saturated`` as ``step_problem``). Returns (kernel loss, kernel
+    (``saturated`` and ``learned`` as ``step_problem``). Returns (kernel
+    loss, kernel
     value-and-grad, plain loss, policy params, policy leaves, the arguments
     after the policy params, (dyn, pol, w_t))."""
     rng = np.random.RandomState(seed)
@@ -791,7 +847,7 @@ def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol, D, U = env_models(env)
+    dyn, pol, D, U = env_models(env, learned=learned)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
@@ -799,7 +855,7 @@ def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
     if saturated:
         saturate(pol_params, U)
     leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
-    stats = dyn.fit_stats(*map(t, stats_data(env, rng)))
+    stats = dyn.fit_stats(*map(t, stats_data(env, rng, learned=learned)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
     # angles all round the circle (the main path starts hanging, where the
@@ -852,7 +908,7 @@ def time_launches(fn, n=ROLLOUT_LAUNCHES, reps=5):
     return float(np.median(times))
 
 
-def rollout_timings(env='Cartpole', split=True):
+def rollout_timings(env='Cartpole', split=True, learned=False):
     """ms of each rollout kernel (CUDA events around launches in a row: a
     cooperative launch is not captured in a graph here) and of the plain
     version (CUDA graph replay) at the main-path batch and horizon. The
@@ -861,7 +917,7 @@ def rollout_timings(env='Cartpole', split=True):
     No single PyTorch call computes a rollout, so there is no library
     time. With ``split`` it logs the kernel's own time split of row 5."""
     _, _, plain, pol_params, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        MAIN_B, 7, env=env)
+        MAIN_B, 7, env=env, learned=learned)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, True, True, True, True,
                          MAIN_B, x0.device)
@@ -901,10 +957,10 @@ def rollout_timings(env='Cartpole', split=True):
     return t
 
 
-def k_plan(B, env='Cartpole'):
+def k_plan(B, env='Cartpole', learned=False):
     """The whole-rollout kernel's launch plan at the main widths and batch
     B on this card for ``env``'s shapes, as text."""
-    dyn, pol, D, _ = env_models(env)
+    dyn, pol, D, _ = env_models(env, learned=learned)
     p = fr.rollout_plan(*net_dims(dyn, pol), D, B, MAIN_T,
                         fr.max_clusters(torch.cuda.current_device()))
     return (f'{p.clusters} clusters of {p.particles} particles in '
@@ -932,13 +988,14 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
     def weights(dims):
         return sum(a * b for a, b in zip(dims[:-1], dims[1:])) + sum(dims[1:])
 
+    E = dyn_dims[-1] // 2  # the dynamics density's outputs (D + 1: learned)
     wp, wd = weights(pol_dims), weights(dyn_dims)
     mults = 2 * B * (wp + wd)  # both MLPs' products in one step
     masks = B * (sum(pol_dims[1:-1]) + sum(dyn_dims[1:-1]))
-    stats = 2 * (D + U) + 2 * D
+    stats = 2 * (D + U) + 2 * E
     # weights, masks, stats, x0, both density noises, w_t, the MM noise
     # stacks and action_eps
-    inputs = (wp + wd + masks + stats + B * (2 * D + U) + T
+    inputs = (wp + wd + masks + stats + B * (D + U + E) + T
               + T * B * (D + U + (1 if r_mm else 0)))
     residuals = (T + 1) * B * D + T * B * (D + 1)  # boundary states, pre-MM
     sall, per_particle = T * B * D, 3 * B  # states_all; disc, raw, vret
@@ -957,12 +1014,12 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
 
 
 def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
-                  saturated=False):
+                  saturated=False, learned=False):
     """The whole-rollout kernels against the plain version at batch B on
     ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated`` as
     ``step_problem``); the largest error of each."""
     kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(
-        B, B, mean_only, env=env, saturated=saturated)
+        B, B, mean_only, env=env, saturated=saturated, learned=learned)
     got = rollout_outputs(kloss, pp, leaves, args)
     ref = rollout_outputs(plain, pp, leaves, args)
     moved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
@@ -988,6 +1045,7 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
     # dynamics within float32 rounding of 0 moves one particle's entries
     # alone (seen at B = 1500, saturated), held as the grid's (hold_rows)
     eps_by_rows = env == 'JaxLunarLander'
+    env = env_label(env, learned)
     if saturated:
         env = f'{env} saturated'
     for kern, lab, a, r, m in checks:
@@ -1030,13 +1088,13 @@ def phase_rollout_kernels():
 
 
 def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
-                 env='Cartpole', saturated=False):
+                 env='Cartpole', saturated=False, learned=False):
     """The grid rollout on ``rollout_problem``'s inputs: (kernel rollout,
     plain rollout, policy params, leaves, the rollout's arguments after the
     policy params, cotangents of disc, raw, vret and states_all, (dyn, pol,
     w_t, vw_t)); vret weighs step t by (T - 1 - t) / T."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        B, seed, False, T, env=env, saturated=saturated)
+        B, seed, False, T, env=env, saturated=saturated, learned=learned)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     rng = np.random.RandomState(seed + 1)
 
@@ -1066,6 +1124,72 @@ def grid_outputs(fn, pp, leaves, args, cot, x0_scale=1.0):
     return [o.detach() for o in outs] + list(grads)
 
 
+def forced_grid_plain(dyn, pol, T, mm_states, mm_rewards, states_all):
+    """``fr.make_grid_rollout_plain``'s rollout along the trajectory
+    ``states_all`` [T, B, D] (a kernel's): step t runs the plain step from
+    s_t and its next state takes the value of states_all[t] through a
+    straight-through term, so the gradients are the plain step's VJPs
+    chained along that trajectory. Along the kernel's own trajectory every
+    ReLU decides on the states the kernel's did, where against the
+    free-running plain version, whose states drift from the kernel's by
+    float32 rounding over T resamples, a unit near 0 may take the other
+    branch in one of the two."""
+    step = fr.make_step_plain(dyn, pol, mm_states, mm_rewards)
+
+    def rollout(pol_params, x0, z_mm_t, z_rr_t, action_eps, dyn_params,
+                dyn_stats, dyn_noise, pol_noise, w_t, vw_t):
+        s, disc, raw, vret, sall = x0, 0.0, 0.0, 0.0, []
+        for t in range(T):
+            nxt, r = step(pol_params, s,
+                          None if z_mm_t is None else z_mm_t[t],
+                          None if z_rr_t is None else z_rr_t[t],
+                          action_eps[t], dyn_params, dyn_stats, dyn_noise,
+                          pol_noise)
+            disc = disc + float(w_t[t]) * r
+            raw = raw + r
+            vret = vret + float(vw_t[t]) * r
+            s = nxt + (states_all[t] - nxt).detach()
+            sall.append(s)
+        return disc, raw, vret, torch.stack(sall)
+
+    return rollout
+
+
+def hold_grid_eps_on_edge(what, kern, dyn, pol, mm_rewards, pp, leaves,
+                          args, cot, got, ref, moved):
+    """The grid's d action_eps ([T, B, U]; ``grid_outputs``' last) where the
+    two versions' trajectories drift across a dynamics ReLU's edge for one
+    particle (the learned lander at B = 1000): elementwise (``hold``)
+    against the plain version forced along the kernel's own states
+    (``forced_grid_plain``; its sensitivity along the kernel's states from
+    x0 moved by 1e-6 relative), then against the free-running plain
+    version by ``hold_rows`` given that forced version. Logs the left-out
+    particle's error against both, the plain version's own change there and
+    the states' drift. Returns ``hold_rows``' result."""
+    T = args[3].shape[0]
+    k_moved = grid_outputs(kern, pp, leaves, args, cot, 1 + 1e-6)
+    forced, forced_m = (
+        grid_outputs(forced_grid_plain(dyn, pol, T, args[1] is not None,
+                                       mm_rewards, sall), pp, leaves, args,
+                     cot, scale)[-1]
+        for sall, scale in ((got[3], 1.0), (k_moved[3], 1 + 1e-6)))
+    a, r, m = got[-1], ref[-1], moved[-1]
+    hold(f'{what} along the kernel\'s states', a, forced, STEP_TOL,
+         forced_m)
+    per = (a - r).double().pow(2).sum((0, 2))
+    for b in torch.topk(per, a.shape[1] // 1000).indices.tolist():
+        log(f'[phase 2] {what}: particle {b} max abs err '
+            f'{float((a - r)[:, b].abs().max()):.3e} against the '
+            f'free-running plain version, '
+            f'{float((a - forced)[:, b].abs().max()):.3e} against the plain '
+            f'version along the kernel\'s states; the free-running plain '
+            f'version\'s own change there when x0 moves by 1e-6 relative '
+            f'{float((m - r)[:, b].abs().max()):.3e}; the kernel\'s states '
+            f'there from the plain version\'s '
+            f'{float((got[3] - ref[3])[:, b].abs().max()):.3e}')
+    return hold_rows(what, a, r, STEP_TOL, m, along=forced)
+
+
 SPLIT = ('weight staging', 'MLP walk (forward)',
          'per-cluster moments + merge + resample (forward)', 'grid barriers',
          'MM adjoint (backward)', 'recompute (backward)',
@@ -1091,14 +1215,14 @@ def log_split(what, parts):
         + f' = {sum(parts):.4f} ms')
 
 
-def grid_timings(B, split=False, env='Cartpole'):
+def grid_timings(B, split=False, env='Cartpole', learned=False):
     """ms of each grid kernel and of the plain version at batch B, T = 15
     (CUDA events around launches in a row, as ``rollout_timings``; the plain
     backward is the plain forward and ``torch.autograd.grad`` in one graph
     less the forward), and with ``split`` the kernel's own time split in ms
     per launch."""
     _, plain, pp, leaves, args, cot, (dyn, pol, w_t, vw_t) = grid_problem(
-        B, 7, env=env)
+        B, 7, env=env, learned=learned)
     x0, z_mm, z_rr, eps, dyn_params, stats, dyn_noise, pol_noise = args[:8]
     k = fr.GridKernel(dyn, pol, MAIN_T, w_t, vw_t, True, True, B, x0.device)
     sk = k.bind(pp, x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr,
@@ -1134,14 +1258,15 @@ def grid_timings(B, split=False, env='Cartpole'):
 
 
 def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
-               saturated=False):
+               saturated=False, learned=False):
     """The grid kernels against the plain grid rollout at batch B on
     ``env``'s shapes, states moment-matched (``phase_grid_kernels``'
-    tolerance; ``saturated`` as ``step_problem``); the largest error of
-    each."""
+    tolerance; ``saturated`` and ``learned`` as ``step_problem``); the
+    largest error of each."""
     names = ['fused_grid_fwd', 'fused_grid_bwd']
-    kern, plain, pp, leaves, args, cot, _ = grid_problem(
-        B, B, True, mm_rewards, env=env, saturated=saturated)
+    kern, plain, pp, leaves, args, cot, (dyn, pol, _, _) = grid_problem(
+        B, B, True, mm_rewards, env=env, saturated=saturated,
+        learned=learned)
     got = grid_outputs(kern, pp, leaves, args, cot)
     ref = grid_outputs(plain, pp, leaves, args, cot)
     moved = grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
@@ -1150,13 +1275,24 @@ def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
               + [f'd pol leaf {i}' for i in range(len(leaves))] + ['d eps'])
     here = {n: 0.0 for n in names}
     rel = loose = 0.0
+    # the learned lander's d action_eps at B = 1000: the trajectories'
+    # drift crosses a dynamics ReLU's edge for one particle
+    # (hold_grid_eps_on_edge)
+    on_edge = env == 'JaxLunarLander' and learned and not saturated
+    env = env_label(env, learned)
     if saturated:
         env = f'{env} saturated'
     for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
         kern_name = names[0] if i < 4 else names[1]
-        check = hold_rows if lab == 'd eps' else hold
-        err, r_err, r_tol = check(f'{env} grid B={B} {lab}', a, r, STEP_TOL,
-                                  m)
+        what = f'{env} grid B={B} {lab}'
+        if lab != 'd eps':
+            err, r_err, r_tol = hold(what, a, r, STEP_TOL, m)
+        elif on_edge:
+            err, r_err, r_tol = hold_grid_eps_on_edge(
+                what, kern, dyn, pol, mm_rewards, pp, leaves, args, cot,
+                got, ref, moved)
+        else:
+            err, r_err, r_tol = hold_rows(what, a, r, STEP_TOL, m)
         here[kern_name] = max(here[kern_name], err)
         rel, loose = max(rel, r_err), max(loose, r_tol)
     log(f'[{tag}] {env} grid B={B} T={MAIN_T} (states'
@@ -1209,32 +1345,40 @@ def phase_env_kernels(rows, card):
     gives), the lander once more saturated (``step_problem``: actions
     exactly on the reward's kinks). Rows 6-7 and 3-5 at B = 100, T = 15
     (3-5 with the reward mean-only shortcut and without), rows 8-9 at
-    B = 1000. At D = 8 each row's time, its bound and its plain version's
-    time beside the D = 5 time of phase 2 (``rows``) from this call and the
+    B = 1000. Then the learned reward (reward kind 3, ``learned``) at
+    Cartpole's shapes (D = 5, U = 1, a head of 12) and at the lander's
+    (D = 8, U = 2, a head of 18, the Box2D lander's; states at the lander's
+    scales), whose grid gradient wrt action_eps is also held along the
+    kernel's own states (``hold_grid_eps_on_edge``). At D = 8 and with a
+    learned reward each row's time, its bound and its plain version's time
+    beside the D = 5 time of phase 2 (``rows``) from this call and the
     card's name and power limit (``card``)."""
-    for env in ENV_KERNEL_ENVS:
-        check_step(MAIN_B, env, 'phase 2b')
+    for env, learned in ENV_KERNEL_ENVS:
+        check_step(MAIN_B, env, 'phase 2b', learned=learned)
         for mean_only in (True, False):
-            check_rollout(MAIN_B, mean_only, env, 'phase 2b')
-        check_grid(GRID_B, True, env, 'phase 2b')
-        if env == 'JaxLunarLander':
+            check_rollout(MAIN_B, mean_only, env, 'phase 2b',
+                          learned=learned)
+        check_grid(GRID_B, True, env, 'phase 2b', learned=learned)
+        if env == 'JaxLunarLander' and not learned:
             check_step(MAIN_B, env, 'phase 2b', saturated=True)
             for mean_only in (True, False):
                 check_rollout(MAIN_B, mean_only, env, 'phase 2b',
                               saturated=True)
             check_grid(GRID_B, True, env, 'phase 2b', saturated=True)
-        _, _, D, U = env_models(env)
-        if D != fr.MAX_D:
+        dyn, _, D, U = env_models(env, learned=learned)
+        if D != fr.MAX_D and not learned:
             continue
-        steps, plans = step_timings(MAIN_B, env)
-        log(f'[phase 2b] {env} launch plans: step B={MAIN_B} {plans}; '
-            f'rollout B={MAIN_B} {k_plan(MAIN_B, env)}; grid B={GRID_B} '
-            f'{k_plan(GRID_B, env)}')
-        times = {**steps, **rollout_timings(env, split=False),
-                 **grid_timings(GRID_B, env=env)[0]}
+        steps, plans = step_timings(MAIN_B, env, learned)
+        label = env_label(env, learned)
+        log(f'[phase 2b] {label} launch plans: step B={MAIN_B} {plans}; '
+            f'rollout B={MAIN_B} {k_plan(MAIN_B, env, learned)}; grid '
+            f'B={GRID_B} {k_plan(GRID_B, env, learned)}')
+        times = {**steps, **rollout_timings(env, False, learned),
+                 **grid_timings(GRID_B, env=env, learned=learned)[0]}
         for name, v in times.items():
             B = GRID_B if name.startswith('fused_grid') else MAIN_B
-            log(f'[phase 2b] {name} B={B}: {env} (D={D}, U={U}) kernel '
+            log(f'[phase 2b] {name} B={B}: {label} (D={D}, U={U}, reward '
+                f'kind {fr.reward_kind(dyn.reward_func)}) kernel '
                 f'{v["ms"]:.4f} ms beside Cartpole (D=5, U=1) '
                 f'{rows[name]["ms"]:.4f} ms; plain {v["plain_ms"]:.4f} ms '
                 f'(Cartpole {rows[name]["plain_ms"]:.4f}); bound '
@@ -1266,11 +1410,13 @@ def build_models(D, U, max_u, reward_func, hidden=(200, 200),
                  nonlin='relu'):
     """The Deep-PILCO examples' default models (by default [200, 200] relu
     MLPs), concrete dropout 0.1 on the dynamics, Bernoulli 0.1 on the
-    policy."""
+    policy; without ``reward_func`` the dynamics learn the reward (a head of
+    D + 1 outputs)."""
+    E = D if reward_func is not None else D + 1
     dyn = DynamicsModel(
-        Regressor(MLPSpec(D + U, 2 * D, hidden, dropout=cdropout(0.1),
+        Regressor(MLPSpec(D + U, 2 * E, hidden, dropout=cdropout(0.1),
                           nonlin=nonlin),
-                  DiagGaussianDensity(D)),
+                  DiagGaussianDensity(E)),
         reward_func=reward_func)
     pol = Policy(MLPSpec(D, 2 * U, hidden, dropout=bdropout(0.1),
                          nonlin=nonlin),
@@ -1653,6 +1799,94 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
     return launches
 
 
+def phase_fixed_critic(iters=FIXED_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
+    """``mc_pilco`` at B = 1000 under a fixed critic (``value_spec`` and
+    ``value_params`` of ``critic_setup``, no update), where the gate must
+    name the grid tier (the whole-rollout kernel adds no bootstrap): one
+    ``fused_grid_fwd`` and one ``fused_grid_bwd`` an iteration, the critic's
+    MLP once each way for the bootstrap and its VJP, no refit; the critic's
+    params untouched. Then one iteration's loss, mean_return and clipped
+    policy grads against the plain path (``make_loss_plain`` with the fixed
+    critic, unfused MLPs) on the same x0 and noise, held as
+    ``compare_value_paths`` holds them. Returns the launch counts, set to 0
+    just before the run."""
+    setup = main_path_setup(seed)
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    V, _, state, vstats = critic_setup(x0_pool.shape[-1], seed, T)
+    vp = state['params']
+    kept = torch.cat([v.reshape(-1) for v in tree_leaves(vp)]).clone()
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
+                        mm_rewards=True)
+    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V)
+    if opt.tier('cuda') != 'grid':
+        raise AssertionError(f'the gate names {opt.tier("cuda")!r} for a '
+                             f'fixed critic at B={B}, expected \'grid\'')
+    stamps = []
+    run_params = tree_map(lambda v: v.detach().clone(), pol_params)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics, n_steps = mc_pilco(
+        x0_pool, dyn, pol, T, dyn_params, dyn_stats, run_params,
+        opt_iters=iters, mm_states=True, mm_rewards=True,
+        init_state_noise=init_noise, n_particles=B, seed=seed, chunk=1,
+        on_iteration=lambda done, m: stamps.append(time.perf_counter()),
+        value_spec=V, value_params=vp, value_stats=vstats)
+    torch.cuda.synchronize()
+    launches = counts()
+    if n_steps != iters or 'v_loss' in metrics:
+        raise AssertionError('the fixed-critic run took a wrong course')
+    if not torch.equal(torch.cat([v.reshape(-1) for v in tree_leaves(vp)]),
+                       kept):
+        raise AssertionError('the fixed critic\'s params moved')
+    report('phase 7 fixed critic', 'mc_pilco under a fixed critic (tier '
+           'grid)', iters, t0, stamps, metrics['loss'],
+           metrics['mean_return'], launches,
+           expect(fused_grid_fwd=iters, fused_grid_bwd=iters,
+                  fused_mlp_fwd=iters, fused_mlp_bwd=iters), T, B)
+    plain = fr.make_loss_plain(fr.unfused(dyn), fr.unfused(pol), T, opt.w_t,
+                               True, True, True, w_H=opt.w_H,
+                               value_spec=fr.unfused(V))
+    noise = opt.prepare_noise(opt.sample_noise(
+        seeded_generator('cuda', seed, 1), x0_pool.shape[-1], 'cuda'), 'cuda')
+    x0 = opt.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
+                       torch.tensor(init_noise, device='cuda'))
+    params = [q.requires_grad_(True) for q in tree_leaves(pol_params)]
+
+    def run(loss_fn):
+        loss, mret = loss_fn()[:2]
+        grads = clip_grad_norm(list(torch.autograd.grad(loss, params)), 1.0)
+        return {'loss': loss.detach(), 'mean_return': mret.detach(),
+                'grads': torch.cat([g.reshape(-1) for g in grads])}
+
+    def plain_at(x):
+        return lambda: plain(pol_params, x, dyn_params, dyn_stats,
+                             *noise[:4], extras=(vp, vstats, noise[4]))
+
+    got = run(lambda: opt.loss(pol_params, x0, dyn_params, dyn_stats, noise,
+                               value_stats=vstats, value_params=vp))
+    ref, moved = run(plain_at(x0)), run(plain_at(x0 * (1 + 1e-6)))
+    bare = run(lambda: plain(pol_params, x0, dyn_params, dyn_stats,
+                             *noise[:4], extras=(None, vstats, noise[4])))
+    if not float((bare['loss'] - ref['loss']).abs()) > 0:
+        raise AssertionError('the bootstrap did not move the loss')
+    floor = {'loss': 1e-4 * float(ref['loss'].abs()),
+             'mean_return': 1e-4 * float(ref['mean_return'].abs()),
+             'grads': 1e-3 * float(ref['grads'].abs().max())}
+    for k, f in floor.items():
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f'non-finite {k} on the kernel path')
+        err = float((got[k] - ref[k]).abs().max())
+        tol = max(f, 3 * float((moved[k] - ref[k]).abs().max()))
+        log(f'[phase 7 fixed critic] one iteration, kernel vs plain path: '
+            f'{k} max abs err {err:.3e} (tolerance {tol:.3e}; plain '
+            f'{float(ref[k].abs().max()):.6e} max abs; without the '
+            f'bootstrap {float(bare[k].abs().max()):.6e})')
+        if err > tol:
+            raise AssertionError(f'kernel path and plain path disagree: {k}')
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the episode
 # ---------------------------------------------------------------------------
@@ -1769,12 +2003,14 @@ def episode_policy_check(results, args, tag):
     plain path (``compare_paths``: ``utils.rollout`` on unfused MLPs, the
     same x0 and noise, the tolerance the plain path's own sensitivity, at
     least 1e-4 of |loss| and 1e-3 of max|grad|), with the experience's
-    states as the x0 pool, as phase 5 does."""
+    states as the x0 pool, as phase 5 does; with a learned reward the
+    dynamics' stats take the rewards' column too."""
     exp = ExperienceDataset()
     ck = load_checkpoint(results, exp=exp, device='cuda')
-    X, Y = (torch.as_tensor(a, device='cuda')
-            for a in exp.get_dynmodel_dataset(deltas=True))
     _, dyn, pol = driver_models(args)
+    X, Y = (torch.as_tensor(a, device='cuda')
+            for a in exp.get_dynmodel_dataset(
+                deltas=True, return_costs=dyn.reward_func is None))
     stats = dyn.fit_stats(X, Y)
     pool = np.concatenate([np.asarray(ep, np.float32) for ep in exp.states])
     pol_params = tree_map(lambda p: p.requires_grad_(True), ck['pol'])
@@ -1801,15 +2037,13 @@ def run_episodes(argv, episodes, tag, checks):
     the entry point's settings) with ``argv`` into a temporary folder under
     ``build/``, every count set to 0 just before it. Checks every value
     finite, E_lml rising within each fit, the tier the gate names for the
-    driver's configuration (``'full'`` where the env gives the reward, None
-    for the ``utils.rollout`` route where the driver learns it) and that
-    route's exact launch counts: fused-MLP forward one a fit step and one a
-    control step taken (the lander may end an episode early; counted from
-    the experience), backward one a fit step, and ``fused_rollout_vg`` one a
-    policy iteration on ``'full'``, or 2 T fused-MLP forward and backward
-    launches a policy iteration on the ``utils.rollout`` route; then
-    ``checks(results folder, args)`` on its checkpoint. Returns the launch
-    counts and the per-episode records."""
+    driver's configuration (``'full'``, whether the env gives the reward or
+    the driver learns it) and its exact launch counts: fused-MLP forward one
+    a fit step and one a control step taken (the lander may end an episode
+    early; counted from the experience), backward one a fit step, and
+    ``fused_rollout_vg`` one a policy iteration, no fused-MLP launch from
+    the policy loop; then ``checks(results folder, args)`` on its
+    checkpoint. Returns the launch counts and the per-episode records."""
     root = Path(__file__).resolve().parent / 'build'
     root.mkdir(exist_ok=True)
     folder = tempfile.mkdtemp(prefix='chip_smoke_episode_', dir=root)
@@ -1853,23 +2087,20 @@ def run_episodes(argv, episodes, tag, checks):
         cfg = MCPILCOConfig(n_particles=args.pol_batch_size, steps=args.pred_H,
                             mm_states=True, mm_rewards=True)
         tier = make_mc_pilco_fn(dyn, pol, cfg, 'cuda').tier('cuda')
-        learned = dyn.reward_func is None
+        reward = ('a learned reward' if dyn.reward_func is None
+                  else 'the env\'s reward')
         log(f'[{tag}] the tier mc_pilco takes for the driver\'s '
-            f'configuration: {tier!r}')
-        if tier != (None if learned else 'full'):
+            f'configuration ({reward}, reward kind '
+            f'{fr.reward_kind(dyn.reward_func)}): {tier!r}')
+        if tier != 'full':
             raise AssertionError(f'the gate names {tier!r}')
         exp = ExperienceDataset()
         exp.load(str(Path(results) / 'experience.pkl'))
         steps = sum(len(ep) for ep in exp.states)
         pol_iters = episodes * EPISODE_POL_ITERS
-        if learned:
-            route = 2 * args.pred_H * pol_iters
-            want = expect(fused_mlp_fwd=episodes * FIT_ITERS + steps + route,
-                          fused_mlp_bwd=episodes * FIT_ITERS + route)
-        else:
-            want = expect(fused_mlp_fwd=episodes * FIT_ITERS + steps,
-                          fused_mlp_bwd=episodes * FIT_ITERS,
-                          fused_rollout_vg=pol_iters)
+        want = expect(fused_mlp_fwd=episodes * FIT_ITERS + steps,
+                      fused_mlp_bwd=episodes * FIT_ITERS,
+                      fused_rollout_vg=pol_iters)
         log(f'[{tag}] {episodes} episode(s) in {wall:.3f} s, {steps} control '
             f'steps taken; launches {launches} (expected {want})')
         if launches != want:
@@ -1908,26 +2139,29 @@ def evaluate_check(results, tag):
 
 def phase_env_episodes():
     """Phase 9: one full-width episode of the same driver and cuts on each
-    of ENV_EPISODE_ENVS (``run_episodes``), each checked by one fit step
-    against its plain path and, where the env gives the reward (every env
-    but the Box2D lander), one policy iteration; the lander's run then
-    replayed by ``evaluate_policy``. Logs which class ``make('LunarLander')``
-    gives and each env's fit ms a step and policy ms an iteration."""
-    for env in ENV_EPISODE_ENVS:
-        tag = f'phase 9 {env}'
-        if env == 'LunarLander':
+    of ENV_EPISODE_ENVS (``run_episodes``), then one on Cartpole with
+    ``--learn_reward`` (whose policy iterations the whole-rollout kernel
+    takes with the learned reward, kind 3), each checked by one fit step
+    and one policy iteration (row 5) against their plain paths; the
+    lander's run then replayed by ``evaluate_policy``. Logs which class
+    ``make('LunarLander')`` gives and each run's fit ms a step and policy
+    ms an iteration."""
+    runs = [(env, ['-e', env]) for env in ENV_EPISODE_ENVS]
+    runs.append(('Cartpole --learn_reward', ['--learn_reward']))
+    for name, argv in runs:
+        tag = f'phase 9 {name}'
+        if name == 'LunarLander':
             log(f'[{tag}] make(\'LunarLander\') gives '
-                f'{type(envs.make(env, device="cuda")).__name__}')
+                f'{type(envs.make(name, device="cuda")).__name__}')
 
         def checks(results, args):
             episode_fit_checks(results, args, tag, profile=False)
-            if driver_models(args)[1].reward_func is not None:
-                episode_policy_check(results, args, tag)
+            episode_policy_check(results, args, tag)
             if args.env == 'LunarLander':
                 evaluate_check(results, tag)
 
-        _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1', '-e', env],
-                               1, tag, checks)
+        _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1'] + argv, 1,
+                               tag, checks)
         log(f'[{tag}] fit {1e3 * r["fit_s"] / FIT_ITERS:.4f} ms a step, '
             f'policy {1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an '
             'iteration')
@@ -1956,17 +2190,27 @@ def start(name):
     return card
 
 
+def lap(what, since):
+    """Log the host-clock seconds since ``since``; returns now."""
+    now = time.perf_counter()
+    log(f'[time] {what} in {now - since:.1f} s (host clock)')
+    return now
+
+
 def main():
     card = start('chip_smoke')
     if card is None:
         return 1
 
+    t = time.perf_counter()
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
             **phase_rollout_kernels(), **phase_grid_kernels()}
+    t = lap('phase 2', t)
     phase_env_kernels(rows, card)
-    T = MAIN_T
+    t = lap('phase 2b', t)
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)
+    T = MAIN_T
     phase_mc_pilco(ROUTE_ITERS, False, 'phase 3', expect(
         fused_mlp_fwd=2 * T * ROUTE_ITERS, fused_mlp_bwd=2 * T * ROUTE_ITERS),
         None)
@@ -1988,8 +2232,12 @@ def main():
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
     value_path = phase_value_path()
+    phase_fixed_critic()
+    t = lap('phases 3-7', t)
     episode = phase_episode()
+    t = lap('phase 8', t)
     phase_env_episodes()
+    lap('phase 9', t)
     runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': value_path}

@@ -19,8 +19,9 @@ optimizer is built is taken:
     iteration (``make_fused_value_and_grad``, no autograd), then clip and
     the optimizer step; ``MCPILCO.loss`` goes through the differentiable
     whole-rollout loss (forward and backward kernels);
-  - ``'grid'`` (with a value update): one launch of each grid kernel per
-    iteration, the critic refit and the bootstrap between them;
+  - ``'grid'`` (with a value update or a fixed critic): one launch of each
+    grid kernel per iteration, the critic refit (with an update) and the
+    bootstrap between them;
   - ``'step'`` (when the batch is beyond the particles the card holds of
     the whole rollout at once): one forward and one backward kernel per
     rollout step;
@@ -33,8 +34,14 @@ Value bootstrap (``value_spec`` and ``value_update`` from
 ``algorithms.value.make_value_update_fn``; JAX ``mc_pilco.py:397-440``): each
 iteration refits the critic on the detached imagined trajectory (TD(H)), then
 adds ``w_H * V(s_T)`` under the refit critic's detached params to every
-particle's discounted return. The critic's masks are the epoch noise's
-(``val_mask_mode='epoch'``).
+particle's discounted return. The refit's critic masks are the epoch noise's
+(``val_mask_mode='epoch'``) or drawn afresh every iteration (``'iter'``, from
+a generator of the iteration's seed, as JAX's ``fold_in(step_key, 0x7A1)``;
+no fused tier takes it, as in JAX); the bootstrap evaluates under the epoch
+noise's. With ``value_spec`` and no update (a fixed critic) the bootstrap is
+added under ``value_params`` as they are (JAX ``mc_pilco.py:421-430``), on
+the grid tier or the ``utils.rollout`` route, never the whole-rollout tier,
+whose kernel has no bootstrap.
 
 ``mc_pilco`` is the host loop over chunks of iterations (hooks, writer,
 progress line) and ``MCPILCOAgent`` bundles specs, params, dataset and
@@ -42,9 +49,8 @@ optimizers.
 
 Not ported yet (raise NotImplementedError, naming their ``ROADMAP.md``
 item): non-PEGASUS per-step noise, ``mm_method='mix'``,
-``infer_noise_variables``, initial-state prioritized replay, a bootstrap
-under a fixed critic, fresh critic masks every iteration
-(``val_mask_mode='iter'``) and particle sharding (``mesh``).
+``infer_noise_variables``, initial-state prioritized replay and particle
+sharding (``mesh``).
 """
 import dataclasses
 import functools
@@ -111,8 +117,8 @@ class MCPILCOConfig:
     init_state_noise: float = 0.0
     resampling_period: int = 499
     with_priorities: bool = False
-    # the critic's dropout masks: 'epoch' (the epoch noise, the reference's)
-    # or 'iter' (fresh every iteration; not ported)
+    # the critic refit's dropout masks: 'epoch' (the epoch noise, the
+    # reference's) or 'iter' (fresh every iteration)
     val_mask_mode: str = 'epoch'
     # The fused tiers of ops.cuda.fused_rollout. None = on for CUDA tensors
     # when fused_rollout.fused_mode admits the configuration; True = always
@@ -136,6 +142,7 @@ def seeded_generator(device, *keys):
 
 
 _EPOCH_TAG, _ITER_TAG = 0x5EED, 0x17E4
+_CRITIC_MASK_TAG = 0x7A1  # JAX's fold_in of the iteration key for 'iter'
 
 
 class MCPILCO:
@@ -144,8 +151,9 @@ class MCPILCO:
     ``device``: where the iterations will run. The fused tier is chosen when
     the optimizer is built; for a CUDA device the gate checks that the card
     holds the whole-rollout kernel's clusters for the batch at once
-    (``mc_pilco`` passes the pool's device). ``value_spec`` / ``value_update``: the critic's
-    ``Regressor`` and its update, for the value bootstrap."""
+    (``mc_pilco`` passes the pool's device). ``value_spec`` /
+    ``value_update``: the critic's ``Regressor`` and its update, for the
+    value bootstrap; ``value_spec`` alone is a fixed critic."""
 
     def __init__(self, dyn, pol, config, device, value_spec=None,
                  value_update=None):
@@ -162,16 +170,9 @@ class MCPILCO:
             raise NotImplementedError('initial-state prioritized replay is '
                                       'not ported yet (ROADMAP.md Queue 1: '
                                       'Native sum tree and tooling)')
-        if (value_spec is None) != (value_update is None):
-            raise NotImplementedError(
-                'the value bootstrap takes value_spec with value_update (a '
-                'bootstrap under a fixed critic is not ported: ROADMAP.md '
-                'Queue 1, The rest of the value bootstrap)')
-        if value_update is not None and cfg.val_mask_mode != 'epoch':
-            raise NotImplementedError("val_mask_mode='iter' (fresh critic "
-                                      'masks every iteration) is not ported '
-                                      'yet (ROADMAP.md Queue 1: The rest of '
-                                      'the value bootstrap)')
+        if cfg.val_mask_mode not in ('epoch', 'iter'):
+            raise ValueError("val_mask_mode must be 'epoch' or 'iter', not "
+                             f'{cfg.val_mask_mode!r}')
         self.dyn, self.pol, self.cfg = dyn, pol, cfg
         self.value_spec, self.value_update = value_spec, value_update
         self.B = cfg.n_particles
@@ -198,7 +199,8 @@ class MCPILCO:
             args = (dyn, pol, cfg.steps, self.w_t, cfg.mm_states,
                     cfg.mm_rewards, cfg.maximize)
             kw = dict(mode=self.mode, mm_rewards_mean_only=self.mr_mean_only,
-                      value_update=value_update, w_H=self.w_H)
+                      value_update=value_update, w_H=self.w_H,
+                      value_spec=value_spec)
             self.fused_loss = fr.make_fused_loss(*args, **kw)
             if self.mode == 'full':
                 self.fused_vg = fr.make_fused_value_and_grad(*args, **kw)
@@ -239,29 +241,38 @@ class MCPILCO:
                 fr.prepare_mm_noise(z_rr, cfg.steps, self.B)
                 if cfg.mm_rewards else None) + tuple(noise[4:])
 
-    def _extras(self, noise, value_carry, value_stats):
-        if self.value_update is None:
-            return ()
-        return (*value_carry, value_stats, noise[4])
+    def _extras(self, noise, value_carry, value_stats, value_params):
+        if self.value_update is not None:
+            return (*value_carry, value_stats, noise[4])
+        if self.value_spec is not None:  # a fixed critic
+            return (value_params, value_stats, noise[4])
+        return ()
 
     def loss(self, pol_params, x0, dyn_params, dyn_stats, noise,
-             value_carry=None, value_stats=None):
+             value_carry=None, value_stats=None, value_params=None,
+             value_key=None):
         """(loss, mean_return), differentiable, by the route ``x0``'s device
         takes, with ``noise`` from ``prepare_noise``; with a value update,
         given ``value_carry`` = (v_params, v_target, v_opt_state) and the
         critic's stats, (loss, mean_return, (v_params', v_target',
-        v_opt_state', v_loss)) after the critic refit."""
+        v_opt_state', v_loss)) after the critic refit (``value_key``: the
+        generator of its masks with ``val_mask_mode='iter'``). With a fixed
+        critic the bootstrap is under ``value_params``."""
         if self.tier(x0.device) is None:
             return self.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise,
                                 value_carry=value_carry,
-                                value_stats=value_stats)
+                                value_stats=value_stats,
+                                value_params=value_params,
+                                value_key=value_key)
         loss, mean_return, aux = self.fused_loss(
             pol_params, x0, dyn_params, dyn_stats, *noise[:4],
-            extras=self._extras(noise, value_carry, value_stats))
+            extras=self._extras(noise, value_carry, value_stats,
+                                value_params))
         return (loss, mean_return) + ((aux,) if aux else ())
 
     def loss_fn(self, pol_params, x0, dyn_params, dyn_stats, noise,
-                action_eps=None, value_carry=None, value_stats=None):
+                action_eps=None, value_carry=None, value_stats=None,
+                value_params=None, value_key=None):
         """``loss``'s result through ``utils.rollout`` for explicit initial
         states and noise as drawn (JAX ``mc_pilco.py:380-440``)."""
         cfg = self.cfg
@@ -275,19 +286,24 @@ class MCPILCO:
         w_t = torch.as_tensor(self.w_t, device=rewards.device)
         returns = torch.sum(rewards[..., 0] * w_t[:, None], 0)
         aux = ()
+        bootstrap = value_params
         if self.value_update is not None:
             # the critic refit on the detached trajectory, then the bootstrap
-            # under its detached params (JAX mc_pilco.py:397-431)
+            # under its detached params (JAX mc_pilco.py:397-431); its masks
+            # the epoch noise's, or with 'iter' drawn from value_key
             v_params, v_tgt, v_opt = value_carry
-            v_noise = noise[4]
+            masks = (dict(noise=noise[4]) if cfg.val_mask_mode == 'epoch'
+                     else dict(key=value_key))
             *vc, v_loss = self.value_update(
                 v_params, v_tgt, v_opt, value_stats, states.detach(),
-                rewards.detach(), noise=v_noise)
-            v_end = self.value_spec.apply(
-                tree_map(torch.Tensor.detach, vc[0]), value_stats, states[-1],
-                v_noise, return_samples=True)
-            returns = returns + float(self.w_H) * v_end[..., 0]
+                rewards.detach(), **masks)
+            bootstrap = vc[0]
             aux = (*vc, v_loss)
+        if self.value_spec is not None and bootstrap is not None:
+            v_end = self.value_spec.apply(
+                tree_map(torch.Tensor.detach, bootstrap), value_stats,
+                states[-1], noise[4], return_samples=True)
+            returns = returns + float(self.w_H) * v_end[..., 0]
         if cfg.maximize:
             returns = -returns
         selected, _ = cvar_filter(returns, cfg.cvar_eps)
@@ -316,10 +332,12 @@ class MCPILCO:
 
     def iteration(self, pol_params, optimizer, dyn_params, dyn_stats,
                   x0_pool, noise, generator, init_noise=None,
-                  value_carry=None, value_stats=None):
+                  value_carry=None, value_stats=None, value_params=None,
+                  value_key=None):
         """One optimizer step; returns detached (loss, mean_return), and with
         a value update (v_loss, value_carry') after them (JAX
-        ``mc_pilco.py:442-506``). ``noise`` comes from ``prepare_noise``."""
+        ``mc_pilco.py:442-506``). ``noise`` comes from ``prepare_noise``;
+        ``value_params``, ``value_key``: as in ``loss``."""
         x0 = self.sample_x0(x0_pool, generator, init_noise)
         params = tree_leaves(pol_params)
         if self.tier(x0.device) == 'full':
@@ -329,7 +347,8 @@ class MCPILCO:
         else:
             loss, mean_return, *aux = self.loss(
                 pol_params, x0, dyn_params, dyn_stats, noise,
-                value_carry=value_carry, value_stats=value_stats)
+                value_carry=value_carry, value_stats=value_stats,
+                value_params=value_params, value_key=value_key)
             aux = aux[0] if aux else ()
             grads = torch.autograd.grad(loss, params)
         if self.cfg.clip_grad is not None:
@@ -344,10 +363,11 @@ class MCPILCO:
 
     def __call__(self, pol_params, optimizer, dyn_params, dyn_stats, x0_pool,
                  seed, n_opt_steps, iters, init_state_noise=None,
-                 value_state=None, value_stats=None):
+                 value_state=None, value_stats=None, value_params=None):
         """Run ``iters`` iterations from the global step ``n_opt_steps``.
         With a value update, ``value_state`` (a dict with 'params',
-        'target', 'opt_state') is carried through them and updated in place.
+        'target', 'opt_state') is carried through them and updated in place;
+        with a fixed critic the bootstrap is under ``value_params``.
 
         Returns ({'loss': [iters], 'mean_return': [iters], and 'v_loss'
         [iters] with a value update} on the device, n_opt_steps + iters).
@@ -368,9 +388,13 @@ class MCPILCO:
                     seeded_generator(device, seed, _EPOCH_TAG, epoch), D,
                     device), device)
             gen = seeded_generator(device, seed, _ITER_TAG, n)
+            key = None
+            if carry is not None and self.cfg.val_mask_mode == 'iter':
+                key = seeded_generator(device, seed, _ITER_TAG, n,
+                                       _CRITIC_MASK_TAG)
             out = self.iteration(pol_params, optimizer, dyn_params, dyn_stats,
                                  x0_pool, noise, gen, init_state_noise, carry,
-                                 value_stats)
+                                 value_stats, value_params, key)
             if carry is not None:
                 carry = out[3]
             hist.append(out[:3])
@@ -421,18 +445,15 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     ``MCPILCOConfig.fused_rollout``. With ``value_update_fn`` and
     ``value_state`` (a dict with 'params', 'target', 'opt_state'), the
     critic ``value_spec`` refits every iteration and ``value_state`` is
-    updated in place; ``metrics`` then also holds ``v_loss``.
+    updated in place; ``metrics`` then also holds ``v_loss``. Without them,
+    ``value_spec`` with ``value_params`` is a fixed critic whose bootstrap
+    every iteration adds.
 
     Returns (pol_params, opt_state, metrics (numpy), n_opt_steps).
     """
     if mesh is not None:
         raise NotImplementedError('particle sharding (mesh) is not ported '
                                   'yet (ROADMAP.md Queue 1: Parallel)')
-    if value_params is not None and value_update_fn is None:
-        raise NotImplementedError(
-            'a bootstrap under a fixed critic (value_params without '
-            'value_update_fn) is not ported yet (ROADMAP.md Queue 1: The '
-            'rest of the value bootstrap)')
     params = tree_leaves(pol_params)
     for p in params:
         p.requires_grad_(True)
@@ -477,7 +498,8 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
                                       dyn_stats, x0_pool, seed, n_opt_steps,
                                       n, init_state_noise=init_noise,
                                       value_state=value_state,
-                                      value_stats=value_stats)
+                                      value_stats=value_stats,
+                                      value_params=value_params)
         metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         all_metrics.append(metrics)
         if writer is not None:

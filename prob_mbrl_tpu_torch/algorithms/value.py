@@ -10,8 +10,7 @@ a ``DiagGaussianDensity`` head (JAX's sign: minimise -log p), plus
 ``reg_weight`` times the critic's dropout regulariser. One Adam step follows,
 then the polyak target ``tau * params + (1 - tau) * target``.
 
-Not ported yet: ``make_q_update_fn`` (it waits for MBDDPG) and fresh critic
-masks for every update (``key=``, ``val_mask_mode='iter'``).
+Not ported yet: ``make_q_update_fn`` (it waits for MBDDPG).
 """
 import collections
 
@@ -83,7 +82,10 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
     Returns ``update(params, target_params, opt_state, stats, states,
     rewards, key=None, noise=None) -> (params, target_params, opt_state,
     loss)`` for ``states`` [T+1, B, D] and ``rewards`` [T, B, 1] of a
-    rollout (T >= H), with the critic's masks from ``noise``. Its attributes
+    rollout (T >= H), with the critic's masks from ``noise`` or, when it is
+    None, drawn for this update from ``key`` (a ``torch.Generator`` on the
+    states' device: ``V.sample_noise(key, (B,))``, as JAX draws them from
+    its key; ``val_mask_mode='iter'``). Its attributes
     ``core`` (the update from (s0, sH, returns), which the fused rollout
     tiers call), ``spec``, ``H``, ``w_t`` and ``w_H`` are JAX's.
     """
@@ -124,12 +126,13 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
     def update(params, target_params, opt_state, stats, states, rewards,
                key=None, noise=None):
         if noise is None:
-            if key is not None:
-                raise NotImplementedError(
-                    'fresh critic masks for every update (key=, '
-                    "val_mask_mode='iter') are not ported: pass noise=")
-            raise ValueError('make_value_update_fn: pass noise= (the '
-                             "critic's dropout masks); both were None")
+            if key is None:
+                raise ValueError('make_value_update_fn: pass either key= '
+                                 '(fresh masks for this update) or noise= '
+                                 "(the critic's dropout masks); both were "
+                                 'None')
+            noise = V.sample_noise(key, (states.shape[1],),
+                                   device=states.device)
         w = device_constant(tuple(float(x) for x in w_t), rewards.device,
                             rewards.dtype)
         returns = torch.sum(rewards[:H].detach() * w[:, None, None], 0)

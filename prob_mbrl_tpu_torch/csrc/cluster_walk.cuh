@@ -58,14 +58,16 @@ constexpr int kFN = 0, kFMean = 1, kFM2 = kFMean + kMaxD, kFSd = kFM2 + kTri,
 // a partial of the MM adjoint's sums: sum g, sum g z^T (lower); the reward's two
 constexpr int kBGm = 0, kBGl = kMaxD, kBR = kBGl + kTri, kPartB = 48;
 constexpr int kPart = kPartF > kPartB ? kPartF : kPartB;
-// the tile's small per-row quantities, [feature][TRP] each
-constexpr int kTPout = 0, kTDout = kTPout + 2 * kMaxU, kTU = kTDout + 2 * kMaxD,
+// the tile's small per-row quantities, [feature][TRP] each; the dynamics
+// head's outputs and noise have room for a learned reward's (kMaxD + 1 a half)
+constexpr int kMaxE = kMaxD + 1;
+constexpr int kTPout = 0, kTDout = kTPout + 2 * kMaxU, kTU = kTDout + 2 * kMaxE,
               kTAct = kTU + kMaxU, kTNxt = kTAct + kMaxU, kTR = kTNxt + kMaxD,
               kTGnxt = kTR + 1, kTGact = kTGnxt + kMaxD, kTGs = kTGact + kMaxU,
               kTZp = kTGs + kMaxD, kTEps = kTZp + kMaxU, kTZd = kTEps + kMaxU, kTSmall = 80;
 
 static_assert(kFR + 4 <= kPartF && kBR + 2 <= kPartB, "partials");
-static_assert(kTZd + kMaxD <= kTSmall, "tile arrays");
+static_assert(kTZd + kMaxE <= kTSmall, "tile arrays");
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ __forceinline__ int round4(int a) { return (a + 3) & ~3; }
@@ -629,9 +631,10 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
     cp_async4(ts + (kTZp + k) * TRP + r, st.z_pol + (size_t)(row0 + r) * U + k);
     if (eps_t) cp_async4(ts + (kTEps + k) * TRP + r, eps_t + (size_t)(row0 + r) * U + k);
   }
-  for (int e = tid; e < nrows * D; e += nt) {
-    const int r = e / D, k = e - r * D;
-    cp_async4(ts + (kTZd + k) * TRP + r, st.z_dyn + (size_t)(row0 + r) * D + k);
+  const int E = head_dims(st.reward_kind, D);
+  for (int e = tid; e < nrows * E; e += nt) {
+    const int r = e / E, k = e - r * E;
+    cp_async4(ts + (kTZd + k) * TRP + r, st.z_dyn + (size_t)(row0 + r) * E + k);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (int e = tid; e < D * TR; e += nt) {
@@ -664,7 +667,7 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
   mlp_fwd<kReluOnly>(c, st.dyn, 1, c.lay.xd, keep, c.lay.tsm + kTDout * TRP, row0, nrows);
   for (int e = tid; e < TR * D; e += nt) {
     const int r = e / D, k = e - r * D;
-    const float mr = ts[(kTDout + k) * TRP + r], lsr = ts[(kTDout + D + k) * TRP + r];
+    const float mr = ts[(kTDout + k) * TRP + r], lsr = ts[(kTDout + E + k) * TRP + r];
     const float ls = upper_clip(lsr, st.dyn_upper) + logf(st.sy[k]);
     const float mean = mr * st.sy[k] + st.my[k];
     const bool in = r < nrows;
@@ -674,6 +677,14 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
   }
   __syncthreads();
   for (int r = tid; r < TR; r += nt) {
+    if (st.reward_kind == kLearnedReward) {  // the head's output D, as a state's delta
+      const float mr = ts[(kTDout + D) * TRP + r], lsr = ts[(kTDout + E + D) * TRP + r];
+      const float ls = upper_clip(lsr, st.dyn_upper) + logf(st.sy[D]);
+      const float mean = mr * st.sy[D] + st.my[D];
+      const float z = r < nrows ? ts[(kTZd + D) * TRP + r] : 0.f;
+      ts[kTR * TRP + r] = r < nrows ? mean + z * expf(ls) : 0.f;
+      continue;
+    }
     if (st.reward_kind == kLanderReward) {  // D = 8, U = 2 (fill_step)
       float x[kMaxD], a[2];
       for (int k = 0; k < kMaxD; ++k) x[k] = ts[(kTNxt + k) * TRP + r];
@@ -717,9 +728,17 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   // kind 1 r = -(q |d|^2 + rs |a|^2), dr/dtip_j = -2 q d_j / norm, dr/da_k =
   // -2 rs a_k. gq d_j / norm and ga a_k are the cotangents. Kind 2, the
   // lander: lander_reward_vjp, zero past nrows (a norm of 0 there is NaN).
+  // Kind 3, learned: r is a head output, so nothing reaches nxt or the action
+  // from it here (its gradient enters the head below).
+  const int E = head_dims(st.reward_kind, D);
   for (int r = tid; r < TR; r += nt) {
     const bool in = r < nrows;
     const float gr = in ? g_r[r] : 0.f;
+    if (st.reward_kind == kLearnedReward) {
+      for (int k = 0; k < D; ++k) ts[(kTGnxt + k) * TRP + r] = in ? g_nxt[r * D + k] : 0.f;
+      for (int k = 0; k < U; ++k) ts[(kTGact + k) * TRP + r] = 0.f;
+      continue;
+    }
     if (st.reward_kind == kLanderReward) {  // D = 8, U = 2 (fill_step)
       float x[kMaxD], a[2], gx[kMaxD], gu[2];
       for (int k = 0; k < kMaxD; ++k) x[k] = ts[(kTNxt + k) * TRP + r];
@@ -755,16 +774,18 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   }
   __syncthreads();
   // nxt = s + mean * sy + my + z * exp(upper_clip(lsr) + log sy): the dynamics
-  // output's gradient, all of it, where the first backward layer reads it
+  // output's gradient, all of it, where the first backward layer reads it;
+  // a learned reward, r = mean_D * sy_D + my_D + z_D exp(...), is output D,
+  // with the cotangent g_r
   float* X = c.region(c.pass + 1);
-  for (int e = tid; e < TR * D; e += nt) {
-    const int r = e / D, k = e - r * D;
-    const float g = ts[(kTGnxt + k) * TRP + r];
-    const float lsr = ts[(kTDout + D + k) * TRP + r];
+  for (int e = tid; e < TR * E; e += nt) {
+    const int r = e / E, k = e - r * E;
+    const float g = k < D ? ts[(kTGnxt + k) * TRP + r] : (r < nrows ? g_r[r] : 0.f);
+    const float lsr = ts[(kTDout + E + k) * TRP + r];
     const float ls = upper_clip(lsr, st.dyn_upper) + logf(st.sy[k]);
     const float z = r < nrows ? ts[(kTZd + k) * TRP + r] : 0.f;
     X[k * TRP + r] = g * st.sy[k];
-    X[(D + k) * TRP + r] = (g * z) * expf(ls) * sigmoid_f(st.dyn_upper - lsr);
+    X[(E + k) * TRP + r] = (g * z) * expf(ls) * sigmoid_f(st.dyn_upper - lsr);
   }
   __syncthreads();
   const float* gx = mlp_bwd<kReluOnly>(c, st.dyn, 1, row0, nrows, c.lay.xd, nullptr);

@@ -13,7 +13,8 @@
 //   fused_grid_bwd <- make_grid_rollout._bwd_pallas (the call at :1542)
 // Per step t: the step of rollout_step.cuh on the states s_t (policy ->
 // DiagGaussian sample -> squash + eps -> whitened input -> dynamics -> sample
-// -> nxt, the reward of StepArgs::reward_kind), then s_{t+1} = resample(nxt) (or nxt), r =
+// -> nxt, the reward of StepArgs::reward_kind, learned or not: :500, :568-575),
+// then s_{t+1} = resample(nxt) (or nxt), r =
 // resample(r) (or its particle mean with the reward mean-only shortcut,
 // :583-591, or r itself); disc += w_t r, raw += r; loss = sign * mean(disc),
 // mean_return = mean(raw). The grid kernels run the same sweeps with

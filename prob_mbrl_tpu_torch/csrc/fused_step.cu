@@ -9,8 +9,9 @@
 //   policy MLP -> DiagGaussian sample -> max_u * tanh(.) + eps
 //   -> whitened cat(s, a) -> dynamics MLP -> scaled DiagGaussian sample
 //   -> nxt = s + delta -> the reward on the pre-MM nxt (StepArgs::reward_kind:
-//      the exp-quadratic tip reward, rendezvous's negative quadratic, or the
-//      lunar lander's shaping potential and gated fuel costs)
+//      the exp-quadratic tip reward, rendezvous's negative quadratic, the
+//      lunar lander's shaping potential and gated fuel costs, or a learned
+//      reward, the dynamics head's output D, :1114-1118)
 //   -> moment-matching resample of nxt (D) and of r (D = 1), Cholesky path
 //      with the escalating jitter of _safe_cholesky_kf (:117-203).
 //

@@ -13,7 +13,8 @@
 //      reward closure there, :579 and :1122; here one of three kinds: two of
 //      the linear tip M nxt, the exp-quadratic tip reward of the swing-up
 //      envs or the negative quadratic cost of rendezvous, and the lunar
-//      lander's shaping potential with its gated fuel costs)
+//      lander's shaping potential with its gated fuel costs), or the
+//      learned reward, the dynamics head's last output (:568-575, :1114-1118)
 //   -> moment-matching resample of nxt (D) and of r (D = 1), Cholesky path
 //      with the escalating jitter of _safe_cholesky_kf (:117-203).
 #pragma once
@@ -34,6 +35,10 @@ constexpr int kQuadReward = 1;     // r = -(q |d|^2 + r_u |a|^2)
 // -(|(x0, x1)| + |(x2, x3)| + |x4|) + 0.1 (x6 + x7) - 0.3 m - 0.03 s, m and s
 // the gated engine powers of the clipped action (lander_reward below)
 constexpr int kLanderReward = 2;
+// a learned reward (DynamicsModel without reward_func; no tip): the dynamics
+// head has 2 (D + 1) outputs, and its output D is the reward, r = mean_D +
+// z_D exp(ls_D), sampled like the state deltas but added to nothing
+constexpr int kLearnedReward = 3;
 
 }  // namespace
 
@@ -52,15 +57,16 @@ struct MlpArgs {
 
 struct StepArgs {
   int B, D, U, ntip;
-  int reward_kind;      // kExpQuadReward, kQuadReward or kLanderReward
+  int reward_kind;      // kExpQuadReward, kQuadReward, kLanderReward or kLearnedReward
   MlpArgs pol, dyn;
   const float* states;  // [B, D]
   const float* eps;     // [B, U] or null (zero)
   const float* z_pol;   // [B, U] policy density noise
-  const float* z_dyn;   // [B, D] dynamics density noise
+  const float* z_dyn;   // [B, E] dynamics density noise (E = D, or D + 1 with
+                        //   kLearnedReward: the head's outputs)
   const float* mx;      // [D + U] input whitening: (x - mx) * isx
   const float* isx;
-  const float* my;      // [D] output scaling: mean * sy + my, log_std + log(sy)
+  const float* my;      // [E] output scaling: mean * sy + my, log_std + log(sy)
   const float* sy;
   const float* z_mm;    // [B, D] standardized MM noise of this step (or null)
   const float* z_rr;    // [B, 1]
@@ -142,6 +148,12 @@ __device__ __forceinline__ void lander_reward_vjp(const float* x, const float* a
   ga[1] = (c1 > 0.5f || c1 < -0.5f)
               ? -0.03f * (c1 >= 0.f ? 1.f : -1.f) * clip1_grad(a[1]) * gr
               : 0.f;
+}
+
+// The dynamics density's outputs: the D state deltas, and the reward after
+// them where it is learned.
+__host__ __device__ __forceinline__ int head_dims(int reward_kind, int D) {
+  return reward_kind == kLearnedReward ? D + 1 : D;
 }
 
 __host__ __device__ inline int max_width(const Step& st) {
@@ -253,14 +265,14 @@ bool fill_mlp(Net& net, const MlpArgs& a, int B) {
 bool fill_step(Step& st, const StepArgs* a) {
   if (!a || a->B < 2 || a->D < 1 || a->D > kMaxD || a->U < 1 || a->U > kMaxU
       || a->ntip < 0 || a->ntip > kMaxTip
-      || (a->reward_kind != kExpQuadReward && a->reward_kind != kQuadReward
-          && a->reward_kind != kLanderReward))
+      || a->reward_kind < kExpQuadReward || a->reward_kind > kLearnedReward)
     return false;
   if (a->reward_kind == kLanderReward && (a->D != 8 || a->U != 2 || a->ntip != 0)) return false;
+  if (a->reward_kind == kLearnedReward && a->ntip != 0) return false;
   if (!fill_mlp(st.pol, a->pol, a->B) || !fill_mlp(st.dyn, a->dyn, a->B)) return false;
-  const int D = a->D, U = a->U;
+  const int D = a->D, U = a->U, E = head_dims(a->reward_kind, D);
   if (st.pol.dims[0] != D || st.pol.dims[st.pol.n + 1] != 2 * U
-      || st.dyn.dims[0] != D + U || st.dyn.dims[st.dyn.n + 1] != 2 * D)
+      || st.dyn.dims[0] != D + U || st.dyn.dims[st.dyn.n + 1] != 2 * E)
     return false;
   st.B = a->B;
   st.D = D;

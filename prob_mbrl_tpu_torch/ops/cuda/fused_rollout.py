@@ -27,7 +27,13 @@ grid tiers and the plain loss run the TD(H) critic refit on the detached
 trajectory, then add the bootstrap ``w_H * V(s_T)`` under the refit critic's
 detached params to the discounted return, as plain PyTorch between the
 kernels (``_value_loss``); the in-kernel refit of JAX's ``'full'`` tier
-(``make_loss_impl`` :621-660) is not ported.
+(``make_loss_impl`` :621-660) is not ported. A fixed critic (``value_spec``
+without an update) adds its bootstrap the same way on the grid tier and the
+plain loss, and the other tiers refuse it.
+
+A learned reward (``DynamicsModel`` without ``reward_func``) is the kernels'
+reward kind ``LEARNED_KIND``: the dynamics head has 2 (D + 1) outputs and its
+output D is the reward, sampled like a state delta and added to nothing.
 
 One step: policy -> DiagGaussian sample -> ``max_u * tanh(.) + eps`` ->
 dynamics (whitened input, scaled DiagGaussian sample of the deltas) ->
@@ -72,9 +78,12 @@ _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
 # the rewards the kernels take, at the index of their StepArgs::reward_kind
 # (csrc/rollout_step.cuh): kExpQuadReward, exp(-0.5 (q |d|^2 + r |a|^2)), and
 # kQuadReward, -(q |d|^2 + r |a|^2), both of d = (M nxt - target) / norm; and
-# kLanderReward, the lunar lander's (D = 8, U = 2, no tip matrix)
+# kLanderReward, the lunar lander's (D = 8, U = 2, no tip matrix); after them
+# kLearnedReward, a learned reward (no reward_func: the dynamics head's
+# output D, of 2 (D + 1))
 REWARD_KINDS = (ExpQuadTipReward, QuadTipReward, LanderReward)
 LANDER_KIND = REWARD_KINDS.index(LanderReward)
+LEARNED_KIND = len(REWARD_KINDS)
 
 TIERS = ('full', 'remat', 'step', 'grid')
 _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
@@ -83,6 +92,9 @@ _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
 _REFIT_NOT_PORTED = ("the in-kernel critic refit of mode='full' (PERF.md row "
                      "5, make_loss_impl :621-660) is not ported: mode='grid' "
                      "or 'step' take the value bootstrap")
+_FIXED_NOT_GRID = ("a fixed critic's bootstrap is added on the grid tier "
+                   "alone: the whole-rollout and step kernels add none, "
+                   "mode='grid' takes it")
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {'fused_step_fwd': 0, 'fused_step_bwd': 0, 'fused_rollout_fwd': 0,
@@ -193,25 +205,33 @@ def _value_weights(value_update, steps):
 
 
 def _value_loss(disc, raw, vret, states, x0, maximize, value_update, w_H,
-                extras):
+                extras, value_spec=None):
     """(loss, mean_return, aux) from the per-particle accumulators. With a
     value update: the TD(H) critic refit on the detached (x0, s_H, vret),
     then ``disc += w_H * V(s_T)`` under the refit critic's detached params,
     differentiable through s_T (JAX ``make_loss_impl`` :621-665,
     ``make_stepwise_loss`` :1294-1311, ``make_grid_loss`` :1636-1651);
     ``extras`` = (v_params, v_target, v_opt_state, v_stats, v_noise), aux =
-    (v_params', v_target', v_opt_state', v_loss). Else aux is ()."""
-    aux = ()
+    (v_params', v_target', v_opt_state', v_loss). With ``value_spec`` and no
+    update, a fixed critic: ``extras`` = (v_params, v_stats, v_noise) and the
+    bootstrap under the detached v_params (none when they are None), as
+    JAX's XLA path adds it (``algorithms/mc_pilco.py:421-430``). Else aux is
+    ()."""
+    aux, bootstrap = (), None
     if value_update is not None:
         v_params, v_tgt, v_opt, v_stats, v_noise = extras
         vp2, vt2, vo2, v_loss = value_update.core(
             v_params, v_tgt, v_opt, v_stats, x0.detach(),
             states[value_update.H - 1].detach(), vret.detach(), v_noise)
-        v_end = value_update.spec.apply(
-            tree_map(torch.Tensor.detach, vp2), v_stats, states[-1], v_noise,
-            return_samples=True)
-        disc = disc + float(w_H) * v_end
         aux = (vp2, vt2, vo2, v_loss)
+        value_spec, bootstrap = value_update.spec, vp2
+    elif value_spec is not None:  # a fixed critic
+        bootstrap, v_stats, v_noise = extras
+    if bootstrap is not None:
+        v_end = value_spec.apply(tree_map(torch.Tensor.detach, bootstrap),
+                                 v_stats, states[-1], v_noise,
+                                 return_samples=True)
+        disc = disc + float(w_H) * v_end
     loss = disc.mean()
     if maximize:
         loss = -loss
@@ -220,7 +240,7 @@ def _value_loss(disc, raw, vret, states, x0, maximize, value_update, w_H,
 
 def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                     mm_groups=None, value_update=None, w_H=None,
-                    mm_rewards_mean_only=False):
+                    mm_rewards_mean_only=False, value_spec=None):
     """Plain PyTorch version of the whole-rollout loss (``make_loss_impl``,
     ``fused_rollout.py:472-667``, ungrouped):
     ``loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
@@ -229,9 +249,10 @@ def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
     With ``mm_rewards_mean_only`` (and ``mm_rewards``, and no value update)
     each step's reward is its particle mean, broadcast to [B, 1], and is not
     resampled (``:507-508``, ``:583-591``). With ``value_update`` the critic
-    refit and the bootstrap of ``_value_loss`` (``extras`` and ``aux`` as
-    there). ``z_mm_t`` / ``z_rr_t``: [T, B, zD] from ``prepare_mm_noise``
-    (None where unused); ``action_eps``: [T, B, U] or None."""
+    refit and the bootstrap of ``_value_loss``, with ``value_spec`` alone a
+    fixed critic's bootstrap (``extras`` and ``aux`` as there). ``z_mm_t`` /
+    ``z_rr_t``: [T, B, zD] from ``prepare_mm_noise`` (None where unused);
+    ``action_eps``: [T, B, U] or None."""
     if mm_groups:
         raise NotImplementedError(_GROUPS_NOT_PORTED)
     mean_only = bool(mm_rewards_mean_only and mm_rewards
@@ -250,7 +271,7 @@ def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                                            mean_only, action_eps, z_mm_t,
                                            z_rr_t)
         return _value_loss(disc, raw, vret, states, x0, maximize,
-                           value_update, w_H, extras)
+                           value_update, w_H, extras, value_spec)
 
     return loss_fn
 
@@ -264,33 +285,32 @@ def kernel_refuses(dyn, pol):
     """Why the step kernels cannot take these models, or None if they can."""
     reg = dyn.regressor
     rf = dyn.reward_func
-    if rf is None:
-        return 'a learned reward is not in the step kernels yet'
     kind = reward_kind(rf)
-    if kind is None or (kind != LANDER_KIND and rf.tip_matrix is None):
+    if kind is None or (kind < LANDER_KIND and rf.tip_matrix is None):
         return ('the step kernels take an ExpQuadTipReward whose tip is '
                 'linear in the embedded state (tip_matrix), a '
-                'QuadTipReward or a LanderReward')
+                'QuadTipReward, a LanderReward or a learned reward')
     if pol.angle_dims or reg.angle_dims:
         return 'angle embedding inside the models is not in the step kernels'
     for d in (pol.output_density, reg.output_density):
         if type(d) is not DiagGaussianDensity:
             return 'the step kernels take DiagGaussianDensity heads only'
-    D, U = reg.output_density.output_dims, pol.output_density.output_dims
+    D, U = dyn.state_dims, pol.output_density.output_dims
+    E = reg.output_density.output_dims  # D, or D + 1 with a learned reward
     if not (1 <= D <= MAX_D and 1 <= U <= MAX_U):
         return f'the step kernels take D <= {MAX_D}, U <= {MAX_U}'
-    if kind == LANDER_KIND:
-        if (D, U) != (8, 2):
-            return f'the lander\'s reward needs D = 8, U = 2, not {D}, {U}'
-    elif len(rf.tip_matrix) > MAX_TIP or any(len(row) != D
-                                             for row in rf.tip_matrix):
-        return f'tip_matrix must be [<= {MAX_TIP}, {D}]'
-    elif rf.angle_dims and rf.raw_size == D:
-        return 'the reward would angle-embed the states'
+    if kind == LANDER_KIND and (D, U) != (8, 2):
+        return f'the lander\'s reward needs D = 8, U = 2, not {D}, {U}'
+    if kind < LANDER_KIND:  # a tip reward
+        if len(rf.tip_matrix) > MAX_TIP or any(len(row) != D
+                                               for row in rf.tip_matrix):
+            return f'tip_matrix must be [<= {MAX_TIP}, {D}]'
+        if rf.angle_dims and rf.raw_size == D:
+            return 'the reward would angle-embed the states'
     if len(pol.max_u) not in (1, U) or (pol.min_u is not None
                                         and len(pol.min_u) not in (1, U)):
         return 'action bounds must have 1 or U entries'
-    for spec, din, dout in ((pol.mlp, D, 2 * U), (reg.mlp, D + U, 2 * D)):
+    for spec, din, dout in ((pol.mlp, D, 2 * U), (reg.mlp, D + U, 2 * E)):
         dims = (spec.input_dims,) + spec.hidden_dims + (spec.output_dims,)
         if (spec.input_dims, spec.output_dims) != (din, dout):
             return f'MLP dims {dims} do not fit D={D}, U={U}'
@@ -305,14 +325,18 @@ def kernel_refuses(dyn, pol):
 
 def reward_kind(rf):
     """``StepArgs::reward_kind`` of the reward ``rf`` (its index in
-    ``REWARD_KINDS``), or None for a reward the kernels do not take."""
+    ``REWARD_KINDS``; ``LEARNED_KIND`` for None, a learned reward), or None
+    for a reward the kernels do not take."""
+    if rf is None:
+        return LEARNED_KIND
     return next((i for i, kind in enumerate(REWARD_KINDS)
                  if isinstance(rf, kind)), None)
 
 
 def refuses(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
     """Why the fused tiers cannot take this MC-PILCO configuration, or
-    None."""
+    None. A ``value_spec`` without ``value_update`` is a fixed critic, whose
+    bootstrap only the grid tier adds (``fused_mode``)."""
     if value_update is not None:
         # JAX's conditions (fused_rollout.py:1800-1808)
         if value_spec is None or getattr(value_update, 'core', None) is None:
@@ -354,20 +378,25 @@ def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
     (``kernel_refuses``) admit the tiers; a value update also needs
     ``value_spec``, ``val_mask_mode='epoch'`` and H <= steps, and takes
     ``'grid'`` (the critic refit between the grid kernels; the in-kernel
-    refit of ``'full'`` is not ported). The whole-rollout and grid kernels
-    (one cooperative cluster kernel) need a launch plan whose clusters are
-    all resident on the card at once: for a CUDA ``device`` the batch is
-    checked against the particles the card holds (``rollout_capacity``),
-    and a batch beyond it takes ``'step'``; on the
-    CPU, where every tier runs its plain version, the gate gives ``'full'``
-    or ``'grid'``. None of the TPU's VMEM budgets or crossovers is carried
-    over."""
+    refit of ``'full'`` is not ported). A fixed critic (``value_spec``
+    without an update) takes ``'grid'`` too, whose bootstrap is added after
+    the grid forward, and never ``'full'``, whose kernel adds none (JAX's
+    ``fused_mode`` ignores ``value_spec`` there, :1799-1808, so on a TPU its
+    fused tiers drop that bootstrap; the port keeps JAX's XLA semantics).
+    The whole-rollout and grid kernels (one cooperative cluster kernel) need
+    a launch plan whose clusters are all resident on the card at once: for a
+    CUDA ``device`` the batch is checked against the particles the card
+    holds (``rollout_capacity``), and a batch beyond it takes ``'step'``, or
+    None with a fixed critic; on the CPU, where every tier runs its plain
+    version, the gate gives ``'full'`` or ``'grid'``. None of the TPU's VMEM
+    budgets or crossovers is carried over."""
     if refuses(cfg, dyn, pol, value_update, mesh, value_spec) is not None:
         return None
+    fixed = value_update is None and value_spec is not None
     if torch.device(device).type == 'cuda':
         if cfg.n_particles > rollout_capacity(dyn, pol, device):
-            return 'step'
-    return 'full' if value_update is None else 'grid'
+            return None if fixed else 'step'
+    return 'full' if value_update is None and not fixed else 'grid'
 
 
 def supports(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
@@ -465,9 +494,10 @@ def _scratch(T, clusters, resident, dw, flat):
 @functools.lru_cache(maxsize=None)
 def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS):
     """The whole-rollout kernel's launch plan for these MLP widths (policy
-    ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``) at batch B and
-    horizon T, on a card that holds ``max_clusters`` clusters at once; None
-    when B is beyond what such a card holds (``max_particles``).
+    ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``, or ``2 (D + 1)``
+    with a learned reward) at batch B and horizon T, on a card that holds
+    ``max_clusters`` clusters at once; None when B is beyond what such a
+    card holds (``max_particles``).
 
     ``clusters`` clusters of ``CLUSTER`` CTAs of ``threads`` threads; cluster
     c owns particles [c P, c P + P), P = ``particles`` = ``tiles`` row tiles
@@ -765,7 +795,8 @@ class StepKernel:
                              f'{why}')
         self.mm_states, self.mm_rewards = bool(mm_states), bool(mm_rewards)
         reg = dyn.regressor
-        D, U = reg.output_density.output_dims, pol.output_density.output_dims
+        D, U = dyn.state_dims, pol.output_density.output_dims
+        E = reg.output_density.output_dims  # D, or D + 1: a learned reward
         self.B, self.D, self.U, self.device = B, D, U, device
         self.dims = (_mlp_dims(pol.mlp), _mlp_dims(reg.mlp))
         self._work = None
@@ -808,9 +839,9 @@ class StepKernel:
         self.pol_dims = list(self.dims[0])
         a.z_pol = t(pol_noise['density']['z'], 'policy density noise', (B, U))
         a.z_dyn = t(dyn_noise['density']['z'], 'dynamics density noise',
-                    (B, D))
+                    (B, E))
         for k, name, size in (('mx', 'mx', D + U), ('isx', 'iSx', D + U),
-                              ('my', 'my', D), ('sy', 'Sy', D)):
+                              ('my', 'my', E), ('sy', 'Sy', E)):
             setattr(a, k, t(dyn_stats[name].reshape(-1).contiguous(),
                             f'stats {name}', (size,)))
         a.pol_upper = math.log(pol.output_density.max_noise_std)
@@ -821,7 +852,8 @@ class StepKernel:
             a.act_bias[k] = bias[k if len(bias) > 1 else 0]
         rf = dyn.reward_func
         a.reward_kind = reward_kind(rf)
-        if a.reward_kind == LANDER_KIND:  # no tip: ntip 0, norm 1, scales 0
+        if a.reward_kind in (LANDER_KIND, LEARNED_KIND):
+            # no tip: ntip 0, norm 1, scales 0
             a.ntip, a.norm = 0, 1.0
         else:
             a.ntip = len(rf.tip_matrix)
@@ -1071,8 +1103,7 @@ def rollout_capacity(dyn, pol, device):
     the card holds at once (``max_clusters``). Its cooperative launch needs
     every cluster of the plan resident at once."""
     return max_particles(_mlp_dims(pol.mlp), _mlp_dims(dyn.regressor.mlp),
-                         dyn.regressor.output_density.output_dims,
-                         max_clusters(_device_index(device)))
+                         dyn.state_dims, max_clusters(_device_index(device)))
 
 
 class RolloutKernel:
@@ -1092,7 +1123,7 @@ class RolloutKernel:
         self.mm_states = bool(mm_states)
         self.mean_only = bool(mean_only and mm_rewards)
         self.r_mm = bool(mm_rewards) and not self.mean_only
-        self.D = dyn.regressor.output_density.output_dims
+        self.D = dyn.state_dims
         self.U = pol.output_density.output_dims
         self.pol_dims = list(_mlp_dims(pol.mlp))
         clusters = max_clusters(_device_index(device))
@@ -1446,14 +1477,16 @@ def make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards, mm_groups=None):
 
 
 def make_grid_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
-                   mm_groups=None, value_update=None, w_H=None):
+                   mm_groups=None, value_update=None, w_H=None,
+                   value_spec=None):
     """The grid tier's ``loss_fn(pol_params, x0, dyn_params, dyn_stats,
     dyn_noise, pol_noise, z_mm_t, z_rr_t, action_eps=None, extras=()) ->
     (loss, mean_return, aux)`` (``make_grid_loss``,
     ``fused_rollout.py:1605-1653``): one grid rollout, then (with
     ``value_update``) the critic refit and the bootstrap of ``_value_loss``
-    on its outputs; the bootstrap's gradient reaches the policy through the
-    cotangent of ``states_all[-1]``."""
+    on its outputs, or (with ``value_spec`` alone) a fixed critic's
+    bootstrap, no refit; the bootstrap's gradient reaches the policy through
+    the cotangent of ``states_all[-1]``."""
     rollout = make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards,
                                 mm_groups)
     w_list = _floats(w_t)
@@ -1465,20 +1498,20 @@ def make_grid_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
             pol_params, x0, z_mm_t, z_rr_t, action_eps, dyn_params,
             dyn_stats, dyn_noise, pol_noise, w_list, vw_list)
         return _value_loss(disc, raw, vret, sall, x0, maximize,
-                           value_update, w_H, extras)
+                           value_update, w_H, extras, value_spec)
 
     return loss_fn
 
 
 def make_grid_value_and_grad(dyn, pol, steps, w_t, mm_states, mm_rewards,
                              maximize, mm_groups=None, value_update=None,
-                             w_H=None):
+                             w_H=None, value_spec=None):
     """``vg(*loss_args) -> (loss, mean_return, grads, aux)`` with ``grads``
     shaped like ``pol_params`` (``fused_rollout.py:1656-1676``): autograd
     through ``make_grid_loss``, one launch of each grid kernel."""
     return _autograd_value_and_grad(make_grid_loss(
         dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
-        value_update, w_H))
+        value_update, w_H, value_spec))
 
 
 def _tier(mode):
@@ -1489,19 +1522,34 @@ def _tier(mode):
     return mode
 
 
+def _fixed_critic(tier, value_update, value_spec):
+    """``value_spec`` where it is a fixed critic (no ``value_update``),
+    which the grid tier alone takes; None otherwise."""
+    if value_update is not None or value_spec is None:
+        return None
+    if tier != 'grid':
+        raise NotImplementedError(_FIXED_NOT_GRID)
+    return value_spec
+
+
 def make_fused_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                     mm_groups=None, value_update=None, w_H=None, mode=None,
-                    mm_rewards_mean_only=False):
+                    mm_rewards_mean_only=False, value_spec=None):
     """The fused (loss, mean_return, aux) of ``fused_rollout.py:759``:
     ``mode`` None or ``'full'`` / ``'remat'`` (both the whole-rollout
-    kernels, ``make_whole_rollout_loss``; no value update), ``'step'``
-    (``make_stepwise_loss``) or ``'grid'`` (``make_grid_loss``); the last
+    kernels, ``make_whole_rollout_loss``; no value bootstrap), ``'step'``
+    (``make_stepwise_loss``) or ``'grid'`` (``make_grid_loss``, which also
+    takes a fixed critic: ``value_spec`` without ``value_update``); the last
     two, as in JAX, resample the rewards in full."""
     tier = _tier(mode)
-    if tier in ('step', 'grid'):
-        make = make_stepwise_loss if tier == 'step' else make_grid_loss
-        return make(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
-                    mm_groups, value_update, w_H)
+    fixed = _fixed_critic(tier, value_update, value_spec)
+    if tier == 'step':
+        return make_stepwise_loss(dyn, pol, steps, w_t, mm_states,
+                                  mm_rewards, maximize, mm_groups,
+                                  value_update, w_H)
+    if tier == 'grid':
+        return make_grid_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
+                              maximize, mm_groups, value_update, w_H, fixed)
     return make_whole_rollout_loss(dyn, pol, steps, w_t, mm_states,
                                    mm_rewards, maximize, mm_groups,
                                    value_update, w_H, mm_rewards_mean_only)
@@ -1510,17 +1558,22 @@ def make_fused_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
 def make_fused_value_and_grad(dyn, pol, steps, w_t, mm_states, mm_rewards,
                               maximize, mm_groups=None, value_update=None,
                               w_H=None, mode=None,
-                              mm_rewards_mean_only=False):
+                              mm_rewards_mean_only=False, value_spec=None):
     """The fused value-and-grad of ``fused_rollout.py:906``: ``mode`` None or
     ``'full'`` / ``'remat'`` (one launch, ``make_whole_rollout_value_and_
     grad``), ``'step'`` (``make_stepwise_value_and_grad``) or ``'grid'``
-    (``make_grid_value_and_grad``)."""
+    (``make_grid_value_and_grad``); ``value_spec`` as in
+    ``make_fused_loss``."""
     tier = _tier(mode)
-    if tier in ('step', 'grid'):
-        make = (make_stepwise_value_and_grad if tier == 'step'
-                else make_grid_value_and_grad)
-        return make(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
-                    mm_groups, value_update, w_H)
+    fixed = _fixed_critic(tier, value_update, value_spec)
+    if tier == 'step':
+        return make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
+                                            mm_rewards, maximize, mm_groups,
+                                            value_update, w_H)
+    if tier == 'grid':
+        return make_grid_value_and_grad(dyn, pol, steps, w_t, mm_states,
+                                        mm_rewards, maximize, mm_groups,
+                                        value_update, w_H, fixed)
     return make_whole_rollout_value_and_grad(
         dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
         value_update, w_H, mm_rewards_mean_only)

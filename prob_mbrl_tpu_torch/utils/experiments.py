@@ -74,7 +74,7 @@ def get_argument_parser(title=''):
                         help="critic dropout masks of the TD(H) refit: "
                              "'epoch' shares the PEGASUS epoch's masks "
                              "between the update and the bootstrap; 'iter' "
-                             "draws fresh masks every update (not ported)")
+                             "draws fresh masks every update")
 
     parser.add_argument('--plot_level', type=int, default=0)
     parser.add_argument('--render', action='store_true')

@@ -38,8 +38,12 @@ action_eps, one entry per particle and step, is held by its 2-norm (within
 elementwise tolerance: a ReLU unit whose pre-activation lies within float32
 rounding of 0 takes the other branch in one of the two versions and moves
 that entry alone. On the lander rows 3-5's gradient wrt action_eps is held
-the same way (``_hold_rows``): at B = 1500 a dynamics ReLU on that edge
-moved one particle's two entries of one step by 10%.
+the same way (``chip_smoke.hold_rows``): at B = 1500 a dynamics ReLU on that
+edge moved one particle's two entries of one step by 10%. On the learned
+lander the grid's is also held elementwise against the plain version forced
+along the kernel's own states, and the worst particle in 1000 is left out
+of the norm, each of its entries within the elementwise tolerance
+(``chip_smoke.hold_grid_eps_on_edge``).
 """
 import numpy as np
 import pytest
@@ -197,14 +201,20 @@ def test_cuda_raises_without_a_built_library(cuda, monkeypatch, tmp_path):
 
 # (D, U, reward kind) of the card cases of rows 3-9, and their envs: Cartpole
 # (embedded D = 5, the main path's), the double cartpole (embedded D = 8 =
-# kMaxD) and rendezvous (D = 8, U = 4 = kMaxU, four tip rows, the quadratic
-# reward); models, stats data and states are ``chip_smoke``'s, as phase 2b
-# makes them
+# kMaxD), rendezvous (D = 8, U = 4 = kMaxU, four tip rows, the quadratic
+# reward), the differentiable lander (its reward, kind 2), and a learned
+# reward (kind 3) at Cartpole's shapes and the lander's (a head of 18, the
+# Box2D lander's); each case's (env, learned) pair of ``chip_smoke``'s models,
+# stats data and states, as phase 2b makes them
 CARTPOLE = (5, 1, 'exp')
 QUAD = (8, 4, 'quad')
 LANDER = (8, 2, 'lander')
-ENV_OF = {CARTPOLE: 'Cartpole', (8, 1, 'exp'): 'DoubleCartpole',
-          QUAD: 'Rendezvous', LANDER: 'JaxLunarLander'}
+LEARNED_LANDER = (8, 2, 'learned')
+ENV_OF = {CARTPOLE: ('Cartpole', False),
+          (8, 1, 'exp'): ('DoubleCartpole', False),
+          QUAD: ('Rendezvous', False), LANDER: ('JaxLunarLander', False),
+          (5, 1, 'learned'): ('Cartpole', True),
+          LEARNED_LANDER: ('JaxLunarLander', True)}
 SHAPES = list(ENV_OF)
 SHAPE_IDS = ['-'.join(map(str, shape)) for shape in SHAPES]
 
@@ -212,17 +222,19 @@ SHAPE_IDS = ['-'.join(map(str, shape)) for shape in SHAPES]
 def _env_models(shape, hidden, nonlin='relu'):
     """Dynamics and policy of the env of ``shape`` at these widths, with the
     env's reward and action bounds."""
-    return cs.env_models(ENV_OF[shape], hidden, nonlin)[:2]
+    env, learned = ENV_OF[shape]
+    return cs.env_models(env, hidden, nonlin, learned)[:2]
 
 
 def _stats_data(shape, rng):
-    """[100, D + U] inputs and [100, D] targets the whitening stats are fit
-    to."""
-    return cs.stats_data(ENV_OF[shape], rng, 100)
+    """[100, D + U] inputs and [100, D] targets (D + 1 with a learned
+    reward) the whitening stats are fit to."""
+    env, learned = ENV_OF[shape]
+    return cs.stats_data(env, rng, 100, learned)
 
 
 def _env_states(shape, rng, B):
-    return cs.env_states(ENV_OF[shape], rng, B)
+    return cs.env_states(ENV_OF[shape][0], rng, B)
 
 
 def _step(B, seed, hidden=(200, 200), nonlin='relu', kernel=False,
@@ -496,19 +508,6 @@ def _forced_loss(shape, mean_only, states, T=15, hidden=(200, 200)):
     return loss_fn
 
 
-def _hold_rows(a, r, m):
-    """A gradient with one entry per particle and step (d action_eps):
-    finite, its error's 2-norm within 1e-3 of the plain version's norm,
-    and at most 1 element in 1000 beyond ``_hold``'s elementwise tolerance
-    (a ReLU unit within float32 rounding of 0 moves one particle's entries
-    alone; ``chip_smoke.hold_rows``)."""
-    assert torch.isfinite(a).all()
-    tol = max(1e-3 * float(r.abs().max()), 3 * float((m - r).abs().max()))
-    assert float(torch.linalg.vector_norm(a - r)) <= 1e-3 * float(
-        torch.linalg.vector_norm(r))
-    assert int(((a - r).abs() > tol).sum()) * 1000 <= a.numel()
-
-
 def _hold_knife_edge(a, r, moved, B):
     """A gradient summed over B particles against the free-running plain
     version, where a ReLU unit within the versions' drift of 0 may take the
@@ -551,8 +550,10 @@ def test_rollout_kernels_match_the_plain_version_on_the_card(cuda, B,
     if shape != QUAD:
         torch.cuda.synchronize()
         for i, (a, r, m) in enumerate(pairs):
-            if shape == LANDER and i == len(got) - 1:  # d action_eps
-                _hold_rows(a, r, m)
+            # d action_eps at the lander's shapes: a dynamics ReLU on its
+            # edge moves one particle's entries (chip_smoke.hold_rows)
+            if shape in (LANDER, LEARNED_LANDER) and i == len(got) - 1:
+                cs.hold_rows('d eps', a, r, 1e-3, m)
             else:
                 _hold(a, r, 1e-3, m)
         return
@@ -713,6 +714,36 @@ def test_mc_pilco_takes_the_full_tier_on_the_card(cuda):
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
+def test_mc_pilco_takes_the_full_tier_with_a_learned_reward_on_the_card(
+        cuda):
+    """A learned reward (no reward_func, a head of 2 (D + 1)) takes the same
+    route: one launch of the rollout value-and-grad kernel an iteration (the
+    reward kind 3), no fused-MLP launch."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    D, T, iters = 5, 4, 3
+    dyn, pol = _env_models((5, 1, 'learned'), (32, 32))
+    assert dyn.reward_func is None and fr.reward_kind(None) == 3
+    cfg = MCPILCOConfig(n_particles=16, steps=T, mm_states=True,
+                        mm_rewards=True)
+    assert make_mc_pilco_fn(dyn, pol, cfg, 'cuda').tier('cuda') == 'full'
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    pool = torch.randn((20, D), generator=gen, device='cuda')
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(
+        pool, dyn, pol, T, dyn.init(gen, device='cuda'),
+        dyn.init_stats(device='cuda'), pol.init(gen, device='cuda'),
+        opt_iters=iters, mm_states=True, mm_rewards=True, n_particles=16,
+        seed=0)
+    assert np.all(np.isfinite(metrics['loss']))
+    assert fr.LAUNCHES['fused_rollout_vg'] == iters
+    assert sum(fr.LAUNCHES.values()) == iters
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+
+
 def test_rollout_capacity_holds_the_main_path(cuda):
     """The card holds the clusters of the main path's 100 particles, and of
     the B = 1500 check's, at once: the capacity is counted in particles."""
@@ -788,8 +819,14 @@ def test_grid_kernels_match_the_plain_version_on_the_card(cuda, B, mm_states,
     for a, r, m in zip(got[:-1], ref[:-1], moved[:-1]):
         _hold(a, r, 1e-3, m)
     # d action_eps per particle: a ReLU unit within float32 rounding of 0
-    # takes the other branch in one version and moves that entry alone
-    _hold_rows(got[-1], ref[-1], moved[-1])
+    # takes the other branch in one version and moves that entry alone; on
+    # the learned lander also held along the kernel's own states
+    if shape == LEARNED_LANDER:
+        dyn, pol = _env_models(shape, (200, 200))
+        cs.hold_grid_eps_on_edge('d eps', kern, dyn, pol, mm_rewards, pp,
+                                 leaves, args, cot, got, ref, moved)
+    else:
+        cs.hold_rows('d eps', got[-1], ref[-1], 1e-3, moved[-1])
 
 
 @pytest.mark.parametrize('mm_rewards', [True, False])
@@ -897,6 +934,46 @@ def test_mc_pilco_takes_the_grid_tier_with_a_critic_on_the_card(cuda):
                            'fused_grid_bwd': iters}
     assert fm.LAUNCHES == {'fused_mlp_fwd': 3 * iters,
                            'fused_mlp_bwd': 2 * iters}
+
+
+def test_mc_pilco_takes_the_grid_tier_under_a_fixed_critic_on_the_card(
+        cuda):
+    """Under a fixed critic (value_spec and value_params, no update) the
+    gate names the grid tier on the card, whose bootstrap the whole-rollout
+    kernel lacks: one launch of each grid kernel an iteration, the critic's
+    MLP once each way (the bootstrap and its VJP), no refit; the critic's
+    params stay as they were."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    D, T, iters = 5, 4, 3
+    dyn, pol = _env_models(CARTPOLE, (32, 32))
+    V = models.Regressor(models.MLPSpec(D, 1, (32, 32),
+                                        dropout=models.cdropout(0.1)))
+    cfg = MCPILCOConfig(n_particles=16, steps=T, mm_states=True,
+                        mm_rewards=True)
+    assert make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V).tier('cuda') == 'grid'
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    pool = torch.randn((20, D), generator=gen, device='cuda')
+    vp = V.init(gen, device='cuda')
+    kept = [p.clone() for p in tree_leaves(vp)]
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(
+        pool, dyn, pol, T, dyn.init(gen, device='cuda'),
+        dyn.init_stats(device='cuda'), pol.init(gen, device='cuda'),
+        opt_iters=iters, mm_states=True, mm_rewards=True, n_particles=16,
+        seed=0, value_spec=V, value_params=vp,
+        value_stats=V.init_stats(device='cuda'))
+    assert np.all(np.isfinite(metrics['loss'])) and 'v_loss' not in metrics
+    assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
+                           'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
+                           'fused_rollout_vg': 0, 'fused_grid_fwd': iters,
+                           'fused_grid_bwd': iters}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': iters, 'fused_mlp_bwd': iters}
+    for a, b in zip(tree_leaves(vp), kept):
+        assert torch.equal(a, b)
 
 
 def test_grid_raises_without_a_built_library(cuda, monkeypatch, tmp_path):

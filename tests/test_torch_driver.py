@@ -81,8 +81,10 @@ def test_deep_pilco_mm_runs_checkpoints_and_resumes(tmp_path, capsys):
 @pytest.mark.parametrize('module,argv', [
     (deep_pilco_no_mm, ['--keep_best', '--expl_noise', '0.1']),
     (deep_pilco_no_mm_with_value, ['--n_initial_epi', '1']),
+    (deep_pilco_no_mm_with_value, ['--val_mask_mode', 'iter', '--debug']),
     (deep_pilco_mm, ['--learn_reward', '--debug', '--timesteps_to_sample',
-                     '0,3'])], ids=['no_mm', 'with_value', 'mm_learn_reward'])
+                     '0,3'])], ids=['no_mm', 'with_value', 'with_value_iter',
+                                    'mm_learn_reward'])
 def test_the_other_entry_points_and_options_run(tmp_path, module, argv):
     returns, folder, records = _run(module.SETTINGS, ['--ps_iters', '1']
                                     + argv, tmp_path)

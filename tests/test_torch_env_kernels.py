@@ -221,7 +221,11 @@ def test_kernel_refuses_any_other_reward_with_its_reason():
 
     for rf in (Other(), lambda x, u: x[..., :1]):
         assert 'QuadTipReward' in with_reward(rf)
-    assert 'learned reward' in with_reward(None)
+    # a learned reward is taken (kind 3) with a head of 2 (D + 1) outputs;
+    # on this 2 D head its D + 1 outputs leave D = 7 states, which the
+    # policy's 8 inputs do not fit
+    assert tfr.reward_kind(None) == 3
+    assert 'MLP dims' in with_reward(None)
 
     # S must be [<= MAX_TIP, D]: too many rows, or rows of the wrong width
     S = tenvs.RendezvousReward().tip_matrix

@@ -300,11 +300,17 @@ def test_the_gate_admits_the_main_config_and_nothing_else(setups):
     assert tfr.fused_mode(_cfg(), tdyn, tpol, value_update=object(),
                           value_spec=tV, **cpu) is None
     # models the kernels do not take: raw states the reward angle-embeds,
-    # a learned reward, a tip that is not linear
+    # a tip that is not linear; a learned reward is taken with its head of
+    # 2 (D + 1) outputs (the reward kind 3), not with the analytic 2 D head
     _, _, rdyn, rpol = setups['raw4']['specs']
     assert tfr.fused_mode(_cfg(), rdyn, rpol, **cpu) is None
     learned = dataclasses.replace(tdyn, reward_func=None)
     assert tfr.fused_mode(_cfg(), learned, tpol, **cpu) is None
+    reg = tdyn.regressor
+    learned = dataclasses.replace(learned, regressor=dataclasses.replace(
+        reg, mlp=dataclasses.replace(reg.mlp, output_dims=2 * (5 + 1)),
+        output_density=tm.DiagGaussianDensity(5 + 1)))
+    assert tfr.fused_mode(_cfg(), learned, tpol, **cpu) == 'full'
     bent = dataclasses.replace(tdyn, reward_func=dataclasses.replace(
         tdyn.reward_func, tip_matrix=None))
     assert tfr.fused_mode(_cfg(), bent, tpol, **cpu) is None

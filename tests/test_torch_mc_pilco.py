@@ -296,11 +296,20 @@ def test_unported_options_raise(setup):
                     value_fn=lambda s: s[:, :1])
     assert len(out) == 4 and out[3].shape == (T + 1, B, 1)
     torch.testing.assert_close(out[3][..., 0], out[0][..., 0].detach())
-    for kw in (dict(val_mask_mode='iter'), dict()):
-        with pytest.raises(NotImplementedError):
-            tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu',
-                                 value_spec=tdyn.regressor,
-                                 value_update=None if not kw else object())
+    # a fixed critic (value_spec alone) and fresh critic masks every
+    # iteration (val_mask_mode='iter') are ported: the first takes the grid
+    # tier, the second the utils.rollout route, as JAX routes it
+    fixed = tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(), 'cpu',
+                                 value_spec=tdyn.regressor)
+    assert fixed.mode == 'grid'
+    fresh = tmc.make_mc_pilco_fn(tdyn, tpol,
+                                 tmc.MCPILCOConfig(val_mask_mode='iter'),
+                                 'cpu', value_spec=tdyn.regressor,
+                                 value_update=object())
+    assert fresh.mode is None
+    with pytest.raises(ValueError, match='val_mask_mode'):
+        tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(
+            val_mask_mode='step'), 'cpu')
     assert dataclasses.replace(tmc.MCPILCOConfig(), steps=3).steps == 3
 
 
@@ -371,7 +380,7 @@ def test_writer_verbose_and_optimizer_state_carry_across_calls(setup,
     with pytest.raises(ValueError, match='leaves of pol_params'):
         tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp, opt_state=other,
                      opt_iters=1, **kw)
-    for bad in (dict(mesh=object()), dict(value_params={}),
+    for bad in (dict(mesh=object()),
                 dict(prioritized_replay=True), dict(pegasus=False),
                 dict(mm_method='mix')):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):

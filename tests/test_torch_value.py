@@ -115,13 +115,25 @@ def test_five_value_updates_match_jax(density, polyak, discount):
 
 
 def test_value_update_takes_noise_not_a_key():
+    """Masks from ``noise=`` are used as given; ``key=`` (a generator) draws
+    them for the update (``val_mask_mode='iter'``), exactly the masks
+    ``V.sample_noise`` draws from a generator in the same state, and noise
+    wins over a key; neither raises."""
     _, tV = critic_specs(False)
-    upd = tv.make_value_update_fn(tV, tv.Adam(LR), H)
+    upd = tv.make_value_update_fn(tV, tv.Adam(LR), H, use_density=False)
     p = tV.init(torch.Generator().manual_seed(0), device='cpu')
     s, r = (torch.tensor(a) for a in _trajectory(0))
     args = (p, p, tv.Adam(LR).init(p), tV.init_stats(device='cpu'), s, r)
-    with pytest.raises(NotImplementedError, match='key'):
-        upd(*args, key=torch.Generator())
+    drawn = tV.sample_noise(torch.Generator().manual_seed(3), (B,),
+                            device='cpu')
+    by_noise = upd(*args, noise=drawn)
+    by_key = upd(*args, key=torch.Generator().manual_seed(3))
+    both = upd(*args, key=torch.Generator().manual_seed(4), noise=drawn)
+    for got in (by_key, both):
+        for a, b in zip(tree_leaves(got), tree_leaves(by_noise)):
+            assert torch.equal(a, b)
+    other = upd(*args, key=torch.Generator().manual_seed(4))
+    assert float(other[3]) != float(by_noise[3])
     with pytest.raises(ValueError, match='noise'):
         upd(*args)
 
