@@ -1,3 +1,8 @@
+# The final check of a change on the card, from the root of the checkout:
+# chip_smoke.py alone in a directory (build/alone; must fail), then
+# chip_smoke.py and the card's tests from an unpacked `git archive` of the
+# staged tree in build/final, then rows 1-9's outputs of that tree against
+# an unpacked parent in build/parent, bit for bit.
 set -o pipefail
 mkdir -p chiprun_out
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -12,3 +17,9 @@ t0=$(date +%s)
 python3 -m pytest --noconftest tests/test_torch_cuda.py -q -p no:cacheprovider > ../../chiprun_out/final_cuda.log 2>&1; rc2=$?
 echo "card tests rc=$rc2 in $(( $(date +%s) - t0 )) s"
 tail -5 ../../chiprun_out/final_cuda.log
+python3 tools/torch_kernel_outputs.py dump ../parent.pt --root ../parent > ../../chiprun_out/final_dump_parent.log 2>&1
+python3 tools/torch_kernel_outputs.py dump ../change.pt > ../../chiprun_out/final_dump_change.log 2>&1
+python3 tools/torch_kernel_outputs.py compare ../parent.pt ../change.pt > ../../chiprun_out/final_compare.log 2>&1; rc3=$?
+echo "bits rc=$rc3"
+tail -1 ../../chiprun_out/final_compare.log
+exit $(( rc || rc2 || rc3 ))

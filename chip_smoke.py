@@ -6,7 +6,8 @@ the other envs), drives MC-PILCO policy optimisation on Cartpole at
 full width through the kernels, on each of its routes, then three
 Deep-PILCO episodes through the driver on Cartpole and one on each of the
 other four analytic envs and on the lunar lander, whose run is then
-replayed by ``evaluate_policy``, and one on Cartpole learning the reward.
+replayed by ``evaluate_policy``, one on Cartpole learning the reward, and
+one of the with-value driver, whose critic the whole-rollout kernel refits.
 
     python3 chip_smoke.py
 
@@ -62,6 +63,19 @@ Phases (any failure exits non-zero and prints no result line):
      held as in phase 2; at D = 8 and with a learned reward each row's
      time, plain time and bound printed beside phase 2's D = 5 ones and the
      card's name and power limit.
+  2c. rows 3-5 with the value update's TD(H) critic refit in the launch
+     (the with-value driver's [200, 200] concrete-dropout MSE critic, Adam
+     1e-4, polyak 1, H = 15) at B = 100 without moment matching (the
+     with-value driver's) and B = 1000 with it (phase 7's): loss,
+     mean_return, the policy grads and d action_eps as phase 2 holds them
+     (d action_eps at B = 1000 per particle, ``hold_rows``), and the refit's
+     outputs (v_loss, Adam's mu' and nu' to STEP_TOL of their max|plain| or
+     the plain version's sensitivity, and entry by entry where they lie well
+     above it, ``hold_entries``; params' and target' by ``hold_adam``, in
+     units of lr, at most one entry in 1000 beyond ADAM_TOL); each row's
+     time beside its time without a critic, its plain time and its bound
+     (the rollout's work and the critic's), and row 5's own time split at
+     B = 100.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -85,14 +99,15 @@ Phases (any failure exits non-zero and prints no result line):
      iteration), clip and Adam.
   7. the value path: ``mc_pilco`` at B = 1000 with a TD(H) critic (the
      Deep-PILCO with-value driver's default: a [200, 200] concrete-dropout
-     MSE critic, Adam 1e-4, polyak 1, H = 15), where the gate names the grid
-     tier: one ``fused_grid_fwd`` and one ``fused_grid_bwd`` per iteration,
-     the critic's MLP through the fused-MLP kernels (3 forward, 2 backward
-     calls per iteration), nothing else; the host split of an iteration
-     (grid forward, critic refit, bootstrap + backward, clip + Adam); one
-     iteration compared with the plain path (loss, mean_return, v_loss,
-     clipped grads, refit critic). Then the same under a fixed critic
-     (``value_spec`` and ``value_params``, no update; 30 iterations): the
+     MSE critic, Adam 1e-4, polyak 1, H = 15), where the gate names the
+     whole-rollout tier: one ``fused_rollout_vg`` per iteration with the
+     refit and the bootstrap in it, nothing else; v_loss falling; the ms an
+     iteration on that tier and forced to the grid tier (the grid kernels
+     and the refit on the fused MLP between them) in turns in this call;
+     one iteration on each of the two tiers compared with the plain path
+     (loss, mean_return, v_loss, clipped grads, refit critic). Then the same
+     under a fixed critic (``value_spec`` and ``value_params``, no update;
+     10 iterations): the
      grid tier, one ``fused_grid_fwd`` and ``_bwd`` and one fused-MLP
      launch each way (the bootstrap) an iteration, no refit, the critic's
      params unmoved; one iteration held against the plain path.
@@ -111,15 +126,16 @@ Phases (any failure exits non-zero and prints no result line):
      step through the kernels against the plain path on the same minibatch
      and noise (loss and every grad, logit_p's among them) and the fit's
      device-busy share over 50 steps under torch.profiler.
-  9. the envs: one episode of phase 8's driver, widths and cuts (2000 fit
-     steps, 200 policy iterations, 40 control steps, seed 1) on each of
+  9. the envs: one episode of phase 8's driver, widths and cuts, the fit
+     cut further to 1000 steps (200 policy iterations, 40 control steps,
+     seed 1) on each of
      Pendulum, DoubleCartpole, CartAcrobot, Rendezvous and LunarLander
      (``-e``; the class ``make('LunarLander')`` gives is printed: the
      differentiable lander without Box2D, as the JAX registry has it, else
      the Box2D one): every value finite, E_lml rising within the fit, the
      gate's tier ``'full'`` and launch counts exactly fused-MLP forward
-     2000 + the control steps taken (40, or fewer where the lander's
-     episode ends), backward 2000 and ``fused_rollout_vg`` 200 (on the
+     1000 + the control steps taken (40, or fewer where the lander's
+     episode ends), backward 1000 and ``fused_rollout_vg`` 200 (on the
      Box2D lander, which has no reward function, the driver learns the
      reward, which row 5 takes as reward kind 3); from the checkpoint one
      fit step (loss and every grad within 1e-4 of its max|plain|) and one
@@ -133,10 +149,18 @@ Phases (any failure exits non-zero and prints no result line):
      kernel (kind 3), ``fused_rollout_vg`` 200 and no fused-MLP launch from
      the policy loop, E_lml rising, a fit step and a row-5 policy iteration
      held against their plain paths.
+  10. the with-value driver: one ``deep_pilco_no_mm_with_value`` episode
+     with phase 8's widths and cuts (no moment matching, the [200, 200] MSE
+     critic refit every policy iteration): launches exact (fused-MLP forward
+     2000 + 40, backward 2000, ``fused_rollout_vg`` 200 with the refit in
+     each, nothing else), every value finite (v_loss too), E_lml rising, one
+     fit step held against the plain path; v_loss over the episode and the
+     ms a fit step and a policy iteration.
 
 Each kernel's launches in the ``kernels`` line come from the run of the
-route that carries it (rows 1-2 phase 8, the episode; the others phase 4,
-5, 6 or 7), with every count set to 0 just before the run.
+route that carries it (rows 1-2 phase 8, the episode; rows 6-7 phase 4,
+row 5 phase 5, rows 3-4 phase 6, rows 8-9 phase 7's fixed critic), with
+every count set to 0 just before the run.
 
 ``tools/profile_torch_main_path.py`` breaks a main-path iteration down
 (host split and a torch.profiler trace) on the same setup.
@@ -162,11 +186,12 @@ from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
 from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
 from prob_mbrl_tpu_torch.examples import deep_pilco_common as dpc
 from prob_mbrl_tpu_torch.examples import deep_pilco_mm as dpm
+from prob_mbrl_tpu_torch.examples import deep_pilco_no_mm_with_value as dvm
 from prob_mbrl_tpu_torch.examples import evaluate_policy
 from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
                                         MLPSpec, Policy, Regressor, bdropout,
                                         cdropout)
-from prob_mbrl_tpu_torch.ops.cuda import build
+from prob_mbrl_tpu_torch.ops.cuda import build, critic
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
 from prob_mbrl_tpu_torch.ops.math import clip_grad_norm
@@ -228,7 +253,9 @@ EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
                 '--pol_shape', '200,200']
 BUSY_STEPS = 50  # fit steps under torch.profiler
 # phase 9: one episode of the same driver and cuts on each of these envs, then
-# one on Cartpole with --learn_reward (the rollout kernels' reward kind 3)
+# one on Cartpole with --learn_reward (the rollout kernels' reward kind 3),
+# each fit cut further to ENV_FIT_ITERS steps
+ENV_FIT_ITERS = 1000
 ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous',
                     'LunarLander')
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
@@ -1193,7 +1220,8 @@ def hold_grid_eps_on_edge(what, kern, dyn, pol, mm_rewards, pp, leaves,
 SPLIT = ('weight staging', 'MLP walk (forward)',
          'per-cluster moments + merge + resample (forward)', 'grid barriers',
          'MM adjoint (backward)', 'recompute (backward)',
-         'VJP + dW accumulation (backward)', 'loss and dW sums')
+         'VJP + dW accumulation (backward)', 'loss and dW sums',
+         'critic refit and bootstrap')
 
 
 def time_split(k, launch, n=ROLLOUT_LAUNCHES):
@@ -1328,6 +1356,360 @@ def phase_grid_kernels():
     for name, v in rows.items():
         v['max_abs_err'] = worst[name]
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: rows 3-5 with the value update's critic refit in the launch
+# ---------------------------------------------------------------------------
+
+# the with-value driver's critic (examples/deep_pilco_common.py:147-166):
+# [200, 200] relu MLP, concrete dropout 0.1, a plain head, MSE TD(H), H = T,
+# reg_weight 1e-4, Adam 1e-4, polyak 1
+VALUE_LR = 1e-4
+# rows 3-5 with that critic: (B, moment matching) of the with-value driver
+# (B = 100, no MM) and of phase 7 (B = 1000, states and rewards matched)
+CRITIC_CASES = ((MAIN_B, False), (GRID_B, True))
+# params' and target' after the critic's Adam step, kernel vs plain, in
+# units of lr (hold_adam), and the share of entries that may need their
+# gradient's rounding room beyond it (one in ADAM_EDGE)
+ADAM_TOL = 1e-3
+ADAM_EDGE = 1000
+# mu' and nu' entry by entry where the plain entry is above ENTRY_STRONG
+# times the plain version's sensitivity: within ENTRY_REL of its size
+# (hold_entries)
+ENTRY_STRONG = 100
+ENTRY_REL = 0.5
+
+
+def critic_spec(D, head='mse', hidden=(200, 200), drop='concrete', H=MAIN_T,
+                tau=1.0, discount=0.9):
+    """The critic (a ``Regressor`` on the D states: a plain head for the MSE
+    loss, a ``DiagGaussianDensity(1)`` for the NLL) and its TD(H) update
+    (``discount`` over H steps, reg_weight 1e-4, Adam VALUE_LR, polyak
+    ``tau``): (V, update)."""
+    density = head == 'nll'
+    dropout = {'concrete': cdropout(0.1), 'bernoulli': bdropout(0.1),
+               None: None}[drop]
+    V = Regressor(MLPSpec(D, 2 if density else 1, hidden, dropout=dropout),
+                  DiagGaussianDensity(1) if density else None)
+    return V, make_value_update_fn(V, Adam(VALUE_LR), H, discount=discount,
+                                   polyak=tau, use_density=density)
+
+
+def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
+                   T=MAIN_T, hidden=(200, 200), drop='concrete'):
+    """Rows 3-5 with the critic of ``critic_spec`` refit in the launch, on
+    ``rollout_problem``'s inputs (Cartpole's shapes; states and rewards
+    moment-matched with ``mm``, else neither), the critic's stats fit to
+    seeded data and its Adam state fresh: (kernel loss, kernel
+    value-and-grad, plain loss, policy params, policy leaves, the arguments
+    after the policy params, the critic's extras (params, target, Adam
+    state, stats, noise), (dyn, pol, w_t, update)). The plain loss runs the
+    critic on the unfused MLP."""
+    _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
+        B, seed, False, T)
+    if not mm:
+        args = args[:5] + [None, None, args[7]]
+    D = args[0].shape[1]
+    V, update = critic_spec(D, head, hidden, drop, H, tau)
+    update_p = make_value_update_fn(fr.unfused(V), update.optimizer, H,
+                                    discount=0.9, polyak=tau,
+                                    use_density=head == 'nll')
+    rng = np.random.RandomState(seed + 3)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device='cuda')
+
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 50)
+    vp = V.init(gen, device='cuda')
+    vt = V.init(gen, device='cuda') if tau < 1 else vp
+    vstats = V.fit_stats(t(env_states('Cartpole', rng, 200)),
+                         t(rng.randn(200, 1)))
+    extras = (vp, vt, update.optimizer.init(vp), vstats,
+              V.sample_noise(gen, (B,), device='cuda'))
+    w_H = 0.9 ** T
+    make = (dyn, pol, T, w_t, mm, mm, True)
+    return (fr.make_fused_loss(*make, mode='full', value_update=update,
+                               w_H=w_H),
+            fr.make_fused_value_and_grad(*make, mode='full',
+                                         value_update=update, w_H=w_H),
+            fr.make_loss_plain(fr.unfused(dyn), fr.unfused(pol), T, w_t, mm,
+                               mm, True, value_update=update_p, w_H=w_H),
+            pp, leaves, args, extras, (dyn, pol, w_t, update))
+
+
+def aux_flat(aux):
+    """The refit's outputs as copies: params', target', mu', nu' flat, the
+    Adam count and v_loss."""
+    vp, vt, vo, vl = aux
+
+    def flat(tree):
+        return torch.cat([v.detach().reshape(-1) for v in tree_leaves(tree)])
+
+    return {'params': flat(vp), 'target': flat(vt), 'mu': flat(vo.mu),
+            'nu': flat(vo.nu), 'count': int(vo.count),
+            'v_loss': vl.detach().reshape(()).clone()}
+
+
+def critic_outputs(loss_fn, pp, leaves, args, extras, x0_scale=1.0,
+                   g=(0.7, 1.3)):
+    """``rollout_outputs`` with the critic's extras: ([loss, mean_return,
+    the gradients wrt the policy leaves and action_eps of g[0] * loss +
+    g[1] * mean_return], ``aux_flat`` of the refit's outputs)."""
+    a = list(args)
+    a[0] = a[0] * x0_scale
+    a[-1] = a[-1].clone().requires_grad_(True)
+    loss, mret, aux = loss_fn(pp, *a, extras=extras)
+    aux = aux_flat(aux)
+    grads = torch.autograd.grad(g[0] * loss + g[1] * mret, leaves + [a[-1]])
+    return [loss.detach(), mret.detach(), *grads], aux
+
+
+def hold_adam(what, a, r, g, g_tol, lr, eps, weight=1.0):
+    """Hold params' (``weight`` 1) or target' (``weight`` tau) after one
+    Adam step from a fresh state, kernel ``a`` vs plain ``r``, in units of
+    lr. The step of an entry is lr g / (|g| + eps), so a gradient that
+    differs by at most ``g_tol`` from the plain ``g`` moves it by at most lr
+    g_tol eps / (max(|g| - g_tol, 0) + eps)^2, up to 2 lr where the
+    gradient's sign is not determined at float32 (entries at rounding
+    level): each entry is held within weight lr (ADAM_TOL + that bound, at
+    most 2), and at most one entry in ADAM_EDGE may need more than ADAM_TOL
+    lr (each logged), so a fault in the steps of many small-gradient
+    entries (zeroed, sign flipped, skipped) fails. Returns the largest
+    |a - r| / lr."""
+    if not torch.isfinite(a).all():
+        raise AssertionError(f'{what}: kernel output is not finite')
+    room = torch.clamp(g_tol * eps / (torch.clamp(g.abs() - g_tol, min=0)
+                                      + eps) ** 2, max=2.0)
+    allowed = weight * lr * (ADAM_TOL + room)
+    d = (a - r).abs()
+    bad = int((d > allowed).sum())
+    edge = (d > weight * lr * ADAM_TOL).nonzero().flatten().tolist()
+    if bad:
+        i = int(torch.argmax(d - allowed))
+        raise AssertionError(f'{what}: {bad} entries beyond their tolerance, '
+                             f'the worst {float(d[i]):.3e} against '
+                             f'{float(allowed[i]):.3e} (gradient '
+                             f'{float(g[i]):.3e})')
+    if len(edge) * ADAM_EDGE > d.numel():
+        raise AssertionError(f'{what}: {len(edge)} of {d.numel()} entries '
+                             f'beyond {ADAM_TOL:g} lr, more than one in '
+                             f'{ADAM_EDGE}')
+    for i in edge:
+        log(f'[phase 2c] {what}: entry {i} of {d.numel()} '
+            f'{float(d[i]) / lr:.3e} lr from the plain version, beyond '
+            f'{ADAM_TOL:g} lr and within its gradient\'s rounding room '
+            f'{float(allowed[i]) / (weight * lr):.3e} lr (gradient '
+            f'{float(g[i]):.3e}, tolerance {g_tol:.3e})')
+    return float(d.max()) / lr
+
+
+def hold_entries(what, a, r, moved):
+    """Hold a gradient-like output of the refit (mu', nu') entry by entry
+    where the plain version's entry lies well above its own sensitivity
+    (|r| > ENTRY_STRONG max(max|moved - r|, float32's epsilon max|r|)):
+    there the kernel's entry lies within ENTRY_REL |r| of it (so it has its
+    sign), which ``hold``'s max-relative rule cannot see of an entry far
+    below the largest. A ReLU of V0 that one particle's pre-activation puts
+    within rounding of 0 moves the entries it feeds by that particle's
+    share, about 1 / sqrt(B) of an entry summed over B shares of either sign
+    (1/4 at B = 16); at most one held entry in ADAM_EDGE may lie beyond,
+    each logged. Returns the largest relative error of a held entry."""
+    scale = float(r.abs().max())
+    sens = float((moved - r).abs().max())
+    strong = r.abs() > ENTRY_STRONG * max(sens, 1.2e-7 * scale)
+    rel = ((a - r).abs() / r.abs().clamp(min=1e-30))[strong]
+    off = (rel > ENTRY_REL).nonzero().flatten()
+    if len(off) * ADAM_EDGE > rel.numel():
+        raise AssertionError(f'{what}: {len(off)} of {rel.numel()} '
+                             f'entries above {ENTRY_STRONG:g} times the '
+                             f'plain version\'s sensitivity lie beyond '
+                             f'{ENTRY_REL:g} of their size')
+    idx = strong.nonzero().flatten()
+    for j in off.tolist():
+        i = int(idx[j])
+        log(f'[phase 2c] {what}: entry {i} {float(a[i]):.6e} against '
+            f'{float(r[i]):.6e}, beyond {ENTRY_REL:g} of its size')
+    return float(rel.max()) if rel.numel() else 0.0
+
+
+def hold_refit(what, got, ref, moved, update, first_count):
+    """The refit's outputs of a kernel (``aux_flat``) against the plain
+    version's: the count one past ``first_count``, v_loss, mu' and nu'
+    (the gradient) to STEP_TOL of their max|plain| or the plain version's
+    sensitivity and entry by entry by ``hold_entries``, params' and target'
+    by ``hold_adam``. Returns the largest error of each."""
+    if got['count'] != first_count + 1:
+        raise AssertionError(f'{what}: Adam count {got["count"]}')
+    out = {}
+    for k in ('v_loss', 'mu', 'nu'):
+        out[k] = hold(f'{what} {k}', got[k], ref[k], STEP_TOL, moved[k])[1]
+    for k in ('mu', 'nu'):
+        out[f'{k} entries'] = hold_entries(f'{what} {k}', got[k], ref[k],
+                                           moved[k])
+    opt = update.optimizer
+    g_ref = ref['mu'] / (1 - opt.b1)
+    g_tol = max(STEP_TOL * float(ref['mu'].abs().max()),
+                3 * float((moved['mu'] - ref['mu']).abs().max())) / (1 - opt.b1)
+    out['params'] = hold_adam(f'{what} params\'', got['params'],
+                              ref['params'], g_ref, g_tol, opt.lr, opt.eps)
+    out['target'] = hold_adam(f'{what} target\'', got['target'],
+                              ref['target'], g_ref, g_tol, opt.lr, opt.eps,
+                              update.polyak)
+    return out
+
+
+def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
+                 drop='concrete'):
+    """Rows 3-5 with the critic refit in the launch against the plain
+    version at batch B: loss, mean_return, the policy grads and d
+    action_eps (``check_rollout``'s tolerances; d action_eps per particle by
+    ``hold_rows`` at B >= 1000, as the grid's) and the refit's outputs of
+    rows 3 and 5 (``hold_refit``). Returns the largest error of each row."""
+    kloss, kvg, plain, pp, leaves, args, extras, (_, _, _, update) = \
+        critic_problem(B, B + 11, mm, head, H, tau, drop=drop)
+    got, gaux = critic_outputs(kloss, pp, leaves, args, extras)
+    ref, raux = critic_outputs(plain, pp, leaves, args, extras)
+    moved, maux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6)
+    vl, vm, vgrads, vaux = kvg(pp, *args, extras=extras)
+    vaux = aux_flat(vaux)
+    vref, vraux = critic_outputs(plain, pp, leaves, args, extras, g=(1.0, 0.0))
+    vmoved, vmaux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6,
+                                   g=(1.0, 0.0))
+    torch.cuda.synchronize()
+    n = len(leaves)
+    labels = (['loss', 'mean_return']
+              + [f'd pol leaf {i}' for i in range(n)] + ['d eps'])
+    checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
+               zip(labels[:2], got[:2], ref[:2], moved[:2])]
+              + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
+                 zip(labels[2:], got[2:], ref[2:], moved[2:])]
+              + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
+                 zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref[:-1],
+                     vmoved[:-1])])
+    names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
+    here = {nm: 0.0 for nm in names}
+    what = (f'critic ({head}, {drop} dropout, H={H}, polyak {tau}) rollout '
+            f'B={B} mm {"on" if mm else "off"}')
+    for kern, lab, a, r, m in checks:
+        check = hold_rows if lab == 'd eps' and B >= 1000 else hold
+        err = check(f'{what} {kern} {lab}', a, r, STEP_TOL, m)[0]
+        here[kern] = max(here[kern], err)
+    first = int(extras[2].count)
+    refit = {}
+    for kern, (a, r, m) in (('fused_rollout_fwd', (gaux, raux, maux)),
+                            ('fused_rollout_vg', (vaux, vraux, vmaux))):
+        refit[kern] = hold_refit(f'{what} {kern}', a, r, m, update, first)
+    log(f'[{tag}] {what} T={MAIN_T} (loss {float(ref[0]):.6f}, v_loss '
+        f'{float(raux["v_loss"]):.6f}): kernel vs plain max abs err '
+        + ', '.join(f'{nm[len("fused_rollout_"):]} {here[nm]:.3e}'
+                    for nm in names)
+        + '; the refit, error / max|plain| (params\' and target\' in lr): '
+        + '; '.join(f'{nm[len("fused_rollout_"):]} '
+                    + ', '.join(f'{k} {v:.3e}' for k, v in r.items())
+                    for nm, r in refit.items()) + ' ok')
+    return here
+
+
+def critic_bytes_flops(B, cdims, D):
+    """Bytes and operations of the critic's part of rows 3-5 at batch B:
+    a forward is 2 B S operations (S = sum d_in d_out), a backward to dW
+    and the input 4 B S, to the input alone 2 B S. Row 3 runs V(target,
+    s_H), V0 and its backward, and the bootstrap's forward (10 B S); row 5
+    also the bootstrap's backward (12 B S); row 4 the bootstrap's forward
+    and backward (4 B S). Bytes: rows 3 and 5 read params, target, Adam's
+    mu and nu (4 N floats, N the critic's leaves), the noise (u and u_hard
+    of each hidden layer) and the stats, and write params', target', mu',
+    nu', the count and v_loss; row 4 reads params' and the noise."""
+    S = sum(a * b for a, b in zip(cdims[:-1], cdims[1:]))
+    N = S + sum(cdims[1:]) + sum(cdims[1:-1])
+    noise = 2 * B * sum(cdims[1:-1])
+    stats = 2 * D + 2
+    return {'fused_rollout_fwd': (4 * (8 * N + noise + stats + 3), 10 * B * S),
+            'fused_rollout_bwd': (4 * (N + noise + stats), 4 * B * S),
+            'fused_rollout_vg': (4 * (8 * N + noise + stats + 3), 12 * B * S)}
+
+
+def critic_timings(B, mm, split=False):
+    """ms of rows 3-5 with the driver's critic refit in the launch (CUDA
+    events around launches in a row, as ``rollout_timings``), of the same
+    rows without a critic on the same inputs (``bare_ms``; the reward not
+    mean-only) and of the plain version (CUDA graph replay: the plain
+    forward with its refit; the backward that and ``torch.autograd.grad``
+    less it; row 5 the whole graph), at batch B, T = 15; the bound counts
+    the rollout's work and the critic's (``critic_bytes_flops``). With
+    ``split`` it logs row 5's own time split."""
+    _, _, plain, pp, leaves, args, extras, (dyn, pol, w_t, update) = \
+        critic_problem(B, 7, mm)
+    x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
+    w_H = 0.9 ** MAIN_T
+    k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, mm, mm, True, False, B,
+                         x0.device, update, w_H)
+    sk = k.bind(pp, x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr,
+                eps)
+    cb = k.bind_critic(extras)
+    _, _, res = k.forward(sk, cb)
+    g_loss = torch.ones((), device='cuda')
+    g_mret = torch.zeros((), device='cuda')
+    bare = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, mm, mm, True, False, B,
+                            x0.device)
+    bare_res = bare.forward(sk)[2]
+    bare_ms = {
+        'fused_rollout_fwd': time_launches(lambda: bare.forward(sk)),
+        'fused_rollout_bwd': time_launches(lambda: bare.backward(
+            sk, bare_res, g_loss, g_mret, True)),
+        'fused_rollout_vg': time_launches(lambda: bare.value_and_grad(sk))}
+
+    def plain_fwd():
+        return plain(pp, *args, extras=extras)
+
+    def plain_vg():
+        torch.autograd.grad(plain_fwd()[0], leaves)
+
+    plain_fwd_ms = time_graph(plain_fwd, n=5)
+    plain_vg_ms = time_graph(plain_vg, n=5)
+    t = {
+        'fused_rollout_fwd': dict(ms=time_launches(lambda: k.forward(sk, cb)),
+                                  plain_ms=plain_fwd_ms),
+        'fused_rollout_bwd': dict(
+            ms=time_launches(lambda: k.backward(sk, res, g_loss, g_mret, True,
+                                                cb)),
+            plain_ms=plain_vg_ms - plain_fwd_ms),
+        'fused_rollout_vg': dict(ms=time_launches(
+            lambda: k.value_and_grad(sk, cb)), plain_ms=plain_vg_ms),
+    }
+    D, U = x0.shape[1], eps.shape[2]
+    work = rollout_bytes_flops(B, MAIN_T, *net_dims(dyn, pol), D, U,
+                               r_mm=mm)
+    cwork = critic_bytes_flops(B, critic.critic_dims(update.spec), D)
+    for name in t:
+        (b0, f0), (b1, f1) = work[name], cwork[name]
+        t[name]['bound_ms'], t[name]['bound_by'] = bound(b0 + b1, f0 + f1)
+        t[name]['bare_ms'] = bare_ms[name]
+    if split:
+        log_split(f'fused_rollout_vg with the critic B={B}',
+                  time_split(k, lambda: k.value_and_grad(sk, cb)))
+    return t
+
+
+def phase_critic_kernels():
+    """Phase 2c: rows 3-5 with the with-value driver's critic refit in the
+    launch, held against the plain version (``check_critic``) at the
+    CRITIC_CASES, and timed there beside the same rows without a critic
+    and the card's name and power limit."""
+    for B, mm in CRITIC_CASES:
+        check_critic(B, mm)
+    card = card_line()
+    for B, mm in CRITIC_CASES:
+        tt = critic_timings(B, mm, split=B == MAIN_B)
+        for name, v in tt.items():
+            log(f'[phase 2c] {name} with the critic B={B} T={MAIN_T} MM '
+                f'{"on" if mm else "off"}: kernel {v["ms"]:.4f} ms (CUDA '
+                f'events around {ROLLOUT_LAUNCHES} launches; without a '
+                f'critic {v["bare_ms"]:.4f} ms), plain {v["plain_ms"]:.4f} '
+                f'ms (graph replay), bound {v["bound_ms"]:.6f} ms '
+                f'({v["bound_by"]}); {card}')
 
 
 # ---------------------------------------------------------------------------
@@ -1625,70 +2007,78 @@ def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
 
 def critic_setup(D, seed=SEED, T=MAIN_T):
     """The Deep-PILCO with-value driver's default critic
-    (``examples/deep_pilco_common.py:177-202``): a [200, 200] relu MLP with
-    concrete dropout 0.1 and a plain head, MSE TD(H) loss with H = T,
-    reg_weight 1e-4, Adam 1e-4, polyak 1. Returns (V, update, value_state,
-    stats)."""
-    V = Regressor(MLPSpec(D, 1, (200, 200), dropout=cdropout(0.1)))
-    adam = Adam(1e-4)
-    update = make_value_update_fn(V, adam, T, polyak=1.0, use_density=False)
+    (``examples/deep_pilco_common.py`` ``build_critic``): ``critic_spec``'s
+    MSE critic with H = T and uniform TD weights. Returns (V, update,
+    value_state, stats)."""
+    V, update = critic_spec(D, H=T, discount=None)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed + 100)
     vp = V.init(gen, device='cuda')
-    return (V, update, dict(params=vp, target=vp, opt_state=adam.init(vp)),
+    return (V, update, dict(params=vp, target=vp,
+                            opt_state=update.optimizer.init(vp)),
             V.init_stats(device='cuda'))
 
 
-def value_iteration_split(opt, setup, V, update, state, vstats, n=20,
-                          seed=SEED, T=MAIN_T):
-    """Host ms of each part of a grid-tier iteration with the critic, each
-    part ended by a synchronise (median of n): the grid forward, the critic
-    refit, the bootstrap with the loss's backward (the critic's VJP and the
-    grid backward), clip + Adam. Runs on copies of the policy and critic."""
-    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
-    pol_params = tree_map(lambda v: v.detach().clone().requires_grad_(True),
-                          pol_params)
-    roll = fr.make_grid_rollout(dyn, pol, T, True, True)
-    dn, pn, zm, zr, vn = opt.prepare_noise(opt.sample_noise(
+def value_opts(setup, V, update, T=MAIN_T, B=GRID_B):
+    """``MCPILCO`` with the critic at B particles, states and rewards
+    moment-matched: {'full': as the gate makes it (the whole-rollout tier,
+    one ``fused_rollout_vg`` launch with the refit in it), 'grid': the same
+    with its value-and-grad and loss forced to the grid tier
+    (``mode='grid'``: the grid kernels, the refit on the fused MLP and the
+    bootstrap between them), the tier of a critic the kernels refuse}."""
+    dyn, pol = setup[:2]
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
+                        mm_rewards=True)
+    opts = {'full': make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V, update),
+            'grid': make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V, update)}
+    opt = opts['grid']
+    args = (dyn, pol, T, opt.w_t, True, True, True)
+    kw = dict(value_update=update, w_H=opt.w_H, mode='grid')
+    opt.fused_vg = fr.make_fused_value_and_grad(*args, **kw)
+    opt.fused_loss = fr.make_fused_loss(*args, **kw)
+    return opts
+
+
+def value_tier_times(setup, opts, state, vstats, n=30, seed=SEED):
+    """Host ms of an ``MCPILCO.iteration`` with the critic (each ended by a
+    synchronise, the median of n after 3 of warm-up) through each of
+    ``value_opts``' two, in turns (full, grid, grid, full), each run on
+    copies of the policy from the critic's ``state``. Returns {'full': ms,
+    'grid': ms}, each the mean of its two runs."""
+    _, _, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    opt = opts['grid']
+    noise = opt.prepare_noise(opt.sample_noise(
         seeded_generator('cuda', seed, 0), x0_pool.shape[-1], 'cuda'), 'cuda')
-    params = tree_leaves(pol_params)
-    adam = torch.optim.Adam(params, lr=1e-3)
-    carry = (state['params'], state['target'], state['opt_state'])
     init = torch.tensor(init_noise, device='cuda')
-    times = []
-    for i in range(n):
-        x0 = opt.sample_x0(x0_pool, seeded_generator('cuda', seed, i), init)
-        torch.cuda.synchronize()
-        stamps = [time.perf_counter()]
-        disc, _, vret, sall = roll(pol_params, x0, zm, zr, None, dyn_params,
-                                   dyn_stats, dn, pn, opt.w_t, update.w_t)
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        *carry, _ = update.core(*carry, vstats, x0, sall[T - 1].detach(),
-                                vret.detach(), vn)
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        v_end = V.apply(tree_map(torch.Tensor.detach, carry[0]), vstats,
-                        sall[-1], vn, return_samples=True)
-        loss = -(disc + float(opt.w_H) * v_end).mean()
-        grads = torch.autograd.grad(loss, params)
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        for q, g in zip(params, clip_grad_norm(list(grads), 1.0)):
-            q.grad = g
-        adam.step()
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        times.append(np.diff(stamps) * 1e3)
-    names = ('grid forward', 'critic refit', 'bootstrap + backward',
-             'clip + Adam')
-    return dict(zip(names, np.median(times, 0).tolist()))
+
+    def run(o):
+        p = tree_map(lambda v: v.detach().clone().requires_grad_(True),
+                     pol_params)
+        adam = torch.optim.Adam(tree_leaves(p), lr=1e-3)
+        carry = (state['params'], state['target'], state['opt_state'])
+        times = []
+        for i in range(n + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry = o.iteration(p, adam, dyn_params, dyn_stats, x0_pool,
+                                noise, seeded_generator('cuda', seed, i),
+                                init, carry, vstats)[3]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times[3:])) * 1e3
+
+    ms = {'full': [], 'grid': []}
+    for tier in ('full', 'grid', 'grid', 'full'):
+        ms[tier].append(run(opts[tier]))
+    return {k: float(np.mean(v)) for k, v in ms.items()}
 
 
 def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
-                        B=GRID_B):
+                        tier='full'):
     """One iteration with the critic on the same initial states and noise,
-    through ``opt`` (the grid tier) and through its plain path
+    through ``opt`` (on ``tier``: the whole-rollout tier, rows 3 and 4 with
+    the refit, or forced to the grid tier, ``value_opts``) and through its
+    plain path
     (``make_loss_plain`` with the value update: the per-step rollout, the
     rewards resampled step by step, on unfused MLPs, the critic unfused
     too): loss, mean_return, v_loss, the clipped policy grads and the refit
@@ -1742,29 +2132,32 @@ def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
             raise AssertionError(f'non-finite {k} on the kernel path')
         err = float((got[k] - ref[k]).abs().max())
         tol = max(f, 3 * float((moved[k] - ref[k]).abs().max()))
-        log(f'[phase 7] one iteration, kernel vs plain path: {k} max abs err '
-            f'{err:.3e} (tolerance {tol:.3e}; plain '
+        log(f'[phase 7] one iteration on tier {tier}, kernel vs plain path: '
+            f'{k} max abs err {err:.3e} (tolerance {tol:.3e}; plain '
             f'{float(ref[k].abs().max()):.6e} max abs)')
         if err > tol:
             bad.append(k)
     if bad:
-        raise AssertionError(f'kernel path and plain path disagree: {bad}')
+        raise AssertionError(f'kernel path on tier {tier} and plain path '
+                             f'disagree: {bad}')
 
 
 def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
     """``mc_pilco`` at B = 1000 with the critic of ``critic_setup``, where
-    the gate must name the grid tier; the launch counts of the run (set to
-    0 just before it), the host split and the check against the plain
-    path. Returns the launch counts."""
+    the gate must name the whole-rollout tier: the launch counts of the run
+    (set to 0 just before it: one ``fused_rollout_vg`` an iteration, the
+    refit and the bootstrap in it, nothing else), v_loss falling, the ms an
+    iteration on that tier and forced to the grid tier in the same call
+    (``value_tier_times``), and one iteration on each of the two against the
+    plain path. Returns the launch counts."""
     setup = main_path_setup(seed)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     V, update, state, vstats = critic_setup(x0_pool.shape[-1], seed, T)
-    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
-                        mm_rewards=True)
-    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V, update)
-    if opt.tier('cuda') != 'grid':
+    opts = value_opts(setup, V, update, T, B)
+    opt = opts['full']
+    if opt.tier('cuda') != 'full':
         raise AssertionError(f'the gate names {opt.tier("cuda")!r} for the '
-                             f'value path at B={B}, expected \'grid\'')
+                             f'value path at B={B}, expected \'full\'')
     stamps = []
     reset_counts()
     torch.cuda.synchronize()
@@ -1780,22 +2173,25 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
     launches = counts()
     if n_steps != iters or int(state['opt_state'].count) != iters:
         raise AssertionError('the run did not take every iteration')
-    report('phase 7', 'mc_pilco with a TD(H) critic (tier grid)', iters, t0,
+    report('phase 7', 'mc_pilco with a TD(H) critic (tier full)', iters, t0,
            stamps, metrics['loss'], metrics['mean_return'], launches,
-           expect(fused_grid_fwd=iters, fused_grid_bwd=iters,
-                  fused_mlp_fwd=3 * iters, fused_mlp_bwd=2 * iters), T, B)
+           expect(fused_rollout_vg=iters), T, B)
     v = metrics['v_loss']
     if not np.all(np.isfinite(v)):
         raise AssertionError('non-finite v_loss on the value path')
+    first, last = float(v[:10].mean()), float(v[-10:].mean())
     log(f'[phase 7] v_loss first {v[0]:.6e} last {v[-1]:.6e} (min '
-        f'{v.min():.6e}, max {v.max():.6e}), all finite')
-    split = value_iteration_split(opt, setup, V, update, state, vstats,
-                                  seed=seed, T=T)
-    log('[phase 7] host split of an iteration (median of 20, each part '
-        'ended by a synchronise): '
-        + ', '.join(f'{k} {ms:.3f} ms' for k, ms in split.items())
-        + f' = {sum(split.values()):.3f} ms')
-    compare_value_paths(setup, opt, V, state, vstats, seed, T, B)
+        f'{v.min():.6e}, max {v.max():.6e}; first-10 mean {first:.6e}, '
+        f'last-10 mean {last:.6e}), all finite')
+    if not last < first:
+        raise AssertionError('v_loss did not fall on the value path')
+    ms = value_tier_times(setup, opts, state, vstats, seed=seed)
+    log(f'[phase 7] an iteration with the critic at B={B} (host clock, '
+        f'synchronised, median of 30, two runs each in turns): tier full '
+        f'{ms["full"]:.3f} ms, forced to tier grid {ms["grid"]:.3f} ms; '
+        f'{card_line()}')
+    for tier, o in opts.items():
+        compare_value_paths(setup, o, V, state, vstats, seed, T, tier)
     return launches
 
 
@@ -2032,28 +2428,31 @@ def episode_policy_check(results, args, tag):
                    1e-2 * pool.std(0)), row5, tag, SEED, T, B)
 
 
-def run_episodes(argv, episodes, tag, checks):
-    """The torch ``deep_pilco_mm`` driver (``main`` through its parser and
-    the entry point's settings) with ``argv`` into a temporary folder under
-    ``build/``, every count set to 0 just before it. Checks every value
-    finite, E_lml rising within each fit, the tier the gate names for the
-    driver's configuration (``'full'``, whether the env gives the reward or
-    the driver learns it) and its exact launch counts: fused-MLP forward one
-    a fit step and one a control step taken (the lander may end an episode
-    early; counted from the experience), backward one a fit step, and
-    ``fused_rollout_vg`` one a policy iteration, no fused-MLP launch from
-    the policy loop; then ``checks(results folder, args)`` on its
-    checkpoint. Returns the launch counts and the per-episode records."""
+def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS):
+    """A torch Deep-PILCO driver (``main`` through its parser and the entry
+    point's ``settings``, by default ``deep_pilco_mm``'s) with ``argv`` into
+    a temporary folder under ``build/``, every count set to 0 just before
+    it. Checks every value finite (v_loss too with a critic), E_lml rising
+    within each fit, the tier the gate names for the driver's configuration
+    (``'full'``, whether the env gives the reward or the driver learns it,
+    and with the with-value driver's critic refit in the kernel) and its
+    exact launch counts: fused-MLP forward one a fit step and one a control
+    step taken (the lander may end an episode early; counted from the
+    experience), backward one a fit step, and ``fused_rollout_vg`` one a
+    policy iteration, no fused-MLP launch from the policy loop; then
+    ``checks(results folder, args)`` on its checkpoint. Returns the launch
+    counts and the per-episode records."""
     root = Path(__file__).resolve().parent / 'build'
     root.mkdir(exist_ok=True)
     folder = tempfile.mkdtemp(prefix='chip_smoke_episode_', dir=root)
     try:
         argv = argv + ['-o', folder]
+        fit_iters = dpc.get_argument_parser().parse_args(argv).dyn_opt_iters
         records = []
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        returns, results = dpc.main(**dpm.SETTINGS, argv=argv, device='cuda',
+        returns, results = dpc.main(**settings, argv=argv, device='cuda',
                                     on_episode=records.append)
         torch.cuda.synchronize()
         launches = counts()
@@ -2065,6 +2464,7 @@ def run_episodes(argv, episodes, tag, checks):
             dm, pm = r['dyn_metrics'], r['pol_metrics']
             vals = [dm['loss'], dm['E_lml'], pm['loss'], pm['mean_return'],
                     [r['real_return'], r['imagined_return'], r['E_lml']]]
+            vals += [pm['v_loss']] if 'v_loss' in pm else []
             if not all(np.all(np.isfinite(v)) for v in vals):
                 raise AssertionError(f'non-finite value in episode '
                                      f'{r["episode"]}')
@@ -2072,8 +2472,8 @@ def run_episodes(argv, episodes, tag, checks):
             log(f'[{tag}] episode {r["episode"]}: E_lml {r["E_lml"]:.6f} '
                 f'(fit: first-50 mean {first:.6f}, last-50 mean {last:.6f}); '
                 f'imagined return {r["imagined_return"]:.6f}; real return '
-                f'{r["real_return"]:.6f}; fit {1e3 * r["fit_s"] / FIT_ITERS:.4f}'
-                f' ms a step ({FIT_ITERS} in {r["fit_s"]:.3f} s); policy '
+                f'{r["real_return"]:.6f}; fit '
+                f'{1e3 * r["fit_s"] / fit_iters:.4f} ms a step ({fit_iters} in {r["fit_s"]:.3f} s); policy '
                 f'{1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an iteration '
                 f'({EPISODE_POL_ITERS} in {r["pol_s"]:.3f} s, the optimizer\'s '
                 'build included)')
@@ -2081,12 +2481,16 @@ def run_episodes(argv, episodes, tag, checks):
                 raise AssertionError(f'E_lml did not rise in the fit of '
                                      f'episode {r["episode"]}')
         args = dpc.get_argument_parser().parse_args(argv)
-        for k, v in dpm.SETTINGS['arg_overrides'].items():
+        for k, v in settings['arg_overrides'].items():
             setattr(args, k, v)
         _, dyn, pol = driver_models(args)
         cfg = MCPILCOConfig(n_particles=args.pol_batch_size, steps=args.pred_H,
-                            mm_states=True, mm_rewards=True)
-        tier = make_mc_pilco_fn(dyn, pol, cfg, 'cuda').tier('cuda')
+                            mm_states=settings['mm_states'],
+                            mm_rewards=settings['mm_rewards'])
+        critic = (dpc.build_critic(dyn.state_dims, args,
+                                   dpc.driver_discount(args))
+                  if settings.get('use_value') else ())
+        tier = make_mc_pilco_fn(dyn, pol, cfg, 'cuda', *critic).tier('cuda')
         reward = ('a learned reward' if dyn.reward_func is None
                   else 'the env\'s reward')
         log(f'[{tag}] the tier mc_pilco takes for the driver\'s '
@@ -2098,8 +2502,8 @@ def run_episodes(argv, episodes, tag, checks):
         exp.load(str(Path(results) / 'experience.pkl'))
         steps = sum(len(ep) for ep in exp.states)
         pol_iters = episodes * EPISODE_POL_ITERS
-        want = expect(fused_mlp_fwd=episodes * FIT_ITERS + steps,
-                      fused_mlp_bwd=episodes * FIT_ITERS,
+        want = expect(fused_mlp_fwd=episodes * fit_iters + steps,
+                      fused_mlp_bwd=episodes * fit_iters,
                       fused_rollout_vg=pol_iters)
         log(f'[{tag}] {episodes} episode(s) in {wall:.3f} s, {steps} control '
             f'steps taken; launches {launches} (expected {want})')
@@ -2117,6 +2521,34 @@ def phase_episode():
     counts."""
     return run_episodes(EPISODE_ARGV, EPISODES, 'phase 8',
                         episode_fit_checks)[0]
+
+
+def phase_value_episode():
+    """Phase 10: one full-width episode of the with-value driver
+    (``deep_pilco_no_mm_with_value``: no moment matching, the [200, 200]
+    concrete-dropout MSE critic refit every policy iteration, H = 15) with
+    phase 8's widths and cuts (``run_episodes``: launches exact, the refit
+    inside the ``fused_rollout_vg`` of each policy iteration), one fit step
+    held against the plain path, v_loss finite; logs v_loss over the
+    episode and the ms a fit step and a policy iteration."""
+    tag = 'phase 10'
+
+    def checks(results, args):
+        episode_fit_checks(results, args, tag, profile=False)
+
+    _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1'], 1, tag,
+                           checks, settings=dvm.SETTINGS)
+    v = r['pol_metrics']['v_loss']
+    log(f'[{tag}] v_loss over the episode\'s {len(v)} policy iterations: '
+        f'first {v[0]:.6e}, last {v[-1]:.6e}, first-20 mean '
+        f'{v[:20].mean():.6e}, last-20 mean {v[-20:].mean():.6e}, '
+        f'{len(np.unique(v))} distinct values')
+    if len(np.unique(v)) <= len(v) // 2:
+        raise AssertionError('the episode\'s v_loss history repeats: its '
+                             'entries are not each iteration\'s own')
+    log(f'[{tag}] fit {1e3 * r["fit_s"] / FIT_ITERS:.4f} ms a step, policy '
+        f'{1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an iteration (the '
+        f'critic refit in it); {card_line()}')
 
 
 def evaluate_check(results, tag):
@@ -2139,13 +2571,13 @@ def evaluate_check(results, tag):
 
 def phase_env_episodes():
     """Phase 9: one full-width episode of the same driver and cuts on each
-    of ENV_EPISODE_ENVS (``run_episodes``), then one on Cartpole with
-    ``--learn_reward`` (whose policy iterations the whole-rollout kernel
-    takes with the learned reward, kind 3), each checked by one fit step
-    and one policy iteration (row 5) against their plain paths; the
-    lander's run then replayed by ``evaluate_policy``. Logs which class
-    ``make('LunarLander')`` gives and each run's fit ms a step and policy
-    ms an iteration."""
+    of ENV_EPISODE_ENVS (``run_episodes``; the fit ENV_FIT_ITERS steps),
+    then one on Cartpole with ``--learn_reward`` (whose policy iterations
+    the whole-rollout kernel takes with the learned reward, kind 3), each
+    checked by one fit step and one policy iteration (row 5) against their
+    plain paths; the lander's run then replayed by ``evaluate_policy``.
+    Logs which class ``make('LunarLander')`` gives and each run's fit ms a
+    step and policy ms an iteration."""
     runs = [(env, ['-e', env]) for env in ENV_EPISODE_ENVS]
     runs.append(('Cartpole --learn_reward', ['--learn_reward']))
     for name, argv in runs:
@@ -2160,9 +2592,11 @@ def phase_env_episodes():
             if args.env == 'LunarLander':
                 evaluate_check(results, tag)
 
-        _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1'] + argv, 1,
-                               tag, checks)
-        log(f'[{tag}] fit {1e3 * r["fit_s"] / FIT_ITERS:.4f} ms a step, '
+        _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1',
+                                               '--dyn_opt_iters',
+                                               str(ENV_FIT_ITERS)] + argv,
+                               1, tag, checks)
+        log(f'[{tag}] fit {1e3 * r["fit_s"] / ENV_FIT_ITERS:.4f} ms a step, '
             f'policy {1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an '
             'iteration')
 
@@ -2206,6 +2640,8 @@ def main():
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
             **phase_rollout_kernels(), **phase_grid_kernels()}
     t = lap('phase 2', t)
+    phase_critic_kernels()
+    t = lap('phase 2c', t)
     phase_env_kernels(rows, card)
     t = lap('phase 2b', t)
     # each kernel's launches come from the run of the route that carries it:
@@ -2231,16 +2667,18 @@ def main():
                                expect(fused_rollout_vg=ITERS), 'full')
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
-    value_path = phase_value_path()
-    phase_fixed_critic()
+    phase_value_path()
+    fixed_critic = phase_fixed_critic()
     t = lap('phases 3-7', t)
     episode = phase_episode()
     t = lap('phase 8', t)
     phase_env_episodes()
-    lap('phase 9', t)
+    t = lap('phase 9', t)
+    phase_value_episode()
+    lap('phase 10', t)
     runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
-            'fused_rollout_bwd': loss_route, 'fused_grid': value_path}
+            'fused_rollout_bwd': loss_route, 'fused_grid': fixed_critic}
     launches = {n: next(v for k, v in runs.items() if n.startswith(k))[n]
                 for n in REPLACES}
 

@@ -17,11 +17,15 @@ CUDA, the tier that ``ops.cuda.fused_rollout.fused_mode`` names when the
 optimizer is built is taken:
   - ``'full'``: one launch of the whole-rollout value-and-grad kernel per
     iteration (``make_fused_value_and_grad``, no autograd), then clip and
-    the optimizer step; ``MCPILCO.loss`` goes through the differentiable
-    whole-rollout loss (forward and backward kernels);
-  - ``'grid'`` (with a value update or a fixed critic): one launch of each
-    grid kernel per iteration, the critic refit (with an update) and the
-    bootstrap between them;
+    the optimizer step; with a value update the kernel also refits the
+    critic (TD(H) loss, Adam, polyak) and adds the bootstrap, as JAX's row
+    5 does, where ``fused_rollout.fused_mode`` finds the critic taken;
+    ``MCPILCO.loss`` goes through the differentiable whole-rollout loss
+    (forward and backward kernels);
+  - ``'grid'`` (with a fixed critic, or a value update whose critic the
+    whole-rollout kernels do not take): one launch of each grid kernel per
+    iteration, the critic refit (with an update) and the bootstrap between
+    them;
   - ``'step'`` (when the batch is beyond the particles the card holds of
     the whole rollout at once): one forward and one backward kernel per
     rollout step;
@@ -41,7 +45,7 @@ no fused tier takes it, as in JAX); the bootstrap evaluates under the epoch
 noise's. With ``value_spec`` and no update (a fixed critic) the bootstrap is
 added under ``value_params`` as they are (JAX ``mc_pilco.py:421-430``), on
 the grid tier or the ``utils.rollout`` route, never the whole-rollout tier,
-whose kernel has no bootstrap.
+whose kernel adds a bootstrap only after its own refit.
 
 ``mc_pilco`` is the host loop over chunks of iterations (hooks, writer,
 progress line) and ``MCPILCOAgent`` bundles specs, params, dataset and
@@ -342,7 +346,9 @@ class MCPILCO:
         params = tree_leaves(pol_params)
         if self.tier(x0.device) == 'full':
             loss, mean_return, grads, aux = self.fused_vg(
-                pol_params, x0, dyn_params, dyn_stats, *noise)
+                pol_params, x0, dyn_params, dyn_stats, *noise[:4],
+                extras=self._extras(noise, value_carry, value_stats,
+                                    value_params))
             grads = tree_leaves(grads)
         else:
             loss, mean_return, *aux = self.loss(

@@ -87,7 +87,9 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
     states' device: ``V.sample_noise(key, (B,))``, as JAX draws them from
     its key; ``val_mask_mode='iter'``). Its attributes
     ``core`` (the update from (s0, sH, returns), which the fused rollout
-    tiers call), ``spec``, ``H``, ``w_t`` and ``w_H`` are JAX's.
+    tiers call), ``spec``, ``H``, ``w_t`` and ``w_H`` are JAX's; the
+    whole-rollout kernels, which refit the critic themselves, also read
+    ``optimizer``, ``reg_weight``, ``polyak`` and ``use_density``.
     """
     w_t, w_H = discount_weights(discount, H)
     w_H = float(w_H)
@@ -144,4 +146,8 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
     update.H = H
     update.w_t = w_t
     update.w_H = w_H
+    update.optimizer = optimizer
+    update.reg_weight = reg_weight
+    update.polyak = polyak
+    update.use_density = use_density
     return update

@@ -61,6 +61,9 @@ constexpr int kPart = kPartF > kPartB ? kPartF : kPartB;
 // the tile's small per-row quantities, [feature][TRP] each; the dynamics
 // head's outputs and noise have room for a learned reward's (kMaxD + 1 a half)
 constexpr int kMaxE = kMaxD + 1;
+// netid of the value update's critic in the walks (0 the policy, 1 the
+// dynamics): its weights and biases are read in place, never staged
+constexpr int kCriticNet = 2;
 constexpr int kTPout = 0, kTDout = kTPout + 2 * kMaxU, kTU = kTDout + 2 * kMaxE,
               kTAct = kTU + kMaxU, kTNxt = kTAct + kMaxU, kTR = kTNxt + kMaxD,
               kTGnxt = kTR + 1, kTGact = kTGnxt + kMaxD, kTGs = kTGact + kMaxU,
@@ -98,11 +101,16 @@ struct Lay {
   int dw_cta;                // floats of one CTA's dW accumulator
   int region[2], rfl;        // the two exchange regions and their floats
   int h, xp, xd, gx, tsm, pp, parts;  // h: a layer's input slice (backward: the dW's)
-  int asm_off[2][kMaxLayers];  // kept hidden pre-activation slices [kw4][TRP]
-  int msk_off[2][kMaxLayers];  // the tile's mask slices of the hidden layers [kw4][TRP]
+  // kept hidden pre-activation slices [kw4][TRP] and the tile's mask slices
+  // of the hidden layers [kw4][TRP] of the policy, the dynamics and (netid
+  // kCriticNet, rollout_kernel.cuh) the value update's critic
+  int asm_off[3][kMaxLayers];
+  int msk_off[3][kMaxLayers];
   int bias_off[2][kMaxLayers];  // every layer's bias [d4] (zero without one)
+  int cdw_off[kMaxLayers];   // the critic's dW accumulator [kw4][d4] + db [d4] of each layer
+  int cdw_cta;               // floats of one CTA's critic dW accumulator
   // scratch (floats)
-  int s_fwd, s_bwd, s_loss, s_dw, s_dwcta, scratch;
+  int s_fwd, s_bwd, s_loss, s_dw, s_dwcta, s_cdw, s_closs, scratch;
   int dw_flat[kMaxLayers + 1];  // offsets of each policy layer's dW + db in a flat partial
 };
 
@@ -186,13 +194,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---- the MLP walks of one row tile, split over the cluster -----------------
 
-// Weight rows of layer l of `net` (0 policy, 1 dynamics) that this CTA owns:
-// the staged block [kw4][d4] (zero past the block), or the caller's W in
-// place ([din][dout], rows from ks.c0).
+// Whether the weights of `netid` are staged in shared memory (a resident
+// plan's policy and dynamics) or read in place.
+__device__ __forceinline__ bool staged(const Ctx& c, int netid) {
+  return c.lay.resident && netid < kCriticNet;
+}
+
+// Weight rows of layer l of `net` (0 policy, 1 dynamics, kCriticNet the
+// critic) that this CTA owns: the staged block [kw4][d4] (zero past the
+// block), or the caller's W in place ([din][dout], rows from ks.c0).
 __device__ __forceinline__ const float* wrows(const Ctx& c, const Net& net, int netid, int l,
                                               const Slice& ks) {
-  if (c.lay.resident) return c.sm + c.lay.w_off[netid][l];
+  if (staged(c, netid)) return c.sm + c.lay.w_off[netid][l];
   return net.w[l] + (size_t)ks.c0 * net.dims[l + 1];
+}
+
+// Bias j of layer l: staged (the policy's and the dynamics'), or the
+// critic's in place; zero without one.
+__device__ __forceinline__ float bias_at(const Ctx& c, const Net& net, int netid, int l, int j) {
+  if (netid < kCriticNet) return c.sm[c.lay.bias_off[netid][l] + j];
+  return net.b[l] ? net.b[l][j] : 0.f;
 }
 
 // w[k][j .. j + 3], zero past dout (ld: the row stride).
@@ -252,7 +273,7 @@ __device__ __forceinline__ void owner_out(Ctx& c, const Net& net, int netid, int
 __device__ __forceinline__ void owner_loads(const Ctx& c, const Net& net, int netid, int l,
                                             const Slice& cs, int jj, int g, float& bias,
                                             float4& mk) {
-  bias = c.sm[c.lay.bias_off[netid][l] + cs.c0 + jj];
+  bias = bias_at(c, net, netid, l, cs.c0 + jj);
   mk = net.m[l] ? ld4(c.sm + c.lay.msk_off[netid][l] + jj * c.lay.TRP + g * RB)
                 : make_float4(1.f, 1.f, 1.f, 1.f);
 }
@@ -272,7 +293,7 @@ __device__ void mlp_fwd(Ctx& c, const Net& net, int netid, int x_off, bool keep,
                         int row0, int nrows) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int TR = c.lay.TR, TRP = c.lay.TRP, G = TR / RB;
-  const bool res = c.lay.resident;
+  const bool res = staged(c, netid);
   float* h = c.sm + c.lay.h;
   float* out = c.sm + out_off;
   for (int l = 0; l <= net.n; ++l) {
@@ -359,7 +380,7 @@ __device__ void mlp_fwd(Ctx& c, const Net& net, int netid, int x_off, bool keep,
         const float* src = reg + j * TRP + g * RB;
         float4 a = ld4(src);
         for (int s = 1; s < sources; ++s) a = add4(a, ld4(src + s * dout * TRP));
-        const float bj = c.sm[c.lay.bias_off[netid][l] + j];
+        const float bj = bias_at(c, net, netid, l, j);
         const int left = nrows - g * RB;
         st4(out + j * TRP + g * RB,
             make_float4(0 < left ? a.x + bj : 0.f, 1 < left ? a.y + bj : 0.f,
@@ -453,14 +474,16 @@ __device__ __forceinline__ void input_vjp(int act, const float (&av)[RB], const 
 // exchange: every CTA forms the whole gradient wrt the MLP input from the
 // gathered g_a and the whole W_0, into lay.gx ([din][TRP]), which this
 // returns. The hidden pre-activations are the slices the forward kept.
-// With dw (the policy): adds this CTA's rows of every layer's dW and db
-// (x_off: the whole layer-0 input).
+// With dw (the policy, or the critic): adds this CTA's rows of every layer's
+// dW and db at that net's accumulator offsets (x_off: the whole layer-0
+// input).
 template <bool kReluOnly>
 __device__ const float* mlp_bwd(Ctx& c, const Net& net, int netid, int row0, int nrows,
                                 int x_off, float* dw) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int TR = c.lay.TR, TRP = c.lay.TRP, G = TR / RB;
-  const bool res = c.lay.resident;
+  const bool res = staged(c, netid);
+  const int* dwo = netid == kCriticNet ? c.lay.cdw_off : c.lay.dw_off;
   float* hs = c.sm + c.lay.h;  // the forward's slice buffer, free here
   for (int l = net.n; l >= 1; --l) {
     const int din = net.dims[l], dout = net.dims[l + 1];
@@ -537,8 +560,8 @@ __device__ const float* mlp_bwd(Ctx& c, const Net& net, int netid, int row0, int
     }
     // g (this layer's g_a) is rewritten only after the barrier below
     if (dw)
-      dw_accumulate(c, ks, dout, hs, g, dw + c.lay.dw_off[l],
-                    dw + c.lay.dw_off[l] + round4(ceil_div(din, kCluster)) * round4(dout),
+      dw_accumulate(c, ks, dout, hs, g, dw + dwo[l],
+                    dw + dwo[l] + round4(ceil_div(din, kCluster)) * round4(dout),
                     net.b[l] != nullptr);
     cluster_sync();
     ++c.pass;
@@ -577,8 +600,8 @@ __device__ const float* mlp_bwd(Ctx& c, const Net& net, int netid, int row0, int
   }
   if (dw) {
     const Slice ks = slice_of(din, c.rank);
-    dw_accumulate(c, ks, dout, c.sm + x_off + ks.c0 * TRP, g, dw + c.lay.dw_off[0],
-                  dw + c.lay.dw_off[0] + round4(ceil_div(din, kCluster)) * round4(dout),
+    dw_accumulate(c, ks, dout, c.sm + x_off + ks.c0 * TRP, g, dw + dwo[0],
+                  dw + dwo[0] + round4(ceil_div(din, kCluster)) * round4(dout),
                   net.b[0] != nullptr);
   }
   __syncthreads();
@@ -895,19 +918,26 @@ int net_kwmax(const Net& net) {
 // with bwd and resident weights the policy's dW accumulator; every layer's
 // bias; two exchange regions; the layer-input slice; both MLPs' whole inputs
 // and the gradient wrt one; the tile's mask slices of the hidden layers and,
-// with bwd, the kept pre-activation slices; the tile's small arrays. Returns
-// the floats so far.
-long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L) {
+// with bwd, the kept pre-activation slices; the tile's small arrays. With a
+// critic (bwd only) the widths of its layers count in the exchange regions
+// and the layer-input slice, and its kept pre-activation and mask slices
+// share the policy's and the dynamics' room (the walks of the three never
+// overlap in time), which grows to the larger of the two. Returns the
+// floats so far.
+long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L,
+                   const Net* critic = nullptr) {
   const int TRP = TR + 4;
   L.TR = TR;
   L.TRP = TRP;
   L.resident = resident;
-  const Net* nets[2] = {&st.pol, &st.dyn};
+  const Net* nets[3] = {&st.pol, &st.dyn, critic};
+  const int nn = critic ? 3 : 2;
   long long off = 0;
-  for (int id = 0; id < 2; ++id)
+  for (int id = 0; id < 3; ++id)
     for (int l = 0; l < kMaxLayers; ++l) {
-      L.w_off[id][l] = 0;
+      if (id < 2) L.w_off[id][l] = 0;
       L.asm_off[id][l] = 0;
+      L.msk_off[id][l] = 0;
     }
   if (L.resident)
     for (int id = 0; id < 2; ++id)
@@ -936,9 +966,13 @@ long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L) {
       L.bias_off[id][l] = static_cast<int>(off);
       off += round4(nets[id]->dims[l + 1]);
     }
-  const int kwmax = max(net_kwmax(st.pol), net_kwmax(st.dyn));
-  const int outmax = max(st.pol.dims[st.pol.n + 1], st.dyn.dims[st.dyn.n + 1]);
-  const int rw = max(max(kCluster * kwmax, max_width(st)), kCluster * outmax);
+  int kwmax = 0, outmax = 0, wmax = 0;
+  for (int id = 0; id < nn; ++id) {
+    kwmax = max(kwmax, net_kwmax(*nets[id]));
+    outmax = max(outmax, nets[id]->dims[nets[id]->n + 1]);
+    wmax = max(wmax, nets[id]->maxw);
+  }
+  const int rw = max(max(kCluster * kwmax, wmax), kCluster * outmax);
   L.rfl = rw * TRP;
   L.region[0] = static_cast<int>(off);
   L.region[1] = static_cast<int>(off + L.rfl);
@@ -950,13 +984,20 @@ long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L) {
   L.xd = static_cast<int>(off + kMaxIn * TRP);
   L.gx = static_cast<int>(off + 2 * kMaxIn * TRP);
   off += 3LL * kMaxIn * TRP;
-  for (int id = 0; id < 2; ++id)
+  const long long base = off;
+  long long ends[3] = {off, off, off};
+  for (int id = 0; id < nn; ++id) {
+    long long o = id == 2 ? base : off;
     for (int l = 0; l < nets[id]->n; ++l) {
       const long long slice = (long long)round4(ceil_div(nets[id]->dims[l + 1], kCluster)) * TRP;
-      L.asm_off[id][l] = static_cast<int>(off);
-      L.msk_off[id][l] = static_cast<int>(bwd ? off + slice : off);
-      off += bwd ? 2 * slice : slice;
+      L.asm_off[id][l] = static_cast<int>(o);
+      L.msk_off[id][l] = static_cast<int>(bwd ? o + slice : o);
+      o += bwd ? 2 * slice : slice;
     }
+    ends[id] = o;
+    if (id < 2) off = o;
+  }
+  off = max(off, ends[2]);
   L.tsm = static_cast<int>(off);
   off += (long long)kTSmall * TRP;
   return off;

@@ -1,0 +1,10 @@
+// Row 5's instances with the value update's critic (RollArgs::critic;
+// rollout_kernel.cuh, critic_walk.cuh): a translation unit of its own, which
+// nvcc compiles beside fused_rollout.cu's (build.py links them into
+// libfused_rollout.so), whose launch() takes them through this function.
+
+#include "rollout_kernel.cuh"
+
+extern "C" const void* fused_rollout_critic_vg(int relu) {
+  return critic_instance<kFwd | kBwd>(relu);
+}

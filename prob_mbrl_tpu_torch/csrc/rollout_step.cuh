@@ -156,10 +156,6 @@ __host__ __device__ __forceinline__ int head_dims(int reward_kind, int D) {
   return reward_kind == kLearnedReward ? D + 1 : D;
 }
 
-__host__ __device__ inline int max_width(const Step& st) {
-  return st.pol.maxw > st.dyn.maxw ? st.pol.maxw : st.dyn.maxw;
-}
-
 // ---- moment matching: the factor and the adjoint, on one thread -----------
 
 // Outer-product Cholesky of S + jitter I (the unrolled small_cholesky). False

@@ -104,6 +104,34 @@ def _numpy(tree):
     return tree_map(lambda t: np.array(t.detach().cpu()), tree)
 
 
+def driver_discount(args):
+    """The discount of the policy's returns and the critic's TD weights:
+    'auto' -> (1/H)^(2/H) for the control horizon H, None -> uniform
+    1/H, else the number given."""
+    discount = args.discount_factor
+    if isinstance(discount, str):
+        discount = ((1.0 / args.control_H) ** (2.0 / args.control_H)
+                    if discount == 'auto' else float(discount))
+    return discount
+
+
+def build_critic(D, args, discount):
+    """The with-value driver's critic and its update: a plain-output
+    [val_shape] concrete-dropout MLP on the D states, refit by MSE TD(H)
+    over pred_H steps every policy iteration (--val_density: a
+    diag-Gaussian head and NLL), Adam at val_lr, polyak val_polyak.
+    Returns (value_spec, value_update)."""
+    v_density = models.DiagGaussianDensity(1) if args.val_density else None
+    v_mlp = models.MLPSpec(
+        D, v_density.n_inputs if v_density else 1, tuple(args.val_shape),
+        dropout=(models.cdropout(args.val_drop_rate)
+                 if args.val_drop_rate > 0 else None))
+    value_spec = models.Regressor(mlp=v_mlp, output_density=v_density)
+    return value_spec, make_value_update_fn(
+        value_spec, Adam(args.val_lr), args.pred_H, discount=discount,
+        use_density=args.val_density, polyak=args.val_polyak)
+
+
 def run(args, mm_states=False, mm_rewards=False, use_value=False,
         init_state_noise_mult=1e-1, experiment_name='deep_pilco',
         device=None, on_episode=None):
@@ -129,11 +157,7 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
         getattr(env, 'reward_func', None))
     reward_func = getattr(env, 'reward_func', None)
 
-    # discount: 'auto' -> (1/H)^(2/H), None -> uniform 1/H
-    discount = args.discount_factor
-    if isinstance(discount, str):
-        discount = ((1.0 / args.control_H) ** (2.0 / args.control_H)
-                    if discount == 'auto' else float(discount))
+    discount = driver_discount(args)
 
     dyn, pol = build_models(D, U, maxU, minU, args, learn_reward, reward_func)
 
@@ -146,25 +170,12 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
 
     value_spec = value_stats = value_update = value_state = None
     if use_value:
-        # the with-value driver's critic: a plain-output [val_shape]
-        # concrete-dropout MLP refit by MSE TD(H) every policy iteration
-        # (--val_density: a diag-Gaussian head and NLL)
-        v_density = (models.DiagGaussianDensity(1) if args.val_density
-                     else None)
-        v_mlp = models.MLPSpec(
-            D, v_density.n_inputs if v_density else 1, tuple(args.val_shape),
-            dropout=(models.cdropout(args.val_drop_rate)
-                     if args.val_drop_rate > 0 else None))
-        value_spec = models.Regressor(mlp=v_mlp, output_density=v_density)
+        value_spec, value_update = build_critic(D, args, discount)
         value_params = value_spec.init(gen, device=device)
         value_stats = value_spec.init_stats(device=device)
-        v_opt = Adam(args.val_lr)
-        value_update = make_value_update_fn(value_spec, v_opt, args.pred_H,
-                                            discount=discount,
-                                            use_density=args.val_density,
-                                            polyak=args.val_polyak)
         value_state = dict(params=value_params, target=value_params,
-                           opt_state=v_opt.init(value_params))
+                           opt_state=value_update.optimizer.init(
+                               value_params))
 
     results_folder = init_output_folder(env, args.output_folder,
                                         experiment_name)

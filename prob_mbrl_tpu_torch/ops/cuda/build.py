@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``BUILD_DIR/lib<name>.so``, for ``sm_90a`` (Hopper), with ``csrc/`` on
-the include path for the headers the sources share (``*.cuh``).
+the include path for the headers the sources share (``*.cuh``): each of a
+library's translation units (``csrc/<name>.cu`` and its ``EXTRA_SOURCES``)
+compiled to an object, all at once, then linked.
 ``BUILD_DIR`` is ``build/`` at the root of the checkout (listed in
 ``.gitignore``); for an installed package it is a directory of its own, keyed
 by the package's path, under ``~/.cache/prob_mbrl_tpu_torch``. A library
@@ -24,7 +26,13 @@ else:
     BUILD_DIR = (Path.home() / '.cache' / 'prob_mbrl_tpu_torch'
                  / hashlib.sha1(str(CSRC).encode()).hexdigest()[:12])
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# the translation units of a library besides csrc/<name>.cu, compiled in
+# parallel with it: the whole-rollout kernel's instances with a critic, one
+# unit for each of rows 3-5
+EXTRA_SOURCES = {'fused_rollout': ('fused_rollout_critic_fwd.cu',
+                                   'fused_rollout_critic_bwd.cu',
+                                   'fused_rollout_critic_vg.cu')}
 
 _LIBS = {}
 
@@ -41,16 +49,27 @@ def _lib_path(name):
     return BUILD_DIR / f'lib{name}.so'
 
 
+def _sources(name):
+    return [CSRC / f'{name}.cu'] + [CSRC / f for f in
+                                    EXTRA_SOURCES.get(name, ())]
+
+
 def _fresh(name):
     lib = _lib_path(name)
     if not lib.exists():
         return False
-    sources = [CSRC / f'{name}.cu', *CSRC.glob('*.cuh')]
+    sources = [*_sources(name), *CSRC.glob('*.cuh')]
     return lib.stat().st_mtime >= max(p.stat().st_mtime for p in sources)
 
 
+def _run(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names):
-    """Compile the named sources, all at once (one ``nvcc`` each).
+    """Compile the named libraries, all at once (one ``nvcc`` for each
+    translation unit; each library's objects linked once they are built).
 
     Returns {name: compiler log}; the log holds ``-Xptxas -v``'s registers,
     shared memory and spills of each kernel (empty for a reused library).
@@ -64,19 +83,27 @@ def build(names):
     nvcc = _nvcc()
     procs = {}
     for n in todo:
-        tmp = BUILD_DIR / f'lib{n}.so.{os.getpid()}.tmp'
-        cmd = [nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
-               str(CSRC / f'{n}.cu')]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
+        objs = [BUILD_DIR / f'{s.stem}.{os.getpid()}.tmp.o'
+                for s in _sources(n)]
+        procs[n] = (objs, [
+            _run([nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-c', '-o', str(o),
+                  str(s)]) for s, o in zip(_sources(n), objs)])
     failed = []
-    for n, (tmp, p) in procs.items():
-        out, _ = p.communicate()
-        logs[n] = out
-        if p.returncode != 0:
-            failed.append(f'nvcc failed for {n}.cu (rc {p.returncode}):\n'
-                          f'{out}')
+    for n, (objs, ps) in procs.items():
+        tmp = BUILD_DIR / f'lib{n}.so.{os.getpid()}.tmp'
+        outs = [p.communicate()[0] for p in ps]
+        rcs = [p.returncode for p in ps]
+        if not any(rcs):
+            link = _run([nvcc, '-shared', *NVCC_FLAGS[:2], '-o', str(tmp),
+                         *map(str, objs)])
+            outs.append(link.communicate()[0])
+            rcs.append(link.returncode)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        logs[n] = '\n'.join(outs)
+        if any(rcs):
+            failed.append(f'nvcc failed for {n}.cu (rc {max(rcs)}):\n'
+                          f'{logs[n]}')
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, _lib_path(n))

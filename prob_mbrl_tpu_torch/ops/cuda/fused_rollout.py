@@ -8,8 +8,9 @@ Counterpart of ``prob_mbrl_tpu/ops/pallas/fused_rollout.py``:
     ``make_fused_loss`` (forward kernel ``_fwd_pallas``, the call at :813,
     and backward kernel ``_bwd_pallas``, :859) and
     ``make_fused_value_and_grad`` (one launch, ``fused_vg``, :981);
-    ``csrc/fused_rollout.cu`` holds the kernels and says how they are laid
-    out;
+    ``csrc/fused_rollout.cu`` holds their entry points and says how they
+    are laid out (the device code in ``csrc/rollout_kernel.cuh``, the
+    instances that refit a critic in ``csrc/fused_rollout_critic_*.cu``);
   - the step tier (``mode='step'``): ``make_step_impl`` (the step's math),
     ``make_fused_step`` (forward kernel ``_fwd_pallas`` at :1166, backward
     ``_bwd_pallas`` at :1206), ``make_stepwise_loss`` /
@@ -22,12 +23,15 @@ Counterpart of ``prob_mbrl_tpu/ops/pallas/fused_rollout.py``:
   - ``prepare_mm_noise`` and the gate ``fused_mode``.
 Both sources share the step's device code, ``csrc/rollout_step.cuh``.
 
-With a value update (``algorithms.value.make_value_update_fn``) the step and
-grid tiers and the plain loss run the TD(H) critic refit on the detached
-trajectory, then add the bootstrap ``w_H * V(s_T)`` under the refit critic's
-detached params to the discounted return, as plain PyTorch between the
-kernels (``_value_loss``); the in-kernel refit of JAX's ``'full'`` tier
-(``make_loss_impl`` :621-660) is not ported. A fixed critic (``value_spec``
+With a value update (``algorithms.value.make_value_update_fn``) every tier
+runs the TD(H) critic refit on the detached trajectory, then adds the
+bootstrap ``w_H * V(s_T)`` under the refit critic's detached params to the
+discounted return: the whole-rollout kernels in the launch, as JAX's
+``'full'`` tier does (``make_loss_impl`` :507-516, :615-660; the critic's
+walk, refit and Adam step in ``csrc/critic_walk.cuh``, the block and its
+output buffers in ``critic.py``, whose ``critic_refuses`` names the critics
+they take), the step and grid tiers and the plain loss as plain PyTorch
+between the kernels (``_value_loss``). A fixed critic (``value_spec``
 without an update) adds its bootstrap the same way on the grid tier and the
 plain loss, and the other tiers refuse it.
 
@@ -67,6 +71,7 @@ from ...models.regressor import DynamicsModel
 from ...utils.core import tree_leaves, tree_map
 from .. import moment_matching as mm
 from . import build
+from . import critic as cr
 from . import fused_mlp as fm
 
 MAX_D = 8        # kMaxD of csrc/fused_step.cu: state dims
@@ -89,9 +94,6 @@ TIERS = ('full', 'remat', 'step', 'grid')
 _GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
                       'resample (ROADMAP K6), not ported to the fused tiers '
                       'yet')
-_REFIT_NOT_PORTED = ("the in-kernel critic refit of mode='full' (PERF.md row "
-                     "5, make_loss_impl :621-660) is not ported: mode='grid' "
-                     "or 'step' take the value bootstrap")
 _FIXED_NOT_GRID = ("a fixed critic's bootstrap is added on the grid tier "
                    "alone: the whole-rollout and step kernels add none, "
                    "mode='grid' takes it")
@@ -377,26 +379,33 @@ def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
     ``infer_noise_variables``, float32, and models the step kernels take
     (``kernel_refuses``) admit the tiers; a value update also needs
     ``value_spec``, ``val_mask_mode='epoch'`` and H <= steps, and takes
-    ``'grid'`` (the critic refit between the grid kernels; the in-kernel
-    refit of ``'full'`` is not ported). A fixed critic (``value_spec``
-    without an update) takes ``'grid'`` too, whose bootstrap is added after
-    the grid forward, and never ``'full'``, whose kernel adds none (JAX's
-    ``fused_mode`` ignores ``value_spec`` there, :1799-1808, so on a TPU its
-    fused tiers drop that bootstrap; the port keeps JAX's XLA semantics).
-    The whole-rollout and grid kernels (one cooperative cluster kernel) need
-    a launch plan whose clusters are all resident on the card at once: for a
-    CUDA ``device`` the batch is checked against the particles the card
-    holds (``rollout_capacity``), and a batch beyond it takes ``'step'``, or
-    None with a fixed critic; on the CPU, where every tier runs its plain
-    version, the gate gives ``'full'`` or ``'grid'``. None of the TPU's VMEM
-    budgets or crossovers is carried over."""
+    ``'full'`` (the refit in the whole-rollout kernels, as JAX's ``'full'``
+    does it) where ``critic.critic_refuses`` takes its critic, else
+    ``'grid'`` (the refit between the grid kernels). A fixed critic
+    (``value_spec`` without an update) takes ``'grid'``, whose bootstrap is
+    added after the grid forward, and never ``'full'``, whose kernel adds
+    none (JAX's ``fused_mode`` ignores ``value_spec`` there, :1799-1808, so
+    on a TPU its fused tiers drop that bootstrap; the port keeps JAX's XLA
+    semantics). The whole-rollout and grid kernels (one cooperative cluster
+    kernel) need a launch plan whose clusters are all resident on the card
+    at once: for a CUDA ``device`` the batch is checked against the
+    particles the card holds (``rollout_capacity``, with the refit's
+    critic), and a batch beyond it takes ``'step'``, or None with a fixed
+    critic; on the CPU, where every tier runs its plain version, the gate
+    gives ``'full'`` or ``'grid'``. None of the TPU's VMEM budgets or
+    crossovers is carried over."""
     if refuses(cfg, dyn, pol, value_update, mesh, value_spec) is not None:
         return None
     fixed = value_update is None and value_spec is not None
+    refit = value_update is not None and cr.critic_refuses(
+        value_update.spec, value_update, dyn.state_dims) is None
+    tier = 'grid' if fixed or (value_update is not None and not refit) \
+        else 'full'
     if torch.device(device).type == 'cuda':
-        if cfg.n_particles > rollout_capacity(dyn, pol, device):
+        critic = value_update.spec if refit else None
+        if cfg.n_particles > rollout_capacity(dyn, pol, device, critic):
             return None if fixed else 'step'
-    return 'full' if value_update is None and not fixed else 'grid'
+    return tier
 
 
 def supports(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
@@ -406,7 +415,7 @@ def supports(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
 
 
 # ---------------------------------------------------------------------------
-# launch plan of the whole-rollout kernel (csrc/fused_rollout.cu checks it
+# launch plan of the whole-rollout kernel (csrc/rollout_kernel.cuh checks it
 # against the same formulas, lay_of)
 # ---------------------------------------------------------------------------
 
@@ -418,10 +427,10 @@ MAX_TILES = 8          # kMaxTiles: row tiles a cluster walks, at most
 SMEM_MAX = 232448 - 8192  # kSmemMax: dynamic shared memory of a CTA, bytes
 PART = 64              # kPart: floats of one cluster's partial sums
 TILE_SMALL = 80        # kTSmall: the tile's small per-row arrays
-SPLIT_PARTS = 8        # kSplitParts: parts of the kernel's time split
+SPLIT_PARTS = 9        # kSplitParts: parts of the kernel's time split
 TARGET_CLUSTERS = 15   # clusters of 8 CTAs an H100 holds at once
 
-# field order = the PlanField enum of csrc/fused_rollout.cu
+# field order = the PlanField enum of csrc/rollout_kernel.cuh
 RolloutPlan = collections.namedtuple('RolloutPlan', [
     'cluster', 'clusters', 'particles', 'tile_rows', 'tiles', 'threads',
     'resident', 'smem', 'scratch'])
@@ -439,7 +448,8 @@ def _layers(dims):
     return list(zip(dims[:-1], dims[1:]))
 
 
-def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd):
+def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
+                 critic_dims=None):
     """(floats, floats of one CTA's policy dW accumulator, floats of the
     policy's dW and db) of the cluster walk's shared memory for tiles of
     ``tile_rows`` rows (``walk_lay`` in ``csrc/cluster_walk.cuh``): the
@@ -450,8 +460,12 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd):
     input); both MLPs' whole inputs and the gradient wrt one ([MAX_D +
     MAX_U] rows each); the tile's mask slices of the hidden layers and, with
     ``bwd``, the kept hidden pre-activation slices; the tile's small arrays
-    (feature-major, rows padded by 4)."""
+    (feature-major, rows padded by 4). With ``critic_dims`` (the value
+    update's critic, read in place) its widths count in the exchange regions
+    and the layer-input slice, and its slices share the two MLPs' room,
+    which grows to the larger of the two."""
     nets = (tuple(pol_dims), tuple(dyn_dims))
+    walks = nets + ((tuple(critic_dims),) if critic_dims else ())
     trp = tile_rows + 4
     dw = sum(_r4(_cdiv(a, CLUSTER)) * _r4(b) + _r4(b)
              for a, b in _layers(nets[0]))
@@ -463,39 +477,62 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd):
                    for l, (a, b) in enumerate(_layers(dims)))
         off += dw if bwd else 0
     off += sum(_r4(b) for dims in nets for _, b in _layers(dims))
-    kwmax = max(_cdiv(d, CLUSTER) for dims in nets for d in dims)
-    outmax = max(nets[0][-1], nets[1][-1])
-    rw = max(CLUSTER * kwmax, max(max(d) for d in nets), CLUSTER * outmax)
+    kwmax = max(_cdiv(d, CLUSTER) for dims in walks for d in dims)
+    outmax = max(dims[-1] for dims in walks)
+    rw = max(CLUSTER * kwmax, max(max(d) for d in walks), CLUSTER * outmax)
     off += 2 * rw * trp + _r4(kwmax) * trp + 3 * (MAX_D + MAX_U) * trp
-    off += (2 if bwd else 1) * sum(_r4(_cdiv(w, CLUSTER)) * trp
-                                   for dims in nets for w in dims[1:-1])
+
+    def slices(*dims_of):
+        return (2 if bwd else 1) * sum(_r4(_cdiv(w, CLUSTER)) * trp
+                                       for dims in dims_of
+                                       for w in dims[1:-1])
+
+    off += max(slices(*nets), slices(*walks[2:]))
     off += TILE_SMALL * trp
     return off, dw, flat
 
 
+def critic_dw_floats(critic_dims):
+    """Floats of one CTA's critic dW accumulator (``critic_dw_lay``: the
+    policy's formula on the critic's layers); 0 without a critic."""
+    if not critic_dims:
+        return 0
+    return sum(_r4(_cdiv(a, CLUSTER)) * _r4(b) + _r4(b)
+               for a, b in _layers(tuple(critic_dims)))
+
+
 def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
-                   resident):
+                   resident, critic_dims=None):
     """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
     dW accumulator, floats of the policy's dW and db) of a launch (``lay_of``
     in the source): the cluster walk's (``_walk_floats``, with the
-    backward's buffers), then the cluster's per-particle arrays (5 D + 6
-    floats each) and one partial per cluster."""
-    off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident, True)
+    backward's buffers and the critic's widths), then the cluster's
+    per-particle arrays (5 D + 6 floats each) and one partial per cluster."""
+    off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident, True,
+                                 critic_dims)
     return off + _r4(particles * (5 * D + 6)) + clusters * PART, dw, flat
 
 
-def _scratch(T, clusters, resident, dw, flat):
+def _scratch(T, clusters, resident, dw, flat, critic_dims=None):
+    """Floats of a launch's device scratch: with several clusters the
+    moments' and the MM adjoint's partials and the loss's and the policy's
+    dW partials; a streamed plan's CTAs' dW accumulators; with a critic its
+    CTAs' dW accumulators and one sum of its loss a cluster."""
     multi = clusters > 1
     return ((2 * T * clusters * PART + 2 * clusters + clusters * flat
              if multi else 0)
-            + (0 if resident else clusters * CLUSTER * dw))
+            + (0 if resident else clusters * CLUSTER * dw)
+            + clusters * CLUSTER * critic_dw_floats(critic_dims)
+            + (clusters if critic_dims else 0))
 
 
 @functools.lru_cache(maxsize=None)
-def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS):
+def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
+                 critic_dims=None):
     """The whole-rollout kernel's launch plan for these MLP widths (policy
     ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``, or ``2 (D + 1)``
-    with a learned reward) at batch B and horizon T, on a card that holds
+    with a learned reward, and the widths ``critic_dims`` of the critic it
+    refits, or None) at batch B and horizon T, on a card that holds
     ``max_clusters`` clusters at once; None when B is beyond what such a
     card holds (``max_particles``).
 
@@ -508,7 +545,8 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS):
     from L2 in place (``resident`` 0). ``smem``: bytes of dynamic shared
     memory per CTA; ``scratch``: floats of device scratch (the clusters'
     partial sums and dW partials with several clusters; the CTAs' dW
-    accumulators when not resident)."""
+    accumulators when not resident; with a critic, its CTAs' dW
+    accumulators and its loss's sums)."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
@@ -519,16 +557,18 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS):
             P = tiles * tr
             clusters = _cdiv(B, P)
             floats, dw, flat = rollout_layout(pol_dims, dyn_dims, D, tr, P,
-                                              clusters, resident)
+                                              clusters, resident, critic_dims)
             if 4 * floats <= SMEM_MAX:
                 return RolloutPlan(CLUSTER, clusters, P, tr, tiles, THREADS,
                                    resident, 4 * floats,
-                                   _scratch(T, clusters, resident, dw, flat))
+                                   _scratch(T, clusters, resident, dw, flat,
+                                            critic_dims))
     return None
 
 
 @functools.lru_cache(maxsize=None)
-def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS):
+def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
+                  critic_dims=None):
     """The largest batch that ``rollout_plan`` takes on a card holding
     ``max_clusters`` clusters: ``max_clusters`` times the most particles a
     cluster can walk (at most ``MAX_TILES`` tiles of up to ``MAX_TILE_ROWS``
@@ -538,7 +578,8 @@ def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS):
         for tiles in range(1, MAX_TILES + 1):
             for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP):
                 floats = rollout_layout(pol_dims, dyn_dims, D, tr, tiles * tr,
-                                        max_clusters, resident)[0]
+                                        max_clusters, resident,
+                                        critic_dims)[0]
                 if 4 * floats <= SMEM_MAX:
                     best = max(best, tiles * tr)
                     break
@@ -685,7 +726,7 @@ def _lib():
 
 
 class _RollArgs(ctypes.Structure):
-    """Mirror of ``RollArgs`` in ``csrc/fused_rollout.cu``."""
+    """Mirror of ``RollArgs`` in ``csrc/rollout_kernel.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in ('T', 'mm_states', 'mm_rewards',
                                               'mean_only')]
                 + [('sign', ctypes.c_float)]
@@ -694,7 +735,8 @@ class _RollArgs(ctypes.Structure):
                     'g_vret', 'g_sall', 'disc', 'raw', 'vret', 'split',
                     's_all', 'nxt_raw', 'r_raw', 'stats', 'loss', 'mret',
                     'g_eps', 'scratch')]
-                + [(n, ctypes.c_void_p * _ML) for n in ('dw', 'db')])
+                + [(n, ctypes.c_void_p * _ML) for n in ('dw', 'db')]
+                + [('critic', ctypes.c_void_p)])
 
 
 def _rollout_lib():
@@ -1097,23 +1139,29 @@ def _device_index(device):
             else torch.cuda.current_device())
 
 
-def rollout_capacity(dyn, pol, device):
+def rollout_capacity(dyn, pol, device, value_spec=None):
     """How many particles the whole-rollout kernel takes on the card of
-    ``device`` for these models' widths: ``max_particles`` with the clusters
-    the card holds at once (``max_clusters``). Its cooperative launch needs
-    every cluster of the plan resident at once."""
+    ``device`` for these models' widths (and those of the critic it refits,
+    ``value_spec``): ``max_particles`` with the clusters the card holds at
+    once (``max_clusters``). Its cooperative launch needs every cluster of
+    the plan resident at once."""
     return max_particles(_mlp_dims(pol.mlp), _mlp_dims(dyn.regressor.mlp),
-                         dyn.state_dims, max_clusters(_device_index(device)))
+                         dyn.state_dims, max_clusters(_device_index(device)),
+                         None if value_spec is None
+                         else cr.critic_dims(value_spec))
 
 
 class RolloutKernel:
     """The whole-rollout kernels for one loss configuration, batch size and
     device: the launch plan and its scratch (allocated once) and the three
     launches. ``bind`` builds one call's argument block (weights, masks,
-    stats, noise, x0, eps and the prepared MM noise stacks)."""
+    stats, noise, x0, eps and the prepared MM noise stacks). With
+    ``value_update`` the kernels refit its critic (``critic.CriticKernel``:
+    the block's constant part and the output buffers; ``critic.bind(extras)``
+    makes one call's block, which the launches take as ``cb``)."""
 
     def __init__(self, dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
-                 mean_only, B, device):
+                 mean_only, B, device, value_update=None, w_H=None):
         why = kernel_refuses(dyn, pol)
         if why is not None:
             raise ValueError(f'the rollout kernels do not take these models: '
@@ -1121,20 +1169,31 @@ class RolloutKernel:
         self.dyn, self.pol, self.T, self.B, self.device = (dyn, pol, steps, B,
                                                            device)
         self.mm_states = bool(mm_states)
-        self.mean_only = bool(mean_only and mm_rewards)
+        self.mean_only = bool(mean_only and mm_rewards
+                              and value_update is None)
         self.r_mm = bool(mm_rewards) and not self.mean_only
         self.D = dyn.state_dims
         self.U = pol.output_density.output_dims
         self.pol_dims = list(_mlp_dims(pol.mlp))
+        self.critic = None
+        critic_dims = None
+        if value_update is not None:
+            self.critic = cr.CriticKernel(value_update, w_H, B, device)
+            critic_dims = cr.critic_dims(value_update.spec)
+            self._vw = torch.tensor(
+                np.asarray(_value_weights(value_update, steps), np.float32),
+                device=device)
         clusters = max_clusters(_device_index(device))
         self.plan = rollout_plan(_mlp_dims(pol.mlp),
                                  _mlp_dims(dyn.regressor.mlp), self.D, B,
-                                 steps, clusters)
+                                 steps, clusters, critic_dims)
         if self.plan is None:
+            capacity = rollout_capacity(dyn, pol, device, None if self.critic
+                                        is None else value_update.spec)
             raise RuntimeError(
                 f'the card holds {clusters} clusters of the rollout kernel '
-                f'at once, {rollout_capacity(dyn, pol, device)} particles '
-                f'at these widths: B={B} cannot all be resident at once')
+                f'at once, {capacity} particles at these widths: B={B} '
+                'cannot all be resident at once')
         self._plan = (ctypes.c_int * len(self.plan))(*self.plan)
         T = steps
         a = self.args = _RollArgs()
@@ -1181,6 +1240,17 @@ class RolloutKernel:
         sk._set(x0, action_eps, z_mm_t, z_rr_t)
         return sk
 
+    def bind_critic(self, extras):
+        """One call's critic block (``critic.CriticBinding``) from
+        ``extras`` = (v_params, v_target, v_opt_state, v_stats, v_noise), or
+        None without a value update."""
+        if self.critic is None:
+            return None
+        if len(extras) != 5:
+            raise ValueError('the critic refit takes extras = (v_params, '
+                             'v_target, v_opt_state, v_stats, v_noise)')
+        return self.critic.bind(extras)
+
     def _grads(self, sk):
         dims = self.pol_dims
         dws = [self._empty(a, b) for a, b in zip(dims[:-1], dims[1:])]
@@ -1188,15 +1258,20 @@ class RolloutKernel:
                for i, b in enumerate(sk.pol_bs)]
         return dws, dbs
 
-    def _launch(self, name, sk, res, g_eps=None, dws=(), dbs=(), **ptrs):
-        """Launch ``name`` with the residuals ``res``; ``ptrs``: the
+    def _launch(self, name, sk, res, g_eps=None, dws=(), dbs=(), critic=None,
+                **ptrs):
+        """Launch ``name`` with the residuals ``res``; ``critic``: the
+        critic block (a ``critic._CriticArgs``) or None; ``ptrs``: the
         RollArgs pointers of this launch (the others are null)."""
         a = self.args
         a.s_all, a.nxt_raw, a.r_raw, a.stats = [t.data_ptr() for t in res]
+        if critic is not None:
+            ptrs.setdefault('vw_t', self._vw)
         for k in ('loss', 'mret', 'g_loss', 'g_mret', 'vw_t', 'g_disc',
                   'g_raw', 'g_vret', 'g_sall', 'disc', 'raw', 'vret'):
             setattr(a, k, _ptr(ptrs.get(k)))
         a.g_eps, a.split = _ptr(g_eps), _ptr(self.split)
+        a.critic = None if critic is None else ctypes.addressof(critic)
         for i in range(_ML):
             a.dw[i] = _ptr(dws[i]) if i < len(dws) else None
             a.db[i] = _ptr(dbs[i]) if i < len(dbs) else None
@@ -1207,42 +1282,50 @@ class RolloutKernel:
                                     torch.cuda.current_stream().cuda_stream)
         _check(lib, name, rc, 'fused_rollout_error')
 
-    def forward(self, sk):
-        """Row 3: (loss, mean_return, residuals for ``backward``)."""
+    def forward(self, sk, cb=None):
+        """Row 3: (loss, mean_return, residuals for ``backward``); with the
+        critic block ``cb`` the refit writes ``cb.aux`` first."""
         res = self._residuals()
         loss, mret = self._empty(), self._empty()
-        self._launch('fused_rollout_fwd', sk, res, loss=loss, mret=mret)
+        self._launch('fused_rollout_fwd', sk, res, loss=loss, mret=mret,
+                     critic=None if cb is None else cb.args)
         return loss, mret, res
 
-    def backward(self, sk, res, g_loss, g_mret, want_eps):
+    def backward(self, sk, res, g_loss, g_mret, want_eps, cb=None):
         """Row 4: (policy dws, dbs, g_eps or None) for the cotangents of
-        loss and mean_return (0-dim tensors on the device)."""
+        loss and mean_return (0-dim tensors on the device); with ``cb``
+        (the forward's critic block) the bootstrap under its params'."""
         dws, dbs = self._grads(sk)
         g_eps = self._empty(self.T, self.B, self.U) if want_eps else None
         g = [_kernel_tensor(x.reshape(()).contiguous(), self.device, what)
              for x, what in ((g_loss, 'g_loss'), (g_mret, 'g_mret'))]
         self._launch('fused_rollout_bwd', sk, res, g_loss=g[0], g_mret=g[1],
-                     g_eps=g_eps, dws=dws, dbs=dbs)
+                     g_eps=g_eps, dws=dws, dbs=dbs,
+                     critic=None if cb is None else cb.boot)
         return dws, dbs, g_eps
 
-    def value_and_grad(self, sk):
-        """Row 5: (loss, mean_return, policy dws, dbs) in one launch."""
+    def value_and_grad(self, sk, cb=None):
+        """Row 5: (loss, mean_return, policy dws, dbs) in one launch (with
+        ``cb`` the refit, which writes ``cb.aux``, and the bootstrap)."""
         dws, dbs = self._grads(sk)
         loss, mret = self._empty(), self._empty()
         self._launch('fused_rollout_vg', sk, self._vg_res, loss=loss,
-                     mret=mret, dws=dws, dbs=dbs)
+                     mret=mret, dws=dws, dbs=dbs,
+                     critic=None if cb is None else cb.args)
         return loss, mret, dws, dbs
 
 
 class _FusedRollout(torch.autograd.Function):
     """Forward: ``fused_rollout_fwd``; backward: ``fused_rollout_bwd``, which
-    recomputes each step from its boundary state. Gradients reach the policy
-    weights and biases and ``action_eps``."""
+    recomputes each step from its boundary state (and, with a critic, seeds
+    the reverse sweep with the bootstrap's cotangent under the forward's
+    params'). Gradients reach the policy weights and biases and
+    ``action_eps``."""
 
     @staticmethod
-    def forward(ctx, rk, sk, x0, eps, z_mm, z_rr, *pol_flat):
-        loss, mret, res = rk.forward(sk)
-        ctx.rk, ctx.sk, ctx.res = rk, sk, res
+    def forward(ctx, rk, sk, cb, x0, eps, z_mm, z_rr, *pol_flat):
+        loss, mret, res = rk.forward(sk, cb)
+        ctx.rk, ctx.sk, ctx.cb, ctx.res = rk, sk, cb, res
         ctx.has_eps = eps is not None
         # the argument block points at these: keep them alive
         ctx.save_for_backward(x0, eps, z_mm, z_rr)
@@ -1250,21 +1333,19 @@ class _FusedRollout(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_loss, g_mret):
-        want_eps = ctx.has_eps and ctx.needs_input_grad[3]
+        want_eps = ctx.has_eps and ctx.needs_input_grad[4]
         dws, dbs, g_eps = ctx.rk.backward(ctx.sk, ctx.res, g_loss, g_mret,
-                                          want_eps)
-        return (None, None, None, g_eps, None, None, *dws,
+                                          want_eps, ctx.cb)
+        return (None, None, None, None, g_eps, None, None, *dws,
                 *[d for d in dbs if d is not None])
 
 
 def _whole_rollout(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
-                   mm_groups, value_update, mm_rewards_mean_only):
+                   mm_groups, value_update, w_H, mm_rewards_mean_only):
     """(plain loss_fn, kernel_for(x0) -> RolloutKernel, cached per batch
     size and device) of one whole-rollout configuration."""
-    if value_update is not None:
-        raise NotImplementedError(_REFIT_NOT_PORTED)
     plain = make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards,
-                            maximize, mm_groups, value_update,
+                            maximize, mm_groups, value_update, w_H,
                             mm_rewards_mean_only=mm_rewards_mean_only)
     kernels = {}
 
@@ -1274,7 +1355,7 @@ def _whole_rollout(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
             kernels[key] = RolloutKernel(dyn, pol, steps, w_t, mm_states,
                                          mm_rewards, maximize,
                                          mm_rewards_mean_only, x0.shape[0],
-                                         x0.device)
+                                         x0.device, value_update, w_H)
         return kernels[key]
 
     return plain, kernel_for
@@ -1285,30 +1366,36 @@ def make_whole_rollout_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
                             w_H=None, mm_rewards_mean_only=False):
     """Rows 3-4 (``make_fused_loss``, ``fused_rollout.py:759-903``):
     ``loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
-    z_mm_t, z_rr_t, action_eps=None) -> (loss, mean_return, ())``,
-    differentiable through both outputs wrt the policy weights and biases and
-    ``action_eps`` (the other inputs get no gradient, as in JAX). The
-    forward launches ``fused_rollout_fwd`` and keeps the boundary states and
-    pre-MM outputs; the backward launches ``fused_rollout_bwd``, which
+    z_mm_t, z_rr_t, action_eps=None, extras=()) -> (loss, mean_return,
+    aux)``, differentiable through both outputs wrt the policy weights and
+    biases and ``action_eps`` (the other inputs get no gradient, as in JAX).
+    The forward launches ``fused_rollout_fwd`` and keeps the boundary states
+    and pre-MM outputs; the backward launches ``fused_rollout_bwd``, which
     recomputes each step from its boundary state: the port's design is the
-    remat design, for ``mode='full'`` and ``'remat'`` alike. CPU tensors run
-    ``make_loss_plain``; CUDA tensors launch the kernels or raise."""
+    remat design, for ``mode='full'`` and ``'remat'`` alike. With
+    ``value_update`` the forward refits the critic and adds the bootstrap
+    (``extras`` and ``aux`` as ``_value_loss`` has them; aux lies in the
+    kernel's output buffers, ``critic.CriticKernel``), and the backward
+    takes the bootstrap's gradient under the refit's params'; else aux is
+    (). CPU tensors run ``make_loss_plain``; CUDA tensors launch the kernels
+    or raise."""
     plain, kernel_for = _whole_rollout(
         dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
-        value_update, mm_rewards_mean_only)
+        value_update, w_H, mm_rewards_mean_only)
 
     def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
                 z_mm_t, z_rr_t, action_eps=None, extras=()):
         if x0.device.type == 'cpu':
             return plain(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
-                         pol_noise, z_mm_t, z_rr_t, action_eps)
+                         pol_noise, z_mm_t, z_rr_t, action_eps, extras)
         rk = kernel_for(x0)
         sk = rk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
                      pol_noise, z_mm_t, z_rr_t, action_eps)
+        cb = rk.bind_critic(extras)
         flat = sk.pol_ws + [b for b in sk.pol_bs if b is not None]
-        loss, mret = _FusedRollout.apply(rk, sk, x0, action_eps, z_mm_t,
+        loss, mret = _FusedRollout.apply(rk, sk, cb, x0, action_eps, z_mm_t,
                                          z_rr_t, *flat)
-        return loss, mret, ()
+        return loss, mret, () if cb is None else cb.aux
 
     return loss_fn
 
@@ -1318,27 +1405,31 @@ def make_whole_rollout_value_and_grad(dyn, pol, steps, w_t, mm_states,
                                       value_update=None, w_H=None,
                                       mm_rewards_mean_only=False):
     """Row 5 (``make_fused_value_and_grad``, ``fused_rollout.py:906-1007``):
-    ``vg(*loss_args) -> (loss, mean_return, grads, ())`` with ``grads``
+    ``vg(*loss_args) -> (loss, mean_return, grads, aux)`` with ``grads``
     shaped like ``pol_params``, in one launch of ``fused_rollout_vg`` (the
-    forward and the reverse sweep with ``g_loss = 1``, ``g_mret = 0``). Not
-    differentiable. CPU tensors take autograd through ``make_loss_plain``."""
+    forward and the reverse sweep with ``g_loss = 1``, ``g_mret = 0``; with
+    ``value_update`` the critic refit and the bootstrap between them, aux as
+    ``make_whole_rollout_loss`` has it). Not differentiable. CPU tensors
+    take autograd through ``make_loss_plain``."""
     plain, kernel_for = _whole_rollout(
         dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
-        value_update, mm_rewards_mean_only)
+        value_update, w_H, mm_rewards_mean_only)
     plain_vg = _autograd_value_and_grad(plain)
 
     def fused_vg(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
                  z_mm_t, z_rr_t, action_eps=None, extras=()):
         if x0.device.type == 'cpu':
             return plain_vg(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
-                            pol_noise, z_mm_t, z_rr_t, action_eps)
+                            pol_noise, z_mm_t, z_rr_t, action_eps, extras)
         rk = kernel_for(x0)
         sk = rk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
                      pol_noise, z_mm_t, z_rr_t, action_eps)
-        loss, mret, dws, dbs = rk.value_and_grad(sk)
+        cb = rk.bind_critic(extras)
+        loss, mret, dws, dbs = rk.value_and_grad(sk, cb)
         by_id = {id(p): g for p, g in zip(sk.pol_ws + sk.pol_bs, dws + dbs)
                  if p is not None}
-        return loss, mret, _grads_like(pol_params, by_id), ()
+        return (loss, mret, _grads_like(pol_params, by_id),
+                () if cb is None else cb.aux)
 
     return fused_vg
 
@@ -1537,10 +1628,11 @@ def make_fused_loss(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                     mm_rewards_mean_only=False, value_spec=None):
     """The fused (loss, mean_return, aux) of ``fused_rollout.py:759``:
     ``mode`` None or ``'full'`` / ``'remat'`` (both the whole-rollout
-    kernels, ``make_whole_rollout_loss``; no value bootstrap), ``'step'``
-    (``make_stepwise_loss``) or ``'grid'`` (``make_grid_loss``, which also
-    takes a fixed critic: ``value_spec`` without ``value_update``); the last
-    two, as in JAX, resample the rewards in full."""
+    kernels, ``make_whole_rollout_loss``, whose kernels refit the critic of
+    ``value_update``), ``'step'`` (``make_stepwise_loss``) or ``'grid'``
+    (``make_grid_loss``, which also takes a fixed critic: ``value_spec``
+    without ``value_update``); with a value update, as in JAX, the rewards
+    are resampled in full."""
     tier = _tier(mode)
     fixed = _fixed_critic(tier, value_update, value_spec)
     if tier == 'step':

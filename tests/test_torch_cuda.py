@@ -55,7 +55,7 @@ from prob_mbrl_tpu_torch.ops.cuda import build
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
 from prob_mbrl_tpu_torch.ops.moment_matching import standardize_noise
-from prob_mbrl_tpu_torch.utils.core import tree_leaves
+from prob_mbrl_tpu_torch.utils.core import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -892,11 +892,13 @@ def test_grid_launches_are_counted(cuda):
     assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
-def test_mc_pilco_takes_the_grid_tier_with_a_critic_on_the_card(cuda):
-    """With a TD(H) critic the gate names the grid tier on the card: one
-    launch of each grid kernel per iteration, the critic's MLP through the
-    fused-MLP kernels (two forward calls in the refit and one for the
-    bootstrap, the refit's and the bootstrap's backward), nothing else."""
+def test_mc_pilco_takes_the_full_tier_with_a_critic_on_the_card(cuda):
+    """With a TD(H) critic the gate names the whole-rollout tier on the
+    card: one launch of the value-and-grad kernel per iteration, the refit
+    and the bootstrap inside it, nothing else; forced to the grid tier, one
+    launch of each grid kernel, the critic's MLP through the fused-MLP
+    kernels (two forward calls in the refit and one for the bootstrap, the
+    refit's and the bootstrap's backward)."""
     from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
                                                          make_mc_pilco_fn,
                                                          mc_pilco)
@@ -910,30 +912,46 @@ def test_mc_pilco_takes_the_grid_tier_with_a_critic_on_the_card(cuda):
     update = make_value_update_fn(V, adam, T, polyak=1.0, use_density=False)
     cfg = MCPILCOConfig(n_particles=16, steps=T, mm_states=True,
                         mm_rewards=True)
-    assert make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V,
-                            update).tier('cuda') == 'grid'
+    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V, update)
+    assert opt.tier('cuda') == 'full'
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     pool = torch.randn((20, D), generator=gen, device='cuda')
     vp = V.init(gen, device='cuda')
     state = dict(params=vp, target=vp, opt_state=adam.init(vp))
+    dp, stats = dyn.init(gen, device='cuda'), dyn.init_stats(device='cuda')
+    pp, vstats = pol.init(gen, device='cuda'), V.init_stats(device='cuda')
     fr.reset_launch_counts()
     fm.reset_launch_counts()
     _, _, metrics, _ = mc_pilco(
-        pool, dyn, pol, T, dyn.init(gen, device='cuda'),
-        dyn.init_stats(device='cuda'), pol.init(gen, device='cuda'),
-        opt_iters=iters, mm_states=True, mm_rewards=True, n_particles=16,
-        seed=0, value_spec=V, value_stats=V.init_stats(device='cuda'),
-        value_update_fn=update, value_state=state)
+        pool, dyn, pol, T, dp, stats, pp, opt_iters=iters, mm_states=True,
+        mm_rewards=True, n_particles=16, seed=0, value_spec=V,
+        value_stats=vstats, value_update_fn=update, value_state=state)
     assert np.all(np.isfinite(metrics['loss']))
     assert np.all(np.isfinite(metrics['v_loss']))
+    # each iteration's own v_loss (not a view of a buffer a later launch
+    # rewrites)
+    assert len(np.unique(metrics['v_loss'])) == iters
     assert int(state['opt_state'].count) == iters
     assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
                            'fused_rollout_fwd': 0, 'fused_rollout_bwd': 0,
-                           'fused_rollout_vg': 0, 'fused_grid_fwd': iters,
-                           'fused_grid_bwd': iters}
-    assert fm.LAUNCHES == {'fused_mlp_fwd': 3 * iters,
-                           'fused_mlp_bwd': 2 * iters}
+                           'fused_rollout_vg': iters, 'fused_grid_fwd': 0,
+                           'fused_grid_bwd': 0}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+    # forced to the grid tier
+    grid = fr.make_fused_value_and_grad(
+        dyn, pol, T, opt.w_t, True, True, True, value_update=update,
+        w_H=opt.w_H, mode='grid')
+    noise = opt.prepare_noise(opt.sample_noise(gen, D, 'cuda'), 'cuda')
+    x0 = opt.sample_x0(pool, gen)
+    fr.reset_launch_counts()
+    grid(pp, x0, dp, stats, *noise[:4],
+         extras=(state['params'], state['target'], state['opt_state'],
+                 vstats, noise[4]))
+    torch.cuda.synchronize()
+    assert (fr.LAUNCHES['fused_grid_fwd'], fr.LAUNCHES['fused_grid_bwd'],
+            fr.LAUNCHES['fused_rollout_vg']) == (1, 1, 0)
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 3, 'fused_mlp_bwd': 2}
 
 
 def test_mc_pilco_takes_the_grid_tier_under_a_fixed_critic_on_the_card(
@@ -974,6 +992,152 @@ def test_mc_pilco_takes_the_grid_tier_under_a_fixed_critic_on_the_card(
     assert fm.LAUNCHES == {'fused_mlp_fwd': iters, 'fused_mlp_bwd': iters}
     for a, b in zip(tree_leaves(vp), kept):
         assert torch.equal(a, b)
+
+
+# ---- rows 3-5 with the value update's critic refit in the launch ----------
+
+
+@pytest.mark.parametrize('head', ['mse', 'nll'])
+@pytest.mark.parametrize('mm', [True, False])
+@pytest.mark.parametrize('B', [16, 37, 100, 1000])
+def test_rollout_kernels_with_a_critic_match_the_plain_version(cuda, B, mm,
+                                                                head):
+    """Rows 3-5 with the TD(H) critic refit in the launch (the with-value
+    driver's [200, 200] concrete-dropout critic; MSE and NLL heads) against
+    the plain version: loss, mean_return, the policy grads and d eps, and
+    the refit's params', target', Adam state and v_loss
+    (``chip_smoke.check_critic``: the rollout's tolerances, params' and
+    target' by ``hold_adam`` in units of lr)."""
+    cs.check_critic(B, mm, head, tag='card test')
+
+
+@pytest.mark.parametrize('case', ['H<T', 'polyak 0.5', 'bernoulli',
+                                  'one cluster', 'one cluster nll'])
+def test_rollout_kernels_with_other_critics_match_the_plain_version(
+        cuda, monkeypatch, case):
+    """The same at B = 37 with H = 10 < T (s_H = s_all[H], vw_t 0 after
+    H), a polyak target of 0.5 (target != params), Bernoulli dropout on the
+    critic, and on one cluster (cluster barriers in place of the grid's;
+    the plan forced to one cluster of several tiles)."""
+    if case.startswith('one cluster'):
+        monkeypatch.setattr(fr, 'max_clusters', lambda *a: 1)
+    kw = {'H<T': dict(H=10), 'polyak 0.5': dict(tau=0.5),
+          'bernoulli': dict(drop='bernoulli'), 'one cluster': {},
+          'one cluster nll': dict(head='nll', tau=0.5)}[case]
+    cs.check_critic(37, True, tag='card test', **kw)
+
+
+def _critic_kernel(B, seed, mm, **kw):
+    """A ``RolloutKernel`` with ``chip_smoke.critic_problem``'s critic and
+    its inputs: (kernel, step block, critic extras, policy params, args)."""
+    _, _, _, pp, _, args, extras, (dyn, pol, w_t, update) = \
+        cs.critic_problem(B, seed, mm, **kw)
+    x0, dp, stats, dn, pn, zm, zr, eps = args
+    k = fr.RolloutKernel(dyn, pol, cs.MAIN_T, w_t, mm, mm, True, False, B,
+                         x0.device, update, 0.9 ** cs.MAIN_T)
+    sk = k.bind(pp, x0, dp, stats, dn, pn, zm, zr, eps)
+    return k, sk, extras, pp, args
+
+
+def test_rollout_kernels_with_a_critic_repeat_their_bits(cuda):
+    """Two launches of row 5 with the critic on the same inputs give the
+    same bits: loss, mean_return, the policy grads and every output of the
+    refit (13 clusters whose critic dW partials meet after a grid
+    barrier)."""
+    _, kvg, _, pp, _, args, extras, _ = cs.critic_problem(100, 3, False)
+    a = kvg(pp, *args, extras=extras)
+    fa = cs.aux_flat(a[3])
+    b = kvg(pp, *args, extras=extras)
+    fb = cs.aux_flat(b[3])
+    torch.cuda.synchronize()
+    for u, v in zip([a[0], a[1], *tree_leaves(a[2])],
+                    [b[0], b[1], *tree_leaves(b[2])]):
+        assert torch.equal(u, v)
+    for k in ('params', 'target', 'mu', 'nu', 'v_loss'):
+        assert torch.equal(fa[k], fb[k]), k
+    assert fa['count'] == fb['count'] == 1
+
+
+def test_chained_iterations_with_a_critic_do_not_alias(cuda):
+    """Two chained iterations of row 5, the second fed the first's refit
+    outputs: the second launch leaves the first's outputs as they were and
+    gives the bits of the same launch fed copies of them."""
+    _, kvg, _, pp, _, args, extras, _ = cs.critic_problem(100, 4, True,
+                                                          tau=0.5)
+    first = kvg(pp, *args, extras=extras)[3]
+    kept = cs.aux_flat(first)
+    vstats, vnoise = extras[3:]
+    second = kvg(pp, *args, extras=(*first[:3], vstats, vnoise))
+    got = cs.aux_flat(second[3])
+    for k in ('params', 'target', 'mu', 'nu', 'v_loss'):
+        assert torch.equal(cs.aux_flat(first)[k], kept[k]), k
+    vp, vt, adam = first[:3]
+    adam = type(adam)(adam.count.clone(), tree_map(torch.clone, adam.mu),
+                      tree_map(torch.clone, adam.nu))
+    again = kvg(pp, *args, extras=(tree_map(torch.clone, vp),
+                                   tree_map(torch.clone, vt), adam, vstats,
+                                   vnoise))
+    ref = cs.aux_flat(again[3])
+    torch.cuda.synchronize()
+    for u, v in zip([second[0], second[1], *tree_leaves(second[2])],
+                    [again[0], again[1], *tree_leaves(again[2])]):
+        assert torch.equal(u, v)
+    for k in ('params', 'target', 'mu', 'nu', 'v_loss'):
+        assert torch.equal(got[k], ref[k]), k
+    assert got['count'] == ref['count'] == 2
+
+
+@pytest.mark.parametrize('drop', ['concrete', 'bernoulli'])
+def test_the_bootstraps_masks_are_the_plain_masks(cuda, drop):
+    """V(s_T)'s masks, which the kernel forms from params' logit_p (the
+    refit's output) and the noise, read through the debug pointer: those of
+    ``ConcreteDropoutSpec.mask`` / ``BernoulliDropoutSpec.mask`` under the
+    kernel's params', entry for entry; row 4 forms the same from row 3's
+    params'."""
+    B = 100
+    k, sk, extras, _, _ = _critic_kernel(B, 5, False, drop=drop)
+    V = k.critic.spec
+    total = B * sum(V.mlp.hidden_dims)
+    k.critic.masks = torch.full((total,), -1.0, device='cuda')
+    cb = k.bind_critic(extras)
+    k.value_and_grad(sk, cb)
+    vp = cb.aux[0]
+    want = []
+    for i, d in enumerate(V.mlp.dropout):
+        m = d.mask(vp['mlp'].get(f'drop_{i}', {}), extras[4]['mlp'][
+            f'drop_{i}'], torch.float32, train=False)
+        want.append(m.expand(B, V.mlp.hidden_dims[i]).reshape(-1))
+    want = torch.cat(want)
+    got = k.critic.masks.clone()
+    assert torch.equal(got, want), int((got != want).sum())
+    k.critic.masks.fill_(-1.0)
+    cb = k.bind_critic(extras)
+    _, _, res = k.forward(sk, cb)
+    k.critic.masks.fill_(-1.0)
+    k.backward(sk, res, torch.ones((), device='cuda'),
+               torch.zeros((), device='cuda'), False, cb)
+    torch.cuda.synchronize()
+    want = torch.cat([d.mask(cb.aux[0]['mlp'].get(f'drop_{i}', {}),
+                             extras[4]['mlp'][f'drop_{i}'], torch.float32,
+                             train=False).expand(B, w).reshape(-1)
+                      for i, (d, w) in enumerate(zip(V.mlp.dropout,
+                                                     V.mlp.hidden_dims))])
+    assert torch.equal(k.critic.masks, want)
+
+
+def test_rollout_launches_with_a_critic_are_counted(cuda):
+    kloss, kvg, _, pp, leaves, args, extras, _ = cs.critic_problem(
+        16, 0, True, T=3, hidden=(32, 32), H=3)
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    cs.critic_outputs(kloss, pp, leaves, args, extras)
+    kvg(pp, *args, extras=extras)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES == {'fused_step_fwd': 0, 'fused_step_bwd': 0,
+                           'fused_rollout_fwd': 1, 'fused_rollout_bwd': 1,
+                           'fused_rollout_vg': 1,
+                           'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
 
 
 def test_grid_raises_without_a_built_library(cuda, monkeypatch, tmp_path):

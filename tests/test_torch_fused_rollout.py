@@ -285,12 +285,17 @@ def test_the_gate_admits_the_main_config_and_nothing_else(setups):
                dict(with_priorities=True), dict(infer_noise_variables=True)):
         assert tfr.fused_mode(_cfg(**kw), tdyn, tpol, **cpu) is None, kw
         assert not tfr.supports(_cfg(**kw), tdyn, tpol), kw
-    # the value bootstrap takes the grid tier, under JAX's conditions
+    # the value bootstrap takes the whole-rollout tier (the refit in its
+    # kernels), under JAX's conditions; a critic those kernels do not take
+    # (here an NLL update on a plain head) keeps the grid tier
     from test_torch_value import critic_specs
     from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
     _, tV = critic_specs(False)
-    upd = make_value_update_fn(tV, Adam(1e-3), T)
+    upd = make_value_update_fn(tV, Adam(1e-3), T, use_density=False)
     assert tfr.fused_mode(_cfg(), tdyn, tpol, upd, value_spec=tV,
+                          **cpu) == 'full'
+    nll = make_value_update_fn(tV, Adam(1e-3), T)
+    assert tfr.fused_mode(_cfg(), tdyn, tpol, nll, value_spec=tV,
                           **cpu) == 'grid'
     assert tfr.fused_mode(_cfg(), tdyn, tpol, upd, **cpu) is None
     assert tfr.fused_mode(_cfg(val_mask_mode='iter'), tdyn, tpol, upd,
@@ -334,7 +339,8 @@ def test_unsupported_configs_and_tiers_raise(setups):
     w_t = np.ones(T, np.float32) / T
     from test_torch_value import critic_specs
     from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
-    upd = make_value_update_fn(critic_specs(False)[1], Adam(1e-3), T)
+    upd = make_value_update_fn(critic_specs(False)[1], Adam(1e-3), T,
+                               use_density=False)
     for make in (tfr.make_fused_loss, tfr.make_fused_value_and_grad):
         for mode in ('full', 'remat', None, 'grid', 'step'):
             assert callable(make(tdyn, tpol, T, w_t, True, True, True,
@@ -342,11 +348,10 @@ def test_unsupported_configs_and_tiers_raise(setups):
         for mode in ('grid', 'step'):
             assert callable(make(tdyn, tpol, T, w_t, True, True, True,
                                  mode=mode, value_update=upd, w_H=1 / T))
-        # the in-kernel critic refit of row 5 is not ported
+        # the whole-rollout kernels refit the critic in the launch
         for mode in ('full', 'remat', None):
-            with pytest.raises(NotImplementedError, match='in-kernel'):
-                make(tdyn, tpol, T, w_t, True, True, True, mode=mode,
-                     value_update=upd, w_H=1 / T)
+            assert callable(make(tdyn, tpol, T, w_t, True, True, True,
+                                 mode=mode, value_update=upd, w_H=1 / T))
         with pytest.raises(ValueError, match='mode'):
             make(tdyn, tpol, T, w_t, True, True, True, mode='nope')
         for mode in ('full', 'step', 'grid'):

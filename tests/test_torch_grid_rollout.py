@@ -191,12 +191,14 @@ def _j_first_draws(jdyn, jpol, jV, key, pool):
     return noise, pool[np.asarray(idx)]
 
 
-@pytest.mark.parametrize('fused', [True, False])
+@pytest.mark.parametrize('fused', [True, 'grid', False])
 def test_mc_pilco_iteration_with_a_critic_matches_jax(setups, monkeypatch,
                                                       fused):
-    """One ``MCPILCO`` iteration with the value bootstrap, on the grid tier
-    (``fused_rollout=True``: the plain grid rollout on the CPU) and on the
-    ``utils.rollout`` route, against one iteration of JAX
+    """One ``MCPILCO`` iteration with the value bootstrap, on the
+    whole-rollout tier (``fused_rollout=True``: the plain loss with the
+    refit on the CPU), forced to the grid tier (its value-and-grad from
+    ``make_fused_value_and_grad(mode='grid')``: the plain grid rollout on
+    the CPU) and on the ``utils.rollout`` route, against one iteration of JAX
     ``make_mc_pilco_fn(..., value_update=...)`` (its XLA route) on the same
     x0 and noise: loss, mean_return, v_loss, the refit critic and the
     Adam-updated policy."""
@@ -219,8 +221,12 @@ def test_mc_pilco_iteration_with_a_critic_matches_jax(setups, monkeypatch,
 
     noise, x0 = _j_first_draws(jdyn, jpol, jV, key, pool)
     opt = tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(
-        fused_rollout=fused, **cfg), 'cpu', tV, t_update)
-    assert opt.tier('cpu') == ('grid' if fused else None)
+        fused_rollout=bool(fused), **cfg), 'cpu', tV, t_update)
+    assert opt.tier('cpu') == ('full' if fused else None)
+    if fused == 'grid':
+        opt.fused_vg = tfr.make_fused_value_and_grad(
+            tdyn, tpol, T, opt.w_t, True, True, True, value_update=t_update,
+            w_H=opt.w_H, mode='grid')
     monkeypatch.setattr(opt, 'sample_x0',
                         lambda *a, **k: torch.tensor(x0))
     t = _torch(s)
@@ -243,8 +249,8 @@ def test_mc_pilco_iteration_with_a_critic_matches_jax(setups, monkeypatch,
 
 def test_mc_pilco_with_a_critic_runs_and_updates_the_value_state(setups):
     """The host loop with a critic: ``value_state`` is updated in place and
-    ``v_loss`` is reported, on the grid tier and on the rollout route alike
-    (the same draws, so the same numbers)."""
+    ``v_loss`` is reported, on the whole-rollout tier and on the rollout
+    route alike (the same draws, so the same numbers)."""
     s = setups['emb5']
     _, _, tdyn, tpol = s['specs']
     out = {}

@@ -166,7 +166,8 @@ def test_the_plan_is_what_the_kernel_takes():
     p = tfr.rollout_plan(*_dims((200, 200), 5, 1), 5, 100, 15)
     assert list(p) == [int(v) for v in p]
     src = ''.join((build.CSRC / f).read_text()
-                  for f in ('fused_rollout.cu', 'cluster_walk.cuh'))
+                  for f in ('fused_rollout.cu', 'rollout_kernel.cuh',
+                            'cluster_walk.cuh'))
 
     def const(name):
         return int(re.search(rf'\b{name} = (\d+)[;,]', src).group(1))
@@ -204,12 +205,13 @@ def test_the_gate_names_the_step_tier_when_the_card_cannot_hold_the_rollout(
         assert (opt.fused_vg is None) == (tier == 'step')
     assert tfr.fused_mode(_cfg(cvar_eps=0.25), tdyn, tpol,
                           device='cuda') is None
-    # a value update takes the grid kernels, with the same capacity
+    # a value update takes the whole-rollout kernels, which refit the
+    # critic, with the capacity counted with the critic
     from test_torch_value import critic_specs
     from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
     V = critic_specs(False)[1]
-    upd = make_value_update_fn(V, Adam(1e-3), T)
-    for capacity, tier in ((need - 1, 'step'), (need, 'grid')):
+    upd = make_value_update_fn(V, Adam(1e-3), T, use_density=False)
+    for capacity, tier in ((need - 1, 'step'), (need, 'full')):
         monkeypatch.setattr(tfr, 'rollout_capacity',
                             lambda *a, c=capacity: c)
         assert tfr.fused_mode(_cfg(), tdyn, tpol, upd, value_spec=V,

@@ -153,7 +153,7 @@ def test_the_gate_sends_a_fixed_critic_to_the_grid_tier_never_full(
     assert tfr.fused_mode(cfg, tdyn, tpol, device='cpu') == 'full'
     assert tmc.make_mc_pilco_fn(tdyn, tpol, cfg, 'cpu', tV).mode == 'grid'
     # on a card: within the grid kernel's capacity, and beyond it
-    for capacity, fixed, update, plain in ((B, 'grid', 'grid', 'full'),
+    for capacity, fixed, update, plain in ((B, 'grid', 'full', 'full'),
                                            (B - 1, None, 'step', 'step')):
         monkeypatch.setattr(tfr, 'rollout_capacity',
                             lambda *a, c=capacity: c)
@@ -245,7 +245,7 @@ def test_iter_masks_come_from_the_iterations_generator(setups):
     for mode in ('iter', 'epoch'):
         cfg = tmc.MCPILCOConfig(val_mask_mode=mode, **CFG)
         opt = tmc.make_mc_pilco_fn(tdyn, tpol, cfg, 'cpu', tV, update)
-        assert opt.mode == (None if mode == 'iter' else 'grid')
+        assert opt.mode == (None if mode == 'iter' else 'full')
         t = _torch(s)
         state = dict(params=vp, target=vp, opt_state=tv.Adam(1e-3).init(vp))
         sgd = torch.optim.SGD(tree_leaves(t['pol_params']), lr=1e-3)
