@@ -167,6 +167,7 @@ every count set to 0 just before the run.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
+import functools
 import json
 import shutil
 import subprocess
@@ -229,6 +230,13 @@ GRID_B = 1000  # particles of the value path (phase 7)
 VALUE_ITERS = 100  # mc_pilco iterations of the value path
 FIXED_ITERS = 10  # mc_pilco iterations under a fixed critic (phase 7)
 ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
+# phase 2g: grouped MM (mm_groups) at B = 100 (rows 3-7) and 1000 (rows 8-9)
+GROUPS_B100 = (10, 50)
+GROUPS_B1000 = (100, 500)
+GROUPED_CRITIC = 10  # phase 2c's grouped case: rows 3-5 with the critic
+GROUPS_MAIN = 10  # phase 5g: the main path with mm_groups
+GROUPED_ROUTE_ITERS = 5  # phase 5g: iterations on the utils.rollout route
+ITER_MS = {}  # ms an iteration of each mc_pilco run, by its tag
 # phase 2b: rows 3-9 at these envs' shapes (rows 3-7 at B = MAIN_B, rows 8-9
 # at B = GRID_B), each row timed at D = 8 and with a learned reward: (env,
 # learned); the last two learn the reward (the kernels' reward kind 3):
@@ -391,6 +399,36 @@ def hold_rows(what, a, r, rel_tol, moved=None, along=None):
             + (f', {n_err / n_ref:.3e} without particle(s) {left}'
                if left else ''))
     return float(d.max()), n_err / max(n_ref, 1e-30), rel_tol
+
+
+def in_float64(x):
+    """``x`` (a tensor, or a dict, list or tuple of them) with its floating
+    tensors cast to float64, differentiably (gradients reach float32
+    leaves)."""
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: in_float64(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, '_fields'):
+        return type(x)(*(in_float64(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(in_float64(v) for v in x)
+    return x
+
+
+def rel_err(a, r):
+    """max|a - r| relative to max|r|."""
+    return float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+
+
+def float64(fn):
+    """The plain version ``fn`` run in float64 on float32 inputs: the
+    reference of the grouped rows (phase 2g). A group of 10 particles in
+    D = 5 has a covariance whose eigenvalues span ~1e-5, and the float32
+    plain version's autograd through the group's mean and Cholesky loses
+    up to ~4e-3 of a gradient there, where the kernels' adjoint keeps
+    ~2e-6 (PERF.md)."""
+    return lambda *a, **k: fn(*in_float64(a), **in_float64(k))
 
 
 def grads_through(fn, x, ws, bs, ms, g):
@@ -673,15 +711,18 @@ def tie_eps(seed, shape):
                     -1)
 
 
-def step_problem(B, seed, env='Cartpole', saturated=False, learned=False):
+def step_problem(B, seed, env='Cartpole', saturated=False, learned=False,
+                 groups=None):
     """One rollout step at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1), its inputs made from a seed.
     The state resample needs a full-rank particle covariance, B > D: below
     that its factor is float32 rounding noise (ROADMAP Queue 3), so B = 2
     resamples the rewards only. ``saturated`` (the lander): the policy
     saturated and the actions on the reward's kinks (``saturate``,
-    ``tie_eps``); ``learned`` as ``env_models``. Returns (kernel step,
-    plain step, policy leaves, states, eps, (g_nxt, g_r), timing
+    ``tie_eps``); ``learned`` as ``env_models``; ``groups``: MM per group of
+    B / groups particles, its noise standardized per group (the states
+    resampled where a group has more particles than D). Returns (kernel
+    step, plain step, policy leaves, states, eps, (g_nxt, g_r), timing
     inputs)."""
     rng = np.random.RandomState(seed)
 
@@ -703,20 +744,26 @@ def step_problem(B, seed, env='Cartpole', saturated=False, learned=False):
     eps = t(0.1 * rng.randn(B, U))
     if saturated:
         eps = t(tie_eps(seed + 2, (B, U)))
-    z_mm = standardize_noise(t(rng.randn(B, D)))
-    z_rr = standardize_noise(t(rng.randn(B, 1)))
+    G = groups or 1
+
+    def per_group(z):
+        return standardize_noise(z.reshape(G, B // G, -1)).reshape(z.shape)
+
+    z_mm = per_group(t(rng.randn(B, D)))
+    z_rr = per_group(t(rng.randn(B, 1)))
     cot = (t(rng.randn(B, D)), t(rng.randn(B, 1)))
-    mm_states = B > D
+    mm_states = B // G > D
     k = fr.StepKernel(dyn, pol, mm_states, True, pol_params, dyn_params,
-                      stats, dyn_noise, pol_noise, B, states.device)
-    plain = fr.make_step_plain(dyn, pol, mm_states, True)
+                      stats, dyn_noise, pol_noise, B, states.device, groups)
+    plain = fr.make_step_plain(dyn, pol, mm_states, True, groups)
 
     def kernel(s, e):
         return k(s, e, z_mm, z_rr)
 
-    def plain_step(s, e):
-        return plain(pol_params, s, z_mm, z_rr, e, dyn_params, stats,
-                     dyn_noise, pol_noise)
+    def plain_step(s, e, f64=False):
+        a = (pol_params, s, z_mm, z_rr, e, dyn_params, stats, dyn_noise,
+             pol_noise)
+        return plain(*(in_float64(a) if f64 else a))
 
     return kernel, plain_step, leaves, states, eps, cot, (k, z_mm, z_rr)
 
@@ -769,14 +816,14 @@ def step_plans(k):
                                                   k.plans()))
 
 
-def step_timings(B, env='Cartpole', learned=False):
-    """ms of each step kernel and of the plain step at batch B, and the
-    kernels' launch plans. The plain backward is its forward and
-    ``torch.autograd.grad`` in one graph, less the plain forward's. No
-    single PyTorch call computes a rollout step, so there is no library
-    time."""
+def step_timings(B, env='Cartpole', learned=False, groups=None):
+    """ms of each step kernel and of the plain step at batch B (MM per
+    group of B / groups with ``groups``), and the kernels' launch plans. The
+    plain backward is its forward and ``torch.autograd.grad`` in one graph,
+    less the plain forward's. No single PyTorch call computes a rollout
+    step, so there is no library time."""
     kernel, plain, leaves, states, eps, cot, (k, z_mm, z_rr) = step_problem(
-        B, seed=7, env=env, learned=learned)
+        B, seed=7, env=env, learned=learned, groups=groups)
     residuals = k.forward(states, eps, z_mm, z_rr)[2:]
 
     def plain_fwd_bwd():
@@ -801,13 +848,19 @@ def step_timings(B, env='Cartpole', learned=False):
 
 
 def check_step(B, env='Cartpole', tag='phase 2', saturated=False,
-               learned=False):
+               learned=False, groups=None):
     """The step kernels against the plain step at batch B on ``env``'s
-    shapes (``phase_step_kernels``' tolerance; ``saturated`` and
-    ``learned`` as ``step_problem``); the largest error of each."""
+    shapes (``phase_step_kernels``' tolerance; ``saturated``, ``learned``
+    and ``groups`` as ``step_problem``; grouped, against the plain step in
+    float64, ``float64``); the largest error of each."""
     kernel, plain, leaves, states, eps, cot, (k, _, _) = step_problem(
-        B, seed=B, env=env, saturated=saturated, learned=learned)
+        B, seed=B, env=env, saturated=saturated, learned=learned,
+        groups=groups)
+    if groups:
+        plain = functools.partial(plain, f64=True)
     env = env_label(env, learned)
+    if groups:
+        env = f'{env} mm_groups={groups}'
     got = step_outputs(kernel, leaves, states, eps, cot)
     ref = step_outputs(plain, leaves, states, eps, cot)
     moved = step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
@@ -822,7 +875,7 @@ def check_step(B, env='Cartpole', tag='phase 2', saturated=False,
         kern = 'fused_step_fwd' if lab in ('nxt', 'r') else 'fused_step_bwd'
         here[kern] = max(here[kern], err)
         rel, loose = max(rel, r_err), max(loose, r_tol)
-    state_mm = 'on' if B > k.D else 'off'
+    state_mm = 'on' if B // k.G > k.D else 'off'
     if saturated:
         env = f'{env} saturated'
     log(f'[{tag}] {env} (D={k.D}, U={k.U}) rollout step B={B} (state MM '
@@ -861,12 +914,13 @@ def phase_step_kernels():
 
 
 def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
-                    saturated=False, learned=False):
+                    saturated=False, learned=False, groups=None):
     """The whole rollout at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1; states and rewards
     moment-matched, discount 0.9), its inputs made from a seed
-    (``saturated`` and ``learned`` as ``step_problem``). Returns (kernel
-    loss, kernel
+    (``saturated``, ``learned`` and ``groups`` as ``step_problem``: with
+    groups of D particles or fewer the rewards alone are resampled, and the
+    argument of the states' MM noise is None). Returns (kernel loss, kernel
     value-and-grad, plain loss, policy params, policy leaves, the arguments
     after the policy params, (dyn, pol, w_t))."""
     rng = np.random.RandomState(seed)
@@ -888,14 +942,17 @@ def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
     # angles all round the circle (the main path starts hanging, where the
     # reward is about exp(-8))
     x0 = t(env_states(env, rng, B))
-    z_mm = fr.prepare_mm_noise(t(rng.randn(B, D)), T, B)
-    z_rr = fr.prepare_mm_noise(t(rng.randn(B, 1)), T, B)
+    z_mm = fr.prepare_mm_noise(t(rng.randn(B, D)), T, B, groups)
+    z_rr = fr.prepare_mm_noise(t(rng.randn(B, 1)), T, B, groups)
     eps = t(0.1 * rng.randn(T, B, U))
     if saturated:
         eps = t(tie_eps(seed + 2, (T, B, U)))
     w_t = 0.9 ** np.arange(T, dtype=np.float32)
-    make = (dyn, pol, T, w_t, True, True, True)
-    kw = dict(mm_rewards_mean_only=mean_only)
+    mm_states = groups is None or B // groups > D
+    if not mm_states:
+        z_mm = None
+    make = (dyn, pol, T, w_t, mm_states, True, True)
+    kw = dict(mm_rewards_mean_only=mean_only, mm_groups=groups)
     return (fr.make_fused_loss(*make, mode='full', **kw),
             fr.make_fused_value_and_grad(*make, mode='full', **kw),
             fr.make_loss_plain(*make, **kw), pol_params, leaves,
@@ -935,19 +992,20 @@ def time_launches(fn, n=ROLLOUT_LAUNCHES, reps=5):
     return float(np.median(times))
 
 
-def rollout_timings(env='Cartpole', split=True, learned=False):
+def rollout_timings(env='Cartpole', split=True, learned=False, groups=None):
     """ms of each rollout kernel (CUDA events around launches in a row: a
     cooperative launch is not captured in a graph here) and of the plain
     version (CUDA graph replay) at the main-path batch and horizon. The
     plain backward is the plain forward and ``torch.autograd.grad`` in one
     graph, less the plain forward; the plain value-and-grad is that graph.
     No single PyTorch call computes a rollout, so there is no library
-    time. With ``split`` it logs the kernel's own time split of row 5."""
+    time. With ``split`` it logs the kernel's own time split of row 5;
+    ``groups`` as ``rollout_problem``."""
     _, _, plain, pol_params, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        MAIN_B, 7, env=env, learned=learned)
+        MAIN_B, 7, env=env, learned=learned, groups=groups)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
-    k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, True, True, True, True,
-                         MAIN_B, x0.device)
+    k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, z_mm is not None, True, True,
+                         True, MAIN_B, x0.device, mm_groups=groups)
     sk = k.bind(pol_params, x0, dyn_params, stats, dyn_noise, pol_noise,
                 z_mm, z_rr, eps)
     _, _, res = k.forward(sk)
@@ -1041,12 +1099,16 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
 
 
 def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
-                  saturated=False, learned=False):
+                  saturated=False, learned=False, groups=None):
     """The whole-rollout kernels against the plain version at batch B on
-    ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated`` as
-    ``step_problem``); the largest error of each."""
+    ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated``
+    and ``groups`` as ``step_problem``; grouped, against the plain version
+    in float64, ``float64``); the largest error of each."""
     kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(
-        B, B, mean_only, env=env, saturated=saturated, learned=learned)
+        B, B, mean_only, env=env, saturated=saturated, learned=learned,
+        groups=groups)
+    if groups:
+        plain = float64(plain)
     got = rollout_outputs(kloss, pp, leaves, args)
     ref = rollout_outputs(plain, pp, leaves, args)
     moved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
@@ -1075,6 +1137,9 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
     env = env_label(env, learned)
     if saturated:
         env = f'{env} saturated'
+    if groups:
+        env = (f'{env} mm_groups={groups} (states'
+               f'{"" if args[5] is not None else " not"} resampled)')
     for kern, lab, a, r, m in checks:
         check = hold_rows if eps_by_rows and lab == 'd eps' else hold
         err, r_err, r_tol = check(f'{env} rollout B={B} {kern} {lab}', a, r,
@@ -1115,13 +1180,17 @@ def phase_rollout_kernels():
 
 
 def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
-                 env='Cartpole', saturated=False, learned=False):
+                 env='Cartpole', saturated=False, learned=False, groups=None):
     """The grid rollout on ``rollout_problem``'s inputs: (kernel rollout,
     plain rollout, policy params, leaves, the rollout's arguments after the
     policy params, cotangents of disc, raw, vret and states_all, (dyn, pol,
-    w_t, vw_t)); vret weighs step t by (T - 1 - t) / T."""
+    w_t, vw_t)); vret weighs step t by (T - 1 - t) / T. With ``groups``
+    (as ``rollout_problem``) the states are resampled where a group has more
+    particles than D."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        B, seed, False, T, env=env, saturated=saturated, learned=learned)
+        B, seed, False, T, env=env, saturated=saturated, learned=learned,
+        groups=groups)
+    mm_states = mm_states and args[5] is not None
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     rng = np.random.RandomState(seed + 1)
 
@@ -1131,7 +1200,7 @@ def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
     vw_t = (T - 1 - np.arange(T)) / T  # 0 at the last step
     cot = [t(rng.randn(B, 1)) for _ in range(3)] + [
         t(rng.randn(T, B, x0.shape[1]))]
-    make = (dyn, pol, T, mm_states, mm_rewards)
+    make = (dyn, pol, T, mm_states, mm_rewards, groups)
     return (fr.make_grid_rollout(*make), fr.make_grid_rollout_plain(*make),
             pp, leaves, [x0, z_mm if mm_states else None,
                          z_rr if mm_rewards else None, eps, dyn_params, stats,
@@ -1243,16 +1312,17 @@ def log_split(what, parts):
         + f' = {sum(parts):.4f} ms')
 
 
-def grid_timings(B, split=False, env='Cartpole', learned=False):
+def grid_timings(B, split=False, env='Cartpole', learned=False, groups=None):
     """ms of each grid kernel and of the plain version at batch B, T = 15
     (CUDA events around launches in a row, as ``rollout_timings``; the plain
     backward is the plain forward and ``torch.autograd.grad`` in one graph
     less the forward), and with ``split`` the kernel's own time split in ms
-    per launch."""
+    per launch; ``groups`` as ``grid_problem``."""
     _, plain, pp, leaves, args, cot, (dyn, pol, w_t, vw_t) = grid_problem(
-        B, 7, env=env, learned=learned)
+        B, 7, env=env, learned=learned, groups=groups)
     x0, z_mm, z_rr, eps, dyn_params, stats, dyn_noise, pol_noise = args[:8]
-    k = fr.GridKernel(dyn, pol, MAIN_T, w_t, vw_t, True, True, B, x0.device)
+    k = fr.GridKernel(dyn, pol, MAIN_T, w_t, vw_t, z_mm is not None, True, B,
+                      x0.device, groups)
     sk = k.bind(pp, x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr,
                 eps)
     res = k.forward(sk)[-1]
@@ -1286,15 +1356,18 @@ def grid_timings(B, split=False, env='Cartpole', learned=False):
 
 
 def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
-               saturated=False, learned=False):
+               saturated=False, learned=False, groups=None):
     """The grid kernels against the plain grid rollout at batch B on
     ``env``'s shapes, states moment-matched (``phase_grid_kernels``'
-    tolerance; ``saturated`` and ``learned`` as ``step_problem``); the
-    largest error of each."""
+    tolerance; ``saturated``, ``learned`` and ``groups`` as
+    ``step_problem``; grouped, against the plain version in float64,
+    ``float64``); the largest error of each."""
     names = ['fused_grid_fwd', 'fused_grid_bwd']
     kern, plain, pp, leaves, args, cot, (dyn, pol, _, _) = grid_problem(
         B, B, True, mm_rewards, env=env, saturated=saturated,
-        learned=learned)
+        learned=learned, groups=groups)
+    if groups:
+        plain = float64(plain)
     got = grid_outputs(kern, pp, leaves, args, cot)
     ref = grid_outputs(plain, pp, leaves, args, cot)
     moved = grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
@@ -1310,6 +1383,8 @@ def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
     env = env_label(env, learned)
     if saturated:
         env = f'{env} saturated'
+    if groups:
+        env = f'{env} mm_groups={groups}'
     for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
         kern_name = names[0] if i < 4 else names[1]
         what = f'{env} grid B={B} {lab}'
@@ -1323,8 +1398,9 @@ def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
             err, r_err, r_tol = hold_rows(what, a, r, STEP_TOL, m)
         here[kern_name] = max(here[kern_name], err)
         rel, loose = max(rel, r_err), max(loose, r_tol)
-    log(f'[{tag}] {env} grid B={B} T={MAIN_T} (states'
-        f'{" and rewards" if mm_rewards else " only"} moment-matched; '
+    what = ('states and rewards' if args[1] is not None and mm_rewards else
+            'states only' if args[1] is not None else 'rewards only')
+    log(f'[{tag}] {env} grid B={B} T={MAIN_T} ({what} moment-matched; '
         f'mean disc {float(ref[0].mean()):.6f}): kernel vs plain max abs '
         f'err fwd {here[names[0]]:.3e}, bwd {here[names[1]]:.3e}; worst '
         f'of an output relative to its max|plain| {rel:.3e}, loosest '
@@ -1397,17 +1473,18 @@ def critic_spec(D, head='mse', hidden=(200, 200), drop='concrete', H=MAIN_T,
 
 
 def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
-                   T=MAIN_T, hidden=(200, 200), drop='concrete'):
+                   T=MAIN_T, hidden=(200, 200), drop='concrete', groups=None):
     """Rows 3-5 with the critic of ``critic_spec`` refit in the launch, on
     ``rollout_problem``'s inputs (Cartpole's shapes; states and rewards
-    moment-matched with ``mm``, else neither), the critic's stats fit to
+    moment-matched with ``mm``, per group of B / groups with ``groups``,
+    else neither), the critic's stats fit to
     seeded data and its Adam state fresh: (kernel loss, kernel
     value-and-grad, plain loss, policy params, policy leaves, the arguments
     after the policy params, the critic's extras (params, target, Adam
     state, stats, noise), (dyn, pol, w_t, update)). The plain loss runs the
     critic on the unfused MLP."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        B, seed, False, T)
+        B, seed, False, T, groups=groups)
     if not mm:
         args = args[:5] + [None, None, args[7]]
     D = args[0].shape[1]
@@ -1431,11 +1508,13 @@ def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
     w_H = 0.9 ** T
     make = (dyn, pol, T, w_t, mm, mm, True)
     return (fr.make_fused_loss(*make, mode='full', value_update=update,
-                               w_H=w_H),
+                               w_H=w_H, mm_groups=groups),
             fr.make_fused_value_and_grad(*make, mode='full',
-                                         value_update=update, w_H=w_H),
+                                         value_update=update, w_H=w_H,
+                                         mm_groups=groups),
             fr.make_loss_plain(fr.unfused(dyn), fr.unfused(pol), T, w_t, mm,
-                               mm, True, value_update=update_p, w_H=w_H),
+                               mm, True, groups, value_update=update_p,
+                               w_H=w_H),
             pp, leaves, args, extras, (dyn, pol, w_t, update))
 
 
@@ -1561,22 +1640,37 @@ def hold_refit(what, got, ref, moved, update, first_count):
 
 
 def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
-                 drop='concrete'):
+                 drop='concrete', groups=None):
     """Rows 3-5 with the critic refit in the launch against the plain
     version at batch B: loss, mean_return, the policy grads and d
     action_eps (``check_rollout``'s tolerances; d action_eps per particle by
     ``hold_rows`` at B >= 1000, as the grid's) and the refit's outputs of
-    rows 3 and 5 (``hold_refit``). Returns the largest error of each row."""
+    rows 3 and 5 (``hold_refit``); ``groups`` as ``critic_problem``, the
+    rollout's outputs then held against the plain version in float64
+    (``float64``; the refit's against the float32 one, whose Adam step
+    ``hold_adam`` measures). Returns the largest error of each row."""
     kloss, kvg, plain, pp, leaves, args, extras, (_, _, _, update) = \
-        critic_problem(B, B + 11, mm, head, H, tau, drop=drop)
+        critic_problem(B, B + 11, mm, head, H, tau, drop=drop, groups=groups)
+    ref_fn = float64(plain) if groups else plain
     got, gaux = critic_outputs(kloss, pp, leaves, args, extras)
-    ref, raux = critic_outputs(plain, pp, leaves, args, extras)
-    moved, maux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6)
+    ref, raux = critic_outputs(ref_fn, pp, leaves, args, extras)
+    moved, maux = critic_outputs(ref_fn, pp, leaves, args, extras, 1 + 1e-6)
     vl, vm, vgrads, vaux = kvg(pp, *args, extras=extras)
     vaux = aux_flat(vaux)
-    vref, vraux = critic_outputs(plain, pp, leaves, args, extras, g=(1.0, 0.0))
-    vmoved, vmaux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6,
-                                   g=(1.0, 0.0))
+    vref, vraux = critic_outputs(ref_fn, pp, leaves, args, extras,
+                                 g=(1.0, 0.0))
+    vmoved, vmaux = critic_outputs(ref_fn, pp, leaves, args, extras,
+                                   1 + 1e-6, g=(1.0, 0.0))
+    f32 = ''
+    if groups:  # the refit against the float32 plain version
+        ref32, raux = critic_outputs(plain, pp, leaves, args, extras)
+        f32 = (', the float32 plain version\'s from it '
+               + f'{max(rel_err(a, r) for a, r in zip(ref32[2:], ref[2:])):.3e}')
+        maux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6)[1]
+        vraux = critic_outputs(plain, pp, leaves, args, extras,
+                               g=(1.0, 0.0))[1]
+        vmaux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6,
+                               g=(1.0, 0.0))[1]
     torch.cuda.synchronize()
     n = len(leaves)
     labels = (['loss', 'mean_return']
@@ -1591,7 +1685,8 @@ def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
     names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
     here = {nm: 0.0 for nm in names}
     what = (f'critic ({head}, {drop} dropout, H={H}, polyak {tau}) rollout '
-            f'B={B} mm {"on" if mm else "off"}')
+            f'B={B} mm {"on" if mm else "off"}'
+            + (f' mm_groups={groups}' if groups else ''))
     for kern, lab, a, r, m in checks:
         check = hold_rows if lab == 'd eps' and B >= 1000 else hold
         err = check(f'{what} {kern} {lab}', a, r, STEP_TOL, m)[0]
@@ -1601,8 +1696,13 @@ def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
     for kern, (a, r, m) in (('fused_rollout_fwd', (gaux, raux, maux)),
                             ('fused_rollout_vg', (vaux, vraux, vmaux))):
         refit[kern] = hold_refit(f'{what} {kern}', a, r, m, update, first)
+    if groups:
+        f32 = ('; grads from the float64 plain version, relative to its '
+               f'max: the kernel\'s (row 4) '
+               f'{max(rel_err(a, r) for a, r in zip(got[2:], ref[2:])):.3e}'
+               + f32)
     log(f'[{tag}] {what} T={MAIN_T} (loss {float(ref[0]):.6f}, v_loss '
-        f'{float(raux["v_loss"]):.6f}): kernel vs plain max abs err '
+        f'{float(raux["v_loss"]):.6f}){f32}: kernel vs plain max abs err '
         + ', '.join(f'{nm[len("fused_rollout_"):]} {here[nm]:.3e}'
                     for nm in names)
         + '; the refit, error / max|plain| (params\' and target\' in lr): '
@@ -1700,6 +1800,7 @@ def phase_critic_kernels():
     and the card's name and power limit."""
     for B, mm in CRITIC_CASES:
         check_critic(B, mm)
+    check_critic(MAIN_B, True, groups=GROUPED_CRITIC)
     card = card_line()
     for B, mm in CRITIC_CASES:
         tt = critic_timings(B, mm, split=B == MAIN_B)
@@ -1709,6 +1810,41 @@ def phase_critic_kernels():
                 f'events around {ROLLOUT_LAUNCHES} launches; without a '
                 f'critic {v["bare_ms"]:.4f} ms), plain {v["plain_ms"]:.4f} '
                 f'ms (graph replay), bound {v["bound_ms"]:.6f} ms '
+                f'({v["bound_by"]}); {card}')
+
+
+# ---------------------------------------------------------------------------
+# phase 2g: rows 3-9 with grouped moment matching
+# ---------------------------------------------------------------------------
+
+
+def phase_grouped_kernels(rows, card):
+    """Phase 2g: rows 3-9 with MM per group (``mm_groups``) held against
+    their plain versions as phase 2 holds them: rows 6-7 and 3-5 at
+    B = 100 with G in GROUPS_B100 (10 groups of 10, JAX's bench variant;
+    50 groups of 2, whose states are not resampled: a group of 2 has a
+    rank-1 covariance in D = 5), rows 3-5 with the reward mean-only
+    shortcut on and off where the states are resampled; rows 8-9 at
+    B = 1000 with G in GROUPS_B1000. Each row's time, plain time and bound
+    at the first G (B = 100 for rows 3-7, 1000 for rows 8-9) beside phase
+    2's ungrouped time (``rows``) and the card's name and power limit."""
+    D = 5
+    for G in GROUPS_B100:
+        check_step(MAIN_B, tag='phase 2g', groups=G)
+        for mean_only in ((True, False) if MAIN_B // G > D else (False,)):
+            check_rollout(MAIN_B, mean_only, tag='phase 2g', groups=G)
+    for G in GROUPS_B1000:
+        check_grid(GRID_B, True, tag='phase 2g', groups=G)
+    G3, G8 = GROUPS_B100[0], GROUPS_B1000[0]
+    tt, plans = step_timings(MAIN_B, groups=G3)
+    timed = [(MAIN_B, G3, tt), (MAIN_B, G3, rollout_timings(
+        split=False, groups=G3)), (GRID_B, G8, grid_timings(GRID_B,
+                                                            groups=G8)[0])]
+    for B, G, tt in timed:
+        for name, v in tt.items():
+            log(f'[phase 2g] {name} B={B} mm_groups={G}: kernel '
+                f'{v["ms"]:.4f} ms (ungrouped {rows[name]["ms"]:.4f} ms), '
+                f'plain {v["plain_ms"]:.4f} ms, bound {v["bound_ms"]:.6f} ms '
                 f'({v["bound_by"]}); {card}')
 
 
@@ -1816,33 +1952,57 @@ def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise):
     return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads])
 
 
-def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B):
+def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
+                  groups=None):
     """One iteration's loss and policy grads on the same initial states and
     noise, through ``kernel_path(pol_params, x0, noise as drawn) -> (loss,
     flat grads)`` and through the plain path (``utils.rollout`` on unfused
-    MLPs). The tolerance is the plain path's own sensitivity to x0 moved by
-    1e-6 relative (times 3), at least 1e-4 relative on the loss and 1e-3 of
-    max|grad| on the grads."""
+    MLPs; MM per group of B / groups with ``groups``). The tolerance is the
+    plain path's own sensitivity to x0 moved by 1e-6 relative (times 3), at
+    least 1e-4 relative on the loss and 1e-3 of max|grad| on the grads.
+    Grouped, the plain path runs in float64 (``float64`` says why), and the
+    float32 plain path's largest distance from it at x0 and at x0 moved by
+    +-1e-6 relative (times 3) is one more floor of the tolerance: where the
+    rewards lie far in the exp-quadratic's tail (a loss of 1e-12 after
+    phase 5g's iterations) no float32 rollout holds the loss to 1e-4 of
+    itself, and the float32 rounding there is as random as a draw."""
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
-                        mm_rewards=True, fused_rollout=False)
+                        mm_rewards=True, mm_groups=groups,
+                        fused_rollout=False)
     opt_p = make_mc_pilco_fn(fr.unfused(dyn), fr.unfused(pol), cfg, 'cuda')
     D = x0_pool.shape[-1]
     noise = opt_p.sample_noise(seeded_generator('cuda', seed, 1), D, 'cuda')
     x0 = opt_p.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
                          torch.tensor(init_noise, device='cuda'))
     lk, gk = kernel_path(pol_params, x0, noise)
-    lp, gp = loss_and_grads(opt_p, pol_params, x0, dyn_params, dyn_stats,
-                            noise)
-    ls, gs = loss_and_grads(opt_p, pol_params, x0 * (1 + 1e-6), dyn_params,
-                            dyn_stats, noise)
+    cast = in_float64 if groups else (lambda x: x)
+    lp, gp = loss_and_grads(opt_p, *cast((pol_params, x0, dyn_params,
+                                          dyn_stats, noise)))
+    ls, gs = loss_and_grads(opt_p, *cast((pol_params, x0 * (1 + 1e-6),
+                                          dyn_params, dyn_stats, noise)))
     l_tol = max(1e-4 * abs(lp), 3 * abs(ls - lp))
     g_tol = max(1e-3 * float(gp.abs().max()), 3 * float((gs - gp).abs().max()))
+    f32 = ''
+    if groups:
+        dl = dg = 0.0
+        for scale, (l64, g64) in ((1.0, (lp, gp)), (1 + 1e-6, (ls, gs)),
+                                  (1 - 1e-6, (None, None))):
+            if l64 is None:
+                l64, g64 = loss_and_grads(opt_p, *cast((
+                    pol_params, x0 * scale, dyn_params, dyn_stats, noise)))
+            l32, g32 = loss_and_grads(opt_p, pol_params, x0 * scale,
+                                      dyn_params, dyn_stats, noise)
+            dl = max(dl, abs(l32 - l64))
+            dg = max(dg, float((g32 - g64).abs().max()))
+        l_tol, g_tol = max(l_tol, 3 * dl), max(g_tol, 3 * dg)
+        f32 = (f'; the float32 plain path from the float64 one, at most: '
+               f'loss {dl:.3e}, grads {dg:.3e}')
     l_err, g_err = abs(lk - lp), float((gk - gp).abs().max())
-    log(f'[{tag}] one iteration, kernel vs plain path: loss {lk:.7f} vs '
-        f'{lp:.7f} (err {l_err:.3e}, tolerance {l_tol:.3e}); grads max abs '
+    log(f'[{tag}] one iteration, kernel vs plain path: loss {lk:.7g} vs '
+        f'{lp:.7g} (err {l_err:.3e}, tolerance {l_tol:.3e}); grads max abs '
         f'err {g_err:.3e} (tolerance {g_tol:.3e}, max|grad| '
-        f'{float(gp.abs().max()):.3e})')
+        f'{float(gp.abs().max()):.3e}){f32}')
     if not (np.isfinite(lk) and torch.isfinite(gk).all()):
         raise AssertionError('non-finite loss or grads on the kernel path')
     if l_err > l_tol or g_err > g_tol:
@@ -1884,7 +2044,8 @@ def expect(**nonzero):
 
 def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
            T=MAIN_T, B=MAIN_B):
-    """Check a run's losses and launch counts and log its iteration time."""
+    """Check a run's losses and launch counts and log its iteration time,
+    which ``ITER_MS[tag]`` keeps."""
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(rets))):
         raise AssertionError(f'non-finite loss or mean_return on the {tag} '
                              'run')
@@ -1899,6 +2060,7 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
         f'launches {launches} (expected {want})')
     log(f'[{tag}] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
         f'loss first {losses[0]:.6f} last {losses[-1]:.6f}')
+    ITER_MS[tag] = ms_iter
     log(f'[{tag}] median {ms_iter:.3f} ms per iteration (host clock, '
         f'synchronised each iteration) = '
         f'{B * T / (ms_iter / 1e3):.1f} particle-steps/s on '
@@ -1906,16 +2068,17 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
 
 
 def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
-                   T=MAIN_T, B=MAIN_B):
+                   T=MAIN_T, B=MAIN_B, groups=None):
     """``mc_pilco`` for ``iters`` iterations by the route ``fused_rollout``
-    picks, whose tier the gate must name ``tier``, then one iteration
-    through ``MCPILCO.loss`` on that route against the plain path. Returns
-    the launch counts of the run: every count is set to 0 just before it
-    and read just after."""
+    picks (MM per group of B / groups with ``groups``), whose tier the gate
+    must name ``tier``, then one iteration through ``MCPILCO.loss`` on that
+    route against the plain path. Returns the launch counts of the run:
+    every count is set to 0 just before it and read just after."""
     setup = main_path_setup(seed)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
-                        mm_rewards=True, fused_rollout=fused_rollout)
+                        mm_rewards=True, mm_groups=groups,
+                        fused_rollout=fused_rollout)
     opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda')
     if opt.tier('cuda') != tier:
         raise AssertionError(f'the gate names {opt.tier("cuda")!r} for B={B} '
@@ -1926,7 +2089,7 @@ def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
     t0 = time.perf_counter()
     pol_params, _, metrics, n_steps = mc_pilco(
         x0_pool, dyn, pol, T, dyn_params, dyn_stats, pol_params,
-        opt_iters=iters, mm_states=True, mm_rewards=True,
+        opt_iters=iters, mm_states=True, mm_rewards=True, mm_groups=groups,
         init_state_noise=init_noise, n_particles=B, seed=seed, chunk=1,
         on_iteration=lambda done, m: stamps.append(time.perf_counter()),
         fused_rollout=fused_rollout)
@@ -1934,14 +2097,15 @@ def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
     launches = counts()
     if n_steps != iters:
         raise AssertionError(f'{n_steps} steps for {iters} iterations')
-    report(tag, f'mc_pilco fused_rollout={fused_rollout}', iters, t0, stamps,
+    report(tag, f'mc_pilco fused_rollout={fused_rollout}'
+           + (f' mm_groups={groups}' if groups else ''), iters, t0, stamps,
            metrics['loss'], metrics['mean_return'], launches, want, T, B)
     log(f'[{tag}] tier {opt.tier("cuda")}')
     compare_paths((dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool,
                    init_noise),
                   lambda p, x0, noise: loss_and_grads(opt, p, x0, dyn_params,
                                                       dyn_stats, noise),
-                  tag, seed, T, B)
+                  tag, seed, T, B, groups)
     return launches
 
 
@@ -2003,6 +2167,37 @@ def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
 
         compare_paths(setup, kernel_path, tag, seed, T, B)
     return launches
+
+
+def phase_grouped_paths(capacity):
+    """Phases 5g and 4g: ``mc_pilco`` with MM per group. 5g: phase 5's
+    configuration with ``mm_groups`` = GROUPS_MAIN on the whole-rollout tier
+    (ITERS iterations, exactly one ``fused_rollout_vg`` launch each and
+    nothing else), then GROUPED_ROUTE_ITERS iterations of the same
+    configuration on the ``utils.rollout`` route (``fused_rollout=False``,
+    the fused MLP 2 T times each way an iteration), the ms an iteration of
+    each beside phase 5's. 4g: the step tier at the smallest multiple of 10
+    particles beyond ``capacity`` (what the card holds of the whole-rollout
+    kernel at once), groups of 10 (STEP_ROUTE_ITERS iterations, exactly T
+    launches of each step kernel an iteration). Each run's loss held against
+    the plain path (``compare_paths``, grouped)."""
+    T, G = MAIN_T, GROUPS_MAIN
+    phase_mc_pilco(ITERS, None, 'phase 5g', expect(fused_rollout_vg=ITERS),
+                   'full', groups=G)
+    phase_mc_pilco(GROUPED_ROUTE_ITERS, False, 'phase 5g route', expect(
+        fused_mlp_fwd=2 * T * GROUPED_ROUTE_ITERS,
+        fused_mlp_bwd=2 * T * GROUPED_ROUTE_ITERS), None, groups=G)
+    log(f'[phase 5g] mm_groups={G}: {ITER_MS["phase 5g"]:.3f} ms an '
+        f'iteration on the whole-rollout tier, '
+        f'{ITER_MS["phase 5g route"]:.3f} on the utils.rollout route, '
+        f'ungrouped {ITER_MS["phase 5"]:.3f} (phase 5), in this call')
+    big = (capacity // 10 + 1) * 10
+    log(f'[phase 4g] B={big} (beyond the {capacity} particles the card '
+        f'holds of the whole-rollout kernel) in {big // 10} groups of 10 '
+        'takes the step tier')
+    phase_mc_pilco(STEP_ROUTE_ITERS, None, 'phase 4g', expect(
+        fused_step_fwd=T * STEP_ROUTE_ITERS,
+        fused_step_bwd=T * STEP_ROUTE_ITERS), 'step', B=big, groups=big // 10)
 
 
 def critic_setup(D, seed=SEED, T=MAIN_T):
@@ -2640,6 +2835,8 @@ def main():
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
             **phase_rollout_kernels(), **phase_grid_kernels()}
     t = lap('phase 2', t)
+    phase_grouped_kernels(rows, card)
+    t = lap('phase 2g', t)
     phase_critic_kernels()
     t = lap('phase 2c', t)
     phase_env_kernels(rows, card)
@@ -2665,6 +2862,7 @@ def main():
         fused_step_bwd=T * STEP_ROUTE_ITERS), 'step', B=big_b)
     main_path = phase_mc_pilco(ITERS, None, 'phase 5',
                                expect(fused_rollout_vg=ITERS), 'full')
+    phase_grouped_paths(capacity)
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
     phase_value_path()

@@ -203,6 +203,7 @@ class MCPILCO:
             args = (dyn, pol, cfg.steps, self.w_t, cfg.mm_states,
                     cfg.mm_rewards, cfg.maximize)
             kw = dict(mode=self.mode, mm_rewards_mean_only=self.mr_mean_only,
+                      mm_groups=cfg.mm_groups,
                       value_update=value_update, w_H=self.w_H,
                       value_spec=value_spec)
             self.fused_loss = fr.make_fused_loss(*args, **kw)
@@ -233,16 +234,16 @@ class MCPILCO:
     def prepare_noise(self, noise, device):
         """An epoch's noise in the form the route on ``device`` takes: as
         drawn, or for a fused tier with the MM noise standardized and
-        cyclically pre-rolled to [T, B, zD] once (None without that
-        resample)."""
+        cyclically pre-rolled to [T, B, zD] once, per MM group with
+        ``mm_groups`` (None without that resample)."""
         if self.tier(device) is None:
             return noise
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
         return (dyn_noise, pol_noise,
-                fr.prepare_mm_noise(z_mm, cfg.steps, self.B)
+                fr.prepare_mm_noise(z_mm, cfg.steps, self.B, cfg.mm_groups)
                 if cfg.mm_states else None,
-                fr.prepare_mm_noise(z_rr, cfg.steps, self.B)
+                fr.prepare_mm_noise(z_rr, cfg.steps, self.B, cfg.mm_groups)
                 if cfg.mm_rewards else None) + tuple(noise[4:])
 
     def _extras(self, noise, value_carry, value_stats, value_params):

@@ -112,6 +112,7 @@ struct Lay {
   // scratch (floats)
   int s_fwd, s_bwd, s_loss, s_dw, s_dwcta, s_cdw, s_closs, scratch;
   int dw_flat[kMaxLayers + 1];  // offsets of each policy layer's dW + db in a flat partial
+  int s_gx;  // scratch: grouped MM's exchange of the state cotangent
 };
 
 namespace {

@@ -4,12 +4,14 @@
 // loads with ctypes.
 //
 // Replaces the Pallas TPU kernels of prob_mbrl_tpu/ops/pallas/fused_rollout.py
-// whose body is make_loss_impl (:472-667, ungrouped; the TD(H) critic refit
-// of :507-516, :615-660 through critic_walk.cuh):
+// whose body is make_loss_impl (:472-667; the TD(H) critic refit of
+// :507-516, :615-660 through critic_walk.cuh; grouped moment matching,
+// _mm_resample_grouped_kf at :553-561, through group_mm.cuh):
 //   fused_rollout_fwd <- make_fused_loss._fwd_pallas (the call at :813)
 //   fused_rollout_bwd <- make_fused_loss._bwd_pallas (the call at :859)
 //   fused_rollout_vg  <- make_fused_value_and_grad.fused_vg (the call at :981)
-// and the grid tier's two kernels (make_grid_rollout, :1368-1602, ungrouped):
+// and the grid tier's two kernels (make_grid_rollout, :1368-1602, grouped or
+// not):
 //   fused_grid_fwd <- make_grid_rollout._fwd_pallas (the call at :1462)
 //   fused_grid_bwd <- make_grid_rollout._bwd_pallas (the call at :1542)
 // Per step t: the step of rollout_step.cuh on the states s_t (policy ->
@@ -92,17 +94,36 @@
 // weight staging, forward MLP walk, forward moments and resample, grid
 // barriers, MM adjoint, recompute, VJP with the dW accumulation, final sums).
 //
+// Grouped moment matching (RollArgs::groups G > 1, the kGrp instances):
+// per step, each group that holds a row of the cluster is matched on a few
+// lanes of one warp over all its rows (group_mm.cuh), the rows of a group
+// that straddles two clusters read from the other cluster's copy in device
+// memory after one grid barrier (the forward's pre-MM rows; the reverse
+// sweep's state cotangents, through an exchange buffer in scratch). Where
+// no group straddles a cluster boundary there is no grid barrier at all.
+//
 // Layout of the sources: rollout_kernel.cuh holds the kernel's device code
-// and layout; this file its C entry points and the instances without a
-// critic; fused_rollout_critic_fwd, _bwd and _vg.cu the instances with one.
+// and layout; this file its C entry points and the ungrouped instances
+// without a critic; fused_rollout_grouped.cu and _grouped_grid.cu the
+// grouped ones; fused_rollout_critic_fwd, _bwd and _vg.cu the instances with
+// a critic, fused_rollout_critic_grouped_fwd, _bwd and _vg.cu the grouped
+// ones.
 
 #include "rollout_kernel.cuh"
 
 // The kernel's instances with the value update's critic, relu or not: rows
-// 3, 4 and 5, from fused_rollout_critic_fwd, _bwd and _vg.cu.
+// 3, 4 and 5, from fused_rollout_critic_fwd, _bwd and _vg.cu, grouped from
+// fused_rollout_critic_grouped_fwd, _bwd and _vg.cu; the grouped instances
+// without one, from fused_rollout_grouped.cu (rows 3-5, kind 0-2) and
+// fused_rollout_grouped_grid.cu (rows 8-9, kind 3-4).
 extern "C" const void* fused_rollout_critic_fwd(int relu);
 extern "C" const void* fused_rollout_critic_bwd(int relu);
 extern "C" const void* fused_rollout_critic_vg(int relu);
+extern "C" const void* fused_rollout_critic_grouped_fwd(int relu);
+extern "C" const void* fused_rollout_critic_grouped_bwd(int relu);
+extern "C" const void* fused_rollout_critic_grouped_vg(int relu);
+extern "C" const void* fused_rollout_grouped(int kind, int relu);
+extern "C" const void* fused_rollout_grouped_grid(int kind, int relu);
 
 namespace {
 
@@ -119,14 +140,19 @@ const Kernel kKernels[2][5] = {
      rollout_kernel<false, kFwd | kBwd, true, false>, rollout_kernel<true, kFwd, true, false>,
      rollout_kernel<true, kBwd, true, false>}};
 
-// The kernel of entry point `kind` (0-4), with a critic (rows 3-5 only) or not.
-const void* kernel_of(bool relu, int kind, bool critic) {
+// The kernel of entry point `kind` (0-4), with a critic (rows 3-5 only) or
+// not, grouped or not.
+const void* kernel_of(bool relu, int kind, bool critic, bool grouped) {
   if (critic) {
     using Of = const void* (*)(int);
-    const Of of[3] = {fused_rollout_critic_fwd, fused_rollout_critic_bwd,
-                      fused_rollout_critic_vg};
-    return kind < 3 ? of[kind](relu) : nullptr;
+    const Of of[2][3] = {
+        {fused_rollout_critic_fwd, fused_rollout_critic_bwd, fused_rollout_critic_vg},
+        {fused_rollout_critic_grouped_fwd, fused_rollout_critic_grouped_bwd,
+         fused_rollout_critic_grouped_vg}};
+    return kind < 3 ? of[grouped][kind](relu) : nullptr;
   }
+  if (grouped)
+    return kind < 3 ? fused_rollout_grouped(kind, relu) : fused_rollout_grouped_grid(kind, relu);
   return reinterpret_cast<const void*>(kKernels[relu][kind]);
 }
 
@@ -138,6 +164,8 @@ int launch(const StepArgs* a, const RollArgs* r, const int* plan, int kind, void
       !r->r_raw || !r->stats)
     return -1;
   const int r_mm = r->mm_rewards && !r->mean_only;
+  const int G = r->groups;
+  if (G < 1 || st.B % G || st.B / G < 2) return -1;
   if ((r->mm_states && !st.z_mm) || (r_mm && !st.z_rr)) return -1;
   if ((phases & kFwd) && !(grid ? r->disc && r->raw && r->vret && r->vw_t : r->loss && r->mret))
     return -1;
@@ -154,12 +182,13 @@ int launch(const StepArgs* a, const RollArgs* r, const int* plan, int kind, void
     if ((phases & kFwd) && (!r->vw_t || r->critic->H > r->T)) return -1;
   }
   Lay lay;
-  if (!lay_of(st, r->T, plan, lay, critic ? &cnet : nullptr) ||
+  if (!lay_of(st, r->T, plan, lay, critic ? &cnet : nullptr, G) ||
       (lay.scratch > 0 && !r->scratch))
     return -1;
   Roll ro = {};
   ro.T = r->T;
   ro.H = critic ? r->critic->H : 0;
+  ro.G = G;
   ro.mm_states = r->mm_states;
   ro.r_mm = r_mm;
   ro.mean_only = r->mm_rewards && r->mean_only;
@@ -195,7 +224,7 @@ int launch(const StepArgs* a, const RollArgs* r, const int* plan, int kind, void
     }
   }
   const bool relu = relu_only(st.pol) && relu_only(st.dyn) && (!critic || relu_only(cnet));
-  const void* k = kernel_of(relu, kind, critic);
+  const void* k = kernel_of(relu, kind, critic, G > 1);
   const int smem = plan[kPlanSmem];
   int e = set_smem(k, smem);
   if (e == cudaSuccess) {
@@ -232,9 +261,11 @@ int fused_rollout_max_clusters(int threads, int smem, int* clusters) {
   if (!clusters || threads < 32 || threads > kMaxThreads || smem < 0 || smem > kSmemMax) return -1;
   *clusters = 0;
   int best = -1, e = cudaSuccess;
-  for (int i = 0; i < 16; ++i) {  // ten instances without a critic, six with
-    const void* k = i < 10 ? kernel_of(i / 5, i % 5, false)
-                           : kernel_of((i - 10) / 3, (i - 10) % 3, true);
+  for (int i = 0; i < 32; ++i) {  // ten instances without a critic, six with; grouped or not
+    const bool grouped = i >= 16;
+    const int j = i % 16;
+    const void* k = j < 10 ? kernel_of(j / 5, j % 5, false, grouped)
+                           : kernel_of((j - 10) / 3, (j - 10) % 3, true, grouped);
     e = set_smem(k, smem);
     if (e != cudaSuccess) break;
     cudaLaunchAttribute attr[2];

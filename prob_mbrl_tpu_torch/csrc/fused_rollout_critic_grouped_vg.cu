@@ -1,0 +1,11 @@
+// Row 5's grouped instances with the value update's critic (RollArgs::critic
+// and RollArgs::groups; rollout_kernel.cuh, critic_walk.cuh, group_mm.cuh):
+// a translation unit of its own, which nvcc compiles beside
+// fused_rollout.cu's (build.py links them into libfused_rollout.so), whose
+// launch() takes them through this function.
+
+#include "rollout_kernel.cuh"
+
+extern "C" const void* fused_rollout_critic_grouped_vg(int relu) {
+  return critic_instance<kFwd | kBwd | kGrp>(relu);
+}

@@ -13,7 +13,8 @@
 //      lunar lander's shaping potential and gated fuel costs, or a learned
 //      reward, the dynamics head's output D, :1114-1118)
 //   -> moment-matching resample of nxt (D) and of r (D = 1), Cholesky path
-//      with the escalating jitter of _safe_cholesky_kf (:117-203).
+//      with the escalating jitter of _safe_cholesky_kf (:117-203), or per
+//      group of B / G rows (mm_groups G, _mm_resample_grouped_kf, :375-410).
 //
 // Bound at the main-path shapes (policy 5->200->200->2, dynamics
 // 6->200->200->10): ~0.17 MFLOP of float32 products per particle forward and
@@ -27,8 +28,8 @@
 // kernel of fused_rollout.cu). Normal launches (not cooperative) of
 // thread-block clusters of 8 CTAs, so a batch of any size runs and a CUDA
 // graph captures them: the step tier takes the batches beyond what the card
-// holds of the whole rollout at once. Cluster c of G walks row tiles c,
-// c + G, c + 2G, ... of TR rows; each CTA stages its rows of every weight
+// holds of the whole rollout at once. Cluster c of nc walks row tiles c,
+// c + nc, c + 2 nc, ... of TR rows; each CTA stages its rows of every weight
 // once per launch. The launch plan (clusters, tile rows, tiles, threads,
 // resident or streamed weights, shared memory, the MM adjoint's blocks,
 // scratch) comes from step_plan() in fused_rollout.py and is checked here
@@ -50,13 +51,20 @@
 //     by hand (step_vjp); the policy's dW and db added to a per-CTA
 //     accumulator as the walk goes; g_states and g_eps written out. The
 //     last cluster to finish sums the clusters' dW partials in cluster order.
+// Grouped (G > 1): the forward's walk writes the pre-MM rows and no moments,
+//   then group_fwd_kernel matches each group on a few lanes of a warp
+//   (group_mm.cuh: its moments, its own safe Cholesky, its rows resampled,
+//   its (m, sd, L) kept in stats [G, 2, kStat]); the backward's
+//   group_bwd_kernel forms each group's adjoint sums and coefficients and
+//   the gradient wrt its pre-MM rows into scratch, which the walk then takes
+//   as its incoming gradient (no step_sums_kernel).
 // The counters order the work; no value is summed by an atomic, so results
 // repeat bit for bit. Dynamics parameters and masks get no gradient (the
 // step differentiates wrt the policy parameters, the states and eps only).
 // Every hidden activation relu (the main path's) is a kernel instance of its
 // own that applies relu as a constant.
 
-#include "cluster_walk.cuh"
+#include "group_mm.cuh"
 
 // the plan's fields, in the order of fused_rollout.py's StepPlan
 enum StepPlanField {
@@ -72,10 +80,11 @@ namespace {
 // partials, of the blocks' partials of the MM adjoint's sums and of its
 // coefficients.
 struct Tiles {
-  int tiles, gin, s_part, s_sum, s_coef;
+  int tiles, gin, s_part, s_sum, s_coef, s_gpre;  // s_gpre: grouped, [B, D] + [B]
 };
 
 constexpr int kSumThreads = 256;  // rows of a block of the MM adjoint's sums
+constexpr int kGroupThreads = 256;  // threads of a block of the grouped resample
 constexpr int kCoef = kMaxD * kMaxD + kMaxD;  // H and c0 of one resample site
 // the launches' counters (int scratch, zero between launches)
 constexpr int kTicketFwd = 0, kTicketSums = 1, kTicketDw = 2, kTickets = 3;
@@ -123,15 +132,15 @@ __device__ __forceinline__ void copy_params(const Step& st, const Lay& lay, Step
   __syncthreads();
 }
 
-// Whether this cluster is the last of G to take ticket `t` (rank 0 takes it
+// Whether this cluster is the last of nc to take ticket `t` (rank 0 takes it
 // and tells every CTA of the cluster); the caller's writes to device memory
 // are ordered before the ticket (each thread's __threadfence, then the
 // cluster barrier). All threads of the cluster must call it.
-__device__ bool last_cluster(int* tickets, int t, int rank, int G, StepSm& sh) {
+__device__ bool last_cluster(int* tickets, int t, int rank, int nc, StepSm& sh) {
   __threadfence();
   cluster_sync();
   if (rank == 0 && threadIdx.x == 0) {
-    const int last = atomicAdd(tickets + t, 1) == G - 1;
+    const int last = atomicAdd(tickets + t, 1) == nc - 1;
     __threadfence();
     for (int r = 0; r < kCluster; ++r) *remote(&sh.last, r) = last;
   }
@@ -275,7 +284,7 @@ step_fwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
   __shared__ Lay lay_s;
   copy_params(st, lay, st_s, lay_s);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int cid = blockIdx.x / kCluster, G = gridDim.x / kCluster;
+  const int cid = blockIdx.x / kCluster, nc = gridDim.x / kCluster;
   Ctx c{smem, lay_s, rank, cid, 0, 0, 0};
   const Step& s = st_s;
   const int D = s.D, B = s.B, tid = threadIdx.x, nt = blockDim.x;
@@ -284,7 +293,7 @@ step_fwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
   const float* ts = smem + lay_s.tsm;
   stage(c, s, nullptr);
   const int first = rank * nt + tid, stride = kCluster * nt;
-  for (int t = cid; t < tl.tiles; t += G) {
+  for (int t = cid; t < tl.tiles; t += nc) {
     const int row0 = t * TR, nrows = min(TR, B - row0);
     step_fwd<kReluOnly>(c, s, s.states + (size_t)row0 * D, s.eps, row0, nrows, false);
     // the CTAs hold the same tile arrays: each writes its share of the rows
@@ -300,13 +309,13 @@ step_fwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
   // above (ordered before these reads by the fence and the cluster
   // barrier); then rank 0 merges the CTAs' partials in rank order into the
   // cluster's
-  const int J = (tl.tiles - cid + G - 1) / G;
+  const int J = (tl.tiles - cid + nc - 1) / nc;
   if (J > 1) {
     __threadfence();
     cluster_sync();
   }
   for (int j = rank; j < J; j += kCluster) {
-    const int row0 = (cid + j * G) * TR, n = min(TR, B - row0);
+    const int row0 = (cid + j * nc) * TR, n = min(TR, B - row0);
     float* tp = sh.part[j == rank ? 0 : 1];
     if (j == J - 1)
       rows_moments<false>(ts + kTNxt * TRP, TRP, 1, ts + kTR * TRP, D, n, tp);
@@ -332,12 +341,12 @@ step_fwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
   }
   if (rank == 0)
     for (int e = tid; e < kPart; e += nt) io.scratch[tl.s_part + cid * kPart + e] = part[e];
-  if (!last_cluster(io.tickets, kTicketFwd, rank, G, sh)) return;
+  if (!last_cluster(io.tickets, kTicketFwd, rank, nc, sh)) return;
   // the last cluster: every CTA merges the clusters' partials in order (the
   // same bits in all), factors, and resamples its share of the rows
-  for (int e = tid; e < G * kPart; e += nt) parts[e] = __ldcg(io.scratch + tl.s_part + e);
+  for (int e = tid; e < nc * kPart; e += nt) parts[e] = __ldcg(io.scratch + tl.s_part + e);
   __syncthreads();
-  merge_parts(parts, G, D, sh.merged);
+  merge_parts(parts, nc, D, sh.merged);
   sites_of(sh.merged, D, B, sh.s, sh.r);
   if (tid == 0 && io.mm_states) {
     safe_chol(sh.s.S, D, sh.s.L);
@@ -447,7 +456,7 @@ step_sums_kernel(const __grid_constant__ Tiles tl, const __grid_constant__ StepG
 // straight to the outputs; else each cluster's into its flat partial, and the
 // last cluster to take its ticket sums them over the clusters in order.
 __device__ void finish_dw(const Ctx& c, const Step& st, const StepGrad& g, StepSm& sh,
-                          const float* dwacc, int G) {
+                          const float* dwacc, int nc) {
   const int tid = threadIdx.x, nt = blockDim.x, np = st.pol.n;
   const Lay& lay = c.lay;
   const int ndw = lay.dw_flat[np + 1], ld4w = round4(ndw) / 4;  // a partial's float4s
@@ -459,8 +468,8 @@ __device__ void finish_dw(const Ctx& c, const Step& st, const StepGrad& g, StepS
     const float* acc = dwacc + lay.dw_off[l];
     const float* accb = acc + round4(ceil_div(din, kCluster)) * ld;
     float* part = flat + (size_t)c.cid * 4 * ld4w + lay.dw_flat[l];
-    float* dw = G == 1 ? g.dw[l] : part;
-    float* db = G == 1 ? g.db[l] : part + din * dout;
+    float* dw = nc == 1 ? g.dw[l] : part;
+    float* db = nc == 1 ? g.db[l] : part + din * dout;
     for (int e = tid; e < ks.cnt * dout; e += nt) {
       const int k = e / dout, j = e - k * dout;
       dw[(size_t)(ks.c0 + k) * dout + j] = acc[k * ld + j];
@@ -468,14 +477,14 @@ __device__ void finish_dw(const Ctx& c, const Step& st, const StepGrad& g, StepS
     if (st.pol.b[l])
       for (int jj = tid; jj < js.cnt; jj += nt) db[js.c0 + jj] = accb[js.c0 + jj];
   }
-  if (G == 1) return;
-  if (!last_cluster(g.tickets, kTicketDw, c.rank, G, sh)) return;
+  if (nc == 1) return;
+  if (!last_cluster(g.tickets, kTicketDw, c.rank, nc, sh)) return;
   if (c.rank == 0 && tid == 0) g.tickets[kTicketDw] = 0;
   const float4* f4 = reinterpret_cast<const float4*>(flat);
   for (int q = c.rank * nt + tid; q < ld4w; q += kCluster * nt) {
     float4 v4 = __ldcg(f4 + q);
 #pragma unroll 4
-    for (int cc = 1; cc < G; ++cc) v4 = add4(v4, __ldcg(f4 + (size_t)cc * ld4w + q));
+    for (int cc = 1; cc < nc; ++cc) v4 = add4(v4, __ldcg(f4 + (size_t)cc * ld4w + q));
     const float v[4] = {v4.x, v4.y, v4.z, v4.w};
     int l = 0;
     for (int u = 0; u < 4 && 4 * q + u < ndw; ++u) {
@@ -498,7 +507,7 @@ step_bwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
   __shared__ Lay lay_s;
   copy_params(st, lay, st_s, lay_s);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int cid = blockIdx.x / kCluster, G = gridDim.x / kCluster;
+  const int cid = blockIdx.x / kCluster, nc = gridDim.x / kCluster;
   Ctx c{smem, lay_s, rank, cid, 0, 0, 0};
   const Step& s = st_s;
   const int D = s.D, U = s.U, B = s.B, tid = threadIdx.x, nt = blockDim.x;
@@ -521,7 +530,7 @@ step_bwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
   __syncthreads();
   float* gin = smem + tl.gin;
   float* grin = gin + TR * kMaxD;
-  for (int t = cid; t < tl.tiles; t += G) {
+  for (int t = cid; t < tl.tiles; t += nc) {
     const int row0 = t * TR, nrows = min(TR, B - row0);
     // the gradient wrt the tile's pre-MM outputs: g_x = H (x - m) + c0
     for (int e = tid; e < nrows * D; e += nt) {
@@ -546,7 +555,75 @@ step_bwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
     float* g_s = rank == 0 ? g.g_states + (size_t)row0 * D : nullptr;
     step_vjp<kReluOnly>(c, s, gin, grin, row0, nrows, g_eps, g_s, dwacc);
   }
-  finish_dw(c, s, g, sh, dwacc, G);
+  finish_dw(c, s, g, sh, dwacc, nc);
+}
+
+// What the grouped resample's kernels read and write (group_mm.cuh).
+struct GroupIo {
+  int B, D, G, mm_states, r_mm;
+  const float *nxt_raw, *r_raw;  // [B, D], [B]: the walk's pre-MM rows
+  const float *z_mm, *z_rr;      // the step's MM noise, standardized per group
+  float* stats;                  // [G, 2, kStat]
+  float *nxt, *r;                // forward: the resampled rows
+  const float *g_nxt, *g_r;      // backward: the cotangents of nxt, r
+  float* gpre;                   // backward: the gradient wrt nxt_raw [B, D], then r_raw [B]
+};
+
+// The forward's grouped resample: W lanes a group (group_mm.cuh), its
+// moments over its Bg rows, its factors (kept in stats by its first lane),
+// its rows resampled.
+__global__ void __launch_bounds__(kGroupThreads)
+group_fwd_kernel(const __grid_constant__ GroupIo io) {
+  const int D = io.D, Bg = io.B / io.G, W = group_lanes(Bg), lane = threadIdx.x & 31;
+  const int g = (blockIdx.x * kGroupThreads + threadIdx.x) / W, j = lane & (W - 1);
+  const bool on = g < io.G;
+  const int b0 = (on ? g : 0) * Bg;
+  auto x = [&](int q, int k) { return io.nxt_raw[(size_t)(b0 + q) * D + k]; };
+  auto r = [&](int q) { return io.r_raw[b0 + q]; };
+  GroupSite s;
+  group_moments(x, r, Bg, D, W, on, io.mm_states, io.r_mm, s);
+  if (!on) return;
+  group_factor(s, D, io.mm_states, io.r_mm);
+  if (j == 0) group_save(s, D, io.mm_states, io.r_mm, io.stats + (size_t)g * 2 * kStat);
+  for (int q = j; q < Bg; q += W) {
+    const size_t b = b0 + q;
+    if (io.mm_states) group_resample_row(s, D, io.z_mm + b * D, io.nxt + b * D);
+    if (io.r_mm) io.r[b] = s.rm + io.z_rr[b] * s.rL;
+  }
+}
+
+// The backward's grouped MM adjoint: W lanes a group, its sums of g and
+// g z^T, its coefficients from its sites in stats, and the gradient wrt its
+// pre-MM rows into io.gpre (the cotangents themselves where a site is not
+// resampled).
+__global__ void __launch_bounds__(kGroupThreads)
+group_bwd_kernel(const __grid_constant__ GroupIo io) {
+  const int D = io.D, B = io.B, Bg = B / io.G, W = group_lanes(Bg), lane = threadIdx.x & 31;
+  const int g = (blockIdx.x * kGroupThreads + threadIdx.x) / W, j = lane & (W - 1);
+  const bool on = g < io.G;
+  const int b0 = (on ? g : 0) * Bg;
+  auto gs = [&](int q, int k) { return io.g_nxt[(size_t)(b0 + q) * D + k]; };
+  auto zs = [&](int q, int k) { return io.z_mm[(size_t)(b0 + q) * D + k]; };
+  auto gr = [&](int q) { return io.g_r[b0 + q]; };
+  auto zr = [&](int q) { return io.z_rr[b0 + q]; };
+  GroupSite s;
+  if (on) group_load(io.stats + (size_t)g * 2 * kStat, D, s);
+  GroupAdjoint a;
+  group_adjoint(gs, zs, gr, zr, Bg, D, W, on, io.mm_states, io.r_mm, s, a);
+  if (!on) return;
+  for (int q = j; q < Bg; q += W) {
+    const size_t b = b0 + q;
+    if (io.mm_states) group_vjp_row(a, s, D, io.nxt_raw + b * D, io.gpre + b * D);
+    else
+      for (int k = 0; k < D; ++k) io.gpre[b * D + k] = io.g_nxt[b * D + k];
+    io.gpre[(size_t)B * D + b] = io.r_mm ? a.rH * (io.r_raw[b] - s.rm) + a.rc0 : io.g_r[b];
+  }
+}
+
+// Blocks of group_*_kernel for G groups of B / G.
+int group_blocks(int B, int G) {
+  const int per = kGroupThreads / group_lanes(B / G);  // groups a block
+  return (G + per - 1) / per;
 }
 
 }  // namespace
@@ -556,8 +633,9 @@ step_bwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
 namespace {
 
 // The layout of a launch from the plan (the formulas of step_plan in
-// fused_rollout.py); false when the plan does not fit these models.
-bool step_lay_of(const Step& st, const int* plan, bool bwd, Lay& L, Tiles& T) {
+// fused_rollout.py); false when the plan does not fit these models and G
+// MM groups.
+bool step_lay_of(const Step& st, const int* plan, bool bwd, Lay& L, Tiles& T, int G) {
   L = Lay{};
   T = Tiles{};
   const int TR = plan[kSPTileRows], tiles = plan[kSPTiles], clusters = plan[kSPClusters];
@@ -588,6 +666,8 @@ bool step_lay_of(const Step& st, const int* plan, bool bwd, Lay& L, Tiles& T) {
     sc += clusters > 1 ? (long long)clusters * round4(L.dw_flat[st.pol.n + 1]) : 0;
     L.s_dwcta = static_cast<int>(sc);
     sc += L.resident ? 0 : (long long)clusters * kCluster * L.dw_cta;
+    T.s_gpre = static_cast<int>(sc);
+    sc += G > 1 ? (long long)st.B * (st.D + 1) : 0;
   }
   L.scratch = static_cast<int>(sc);
   return sc == plan[kSPScratch] && sc < (1LL << 31);
@@ -658,24 +738,28 @@ int fused_step_max_clusters(int threads, int smem, int* clusters) {
   return cudaSuccess;
 }
 
-// Forward of one step (one launch). Writes the pre-MM nxt_raw [B, D] and
-// r_raw [B, 1]; when mm_states (mm_rewards), resamples them into nxt (r) and
-// keeps (m, sd, L) of the site in stats [2, kStat], else the caller passes
-// nxt == nxt_raw (r == r_raw). plan: kSPLen ints from step_plan(backward =
-// False); scratch: plan[kSPScratch] floats; tickets: kTickets ints, zero
-// (each launch leaves them zero). Returns 0, a cudaError_t, or -1.
+// Forward of one step (one launch; grouped, two). Writes the pre-MM nxt_raw
+// [B, D] and r_raw [B, 1]; when mm_states (mm_rewards), resamples them into
+// nxt (r), per group of B / groups rows, and keeps (m, sd, L) of each
+// group's site in stats [groups, 2, kStat], else the caller passes nxt ==
+// nxt_raw (r == r_raw). plan: kSPLen ints from step_plan(backward = False);
+// scratch: plan[kSPScratch] floats; tickets: kTickets ints, zero (each
+// launch leaves them zero). Returns 0, a cudaError_t, or -1.
 int fused_step_fwd(const StepArgs* a, const int* plan, int mm_states, int mm_rewards,
-                   void* nxt_raw, void* r_raw, void* nxt, void* r, void* stats, void* scratch,
-                   void* tickets, void* stream) {
+                   int groups, void* nxt_raw, void* r_raw, void* nxt, void* r, void* stats,
+                   void* scratch, void* tickets, void* stream) {
   Step st;
   Lay lay;
   Tiles tl;
-  if (!plan || !fill_step(st, a) || !step_lay_of(st, plan, false, lay, tl)) return -1;
+  if (!plan || !fill_step(st, a) || groups < 1 || st.B % groups || st.B / groups < 2 ||
+      !step_lay_of(st, plan, false, lay, tl, groups))
+    return -1;
   if (!nxt_raw || !r_raw || !nxt || !r || !stats || !scratch || !tickets) return -1;
   if ((mm_states && !a->z_mm) || (mm_rewards && !a->z_rr)) return -1;
+  const bool grouped = groups > 1;
   StepIo io;
-  io.mm_states = mm_states;
-  io.r_mm = mm_rewards;
+  io.mm_states = grouped ? 0 : mm_states;  // grouped: the walk alone, then group_fwd_kernel
+  io.r_mm = grouped ? 0 : mm_rewards;
   io.nxt_raw = static_cast<float*>(nxt_raw);
   io.r_raw = static_cast<float*>(r_raw);
   io.nxt = static_cast<float*>(nxt);
@@ -684,24 +768,45 @@ int fused_step_fwd(const StepArgs* a, const int* plan, int mm_states, int mm_rew
   io.scratch = static_cast<float*>(scratch);
   io.tickets = static_cast<int*>(tickets);
   const bool relu = relu_only(st.pol) && relu_only(st.dyn);
-  return launch_walk(kFwdKernels[relu], st, lay, tl, io, plan, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = launch_walk(kFwdKernels[relu], st, lay, tl, io, plan, s);
+  if (e != cudaSuccess || !grouped || !(mm_states || mm_rewards)) return e;
+  GroupIo gio = {};
+  gio.B = st.B;
+  gio.D = st.D;
+  gio.G = groups;
+  gio.mm_states = mm_states;
+  gio.r_mm = mm_rewards;
+  gio.nxt_raw = io.nxt_raw;
+  gio.r_raw = io.r_raw;
+  gio.z_mm = st.z_mm;
+  gio.z_rr = st.z_rr;
+  gio.stats = io.stats;
+  gio.nxt = io.nxt;
+  gio.r = io.r;
+  group_fwd_kernel<<<group_blocks(st.B, groups), kGroupThreads, 0, s>>>(gio);
+  return cudaGetLastError();
 }
 
 // Backward of one step from the forward's inputs and residuals (nxt_raw,
 // r_raw, stats) and the gradients g_nxt [B, D], g_r [B, 1] wrt its outputs:
 // g_states [B, D], g_eps [B, U] (or null), the policy's dw (n_pol + 1) and
-// db (null where a layer has no bias). One launch of step_sums_kernel when
-// either site is resampled, then the walk. plan: from step_plan(backward =
-// True); scratch and tickets as the forward's (the same buffers may serve
-// both). Returns 0, a cudaError_t, or -1.
+// db (null where a layer has no bias). One launch of step_sums_kernel
+// (grouped: group_bwd_kernel) when either site is resampled, then the walk.
+// plan: from step_plan(backward = True); scratch and tickets as the
+// forward's (the same buffers may serve both). Returns 0, a cudaError_t, or
+// -1.
 int fused_step_bwd(const StepArgs* a, const int* plan, int mm_states, int mm_rewards,
-                   const void* nxt_raw, const void* r_raw, const void* stats, const void* g_nxt,
-                   const void* g_r, void* g_states, void* g_eps, void* const* dw, void* const* db,
-                   void* scratch, void* tickets, void* stream) {
+                   int groups, const void* nxt_raw, const void* r_raw, const void* stats,
+                   const void* g_nxt, const void* g_r, void* g_states, void* g_eps,
+                   void* const* dw, void* const* db, void* scratch, void* tickets,
+                   void* stream) {
   Step st;
   Lay lay;
   Tiles tl;
-  if (!plan || !fill_step(st, a) || !step_lay_of(st, plan, true, lay, tl)) return -1;
+  if (!plan || !fill_step(st, a) || groups < 1 || st.B % groups || st.B / groups < 2 ||
+      !step_lay_of(st, plan, true, lay, tl, groups))
+    return -1;
   if (!nxt_raw || !r_raw || !stats || !g_nxt || !g_r || !g_states || !scratch || !tickets)
     return -1;
   if ((mm_states && !a->z_mm) || (mm_rewards && !a->z_rr)) return -1;
@@ -730,7 +835,30 @@ int fused_step_bwd(const StepArgs* a, const int* plan, int mm_states, int mm_rew
     if (lin && (st.pol.b[l] != nullptr) != (g.db[l] != nullptr)) return -1;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mm_states || mm_rewards) {
+  if ((mm_states || mm_rewards) && groups > 1) {
+    // the gradient wrt the pre-MM rows into scratch, which the walk takes
+    // as its incoming gradient
+    GroupIo gio = {};
+    gio.B = st.B;
+    gio.D = st.D;
+    gio.G = groups;
+    gio.mm_states = mm_states;
+    gio.r_mm = mm_rewards;
+    gio.nxt_raw = g.nxt_raw;
+    gio.r_raw = g.r_raw;
+    gio.z_mm = st.z_mm;
+    gio.z_rr = st.z_rr;
+    gio.stats = const_cast<float*>(g.stats);
+    gio.g_nxt = g.g_nxt;
+    gio.g_r = g.g_r;
+    gio.gpre = g.scratch + tl.s_gpre;
+    group_bwd_kernel<<<group_blocks(st.B, groups), kGroupThreads, 0, s>>>(gio);
+    const int e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    g.mm_states = g.r_mm = 0;
+    g.g_nxt = gio.gpre;
+    g.g_r = gio.gpre + (size_t)st.B * st.D;
+  } else if (mm_states || mm_rewards) {
     step_sums_kernel<<<plan[kSPSumBlocks], kSumThreads, 0, s>>>(tl, g);
     const int e = cudaGetLastError();
     if (e != cudaSuccess) return e;

@@ -6,10 +6,14 @@
 // update's critic, each a translation unit of its own so that nvcc compiles
 // the four in parallel; build.py links them into libfused_rollout.so). Whether a launch refits a critic is a
 // template parameter (kCritic): the instances without one run the same
-// code as they would without critic_walk.cuh.
+// code as they would without critic_walk.cuh. So is grouped moment matching
+// (the kGrp bit of kPhases; group_mm.cuh), whose instances are compiled in
+// fused_rollout_grouped.cu, _grouped_grid.cu and, with a critic,
+// fused_rollout_critic_grouped_{fwd,bwd,vg}.cu.
 #pragma once
 
 #include "critic_walk.cuh"
+#include "group_mm.cuh"
 
 // the plan's fields, in the order of fused_rollout.py's RolloutPlan
 enum PlanField {
@@ -21,6 +25,7 @@ enum PlanField {
 
 struct RollArgs {
   int T, mm_states, mm_rewards, mean_only;
+  int groups;            // G: MM groups of B / G contiguous particles (1: none)
   float sign;            // -1 when the loss maximizes the return
   const float* w_t;      // [T] discount weights
   const float* g_loss;   // backward: cotangents of loss and mean_return (device
@@ -37,7 +42,8 @@ struct RollArgs {
   float* s_all;          // [T + 1, B, D] boundary states (s_0 = x0)
   float* nxt_raw;        // [T, B, D] pre-MM next states
   float* r_raw;          // [T, B] pre-MM rewards
-  float* stats;          // [T, 2, kStat] (m, sd, L) of the state and reward resamples
+  float* stats;          // [T, G, 2, kStat] (m, sd, L) of each group's state and reward
+                         //   resamples
   float* loss;           // [1]
   float* mret;           // [1]
   float* g_eps;          // [T, B, U] or null
@@ -51,7 +57,8 @@ struct RollArgs {
 namespace {
 
 constexpr int kMaxTiles = 8;      // row tiles a cluster walks, at most
-constexpr int kFwd = 1, kBwd = 2;
+// kPhases: the sweeps, and whether the resamples are grouped (G > 1)
+constexpr int kFwd = 1, kBwd = 2, kGrp = 4;
 // parts of RollArgs::split
 constexpr int kLapStage = 0, kLapFwdWalk = 1, kLapFwdMM = 2, kLapGrid = 3, kLapBwdMM = 4,
               kLapRecompute = 5, kLapVjp = 6, kLapSums = 7, kLapCritic = 8, kSplitParts = 9;
@@ -71,6 +78,7 @@ struct Roll {
   unsigned long long* split;
   float* dw[kMaxLayers];
   float* db[kMaxLayers];
+  int G;  // MM groups
 };
 
 struct RollSm {
@@ -268,6 +276,142 @@ __device__ void fwd_moments(const Ctx& c, const Step& st, const Roll& ro, RollSm
   __syncthreads();
 }
 
+// The reward's cotangent of particle b at step t: rows 3-5's uniform c, the
+// grid's per particle.
+template <bool kGrid>
+__device__ __forceinline__ float reward_cot(const Roll& ro, int t, int b, float c) {
+  if (kGrid) return ro.w_t[t] * ro.g_disc[b] + ro.g_raw[b] + ro.vw_t[t] * ro.g_vret[b];
+  return c;
+}
+
+// ---- grouped moments and their adjoint (kGrp) --------------------------------
+
+// The groups that hold the cluster's particles, [g0, g0 + ng), and whether
+// some group straddles two clusters (its rows are then read from the other
+// cluster's copy in device memory, after a grid barrier).
+struct GroupSpan {
+  int Bg, W, g0, ng;
+  bool straddle;
+};
+
+__device__ __forceinline__ GroupSpan group_span(const Ctx& c, const Step& st, const Roll& ro) {
+  const int Bg = st.B / ro.G;
+  return {Bg, group_lanes(Bg), c.p0 / Bg, (c.p0 + c.n - 1) / Bg - c.p0 / Bg + 1,
+          c.lay.clusters > 1 && c.lay.P % Bg != 0};
+}
+
+// The forward's grouped resample of step t: each group that holds a row of
+// the cluster, on W lanes of one warp (group_mm.cuh), its moments over all
+// its rows (the cluster's from XN and RR, another cluster's from
+// ro.nxt_raw / r_raw, which rank 0 of each cluster wrote during the walk),
+// its factors (the cluster that holds its first row, rank 0, keeps them in
+// ro.stats [T, G, 2, kStat]) and the cluster's rows of it resampled in
+// place: XN the post-MM states, RR the post-MM rewards (or, mean-only, the
+// group's mean reward). Every CTA computes the same bits.
+__device__ void fwd_groups(const Ctx& c, const Step& st, const Roll& ro, RollSm& sh, int t) {
+  const int D = st.D, B = st.B, n = c.n, p0 = c.p0, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const GroupSpan gp = group_span(c, st, ro);
+  const int W = gp.W, Bg = gp.Bg, per = 32 / W;
+  const Rows rw = rows_of(c, D);
+  if (gp.straddle) grid_sync(ro, sh, kLapFwdMM);
+  const float* xg = ro.nxt_raw + (size_t)t * B * D;
+  const float* rg = ro.r_raw + (size_t)t * B;
+  const bool rs = ro.r_mm || ro.mean_only;
+  for (int base = warp * per; base < gp.ng; base += nw * per) {  // uniform in the warp
+    const int gi = base + lane / W;
+    const bool on = gi < gp.ng;
+    const int b0 = (gp.g0 + (on ? gi : 0)) * Bg;  // the group's first particle
+    auto x = [&](int q, int k) {
+      const int p = b0 + q - p0;
+      return p >= 0 && p < n ? rw.XN[p * D + k] : __ldcg(xg + (size_t)(b0 + q) * D + k);
+    };
+    auto r = [&](int q) {
+      const int p = b0 + q - p0;
+      return p >= 0 && p < n ? rw.RR[p] : __ldcg(rg + b0 + q);
+    };
+    GroupSite g;
+    group_moments(x, r, Bg, D, W, on, ro.mm_states, rs, g);
+    if (!on) continue;
+    group_factor(g, D, ro.mm_states, ro.r_mm);
+    const int j = lane & (W - 1);
+    if (c.rank == 0 && j == 0 && b0 >= p0)
+      group_save(g, D, ro.mm_states, ro.r_mm, ro.stats + ((size_t)t * ro.G + b0 / Bg) * 2 * kStat);
+    const int q1 = min(p0 + n - b0, Bg);
+    for (int q = max(p0 - b0, 0) + j; q < q1; q += W) {
+      const int p = b0 + q - p0;
+      if (ro.mm_states) {
+        float out[kMaxD];
+        group_resample_row(g, D, rw.ZM + p * D, out);
+        for (int k = 0; k < D; ++k) rw.XN[p * D + k] = out[k];
+      }
+      if (ro.mean_only) rw.RR[p] = g.rm;
+      else if (ro.r_mm) rw.RR[p] = g.rm + rw.ZR[p] * g.rL;
+    }
+  }
+  __syncthreads();
+}
+
+// The reverse sweep's grouped MM adjoint of step t: each group that holds a
+// row of the cluster, on W lanes of one warp, its sums of the state
+// cotangent GS and of GS z^T over all its rows (another cluster's rows from
+// the exchange buffer [2][B][D] of scratch, which rank 0 of each cluster
+// fills at each step, the step's parity choosing the half, before a grid
+// barrier) and of the reward's cotangent c and c z_r, its sites from
+// ro.stats, the coefficients (mm_vjp_coeffs with Bg) and the gradients wrt
+// the cluster's pre-MM rows of it: XN = H (x - m) + c0 (GS without the
+// state resample), RR likewise (c without the reward's).
+template <bool kGrid>
+__device__ void bwd_groups(const Ctx& c, const Step& st, const Roll& ro, RollSm& sh, int t,
+                           float cu) {
+  const int D = st.D, B = st.B, n = c.n, p0 = c.p0, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const GroupSpan gp = group_span(c, st, ro);
+  const int W = gp.W, Bg = gp.Bg, per = 32 / W;
+  const Rows rw = rows_of(c, D);
+  const float* xchg = ro.scratch + c.lay.s_gx + (size_t)(t & 1) * B * D;
+  if (gp.straddle && ro.mm_states) {
+    if (c.rank == 0)
+      for (int e = threadIdx.x; e < n * D; e += blockDim.x)
+        ro.scratch[c.lay.s_gx + (size_t)(t & 1) * B * D + (size_t)p0 * D + e] = rw.GS[e];
+    grid_sync(ro, sh, kLapBwdMM);
+  }
+  const float* zg = st.z_mm + (size_t)t * B * D;
+  const float* zrg = st.z_rr + (size_t)t * B;
+  for (int base = warp * per; base < gp.ng; base += nw * per) {  // uniform in the warp
+    const int gi = base + lane / W;
+    const bool on = gi < gp.ng;
+    const int b0 = (gp.g0 + (on ? gi : 0)) * Bg;
+    auto own = [&](int q) { return b0 + q - p0 >= 0 && b0 + q - p0 < n; };
+    auto gs = [&](int q, int k) {
+      return own(q) ? rw.GS[(b0 + q - p0) * D + k] : __ldcg(xchg + (size_t)(b0 + q) * D + k);
+    };
+    auto zs = [&](int q, int k) {
+      return own(q) ? rw.ZM[(b0 + q - p0) * D + k] : zg[(size_t)(b0 + q) * D + k];
+    };
+    auto gr = [&](int q) { return reward_cot<kGrid>(ro, t, b0 + q, cu); };
+    auto zr = [&](int q) { return own(q) ? rw.ZR[b0 + q - p0] : zrg[b0 + q]; };
+    GroupSite g;
+    if (on) group_load(ro.stats + ((size_t)t * ro.G + b0 / Bg) * 2 * kStat, D, g);
+    GroupAdjoint a;
+    group_adjoint(gs, zs, gr, zr, Bg, D, W, on, ro.mm_states, ro.r_mm, g, a);
+    if (!on) continue;
+    const int j = lane & (W - 1), q1 = min(p0 + n - b0, Bg);
+    for (int q = max(p0 - b0, 0) + j; q < q1; q += W) {
+      const int p = b0 + q - p0;
+      if (ro.mm_states) {
+        float out[kMaxD];
+        group_vjp_row(a, g, D, rw.XR + p * D, out);
+        for (int k = 0; k < D; ++k) rw.XN[p * D + k] = out[k];
+      } else {
+        for (int k = 0; k < D; ++k) rw.XN[p * D + k] = rw.GS[p * D + k];
+      }
+      rw.RR[p] = ro.r_mm ? a.rH * (rw.RW[p] - g.rm) + a.rc0 : reward_cot<kGrid>(ro, t, p0 + p, cu);
+    }
+  }
+  __syncthreads();
+}
+
 // ---- the sweeps ---------------------------------------------------------------
 
 // Rows 3-5: loss and mean_return, each cluster's sums of disc and raw, then
@@ -297,13 +441,7 @@ __device__ void loss_sums(const Ctx& c, const Step& st, const Roll& ro, RollSm& 
 }
 
 
-template <bool kGrid>
-__device__ __forceinline__ float reward_cot(const Roll& ro, int t, int b, float c) {
-  if (kGrid) return ro.w_t[t] * ro.g_disc[b] + ro.g_raw[b] + ro.vw_t[t] * ro.g_vret[b];
-  return c;
-}
-
-template <bool kGrid, bool kCritic, bool kReluOnly>
+template <bool kGrid, bool kCritic, bool kReluOnly, bool kGroups>
 __device__ void forward_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh) {
   const int B = st.B, D = st.D, U = st.U, tid = threadIdx.x, nt = blockDim.x;
   const int TR = c.lay.TR, n = c.n, p0 = c.p0;
@@ -340,13 +478,18 @@ __device__ void forward_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh
       __syncthreads();
     }
     lap(ro, sh, kLapFwdWalk);
-    if (ro.mm_states || ro.r_mm || ro.mean_only) fwd_moments(c, st, ro, sh, t);
-    prefetch_wait();
+    if (kGroups) {  // XN and RR resampled in place
+      prefetch_wait();
+      if (ro.mm_states || ro.r_mm || ro.mean_only) fwd_groups(c, st, ro, sh, t);
+    } else {
+      if (ro.mm_states || ro.r_mm || ro.mean_only) fwd_moments(c, st, ro, sh, t);
+      prefetch_wait();
+    }
     float* s_n = ro.s_all + (size_t)(t + 1) * B * D;
     for (int e = tid; e < n * D; e += nt) {
       const int p = e / D, k = e - p * D;
       float v = rw.XN[e];
-      if (ro.mm_states) {
+      if (!kGroups && ro.mm_states) {
         float acc = 0.f;
         for (int j = 0; j <= k; ++j) acc += rw.ZM[p * D + j] * sh.s.L[k * D + j];
         v = sh.s.m[k] + acc;
@@ -358,9 +501,9 @@ __device__ void forward_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh
     constexpr bool vr = kGrid || kCritic;
     const float w = ro.w_t[t], vw = vr ? ro.vw_t[t] : 0.f;
     for (int p = tid; p < n; p += nt) {
-      float r = rw.RR[p];
-      if (ro.mean_only) r = sh.rmean;
-      else if (ro.r_mm) r = sh.r.m[0] + rw.ZR[p] * sh.r.L[0];
+      float r = rw.RR[p];  // grouped: resampled in place
+      if (!kGroups && ro.mean_only) r = sh.rmean;
+      else if (!kGroups && ro.r_mm) r = sh.r.m[0] + rw.ZR[p] * sh.r.L[0];
       rw.disc[p] = rw.disc[p] + w * r;
       rw.raw[p] = rw.raw[p] + r;
       if (vr) rw.vret[p] = rw.vret[p] + vw * r;
@@ -382,7 +525,7 @@ __device__ void forward_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh
   if (!kCritic) loss_sums(c, st, ro, sh);
 }
 
-template <bool kGrid, bool kCritic, bool kReluOnly>
+template <bool kGrid, bool kCritic, bool kReluOnly, bool kGroups>
 __device__ void reverse_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh, float* dwacc) {
   const int B = st.B, D = st.D, tid = threadIdx.x, nt = blockDim.x;
   const int TR = c.lay.TR, n = c.n, p0 = c.p0;
@@ -407,7 +550,7 @@ __device__ void reverse_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh
       prefetch(rw.ZR, st.z_rr + (size_t)t * B + p0, n);
       prefetch(rw.RW, ro.r_raw + (size_t)t * B + p0, n);
     }
-    prefetch(sh.stat, ro.stats + (size_t)t * 2 * kStat, 2 * kStat);
+    if (!kGroups) prefetch(sh.stat, ro.stats + (size_t)t * 2 * kStat, 2 * kStat);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     if (kGrid) {  // the cotangent of states_all[t] joins the state cotangent
       const float* gs = ro.g_sall + (size_t)t * B * D + (size_t)p0 * D;
@@ -416,6 +559,15 @@ __device__ void reverse_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh
     }
     const float cu = (ro.sign * g_loss * ro.w_t[t] + g_mret) / B;
     prefetch_wait();
+    if (kGroups) {
+      bwd_groups<kGrid>(c, st, ro, sh, t, cu);
+      lap(ro, sh, kLapBwdMM);
+      const float* s_t = ro.s_all + (size_t)t * B * D;
+      for (int lp = 0; lp < n; lp += TR)
+        step_bwd<kReluOnly>(c, st, ro, sh, t, s_t + (size_t)(p0 + lp) * D, p0 + lp,
+                            min(TR, n - lp), lp, dwacc);
+      continue;
+    }
     // the cluster's sums: states gm[i], gL[i, j <= i]; rewards gm, gL
     for (int e = warp; e < D + nT + 2; e += nw) {
       if (e < D + nT ? !ro.mm_states : !ro.r_mm) continue;
@@ -670,11 +822,12 @@ __device__ void critic_bootstrap(Ctx& c, const Step& st, const Roll& ro, const C
 
 template <bool kGrid, int kPhases, bool kReluOnly, bool kCritic>
 __device__ void run(Ctx& c, const Step& st, const Roll& ro, RollSm& sh, const Crit& cr, Net& cn) {
+  constexpr bool kGroups = (kPhases & kGrp) != 0;
   float* dwacc = c.lay.resident ? c.sm + c.lay.dwa
                       : ro.scratch + c.lay.s_dwcta + (size_t)blockIdx.x * c.lay.dw_cta;
   stage(c, st, (kPhases & kBwd) ? dwacc : nullptr);
   lap(ro, sh, kLapStage);
-  if (kPhases & kFwd) forward_sweep<kGrid, kCritic, kReluOnly>(c, st, ro, sh);
+  if (kPhases & kFwd) forward_sweep<kGrid, kCritic, kReluOnly, kGroups>(c, st, ro, sh);
   if constexpr (kCritic) {
     if (kPhases & kFwd) {
       critic_refit<kReluOnly>(c, st, ro, sh, cr, cn);
@@ -687,7 +840,7 @@ __device__ void run(Ctx& c, const Step& st, const Roll& ro, RollSm& sh, const Cr
     }
   }
   if (kPhases & kBwd) {
-    reverse_sweep<kGrid, kCritic, kReluOnly>(c, st, ro, sh, dwacc);
+    reverse_sweep<kGrid, kCritic, kReluOnly, kGroups>(c, st, ro, sh, dwacc);
     finish_dw(c, st, ro, sh, dwacc);
     lap(ro, sh, kLapSums);
   }
@@ -734,8 +887,8 @@ namespace {
 
 // The layout of a launch from the plan (the formulas of rollout_plan in
 // fused_rollout.py); false when the plan does not fit these models (and the
-// critic's params, where there is one).
-bool lay_of(const Step& st, int T, const int* plan, Lay& L, const Net* critic) {
+// critic's params, where there is one) and G MM groups.
+bool lay_of(const Step& st, int T, const int* plan, Lay& L, const Net* critic, int G) {
   const int TR = plan[kPlanTileRows], tiles = plan[kPlanTiles], P = plan[kPlanParticles];
   const int clusters = plan[kPlanClusters], threads = plan[kPlanThreads];
   if (plan[kPlanCluster] != kCluster || TR < RB || TR > kMaxTileRows || TR % RB) return false;
@@ -754,7 +907,8 @@ bool lay_of(const Step& st, int T, const int* plan, Lay& L, const Net* critic) {
   if (4 * off != plan[kPlanSmem] || 4 * off > kSmemMax) return false;
   // scratch: the clusters' partials (several clusters), the CTAs' dW
   // accumulators (streamed plans); with a critic the CTAs' critic dW
-  // accumulators and the clusters' sums of its loss
+  // accumulators and the clusters' sums of its loss; grouped with several
+  // clusters the exchange of the state cotangent, [2][B][D]
   long long sc = 0;
   const int multi = clusters > 1;
   const int flat = L.dw_flat[st.pol.n + 1];
@@ -773,13 +927,17 @@ bool lay_of(const Step& st, int T, const int* plan, Lay& L, const Net* critic) {
   sc += (long long)clusters * kCluster * L.cdw_cta;
   L.s_closs = static_cast<int>(sc);
   sc += critic ? clusters : 0;
+  L.s_gx = static_cast<int>(sc);
+  sc += multi && G > 1 ? 2LL * st.B * D : 0;
   L.scratch = static_cast<int>(sc);
   return sc == plan[kPlanScratch] && sc < (1LL << 31);
 }
 
-// The instance of rows 3-5's entry point kPhases with a critic, for MLPs
-// whose hidden activations are all relu or not: each kPhases instantiated in
-// a translation unit of its own (fused_rollout_critic_{fwd,bwd,vg}.cu).
+// The instance of rows 3-5's entry point kPhases (with kGrp: grouped) with a
+// critic, for MLPs whose hidden activations are all relu or not: each
+// kPhases instantiated in a translation unit of its own
+// (fused_rollout_critic_{fwd,bwd,vg}.cu, grouped
+// fused_rollout_critic_grouped_{fwd,bwd,vg}.cu).
 template <int kPhases>
 const void* critic_instance(int relu) {
   return relu ? reinterpret_cast<const void*>(rollout_kernel<false, kPhases, true, true>)

@@ -29,10 +29,16 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 # the translation units of a library besides csrc/<name>.cu, compiled in
 # parallel with it: the whole-rollout kernel's instances with a critic, one
-# unit for each of rows 3-5
+# unit for each of rows 3-5, ungrouped and grouped, and its grouped
+# instances without one, rows 3-5 and rows 8-9
 EXTRA_SOURCES = {'fused_rollout': ('fused_rollout_critic_fwd.cu',
                                    'fused_rollout_critic_bwd.cu',
-                                   'fused_rollout_critic_vg.cu')}
+                                   'fused_rollout_critic_vg.cu',
+                                   'fused_rollout_critic_grouped_fwd.cu',
+                                   'fused_rollout_critic_grouped_bwd.cu',
+                                   'fused_rollout_critic_grouped_vg.cu',
+                                   'fused_rollout_grouped.cu',
+                                   'fused_rollout_grouped_grid.cu')}
 
 _LIBS = {}
 

@@ -23,6 +23,14 @@ Counterpart of ``prob_mbrl_tpu/ops/pallas/fused_rollout.py``:
   - ``prepare_mm_noise`` and the gate ``fused_mode``.
 Both sources share the step's device code, ``csrc/rollout_step.cuh``.
 
+Grouped moment matching (``mm_groups`` G): the B particles fall into G
+contiguous groups of B / G, and each resample site is matched per group,
+each group factored with its own jitter (``mm.mm_resample_groups``; JAX
+``_mm_resample_grouped_kf``, :375-410, in every tier's kernel body), against
+noise standardized per group of each rolled step (``prepare_mm_noise``). The
+reward mean-only shortcut takes each group's mean. The kernels' grouped
+resample is in ``csrc/group_mm.cuh``.
+
 With a value update (``algorithms.value.make_value_update_fn``) every tier
 runs the TD(H) critic refit on the detached trajectory, then adds the
 bootstrap ``w_H * V(s_T)`` under the refit critic's detached params to the
@@ -91,9 +99,6 @@ LANDER_KIND = REWARD_KINDS.index(LanderReward)
 LEARNED_KIND = len(REWARD_KINDS)
 
 TIERS = ('full', 'remat', 'step', 'grid')
-_GROUPS_NOT_PORTED = ('grouped moment matching (mm_groups) needs the grouped '
-                      'resample (ROADMAP K6), not ported to the fused tiers '
-                      'yet')
 _FIXED_NOT_GRID = ("a fixed critic's bootstrap is added on the grid tier "
                    "alone: the whole-rollout and step kernels add none, "
                    "mode='grid' takes it")
@@ -111,12 +116,28 @@ def reset_launch_counts():
 
 def prepare_mm_noise(z, steps, B, mm_groups=None):
     """Standardize fixed MM noise and cyclically pre-roll it to [T, B, zD]
-    (``fused_rollout.py:1679-1697``, ungrouped): row b of step t is
-    standardized row (t + b) % B."""
-    if mm_groups:
-        raise NotImplementedError(_GROUPS_NOT_PORTED)
-    tb = (np.arange(steps)[:, None] + np.arange(B)[None, :]) % B
-    return mm.standardize_noise(z)[torch.as_tensor(tb, device=z.device)]
+    (``fused_rollout.py:1679-1697``): row b of step t is row (t + b) % B.
+    Ungrouped noise is standardized once, before the roll (the two
+    commute); with ``mm_groups`` each step's rolled rows are standardized
+    per group of B / mm_groups (the roll moves rows across groups)."""
+    tb = torch.as_tensor((np.arange(steps)[:, None]
+                          + np.arange(B)[None, :]) % B, device=z.device)
+    if not mm_groups:
+        return mm.standardize_noise(z)[tb]
+    zD = z.shape[-1]
+    zt = mm.standardize_noise(z[tb].reshape(steps, mm_groups, -1, zD))
+    return zt.reshape(steps, B, zD)
+
+
+def _groups(mm_groups, B=None):
+    """G, the kernels' count of MM groups: 1 without grouping. Given the
+    batch B, raises unless the groups split it into groups of at least
+    two."""
+    G = int(mm_groups) if mm_groups else 1
+    if B is not None and (B % G or B // G < 2):
+        raise ValueError(f'mm_groups={mm_groups} must split the {B} '
+                         'particles into groups of at least two')
+    return G
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +155,18 @@ def unfused(spec):
                                                              fused=False))
 
 
-def make_step_plain(dyn, pol, mm_states, mm_rewards):
+def make_step_plain(dyn, pol, mm_states, mm_rewards, mm_groups=None):
     """Plain PyTorch version of one step (``make_step_impl``,
-    ``fused_rollout.py:1079-1129``, ungrouped): ``step(pol_params, states,
-    z_mm_s, z_rr_s, eps_s, dyn_params, dyn_stats, dyn_noise, pol_noise) ->
-    (nxt, r)``, differentiated by autograd. ``eps_s`` may be None (zero)."""
+    ``fused_rollout.py:1079-1129``): ``step(pol_params, states, z_mm_s,
+    z_rr_s, eps_s, dyn_params, dyn_stats, dyn_noise, pol_noise) -> (nxt,
+    r)``, differentiated by autograd. ``eps_s`` may be None (zero). With
+    ``mm_groups`` each resample is per group (``mm.mm_resample_groups``)."""
     dyn_u, pol_u = unfused(dyn), unfused(pol)
+
+    def resample(v, z):
+        if mm_groups:
+            return mm.mm_resample_groups(v, z, mm_groups)
+        return mm.mm_resample(v, z, standardized=True)
 
     def step(pol_params, states, z_mm_s, z_rr_s, eps_s, dyn_params,
              dyn_stats, dyn_noise, pol_noise):
@@ -157,19 +184,21 @@ def make_step_plain(dyn, pol, mm_states, mm_rewards):
             # the reward on the next states before moment matching
             r = dyn.reward_func(nxt, acts)
         if mm_states:
-            nxt = mm.mm_resample(nxt, z_mm_s, standardized=True)
+            nxt = resample(nxt, z_mm_s)
         if mm_rewards:
-            r = mm.mm_resample(r, z_rr_s, standardized=True)
+            r = resample(r, z_rr_s)
         return nxt, r
 
     return step
 
 
 def _rollout(step, x0, steps, w_list, vw_list, mean_only, action_eps, z_mm_t,
-             z_rr_t):
+             z_rr_t, mm_groups=None):
     """The T loop of every tier: ``step(s, eps_s, z_mm_s, z_rr_s) -> (nxt,
-    r)``; ``disc += w_t * r; raw += r; vret += vw_t * r`` per particle.
-    Returns (disc, raw, vret, [the post-MM states s_1 ... s_T])."""
+    r)``; ``disc += w_t * r; raw += r; vret += vw_t * r`` per particle, with
+    ``mean_only`` r the mean of its particles (of its group's, with
+    ``mm_groups``). Returns (disc, raw, vret, [the post-MM states s_1 ...
+    s_T])."""
     B = x0.shape[0]
     disc = torch.zeros((B, 1), dtype=x0.dtype, device=x0.device)
     raw, vret = torch.zeros_like(disc), torch.zeros_like(disc)
@@ -179,7 +208,8 @@ def _rollout(step, x0, steps, w_list, vw_list, mean_only, action_eps, z_mm_t,
                     None if z_mm_t is None else z_mm_t[t],
                     None if z_rr_t is None else z_rr_t[t])
         if mean_only:
-            r = r.mean(0, keepdim=True).expand_as(r)
+            g = r.reshape(_groups(mm_groups), -1, 1)
+            r = g.mean(1, keepdim=True).expand_as(g).reshape(r.shape)
         disc = disc + w_list[t] * r
         raw = raw + r
         if vw_list is not None:
@@ -244,22 +274,22 @@ def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
                     mm_groups=None, value_update=None, w_H=None,
                     mm_rewards_mean_only=False, value_spec=None):
     """Plain PyTorch version of the whole-rollout loss (``make_loss_impl``,
-    ``fused_rollout.py:472-667``, ungrouped):
+    ``fused_rollout.py:472-667``):
     ``loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
     z_mm_t, z_rr_t, action_eps=None, extras=()) -> (loss, mean_return,
     aux)``, the T loop over ``make_step_plain``, differentiated by autograd.
     With ``mm_rewards_mean_only`` (and ``mm_rewards``, and no value update)
-    each step's reward is its particle mean, broadcast to [B, 1], and is not
-    resampled (``:507-508``, ``:583-591``). With ``value_update`` the critic
+    each step's reward is its particle mean (its group's with
+    ``mm_groups``), broadcast to [B, 1], and is not resampled (``:507-508``,
+    ``:537-541``, ``:583-591``). With ``value_update`` the critic
     refit and the bootstrap of ``_value_loss``, with ``value_spec`` alone a
     fixed critic's bootstrap (``extras`` and ``aux`` as there). ``z_mm_t`` /
     ``z_rr_t``: [T, B, zD] from ``prepare_mm_noise`` (None where unused);
     ``action_eps``: [T, B, U] or None."""
-    if mm_groups:
-        raise NotImplementedError(_GROUPS_NOT_PORTED)
     mean_only = bool(mm_rewards_mean_only and mm_rewards
                      and value_update is None)
-    plain = make_step_plain(dyn, pol, mm_states, mm_rewards and not mean_only)
+    plain = make_step_plain(dyn, pol, mm_states, mm_rewards and not mean_only,
+                            mm_groups)
     w_list = [float(w) for w in np.asarray(w_t)]
     vw_list = _value_weights(value_update, steps)
 
@@ -271,7 +301,7 @@ def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
 
         disc, raw, vret, states = _rollout(step, x0, steps, w_list, vw_list,
                                            mean_only, action_eps, z_mm_t,
-                                           z_rr_t)
+                                           z_rr_t, mm_groups)
         return _value_loss(disc, raw, vret, states, x0, maximize,
                            value_update, w_H, extras, value_spec)
 
@@ -352,7 +382,14 @@ def refuses(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
     if mesh is not None:
         return 'meshes are not ported'
     if cfg.mm_groups:
-        return _GROUPS_NOT_PORTED
+        # JAX's conditions (fused_rollout.py:1795-1799)
+        if cfg.n_particles % cfg.mm_groups:
+            return (f'mm_groups={cfg.mm_groups} does not divide the '
+                    f'{cfg.n_particles} particles')
+        if cfg.n_particles // cfg.mm_groups < 2:
+            return ('groups of one particle: their covariance is undefined '
+                    f'(mm_groups={cfg.mm_groups}, {cfg.n_particles} '
+                    'particles)')
     if cfg.n_particles < 2:
         return 'the fused tiers take B >= 2 particles'
     if cfg.mm_method != 'cholesky' or cfg.infer_noise_variables:
@@ -374,9 +411,10 @@ def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
     ``'full'`` (the whole-rollout kernels), ``'grid'`` (the grid kernels,
     for a value update), ``'step'`` (the per-step kernels) or None.
 
-    Capability only (the port's own gate, ROADMAP K9): Cholesky MM without
-    groups, PEGASUS, no CVaR, ``reg_weight`` 0, no priorities, no
-    ``infer_noise_variables``, float32, and models the step kernels take
+    Capability only (the port's own gate, ROADMAP K9): Cholesky MM (with
+    ``mm_groups`` dividing B into groups of at least two), PEGASUS, no
+    CVaR, ``reg_weight`` 0, no priorities, no ``infer_noise_variables``,
+    float32, and models the step kernels take
     (``kernel_refuses``) admit the tiers; a value update also needs
     ``value_spec``, ``val_mask_mode='epoch'`` and H <= steps, and takes
     ``'full'`` (the refit in the whole-rollout kernels, as JAX's ``'full'``
@@ -513,22 +551,26 @@ def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
     return off + _r4(particles * (5 * D + 6)) + clusters * PART, dw, flat
 
 
-def _scratch(T, clusters, resident, dw, flat, critic_dims=None):
+def _scratch(T, clusters, resident, dw, flat, critic_dims=None, B=0, D=0,
+             groups=1):
     """Floats of a launch's device scratch: with several clusters the
     moments' and the MM adjoint's partials and the loss's and the policy's
     dW partials; a streamed plan's CTAs' dW accumulators; with a critic its
-    CTAs' dW accumulators and one sum of its loss a cluster."""
+    CTAs' dW accumulators and one sum of its loss a cluster; grouped (G > 1)
+    with several clusters, two [B, D] buffers of the state cotangent, which
+    the clusters exchange for the groups that straddle them."""
     multi = clusters > 1
     return ((2 * T * clusters * PART + 2 * clusters + clusters * flat
              if multi else 0)
             + (0 if resident else clusters * CLUSTER * dw)
             + clusters * CLUSTER * critic_dw_floats(critic_dims)
-            + (clusters if critic_dims else 0))
+            + (clusters if critic_dims else 0)
+            + (2 * B * D if multi and groups > 1 else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
-                 critic_dims=None):
+                 critic_dims=None, groups=1):
     """The whole-rollout kernel's launch plan for these MLP widths (policy
     ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``, or ``2 (D + 1)``
     with a learned reward, and the widths ``critic_dims`` of the critic it
@@ -546,7 +588,9 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
     memory per CTA; ``scratch``: floats of device scratch (the clusters'
     partial sums and dW partials with several clusters; the CTAs' dW
     accumulators when not resident; with a critic, its CTAs' dW
-    accumulators and its loss's sums)."""
+    accumulators and its loss's sums; with ``groups`` G > 1 MM groups, the
+    exchange of the state cotangent). The groups change nothing else: the
+    grouped resample keeps each group's moments in registers."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
@@ -562,7 +606,7 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
                 return RolloutPlan(CLUSTER, clusters, P, tr, tiles, THREADS,
                                    resident, 4 * floats,
                                    _scratch(T, clusters, resident, dw, flat,
-                                            critic_dims))
+                                            critic_dims, B, D, groups))
     return None
 
 
@@ -613,22 +657,25 @@ def step_layout(pol_dims, dyn_dims, tile_rows, resident, backward):
     return off + (_r4(tile_rows * (MAX_D + 1)) if backward else 0), dw, flat
 
 
-def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat):
+def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat, B=0,
+                  D=0, groups=1):
     """Floats of device scratch of a step launch: the forward's one partial
     of the moments per cluster; the backward's partials of the MM adjoint's
     sums (one per block), both sites' (H, c0), the clusters' dW partials
-    (several clusters; each padded to 4 floats) and the CTAs' dW
-    accumulators (streamed plans)."""
+    (several clusters; each padded to 4 floats), the CTAs' dW accumulators
+    (streamed plans) and, grouped (G > 1), the gradient wrt the pre-MM
+    outputs ([B, D] and [B])."""
     if not backward:
         return clusters * PART
     return (sum_blocks * PART_B + 2 * COEF
             + (clusters * _r4(flat) if clusters > 1 else 0)
-            + (0 if resident else clusters * CLUSTER * dw))
+            + (0 if resident else clusters * CLUSTER * dw)
+            + (B * (D + 1) if groups > 1 else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def step_plan(pol_dims, dyn_dims, D, B, backward,
-              max_clusters=TARGET_CLUSTERS):
+              max_clusters=TARGET_CLUSTERS, groups=1):
     """The launch plan of one step kernel (``backward``: ``fused_step_bwd``'s
     walk, else ``fused_step_fwd``) for these MLP widths at batch B, on a card
     that holds ``max_clusters`` clusters at once; None when no tile fits in
@@ -644,7 +691,9 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
     are resident in shared memory where any tile fits beside them, else read
     from L2 in place (``resident`` 0). ``smem``: bytes of dynamic shared
     memory per CTA; ``sum_blocks``: blocks of the backward's MM-adjoint
-    sums (0 for the forward); ``scratch``: floats of device scratch."""
+    sums (0 for the forward); ``scratch``: floats of device scratch (with
+    ``groups`` G > 1 MM groups, the backward's gradient wrt the pre-MM
+    outputs besides)."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
@@ -662,7 +711,7 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
         return StepPlan(CLUSTER, clusters, tr, tiles, THREADS, resident,
                         4 * floats, sum_blocks,
                         _step_scratch(clusters, sum_blocks, resident,
-                                      backward, dw, flat))
+                                      backward, dw, flat, B, D, groups))
     return None
 
 
@@ -712,10 +761,11 @@ def _lib():
             raise RuntimeError('csrc/fused_step.cu StepArgs and its ctypes '
                                'mirror differ in size')
         ip = ctypes.POINTER(i)
-        lib.fused_step_fwd.argtypes = [p, ip, i, i, p, p, p, p, p, p, p, p]
+        lib.fused_step_fwd.argtypes = [p, ip, i, i, i, p, p, p, p, p, p, p,
+                                       p]
         lib.fused_step_fwd.restype = i
-        lib.fused_step_bwd.argtypes = [p, ip, i, i, p, p, p, p, p, p, p, pp,
-                                       pp, p, p, p]
+        lib.fused_step_bwd.argtypes = [p, ip, i, i, i, p, p, p, p, p, p, p,
+                                       pp, pp, p, p, p]
         lib.fused_step_bwd.restype = i
         lib.fused_step_max_clusters.argtypes = [i, i, ip]
         lib.fused_step_max_clusters.restype = i
@@ -728,7 +778,7 @@ def _lib():
 class _RollArgs(ctypes.Structure):
     """Mirror of ``RollArgs`` in ``csrc/rollout_kernel.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in ('T', 'mm_states', 'mm_rewards',
-                                              'mean_only')]
+                                              'mean_only', 'groups')]
                 + [('sign', ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in (
                     'w_t', 'g_loss', 'g_mret', 'vw_t', 'g_disc', 'g_raw',
@@ -827,14 +877,17 @@ class StepKernel:
     eps and MM noise. The launch plans, the scratch and the launches'
     counters are made at the first launch and kept for every later one (a
     CUDA graph replays them; each launch leaves the counters zero).
-    ``__call__`` is the differentiable step."""
+    ``__call__`` is the differentiable step. With ``mm_groups`` G > 1 the
+    resamples are per group of B / G contiguous rows."""
 
     def __init__(self, dyn, pol, mm_states, mm_rewards, pol_params,
-                 dyn_params, dyn_stats, dyn_noise, pol_noise, B, device):
+                 dyn_params, dyn_stats, dyn_noise, pol_noise, B, device,
+                 mm_groups=None):
         why = kernel_refuses(dyn, pol)
         if why is not None:
             raise ValueError(f'the step kernels do not take these models: '
                              f'{why}')
+        self.G = _groups(mm_groups, B)
         self.mm_states, self.mm_rewards = bool(mm_states), bool(mm_rewards)
         reg = dyn.regressor
         D, U = dyn.state_dims, pol.output_density.output_dims
@@ -909,8 +962,8 @@ class StepKernel:
     def plans(self):
         """(forward plan, backward plan) on this card (``step_plan``)."""
         clusters = step_max_clusters(_device_index(self.device))
-        return tuple(step_plan(*self.dims, self.D, self.B, bwd, clusters)
-                     for bwd in (False, True))
+        return tuple(step_plan(*self.dims, self.D, self.B, bwd, clusters,
+                               self.G) for bwd in (False, True))
 
     def _workspace(self):
         """(forward plan, backward plan, each as C ints, scratch, counters),
@@ -948,7 +1001,7 @@ class StepKernel:
     def forward(self, states, eps, z_mm, z_rr):
         """Launch the forward: (nxt, r, nxt_raw, r_raw, stats); the last
         three are the backward's residuals (stats: the (m, sd, L) of each
-        resample, [2, kStat])."""
+        resample of each group, [G, 2, kStat])."""
         lib = _lib()
         B, D = self.B, self.D
         plan, _, scratch, tickets = self._workspace()
@@ -957,11 +1010,11 @@ class StepKernel:
         r_raw = torch.empty((B, 1), device=self.device)
         nxt = torch.empty_like(nxt_raw) if self.mm_states else nxt_raw
         r = torch.empty_like(r_raw) if self.mm_rewards else r_raw
-        stats = torch.empty((2, _STAT), device=self.device)
+        stats = torch.empty((self.G, 2, _STAT), device=self.device)
         with torch.cuda.device(self.device):
             rc = lib.fused_step_fwd(
                 ctypes.byref(self.args), plan, self.mm_states,
-                self.mm_rewards, nxt_raw.data_ptr(), r_raw.data_ptr(),
+                self.mm_rewards, self.G, nxt_raw.data_ptr(), r_raw.data_ptr(),
                 nxt.data_ptr(), r.data_ptr(), stats.data_ptr(),
                 scratch.data_ptr(), tickets.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
@@ -988,7 +1041,7 @@ class StepKernel:
         with torch.cuda.device(self.device):
             rc = lib.fused_step_bwd(
                 ctypes.byref(self.args), plan, self.mm_states,
-                self.mm_rewards, nxt_raw.data_ptr(), r_raw.data_ptr(),
+                self.mm_rewards, self.G, nxt_raw.data_ptr(), r_raw.data_ptr(),
                 stats.data_ptr(), g_nxt.data_ptr(), g_r.data_ptr(),
                 g_states.data_ptr(), _ptr(g_eps), fm._ptrs(dws),
                 fm._ptrs(dbs), scratch.data_ptr(), tickets.data_ptr(),
@@ -1035,9 +1088,7 @@ def make_fused_step(dyn, pol, mm_states, mm_rewards, mm_groups=None):
     r)``. Gradients reach ``pol_params``, ``states`` and ``eps_s`` (the
     kernels give the rest none). CPU tensors run ``make_step_plain``; CUDA
     tensors launch the kernels or raise."""
-    if mm_groups:
-        raise NotImplementedError(_GROUPS_NOT_PORTED)
-    plain = make_step_plain(dyn, pol, mm_states, mm_rewards)
+    plain = make_step_plain(dyn, pol, mm_states, mm_rewards, mm_groups)
 
     def step(pol_params, states, z_mm_s, z_rr_s, eps_s, dyn_params,
              dyn_stats, dyn_noise, pol_noise):
@@ -1046,7 +1097,7 @@ def make_fused_step(dyn, pol, mm_states, mm_rewards, mm_groups=None):
                          dyn_params, dyn_stats, dyn_noise, pol_noise)
         k = StepKernel(dyn, pol, mm_states, mm_rewards, pol_params,
                        dyn_params, dyn_stats, dyn_noise, pol_noise,
-                       states.shape[0], states.device)
+                       states.shape[0], states.device, mm_groups)
         return k(states, eps_s, z_mm_s, z_rr_s)
 
     return step
@@ -1064,10 +1115,9 @@ def make_stepwise_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
     shortcut), as in JAX. With ``value_update``: the critic refit and the
     bootstrap of ``_value_loss`` between the kernels (``extras`` and the
     returned aux as there)."""
-    if mm_groups:
-        raise NotImplementedError(_GROUPS_NOT_PORTED)
     plain = make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards,
-                            maximize, value_update=value_update, w_H=w_H)
+                            maximize, mm_groups, value_update=value_update,
+                            w_H=w_H)
     w_list = [float(w) for w in np.asarray(w_t)]
     vw_list = _value_weights(value_update, steps)
 
@@ -1078,7 +1128,7 @@ def make_stepwise_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
                          pol_noise, z_mm_t, z_rr_t, action_eps, extras)
         step = StepKernel(dyn, pol, mm_states, mm_rewards, pol_params,
                           dyn_params, dyn_stats, dyn_noise, pol_noise,
-                          x0.shape[0], x0.device)
+                          x0.shape[0], x0.device, mm_groups)
         disc, raw, vret, states = _rollout(step, x0, steps, w_list, vw_list,
                                            False, action_eps, z_mm_t, z_rr_t)
         return _value_loss(disc, raw, vret, states, x0, maximize,
@@ -1158,16 +1208,20 @@ class RolloutKernel:
     stats, noise, x0, eps and the prepared MM noise stacks). With
     ``value_update`` the kernels refit its critic (``critic.CriticKernel``:
     the block's constant part and the output buffers; ``critic.bind(extras)``
-    makes one call's block, which the launches take as ``cb``)."""
+    makes one call's block, which the launches take as ``cb``). With
+    ``mm_groups`` G > 1 the resamples are per group of B / G contiguous
+    particles (the kernels' grouped instances)."""
 
     def __init__(self, dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
-                 mean_only, B, device, value_update=None, w_H=None):
+                 mean_only, B, device, value_update=None, w_H=None,
+                 mm_groups=None):
         why = kernel_refuses(dyn, pol)
         if why is not None:
             raise ValueError(f'the rollout kernels do not take these models: '
                              f'{why}')
         self.dyn, self.pol, self.T, self.B, self.device = (dyn, pol, steps, B,
                                                            device)
+        self.G = _groups(mm_groups, B)
         self.mm_states = bool(mm_states)
         self.mean_only = bool(mean_only and mm_rewards
                               and value_update is None)
@@ -1186,7 +1240,7 @@ class RolloutKernel:
         clusters = max_clusters(_device_index(device))
         self.plan = rollout_plan(_mlp_dims(pol.mlp),
                                  _mlp_dims(dyn.regressor.mlp), self.D, B,
-                                 steps, clusters, critic_dims)
+                                 steps, clusters, critic_dims, self.G)
         if self.plan is None:
             capacity = rollout_capacity(dyn, pol, device, None if self.critic
                                         is None else value_update.spec)
@@ -1199,6 +1253,7 @@ class RolloutKernel:
         a = self.args = _RollArgs()
         a.T, a.mm_states, a.mm_rewards = T, self.mm_states, bool(mm_rewards)
         a.mean_only = self.mean_only
+        a.groups = self.G
         a.sign = -1.0 if maximize else 1.0
         self._w = torch.tensor(np.asarray(w_t, np.float32), device=device)
         a.w_t = self._w.data_ptr()
@@ -1216,7 +1271,7 @@ class RolloutKernel:
     def _residuals(self):
         T, B, D = self.T, self.B, self.D
         return (self._empty(T + 1, B, D), self._empty(T, B, D),
-                self._empty(T, B), self._empty(T, 2, _STAT))
+                self._empty(T, B), self._empty(T, self.G, 2, _STAT))
 
     def bind(self, pol_params, x0, dyn_params, dyn_stats, dyn_noise,
              pol_noise, z_mm_t, z_rr_t, action_eps):
@@ -1236,7 +1291,7 @@ class RolloutKernel:
             _kernel_tensor(x, self.device, what)
         sk = StepKernel(self.dyn, self.pol, self.mm_states, self.r_mm,
                         pol_params, dyn_params, dyn_stats, dyn_noise,
-                        pol_noise, B, self.device)
+                        pol_noise, B, self.device, self.G)
         sk._set(x0, action_eps, z_mm_t, z_rr_t)
         return sk
 
@@ -1355,7 +1410,8 @@ def _whole_rollout(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
             kernels[key] = RolloutKernel(dyn, pol, steps, w_t, mm_states,
                                          mm_rewards, maximize,
                                          mm_rewards_mean_only, x0.shape[0],
-                                         x0.device, value_update, w_H)
+                                         x0.device, value_update, w_H,
+                                         mm_groups)
         return kernels[key]
 
     return plain, kernel_for
@@ -1443,9 +1499,10 @@ def _floats(w):
     return [float(x) for x in np.asarray(w)]
 
 
-def make_grid_rollout_plain(dyn, pol, steps, mm_states, mm_rewards):
+def make_grid_rollout_plain(dyn, pol, steps, mm_states, mm_rewards,
+                            mm_groups=None):
     """Plain PyTorch version of the grid rollout (``make_grid_rollout``,
-    ``fused_rollout.py:1368-1602``, ungrouped): ``rollout(pol_params, x0,
+    ``fused_rollout.py:1368-1602``): ``rollout(pol_params, x0,
     z_mm_t, z_rr_t, action_eps, dyn_params, dyn_stats, dyn_noise, pol_noise,
     w_t, vw_t) -> (disc, raw, vret, states_all)``: the T loop of
     ``make_step_plain`` with ``disc[b] = sum_t w_t r_t[b]``, ``raw[b] =
@@ -1453,8 +1510,9 @@ def make_grid_rollout_plain(dyn, pol, steps, mm_states, mm_rewards):
     resampled in full) and ``states_all[t]`` the post-MM state after step t
     ([T, B, D]), differentiated by autograd. ``z_mm_t`` / ``z_rr_t``: [T, B,
     zD] from ``prepare_mm_noise`` (None where unused); ``action_eps``:
-    [T, B, U] or None; ``w_t``, ``vw_t``: [T] numbers."""
-    plain = make_step_plain(dyn, pol, mm_states, mm_rewards)
+    [T, B, U] or None; ``w_t``, ``vw_t``: [T] numbers; ``mm_groups`` as
+    ``make_step_plain``."""
+    plain = make_step_plain(dyn, pol, mm_states, mm_rewards, mm_groups)
 
     def rollout(pol_params, x0, z_mm_t, z_rr_t, action_eps, dyn_params,
                 dyn_stats, dyn_noise, pol_noise, w_t, vw_t):
@@ -1477,9 +1535,9 @@ class GridKernel(RolloutKernel):
     ``fused_grid_bwd``, with the reward resampled in full."""
 
     def __init__(self, dyn, pol, steps, w_t, vw_t, mm_states, mm_rewards, B,
-                 device):
+                 device, mm_groups=None):
         super().__init__(dyn, pol, steps, w_t, mm_states, mm_rewards, False,
-                         False, B, device)
+                         False, B, device, mm_groups=mm_groups)
         self._vw = torch.tensor(np.asarray(vw_t, np.float32), device=device)
 
     def forward(self, sk):
@@ -1541,9 +1599,8 @@ def make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards, mm_groups=None):
     CUDA tensors launch ``fused_grid_fwd`` (forward) and ``fused_grid_bwd``
     (backward, the cotangent of ``states_all`` joining the state cotangent)
     or raise. The kernels are cached per batch size, device and weights."""
-    if mm_groups:
-        raise NotImplementedError(_GROUPS_NOT_PORTED)
-    plain = make_grid_rollout_plain(dyn, pol, steps, mm_states, mm_rewards)
+    plain = make_grid_rollout_plain(dyn, pol, steps, mm_states, mm_rewards,
+                                    mm_groups)
     kernels = {}
 
     def rollout(pol_params, x0, z_mm_t, z_rr_t, action_eps, dyn_params,
@@ -1556,7 +1613,8 @@ def make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards, mm_groups=None):
         key = (x0.shape[0], x0.device, w, vw)
         if key not in kernels:
             kernels[key] = GridKernel(dyn, pol, steps, w, vw, mm_states,
-                                      mm_rewards, x0.shape[0], x0.device)
+                                      mm_rewards, x0.shape[0], x0.device,
+                                      mm_groups)
         gk = kernels[key]
         sk = gk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
                      pol_noise, z_mm_t, z_rr_t, action_eps)

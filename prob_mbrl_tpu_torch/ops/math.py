@@ -85,6 +85,41 @@ def safe_cholesky(S, initial_jitter=1e-12, max_tries=8, factor=100.0):
     return _cholesky(S + (jitter * scale) * eye)
 
 
+def safe_cholesky_each(S, initial_jitter=1e-12, max_tries=8, factor=100.0):
+    """``safe_cholesky`` with each matrix of the batch on its own: its own
+    scale ``mean|diag|``, tolerance ``1e-5 * sqrt(scale)`` and first ok
+    jitter, and NaN where none of its attempts is ok (JAX's in-kernel
+    grouped factor, ``ops/pallas/fused_rollout.py`` ``_safe_cholesky_grouped_t``
+    :300-364). The selection carries no gradient.
+
+    Args:
+      S: [..., D, D] symmetric PSD-ish matrices.
+
+    Returns:
+      [..., D, D] lower-triangular factors.
+    """
+    D = S.shape[-1]
+    eye = torch.eye(D, dtype=S.dtype, device=S.device)
+    with torch.no_grad():
+        S_ng = S.detach()
+        diag = torch.diagonal(S_ng, dim1=-2, dim2=-1)
+        scale = diag.abs().mean(-1)[..., None, None] + 1e-30
+        jitters = device_constant(
+            tuple(float(initial_jitter * factor ** i)
+                  for i in range(max_tries)), S.device, S.dtype)
+        jit_b = jitters.reshape((max_tries,) + (1,) * S.dim())
+        Ls = _cholesky(S_ng + (jit_b * scale) * eye)
+        pivots = torch.diagonal(Ls, dim1=-2, dim2=-1)
+        ok = ((pivots > 1e-5 * torch.sqrt(scale[..., 0])).all(-1)
+              & torch.isfinite(Ls).flatten(-2).all(-1))  # [tries, ...]
+        first_ok = torch.argmax(ok.to(torch.int32), 0)
+        jitter = jitters.index_select(0, first_ok.reshape(-1)).reshape(
+            first_ok.shape)[..., None, None]
+        found = ok.any(0)[..., None, None]
+    L = _cholesky(S + (jitter * scale) * eye)
+    return torch.where(found, L, torch.full_like(L, float('nan')))
+
+
 def clip_grad_norm(grads, max_norm, eps=1e-6):
     """Global-norm gradient clipping over a tree of tensors (torch
     ``clip_grad_norm_`` semantics); returns the scaled tree."""

@@ -5,7 +5,7 @@ Fit a Gaussian to the particle cloud (empirical mean and covariance), then
 re-inject fixed standardized noise, so the resampled particles follow the
 matched Gaussian while the PEGASUS noise stays pinned.
 """
-from .math import safe_cholesky
+from .math import safe_cholesky, safe_cholesky_each
 
 
 def particle_moments(samples):
@@ -40,6 +40,20 @@ def mm_resample(samples, z, jitter=1e-12, standardized=False):
     if not standardized:
         z = standardize_noise(z)
     return m + z.detach() @ L.transpose(-1, -2)
+
+
+def mm_resample_groups(samples, z, mm_groups):
+    """The fused tiers' grouped resample (JAX ``ops/pallas/fused_rollout.py``
+    ``_mm_resample_grouped_kf``, :375-410): [B, D] particles in
+    ``mm_groups`` contiguous groups, each matched to its own mean and
+    covariance and factored with its own jitter (``safe_cholesky_each``;
+    ``grouped(mm_resample, ...)`` shares one jitter over the groups), then
+    ``m_g + z L_g^T`` with ``z`` [B, D] standardized per group (detached)."""
+    B, D = samples.shape
+    m, S = particle_moments(samples.reshape(mm_groups, B // mm_groups, D))
+    L = safe_cholesky_each(S)
+    z = z.detach().reshape(mm_groups, B // mm_groups, z.shape[-1])
+    return (m + z @ L.transpose(-1, -2)).reshape(B, D)
 
 
 def grouped(mm_fn, samples, z, mm_groups, jitter=1e-12):

@@ -15,8 +15,11 @@ Cartpole (D = 5, U = 1), the double cartpole (D = 8, U = 1), rendezvous
 (D = 8, U = 2, the lander's reward, kind 2; once more with its policy
 saturated and its actions on the reward's kinks), one step of the
 dynamics fit (loss and grads, logit_p's among them), the launch counters, the
-tier ``mc_pilco`` takes (``'grid'`` with a critic), and the wrappers'
-refusal to fall back when the kernels cannot be built.
+tier ``mc_pilco`` takes (``'grid'`` with a critic), the wrappers'
+refusal to fall back when the kernels cannot be built, and rows 3-9 with
+grouped moment matching (``mm_groups``: ``chip_smoke``'s grouped holds,
+against the plain version in float64, their bits and launch counts, and
+``mc_pilco`` with groups on the whole-rollout tier).
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -1191,3 +1194,116 @@ def test_the_dynamics_fit_step_through_the_kernels_matches_the_plain_path(
     e = metrics['E_lml']
     assert np.all(np.isfinite(e)) and e[-20:].mean() > e[:20].mean()
 
+
+
+# ---- grouped moment matching (mm_groups) ---------------------------------
+
+# (B, G): JAX's bench variant (groups of 10 over clusters of 8 particles,
+# so groups straddle clusters), groups of 2 (the rewards alone resampled:
+# a pair's state covariance is rank 1 in D = 5), groups of 10 at larger B
+GROUPED_STEP = [(100, 10), (100, 50), (1030, 103), (5770, 577)]
+GROUPED_ROLLOUT = [(16, 2), (100, 10), (100, 50), (1500, 150)]
+GROUPED_GRID = [(16, 2), (1000, 100), (1000, 500)]
+
+
+@pytest.mark.parametrize('B,G', GROUPED_STEP)
+def test_grouped_step_kernels_match_the_plain_step_on_the_card(cuda, B, G):
+    """Rows 6-7 with MM per group of B / G against the plain step
+    (``chip_smoke.check_step``: every output within 1e-3 of its max|plain|
+    or 3x the plain step's own change)."""
+    cs.check_step(B, tag='test', groups=G)
+
+
+@pytest.mark.parametrize('mean_only', [True, False])
+@pytest.mark.parametrize('B,G', GROUPED_ROLLOUT)
+def test_grouped_rollout_kernels_match_the_plain_version_on_the_card(
+        cuda, B, G, mean_only):
+    """Rows 3-5 with MM per group, the reward mean-only shortcut per group
+    on and off (``chip_smoke.check_rollout``)."""
+    cs.check_rollout(B, mean_only, tag='test', groups=G)
+
+
+@pytest.mark.parametrize('B,G', GROUPED_GRID)
+def test_grouped_grid_kernels_match_the_plain_version_on_the_card(cuda, B,
+                                                                  G):
+    """Rows 8-9 with MM per group (``chip_smoke.check_grid``)."""
+    cs.check_grid(B, True, tag='test', groups=G)
+
+
+def test_grouped_rollout_kernels_with_a_critic_match_the_plain_version(
+        cuda):
+    """Rows 3-5 with the critic refit and MM per group of 10 at B = 100
+    (``chip_smoke.check_critic``)."""
+    cs.check_critic(100, True, tag='test', groups=10)
+
+
+def test_grouped_kernels_repeat_their_bits(cuda):
+    """Rows 5, 8-9 and 6-7 with MM per group give the same bits launch
+    after launch: each group's sums are a fixed butterfly over its lanes,
+    and groups that straddle clusters are summed the same way by both."""
+    _, kvg, _, pp, _, args, _ = cs.rollout_problem(100, 3, True, groups=10)
+    a, b = kvg(pp, *args), kvg(pp, *args)
+    kern, _, pp, leaves, args, cot, _ = cs.grid_problem(1000, 4, groups=100)
+    ga = cs.grid_outputs(kern, pp, leaves, args, cot)
+    gb = cs.grid_outputs(kern, pp, leaves, args, cot)
+    step, _, leaves, states, eps, cot, _ = cs.step_problem(1500, 5,
+                                                           groups=150)
+    sa = cs.step_outputs(step, leaves, states, eps, cot)
+    sb = cs.step_outputs(step, leaves, states, eps, cot)
+    torch.cuda.synchronize()
+    for u, v in zip([a[0], a[1], *tree_leaves(a[2]), *ga, *sa],
+                    [b[0], b[1], *tree_leaves(b[2]), *gb, *sb]):
+        assert torch.equal(u, v)
+
+
+def test_grouped_launches_are_counted(cuda):
+    """A grouped call counts once per wrapper call, as an ungrouped one (the
+    step's group kernels are part of the call that launches them)."""
+    kloss, kvg, _, pp, leaves, args, _ = cs.rollout_problem(16, 0, True, T=3,
+                                                            groups=2)
+    kern, _, gpp, gleaves, gargs, cot, _ = cs.grid_problem(16, 0, T=3,
+                                                           groups=2)
+    step, _, sleaves, states, eps, scot, _ = cs.step_problem(16, 0, groups=2)
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    cs.rollout_outputs(kloss, pp, leaves, args)
+    kvg(pp, *args)
+    cs.grid_outputs(kern, gpp, gleaves, gargs, cot)
+    cs.step_outputs(step, sleaves, states, eps, scot)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES == {'fused_step_fwd': 1, 'fused_step_bwd': 1,
+                           'fused_rollout_fwd': 1, 'fused_rollout_bwd': 1,
+                           'fused_rollout_vg': 1,
+                           'fused_grid_fwd': 1, 'fused_grid_bwd': 1}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+
+
+def test_mc_pilco_with_groups_takes_the_full_tier_on_the_card(cuda):
+    """``mc_pilco`` with ``mm_groups`` = 10 at B = 100 takes the
+    whole-rollout tier: one ``fused_rollout_vg`` an iteration and nothing
+    else, finite losses."""
+    dyn, pol = cs.build_models(5, 1, (10.0,), envs.cartpole_reward())
+    cfg = dict(n_particles=100, steps=15, mm_states=True, mm_rewards=True,
+               mm_groups=10)
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    assert make_mc_pilco_fn(dyn, pol, MCPILCOConfig(**cfg),
+                            'cuda').tier('cuda') == 'full'
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
+    rng = np.random.RandomState(0)
+    pool = torch.tensor(cs.env_states('Cartpole', rng, 40).astype(np.float32),
+                        device='cuda')
+    stats = dyn.fit_stats(*(torch.tensor(a.astype(np.float32), device='cuda')
+                            for a in cs.stats_data('Cartpole', rng)))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(pool, dyn, pol, 15, dp, stats, pp,
+                                opt_iters=5, mm_states=True, mm_rewards=True,
+                                mm_groups=10, n_particles=100, seed=0,
+                                chunk=1)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES['fused_rollout_vg'] == 5
+    assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
+    assert np.all(np.isfinite(metrics['loss']))

@@ -136,8 +136,11 @@ def test_prepare_mm_noise_matches_jax(setups):
         assert tuple(got.shape) == want.shape
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match='K6'):
-        tfr.prepare_mm_noise(torch.tensor(s['z_mm']), T, B, mm_groups=2)
+    # grouped: each rolled step standardized per group of B / 2
+    want = jfr.prepare_mm_noise(jnp.asarray(s['z_mm']), T, B, 2)
+    got = tfr.prepare_mm_noise(torch.tensor(s['z_mm']), T, B, mm_groups=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize('name', ['raw4', 'emb5'])
@@ -281,7 +284,13 @@ def test_the_gate_admits_the_main_config_and_nothing_else(setups):
     with pytest.raises(TypeError, match='device'):
         tfr.fused_mode(_cfg(), tdyn, tpol)
     assert tfr.supports(_cfg(mm_states=False, mm_rewards=False), tdyn, tpol)
-    for kw in (dict(mm_groups=2), dict(cvar_eps=0.25), dict(reg_weight=0.1),
+    # grouped MM under JAX's conditions: groups that split B, of two or more
+    assert tfr.fused_mode(_cfg(mm_groups=2), tdyn, tpol, **cpu) == 'full'
+    assert tfr.fused_mode(_cfg(mm_groups=B // 2), tdyn, tpol, **cpu) == 'full'
+    for G, why in ((3, 'does not divide'), (B, 'groups of one particle')):
+        assert tfr.fused_mode(_cfg(mm_groups=G), tdyn, tpol, **cpu) is None
+        assert why in tfr.refuses(_cfg(mm_groups=G), tdyn, tpol)
+    for kw in (dict(cvar_eps=0.25), dict(reg_weight=0.1),
                dict(with_priorities=True), dict(infer_noise_variables=True)):
         assert tfr.fused_mode(_cfg(**kw), tdyn, tpol, **cpu) is None, kw
         assert not tfr.supports(_cfg(**kw), tdyn, tpol), kw
@@ -355,14 +364,12 @@ def test_unsupported_configs_and_tiers_raise(setups):
         with pytest.raises(ValueError, match='mode'):
             make(tdyn, tpol, T, w_t, True, True, True, mode='nope')
         for mode in ('full', 'step', 'grid'):
-            with pytest.raises(NotImplementedError, match='K6'):
-                make(tdyn, tpol, T, w_t, True, True, True, mode=mode,
-                     mm_groups=2)
+            assert callable(make(tdyn, tpol, T, w_t, True, True, True,
+                                 mode=mode, mm_groups=2))
     with pytest.raises(ValueError, match='value'):
         tfr.make_stepwise_loss(tdyn, tpol, T, w_t, True, True, True,
                                value_update=object())
-    with pytest.raises(NotImplementedError, match='K6'):
-        tfr.make_fused_step(tdyn, tpol, True, True, mm_groups=2)
+    assert callable(tfr.make_fused_step(tdyn, tpol, True, True, mm_groups=2))
 
 
 def test_cartpole_tip_matrix_is_the_tip():
