@@ -7,7 +7,9 @@ full width through the kernels, on each of its routes, then three
 Deep-PILCO episodes through the driver on Cartpole and one on each of the
 other four analytic envs and on the lunar lander, whose run is then
 replayed by ``evaluate_policy``, one on Cartpole learning the reward, and
-one of the with-value driver, whose critic the whole-rollout kernel refits.
+one of the with-value driver, whose critic the whole-rollout kernel refits;
+last, the particles sharded over ranks that share the card: the sharded
+row 5 (K8), the sharded routes and one sharded episode of the driver.
 
     python3 chip_smoke.py
 
@@ -156,6 +158,27 @@ Phases (any failure exits non-zero and prints no result line):
      each, nothing else), every value finite (v_loss too), E_lml rising, one
      fit step held against the plain path; v_loss over the episode and the
      ms a fit step and a policy iteration.
+  11. particle sharding (``parallel``) over gloo ranks spawned once for the
+     phase, sharing the one card (NCCL refuses two ranks on one device;
+     ``torch.cuda.device_count()`` is printed): 11a K8, row 5 on each rank's
+     slice with one all-reduce of loss, mean_return and grads, at B = 100,
+     T = 15 in 10 MM groups on 2 ranks, in 20 groups on 4 ranks and without
+     MM on 2 ranks, each held against one unsharded row-5 launch at B = 100
+     on the same inputs and against the plain version (in float64 with
+     groups, as phase 2g holds row 5), exactly one ``fused_rollout_vg`` and
+     one all-reduce on each rank, and its ms a call beside the unsharded
+     launch's; 11b phase 5g's ``mc_pilco`` call on 2 ranks (100 iterations:
+     exactly 100 ``fused_rollout_vg`` launches and 100 all-reduces on each
+     rank, the first 4 losses within rtol 1e-3 / atol 1e-6 of phase 5g's,
+     the params' bits the same on both ranks, ms an iteration beside 5g's);
+     11c phase 3's ungrouped-MM route on 2 ranks (5 iterations, fused-MLP
+     launches and all-reduces exact, losses against phase 3's); 11d the step
+     tier on each rank at twice phase 4g's batch (10 iterations, step
+     launches exact); 11e one ``deep_pilco_mm --n_devices 2 --dist_backend
+     gloo --mm_groups 10`` episode at phase 8's widths, the fit cut to 200
+     steps and the policy to 100 iterations (launches exact on each rank,
+     E_lml rising, one results folder, written by rank 0 alone). Ranks that
+     share a card measure no multi-card speed, and NCCL is not run.
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; rows 6-7 phase 4,
@@ -169,6 +192,7 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -180,6 +204,7 @@ import numpy as np
 import torch
 
 from prob_mbrl_tpu_torch import envs
+from prob_mbrl_tpu_torch import parallel as tpar
 from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
                                                      make_mc_pilco_fn,
                                                      mc_pilco,
@@ -237,6 +262,7 @@ GROUPED_CRITIC = 10  # phase 2c's grouped case: rows 3-5 with the critic
 GROUPS_MAIN = 10  # phase 5g: the main path with mm_groups
 GROUPED_ROUTE_ITERS = 5  # phase 5g: iterations on the utils.rollout route
 ITER_MS = {}  # ms an iteration of each mc_pilco run, by its tag
+LOSSES = {}  # the losses of each mc_pilco run, by its tag
 # phase 2b: rows 3-9 at these envs' shapes (rows 3-7 at B = MAIN_B, rows 8-9
 # at B = GRID_B), each row timed at D = 8 and with a learned reward: (env,
 # learned); the last two learn the reward (the kernels' reward kind 3):
@@ -2061,6 +2087,7 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
     log(f'[{tag}] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
         f'loss first {losses[0]:.6f} last {losses[-1]:.6f}')
     ITER_MS[tag] = ms_iter
+    LOSSES[tag] = np.asarray(losses)
     log(f'[{tag}] median {ms_iter:.3f} ms per iteration (host clock, '
         f'synchronised each iteration) = '
         f'{B * T / (ms_iter / 1e3):.1f} particle-steps/s on '
@@ -2796,6 +2823,327 @@ def phase_env_episodes():
             'iteration')
 
 
+# ---------------------------------------------------------------------------
+# phase 11: particle sharding over gloo ranks that share the card
+# ---------------------------------------------------------------------------
+
+SHARD_TIMEOUT = 300  # seconds a call to the ranks may take before it fails
+K8_CASES = ((2, GROUPS_MAIN, True), (4, 2 * GROUPS_MAIN, True),
+            (2, None, False))  # (ranks, mm_groups, moment matching)
+SHARD_ROUTE_ITERS = 5  # phase 11c: iterations of the sharded route
+SHARD_FIT_ITERS = 200  # phase 11e: the episode's fit steps
+SHARD_POL_ITERS = 100  # phase 11e: its policy iterations
+
+
+def on_host(tree):
+    """``tree``'s tensors detached and on the host, to go to the ranks."""
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def shard_counts():
+    return counts(), tpar.COLLECTIVES['all_reduce']
+
+
+def reset_shard_counts():
+    reset_counts()
+    tpar.reset_collective_counts()
+
+
+def k8_rank(mesh, inputs, w_t, mm_states, mm_rewards, groups):
+    """A rank of phase 11a: K8 on its slices of the global inputs (one call,
+    counted, then timed). Returns (loss, mean_return and the policy grads
+    on the host, launches, all-reduces, ms a call)."""
+    dyn, pol, _, _ = env_models('Cartpole')
+    pp, args = tree_map(lambda t: t.to(mesh.device), inputs)
+    x0, dp, st, dn, pn, zm, zr, eps = args
+    vg = fr.make_fused_sharded_value_and_grad(
+        dyn, pol, MAIN_T, w_t, mm_states, mm_rewards, True, mesh,
+        mm_groups=groups, mode='full', mm_rewards_mean_only=mm_rewards)
+    x0, dn, pn = tpar.shard_particles((x0, dn, pn), mesh)
+    zm, zr, eps = tpar.shard_particles((zm, zr, eps), mesh, axis=1)
+
+    def call():
+        return vg(pp, x0, dp, st, dn, pn, zm, zr, eps)
+
+    reset_shard_counts()
+    loss, mret, grads, _ = call()
+    torch.cuda.synchronize()
+    launches, all_reduces = shard_counts()
+    out = on_host([loss, mret, *tree_leaves(grads)])
+    return out, launches, all_reduces, time_launches(call)
+
+
+def k8_case(ranks, n, groups, mm, card):
+    """Phase 11a, one case: K8 on ``n`` ranks (``groups`` MM groups of B =
+    MAIN_B particles, or no MM) against one unsharded row-5 launch at B =
+    MAIN_B on the same inputs, here, and against the plain version (in
+    float64 with groups, as phase 2g holds row 5), each output within
+    STEP_TOL of its max or the plain version's sensitivity; exactly one
+    ``fused_rollout_vg`` launch and one all-reduce on each rank."""
+    _, kvg, plain, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
+        MAIN_B, 11, groups=groups)
+    mm_states = mm and args[5] is not None
+    if not mm:
+        args[5] = args[6] = None
+        make = (dyn, pol, MAIN_T, w_t, False, False, True)
+        kvg = fr.make_fused_value_and_grad(*make, mode='full')
+        plain = fr.make_loss_plain(*make)
+    ref = kvg(pp, *args)
+    kref = [ref[0], ref[1], *tree_leaves(ref[2])]
+    if groups:
+        plain = float64(plain)
+    vref = rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
+    vmoved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                             g=(1.0, 0.0))[:-1]
+    ms_ref = time_launches(lambda: kvg(pp, *args))
+    outs = ranks.run(k8_rank, on_host((pp, args)), w_t, mm_states, mm,
+                     groups, timeout=SHARD_TIMEOUT)
+    what = (f'K8 on {n} ranks, B={MAIN_B} T={MAIN_T} '
+            + (f'mm_groups={groups} (states'
+               f'{"" if mm_states else " not"} resampled)' if mm
+               else 'no MM'))
+    labels = (['loss', 'mean_return']
+              + [f'd pol leaf {i}' for i in range(len(leaves))])
+    worst = worst_k = 0.0
+    for rank, (out, launches, all_reduces, ms) in enumerate(outs):
+        if launches != expect(fused_rollout_vg=1) or all_reduces != 1:
+            raise AssertionError(f'{what}, rank {rank}: launches {launches}, '
+                                 f'{all_reduces} all-reduces; expected one '
+                                 'fused_rollout_vg and one all-reduce')
+        for lab, a, k, r, m in zip(labels, out, kref, vref, vmoved):
+            a = a.cuda()
+            err, rel, _ = hold(f'{what} rank {rank} {lab} vs the plain '
+                               'version', a, r, STEP_TOL, m)
+            # against the kernel at B = MAIN_B: STEP_TOL of its max or the
+            # plain version's own sensitivity
+            err_k, rel_k, _ = hold(f'{what} rank {rank} {lab} vs the '
+                                   'unsharded row 5', a, k, STEP_TOL,
+                                   k + (m - r))
+            worst, worst_k = max(worst, rel), max(worst_k, rel_k)
+        log(f'[phase 11a] {what}, rank {rank}: launches {launches}, '
+            f'{all_reduces} all-reduce; {ms:.4f} ms a K8 call (row 5 on '
+            f'{MAIN_B // n} particles and the all-reduce through the host, '
+            f'the ranks sharing one card), unsharded row 5 {ms_ref:.4f} ms '
+            f'here; {card}')
+    log(f'[phase 11a] {what}: loss {float(kref[0]):.6e}; worst output '
+        f'error relative to its max, against the unsharded row 5 '
+        f'{worst_k:.3e}, against the plain version'
+        f'{" in float64" if groups else ""} {worst:.3e} (tolerance '
+        f'{STEP_TOL:.0e} or the plain version\'s sensitivity) ok')
+
+
+def mc_pilco_rank(mesh, iters, groups, fused_rollout, B):
+    """A rank of phases 11b-11d: phase 5's ``mc_pilco`` call with ``mesh``
+    (``iters`` iterations, B particles in ``groups`` MM groups; unsharded on
+    the current card with ``mesh`` None), every count set to 0 just before
+    it. Returns a dict: tier, losses, mean returns, launches, all-reduces,
+    ms an iteration and whether the params' bits agree over the ranks."""
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = \
+        main_path_setup(SEED)
+    cfg = MCPILCOConfig(n_particles=B, steps=MAIN_T, mm_states=True,
+                        mm_rewards=True, mm_groups=groups,
+                        fused_rollout=fused_rollout)
+    device = x0_pool.device
+    tier = make_mc_pilco_fn(dyn, pol, cfg, device, mesh=mesh).tier(device)
+    stamps = []
+    reset_shard_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pol_params, _, metrics, _ = mc_pilco(
+        x0_pool, dyn, pol, MAIN_T, dyn_params, dyn_stats, pol_params,
+        opt_iters=iters, mm_states=True, mm_rewards=True, mm_groups=groups,
+        init_state_noise=init_noise, n_particles=B, seed=SEED, chunk=1,
+        on_iteration=lambda done, m: stamps.append(time.perf_counter()),
+        fused_rollout=fused_rollout, mesh=mesh)
+    torch.cuda.synchronize()
+    launches, all_reduces = shard_counts()
+    return dict(tier=tier, losses=metrics['loss'],
+                rets=metrics['mean_return'], launches=launches,
+                all_reduces=all_reduces,
+                ms=float(np.median(np.diff([t0] + stamps)) * 1e3),
+                same=mesh is None or tpar.same_on_every_rank(pol_params,
+                                                             mesh))
+
+
+def sharded_run(ranks, tag, what, iters, groups, fused_rollout, B, tier,
+                want, all_reduces, against=None):
+    """Phases 11b-11d: ``mc_pilco_rank`` on each rank; the tier, exact
+    launches and all-reduces on each rank, finite losses, the same losses
+    and param bits on every rank, and with ``against`` = (the tag of an
+    unsharded run of this call, k) the first k losses within JAX's rule for
+    a sharded run (rtol 1e-3, atol 1e-6, ``tests/test_fused_rollout.py
+    :697-701``; later ones drift apart as Adam turns rounding-level
+    gradient entries into steps of up to lr). Returns the ms an iteration
+    of each rank."""
+    outs = ranks.run(mc_pilco_rank, iters, groups, fused_rollout, B,
+                     timeout=SHARD_TIMEOUT)
+    for rank, o in enumerate(outs):
+        if o['tier'] != tier:
+            raise AssertionError(f'[{tag}] rank {rank} takes {o["tier"]!r}, '
+                                 f'expected {tier!r}')
+        if o['launches'] != want or o['all_reduces'] != all_reduces:
+            raise AssertionError(f'[{tag}] rank {rank}: launches '
+                                 f'{o["launches"]}, {o["all_reduces"]} '
+                                 f'all-reduces; expected {want}, '
+                                 f'{all_reduces}')
+        if not (np.all(np.isfinite(o['losses'])) and o['same']):
+            raise AssertionError(f'[{tag}] rank {rank}: non-finite losses '
+                                 'or params that differ over the ranks')
+        if not np.array_equal(o['losses'], outs[0]['losses']):
+            raise AssertionError(f'[{tag}] the ranks\' losses differ')
+    losses = outs[0]['losses']
+    log(f'[{tag}] {what} on {len(outs)} ranks sharing one card, B={B} '
+        f'T={MAIN_T}: tier {tier!r}; launches on each rank '
+        f'{outs[0]["launches"]}, {all_reduces} all-reduces (expected); loss '
+        f'first {losses[0]:.6e} last {losses[-1]:.6e}; the params\' bits the '
+        'same on every rank')
+    if against is not None:
+        against, k = against
+        got, ref = losses[:k], LOSSES[against][:k]
+        err = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        log(f'[{tag}] the first {k} losses against the unsharded run '
+            f'({against}): {got.tolist()} vs {ref.tolist()}, max relative '
+            f'err {err:.3e} (rtol 1e-3, atol 1e-6)')
+        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-6)
+    return [o['ms'] for o in outs]
+
+
+def driver_rank(mesh, argv, folder):
+    """A rank of phase 11e: the ``deep_pilco_mm`` driver's ``main`` on this
+    rank of ``mesh``, every count set to 0 just before it. Returns
+    (launches, all-reduces, real returns, results folder, the per-episode
+    records: rank 0's only)."""
+    records = []
+    reset_shard_counts()
+    returns, results = dpc.main(**dpm.SETTINGS, argv=argv + ['-o', folder],
+                                device=mesh.device, mesh=mesh,
+                                on_episode=records.append)
+    torch.cuda.synchronize()
+    return (*shard_counts(), returns, results, records)
+
+
+def shard_episode(ranks, card):
+    """Phase 11e: one ``deep_pilco_mm --n_devices 2 --dist_backend gloo
+    --mm_groups 10`` episode at phase 8's widths, the fit cut to
+    SHARD_FIT_ITERS steps and the policy to SHARD_POL_ITERS iterations:
+    exact launches on each rank (the fused MLP forward once a fit step, and
+    on rank 0 once a control step: rank 0 alone acts; ``fused_rollout_vg``
+    once a policy iteration; one all-reduce a fit step and a policy
+    iteration), E_lml rising, rank 0 alone writing (one results folder), the
+    driver's own check of the ranks' params passed."""
+    tag = 'phase 11e'
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    folder = tempfile.mkdtemp(prefix='chip_smoke_shard_', dir=root)
+    try:
+        argv = EPISODE_ARGV + [
+            '--ps_iters', '1', '--dyn_opt_iters', str(SHARD_FIT_ITERS),
+            '--pol_opt_iters', str(SHARD_POL_ITERS), '--mm_groups',
+            str(GROUPS_MAIN), '--n_devices', str(ranks.n), '--dist_backend',
+            'gloo']
+        t0 = time.perf_counter()
+        outs = ranks.run(driver_rank, argv, folder, timeout=SHARD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        written = sorted(str(Path(d).relative_to(folder))
+                         for d, _, fs in os.walk(folder)
+                         if 'latest_policy.pkl' in fs)
+        results = outs[0][3]
+        if written != [str(Path(results).relative_to(folder))]:
+            raise AssertionError(f'[{tag}] results written to {written}')
+        (r,) = outs[0][4]
+        exp = ExperienceDataset()
+        exp.load(str(Path(results) / 'experience.pkl'))
+        steps = sum(len(ep) for ep in exp.states)
+        for rank, (launches, all_reduces, returns, res, records) in \
+                enumerate(outs):
+            want = expect(fused_mlp_fwd=SHARD_FIT_ITERS
+                          + (steps if rank == 0 else 0),
+                          fused_mlp_bwd=SHARD_FIT_ITERS,
+                          fused_rollout_vg=SHARD_POL_ITERS)
+            reduces = SHARD_FIT_ITERS + SHARD_POL_ITERS
+            if launches != want or all_reduces != reduces:
+                raise AssertionError(f'[{tag}] rank {rank}: launches '
+                                     f'{launches}, {all_reduces} all-reduces;'
+                                     f' expected {want}, {reduces}')
+            if res != results or returns != outs[0][2] or (
+                    rank and records):
+                raise AssertionError(f'[{tag}] rank {rank} returned another '
+                                     'run\'s results, or its own records')
+        dm, pm = r['dyn_metrics'], r['pol_metrics']
+        first, last = dm['E_lml'][:50].mean(), dm['E_lml'][-50:].mean()
+        if not (last > first and all(np.all(np.isfinite(v)) for v in (
+                dm['loss'], pm['loss'], pm['mean_return']))):
+            raise AssertionError(f'[{tag}] E_lml did not rise or a value is '
+                                 'not finite')
+        log(f'[{tag}] deep_pilco_mm {" ".join(argv[-8:])} on {ranks.n} gloo '
+            f'ranks sharing one card: one episode in {wall:.3f} s; E_lml '
+            f'{r["E_lml"]:.6f} (fit: first-50 mean {first:.6f}, last-50 '
+            f'{last:.6f}); imagined return {r["imagined_return"]:.6f}, real '
+            f'{r["real_return"]:.6f}; fit {1e3 * r["fit_s"] / SHARD_FIT_ITERS:.4f}'
+            f' ms a step, policy {1e3 * r["pol_s"] / SHARD_POL_ITERS:.4f} ms '
+            f'an iteration; launches rank 0 {outs[0][0]}, rank 1 '
+            f'{outs[1][0]} (expected; {steps} control steps on rank 0 '
+            'alone); one results folder, written by rank 0; the ranks\' '
+            f'params the same bits (the driver checks); {card}')
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def phase_sharded(card, capacity):
+    """Phase 11: particle sharding over gloo ranks that share the one card
+    (NCCL refuses two ranks on one device), spawned once for the phase.
+    11a K8 (``k8_case``) in each of K8_CASES; 11b phase 5g's ``mc_pilco``
+    call on 2 ranks (ITERS iterations on K8: exactly one ``fused_rollout_vg``
+    and one all-reduce an iteration on each rank; the first 4 losses
+    against phase 5g's; ms an iteration beside 5g's); 11c phase 3's
+    ungrouped route on 2 ranks (SHARD_ROUTE_ITERS iterations: the fused MLP
+    2 T times each way an iteration, 4 T + 4 all-reduces an iteration: the
+    moments' two sums a step forward and backward but for the last step's,
+    whose states no loss reads, the reward mean and the loss each way,
+    mean_return and the grads; losses against phase 3's); 11d the step
+    tier per rank at twice phase 4g's batch (T launches of each step kernel
+    and one all-reduce an iteration); 11e the driver (``shard_episode``).
+    What this cannot show: ranks that share a card measure no multi-card
+    speed, and NCCL is not run."""
+    T = MAIN_T
+    log(f'[phase 11] torch.cuda.device_count() = '
+        f'{torch.cuda.device_count()}: gloo ranks share card 0')
+    with tpar.Ranks(4, 'gloo', 'cuda', timeout=SHARD_TIMEOUT) as ranks4, \
+            tpar.Ranks(2, 'gloo', 'cuda', timeout=SHARD_TIMEOUT) as ranks2:
+        for n, groups, mm in K8_CASES:
+            k8_case(ranks2 if n == 2 else ranks4, n, groups, mm, card)
+        ms = sharded_run(ranks2, 'phase 11b', f'mc_pilco mm_groups='
+                         f'{GROUPS_MAIN}', ITERS, GROUPS_MAIN, None, MAIN_B,
+                         'full', expect(fused_rollout_vg=ITERS), ITERS,
+                         against=('phase 5g', 4))
+        log(f'[phase 11b] {ms[0]:.3f} / {ms[1]:.3f} ms an iteration on ranks '
+            f'0 / 1 (each on {MAIN_B // 2} particles; the ranks share one '
+            f'card and all-reduce through the host), unsharded '
+            f'{ITER_MS["phase 5g"]:.3f} (phase 5g, this call); {card}')
+        it = SHARD_ROUTE_ITERS
+        ms = sharded_run(ranks2, 'phase 11c', 'mc_pilco fused_rollout=False '
+                         '(ungrouped MM, all-reduced moments)', it, None,
+                         False, MAIN_B, None, expect(
+                             fused_mlp_fwd=2 * T * it,
+                             fused_mlp_bwd=2 * T * it), (4 * T + 4) * it,
+                         against=('phase 3', it))
+        log(f'[phase 11c] {ms[0]:.3f} / {ms[1]:.3f} ms an iteration on ranks '
+            f'0 / 1, unsharded {ITER_MS["phase 3"]:.3f} (phase 3); {card}')
+        big = 2 * (capacity // 10 + 1) * 10
+        ms = sharded_run(ranks2, 'phase 11d', f'mc_pilco mm_groups='
+                         f'{big // 10}', STEP_ROUTE_ITERS, big // 10, None,
+                         big, 'step', expect(
+                             fused_step_fwd=T * STEP_ROUTE_ITERS,
+                             fused_step_bwd=T * STEP_ROUTE_ITERS),
+                         STEP_ROUTE_ITERS)
+        log(f'[phase 11d] B={big} in {big // 10} groups on 2 ranks ('
+            f'{big // 2} particles each, beyond the {capacity} the card holds '
+            f'of the whole-rollout kernel): {ms[0]:.3f} / {ms[1]:.3f} ms an '
+            f'iteration, unsharded B={big // 2} {ITER_MS["phase 4g"]:.3f} '
+            f'(phase 4g); {card}')
+        shard_episode(ranks2, card)
+
+
 def start(name):
     """Phases 0 and 1: the card's name and power limit, TF32 off, the
     kernels built. Returns the ``nvidia-smi`` line, or None without CUDA."""
@@ -2873,7 +3221,9 @@ def main():
     phase_env_episodes()
     t = lap('phase 9', t)
     phase_value_episode()
-    lap('phase 10', t)
+    t = lap('phase 10', t)
+    phase_sharded(card, capacity)
+    lap('phase 11', t)
     runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': fixed_critic}

@@ -51,10 +51,25 @@ whose kernel adds a bootstrap only after its own refit.
 progress line) and ``MCPILCOAgent`` bundles specs, params, dataset and
 optimizers.
 
+Particle sharding (``mesh``, a ``parallel.sharding.Mesh``; JAX
+``mc_pilco.py:224-236``, ``parallel/rollout.py``): each rank draws the
+epoch's noise and the iteration's initial states for the global batch from
+the same seeded generators, prepares the MM noise on the global batch and
+keeps its own slice, so a run's result does not depend on the number of
+ranks beyond the order of the sums. Where the gate names ``'full'`` or
+``'step'`` for one rank's slice (MM groups that split over the ranks, or no
+MM) each rank launches that tier on its slice and one all-reduce an
+iteration averages loss, mean_return and grads (K8,
+``fused_rollout.make_fused_sharded_value_and_grad``); otherwise the
+``utils.rollout`` route with all-reduced moments and loss, whose grads are
+averaged over the ranks in one more all-reduce. Clip and the optimizer step
+run on every rank on the same grads, so the ranks' params stay the same
+bits.
+
 Not ported yet (raise NotImplementedError, naming their ``ROADMAP.md``
 item): non-PEGASUS per-step noise, ``mm_method='mix'``,
-``infer_noise_variables``, initial-state prioritized replay and particle
-sharding (``mesh``).
+``infer_noise_variables``, initial-state prioritized replay, and a critic
+(a value update or a fixed critic) or CVaR under particle sharding.
 """
 import dataclasses
 import functools
@@ -67,6 +82,8 @@ import torch
 
 from ..ops.cuda import fused_rollout as fr
 from ..ops.math import clip_grad_norm
+from ..parallel.mm import psum, sharded_grad
+from ..parallel.sharding import shard_particles
 from ..utils.core import resolve_device, tile, tree_leaves, tree_map
 from ..utils.rollout import rollout as rollout_fn
 
@@ -157,11 +174,24 @@ class MCPILCO:
     holds the whole-rollout kernel's clusters for the batch at once
     (``mc_pilco`` passes the pool's device). ``value_spec`` /
     ``value_update``: the critic's ``Regressor`` and its update, for the
-    value bootstrap; ``value_spec`` alone is a fixed critic."""
+    value bootstrap; ``value_spec`` alone is a fixed critic. ``mesh``: a
+    ``parallel.sharding.Mesh`` over whose ranks the particles split (see
+    the module's docstring)."""
 
     def __init__(self, dyn, pol, config, device, value_spec=None,
-                 value_update=None):
+                 value_update=None, mesh=None):
         cfg = config
+        if mesh is not None:
+            if value_spec is not None or value_update is not None:
+                raise NotImplementedError(
+                    'a critic under particle sharding is not ported yet '
+                    f'({fr.CRITIC_MESH_ITEM})')
+            if -1.0 < cfg.cvar_eps < 1.0 and cfg.cvar_eps != 0.0:
+                raise NotImplementedError(
+                    'CVaR under particle sharding is not ported yet '
+                    '(ROADMAP.md Queue 1: Parallel: the rest of the sharded '
+                    'options)')
+            mesh.bounds(cfg.n_particles)  # raises unless the ranks split B
         if not cfg.pegasus:
             raise NotImplementedError('non-PEGASUS noise is not ported yet '
                                       '(ROADMAP.md Queue 1: Other '
@@ -177,7 +207,7 @@ class MCPILCO:
         if cfg.val_mask_mode not in ('epoch', 'iter'):
             raise ValueError("val_mask_mode must be 'epoch' or 'iter', not "
                              f'{cfg.val_mask_mode!r}')
-        self.dyn, self.pol, self.cfg = dyn, pol, cfg
+        self.dyn, self.pol, self.cfg, self.mesh = dyn, pol, cfg, mesh
         self.value_spec, self.value_update = value_spec, value_update
         self.B = cfg.n_particles
         self.G = cfg.mm_groups if cfg.mm_groups else self.B
@@ -190,24 +220,31 @@ class MCPILCO:
         cvar_active = (-1.0 < cfg.cvar_eps < 1.0) and cfg.cvar_eps != 0.0
         self.mr_mean_only = (cfg.mm_rewards and not cvar_active
                              and value_update is None)
-        why = fr.refuses(cfg, dyn, pol, value_update, value_spec=value_spec)
+        why = fr.refuses(cfg, dyn, pol, value_update, mesh, value_spec)
         if cfg.fused_rollout and why is not None:
             raise ValueError('fused_rollout=True but no fused tier takes '
                              f'this configuration: {why}')
         self.mode = None
         if cfg.fused_rollout is not False and why is None:
-            self.mode = fr.fused_mode(cfg, dyn, pol, value_update,
+            self.mode = fr.fused_mode(cfg, dyn, pol, value_update, mesh,
                                       value_spec=value_spec, device=device)
         self.fused_loss = self.fused_vg = None
         if self.mode is not None:
             args = (dyn, pol, cfg.steps, self.w_t, cfg.mm_states,
                     cfg.mm_rewards, cfg.maximize)
             kw = dict(mode=self.mode, mm_rewards_mean_only=self.mr_mean_only,
-                      mm_groups=cfg.mm_groups,
+                      mm_groups=cfg.mm_groups if mesh is None
+                      else mesh.local_groups(cfg.mm_groups),
                       value_update=value_update, w_H=self.w_H,
                       value_spec=value_spec)
             self.fused_loss = fr.make_fused_loss(*args, **kw)
-            if self.mode == 'full':
+            # an iteration on 'full' or 'step' is one value-and-grad call;
+            # under a mesh it is K8's, with one all-reduce after it
+            if mesh is not None:
+                self.fused_vg = fr.make_fused_sharded_value_and_grad(
+                    *args, mesh, mm_groups=cfg.mm_groups, mode=self.mode,
+                    mm_rewards_mean_only=self.mr_mean_only)
+            elif self.mode in ('full', 'step'):
                 self.fused_vg = fr.make_fused_value_and_grad(*args, **kw)
 
     def tier(self, device):
@@ -235,16 +272,29 @@ class MCPILCO:
         """An epoch's noise in the form the route on ``device`` takes: as
         drawn, or for a fused tier with the MM noise standardized and
         cyclically pre-rolled to [T, B, zD] once, per MM group with
-        ``mm_groups`` (None without that resample)."""
-        if self.tier(device) is None:
+        ``mm_groups`` (None without that resample). Under a mesh the noise
+        dicts become the rank's slices, and so do the prepared stacks (on
+        axis 1, after their preparation on the global batch), while the
+        ``utils.rollout`` route keeps the global MM banks, whose roll wraps
+        modulo the global batch."""
+        mesh = self.mesh
+        if mesh is None and self.tier(device) is None:
             return noise
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
+        if mesh is not None:
+            dyn_noise = shard_particles(dyn_noise, mesh)
+            pol_noise = shard_particles(pol_noise, mesh)
+            if self.tier(device) is None:
+                return (dyn_noise, pol_noise, z_mm, z_rr) + tuple(noise[4:])
+
+        def prepare(z):
+            z = fr.prepare_mm_noise(z, cfg.steps, self.B, cfg.mm_groups)
+            return z if mesh is None else shard_particles(z, mesh, axis=1)
+
         return (dyn_noise, pol_noise,
-                fr.prepare_mm_noise(z_mm, cfg.steps, self.B, cfg.mm_groups)
-                if cfg.mm_states else None,
-                fr.prepare_mm_noise(z_rr, cfg.steps, self.B, cfg.mm_groups)
-                if cfg.mm_rewards else None) + tuple(noise[4:])
+                prepare(z_mm) if cfg.mm_states else None,
+                prepare(z_rr) if cfg.mm_rewards else None) + tuple(noise[4:])
 
     def _extras(self, noise, value_carry, value_stats, value_params):
         if self.value_update is not None:
@@ -262,7 +312,10 @@ class MCPILCO:
         critic's stats, (loss, mean_return, (v_params', v_target',
         v_opt_state', v_loss)) after the critic refit (``value_key``: the
         generator of its masks with ``val_mask_mode='iter'``). With a fixed
-        critic the bootstrap is under ``value_params``."""
+        critic the bootstrap is under ``value_params``. Under a mesh the
+        ``utils.rollout`` route's loss is the global batch's on every rank,
+        a fused tier's that of the rank's slice (``iteration`` takes the
+        ranks' mean in K8's all-reduce)."""
         if self.tier(x0.device) is None:
             return self.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise,
                                 value_carry=value_carry,
@@ -279,7 +332,10 @@ class MCPILCO:
                 action_eps=None, value_carry=None, value_stats=None,
                 value_params=None, value_key=None):
         """``loss``'s result through ``utils.rollout`` for explicit initial
-        states and noise as drawn (JAX ``mc_pilco.py:380-440``)."""
+        states and noise as drawn (JAX ``mc_pilco.py:380-440``); under a
+        mesh the rank's slices of x0 and the noise dicts with the global MM
+        banks, and the global loss and mean_return on every rank
+        (``psum``)."""
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
         states, _, rewards = rollout_fn(
@@ -287,7 +343,7 @@ class MCPILCO:
             pol_params, dyn_noise, pol_noise, mm_states=cfg.mm_states,
             mm_rewards=cfg.mm_rewards, z_mm=z_mm, z_rr=z_rr,
             mm_groups=cfg.mm_groups, action_eps=action_eps,
-            mm_rewards_mean_only=self.mr_mean_only)
+            mm_rewards_mean_only=self.mr_mean_only, mesh=self.mesh)
         w_t = torch.as_tensor(self.w_t, device=rewards.device)
         returns = torch.sum(rewards[..., 0] * w_t[:, None], 0)
         aux = ()
@@ -312,12 +368,19 @@ class MCPILCO:
         if cfg.maximize:
             returns = -returns
         selected, _ = cvar_filter(returns, cfg.cvar_eps)
-        loss = selected.mean()
+        loss = self._particle_mean(selected)
         if cfg.reg_weight > 0:
             loss = loss + cfg.reg_weight * self.pol.regularization_loss(
                 pol_params)
-        mean_return = torch.sum(rewards[..., 0], 0).mean()
+        mean_return = self._particle_mean(torch.sum(rewards[..., 0], 0))
         return (loss, mean_return) + ((aux,) if aux else ())
+
+    def _particle_mean(self, x):
+        """The mean of the per-particle ``x``; under a mesh, over every
+        rank's particles (no CVaR there, so each rank holds B / n)."""
+        if self.mesh is None:
+            return x.mean()
+        return psum(x.sum(), self.mesh) / self.B
 
     def sample_x0(self, x0_pool, generator, init_noise=None):
         """Initial particles drawn from the pool (tiled per MM group), plus
@@ -333,6 +396,8 @@ class MCPILCO:
         if init_noise is not None:
             x0 = x0 + init_noise * torch.randn(
                 x0.shape, generator=generator, device=x0.device)
+        if self.mesh is not None:  # drawn for the global batch: the slice
+            x0 = shard_particles(x0, self.mesh)
         return x0
 
     def iteration(self, pol_params, optimizer, dyn_params, dyn_stats,
@@ -345,7 +410,7 @@ class MCPILCO:
         ``value_params``, ``value_key``: as in ``loss``."""
         x0 = self.sample_x0(x0_pool, generator, init_noise)
         params = tree_leaves(pol_params)
-        if self.tier(x0.device) == 'full':
+        if self.fused_vg is not None and self.tier(x0.device) is not None:
             loss, mean_return, grads, aux = self.fused_vg(
                 pol_params, x0, dyn_params, dyn_stats, *noise[:4],
                 extras=self._extras(noise, value_carry, value_stats,
@@ -357,7 +422,8 @@ class MCPILCO:
                 value_carry=value_carry, value_stats=value_stats,
                 value_params=value_params, value_key=value_key)
             aux = aux[0] if aux else ()
-            grads = torch.autograd.grad(loss, params)
+            grads = (torch.autograd.grad(loss, params) if self.mesh is None
+                     else sharded_grad(loss, params, self.mesh))
         if self.cfg.clip_grad is not None:
             grads = clip_grad_norm(list(grads), self.cfg.clip_grad)
         for p, g in zip(params, grads):
@@ -413,10 +479,11 @@ class MCPILCO:
 
 
 def make_mc_pilco_fn(dyn, pol, config, device, value_spec=None,
-                     value_update=None):
+                     value_update=None, mesh=None):
     """The policy optimizer (``MCPILCO``) for these specs and config, for
-    iterations on ``device`` (see ``MCPILCO``)."""
-    return MCPILCO(dyn, pol, config, device, value_spec, value_update)
+    iterations on ``device`` (see ``MCPILCO``), its particles split over
+    the ranks of ``mesh`` when given."""
+    return MCPILCO(dyn, pol, config, device, value_spec, value_update, mesh)
 
 
 def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
@@ -454,13 +521,13 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     critic ``value_spec`` refits every iteration and ``value_state`` is
     updated in place; ``metrics`` then also holds ``v_loss``. Without them,
     ``value_spec`` with ``value_params`` is a fixed critic whose bootstrap
-    every iteration adds.
+    every iteration adds. ``mesh``: a ``parallel.sharding.Mesh`` over whose
+    ranks the particles split; every rank calls ``mc_pilco`` with the same
+    arguments and ends with the same params and metrics (no critic under a
+    mesh yet: ``MCPILCO``).
 
     Returns (pol_params, opt_state, metrics (numpy), n_opt_steps).
     """
-    if mesh is not None:
-        raise NotImplementedError('particle sharding (mesh) is not ported '
-                                  'yet (ROADMAP.md Queue 1: Parallel)')
     params = tree_leaves(pol_params)
     for p in params:
         p.requires_grad_(True)
@@ -482,7 +549,7 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         fused_rollout=fused_rollout)
     use_value = value_update_fn is not None and value_state is not None
     opt_fn = make_mc_pilco_fn(dyn, pol, cfg, x0_pool.device, value_spec,
-                              value_update_fn if use_value else None)
+                              value_update_fn if use_value else None, mesh)
     init_noise = None
     if np.any(np.asarray(init_state_noise) > 0):
         init_noise = torch.as_tensor(np.asarray(init_state_noise, np.float32),

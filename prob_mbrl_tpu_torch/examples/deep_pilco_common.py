@@ -14,6 +14,15 @@ from ``np.random.RandomState``s, as in JAX. The dynamics fit keeps one Adam
 state and the policy one ``torch.optim.Adam`` across episodes.
 
 Runs on ``cuda`` unless ``run`` / ``main`` are given ``device='cpu'``.
+
+``--n_devices N > 1`` runs the loop on N ranks (``parallel.launch`` with
+``--dist_backend``; JAX ``deep_pilco_common.py:148-165``): the imagined
+particles and the fit's minibatches split over them, the params and the
+experience are replicated. Rank 0 alone acts in the real env and broadcasts
+the episode to the others, and rank 0 alone prints, writes the checkpoints
+and the writer's logs. After each episode's policy optimization the ranks'
+dynamics and policy params must hold the same bits; the driver raises if
+they do not.
 """
 import atexit
 import functools
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import models
+from .. import parallel
 from ..algorithms.mc_pilco import derive_seed, mc_pilco, seeded_generator
 from ..algorithms.value import Adam, make_value_update_fn
 from ..utils.apply_controller import apply_controller
@@ -132,9 +142,14 @@ def build_critic(D, args, discount):
         use_density=args.val_density, polyak=args.val_polyak)
 
 
+def _run_rank(mesh, args, kwargs):
+    """One rank of ``run`` under ``--n_devices``."""
+    return run(args, device=mesh.device, mesh=mesh, **kwargs)
+
+
 def run(args, mm_states=False, mm_rewards=False, use_value=False,
         init_state_noise_mult=1e-1, experiment_name='deep_pilco',
-        device=None, on_episode=None):
+        device=None, on_episode=None, mesh=None):
     """The Deep-PILCO loop for ``args.ps_iters`` episodes.
 
     ``on_episode(record)``, when given, is called after each episode's
@@ -142,11 +157,43 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     fit's last-50 mean), ``imagined_return``, ``dyn_metrics`` and
     ``pol_metrics`` (numpy traces), and the host-clock seconds of the fit
     (``fit_s``) and of the policy optimization (``pol_s``), each ending in
-    its metrics' copy to the host.
+    its metrics' copy to the host; under ``--n_devices`` on rank 0 only.
 
-    Returns (real returns per episode, results folder).
+    With ``--n_devices N > 1`` and no ``mesh`` the loop runs on N ranks
+    spawned here (``on_episode`` must then be picklable); ``mesh`` (a
+    ``parallel.sharding.Mesh`` of N ranks) runs this rank of it.
+
+    Returns (real returns per episode, results folder), rank 0's.
     """
-    refuse_unported(args)
+    refuse_unported(args, use_value)
+    n_dev = args.n_devices or 1
+    if n_dev > 1:
+        for flag in ('pol_batch_size', 'dyn_batch_size'):
+            if getattr(args, flag) % n_dev:
+                raise SystemExit(f'--{flag} {getattr(args, flag)} must '
+                                 f'divide by --n_devices {n_dev}')
+        if mesh is None:
+            kwargs = dict(mm_states=mm_states, mm_rewards=mm_rewards,
+                          use_value=use_value,
+                          init_state_noise_mult=init_state_noise_mult,
+                          experiment_name=experiment_name,
+                          on_episode=on_episode)
+            return parallel.launch(_run_rank, n_dev, args.dist_backend,
+                                   resolve_device(device), args, kwargs,
+                                   timeout=None)[0]
+    if (mesh.size if mesh is not None else 1) != n_dev:
+        raise ValueError(f'a mesh of {mesh.size if mesh else 1} ranks for '
+                         f'--n_devices {args.n_devices}')
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
+    def from_lead(obj):
+        return obj if mesh is None else parallel.sharding.broadcast_object(
+            obj, mesh)
+
     device = resolve_device(device)
     env = init_env(args.env, args.seed, device)
     D = env.observation_size
@@ -177,17 +224,22 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
                            opt_state=value_update.optimizer.init(
                                value_params))
 
-    results_folder = init_output_folder(env, args.output_folder,
-                                        experiment_name)
-    print(f'[{experiment_name}] results -> {results_folder}', flush=True)
+    results_folder = from_lead(init_output_folder(
+        env, args.output_folder, experiment_name) if lead else None)
+    say(f'[{experiment_name}] results -> {results_folder}')
+    if mesh is not None:
+        say(f'[{experiment_name}] sharding {args.pol_batch_size} particles '
+            f'and {args.dyn_batch_size} fit rows over {mesh.size} ranks '
+            f'({mesh.backend}, {mesh.device.type})')
     writer = None
     try:
         from tensorboardX import SummaryWriter
     except ImportError:
         pass
     else:
-        writer = SummaryWriter(logdir=os.path.join(results_folder, 'tb'))
-        atexit.register(writer.close)
+        if lead:
+            writer = SummaryWriter(logdir=os.path.join(results_folder, 'tb'))
+            atexit.register(writer.close)
 
     exp = ExperienceDataset()
     if args.load_from:
@@ -214,8 +266,8 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
             def render_cb(*_):
                 env.render()
         else:
-            print(f'[{experiment_name}] --render: no renderer for '
-                  f'{type(env).__name__}; flag ignored', flush=True)
+            say(f'[{experiment_name}] --render: no renderer for '
+                f'{type(env).__name__}; flag ignored')
 
     # initial random episodes (the default n_initial_epi=0 collects none and
     # relies on the episode gathered with the untrained stochastic policy)
@@ -223,8 +275,9 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     for _ in range(max(0, args.n_initial_epi - exp.n_episodes())):
         def rnd_pol(x, t=0):
             return rnd.uniform(minU, maxU)
-        ret = apply_controller(env, rnd_pol, args.control_H,
-                               stop_when_done=args.stop_when_done)
+        ret = from_lead(apply_controller(env, rnd_pol, args.control_H,
+                                         stop_when_done=args.stop_when_done)
+                        if lead else None)
         exp.append_episode(*ret)
 
     timestep_to_sample = args.timesteps_to_sample
@@ -236,9 +289,11 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     best = {'return': -np.inf, 'params': None, 'episode': -1}
     for ps_it in range(args.ps_iters):
         # ---- collect real experience with the current stochastic policy
-        ret = apply_controller(env, host_policy(pol_params), args.control_H,
-                               stop_when_done=args.stop_when_done,
-                               callback=render_cb)
+        # (rank 0 acts, the others take its episode)
+        ret = from_lead(apply_controller(
+            env, host_policy(pol_params), args.control_H,
+            stop_when_done=args.stop_when_done, callback=render_cb)
+            if lead else None)
         exp.append_episode(*ret, policy_params=_numpy(pol_params))
         ep_return = float(np.sum([np.sum(r) for r in ret[2]]))
         eval_returns.append(ep_return)
@@ -261,7 +316,7 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
             dyn.regressor, dyn_params, dyn_stats, X, Y,
             seeded_generator(device, args.seed, _FIT, ps_it),
             iters=args.dyn_opt_iters, batchsize=args.dyn_batch_size,
-            optimizer=dyn_opt, opt_state=dyn_opt_state)
+            optimizer=dyn_opt, opt_state=dyn_opt_state, mesh=mesh)
         fit_s = time.perf_counter() - t0
         E_lml = float(np.asarray(dyn_metrics['E_lml'])[-50:].mean())
         if writer:
@@ -295,15 +350,22 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
             fused_rollout={'auto': None, 'on': True,
                            'off': False}[args.fused_rollout],
             writer=writer, writer_scope=f'mc_pilco/episode_{ps_it}',
-            verbose=args.debug)
+            verbose=args.debug and lead, mesh=mesh)
         pol_s = time.perf_counter() - t0
+        if mesh is not None and not parallel.same_on_every_rank(
+                (dyn_params, pol_params), mesh):
+            raise RuntimeError(f'episode {ps_it}: the ranks\' params differ '
+                               '(they take the same steps on the same '
+                               'all-reduced grads and must hold the same '
+                               'bits)')
         mean_ret = float(np.asarray(pol_metrics['mean_return'])[-20:].mean())
 
-        print(f'[{experiment_name}] episode {ps_it}: E_lml={E_lml:.3f} '
-              f'imagined_return={mean_ret:.3f} real_return={ep_return:.3f}',
-              flush=True)
+        say(f'[{experiment_name}] episode {ps_it}: E_lml={E_lml:.3f} '
+            f'imagined_return={mean_ret:.3f} real_return={ep_return:.3f}')
         if writer:
             writer.add_scalar('mc_pilco/mean_return', mean_ret, ps_it)
+        if not lead:
+            continue
 
         if args.debug:
             np.savez(os.path.join(results_folder,
@@ -324,16 +386,19 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
                             dyn_metrics=dyn_metrics, pol_metrics=pol_metrics,
                             fit_s=fit_s, pol_s=pol_s))
 
-    print(f'[{experiment_name}] best real return {best["return"]:.3f} '
-          f'at episode {best["episode"]}', flush=True)
+    say(f'[{experiment_name}] best real return {best["return"]:.3f} '
+        f'at episode {best["episode"]}')
+    if writer is not None and mesh is not None:
+        writer.close()  # a rank's process ends without running atexit
     return eval_returns, results_folder
 
 
 def main(mm_states, mm_rewards, use_value=False, name='deep_pilco',
          init_state_noise_mult=1e-1, arg_overrides=None, argv=None,
-         device=None, on_episode=None):
+         device=None, on_episode=None, mesh=None):
     """Parse the flags (``argv``, default the command line), apply the
-    entry point's overrides of flags left at their default, and ``run``."""
+    entry point's overrides of flags left at their default, and ``run``
+    (``mesh``: as there)."""
     parser = get_argument_parser(name)
     args = parser.parse_args(argv)
     for k, v in (arg_overrides or {}).items():
@@ -342,4 +407,5 @@ def main(mm_states, mm_rewards, use_value=False, name='deep_pilco',
     return run(args, mm_states=mm_states, mm_rewards=mm_rewards,
                use_value=use_value,
                init_state_noise_mult=init_state_noise_mult,
-               experiment_name=name, device=device, on_episode=on_episode)
+               experiment_name=name, device=device, on_episode=on_episode,
+               mesh=mesh)

@@ -76,6 +76,7 @@ from ...envs.base import ExpQuadTipReward, QuadTipReward
 from ...envs.jax_lander import LanderReward
 from ...models.densities import DiagGaussianDensity
 from ...models.regressor import DynamicsModel
+from ...parallel.sharding import mean_all_reduce
 from ...utils.core import tree_leaves, tree_map
 from .. import moment_matching as mm
 from . import build
@@ -365,10 +366,45 @@ def reward_kind(rf):
                  if isinstance(rf, kind)), None)
 
 
+CRITIC_MESH_ITEM = ('ROADMAP.md Queue 1: Parallel: the critic under '
+                    'particle sharding')
+
+
+def _local_config(cfg, mesh):
+    """The configuration of one rank's slice: B / n particles in G / n
+    groups (JAX ``fused_mode`` :1826-1828); raises unless the ranks split
+    both."""
+    if mesh is None:
+        return cfg
+    lo, hi = mesh.bounds(cfg.n_particles)
+    return dataclasses.replace(cfg, n_particles=hi - lo,
+                               mm_groups=mesh.local_groups(cfg.mm_groups))
+
+
 def refuses(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
     """Why the fused tiers cannot take this MC-PILCO configuration, or
     None. A ``value_spec`` without ``value_update`` is a fixed critic, whose
-    bootstrap only the grid tier adds (``fused_mode``)."""
+    bootstrap only the grid tier adds (``fused_mode``). Under a particle
+    ``mesh`` (``parallel.sharding.Mesh``) JAX's conditions (``:1780-1794``):
+    the ranks split B, MM needs groups that split over them (each rank's
+    groups are then all of its particles' groups, and the kernel needs no
+    collective), no critic; the rest is asked of one rank's slice, B / n
+    particles in G / n groups."""
+    if mesh is not None:
+        n = getattr(mesh, 'size', None)
+        if not isinstance(n, int) or n < 1:
+            return 'the mesh must be a parallel.sharding.Mesh'
+        if value_update is not None or value_spec is not None:
+            return ('a critic under a particle mesh is not ported yet '
+                    f'({CRITIC_MESH_ITEM})')
+        if (cfg.mm_states or cfg.mm_rewards) and not cfg.mm_groups:
+            return (f'moment matching over {n} ranks needs MM groups that '
+                    'split over them; ungrouped MM takes the global '
+                    'moments on the utils.rollout route')
+        try:
+            cfg = _local_config(cfg, mesh)
+        except (ValueError, NotImplementedError) as e:
+            return str(e)
     if value_update is not None:
         # JAX's conditions (fused_rollout.py:1800-1808)
         if value_spec is None or getattr(value_update, 'core', None) is None:
@@ -379,8 +415,6 @@ def refuses(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
                     'iteration; the fused tiers take the epoch noise')
         if value_update.H > cfg.steps:
             return 'the value horizon H exceeds the rollout'
-    if mesh is not None:
-        return 'meshes are not ported'
     if cfg.mm_groups:
         # JAX's conditions (fused_rollout.py:1795-1799)
         if cfg.n_particles % cfg.mm_groups:
@@ -430,10 +464,13 @@ def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
     particles the card holds (``rollout_capacity``, with the refit's
     critic), and a batch beyond it takes ``'step'``, or None with a fixed
     critic; on the CPU, where every tier runs its plain version, the gate
-    gives ``'full'`` or ``'grid'``. None of the TPU's VMEM budgets or
-    crossovers is carried over."""
+    gives ``'full'`` or ``'grid'``. Under a particle ``mesh`` the tier is
+    sized on one rank's slice (``refuses``): ``'full'`` or ``'step'``, whose
+    value-and-grad ``make_fused_sharded_value_and_grad`` runs on each rank.
+    None of the TPU's VMEM budgets or crossovers is carried over."""
     if refuses(cfg, dyn, pol, value_update, mesh, value_spec) is not None:
         return None
+    cfg = _local_config(cfg, mesh)
     fixed = value_update is None and value_spec is not None
     refit = value_update is not None and cr.critic_refuses(
         value_update.spec, value_update, dyn.state_dims) is None
@@ -1661,6 +1698,41 @@ def make_grid_value_and_grad(dyn, pol, steps, w_t, mm_states, mm_rewards,
     return _autograd_value_and_grad(make_grid_loss(
         dyn, pol, steps, w_t, mm_states, mm_rewards, maximize, mm_groups,
         value_update, w_H, value_spec))
+
+
+def make_fused_sharded_value_and_grad(dyn, pol, steps, w_t, mm_states,
+                                      mm_rewards, maximize, mesh,
+                                      mm_groups=None, mode=None,
+                                      mm_rewards_mean_only=False):
+    """K8 (``make_fused_sharded_value_and_grad``, ``fused_rollout.py:1010-
+    1076``): the value-and-grad of ``mode`` (``'full'``, row 5, or
+    ``'step'``, rows 6-7) built for one rank's slice, B / n particles in
+    ``mm_groups`` / n groups, called on the rank's slices (x0, the noise
+    dicts, and axis 1 of ``z_mm_t``, ``z_rr_t``, ``action_eps``:
+    ``parallel.sharding.shard_particles``), then the mean over the ranks of
+    loss, mean_return and the policy grads in ONE all-reduce of a flat
+    buffer (``parallel.sharding.mean_all_reduce``). The shards are equal, so
+    the mean of their means is the global mean, and the groups lie within
+    the shards, so the rollout needs no collective. No critic (a per-rank
+    refit would let the critics' replicas drift apart; ``refuses``).
+    ``vg(*loss_args) -> (loss, mean_return, grads, ())`` as
+    ``make_fused_value_and_grad``'s, the same on every rank."""
+    local_vg = make_fused_value_and_grad(
+        dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
+        mm_groups=mesh.local_groups(mm_groups), mode=mode,
+        mm_rewards_mean_only=mm_rewards_mean_only)
+
+    def fused_vg(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+                 z_mm_t, z_rr_t, action_eps=None, extras=()):
+        if extras:
+            raise NotImplementedError('a critic under a particle mesh is not '
+                                      f'ported yet ({CRITIC_MESH_ITEM})')
+        loss, mret, grads, _ = local_vg(pol_params, x0, dyn_params,
+                                        dyn_stats, dyn_noise, pol_noise,
+                                        z_mm_t, z_rr_t, action_eps)
+        return mean_all_reduce((loss, mret, grads), mesh) + ((),)
+
+    return fused_vg
 
 
 def _tier(mode):

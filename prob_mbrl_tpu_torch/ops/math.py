@@ -62,12 +62,23 @@ def safe_cholesky(S, initial_jitter=1e-12, max_tries=8, factor=100.0):
     Returns:
       [..., D, D] lower-triangular factors.
     """
+    jitter = cholesky_jitter(S, initial_jitter, max_tries, factor)
+    return jittered_cholesky(S, jitter)
+
+
+def _jitter_scale(S):
+    diag = torch.diagonal(S, dim1=-2, dim2=-1)
+    return diag.abs().mean(-1, keepdim=True)[..., None] + 1e-30
+
+
+def cholesky_jitter(S, initial_jitter=1e-12, max_tries=8, factor=100.0):
+    """The relative jitter ``safe_cholesky`` picks for the batch ``S``
+    [..., D, D] (0-dim, on the device, no gradient)."""
     D = S.shape[-1]
     eye = torch.eye(D, dtype=S.dtype, device=S.device)
     with torch.no_grad():
         S_ng = S.detach()
-        diag = torch.diagonal(S_ng, dim1=-2, dim2=-1)
-        scale = diag.abs().mean(-1, keepdim=True)[..., None] + 1e-30
+        scale = _jitter_scale(S_ng)
         jitters = device_constant(
             tuple(float(initial_jitter * factor ** i)
                   for i in range(max_tries)), S.device, S.dtype)
@@ -81,8 +92,14 @@ def safe_cholesky(S, initial_jitter=1e-12, max_tries=8, factor=100.0):
         idx = torch.where(ok.any(), first_ok, max_tries - 1)
         # index_select, not jitters[idx]: a tensor used as a Python index is
         # read back to the host, which stalls the stream every call
-        jitter = jitters.index_select(0, idx.reshape(1)).reshape(())
-    return _cholesky(S + (jitter * scale) * eye)
+        return jitters.index_select(0, idx.reshape(1)).reshape(())
+
+
+def jittered_cholesky(S, jitter):
+    """The factor of ``S + jitter * mean|diag(S)| * I`` (each matrix its
+    own scale), differentiable wrt ``S``."""
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    return _cholesky(S + (jitter * _jitter_scale(S.detach())) * eye)
 
 
 def safe_cholesky_each(S, initial_jitter=1e-12, max_tries=8, factor=100.0):

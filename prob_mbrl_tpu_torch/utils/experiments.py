@@ -85,8 +85,14 @@ def get_argument_parser(title=''):
     parser.add_argument('--resampling_period', type=int, default=499)
 
     parser.add_argument('--n_devices', type=int, default=None,
-                        help='shard particles over this many devices (not '
-                             'ported)')
+                        help='shard the imagined particles and the fit\'s '
+                             'minibatches over this many ranks '
+                             '(torch.distributed; parallel/)')
+    parser.add_argument('--dist_backend', choices=('nccl', 'gloo'),
+                        default='nccl',
+                        help="the ranks' torch.distributed backend: 'nccl' "
+                             "with a card for each rank, 'gloo' where ranks "
+                             'share a card or run on the CPU')
     parser.add_argument('--dtype', type=str, default='float32')
     parser.add_argument('--fused_rollout', choices=('auto', 'on', 'off'),
                         default='auto',
@@ -104,12 +110,13 @@ def get_argument_parser(title=''):
     return parser
 
 
-def refuse_unported(args):
+def refuse_unported(args, use_value=False):
     """Raise ``NotImplementedError`` for a flag value that needs code the
-    port does not have yet."""
+    port does not have yet (``use_value``: the driver refits a critic)."""
     refused = [
-        (args.n_devices is not None and args.n_devices > 1,
-         '--n_devices > 1 (particle sharding)', 'Parallel'),
+        (use_value and args.n_devices is not None and args.n_devices > 1,
+         '--n_devices > 1 with a critic (particle sharding of the value '
+         'bootstrap)', 'Parallel: the critic under particle sharding'),
         (args.dtype == 'bfloat16', '--dtype bfloat16',
          'The rest of the models'),
         (args.dyn_components > 1, '--dyn_components > 1 (mixture heads)',

@@ -23,11 +23,18 @@ the device until the end of the call: the loop reads nothing back.
   max, beta annealed from 0.4 to 1 by 1e-3 a step; the state is a dict of
   device tensors (``p``, ``counts``, ``beta``, ``step``) carried across
   calls.
+* data parallel (``mesh``, a ``parallel.sharding.Mesh``; JAX
+  ``utils/train_regressor.py:78-112``): every rank draws the same minibatch
+  indices, weights and dropout noise for the global batch and keeps its
+  slice of ``batchsize / n`` rows; the data loss, E_lml and the grads are
+  averaged over the ranks in one all-reduce a step, and the dataset, params
+  and optimizer states are replicated.
 """
 import torch
 
 from ..algorithms.value import SGD, Adam
 from ..ops.angles import to_complex
+from ..parallel.sharding import mean_all_reduce, shard_particles
 from .core import tree_leaves, tree_map
 
 
@@ -45,7 +52,7 @@ def init_priority_state(n, n_valid=None, dtype=torch.float32, device=None):
 def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
                   train_dropout=True, decoupled_reg=False, reg_optimizer=None,
                   prioritized_sampling=False, priority_eps=1e-3,
-                  priority_alpha=0.6, priority_warmup=100):
+                  priority_alpha=0.6, priority_warmup=100, mesh=None):
     """Build ``train(params, opt_state, Xn, Yn, generator, iters,
     reg_opt_state=None, priority_state=None) -> (params, opt_state, metrics,
     aux)``.
@@ -66,8 +73,24 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
     its data loss, ``(loss, (Enlml, log_probs), grads)``;
     ``train.draw(prio, generator, n, device, warm, idx=None)`` draws
     ``(idx, weights)`` for a step (or gives the weights of ``idx``).
+
+    With ``mesh`` the fit is data parallel over its ranks (the module's
+    docstring): ``batchsize`` must split over them, ``x, y, noise, weights``
+    of ``train_step`` and ``value_and_grad`` are the rank's slices, and
+    their loss, Enlml and grads the ranks' means.
     """
     density = reg.output_density
+    if mesh is not None:
+        if batchsize % mesh.size:
+            raise ValueError(
+                f'make_train_fn: {mesh.size} ranks must divide batchsize '
+                f'{batchsize} (each rank takes an equal slice of every '
+                'minibatch)')
+        if prioritized_sampling:
+            raise NotImplementedError(
+                'prioritized sampling in a data-parallel fit is not ported '
+                'yet (ROADMAP.md Queue 1: Parallel: the rest of the sharded '
+                'options)')
     if decoupled_reg and reg_optimizer is None:
         reg_optimizer = SGD(1e-4)
 
@@ -101,7 +124,12 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
             return (Enlml + reg_weight * reg.regularization_loss(live) / n,
                     (Enlml, log_probs))
 
-        return grads_of(data_loss, params)
+        loss, (Enlml, log_probs), grads = grads_of(data_loss, params)
+        if mesh is not None:
+            # equal slices: the ranks' mean of each is the global batch's
+            # (the regularizer's term is the same on every rank)
+            loss, Enlml, grads = mean_all_reduce((loss, Enlml, grads), mesh)
+        return loss, (Enlml, log_probs), grads
 
     def train_step(params, opt_state, x, y, noise, weights, n,
                    reg_opt_state=None, prio=None, idx=None):
@@ -171,6 +199,9 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
             idx, weights = draw(prio, generator, n, device,
                                 warm=step0 + i < priority_warmup)
             noise = reg.sample_noise(generator, (batchsize,), device=device)
+            if mesh is not None:  # drawn for the global batch: the slice
+                idx, weights, noise = shard_particles((idx, weights, noise),
+                                                      mesh)
             params, opt_state, reg_opt_state, prio, loss, e_lml = train_step(
                 params, opt_state, Xn[idx], Yn[idx], noise, weights, n,
                 reg_opt_state, prio, idx)
@@ -198,7 +229,8 @@ def train_regressor(reg, params, stats, X, Y, generator, iters=2000,
                     batchsize=100, optimizer=None, opt_state=None,
                     reg_weight=1.0, angle_dims=(), decoupled_reg=False,
                     reg_optimizer=None, prioritized_sampling=False,
-                    priority_eps=1e-3, priority_alpha=0.6, return_aux=False):
+                    priority_eps=1e-3, priority_alpha=0.6, return_aux=False,
+                    mesh=None):
     """Whiten, build the train fn, run it for ``iters`` steps.
 
     ``X`` / ``Y``: the dataset as tensors on the device the fit runs on;
@@ -206,6 +238,7 @@ def train_regressor(reg, params, stats, X, Y, generator, iters=2000,
     defaults to ``Adam(1e-4)``. Returns (params, opt_state, metrics), or
     (params, opt_state, metrics, aux) with ``return_aux=True`` (aux carries
     the decoupled optimizer's and the priority state for the next call).
+    ``mesh``: data parallel over its ranks (``make_train_fn``).
     """
     if angle_dims:
         X = to_complex(X, angle_dims)
@@ -219,7 +252,7 @@ def train_regressor(reg, params, stats, X, Y, generator, iters=2000,
                           reg_optimizer=reg_optimizer,
                           prioritized_sampling=prioritized_sampling,
                           priority_eps=priority_eps,
-                          priority_alpha=priority_alpha)
+                          priority_alpha=priority_alpha, mesh=mesh)
     params, opt_state, metrics, aux = train(params, opt_state, Xn, Yn,
                                             generator, iters)
     if return_aux:

@@ -19,7 +19,9 @@ tier ``mc_pilco`` takes (``'grid'`` with a critic), the wrappers'
 refusal to fall back when the kernels cannot be built, and rows 3-9 with
 grouped moment matching (``mm_groups``: ``chip_smoke``'s grouped holds,
 against the plain version in float64, their bits and launch counts, and
-``mc_pilco`` with groups on the whole-rollout tier).
+``mc_pilco`` with groups on the whole-rollout tier), and K8, row 5 on each
+of two gloo ranks' particle slices with one all-reduce, against the
+unsharded row 5.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -1307,3 +1309,15 @@ def test_mc_pilco_with_groups_takes_the_full_tier_on_the_card(cuda):
     assert fr.LAUNCHES['fused_rollout_vg'] == 5
     assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
     assert np.all(np.isfinite(metrics['loss']))
+
+
+def test_k8_on_two_gloo_ranks_matches_the_unsharded_row_5(cuda):
+    """K8 (``make_fused_sharded_value_and_grad``) on two gloo ranks that
+    share the card, B = 100 in 10 MM groups (50 particles and 5 groups a
+    rank), against one unsharded row-5 launch at B = 100 on the same inputs
+    and the float64 plain version (``chip_smoke.k8_case``: STEP_TOL of each
+    output's max or the plain version's sensitivity; exactly one
+    ``fused_rollout_vg`` launch and one all-reduce on each rank)."""
+    from prob_mbrl_tpu_torch import parallel as tpar
+    with tpar.Ranks(2, 'gloo', 'cuda', timeout=300) as ranks:
+        cs.k8_case(ranks, 2, cs.GROUPS_MAIN, True, cs.card_line())

@@ -106,9 +106,13 @@ def test_the_other_entry_points_and_options_run(tmp_path, module, argv):
     ['--mm_method', 'experimental_mix'], ['--prioritized_replay'],
     ['--plot_level', '1']])
 def test_unported_flags_raise_naming_their_roadmap_item(tmp_path, argv):
+    # --n_devices runs on ranks (tests/test_torch_parallel.py); with the
+    # with-value driver's critic it is refused
+    settings = (deep_pilco_no_mm_with_value.SETTINGS if '--n_devices' in argv
+                else deep_pilco_mm.SETTINGS)
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
-        _run(deep_pilco_mm.SETTINGS, argv, tmp_path)
-    assert not os.path.exists(tmp_path / 'mc_pilco_mm')
+        _run(settings, argv, tmp_path)
+    assert not os.path.exists(tmp_path / settings['name'])
 
 
 @pytest.mark.parametrize('env', ['Cartpole', 'JaxLunarLander'])
