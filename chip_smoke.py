@@ -78,6 +78,19 @@ Phases (any failure exits non-zero and prints no result line):
      time beside its time without a critic, its plain time and its bound
      (the rollout's work and the critic's), and row 5's own time split at
      B = 100.
+  2m. rows 3-9 with a mixture dynamics head (``GaussianMixtureDensity``,
+     ``--dyn_components K``): Cartpole's shapes with K = 2 (a head of 23)
+     and K = 5, the most the kernels take (a head of 56), rows 3-7 at
+     B = 100 (3-5 with the reward mean-only shortcut and without) and rows
+     8-9 at B = 1000; rows 3-5 with K = 2 and a learned reward, with
+     grouped MM (G = 10) and with the critic refit (B = 100, no MM). Each
+     output held as in phase 2 against the plain version, whose head
+     records its picks (``PickingMixture``): where it fails, the plain
+     version again with each pick whose u_cat lies within float32
+     rounding of a cumulative sum flipped, at most one pick in 1000 of the
+     B T, each logged (``held_against``). Each row's time, plain time and
+     bound at both K beside the diagonal head's, with the launch plans and
+     the particles the card holds.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -96,6 +109,10 @@ Phases (any failure exits non-zero and prints no result line):
      ``fused_rollout_vg`` launch per iteration and no step or fused-MLP
      launch; one iteration through the differentiable whole-rollout loss
      (``fused_rollout_fwd`` and ``_bwd``) is compared with the plain path.
+     5m: the same with a mixture dynamics head of K = 2 (``--dyn_components
+     2``): the gate names ``'full'``, one ``fused_rollout_vg`` an iteration
+     and nothing else, one iteration compared with the plain path, the ms
+     an iteration beside phase 5's.
   6. the route of ``MCPILCO.loss`` on that tier: a loop of the
      differentiable loss (one forward and one backward kernel per
      iteration), clip and Adam.
@@ -150,7 +167,9 @@ Phases (any failure exits non-zero and prints no result line):
      --learn_reward`` on Cartpole: the learned reward on the whole-rollout
      kernel (kind 3), ``fused_rollout_vg`` 200 and no fused-MLP launch from
      the policy loop, E_lml rising, a fit step and a row-5 policy iteration
-     held against their plain paths.
+     held against their plain paths; then one of ``deep_pilco_mm
+     --dyn_components 2``, held the same way: the mixture head fitted
+     through rows 1-2 (a head of 23) and sampled in row 5.
   10. the with-value driver: one ``deep_pilco_no_mm_with_value`` episode
      with phase 8's widths and cuts (no moment matching, the [200, 200] MSE
      critic refit every policy iteration): launches exact (fused-MLP forward
@@ -162,8 +181,9 @@ Phases (any failure exits non-zero and prints no result line):
      phase, sharing the one card (NCCL refuses two ranks on one device;
      ``torch.cuda.device_count()`` is printed): 11a K8, row 5 on each rank's
      slice with one all-reduce of loss, mean_return and grads, at B = 100,
-     T = 15 in 10 MM groups on 2 ranks, in 20 groups on 4 ranks and without
-     MM on 2 ranks, each held against one unsharded row-5 launch at B = 100
+     T = 15 in 10 MM groups on 2 ranks, in 20 groups on 4 ranks, without
+     MM on 2 ranks and, with the mixture head of K = 2, in 10 groups on 2
+     ranks, each held against one unsharded row-5 launch at B = 100
      on the same inputs and against the plain version (in float64 with
      groups, as phase 2g holds row 5), exactly one ``fused_rollout_vg`` and
      one all-reduce on each rank, and its ms a call beside the unsharded
@@ -190,6 +210,8 @@ every count set to 0 just before the run.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
+import collections
+import dataclasses
 import functools
 import json
 import os
@@ -215,7 +237,8 @@ from prob_mbrl_tpu_torch.examples import deep_pilco_mm as dpm
 from prob_mbrl_tpu_torch.examples import deep_pilco_no_mm_with_value as dvm
 from prob_mbrl_tpu_torch.examples import evaluate_policy
 from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
-                                        MLPSpec, Policy, Regressor, bdropout,
+                                        GaussianMixtureDensity, MLPSpec,
+                                        Policy, Regressor, bdropout,
                                         cdropout)
 from prob_mbrl_tpu_torch.ops.cuda import build, critic
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
@@ -427,6 +450,125 @@ def hold_rows(what, a, r, rel_tol, moved=None, along=None):
     return float(d.max()), n_err / max(n_ref, 1e-30), rel_tol
 
 
+# the plain versions' mixture picks (phase 2m, ``PickingMixture``): each
+# sample call's record, the calls of one forward (T), and the picks to take
+# instead of the drawn ones, {(step, particle): component}
+PICKS = {'calls': [], 'T': 1, 'force': {}}
+Pick = collections.namedtuple('Pick', 'cdf margin idx alt')
+
+
+class PickingMixture(GaussianMixtureDensity):
+    """The mixture head of the plain versions in phase 2m: samples as
+    ``GaussianMixtureDensity`` does (the same operations, so the same
+    bits), records each call's cumulative sums, each particle's distance of
+    u_cat from the nearest of them, its pick and the component across that
+    sum (``PICKS['calls']``), and takes the picks of ``PICKS['force']``
+    (call t of a forward of ``PICKS['T']`` steps) instead of its own."""
+
+    def sample(self, x, noise, scaling_params=None, sampling_temperature=0.1):
+        mean, log_std, logit_pi = self.distribution(x, scaling_params)
+        K = self.n_components
+        k_soft = torch.softmax(
+            (torch.log_softmax(logit_pi, -1) + noise['z_pi'])
+            / sampling_temperature, -1)
+        cdf = torch.cumsum(k_soft, -1)
+        u = noise['u_cat']
+        idx = torch.sum((u > cdf).to(torch.int64), -1)
+        gap = (u - cdf).detach()
+        near = gap.abs().argmin(-1)
+        side = torch.gather(gap, -1, near[..., None])[..., 0]
+        t = len(PICKS['calls']) % PICKS['T']
+        PICKS['calls'].append(Pick(cdf.detach(), side.abs(), idx.detach(),
+                                   torch.where(side > 0, near, near + 1)))
+        force = {b: j for (c, b), j in PICKS['force'].items() if c == t}
+        if force:
+            idx = idx.clone()
+            for b, j in force.items():
+                idx[b] = j
+        hard = (idx[..., None] == torch.arange(K, device=idx.device)).to(
+            k_soft.dtype)
+        k = ((hard - k_soft).detach() + k_soft)[..., None, :]
+        samples = torch.sum(mean * k, -1)
+        stds = torch.exp(torch.sum(log_std * k, -1))
+        return samples + noise['z_normal'] * stds
+
+
+def picking(dyn):
+    """``dyn`` with its mixture head a ``PickingMixture`` (a diagonal head
+    as it is): the models of the plain versions in phase 2m."""
+    d = dyn.regressor.output_density
+    if not isinstance(d, GaussianMixtureDensity):
+        return dyn
+    return dataclasses.replace(dyn, regressor=dataclasses.replace(
+        dyn.regressor, output_density=PickingMixture(
+            d.output_dims, d.n_components, d.max_noise_std)))
+
+
+EDGE_SENS = 10  # an edge pick: u_cat within 10x the cdfs' own sensitivity
+
+
+def pick_variants(plain_outputs, T, what):
+    """The plain version's outputs, ``plain_outputs()`` (its first forward
+    the reference, its second that on inputs moved by 1e-6 relative), as
+    drawn; then, for a mixture head, with the picks on an edge flipped to
+    the component across their sum. An edge pick is one whose u_cat lies
+    within EDGE_SENS times the largest change of a cumulative sum between
+    those two forwards: float32 rounding in another order may pick the
+    other component there, which moves that particle's step and, through
+    the moments, every particle after it. At most one pick in 1000 of the
+    B T may be flipped: each edge pick alone, in order of its distance,
+    then all of them, where they are that few; each variant is logged.
+    The caller holds the kernel against each in turn until one holds."""
+    PICKS['calls'], PICKS['T'], PICKS['force'] = [], T, {}
+    out = plain_outputs()
+    calls = PICKS['calls']
+    yield out
+    if not calls:
+        return
+    ref, moved = calls[:T], calls[T:2 * T]
+    sens = max(float((a.cdf - b.cdf).abs().max()) for a, b in zip(ref, moved))
+    tol = EDGE_SENS * max(sens, 1e-7)
+    edges = sorted((float(c.margin[b]), t, b, int(c.alt[b]))
+                   for t, c in enumerate(ref)
+                   for b in torch.nonzero(c.margin < tol)[:, 0].tolist())
+    allowed = max(1, ref[0].idx.numel() * T // 1000)
+    log(f'[phase 2m] {what}: {len(edges)} pick(s) on an edge (u_cat within '
+        f'{tol:.2e} of a cumulative sum, {EDGE_SENS}x the sums\' change '
+        f'{sens:.2e} under inputs moved by 1e-6 relative); at most '
+        f'{allowed} may be flipped')
+    tries = [[e] for e in edges[:8]]
+    if 1 < len(edges) <= allowed:
+        tries.append(edges)
+    for flips in tries:
+        PICKS['calls'], PICKS['force'] = [], {(t, b): j
+                                              for _, t, b, j in flips}
+        log(f'[phase 2m] {what}: the plain version with '
+            + ', '.join(f'step {t} particle {b} on component {j} (u_cat '
+                        f'{m:.2e} from the sum)' for m, t, b, j in flips))
+        yield plain_outputs()
+    PICKS['force'] = {}
+
+
+def held_against(what, plain_outputs, T, hold_all):
+    """``hold_all(outputs)`` against each of ``pick_variants``' plain
+    outputs in turn: the first that holds, or the first failure raised."""
+    first = None
+    try:
+        for out in pick_variants(plain_outputs, T, what):
+            try:
+                result = hold_all(out)
+            except AssertionError as e:
+                first = first or e
+                continue
+            if first is not None:
+                log(f'[phase 2m] {what}: held against that variant (as '
+                    f'drawn: {first})')
+            return result
+    finally:
+        PICKS['force'] = {}
+    raise first
+
+
 def in_float64(x):
     """``x`` (a tensor, or a dict, list or tuple of them) with its floating
     tensors cast to float64, differentiably (gradients reach float32
@@ -635,7 +777,8 @@ def phase_mlp_kernels():
     return rows
 
 
-def env_models(env, hidden=(200, 200), nonlin='relu', learned=False):
+def env_models(env, hidden=(200, 200), nonlin='relu', learned=False,
+               components=0):
     """The Deep-PILCO drivers' default models ([200, 200] relu MLPs, or
     these widths and activations) for ``env``, with its reward and action
     bounds: (dyn, pol, D, U). ``'JaxLunarLander'`` is the differentiable
@@ -644,7 +787,8 @@ def env_models(env, hidden=(200, 200), nonlin='relu', learned=False):
     reward learned (no reward_func, a dynamics head of 2 (D + 1); the
     kernels' reward kind 3), as the driver builds them with --learn_reward
     or for the Box2D lander, which has no reward function (the
-    differentiable lander's D = 8, U = 2)."""
+    differentiable lander's D = 8, U = 2). ``components`` K: a mixture
+    dynamics head of K Gaussians."""
     if env == 'Cartpole':
         D, U, high, rf = 5, 1, (10.0,), envs.cartpole_reward()
     else:
@@ -653,7 +797,7 @@ def env_models(env, hidden=(200, 200), nonlin='relu', learned=False):
         D, U = e.observation_size, e.action_size
         high, rf = [float(v) for v in e.action_space.high], e.reward_func
     return build_models(D, U, high, None if learned else rf, hidden,
-                        nonlin) + (D, U)
+                        nonlin, components) + (D, U)
 
 
 def env_label(env, learned=False):
@@ -738,7 +882,7 @@ def tie_eps(seed, shape):
 
 
 def step_problem(B, seed, env='Cartpole', saturated=False, learned=False,
-                 groups=None):
+                 groups=None, components=0):
     """One rollout step at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1), its inputs made from a seed.
     The state resample needs a full-rank particle covariance, B > D: below
@@ -747,15 +891,16 @@ def step_problem(B, seed, env='Cartpole', saturated=False, learned=False,
     saturated and the actions on the reward's kinks (``saturate``,
     ``tie_eps``); ``learned`` as ``env_models``; ``groups``: MM per group of
     B / groups particles, its noise standardized per group (the states
-    resampled where a group has more particles than D). Returns (kernel
-    step, plain step, policy leaves, states, eps, (g_nxt, g_r), timing
-    inputs)."""
+    resampled where a group has more particles than D); ``components`` K:
+    a mixture dynamics head of K Gaussians, whose plain version picks its
+    components through ``PickingMixture``. Returns (kernel step, plain
+    step, policy leaves, states, eps, (g_nxt, g_r), timing inputs)."""
     rng = np.random.RandomState(seed)
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol, D, U = env_models(env, learned=learned)
+    dyn, pol, D, U = env_models(env, learned=learned, components=components)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
@@ -781,7 +926,7 @@ def step_problem(B, seed, env='Cartpole', saturated=False, learned=False,
     mm_states = B // G > D
     k = fr.StepKernel(dyn, pol, mm_states, True, pol_params, dyn_params,
                       stats, dyn_noise, pol_noise, B, states.device, groups)
-    plain = fr.make_step_plain(dyn, pol, mm_states, True, groups)
+    plain = fr.make_step_plain(picking(dyn), pol, mm_states, True, groups)
 
     def kernel(s, e):
         return k(s, e, z_mm, z_rr)
@@ -804,24 +949,37 @@ def step_outputs(step, leaves, states, eps, cot):
     return [nxt.detach(), r.detach()] + list(grads)
 
 
-def step_bytes_flops(B, pol_dims, dyn_dims, D, U):
+def head_dims_of(dyn_dims, K=0):
+    """(E, the dynamics density's noise a particle): a diagonal head's 2 E
+    outputs and E noise, or a mixture's 2 E K + K + 1 outputs and E + K + 1
+    noise (``components`` K)."""
+    if not K:
+        return dyn_dims[-1] // 2, dyn_dims[-1] // 2
+    E = (dyn_dims[-1] - K - 1) // (2 * K)
+    return E, E + K + 1
+
+
+def step_bytes_flops(B, pol_dims, dyn_dims, D, U, K=0):
     """Bytes each step kernel must move (inputs read once, outputs written
     once) and the operations it does, for one call at batch B. The backward
     takes the step's inputs and its pre-MM outputs, so it recomputes both
     MLPs' forward; its products are that, both dx chains and the policy's
     dW. The dynamics head has 2 E outputs: E = D, or D + 1 with a learned
-    reward, whose density noise and output scaling are E wide."""
+    reward, whose density noise and output scaling are E wide; a mixture of
+    K has 2 E K + K + 1 and its noise E + K + 1 (``head_dims_of``), and its
+    pick and weighted sums ~12 K + 6 E K operations a particle."""
     def weights(dims):
         return sum(a * b for a, b in zip(dims[:-1], dims[1:])) + sum(dims[1:])
 
-    E = dyn_dims[-1] // 2
+    E, Z = head_dims_of(dyn_dims, K)
     wp, wd = weights(pol_dims), weights(dyn_dims)
     masks = B * (sum(pol_dims[1:-1]) + sum(dyn_dims[1:-1]))
     # states, eps, both density noises, the MM noise
-    state = B * (D + 2 * U + E + D + 1)
+    state = B * (D + 2 * U + Z + D + 1)
     stats = 2 * (D + U) + 2 * E
     mults = 2 * B * (wp + wd)  # products of both MLPs (bias adds included)
-    elem = 3 * (masks + B * (D + U)) + B * D * (3 * D + 4)  # epilogues + MM
+    elem = (3 * (masks + B * (D + U)) + B * D * (3 * D + 4)  # epilogues + MM
+            + (B * (12 * K + 6 * E * K) if K else 0))  # the mixture's pick
     fwd_bytes = 4 * (wp + wd + masks + state + stats + 2 * B * (D + 1))
     bwd_bytes = 4 * (wp + wd + masks + state + stats + 2 * B * (D + 1)
                      + B * (D + U) + wp)
@@ -842,14 +1000,17 @@ def step_plans(k):
                                                   k.plans()))
 
 
-def step_timings(B, env='Cartpole', learned=False, groups=None):
+def step_timings(B, env='Cartpole', learned=False, groups=None,
+                 components=0):
     """ms of each step kernel and of the plain step at batch B (MM per
     group of B / groups with ``groups``), and the kernels' launch plans. The
     plain backward is its forward and ``torch.autograd.grad`` in one graph,
     less the plain forward's. No single PyTorch call computes a rollout
-    step, so there is no library time."""
+    step, so there is no library time. ``components`` as
+    ``step_problem``."""
     kernel, plain, leaves, states, eps, cot, (k, z_mm, z_rr) = step_problem(
-        B, seed=7, env=env, learned=learned, groups=groups)
+        B, seed=7, env=env, learned=learned, groups=groups,
+        components=components)
     residuals = k.forward(states, eps, z_mm, z_rr)[2:]
 
     def plain_fwd_bwd():
@@ -866,41 +1027,55 @@ def step_timings(B, env='Cartpole', learned=False, groups=None):
                                              True)),
             plain_ms=time_graph(plain_fwd_bwd) - plain_fwd_ms),
     }
-    for name, (nbytes, flops) in step_bytes_flops(B, *k.dims, k.D,
-                                                  k.U).items():
+    for name, (nbytes, flops) in step_bytes_flops(B, *k.dims, k.D, k.U,
+                                                  k.K).items():
         t[name]['bound_ms'], t[name]['bound_by'] = bound(nbytes, flops)
         t[name]['library_ms'] = None
     return t, step_plans(k)
 
 
 def check_step(B, env='Cartpole', tag='phase 2', saturated=False,
-               learned=False, groups=None):
+               learned=False, groups=None, components=0):
     """The step kernels against the plain step at batch B on ``env``'s
-    shapes (``phase_step_kernels``' tolerance; ``saturated``, ``learned``
-    and ``groups`` as ``step_problem``; grouped, against the plain step in
-    float64, ``float64``); the largest error of each."""
+    shapes (``phase_step_kernels``' tolerance; ``saturated``, ``learned``,
+    ``groups`` and ``components`` as ``step_problem``; grouped, against the
+    plain step in float64, ``float64``; a mixture head through
+    ``held_against``); the largest error of each."""
     kernel, plain, leaves, states, eps, cot, (k, _, _) = step_problem(
         B, seed=B, env=env, saturated=saturated, learned=learned,
-        groups=groups)
+        groups=groups, components=components)
     if groups:
         plain = functools.partial(plain, f64=True)
     env = env_label(env, learned)
     if groups:
         env = f'{env} mm_groups={groups}'
+    if components:
+        env = f'{env} mixture K={components}'
     got = step_outputs(kernel, leaves, states, eps, cot)
-    ref = step_outputs(plain, leaves, states, eps, cot)
-    moved = step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot)
-    torch.cuda.synchronize()
+
+    def plain_outputs():
+        return (step_outputs(plain, leaves, states, eps, cot),
+                step_outputs(plain, leaves, states * (1 + 1e-6), eps, cot))
+
     labels = (['nxt', 'r'] + [f'd pol leaf {i}' for i in
                               range(len(leaves))] + ['d states', 'd eps'])
-    here = {'fused_step_fwd': 0.0, 'fused_step_bwd': 0.0}
-    rel = loose = 0.0
-    for lab, a, r, m in zip(labels, got, ref, moved):
-        err, r_err, r_tol = hold(f'{env} step B={B} {lab}', a, r, STEP_TOL,
-                                 m)
-        kern = 'fused_step_fwd' if lab in ('nxt', 'r') else 'fused_step_bwd'
-        here[kern] = max(here[kern], err)
-        rel, loose = max(rel, r_err), max(loose, r_tol)
+
+    def hold_all(outs):
+        ref, moved = outs
+        torch.cuda.synchronize()
+        here = {'fused_step_fwd': 0.0, 'fused_step_bwd': 0.0}
+        rel = loose = 0.0
+        for lab, a, r, m in zip(labels, got, ref, moved):
+            err, r_err, r_tol = hold(f'{env} step B={B} {lab}', a, r,
+                                     STEP_TOL, m)
+            kern = ('fused_step_fwd' if lab in ('nxt', 'r')
+                    else 'fused_step_bwd')
+            here[kern] = max(here[kern], err)
+            rel, loose = max(rel, r_err), max(loose, r_tol)
+        return here, rel, loose, ref
+
+    here, rel, loose, ref = held_against(f'{env} step B={B}', plain_outputs,
+                                         1, hold_all)
     state_mm = 'on' if B // k.G > k.D else 'off'
     if saturated:
         env = f'{env} saturated'
@@ -940,21 +1115,23 @@ def phase_step_kernels():
 
 
 def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
-                    saturated=False, learned=False, groups=None):
+                    saturated=False, learned=False, groups=None,
+                    components=0):
     """The whole rollout at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1; states and rewards
     moment-matched, discount 0.9), its inputs made from a seed
-    (``saturated``, ``learned`` and ``groups`` as ``step_problem``: with
-    groups of D particles or fewer the rewards alone are resampled, and the
-    argument of the states' MM noise is None). Returns (kernel loss, kernel
-    value-and-grad, plain loss, policy params, policy leaves, the arguments
-    after the policy params, (dyn, pol, w_t))."""
+    (``saturated``, ``learned``, ``groups`` and ``components`` as
+    ``step_problem``: with groups of D particles or fewer the rewards alone
+    are resampled, and the argument of the states' MM noise is None).
+    Returns (kernel loss, kernel value-and-grad, plain loss, policy params,
+    policy leaves, the arguments after the policy params, (dyn, pol,
+    w_t))."""
     rng = np.random.RandomState(seed)
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol, D, U = env_models(env, learned=learned)
+    dyn, pol, D, U = env_models(env, learned=learned, components=components)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
@@ -981,7 +1158,8 @@ def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
     kw = dict(mm_rewards_mean_only=mean_only, mm_groups=groups)
     return (fr.make_fused_loss(*make, mode='full', **kw),
             fr.make_fused_value_and_grad(*make, mode='full', **kw),
-            fr.make_loss_plain(*make, **kw), pol_params, leaves,
+            fr.make_loss_plain(picking(dyn), *make[1:], **kw), pol_params,
+            leaves,
             [x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps],
             (dyn, pol, w_t))
 
@@ -1018,7 +1196,8 @@ def time_launches(fn, n=ROLLOUT_LAUNCHES, reps=5):
     return float(np.median(times))
 
 
-def rollout_timings(env='Cartpole', split=True, learned=False, groups=None):
+def rollout_timings(env='Cartpole', split=True, learned=False, groups=None,
+                    components=0):
     """ms of each rollout kernel (CUDA events around launches in a row: a
     cooperative launch is not captured in a graph here) and of the plain
     version (CUDA graph replay) at the main-path batch and horizon. The
@@ -1026,9 +1205,10 @@ def rollout_timings(env='Cartpole', split=True, learned=False, groups=None):
     graph, less the plain forward; the plain value-and-grad is that graph.
     No single PyTorch call computes a rollout, so there is no library
     time. With ``split`` it logs the kernel's own time split of row 5;
-    ``groups`` as ``rollout_problem``."""
+    ``groups`` and ``components`` as ``rollout_problem``."""
     _, _, plain, pol_params, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        MAIN_B, 7, env=env, learned=learned, groups=groups)
+        MAIN_B, 7, env=env, learned=learned, groups=groups,
+        components=components)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, z_mm is not None, True, True,
                          True, MAIN_B, x0.device, mm_groups=groups)
@@ -1058,7 +1238,7 @@ def rollout_timings(env='Cartpole', split=True, learned=False, groups=None):
     }
     D, U = x0.shape[1], eps.shape[2]
     work = rollout_bytes_flops(MAIN_B, MAIN_T, *net_dims(dyn, pol), D, U,
-                               r_mm=False)
+                               r_mm=False, K=components)
     for name in t:
         t[name]['bound_ms'], t[name]['bound_by'] = bound(*work[name])
         t[name]['library_ms'] = None
@@ -1068,19 +1248,21 @@ def rollout_timings(env='Cartpole', split=True, learned=False, groups=None):
     return t
 
 
-def k_plan(B, env='Cartpole', learned=False):
+def k_plan(B, env='Cartpole', learned=False, components=0):
     """The whole-rollout kernel's launch plan at the main widths and batch
-    B on this card for ``env``'s shapes, as text."""
-    dyn, pol, D, _ = env_models(env, learned=learned)
+    B on this card for ``env``'s shapes (a mixture head of ``components``),
+    as text."""
+    dyn, pol, D, _ = env_models(env, learned=learned, components=components)
     p = fr.rollout_plan(*net_dims(dyn, pol), D, B, MAIN_T,
-                        fr.max_clusters(torch.cuda.current_device()))
+                        fr.max_clusters(torch.cuda.current_device()),
+                        components=components)
     return (f'{p.clusters} clusters of {p.particles} particles in '
             f'{p.tiles} tile(s) of {p.tile_rows} rows, weights '
             f'{"resident" if p.resident else "read in place"}, {p.smem} '
             'bytes of shared memory a CTA')
 
 
-def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
+def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm, K=0):
     """Bytes each rollout kernel must move (inputs read once, outputs
     written once) and the operations it does, for one call at batch B and
     horizon T (``r_mm``: the rewards are resampled, not reduced by the
@@ -1092,21 +1274,23 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
     (rows 8-9) are rows 3-4 with per-particle outputs: the forward writes
     states_all [T, B, D] (the boundary states after x0) and disc, raw, vret
     [B] and reads vw_t; the backward reads those, the cotangents of disc,
-    raw, vret and g_sall [T, B, D]."""
-    step = step_bytes_flops(B, pol_dims, dyn_dims, D, U)
+    raw, vret and g_sall [T, B, D]. ``K``: a mixture head's components
+    (``step_bytes_flops``)."""
+    step = step_bytes_flops(B, pol_dims, dyn_dims, D, U, K)
     f_fwd, f_bwd = step['fused_step_fwd'][1], step['fused_step_bwd'][1]
 
     def weights(dims):
         return sum(a * b for a, b in zip(dims[:-1], dims[1:])) + sum(dims[1:])
 
-    E = dyn_dims[-1] // 2  # the dynamics density's outputs (D + 1: learned)
+    # the dynamics density's outputs (D + 1: learned) and noise
+    E, Z = head_dims_of(dyn_dims, K)
     wp, wd = weights(pol_dims), weights(dyn_dims)
     mults = 2 * B * (wp + wd)  # both MLPs' products in one step
     masks = B * (sum(pol_dims[1:-1]) + sum(dyn_dims[1:-1]))
     stats = 2 * (D + U) + 2 * E
     # weights, masks, stats, x0, both density noises, w_t, the MM noise
     # stacks and action_eps
-    inputs = (wp + wd + masks + stats + B * (D + U + E) + T
+    inputs = (wp + wd + masks + stats + B * (D + U + Z) + T
               + T * B * (D + U + (1 if r_mm else 0)))
     residuals = (T + 1) * B * D + T * B * (D + 1)  # boundary states, pre-MM
     sall, per_particle = T * B * D, 3 * B  # states_all; disc, raw, vret
@@ -1125,37 +1309,31 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm):
 
 
 def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
-                  saturated=False, learned=False, groups=None):
+                  saturated=False, learned=False, groups=None, components=0):
     """The whole-rollout kernels against the plain version at batch B on
-    ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated``
-    and ``groups`` as ``step_problem``; grouped, against the plain version
-    in float64, ``float64``); the largest error of each."""
+    ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated``,
+    ``groups`` and ``components`` as ``step_problem``; grouped, against the
+    plain version in float64, ``float64``; a mixture head through
+    ``held_against``); the largest error of each."""
     kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(
         B, B, mean_only, env=env, saturated=saturated, learned=learned,
-        groups=groups)
+        groups=groups, components=components)
     if groups:
         plain = float64(plain)
     got = rollout_outputs(kloss, pp, leaves, args)
-    ref = rollout_outputs(plain, pp, leaves, args)
-    moved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6)
     vl, vm, vgrads, _ = kvg(pp, *args)
-    vref = rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1]
-    vmoved = rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
-                             g=(1.0, 0.0))[:-1]
-    torch.cuda.synchronize()
+
+    def plain_outputs():
+        return (rollout_outputs(plain, pp, leaves, args),
+                rollout_outputs(plain, pp, leaves, args, 1 + 1e-6),
+                rollout_outputs(plain, pp, leaves, args, g=(1.0, 0.0))[:-1],
+                rollout_outputs(plain, pp, leaves, args, 1 + 1e-6,
+                                g=(1.0, 0.0))[:-1])
+
     n = len(leaves)
     labels = (['loss', 'mean_return']
               + [f'd pol leaf {i}' for i in range(n)] + ['d eps'])
-    checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
-               zip(labels[:2], got[:2], ref[:2], moved[:2])]
-              + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
-                 zip(labels[2:], got[2:], ref[2:], moved[2:])]
-              + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
-                 zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref,
-                     vmoved)])
     names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
-    here = {nm: 0.0 for nm in names}
-    rel = loose = 0.0
     # the lander's d action_eps per particle and step: a ReLU unit of the
     # dynamics within float32 rounding of 0 moves one particle's entries
     # alone (seen at B = 1500, saturated), held as the grid's (hold_rows)
@@ -1166,12 +1344,31 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
     if groups:
         env = (f'{env} mm_groups={groups} (states'
                f'{"" if args[5] is not None else " not"} resampled)')
-    for kern, lab, a, r, m in checks:
-        check = hold_rows if eps_by_rows and lab == 'd eps' else hold
-        err, r_err, r_tol = check(f'{env} rollout B={B} {kern} {lab}', a, r,
-                                  STEP_TOL, m)
-        here[kern] = max(here[kern], err)
-        rel, loose = max(rel, r_err), max(loose, r_tol)
+    if components:
+        env = f'{env} mixture K={components}'
+
+    def hold_all(outs):
+        ref, moved, vref, vmoved = outs
+        torch.cuda.synchronize()
+        checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
+                   zip(labels[:2], got[:2], ref[:2], moved[:2])]
+                  + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
+                     zip(labels[2:], got[2:], ref[2:], moved[2:])]
+                  + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
+                     zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref,
+                         vmoved)])
+        here = {nm: 0.0 for nm in names}
+        rel = loose = 0.0
+        for kern, lab, a, r, m in checks:
+            check = hold_rows if eps_by_rows and lab == 'd eps' else hold
+            err, r_err, r_tol = check(f'{env} rollout B={B} {kern} {lab}', a,
+                                      r, STEP_TOL, m)
+            here[kern] = max(here[kern], err)
+            rel, loose = max(rel, r_err), max(loose, r_tol)
+        return here, rel, loose, ref
+
+    here, rel, loose, ref = held_against(f'{env} rollout B={B}',
+                                         plain_outputs, MAIN_T, hold_all)
     log(f'[{tag}] {env} rollout B={B} T={MAIN_T} (reward mean-only '
         f'{"on" if mean_only else "off"}; loss {float(ref[0]):.6f}, '
         f'mean_return {float(ref[1]):.6f}): kernel vs plain max abs err '
@@ -1206,16 +1403,17 @@ def phase_rollout_kernels():
 
 
 def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
-                 env='Cartpole', saturated=False, learned=False, groups=None):
+                 env='Cartpole', saturated=False, learned=False, groups=None,
+                 components=0):
     """The grid rollout on ``rollout_problem``'s inputs: (kernel rollout,
     plain rollout, policy params, leaves, the rollout's arguments after the
     policy params, cotangents of disc, raw, vret and states_all, (dyn, pol,
     w_t, vw_t)); vret weighs step t by (T - 1 - t) / T. With ``groups``
     (as ``rollout_problem``) the states are resampled where a group has more
-    particles than D."""
+    particles than D; ``components`` as ``rollout_problem``."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
         B, seed, False, T, env=env, saturated=saturated, learned=learned,
-        groups=groups)
+        groups=groups, components=components)
     mm_states = mm_states and args[5] is not None
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     rng = np.random.RandomState(seed + 1)
@@ -1227,7 +1425,8 @@ def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
     cot = [t(rng.randn(B, 1)) for _ in range(3)] + [
         t(rng.randn(T, B, x0.shape[1]))]
     make = (dyn, pol, T, mm_states, mm_rewards, groups)
-    return (fr.make_grid_rollout(*make), fr.make_grid_rollout_plain(*make),
+    return (fr.make_grid_rollout(*make),
+            fr.make_grid_rollout_plain(picking(dyn), *make[1:]),
             pp, leaves, [x0, z_mm if mm_states else None,
                          z_rr if mm_rewards else None, eps, dyn_params, stats,
                          dyn_noise, pol_noise, w_t, vw_t], cot,
@@ -1338,14 +1537,15 @@ def log_split(what, parts):
         + f' = {sum(parts):.4f} ms')
 
 
-def grid_timings(B, split=False, env='Cartpole', learned=False, groups=None):
+def grid_timings(B, split=False, env='Cartpole', learned=False, groups=None,
+                 components=0):
     """ms of each grid kernel and of the plain version at batch B, T = 15
     (CUDA events around launches in a row, as ``rollout_timings``; the plain
     backward is the plain forward and ``torch.autograd.grad`` in one graph
     less the forward), and with ``split`` the kernel's own time split in ms
-    per launch; ``groups`` as ``grid_problem``."""
+    per launch; ``groups`` and ``components`` as ``grid_problem``."""
     _, plain, pp, leaves, args, cot, (dyn, pol, w_t, vw_t) = grid_problem(
-        B, 7, env=env, learned=learned, groups=groups)
+        B, 7, env=env, learned=learned, groups=groups, components=components)
     x0, z_mm, z_rr, eps, dyn_params, stats, dyn_noise, pol_noise = args[:8]
     k = fr.GridKernel(dyn, pol, MAIN_T, w_t, vw_t, z_mm is not None, True, B,
                       x0.device, groups)
@@ -1371,7 +1571,7 @@ def grid_timings(B, split=False, env='Cartpole', learned=False, groups=None):
                                 plain_ms=time_graph(plain_fwd_bwd, n=5)
                                 - plain_fwd_ms)}
     work = rollout_bytes_flops(B, MAIN_T, *net_dims(dyn, pol), x0.shape[1],
-                               eps.shape[2], r_mm=True)
+                               eps.shape[2], r_mm=True, K=components)
     for name in t:
         t[name]['bound_ms'], t[name]['bound_by'] = bound(*work[name])
         t[name]['library_ms'] = None
@@ -1382,26 +1582,27 @@ def grid_timings(B, split=False, env='Cartpole', learned=False, groups=None):
 
 
 def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
-               saturated=False, learned=False, groups=None):
+               saturated=False, learned=False, groups=None, components=0):
     """The grid kernels against the plain grid rollout at batch B on
     ``env``'s shapes, states moment-matched (``phase_grid_kernels``'
-    tolerance; ``saturated``, ``learned`` and ``groups`` as
-    ``step_problem``; grouped, against the plain version in float64,
-    ``float64``); the largest error of each."""
+    tolerance; ``saturated``, ``learned``, ``groups`` and ``components``
+    as ``step_problem``; grouped, against the plain version in float64,
+    ``float64``; a mixture head through ``held_against``); the largest
+    error of each."""
     names = ['fused_grid_fwd', 'fused_grid_bwd']
     kern, plain, pp, leaves, args, cot, (dyn, pol, _, _) = grid_problem(
         B, B, True, mm_rewards, env=env, saturated=saturated,
-        learned=learned, groups=groups)
+        learned=learned, groups=groups, components=components)
     if groups:
         plain = float64(plain)
     got = grid_outputs(kern, pp, leaves, args, cot)
-    ref = grid_outputs(plain, pp, leaves, args, cot)
-    moved = grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6)
-    torch.cuda.synchronize()
+
+    def plain_outputs():
+        return (grid_outputs(plain, pp, leaves, args, cot),
+                grid_outputs(plain, pp, leaves, args, cot, 1 + 1e-6))
+
     labels = (['disc', 'raw', 'vret', 'states_all']
               + [f'd pol leaf {i}' for i in range(len(leaves))] + ['d eps'])
-    here = {n: 0.0 for n in names}
-    rel = loose = 0.0
     # the learned lander's d action_eps at B = 1000: the trajectories'
     # drift crosses a dynamics ReLU's edge for one particle
     # (hold_grid_eps_on_edge)
@@ -1411,19 +1612,31 @@ def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
         env = f'{env} saturated'
     if groups:
         env = f'{env} mm_groups={groups}'
-    for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
-        kern_name = names[0] if i < 4 else names[1]
-        what = f'{env} grid B={B} {lab}'
-        if lab != 'd eps':
-            err, r_err, r_tol = hold(what, a, r, STEP_TOL, m)
-        elif on_edge:
-            err, r_err, r_tol = hold_grid_eps_on_edge(
-                what, kern, dyn, pol, mm_rewards, pp, leaves, args, cot,
-                got, ref, moved)
-        else:
-            err, r_err, r_tol = hold_rows(what, a, r, STEP_TOL, m)
-        here[kern_name] = max(here[kern_name], err)
-        rel, loose = max(rel, r_err), max(loose, r_tol)
+    if components:
+        env = f'{env} mixture K={components}'
+
+    def hold_all(outs):
+        ref, moved = outs
+        torch.cuda.synchronize()
+        here = {n: 0.0 for n in names}
+        rel = loose = 0.0
+        for i, (lab, a, r, m) in enumerate(zip(labels, got, ref, moved)):
+            kern_name = names[0] if i < 4 else names[1]
+            what = f'{env} grid B={B} {lab}'
+            if lab != 'd eps':
+                err, r_err, r_tol = hold(what, a, r, STEP_TOL, m)
+            elif on_edge:
+                err, r_err, r_tol = hold_grid_eps_on_edge(
+                    what, kern, dyn, pol, mm_rewards, pp, leaves, args, cot,
+                    got, ref, moved)
+            else:
+                err, r_err, r_tol = hold_rows(what, a, r, STEP_TOL, m)
+            here[kern_name] = max(here[kern_name], err)
+            rel, loose = max(rel, r_err), max(loose, r_tol)
+        return here, rel, loose, ref
+
+    here, rel, loose, ref = held_against(f'{env} grid B={B}', plain_outputs,
+                                         MAIN_T, hold_all)
     what = ('states and rewards' if args[1] is not None and mm_rewards else
             'states only' if args[1] is not None else 'rewards only')
     log(f'[{tag}] {env} grid B={B} T={MAIN_T} ({what} moment-matched; '
@@ -1499,7 +1712,8 @@ def critic_spec(D, head='mse', hidden=(200, 200), drop='concrete', H=MAIN_T,
 
 
 def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
-                   T=MAIN_T, hidden=(200, 200), drop='concrete', groups=None):
+                   T=MAIN_T, hidden=(200, 200), drop='concrete', groups=None,
+                   components=0):
     """Rows 3-5 with the critic of ``critic_spec`` refit in the launch, on
     ``rollout_problem``'s inputs (Cartpole's shapes; states and rewards
     moment-matched with ``mm``, per group of B / groups with ``groups``,
@@ -1508,9 +1722,9 @@ def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
     value-and-grad, plain loss, policy params, policy leaves, the arguments
     after the policy params, the critic's extras (params, target, Adam
     state, stats, noise), (dyn, pol, w_t, update)). The plain loss runs the
-    critic on the unfused MLP."""
+    critic on the unfused MLP; ``components`` as ``rollout_problem``."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        B, seed, False, T, groups=groups)
+        B, seed, False, T, groups=groups, components=components)
     if not mm:
         args = args[:5] + [None, None, args[7]]
     D = args[0].shape[1]
@@ -1538,9 +1752,9 @@ def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
             fr.make_fused_value_and_grad(*make, mode='full',
                                          value_update=update, w_H=w_H,
                                          mm_groups=groups),
-            fr.make_loss_plain(fr.unfused(dyn), fr.unfused(pol), T, w_t, mm,
-                               mm, True, groups, value_update=update_p,
-                               w_H=w_H),
+            fr.make_loss_plain(fr.unfused(picking(dyn)), fr.unfused(pol), T,
+                               w_t, mm, mm, True, groups,
+                               value_update=update_p, w_H=w_H),
             pp, leaves, args, extras, (dyn, pol, w_t, update))
 
 
@@ -1666,7 +1880,7 @@ def hold_refit(what, got, ref, moved, update, first_count):
 
 
 def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
-                 drop='concrete', groups=None):
+                 drop='concrete', groups=None, components=0):
     """Rows 3-5 with the critic refit in the launch against the plain
     version at batch B: loss, mean_return, the policy grads and d
     action_eps (``check_rollout``'s tolerances; d action_eps per particle by
@@ -1674,54 +1888,73 @@ def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
     rows 3 and 5 (``hold_refit``); ``groups`` as ``critic_problem``, the
     rollout's outputs then held against the plain version in float64
     (``float64``; the refit's against the float32 one, whose Adam step
-    ``hold_adam`` measures). Returns the largest error of each row."""
+    ``hold_adam`` measures); ``components`` as ``rollout_problem``, a
+    mixture head held through ``held_against``. Returns the largest error
+    of each row."""
     kloss, kvg, plain, pp, leaves, args, extras, (_, _, _, update) = \
-        critic_problem(B, B + 11, mm, head, H, tau, drop=drop, groups=groups)
+        critic_problem(B, B + 11, mm, head, H, tau, drop=drop, groups=groups,
+                       components=components)
     ref_fn = float64(plain) if groups else plain
     got, gaux = critic_outputs(kloss, pp, leaves, args, extras)
-    ref, raux = critic_outputs(ref_fn, pp, leaves, args, extras)
-    moved, maux = critic_outputs(ref_fn, pp, leaves, args, extras, 1 + 1e-6)
     vl, vm, vgrads, vaux = kvg(pp, *args, extras=extras)
     vaux = aux_flat(vaux)
-    vref, vraux = critic_outputs(ref_fn, pp, leaves, args, extras,
-                                 g=(1.0, 0.0))
-    vmoved, vmaux = critic_outputs(ref_fn, pp, leaves, args, extras,
-                                   1 + 1e-6, g=(1.0, 0.0))
     f32 = ''
-    if groups:  # the refit against the float32 plain version
-        ref32, raux = critic_outputs(plain, pp, leaves, args, extras)
-        f32 = (', the float32 plain version\'s from it '
-               + f'{max(rel_err(a, r) for a, r in zip(ref32[2:], ref[2:])):.3e}')
-        maux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6)[1]
-        vraux = critic_outputs(plain, pp, leaves, args, extras,
-                               g=(1.0, 0.0))[1]
-        vmaux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6,
-                               g=(1.0, 0.0))[1]
-    torch.cuda.synchronize()
+
+    def plain_outputs():
+        nonlocal f32
+        ref, raux = critic_outputs(ref_fn, pp, leaves, args, extras)
+        moved, maux = critic_outputs(ref_fn, pp, leaves, args, extras,
+                                     1 + 1e-6)
+        vref, vraux = critic_outputs(ref_fn, pp, leaves, args, extras,
+                                     g=(1.0, 0.0))
+        vmoved, vmaux = critic_outputs(ref_fn, pp, leaves, args, extras,
+                                       1 + 1e-6, g=(1.0, 0.0))
+        if groups:  # the refit against the float32 plain version
+            ref32, raux = critic_outputs(plain, pp, leaves, args, extras)
+            worst = max(rel_err(a, r) for a, r in zip(ref32[2:], ref[2:]))
+            f32 = f', the float32 plain version\'s from it {worst:.3e}'
+            maux = critic_outputs(plain, pp, leaves, args, extras,
+                                  1 + 1e-6)[1]
+            vraux = critic_outputs(plain, pp, leaves, args, extras,
+                                   g=(1.0, 0.0))[1]
+            vmaux = critic_outputs(plain, pp, leaves, args, extras, 1 + 1e-6,
+                                   g=(1.0, 0.0))[1]
+        return ref, raux, moved, maux, vref, vraux, vmoved, vmaux
+
     n = len(leaves)
     labels = (['loss', 'mean_return']
               + [f'd pol leaf {i}' for i in range(n)] + ['d eps'])
-    checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
-               zip(labels[:2], got[:2], ref[:2], moved[:2])]
-              + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
-                 zip(labels[2:], got[2:], ref[2:], moved[2:])]
-              + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
-                 zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref[:-1],
-                     vmoved[:-1])])
     names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
-    here = {nm: 0.0 for nm in names}
     what = (f'critic ({head}, {drop} dropout, H={H}, polyak {tau}) rollout '
             f'B={B} mm {"on" if mm else "off"}'
-            + (f' mm_groups={groups}' if groups else ''))
-    for kern, lab, a, r, m in checks:
-        check = hold_rows if lab == 'd eps' and B >= 1000 else hold
-        err = check(f'{what} {kern} {lab}', a, r, STEP_TOL, m)[0]
-        here[kern] = max(here[kern], err)
-    first = int(extras[2].count)
-    refit = {}
-    for kern, (a, r, m) in (('fused_rollout_fwd', (gaux, raux, maux)),
-                            ('fused_rollout_vg', (vaux, vraux, vmaux))):
-        refit[kern] = hold_refit(f'{what} {kern}', a, r, m, update, first)
+            + (f' mm_groups={groups}' if groups else '')
+            + (f' mixture K={components}' if components else ''))
+
+    def hold_all(outs):
+        ref, raux, moved, maux, vref, vraux, vmoved, vmaux = outs
+        torch.cuda.synchronize()
+        checks = ([('fused_rollout_fwd', lab, a, r, m) for lab, a, r, m in
+                   zip(labels[:2], got[:2], ref[:2], moved[:2])]
+                  + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
+                     zip(labels[2:], got[2:], ref[2:], moved[2:])]
+                  + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
+                     zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)],
+                         vref[:-1], vmoved[:-1])])
+        here = {nm: 0.0 for nm in names}
+        for kern, lab, a, r, m in checks:
+            check = hold_rows if lab == 'd eps' and B >= 1000 else hold
+            err = check(f'{what} {kern} {lab}', a, r, STEP_TOL, m)[0]
+            here[kern] = max(here[kern], err)
+        first = int(extras[2].count)
+        refit = {}
+        for kern, (a, r, m) in (('fused_rollout_fwd', (gaux, raux, maux)),
+                                ('fused_rollout_vg', (vaux, vraux, vmaux))):
+            refit[kern] = hold_refit(f'{what} {kern}', a, r, m, update,
+                                     first)
+        return here, refit, ref, raux
+
+    here, refit, ref, raux = held_against(what, plain_outputs, MAIN_T,
+                                          hold_all)
     if groups:
         f32 = ('; grads from the float64 plain version, relative to its '
                f'max: the kernel\'s (row 4) '
@@ -1931,6 +2164,50 @@ def phase_env_kernels(rows, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 2m: rows 3-9 with a mixture dynamics head
+# ---------------------------------------------------------------------------
+
+
+def phase_mixture_kernels(rows, card):
+    """Rows 3-9 with a ``GaussianMixtureDensity`` dynamics head (the
+    kernels' ``StepArgs::K``) against their plain versions, each pick on an
+    edge allowed to differ (``held_against``): Cartpole's shapes with K = 2
+    (``--dyn_components 2``, a head of 23) and K = fr.MAX_K = 5 (a head of
+    56), rows 3-7 at B = 100 (3-5 with the reward mean-only shortcut and
+    without) and rows 8-9 at B = 1000; rows 3-5 at B = 100 with K = 2 and a
+    learned reward (a head of 27), grouped MM (G = 10) and the critic refit
+    (B = 100, no MM, phase 2c's first case). Each row's time, its bound and
+    its plain version's time at both K beside the diagonal head's from
+    this call (``rows``) and the card's name and power limit (``card``)."""
+    for K in (2, fr.MAX_K):
+        check_step(MAIN_B, tag='phase 2m', components=K)
+        for mean_only in (True, False):
+            check_rollout(MAIN_B, mean_only, tag='phase 2m', components=K)
+        check_grid(GRID_B, True, tag='phase 2m', components=K)
+    check_rollout(MAIN_B, False, tag='phase 2m', learned=True, components=2)
+    check_rollout(MAIN_B, True, tag='phase 2m', groups=10, components=2)
+    check_critic(MAIN_B, False, tag='phase 2m', components=2)
+    for K in (2, fr.MAX_K):
+        steps, plans = step_timings(MAIN_B, components=K)
+        dyn, pol = env_models('Cartpole', components=K)[:2]
+        log(f'[phase 2m] mixture K={K} launch plans: step B={MAIN_B} '
+            f'{plans}; rollout B={MAIN_B} {k_plan(MAIN_B, components=K)}; '
+            f'grid B={GRID_B} {k_plan(GRID_B, components=K)}; the card '
+            f'holds {fr.rollout_capacity(dyn, pol, "cuda")} particles of '
+            'the whole-rollout kernel at once')
+        times = {**steps, **rollout_timings(split=False, components=K),
+                 **grid_timings(GRID_B, components=K)[0]}
+        for name, v in times.items():
+            B = GRID_B if name.startswith('fused_grid') else MAIN_B
+            log(f'[phase 2m] {name} B={B}: Cartpole mixture K={K} kernel '
+                f'{v["ms"]:.4f} ms beside the diagonal head '
+                f'{rows[name]["ms"]:.4f} ms; plain {v["plain_ms"]:.4f} ms '
+                f'(diagonal {rows[name]["plain_ms"]:.4f}); bound '
+                f'{v["bound_ms"]:.6f} ms ({v["bound_by"]}; diagonal '
+                f'{rows[name]["bound_ms"]:.6f}); {card}')
+
+
+# ---------------------------------------------------------------------------
 # phases 3-7: the routes, the main path among them
 # ---------------------------------------------------------------------------
 
@@ -1951,16 +2228,19 @@ def random_episode(env, steps, seed):
 
 
 def build_models(D, U, max_u, reward_func, hidden=(200, 200),
-                 nonlin='relu'):
+                 nonlin='relu', components=0):
     """The Deep-PILCO examples' default models (by default [200, 200] relu
     MLPs), concrete dropout 0.1 on the dynamics, Bernoulli 0.1 on the
     policy; without ``reward_func`` the dynamics learn the reward (a head of
-    D + 1 outputs)."""
+    D + 1 outputs); with ``components`` K the dynamics head is a mixture of
+    K Gaussians (``--dyn_components K``)."""
     E = D if reward_func is not None else D + 1
+    head = (GaussianMixtureDensity(E, components) if components
+            else DiagGaussianDensity(E))
     dyn = DynamicsModel(
-        Regressor(MLPSpec(D + U, 2 * E, hidden, dropout=cdropout(0.1),
+        Regressor(MLPSpec(D + U, head.n_inputs, hidden, dropout=cdropout(0.1),
                           nonlin=nonlin),
-                  DiagGaussianDensity(E)),
+                  head),
         reward_func=reward_func)
     pol = Policy(MLPSpec(D, 2 * U, hidden, dropout=bdropout(0.1),
                          nonlin=nonlin),
@@ -2035,16 +2315,18 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
         raise AssertionError('kernel path and plain path disagree')
 
 
-def main_path_setup(seed=SEED):
+def main_path_setup(seed=SEED, components=0):
     """The main path's models, parameters, stats, x0 pool and initial-state
-    noise: Cartpole, one 40-step random-action episode, seeded weights."""
+    noise: Cartpole, one 40-step random-action episode, seeded weights
+    (``components`` K: a mixture dynamics head of K Gaussians)."""
     env = envs.make('Cartpole', device='cuda')
     obs, acts = random_episode(env, 40, seed)
     D, U = obs.shape[1], acts.shape[1]
     X = torch.tensor(np.concatenate([obs[:-1], acts], 1), device='cuda')
     Y = torch.tensor(obs[1:] - obs[:-1], device='cuda')
     x0_pool = torch.tensor(obs, device='cuda')
-    dyn, pol = build_models(D, U, env.action_space.high, env.reward_func)
+    dyn, pol = build_models(D, U, env.action_space.high, env.reward_func,
+                            components=components)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
@@ -2095,13 +2377,14 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
 
 
 def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
-                   T=MAIN_T, B=MAIN_B, groups=None):
+                   T=MAIN_T, B=MAIN_B, groups=None, components=0):
     """``mc_pilco`` for ``iters`` iterations by the route ``fused_rollout``
-    picks (MM per group of B / groups with ``groups``), whose tier the gate
-    must name ``tier``, then one iteration through ``MCPILCO.loss`` on that
-    route against the plain path. Returns the launch counts of the run:
-    every count is set to 0 just before it and read just after."""
-    setup = main_path_setup(seed)
+    picks (MM per group of B / groups with ``groups``; a mixture dynamics
+    head of ``components``), whose tier the gate must name ``tier``, then
+    one iteration through ``MCPILCO.loss`` on that route against the plain
+    path. Returns the launch counts of the run: every count is set to 0
+    just before it and read just after."""
+    setup = main_path_setup(seed, components)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                         mm_rewards=True, mm_groups=groups,
@@ -2125,7 +2408,9 @@ def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
     if n_steps != iters:
         raise AssertionError(f'{n_steps} steps for {iters} iterations')
     report(tag, f'mc_pilco fused_rollout={fused_rollout}'
-           + (f' mm_groups={groups}' if groups else ''), iters, t0, stamps,
+           + (f' mm_groups={groups}' if groups else '')
+           + (f' dyn_components={components}' if components else ''),
+           iters, t0, stamps,
            metrics['loss'], metrics['mean_return'], launches, want, T, B)
     log(f'[{tag}] tier {opt.tier("cuda")}')
     compare_paths((dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool,
@@ -2795,13 +3080,16 @@ def phase_env_episodes():
     """Phase 9: one full-width episode of the same driver and cuts on each
     of ENV_EPISODE_ENVS (``run_episodes``; the fit ENV_FIT_ITERS steps),
     then one on Cartpole with ``--learn_reward`` (whose policy iterations
-    the whole-rollout kernel takes with the learned reward, kind 3), each
+    the whole-rollout kernel takes with the learned reward, kind 3) and one
+    with ``--dyn_components 2`` (the mixture head in rows 1-2's fit and in
+    row 5), each
     checked by one fit step and one policy iteration (row 5) against their
     plain paths; the lander's run then replayed by ``evaluate_policy``.
     Logs which class ``make('LunarLander')`` gives and each run's fit ms a
     step and policy ms an iteration."""
     runs = [(env, ['-e', env]) for env in ENV_EPISODE_ENVS]
     runs.append(('Cartpole --learn_reward', ['--learn_reward']))
+    runs.append(('Cartpole --dyn_components 2', ['--dyn_components', '2']))
     for name, argv in runs:
         tag = f'phase 9 {name}'
         if name == 'LunarLander':
@@ -2828,8 +3116,10 @@ def phase_env_episodes():
 # ---------------------------------------------------------------------------
 
 SHARD_TIMEOUT = 300  # seconds a call to the ranks may take before it fails
-K8_CASES = ((2, GROUPS_MAIN, True), (4, 2 * GROUPS_MAIN, True),
-            (2, None, False))  # (ranks, mm_groups, moment matching)
+# (ranks, mm_groups, moment matching, mixture components: 0 a diagonal
+# head)
+K8_CASES = ((2, GROUPS_MAIN, True, 0), (4, 2 * GROUPS_MAIN, True, 0),
+            (2, None, False, 0), (2, GROUPS_MAIN, True, 2))
 SHARD_ROUTE_ITERS = 5  # phase 11c: iterations of the sharded route
 SHARD_FIT_ITERS = 200  # phase 11e: the episode's fit steps
 SHARD_POL_ITERS = 100  # phase 11e: its policy iterations
@@ -2849,11 +3139,12 @@ def reset_shard_counts():
     tpar.reset_collective_counts()
 
 
-def k8_rank(mesh, inputs, w_t, mm_states, mm_rewards, groups):
+def k8_rank(mesh, inputs, w_t, mm_states, mm_rewards, groups, components=0):
     """A rank of phase 11a: K8 on its slices of the global inputs (one call,
-    counted, then timed). Returns (loss, mean_return and the policy grads
-    on the host, launches, all-reduces, ms a call)."""
-    dyn, pol, _, _ = env_models('Cartpole')
+    counted, then timed; a mixture dynamics head of ``components``).
+    Returns (loss, mean_return and the policy grads on the host, launches,
+    all-reduces, ms a call)."""
+    dyn, pol, _, _ = env_models('Cartpole', components=components)
     pp, args = tree_map(lambda t: t.to(mesh.device), inputs)
     x0, dp, st, dn, pn, zm, zr, eps = args
     vg = fr.make_fused_sharded_value_and_grad(
@@ -2873,21 +3164,22 @@ def k8_rank(mesh, inputs, w_t, mm_states, mm_rewards, groups):
     return out, launches, all_reduces, time_launches(call)
 
 
-def k8_case(ranks, n, groups, mm, card):
+def k8_case(ranks, n, groups, mm, card, components=0):
     """Phase 11a, one case: K8 on ``n`` ranks (``groups`` MM groups of B =
-    MAIN_B particles, or no MM) against one unsharded row-5 launch at B =
-    MAIN_B on the same inputs, here, and against the plain version (in
+    MAIN_B particles, or no MM; a mixture dynamics head of ``components``,
+    its noise sliced with the particles) against one unsharded row-5 launch
+    at B = MAIN_B on the same inputs, here, and against the plain version (in
     float64 with groups, as phase 2g holds row 5), each output within
     STEP_TOL of its max or the plain version's sensitivity; exactly one
     ``fused_rollout_vg`` launch and one all-reduce on each rank."""
     _, kvg, plain, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        MAIN_B, 11, groups=groups)
+        MAIN_B, 11, groups=groups, components=components)
     mm_states = mm and args[5] is not None
     if not mm:
         args[5] = args[6] = None
         make = (dyn, pol, MAIN_T, w_t, False, False, True)
         kvg = fr.make_fused_value_and_grad(*make, mode='full')
-        plain = fr.make_loss_plain(*make)
+        plain = fr.make_loss_plain(picking(dyn), *make[1:])
     ref = kvg(pp, *args)
     kref = [ref[0], ref[1], *tree_leaves(ref[2])]
     if groups:
@@ -2897,11 +3189,12 @@ def k8_case(ranks, n, groups, mm, card):
                              g=(1.0, 0.0))[:-1]
     ms_ref = time_launches(lambda: kvg(pp, *args))
     outs = ranks.run(k8_rank, on_host((pp, args)), w_t, mm_states, mm,
-                     groups, timeout=SHARD_TIMEOUT)
+                     groups, components, timeout=SHARD_TIMEOUT)
     what = (f'K8 on {n} ranks, B={MAIN_B} T={MAIN_T} '
             + (f'mm_groups={groups} (states'
                f'{"" if mm_states else " not"} resampled)' if mm
-               else 'no MM'))
+               else 'no MM')
+            + (f' mixture K={components}' if components else ''))
     labels = (['loss', 'mean_return']
               + [f'd pol leaf {i}' for i in range(len(leaves))])
     worst = worst_k = 0.0
@@ -3110,8 +3403,9 @@ def phase_sharded(card, capacity):
         f'{torch.cuda.device_count()}: gloo ranks share card 0')
     with tpar.Ranks(4, 'gloo', 'cuda', timeout=SHARD_TIMEOUT) as ranks4, \
             tpar.Ranks(2, 'gloo', 'cuda', timeout=SHARD_TIMEOUT) as ranks2:
-        for n, groups, mm in K8_CASES:
-            k8_case(ranks2 if n == 2 else ranks4, n, groups, mm, card)
+        for n, groups, mm, components in K8_CASES:
+            k8_case(ranks2 if n == 2 else ranks4, n, groups, mm, card,
+                    components)
         ms = sharded_run(ranks2, 'phase 11b', f'mc_pilco mm_groups='
                          f'{GROUPS_MAIN}', ITERS, GROUPS_MAIN, None, MAIN_B,
                          'full', expect(fused_rollout_vg=ITERS), ITERS,
@@ -3189,6 +3483,8 @@ def main():
     t = lap('phase 2c', t)
     phase_env_kernels(rows, card)
     t = lap('phase 2b', t)
+    phase_mixture_kernels(rows, card)
+    t = lap('phase 2m', t)
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)
     T = MAIN_T
@@ -3210,6 +3506,13 @@ def main():
         fused_step_bwd=T * STEP_ROUTE_ITERS), 'step', B=big_b)
     main_path = phase_mc_pilco(ITERS, None, 'phase 5',
                                expect(fused_rollout_vg=ITERS), 'full')
+    # phase 5m: the main path with --dyn_components 2, the same one launch
+    # an iteration and nothing else
+    phase_mc_pilco(ITERS, None, 'phase 5m', expect(fused_rollout_vg=ITERS),
+                   'full', components=2)
+    log(f'[phase 5m] {ITER_MS["phase 5m"]:.3f} ms an iteration with the '
+        f'mixture head (K=2, a head of 23) beside phase 5\'s '
+        f'{ITER_MS["phase 5"]:.3f} ms (host clock, this call)')
     phase_grouped_paths(capacity)
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))

@@ -113,6 +113,9 @@ struct Lay {
   int s_fwd, s_bwd, s_loss, s_dw, s_dwcta, s_cdw, s_closs, scratch;
   int dw_flat[kMaxLayers + 1];  // offsets of each policy layer's dW + db in a flat partial
   int s_gx;  // scratch: grouped MM's exchange of the state cotangent
+  // a mixture dynamics head's rows [row][TRP] (none for a diagonal head):
+  // its head_width(K, E) outputs, then its noise z_pi (K) and u_cat (1)
+  int mix;
 };
 
 namespace {
@@ -191,6 +194,132 @@ __device__ __forceinline__ void tri_of(int e, int& i, int& j) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// ---- a mixture dynamics head, one row -----------------------------------------
+
+// The pick of one row r of a mixture head of K components over E dims (hd:
+// the tile's mixture rows, Lay::mix), in the plain version's order of
+// operations: temp = 0.1 + softplus(lt), lp = logit / temp, soft =
+// softmax((log_softmax(lp) + z_pi) / 0.1), the hard pick idx = sum_j (u_cat
+// > cumsum(soft)_j) (K past the last sum: no component, as jax.nn.one_hot
+// has it), and the straight-through weights k = (hard - soft) + soft; for
+// the backward also pi = softmax(lp), lp and temp.
+struct MixRow {
+  float k[kMaxK], soft[kMaxK], pi[kMaxK], lp[kMaxK], temp;
+};
+
+__device__ void mix_pick(const float* hd, int TRP, int r, int K, int E, MixRow& m) {
+  const int o = 2 * E * K;  // the logits' first row; the log temperature at o + K
+  m.temp = 0.1f + softplus_f(hd[(o + K) * TRP + r]);
+  float mx = 0.f;
+  for (int j = 0; j < K; ++j) {
+    m.lp[j] = hd[(o + j) * TRP + r] / m.temp;
+    mx = j ? fmaxf(mx, m.lp[j]) : m.lp[j];
+  }
+  float se = 0.f;
+  for (int j = 0; j < K; ++j) se += expf(m.lp[j] - mx);
+  const float lse = logf(se);
+  float y[kMaxK], my = 0.f;
+  for (int j = 0; j < K; ++j) {
+    const float lsm = (m.lp[j] - mx) - lse;
+    m.pi[j] = expf(lsm);
+    y[j] = (lsm + hd[(o + K + 1 + j) * TRP + r]) / 0.1f;
+    my = j ? fmaxf(my, y[j]) : y[j];
+  }
+  float sy = 0.f;
+  for (int j = 0; j < K; ++j) {
+    y[j] = expf(y[j] - my);
+    sy += y[j];
+  }
+  const float u = hd[(o + 2 * K + 1) * TRP + r];
+  float cdf = 0.f;
+  int idx = 0;
+  for (int j = 0; j < K; ++j) {
+    m.soft[j] = y[j] / sy;
+    cdf += m.soft[j];
+    idx += u > cdf ? 1 : 0;
+  }
+  for (int j = 0; j < K; ++j) m.k[j] = ((j == idx ? 1.f : 0.f) - m.soft[j]) + m.soft[j];
+}
+
+// The mixture head's sample of a tile, one thread a row (ts: the tile's
+// small arrays, xp: the states, feature-major): the weights k of each row
+// (mix_pick), then mean = sum_j mean_j k_j and std = exp(sum_j ls_j k_j)
+// of each dim, mean_j = mr_j sy + my and ls_j = upper_clip(lsr_j) + log sy,
+// nxt = s + mean + z std; the output D of a learned reward goes to r.
+// Kept out of line so that a diagonal head's step keeps its registers.
+__device__ __noinline__ void mix_sample(const Step& st, const float* hd, float* ts,
+                                        const float* xp, int TR, int TRP, int nrows) {
+  const int D = st.D, K = st.K, E = head_dims(st.reward_kind, D);
+  for (int r = threadIdx.x; r < TR; r += blockDim.x) {
+    const bool in = r < nrows;
+    MixRow m;
+    if (in) mix_pick(hd, TRP, r, K, E, m);
+    for (int e = 0; e < E; ++e) {
+      float mean = 0.f, ls = 0.f;
+      for (int j = 0; j < K && in; ++j) {
+        const float mr = hd[(e * K + j) * TRP + r], lsr = hd[(E * K + e * K + j) * TRP + r];
+        mean += (mr * st.sy[e] + st.my[e]) * m.k[j];
+        ls += (upper_clip(lsr, st.dyn_upper) + logf(st.sy[e])) * m.k[j];
+      }
+      const float v = in ? mean + ts[(kTZd + e) * TRP + r] * expf(ls) : 0.f;
+      if (e < D)
+        ts[(kTNxt + e) * TRP + r] = in ? xp[e * TRP + r] + v : 0.f;
+      else
+        ts[kTR * TRP + r] = v;
+    }
+  }
+}
+
+// The mixture head's VJP of a tile, one thread a row, into X (the gradient
+// wrt the dynamics MLP's outputs; g_r: the rewards' cotangent, for a
+// learned reward's output D): with gls_e = g_e z_e std_e, mean_j's raw
+// output gets g_e k_j sy_e and lsr_j gets gls_e k_j upper_clip'(lsr_j); the
+// weights' cotangent dk_j = sum_e g_e mean_ej + gls_e ls_ej goes through the
+// softmax (and its 1 / 0.1), log_softmax and lp = logit / temp into the
+// logits and, through temp = 0.1 + softplus(lt), into lt (none through the
+// hard pick).
+__device__ __noinline__ void mix_vjp(const Step& st, const float* hd, const float* ts,
+                                     const float* g_r, float* X, int TR, int TRP, int nrows) {
+  const int D = st.D, K = st.K, E = head_dims(st.reward_kind, D), o = 2 * E * K;
+  for (int r = threadIdx.x; r < TR; r += blockDim.x) {
+    if (r >= nrows) {
+      for (int i = 0; i <= o + K; ++i) X[i * TRP + r] = 0.f;
+      continue;
+    }
+    MixRow m;
+    mix_pick(hd, TRP, r, K, E, m);
+    float gk[kMaxK];
+    for (int j = 0; j < K; ++j) gk[j] = 0.f;
+    for (int e = 0; e < E; ++e) {
+      const float g = e < D ? ts[(kTGnxt + e) * TRP + r] : g_r[r];
+      const float lsy = logf(st.sy[e]);
+      float ls = 0.f;
+      for (int j = 0; j < K; ++j)
+        ls += (upper_clip(hd[(E * K + e * K + j) * TRP + r], st.dyn_upper) + lsy) * m.k[j];
+      const float gls = (g * ts[(kTZd + e) * TRP + r]) * expf(ls);
+      for (int j = 0; j < K; ++j) {
+        const float mr = hd[(e * K + j) * TRP + r], lsr = hd[(E * K + e * K + j) * TRP + r];
+        X[(e * K + j) * TRP + r] = g * m.k[j] * st.sy[e];
+        X[(E * K + e * K + j) * TRP + r] = gls * m.k[j] * sigmoid_f(st.dyn_upper - lsr);
+        gk[j] += g * (mr * st.sy[e] + st.my[e]) + gls * (upper_clip(lsr, st.dyn_upper) + lsy);
+      }
+    }
+    float dot = 0.f, sl = 0.f, gt = 0.f;
+    for (int j = 0; j < K; ++j) dot += gk[j] * m.soft[j];
+    float glsm[kMaxK];
+    for (int j = 0; j < K; ++j) {
+      glsm[j] = m.soft[j] * (gk[j] - dot) / 0.1f;
+      sl += glsm[j];
+    }
+    for (int j = 0; j < K; ++j) {
+      const float glp = glsm[j] - m.pi[j] * sl;
+      X[(o + j) * TRP + r] = glp / m.temp;
+      gt -= glp * m.lp[j];
+    }
+    X[(o + K) * TRP + r] = gt / m.temp * sigmoid_f(hd[(o + K) * TRP + r]);
+  }
 }
 
 // ---- the MLP walks of one row tile, split over the cluster -----------------
@@ -655,10 +784,17 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
     cp_async4(ts + (kTZp + k) * TRP + r, st.z_pol + (size_t)(row0 + r) * U + k);
     if (eps_t) cp_async4(ts + (kTEps + k) * TRP + r, eps_t + (size_t)(row0 + r) * U + k);
   }
-  const int E = head_dims(st.reward_kind, D);
+  const int E = head_dims(st.reward_kind, D), K = st.K;
   for (int e = tid; e < nrows * E; e += nt) {
     const int r = e / E, k = e - r * E;
     cp_async4(ts + (kTZd + k) * TRP + r, st.z_dyn + (size_t)(row0 + r) * E + k);
+  }
+  float* hd = c.sm + c.lay.mix;  // a mixture head's rows, then its noise
+  const int hw = head_width(K, E);
+  for (int e = tid; e < nrows * (K + 1) && K; e += nt) {
+    const int r = e / (K + 1), k = e - r * (K + 1);
+    cp_async4(hd + (hw + k) * TRP + r,
+              k < K ? st.z_pi + (size_t)(row0 + r) * K + k : st.u_cat + row0 + r);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (int e = tid; e < D * TR; e += nt) {
@@ -688,8 +824,10 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
     xd[k * TRP + r] = v;
   }
   __syncthreads();
-  mlp_fwd<kReluOnly>(c, st.dyn, 1, c.lay.xd, keep, c.lay.tsm + kTDout * TRP, row0, nrows);
-  for (int e = tid; e < TR * D; e += nt) {
+  mlp_fwd<kReluOnly>(c, st.dyn, 1, c.lay.xd, keep, K ? c.lay.mix : c.lay.tsm + kTDout * TRP,
+                     row0, nrows);
+  if (K) mix_sample(st, hd, ts, xp, TR, TRP, nrows);
+  for (int e = tid; e < TR * D && !K; e += nt) {
     const int r = e / D, k = e - r * D;
     const float mr = ts[(kTDout + k) * TRP + r], lsr = ts[(kTDout + E + k) * TRP + r];
     const float ls = upper_clip(lsr, st.dyn_upper) + logf(st.sy[k]);
@@ -702,6 +840,7 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
   __syncthreads();
   for (int r = tid; r < TR; r += nt) {
     if (st.reward_kind == kLearnedReward) {  // the head's output D, as a state's delta
+      if (K) continue;  // sampled above
       const float mr = ts[(kTDout + D) * TRP + r], lsr = ts[(kTDout + E + D) * TRP + r];
       const float ls = upper_clip(lsr, st.dyn_upper) + logf(st.sy[D]);
       const float mean = mr * st.sy[D] + st.my[D];
@@ -802,7 +941,9 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   // a learned reward, r = mean_D * sy_D + my_D + z_D exp(...), is output D,
   // with the cotangent g_r
   float* X = c.region(c.pass + 1);
-  for (int e = tid; e < TR * E; e += nt) {
+  const int K = st.K;
+  if (K) mix_vjp(st, c.sm + c.lay.mix, ts, g_r, X, TR, TRP, nrows);
+  for (int e = tid; e < TR * E && !K; e += nt) {
     const int r = e / E, k = e - r * E;
     const float g = k < D ? ts[(kTGnxt + k) * TRP + r] : (r < nrows ? g_r[r] : 0.f);
     const float lsr = ts[(kTDout + E + k) * TRP + r];
@@ -919,7 +1060,8 @@ int net_kwmax(const Net& net) {
 // with bwd and resident weights the policy's dW accumulator; every layer's
 // bias; two exchange regions; the layer-input slice; both MLPs' whole inputs
 // and the gradient wrt one; the tile's mask slices of the hidden layers and,
-// with bwd, the kept pre-activation slices; the tile's small arrays. With a
+// with bwd, the kept pre-activation slices; the tile's small arrays and a
+// mixture head's rows (Lay::mix: its outputs and noise). With a
 // critic (bwd only) the widths of its layers count in the exchange regions
 // and the layer-input slice, and its kept pre-activation and mask slices
 // share the policy's and the dynamics' room (the walks of the three never
@@ -1001,6 +1143,8 @@ long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L,
   off = max(off, ends[2]);
   L.tsm = static_cast<int>(off);
   off += (long long)kTSmall * TRP;
+  L.mix = static_cast<int>(off);
+  if (st.K) off += (long long)(st.dyn.dims[st.dyn.n + 1] + st.K + 1) * TRP;
   return off;
 }
 

@@ -8,7 +8,9 @@
 // The step (make_step_impl of prob_mbrl_tpu/ops/pallas/fused_rollout.py,
 // :1079-1129):
 //   policy MLP -> DiagGaussian sample -> max_u * tanh(.) + eps
-//   -> whitened cat(s, a) -> dynamics MLP -> scaled DiagGaussian sample
+//   -> whitened cat(s, a) -> dynamics MLP -> scaled DiagGaussian sample, or
+//      a GaussianMixtureDensity's straight-through pick of one of its K
+//      scaled components (Gumbel-softmax weights, inverse-CDF hard pick)
 //   -> nxt = s + delta -> the reward on the pre-MM nxt (JAX calls the env's
 //      reward closure there, :579 and :1122; here one of three kinds: two of
 //      the linear tip M nxt, the exp-quadratic tip reward of the swing-up
@@ -27,6 +29,7 @@ constexpr int kMaxD = 8;     // state dims
 constexpr int kMaxU = 4;     // action dims
 constexpr int kMaxTip = 4;   // coordinates of the reward's tip
 constexpr int kTries = 8;    // jitters of the safe Cholesky
+constexpr int kMaxK = 5;     // components of a mixture dynamics head
 
 // StepArgs::reward_kind, with d = (M nxt - target) / norm:
 constexpr int kExpQuadReward = 0;  // r = exp(-0.5 (q |d|^2 + r_u |a|^2))
@@ -58,18 +61,22 @@ struct MlpArgs {
 struct StepArgs {
   int B, D, U, ntip;
   int reward_kind;      // kExpQuadReward, kQuadReward, kLanderReward or kLearnedReward
+  int K;                // components of a mixture dynamics head; 0: diagonal
   MlpArgs pol, dyn;
   const float* states;  // [B, D]
   const float* eps;     // [B, U] or null (zero)
   const float* z_pol;   // [B, U] policy density noise
   const float* z_dyn;   // [B, E] dynamics density noise (E = D, or D + 1 with
-                        //   kLearnedReward: the head's outputs)
+                        //   kLearnedReward: the head's outputs); a mixture's
+                        //   z_normal
   const float* mx;      // [D + U] input whitening: (x - mx) * isx
   const float* isx;
   const float* my;      // [E] output scaling: mean * sy + my, log_std + log(sy)
   const float* sy;
   const float* z_mm;    // [B, D] standardized MM noise of this step (or null)
   const float* z_rr;    // [B, 1]
+  const float* z_pi;    // [B, K] a mixture's Gumbel noise (or null)
+  const float* u_cat;   // [B, 1] a mixture's uniform of the hard pick (or null)
   float pol_upper, dyn_upper;  // log(max_noise_std) of each density
   float act_scale[kMaxU], act_bias[kMaxU];
   float tip[kMaxTip * kMaxD];  // tip = tip_matrix @ nxt, [ntip, D] row-major
@@ -83,8 +90,8 @@ namespace {
 
 struct Step {
   Net pol, dyn;
-  int B, D, U, ntip, reward_kind;
-  const float *states, *eps, *z_pol, *z_dyn, *mx, *isx, *my, *sy, *z_mm, *z_rr;
+  int B, D, U, ntip, reward_kind, K;
+  const float *states, *eps, *z_pol, *z_dyn, *mx, *isx, *my, *sy, *z_mm, *z_rr, *z_pi, *u_cat;
   float pol_upper, dyn_upper;
   float act_scale[kMaxU], act_bias[kMaxU];
   float tip[kMaxTip * kMaxD], target[kMaxTip];
@@ -154,6 +161,13 @@ __device__ __forceinline__ void lander_reward_vjp(const float* x, const float* a
 // them where it is learned.
 __host__ __device__ __forceinline__ int head_dims(int reward_kind, int D) {
   return reward_kind == kLearnedReward ? D + 1 : D;
+}
+
+// The dynamics MLP's outputs for E head dims: a diagonal head's means and
+// raw log-stds (2 E); a mixture's K means and raw log-stds of each dim (laid
+// out [E][K]: entry (e, j) at e K + j), K logits and the log temperature.
+__host__ __device__ __forceinline__ int head_width(int K, int E) {
+  return K ? 2 * E * K + K + 1 : 2 * E;
 }
 
 // ---- moment matching: the factor and the adjoint, on one thread -----------
@@ -261,20 +275,22 @@ bool fill_mlp(Net& net, const MlpArgs& a, int B) {
 bool fill_step(Step& st, const StepArgs* a) {
   if (!a || a->B < 2 || a->D < 1 || a->D > kMaxD || a->U < 1 || a->U > kMaxU
       || a->ntip < 0 || a->ntip > kMaxTip
-      || a->reward_kind < kExpQuadReward || a->reward_kind > kLearnedReward)
+      || a->reward_kind < kExpQuadReward || a->reward_kind > kLearnedReward
+      || a->K < 0 || a->K > kMaxK)
     return false;
   if (a->reward_kind == kLanderReward && (a->D != 8 || a->U != 2 || a->ntip != 0)) return false;
   if (a->reward_kind == kLearnedReward && a->ntip != 0) return false;
   if (!fill_mlp(st.pol, a->pol, a->B) || !fill_mlp(st.dyn, a->dyn, a->B)) return false;
   const int D = a->D, U = a->U, E = head_dims(a->reward_kind, D);
   if (st.pol.dims[0] != D || st.pol.dims[st.pol.n + 1] != 2 * U
-      || st.dyn.dims[0] != D + U || st.dyn.dims[st.dyn.n + 1] != 2 * E)
+      || st.dyn.dims[0] != D + U || st.dyn.dims[st.dyn.n + 1] != head_width(a->K, E))
     return false;
   st.B = a->B;
   st.D = D;
   st.U = U;
   st.ntip = a->ntip;
   st.reward_kind = a->reward_kind;
+  st.K = a->K;
   st.states = a->states;
   st.eps = a->eps;
   st.z_pol = a->z_pol;
@@ -285,7 +301,10 @@ bool fill_step(Step& st, const StepArgs* a) {
   st.sy = a->sy;
   st.z_mm = a->z_mm;
   st.z_rr = a->z_rr;
+  st.z_pi = a->z_pi;
+  st.u_cat = a->u_cat;
   if (!st.states || !st.z_pol || !st.z_dyn || !st.mx || !st.isx || !st.my || !st.sy) return false;
+  if (st.K && (!st.z_pi || !st.u_cat)) return false;
   st.pol_upper = a->pol_upper;
   st.dyn_upper = a->dyn_upper;
   for (int k = 0; k < kMaxU; ++k) {

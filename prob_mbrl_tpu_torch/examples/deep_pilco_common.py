@@ -36,6 +36,7 @@ from .. import models
 from .. import parallel
 from ..algorithms.mc_pilco import derive_seed, mc_pilco, seeded_generator
 from ..algorithms.value import Adam, make_value_update_fn
+from ..ops.cuda import fused_rollout
 from ..utils.apply_controller import apply_controller
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, save_pytree
 from ..utils.core import resolve_device, tree_leaves, tree_map
@@ -49,15 +50,23 @@ _INIT, _FIT, _POL = 0xD1, 0xD2, 0xD3
 
 def build_models(D, U, maxU, minU, args, learn_reward, reward_func):
     """Dynamics and policy specs from the flags: a concrete-dropout
-    ``--dyn_shape`` MLP with a diagonal-Gaussian head (of D + 1 outputs with
-    a learned reward) and a Bernoulli-dropout ``--pol_shape`` policy squashed
-    to the action bounds."""
+    ``--dyn_shape`` MLP with a diagonal-Gaussian head, or a mixture of
+    ``--dyn_components`` of them (of D + 1 outputs with a learned reward),
+    and a Bernoulli-dropout ``--pol_shape`` policy squashed to the action
+    bounds. ``--dtype bfloat16`` runs both MLPs' linear layers on bf16
+    operands (params, sums, heads float32)."""
+    compute_dtype = 'bfloat16' if args.dtype == 'bfloat16' else None
     dynE = D + 1 if learn_reward else D
-    output_density = models.DiagGaussianDensity(dynE)
+    if args.dyn_components > 1:
+        output_density = models.GaussianMixtureDensity(dynE,
+                                                       args.dyn_components)
+    else:
+        output_density = models.DiagGaussianDensity(dynE)
     dyn_mlp = models.MLPSpec(
         D + U, output_density.n_inputs, tuple(args.dyn_shape),
         dropout=(models.cdropout(args.dyn_drop_rate)
-                 if args.dyn_drop_rate > 0 else None))
+                 if args.dyn_drop_rate > 0 else None),
+        compute_dtype=compute_dtype)
     dyn = models.DynamicsModel(
         regressor=models.Regressor(mlp=dyn_mlp,
                                    output_density=output_density),
@@ -67,7 +76,8 @@ def build_models(D, U, maxU, minU, args, learn_reward, reward_func):
     pol_mlp = models.MLPSpec(
         D, pol_density.n_inputs, tuple(args.pol_shape),
         dropout=(models.bdropout(args.pol_drop_rate)
-                 if args.pol_drop_rate > 0 else None))
+                 if args.pol_drop_rate > 0 else None),
+        compute_dtype=compute_dtype)
     pol = models.Policy(mlp=pol_mlp, output_density=pol_density,
                         max_u=tuple(maxU), min_u=tuple(minU))
     return dyn, pol
@@ -207,6 +217,10 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     discount = driver_discount(args)
 
     dyn, pol = build_models(D, U, maxU, minU, args, learn_reward, reward_func)
+    why = fused_rollout.kernel_refuses(dyn, pol)
+    if why is not None and args.fused_rollout != 'off':
+        say(f'[{experiment_name}] the rollout kernels do not take these '
+            f'models ({why}): the policy loop takes the utils.rollout route')
 
     gen = seeded_generator(device, args.seed, _INIT)
     dyn_params = dyn.init(gen, device=device)

@@ -1,14 +1,19 @@
 """Dropout-regularized MLPs as init/apply over a params dict
 (counterpart of ``prob_mbrl_tpu/models/mlp.py``).
 
-Per hidden layer: Linear -> nonlin -> [Dropout]; optional input dropout; final
-Linear. Weights keep the JAX layout ``(din, dout)`` and the JAX names
-(``linear_{i}/w|b``, ``linear_out``, ``drop_{i}/logit_p``), so converting a JAX
-params tree is a name-for-name copy. ``apply`` maps [..., input_dims] to
-[..., output_dims]; dropout noise carries matching batch dims.
+Per hidden layer: Linear -> [LayerNorm] -> nonlin -> [Dropout]; optional
+input dropout; final Linear. Weights keep the JAX layout ``(din, dout)`` and
+the JAX names (``linear_{i}/w|b``, ``linear_{i}/sn_u|sn_scale`` with spectral
+norm, ``ln_{i}/scale|bias``, ``linear_out``, ``drop_{i}/logit_p``), so
+converting a JAX params tree is a name-for-name copy. ``apply`` maps [...,
+input_dims] to [..., output_dims]; dropout noise carries matching batch dims.
 
-Not ported yet (raise NotImplementedError): layer norm, spectral norm and a
-bf16 ``compute_dtype``.
+``compute_dtype`` (e.g. ``'bfloat16'``) runs the linear layers on operands
+rounded to that dtype with float32 accumulation and bias, narrows each hidden
+layer's epilogue back to it, and returns float32; parameters, layer-norm
+statistics and the heads stay float32. The fused kernel
+(``ops.cuda.fused_mlp``) takes none of layer norm, spectral norm and
+``compute_dtype``: they run on the unfused path.
 """
 import dataclasses
 import math
@@ -20,6 +25,9 @@ from ..ops.cuda import fused_mlp as fm
 from ..utils.core import resolve_device
 from . import activations as act_lib
 from .dropout import BernoulliDropoutSpec, ConcreteDropoutSpec, DropoutSpec
+
+BF16_KERNEL_ITEM = ('ROADMAP.md Queue 2: bf16 operands in the fused MLP, '
+                    'rows 1-2')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +45,14 @@ class MLPSpec:
     output_biases: bool = True
     weight_gain: float = 1.4142135623730951  # relu gain, sqrt(2)
     bias_init_scale: float = 0.1  # uniform(-scale, scale)
-    compute_dtype: Optional[str] = None
+    compute_dtype: Optional[Union[str, torch.dtype]] = None
+    # spectral normalization of the linear weights: w_sn = sn_max_K *
+    # sigmoid(sn_scale) * w / sigma(w), sigma from sn_iters power iterations
+    # from the stored sn_u (no gradient through the iterations)
     spectral_norm: bool = False
     spectral_norm_output: bool = False
+    sn_max_K: float = 10.0
+    sn_iters: int = 1
     # The fused CUDA kernel for the whole Linear/activation/mask chain
     # (``ops.cuda.fused_mlp``). None = on for CUDA inputs when the kernel
     # takes the configuration; True = always (the plain version of the
@@ -59,11 +72,16 @@ class MLPSpec:
                                          ConcreteDropoutSpec)):
             dp = (dp,) * n
         object.__setattr__(self, 'dropout', tuple(dp))
-        if self.layer_norm or self.spectral_norm or self.spectral_norm_output:
-            raise NotImplementedError('layer norm and spectral norm are not '
-                                      'ported yet')
-        if self.compute_dtype is not None:
-            raise NotImplementedError('compute_dtype (bf16) is not ported yet')
+        self._compute_dtype()  # a dtype torch has, or raise
+        if self.fused is True and (self.layer_norm or self.spectral_norm
+                                   or self.spectral_norm_output):
+            raise ValueError('fused=True but the fused kernel takes neither '
+                             'layer norm nor spectral norm')
+        if self.fused is True and self.compute_dtype is not None:
+            raise NotImplementedError(
+                f'fused=True with compute_dtype={self.compute_dtype!r}: the '
+                'fused kernel\'s low-precision operands are not ported yet '
+                f'({BF16_KERNEL_ITEM})')
         if self.fused is True and not self._kernel_takes_it():
             raise ValueError(
                 'fused=True but the fused kernel does not take this MLP: it '
@@ -77,7 +95,7 @@ class MLPSpec:
         dims = (self.input_dims,) + self.hidden_dims
         params = {}
 
-        def linear(din, dout, bias):
+        def linear(din, dout, bias, sn=False):
             std = self.weight_gain * math.sqrt(2.0 / (din + dout))
             p = {'w': std * torch.randn((din, dout), generator=generator,
                                         dtype=dtype, device=device)}
@@ -85,17 +103,28 @@ class MLPSpec:
                 u = torch.rand((dout,), generator=generator, dtype=dtype,
                                device=device)
                 p['b'] = (2 * u - 1) * self.bias_init_scale
+            if sn:  # the power iteration's vector and the trainable scale
+                u = torch.randn((din,), generator=generator, dtype=dtype,
+                                device=device)
+                p['sn_u'] = u / (torch.linalg.norm(u) + 1e-12)
+                p['sn_scale'] = torch.zeros((1,), dtype=dtype, device=device)
             return p
 
         if self.input_dropout is not None:
             params['drop_in'] = self.input_dropout.init(self.input_dims, dtype,
                                                         device)
         for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
-            params[f'linear_{i}'] = linear(din, dout, self.hidden_biases)
+            params[f'linear_{i}'] = linear(din, dout, self.hidden_biases,
+                                           self.spectral_norm)
+            if self.layer_norm:
+                params[f'ln_{i}'] = {
+                    'scale': torch.ones((dout,), dtype=dtype, device=device),
+                    'bias': torch.zeros((dout,), dtype=dtype, device=device)}
             if self.dropout[i] is not None:
                 params[f'drop_{i}'] = self.dropout[i].init(dout, dtype, device)
         params['linear_out'] = linear(dims[-1], self.output_dims,
-                                      self.output_biases)
+                                      self.output_biases,
+                                      self.spectral_norm_output)
         return params
 
     # ---- noise ------------------------------------------------------------
@@ -114,7 +143,21 @@ class MLPSpec:
         return noise
 
     # ---- forward ----------------------------------------------------------
+    def _compute_dtype(self):
+        """The torch dtype of ``compute_dtype`` (None for float32)."""
+        cdt = self.compute_dtype
+        if cdt is None or isinstance(cdt, torch.dtype):
+            return cdt
+        dt = getattr(torch, str(cdt), None)
+        if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+            raise ValueError(f'compute_dtype {cdt!r} is not a floating '
+                             'torch dtype')
+        return dt
+
     def _kernel_takes_it(self):
+        if (self.layer_norm or self.spectral_norm or self.spectral_norm_output
+                or self.compute_dtype is not None):
+            return False
         dims = (self.input_dims,) + self.hidden_dims + (self.output_dims,)
         return fm.fused_mlp_supported(dims, self.nonlin)
 
@@ -154,25 +197,57 @@ class MLPSpec:
         """Forward pass. ``noise=None`` disables dropout (the mean net)."""
         if self._use_fused(x):
             return self._apply_fused(params, x, noise, train)
+        cdt = self._compute_dtype()
 
         def linear(p, h):
-            h = h @ p['w']
-            return h + p['b'] if 'b' in p else h
+            w, b = p['w'], p.get('b')
+            if 'sn_u' in p:
+                # spectral norm: power iterations from the stored vector
+                # with no gradient, differentiable through sigma = u^T w v
+                u, w_ng = p['sn_u'].detach(), w.detach()
+                for _ in range(self.sn_iters):
+                    v = w_ng.T @ u
+                    v = v / (torch.linalg.norm(v) + 1e-12)
+                    u = w_ng @ v
+                    u = u / (torch.linalg.norm(u) + 1e-12)
+                sigma = u @ (w @ v)
+                w = self.sn_max_K * torch.sigmoid(p['sn_scale']) * w / sigma
+            if cdt is not None:
+                # operands rounded to cdt, products and sums in float32
+                # (a matmul of cdt tensors would round its result to cdt
+                # before the bias)
+                h = h.to(cdt).float() @ w.to(cdt).float()
+            else:
+                h = h @ w
+            return h + b if b is not None else h
+
+        def narrow(h):
+            # the epilogue's float32 operands (bias, masks, layer-norm
+            # params) promote; the next layer's input is cdt again
+            return h.to(cdt) if cdt is not None else h
 
         h = x
         if self.input_dropout is not None and noise is not None:
             h = self.input_dropout.apply(params.get('drop_in', {}),
                                          noise['drop_in'], h, train)
         for i in range(len(self.hidden_dims)):
-            h = act_lib.get(self.nonlin[i])(linear(params[f'linear_{i}'], h))
+            h = narrow(linear(params[f'linear_{i}'], h))
+            if self.layer_norm:  # statistics in float32
+                ln = params[f'ln_{i}']
+                h32 = h.float()
+                mu = h32.mean(-1, keepdim=True)
+                var = h32.var(-1, keepdim=True, correction=0)
+                h32 = (h32 - mu) * torch.rsqrt(var + 1e-5)
+                h = narrow(h32 * ln['scale'] + ln['bias'])
+            h = act_lib.get(self.nonlin[i])(h)
             spec = self.dropout[i]
             if spec is not None and noise is not None:
-                h = spec.apply(params.get(f'drop_{i}', {}), noise[f'drop_{i}'],
-                               h, train)
+                h = narrow(spec.apply(params.get(f'drop_{i}', {}),
+                                      noise[f'drop_{i}'], h, train))
         h = linear(params['linear_out'], h)
         if self.output_nonlin is not None:
             h = act_lib.get(self.output_nonlin)(h)
-        return h
+        return h.float() if cdt is not None else h
 
     # ---- regularization ---------------------------------------------------
     def regularization_loss(self, params):

@@ -67,6 +67,10 @@ def critic_refuses(value_spec, value_update=None, D=None):
         return f'the critic takes {mlp.input_dims} inputs, the states have {D}'
     if mlp.input_dropout is not None or mlp.output_nonlin is not None:
         return 'the critic\'s input dropout or output nonlinearity'
+    if (mlp.layer_norm or mlp.spectral_norm or mlp.spectral_norm_output
+            or mlp.compute_dtype is not None):
+        return ('the critic\'s layer norm, spectral norm or compute_dtype '
+                'is not in the kernels')
     if any(type(d) not in DROPS for d in mlp.dropout):
         return 'the critic\'s dropout must be Bernoulli or concrete'
     if not fm.fused_mlp_supported(critic_dims(value_spec), mlp.nonlin):

@@ -47,6 +47,13 @@ A learned reward (``DynamicsModel`` without ``reward_func``) is the kernels'
 reward kind ``LEARNED_KIND``: the dynamics head has 2 (D + 1) outputs and its
 output D is the reward, sampled like a state delta and added to nothing.
 
+A mixture dynamics head (``GaussianMixtureDensity`` of K <= ``MAX_K``
+components, ``StepArgs::K``; 0 for a diagonal head) samples each particle's
+deltas from one of its K scaled components, picked by the straight-through
+Gumbel-softmax of JAX's head from the pinned noise ``z_pi`` and ``u_cat``
+(``z_normal`` in the place of the diagonal head's ``z``); the plans count its
+rows in the tile (``mixture_rows``, the plans' ``components`` argument).
+
 One step: policy -> DiagGaussian sample -> ``max_u * tanh(.) + eps`` ->
 dynamics (whitened input, scaled DiagGaussian sample of the deltas) ->
 ``nxt = s + delta`` -> the reward on the pre-MM ``nxt`` -> the moment-matching
@@ -74,7 +81,7 @@ import torch
 
 from ...envs.base import ExpQuadTipReward, QuadTipReward
 from ...envs.jax_lander import LanderReward
-from ...models.densities import DiagGaussianDensity
+from ...models.densities import DiagGaussianDensity, GaussianMixtureDensity
 from ...models.regressor import DynamicsModel
 from ...parallel.sharding import mean_all_reduce
 from ...utils.core import tree_leaves, tree_map
@@ -86,6 +93,7 @@ from . import fused_mlp as fm
 MAX_D = 8        # kMaxD of csrc/fused_step.cu: state dims
 MAX_U = 4        # kMaxU: action dims
 MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
+MAX_K = 5        # kMaxK: components of a mixture dynamics head
 
 _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
 
@@ -325,11 +333,26 @@ def kernel_refuses(dyn, pol):
                 'QuadTipReward, a LanderReward or a learned reward')
     if pol.angle_dims or reg.angle_dims:
         return 'angle embedding inside the models is not in the step kernels'
-    for d in (pol.output_density, reg.output_density):
-        if type(d) is not DiagGaussianDensity:
-            return 'the step kernels take DiagGaussianDensity heads only'
+    if type(pol.output_density) is not DiagGaussianDensity:
+        return 'the step kernels take a DiagGaussianDensity policy head only'
+    head = reg.output_density
+    if type(head) not in (DiagGaussianDensity, GaussianMixtureDensity):
+        return ('the step kernels take a DiagGaussianDensity or '
+                'GaussianMixtureDensity dynamics head only')
+    K = head_components(dyn)
+    if K > MAX_K:
+        return (f'the step kernels take a mixture head of at most {MAX_K} '
+                f'components, not {K}')
+    for spec in (pol.mlp, reg.mlp):
+        if spec.layer_norm or spec.spectral_norm or spec.spectral_norm_output:
+            return ('layer norm and spectral norm are not in the step '
+                    f'kernels ({MODEL_OPTIONS_ITEM})')
+        if spec.compute_dtype is not None:
+            # JAX's fused_mode keeps bf16 off its fused tiers too
+            return (f'compute_dtype={spec.compute_dtype!r} runs on the '
+                    'unfused path; the fused tiers take float32')
     D, U = dyn.state_dims, pol.output_density.output_dims
-    E = reg.output_density.output_dims  # D, or D + 1 with a learned reward
+    E = head.output_dims  # D, or D + 1 with a learned reward
     if not (1 <= D <= MAX_D and 1 <= U <= MAX_U):
         return f'the step kernels take D <= {MAX_D}, U <= {MAX_U}'
     if kind == LANDER_KIND and (D, U) != (8, 2):
@@ -343,7 +366,8 @@ def kernel_refuses(dyn, pol):
     if len(pol.max_u) not in (1, U) or (pol.min_u is not None
                                         and len(pol.min_u) not in (1, U)):
         return 'action bounds must have 1 or U entries'
-    for spec, din, dout in ((pol.mlp, D, 2 * U), (reg.mlp, D + U, 2 * E)):
+    for spec, din, dout in ((pol.mlp, D, 2 * U), (reg.mlp, D + U,
+                                                   head.n_inputs)):
         dims = (spec.input_dims,) + spec.hidden_dims + (spec.output_dims,)
         if (spec.input_dims, spec.output_dims) != (din, dout):
             return f'MLP dims {dims} do not fit D={D}, U={U}'
@@ -351,7 +375,8 @@ def kernel_refuses(dyn, pol):
             return 'input dropout and output nonlinearities are not taken'
         if not fm.fused_mlp_supported(dims, spec.nonlin):
             return f'the MLP tile walk does not take dims {dims}'
-    if step_plan(_mlp_dims(pol.mlp), _mlp_dims(reg.mlp), D, 2, True) is None:
+    if step_plan(_mlp_dims(pol.mlp), _mlp_dims(reg.mlp), D, 2, True,
+                 components=K) is None:
         return 'the step kernels\' tiles do not fit in shared memory'
     return None
 
@@ -368,6 +393,7 @@ def reward_kind(rf):
 
 CRITIC_MESH_ITEM = ('ROADMAP.md Queue 1: Parallel: the critic under '
                     'particle sharding')
+MODEL_OPTIONS_ITEM = 'ROADMAP.md Queue 2: the model options of rows 3-9'
 
 
 def _local_config(cfg, mesh):
@@ -523,8 +549,15 @@ def _layers(dims):
     return list(zip(dims[:-1], dims[1:]))
 
 
+def mixture_rows(dyn_dims, components):
+    """Rows of the tile's mixture region (``walk_lay``): a mixture head's
+    2 E K + K + 1 outputs, its Gumbel noise (K) and its uniform (1); none
+    for a diagonal head (``components`` 0)."""
+    return dyn_dims[-1] + components + 1 if components else 0
+
+
 def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
-                 critic_dims=None):
+                 critic_dims=None, components=0):
     """(floats, floats of one CTA's policy dW accumulator, floats of the
     policy's dW and db) of the cluster walk's shared memory for tiles of
     ``tile_rows`` rows (``walk_lay`` in ``csrc/cluster_walk.cuh``): the
@@ -535,10 +568,11 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
     input); both MLPs' whole inputs and the gradient wrt one ([MAX_D +
     MAX_U] rows each); the tile's mask slices of the hidden layers and, with
     ``bwd``, the kept hidden pre-activation slices; the tile's small arrays
-    (feature-major, rows padded by 4). With ``critic_dims`` (the value
-    update's critic, read in place) its widths count in the exchange regions
-    and the layer-input slice, and its slices share the two MLPs' room,
-    which grows to the larger of the two."""
+    (feature-major, rows padded by 4) and, with a mixture dynamics head of
+    ``components`` K, its rows (``mixture_rows``). With ``critic_dims`` (the
+    value update's critic, read in place) its widths count in the exchange
+    regions and the layer-input slice, and its slices share the two MLPs'
+    room, which grows to the larger of the two."""
     nets = (tuple(pol_dims), tuple(dyn_dims))
     walks = nets + ((tuple(critic_dims),) if critic_dims else ())
     trp = tile_rows + 4
@@ -563,7 +597,7 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
                                        for w in dims[1:-1])
 
     off += max(slices(*nets), slices(*walks[2:]))
-    off += TILE_SMALL * trp
+    off += (TILE_SMALL + mixture_rows(nets[1], components)) * trp
     return off, dw, flat
 
 
@@ -577,14 +611,14 @@ def critic_dw_floats(critic_dims):
 
 
 def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
-                   resident, critic_dims=None):
+                   resident, critic_dims=None, components=0):
     """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
     dW accumulator, floats of the policy's dW and db) of a launch (``lay_of``
     in the source): the cluster walk's (``_walk_floats``, with the
     backward's buffers and the critic's widths), then the cluster's
     per-particle arrays (5 D + 6 floats each) and one partial per cluster."""
     off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident, True,
-                                 critic_dims)
+                                 critic_dims, components)
     return off + _r4(particles * (5 * D + 6)) + clusters * PART, dw, flat
 
 
@@ -607,10 +641,11 @@ def _scratch(T, clusters, resident, dw, flat, critic_dims=None, B=0, D=0,
 
 @functools.lru_cache(maxsize=None)
 def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
-                 critic_dims=None, groups=1):
+                 critic_dims=None, groups=1, components=0):
     """The whole-rollout kernel's launch plan for these MLP widths (policy
     ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``, or ``2 (D + 1)``
-    with a learned reward, and the widths ``critic_dims`` of the critic it
+    with a learned reward, or a mixture head's 2 E K + K + 1 with
+    ``components`` K, and the widths ``critic_dims`` of the critic it
     refits, or None) at batch B and horizon T, on a card that holds
     ``max_clusters`` clusters at once; None when B is beyond what such a
     card holds (``max_particles``).
@@ -638,7 +673,8 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
             P = tiles * tr
             clusters = _cdiv(B, P)
             floats, dw, flat = rollout_layout(pol_dims, dyn_dims, D, tr, P,
-                                              clusters, resident, critic_dims)
+                                              clusters, resident, critic_dims,
+                                              components)
             if 4 * floats <= SMEM_MAX:
                 return RolloutPlan(CLUSTER, clusters, P, tr, tiles, THREADS,
                                    resident, 4 * floats,
@@ -649,7 +685,7 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
 
 @functools.lru_cache(maxsize=None)
 def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
-                  critic_dims=None):
+                  critic_dims=None, components=0):
     """The largest batch that ``rollout_plan`` takes on a card holding
     ``max_clusters`` clusters: ``max_clusters`` times the most particles a
     cluster can walk (at most ``MAX_TILES`` tiles of up to ``MAX_TILE_ROWS``
@@ -660,7 +696,7 @@ def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
             for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP):
                 floats = rollout_layout(pol_dims, dyn_dims, D, tr, tiles * tr,
                                         max_clusters, resident,
-                                        critic_dims)[0]
+                                        critic_dims, components)[0]
                 if 4 * floats <= SMEM_MAX:
                     best = max(best, tiles * tr)
                     break
@@ -683,14 +719,15 @@ StepPlan = collections.namedtuple('StepPlan', [
     'smem', 'sum_blocks', 'scratch'])
 
 
-def step_layout(pol_dims, dyn_dims, tile_rows, resident, backward):
+def step_layout(pol_dims, dyn_dims, tile_rows, resident, backward,
+                components=0):
     """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
     dW accumulator, floats of the policy's dW and db) of a step launch
     (``step_lay_of``): the cluster walk's (``_walk_floats``; the backward's
     buffers with ``backward``), then for the backward the tile's gradient
     wrt its pre-MM outputs ([tile_rows, MAX_D + 1], to 4)."""
     off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident,
-                                 backward)
+                                 backward, components=components)
     return off + (_r4(tile_rows * (MAX_D + 1)) if backward else 0), dw, flat
 
 
@@ -712,7 +749,7 @@ def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat, B=0,
 
 @functools.lru_cache(maxsize=None)
 def step_plan(pol_dims, dyn_dims, D, B, backward,
-              max_clusters=TARGET_CLUSTERS, groups=1):
+              max_clusters=TARGET_CLUSTERS, groups=1, components=0):
     """The launch plan of one step kernel (``backward``: ``fused_step_bwd``'s
     walk, else ``fused_step_fwd``) for these MLP widths at batch B, on a card
     that holds ``max_clusters`` clusters at once; None when no tile fits in
@@ -730,20 +767,22 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
     memory per CTA; ``sum_blocks``: blocks of the backward's MM-adjoint
     sums (0 for the forward); ``scratch``: floats of device scratch (with
     ``groups`` G > 1 MM groups, the backward's gradient wrt the pre-MM
-    outputs besides)."""
+    outputs besides). ``components``: K of a mixture dynamics head, 0 for a
+    diagonal one."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
         fit = next((tr for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP)
                     if 4 * step_layout(pol_dims, dyn_dims, tr, resident,
-                                       backward)[0] <= SMEM_MAX), None)
+                                       backward, components)[0] <= SMEM_MAX),
+                   None)
         if fit is None:
             continue
         tr = _r4(_cdiv(per, _cdiv(per, fit)))
         tiles = _cdiv(B, tr)
         clusters = min(tiles, max_clusters)
         floats, dw, flat = step_layout(pol_dims, dyn_dims, tr, resident,
-                                       backward)
+                                       backward, components)
         sum_blocks = _cdiv(B, SUM_THREADS) if backward else 0
         return StepPlan(CLUSTER, clusters, tr, tiles, THREADS, resident,
                         4 * floats, sum_blocks,
@@ -754,6 +793,13 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
 
 def _mlp_dims(spec):
     return (spec.input_dims,) + tuple(spec.hidden_dims) + (spec.output_dims,)
+
+
+def head_components(dyn):
+    """``StepArgs::K``: the components of a mixture dynamics head, 0 for a
+    diagonal one."""
+    d = dyn.regressor.output_density
+    return d.n_components if isinstance(d, GaussianMixtureDensity) else 0
 
 
 # ---------------------------------------------------------------------------
@@ -772,11 +818,11 @@ class _MlpArgs(ctypes.Structure):
 class _StepArgs(ctypes.Structure):
     """Mirror of ``StepArgs`` in ``csrc/rollout_step.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in ('B', 'D', 'U', 'ntip',
-                                              'reward_kind')]
+                                              'reward_kind', 'K')]
                 + [('pol', _MlpArgs), ('dyn', _MlpArgs)]
                 + [(n, ctypes.c_void_p) for n in (
                     'states', 'eps', 'z_pol', 'z_dyn', 'mx', 'isx', 'my',
-                    'sy', 'z_mm', 'z_rr')]
+                    'sy', 'z_mm', 'z_rr', 'z_pi', 'u_cat')]
                 + [('pol_upper', ctypes.c_float),
                    ('dyn_upper', ctypes.c_float),
                    ('act_scale', ctypes.c_float * MAX_U),
@@ -931,6 +977,7 @@ class StepKernel:
         E = reg.output_density.output_dims  # D, or D + 1: a learned reward
         self.B, self.D, self.U, self.device = B, D, U, device
         self.dims = (_mlp_dims(pol.mlp), _mlp_dims(reg.mlp))
+        self.K = head_components(dyn)
         self._work = None
         a = self.args = _StepArgs()
         a.B, a.D, a.U = B, D, U
@@ -970,8 +1017,14 @@ class StepKernel:
             'dynamics')
         self.pol_dims = list(self.dims[0])
         a.z_pol = t(pol_noise['density']['z'], 'policy density noise', (B, U))
-        a.z_dyn = t(dyn_noise['density']['z'], 'dynamics density noise',
-                    (B, E))
+        dn, K = dyn_noise['density'], self.K
+        a.K = K
+        if K:  # a mixture head: its Gaussian, Gumbel and uniform noise
+            a.z_dyn = t(dn['z_normal'], 'dynamics density noise', (B, E))
+            a.z_pi = t(dn['z_pi'], 'dynamics mixture noise z_pi', (B, K))
+            a.u_cat = t(dn['u_cat'], 'dynamics mixture noise u_cat', (B, 1))
+        else:
+            a.z_dyn = t(dn['z'], 'dynamics density noise', (B, E))
         for k, name, size in (('mx', 'mx', D + U), ('isx', 'iSx', D + U),
                               ('my', 'my', E), ('sy', 'Sy', E)):
             setattr(a, k, t(dyn_stats[name].reshape(-1).contiguous(),
@@ -1000,7 +1053,7 @@ class StepKernel:
         """(forward plan, backward plan) on this card (``step_plan``)."""
         clusters = step_max_clusters(_device_index(self.device))
         return tuple(step_plan(*self.dims, self.D, self.B, bwd, clusters,
-                               self.G) for bwd in (False, True))
+                               self.G, self.K) for bwd in (False, True))
 
     def _workspace(self):
         """(forward plan, backward plan, each as C ints, scratch, counters),
@@ -1235,7 +1288,8 @@ def rollout_capacity(dyn, pol, device, value_spec=None):
     return max_particles(_mlp_dims(pol.mlp), _mlp_dims(dyn.regressor.mlp),
                          dyn.state_dims, max_clusters(_device_index(device)),
                          None if value_spec is None
-                         else cr.critic_dims(value_spec))
+                         else cr.critic_dims(value_spec),
+                         head_components(dyn))
 
 
 class RolloutKernel:
@@ -1277,7 +1331,8 @@ class RolloutKernel:
         clusters = max_clusters(_device_index(device))
         self.plan = rollout_plan(_mlp_dims(pol.mlp),
                                  _mlp_dims(dyn.regressor.mlp), self.D, B,
-                                 steps, clusters, critic_dims, self.G)
+                                 steps, clusters, critic_dims, self.G,
+                                 head_components(dyn))
         if self.plan is None:
             capacity = rollout_capacity(dyn, pol, device, None if self.critic
                                         is None else value_update.spec)

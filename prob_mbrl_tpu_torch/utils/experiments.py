@@ -117,10 +117,6 @@ def refuse_unported(args, use_value=False):
         (use_value and args.n_devices is not None and args.n_devices > 1,
          '--n_devices > 1 with a critic (particle sharding of the value '
          'bootstrap)', 'Parallel: the critic under particle sharding'),
-        (args.dtype == 'bfloat16', '--dtype bfloat16',
-         'The rest of the models'),
-        (args.dyn_components > 1, '--dyn_components > 1 (mixture heads)',
-         'The rest of the models'),
         (args.mm_method == 'experimental_mix', '--mm_method experimental_mix',
          'Other moment-matching variants'),
         (args.prioritized_replay, '--prioritized_replay (initial-state '

@@ -19,9 +19,12 @@ tier ``mc_pilco`` takes (``'grid'`` with a critic), the wrappers'
 refusal to fall back when the kernels cannot be built, and rows 3-9 with
 grouped moment matching (``mm_groups``: ``chip_smoke``'s grouped holds,
 against the plain version in float64, their bits and launch counts, and
-``mc_pilco`` with groups on the whole-rollout tier), and K8, row 5 on each
+``mc_pilco`` with groups on the whole-rollout tier), K8, row 5 on each
 of two gloo ranks' particle slices with one all-reduce, against the
-unsharded row 5.
+unsharded row 5, and rows 3-9 with a mixture dynamics head
+(``GaussianMixtureDensity``, K = 2 and 5: ``chip_smoke``'s mixture holds,
+with a learned reward, grouped MM and the critic refit, their bits, launch
+counts and ``mc_pilco`` on the whole-rollout tier).
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -1321,3 +1324,102 @@ def test_k8_on_two_gloo_ranks_matches_the_unsharded_row_5(cuda):
     from prob_mbrl_tpu_torch import parallel as tpar
     with tpar.Ranks(2, 'gloo', 'cuda', timeout=300) as ranks:
         cs.k8_case(ranks, 2, cs.GROUPS_MAIN, True, cs.card_line())
+
+
+# ---- a mixture dynamics head (GaussianMixtureDensity) --------------------
+
+
+@pytest.mark.parametrize('K', [2, 5])
+@pytest.mark.parametrize('B', [37, 1500])
+def test_mixture_step_kernels_match_the_plain_step_on_the_card(cuda, B, K):
+    """Rows 6-7 with a mixture head of K components against the plain step
+    (``chip_smoke.check_step``: every output within 1e-3 of its max|plain|
+    or 3x the plain step's own change; an edge pick may take its flipped
+    variant, ``held_against``)."""
+    cs.check_step(B, tag='test', components=K)
+
+
+@pytest.mark.parametrize('B,K,mean_only', [(16, 2, False), (100, 2, True),
+                                           (100, 2, False), (100, 5, False)])
+def test_mixture_rollout_kernels_match_the_plain_version_on_the_card(
+        cuda, B, K, mean_only):
+    """Rows 3-5 with a mixture head (``chip_smoke.check_rollout``)."""
+    cs.check_rollout(B, mean_only, tag='test', components=K)
+
+
+@pytest.mark.parametrize('B,K', [(16, 2), (1000, 2), (1000, 5)])
+def test_mixture_grid_kernels_match_the_plain_version_on_the_card(cuda, B,
+                                                                  K):
+    """Rows 8-9 with a mixture head (``chip_smoke.check_grid``)."""
+    cs.check_grid(B, True, tag='test', components=K)
+
+
+@pytest.mark.parametrize('case', ['learned', 'grouped', 'critic'])
+def test_mixture_rollout_kernels_compose_with_the_options(cuda, case):
+    """Rows 3-5 with a mixture head of 2 and a learned reward (a head of
+    27), grouped MM (G = 10) or the critic refit (B = 100, no MM)."""
+    if case == 'learned':
+        cs.check_rollout(100, False, tag='test', learned=True, components=2)
+    elif case == 'grouped':
+        cs.check_rollout(100, True, tag='test', groups=10, components=2)
+    else:
+        cs.check_critic(100, False, tag='test', components=2)
+
+
+def test_mixture_kernels_repeat_their_bits(cuda):
+    """Rows 5, 8-9 and 6-7 with a mixture head give the same bits launch
+    after launch (the pick and its VJP one thread a row, in a fixed
+    order)."""
+    _, kvg, _, pp, _, args, _ = cs.rollout_problem(100, 3, True,
+                                                   components=2)
+    a, b = kvg(pp, *args), kvg(pp, *args)
+    kern, _, pp, leaves, args, cot, _ = cs.grid_problem(1000, 4,
+                                                        components=5)
+    ga = cs.grid_outputs(kern, pp, leaves, args, cot)
+    gb = cs.grid_outputs(kern, pp, leaves, args, cot)
+    step, _, leaves, states, eps, cot, _ = cs.step_problem(1500, 5,
+                                                           components=2)
+    sa = cs.step_outputs(step, leaves, states, eps, cot)
+    sb = cs.step_outputs(step, leaves, states, eps, cot)
+    torch.cuda.synchronize()
+    for u, v in zip([a[0], a[1], *tree_leaves(a[2]), *ga, *sa],
+                    [b[0], b[1], *tree_leaves(b[2]), *gb, *sb]):
+        assert torch.equal(u, v)
+
+
+def test_mc_pilco_with_a_mixture_head_takes_the_full_tier_on_the_card(cuda):
+    """``mc_pilco`` with a mixture head of 2 at B = 100 takes the
+    whole-rollout tier: one ``fused_rollout_vg`` an iteration and nothing
+    else, finite losses; the card holds as many particles as with the
+    diagonal head (5760 on an H100), and K = 5 fewer."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    dyn, pol = cs.build_models(5, 1, (10.0,), envs.cartpole_reward(),
+                               components=2)
+    diag = cs.build_models(5, 1, (10.0,), envs.cartpole_reward())
+    five = cs.build_models(5, 1, (10.0,), envs.cartpole_reward(),
+                           components=5)
+    assert fr.rollout_capacity(dyn, pol, 'cuda') == fr.rollout_capacity(
+        *diag, 'cuda')
+    assert fr.rollout_capacity(*five, 'cuda') < fr.rollout_capacity(
+        dyn, pol, 'cuda')
+    cfg = dict(n_particles=100, steps=15, mm_states=True, mm_rewards=True)
+    assert make_mc_pilco_fn(dyn, pol, MCPILCOConfig(**cfg),
+                            'cuda').tier('cuda') == 'full'
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
+    rng = np.random.RandomState(0)
+    pool = torch.tensor(cs.env_states('Cartpole', rng, 40).astype(np.float32),
+                        device='cuda')
+    stats = dyn.fit_stats(*(torch.tensor(a.astype(np.float32), device='cuda')
+                            for a in cs.stats_data('Cartpole', rng)))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(pool, dyn, pol, 15, dp, stats, pp,
+                                opt_iters=5, mm_states=True, mm_rewards=True,
+                                n_particles=100, seed=0, chunk=1)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES['fused_rollout_vg'] == 5
+    assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
+    assert np.all(np.isfinite(metrics['loss']))

@@ -102,8 +102,8 @@ def test_the_other_entry_points_and_options_run(tmp_path, module, argv):
 
 
 @pytest.mark.parametrize('argv', [
-    ['--n_devices', '2'], ['--dtype', 'bfloat16'], ['--dyn_components', '2'],
-    ['--mm_method', 'experimental_mix'], ['--prioritized_replay'],
+    ['--n_devices', '2'], ['--mm_method', 'experimental_mix'],
+    ['--prioritized_replay'],
     ['--plot_level', '1']])
 def test_unported_flags_raise_naming_their_roadmap_item(tmp_path, argv):
     # --n_devices runs on ranks (tests/test_torch_parallel.py); with the

@@ -139,13 +139,6 @@ def test_mlp_regularization_loss_matches_jax():
         _close_trees(grads, jg, **GRAD)
 
 
-def test_mlp_unported_options_raise():
-    for kw in (dict(layer_norm=True), dict(spectral_norm=True),
-               dict(compute_dtype='bfloat16')):
-        with pytest.raises(NotImplementedError):
-            tm.MLPSpec(3, 2, **kw)
-
-
 def test_diag_gaussian_density_matches_jax():
     jd, td = jm.DiagGaussianDensity(3), tm.DiagGaussianDensity(3)
     rng = np.random.RandomState(5)
