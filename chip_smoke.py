@@ -3,7 +3,9 @@
 card: builds the CUDA kernels from ``prob_mbrl_tpu_torch/csrc``, holds each
 against its plain PyTorch version (on Cartpole's shapes, then on those of
 the other envs), drives MC-PILCO policy optimisation on Cartpole at
-full width through the kernels, on each of its routes, then three
+full width through the kernels, on each of its routes and with each option
+of the ``utils.rollout`` route (orthogonal mixing, inferred noise,
+non-PEGASUS noise, prioritized replay on the native sum tree), then three
 Deep-PILCO episodes through the driver on Cartpole and one on each of the
 other four analytic envs and on the lunar lander, whose run is then
 replayed by ``evaluate_policy``, one on Cartpole learning the reward, and
@@ -16,7 +18,8 @@ row 5 (K8), the sharded routes and one sharded episode of the driver.
 Phases (any failure exits non-zero and prints no result line):
   0. needs CUDA; TF32 off for matmul and cuDNN; prints the card's name and
      power limit as ``nvidia-smi`` reports them.
-  1. builds the kernels (one ``nvcc`` per source, all started together).
+  1. builds the kernels (one ``nvcc`` per source, all started together),
+     then the native sum tree (``g++``, host code).
   2. each kernel against its plain version on the card. The fused MLP at
      the policy (5->200->200->2, Bernoulli masks) and dynamics
      (6->200->200->10, concrete masks) shapes, B in {1, 37, 100, 1500},
@@ -97,6 +100,15 @@ Phases (any failure exits non-zero and prints no result line):
      fused-MLP kernels (launch counts 2*T*iters each); one iteration is
      compared with the plain (unfused) path on the same initial states and
      noise.
+     3v: the same call for 10 iterations with each option no fused tier
+     takes (the gate's reason printed): ``mm_method='mix'``,
+     ``infer_noise_variables``, ``pegasus=False``, ``prioritized_replay``
+     (the native sum tree of 2^20 leaves) at B = 100, and ``'mix'`` at
+     B = 1000 (auto-grouped into 4 groups of 250); fused-MLP launches
+     exactly 2*T*iters each way, one iteration compared with the plain path
+     (with priorities the action-perturbation grads too), the ms an
+     iteration beside phase 3's; then the sum tree's host times at 2^20
+     leaves (a chunk's draw of 100 and its priority update).
   4. the step tier on the same setup: a loop of
      ``make_fused_value_and_grad(mode='step')``, clip and Adam; the step
      kernels launch T*iters times each; one iteration is compared with the
@@ -169,7 +181,12 @@ Phases (any failure exits non-zero and prints no result line):
      the policy loop, E_lml rising, a fit step and a row-5 policy iteration
      held against their plain paths; then one of ``deep_pilco_mm
      --dyn_components 2``, held the same way: the mixture head fitted
-     through rows 1-2 (a head of 23) and sampled in row 5.
+     through rows 1-2 (a head of 23) and sampled in row 5; last, one of
+     ``deep_pilco_mm --mm_method experimental_mix --prioritized_replay
+     --plot_level 0`` (the card's machine has no matplotlib): the gate
+     takes no tier, the policy loop on the ``utils.rollout`` route
+     (fused-MLP launches 2 T an iteration each way besides the fit's and
+     the control steps'), priority scores finite, one fit step held.
   10. the with-value driver: one ``deep_pilco_no_mm_with_value`` episode
      with phase 8's widths and cuts (no moment matching, the [200, 200] MSE
      critic refit every policy iteration): launches exact (fused-MLP forward
@@ -225,12 +242,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from prob_mbrl_tpu_torch import envs
+from prob_mbrl_tpu_torch import envs, native
 from prob_mbrl_tpu_torch import parallel as tpar
 from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
                                                      make_mc_pilco_fn,
                                                      mc_pilco,
-                                                     seeded_generator)
+                                                     seeded_generator,
+                                                     update_priorities)
 from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
 from prob_mbrl_tpu_torch.examples import deep_pilco_common as dpc
 from prob_mbrl_tpu_torch.examples import deep_pilco_mm as dpm
@@ -2248,22 +2266,35 @@ def build_models(D, U, max_u, reward_func, hidden=(200, 200),
     return dyn, pol
 
 
-def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise):
+def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise,
+                   step_noise=None):
     """One iteration's loss and policy grads through ``opt.loss`` (on the
-    whole-rollout tier, its forward and backward kernels) on CUDA."""
+    whole-rollout tier, its forward and backward kernels) on CUDA; without
+    PEGASUS with the per-step density noise ``step_noise``, and with
+    priorities the grads of a zero action perturbation after the policy's
+    (what the priority scores are made of)."""
     params = tree_leaves(pol_params)
+    eps = None
+    if opt.cfg.with_priorities:
+        eps = torch.zeros((opt.cfg.steps, opt.B, len(opt.pol.max_u)),
+                          dtype=x0.dtype, device=x0.device,
+                          requires_grad=True)
+        params = params + [eps]
     loss, _ = opt.loss(pol_params, x0, dyn_params, dyn_stats,
-                       opt.prepare_noise(noise, 'cuda'))
+                       opt.prepare_noise(noise, 'cuda'), action_eps=eps,
+                       step_noise=step_noise)
     grads = torch.autograd.grad(loss, params)
     return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads])
 
 
 def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
-                  groups=None):
+                  groups=None, options=None):
     """One iteration's loss and policy grads on the same initial states and
     noise, through ``kernel_path(pol_params, x0, noise as drawn) -> (loss,
     flat grads)`` and through the plain path (``utils.rollout`` on unfused
-    MLPs; MM per group of B / groups with ``groups``). The tolerance is the
+    MLPs; MM per group of B / groups with ``groups``; ``options``: more
+    fields of the ``MCPILCOConfig``; without PEGASUS both paths take the
+    same per-step density noise, ``kernel_path``'s fourth argument). The tolerance is the
     plain path's own sensitivity to x0 moved by 1e-6 relative (times 3), at
     least 1e-4 relative on the loss and 1e-3 of max|grad| on the grads.
     Grouped, the plain path runs in float64 (``float64`` says why), and the
@@ -2275,18 +2306,21 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                         mm_rewards=True, mm_groups=groups,
-                        fused_rollout=False)
+                        fused_rollout=False, **(options or {}))
     opt_p = make_mc_pilco_fn(fr.unfused(dyn), fr.unfused(pol), cfg, 'cuda')
     D = x0_pool.shape[-1]
     noise = opt_p.sample_noise(seeded_generator('cuda', seed, 1), D, 'cuda')
     x0 = opt_p.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
                          torch.tensor(init_noise, device='cuda'))
-    lk, gk = kernel_path(pol_params, x0, noise)
+    step = opt_p.sample_step_noise(seeded_generator('cuda', seed, 3), 'cuda')
+    extra = () if step is None else (step,)
+    lk, gk = kernel_path(pol_params, x0, noise, *extra)
     cast = in_float64 if groups else (lambda x: x)
     lp, gp = loss_and_grads(opt_p, *cast((pol_params, x0, dyn_params,
-                                          dyn_stats, noise)))
+                                          dyn_stats, noise, *extra)))
     ls, gs = loss_and_grads(opt_p, *cast((pol_params, x0 * (1 + 1e-6),
-                                          dyn_params, dyn_stats, noise)))
+                                          dyn_params, dyn_stats, noise,
+                                          *extra)))
     l_tol = max(1e-4 * abs(lp), 3 * abs(ls - lp))
     g_tol = max(1e-3 * float(gp.abs().max()), 3 * float((gs - gp).abs().max()))
     f32 = ''
@@ -2296,9 +2330,10 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
                                   (1 - 1e-6, (None, None))):
             if l64 is None:
                 l64, g64 = loss_and_grads(opt_p, *cast((
-                    pol_params, x0 * scale, dyn_params, dyn_stats, noise)))
+                    pol_params, x0 * scale, dyn_params, dyn_stats, noise,
+                    *extra)))
             l32, g32 = loss_and_grads(opt_p, pol_params, x0 * scale,
-                                      dyn_params, dyn_stats, noise)
+                                      dyn_params, dyn_stats, noise, *extra)
             dl = max(dl, abs(l32 - l64))
             dg = max(dg, float((g32 - g64).abs().max()))
         l_tol, g_tol = max(l_tol, 3 * dl), max(g_tol, 3 * dg)
@@ -2377,22 +2412,31 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
 
 
 def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
-                   T=MAIN_T, B=MAIN_B, groups=None, components=0):
+                   T=MAIN_T, B=MAIN_B, groups=None, components=0,
+                   options=None):
     """``mc_pilco`` for ``iters`` iterations by the route ``fused_rollout``
     picks (MM per group of B / groups with ``groups``; a mixture dynamics
-    head of ``components``), whose tier the gate must name ``tier``, then
-    one iteration through ``MCPILCO.loss`` on that route against the plain
-    path. Returns the launch counts of the run: every count is set to 0
-    just before it and read just after."""
+    head of ``components``; ``options``: more ``MCPILCOConfig`` fields,
+    given to ``mc_pilco`` by its names), whose tier the gate must name
+    ``tier`` (None: its reason is logged), then one iteration through
+    ``MCPILCO.loss`` on that route against the plain path. Returns the
+    launch counts of the run: every count is set to 0 just before it and
+    read just after."""
+    options = options or {}
     setup = main_path_setup(seed, components)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                         mm_rewards=True, mm_groups=groups,
-                        fused_rollout=fused_rollout)
+                        fused_rollout=fused_rollout, **options)
     opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda')
     if opt.tier('cuda') != tier:
         raise AssertionError(f'the gate names {opt.tier("cuda")!r} for B={B} '
                              f'on this card, expected {tier!r}')
+    why = fr.refuses(cfg, dyn, pol)
+    if why is not None:
+        log(f'[{tag}] the gate takes no fused tier: {why}')
+    loop_kw = {('prioritized_replay' if k == 'with_priorities' else k): v
+               for k, v in options.items()}
     stamps = []
     reset_counts()
     torch.cuda.synchronize()
@@ -2402,23 +2446,93 @@ def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
         opt_iters=iters, mm_states=True, mm_rewards=True, mm_groups=groups,
         init_state_noise=init_noise, n_particles=B, seed=seed, chunk=1,
         on_iteration=lambda done, m: stamps.append(time.perf_counter()),
-        fused_rollout=fused_rollout)
+        fused_rollout=fused_rollout, **loop_kw)
     torch.cuda.synchronize()
     launches = counts()
     if n_steps != iters:
         raise AssertionError(f'{n_steps} steps for {iters} iterations')
     report(tag, f'mc_pilco fused_rollout={fused_rollout}'
            + (f' mm_groups={groups}' if groups else '')
-           + (f' dyn_components={components}' if components else ''),
+           + (f' dyn_components={components}' if components else '')
+           + ''.join(f' {k}={v}' for k, v in loop_kw.items()),
            iters, t0, stamps,
            metrics['loss'], metrics['mean_return'], launches, want, T, B)
+    if 'priority_scores' in metrics:
+        scores = metrics['priority_scores']
+        log(f'[{tag}] priority scores {scores.shape}, mean {scores.mean():.6e}'
+            f', max {scores.max():.6e}')
+        if not (np.all(np.isfinite(scores)) and scores.max() > 0):
+            raise AssertionError('the priority scores are not finite and '
+                                 'positive')
     log(f'[{tag}] tier {opt.tier("cuda")}')
     compare_paths((dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool,
                    init_noise),
-                  lambda p, x0, noise: loss_and_grads(opt, p, x0, dyn_params,
-                                                      dyn_stats, noise),
-                  tag, seed, T, B, groups)
+                  lambda p, x0, noise, *step: loss_and_grads(
+                      opt, p, x0, dyn_params, dyn_stats, noise, *step),
+                  tag, seed, T, B, groups, options)
     return launches
+
+
+def sum_tree_timings(reps=50):
+    """Host times of the prioritized replay's native sum tree at 2^20
+    leaves (``mc_pilco(prioritized_replay=True)``): filling it with the
+    pool's 2 B rows and renormalizing once, then per chunk the draw of B
+    initial states and the priority update with renormalization
+    (``mc_pilco.update_priorities``), medians of ``reps``."""
+    tree_t0 = time.perf_counter()
+    tree = native.make_sum_tree(2 ** 20)
+    rows = np.random.RandomState(SEED).randn(2 * MAIN_B, 5)
+    for row in rows:
+        tree.append(row, tree.max_p)
+    tree.renormalize()
+    fill = time.perf_counter() - tree_t0
+    scores = np.random.RandomState(SEED + 1).rand(MAIN_B) * 1e-3
+    draws, updates = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _, idxs, _ = tree.sample(MAIN_B)
+        t1 = time.perf_counter()
+        update_priorities(tree, idxs, scores, 0.6, 1e-8)
+        updates.append(time.perf_counter() - t1)
+        draws.append(t1 - t0)
+    log(f'[phase 3v] native sum tree, 2^20 leaves (host clock): filled with '
+        f'{2 * MAIN_B} rows and renormalized in {1e3 * fill:.3f} ms; a '
+        f'chunk\'s draw of {MAIN_B} {1e3 * np.median(draws):.4f} ms, its '
+        f'update and renormalization {1e3 * np.median(updates):.4f} ms '
+        f'(medians of {reps}); {card_line()}')
+
+
+# phase 3v: the options of the utils.rollout route, each as phase 3 runs:
+# (name, MCPILCOConfig fields, particles)
+VARIANT_ITERS = 10
+VARIANTS = (('mix', dict(mm_method='mix'), MAIN_B),
+            ('infer_noise_variables', dict(infer_noise_variables=True),
+             MAIN_B),
+            ('pegasus=False', dict(pegasus=False), MAIN_B),
+            ('prioritized_replay', dict(with_priorities=True), MAIN_B),
+            ('mix', dict(mm_method='mix'), GRID_B))
+
+
+def phase_variants():
+    """Phase 3v: phase 3's ``mc_pilco`` call (B = 100, T = 15, [200, 200],
+    MM of states and rewards) for VARIANT_ITERS iterations with each of
+    VARIANTS (``mix`` at B = 1000 auto-grouped into 4 groups of 250), the
+    default ``fused_rollout``: the gate takes no fused tier (its reason
+    logged), every MLP call goes through the fused-MLP kernels (launches
+    exactly 2 T an iteration each way), one iteration held against the
+    plain path on the same inputs, the ms an iteration beside phase 3's;
+    then the native sum tree's host times at 2^20 leaves."""
+    T = MAIN_T
+    for name, options, B in VARIANTS:
+        tag = f'phase 3v {name} B={B}'
+        phase_mc_pilco(VARIANT_ITERS, None, tag, expect(
+            fused_mlp_fwd=2 * T * VARIANT_ITERS,
+            fused_mlp_bwd=2 * T * VARIANT_ITERS), None, B=B, options=options)
+        log(f'[{tag}] {ITER_MS[tag]:.3f} ms an iteration on the '
+            f'utils.rollout route beside phase 3\'s '
+            f'{ITER_MS["phase 3"]:.3f} (host clock, this call); '
+            f'{card_line()}')
+    sum_tree_timings()
 
 
 def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
@@ -2935,20 +3049,23 @@ def episode_policy_check(results, args, tag):
                    1e-2 * pool.std(0)), row5, tag, SEED, T, B)
 
 
-def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS):
+def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS,
+                 tier='full'):
     """A torch Deep-PILCO driver (``main`` through its parser and the entry
     point's ``settings``, by default ``deep_pilco_mm``'s) with ``argv`` into
     a temporary folder under ``build/``, every count set to 0 just before
     it. Checks every value finite (v_loss too with a critic), E_lml rising
     within each fit, the tier the gate names for the driver's configuration
-    (``'full'``, whether the env gives the reward or the driver learns it,
-    and with the with-value driver's critic refit in the kernel) and its
-    exact launch counts: fused-MLP forward one a fit step and one a control
-    step taken (the lander may end an episode early; counted from the
-    experience), backward one a fit step, and ``fused_rollout_vg`` one a
-    policy iteration, no fused-MLP launch from the policy loop; then
-    ``checks(results folder, args)`` on its checkpoint. Returns the launch
-    counts and the per-episode records."""
+    (``tier``: ``'full'``, whether the env gives the reward or the driver
+    learns it, and with the with-value driver's critic refit in the kernel)
+    and its exact launch counts: fused-MLP forward one a fit step and one a
+    control step taken (the lander may end an episode early; counted from
+    the experience), backward one a fit step, and ``fused_rollout_vg`` one a
+    policy iteration, no fused-MLP launch from the policy loop (with
+    ``tier`` None, the ``utils.rollout`` route: no rollout kernel, the
+    fused MLP 2 T times each way a policy iteration); then ``checks(results
+    folder, args)`` on its checkpoint. Returns the launch counts and the
+    per-episode records."""
     root = Path(__file__).resolve().parent / 'build'
     root.mkdir(exist_ok=True)
     folder = tempfile.mkdtemp(prefix='chip_smoke_episode_', dir=root)
@@ -2991,27 +3108,36 @@ def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS):
         for k, v in settings['arg_overrides'].items():
             setattr(args, k, v)
         _, dyn, pol = driver_models(args)
-        cfg = MCPILCOConfig(n_particles=args.pol_batch_size, steps=args.pred_H,
-                            mm_states=settings['mm_states'],
-                            mm_rewards=settings['mm_rewards'])
+        cfg = MCPILCOConfig(
+            n_particles=args.pol_batch_size, steps=args.pred_H,
+            mm_states=settings['mm_states'], mm_rewards=settings['mm_rewards'],
+            mm_groups=args.mm_groups,
+            mm_method=args.mm_method.replace('experimental_', ''),
+            with_priorities=args.prioritized_replay)
         critic = (dpc.build_critic(dyn.state_dims, args,
                                    dpc.driver_discount(args))
                   if settings.get('use_value') else ())
-        tier = make_mc_pilco_fn(dyn, pol, cfg, 'cuda', *critic).tier('cuda')
         reward = ('a learned reward' if dyn.reward_func is None
                   else 'the env\'s reward')
+        got = make_mc_pilco_fn(dyn, pol, cfg, 'cuda', *critic).tier('cuda')
         log(f'[{tag}] the tier mc_pilco takes for the driver\'s '
             f'configuration ({reward}, reward kind '
-            f'{fr.reward_kind(dyn.reward_func)}): {tier!r}')
-        if tier != 'full':
-            raise AssertionError(f'the gate names {tier!r}')
+            f'{fr.reward_kind(dyn.reward_func)}): {got!r}')
+        if got != tier:
+            raise AssertionError(f'the gate names {got!r}, expected '
+                                 f'{tier!r}')
         exp = ExperienceDataset()
         exp.load(str(Path(results) / 'experience.pkl'))
         steps = sum(len(ep) for ep in exp.states)
         pol_iters = episodes * EPISODE_POL_ITERS
-        want = expect(fused_mlp_fwd=episodes * fit_iters + steps,
-                      fused_mlp_bwd=episodes * fit_iters,
-                      fused_rollout_vg=pol_iters)
+        if tier is None:
+            route = 2 * args.pred_H * pol_iters
+            want = expect(fused_mlp_fwd=episodes * fit_iters + steps + route,
+                          fused_mlp_bwd=episodes * fit_iters + route)
+        else:
+            want = expect(fused_mlp_fwd=episodes * fit_iters + steps,
+                          fused_mlp_bwd=episodes * fit_iters,
+                          fused_rollout_vg=pol_iters)
         log(f'[{tag}] {episodes} episode(s) in {wall:.3f} s, {steps} control '
             f'steps taken; launches {launches} (expected {want})')
         if launches != want:
@@ -3090,22 +3216,36 @@ def phase_env_episodes():
     runs = [(env, ['-e', env]) for env in ENV_EPISODE_ENVS]
     runs.append(('Cartpole --learn_reward', ['--learn_reward']))
     runs.append(('Cartpole --dyn_components 2', ['--dyn_components', '2']))
+    runs.append(('Cartpole --mm_method experimental_mix --prioritized_replay',
+                 ['--mm_method', 'experimental_mix', '--prioritized_replay',
+                  '--plot_level', '0']))
     for name, argv in runs:
         tag = f'phase 9 {name}'
         if name == 'LunarLander':
             log(f'[{tag}] make(\'LunarLander\') gives '
                 f'{type(envs.make(name, device="cuda")).__name__}')
 
+        route = '--prioritized_replay' in argv
+
         def checks(results, args):
             episode_fit_checks(results, args, tag, profile=False)
-            episode_policy_check(results, args, tag)
+            if not route:
+                episode_policy_check(results, args, tag)
             if args.env == 'LunarLander':
                 evaluate_check(results, tag)
 
         _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1',
                                                '--dyn_opt_iters',
                                                str(ENV_FIT_ITERS)] + argv,
-                               1, tag, checks)
+                               1, tag, checks, tier=None if route else 'full')
+        if route:
+            scores = r['pol_metrics']['priority_scores']
+            log(f'[{tag}] priority scores {scores.shape}: finite '
+                f'{bool(np.all(np.isfinite(scores)))}, mean '
+                f'{scores.mean():.6e}')
+            if not (np.all(np.isfinite(scores)) and scores.max() > 0):
+                raise AssertionError('the episode\'s priority scores are not '
+                                     'finite and positive')
         log(f'[{tag}] fit {1e3 * r["fit_s"] / ENV_FIT_ITERS:.4f} ms a step, '
             f'policy {1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an '
             'iteration')
@@ -3454,6 +3594,11 @@ def start(name):
     t = time.perf_counter()
     logs = build.build(['fused_mlp', 'fused_step', 'fused_rollout'])
     log(f'[phase 1] built {list(logs)} in {time.perf_counter() - t:.1f} s')
+    t = time.perf_counter()
+    lib = native.build_library()
+    native.load_library()
+    log(f'[phase 1] built and loaded the native sum tree ({lib.name}, g++) '
+        f'in {time.perf_counter() - t:.1f} s')
     for name, text in logs.items():
         for line in text.splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
@@ -3491,6 +3636,7 @@ def main():
     phase_mc_pilco(ROUTE_ITERS, False, 'phase 3', expect(
         fused_mlp_fwd=2 * T * ROUTE_ITERS, fused_mlp_bwd=2 * T * ROUTE_ITERS),
         None)
+    phase_variants()
     step = phase_loop(STEP_ITERS, 'step', 'phase 4', expect(
         fused_step_fwd=T * STEP_ITERS, fused_step_bwd=T * STEP_ITERS))
     # the step tier as mc_pilco takes it: a batch one particle beyond what

@@ -66,15 +66,31 @@ averaged over the ranks in one more all-reduce. Clip and the optimizer step
 run on every rank on the same grads, so the ranks' params stay the same
 bits.
 
+The options no fused tier takes (``fused_rollout.refuses`` says why) run on
+the ``utils.rollout`` route, as on JAX's XLA path:
+  - ``mm_method='mix'``: the epoch noise holds one orthogonal mixing matrix
+    for the states and one for the rewards (``sample_mm_mixing``); above
+    ``MIX_AUTO_GROUP_SIZE`` particles without ``mm_groups`` the mixing is
+    split into the fewest groups that divide B, with a warning (JAX
+    ``mc_pilco.py:296-316``);
+  - ``infer_noise_variables``: the resample infers its noise from the
+    particles; the reward mean-only shortcut is off;
+  - ``pegasus=False``: every iteration draws fresh epoch noise, and the
+    rollout fresh density noise for states and actions at every step;
+  - ``with_priorities``: the gradient of the loss with respect to a zero
+    action perturbation gives each MM group's mean action-gradient norm,
+    ``metrics['priority_scores']`` [iters, G], which ``mc_pilco``'s
+    prioritized replay of initial states feeds to a sum tree (``native``).
+
 Not ported yet (raise NotImplementedError, naming their ``ROADMAP.md``
-item): non-PEGASUS per-step noise, ``mm_method='mix'``,
-``infer_noise_variables``, initial-state prioritized replay, and a critic
-(a value update or a fixed critic) or CVaR under particle sharding.
+item): a critic (a value update or a fixed critic), CVaR, and the four
+options above under particle sharding.
 """
 import dataclasses
 import functools
 import inspect
 import time
+import warnings
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -82,9 +98,11 @@ import torch
 
 from ..ops.cuda import fused_rollout as fr
 from ..ops.math import clip_grad_norm
+from ..ops.moment_matching import sample_mm_mixing
 from ..parallel.mm import psum, sharded_grad
 from ..parallel.sharding import shard_particles
 from ..utils.core import resolve_device, tile, tree_leaves, tree_map
+from ..utils.rollout import SHARDED_OPTIONS_ITEM, sample_density_steps
 from ..utils.rollout import rollout as rollout_fn
 
 
@@ -164,6 +182,29 @@ def seeded_generator(device, *keys):
 
 _EPOCH_TAG, _ITER_TAG = 0x5EED, 0x17E4
 _CRITIC_MASK_TAG = 0x7A1  # JAX's fold_in of the iteration key for 'iter'
+_FRESH_TAG = 0xF7E5  # without PEGASUS: an iteration's own epoch noise
+
+# The largest ungrouped orthogonal mixing before 'mix' moment matching splits
+# the particles into groups (JAX mc_pilco.py:154-156)
+MIX_AUTO_GROUP_SIZE = 256
+
+
+def mix_groups_of(cfg):
+    """The MM groups of ``mm_method='mix'`` (JAX ``mc_pilco.py:296-316``):
+    ``mm_groups`` when given, else None up to ``MIX_AUTO_GROUP_SIZE``
+    particles, else the smallest group count that divides B into groups of
+    at most that size, with a warning."""
+    B = cfg.n_particles
+    if cfg.mm_groups or B <= MIX_AUTO_GROUP_SIZE:
+        return cfg.mm_groups
+    groups = next(g for g in range(-(-B // MIX_AUTO_GROUP_SIZE), B + 1)
+                  if B % g == 0)
+    warnings.warn(
+        f'mm_method="mix" with {B} particles: auto-grouping the mixing into '
+        f'{groups} groups of {B // groups} (per-group moment matching) to '
+        'avoid a [B, B] mixing matrix; pass mm_groups explicitly to '
+        'override.', stacklevel=3)
+    return groups
 
 
 class MCPILCO:
@@ -186,24 +227,20 @@ class MCPILCO:
                 raise NotImplementedError(
                     'a critic under particle sharding is not ported yet '
                     f'({fr.CRITIC_MESH_ITEM})')
-            if -1.0 < cfg.cvar_eps < 1.0 and cfg.cvar_eps != 0.0:
-                raise NotImplementedError(
-                    'CVaR under particle sharding is not ported yet '
-                    '(ROADMAP.md Queue 1: Parallel: the rest of the sharded '
-                    'options)')
+            sharded = [
+                (-1.0 < cfg.cvar_eps < 1.0 and cfg.cvar_eps != 0.0, 'CVaR'),
+                (not cfg.pegasus, 'non-PEGASUS noise'),
+                (cfg.mm_method == 'mix', "mm_method='mix'"),
+                (cfg.infer_noise_variables, 'infer_noise_variables'),
+                (cfg.with_priorities, 'initial-state prioritized replay')]
+            for hit, what in sharded:
+                if hit:
+                    raise NotImplementedError(
+                        f'{what} under particle sharding is not ported yet '
+                        f'({SHARDED_OPTIONS_ITEM})')
             mesh.bounds(cfg.n_particles)  # raises unless the ranks split B
-        if not cfg.pegasus:
-            raise NotImplementedError('non-PEGASUS noise is not ported yet '
-                                      '(ROADMAP.md Queue 1: Other '
-                                      'moment-matching variants)')
-        if cfg.mm_method != 'cholesky' or cfg.infer_noise_variables:
-            raise NotImplementedError('only Cholesky moment matching is '
-                                      'ported (ROADMAP.md Queue 1: Other '
-                                      'moment-matching variants)')
-        if cfg.with_priorities:
-            raise NotImplementedError('initial-state prioritized replay is '
-                                      'not ported yet (ROADMAP.md Queue 1: '
-                                      'Native sum tree and tooling)')
+        if cfg.mm_method not in ('cholesky', 'mix'):
+            raise ValueError(f'unknown mm_method {cfg.mm_method!r}')
         if cfg.val_mask_mode not in ('epoch', 'iter'):
             raise ValueError("val_mask_mode must be 'epoch' or 'iter', not "
                              f'{cfg.val_mask_mode!r}')
@@ -212,14 +249,17 @@ class MCPILCO:
         self.B = cfg.n_particles
         self.G = cfg.mm_groups if cfg.mm_groups else self.B
         self.w_t, self.w_H = discount_weights(cfg.discount, cfg.steps)
-        # With CVaR off and no critic refit (which reads per-particle
-        # rewards) the loss reduces rewards with a plain particle mean, which
-        # the reward MM resample leaves unchanged: take the mean-only
-        # shortcut (utils.rollout._mm_rewards_batched; JAX mc_pilco.py:266-268,
-        # which also needs no infer_noise_variables, not ported).
+        self.use_mix = cfg.mm_method == 'mix' and not cfg.infer_noise_variables
+        self.mix_groups = mix_groups_of(cfg) if self.use_mix else None
+        # With CVaR off, no critic refit (which reads per-particle rewards)
+        # and no infer_noise_variables the loss reduces rewards with a plain
+        # particle mean, which the reward MM resample leaves unchanged: take
+        # the mean-only shortcut (utils.rollout._mm_rewards_batched; JAX
+        # mc_pilco.py:266-268).
         cvar_active = (-1.0 < cfg.cvar_eps < 1.0) and cfg.cvar_eps != 0.0
         self.mr_mean_only = (cfg.mm_rewards and not cvar_active
-                             and value_update is None)
+                             and value_update is None
+                             and not cfg.infer_noise_variables)
         why = fr.refuses(cfg, dyn, pol, value_update, mesh, value_spec)
         if cfg.fused_rollout and why is not None:
             raise ValueError('fused_rollout=True but no fused tier takes '
@@ -257,12 +297,20 @@ class MCPILCO:
 
     def sample_noise(self, generator, D, device):
         """One PEGASUS epoch's noise: (dyn_noise, pol_noise, z_mm, z_rr), and
-        the critic's noise after them with a value spec."""
+        the critic's noise after them with a value spec. With
+        ``mm_method='mix'`` z_mm and z_rr are orthogonal mixings, [B, B] or
+        per group [G, B/G, B/G] (JAX ``mc_pilco.py:318-347``)."""
         B = self.B
         dyn_noise = self.dyn.sample_noise(generator, (B,), device=device)
         pol_noise = self.pol.sample_noise(generator, (B,), device=device)
-        z_mm = torch.randn((B, D), generator=generator, device=device)
-        z_rr = torch.randn((B, 1), generator=generator, device=device)
+        if self.use_mix:
+            z_mm = sample_mm_mixing(generator, B, self.mix_groups,
+                                    device=device)
+            z_rr = sample_mm_mixing(generator, B, self.mix_groups,
+                                    device=device)
+        else:
+            z_mm = torch.randn((B, D), generator=generator, device=device)
+            z_rr = torch.randn((B, 1), generator=generator, device=device)
         if self.value_spec is None:
             return dyn_noise, pol_noise, z_mm, z_rr
         v_noise = self.value_spec.sample_noise(generator, (B,), device=device)
@@ -305,7 +353,7 @@ class MCPILCO:
 
     def loss(self, pol_params, x0, dyn_params, dyn_stats, noise,
              value_carry=None, value_stats=None, value_params=None,
-             value_key=None):
+             value_key=None, action_eps=None, step_noise=None):
         """(loss, mean_return), differentiable, by the route ``x0``'s device
         takes, with ``noise`` from ``prepare_noise``; with a value update,
         given ``value_carry`` = (v_params, v_target, v_opt_state) and the
@@ -315,13 +363,15 @@ class MCPILCO:
         critic the bootstrap is under ``value_params``. Under a mesh the
         ``utils.rollout`` route's loss is the global batch's on every rank,
         a fused tier's that of the rank's slice (``iteration`` takes the
-        ranks' mean in K8's all-reduce)."""
+        ranks' mean in K8's all-reduce). ``action_eps`` and ``step_noise``:
+        as in ``loss_fn`` (no fused tier takes them)."""
         if self.tier(x0.device) is None:
             return self.loss_fn(pol_params, x0, dyn_params, dyn_stats, noise,
+                                action_eps=action_eps,
                                 value_carry=value_carry,
                                 value_stats=value_stats,
                                 value_params=value_params,
-                                value_key=value_key)
+                                value_key=value_key, step_noise=step_noise)
         loss, mean_return, aux = self.fused_loss(
             pol_params, x0, dyn_params, dyn_stats, *noise[:4],
             extras=self._extras(noise, value_carry, value_stats,
@@ -330,20 +380,28 @@ class MCPILCO:
 
     def loss_fn(self, pol_params, x0, dyn_params, dyn_stats, noise,
                 action_eps=None, value_carry=None, value_stats=None,
-                value_params=None, value_key=None):
+                value_params=None, value_key=None, step_noise=None):
         """``loss``'s result through ``utils.rollout`` for explicit initial
         states and noise as drawn (JAX ``mc_pilco.py:380-440``); under a
         mesh the rank's slices of x0 and the noise dicts with the global MM
         banks, and the global loss and mean_return on every rank
-        (``psum``)."""
+        (``psum``). ``step_noise``: without PEGASUS, the rollout's per-step
+        density noise (``sample_step_noise``)."""
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
+        dyn_steps, pol_steps = step_noise or (None, None)
         states, _, rewards = rollout_fn(
             x0, self.dyn, self.pol, cfg.steps, dyn_params, dyn_stats,
             pol_params, dyn_noise, pol_noise, mm_states=cfg.mm_states,
-            mm_rewards=cfg.mm_rewards, z_mm=z_mm, z_rr=z_rr,
-            mm_groups=cfg.mm_groups, action_eps=action_eps,
-            mm_rewards_mean_only=self.mr_mean_only, mesh=self.mesh)
+            mm_rewards=cfg.mm_rewards,
+            infer_noise_variables=cfg.infer_noise_variables, z_mm=z_mm,
+            z_rr=z_rr,
+            mm_groups=self.mix_groups if self.use_mix else cfg.mm_groups,
+            mm_method=cfg.mm_method, resample_state_noise=not cfg.pegasus,
+            resample_action_noise=not cfg.pegasus,
+            dyn_density_steps=dyn_steps, pol_density_steps=pol_steps,
+            action_eps=action_eps, mm_rewards_mean_only=self.mr_mean_only,
+            mesh=self.mesh)
         w_t = torch.as_tensor(self.w_t, device=rewards.device)
         returns = torch.sum(rewards[..., 0] * w_t[:, None], 0)
         aux = ()
@@ -400,16 +458,41 @@ class MCPILCO:
             x0 = shard_particles(x0, self.mesh)
         return x0
 
+    def sample_step_noise(self, generator, device):
+        """Without PEGASUS, an iteration's fresh per-step density noise for
+        states and actions ([T, B, ...] stacks, ``utils.rollout``
+        ``sample_density_steps``); None with it."""
+        if self.cfg.pegasus:
+            return None
+        return sample_density_steps(self.dyn, self.pol, self.cfg.steps,
+                                    self.B, generator, device)
+
+    def priority_scores(self, g_eps):
+        """Each MM group's mean action-gradient norm (JAX
+        ``mc_pilco.py:485-488``): the norms of ``g_eps`` [T, B, U] over U,
+        averaged over each group's particles, then over T: [G]."""
+        T, G = self.cfg.steps, self.G
+        norms = torch.linalg.vector_norm(g_eps, dim=-1)
+        return norms.reshape(T, G, self.B // G).mean(-1).mean(0)
+
     def iteration(self, pol_params, optimizer, dyn_params, dyn_stats,
                   x0_pool, noise, generator, init_noise=None,
                   value_carry=None, value_stats=None, value_params=None,
                   value_key=None):
-        """One optimizer step; returns detached (loss, mean_return), and with
-        a value update (v_loss, value_carry') after them (JAX
+        """One optimizer step; returns detached (loss, mean_return), with a
+        value update (v_loss, value_carry') after them, and with
+        ``with_priorities`` the priority scores [G] last (JAX
         ``mc_pilco.py:442-506``). ``noise`` comes from ``prepare_noise``;
-        ``value_params``, ``value_key``: as in ``loss``."""
+        ``value_params``, ``value_key``: as in ``loss``. Without PEGASUS the
+        per-step density noise is drawn from ``generator`` after x0."""
         x0 = self.sample_x0(x0_pool, generator, init_noise)
+        step_noise = self.sample_step_noise(generator, x0.device)
         params = tree_leaves(pol_params)
+        action_eps = scores = None
+        if self.cfg.with_priorities:
+            action_eps = torch.zeros(
+                (self.cfg.steps, self.B, len(self.pol.max_u)),
+                device=x0.device, requires_grad=True)
         if self.fused_vg is not None and self.tier(x0.device) is not None:
             loss, mean_return, grads, aux = self.fused_vg(
                 pol_params, x0, dyn_params, dyn_stats, *noise[:4],
@@ -420,10 +503,16 @@ class MCPILCO:
             loss, mean_return, *aux = self.loss(
                 pol_params, x0, dyn_params, dyn_stats, noise,
                 value_carry=value_carry, value_stats=value_stats,
-                value_params=value_params, value_key=value_key)
+                value_params=value_params, value_key=value_key,
+                action_eps=action_eps, step_noise=step_noise)
             aux = aux[0] if aux else ()
-            grads = (torch.autograd.grad(loss, params) if self.mesh is None
-                     else sharded_grad(loss, params, self.mesh))
+            if action_eps is not None:
+                *grads, g_eps = torch.autograd.grad(loss, params + [action_eps])
+                scores = self.priority_scores(g_eps)
+            elif self.mesh is None:
+                grads = torch.autograd.grad(loss, params)
+            else:
+                grads = sharded_grad(loss, params, self.mesh)
         if self.cfg.clip_grad is not None:
             grads = clip_grad_norm(list(grads), self.cfg.clip_grad)
         for p, g in zip(params, grads):
@@ -432,6 +521,8 @@ class MCPILCO:
         out = (loss.detach(), mean_return.detach())
         if self.value_update is not None:
             out += (aux[3], tuple(aux[:3]))
+        if scores is not None:
+            out += (scores,)
         return out
 
     def __call__(self, pol_params, optimizer, dyn_params, dyn_stats, x0_pool,
@@ -442,8 +533,10 @@ class MCPILCO:
         'target', 'opt_state') is carried through them and updated in place;
         with a fixed critic the bootstrap is under ``value_params``.
 
-        Returns ({'loss': [iters], 'mean_return': [iters], and 'v_loss'
-        [iters] with a value update} on the device, n_opt_steps + iters).
+        Returns ({'loss': [iters], 'mean_return': [iters], 'v_loss'
+        [iters] with a value update, 'priority_scores' [iters, G] with
+        ``with_priorities``} on the device, n_opt_steps + iters). Without
+        PEGASUS every iteration draws its own epoch noise.
         """
         device = x0_pool.device
         D = x0_pool.shape[-1]
@@ -455,7 +548,11 @@ class MCPILCO:
                      value_state['opt_state'])
         hist = []
         for n in range(n_opt_steps, n_opt_steps + iters):
-            if n // period != epoch:
+            if not self.cfg.pegasus:
+                noise = self.prepare_noise(self.sample_noise(
+                    seeded_generator(device, seed, _FRESH_TAG, n), D,
+                    device), device)
+            elif n // period != epoch:
                 epoch = n // period
                 noise = self.prepare_noise(self.sample_noise(
                     seeded_generator(device, seed, _EPOCH_TAG, epoch), D,
@@ -468,11 +565,14 @@ class MCPILCO:
             out = self.iteration(pol_params, optimizer, dyn_params, dyn_stats,
                                  x0_pool, noise, gen, init_state_noise, carry,
                                  value_stats, value_params, key)
+            rec = {'loss': out[0], 'mean_return': out[1]}
             if carry is not None:
-                carry = out[3]
-            hist.append(out[:3])
-        names = ('loss', 'mean_return', 'v_loss')
-        metrics = {k: torch.stack(v) for k, v in zip(names, zip(*hist))}
+                rec['v_loss'], carry = out[2:4]
+            if self.cfg.with_priorities:
+                rec['priority_scores'] = out[-1]
+            hist.append(rec)
+        metrics = {k: torch.stack([h[k] for h in hist])
+                   for k in (hist[0] if hist else ())}
         if carry is not None:
             value_state.update(zip(('params', 'target', 'opt_state'), carry))
         return metrics, n_opt_steps + iters
@@ -495,8 +595,10 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
              maximize=True, clip_grad=1.0, cvar_eps=0.0, reg_weight=0.0,
              discount=None, init_state_noise=0.0, resampling_period=499,
              n_particles=100, seed=None, n_opt_steps=0, on_iteration=None,
-             prioritized_replay=False, chunk=None, writer=None,
-             writer_scope='mc_pilco', verbose=False, mesh=None):
+             prioritized_replay=False, priority_alpha=0.6, priority_eps=1e-8,
+             init_priority_beta=1.0, chunk=None, writer=None,
+             writer_scope='mc_pilco', verbose=False, mesh=None,
+             infer_noise_variables=False):
     """Host-level MC-PILCO loop (JAX ``mc_pilco.py:574-716``).
 
     ``opt_state``: the ``torch.optim.Optimizer`` over the leaves of
@@ -511,7 +613,8 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     sampled initial states. ``on_iteration(done, metrics)`` or
     ``on_iteration(done, metrics, pol_params)`` (a hook of three parameters
     gets the live policy params) runs after each chunk of ``chunk``
-    iterations (all of them, or 100 with a hook, a writer or ``verbose``).
+    iterations (all of them, or 100 with a hook, a writer, ``verbose`` or
+    prioritized replay).
     ``writer``: an object with ``add_scalar(tag, value, step)`` (a
     tensorboardX ``SummaryWriter``), given each chunk's mean loss,
     mean_return and v_loss under ``writer_scope``; ``verbose`` prints a
@@ -524,7 +627,17 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     every iteration adds. ``mesh``: a ``parallel.sharding.Mesh`` over whose
     ranks the particles split; every rank calls ``mc_pilco`` with the same
     arguments and ends with the same params and metrics (no critic under a
-    mesh yet: ``MCPILCO``).
+    mesh yet: ``MCPILCO``). ``infer_noise_variables``:
+    ``MCPILCOConfig.infer_noise_variables`` (JAX's ``mc_pilco`` leaves it at
+    its default).
+
+    ``prioritized_replay`` (JAX ``mc_pilco.py:637-697``): the rows of
+    ``x0_pool`` go into a sum tree of 2^20 leaves (``native.make_sum_tree``)
+    at its largest priority, and each chunk draws its pool of max(G, 2)
+    initial states from it (``sample(..., beta=init_priority_beta)``);
+    after the chunk each drawn leaf's priority becomes ``(score / max(count,
+    1) + priority_eps) ** priority_alpha`` from the chunk's mean
+    ``priority_scores``, and the tree is renormalized.
 
     Returns (pol_params, opt_state, metrics (numpy), n_opt_steps).
     """
@@ -546,7 +659,8 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         cvar_eps=cvar_eps, reg_weight=reg_weight, discount=discount,
         resampling_period=resampling_period,
         with_priorities=prioritized_replay, val_mask_mode=val_mask_mode,
-        fused_rollout=fused_rollout)
+        fused_rollout=fused_rollout,
+        infer_noise_variables=infer_noise_variables)
     use_value = value_update_fn is not None and value_state is not None
     opt_fn = make_mc_pilco_fn(dyn, pol, cfg, x0_pool.device, value_spec,
                               value_update_fn if use_value else None, mesh)
@@ -556,7 +670,16 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
                                      device=x0_pool.device)
     if chunk is None:
         chunk = (opt_iters if on_iteration is None and writer is None
-                 and not verbose else 100)
+                 and not verbose and not prioritized_replay else 100)
+    tree = None
+    pool = x0_pool
+    G = mm_groups if mm_groups else n_particles
+    if prioritized_replay:
+        from ..native import make_sum_tree
+        tree = make_sum_tree(2 ** 20)
+        for row in x0_pool.detach().cpu().numpy():
+            tree.append(row, tree.max_p)
+        tree.renormalize()
     n_hook_args = 2
     if callable(on_iteration):
         try:
@@ -568,8 +691,12 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     t_start = time.perf_counter()
     while done < opt_iters:
         n = min(chunk, opt_iters - done)
+        if tree is not None:
+            samples, idxs, _ = tree.sample(max(G, 2), beta=init_priority_beta)
+            pool = torch.as_tensor(np.stack(samples), dtype=torch.float32,
+                                   device=x0_pool.device)
         metrics, n_opt_steps = opt_fn(pol_params, opt_state, dyn_params,
-                                      dyn_stats, x0_pool, seed, n_opt_steps,
+                                      dyn_stats, pool, seed, n_opt_steps,
                                       n, init_state_noise=init_noise,
                                       value_state=value_state,
                                       value_stats=value_stats,
@@ -591,6 +718,9 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
             print(('[mc_pilco] iter %d/%d (%.0f it/s) ' + msg)
                   % (done + n, opt_iters, rate,
                      float(metrics['mean_return'][-1])), flush=True)
+        if tree is not None:
+            update_priorities(tree, idxs, metrics['priority_scores'].mean(0),
+                              priority_alpha, priority_eps)
         if callable(on_iteration):
             if n_hook_args >= 3:
                 on_iteration(done + n, metrics, pol_params)
@@ -600,6 +730,19 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     merged = {k: np.concatenate([m[k] for m in all_metrics])
               for k in all_metrics[0]}
     return pol_params, opt_state, merged, n_opt_steps
+
+
+def update_priorities(tree, idxs, scores, alpha, eps):
+    """A chunk's tree update (JAX ``mc_pilco.py:689-697``): the first
+    len(scores) drawn leaves ``idxs`` get priority ``(score / max(count, 1)
+    + eps) ** alpha``, their visit counts read before the update; then the
+    tree is renormalized."""
+    idxs = np.asarray(idxs)
+    counts = tree.counts[idxs - tree.max_size + 1][:len(scores)]
+    priorities = (scores / np.maximum(counts, 1) + eps) ** alpha
+    for ti, p in zip(idxs[:len(priorities)], priorities):
+        tree.update(int(ti), float(p))
+    tree.renormalize()
 
 
 _AGENT_INIT, _AGENT_FIT, _AGENT_TRAIN = 0xA6E0, 0xA6E1, 0xA6E2

@@ -34,7 +34,8 @@ import torch
 
 from .. import models
 from .. import parallel
-from ..algorithms.mc_pilco import derive_seed, mc_pilco, seeded_generator
+from ..algorithms.mc_pilco import (MCPILCOConfig, derive_seed, mc_pilco,
+                                   seeded_generator)
 from ..algorithms.value import Adam, make_value_update_fn
 from ..ops.cuda import fused_rollout
 from ..utils.apply_controller import apply_controller
@@ -217,10 +218,7 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     discount = driver_discount(args)
 
     dyn, pol = build_models(D, U, maxU, minU, args, learn_reward, reward_func)
-    why = fused_rollout.kernel_refuses(dyn, pol)
-    if why is not None and args.fused_rollout != 'off':
-        say(f'[{experiment_name}] the rollout kernels do not take these '
-            f'models ({why}): the policy loop takes the utils.rollout route')
+    mm_method = args.mm_method.replace('experimental_', '')
 
     gen = seeded_generator(device, args.seed, _INIT)
     dyn_params = dyn.init(gen, device=device)
@@ -237,6 +235,17 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
         value_state = dict(params=value_params, target=value_params,
                            opt_state=value_update.optimizer.init(
                                value_params))
+    why = fused_rollout.refuses(
+        MCPILCOConfig(n_particles=args.pol_batch_size, steps=args.pred_H,
+                      mm_states=mm_states, mm_rewards=mm_rewards,
+                      mm_groups=args.mm_groups, mm_method=mm_method,
+                      with_priorities=args.prioritized_replay,
+                      val_mask_mode=args.val_mask_mode),
+        dyn, pol, value_update, mesh, value_spec)
+    if why is not None and args.fused_rollout != 'off':
+        say(f'[{experiment_name}] no fused rollout tier takes this '
+            f'configuration ({why}): the policy loop takes the utils.rollout '
+            'route')
 
     results_folder = from_lead(init_output_folder(
         env, args.output_folder, experiment_name) if lead else None)
@@ -350,7 +359,7 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
             optimizer=pol_opt, opt_iters=args.pol_opt_iters,
             mm_states=mm_states, mm_rewards=mm_rewards,
             mm_groups=args.mm_groups,
-            mm_method=args.mm_method.replace('experimental_', ''),
+            mm_method=mm_method,
             clip_grad=args.pol_clip, discount=discount,
             init_state_noise=init_noise,
             resampling_period=args.resampling_period,
@@ -381,6 +390,9 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
         if not lead:
             continue
 
+        if args.plot_level > 0:
+            _save_rollout_plot(results_folder, ps_it, x0_pool, dyn, pol,
+                               args, dyn_params, dyn_stats, pol_params)
         if args.debug:
             np.savez(os.path.join(results_folder,
                                   f'metrics_ep{ps_it}.npz'),
@@ -405,6 +417,24 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     if writer is not None and mesh is not None:
         writer.close()  # a rank's process ends without running atexit
     return eval_returns, results_folder
+
+
+def _save_rollout_plot(results_folder, ps_it, x0_pool, dyn, pol, args,
+                       dyn_params, dyn_stats, pol_params):
+    """``--plot_level > 0``: save the figures of an imagined rollout of 25
+    of the episode's initial states over twice the horizon, without moment
+    matching (JAX ``examples/deep_pilco_common.py:354-366``), as
+    ``rollout_ep<episode>_{states,actions,rewards}.png``."""
+    from ..utils.plotting import _pyplot, plot_rollout
+    plt = _pyplot()
+    device = tree_leaves(pol_params)[0].device
+    figs = plot_rollout(torch.as_tensor(x0_pool[:25], device=device), dyn,
+                        pol, args.pred_H * 2, dyn_params, dyn_stats,
+                        pol_params)
+    for fig, name in zip(figs, ('states', 'actions', 'rewards')):
+        fig.savefig(os.path.join(results_folder,
+                                 f'rollout_ep{ps_it}_{name}.png'), dpi=80)
+        plt.close(fig)
 
 
 def main(mm_states, mm_rewards, use_value=False, name='deep_pilco',

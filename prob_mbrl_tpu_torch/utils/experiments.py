@@ -105,8 +105,8 @@ def get_argument_parser(title=''):
                         choices=['cholesky', 'experimental_mix'],
                         help="moment matching: 'cholesky' resamples the "
                              "particles from their Gaussian moments; "
-                             "'experimental_mix' (not ported) mixes them "
-                             'orthogonally')
+                             "'experimental_mix' mixes them orthogonally "
+                             '(the utils.rollout route)')
     return parser
 
 
@@ -117,12 +117,6 @@ def refuse_unported(args, use_value=False):
         (use_value and args.n_devices is not None and args.n_devices > 1,
          '--n_devices > 1 with a critic (particle sharding of the value '
          'bootstrap)', 'Parallel: the critic under particle sharding'),
-        (args.mm_method == 'experimental_mix', '--mm_method experimental_mix',
-         'Other moment-matching variants'),
-        (args.prioritized_replay, '--prioritized_replay (initial-state '
-         'prioritized replay in mc_pilco)', 'Native sum tree and tooling'),
-        (args.plot_level > 0, '--plot_level > 0 (rollout plots)',
-         'Native sum tree and tooling'),
     ]
     for hit, what, item in refused:
         if hit:

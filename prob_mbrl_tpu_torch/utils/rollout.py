@@ -1,11 +1,20 @@
-"""Imagined-trajectory rollout, Cholesky moment-matching path
-(counterpart of ``prob_mbrl_tpu/utils/rollout.py:93-342``).
+"""Imagined-trajectory rollout (counterpart of
+``prob_mbrl_tpu/utils/rollout.py:93-357``).
 
 Per step: actions = pol(states) (sampled, tanh-squashed), next states =
 dyn(states, actions) (sampled), then an optional moment-matching resample of
-the next states against cyclically indexed fixed noise (PEGASUS). The reward
-pipeline never feeds back into the state recursion, so it runs after the time
-loop, batched over [T, B], on the next states before moment matching.
+the next states against fixed noise (PEGASUS): ``mm_method='cholesky'``
+against cyclically indexed noise, ``infer_noise_variables`` with the noise
+inferred from the particles, ``'mix'`` by an orthogonal mixing matrix (one
+shared matrix whose mixed cloud is rolled by t at step t, or a [T, ...]
+stack of per-step matrices). The reward pipeline never feeds back into the
+state recursion, so it runs after the time loop, batched over [T, B], on
+the next states before moment matching.
+
+Non-PEGASUS propagation (``resample_state_noise`` /
+``resample_action_noise``): every step takes fresh density noise, given as
+[T, B, ...] stacks (``dyn_density_steps`` / ``pol_density_steps``) or drawn
+from ``generator`` (``sample_density_steps``).
 
 Outputs: states [T+1, B, D], actions [T, B, U], rewards [T, B, 1], and
 with ``value_fn`` the values [T+1, B, 1] (``rollout_with_values``).
@@ -14,17 +23,20 @@ Under a particle mesh (``mesh``, ``parallel.sharding.Mesh``) each rank rolls
 its own slice of the particles: ungrouped moment matching takes the global
 moments (``parallel.mm.mm_resample_psum``), MM groups lie within a rank's
 slice, and the reward mean-only shortcut takes the global mean (JAX
-``parallel/rollout.py`` ``make_sharded_loss_fn``).
+``parallel/rollout.py`` ``make_sharded_loss_fn``). The mixing and
+infer-noise resamples and per-step noise are not ported under a mesh.
 
-Not ported yet (raise NotImplementedError): ``mm_method='mix'``,
-``infer_noise_variables``, ``q_fn`` and per-step noise resampling
-(non-PEGASUS).
+Not ported yet (raises NotImplementedError): ``q_fn``.
 """
 import numpy as np
 import torch
 
 from ..ops import moment_matching as mm
 from ..parallel.mm import mm_resample_groups_psum, mm_resample_psum, psum
+from .core import tree_map
+
+SHARDED_OPTIONS_ITEM = ('ROADMAP.md Queue 1: Parallel: the rest of the '
+                        'sharded options')
 
 
 def _cyclic_index(steps, B, device):
@@ -56,8 +68,43 @@ def _z_steps(z, steps, B, mesh, standardize):
     return z[:, lo:hi]
 
 
+def _mix_is_per_step(U, steps, mm_groups):
+    """True if a mixing-matrix buffer carries a leading per-step axis."""
+    base_ndim = 3 if mm_groups is not None else 2
+    return U.dim() == base_ndim + 1 and U.shape[0] == steps
+
+
+def pre_roll_mixing(U, steps):
+    """The [T, ..., M, M] stack ``Pi^t U`` of a mixing matrix, its rows
+    rolled by t at step t: the per-step form of the cyclic decorrelation
+    (JAX ``utils/rollout.py:74-85``)."""
+    return torch.stack([torch.roll(U, t, dims=-2) for t in range(steps)])
+
+
+def _mm_mix(x, U, mm_groups, shift=None):
+    if mm_groups is not None:
+        return mm.grouped_mix(x, U, mm_groups, shift=shift)
+    return mm.mm_resample_mix(x, U, shift=shift)
+
+
+def _mm_step(x, z, mm_groups, infer_noise_variables, mesh):
+    """The Cholesky or infer-noise resample of one step's next states ``x``
+    with that step's noise rows ``z`` (JAX ``utils/rollout.py:50-65``;
+    grouped, one jitter shared over the groups)."""
+    if infer_noise_variables:
+        if mm_groups is not None:
+            return mm.grouped(mm.mm_resample_infer_ns, x, z, mm_groups)
+        return mm.mm_resample_infer_ns(x, z)
+    if mm_groups is not None:
+        return mm.grouped(_resample(mesh), x, z, mm_groups)
+    if mesh is not None:
+        return mm_resample_psum(x, z, mesh, standardized=True)
+    return mm.mm_resample(x, z, standardized=True)
+
+
 def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
-                        mesh=None):
+                        mesh=None, infer_noise_variables=False,
+                        mm_method='cholesky'):
     """Reward moment matching over the whole [T, B, 1] horizon at once
     (``B`` the global batch; under ``mesh`` ``rewards`` is the rank's
     [T, B / n, 1] and ``mm_groups`` its own groups).
@@ -66,9 +113,11 @@ def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
     a plain particle mean. The standardized noise has exact zero particle
     mean, so the resample's particle mean is ``m`` and the gradient through
     its Cholesky branch vanishes: the per-step (per-group) mean broadcast
-    gives the same value and gradients.
+    gives the same value and gradients. The mixing keeps particle means
+    exactly too (``U 1 = 1``); under ``infer_noise_variables`` the shortcut
+    is not taken (JAX ``utils/rollout.py:118``).
     """
-    if mean_only:
+    if mean_only and not infer_noise_variables:
         if mm_groups is not None:
             D = rewards.shape[-1]
             g = rewards.reshape(steps, mm_groups, -1, D)
@@ -78,6 +127,20 @@ def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
             m = psum(rewards.sum(-2, keepdim=True), mesh) / B
             return m.expand(rewards.shape)
         return rewards.mean(-2, keepdim=True).expand(rewards.shape)
+    if mm_method == 'mix' and not infer_noise_variables:
+        if _mix_is_per_step(z_rr, steps, mm_groups):
+            return torch.stack([_mm_mix(rewards[t], z_rr[t], mm_groups)
+                                for t in range(steps)])
+        # one shared matrix: step t's mixed cloud rolled by t (= Pi^t U)
+        return torch.stack([_mm_mix(rewards[t], z_rr, mm_groups, shift=t)
+                            for t in range(steps)])
+    if infer_noise_variables:
+        D = rewards.shape[-1]
+        if mm_groups is None:
+            return mm.mm_resample_infer_ns(rewards, None, 1e-12)
+        out = mm.mm_resample_infer_ns(rewards.reshape(steps, mm_groups, -1, D),
+                                      None, 1e-12)
+        return out.reshape(steps, -1, D)
     if mm_groups is None:
         z = _z_steps(z_rr, steps, B, mesh, standardize=True)
         if mesh is not None:
@@ -90,11 +153,33 @@ def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
     return out.reshape(steps, -1, D)
 
 
+def sample_density_steps(dyn, pol, steps, B, generator, device=None,
+                         states=True, actions=True):
+    """Fresh density noise for every step (non-PEGASUS propagation; JAX
+    draws it from ``key`` in ``rollout``, ``utils/rollout.py:215-231``):
+    (the dynamics head's [T, B, ...] noise or None, the policy head's or
+    None), drawn from ``generator`` in that order, each step a draw of the
+    head's ``sample_noise`` at batch (B,)."""
+    def draws(density):
+        noise = [density.sample_noise(generator, (B,), device=device)
+                 for _ in range(steps)]
+        return tree_map(lambda *xs: torch.stack(xs), *noise)
+
+    dyn_steps = (draws(dyn.regressor.output_density) if states else None)
+    pol_density = pol.output_density
+    pol_steps = (draws(pol_density)
+                 if actions and pol_density is not None else None)
+    return dyn_steps, pol_steps
+
+
 def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
             dyn_noise, pol_noise, mm_states=False, mm_rewards=False,
             infer_noise_variables=False, z_mm=None, z_rr=None, mm_groups=None,
-            mm_method='cholesky', value_fn=None, q_fn=None, action_eps=None,
-            mm_rewards_mean_only=False, mesh=None):
+            mm_method='cholesky', resample_state_noise=False,
+            resample_action_noise=False, generator=None,
+            dyn_density_steps=None, pol_density_steps=None, value_fn=None,
+            q_fn=None, action_eps=None, mm_rewards_mean_only=False,
+            mesh=None):
     """Roll imagined particles through the learned dynamics under the policy.
 
     Args:
@@ -105,13 +190,24 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
       pol_params: policy parameters.
       dyn_noise/pol_noise: PEGASUS noise dicts with batch dim B.
       mm_states/mm_rewards: moment-matching resample toggles.
-      z_mm: [>=B, D] fixed MM noise for states; required if mm_states.
-      z_rr: [>=B, 1] fixed MM noise for rewards; required if mm_rewards.
+      infer_noise_variables: resample with the noise inferred from the
+        particles (``mm_resample_infer_ns``); ``z_mm`` / ``z_rr`` unused.
+      z_mm: fixed MM noise for states, required if mm_states: [>=B, D] for
+        ``mm_method='cholesky'``; for ``'mix'`` a [B, B] (grouped
+        [G, B/G, B/G]) orthogonal mixing from ``sample_mm_mixing``, or a
+        [T, ...] stack of them (``pre_roll_mixing``).
+      z_rr: the same for rewards (D = 1); required if mm_rewards.
       mm_groups: number of independent MM groups (None = all particles).
+      mm_method: 'cholesky' (``m + z chol(S)^T``) or 'mix'
+        (``m + U (x - m)``).
+      resample_state_noise / resample_action_noise: fresh density noise at
+        every step (non-PEGASUS): ``dyn_density_steps`` /
+        ``pol_density_steps`` ([T, B, ...] stacks of the heads' noise) when
+        given, else drawn from ``generator`` (``sample_density_steps``).
       action_eps: optional [T, B, U] perturbation added to the actions.
       mm_rewards_mean_only: replace the reward resample by its per-step
         particle mean; valid only when every consumer of the rewards takes a
-        plain particle mean.
+        plain particle mean (not taken under ``infer_noise_variables``).
       value_fn: optional ``states [B, D] -> values [B, 1]``; evaluated on
         each step's detached states and on the last states (not detached),
         as JAX's ``rollout`` does (``utils/rollout.py:307-335``).
@@ -124,47 +220,79 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
       (states [T+1, B, D], actions [T, B, U], rewards [T, B, 1]), and values
       [T+1, B, 1] after them with ``value_fn``.
     """
-    if mm_method != 'cholesky' or infer_noise_variables:
-        raise NotImplementedError('only Cholesky moment matching is ported')
+    if mm_method not in ('cholesky', 'mix'):
+        raise ValueError(f'unknown mm_method {mm_method!r}')
     if q_fn is not None:
         raise NotImplementedError('q_fn is not ported yet (it waits for '
                                   'MBDDPG)')
+    use_mix = mm_method == 'mix' and not infer_noise_variables
+    if mesh is not None and (use_mix or infer_noise_variables
+                             or resample_state_noise
+                             or resample_action_noise):
+        raise NotImplementedError(
+            'the mixing and infer-noise resamples and per-step noise are not '
+            f'ported under particle sharding ({SHARDED_OPTIONS_ITEM})')
     B = x0.shape[0] * (1 if mesh is None else mesh.size)
     known_reward = dyn.reward_func is not None
     local_groups = mm_groups if mesh is None else mesh.local_groups(mm_groups)
 
+    want_dyn = resample_state_noise and dyn_density_steps is None
+    want_pol = (resample_action_noise and pol_density_steps is None
+                and 'density' in pol_noise)
+    if want_dyn or want_pol:
+        if generator is None:
+            raise ValueError('a generator (or the density stacks) is needed '
+                             'to resample the noise at every step')
+        d_steps, p_steps = sample_density_steps(
+            dyn, pol, steps, B, generator, x0.device, states=want_dyn,
+            actions=want_pol)
+        dyn_density_steps = d_steps if want_dyn else dyn_density_steps
+        pol_density_steps = p_steps if want_pol else pol_density_steps
+    if not resample_state_noise:
+        dyn_density_steps = None
+    if not resample_action_noise or 'density' not in pol_noise:
+        pol_density_steps = None
+
     z_steps = None
-    if mm_states:
+    if mm_states and not use_mix and not infer_noise_variables:
         # ungrouped: standardize once (commutes with the cyclic roll)
         z_steps = _z_steps(z_mm, steps, B, mesh, standardize=mm_groups is None)
+    mix_steps = mm_states and use_mix and _mix_is_per_step(z_mm, steps,
+                                                           mm_groups)
 
     states, actions, raw_next, rewards, values = [x0], [], [], [], []
     s = x0
     for t in range(steps):
+        d_noise, p_noise = dyn_noise, pol_noise
+        if dyn_density_steps is not None:
+            d_noise = dict(dyn_noise, density=tree_map(lambda a: a[t],
+                                                       dyn_density_steps))
+        if pol_density_steps is not None:
+            p_noise = dict(pol_noise, density=tree_map(lambda a: a[t],
+                                                       pol_density_steps))
         if value_fn is not None:
             values.append(value_fn(s.detach()))
-        a = pol.apply(pol_params, s, pol_noise, return_samples=True)
+        a = pol.apply(pol_params, s, p_noise, return_samples=True)
         if action_eps is not None:
             a = a + action_eps[t]
         if known_reward:
-            nxt = dyn.apply(dyn_params, dyn_stats, s, a, dyn_noise,
+            nxt = dyn.apply(dyn_params, dyn_stats, s, a, d_noise,
                             return_samples=True, separate_outputs=True,
                             deltas=False, with_rewards=False)
         else:
-            nxt, r = dyn.apply(dyn_params, dyn_stats, s, a, dyn_noise,
+            nxt, r = dyn.apply(dyn_params, dyn_stats, s, a, d_noise,
                                return_samples=True, separate_outputs=True,
                                deltas=False)
             rewards.append(r)
         raw_next.append(nxt)
         if mm_states:
-            if mm_groups is not None:
-                nxt = mm.grouped(_resample(mesh), nxt, z_steps[t],
-                                 local_groups)
-            elif mesh is not None:
-                nxt = mm_resample_psum(nxt, z_steps[t], mesh,
-                                       standardized=True)
+            if use_mix:
+                # per-step matrices, or the shared one's cloud rolled by t
+                nxt = (_mm_mix(nxt, z_mm[t], mm_groups) if mix_steps
+                       else _mm_mix(nxt, z_mm, mm_groups, shift=t))
             else:
-                nxt = mm.mm_resample(nxt, z_steps[t], standardized=True)
+                nxt = _mm_step(nxt, None if z_steps is None else z_steps[t],
+                               local_groups, infer_noise_variables, mesh)
         actions.append(a)
         states.append(nxt)
         s = nxt
@@ -176,9 +304,10 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     else:
         rewards = torch.stack(rewards, 0)
     if mm_rewards:
-        rewards = _mm_rewards_batched(rewards, z_rr, steps, B, local_groups,
-                                      mean_only=mm_rewards_mean_only,
-                                      mesh=mesh)
+        rewards = _mm_rewards_batched(
+            rewards, z_rr, steps, B, local_groups,
+            mean_only=mm_rewards_mean_only, mesh=mesh,
+            infer_noise_variables=infer_noise_variables, mm_method=mm_method)
     if value_fn is None:
         return states, actions, rewards
     values.append(value_fn(s))

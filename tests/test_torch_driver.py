@@ -101,18 +101,39 @@ def test_the_other_entry_points_and_options_run(tmp_path, module, argv):
                                            'best_policy.pth.tar.pkl'))
 
 
-@pytest.mark.parametrize('argv', [
-    ['--n_devices', '2'], ['--mm_method', 'experimental_mix'],
-    ['--prioritized_replay'],
-    ['--plot_level', '1']])
+@pytest.mark.parametrize('argv', [['--n_devices', '2']])
 def test_unported_flags_raise_naming_their_roadmap_item(tmp_path, argv):
     # --n_devices runs on ranks (tests/test_torch_parallel.py); with the
     # with-value driver's critic it is refused
-    settings = (deep_pilco_no_mm_with_value.SETTINGS if '--n_devices' in argv
-                else deep_pilco_mm.SETTINGS)
+    settings = deep_pilco_no_mm_with_value.SETTINGS
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
         _run(settings, argv, tmp_path)
     assert not os.path.exists(tmp_path / settings['name'])
+
+
+def test_mixing_prioritized_replay_and_rollout_plots_run(tmp_path, capsys):
+    """``--mm_method experimental_mix --prioritized_replay --plot_level 1``:
+    the policy loop takes the utils.rollout route (the driver prints the
+    gate's reason), the priority scores come back with the metrics, and
+    each episode saves the three rollout figures."""
+    import matplotlib
+    matplotlib.use('Agg')
+    returns, folder, records = _run(
+        deep_pilco_mm.SETTINGS, ['--ps_iters', '2', '--mm_method',
+                                 'experimental_mix', '--prioritized_replay',
+                                 '--plot_level', '1'], tmp_path)
+    printed = capsys.readouterr().out
+    assert 'no fused rollout tier takes this configuration' in printed
+    assert len(returns) == 2 and np.all(np.isfinite(returns))
+    for r in records:
+        m = r['pol_metrics']
+        assert np.all(np.isfinite(m['loss']))
+        assert m['priority_scores'].shape == (10, 8)
+        assert np.all(np.isfinite(m['priority_scores']))
+        assert m['priority_scores'].max() > 0
+        for name in ('states', 'actions', 'rewards'):
+            assert os.path.getsize(os.path.join(
+                folder, f'rollout_ep{r["episode"]}_{name}.png')) > 0
 
 
 @pytest.mark.parametrize('env', ['Cartpole', 'JaxLunarLander'])

@@ -281,16 +281,25 @@ def test_mc_pilco_host_loop_runs_and_updates(setup):
 
 
 def test_unported_options_raise(setup):
+    """Under a particle mesh the four options of the utils.rollout route
+    raise naming ROADMAP.md Queue 1 item 11 (a mesh that only gives its
+    size: nothing is sent); so does the rollout under one; ``q_fn`` waits
+    for MBDDPG."""
     _, _, tdyn, tpol = setup['specs']
+    mesh = tpar.Mesh(2, 0, None, torch.device('cpu'), 'gloo')
+    item = 'ROADMAP.md Queue 1: Parallel: the rest of the sharded options'
     for kw in (dict(pegasus=False), dict(mm_method='mix'),
                dict(infer_noise_variables=True), dict(with_priorities=True)):
-        with pytest.raises(NotImplementedError):
-            tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu')
+        tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu')
+        with pytest.raises(NotImplementedError, match=item):
+            tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu',
+                                 mesh=mesh)
     tp, dp, st, (dn, pn, _, _) = _torch_inputs(setup)
     x0 = torch.tensor(setup['x0'])
-    for kw in (dict(mm_method='mix'), dict(q_fn=lambda s, a: s),
-               dict(infer_noise_variables=True)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(mm_method='mix', mesh=mesh), dict(q_fn=lambda s, a: s),
+               dict(infer_noise_variables=True, mesh=mesh)):
+        with pytest.raises(NotImplementedError,
+                           match=item if 'mesh' in kw else 'MBDDPG'):
             t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn, **kw)
     # value_fn is ported: values of each step's states and the last ones
     out = t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn,
@@ -381,15 +390,15 @@ def test_writer_verbose_and_optimizer_state_carry_across_calls(setup,
     with pytest.raises(ValueError, match='leaves of pol_params'):
         tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp, opt_state=other,
                      opt_iters=1, **kw)
-    # under a mesh (one that only gives its size: nothing is sent) CVaR is
-    # not ported yet
+    # under a mesh (one that only gives its size: nothing is sent) CVaR,
+    # prioritized replay, non-PEGASUS noise and mixing are not ported yet
     mesh = tpar.Mesh(2, 0, None, torch.device('cpu'), 'gloo')
-    for bad in (dict(mesh=mesh, cvar_eps=0.25),
-                dict(prioritized_replay=True), dict(pegasus=False),
-                dict(mm_method='mix')):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+    for bad in (dict(cvar_eps=0.25), dict(prioritized_replay=True),
+                dict(pegasus=False), dict(mm_method='mix')):
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP.md Queue 1: Parallel: the rest'):
             tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp, opt_iters=1,
-                         **kw, **bad)
+                         mesh=mesh, **kw, **bad)
 
 
 def test_agent_fit_dynamics_is_train_regressor_on_its_generator(setup):
