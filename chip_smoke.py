@@ -10,8 +10,11 @@ Deep-PILCO episodes through the driver on Cartpole and one on each of the
 other four analytic envs and on the lunar lander, whose run is then
 replayed by ``evaluate_policy``, one on Cartpole learning the reward, and
 one of the with-value driver, whose critic the whole-rollout kernel refits;
-last, the particles sharded over ranks that share the card: the sharded
-row 5 (K8), the sharded routes and one sharded episode of the driver.
+then the particles sharded over ranks that share the card: the sharded
+row 5 (K8), the sharded routes and one sharded episode of the driver; last,
+model-based DDPG (an iteration, the Q-value rollout and one episode of its
+driver) and the conditional density networks (``train_model`` and the two
+BNN regression drivers), on rows 1-2.
 
     python3 chip_smoke.py
 
@@ -216,6 +219,25 @@ Phases (any failure exits non-zero and prints no result line):
      steps and the policy to 100 iterations (launches exact on each rank,
      E_lml rising, one results folder, written by rank 0 alone). Ranks that
      share a card measure no multi-card speed, and NCCL is not run.
+  12. model-based DDPG at the MBDDPG driver's widths (Cartpole, D = 5,
+     U = 1, actor, critic and dynamics [200, 200], a learned reward, B =
+     100, T = 15): one ``make_ddpg_iteration_fn`` iteration with exactly
+     7 T fused-MLP forward and 3 T backward launches, held against the same
+     iteration on unfused MLPs with the same draws (metrics within 1e-4 of
+     their size or the plain path's sensitivity, params by the lr rule,
+     ``hold_lr``) and timed (ms an iteration, host clock; the device's
+     busy share over 3 iterations under torch.profiler);
+     ``rollout_with_Qvalues`` (3 T + 2 forward launches) held the same way;
+     then one episode of ``examples/mbddpg.py --ps_iters 1 --n_rnd_epi 2``
+     at its defaults (2000 fit steps, 120 DDPG iterations, 40 control
+     steps), launches exact.
+  13. the conditional density networks: ``train_model`` (5 steps, batch
+     100) of ``density_network_mlp`` and ``mixture_density_network_mlp`` at
+     relu [200, 200] on each BNN regression dataset, one fused-MLP forward
+     and backward a step, held against the unfused MLP; then the
+     ``bnn_regression`` and ``bnn_regression_2d`` drivers at 1000 steps a
+     model: their hhSinLU MLPs stay off the kernel (no launch), NLL finite,
+     ms a step.
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; rows 6-7 phase 4,
@@ -244,28 +266,36 @@ import torch
 
 from prob_mbrl_tpu_torch import envs, native
 from prob_mbrl_tpu_torch import parallel as tpar
+from prob_mbrl_tpu_torch.algorithms import mbddpg as ddpg
 from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
                                                      make_mc_pilco_fn,
                                                      mc_pilco,
                                                      seeded_generator,
                                                      update_priorities)
 from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
+from prob_mbrl_tpu_torch.examples import bnn_regression as bnn
+from prob_mbrl_tpu_torch.examples import bnn_regression_2d as bnn2
 from prob_mbrl_tpu_torch.examples import deep_pilco_common as dpc
 from prob_mbrl_tpu_torch.examples import deep_pilco_mm as dpm
 from prob_mbrl_tpu_torch.examples import deep_pilco_no_mm_with_value as dvm
 from prob_mbrl_tpu_torch.examples import evaluate_policy
+from prob_mbrl_tpu_torch.examples import mbddpg as ddpg_driver
 from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
                                         GaussianMixtureDensity, MLPSpec,
                                         Policy, Regressor, bdropout,
-                                        cdropout)
+                                        cdropout, density_network_mlp,
+                                        mixture_density_network_mlp)
 from prob_mbrl_tpu_torch.ops.cuda import build, critic
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
 from prob_mbrl_tpu_torch.ops.math import clip_grad_norm
 from prob_mbrl_tpu_torch.ops.moment_matching import standardize_noise
+from prob_mbrl_tpu_torch.utils.apply_controller import apply_controller
 from prob_mbrl_tpu_torch.utils.checkpoint import load_checkpoint
 from prob_mbrl_tpu_torch.utils.core import tree_leaves, tree_map
 from prob_mbrl_tpu_torch.utils.experience import ExperienceDataset
+from prob_mbrl_tpu_torch.utils.rollout import rollout_with_Qvalues
+from prob_mbrl_tpu_torch.utils.train_model import train_model
 from prob_mbrl_tpu_torch.utils.train_regressor import (make_train_fn,
                                                        normalize_dataset)
 
@@ -2985,14 +3015,26 @@ def episode_fit_checks(results, args, tag='phase 8', profile=True):
     if not profile:
         return
 
-    from torch.profiler import ProfilerActivity, profile
     train = make_train_fn(dyn.regressor, Adam(args.dyn_lr), B)
     params, state = ck['dyn'], Adam(args.dyn_lr).init(ck['dyn'])
     params, state, _, _ = train(params, state, Xn, Yn, gen, 5)  # warm
+    device_profile('phase 8', 'fit',
+                   lambda: train(params, state, Xn, Yn, gen, BUSY_STEPS),
+                   BUSY_STEPS)
+
+
+def device_profile(tag, what, run, n, unit='step'):
+    """Run ``run()``, ``n`` units of work, under torch.profiler and log the
+    device activities a unit, the device's busy ms a unit and its share of
+    the window between the first and the last kernel, and the six kernels
+    that take the most of it. Returns (busy, window) in ms a unit."""
+    from torch.profiler import ProfilerActivity, profile
+    a = 'an' if unit[0] in 'aeiou' else 'a'
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        train(params, state, Xn, Yn, gen, BUSY_STEPS)
+        run()
+        torch.cuda.synchronize()
     dev = device_events(prof)
     if not dev:
         raise AssertionError('the profiler recorded no device activity')
@@ -3002,15 +3044,16 @@ def episode_fit_checks(results, args, tag='phase 8', profile=True):
         k = by_name.setdefault(e.name, [0.0, 0])
         k[0] += e.time_range.end - e.time_range.start
         k[1] += 1
-    log(f'[phase 8] fit under torch.profiler, {BUSY_STEPS} steps: '
-        f'{len(dev) / BUSY_STEPS:.0f} device activities a step; device busy '
-        f'{busy / BUSY_STEPS / 1e3:.4f} ms a step, {100 * busy / window:.1f}% '
-        f'of the {window / BUSY_STEPS / 1e3:.4f} ms a step between the first '
+    log(f'[{tag}] {what} under torch.profiler, {n} {unit}s: '
+        f'{len(dev) / n:.0f} device activities {a} {unit}; device busy '
+        f'{busy / n / 1e3:.4f} ms {a} {unit}, {100 * busy / window:.1f}% '
+        f'of the {window / n / 1e3:.4f} ms {a} {unit} between the first '
         f'and last kernel (idle {100 * (1 - busy / window):.1f}%)')
     for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-        log(f'[phase 8]   {us / BUSY_STEPS / 1e3:.4f} ms a step, '
-            f'{cnt / BUSY_STEPS:.0f} a step, {100 * us / busy:.1f}% of busy: '
+        log(f'[{tag}]   {us / n / 1e3:.4f} ms {a} {unit}, '
+            f'{cnt / n:.0f} {a} {unit}, {100 * us / busy:.1f}% of busy: '
             f'{name[:80]}')
+    return busy / n / 1e3, window / n / 1e3
 
 
 def episode_policy_check(results, args, tag):
@@ -3578,6 +3621,340 @@ def phase_sharded(card, capacity):
         shard_episode(ranks2, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: model-based DDPG; phase 13: the conditional density networks
+# ---------------------------------------------------------------------------
+
+DDPG_B = 100  # the driver's --dyn_batch_size, DDPG's minibatch
+DDPG_T = MAIN_T  # the driver's --pred_H, the imagined horizon
+DDPG_ITERS = 20  # iterations timed on the host clock
+DDPG_PROFILED = 3  # iterations under torch.profiler
+DDPG_ARGV = ['--seed', str(SEED), '--ps_iters', '1', '--n_rnd_epi', '2']
+DENSITY_STEPS = 5  # train_model steps held against the unfused MLP
+DENSITY_BATCH = 100
+BNN_ITERS = 1000  # the BNN regression drivers' steps a model
+
+
+def clone_tree(tree):
+    return tree_map(torch.clone, tree)
+
+
+def hold_lr(what, a, r, moved, steps, lr, weight=1.0, tag='phase 12'):
+    """Hold params (``weight`` 1) or a polyak target (``weight`` tau) after
+    ``steps`` Adam steps, kernel ``a`` vs plain ``r`` (flat), by the lr rule
+    of ``hold_adam``: a gradient entry at rounding level can move an entry
+    by up to lr a step more in one version than in the other, so each entry
+    lies within 2 weight lr a step, and at most one in ADAM_EDGE beyond
+    weight lr ADAM_TOL a step, or 3 times the plain path's own move under
+    inputs moved by 1e-6 relative (``moved``), or two float32 ulps of the
+    entry. Returns the largest |a - r| / (weight lr steps)."""
+    if not torch.isfinite(a).all():
+        raise AssertionError(f'{what}: kernel output is not finite')
+    unit = weight * lr * steps
+    d = (a - r).abs()
+    if float(d.max()) > 2 * unit:
+        raise AssertionError(f'{what}: an entry {float(d.max()):.3e} from '
+                             f'the plain version, beyond 2 lr a step')
+    room = torch.maximum(3 * (moved - r).abs(), 2.4e-7 * r.abs())
+    edge = (d > ADAM_TOL * unit + room).nonzero().flatten().tolist()
+    if len(edge) * ADAM_EDGE > d.numel():
+        raise AssertionError(f'{what}: {len(edge)} of {d.numel()} entries '
+                             f'beyond {ADAM_TOL:g} lr a step and the plain '
+                             'path\'s sensitivity')
+    for i in edge:
+        log(f'[{tag}] {what}: entry {i} of {d.numel()} '
+            f'{float(d[i]) / unit:.3e} lr a step from the plain version')
+    return float(d.max()) / unit
+
+
+def flat(tree):
+    return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
+
+
+def ddpg_setup(seed=SEED):
+    """MBDDPG's models at the driver's widths on Cartpole (D = 5, U = 1,
+    learned reward), seeded params and fresh Adam states, the dynamics'
+    stats and a 4096-state pool from two 40-step random episodes."""
+    env = envs.make('Cartpole', device='cuda')
+    env.seed(seed)
+    rnd = np.random.RandomState(seed)
+    exp = ExperienceDataset()
+    for _ in range(2):
+        exp.append_episode(*apply_controller(
+            env, lambda x, t=0: rnd.uniform(env.action_space.low,
+                                            env.action_space.high), 40))
+    D, U = env.observation_size, env.action_size
+    actor, critic, dyn = (ddpg.make_actor(D, U, 10.0),
+                          ddpg.make_critic(D, U), ddpg.make_dyn_model(D, U))
+    X, Y = exp.get_dynmodel_dataset(deltas=True, return_costs=True)
+    gen = seeded_generator('cuda', seed, 12)
+    ap, cp, dp = (m.init(gen, device='cuda') for m in (actor, critic, dyn))
+    opt = Adam(1e-3)
+    state = (ap, clone_tree(ap), opt.init(ap), cp, clone_tree(cp),
+             opt.init(cp), critic.init_stats(device='cuda'), dp,
+             dyn.fit_stats(torch.tensor(X, device='cuda'),
+                           torch.tensor(Y, device='cuda')))
+    pool = torch.tensor(exp.sample_states(4096, timestep=None, rng=rnd),
+                        device='cuda')
+    return (actor, critic, dyn), state, pool, gen
+
+
+def ddpg_iteration(models, state, pool, noise, fused=True, scale=1.0):
+    """One iteration of ``make_ddpg_iteration_fn`` on copies of ``state``
+    (``fused=False``: every MLP on the unfused path; ``scale``: the pool
+    scaled) with ``noise``: (flat actor, actor target, critic, critic
+    target, metrics)."""
+    if not fused:
+        models = tuple(fr.unfused(m) for m in models)
+    it = ddpg.make_ddpg_iteration_fn(*models, Adam(1e-3), Adam(1e-3),
+                                     DDPG_T, DDPG_B)
+    out = it(*clone_tree(state), pool * scale, noise=noise)
+    return [flat(out[i]) for i in (0, 1, 3, 4)], {
+        k: float(v) for k, v in out[6].items()}
+
+
+def check_ddpg_iteration(models, state, pool, gen, card):
+    """Phase 12's iteration: launch counts of one iteration through the
+    kernels (fused-MLP forward 7 T, backward 3 T), its metrics and params
+    against the same iteration on unfused MLPs with the same draws, the ms
+    an iteration over DDPG_ITERS, and the device's busy share over
+    DDPG_PROFILED iterations under torch.profiler."""
+    actor, critic, dyn = models
+    noise = ddpg.draw_ddpg_noise(gen, actor, critic, dyn, DDPG_T, DDPG_B,
+                                 pool.shape[0], 'cuda')
+    reset_counts()
+    torch.cuda.synchronize()
+    got, gm = ddpg_iteration(models, state, pool, noise)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = expect(fused_mlp_fwd=7 * DDPG_T, fused_mlp_bwd=3 * DDPG_T)
+    log(f'[phase 12] one DDPG iteration (B={DDPG_B}, T={DDPG_T}, '
+        f'{DDPG_T} minibatches): launches {launches} (expected {want})')
+    if launches != want:
+        raise AssertionError('launch counts of the DDPG iteration differ')
+    reset_counts()
+    ref, rm = ddpg_iteration(models, state, pool, noise, fused=False)
+    moved, mm = ddpg_iteration(models, state, pool, noise, fused=False,
+                               scale=1 + 1e-6)
+    if counts() != expect():
+        raise AssertionError('the unfused iteration launched a kernel')
+    for k in gm:
+        tol = max(1e-4 * abs(rm[k]), 3 * abs(mm[k] - rm[k]))
+        err = abs(gm[k] - rm[k])
+        log(f'[phase 12] {k}: kernel {gm[k]:.7g} plain {rm[k]:.7g} (err '
+            f'{err:.3e}, tolerance {tol:.3e})')
+        if not (np.isfinite(gm[k]) and err <= tol):
+            raise AssertionError(f'{k} of the kernel path and the plain path '
+                                 'disagree')
+    names = ('actor', 'actor target', 'critic', 'critic target')
+    worst = [hold_lr(n, a, r, m, DDPG_T, 1e-3, 0.005 if 'target' in n
+                     else 1.0) for n, a, r, m in zip(names, got, ref, moved)]
+    log('[phase 12] params after the sweep\'s ' + str(DDPG_T) + ' Adam steps, '
+        'kernel vs plain, largest |a - r| in lr a step: '
+        + ', '.join(f'{n} {w:.3e}' for n, w in zip(names, worst)))
+    it = ddpg.make_ddpg_iteration_fn(*models, Adam(1e-3), Adam(1e-3),
+                                     DDPG_T, DDPG_B)
+    s = clone_tree(state)
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DDPG_ITERS):
+        s = it(*s[:6], *state[6:], pool, generator=gen)[:6]
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    ms = float(np.median(np.diff([t0] + stamps)) * 1e3)
+    ITER_MS['phase 12'] = ms
+    log(f'[phase 12] {ms:.3f} ms a DDPG iteration (median of {DDPG_ITERS}, '
+        f'host clock, synchronised each; {10 * DDPG_T} fused-MLP launches '
+        f'each); {card}')
+
+    def iterations():
+        r = s
+        for _ in range(DDPG_PROFILED):
+            r = it(*r[:6], *state[6:], pool, generator=gen)[:6]
+
+    device_profile('phase 12', 'DDPG', iterations, DDPG_PROFILED,
+                   'iteration')
+
+
+def check_q_rollout(models, state, pool, gen):
+    """``rollout_with_Qvalues`` with the critic at B = DDPG_B, T = DDPG_T
+    through the kernels (fused-MLP forward 3 T + 2, no backward) against
+    the unfused MLPs on the same draws: states, actions, rewards and
+    Q-values within STEP_TOL of their max|plain| or 3 times the plain
+    path's sensitivity to x0 moved by 1e-6 relative."""
+    actor, critic, dyn = models
+    ap, cp, cstats, dp, dstats = state[0], state[3], state[6], state[7], \
+        state[8]
+    x0 = pool[:DDPG_B]
+    dn = dyn.sample_noise(gen, (DDPG_B,), device='cuda')
+    an = actor.sample_noise(gen, (DDPG_B,), device='cuda')
+    qn = critic.sample_noise(gen, (DDPG_B,), device='cuda')
+
+    def run(fused, scale=1.0):
+        a, c, d = models if fused else tuple(fr.unfused(m) for m in models)
+        with torch.no_grad():
+            return rollout_with_Qvalues(x0 * scale, d, a, DDPG_T, c, dp,
+                                        dstats, ap, dn, an, cp, cstats, qn)
+
+    reset_counts()
+    got = run(True)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = expect(fused_mlp_fwd=3 * DDPG_T + 2)
+    if launches != want:
+        raise AssertionError(f'rollout_with_Qvalues launched {launches}, '
+                             f'expected {want}')
+    ref, moved = run(False), run(False, 1 + 1e-6)
+    errs = [hold(f'rollout_with_Qvalues {n}', g, r, STEP_TOL, m)[1]
+            for n, g, r, m in zip(('states', 'actions', 'rewards',
+                                   'qvalues'), got, ref, moved)]
+    if got[3].shape != (DDPG_T + 1, DDPG_B, 1):
+        raise AssertionError(f'qvalues of shape {tuple(got[3].shape)}')
+    log(f'[phase 12] rollout_with_Qvalues B={DDPG_B} T={DDPG_T}: launches '
+        f'{launches}; kernel vs plain, max err / max|plain|: states '
+        f'{errs[0]:.3e}, actions {errs[1]:.3e}, rewards {errs[2]:.3e}, '
+        f'qvalues {errs[3]:.3e}')
+
+
+def phase_ddpg(card):
+    """Phase 12: model-based DDPG at the driver's widths (``ddpg_setup``):
+    one iteration held against the unfused MLPs and timed, the Q-value
+    rollout held the same way, then one episode of the MBDDPG driver
+    (``--ps_iters 1 --n_rnd_epi 2``, every other flag at its default: 2000
+    fit steps, 120 DDPG iterations of T = 15, 40 control steps), its launch
+    counts exact (fused-MLP forward 2000 + 120 * 7 T + the control steps,
+    backward 2000 + 120 * 3 T). Returns the episode's launch counts."""
+    models, state, pool, gen = ddpg_setup()
+    check_ddpg_iteration(models, state, pool, gen, card)
+    check_q_rollout(models, state, pool, gen)
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    folder = tempfile.mkdtemp(prefix='chip_smoke_mbddpg_', dir=root)
+    try:
+        argv = DDPG_ARGV + ['-o', folder]
+        args = ddpg_driver.get_parser().parse_args(argv)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent, returns, results = ddpg_driver.main(argv, device='cuda')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        exp = ExperienceDataset()
+        exp.load(str(Path(results) / 'experience.pkl'))
+        steps = len(exp.states[-1])
+        iters = args.fit_iters * args.ps_iters
+        fits = args.dyn_opt_iters * args.ps_iters
+        want = expect(fused_mlp_fwd=fits + 7 * args.pred_H * iters + steps,
+                      fused_mlp_bwd=fits + 3 * args.pred_H * iters)
+        log(f'[phase 12] mbddpg episode: {fits} fit steps, {iters} DDPG '
+            f'iterations (T={args.pred_H}), {steps} control steps in '
+            f'{wall:.3f} s (host clock); real return {returns[-1]:.6f}; '
+            f'launches {launches} (expected {want}); {card}')
+        if launches != want:
+            raise AssertionError('launch counts of the mbddpg episode differ')
+        if not (np.all(np.isfinite(returns))
+                and torch.isfinite(flat(agent.critic_params)).all()):
+            raise AssertionError('non-finite return or critic params')
+        return launches
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def density_case(name, model, X, Y, card):
+    """``train_model`` for DENSITY_STEPS steps at batch DENSITY_BATCH
+    through the kernels (one fused-MLP forward and one backward a step)
+    against the unfused MLP on the same indices and noise: loss and E_lml
+    of each step within 1e-4 of their size or 3 times the plain path's
+    sensitivity to the inputs moved by 1e-6 relative, the params by the lr
+    rule (``hold_lr``)."""
+    gen = seeded_generator('cuda', SEED, 13)
+    params = model.init(gen, device='cuda')
+    scaling = model.fit_scaling(X, Y)
+    n = DENSITY_STEPS
+    idx = torch.randint(0, X.shape[0], (n, DENSITY_BATCH), generator=gen,
+                        device='cuda')
+    noise = model.sample_noise(gen, (n, DENSITY_BATCH), device='cuda')
+
+    def run(m, scale=1.0):
+        p, _, metrics = train_model(m, clone_tree(params), scaling, X * scale,
+                                    Y, iters=n, batchsize=DENSITY_BATCH,
+                                    idx=idx, noise=noise)
+        return flat(p), metrics
+
+    if not model.mlp._kernel_takes_it():
+        raise AssertionError(f'{name}: the fused MLP does not take it')
+    reset_counts()
+    got, gm = run(model)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = expect(fused_mlp_fwd=n, fused_mlp_bwd=n)
+    if launches != want:
+        raise AssertionError(f'{name}: launches {launches}, expected {want}')
+    plain = fr.unfused(model)
+    (ref, rm), (moved, mm) = run(plain), run(plain, 1 + 1e-6)
+    for k in ('loss', 'E_lml'):
+        err = np.abs(gm[k] - rm[k])
+        tol = np.maximum(1e-4 * np.abs(rm[k]), 3 * np.abs(mm[k] - rm[k]))
+        if not (np.all(np.isfinite(gm[k])) and np.all(err <= tol)):
+            raise AssertionError(f'{name} {k}: kernel {gm[k]} plain {rm[k]}')
+    worst = hold_lr(f'{name} params', got, ref, moved, n, 1e-4,
+                    tag='phase 13')
+    log(f'[phase 13] {name}: train_model {n} steps at batch '
+        f'{DENSITY_BATCH}, launches {launches}; loss {gm["loss"][0]:.6f} -> '
+        f'{gm["loss"][-1]:.6f} (plain {rm["loss"][-1]:.6f}), params within '
+        f'{worst:.3e} lr a step of the plain version')
+
+
+def relu_density_models(outputs):
+    """The BNN drivers' two networks (``bnn_regression.build_models``) with
+    relu in place of hhSinLU, which the fused MLP takes."""
+    return [('GaussianDN', density_network_mlp(
+                1, outputs, hids=(200, 200), dropout=0.1, activation='relu')),
+            ('GaussianMDN', mixture_density_network_mlp(
+                1, outputs, nc=5, hids=(200, 200), dropout=0.1,
+                activation='relu'))]
+
+
+def phase_density(card):
+    """Phase 13: the conditional density networks. ``train_model`` with
+    ``density_network_mlp`` (GaussianDN) and ``mixture_density_network_mlp``
+    (GaussianMDN, 5 components) at relu [200, 200] on each BNN regression
+    dataset, held against the unfused MLP (``density_case``); then both
+    drivers' ``main`` at BNN_ITERS steps a model, whose hhSinLU MLPs the
+    gate keeps off the kernels: no launch, their NLL and ms a step."""
+    for data, D in ((bnn.make_dataset, 1), (bnn2.make_dataset, 2)):
+        X, Y = data(device='cuda')
+        for name, model in relu_density_models(D):
+            density_case(f'{name} relu, {D}-D data', model, X, Y, card)
+    for driver, D in ((bnn, 1), (bnn2, 2)):
+        models = bnn.build_models(D)
+        takes = [m.mlp._kernel_takes_it() for _, m in models]
+        log(f'[phase 13] {driver.__name__.rsplit(".", 1)[1]}: activation '
+            f'{models[0][1].mlp.nonlin[0]!r}; the fused MLP takes it: {takes}'
+            ' (the unfused path)')
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = driver.main(iters=BNN_ITERS, plot=False, device='cuda')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        if any(takes) or launches != expect():
+            raise AssertionError(f'launches {launches}: the hhSinLU MLPs '
+                                 'reached a kernel')
+        nll = {k: v[3] for k, v in results.items()}
+        if not all(np.isfinite(v) for v in nll.values()):
+            raise AssertionError(f'non-finite NLL {nll}')
+        log(f'[phase 13] {driver.__name__.rsplit(".", 1)[1]}: '
+            f'{BNN_ITERS} steps a model, NLL '
+            + ', '.join(f'{k} {v:.4f}' for k, v in nll.items())
+            + f'; {1e3 * wall / (len(results) * BNN_ITERS):.4f} ms a step '
+            f'(host clock, {wall:.3f} s); fused-MLP launches {launches}; '
+            f'{card}')
+
+
 def start(name):
     """Phases 0 and 1: the card's name and power limit, TF32 off, the
     kernels built. Returns the ``nvidia-smi`` line, or None without CUDA."""
@@ -3672,7 +4049,11 @@ def main():
     phase_value_episode()
     t = lap('phase 10', t)
     phase_sharded(card, capacity)
-    lap('phase 11', t)
+    t = lap('phase 11', t)
+    phase_ddpg(card)
+    t = lap('phase 12', t)
+    phase_density(card)
+    lap('phase 13', t)
     runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': fixed_critic}

@@ -102,6 +102,7 @@ from ..ops.moment_matching import sample_mm_mixing
 from ..parallel.mm import psum, sharded_grad
 from ..parallel.sharding import shard_particles
 from ..utils.core import resolve_device, tile, tree_leaves, tree_map
+from ..utils.optim import Adam
 from ..utils.rollout import SHARDED_OPTIONS_ITEM, sample_density_steps
 from ..utils.rollout import rollout as rollout_fn
 
@@ -764,7 +765,6 @@ class MCPILCOAgent:
 
     def __init__(self, policy, dynamics, dataset, pol_optimizer=None,
                  dyn_optimizer=None, seed=0, device=None):
-        from .value import Adam  # value.py imports this module
         self.device = resolve_device(device)
         self.pol = policy
         self.dyn = dynamics

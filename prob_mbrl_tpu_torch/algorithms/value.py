@@ -1,6 +1,6 @@
 """The fitted-value TD(H) update with a target network (counterpart of
-``prob_mbrl_tpu/algorithms/value.py``) and the functional Adam and SGD it and
-the dynamics fit step with.
+``prob_mbrl_tpu/algorithms/value.py``). The functional Adam and SGD it steps
+with live in ``utils/optim.py``; this module re-exports them.
 
 TD(H) (``value.py:9-12``): ``targets = sum_{j<H} w_j r_j + w_H V_tgt(s_H)``,
 detached, with V(s_0) and V_tgt(s_H) evaluated under one noise dict (the same
@@ -10,65 +10,16 @@ a ``DiagGaussianDensity`` head (JAX's sign: minimise -log p), plus
 ``reg_weight`` times the critic's dropout regulariser. One Adam step follows,
 then the polyak target ``tau * params + (1 - tau) * target``.
 
-Not ported yet: ``make_q_update_fn`` (it waits for MBDDPG).
+The Q-function's TD(H) update (``make_q_update_fn``) bootstraps
+``Q_tgt(s_H, pi(s_H))`` from a fresh policy action and regresses ``Q(s_0,
+a_0)`` on the targets, its regulariser divided by the batch.
 """
-import collections
-
 import torch
 
-from ..utils.core import device_constant, polyak_averaging, tree_leaves, tree_map
+from ..utils.core import device_constant, polyak_averaging
+# re-exported: the drivers, the tests and ``convert`` import them from here
+from ..utils.optim import SGD, Adam, AdamState, loss_and_grads  # noqa: F401
 from .mc_pilco import discount_weights
-
-AdamState = collections.namedtuple('AdamState', 'count mu nu')
-AdamState.__doc__ = """``optax.scale_by_adam``'s state: the step count (a 0-dim
-int32 tensor) and the first and second moments (trees like the params)."""
-
-
-class Adam:
-    """``optax.adam(learning_rate, b1, b2, eps)`` as a pure function of an
-    explicit ``AdamState``, so a state can be carried in and out (and across
-    from JAX with ``convert.adam_state_from_jax``); ``torch.optim.Adam`` keeps
-    its state on the module instead. Bias correction by the incremented count,
-    eps outside the square root, as optax does."""
-
-    def __init__(self, learning_rate, b1=0.9, b2=0.999, eps=1e-8):
-        self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
-
-    def init(self, params):
-        device = tree_leaves(params)[0].device
-        return AdamState(torch.zeros((), dtype=torch.int32, device=device),
-                         tree_map(torch.zeros_like, params),
-                         tree_map(torch.zeros_like, params))
-
-    @torch.no_grad()
-    def step(self, grads, state, params):
-        """(params + updates, the next state)."""
-        b1, b2 = self.b1, self.b2
-        count = state.count + 1
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
-                      state.nu)
-        c = count.to(torch.float32)
-        bc1, bc2 = 1 - torch.pow(b1, c), 1 - torch.pow(b2, c)
-        new = tree_map(lambda p, m, v: p + -self.lr * (
-            (m / bc1) / (torch.sqrt(v / bc2) + self.eps)), params, mu, nu)
-        return new, AdamState(count, mu, nu)
-
-
-class SGD:
-    """``optax.sgd(learning_rate)`` without momentum as a pure function; its
-    state is empty."""
-
-    def __init__(self, learning_rate):
-        self.lr = learning_rate
-
-    def init(self, params):
-        return ()
-
-    @torch.no_grad()
-    def step(self, grads, state, params):
-        """(params + updates, the state)."""
-        return tree_map(lambda p, g: p + -self.lr * g, params, grads), state
 
 
 def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
@@ -112,18 +63,12 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
              noise):
         """One TD(H) update from (s0, sH, returns), all detached:
         (params, target_params, opt_state, loss)."""
-        with torch.enable_grad():
-            live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            loss = loss_fn(live, target_params, stats, s0, sH, returns,
-                           noise)
-            leaves = tree_leaves(live)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_id = {id(p): g for p, g in zip(leaves, grads)}
-        grads = tree_map(lambda p: by_id[id(p)] if by_id[id(p)] is not None
-                         else torch.zeros_like(p), live)
+        loss, grads = loss_and_grads(
+            lambda live: loss_fn(live, target_params, stats, s0, sH, returns,
+                                 noise), params)
         params, opt_state = optimizer.step(grads, opt_state, params)
         target_params = polyak_averaging(params, target_params, polyak)
-        return params, target_params, opt_state, loss.detach()
+        return params, target_params, opt_state, loss
 
     def update(params, target_params, opt_state, stats, states, rewards,
                key=None, noise=None):
@@ -150,4 +95,74 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
     update.reg_weight = reg_weight
     update.polyak = polyak
     update.use_density = use_density
+    return update
+
+
+def make_q_update_fn(Q, pol, optimizer, H, discount=None, reg_weight=1e-4,
+                     polyak=0.005, use_density=False):
+    """The TD(H) Q-function update (``value.py:129-177``):
+    ``targets = sum_{j<H} w_j r_j + w_H Q_tgt(s_H, pi(s_H))``, detached.
+
+    ``Q``: a ``models.Regressor`` on concat(state, action); ``pol``: the
+    ``models.Policy`` whose sampled action at s_H the bootstrap takes;
+    ``use_density``: the NLL of the targets under Q's density head (the
+    bootstrap a sample of it), else the MSE of a plain head. The regulariser
+    is divided by the batch. ``optimizer``: an ``Adam``.
+
+    Returns ``update(params, target_params, opt_state, stats, pol_params,
+    states, actions, rewards, q_noise=None, pol_noise=None, generator=None)
+    -> (params, target_params, opt_state, loss)`` for a rollout's ``states``
+    [T+1, B, D], ``actions`` [T, B, U] and ``rewards`` [T, B, 1] (T >= H).
+    ``q_noise`` (Q's noise, shared by Q(s_0, a_0) and Q_tgt(s_H, a_H)) and
+    ``pol_noise`` (the policy's at s_H) are drawn from ``generator`` on the
+    states' device when not given, in that order (JAX draws them from
+    ``kq, kp = split(key)``).
+    """
+    w_t, w_H = discount_weights(discount, H)
+    w_H = float(w_H)
+
+    def loss_fn(params, target_params, stats, s0a0, sHaH, returns, noise):
+        if use_density:
+            mean, log_std = Q.apply(params, stats, s0a0, noise,
+                                    return_samples=False)
+            QH = Q.apply(target_params, stats, sHaH, noise,
+                         return_samples=True)
+            targets = returns + w_H * QH.detach()
+            loss = -Q.output_density.log_prob(targets, mean, log_std).mean()
+        else:
+            Q0 = Q.apply(params, stats, s0a0, noise, return_samples=False)
+            QH = Q.apply(target_params, stats, sHaH, noise,
+                         return_samples=False)
+            targets = returns + w_H * QH.detach()
+            loss = torch.mean((Q0 - targets) ** 2)
+        N = returns.shape[0]
+        return loss + reg_weight * Q.regularization_loss(params) / N
+
+    def update(params, target_params, opt_state, stats, pol_params, states,
+               actions, rewards, q_noise=None, pol_noise=None,
+               generator=None):
+        B, device = states.shape[1], states.device
+        if q_noise is None or pol_noise is None:
+            if generator is None:
+                raise ValueError('make_q_update_fn: pass q_noise= and '
+                                 'pol_noise=, or a generator to draw them')
+            if q_noise is None:
+                q_noise = Q.sample_noise(generator, (B,), device=device)
+            if pol_noise is None:
+                pol_noise = pol.sample_noise(generator, (B,), device=device)
+        w = device_constant(tuple(float(x) for x in w_t), rewards.device,
+                            rewards.dtype)
+        returns = torch.sum(rewards[:H].detach() * w[:, None, None], 0)
+        with torch.no_grad():
+            aH = pol.apply(pol_params, states[H], pol_noise,
+                           return_samples=True)
+            s0a0 = torch.cat([states[0], actions[0]], -1)
+            sHaH = torch.cat([states[H], aH], -1)
+        loss, grads = loss_and_grads(
+            lambda live: loss_fn(live, target_params, stats, s0a0, sHaH,
+                                 returns, q_noise), params)
+        params, opt_state = optimizer.step(grads, opt_state, params)
+        target_params = polyak_averaging(params, target_params, polyak)
+        return params, target_params, opt_state, loss
+
     return update

@@ -26,6 +26,7 @@ from ...models.densities import DiagGaussianDensity
 from ...models.dropout import BernoulliDropoutSpec, ConcreteDropoutSpec
 from ...ops.losses import HALF_LOG_TWO_PI
 from ...ops.math import softplus_upper_clip
+from ...utils.optim import Adam, AdamState
 from . import fused_mlp as fm
 
 _ML = fm.MAX_LAYERS
@@ -51,7 +52,6 @@ def critic_refuses(value_spec, value_update=None, D=None):
     (MSE) or ``DiagGaussianDensity(1)`` (NLL), and with ``value_update`` one
     from ``algorithms.value.make_value_update_fn`` whose loss fits the head
     and whose optimizer is its ``Adam``."""
-    from ...algorithms.value import Adam
     mlp = getattr(value_spec, 'mlp', None)
     if mlp is None or not hasattr(value_spec, 'output_density'):
         return 'the critic must be a Regressor'
@@ -200,7 +200,6 @@ class CriticKernel:
         stats, noise); with ``refit`` False (row 4) ``extras[0]`` is the
         forward's params' and nothing is written. Returns a
         ``CriticBinding``."""
-        from ...algorithms.value import AdamState
         params, target, opt, stats, noise = extras
         B, D = self.B, self.spec.mlp.input_dims
         a = _CriticArgs()
@@ -312,7 +311,6 @@ def refit_by_hand(value_update, params, target, opt_state, stats, s0, sH,
     regulariser's gradients of W, b and logit_p, optax's Adam, the polyak
     target, then V(params', s_T) and its gradient wrt s_T. Returns
     (params', target', AdamState', v_loss, V(s_T) [B, 1], dV/ds_T [B, D])."""
-    from ...algorithms.value import AdamState
     V, opt = value_update.spec, value_update.optimizer
     mlp = V.mlp
     n = len(mlp.hidden_dims)

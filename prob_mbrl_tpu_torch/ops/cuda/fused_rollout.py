@@ -155,7 +155,8 @@ def _groups(mm_groups, B=None):
 
 
 def unfused(spec):
-    """The same policy or dynamics spec on the plain (unfused) MLP path."""
+    """The same dynamics spec, or any spec with an ``mlp`` (a policy, a
+    regressor, a density network), on the plain (unfused) MLP path."""
     if isinstance(spec, DynamicsModel):
         reg = spec.regressor
         return dataclasses.replace(spec, regressor=dataclasses.replace(

@@ -20,15 +20,18 @@ def device_constant(values, device, dtype):
 
 
 def tree_map(fn, tree, *rest):
-    """Apply ``fn`` to every tensor leaf of a nested dict/list/tuple (and the
-    leaves at the same places of the trees ``rest``, of the same
-    structure)."""
+    """Apply ``fn`` to every tensor leaf of a nested dict/list/tuple or
+    namedtuple (and the leaves at the same places of the trees ``rest``, of
+    the same structure)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = (tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree))
+        # a namedtuple (an optimizer's state) takes its fields as arguments
+        return type(tree)(*out) if hasattr(tree, '_fields') else type(tree)(
+            out)
     if tree is None:
         return None
     return fn(tree, *rest)

@@ -16,17 +16,18 @@ Non-PEGASUS propagation (``resample_state_noise`` /
 [T, B, ...] stacks (``dyn_density_steps`` / ``pol_density_steps``) or drawn
 from ``generator`` (``sample_density_steps``).
 
-Outputs: states [T+1, B, D], actions [T, B, U], rewards [T, B, 1], and
-with ``value_fn`` the values [T+1, B, 1] (``rollout_with_values``).
+Outputs: states [T+1, B, D], actions [T, B, U], rewards [T, B, 1], then
+with ``value_fn`` the values [T+1, B, 1] (``rollout_with_values``) and with
+``q_fn`` the Q-values [T+1, B, 1] (``rollout_with_Qvalues``), whose last
+entry evaluates a fresh policy action at the last states.
 
 Under a particle mesh (``mesh``, ``parallel.sharding.Mesh``) each rank rolls
 its own slice of the particles: ungrouped moment matching takes the global
 moments (``parallel.mm.mm_resample_psum``), MM groups lie within a rank's
 slice, and the reward mean-only shortcut takes the global mean (JAX
 ``parallel/rollout.py`` ``make_sharded_loss_fn``). The mixing and
-infer-noise resamples and per-step noise are not ported under a mesh.
-
-Not ported yet (raises NotImplementedError): ``q_fn``.
+infer-noise resamples, per-step noise and ``q_fn`` are not ported under a
+mesh.
 """
 import numpy as np
 import torch
@@ -211,27 +212,29 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
       value_fn: optional ``states [B, D] -> values [B, 1]``; evaluated on
         each step's detached states and on the last states (not detached),
         as JAX's ``rollout`` does (``utils/rollout.py:307-335``).
+      q_fn: optional ``(states [B, D], actions [B, U]) -> q [B, 1]``;
+        evaluated on each step's detached states and actions (action_eps
+        included), and on the last states with a fresh policy action under
+        ``pol_noise`` (JAX ``utils/rollout.py:309-311,336-341``).
       mesh: a ``parallel.sharding.Mesh``: ``x0``, ``action_eps`` and the
         noise dicts are this rank's slices of the B particles, ``z_mm`` /
         ``z_rr`` the global banks (the roll wraps modulo the global B), and
         the outputs the rank's slices.
 
     Returns:
-      (states [T+1, B, D], actions [T, B, U], rewards [T, B, 1]), and values
-      [T+1, B, 1] after them with ``value_fn``.
+      (states [T+1, B, D], actions [T, B, U], rewards [T, B, 1]), then
+      values [T+1, B, 1] with ``value_fn`` and Q-values [T+1, B, 1] with
+      ``q_fn``.
     """
     if mm_method not in ('cholesky', 'mix'):
         raise ValueError(f'unknown mm_method {mm_method!r}')
-    if q_fn is not None:
-        raise NotImplementedError('q_fn is not ported yet (it waits for '
-                                  'MBDDPG)')
     use_mix = mm_method == 'mix' and not infer_noise_variables
     if mesh is not None and (use_mix or infer_noise_variables
                              or resample_state_noise
-                             or resample_action_noise):
+                             or resample_action_noise or q_fn is not None):
         raise NotImplementedError(
-            'the mixing and infer-noise resamples and per-step noise are not '
-            f'ported under particle sharding ({SHARDED_OPTIONS_ITEM})')
+            'the mixing and infer-noise resamples, per-step noise and q_fn '
+            f'are not ported under particle sharding ({SHARDED_OPTIONS_ITEM})')
     B = x0.shape[0] * (1 if mesh is None else mesh.size)
     known_reward = dyn.reward_func is not None
     local_groups = mm_groups if mesh is None else mesh.local_groups(mm_groups)
@@ -260,7 +263,8 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     mix_steps = mm_states and use_mix and _mix_is_per_step(z_mm, steps,
                                                            mm_groups)
 
-    states, actions, raw_next, rewards, values = [x0], [], [], [], []
+    states, actions, raw_next, rewards = [x0], [], [], []
+    values, qvalues = [], []
     s = x0
     for t in range(steps):
         d_noise, p_noise = dyn_noise, pol_noise
@@ -285,6 +289,8 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
                                deltas=False)
             rewards.append(r)
         raw_next.append(nxt)
+        if q_fn is not None:
+            qvalues.append(q_fn(s.detach(), a.detach()))
         if mm_states:
             if use_mix:
                 # per-step matrices, or the shared one's cloud rolled by t
@@ -308,10 +314,15 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
             rewards, z_rr, steps, B, local_groups,
             mean_only=mm_rewards_mean_only, mesh=mesh,
             infer_noise_variables=infer_noise_variables, mm_method=mm_method)
-    if value_fn is None:
-        return states, actions, rewards
-    values.append(value_fn(s))
-    return states, actions, rewards, torch.stack(values, 0)
+    result = [states, actions, rewards]
+    if value_fn is not None:
+        values.append(value_fn(s))
+        result.append(torch.stack(values, 0))
+    if q_fn is not None:
+        a_last = pol.apply(pol_params, s, pol_noise, return_samples=True)
+        qvalues.append(q_fn(s.detach(), a_last.detach()))
+        result.append(torch.stack(qvalues, 0))
+    return tuple(result)
 
 
 def rollout_with_values(x0, dyn, pol, steps, V, dyn_params, dyn_stats,
@@ -326,3 +337,18 @@ def rollout_with_values(x0, dyn, pol, steps, V, dyn_params, dyn_stats,
 
     return rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
                    dyn_noise, pol_noise, value_fn=value_fn, **kwargs)
+
+
+def rollout_with_Qvalues(x0, dyn, pol, steps, Q, dyn_params, dyn_stats,
+                         pol_params, dyn_noise, pol_noise, q_params, q_stats,
+                         q_noise=None, **kwargs):
+    """``rollout`` with per-step Q(s, a) samples of the critic ``Q`` on
+    concat(state, action) (JAX ``utils/rollout.py:360-373``): (states,
+    actions, rewards, qvalues [T+1, B, 1]); the last Q-value takes a fresh
+    policy action at the last states."""
+    def q_fn(states, actions):
+        sa = torch.cat([states, actions], -1)
+        return Q.apply(q_params, q_stats, sa, q_noise, return_samples=True)
+
+    return rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
+                   dyn_noise, pol_noise, q_fn=q_fn, **kwargs)

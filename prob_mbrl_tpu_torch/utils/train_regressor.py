@@ -32,10 +32,9 @@ the device until the end of the call: the loop reads nothing back.
 """
 import torch
 
-from ..algorithms.value import SGD, Adam
 from ..ops.angles import to_complex
 from ..parallel.sharding import mean_all_reduce, shard_particles
-from .core import tree_leaves, tree_map
+from .optim import SGD, Adam, loss_and_grads
 
 
 def init_priority_state(n, n_valid=None, dtype=torch.float32, device=None):
@@ -101,19 +100,6 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
             return density.log_prob(y, *outs)
         return -torch.sum((outs - y) ** 2, -1)
 
-    def grads_of(loss_fn, params):
-        """(value, aux, grads) of ``loss_fn(live params)``, zero grads for
-        leaves the loss does not reach."""
-        with torch.enable_grad():
-            live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            value, aux = loss_fn(live)
-            leaves = tree_leaves(live)
-            grads = torch.autograd.grad(value, leaves, allow_unused=True)
-        by_id = {id(p): g for p, g in zip(leaves, grads)}
-        grads = tree_map(lambda p: by_id[id(p)] if by_id[id(p)] is not None
-                         else torch.zeros_like(p), live)
-        return value.detach(), aux, grads
-
     def value_and_grad(params, x, y, noise, weights, n):
         """(loss, (Enlml, log_probs), grads) of a step's data loss."""
         def data_loss(live):
@@ -124,7 +110,8 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
             return (Enlml + reg_weight * reg.regularization_loss(live) / n,
                     (Enlml, log_probs))
 
-        loss, (Enlml, log_probs), grads = grads_of(data_loss, params)
+        (loss, (Enlml, log_probs)), grads = loss_and_grads(data_loss, params,
+                                                            has_aux=True)
         if mesh is not None:
             # equal slices: the ranks' mean of each is the global batch's
             # (the regularizer's term is the same on every rank)
@@ -137,9 +124,9 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
                                                          weights, n)
         params, opt_state = optimizer.step(grads, opt_state, params)
         if decoupled_reg:
-            _, _, rgrads = grads_of(
-                lambda live: (reg_weight * reg.regularization_loss(live) / n,
-                              None), params)
+            _, rgrads = loss_and_grads(
+                lambda live: reg_weight * reg.regularization_loss(live) / n,
+                params)
             params, reg_opt_state = reg_optimizer.step(rgrads, reg_opt_state,
                                                        params)
         if prioritized_sampling:

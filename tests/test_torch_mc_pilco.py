@@ -283,8 +283,8 @@ def test_mc_pilco_host_loop_runs_and_updates(setup):
 def test_unported_options_raise(setup):
     """Under a particle mesh the four options of the utils.rollout route
     raise naming ROADMAP.md Queue 1 item 11 (a mesh that only gives its
-    size: nothing is sent); so does the rollout under one; ``q_fn`` waits
-    for MBDDPG."""
+    size: nothing is sent); so does the rollout under one, ``q_fn``
+    included, which runs without a mesh."""
     _, _, tdyn, tpol = setup['specs']
     mesh = tpar.Mesh(2, 0, None, torch.device('cpu'), 'gloo')
     item = 'ROADMAP.md Queue 1: Parallel: the rest of the sharded options'
@@ -296,11 +296,17 @@ def test_unported_options_raise(setup):
                                  mesh=mesh)
     tp, dp, st, (dn, pn, _, _) = _torch_inputs(setup)
     x0 = torch.tensor(setup['x0'])
-    for kw in (dict(mm_method='mix', mesh=mesh), dict(q_fn=lambda s, a: s),
+    for kw in (dict(mm_method='mix', mesh=mesh),
+               dict(q_fn=lambda s, a: s[:, :1], mesh=mesh),
                dict(infer_noise_variables=True, mesh=mesh)):
-        with pytest.raises(NotImplementedError,
-                           match=item if 'mesh' in kw else 'MBDDPG'):
+        with pytest.raises(NotImplementedError, match=item):
             t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn, **kw)
+    # q_fn is ported: Q-values of each step's states and actions, and of the
+    # last states with a fresh policy action
+    out = t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn,
+                    q_fn=lambda s, a: a)
+    assert len(out) == 4 and out[3].shape == (T + 1, B, 1)
+    torch.testing.assert_close(out[3][:T], out[1].detach())
     # value_fn is ported: values of each step's states and the last ones
     out = t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn,
                     value_fn=lambda s: s[:, :1])
