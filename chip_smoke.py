@@ -11,10 +11,12 @@ other four analytic envs and on the lunar lander, whose run is then
 replayed by ``evaluate_policy``, one on Cartpole learning the reward, and
 one of the with-value driver, whose critic the whole-rollout kernel refits;
 then the particles sharded over ranks that share the card: the sharded
-row 5 (K8), the sharded routes and one sharded episode of the driver; last,
+row 5 (K8), the sharded routes and one sharded episode of the driver; then
 model-based DDPG (an iteration, the Q-value rollout and one episode of its
 driver) and the conditional density networks (``train_model`` and the two
-BNN regression drivers), on rows 1-2.
+BNN regression drivers), on rows 1-2; last, the sequence-model driver
+(``transformer_models``: its steps and one episode), model ensembles with a
+randomized prior, and RAdam and SdLBFGS fits, on rows 1-2.
 
     python3 chip_smoke.py
 
@@ -238,6 +240,28 @@ Phases (any failure exits non-zero and prints no result line):
      ``bnn_regression`` and ``bnn_regression_2d`` drivers at 1000 steps a
      model: their hhSinLU MLPs stay off the kernel (no launch), NLL finite,
      ms a step.
+  14. the sequence-model driver, ensembles and the optimisers, on rows 1-2:
+     14b one episode of ``transformer_models.main(['--ps_iters', '1'])`` at
+     its defaults (Cartpole, a transformer of 64 wide, 4 layers of 4 heads,
+     the [64, 64] Bernoulli-dropout policy; 400 dynamics, 200 flow and 100
+     policy steps of 25 x0s and T = 16, 40 control steps): launches exactly
+     100 x 16 + the control steps forward and 100 x 16 backward, values
+     finite, E_lml rising, ms a dyn, flow and pol step; then 14a on its
+     trained models one ``pol_step`` with exactly 16 fused-MLP forward and
+     16 backward launches, held against the unfused policy on the same
+     draws (loss within 1e-4 of its size or 3 times the plain path's
+     sensitivity, params by ``hold_lr``), one ``dyn_step`` and one
+     ``flow_step`` held the same way against the same steps on CPU
+     tensors, and the policy step's device-busy share under torch.profiler;
+     14c ``make_ensemble_train_fn`` at 5 members of the main
+     path's dynamics (6 -> [200, 200] -> 10, concrete dropout), batch 100,
+     bootstrap masks, 50 steps (exactly 5 x 50 launches each way) held
+     against the unfused members on the same draws, then one
+     ``train_regressor`` step of a ``RandomPriorMLP``-backed regressor (2
+     forward, 1 backward launch) held the same way; 14d ``train_regressor``
+     steps on the same dynamics with ``RAdam`` and ``SdLBFGS`` at their
+     defaults, 20 each through the kernels, held against unfused, ms a
+     step.
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; rows 6-7 phase 4,
@@ -280,16 +304,21 @@ from prob_mbrl_tpu_torch.examples import deep_pilco_mm as dpm
 from prob_mbrl_tpu_torch.examples import deep_pilco_no_mm_with_value as dvm
 from prob_mbrl_tpu_torch.examples import evaluate_policy
 from prob_mbrl_tpu_torch.examples import mbddpg as ddpg_driver
+from prob_mbrl_tpu_torch.examples import transformer_models as tmd
 from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
                                         GaussianMixtureDensity, MLPSpec,
-                                        Policy, Regressor, bdropout,
-                                        cdropout, density_network_mlp,
+                                        ModelEnsemble, Policy,
+                                        RandomPriorMLP, Regressor, bdropout,
+                                        bootstrap_masks, cdropout,
+                                        density_network_mlp,
+                                        make_ensemble_train_fn,
                                         mixture_density_network_mlp)
 from prob_mbrl_tpu_torch.ops.cuda import build, critic
 from prob_mbrl_tpu_torch.ops.cuda import fused_mlp as fm
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as fr
 from prob_mbrl_tpu_torch.ops.math import clip_grad_norm
 from prob_mbrl_tpu_torch.ops.moment_matching import standardize_noise
+from prob_mbrl_tpu_torch.optim import RAdam, SdLBFGS
 from prob_mbrl_tpu_torch.utils.apply_controller import apply_controller
 from prob_mbrl_tpu_torch.utils.checkpoint import load_checkpoint
 from prob_mbrl_tpu_torch.utils.core import tree_leaves, tree_map
@@ -3667,6 +3696,39 @@ def hold_lr(what, a, r, moved, steps, lr, weight=1.0, tag='phase 12'):
     return float(d.max()) / unit
 
 
+def hold_value(what, a, r, m, tag):
+    """A scalar (or a trace of them) of the kernel path ``a`` against the
+    plain path ``r``: within 1e-4 of its size or 3 times the plain path's
+    own move ``m`` under inputs moved by 1e-6 relative. Returns the
+    largest error."""
+    a, r, m = (np.atleast_1d(np.asarray(x, np.float64)) for x in (a, r, m))
+    err = np.abs(a - r)
+    tol = np.maximum(1e-4 * np.abs(r), 3 * np.abs(m - r))
+    if not (np.all(np.isfinite(a)) and np.all(err <= tol)):
+        raise AssertionError(f'[{tag}] {what}: kernel {a} plain {r} '
+                             f'(tolerance {tol})')
+    return float(err.max())
+
+
+def hold_moments(what, a, r, m, tag):
+    """Adam's (or RAdam's) first moment after the steps, in the states that
+    the path under test (``a``) and the reference (``r``) returned, leaf by
+    leaf by ``hold``: within REL_TOL of the leaf's max|r| or 3 times
+    max|m - r|, ``m`` a second reference run that measures the reference's
+    own error (the plain path on inputs moved by 1e-6 relative; or, where
+    ``r`` is the step in float64, the same step in float32). After one
+    step from a fresh state it is 0.1 times the gradient that the step
+    used; the params alone do not see a wrong gradient, since Adam's first
+    step moves an entry by about lr whatever the gradient's size, and not at
+    all when a leaf's gradient is scaled by a constant. Returns the largest
+    error / max|r| over the leaves."""
+    leaves = zip(*(tree_leaves(s.mu) for s in (a, r, m)))
+    f32 = (lambda t: t.to('cpu', torch.float32))
+    return max(hold(f'[{tag}] {what} first moment, leaf {i}', f32(x), f32(y),
+                    REL_TOL, moved=f32(z))[1]
+               for i, (x, y, z) in enumerate(leaves))
+
+
 def flat(tree):
     return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
 
@@ -3739,13 +3801,9 @@ def check_ddpg_iteration(models, state, pool, gen, card):
     if counts() != expect():
         raise AssertionError('the unfused iteration launched a kernel')
     for k in gm:
-        tol = max(1e-4 * abs(rm[k]), 3 * abs(mm[k] - rm[k]))
-        err = abs(gm[k] - rm[k])
+        err = hold_value(k, gm[k], rm[k], mm[k], 'phase 12')
         log(f'[phase 12] {k}: kernel {gm[k]:.7g} plain {rm[k]:.7g} (err '
-            f'{err:.3e}, tolerance {tol:.3e})')
-        if not (np.isfinite(gm[k]) and err <= tol):
-            raise AssertionError(f'{k} of the kernel path and the plain path '
-                                 'disagree')
+            f'{err:.3e})')
     names = ('actor', 'actor target', 'critic', 'critic target')
     worst = [hold_lr(n, a, r, m, DDPG_T, 1e-3, 0.005 if 'target' in n
                      else 1.0) for n, a, r, m in zip(names, got, ref, moved)]
@@ -3895,10 +3953,7 @@ def density_case(name, model, X, Y, card):
     plain = fr.unfused(model)
     (ref, rm), (moved, mm) = run(plain), run(plain, 1 + 1e-6)
     for k in ('loss', 'E_lml'):
-        err = np.abs(gm[k] - rm[k])
-        tol = np.maximum(1e-4 * np.abs(rm[k]), 3 * np.abs(mm[k] - rm[k]))
-        if not (np.all(np.isfinite(gm[k])) and np.all(err <= tol)):
-            raise AssertionError(f'{name} {k}: kernel {gm[k]} plain {rm[k]}')
+        hold_value(f'{name} {k}', gm[k], rm[k], mm[k], 'phase 13')
     worst = hold_lr(f'{name} params', got, ref, moved, n, 1e-4,
                     tag='phase 13')
     log(f'[phase 13] {name}: train_model {n} steps at batch '
@@ -3953,6 +4008,399 @@ def phase_density(card):
             + f'; {1e3 * wall / (len(results) * BNN_ITERS):.4f} ms a step '
             f'(host clock, {wall:.3f} s); fused-MLP launches {launches}; '
             f'{card}')
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the sequence-model driver, model ensembles and the optimisers
+# ---------------------------------------------------------------------------
+
+TM_ARGV = ['--seed', str(SEED), '--ps_iters', '1']
+TM_PROFILED = 3  # policy steps under torch.profiler
+ENS_K = 5  # members: PETS's ensemble size (Chua et al. 2018)
+ENS_B = 100
+ENS_STEPS = 50
+OPT_STEPS = 20  # train_regressor steps with each optimiser
+OPT_LR = 1e-4  # the ensemble's Adam, the fit's default
+SDLBFGS_TOL = 1e-3  # |a - r| / |r - p0| of SdLBFGS's params
+
+
+def random_episodes(env):
+    """Two 40-step episodes of uniformly random actions on ``env``, seeded
+    with SEED."""
+    env.seed(SEED)
+    rnd = np.random.RandomState(SEED)
+    exp = ExperienceDataset()
+    for _ in range(2):
+        exp.append_episode(*apply_controller(
+            env, lambda x, t=0: rnd.uniform(env.action_space.low,
+                                            env.action_space.high), 40))
+    return exp
+
+
+def tm_setup(trained):
+    """The transformer_models driver's models at its widths on Cartpole
+    (D = 5, U = 1; a transformer of 64 wide, 4 layers of 4 heads; the
+    [64, 64] policy; a flow of 4 blocks x 64) with the params and the last
+    iteration's scaling of ``trained`` (the (params, history) of a
+    ``transformer_models.main`` run); a dynamics batch from the windows of
+    ``random_episodes``, their x0s, and 25 x0s drawn from the flow."""
+    args = tmd.get_parser().parse_args(TM_ARGV)
+    env = envs.make('Cartpole', device='cuda')
+    m = tmd.build(env, args, 'cuda')
+    params, scaling = trained[0], trained[1][-1]['scaling']
+    exp = random_episodes(env)
+    S, A, NS, R, DN, L = (torch.as_tensor(v, device='cuda') for v in
+                          tmd.sliding_windows(exp, args.window))
+    gen = seeded_generator('cuda', SEED, 14)
+    idx = torch.randint(0, S.shape[0], (tmd.DYN_BATCH,), generator=gen,
+                        device='cuda')
+    batch = [v[idx] for v in (S, A, NS, R, DN, L)]
+    x0s = torch.tensor(np.stack([np.asarray(ep[0]) for ep in exp.states]),
+                       dtype=torch.float32, device='cuda')
+    x0 = m['flow'].sample(params['flow'], gen, tmd.N_X0).detach()
+    return env, args, m, params, scaling, batch, x0s, x0, gen
+
+
+def check_tm_steps(setup, card, tag='phase 14a'):
+    """On ``tm_setup``'s models (trained ones: an unfitted transformer's
+    rollouts amplify float32 rounding ~1000-fold, so Adam's first step
+    turns more near-zero gradient entries into +-lr steps of opposite
+    signs): one policy step through the kernels (exactly pred_H fused-MLP
+    forward and backward launches) against the same step with the policy
+    unfused on the same draws: loss by ``hold_value``, the gradient the
+    step used by ``hold_moments``, params by ``hold_lr``; then one dynamics
+    step and one flow step against the same steps on CPU tensors (TF32
+    off), held the same way, but for the gradient: a float32 transformer
+    on the CPU and on the card round differently, by up to 1.6e-4 of a
+    leaf's max after a short fit, so the card's gradient is held against
+    the step in float64 on the CPU, within 3 times the CPU float32 step's
+    own distance from it (the key bias's exact gradient is 0, the
+    attention's softmax being blind to it, so Adam moves its entries by
+    +-lr on rounding noise: ``hold_lr`` allows one entry in ADAM_EDGE).
+    Logs the policy step's device-busy share under torch.profiler over
+    TM_PROFILED steps."""
+    env, args, m, params, scaling, batch, x0s, x0, gen = setup
+    D, U, T = env.observation_size, env.action_size, args.pred_H
+    dyn, pol_spec = m['dyn'], m['pol_spec']
+    draws = tmd.draw_rollout_noise(gen, dyn, pol_spec, tmd.N_X0, T, 'cuda')
+    low, high = (torch.tensor(np.asarray(b, np.float32), device='cuda')
+                 for b in (env.action_space.low, env.action_space.high))
+    pspec_u, papply_u = tmd.make_policy(D, U, (low, high), fused=False)
+
+    def pol(fused=True, scale=1.0):
+        step = m['pol_step'] if fused else tmd.make_pol_step(
+            dyn, pspec_u, papply_u, Adam(1e-3), T)
+        p = clone_tree(params['pol'])
+        out, state, loss = step(p, Adam(1e-3).init(p), params['dyn'],
+                                scaling, x0 * scale, draws=draws)
+        return flat(out), state, float(loss)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    got, gs, gl = pol()
+    torch.cuda.synchronize()
+    launches = counts()
+    want = expect(fused_mlp_fwd=T, fused_mlp_bwd=T)
+    if launches != want:
+        raise AssertionError(f'[{tag}] pol step launches {launches}, '
+                             f'expected {want}')
+    (ref, rs, rl), (moved, vs, ml) = pol(False), pol(False, 1 + 1e-6)
+    if counts() != want:
+        raise AssertionError(f'[{tag}] the unfused policy launched a kernel')
+    lerr = hold_value('pol step loss', gl, rl, ml, tag)
+    gerr = hold_moments('pol step', gs, rs, vs, tag)
+    worst = hold_lr('pol step params', got, ref, moved, 1, 1e-3, tag=tag)
+    log(f'[{tag}] pol step (B={tmd.N_X0}, T={T}): launches {launches}; '
+        f'loss {gl:.7g} (plain {rl:.7g}, err {lerr:.3e}); gradient within '
+        f'{gerr:.3e} of each leaf\'s max|plain|; params within {worst:.3e} '
+        'lr of the plain version')
+
+    def dyn_step(dev, scale=1.0, dtype=torch.float32):
+        mv = (lambda t: t.to(dev, dtype) if t.is_floating_point()
+              else t.to(dev))
+        p = tree_map(mv, params['dyn'])
+        noise = tree_map(mv, hnoise)
+        b = [mv(v) for v in batch]
+        b[0] = b[0] * scale
+        out, state, loss, e = m['dyn_step'](p, Adam(3e-4).init(p),
+                                            tree_map(mv, scaling), *b,
+                                            noise=noise)
+        return flat(out).cpu(), state, float(loss), float(e)
+
+    hnoise = dyn.sample_noise(gen, (tmd.DYN_BATCH, 1), device='cuda')
+    got, gs, gl, ge = dyn_step('cuda')
+    (ref, rs, rl, re), (moved, vs, ml, me) = (dyn_step('cpu'),
+                                              dyn_step('cpu', 1 + 1e-6))
+    lerr = hold_value('dyn step loss', gl, rl, ml, tag)
+    hold_value('dyn step E_lml', ge, re, me, tag)
+    gerr = hold_moments('dyn step', gs, dyn_step('cpu', 1.0, torch.float64)[1],
+                        rs, tag)
+    worst = hold_lr('dyn step params', got, ref, moved, 1, 3e-4, tag=tag)
+    log(f'[{tag}] dyn step (B={tmd.DYN_BATCH}, window {args.window}): loss '
+        f'{gl:.7g} (CPU {rl:.7g}, err {lerr:.3e}), E_lml {ge:.7g}; gradient '
+        f'within {gerr:.3e} of each leaf\'s max|float64|; params within '
+        f'{worst:.3e} lr of the CPU step')
+
+    jitter = torch.randn(x0s.shape, generator=gen, device='cuda')
+
+    def flow_step(dev, scale=1.0, dtype=torch.float32):
+        p = tree_map(lambda t: t.to(dev, dtype), params['flow'])
+        out, state, loss = m['flow_step'](p, Adam(1e-3).init(p),
+                                          x0s.to(dev, dtype) * scale,
+                                          jitter=jitter.to(dev, dtype))
+        return flat(out).cpu(), state, float(loss)
+
+    (got, gs, gl), (ref, rs, rl), (moved, vs, ml) = (
+        flow_step('cuda'), flow_step('cpu'), flow_step('cpu', 1 + 1e-6))
+    lerr = hold_value('flow step loss', gl, rl, ml, tag)
+    gerr = hold_moments('flow step', gs,
+                        flow_step('cpu', 1.0, torch.float64)[1], rs, tag)
+    worst = hold_lr('flow step params', got, ref, moved, 1, 1e-3, tag=tag)
+    log(f'[{tag}] flow step ({x0s.shape[0]} x0s): loss {gl:.7g} (CPU '
+        f'{rl:.7g}, err {lerr:.3e}); gradient within {gerr:.3e} of each '
+        f'leaf\'s max|float64|; params within {worst:.3e} lr of the CPU step; '
+        f'{card}')
+
+    def pol_steps():
+        p, s = params['pol'], Adam(1e-3).init(params['pol'])
+        for _ in range(TM_PROFILED):
+            p, s, _ = m['pol_step'](p, s, params['dyn'], scaling, x0,
+                                    generator=gen)
+
+    pol_steps()  # warm
+    device_profile(tag, 'pol step', pol_steps, TM_PROFILED)
+
+
+def phase_tm_episode(card, tag='phase 14b', argv=TM_ARGV):
+    """One episode of ``transformer_models.main`` at its defaults (400
+    dynamics steps, 200 flow steps, 100 policy steps of 16 imagined steps,
+    40 control steps): launches exact (fused-MLP forward 100 x 16 + the
+    control steps, backward 100 x 16), every value finite, E_lml rising
+    over the fit; ms a dyn, flow and pol step (host clock). Returns the
+    launch counts and ``main``'s (params, history)."""
+    args = tmd.get_parser().parse_args(argv)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, history = tmd.main(argv, device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    steps = sum(r['control_steps'] for r in history)
+    pol = args.ps_iters * args.pol_opt_iters * args.pred_H
+    want = expect(fused_mlp_fwd=pol + steps, fused_mlp_bwd=pol)
+    if launches != want:
+        raise AssertionError(f'[{tag}] launches {launches}, expected {want}')
+    for r in history:
+        for k in ('E_lml', 'loss', 'flow_loss', 'pol_loss'):
+            if not np.all(np.isfinite(r[k])):
+                raise AssertionError(f'[{tag}] non-finite {k}')
+        e, q = r['E_lml'], max(1, len(r['E_lml']) // 8)
+        if not e[-q:].mean() > e[:q].mean():
+            raise AssertionError(f'[{tag}] E_lml did not rise: {e[:q]} -> '
+                                 f'{e[-q:]}')
+    if not (all(torch.isfinite(x).all() for x in tree_leaves(params))
+            and np.isfinite(history[-1]['real_return'])):
+        raise AssertionError(f'[{tag}] non-finite params or return')
+    r = history[-1]
+    log(f'[{tag}] transformer_models episode in {wall:.3f} s (host clock): '
+        f'E_lml {r["E_lml"][:q].mean():.4f} -> {r["E_lml"][-q:].mean():.4f} '
+        f'(first and last eighth of {len(r["E_lml"])} steps), flow loss '
+        f'{r["flow_loss"][0]:.4f} -> {r["flow_loss"][-1]:.4f}, pol loss '
+        f'{r["pol_loss"][0]:.4f} -> {r["pol_loss"][-1]:.4f}, real return '
+        f'{r["real_return"]:.6f}; launches {launches} (expected {want})')
+    log(f'[{tag}] ms a dyn step {1e3 * r["dyn_s"] / args.dyn_opt_iters:.4f}'
+        f', a flow step {1e3 * r["flow_s"] / tmd.FLOW_STEPS:.4f}, a pol step '
+        f'{1e3 * r["pol_s"] / args.pol_opt_iters:.4f} (host clock, a sync '
+        f'at the end of each fit); {card}')
+    return launches, (params, history)
+
+
+def dyn_regressor(mlp_cls=None, fused=None):
+    """The main path's dynamics regressor (Cartpole, 6 -> [200, 200] -> 10,
+    concrete dropout 0.1, diagonal-Gaussian head); ``mlp_cls`` wraps its
+    MLP (``RandomPriorMLP``)."""
+    mlp = MLPSpec(6, 10, (200, 200), dropout=cdropout(0.1), fused=fused)
+    return Regressor(mlp if mlp_cls is None else mlp_cls(mlp),
+                     DiagGaussianDensity(5))
+
+
+def fit_data():
+    """The whitened dynamics dataset of ``random_episodes`` on Cartpole on
+    the card: (Xn, Yn)."""
+    exp = random_episodes(envs.make('Cartpole', device='cuda'))
+    X, Y = (torch.as_tensor(a, device='cuda')
+            for a in exp.get_dynmodel_dataset(deltas=True))
+    return normalize_dataset(dyn_regressor().fit_stats(X, Y), X, Y)
+
+
+def check_ensemble(card, tag='phase 14c', steps=ENS_STEPS):
+    """``make_ensemble_train_fn`` at ENS_K members of the main path's
+    dynamics, batch ENS_B, bootstrap masks, ``steps`` Adam steps through
+    the kernels (exactly ENS_K x steps launches each way) against the
+    unfused members on the same draws (loss and E_lml of each step by
+    ``hold_value``, Adam's first moment, a running mean of the gradients,
+    by ``hold_moments``, params by ``hold_lr``); then one
+    ``train_regressor`` step of a ``RandomPriorMLP``-backed regressor (2
+    forward launches, 1 backward), held the same way."""
+    Xn, Yn = fit_data()
+    n = Xn.shape[0]
+    gen = seeded_generator('cuda', SEED, 141)
+    ens, ens_u = (ModelEnsemble(dyn_regressor(fused=f), ENS_K)
+                  for f in (None, False))
+    params = ens.init(gen, device='cuda')
+    masks = bootstrap_masks(gen, ENS_K, n, device='cuda')
+    idx = torch.randint(0, n, (steps, ENS_B), generator=gen, device='cuda')
+    noise = ens.sample_noise(gen, (steps, ENS_B), device='cuda')
+    noise = tree_map(lambda t: t.transpose(0, 1).contiguous(), noise)
+
+    def run(e, scale=1.0):
+        train = make_ensemble_train_fn(e, Adam(OPT_LR), batchsize=ENS_B)
+        p = clone_tree(params)
+        out, state, met = train(p, Adam(OPT_LR).init(p), Xn * scale, Yn,
+                                masks, steps, idx=idx, noise=noise)
+        return flat(out), state, met
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, gs, gm = run(ens)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = counts()
+    want = expect(fused_mlp_fwd=ENS_K * steps, fused_mlp_bwd=ENS_K * steps)
+    if launches != want:
+        raise AssertionError(f'[{tag}] ensemble launches {launches}, '
+                             f'expected {want}')
+    (ref, rs, rm), (moved, vs, mm) = run(ens_u), run(ens_u, 1 + 1e-6)
+    if counts() != want:
+        raise AssertionError(f'[{tag}] the unfused members launched a '
+                             'kernel')
+    errs = [hold_value(f'ensemble {k}', gm[k], rm[k], mm[k], tag)
+            for k in ('loss', 'E_lml')]
+    gerr = hold_moments('ensemble', gs, rs, vs, tag)
+    worst = hold_lr('ensemble params', got, ref, moved, steps, OPT_LR,
+                    tag=tag)
+    log(f'[{tag}] ensemble of {ENS_K} (6 -> [200, 200] -> 10), {steps} '
+        f'steps at batch {ENS_B}: launches {launches}; E_lml '
+        f'{gm["E_lml"][0]:.4f} -> {gm["E_lml"][-1]:.4f} (plain '
+        f'{rm["E_lml"][-1]:.4f}; loss err {errs[0]:.3e}, E_lml err '
+        f'{errs[1]:.3e}); first moment within {gerr:.3e} of each leaf\'s '
+        f'max|plain|; params within {worst:.3e} lr a step of the plain '
+        f'version; {ms:.4f} ms a step (host clock); {card}')
+
+    reg, reg_u = (dyn_regressor(RandomPriorMLP, f) for f in (None, False))
+    p0 = reg.init(gen, device='cuda')
+    b = idx[0]
+    rnoise = reg.sample_noise(gen, (ENS_B,), device='cuda')
+    ones = torch.ones((ENS_B,), device='cuda')
+
+    def prior_step(r, scale=1.0):
+        train = make_train_fn(r, Adam(OPT_LR), ENS_B)
+        p = clone_tree(p0)
+        out, state, _, _, loss, _ = train.train_step(
+            p, Adam(OPT_LR).init(p), Xn[b] * scale, Yn[b], rnoise, ones, n)
+        return out, state, float(loss)
+
+    reset_counts()
+    out, gs, gl = prior_step(reg)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = expect(fused_mlp_fwd=2, fused_mlp_bwd=1)
+    if launches != want:
+        raise AssertionError(f'[{tag}] RandomPriorMLP step launches '
+                             f'{launches}, expected {want}')
+    (ref, rs, rl), (moved, vs, ml) = (prior_step(reg_u),
+                                      prior_step(reg_u, 1 + 1e-6))
+    lerr = hold_value('RandomPriorMLP loss', gl, rl, ml, tag)
+    gerr = hold_moments('RandomPriorMLP', gs, rs, vs, tag)
+    worst = hold_lr('RandomPriorMLP params', flat(out), flat(ref),
+                    flat(moved), 1, OPT_LR, tag=tag)
+    if not torch.equal(flat(out['mlp']['prior']), flat(p0['mlp']['prior'])):
+        raise AssertionError(f'[{tag}] the prior moved')
+    log(f'[{tag}] RandomPriorMLP regressor, one train_regressor step: '
+        f'launches {launches}; loss {gl:.7g} (plain {rl:.7g}, err '
+        f'{lerr:.3e}); gradient within {gerr:.3e} of each leaf\'s '
+        f'max|plain|; params within {worst:.3e} lr of the plain version, '
+        'the prior unmoved')
+
+
+def check_optimisers(card, tag='phase 14d', steps=OPT_STEPS):
+    """``train_regressor``'s steps (``make_train_fn``) on the main path's
+    dynamics with ``RAdam`` and then ``SdLBFGS`` at their defaults, ``steps``
+    steps each through the kernels (one forward and one backward launch a
+    step) against the unfused MLP on the same draws: losses by
+    ``hold_value``; RAdam's first moment by ``hold_moments`` and params by
+    ``hold_lr``, SdLBFGS's (a step of
+    lr / sqrt(k) along a unit direction) within SDLBFGS_TOL of their move
+    or 3 times the plain path's sensitivity, in norm. Logs ms a step."""
+    Xn, Yn = fit_data()
+    n = Xn.shape[0]
+    gen = seeded_generator('cuda', SEED, 142)
+    reg, reg_u = dyn_regressor(), dyn_regressor(fused=False)
+    p0 = reg.init(gen, device='cuda')
+    idx = torch.randint(0, n, (steps, ENS_B), generator=gen, device='cuda')
+    noise = [reg.sample_noise(gen, (ENS_B,), device='cuda')
+             for _ in range(steps)]
+    ones = torch.ones((ENS_B,), device='cuda')
+    for name, make in (('RAdam', RAdam), ('SdLBFGS', SdLBFGS)):
+        def run(r, scale=1.0):
+            opt = make()
+            train = make_train_fn(r, opt, ENS_B)
+            p, s = clone_tree(p0), opt.init(p0)
+            losses = []
+            for i in range(steps):
+                p, s, _, _, loss, _ = train.train_step(
+                    p, s, Xn[idx[i]] * scale, Yn[idx[i]], noise[i], ones, n)
+                losses.append(loss)
+            return flat(p), s, torch.stack(losses).cpu().numpy()
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, gs, gl = run(reg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        launches = counts()
+        want = expect(fused_mlp_fwd=steps, fused_mlp_bwd=steps)
+        if launches != want:
+            raise AssertionError(f'[{tag}] {name} launches {launches}, '
+                                 f'expected {want}')
+        (ref, rs, rl), (moved, vs, ml) = run(reg_u), run(reg_u, 1 + 1e-6)
+        lerr = hold_value(f'{name} losses', gl, rl, ml, tag)
+        if name == 'RAdam':
+            gerr = hold_moments(name, gs, rs, vs, tag)
+            worst = hold_lr(f'{name} params', got, ref, moved, steps, 1e-3,
+                            tag=tag)
+            held = (f'first moment within {gerr:.3e} of each leaf\'s '
+                    f'max|plain|, params within {worst:.3e} lr a step of the '
+                    'plain version')
+        else:
+            start = flat(p0)
+            err = float(torch.linalg.norm(got - ref))
+            tol = max(SDLBFGS_TOL * float(torch.linalg.norm(ref - start)),
+                      3 * float(torch.linalg.norm(moved - ref)))
+            if not (torch.isfinite(got).all() and err <= tol):
+                raise AssertionError(f'[{tag}] {name} params {err:.3e} from '
+                                     f'the plain version (tolerance '
+                                     f'{tol:.3e})')
+            held = (f'params |a - r| {err:.3e} (tolerance {tol:.3e}, a move '
+                    f'of {float(torch.linalg.norm(ref - start)):.4f})')
+        log(f'[{tag}] train_regressor with {name}, {steps} steps at batch '
+            f'{ENS_B}: launches {launches}; loss {gl[0]:.6f} -> {gl[-1]:.6f}'
+            f' (plain {rl[-1]:.6f}, err {lerr:.3e}); {held}; {ms:.4f} ms a '
+            f'step (host clock); {card}')
+
+
+def phase_transformer(card):
+    """Phase 14: one episode of the sequence-model driver (14b), then its
+    steps on the trained models (14a), model ensembles and randomized priors
+    (14c), RAdam and SdLBFGS (14d). Returns 14b's launch counts."""
+    launches, trained = phase_tm_episode(card)
+    check_tm_steps(tm_setup(trained), card)
+    check_ensemble(card)
+    check_optimisers(card)
+    return launches
 
 
 def start(name):
@@ -4053,7 +4501,9 @@ def main():
     phase_ddpg(card)
     t = lap('phase 12', t)
     phase_density(card)
-    lap('phase 13', t)
+    t = lap('phase 13', t)
+    phase_transformer(card)
+    lap('phase 14', t)
     runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': fixed_critic}

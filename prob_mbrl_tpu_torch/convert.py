@@ -3,7 +3,11 @@
 Both packages use the same nested-dict names and the same ``(din, dout)``
 weight layout, so conversion is a name-for-name copy. An ``optax.adam`` state
 (``(ScaleByAdamState(count, mu, nu), EmptyState())``) carries across to the
-port's ``algorithms.value.AdamState`` and back.
+port's ``algorithms.value.AdamState`` and back, and the dict states of JAX's
+``optim.radam`` and ``optim.sdlbfgs`` to ``optim.RAdamState`` and
+``optim.SdLBFGSState`` and back (``dict_state_from_jax``,
+``dict_state_to_jax``), their int32 counts and bool masks keeping their
+dtypes.
 """
 import numpy as np
 import torch
@@ -58,3 +62,26 @@ def adam_state_to_jax(state, like):
         x._replace(count=np.asarray(state.count.cpu().numpy(), np.int32),
                    mu=params_to_numpy(state.mu), nu=params_to_numpy(state.nu))
         if x is _adam_part(like) else x for x in like)
+
+
+def dict_state_from_jax(cls, np_state, device=None):
+    """A JAX optimiser's dict state with numpy leaves (``optim.radam``'s
+    step, mu, nu; ``optim.sdlbfgs``'s n_iter, prev_grad, prev_d, prev_t, S,
+    Ybar, valid) -> ``cls`` (``RAdamState``, ``SdLBFGSState``) on
+    ``device``: integer and bool leaves keep their dtypes (int32, bool), the
+    rest float32."""
+    device = resolve_device(device)
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype == np.bool_ or np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a, device=device)
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return cls(**{k: tree_map(conv, np_state[k]) for k in cls._fields})
+
+
+def dict_state_to_jax(state):
+    """``RAdamState`` or ``SdLBFGSState`` -> JAX's dict state, numpy
+    leaves."""
+    return {k: params_to_numpy(v) for k, v in state._asdict().items()}

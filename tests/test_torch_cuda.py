@@ -21,10 +21,13 @@ grouped moment matching (``mm_groups``: ``chip_smoke``'s grouped holds,
 against the plain version in float64, their bits and launch counts, and
 ``mc_pilco`` with groups on the whole-rollout tier), K8, row 5 on each
 of two gloo ranks' particle slices with one all-reduce, against the
-unsharded row 5, and rows 3-9 with a mixture dynamics head
+unsharded row 5, rows 3-9 with a mixture dynamics head
 (``GaussianMixtureDensity``, K = 2 and 5: ``chip_smoke``'s mixture holds,
 with a learned reward, grouped MM and the critic refit, their bits, launch
-counts and ``mc_pilco`` on the whole-rollout tier).
+counts and ``mc_pilco`` on the whole-rollout tier), and ``chip_smoke``'s
+phase 14 cut short: the sequence-model driver's steps and an episode of it,
+model ensembles with a randomized prior, and RAdam and SdLBFGS fits, each
+through the fused MLP against the unfused path.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -1423,3 +1426,31 @@ def test_mc_pilco_with_a_mixture_head_takes_the_full_tier_on_the_card(cuda):
     assert fr.LAUNCHES['fused_rollout_vg'] == 5
     assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
     assert np.all(np.isfinite(metrics['loss']))
+
+
+# ---- the sequence-model driver, ensembles and the optimisers (phase 14) ---
+
+def test_transformer_models_episode_and_steps_on_the_card(cuda):
+    """``chip_smoke.phase_tm_episode`` cut to 100 fit steps, 3 policy steps
+    of 4 imagined steps and 10 control steps (launches exact, values
+    finite, E_lml rising), then ``chip_smoke.check_tm_steps`` on its
+    models: one policy step through the fused MLP (16 launches each way)
+    against the unfused policy on the same draws, one dynamics and one flow
+    step against the same steps on CPU tensors."""
+    _, trained = cs.phase_tm_episode('card test', tag='card test', argv=[
+        '--seed', '1', '--ps_iters', '1', '--dyn_opt_iters', '100',
+        '--pol_opt_iters', '3', '--pred_H', '4', '--control_H', '10'])
+    cs.check_tm_steps(cs.tm_setup(trained), 'card test', tag='card test')
+
+
+def test_ensemble_and_random_prior_match_the_unfused_members(cuda):
+    """``chip_smoke.check_ensemble`` at 5 steps: K launches each way a step,
+    held against the unfused members; a RandomPriorMLP step 2 forward and 1
+    backward launch, the prior unmoved."""
+    cs.check_ensemble('card test', tag='card test', steps=5)
+
+
+def test_radam_and_sdlbfgs_fits_match_the_unfused_fit(cuda):
+    """``chip_smoke.check_optimisers`` at 5 steps: RAdam and SdLBFGS in
+    ``train_regressor``'s steps through the kernels against unfused."""
+    cs.check_optimisers('card test', tag='card test', steps=5)
