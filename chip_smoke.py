@@ -3513,18 +3513,32 @@ def sharded_run(ranks, tag, what, iters, groups, fused_rollout, B, tier,
     return [o['ms'] for o in outs]
 
 
-def driver_rank(mesh, argv, folder):
-    """A rank of phase 11e: the ``deep_pilco_mm`` driver's ``main`` on this
-    rank of ``mesh``, every count set to 0 just before it. Returns
-    (launches, all-reduces, real returns, results folder, the per-episode
-    records: rank 0's only)."""
-    records = []
-    reset_shard_counts()
-    returns, results = dpc.main(**dpm.SETTINGS, argv=argv + ['-o', folder],
-                                device=mesh.device, mesh=mesh,
-                                on_episode=records.append)
-    torch.cuda.synchronize()
-    return (*shard_counts(), returns, results, records)
+def driver_rank(mesh, argv, folder, settings=dpm.SETTINGS):
+    """A rank of phases 11e and 11f: the driver's ``main`` (``settings``:
+    its entry point's, ``deep_pilco_mm``'s by default) on this rank of
+    ``mesh``, every count set to 0 just before it. Returns (launches,
+    all-reduces, real returns, results folder, the per-episode records:
+    rank 0's only, and the critic's params on the host as the driver's own
+    check of the ranks' params saw them after the episode, or None)."""
+    records, checked = [], []
+    real = tpar.same_on_every_rank
+
+    def spy(tree, m):
+        checked.append(on_host(tree))
+        return real(tree, m)
+
+    tpar.same_on_every_rank = spy  # the driver calls parallel's
+    try:
+        reset_shard_counts()
+        returns, results = dpc.main(**settings, argv=argv + ['-o', folder],
+                                    device=mesh.device, mesh=mesh,
+                                    on_episode=records.append)
+        torch.cuda.synchronize()
+    finally:
+        tpar.same_on_every_rank = real
+    value_state = checked[-1][2] if checked else None
+    return (*shard_counts(), returns, results, records,
+            value_state and tree_leaves(value_state['params']))
 
 
 def shard_episode(ranks, card):
@@ -3559,7 +3573,7 @@ def shard_episode(ranks, card):
         exp = ExperienceDataset()
         exp.load(str(Path(results) / 'experience.pkl'))
         steps = sum(len(ep) for ep in exp.states)
-        for rank, (launches, all_reduces, returns, res, records) in \
+        for rank, (launches, all_reduces, returns, res, records, _) in \
                 enumerate(outs):
             want = expect(fused_mlp_fwd=SHARD_FIT_ITERS
                           + (steps if rank == 0 else 0),
@@ -3594,6 +3608,286 @@ def shard_episode(ranks, card):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+# phase 11f: each option of the utils.rollout route under particle sharding,
+# one mc_pilco call on 2 ranks against the same call unsharded: (name,
+# mc_pilco keywords, particles, critic: None, 'fixed' or 'update')
+MM_BOTH = dict(mm_states=True, mm_rewards=True)
+SHARD_OPTIONS = (
+    ('a fixed critic', MM_BOTH, MAIN_B, 'fixed'),
+    ('a TD(H) value update', {}, GRID_B, 'update'),
+    ('CVaR', dict(cvar_eps=0.25, **MM_BOTH), MAIN_B, None),
+    ('straddling MM groups', dict(mm_groups=3, **MM_BOTH), 102, None),
+    ('mm_method=mix', dict(mm_method='mix', **MM_BOTH), MAIN_B, None),
+    ('infer_noise_variables', dict(infer_noise_variables=True, **MM_BOTH),
+     MAIN_B, None),
+    ('pegasus=False', dict(pegasus=False, **MM_BOTH), MAIN_B, None),
+    ('prioritized_replay', dict(prioritized_replay=True, **MM_BOTH), MAIN_B,
+     None))
+SHARD_OPTION_ITERS = 3  # iterations of each phase 11f call
+# phase 11f's policy steps: the CPU tests' (SGD, no clipping), so that the
+# params' change is lr times the sum of the gradients, which the holds see
+SHARD_OPTION_LR = 1e-2
+
+
+def option_rank(mesh, options, B, critic_kind, iters=SHARD_OPTION_ITERS):
+    """A rank of phase 11f (``mesh`` None: the unsharded call, here, forced
+    to the ``utils.rollout`` route, which a sharded run with any of these
+    options takes; unsharded the gate sends a critic to a fused tier):
+    ``mc_pilco`` on the main path's setup with ``options`` at B particles
+    (with the with-value driver's critic, fixed or refit every iteration,
+    ``critic_setup``), ``iters`` iterations of one each, every count set to
+    0 just before it. Returns a dict: the tier, the losses, mean returns,
+    v_losses and priority scores, the final policy (and critic) params and
+    the sum tree's drawn leaves on the host, the launches, all-reduces and
+    all-gathers, ms an iteration, and whether the policy's params and the
+    critic's state hold the same bits on every rank. The policy takes SGD
+    steps of SHARD_OPTION_LR without clipping."""
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = \
+        main_path_setup(SEED)
+    device = x0_pool.device
+    kw, state = {}, None
+    if critic_kind:
+        V, update, state, vstats = critic_setup(x0_pool.shape[-1])
+        kw = dict(value_spec=V, value_stats=vstats)
+        if critic_kind == 'update':
+            kw.update(value_update_fn=update, value_state=state)
+        else:
+            kw['value_params'] = state['params']
+    fused = None if mesh is not None else False
+    cfg = {('with_priorities' if k == 'prioritized_replay' else k): v
+           for k, v in options.items()}
+    tier = make_mc_pilco_fn(
+        dyn, pol, MCPILCOConfig(n_particles=B, steps=MAIN_T,
+                                fused_rollout=fused, **cfg), device,
+        value_spec=kw.get('value_spec'),
+        value_update=kw.get('value_update_fn'), mesh=mesh).tier(device)
+    drawn, make_tree = [], native.make_sum_tree
+
+    def spy_tree(*a, **k):
+        tree = make_tree(*a, **k)
+        sample = tree.sample
+
+        def spy(*a, **k):
+            out = sample(*a, **k)
+            drawn.append(np.asarray(out[1]))
+            return out
+
+        tree.sample = spy
+        return tree
+
+    native.make_sum_tree = spy_tree
+    start = [p.detach().clone() for p in tree_leaves(pol_params)]
+    stamps = []
+    try:
+        reset_shard_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pol_params, _, metrics, _ = mc_pilco(
+            x0_pool, dyn, pol, MAIN_T, dyn_params, dyn_stats, pol_params,
+            opt_iters=iters, init_state_noise=init_noise, n_particles=B,
+            seed=SEED, chunk=1, mesh=mesh, fused_rollout=fused,
+            optimizer=functools.partial(torch.optim.SGD, lr=SHARD_OPTION_LR),
+            clip_grad=None,
+            on_iteration=lambda done, m: stamps.append(time.perf_counter()),
+            **options, **kw)
+        torch.cuda.synchronize()
+    finally:
+        native.make_sum_tree = make_tree
+    launches, all_reduces = shard_counts()
+    kept = (pol_params, state)
+    return dict(tier=tier, losses=metrics['loss'],
+                rets=metrics['mean_return'], v_losses=metrics.get('v_loss'),
+                scores=metrics.get('priority_scores'),
+                params=on_host(tree_leaves(pol_params)),
+                moved=[(p - q).detach().cpu() for p, q in
+                       zip(tree_leaves(pol_params), start)],
+                critic=None if state is None
+                else on_host(tree_leaves(state['params'])),
+                drawn=drawn, launches=launches, all_reduces=all_reduces,
+                all_gathers=tpar.COLLECTIVES['all_gather'],
+                ms=float(np.median(np.diff([t0] + stamps)) * 1e3),
+                same=mesh is None or tpar.same_on_every_rank(kept, mesh))
+
+
+def hold_option(tag, got, ref, iters=SHARD_OPTION_ITERS):
+    """A rank's phase 11f run held against the unsharded one with the CPU
+    tests' tolerances (``tests/test_torch_parallel_options.py``): the first
+    loss rtol 1e-5 / atol 1e-6 (one call), every loss and mean return rtol
+    1e-3 / atol 1e-6, the policy's params within 2 lr a step and their
+    change (lr times the sum of the gradients: SGD, no clipping) within
+    1e-6 + 1e-3 of its max (the gradients' rule), v_losses rtol 1e-3 and
+    the critic's params within 2 VALUE_LR an Adam step (the sums' other
+    order moves rounding-level gradient entries, which Adam turns into
+    steps of up to lr), priority scores rtol 1e-3 / atol 1e-4 of their
+    max, the sum tree's drawn leaves equal. Returns the largest relative
+    error of the losses."""
+    np.testing.assert_allclose(got['losses'][0], ref['losses'][0], rtol=1e-5,
+                               atol=1e-6, err_msg=f'{tag} first loss')
+    for key in ('losses', 'rets') + (('v_losses',) if ref['v_losses']
+                                     is not None else ()):
+        np.testing.assert_allclose(got[key], ref[key], rtol=1e-3, atol=1e-6,
+                                   err_msg=f'{tag} {key}')
+    scale = max(float(m.abs().max()) for m in ref['moved'])
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got['moved'], ref['moved']))
+    if not (scale > 0 and err <= 1e-6 + 1e-3 * scale):
+        raise AssertionError(f'[{tag}] the params\' change {err:.3e} from '
+                             f'the unsharded one\'s (its max {scale:.3e})')
+    for key, lr in (('params', SHARD_OPTION_LR), ('critic', VALUE_LR)):
+        for a, b in zip(got[key] or (), ref[key] or ()):
+            err = float((a - b).abs().max())
+            if err > 2 * lr * iters:
+                raise AssertionError(f'[{tag}] {key} {err:.3e} apart, beyond '
+                                     f'2 lr a step ({2 * lr * iters:.1e})')
+    if ref['scores'] is not None:
+        d = np.abs(got['scores'] - ref['scores'])
+        i = np.unravel_index(np.argmax(d / np.abs(ref['scores'])), d.shape)
+        log(f'[{tag}] priority scores: worst relative error '
+            f'{float(d[i] / abs(ref["scores"][i])):.3e} at (iteration, '
+            f'group) {tuple(int(j) for j in i)}')
+        np.testing.assert_allclose(got['scores'], ref['scores'], rtol=1e-3,
+                                   atol=1e-4 * np.abs(ref['scores']).max(),
+                                   err_msg=f'{tag} priority scores')
+    for a, b in zip(got['drawn'], ref['drawn']):
+        np.testing.assert_array_equal(a, b, err_msg=f'{tag} tree draws')
+    if len(got['drawn']) != len(ref['drawn']):
+        raise AssertionError(f'[{tag}] {len(got["drawn"])} tree draws, '
+                             f'unsharded {len(ref["drawn"])}')
+    return float(np.max(np.abs(got['losses'] - ref['losses'])
+                        / np.abs(ref['losses'])))
+
+
+def shard_options(ranks, card):
+    """Phase 11f: each of SHARD_OPTIONS in one ``mc_pilco`` call of
+    SHARD_OPTION_ITERS iterations on the 2 ranks (``option_rank``) and the
+    same call unsharded on the card, here: the ``utils.rollout`` route on
+    both (the gate gives none of these options a fused tier under a mesh;
+    the unsharded call is forced to the route), the same launches on each
+    rank as unsharded (every MLP call through the fused MLP), losses and
+    the params' bits (the critic state's too) the same on both ranks, each
+    rank held against the unsharded run (``hold_option``); the all-reduces
+    and all-gathers an iteration and the ms an iteration beside the
+    unsharded run's. Returns the value update's (launches, all-reduces) an
+    iteration, for the with-value episode."""
+    tag = 'phase 11f'
+    per_iter = None
+    for name, options, B, critic_kind in SHARD_OPTIONS:
+        what = (f'{name} B={B}' + (f' ({critic_kind} critic)'
+                                   if critic_kind else ''))
+        ref = option_rank(None, options, B, critic_kind)
+        outs = ranks.run(option_rank, options, B, critic_kind,
+                         timeout=SHARD_TIMEOUT)
+        worst = 0.0
+        for rank, o in enumerate(outs):
+            if o['tier'] is not None or ref['tier'] is not None:
+                raise AssertionError(f'[{tag}] {what}: tier {o["tier"]!r}, '
+                                     'expected the utils.rollout route')
+            if o['launches'] != ref['launches'] or \
+                    not o['launches']['fused_mlp_fwd']:
+                raise AssertionError(f'[{tag}] {what} rank {rank}: launches '
+                                     f'{o["launches"]}, unsharded '
+                                     f'{ref["launches"]}')
+            if not (o['same'] and np.array_equal(o['losses'],
+                                                 outs[0]['losses'])):
+                raise AssertionError(f'[{tag}] {what}: the ranks\' losses or '
+                                     'params differ')
+            worst = max(worst, hold_option(f'{tag} {what} rank {rank}', o,
+                                           ref))
+        it = SHARD_OPTION_ITERS
+        o = outs[0]
+        log(f'[{tag}] {what} on 2 ranks sharing one card, T={MAIN_T}: loss '
+            f'first {o["losses"][0]:.6e} last {o["losses"][-1]:.6e}, max '
+            f'relative error of the losses against the unsharded run '
+            f'{worst:.3e} (first rtol 1e-5, then 1e-3)'
+            + (f', v_loss last {o["v_losses"][-1]:.6e}'
+               if o['v_losses'] is not None else '')
+            + (f', tree draws equal ({len(o["drawn"])})' if o['drawn']
+               else '') + '; the params\' bits'
+            + (' and the critic state\'s' if critic_kind else '')
+            + ' the same on both ranks; launches an iteration: fused MLP '
+            f'{o["launches"]["fused_mlp_fwd"] // it} forward, '
+            f'{o["launches"]["fused_mlp_bwd"] // it} backward (as unsharded);'
+            f' {o["all_reduces"] / it:g} all-reduces and '
+            f'{o["all_gathers"] / it:g} all-gathers an iteration; '
+            f'{outs[0]["ms"]:.3f} / {outs[1]["ms"]:.3f} ms an iteration on '
+            f'ranks 0 / 1, unsharded {ref["ms"]:.3f} (host clock, '
+            f'synchronised each iteration); {card}')
+        if critic_kind == 'update':
+            per_iter = ({k: v // it for k, v in o['launches'].items()},
+                        o['all_reduces'] // it)
+    return per_iter
+
+
+def value_shard_episode(ranks, card, per_iter):
+    """Phase 11f's episode: one ``deep_pilco_no_mm_with_value --n_devices 2
+    --dist_backend gloo`` episode cut as phase 11e's (SHARD_FIT_ITERS fit
+    steps, SHARD_POL_ITERS policy iterations) on the ``utils.rollout``
+    route: exact launches and all-reduces on each rank (one fused-MLP
+    forward and backward and one all-reduce a fit step, rank 0's control
+    steps, and a policy iteration's ``per_iter`` of phase 11f's value
+    update), every value finite, the critic's params the same bits on both
+    ranks after the episode (as the driver's own check saw them), one
+    results folder, written by rank 0."""
+    tag = 'phase 11f episode'
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    folder = tempfile.mkdtemp(prefix='chip_smoke_shard_value_', dir=root)
+    try:
+        argv = EPISODE_ARGV + [
+            '--ps_iters', '1', '--dyn_opt_iters', str(SHARD_FIT_ITERS),
+            '--pol_opt_iters', str(SHARD_POL_ITERS), '--n_devices',
+            str(ranks.n), '--dist_backend', 'gloo']
+        t0 = time.perf_counter()
+        outs = ranks.run(driver_rank, argv, folder, dvm.SETTINGS,
+                         timeout=SHARD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        results = outs[0][3]
+        written = sorted(str(Path(d).relative_to(folder))
+                         for d, _, fs in os.walk(folder)
+                         if 'latest_critic.pkl' in fs)
+        if written != [str(Path(results).relative_to(folder))]:
+            raise AssertionError(f'[{tag}] results written to {written}')
+        (r,) = outs[0][4]
+        exp = ExperienceDataset()
+        exp.load(str(Path(results) / 'experience.pkl'))
+        steps = sum(len(ep) for ep in exp.states)
+        launches_it, reduces_it = per_iter
+        for rank, (launches, all_reduces, _, res, _, crit) in enumerate(outs):
+            want = {k: SHARD_POL_ITERS * v for k, v in launches_it.items()}
+            want['fused_mlp_fwd'] += SHARD_FIT_ITERS + (steps if rank == 0
+                                                        else 0)
+            want['fused_mlp_bwd'] += SHARD_FIT_ITERS
+            reduces = SHARD_FIT_ITERS + SHARD_POL_ITERS * reduces_it
+            if launches != want or all_reduces != reduces or res != results:
+                raise AssertionError(f'[{tag}] rank {rank}: launches '
+                                     f'{launches}, {all_reduces} all-reduces;'
+                                     f' expected {want}, {reduces}')
+            for a, b in zip(crit, outs[0][5]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f'[{tag}] the ranks\' critics '
+                                         'differ')
+        pm = r['pol_metrics']
+        if not all(np.all(np.isfinite(v)) for v in (
+                r['dyn_metrics']['loss'], pm['loss'], pm['mean_return'],
+                pm['v_loss'])):
+            raise AssertionError(f'[{tag}] a value is not finite')
+        log(f'[{tag}] deep_pilco_no_mm_with_value {" ".join(argv[-6:])} on '
+            f'{ranks.n} gloo ranks sharing one card: one episode in '
+            f'{wall:.3f} s on the utils.rollout route (the critic refit on '
+            f'the fused MLP, its loss and grads all-reduced); E_lml '
+            f'{r["E_lml"]:.6f}, v_loss first {pm["v_loss"][0]:.6e} last '
+            f'{pm["v_loss"][-1]:.6e}, imagined return '
+            f'{r["imagined_return"]:.6f}, real {r["real_return"]:.6f}; fit '
+            f'{1e3 * r["fit_s"] / SHARD_FIT_ITERS:.4f} ms a step, policy '
+            f'{1e3 * r["pol_s"] / SHARD_POL_ITERS:.4f} ms an iteration; '
+            f'launches rank 0 {outs[0][0]}, rank 1 {outs[1][0]} (expected); '
+            f'the critic\'s {sum(t.numel() for t in outs[0][5])} params the '
+            f'same bits on both ranks; one results folder, written by rank 0;'
+            f' {card}')
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def phase_sharded(card, capacity):
     """Phase 11: particle sharding over gloo ranks that share the one card
     (NCCL refuses two ranks on one device), spawned once for the phase.
@@ -3607,8 +3901,10 @@ def phase_sharded(card, capacity):
     whose states no loss reads, the reward mean and the loss each way,
     mean_return and the grads; losses against phase 3's); 11d the step
     tier per rank at twice phase 4g's batch (T launches of each step kernel
-    and one all-reduce an iteration); 11e the driver (``shard_episode``).
-    What this cannot show: ranks that share a card measure no multi-card
+    and one all-reduce an iteration); 11e the driver (``shard_episode``);
+    11f each option of the ``utils.rollout`` route on 2 ranks against the
+    same call unsharded (``shard_options``), then the with-value driver's
+    episode (``value_shard_episode``). What this cannot show: ranks that share a card measure no multi-card
     speed, and NCCL is not run."""
     T = MAIN_T
     log(f'[phase 11] torch.cuda.device_count() = '
@@ -3648,6 +3944,11 @@ def phase_sharded(card, capacity):
             f'iteration, unsharded B={big // 2} {ITER_MS["phase 4g"]:.3f} '
             f'(phase 4g); {card}')
         shard_episode(ranks2, card)
+        t0 = time.perf_counter()
+        per_iter = shard_options(ranks2, card)
+        log(f'[phase 11f] the {len(SHARD_OPTIONS)} option calls took '
+            f'{time.perf_counter() - t0:.3f} s')
+        value_shard_episode(ranks2, card, per_iter)
 
 
 # ---------------------------------------------------------------------------

@@ -53,18 +53,26 @@ optimizers.
 
 Particle sharding (``mesh``, a ``parallel.sharding.Mesh``; JAX
 ``mc_pilco.py:224-236``, ``parallel/rollout.py``): each rank draws the
-epoch's noise and the iteration's initial states for the global batch from
-the same seeded generators, prepares the MM noise on the global batch and
-keeps its own slice, so a run's result does not depend on the number of
-ranks beyond the order of the sums. Where the gate names ``'full'`` or
-``'step'`` for one rank's slice (MM groups that split over the ranks, or no
-MM) each rank launches that tier on its slice and one all-reduce an
+epoch's noise, the iteration's initial states and, without PEGASUS, its
+per-step noise for the global batch from the same seeded generators, in the
+unsharded order, prepares the MM noise on the global batch and keeps its
+own slice, so a run's result does not depend on the number of ranks beyond
+the order of the sums. Where the gate names ``'full'`` or ``'step'`` for
+one rank's slice (MM groups that split over the ranks, or no MM, and no
+critic) each rank launches that tier on its slice and one all-reduce an
 iteration averages loss, mean_return and grads (K8,
 ``fused_rollout.make_fused_sharded_value_and_grad``); otherwise the
 ``utils.rollout`` route with all-reduced moments and loss, whose grads are
 averaged over the ranks in one more all-reduce. Clip and the optimizer step
 run on every rank on the same grads, so the ranks' params stay the same
-bits.
+bits. On the route, as JAX's GSPMD runs its XLA path:
+  - a critic: the bootstrap is per particle; the TD(H) refit's loss and
+    grads are averaged over the ranks before its Adam step
+    (``algorithms.value``), so the critic's params stay the same bits too;
+  - CVaR: the returns are gathered and the k of the global batch chosen in
+    ``lax.top_k``'s order (``cvar_select``); each rank sums its own;
+  - prioritized replay: the per-group scores are all-reduced group sums, so
+    the sum tree, replicated on every rank, takes the same updates there.
 
 The options no fused tier takes (``fused_rollout.refuses`` says why) run on
 the ``utils.rollout`` route, as on JAX's XLA path:
@@ -81,10 +89,6 @@ the ``utils.rollout`` route, as on JAX's XLA path:
     action perturbation gives each MM group's mean action-gradient norm,
     ``metrics['priority_scores']`` [iters, G], which ``mc_pilco``'s
     prioritized replay of initial states feeds to a sum tree (``native``).
-
-Not ported yet (raise NotImplementedError, naming their ``ROADMAP.md``
-item): a critic (a value update or a fixed critic), CVaR, and the four
-options above under particle sharding.
 """
 import dataclasses
 import functools
@@ -99,12 +103,13 @@ import torch
 from ..ops.cuda import fused_rollout as fr
 from ..ops.math import clip_grad_norm
 from ..ops.moment_matching import sample_mm_mixing
-from ..parallel.mm import psum, sharded_grad
-from ..parallel.sharding import shard_particles
+from ..parallel.mm import group_means_psum, psum, sharded_grad
+from ..parallel.sharding import (all_gather, mean_all_reduce,
+                                 same_on_every_rank, shard_particles)
 from ..utils.core import resolve_device, tile, tree_leaves, tree_map
 from ..utils.optim import Adam
-from ..utils.rollout import SHARDED_OPTIONS_ITEM, sample_density_steps
 from ..utils.rollout import rollout as rollout_fn
+from ..utils.rollout import sample_density_steps
 
 
 def discount_weights(discount, steps, dtype=np.float32):
@@ -125,16 +130,55 @@ def discount_weights(discount, steps, dtype=np.float32):
     return np.asarray(w, dtype), dtype.type(wH)
 
 
-def cvar_filter(returns, cvar_eps):
-    """CVaR quantile filter: (selected_returns, k). For ``cvar_eps`` in (0, 1)
-    the k lowest returns, for (-1, 0) the k highest; otherwise all."""
-    B = returns.shape[0]
+def _total_order(x):
+    """Integer keys that order the floats ``x`` as XLA's sort does (-0.0
+    below +0.0): their bits, the negative ones' magnitude bits flipped."""
+    bits = x.view({4: torch.int32, 8: torch.int64}[x.element_size()])
+    return bits ^ ((bits >> (8 * x.element_size() - 1))
+                   & torch.iinfo(bits.dtype).max)
+
+
+def _cvar_k(B, cvar_eps):
+    """The returns the CVaR filter keeps of B, or None with it off."""
     if not (-1.0 < cvar_eps < 1.0) or cvar_eps == 0.0:
-        return returns, B
-    k = max(1, int(round(abs(cvar_eps) * B)))
-    if cvar_eps > 0:  # keep the lowest-eps quantile
-        return -torch.topk(-returns, k).values, k
-    return torch.topk(returns, k).values, k
+        return None
+    return max(1, int(round(abs(cvar_eps) * B)))
+
+
+def cvar_indices(returns, cvar_eps):
+    """The indices of the returns [B] the CVaR filter keeps and their
+    count: for ``cvar_eps`` in (0, 1) the k = round(|eps| B) lowest, for
+    (-1, 0) the k highest, in ``lax.top_k``'s order (of equal values the
+    lower index first, and -0.0 below +0.0); otherwise (None, B)."""
+    B = returns.shape[0]
+    k = _cvar_k(B, cvar_eps)
+    if k is None:
+        return None, B
+    key = -returns if cvar_eps > 0 else returns  # keep the lowest-eps quantile
+    order = torch.sort(_total_order(key.detach()), descending=True,
+                       stable=True)
+    return order.indices[:k], k
+
+
+def cvar_filter(returns, cvar_eps):
+    """CVaR quantile filter: (selected_returns, k) (``cvar_indices``)."""
+    idx, k = cvar_indices(returns, cvar_eps)
+    return (returns if idx is None else returns[idx]), k
+
+
+def cvar_select(returns, cvar_eps, mesh):
+    """The CVaR filter of a particle axis split over the ranks of ``mesh``:
+    (this rank's selected returns, k, the global indices kept, or None),
+    the indices chosen on every rank's detached returns, gathered, as
+    ``cvar_indices`` chooses them on the whole batch (nothing is gathered
+    with the filter off)."""
+    B = returns.shape[0] * mesh.size
+    if _cvar_k(B, cvar_eps) is None:
+        return returns, B, None
+    everyone = all_gather(returns, mesh)
+    idx, k = cvar_indices(everyone, cvar_eps)
+    lo, hi = mesh.bounds(B)
+    return returns[idx[(idx >= lo) & (idx < hi)] - lo], k, idx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,21 +268,6 @@ class MCPILCO:
                  value_update=None, mesh=None):
         cfg = config
         if mesh is not None:
-            if value_spec is not None or value_update is not None:
-                raise NotImplementedError(
-                    'a critic under particle sharding is not ported yet '
-                    f'({fr.CRITIC_MESH_ITEM})')
-            sharded = [
-                (-1.0 < cfg.cvar_eps < 1.0 and cfg.cvar_eps != 0.0, 'CVaR'),
-                (not cfg.pegasus, 'non-PEGASUS noise'),
-                (cfg.mm_method == 'mix', "mm_method='mix'"),
-                (cfg.infer_noise_variables, 'infer_noise_variables'),
-                (cfg.with_priorities, 'initial-state prioritized replay')]
-            for hit, what in sharded:
-                if hit:
-                    raise NotImplementedError(
-                        f'{what} under particle sharding is not ported yet '
-                        f'({SHARDED_OPTIONS_ITEM})')
             mesh.bounds(cfg.n_particles)  # raises unless the ranks split B
         if cfg.mm_method not in ('cholesky', 'mix'):
             raise ValueError(f'unknown mm_method {cfg.mm_method!r}')
@@ -331,11 +360,12 @@ class MCPILCO:
             return noise
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
+        extra = tuple(noise[4:])
         if mesh is not None:
-            dyn_noise = shard_particles(dyn_noise, mesh)
-            pol_noise = shard_particles(pol_noise, mesh)
+            dyn_noise, pol_noise, extra = shard_particles(
+                (dyn_noise, pol_noise, extra), mesh)
             if self.tier(device) is None:
-                return (dyn_noise, pol_noise, z_mm, z_rr) + tuple(noise[4:])
+                return (dyn_noise, pol_noise, z_mm, z_rr) + tuple(extra)
 
         def prepare(z):
             z = fr.prepare_mm_noise(z, cfg.steps, self.B, cfg.mm_groups)
@@ -343,7 +373,7 @@ class MCPILCO:
 
         return (dyn_noise, pol_noise,
                 prepare(z_mm) if cfg.mm_states else None,
-                prepare(z_rr) if cfg.mm_rewards else None) + tuple(noise[4:])
+                prepare(z_rr) if cfg.mm_rewards else None) + tuple(extra)
 
     def _extras(self, noise, value_carry, value_stats, value_params):
         if self.value_update is not None:
@@ -384,10 +414,10 @@ class MCPILCO:
                 value_params=None, value_key=None, step_noise=None):
         """``loss``'s result through ``utils.rollout`` for explicit initial
         states and noise as drawn (JAX ``mc_pilco.py:380-440``); under a
-        mesh the rank's slices of x0 and the noise dicts with the global MM
-        banks, and the global loss and mean_return on every rank
-        (``psum``). ``step_noise``: without PEGASUS, the rollout's per-step
-        density noise (``sample_step_noise``)."""
+        mesh the rank's slices of x0, the noise dicts and ``step_noise``
+        with the global MM banks, and the global loss and mean_return (and
+        v_loss) on every rank (``psum``). ``step_noise``: without PEGASUS,
+        the rollout's per-step density noise (``sample_step_noise``)."""
         cfg = self.cfg
         dyn_noise, pol_noise, z_mm, z_rr = noise[:4]
         dyn_steps, pol_steps = step_noise or (None, None)
@@ -414,6 +444,8 @@ class MCPILCO:
             v_params, v_tgt, v_opt = value_carry
             masks = (dict(noise=noise[4]) if cfg.val_mask_mode == 'epoch'
                      else dict(key=value_key))
+            if self.mesh is not None:
+                masks['mesh'] = self.mesh
             *vc, v_loss = self.value_update(
                 v_params, v_tgt, v_opt, value_stats, states.detach(),
                 rewards.detach(), **masks)
@@ -426,8 +458,11 @@ class MCPILCO:
             returns = returns + float(self.w_H) * v_end[..., 0]
         if cfg.maximize:
             returns = -returns
-        selected, _ = cvar_filter(returns, cfg.cvar_eps)
-        loss = self._particle_mean(selected)
+        if self.mesh is None:
+            loss = cvar_filter(returns, cfg.cvar_eps)[0].mean()
+        else:
+            selected, k, _ = cvar_select(returns, cfg.cvar_eps, self.mesh)
+            loss = psum(selected.sum(), self.mesh) / k
         if cfg.reg_weight > 0:
             loss = loss + cfg.reg_weight * self.pol.regularization_loss(
                 pol_params)
@@ -436,7 +471,7 @@ class MCPILCO:
 
     def _particle_mean(self, x):
         """The mean of the per-particle ``x``; under a mesh, over every
-        rank's particles (no CVaR there, so each rank holds B / n)."""
+        rank's particles (each rank holds B / n)."""
         if self.mesh is None:
             return x.mean()
         return psum(x.sum(), self.mesh) / self.B
@@ -462,18 +497,27 @@ class MCPILCO:
     def sample_step_noise(self, generator, device):
         """Without PEGASUS, an iteration's fresh per-step density noise for
         states and actions ([T, B, ...] stacks, ``utils.rollout``
-        ``sample_density_steps``); None with it."""
+        ``sample_density_steps``; under a mesh drawn for the global batch,
+        the rank's slice on axis 1); None with it."""
         if self.cfg.pegasus:
             return None
-        return sample_density_steps(self.dyn, self.pol, self.cfg.steps,
-                                    self.B, generator, device)
+        steps = sample_density_steps(self.dyn, self.pol, self.cfg.steps,
+                                     self.B, generator, device)
+        if self.mesh is not None:
+            steps = shard_particles(steps, self.mesh, axis=1)
+        return steps
 
     def priority_scores(self, g_eps):
         """Each MM group's mean action-gradient norm (JAX
         ``mc_pilco.py:485-488``): the norms of ``g_eps`` [T, B, U] over U,
-        averaged over each group's particles, then over T: [G]."""
+        averaged over each group's particles, then over T: [G]. Under a
+        mesh ``g_eps`` is the rank's slice, and each group's mean is a sum
+        all-reduced over the ranks (its rows may lie on two)."""
         T, G = self.cfg.steps, self.G
         norms = torch.linalg.vector_norm(g_eps, dim=-1)
+        if self.mesh is not None:
+            return group_means_psum(norms[..., None], G, self.mesh)[0][
+                ..., 0].mean(0)
         return norms.reshape(T, G, self.B // G).mean(-1).mean(0)
 
     def iteration(self, pol_params, optimizer, dyn_params, dyn_stats,
@@ -492,7 +536,7 @@ class MCPILCO:
         action_eps = scores = None
         if self.cfg.with_priorities:
             action_eps = torch.zeros(
-                (self.cfg.steps, self.B, len(self.pol.max_u)),
+                (self.cfg.steps, x0.shape[0], len(self.pol.max_u)),
                 device=x0.device, requires_grad=True)
         if self.fused_vg is not None and self.tier(x0.device) is not None:
             loss, mean_return, grads, aux = self.fused_vg(
@@ -509,6 +553,11 @@ class MCPILCO:
             aux = aux[0] if aux else ()
             if action_eps is not None:
                 *grads, g_eps = torch.autograd.grad(loss, params + [action_eps])
+                if self.mesh is not None:
+                    # each rank's autograd takes n times its particles'
+                    # share (parallel.mm.sharded_grad)
+                    grads = mean_all_reduce(grads, self.mesh)
+                    g_eps = g_eps / self.mesh.size
                 scores = self.priority_scores(g_eps)
             elif self.mesh is None:
                 grads = torch.autograd.grad(loss, params)
@@ -627,8 +676,8 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     ``value_spec`` with ``value_params`` is a fixed critic whose bootstrap
     every iteration adds. ``mesh``: a ``parallel.sharding.Mesh`` over whose
     ranks the particles split; every rank calls ``mc_pilco`` with the same
-    arguments and ends with the same params and metrics (no critic under a
-    mesh yet: ``MCPILCO``). ``infer_noise_variables``:
+    arguments and ends with the same params (the critic's too), metrics and
+    sum tree. ``infer_noise_variables``:
     ``MCPILCOConfig.infer_noise_variables`` (JAX's ``mc_pilco`` leaves it at
     its default).
 
@@ -638,7 +687,10 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     initial states from it (``sample(..., beta=init_priority_beta)``);
     after the chunk each drawn leaf's priority becomes ``(score / max(count,
     1) + priority_eps) ** priority_alpha`` from the chunk's mean
-    ``priority_scores``, and the tree is renormalized.
+    ``priority_scores``, and the tree is renormalized. Under a mesh every
+    rank holds the tree and feeds it the same all-reduced scores; after each
+    chunk the ranks' drawn pools, indices and scores must hold the same bits
+    (it raises if they do not).
 
     Returns (pol_params, opt_state, metrics (numpy), n_opt_steps).
     """
@@ -720,8 +772,15 @@ def mc_pilco(x0_pool, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
                   % (done + n, opt_iters, rate,
                      float(metrics['mean_return'][-1])), flush=True)
         if tree is not None:
-            update_priorities(tree, idxs, metrics['priority_scores'].mean(0),
-                              priority_alpha, priority_eps)
+            scores = metrics['priority_scores'].mean(0)
+            update_priorities(tree, idxs, scores, priority_alpha,
+                              priority_eps)
+            if mesh is not None and not same_on_every_rank(
+                    (pool, torch.as_tensor(np.asarray(idxs),
+                                           device=pool.device),
+                     torch.as_tensor(scores, device=pool.device)), mesh):
+                raise RuntimeError('the ranks\' sum trees took other draws '
+                                   'or scores')
         if callable(on_iteration):
             if n_hook_args >= 3:
                 on_iteration(done + n, metrics, pol_params)

@@ -10,12 +10,19 @@ a ``DiagGaussianDensity`` head (JAX's sign: minimise -log p), plus
 ``reg_weight`` times the critic's dropout regulariser. One Adam step follows,
 then the polyak target ``tau * params + (1 - tau) * target``.
 
+Under a particle mesh (``mesh=``, a ``parallel.sharding.Mesh``) the states
+and rewards are the rank's slice of the batch: the loss and the grads are
+averaged over the ranks in one all-reduce before the Adam step, so every
+rank takes the global batch's step and the critic's params stay the same
+bits on every rank (JAX's GSPMD run of the same update).
+
 The Q-function's TD(H) update (``make_q_update_fn``) bootstraps
 ``Q_tgt(s_H, pi(s_H))`` from a fresh policy action and regresses ``Q(s_0,
 a_0)`` on the targets, its regulariser divided by the batch.
 """
 import torch
 
+from ..parallel.sharding import mean_all_reduce, shard_particles
 from ..utils.core import device_constant, polyak_averaging
 # re-exported: the drivers, the tests and ``convert`` import them from here
 from ..utils.optim import SGD, Adam, AdamState, loss_and_grads  # noqa: F401
@@ -31,12 +38,15 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
     an ``Adam``. ``discount``: as in ``mc_pilco.discount_weights``.
 
     Returns ``update(params, target_params, opt_state, stats, states,
-    rewards, key=None, noise=None) -> (params, target_params, opt_state,
-    loss)`` for ``states`` [T+1, B, D] and ``rewards`` [T, B, 1] of a
-    rollout (T >= H), with the critic's masks from ``noise`` or, when it is
-    None, drawn for this update from ``key`` (a ``torch.Generator`` on the
-    states' device: ``V.sample_noise(key, (B,))``, as JAX draws them from
-    its key; ``val_mask_mode='iter'``). Its attributes
+    rewards, key=None, noise=None, mesh=None) -> (params, target_params,
+    opt_state, loss)`` for ``states`` [T+1, B, D] and ``rewards`` [T, B, 1]
+    of a rollout (T >= H), with the critic's masks from ``noise`` or, when
+    it is None, drawn for this update from ``key`` (a ``torch.Generator`` on
+    the states' device: ``V.sample_noise(key, (B,))``, as JAX draws them
+    from its key; ``val_mask_mode='iter'``). Under ``mesh`` the states,
+    rewards and ``noise`` are the rank's slice of the batch, masks from
+    ``key`` are drawn for the global batch and sliced, and the loss is the
+    global batch's (the module's docstring). Its attributes
     ``core`` (the update from (s0, sH, returns), which the fused rollout
     tiers call), ``spec``, ``H``, ``w_t`` and ``w_H`` are JAX's; the
     whole-rollout kernels, which refit the critic themselves, also read
@@ -60,31 +70,39 @@ def make_value_update_fn(V, optimizer, H, discount=None, reg_weight=1e-4,
         return loss + reg_weight * V.regularization_loss(params)
 
     def core(params, target_params, opt_state, stats, s0, sH, returns,
-             noise):
+             noise, mesh=None):
         """One TD(H) update from (s0, sH, returns), all detached:
-        (params, target_params, opt_state, loss)."""
+        (params, target_params, opt_state, loss); under ``mesh`` the loss
+        and grads the ranks' means."""
         loss, grads = loss_and_grads(
             lambda live: loss_fn(live, target_params, stats, s0, sH, returns,
                                  noise), params)
+        if mesh is not None:
+            # equal slices: the mean of the ranks' means is the batch's (the
+            # regulariser is the same on every rank)
+            loss, grads = mean_all_reduce((loss, grads), mesh)
         params, opt_state = optimizer.step(grads, opt_state, params)
         target_params = polyak_averaging(params, target_params, polyak)
         return params, target_params, opt_state, loss
 
     def update(params, target_params, opt_state, stats, states, rewards,
-               key=None, noise=None):
+               key=None, noise=None, mesh=None):
         if noise is None:
             if key is None:
                 raise ValueError('make_value_update_fn: pass either key= '
                                  '(fresh masks for this update) or noise= '
                                  "(the critic's dropout masks); both were "
                                  'None')
-            noise = V.sample_noise(key, (states.shape[1],),
-                                   device=states.device)
+            B = states.shape[1] * (1 if mesh is None else mesh.size)
+            noise = V.sample_noise(key, (B,), device=states.device)
+            if mesh is not None:  # drawn for the global batch: the slice
+                noise = shard_particles(noise, mesh)
         w = device_constant(tuple(float(x) for x in w_t), rewards.device,
                             rewards.dtype)
         returns = torch.sum(rewards[:H].detach() * w[:, None, None], 0)
         return core(params, target_params, opt_state, stats,
-                    states[0].detach(), states[H].detach(), returns, noise)
+                    states[0].detach(), states[H].detach(), returns, noise,
+                    mesh)
 
     update.core = core
     update.spec = V

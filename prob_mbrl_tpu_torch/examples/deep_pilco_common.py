@@ -21,8 +21,8 @@ particles and the fit's minibatches split over them, the params and the
 experience are replicated. Rank 0 alone acts in the real env and broadcasts
 the episode to the others, and rank 0 alone prints, writes the checkpoints
 and the writer's logs. After each episode's policy optimization the ranks'
-dynamics and policy params must hold the same bits; the driver raises if
-they do not.
+dynamics and policy params (and the critic's state) must hold the same
+bits; the driver raises if they do not.
 """
 import atexit
 import functools
@@ -43,7 +43,7 @@ from ..utils.checkpoint import load_checkpoint, save_checkpoint, save_pytree
 from ..utils.core import resolve_device, tree_leaves, tree_map
 from ..utils.experience import ExperienceDataset
 from ..utils.experiments import (get_argument_parser, init_env,
-                                 init_output_folder, refuse_unported)
+                                 init_output_folder)
 from ..utils.train_regressor import train_regressor
 
 _INIT, _FIT, _POL = 0xD1, 0xD2, 0xD3
@@ -176,7 +176,6 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
 
     Returns (real returns per episode, results folder), rank 0's.
     """
-    refuse_unported(args, use_value)
     n_dev = args.n_devices or 1
     if n_dev > 1:
         for flag in ('pol_batch_size', 'dyn_batch_size'):
@@ -376,7 +375,7 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
             verbose=args.debug and lead, mesh=mesh)
         pol_s = time.perf_counter() - t0
         if mesh is not None and not parallel.same_on_every_rank(
-                (dyn_params, pol_params), mesh):
+                (dyn_params, pol_params, value_state), mesh):
             raise RuntimeError(f'episode {ps_it}: the ranks\' params differ '
                                '(they take the same steps on the same '
                                'all-reduced grads and must hold the same '

@@ -392,8 +392,24 @@ def reward_kind(rf):
                  if isinstance(rf, kind)), None)
 
 
-CRITIC_MESH_ITEM = ('ROADMAP.md Queue 1: Parallel: the critic under '
-                    'particle sharding')
+# JAX's rules for a particle mesh (ops/pallas/fused_rollout.py:1788-1794),
+# whose configurations its XLA path runs under GSPMD, as the port's
+# utils.rollout route runs them over the ranks
+CRITIC_ON_A_MESH = ('a critic under a particle mesh takes the utils.rollout '
+                    'route: JAX gives a value update no fused tier there (a '
+                    "per-shard refit would let the critic's replicas drift "
+                    'apart, fused_rollout.py:1792-1794), and a fixed '
+                    "critic's bootstrap is only on the grid tier, which K8 "
+                    'does not run')
+
+
+def _straddling(groups, mesh):
+    """Why MM groups that straddle the ranks' slices take no fused tier."""
+    return (f"mm_groups={groups} straddle the {mesh.size} ranks' particle "
+            'slices: as in JAX (fused_rollout.py:1788-1791), only groups '
+            'that split over the ranks (per-shard MM is then the global MM) '
+            'take a fused tier; these take the utils.rollout route with '
+            'all-reduced group sums')
 MODEL_OPTIONS_ITEM = 'ROADMAP.md Queue 2: the model options of rows 3-9'
 
 
@@ -403,6 +419,8 @@ def _local_config(cfg, mesh):
     both."""
     if mesh is None:
         return cfg
+    if mesh.straddles(cfg.mm_groups):
+        raise ValueError(_straddling(cfg.mm_groups, mesh))
     lo, hi = mesh.bounds(cfg.n_particles)
     return dataclasses.replace(cfg, n_particles=hi - lo,
                                mm_groups=mesh.local_groups(cfg.mm_groups))
@@ -415,22 +433,21 @@ def refuses(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None):
     ``mesh`` (``parallel.sharding.Mesh``) JAX's conditions (``:1780-1794``):
     the ranks split B, MM needs groups that split over them (each rank's
     groups are then all of its particles' groups, and the kernel needs no
-    collective), no critic; the rest is asked of one rank's slice, B / n
-    particles in G / n groups."""
+    collective), no critic (``CRITIC_ON_A_MESH``); the rest is asked of one
+    rank's slice, B / n particles in G / n groups."""
     if mesh is not None:
         n = getattr(mesh, 'size', None)
         if not isinstance(n, int) or n < 1:
             return 'the mesh must be a parallel.sharding.Mesh'
         if value_update is not None or value_spec is not None:
-            return ('a critic under a particle mesh is not ported yet '
-                    f'({CRITIC_MESH_ITEM})')
+            return CRITIC_ON_A_MESH
         if (cfg.mm_states or cfg.mm_rewards) and not cfg.mm_groups:
             return (f'moment matching over {n} ranks needs MM groups that '
                     'split over them; ungrouped MM takes the global '
                     'moments on the utils.rollout route')
         try:
             cfg = _local_config(cfg, mesh)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             return str(e)
     if value_update is not None:
         # JAX's conditions (fused_rollout.py:1800-1808)
@@ -1769,10 +1786,13 @@ def make_fused_sharded_value_and_grad(dyn, pol, steps, w_t, mm_states,
     loss, mean_return and the policy grads in ONE all-reduce of a flat
     buffer (``parallel.sharding.mean_all_reduce``). The shards are equal, so
     the mean of their means is the global mean, and the groups lie within
-    the shards, so the rollout needs no collective. No critic (a per-rank
-    refit would let the critics' replicas drift apart; ``refuses``).
+    the shards, so the rollout needs no collective (groups that straddle
+    them raise ``ValueError``). No critic (``CRITIC_ON_A_MESH``; a critic
+    in ``extras`` raises ``ValueError``).
     ``vg(*loss_args) -> (loss, mean_return, grads, ())`` as
     ``make_fused_value_and_grad``'s, the same on every rank."""
+    if mesh.straddles(mm_groups):
+        raise ValueError(_straddling(mm_groups, mesh))
     local_vg = make_fused_value_and_grad(
         dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
         mm_groups=mesh.local_groups(mm_groups), mode=mode,
@@ -1781,8 +1801,7 @@ def make_fused_sharded_value_and_grad(dyn, pol, steps, w_t, mm_states,
     def fused_vg(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
                  z_mm_t, z_rr_t, action_eps=None, extras=()):
         if extras:
-            raise NotImplementedError('a critic under a particle mesh is not '
-                                      f'ported yet ({CRITIC_MESH_ITEM})')
+            raise ValueError(f'K8 takes no critic: {CRITIC_ON_A_MESH}')
         loss, mret, grads, _ = local_vg(pol_params, x0, dyn_params,
                                         dyn_stats, dyn_noise, pol_noise,
                                         z_mm_t, z_rr_t, action_eps)

@@ -15,7 +15,15 @@ ranks: the mean of the ranks' gradients is the gradient
 Grouped moment matching on the ``utils.rollout`` route factors each rank's
 groups itself, with the one jitter ``safe_cholesky`` shares over a batch
 chosen over every rank's groups (``safe_cholesky_sharded``), as the
-unsharded route chooses it over all of them.
+unsharded route chooses it over all of them. Groups that straddle the
+ranks' slices, and the infer-noise resample, take each group's moments from
+sums all-reduced over the ranks (``mm_resample_global_groups``): every rank
+then holds all G groups' (m, L) and rebuilds its own rows.
+
+Orthogonal mixing whose groups do not lie within one rank's slice mixes the
+whole cloud: ``gather_particles`` is a differentiable all-gather, whose
+backward is the rank's slice of the all-reduced cotangent (JAX's transpose
+of ``all_gather``), the convention of ``psum``.
 """
 import torch
 
@@ -34,6 +42,26 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce_(g.detach().clone().contiguous(), ctx.mesh), None
+
+
+class _Gather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.n = mesh, axis, x.shape[axis]
+        return all_gather(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_(g.detach().clone().contiguous(), ctx.mesh)
+        lo = ctx.mesh.rank * ctx.n
+        return g.narrow(ctx.axis, lo, ctx.n), None, None
+
+
+def gather_particles(x, mesh, axis=-2):
+    """Every rank's slice of ``x`` along the particle ``axis``, concatenated
+    in rank order (the global batch), on every rank; differentiable."""
+    return _Gather.apply(x, mesh, axis % x.dim())
 
 
 def psum(x, mesh):
@@ -102,3 +130,51 @@ def mm_resample_groups_psum(samples, z, mesh, jitter=1e-12):
     m, S = particle_moments(samples)
     L = safe_cholesky_sharded(S, mesh, jitter)
     return m + standardize_noise(z).detach() @ L.transpose(-1, -2)
+
+
+def _group_rows(samples, groups, mesh):
+    """(the global group of each of this rank's rows of ``samples``
+    [..., b, D], their one-hot [b, G] matrix, the group size) for ``groups``
+    contiguous groups over the ranks' b * n rows."""
+    b = samples.shape[-2]
+    lo, dev = mesh.rank * b, samples.device
+    size = b * mesh.size // groups
+    gid = torch.arange(lo, lo + b, device=dev) // size
+    onehot = gid[:, None] == torch.arange(groups, device=dev)
+    return gid, onehot.to(samples.dtype), size
+
+
+def group_means_psum(samples, groups, mesh):
+    """Each of ``groups`` contiguous groups' mean over a particle axis (-2)
+    split over the ranks, whatever the split: [..., G, D] from the rows'
+    one-hot sums all-reduced, and the group of each of the rank's rows."""
+    gid, onehot, size = _group_rows(samples, groups, mesh)
+    return psum(onehot.T @ samples, mesh) / size, gid
+
+
+def mm_resample_global_groups(samples, z, groups, mesh, jitter=1e-12,
+                              infer=False):
+    """``ops.moment_matching.mm_resample`` (or, with ``infer``,
+    ``mm_resample_infer_ns``) per group, for ``groups`` contiguous groups of
+    the global batch that may straddle the ranks' slices (1: ungrouped).
+    ``samples`` [..., b, D] are this rank's rows and ``z`` [..., b, D] their
+    noise, standardized per global group (unused with ``infer``). Each
+    group's mean [..., G, D], then its unbiased covariance [..., G, D, D],
+    are sums all-reduced over the ranks; the one jitter of the batch is
+    chosen over all G groups (every rank holds them), as the unsharded
+    route chooses it; each rank rebuilds its rows with their group's (m, L):
+    ``m + L z`` or, inferring the noise, ``m + L n`` with ``L n = x - m``
+    solved on the rank's own deltas (JAX ``ops/moment_matching.py:67-82``),
+    ``n`` detached."""
+    m, gid = group_means_psum(samples, groups, mesh)
+    _, onehot, size = _group_rows(samples, groups, mesh)
+    m = m[..., gid, :]
+    d = samples - m
+    S = psum(torch.einsum('bg,...bd,...be->...gde', onehot, d, d),
+             mesh) / (size - 1.0)
+    L = safe_cholesky(S, initial_jitter=jitter)[..., gid, :, :]
+    if infer:
+        noise = torch.linalg.solve_triangular(L, d.unsqueeze(-1), upper=False)
+    else:
+        noise = z.unsqueeze(-1)
+    return m + (L @ noise.detach()).squeeze(-1)

@@ -38,8 +38,9 @@ def make_sharded_loss_fn(dyn, pol, steps, mesh, mm_states=False,
     global batch (each rank rolls its slice, as the in_specs of JAX's
     ``shard_map`` slice them) and z_mm [B, D] / z_rr [B, 1] the global MM
     banks, rolled one row a step modulo B. Ungrouped moment matching takes
-    the global moments (``mm_resample_psum``); ``mm_groups`` must split over
-    the ranks. The loss, the negated (with ``maximize``) discounted mean
+    the global moments (``mm_resample_psum``), and ``mm_groups`` groups
+    each their own (from all-reduced group sums where the groups straddle
+    the ranks). The loss, the negated (with ``maximize``) discounted mean
     return over the global batch, is the same on every rank; take its
     gradient with ``parallel.mm.sharded_grad``."""
     w_t, _ = discount_weights(discount, steps)

@@ -19,7 +19,7 @@ The ranks start with the ``spawn`` method (a forked child would inherit the
 parent's threads and CUDA state) and meet through a file in a temporary
 directory, so no TCP port is taken and two launches never race for one.
 
-``COLLECTIVES`` counts each rank's all-reduces since the last
+``COLLECTIVES`` counts each rank's all-reduces and all-gathers since the last
 ``reset_collective_counts()`` (``same_on_every_rank``'s check aside).
 """
 import dataclasses
@@ -39,8 +39,9 @@ from ..utils.core import tree_leaves, tree_map
 
 BACKENDS = ('nccl', 'gloo')
 
-# all-reduces of this process since the last reset_collective_counts()
-COLLECTIVES = {'all_reduce': 0}
+# all-reduces and all-gathers of this process since the last
+# reset_collective_counts()
+COLLECTIVES = {'all_reduce': 0, 'all_gather': 0}
 
 
 def reset_collective_counts():
@@ -67,17 +68,19 @@ class Mesh:
         k = n // self.size
         return self.rank * k, (self.rank + 1) * k
 
+    def straddles(self, groups):
+        """True when ``groups`` MM groups over the whole batch do not split
+        over the ranks, so that some group's rows lie on two ranks."""
+        return bool(groups) and groups % self.size != 0
+
     def local_groups(self, groups):
-        """This rank's MM groups of ``groups`` over the whole batch (None:
-        none): G / n, each group within one rank's slice; raises unless the
-        ranks split the groups."""
-        if not groups:
+        """This rank's MM groups of ``groups`` over the whole batch: G / n,
+        each group within one rank's slice, when the ranks split them; the
+        ``groups`` given (None: none) when they do not (``straddles``:
+        then each group's moments are sums over every rank's rows,
+        ``parallel.mm.mm_resample_global_groups``)."""
+        if not groups or self.straddles(groups):
             return groups
-        if groups % self.size:
-            raise NotImplementedError(
-                f"mm_groups={groups} straddle the {self.size} ranks' particle "
-                'slices: not ported yet (ROADMAP.md Queue 1: Parallel: the '
-                'rest of the sharded options)')
         return groups // self.size
 
 
@@ -148,15 +151,16 @@ def mean_all_reduce(tree, mesh):
     return tree_map(lambda t: means[id(t)], tree)
 
 
-def all_gather(t, mesh):
+def all_gather(t, mesh, axis=0):
     """Every rank's ``t`` (the same shape on each), concatenated along
-    axis 0 in rank order, on every rank; no gradient."""
-    t = t.detach().contiguous()
+    ``axis`` in rank order, on every rank; no gradient."""
+    COLLECTIVES['all_gather'] += 1
+    t = t.detach().movedim(axis, 0).contiguous()
     host = mesh.backend == 'gloo' and t.is_cuda
     src = t.cpu() if host else t  # staged through the host, as in _reduce
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(parts, src, group=mesh.group)
-    return torch.cat(parts).to(t.device)
+    return torch.cat(parts).to(t.device).movedim(0, axis)
 
 
 def _broadcast(t, mesh, src):

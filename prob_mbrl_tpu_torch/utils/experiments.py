@@ -1,9 +1,7 @@
 """Experiment scaffolding: shared flags, env construction, run folders
 (counterpart of ``prob_mbrl_tpu/utils/experiments.py``).
 
-Every flag keeps the JAX package's name and default. ``refuse_unported``
-raises for the flag values that need code the port does not have yet, naming
-the ``ROADMAP.md`` item that holds it.
+Every flag keeps the JAX package's name and default.
 """
 import argparse
 import datetime
@@ -108,20 +106,6 @@ def get_argument_parser(title=''):
                              "'experimental_mix' mixes them orthogonally "
                              '(the utils.rollout route)')
     return parser
-
-
-def refuse_unported(args, use_value=False):
-    """Raise ``NotImplementedError`` for a flag value that needs code the
-    port does not have yet (``use_value``: the driver refits a critic)."""
-    refused = [
-        (use_value and args.n_devices is not None and args.n_devices > 1,
-         '--n_devices > 1 with a critic (particle sharding of the value '
-         'bootstrap)', 'Parallel: the critic under particle sharding'),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f'{what} is not ported yet (ROADMAP.md Queue 1: {item})')
 
 
 def init_env(env_name, seed, device=None):

@@ -22,22 +22,32 @@ with ``value_fn`` the values [T+1, B, 1] (``rollout_with_values``) and with
 entry evaluates a fresh policy action at the last states.
 
 Under a particle mesh (``mesh``, ``parallel.sharding.Mesh``) each rank rolls
-its own slice of the particles: ungrouped moment matching takes the global
-moments (``parallel.mm.mm_resample_psum``), MM groups lie within a rank's
-slice, and the reward mean-only shortcut takes the global mean (JAX
-``parallel/rollout.py`` ``make_sharded_loss_fn``). The mixing and
-infer-noise resamples, per-step noise and ``q_fn`` are not ported under a
-mesh.
+its own slice of the particles and computes what the unsharded rollout does
+(JAX's GSPMD run of ``utils/rollout.py``; ``parallel/rollout.py``
+``make_sharded_loss_fn``):
+  * ungrouped Cholesky moment matching takes the global moments
+    (``parallel.mm.mm_resample_psum``), groups within a rank's slice their
+    own with the jitter chosen over every rank's groups, and groups that
+    straddle the slices, like the infer-noise resample, all-reduced group
+    sums (``parallel.mm.mm_resample_global_groups``); the reward mean-only
+    shortcut takes the global (group) means;
+  * the mixing mixes the groups within a rank's slice where they lie there,
+    else the whole cloud, gathered (``parallel.mm.gather_particles``), of
+    which each rank keeps its slice;
+  * per-step density noise is drawn for the global batch, in the unsharded
+    order, and each rank keeps its slice.
+JAX has no sharded ``q_fn`` (its ``utils.rollout`` takes no mesh, and it has
+no sharded MBDDPG), so ``q_fn`` under a mesh raises.
 """
 import numpy as np
 import torch
 
 from ..ops import moment_matching as mm
-from ..parallel.mm import mm_resample_groups_psum, mm_resample_psum, psum
+from ..parallel.mm import (gather_particles, group_means_psum,
+                           mm_resample_global_groups, mm_resample_groups_psum,
+                           mm_resample_psum, psum)
+from ..parallel.sharding import shard_particles
 from .core import tree_map
-
-SHARDED_OPTIONS_ITEM = ('ROADMAP.md Queue 1: Parallel: the rest of the '
-                        'sharded options')
 
 
 def _cyclic_index(steps, B, device):
@@ -55,14 +65,18 @@ def _resample(mesh):
     return lambda s, z, jitter: mm_resample_groups_psum(s, z, mesh, jitter)
 
 
-def _z_steps(z, steps, B, mesh, standardize):
+def _z_steps(z, steps, B, mesh, standardize, groups=None):
     """The [T, B_local, zD] rows of the fixed noise bank ``z`` [>=B, zD]
     each step takes (row (t + b) % B at step t; ``standardize``: the bank
-    standardized first, which commutes with the roll); under a mesh the
-    rank's columns of the global B."""
+    standardized first, which commutes with the roll; ``groups``: each
+    step's rows standardized per MM group); under a mesh the rank's
+    columns of the global B."""
     if standardize:
         z = mm.standardize_noise(z)
     z = z[_cyclic_index(steps, B, z.device)]
+    if groups:
+        z = mm.standardize_noise(z.reshape(steps, groups, -1, z.shape[-1]))
+        z = z.reshape(steps, B, -1)
     if mesh is None:
         return z
     lo, hi = mesh.bounds(B)
@@ -82,7 +96,19 @@ def pre_roll_mixing(U, steps):
     return torch.stack([torch.roll(U, t, dims=-2) for t in range(steps)])
 
 
-def _mm_mix(x, U, mm_groups, shift=None):
+def _mm_mix(x, U, mm_groups, shift=None, mesh=None):
+    """The mixing of the cloud ``x`` [..., B, D] (under a mesh the rank's
+    rows) by ``U`` ([B, B], or [G, B/G, B/G] per group): the rank's groups
+    with their own matrices where each lies within its slice, else the
+    gathered global cloud, of which the rank keeps its rows."""
+    if mesh is not None:
+        if mm_groups and not mesh.straddles(mm_groups):
+            g = mesh.local_groups(mm_groups)
+            return mm.grouped_mix(x, U[mesh.rank * g:(mesh.rank + 1) * g], g,
+                                  shift=shift)
+        b = x.shape[-2]
+        out = _mm_mix(gather_particles(x, mesh), U, mm_groups, shift)
+        return out.narrow(-2, mesh.rank * b, b)
     if mm_groups is not None:
         return mm.grouped_mix(x, U, mm_groups, shift=shift)
     return mm.mm_resample_mix(x, U, shift=shift)
@@ -92,12 +118,17 @@ def _mm_step(x, z, mm_groups, infer_noise_variables, mesh):
     """The Cholesky or infer-noise resample of one step's next states ``x``
     with that step's noise rows ``z`` (JAX ``utils/rollout.py:50-65``;
     grouped, one jitter shared over the groups)."""
+    if mesh is not None and (infer_noise_variables
+                             or mesh.straddles(mm_groups)):
+        return mm_resample_global_groups(x, z, mm_groups or 1, mesh,
+                                         infer=infer_noise_variables)
     if infer_noise_variables:
         if mm_groups is not None:
             return mm.grouped(mm.mm_resample_infer_ns, x, z, mm_groups)
         return mm.mm_resample_infer_ns(x, z)
     if mm_groups is not None:
-        return mm.grouped(_resample(mesh), x, z, mm_groups)
+        return mm.grouped(_resample(mesh), x, z, mesh.local_groups(mm_groups)
+                          if mesh is not None else mm_groups)
     if mesh is not None:
         return mm_resample_psum(x, z, mesh, standardized=True)
     return mm.mm_resample(x, z, standardized=True)
@@ -107,8 +138,8 @@ def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
                         mesh=None, infer_noise_variables=False,
                         mm_method='cholesky'):
     """Reward moment matching over the whole [T, B, 1] horizon at once
-    (``B`` the global batch; under ``mesh`` ``rewards`` is the rank's
-    [T, B / n, 1] and ``mm_groups`` its own groups).
+    (``B`` the global batch, ``mm_groups`` its groups; under ``mesh``
+    ``rewards`` is the rank's [T, B / n, 1]).
 
     ``mean_only``: for consumers that only reduce the resampled rewards with
     a plain particle mean. The standardized noise has exact zero particle
@@ -118,10 +149,15 @@ def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
     exactly too (``U 1 = 1``); under ``infer_noise_variables`` the shortcut
     is not taken (JAX ``utils/rollout.py:118``).
     """
+    D = rewards.shape[-1]
+    straddles = mesh is not None and mesh.straddles(mm_groups)
+    local = mm_groups if mesh is None else mesh.local_groups(mm_groups)
     if mean_only and not infer_noise_variables:
+        if straddles:
+            m, gid = group_means_psum(rewards, mm_groups, mesh)
+            return m[..., gid, :]
         if mm_groups is not None:
-            D = rewards.shape[-1]
-            g = rewards.reshape(steps, mm_groups, -1, D)
+            g = rewards.reshape(steps, local, -1, D)
             m = g.mean(-2, keepdim=True)
             return m.expand(g.shape).reshape(rewards.shape)
         if mesh is not None:
@@ -130,13 +166,17 @@ def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
         return rewards.mean(-2, keepdim=True).expand(rewards.shape)
     if mm_method == 'mix' and not infer_noise_variables:
         if _mix_is_per_step(z_rr, steps, mm_groups):
-            return torch.stack([_mm_mix(rewards[t], z_rr[t], mm_groups)
-                                for t in range(steps)])
+            return torch.stack([_mm_mix(rewards[t], z_rr[t], mm_groups,
+                                        mesh=mesh) for t in range(steps)])
         # one shared matrix: step t's mixed cloud rolled by t (= Pi^t U)
-        return torch.stack([_mm_mix(rewards[t], z_rr, mm_groups, shift=t)
-                            for t in range(steps)])
+        return torch.stack([_mm_mix(rewards[t], z_rr, mm_groups, shift=t,
+                                    mesh=mesh) for t in range(steps)])
+    if mesh is not None and (infer_noise_variables or straddles):
+        z = None if infer_noise_variables else _z_steps(
+            z_rr, steps, B, mesh, standardize=False, groups=mm_groups)
+        return mm_resample_global_groups(rewards, z, mm_groups or 1, mesh,
+                                         1e-12, infer=infer_noise_variables)
     if infer_noise_variables:
-        D = rewards.shape[-1]
         if mm_groups is None:
             return mm.mm_resample_infer_ns(rewards, None, 1e-12)
         out = mm.mm_resample_infer_ns(rewards.reshape(steps, mm_groups, -1, D),
@@ -147,10 +187,9 @@ def _mm_rewards_batched(rewards, z_rr, steps, B, mm_groups, mean_only=False,
         if mesh is not None:
             return mm_resample_psum(rewards, z, mesh, standardized=True)
         return mm.mm_resample(rewards, z, 1e-12, standardized=True)
-    D = rewards.shape[-1]
     z = _z_steps(z_rr, steps, B, mesh, standardize=False)
-    out = _resample(mesh)(rewards.reshape(steps, mm_groups, -1, D),
-                          z.reshape(steps, mm_groups, -1, z.shape[-1]), 1e-12)
+    out = _resample(mesh)(rewards.reshape(steps, local, -1, D),
+                          z.reshape(steps, local, -1, z.shape[-1]), 1e-12)
     return out.reshape(steps, -1, D)
 
 
@@ -216,10 +255,12 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         evaluated on each step's detached states and actions (action_eps
         included), and on the last states with a fresh policy action under
         ``pol_noise`` (JAX ``utils/rollout.py:309-311,336-341``).
-      mesh: a ``parallel.sharding.Mesh``: ``x0``, ``action_eps`` and the
-        noise dicts are this rank's slices of the B particles, ``z_mm`` /
-        ``z_rr`` the global banks (the roll wraps modulo the global B), and
-        the outputs the rank's slices.
+      mesh: a ``parallel.sharding.Mesh``: ``x0``, ``action_eps``, the noise
+        dicts and the density stacks given are this rank's slices of the B
+        particles (the stacks on axis 1), ``z_mm`` / ``z_rr`` the global
+        banks or mixings (the roll wraps modulo the global B), and the
+        outputs the rank's slices; ``mm_groups`` counts the global batch's
+        groups.
 
     Returns:
       (states [T+1, B, D], actions [T, B, U], rewards [T, B, 1]), then
@@ -229,15 +270,12 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
     if mm_method not in ('cholesky', 'mix'):
         raise ValueError(f'unknown mm_method {mm_method!r}')
     use_mix = mm_method == 'mix' and not infer_noise_variables
-    if mesh is not None and (use_mix or infer_noise_variables
-                             or resample_state_noise
-                             or resample_action_noise or q_fn is not None):
+    if mesh is not None and q_fn is not None:
         raise NotImplementedError(
-            'the mixing and infer-noise resamples, per-step noise and q_fn '
-            f'are not ported under particle sharding ({SHARDED_OPTIONS_ITEM})')
+            'q_fn under particle sharding: JAX has no sharded q_fn (its '
+            'utils.rollout takes no mesh, and it has no sharded MBDDPG)')
     B = x0.shape[0] * (1 if mesh is None else mesh.size)
     known_reward = dyn.reward_func is not None
-    local_groups = mm_groups if mesh is None else mesh.local_groups(mm_groups)
 
     want_dyn = resample_state_noise and dyn_density_steps is None
     want_pol = (resample_action_noise and pol_density_steps is None
@@ -246,9 +284,13 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         if generator is None:
             raise ValueError('a generator (or the density stacks) is needed '
                              'to resample the noise at every step')
+        # drawn for the global batch, in the unsharded order: the slice
         d_steps, p_steps = sample_density_steps(
             dyn, pol, steps, B, generator, x0.device, states=want_dyn,
             actions=want_pol)
+        if mesh is not None:
+            d_steps, p_steps = shard_particles((d_steps, p_steps), mesh,
+                                               axis=1)
         dyn_density_steps = d_steps if want_dyn else dyn_density_steps
         pol_density_steps = p_steps if want_pol else pol_density_steps
     if not resample_state_noise:
@@ -258,8 +300,12 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
 
     z_steps = None
     if mm_states and not use_mix and not infer_noise_variables:
-        # ungrouped: standardize once (commutes with the cyclic roll)
-        z_steps = _z_steps(z_mm, steps, B, mesh, standardize=mm_groups is None)
+        # ungrouped: standardize once (commutes with the cyclic roll); groups
+        # that straddle the ranks: per global group, before the slice
+        straddles = mesh is not None and mesh.straddles(mm_groups)
+        z_steps = _z_steps(z_mm, steps, B, mesh,
+                           standardize=mm_groups is None,
+                           groups=mm_groups if straddles else None)
     mix_steps = mm_states and use_mix and _mix_is_per_step(z_mm, steps,
                                                            mm_groups)
 
@@ -294,11 +340,12 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         if mm_states:
             if use_mix:
                 # per-step matrices, or the shared one's cloud rolled by t
-                nxt = (_mm_mix(nxt, z_mm[t], mm_groups) if mix_steps
-                       else _mm_mix(nxt, z_mm, mm_groups, shift=t))
+                nxt = (_mm_mix(nxt, z_mm[t], mm_groups, mesh=mesh)
+                       if mix_steps
+                       else _mm_mix(nxt, z_mm, mm_groups, shift=t, mesh=mesh))
             else:
                 nxt = _mm_step(nxt, None if z_steps is None else z_steps[t],
-                               local_groups, infer_noise_variables, mesh)
+                               mm_groups, infer_noise_variables, mesh)
         actions.append(a)
         states.append(nxt)
         s = nxt
@@ -311,7 +358,7 @@ def rollout(x0, dyn, pol, steps, dyn_params, dyn_stats, pol_params,
         rewards = torch.stack(rewards, 0)
     if mm_rewards:
         rewards = _mm_rewards_batched(
-            rewards, z_rr, steps, B, local_groups,
+            rewards, z_rr, steps, B, mm_groups,
             mean_only=mm_rewards_mean_only, mesh=mesh,
             infer_noise_variables=infer_noise_variables, mm_method=mm_method)
     result = [states, actions, rewards]

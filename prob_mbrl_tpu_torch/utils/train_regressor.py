@@ -28,12 +28,16 @@ the device until the end of the call: the loop reads nothing back.
   indices, weights and dropout noise for the global batch and keeps its
   slice of ``batchsize / n`` rows; the data loss, E_lml and the grads are
   averaged over the ranks in one all-reduce a step, and the dataset, params
-  and optimizer states are replicated.
+  and optimizer states are replicated. With prioritized sampling the
+  priority state is replicated too: the ranks' per-row log-probs are
+  gathered in minibatch order, and every rank applies the same update of the
+  priorities and counts for the global minibatch, as the unsharded fit
+  does.
 """
 import torch
 
 from ..ops.angles import to_complex
-from ..parallel.sharding import mean_all_reduce, shard_particles
+from ..parallel.sharding import all_gather, mean_all_reduce, shard_particles
 from .optim import SGD, Adam, loss_and_grads
 
 
@@ -75,8 +79,9 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
 
     With ``mesh`` the fit is data parallel over its ranks (the module's
     docstring): ``batchsize`` must split over them, ``x, y, noise, weights``
-    of ``train_step`` and ``value_and_grad`` are the rank's slices, and
-    their loss, Enlml and grads the ranks' means.
+    of ``train_step`` and ``value_and_grad`` are the rank's slices (``idx``
+    the global minibatch's rows), and their loss, Enlml and grads the ranks'
+    means.
     """
     density = reg.output_density
     if mesh is not None:
@@ -85,11 +90,6 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
                 f'make_train_fn: {mesh.size} ranks must divide batchsize '
                 f'{batchsize} (each rank takes an equal slice of every '
                 'minibatch)')
-        if prioritized_sampling:
-            raise NotImplementedError(
-                'prioritized sampling in a data-parallel fit is not ported '
-                'yet (ROADMAP.md Queue 1: Parallel: the rest of the sharded '
-                'options)')
     if decoupled_reg and reg_optimizer is None:
         reg_optimizer = SGD(1e-4)
 
@@ -130,7 +130,10 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
             params, reg_opt_state = reg_optimizer.step(rgrads, reg_opt_state,
                                                        params)
         if prioritized_sampling:
-            prio = _update_priorities(prio, idx, log_probs.detach())
+            log_probs = log_probs.detach()
+            if mesh is not None:  # the ranks' rows, in minibatch order
+                log_probs = all_gather(log_probs, mesh)
+            prio = _update_priorities(prio, idx, log_probs)
         return (params, opt_state, reg_opt_state, prio, loss,
                 -Enlml.detach())
 
@@ -186,11 +189,12 @@ def make_train_fn(reg, optimizer, batchsize=100, reg_weight=1.0,
             idx, weights = draw(prio, generator, n, device,
                                 warm=step0 + i < priority_warmup)
             noise = reg.sample_noise(generator, (batchsize,), device=device)
+            rows = idx
             if mesh is not None:  # drawn for the global batch: the slice
-                idx, weights, noise = shard_particles((idx, weights, noise),
-                                                      mesh)
+                rows, weights, noise = shard_particles((idx, weights, noise),
+                                                       mesh)
             params, opt_state, reg_opt_state, prio, loss, e_lml = train_step(
-                params, opt_state, Xn[idx], Yn[idx], noise, weights, n,
+                params, opt_state, Xn[rows], Yn[rows], noise, weights, n,
                 reg_opt_state, prio, idx)
             losses.append(loss)
             e_lmls.append(e_lml)

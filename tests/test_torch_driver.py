@@ -103,11 +103,13 @@ def test_the_other_entry_points_and_options_run(tmp_path, module, argv):
 
 @pytest.mark.parametrize('argv', [['--n_devices', '2']])
 def test_unported_flags_raise_naming_their_roadmap_item(tmp_path, argv):
-    # --n_devices runs on ranks (tests/test_torch_parallel.py); with the
-    # with-value driver's critic it is refused
+    # every flag is ported: --n_devices runs on ranks with the with-value
+    # driver's critic too (tests/test_torch_parallel_options.py); here a
+    # batch the ranks do not split is refused before any rank starts
     settings = deep_pilco_no_mm_with_value.SETTINGS
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
-        _run(settings, argv, tmp_path)
+    with pytest.raises(SystemExit, match='--pol_batch_size 9 must divide by '
+                                         '--n_devices 2'):
+        _run(settings, argv + ['--pol_batch_size', '9'], tmp_path)
     assert not os.path.exists(tmp_path / settings['name'])
 
 

@@ -282,25 +282,24 @@ def test_mc_pilco_host_loop_runs_and_updates(setup):
 
 def test_unported_options_raise(setup):
     """Under a particle mesh the four options of the utils.rollout route
-    raise naming ROADMAP.md Queue 1 item 11 (a mesh that only gives its
-    size: nothing is sent); so does the rollout under one, ``q_fn``
-    included, which runs without a mesh."""
+    build the optimizer on that route (a mesh that only gives its size:
+    nothing is sent; they run on gloo ranks in
+    ``tests/test_torch_parallel_options.py``), and the rollout under one
+    raises for ``q_fn`` alone, which JAX does not shard and which runs
+    without a mesh."""
     _, _, tdyn, tpol = setup['specs']
     mesh = tpar.Mesh(2, 0, None, torch.device('cpu'), 'gloo')
-    item = 'ROADMAP.md Queue 1: Parallel: the rest of the sharded options'
     for kw in (dict(pegasus=False), dict(mm_method='mix'),
                dict(infer_noise_variables=True), dict(with_priorities=True)):
-        tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu')
-        with pytest.raises(NotImplementedError, match=item):
-            tmc.make_mc_pilco_fn(tdyn, tpol, tmc.MCPILCOConfig(**kw), 'cpu',
-                                 mesh=mesh)
+        cfg = tmc.MCPILCOConfig(**kw)
+        for m in (None, mesh):
+            opt = tmc.make_mc_pilco_fn(tdyn, tpol, cfg, 'cpu', mesh=m)
+            assert opt.mode is None and opt.mesh is m
     tp, dp, st, (dn, pn, _, _) = _torch_inputs(setup)
     x0 = torch.tensor(setup['x0'])
-    for kw in (dict(mm_method='mix', mesh=mesh),
-               dict(q_fn=lambda s, a: s[:, :1], mesh=mesh),
-               dict(infer_noise_variables=True, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match=item):
-            t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn, **kw)
+    with pytest.raises(NotImplementedError, match='JAX has no sharded q_fn'):
+        t_rollout(x0[:B // 2], tdyn, tpol, T, dp, st, tp, dn, pn,
+                  q_fn=lambda s, a: s[:, :1], mesh=mesh)
     # q_fn is ported: Q-values of each step's states and actions, and of the
     # last states with a fresh policy action
     out = t_rollout(x0, tdyn, tpol, T, dp, st, tp, dn, pn,
@@ -397,14 +396,15 @@ def test_writer_verbose_and_optimizer_state_carry_across_calls(setup,
         tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp, opt_state=other,
                      opt_iters=1, **kw)
     # under a mesh (one that only gives its size: nothing is sent) CVaR,
-    # prioritized replay, non-PEGASUS noise and mixing are not ported yet
+    # prioritized replay, non-PEGASUS noise and mixing run (on gloo ranks:
+    # tests/test_torch_parallel_options.py); a batch the ranks do not split
+    # is refused before anything is drawn
     mesh = tpar.Mesh(2, 0, None, torch.device('cpu'), 'gloo')
-    for bad in (dict(cvar_eps=0.25), dict(prioritized_replay=True),
-                dict(pegasus=False), dict(mm_method='mix')):
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP.md Queue 1: Parallel: the rest'):
+    for opts in (dict(cvar_eps=0.25), dict(prioritized_replay=True),
+                 dict(pegasus=False), dict(mm_method='mix')):
+        with pytest.raises(ValueError, match='do not split over 2 ranks'):
             tmc.mc_pilco(pool, tdyn, tpol, T, dp, st, tp, opt_iters=1,
-                         mesh=mesh, **kw, **bad)
+                         mesh=mesh, **dict(kw, n_particles=B + 1), **opts)
 
 
 def test_agent_fit_dynamics_is_train_regressor_on_its_generator(setup):

@@ -22,7 +22,10 @@ Adam steps differ by at most that, so these hold closeness, not the
 gradients' scale). The port's sharded gradients are held in one call against
 its unsharded ones at n = 2 and 4, so a factor of n cannot hide (here for
 ``make_sharded_loss_fn``, in ``tests/test_torch_parallel_k8.py`` for K8, in
-``tests/test_torch_parallel_grads.py`` for ``MCPILCO.iteration``).
+``tests/test_torch_parallel_grads.py`` for ``MCPILCO.iteration``). The
+drivers run on two ranks: ``deep_pilco_mm`` with MM groups and
+``deep_pilco_no_mm_with_value`` with its critic, whose params end the same
+bits on both ranks.
 """
 import dataclasses
 import importlib
@@ -50,7 +53,8 @@ from prob_mbrl_tpu_torch.algorithms import mc_pilco as tmc
 from prob_mbrl_tpu_torch.convert import (adam_state_from_jax, noise_from_jax,
                                          params_from_jax)
 from prob_mbrl_tpu_torch.examples import deep_pilco_common as dpc
-from prob_mbrl_tpu_torch.examples import deep_pilco_mm
+from prob_mbrl_tpu_torch.examples import (deep_pilco_mm,
+                                          deep_pilco_no_mm_with_value)
 from prob_mbrl_tpu_torch.ops.cuda import fused_rollout as tfr
 from prob_mbrl_tpu_torch.parallel.dryrun import dryrun_multichip
 from prob_mbrl_tpu_torch.utils import checkpoint as tck
@@ -261,7 +265,7 @@ def test_the_gate_takes_jax_mesh_conditions():
     :796-809``) with the port's reasons: shard-aligned groups or no MM are
     taken and sized on one rank's slice; ungrouped MM, groups that straddle
     the ranks, a batch they do not split, a critic and a bogus mesh are
-    refused."""
+    refused, the last three with JAX's reasons."""
     from prob_mbrl_tpu_torch import models as tm
     from prob_mbrl_tpu_torch.envs.cartpole import cartpole_reward
     tdyn, tpol = ranks_fns.specs(tm, cartpole_reward)
@@ -280,17 +284,18 @@ def test_the_gate_takes_jax_mesh_conditions():
     assert 'do not split over 4 ranks' in tfr.refuses(odd, tdyn, tpol, None,
                                                       mesh)
     grp6 = cfg(n_particles=96, mm_groups=6, **base)
-    assert 'mm_groups=6' in tfr.refuses(grp6, tdyn, tpol, None, mesh)
+    why = tfr.refuses(grp6, tdyn, tpol, None, mesh)
+    assert 'mm_groups=6 straddle' in why and '1788-1791' in why
     assert 'parallel.sharding.Mesh' in tfr.refuses(ok, tdyn, tpol, None,
                                                    object())
-    # a critic under a mesh stays refused, with its ROADMAP item
+    # a critic under a mesh stays refused, with JAX's rule
     from test_torch_value import critic_specs
     from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
     _, tV = critic_specs(False)
     upd = make_value_update_fn(tV, Adam(1e-3), 15, use_density=False)
     for kw in (dict(value_update=upd, value_spec=tV), dict(value_spec=tV)):
         why = tfr.refuses(nomm, tdyn, tpol, mesh=mesh, **kw)
-        assert 'Parallel: the critic under particle sharding' in why
+        assert why == tfr.CRITIC_ON_A_MESH and '1792-1794' in why
     # the rank's slice decides the groups' size: groups of one are refused
     pairs = cfg(n_particles=16, mm_groups=16, **base)
     assert 'groups of one' in tfr.refuses(pairs, tdyn, tpol, None,
@@ -301,9 +306,10 @@ def test_the_gate_takes_jax_mesh_conditions():
 
 
 def test_a_critic_or_cvar_under_a_mesh_raises_naming_its_item():
-    """A value update, a fixed critic or CVaR under a mesh raise
-    ``NotImplementedError`` naming their ``ROADMAP.md`` item, from
-    ``MCPILCO``, ``mc_pilco`` and K8."""
+    """A value update, a fixed critic and CVaR under a mesh build
+    ``MCPILCO`` on the ``utils.rollout`` route (JAX's XLA path); K8 raises
+    for a critic and for groups that straddle the ranks, naming JAX's rule,
+    and the optimizer and the fit for a batch the ranks do not split."""
     from prob_mbrl_tpu_torch import models as tm
     from prob_mbrl_tpu_torch.envs.cartpole import cartpole_reward
     from test_torch_value import critic_specs
@@ -312,29 +318,24 @@ def test_a_critic_or_cvar_under_a_mesh_raises_naming_its_item():
     _, tV = critic_specs(False)
     upd = make_value_update_fn(tV, Adam(1e-3), T, use_density=False)
     mesh = _fake_mesh(2)
-    cfg = tmc.MCPILCOConfig(n_particles=B, steps=T)
-    item = 'ROADMAP.md Queue 1: Parallel: the critic under particle sharding'
+    cfg = tmc.MCPILCOConfig(n_particles=B, steps=T, fused_rollout=None)
     for kw in (dict(value_spec=tV, value_update=upd), dict(value_spec=tV)):
-        with pytest.raises(NotImplementedError, match=item):
-            tmc.make_mc_pilco_fn(tdyn, tpol, cfg, 'cpu', mesh=mesh, **kw)
-    vp = tV.init(torch.Generator().manual_seed(0), device='cpu')
-    state = dict(params=vp, target=vp, opt_state=upd.optimizer.init(vp))
-    pool = torch.zeros((4, D))
-    pp = tpol.init(torch.Generator().manual_seed(1), device='cpu')
-    with pytest.raises(NotImplementedError, match=item):
-        tmc.mc_pilco(pool, tdyn, tpol, T, None, None, pp, opt_iters=1,
-                     n_particles=B, value_spec=tV, value_update_fn=upd,
-                     value_state=state, mesh=mesh)
-    with pytest.raises(NotImplementedError, match='Parallel: the rest'):
-        tmc.make_mc_pilco_fn(tdyn, tpol, dataclasses.replace(
-            cfg, cvar_eps=0.25), 'cpu', mesh=mesh)
+        opt = tmc.make_mc_pilco_fn(tdyn, tpol, cfg, 'cuda', mesh=mesh, **kw)
+        assert opt.mode is None and opt.value_spec is tV
+    assert tmc.make_mc_pilco_fn(tdyn, tpol, dataclasses.replace(
+        cfg, cvar_eps=0.25), 'cpu', mesh=mesh).mode is None
     with pytest.raises(ValueError, match='do not split'):
         tmc.make_mc_pilco_fn(tdyn, tpol, dataclasses.replace(
             cfg, n_particles=B + 1), 'cpu', mesh=mesh)
     vg = tfr.make_fused_sharded_value_and_grad(
         tdyn, tpol, T, np.ones(T, np.float32) / T, False, False, True, mesh)
-    with pytest.raises(NotImplementedError, match=item):
+    pp = tpol.init(torch.Generator().manual_seed(1), device='cpu')
+    with pytest.raises(ValueError, match='K8 takes no critic.*1792-1794'):
         vg(pp, *([None] * 7), None, extras=(1, 2, 3, 4, 5))
+    with pytest.raises(ValueError, match='mm_groups=3 straddle'):
+        tfr.make_fused_sharded_value_and_grad(
+            tdyn, tpol, T, np.ones(T, np.float32) / T, True, True, True,
+            mesh, mm_groups=3)
     with pytest.raises(ValueError, match='must divide batchsize'):
         ttr.make_train_fn(ranks_fns.regressor(), Adam(1e-3), batchsize=15,
                           mesh=mesh)
@@ -455,3 +456,33 @@ def test_the_driver_runs_on_two_gloo_ranks(tmp_path):
     with pytest.raises(SystemExit, match='--pol_batch_size 8 must divide'):
         dpc.main(**deep_pilco_mm.SETTINGS, argv=tiny + [
             '--n_devices', '3', '-o', str(tmp_path / 'odd')], device='cpu')
+
+
+def test_the_with_value_driver_runs_on_two_gloo_ranks(tmp_path, ranks):
+    """``deep_pilco_no_mm_with_value --n_devices 2`` at the driver tests'
+    tiny size: the critic's params (and the policy's, the dynamics' and the
+    critic's Adam state) the same bits on both ranks after the episode, the
+    critic's within 2 lr an iteration of the unsharded run's on the same
+    seed, and rank 0 alone writing the checkpoint."""
+    argv = ['--control_H', '10', '--pred_H', '5', '--dyn_opt_iters', '20',
+            '--pol_opt_iters', '5', '--dyn_shape', '16,16', '--pol_shape',
+            '16,16', '--val_shape', '16,16', '--pol_batch_size', '8',
+            '--dyn_batch_size', '16', '--dyn_lr', '1e-3', '--ps_iters', '1']
+    settings = deep_pilco_no_mm_with_value.SETTINGS
+    outs = ranks(2).run(ranks_fns.with_value_driver, settings, argv + [
+        '--n_devices', '2', '--dist_backend', 'gloo'],
+        str(tmp_path / 'sharded'))
+    (r0_critic, r0_checked, folder), (r1_critic, r1_checked, _) = outs
+    for a, b in zip(tree_leaves(r0_checked), tree_leaves(r1_checked)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tree_leaves(r0_critic), tree_leaves(r1_critic)):
+        np.testing.assert_array_equal(a, b)
+    written = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / 'sharded')
+               for f in fs if f == 'latest_critic.pkl']
+    assert written == [os.path.join(folder, 'latest_critic.pkl')]
+    _, single = dpc.main(**settings, argv=argv + [
+        '-o', str(tmp_path / 'single')], device='cpu')
+    ref = tck.load_checkpoint(single, device='cpu')['critic']
+    lr = 1e-4  # the driver's default --val_lr
+    for a, b in zip(tree_leaves(r0_critic), tree_leaves(ref)):
+        np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=2 * lr * 5)

@@ -15,7 +15,7 @@ import torch
 from prob_mbrl_tpu_torch import models as tm
 from prob_mbrl_tpu_torch import parallel
 from prob_mbrl_tpu_torch.algorithms import mc_pilco as tmc
-from prob_mbrl_tpu_torch.algorithms.value import Adam
+from prob_mbrl_tpu_torch.algorithms.value import Adam, make_value_update_fn
 from prob_mbrl_tpu_torch.convert import (noise_from_jax, params_from_jax,
                                          params_to_numpy)
 from prob_mbrl_tpu_torch.envs.cartpole import cartpole_reward
@@ -227,3 +227,250 @@ def fit_steps(mesh, data, state, draws, lr, batchsize):
         e_lmls.append(float(e_lml))
     return (losses, e_lmls, params_to_numpy(params),
             parallel.same_on_every_rank(params, mesh))
+
+
+def critic(mod=tm):
+    """The with-value driver's critic at the tests' widths: a [16, 16]
+    concrete-dropout MLP on the D states with a plain output (MSE TD(H))."""
+    return mod.Regressor(mod.MLPSpec(D, 1, HID, dropout=mod.cdropout(0.1)),
+                         None)
+
+
+def _critic_args(c, dev):
+    """The port's critic, its update and the ``MCPILCO`` keywords of a
+    critic dict ``c`` of numpy trees: ``{'kind': 'fixed', 'params',
+    'stats'}`` or ``{'kind': 'update', 'params', 'target', 'opt_state'
+    (the port's AdamState as numpy trees, or None for a fresh one),
+    'stats', 'lr', 'polyak'}``."""
+    V = critic()
+    stats = params_from_jax(c['stats'], dev)
+    if c['kind'] == 'fixed':
+        return V, None, dict(value_params=params_from_jax(c['params'], dev),
+                             value_stats=stats), None
+    upd = value_update_fn(V, c)
+    params = params_from_jax(c['params'], dev)
+    opt = (upd.optimizer.init(params) if c.get('opt_state') is None else
+           c['opt_state'])
+    carry = (params, params_from_jax(c['target'], dev), opt)
+    return V, upd, dict(value_stats=stats), carry
+
+
+def value_update_fn(V, c):
+    """The port's TD(H) update of the critic dict ``c`` (discount 0.9, MSE,
+    Adam)."""
+    return make_value_update_fn(V, Adam(c['lr']), c['H'], discount=0.9,
+                                use_density=False, polyak=c['polyak'])
+
+
+def options_calls(mesh, s, cfg_kw, c, iters, seed=3, lr=1e-2):
+    """``MCPILCO.__call__`` with ``mesh`` (None: unsharded) on the port's
+    own draws from ``seed`` and the pool ``s['pool']``, SGD at ``lr``: one
+    iteration, whose gradients (``p.grad``, handed to the optimizer) are
+    kept, then ``iters - 1`` more in a second call (the draws are keyed by
+    the global step). ``c``: None or a critic dict (``_critic_args``).
+    Returns a dict: losses, mean returns, v_losses and priority scores of
+    every iteration, the first one's grads, the final policy (and critic)
+    params, the rank's all-reduces and all-gathers over the calls, whether
+    the params' (and the critic state's) bits agree over the ranks, and
+    the tier."""
+    if mesh is not None:
+        _no_jax()
+    dyn, pol = specs()
+    t = _inputs(s, 'cpu')
+    V, upd, v_kw, carry = (None, None, {}, None) if c is None else \
+        _critic_args(c, 'cpu')
+    state = None if carry is None else dict(zip(('params', 'target',
+                                                 'opt_state'), carry))
+    opt = tmc.make_mc_pilco_fn(dyn, pol, tmc.MCPILCOConfig(**cfg_kw), 'cpu',
+                               value_spec=V, value_update=upd, mesh=mesh)
+    leaves = tree_leaves(t['pol_params'])
+    sgd = torch.optim.SGD(leaves, lr=lr)
+    parallel.reset_collective_counts()
+    runs, grads, n = [], None, 0
+    for k in (1, iters - 1):
+        m, n = opt(t['pol_params'], sgd, t['dyn_params'], t['stats'],
+                   torch.tensor(s['pool']), seed, n, k, value_state=state,
+                   **v_kw)
+        runs.append(m)
+        grads = grads or _np([p.grad for p in leaves])
+    cat = {k: np.concatenate([r[k].numpy() for r in runs]) for k in runs[0]}
+    kept = (t['pol_params'], state)
+    return dict(
+        losses=cat['loss'], rets=cat['mean_return'],
+        v_losses=cat.get('v_loss'), scores=cat.get('priority_scores'),
+        grads=grads, params=params_to_numpy(t['pol_params']),
+        critic=None if state is None else params_to_numpy(state['params']),
+        all_reduce=parallel.COLLECTIVES['all_reduce'],
+        all_gather=parallel.COLLECTIVES['all_gather'],
+        same=mesh is None or parallel.same_on_every_rank(kept, mesh),
+        tier=opt.tier('cpu'))
+
+
+def options_draws(mesh, s, cfg_kw, c, draws, lr):
+    """``MCPILCO.iteration`` with ``mesh`` (None: unsharded) over the
+    iterations of ``draws`` (JAX's, as numpy: each a dict of the global
+    ``x0``, the iteration's ``noise`` as drawn (its epoch's or, without
+    PEGASUS, its own) and, without PEGASUS, the global per-step density
+    stacks ``steps``), SGD at ``lr``: losses, mean returns, v_losses and
+    priority scores, the final policy (and critic) params, their bits the
+    same on every rank, and the tier."""
+    if mesh is not None:
+        _no_jax()
+    dyn, pol = specs()
+    t = _inputs(s, 'cpu')
+    V, upd, v_kw, carry = (None, None, {}, None) if c is None else \
+        _critic_args(c, 'cpu')
+    opt = tmc.make_mc_pilco_fn(dyn, pol, tmc.MCPILCOConfig(**cfg_kw), 'cpu',
+                               value_spec=V, value_update=upd, mesh=mesh)
+
+    def rows(x, axis=0):
+        return x if mesh is None else parallel.shard_particles(x, mesh, axis)
+
+    sgd = torch.optim.SGD(tree_leaves(t['pol_params']), lr=lr)
+    out = dict(losses=[], rets=[], v_losses=[], scores=[])
+    for d in draws:
+        opt.sample_x0 = lambda *a, x0=torch.tensor(d['x0']), **k: rows(x0)
+        steps = d.get('steps')
+        if steps is not None:
+            steps = tuple(noise_from_jax(x, 'cpu') for x in steps)
+        opt.sample_step_noise = lambda *a, st=steps: (
+            None if st is None else rows(st, axis=1))
+        noise = opt.prepare_noise(tuple(noise_from_jax(x, 'cpu')
+                                        for x in d['noise']), 'cpu')
+        res = opt.iteration(t['pol_params'], sgd, t['dyn_params'],
+                            t['stats'], None, noise, None, value_carry=carry,
+                            **v_kw)
+        out['losses'].append(float(res[0]))
+        out['rets'].append(float(res[1]))
+        if upd is not None:
+            out['v_losses'].append(float(res[2]))
+            carry = res[3]
+        if cfg_kw.get('with_priorities'):
+            out['scores'].append(res[-1].numpy())
+    out.update(params=params_to_numpy(t['pol_params']),
+               critic=None if carry is None else params_to_numpy(carry[0]),
+               same=mesh is None or parallel.same_on_every_rank(
+                   (t['pol_params'], carry), mesh),
+               tier=opt.tier('cpu'))
+    return out
+
+
+def cvar_pick(mesh, returns, eps):
+    """``mc_pilco.cvar_select`` on the rank's slice of ``returns``: the
+    rank's selected returns, k and the global indices kept."""
+    _no_jax()
+    sel, k, idx = tmc.cvar_select(parallel.shard_particles(
+        torch.tensor(returns), mesh), eps, mesh)
+    return sel.numpy(), k, idx.numpy()
+
+
+def prioritized_fit(mesh, data, draws, lr, batchsize, warmup):
+    """The data-parallel fit with prioritized sampling (``make_train_fn(
+    mesh=, prioritized_sampling=True)``; ``mesh`` None: unsharded) on the
+    global draws ``(idx, noise)`` of each step (JAX's): the weights of the
+    rows from the port's priority state, the rank's slices of rows, weights
+    and noise, the global idx for the priorities. Returns the losses, E_lml,
+    the final params and priority state, and whether both hold the same
+    bits on every rank."""
+    if mesh is not None:
+        _no_jax()
+    train = ttr.make_train_fn(regressor(), Adam(lr), batchsize, mesh=mesh,
+                              prioritized_sampling=True,
+                              priority_warmup=warmup)
+    params = params_from_jax(data['params'], 'cpu')
+    state = Adam(lr).init(params)
+    Xn, Yn = torch.tensor(data['Xn']), torch.tensor(data['Yn'])
+    n = Xn.shape[0]
+    prio = ttr.init_priority_state(n)
+    losses, e_lmls = [], []
+    for i, (idx, noise) in enumerate(draws):
+        idx = torch.tensor(idx, dtype=torch.int64)
+        _, w = train.draw(prio, None, n, 'cpu', warm=i < warmup, idx=idx)
+        rows, w, noise = idx, w, noise_from_jax(noise, 'cpu')
+        if mesh is not None:
+            rows, w, noise = parallel.shard_particles((rows, w, noise), mesh)
+        params, state, _, prio, loss, e_lml = train.train_step(
+            params, state, Xn[rows], Yn[rows], noise, w, n, None, prio, idx)
+        losses.append(float(loss))
+        e_lmls.append(float(e_lml))
+    return (losses, e_lmls, params_to_numpy(params),
+            {k: v.numpy() for k, v in prio.items()},
+            mesh is None or parallel.same_on_every_rank((params, prio), mesh))
+
+
+def prioritized_train(mesh, data, lr, batchsize, warmup, iters, seed):
+    """``make_train_fn(mesh=, prioritized_sampling=True)``'s ``train`` on
+    its own draws from ``seed`` (``mesh`` None: unsharded): the losses, the
+    final params and priority state, whether they agree over the ranks."""
+    if mesh is not None:
+        _no_jax()
+    train = ttr.make_train_fn(regressor(), Adam(lr), batchsize, mesh=mesh,
+                              prioritized_sampling=True,
+                              priority_warmup=warmup)
+    params = params_from_jax(data['params'], 'cpu')
+    params, _, metrics, aux = train(
+        params, Adam(lr).init(params), torch.tensor(data['Xn']),
+        torch.tensor(data['Yn']), tmc.seeded_generator('cpu', seed), iters)
+    prio = aux['priority_state']
+    return (metrics['loss'], params_to_numpy(params),
+            {k: v.numpy() for k, v in prio.items()},
+            mesh is None or parallel.same_on_every_rank((params, prio), mesh))
+
+
+def replay_run(mesh, s, kw):
+    """``mc_pilco`` with prioritized replay and ``mesh`` (None: unsharded)
+    on the pool ``s['pool']`` with the keywords ``kw``: the leaf indices
+    and pools its sum tree drew for each chunk and the priority scores."""
+    if mesh is not None:
+        _no_jax()
+    from prob_mbrl_tpu_torch import native
+    dyn, pol = specs()
+    t = _inputs(s, 'cpu')
+    drawn = dict(idxs=[], pools=[])
+    real = native.make_sum_tree
+
+    def make_tree(*a, **k):
+        tree = real(*a, **k)
+        sample = tree.sample
+
+        def spy(*a, **k):
+            samples, idxs, w = sample(*a, **k)
+            drawn['idxs'].append(np.asarray(idxs))
+            drawn['pools'].append(np.stack(samples))
+            return samples, idxs, w
+
+        tree.sample = spy
+        return tree
+
+    native.make_sum_tree = make_tree
+    try:
+        _, _, metrics, _ = tmc.mc_pilco(
+            torch.tensor(s['pool']), dyn, pol, 3, t['dyn_params'],
+            t['stats'], t['pol_params'], mesh=mesh, **kw)
+    finally:
+        native.make_sum_tree = real
+    return dict(drawn, scores=metrics['priority_scores'])
+
+
+def with_value_driver(mesh, settings, argv, out):
+    """The with-value driver's ``main`` on this rank of ``mesh``: the
+    critic's final params and the tree of params the driver checks over the
+    ranks (dynamics, policy, the critic's state), as numpy, and the results
+    folder."""
+    _no_jax()
+    from prob_mbrl_tpu_torch.examples import deep_pilco_common as dpc
+    checked = []
+    real = parallel.same_on_every_rank
+
+    def spy(tree, m):
+        checked.append(params_to_numpy(tree))
+        return real(tree, m)
+
+    parallel.same_on_every_rank = spy
+    try:
+        _, folder = dpc.main(**settings, argv=argv + ['-o', out],
+                             device='cpu', mesh=mesh)
+    finally:
+        parallel.same_on_every_rank = real
+    critic = checked[-1][2]['params']
+    return critic, checked[-1], folder
