@@ -274,6 +274,7 @@ every count set to 0 just before the run.
 It imports nothing of JAX and nothing of the JAX package.
 """
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -399,8 +400,24 @@ ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous',
 REL_TOL = 1e-4
 STEP_TOL = 1e-3
 
+# phase 2o: the model options rows 3-9 take (build_models' options): B1
+# spectral norm, B2 input dropout and output nonlinearities, B3 angle
+# embedding inside the models, and all three
+OPTION_SETS = {'B1': ('sn',), 'B2': ('drop',), 'B3': ('ang',),
+               'B1-B3': ('sn', 'drop', 'ang')}
+ALL_OPTIONS = OPTION_SETS['B1-B3']
+OPTION_ITERS = 30  # phase 5o: the main path with B1-B3
+BF16_ROUTE_ITERS = 10  # phase 3h: phase 3's route on fused bf16 MLPs
+BF16_FIT_STEPS = 100  # phase 3h: train_regressor on a fused bf16 dynamics MLP
+# the bf16 instances' bound: float32 bytes over HBM_BYTES_PER_S, products
+# over the published dense bf16 tensor-core peak
+BF16_FLOP_PER_S = 989e12
+BF16 = ('fused_mlp_fwd_bf16', 'fused_mlp_bwd_bf16')
+
 SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_mlp_bwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
+           'fused_mlp_fwd_bf16': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
+           'fused_mlp_bwd_bf16': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_step_fwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu',
            'fused_step_bwd': 'prob_mbrl_tpu_torch/csrc/fused_step.cu',
            'fused_rollout_fwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
@@ -410,6 +427,8 @@ SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_grid_bwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu'}
 REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
             'fused_mlp_bwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247',
+            'fused_mlp_fwd_bf16': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
+            'fused_mlp_bwd_bf16': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247',
             'fused_step_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1166',
             'fused_step_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1206',
             'fused_rollout_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:813',
@@ -855,7 +874,7 @@ def phase_mlp_kernels():
 
 
 def env_models(env, hidden=(200, 200), nonlin='relu', learned=False,
-               components=0):
+               components=0, options=()):
     """The Deep-PILCO drivers' default models ([200, 200] relu MLPs, or
     these widths and activations) for ``env``, with its reward and action
     bounds: (dyn, pol, D, U). ``'JaxLunarLander'`` is the differentiable
@@ -865,7 +884,7 @@ def env_models(env, hidden=(200, 200), nonlin='relu', learned=False,
     kernels' reward kind 3), as the driver builds them with --learn_reward
     or for the Box2D lander, which has no reward function (the
     differentiable lander's D = 8, U = 2). ``components`` K: a mixture
-    dynamics head of K Gaussians."""
+    dynamics head of K Gaussians; ``options`` as ``build_models``."""
     if env == 'Cartpole':
         D, U, high, rf = 5, 1, (10.0,), envs.cartpole_reward()
     else:
@@ -874,7 +893,7 @@ def env_models(env, hidden=(200, 200), nonlin='relu', learned=False,
         D, U = e.observation_size, e.action_size
         high, rf = [float(v) for v in e.action_space.high], e.reward_func
     return build_models(D, U, high, None if learned else rf, hidden,
-                        nonlin, components) + (D, U)
+                        nonlin, components, options) + (D, U)
 
 
 def env_label(env, learned=False):
@@ -959,7 +978,7 @@ def tie_eps(seed, shape):
 
 
 def step_problem(B, seed, env='Cartpole', saturated=False, learned=False,
-                 groups=None, components=0):
+                 groups=None, components=0, options=()):
     """One rollout step at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1), its inputs made from a seed.
     The state resample needs a full-rank particle covariance, B > D: below
@@ -970,21 +989,23 @@ def step_problem(B, seed, env='Cartpole', saturated=False, learned=False,
     B / groups particles, its noise standardized per group (the states
     resampled where a group has more particles than D); ``components`` K:
     a mixture dynamics head of K Gaussians, whose plain version picks its
-    components through ``PickingMixture``. Returns (kernel step, plain
-    step, policy leaves, states, eps, (g_nxt, g_r), timing inputs)."""
+    components through ``PickingMixture``; ``options`` the models' options
+    (``build_models``). Returns (kernel step, plain step, policy leaves,
+    states, eps, (g_nxt, g_r), timing inputs)."""
     rng = np.random.RandomState(seed)
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol, D, U = env_models(env, learned=learned, components=components)
+    dyn, pol, D, U = env_models(env, learned=learned, components=components,
+                                options=options)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
     pol_params = pol.init(gen, device='cuda')
     if saturated:
         saturate(pol_params, U)
-    leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
+    leaves = [p.requires_grad_(True) for p in grad_leaves(pol_params)]
     stats = dyn.fit_stats(*map(t, stats_data(env, rng, learned=learned)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
@@ -1078,16 +1099,16 @@ def step_plans(k):
 
 
 def step_timings(B, env='Cartpole', learned=False, groups=None,
-                 components=0):
+                 components=0, options=()):
     """ms of each step kernel and of the plain step at batch B (MM per
     group of B / groups with ``groups``), and the kernels' launch plans. The
     plain backward is its forward and ``torch.autograd.grad`` in one graph,
     less the plain forward's. No single PyTorch call computes a rollout
-    step, so there is no library time. ``components`` as
+    step, so there is no library time. ``components`` and ``options`` as
     ``step_problem``."""
     kernel, plain, leaves, states, eps, cot, (k, z_mm, z_rr) = step_problem(
         B, seed=7, env=env, learned=learned, groups=groups,
-        components=components)
+        components=components, options=options)
     residuals = k.forward(states, eps, z_mm, z_rr)[2:]
 
     def plain_fwd_bwd():
@@ -1112,15 +1133,16 @@ def step_timings(B, env='Cartpole', learned=False, groups=None,
 
 
 def check_step(B, env='Cartpole', tag='phase 2', saturated=False,
-               learned=False, groups=None, components=0):
+               learned=False, groups=None, components=0, options=()):
     """The step kernels against the plain step at batch B on ``env``'s
     shapes (``phase_step_kernels``' tolerance; ``saturated``, ``learned``,
     ``groups`` and ``components`` as ``step_problem``; grouped, against the
     plain step in float64, ``float64``; a mixture head through
-    ``held_against``); the largest error of each."""
+    ``held_against``; ``options`` as ``step_problem``); the largest error
+    of each."""
     kernel, plain, leaves, states, eps, cot, (k, _, _) = step_problem(
         B, seed=B, env=env, saturated=saturated, learned=learned,
-        groups=groups, components=components)
+        groups=groups, components=components, options=options)
     if groups:
         plain = functools.partial(plain, f64=True)
     env = env_label(env, learned)
@@ -1128,6 +1150,8 @@ def check_step(B, env='Cartpole', tag='phase 2', saturated=False,
         env = f'{env} mm_groups={groups}'
     if components:
         env = f'{env} mixture K={components}'
+    if options:
+        env = f'{env} options {"+".join(options)}'
     got = step_outputs(kernel, leaves, states, eps, cot)
 
     def plain_outputs():
@@ -1193,29 +1217,30 @@ def phase_step_kernels():
 
 def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
                     saturated=False, learned=False, groups=None,
-                    components=0):
+                    components=0, options=()):
     """The whole rollout at the main path's widths ([200, 200] MLPs; by
     default embedded Cartpole, D = 5, U = 1; states and rewards
     moment-matched, discount 0.9), its inputs made from a seed
     (``saturated``, ``learned``, ``groups`` and ``components`` as
     ``step_problem``: with groups of D particles or fewer the rewards alone
-    are resampled, and the argument of the states' MM noise is None).
-    Returns (kernel loss, kernel value-and-grad, plain loss, policy params,
-    policy leaves, the arguments after the policy params, (dyn, pol,
-    w_t))."""
+    are resampled, and the argument of the states' MM noise is None;
+    ``options`` as ``step_problem``). Returns (kernel loss, kernel
+    value-and-grad, plain loss, policy params, policy leaves, the arguments
+    after the policy params, (dyn, pol, w_t))."""
     rng = np.random.RandomState(seed)
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device='cuda')
 
-    dyn, pol, D, U = env_models(env, learned=learned, components=components)
+    dyn, pol, D, U = env_models(env, learned=learned, components=components,
+                                options=options)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
     pol_params = pol.init(gen, device='cuda')
     if saturated:
         saturate(pol_params, U)
-    leaves = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
+    leaves = [p.requires_grad_(True) for p in grad_leaves(pol_params)]
     stats = dyn.fit_stats(*map(t, stats_data(env, rng, learned=learned)))
     dyn_noise = dyn.sample_noise(gen, (B,), device='cuda')
     pol_noise = pol.sample_noise(gen, (B,), device='cuda')
@@ -1274,7 +1299,7 @@ def time_launches(fn, n=ROLLOUT_LAUNCHES, reps=5):
 
 
 def rollout_timings(env='Cartpole', split=True, learned=False, groups=None,
-                    components=0):
+                    components=0, options=()):
     """ms of each rollout kernel (CUDA events around launches in a row: a
     cooperative launch is not captured in a graph here) and of the plain
     version (CUDA graph replay) at the main-path batch and horizon. The
@@ -1282,10 +1307,10 @@ def rollout_timings(env='Cartpole', split=True, learned=False, groups=None,
     graph, less the plain forward; the plain value-and-grad is that graph.
     No single PyTorch call computes a rollout, so there is no library
     time. With ``split`` it logs the kernel's own time split of row 5;
-    ``groups`` and ``components`` as ``rollout_problem``."""
+    ``groups``, ``components`` and ``options`` as ``rollout_problem``."""
     _, _, plain, pol_params, leaves, args, (dyn, pol, w_t) = rollout_problem(
         MAIN_B, 7, env=env, learned=learned, groups=groups,
-        components=components)
+        components=components, options=options)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, z_mm is not None, True, True,
                          True, MAIN_B, x0.device, mm_groups=groups)
@@ -1325,14 +1350,16 @@ def rollout_timings(env='Cartpole', split=True, learned=False, groups=None,
     return t
 
 
-def k_plan(B, env='Cartpole', learned=False, components=0):
+def k_plan(B, env='Cartpole', learned=False, components=0, options=()):
     """The whole-rollout kernel's launch plan at the main widths and batch
-    B on this card for ``env``'s shapes (a mixture head of ``components``),
-    as text."""
-    dyn, pol, D, _ = env_models(env, learned=learned, components=components)
+    B on this card for ``env``'s shapes (a mixture head of ``components``,
+    the models' ``options``), as text."""
+    dyn, pol, D, _ = env_models(env, learned=learned, components=components,
+                                options=options)
     p = fr.rollout_plan(*net_dims(dyn, pol), D, B, MAIN_T,
                         fr.max_clusters(torch.cuda.current_device()),
-                        components=components)
+                        components=components,
+                        options=fr.walk_options(dyn, pol))
     return (f'{p.clusters} clusters of {p.particles} particles in '
             f'{p.tiles} tile(s) of {p.tile_rows} rows, weights '
             f'{"resident" if p.resident else "read in place"}, {p.smem} '
@@ -1386,15 +1413,17 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm, K=0):
 
 
 def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
-                  saturated=False, learned=False, groups=None, components=0):
+                  saturated=False, learned=False, groups=None, components=0,
+                  options=()):
     """The whole-rollout kernels against the plain version at batch B on
     ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated``,
     ``groups`` and ``components`` as ``step_problem``; grouped, against the
     plain version in float64, ``float64``; a mixture head through
-    ``held_against``); the largest error of each."""
+    ``held_against``; ``options`` as ``step_problem``); the largest error
+    of each."""
     kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(
         B, B, mean_only, env=env, saturated=saturated, learned=learned,
-        groups=groups, components=components)
+        groups=groups, components=components, options=options)
     if groups:
         plain = float64(plain)
     got = rollout_outputs(kloss, pp, leaves, args)
@@ -1423,6 +1452,8 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
                f'{"" if args[5] is not None else " not"} resampled)')
     if components:
         env = f'{env} mixture K={components}'
+    if options:
+        env = f'{env} options {"+".join(options)}'
 
     def hold_all(outs):
         ref, moved, vref, vmoved = outs
@@ -1432,7 +1463,7 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
                   + [('fused_rollout_bwd', lab, a, r, m) for lab, a, r, m in
                      zip(labels[2:], got[2:], ref[2:], moved[2:])]
                   + [('fused_rollout_vg', lab, a, r, m) for lab, a, r, m in
-                     zip(labels[:-1], [vl, vm, *tree_leaves(vgrads)], vref,
+                     zip(labels[:-1], [vl, vm, *grad_leaves(vgrads)], vref,
                          vmoved)])
         here = {nm: 0.0 for nm in names}
         rel = loose = 0.0
@@ -1481,16 +1512,17 @@ def phase_rollout_kernels():
 
 def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
                  env='Cartpole', saturated=False, learned=False, groups=None,
-                 components=0):
+                 components=0, options=()):
     """The grid rollout on ``rollout_problem``'s inputs: (kernel rollout,
     plain rollout, policy params, leaves, the rollout's arguments after the
     policy params, cotangents of disc, raw, vret and states_all, (dyn, pol,
     w_t, vw_t)); vret weighs step t by (T - 1 - t) / T. With ``groups``
     (as ``rollout_problem``) the states are resampled where a group has more
-    particles than D; ``components`` as ``rollout_problem``."""
+    particles than D; ``components`` and ``options`` as
+    ``rollout_problem``."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
         B, seed, False, T, env=env, saturated=saturated, learned=learned,
-        groups=groups, components=components)
+        groups=groups, components=components, options=options)
     mm_states = mm_states and args[5] is not None
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     rng = np.random.RandomState(seed + 1)
@@ -1615,14 +1647,16 @@ def log_split(what, parts):
 
 
 def grid_timings(B, split=False, env='Cartpole', learned=False, groups=None,
-                 components=0):
+                 components=0, options=()):
     """ms of each grid kernel and of the plain version at batch B, T = 15
     (CUDA events around launches in a row, as ``rollout_timings``; the plain
     backward is the plain forward and ``torch.autograd.grad`` in one graph
     less the forward), and with ``split`` the kernel's own time split in ms
-    per launch; ``groups`` and ``components`` as ``grid_problem``."""
+    per launch; ``groups``, ``components`` and ``options`` as
+    ``grid_problem``."""
     _, plain, pp, leaves, args, cot, (dyn, pol, w_t, vw_t) = grid_problem(
-        B, 7, env=env, learned=learned, groups=groups, components=components)
+        B, 7, env=env, learned=learned, groups=groups, components=components,
+        options=options)
     x0, z_mm, z_rr, eps, dyn_params, stats, dyn_noise, pol_noise = args[:8]
     k = fr.GridKernel(dyn, pol, MAIN_T, w_t, vw_t, z_mm is not None, True, B,
                       x0.device, groups)
@@ -1659,17 +1693,19 @@ def grid_timings(B, split=False, env='Cartpole', learned=False, groups=None,
 
 
 def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
-               saturated=False, learned=False, groups=None, components=0):
+               saturated=False, learned=False, groups=None, components=0,
+               options=()):
     """The grid kernels against the plain grid rollout at batch B on
     ``env``'s shapes, states moment-matched (``phase_grid_kernels``'
     tolerance; ``saturated``, ``learned``, ``groups`` and ``components``
     as ``step_problem``; grouped, against the plain version in float64,
-    ``float64``; a mixture head through ``held_against``); the largest
-    error of each."""
+    ``float64``; a mixture head through ``held_against``; ``options`` as
+    ``step_problem``); the largest error of each."""
     names = ['fused_grid_fwd', 'fused_grid_bwd']
     kern, plain, pp, leaves, args, cot, (dyn, pol, _, _) = grid_problem(
         B, B, True, mm_rewards, env=env, saturated=saturated,
-        learned=learned, groups=groups, components=components)
+        learned=learned, groups=groups, components=components,
+        options=options)
     if groups:
         plain = float64(plain)
     got = grid_outputs(kern, pp, leaves, args, cot)
@@ -1691,6 +1727,8 @@ def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
         env = f'{env} mm_groups={groups}'
     if components:
         env = f'{env} mixture K={components}'
+    if options:
+        env = f'{env} options {"+".join(options)}'
 
     def hold_all(outs):
         ref, moved = outs
@@ -2285,6 +2323,197 @@ def phase_mixture_kernels(rows, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 2h: rows 1-2 with bf16 operands
+# ---------------------------------------------------------------------------
+
+
+def bf16_bound(nbytes, flops):
+    """The bf16 instances' bound: the float32 bytes they move over
+    HBM_BYTES_PER_S, or their products over the bf16 tensor-core peak,
+    whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def hold_bf16(what, a, r):
+    """A bf16 instance's output ``a`` against the bf16 plain version's
+    ``r``: finite; every entry within 1e-5 * max|r| + 1e-6 but for a share
+    of at most 5%, which must lie within 1e-2 * max|r| (an operand within
+    rounding of a bf16 tie, which the two round to neighbouring bf16
+    values: ``tests/test_torch_fused_mlp_bf16.py``'s rule). Returns (max
+    abs err, err / max|r|, share off the tight bound)."""
+    if not torch.isfinite(a).all():
+        raise AssertionError(f'{what}: kernel output is not finite')
+    err = (a - r).abs()
+    scale = float(r.abs().max())
+    share = float((err > 1e-5 * scale + 1e-6).float().mean())
+    worst = float(err.max())
+    if share > 0.05 or worst > 1e-2 * scale + 1e-6:
+        raise AssertionError(f'{what}: kernel vs plain max abs err {worst:.3e}'
+                             f' (max|plain| {scale:.3e}), {share:.4f} of '
+                             'entries off 1e-5 relative')
+    return worst, worst / max(scale, 1e-30), share
+
+
+def bf16_timings(dims, masks, B=MAIN_B):
+    """ms of each bf16 instance, of its plain version (``fused_mlp_plain``
+    with bf16 operands; the backward as ``kernel_timings``') and of the
+    chain of ``torch.matmul`` on bf16 operands of the same products, at
+    batch B."""
+    nl, bf = ('relu', 'relu'), torch.bfloat16
+    x, ws, bs, ms, g = mlp_problem(dims, masks, B, seed=7)
+    _, a_res = fm._fwd_cuda(x, ws, bs, ms, nl, True)
+    hs = [x] + [torch.relu(a) * m for a, m in zip(a_res, ms)]
+    gas, g_a = [], g
+    for l in range(len(ws) - 1, -1, -1):
+        gas.insert(0, g_a)
+        if l:
+            g_a = (g_a @ ws[l].t()) * ms[l - 1] * (a_res[l - 1] > 0)
+    hb, wb, gb = ([v.to(bf) for v in vs] for vs in (hs, ws, gas))
+    leaves = [v.detach().clone().requires_grad_(True) for v in
+              [x, *ws, *bs, *ms]]
+    n = len(ws)
+    lx, lw, lb, lm = (leaves[0], leaves[1:1 + n], leaves[1 + n:1 + 2 * n],
+                      leaves[1 + 2 * n:])
+
+    def plain_fwd():
+        return fm.fused_mlp_plain(lx, lw, lb, lm, nl, compute_dtype=bf)
+
+    def plain_fwd_bwd():
+        torch.autograd.grad(plain_fwd(), leaves, g)
+
+    def lib_fwd():
+        for h, w in zip(hb, wb):
+            torch.matmul(h, w)
+
+    def lib_bwd():
+        for l, w in enumerate(wb):
+            torch.matmul(hb[l].t(), gb[l])
+            torch.matmul(gb[l], w.t())
+
+    has_b = (True,) * n
+    plain_fwd_ms = time_graph(plain_fwd)
+    t = {
+        'fused_mlp_fwd_bf16': dict(
+            ms=time_graph(lambda: fm._fwd_cuda(x, ws, bs, ms, nl, True)),
+            plain_ms=plain_fwd_ms, library_ms=time_graph(lib_fwd)),
+        'fused_mlp_bwd_bf16': dict(
+            ms=time_graph(lambda: fm._bwd_cuda(x, ws, has_b, ms, a_res, nl,
+                                               g, True)),
+            plain_ms=time_graph(plain_fwd_bwd) - plain_fwd_ms,
+            library_ms=time_graph(lib_bwd)),
+    }
+    for name, (nbytes, flops) in mlp_bytes_flops(dims, B).items():
+        t[name + '_bf16'].update(bytes=nbytes, flops=flops)
+    return t
+
+
+def phase_bf16_mlp(rows, card):
+    """Phase 2h: the bf16 instances of rows 1-2 against the bf16 plain
+    version (``hold_bf16``) at the policy's and the dynamics' shapes, B =
+    100 (the main path's) and 1000 (the value path's), and with tanh and
+    swish; each launch plan; times at B = 100 (the kernels line: the mean of
+    policy and dynamics, as rows 1-2's) beside the float32 rows' (``rows``)
+    and the card (``card``). Returns the bf16 rows."""
+    worst = {n: 0.0 for n in BF16}
+    labels = ['out', 'dx'] + ['dW%d' % i for i in range(3)] + [
+        'db%d' % i for i in range(3)] + ['dmask0', 'dmask1']
+    kern = functools.partial(fm.fused_mlp, compute_dtype='bfloat16')
+    plain = functools.partial(fm.fused_mlp_plain, compute_dtype='bfloat16')
+    cases = [(net, dims, masks, B) for net, (dims, masks) in SHAPES.items()
+             for B in (MAIN_B, GRID_B)]
+    for net, dims, masks, B in cases:
+        x, ws, bs, ms, g = mlp_problem(dims, masks, B, seed=B + 1)
+        got = grads_through(kern, x, ws, bs, ms, g)
+        ref = grads_through(plain, x, ws, bs, ms, g)
+        torch.cuda.synchronize()
+        rel = share = 0.0
+        for lab, a, r in zip(labels, got, ref):
+            err, r_err, off = hold_bf16(f'{net} B={B} bf16 {lab}', a, r)
+            name = BF16[0] if lab == 'out' else BF16[1]
+            worst[name] = max(worst[name], err)
+            rel, share = max(rel, r_err), max(share, off)
+        plan = fm.launch_plan(dims, B, True)
+        held = [fm.max_clusters('cuda', bwd, plan.threads, smem, True)
+                for bwd, smem in ((False, plan.fwd_smem),
+                                  (True, plan.bwd_smem))]
+        log(f'[phase 2h] {net} {dims} B={B} bf16 operands: kernel vs bf16 '
+            f'plain, worst of an output relative to its max|plain| '
+            f'{rel:.3e}, largest share of entries off 1e-5 relative '
+            f'{share:.4f} (at most 0.05 within 1e-2) ok; {plan}; the card '
+            f'holds {held[0]} forward and {held[1]} backward clusters of it '
+            'at once')
+    per_net = {net: bf16_timings(dims, masks)
+               for net, (dims, masks) in SHAPES.items()}
+    out = {}
+    for name in BF16:
+        for net in SHAPES:
+            v = per_net[net][name]
+            log(f'[phase 2h] {name} {net} B={MAIN_B}: kernel {v["ms"]:.4f} '
+                f'ms, plain {v["plain_ms"]:.4f} ms, torch.matmul chain on '
+                f'bf16 operands {v["library_ms"]:.4f} ms; {card}')
+        vals = [per_net[net][name] for net in SHAPES]
+        mean = {k: float(np.mean([v[k] for v in vals]))
+                for k in ('ms', 'plain_ms', 'library_ms', 'bytes', 'flops')}
+        mean['bound_ms'], mean['bound_by'] = bf16_bound(mean.pop('bytes'),
+                                                        mean.pop('flops'))
+        out[name] = dict(mean, max_abs_err=worst[name])
+        f32 = rows[name[:-len('_bf16')]]
+        log(f'[phase 2h] {name} B={MAIN_B}, mean of policy and dynamics: '
+            f'kernel {mean["ms"]:.4f} ms beside float32 {f32["ms"]:.4f}; '
+            f'plain {mean["plain_ms"]:.4f}; torch.matmul chain on bf16 '
+            f'operands {mean["library_ms"]:.4f}; bound '
+            f'{mean["bound_ms"]:.6f} ms ({mean["bound_by"]}: float32 bytes '
+            f'at {HBM_BYTES_PER_S:.3g} B/s, products at {BF16_FLOP_PER_S:.3g}'
+            f' FLOP/s); {card}')
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2o: the model options in rows 3-9
+# ---------------------------------------------------------------------------
+
+
+def phase_option_kernels(rows, card):
+    """Phase 2o: rows 3-9 on Cartpole with each option set of OPTION_SETS
+    (B1 spectral norm, B2 input dropout and output nonlinearities, B3 angle
+    embedding inside the models, and all three) against their plain
+    versions (``make_loss_plain``, ``make_step_plain``, the plain grid
+    rollout: the tolerances of phase 2), rows 3-7 at B = 100 and rows 8-9
+    at B = 1000; with all three, rows 3-5 without the reward mean-only
+    shortcut, in 10 MM groups and with a mixture head (K = 2), rows 6-7
+    with the mixture head. Each row's time with all three beside the
+    float32 rows' (``rows``) and the card (``card``)."""
+    for label, opts in OPTION_SETS.items():
+        dyn, pol = env_models('Cartpole', options=opts)[:2]
+        why = fr.kernel_refuses(dyn, pol)
+        if why is not None:
+            raise AssertionError(f'the gate refuses {label}: {why}')
+        check_step(MAIN_B, tag=f'phase 2o {label}', options=opts)
+        check_rollout(MAIN_B, True, tag=f'phase 2o {label}', options=opts)
+        check_grid(GRID_B, True, tag=f'phase 2o {label}', options=opts)
+    tag = 'phase 2o B1-B3'
+    check_rollout(MAIN_B, False, tag=tag, options=ALL_OPTIONS)
+    check_rollout(MAIN_B, True, tag=tag, groups=GROUPS_MAIN,
+                  options=ALL_OPTIONS)
+    check_rollout(MAIN_B, True, tag=tag, components=2, options=ALL_OPTIONS)
+    check_step(MAIN_B, tag=tag, components=2, options=ALL_OPTIONS)
+    steps, plans = step_timings(MAIN_B, options=ALL_OPTIONS)
+    log(f'[{tag}] launch plans: step B={MAIN_B} {plans}; rollout '
+        f'B={MAIN_B} {k_plan(MAIN_B, options=ALL_OPTIONS)}; grid B={GRID_B} '
+        f'{k_plan(GRID_B, options=ALL_OPTIONS)}')
+    times = {**steps, **rollout_timings(split=False, options=ALL_OPTIONS),
+             **grid_timings(GRID_B, options=ALL_OPTIONS)[0]}
+    for name, v in times.items():
+        B = GRID_B if name.startswith('fused_grid') else MAIN_B
+        log(f'[{tag}] {name} B={B}: Cartpole with B1-B3 kernel '
+            f'{v["ms"]:.4f} ms beside without {rows[name]["ms"]:.4f} ms; '
+            f'plain {v["plain_ms"]:.4f} ms; bound {v["bound_ms"]:.6f} ms '
+            f'({v["bound_by"]}); {card}')
+
+
+# ---------------------------------------------------------------------------
 # phases 3-7: the routes, the main path among them
 # ---------------------------------------------------------------------------
 
@@ -2305,24 +2534,50 @@ def random_episode(env, steps, seed):
 
 
 def build_models(D, U, max_u, reward_func, hidden=(200, 200),
-                 nonlin='relu', components=0):
+                 nonlin='relu', components=0, options=()):
     """The Deep-PILCO examples' default models (by default [200, 200] relu
     MLPs), concrete dropout 0.1 on the dynamics, Bernoulli 0.1 on the
     policy; without ``reward_func`` the dynamics learn the reward (a head of
     D + 1 outputs); with ``components`` K the dynamics head is a mixture of
-    K Gaussians (``--dyn_components K``)."""
+    K Gaussians (``--dyn_components K``). ``options`` of both MLPs: 'sn'
+    spectral norm of every layer (sn_max_K 1: a layer's norm at most 1,
+    which keeps the policy's tanh off its flat tails), 'drop' input dropout
+    (Bernoulli 0.1 on the policy, concrete 0.1 on the dynamics) and output
+    nonlinearities (tanh on the policy, swish on the dynamics), 'ang' angle
+    embedding inside the models (the policy's state dim 0, the dynamics'
+    state dim 2 and its last action dim), 'bf16' the fused MLP kernel with
+    bf16 operands (``fused=True``)."""
     E = D if reward_func is not None else D + 1
     head = (GaussianMixtureDensity(E, components) if components
             else DiagGaussianDensity(E))
+    pkw, dkw = {}, {}
+    if 'sn' in options:
+        for kw in (pkw, dkw):
+            kw.update(spectral_norm=True, spectral_norm_output=True,
+                      sn_max_K=1.0)
+    if 'drop' in options:
+        pkw.update(input_dropout=bdropout(0.1), output_nonlin='tanh')
+        dkw.update(input_dropout=cdropout(0.1), output_nonlin='swish')
+    if 'bf16' in options:
+        for kw in (pkw, dkw):
+            kw.update(fused=True, compute_dtype='bfloat16')
+    pang, dang = ((0,), (2, D + U - 1)) if 'ang' in options else ((), ())
     dyn = DynamicsModel(
-        Regressor(MLPSpec(D + U, head.n_inputs, hidden, dropout=cdropout(0.1),
-                          nonlin=nonlin),
-                  head),
+        Regressor(MLPSpec(D + U + len(dang), head.n_inputs, hidden,
+                          dropout=cdropout(0.1), nonlin=nonlin, **dkw),
+                  head, angle_dims=dang),
         reward_func=reward_func)
-    pol = Policy(MLPSpec(D, 2 * U, hidden, dropout=bdropout(0.1),
-                         nonlin=nonlin),
-                 DiagGaussianDensity(U), max_u=tuple(max_u))
+    pol = Policy(MLPSpec(D + len(pang), 2 * U, hidden, dropout=bdropout(0.1),
+                         nonlin=nonlin, **pkw),
+                 DiagGaussianDensity(U), angle_dims=pang, max_u=tuple(max_u))
     return dyn, pol
+
+
+def grad_leaves(tree):
+    """The leaves of a params tree that take a gradient, in
+    ``tree_leaves``' order: all but spectral norm's ``sn_u``, the power
+    iteration's vector."""
+    return [p for name, p in flat_leaves(tree) if not name.endswith('/sn_u')]
 
 
 def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise,
@@ -2342,18 +2597,22 @@ def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise,
     loss, _ = opt.loss(pol_params, x0, dyn_params, dyn_stats,
                        opt.prepare_noise(noise, 'cuda'), action_eps=eps,
                        step_noise=step_noise)
-    grads = torch.autograd.grad(loss, params)
-    return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads])
+    grads = torch.autograd.grad(loss, params, allow_unused=True)  # sn_u
+    return float(loss.detach()), torch.cat([
+        (torch.zeros_like(p) if g is None else g).reshape(-1)
+        for p, g in zip(params, grads)])
 
 
 def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
-                  groups=None, options=None):
+                  groups=None, options=None, plain_kernels=False):
     """One iteration's loss and policy grads on the same initial states and
     noise, through ``kernel_path(pol_params, x0, noise as drawn) -> (loss,
     flat grads)`` and through the plain path (``utils.rollout`` on unfused
     MLPs; MM per group of B / groups with ``groups``; ``options``: more
     fields of the ``MCPILCOConfig``; without PEGASUS both paths take the
-    same per-step density noise, ``kernel_path``'s fourth argument). The tolerance is the
+    same per-step density noise, ``kernel_path``'s fourth argument; with
+    ``plain_kernels`` the plain path is the same models' route on the fused
+    MLP's plain version, ``plain_fused_mlp``). The tolerance is the
     plain path's own sensitivity to x0 moved by 1e-6 relative (times 3), at
     least 1e-4 relative on the loss and 1e-3 of max|grad| on the grads.
     Grouped, the plain path runs in float64 (``float64`` says why), and the
@@ -2366,7 +2625,13 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                         mm_rewards=True, mm_groups=groups,
                         fused_rollout=False, **(options or {}))
-    opt_p = make_mc_pilco_fn(fr.unfused(dyn), fr.unfused(pol), cfg, 'cuda')
+    if plain_kernels:
+        opt_p = make_mc_pilco_fn(dyn, pol, cfg, 'cuda')
+        plain_path = plain_fused_mlp
+    else:
+        opt_p = make_mc_pilco_fn(fr.unfused(dyn), fr.unfused(pol), cfg,
+                                 'cuda')
+        plain_path = contextlib.nullcontext
     D = x0_pool.shape[-1]
     noise = opt_p.sample_noise(seeded_generator('cuda', seed, 1), D, 'cuda')
     x0 = opt_p.sample_x0(x0_pool, seeded_generator('cuda', seed, 2),
@@ -2375,11 +2640,12 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
     extra = () if step is None else (step,)
     lk, gk = kernel_path(pol_params, x0, noise, *extra)
     cast = in_float64 if groups else (lambda x: x)
-    lp, gp = loss_and_grads(opt_p, *cast((pol_params, x0, dyn_params,
-                                          dyn_stats, noise, *extra)))
-    ls, gs = loss_and_grads(opt_p, *cast((pol_params, x0 * (1 + 1e-6),
-                                          dyn_params, dyn_stats, noise,
-                                          *extra)))
+    with plain_path():
+        lp, gp = loss_and_grads(opt_p, *cast((pol_params, x0, dyn_params,
+                                              dyn_stats, noise, *extra)))
+        ls, gs = loss_and_grads(opt_p, *cast((pol_params, x0 * (1 + 1e-6),
+                                              dyn_params, dyn_stats, noise,
+                                              *extra)))
     l_tol = max(1e-4 * abs(lp), 3 * abs(ls - lp))
     g_tol = max(1e-3 * float(gp.abs().max()), 3 * float((gs - gp).abs().max()))
     f32 = ''
@@ -2409,10 +2675,11 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
         raise AssertionError('kernel path and plain path disagree')
 
 
-def main_path_setup(seed=SEED, components=0):
+def main_path_setup(seed=SEED, components=0, model_options=()):
     """The main path's models, parameters, stats, x0 pool and initial-state
     noise: Cartpole, one 40-step random-action episode, seeded weights
-    (``components`` K: a mixture dynamics head of K Gaussians)."""
+    (``components`` K: a mixture dynamics head of K Gaussians;
+    ``model_options``: ``build_models``' options)."""
     env = envs.make('Cartpole', device='cuda')
     obs, acts = random_episode(env, 40, seed)
     D, U = obs.shape[1], acts.shape[1]
@@ -2420,7 +2687,7 @@ def main_path_setup(seed=SEED, components=0):
     Y = torch.tensor(obs[1:] - obs[:-1], device='cuda')
     x0_pool = torch.tensor(obs, device='cuda')
     dyn, pol = build_models(D, U, env.action_space.high, env.reward_func,
-                            components=components)
+                            components=components, options=model_options)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dyn_params = dyn.init(gen, device='cuda')
@@ -2431,7 +2698,21 @@ def main_path_setup(seed=SEED, components=0):
 
 
 def counts():
-    return {**fm.LAUNCHES, **fr.LAUNCHES}
+    return {**fm.LAUNCHES, **fm.LAUNCHES_BF16, **fr.LAUNCHES}
+
+
+@contextlib.contextmanager
+def plain_fused_mlp():
+    """Within it, the models' fused-MLP calls run the kernels' plain
+    version (``fm.fused_mlp_plain``) on CUDA tensors too: the reference of
+    a route through the bf16 instances, whose operands the unfused path
+    does not round alike (it narrows the activations between layers)."""
+    kernel = fm.fused_mlp
+    fm.fused_mlp = fm.fused_mlp_plain
+    try:
+        yield
+    finally:
+        fm.fused_mlp = kernel
 
 
 def reset_counts():
@@ -2472,17 +2753,19 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
 
 def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
                    T=MAIN_T, B=MAIN_B, groups=None, components=0,
-                   options=None):
+                   options=None, model_options=()):
     """``mc_pilco`` for ``iters`` iterations by the route ``fused_rollout``
     picks (MM per group of B / groups with ``groups``; a mixture dynamics
     head of ``components``; ``options``: more ``MCPILCOConfig`` fields,
-    given to ``mc_pilco`` by its names), whose tier the gate must name
-    ``tier`` (None: its reason is logged), then one iteration through
-    ``MCPILCO.loss`` on that route against the plain path. Returns the
+    given to ``mc_pilco`` by its names; ``model_options``: the models'
+    options, ``build_models``), whose tier the gate must name ``tier``
+    (None: its reason is logged), then one iteration through
+    ``MCPILCO.loss`` on that route against the plain path (with bf16
+    fused MLPs, the same path on the kernels' plain version). Returns the
     launch counts of the run: every count is set to 0 just before it and
     read just after."""
     options = options or {}
-    setup = main_path_setup(seed, components)
+    setup = main_path_setup(seed, components, model_options)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                         mm_rewards=True, mm_groups=groups,
@@ -2513,6 +2796,7 @@ def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
     report(tag, f'mc_pilco fused_rollout={fused_rollout}'
            + (f' mm_groups={groups}' if groups else '')
            + (f' dyn_components={components}' if components else '')
+           + (f' options {"+".join(model_options)}' if model_options else '')
            + ''.join(f' {k}={v}' for k, v in loop_kw.items()),
            iters, t0, stamps,
            metrics['loss'], metrics['mean_return'], launches, want, T, B)
@@ -2528,7 +2812,51 @@ def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
                    init_noise),
                   lambda p, x0, noise, *step: loss_and_grads(
                       opt, p, x0, dyn_params, dyn_stats, noise, *step),
-                  tag, seed, T, B, groups, options)
+                  tag, seed, T, B, groups, options, 'bf16' in model_options)
+    return launches
+
+
+def phase_bf16_fit(card):
+    """Phase 3h's fit: BF16_FIT_STEPS ``train_regressor`` steps
+    (``make_train_fn``, Adam 1e-3, minibatches of 100) of the main path's
+    dynamics model with ``fused=True`` bf16 MLPs on the main path's
+    40-step episode: one bf16 forward and backward launch a step and none
+    else, finite losses, E_lml rising (the mean of the last 10 steps above
+    the first 10's). Returns the launch counts."""
+    setup = main_path_setup(SEED, model_options=('bf16',))
+    dyn, dyn_params = setup[0], setup[2]
+    env = envs.make('Cartpole', device='cuda')
+    obs, acts = random_episode(env, 40, SEED)
+    X = torch.tensor(np.concatenate([obs[:-1], acts], 1), device='cuda')
+    Y = torch.tensor(obs[1:] - obs[:-1], device='cuda')
+    Xn, Yn = normalize_dataset(dyn.fit_stats(X, Y), X, Y)
+    train = make_train_fn(dyn.regressor, Adam(1e-3), 100)
+    gen = seeded_generator('cuda', SEED, 9)
+    state = Adam(1e-3).init(dyn_params)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics, _ = train(dyn_params, state, Xn, Yn, gen, BF16_FIT_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / BF16_FIT_STEPS * 1e3
+    launches = counts()
+    want = expect(fused_mlp_fwd_bf16=BF16_FIT_STEPS,
+                  fused_mlp_bwd_bf16=BF16_FIT_STEPS)
+    lml, loss = np.asarray(metrics['E_lml']), np.asarray(metrics['loss'])
+    if launches != want:
+        raise AssertionError(f'launches {launches} on the bf16 fit, '
+                             f'expected {want}')
+    if not (np.all(np.isfinite(loss)) and np.all(np.isfinite(lml))):
+        raise AssertionError('non-finite loss or E_lml on the bf16 fit')
+    if not lml[-10:].mean() > lml[:10].mean():
+        raise AssertionError('E_lml did not rise on the bf16 fit: '
+                             f'{lml[:10].mean():.4f} -> '
+                             f'{lml[-10:].mean():.4f}')
+    log(f'[phase 3h] train_regressor, dynamics [200,200] fused=True bf16, '
+        f'{BF16_FIT_STEPS} steps of 100 rows: E_lml {lml[:10].mean():.4f} '
+        f'(first 10) -> {lml[-10:].mean():.4f} (last 10), loss '
+        f'{loss[0]:.4f} -> {loss[-1]:.4f}; launches {launches}; {ms:.3f} ms '
+        f'a step (host clock); {card}')
     return launches
 
 
@@ -2989,11 +3317,15 @@ def device_events(prof):
 
 
 def flat_leaves(tree, prefix=''):
-    """(path, tensor) pairs of a nested dict, keys in sorted order."""
+    """(path, tensor) pairs of nested dicts and lists, dict keys in sorted
+    order (``tree_leaves``' order and leaves)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
                 for x in flat_leaves(tree[k], f'{prefix}/{k}')]
-    return [(prefix, tree)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in flat_leaves(v, f'{prefix}/{i}')]
+    return [] if tree is None else [(prefix, tree)]
 
 
 def driver_models(args):
@@ -4022,12 +4354,19 @@ def hold_moments(what, a, r, m, tag):
     used; the params alone do not see a wrong gradient, since Adam's first
     step moves an entry by about lr whatever the gradient's size, and not at
     all when a leaf's gradient is scaled by a constant. Returns the largest
-    error / max|r| over the leaves."""
+    error / max|r| over the leaves, and logs the leaf that has it with the
+    reference's own error there."""
+    names = [n for n, _ in flat_leaves(a.mu)]
     leaves = zip(*(tree_leaves(s.mu) for s in (a, r, m)))
     f32 = (lambda t: t.to('cpu', torch.float32))
-    return max(hold(f'[{tag}] {what} first moment, leaf {i}', f32(x), f32(y),
-                    REL_TOL, moved=f32(z))[1]
-               for i, (x, y, z) in enumerate(leaves))
+    errs = [(hold(f'[{tag}] {what} first moment, leaf {i}', f32(x), f32(y),
+                  REL_TOL, moved=f32(z))[1], rel_err(f32(z), f32(y)), i)
+            for i, (x, y, z) in enumerate(leaves)]
+    worst, own, i = max(errs)
+    log(f'[{tag}] {what} first moment: worst leaf {names[i]} ({worst:.3e} '
+        f'of its max|reference|; the reference\'s own error there '
+        f'{own:.3e})')
+    return worst
 
 
 def flat(tree):
@@ -4362,7 +4701,7 @@ def tm_setup(trained):
     return env, args, m, params, scaling, batch, x0s, x0, gen
 
 
-def check_tm_steps(setup, card, tag='phase 14a'):
+def check_tm_steps(setup, card, tag='phase 14a', dump=None):
     """On ``tm_setup``'s models (trained ones: an unfitted transformer's
     rollouts amplify float32 rounding ~1000-fold, so Adam's first step
     turns more near-zero gradient entries into +-lr steps of opposite
@@ -4379,7 +4718,9 @@ def check_tm_steps(setup, card, tag='phase 14a'):
     attention's softmax being blind to it, so Adam moves its entries by
     +-lr on rounding noise: ``hold_lr`` allows one entry in ADAM_EDGE).
     Logs the policy step's device-busy share under torch.profiler over
-    TM_PROFILED steps."""
+    TM_PROFILED steps.; ``dump``: a path to
+    which the dynamics step's inputs are saved (``torch.save``) for
+    ``tools/torch_transformer_precision.py --inputs``"""
     env, args, m, params, scaling, batch, x0s, x0, gen = setup
     D, U, T = env.observation_size, env.action_size, args.pred_H
     dyn, pol_spec = m['dyn'], m['pol_spec']
@@ -4429,6 +4770,11 @@ def check_tm_steps(setup, card, tag='phase 14a'):
         return flat(out).cpu(), state, float(loss), float(e)
 
     hnoise = dyn.sample_noise(gen, (tmd.DYN_BATCH, 1), device='cuda')
+    if dump:  # the step's inputs, for tools/torch_transformer_precision.py
+        torch.save(tree_map(lambda t: t.cpu(), dict(
+            params=params['dyn'], scaling=scaling, noise=hnoise,
+            batch=dict(zip(('s', 'a', 'ns', 'r', 'd', 'lens'), batch)))),
+            dump)
     got, gs, gl, ge = dyn_step('cuda')
     (ref, rs, rl, re), (moved, vs, ml, me) = (dyn_step('cpu'),
                                               dyn_step('cpu', 1 + 1e-6))
@@ -4748,6 +5094,8 @@ def main():
     rows = {**phase_mlp_kernels(), **phase_step_kernels(),
             **phase_rollout_kernels(), **phase_grid_kernels()}
     t = lap('phase 2', t)
+    rows.update(phase_bf16_mlp(rows, card))
+    t = lap('phase 2h', t)
     phase_grouped_kernels(rows, card)
     t = lap('phase 2g', t)
     phase_critic_kernels()
@@ -4756,12 +5104,26 @@ def main():
     t = lap('phase 2b', t)
     phase_mixture_kernels(rows, card)
     t = lap('phase 2m', t)
+    phase_option_kernels(rows, card)
+    t = lap('phase 2o', t)
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)
     T = MAIN_T
     phase_mc_pilco(ROUTE_ITERS, False, 'phase 3', expect(
         fused_mlp_fwd=2 * T * ROUTE_ITERS, fused_mlp_bwd=2 * T * ROUTE_ITERS),
         None)
+    # phase 3h: the same route with fused=True bf16 MLPs, the bf16
+    # instances' launches for the kernels line; then a bf16 fit
+    bf16_route = phase_mc_pilco(
+        BF16_ROUTE_ITERS, False, 'phase 3h', expect(
+            fused_mlp_fwd_bf16=2 * T * BF16_ROUTE_ITERS,
+            fused_mlp_bwd_bf16=2 * T * BF16_ROUTE_ITERS), None,
+        model_options=('bf16',))
+    log(f'[phase 3h] {ITER_MS["phase 3h"]:.3f} ms an iteration on fused bf16 '
+        f'MLPs beside phase 3\'s {ITER_MS["phase 3"]:.3f} (host clock, this '
+        f'call); {card}')
+    phase_bf16_fit(card)
+    t = lap('phases 3 and 3h', t)
     phase_variants()
     step = phase_loop(STEP_ITERS, 'step', 'phase 4', expect(
         fused_step_fwd=T * STEP_ITERS, fused_step_bwd=T * STEP_ITERS))
@@ -4785,6 +5147,14 @@ def main():
     log(f'[phase 5m] {ITER_MS["phase 5m"]:.3f} ms an iteration with the '
         f'mixture head (K=2, a head of 23) beside phase 5\'s '
         f'{ITER_MS["phase 5"]:.3f} ms (host clock, this call)')
+    # phase 5o: the main path with the model options B1-B3, the same one
+    # launch an iteration and nothing else
+    phase_mc_pilco(OPTION_ITERS, None, 'phase 5o',
+                   expect(fused_rollout_vg=OPTION_ITERS), 'full',
+                   model_options=ALL_OPTIONS)
+    log(f'[phase 5o] {ITER_MS["phase 5o"]:.3f} ms an iteration with B1-B3 '
+        f'beside phase 5\'s {ITER_MS["phase 5"]:.3f} ms (host clock, this '
+        f'call); {card}')
     phase_grouped_paths(capacity)
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
@@ -4805,7 +5175,8 @@ def main():
     t = lap('phase 13', t)
     phase_transformer(card)
     lap('phase 14', t)
-    runs = {'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
+    runs = {'fused_mlp_fwd_bf16': bf16_route, 'fused_mlp_bwd_bf16': bf16_route,
+            'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': fixed_critic}
     launches = {n: next(v for k, v in runs.items() if n.startswith(k))[n]

@@ -29,6 +29,13 @@
 //   activation VJP and all-gathers the result, one barrier a layer. For the
 //   policy it adds h[:, rows]^T g_a of the tile to a dW accumulator for its
 //   rows (and its columns' db), in a fixed order.
+// Model options (StepArgs' last fields): an MLP's input is its source row
+// (the states, and for the dynamics the actions) or the sin or cos of one,
+// angle-embedded as ops/angles.py has it, times the input-dropout mask
+// after the dynamics' whitening (the policy's own input is then a tile
+// array of its own, Lay::xq); an output nonlinearity acts on an MLP's
+// outputs, whose pre-activations Lay::opre keeps for its VJP. Spectral norm
+// needs nothing here: the wrapper binds the normalized weights.
 // Data written in the same launch by other CTAs is read with plain loads or
 // cp.async (no __restrict__ const, no __ldg). No atomics on values.
 #pragma once
@@ -49,7 +56,7 @@ constexpr int kMaxThreads = 512;  // 128 registers a thread
 constexpr int kMaxTileRows = 128;
 constexpr int kSmemMax = 232448 - 8192;  // dynamic shared memory (the static part is below 8192)
 constexpr int kStat = 2 * kMaxD + kMaxD * kMaxD;  // m, sd, L of one resample site
-constexpr int kMaxIn = kMaxD + kMaxU;             // widest MLP input (the dynamics')
+constexpr int kMaxIn = kMaxD + kMaxU;             // the dynamics' input without angle embedding
 constexpr int kTri = kMaxD * (kMaxD + 1) / 2;
 // a cluster's forward partial: n, mean, centred M2 (lower, row-major), centred
 // sums; then the reward's mean, M2, centred sum and plain sum
@@ -116,6 +123,10 @@ struct Lay {
   // a mixture dynamics head's rows [row][TRP] (none for a diagonal head):
   // its head_width(K, E) outputs, then its noise z_pi (K) and u_cat (1)
   int mix;
+  // the policy MLP's own input [din][TRP] (angle-embedded or input-dropped
+  // states; xq == xp without either), and with an output nonlinearity the
+  // MLPs' output pre-activations [2 U + the dynamics' outputs][TRP] (0: none)
+  int xq, opre;
 };
 
 namespace {
@@ -751,6 +762,130 @@ __device__ __forceinline__ void prefetch_wait() {
   __syncthreads();
 }
 
+// Whether the walk needs the policy's own input array (Lay::xq).
+__host__ __device__ __forceinline__ bool own_policy_input(const Step& st) {
+  return st.pol.dims[0] != st.D || st.m_in[0] != nullptr;
+}
+
+__host__ __device__ __forceinline__ bool has_out_act(const Step& st) {
+  return st.out_act[0] != kIdentity || st.out_act[1] != kIdentity;
+}
+
+// Input k of MLP `id` at tile row r: its source (the states xp, then the
+// actions in the tile arrays) or the sin or cos of it (in_map).
+__device__ __forceinline__ float mlp_input(const Step& st, int id, int k, const float* xp,
+                                           const float* ts, int TRP, int r) {
+  const int code = st.in_map[id][k], i = code / 3, kind = code - 3 * i;
+  const float x = i < st.D ? xp[i * TRP + r] : ts[(kTAct + i - st.D) * TRP + r];
+  return kind == 0 ? x : kind == 1 ? sinf(x) : cosf(x);
+}
+
+// MLP `id`'s input, all of it, into dst ([din][TRP], zeros past nrows): the
+// angle-embedded sources (mlp_input), whitened for the dynamics, times the
+// input-dropout mask. Out of line (as mix_sample), so that a step without
+// the options keeps its registers.
+__device__ __noinline__ void option_input(const Step& st, int id, float* dst, const float* xp,
+                                          const float* ts, int TR, int TRP, int row0, int nrows) {
+  const int din = (id ? st.dyn : st.pol).dims[0];
+  const float* m = st.m_in[id];
+  for (int e = threadIdx.x; e < din * TR; e += blockDim.x) {
+    const int k = e / TR, r = e - k * TR;
+    float v = 0.f;
+    if (r < nrows) {
+      v = mlp_input(st, id, k, xp, ts, TRP, r);
+      if (id) v = (v - st.mx[k]) * st.isx[k];
+      if (m) v *= m[(size_t)(row0 + r) * din + k];
+    }
+    dst[k * TRP + r] = v;
+  }
+}
+
+// The output nonlinearity of MLP `id` (not kIdentity) on its `rows`
+// outputs at out (kept in pre), zero past nrows.
+__device__ __noinline__ void out_act_fwd(const Step& st, int id, float* out, float* pre, int rows,
+                                         int TR, int TRP, int nrows) {
+  const int act = st.out_act[id];
+  for (int e = threadIdx.x; e < rows * TR; e += blockDim.x) {
+    const int k = e / TR, r = e - k * TR;
+    const float a = out[k * TRP + r];
+    pre[k * TRP + r] = a;
+    out[k * TRP + r] = r < nrows ? act_fwd(act, a) : 0.f;
+  }
+}
+
+// Its VJP on the gradient X wrt the outputs, in place.
+__device__ __noinline__ void out_act_vjp(const Step& st, int id, float* X, const float* pre,
+                                         int rows, int TR, int TRP) {
+  const int act = st.out_act[id];
+  for (int e = threadIdx.x; e < rows * TR; e += blockDim.x) {
+    const int k = e / TR, r = e - k * TR;
+    X[k * TRP + r] = act_vjp(act, pre[k * TRP + r], X[k * TRP + r]);
+  }
+}
+
+// The gradient wrt source i of MLP `id`'s input at row r, from gw, the
+// gradient wrt each input (times mask and whitening), added to g in the
+// inputs' order: a value passes, d sin x = cos x, d cos x = -sin x.
+__device__ __forceinline__ float source_grad(const Step& st, int id, int i, float g, const float* gw,
+                                             const float* xp, const float* ts, int TRP, int r) {
+  const int din = (id ? st.dyn : st.pol).dims[0];
+  const float x = i < st.D ? xp[i * TRP + r] : ts[(kTAct + i - st.D) * TRP + r];
+  for (int k = 0; k < din; ++k) {
+    const int code = st.in_map[id][k];
+    if (code / 3 != i) continue;
+    const int kind = code - 3 * i;
+    const float v = gw[k * TRP + r];
+    g += kind == 0 ? v : kind == 1 ? v * cosf(x) : -(v * sinf(x));
+  }
+  return g;
+}
+
+// The option path of the dynamics input's VJP: gx (the gradient wrt the MLP
+// input, in place) times the input mask and the whitening, then onto each
+// source: the states' into ts[kTGs] (after ts[kTGnxt]), the actions' into
+// ts[kTGact] and g_eps.
+__device__ __noinline__ void dyn_option_vjp(const Step& st, float* gx, const float* xp, float* ts,
+                                            int TR, int TRP, int row0, int nrows, float* g_eps) {
+  const int D = st.D, U = st.U, dx = st.dyn.dims[0], tid = threadIdx.x, nt = blockDim.x;
+  for (int e = tid; e < dx * TR; e += nt) {
+    const int k = e / TR, r = e - k * TR;
+    float v = gx[k * TRP + r];
+    if (st.m_in[1]) v *= r < nrows ? st.m_in[1][(size_t)(row0 + r) * dx + k] : 0.f;
+    gx[k * TRP + r] = v * st.isx[k];
+  }
+  __syncthreads();
+  for (int e = tid; e < TR * (D + U); e += nt) {
+    const int r = e / (D + U), i = e - r * (D + U);
+    const float g = i < D ? ts[(kTGnxt + i) * TRP + r] : ts[(kTGact + i - D) * TRP + r];
+    const float gi = source_grad(st, 1, i, g, gx, xp, ts, TRP, r);
+    if (i < D) {
+      ts[(kTGs + i) * TRP + r] = gi;
+    } else {
+      ts[(kTGact + i - D) * TRP + r] = gi;
+      if (g_eps && r < nrows) g_eps[r * U + i - D] = gi;
+    }
+  }
+}
+
+// The option path of the policy input's VJP: gp (in place) times the input
+// mask, then onto the states: g_s = ts[kTGs] + its share.
+__device__ __noinline__ void pol_option_vjp(const Step& st, float* gp, const float* xp,
+                                            const float* ts, int TRP, int row0, int nrows,
+                                            float* g_s) {
+  const int D = st.D, dq = st.pol.dims[0], tid = threadIdx.x, nt = blockDim.x;
+  if (st.m_in[0]) {
+    for (int e = tid; e < dq * nrows; e += nt) {
+      const int k = e / nrows, r = e - k * nrows;
+      gp[k * TRP + r] *= st.m_in[0][(size_t)(row0 + r) * dq + k];
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < nrows * D; e += nt) {
+    const int r = e / D, k = e - r * D;
+    g_s[r * D + k] = source_grad(st, 0, k, ts[(kTGs + k) * TRP + r], gp, xp, ts, TRP, r);
+  }
+}
+
 // The step's forward for a tile: states from srows ([TR][D] row-major, this
 // tile's rows; shared or global memory), eps_t the step's action noise (or
 // null). Leaves the policy and dynamics outputs, u, the action, nxt and r in
@@ -802,7 +937,15 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
     xp[k * TRP + r] = r < nrows ? srows[r * D + k] : 0.f;
   }
   prefetch_wait();
-  mlp_fwd<kReluOnly>(c, st.pol, 0, c.lay.xp, keep, c.lay.tsm + kTPout * TRP, row0, nrows);
+  if (c.lay.xq != c.lay.xp) {  // the policy's input: embedded, input-dropped states
+    option_input(st, 0, c.sm + c.lay.xq, xp, ts, TR, TRP, row0, nrows);
+    __syncthreads();
+  }
+  mlp_fwd<kReluOnly>(c, st.pol, 0, c.lay.xq, keep, c.lay.tsm + kTPout * TRP, row0, nrows);
+  if (st.out_act[0] != kIdentity) {
+    out_act_fwd(st, 0, ts + kTPout * TRP, c.sm + c.lay.opre, 2 * U, TR, TRP, nrows);
+    __syncthreads();
+  }
   for (int e = tid; e < TR * U; e += nt) {
     const int r = e / U, k = e - r * U;
     const float mean = ts[(kTPout + k) * TRP + r], lsr = ts[(kTPout + U + k) * TRP + r];
@@ -814,18 +957,27 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
     ts[(kTAct + k) * TRP + r] = a;
   }
   __syncthreads();
-  for (int e = tid; e < (D + U) * TR; e += nt) {
-    const int k = e / TR, r = e - k * TR;
-    float v = 0.f;
-    if (r < nrows) {
-      v = k < D ? xp[k * TRP + r] : ts[(kTAct + k - D) * TRP + r];
-      v = (v - st.mx[k]) * st.isx[k];
+  if (st.dyn.dims[0] == D + U && !st.m_in[1]) {  // no embedding, no input dropout
+    for (int e = tid; e < (D + U) * TR; e += nt) {
+      const int k = e / TR, r = e - k * TR;
+      float v = 0.f;
+      if (r < nrows) {
+        v = k < D ? xp[k * TRP + r] : ts[(kTAct + k - D) * TRP + r];
+        v = (v - st.mx[k]) * st.isx[k];
+      }
+      xd[k * TRP + r] = v;
     }
-    xd[k * TRP + r] = v;
+  } else {
+    option_input(st, 1, xd, xp, ts, TR, TRP, row0, nrows);
   }
   __syncthreads();
-  mlp_fwd<kReluOnly>(c, st.dyn, 1, c.lay.xd, keep, K ? c.lay.mix : c.lay.tsm + kTDout * TRP,
-                     row0, nrows);
+  const int dout_off = K ? c.lay.mix : c.lay.tsm + kTDout * TRP;
+  mlp_fwd<kReluOnly>(c, st.dyn, 1, c.lay.xd, keep, dout_off, row0, nrows);
+  if (st.out_act[1] != kIdentity) {
+    out_act_fwd(st, 1, c.sm + dout_off, c.sm + c.lay.opre + 2 * U * TRP,
+                st.dyn.dims[st.dyn.n + 1], TR, TRP, nrows);
+    __syncthreads();
+  }
   if (K) mix_sample(st, hd, ts, xp, TR, TRP, nrows);
   for (int e = tid; e < TR * D && !K; e += nt) {
     const int r = e / D, k = e - r * D;
@@ -953,16 +1105,24 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
     X[(E + k) * TRP + r] = (g * z) * expf(ls) * sigmoid_f(st.dyn_upper - lsr);
   }
   __syncthreads();
-  const float* gx = mlp_bwd<kReluOnly>(c, st.dyn, 1, row0, nrows, c.lay.xd, nullptr);
-  for (int e = tid; e < TR * D; e += nt) {
-    const int r = e / D, k = e - r * D;
-    ts[(kTGs + k) * TRP + r] = ts[(kTGnxt + k) * TRP + r] + gx[k * TRP + r] * st.isx[k];
+  if (st.out_act[1] != kIdentity) {
+    out_act_vjp(st, 1, X, c.sm + c.lay.opre + 2 * U * TRP, st.dyn.dims[st.dyn.n + 1], TR, TRP);
+    __syncthreads();
   }
-  for (int e = tid; e < TR * U; e += nt) {
-    const int r = e / U, k = e - r * U;
-    const float ga = ts[(kTGact + k) * TRP + r] + gx[(D + k) * TRP + r] * st.isx[D + k];
-    ts[(kTGact + k) * TRP + r] = ga;
-    if (g_eps && r < nrows) g_eps[r * U + k] = ga;
+  float* gx = const_cast<float*>(mlp_bwd<kReluOnly>(c, st.dyn, 1, row0, nrows, c.lay.xd, nullptr));
+  if (st.dyn.dims[0] == D + U && !st.m_in[1]) {  // no embedding, no input dropout
+    for (int e = tid; e < TR * D; e += nt) {
+      const int r = e / D, k = e - r * D;
+      ts[(kTGs + k) * TRP + r] = ts[(kTGnxt + k) * TRP + r] + gx[k * TRP + r] * st.isx[k];
+    }
+    for (int e = tid; e < TR * U; e += nt) {
+      const int r = e / U, k = e - r * U;
+      const float ga = ts[(kTGact + k) * TRP + r] + gx[(D + k) * TRP + r] * st.isx[D + k];
+      ts[(kTGact + k) * TRP + r] = ga;
+      if (g_eps && r < nrows) g_eps[r * U + k] = ga;
+    }
+  } else {
+    dyn_option_vjp(st, gx, c.sm + c.lay.xp, ts, TR, TRP, row0, nrows, g_eps);
   }
   __syncthreads();
   // a = scale tanh(u) + bias + eps, u = mean + z exp(upper_clip(lsr)): the
@@ -980,12 +1140,19 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
         (gu * z) * expf(upper_clip(lsr, st.pol_upper)) * sigmoid_f(st.pol_upper - lsr);
   }
   __syncthreads();
-  const float* gp = mlp_bwd<kReluOnly>(c, st.pol, 0, row0, nrows, c.lay.xp, dwacc);
-  if (g_s)
+  if (st.out_act[0] != kIdentity) {
+    out_act_vjp(st, 0, Xp, c.sm + c.lay.opre, 2 * U, TR, TRP);
+    __syncthreads();
+  }
+  float* gp = const_cast<float*>(mlp_bwd<kReluOnly>(c, st.pol, 0, row0, nrows, c.lay.xq, dwacc));
+  if (g_s && c.lay.xq == c.lay.xp) {
     for (int e = tid; e < nrows * D; e += nt) {
       const int r = e / D, k = e - r * D;
       g_s[r * D + k] = ts[(kTGs + k) * TRP + r] + gp[k * TRP + r];
     }
+  } else if (g_s) {
+    pol_option_vjp(st, gp, c.sm + c.lay.xp, ts, TRP, row0, nrows, g_s);
+  }
   __syncthreads();
 }
 
@@ -1123,10 +1290,17 @@ long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L,
   const int kw4 = round4(kwmax);
   L.h = static_cast<int>(off);
   off += (long long)kw4 * TRP;
+  // the MLP inputs' arrays: kMaxIn rows, or the widest embedded input's
+  const int nx = max(kMaxIn, max(st.pol.dims[0], st.dyn.dims[0]));
   L.xp = static_cast<int>(off);
-  L.xd = static_cast<int>(off + kMaxIn * TRP);
-  L.gx = static_cast<int>(off + 2 * kMaxIn * TRP);
-  off += 3LL * kMaxIn * TRP;
+  L.xd = static_cast<int>(off + nx * TRP);
+  L.gx = static_cast<int>(off + 2 * nx * TRP);
+  off += 3LL * nx * TRP;
+  L.xq = L.xp;
+  if (own_policy_input(st)) {
+    L.xq = static_cast<int>(off);
+    off += (long long)nx * TRP;
+  }
   const long long base = off;
   long long ends[3] = {off, off, off};
   for (int id = 0; id < nn; ++id) {
@@ -1145,6 +1319,11 @@ long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L,
   off += (long long)kTSmall * TRP;
   L.mix = static_cast<int>(off);
   if (st.K) off += (long long)(st.dyn.dims[st.dyn.n + 1] + st.K + 1) * TRP;
+  L.opre = 0;
+  if (has_out_act(st)) {
+    L.opre = static_cast<int>(off);
+    off += (long long)(st.pol.dims[st.pol.n + 1] + st.dyn.dims[st.dyn.n + 1]) * TRP;
+  }
   return off;
 }
 

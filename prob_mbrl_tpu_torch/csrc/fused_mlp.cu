@@ -46,6 +46,21 @@
 //   tiles into its own partials in the order it walks them; a second launch
 //   sums the clusters' partials in order (with one cluster they are dW and
 //   db). No atomics on values: results repeat bit for bit.
+// - Operands: float32 (the instances of W = float), or bf16 (W =
+//   __nv_bfloat16, compute_dtype='bfloat16' of the Pallas kernel: its
+//   forward's dot at :92-94, its backward's mm at :152-156). The bf16
+//   instances round each weight row to bf16 (round to nearest even) while
+//   it is staged, and keep the ring in bf16, half the bytes of a float32
+//   stage; each activation or cotangent operand is rounded where a product
+//   reads it (the forward's layer-input slice and the backward's recomputed
+//   h when they are stored, the gathered g_a where a product loads it, as
+//   the db sums read it unrounded). A product of two bf16 values is exact
+//   in float32, so float32 FMA on the rounded values is what an MMA with
+//   float32 accumulation computes, up to the order of the sum. Bias,
+//   activation and its VJP, masks, d(mask), db, the saved pre-activations
+//   and every output stay float32, and so do the activations between layers
+//   (the Pallas kernel's, not the XLA bf16 path's, which narrows them).
+//   sum_partials_kernel sums float32 partials for both instances.
 // - Products are float32 FMA. 3xTF32 on the tensor cores would cost three
 //   products per FMA for at most ~1.4x on the product part, and the products
 //   are not what sets the pace at these shapes; TF32 alone misses the 1e-4
@@ -56,8 +71,10 @@
 // garbage times zero, which can be NaN).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mlp_tile.cuh"
 
@@ -155,6 +172,22 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// An operand of a product of the W instance: x itself for float, x rounded
+// to bf16 (round to nearest even) for __nv_bfloat16.
+template <typename W>
+__device__ __forceinline__ float op(float x) {
+  if constexpr (std::is_same<W, float>::value) return x;
+  else return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename W>
+__device__ __forceinline__ float4 op4(float4 v) {
+  return make_float4(op<W>(v.x), op<W>(v.y), op<W>(v.z), op<W>(v.w));
+}
+
+__device__ __forceinline__ float ld_w(const float* p) { return *p; }
+__device__ __forceinline__ float ld_w(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
 struct Slice {
   int c0, cnt, sw;  // first index, how many this CTA owns, slice width
 };
@@ -170,18 +203,23 @@ __device__ __forceinline__ int stage_rows(int stage, int dout) {
   return max(1, (stage - 4) / dout);
 }
 
-// A stage holds src[0, n) at stage + (src's float offset mod 4), so that
-// both sides of every 16-byte copy are 16-byte aligned.
+// A float32 stage holds src[0, n) at stage + (src's float offset mod 4), so
+// that both sides of every 16-byte copy are 16-byte aligned; a bf16 stage,
+// filled through registers, at stage + 0.
+template <typename W>
 __device__ __forceinline__ int phase_of(const float* src) {
+  if constexpr (!std::is_same<W, float>::value) return 0;
   return static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
 }
 
 // The ring of weight stages. Stages run over the layers in the order the
 // kernel walks them (forward: 0..n; backward: n..0), once per row tile of
 // the cluster; stage c of layer l holds rows [c R, (c + 1) R) of the CTA's
-// block of W_l (R = stage_rows), at least one stage per layer.
+// block of W_l (R = stage_rows), at least one stage per layer. A stage is
+// `stage` elements of W.
+template <typename W>
 struct Ring {
-  float* stages;
+  W* stages;
   int ns, stage;
   int issued;  // stages issued (empty ones past the last layer included)
   int pos;     // producer: position in the walk, over all of the cluster's tiles
@@ -189,16 +227,19 @@ struct Ring {
   int row;     // producer: first block row of the next stage
 };
 
-__device__ __forceinline__ Ring make_ring(float* stages, const Tiling& t, int layers) {
+template <typename W>
+__device__ __forceinline__ Ring<W> make_ring(float* stages, const Tiling& t, int layers) {
   const int cid = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
   const int tiles = (t.tiles - cid + clusters - 1) / clusters;
-  return Ring{stages, t.ns, t.stage, 0, 0, tiles * layers, 0};
+  return Ring<W>{reinterpret_cast<W*>(stages), t.ns, t.stage, 0, 0, tiles * layers, 0};
 }
 
 // Issues the next stage (all threads; one commit group per stage, empty past
-// the last layer).
-template <bool kBwd>
-__device__ __forceinline__ void issue(Ring& q, const Net& net, int rank) {
+// the last layer). A bf16 stage is filled through registers, each weight
+// rounded on its way: its stores are done when issue returns, and the
+// barrier of next_stage publishes them with the copies' wait.
+template <bool kBwd, typename W>
+__device__ __forceinline__ void issue(Ring<W>& q, const Net& net, int rank) {
   if (q.pos < q.end) {
     const int walk = q.pos % (net.n + 1);
     const int l = kBwd ? net.n - walk : walk;
@@ -208,15 +249,21 @@ __device__ __forceinline__ void issue(Ring& q, const Net& net, int rank) {
     const int rows = min(R, ks.cnt - q.row);
     if (rows > 0) {
       const float* src = net.w[l] + (size_t)(ks.c0 + q.row) * dout;
-      const int ph = phase_of(src);
-      float* dst = q.stages + (q.issued % q.ns) * q.stage + ph;
-      const int n = rows * dout, head = min(n, (4 - ph) & 3);
-      const int quads = (n - head) >> 2;
-      for (int i = threadIdx.x; i < quads; i += blockDim.x)
-        cp_async16(dst + head + 4 * i, src + head + 4 * i);
-      for (int i = threadIdx.x; i < head; i += blockDim.x) cp_async4(dst + i, src + i);
-      for (int i = head + 4 * quads + threadIdx.x; i < n; i += blockDim.x)
-        cp_async4(dst + i, src + i);
+      const int ph = phase_of<W>(src);
+      W* dst = q.stages + (q.issued % q.ns) * q.stage + ph;
+      const int n = rows * dout;
+      if constexpr (std::is_same<W, float>::value) {
+        const int head = min(n, (4 - ph) & 3);
+        const int quads = (n - head) >> 2;
+        for (int i = threadIdx.x; i < quads; i += blockDim.x)
+          cp_async16(dst + head + 4 * i, src + head + 4 * i);
+        for (int i = threadIdx.x; i < head; i += blockDim.x) cp_async4(dst + i, src + i);
+        for (int i = head + 4 * quads + threadIdx.x; i < n; i += blockDim.x)
+          cp_async4(dst + i, src + i);
+      } else {
+#pragma unroll 4
+        for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __float2bfloat16_rn(__ldg(src + i));
+      }
     }
     q.row += R;
     if (q.row >= ks.cnt) {
@@ -231,23 +278,24 @@ __device__ __forceinline__ void issue(Ring& q, const Net& net, int rank) {
 // The next stage, landed and visible to the whole CTA; refills the ring
 // (into the stage every thread has finished with). All threads call it.
 // Returns where the stage holds the block rows whose global start is src.
-template <bool kBwd>
-__device__ __forceinline__ const float* next_stage(Ring& q, const Net& net, int rank,
-                                                   const float* src) {
+template <bool kBwd, typename W>
+__device__ __forceinline__ const W* next_stage(Ring<W>& q, const Net& net, int rank,
+                                               const float* src) {
   cp_async_wait(q.ns - 2);
   __syncthreads();
-  const float* s = q.stages + ((q.issued - (q.ns - 1)) % q.ns) * q.stage + phase_of(src);
+  const W* s = q.stages + ((q.issued - (q.ns - 1)) % q.ns) * q.stage + phase_of<W>(src);
   issue<kBwd>(q, net, rank);
   return s;
 }
 
-// An input tile, feature-major: dst[k * trp + r] = src[(row0 + r) * ld + c0
-// + k] for k < cnt, r < tr, zeros past the batch's nrows rows.
+// An input tile, feature-major: dst[k * trp + r] = op<W>(src[(row0 + r) *
+// ld + c0 + k]) for k < cnt, r < tr, zeros past the batch's nrows rows.
+template <typename W>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int ld, int c0, int cnt,
                                           int row0, int nrows, int tr, int trp) {
   for (int e = threadIdx.x; e < tr * cnt; e += blockDim.x) {
     const int r = e / cnt, k = e - r * cnt;
-    dst[k * trp + r] = r < nrows ? src[(size_t)(row0 + r) * ld + c0 + k] : 0.f;
+    dst[k * trp + r] = r < nrows ? op<W>(src[(size_t)(row0 + r) * ld + c0 + k]) : 0.f;
   }
 }
 
@@ -262,9 +310,10 @@ __device__ __forceinline__ void all_gather(cg::cluster_group& cluster, float* ds
 // Forward partial product of one layer: for items i = threadIdx.x + p
 // blockDim.x < n (row group i / dout, output column i % dout), acc[p] =
 // sum over the CTA's block rows k, in order, of h[k][rows of the group] *
-// W_l[k, column]. h: the CTA's slice of the layer input (feature-major).
-template <int kP>
-__device__ __forceinline__ void fwd_product(Ring& q, const Net& net, int rank, int l,
+// W_l[k, column]. h: the CTA's slice of the layer input (feature-major),
+// held as operands (rounded for bf16).
+template <int kP, typename W>
+__device__ __forceinline__ void fwd_product(Ring<W>& q, const Net& net, int rank, int l,
                                             const Slice& ks, const float* h, int trp, int n,
                                             float4 (&acc)[kMaxItems]) {
   const int dout = net.dims[l + 1];
@@ -281,7 +330,7 @@ __device__ __forceinline__ void fwd_product(Ring& q, const Net& net, int rank, i
   }
   for (int r0 = 0; r0 < max(ks.cnt, 1); r0 += R) {
     const float* src = net.w[l] + (size_t)(ks.c0 + r0) * dout;
-    const float* w = next_stage<false>(q, net, rank, src);
+    const W* w = next_stage<false>(q, net, rank, src);
     const int rows = min(R, ks.cnt - r0);
     if (!any) continue;
     const float* hk = h + r0 * trp;
@@ -289,7 +338,7 @@ __device__ __forceinline__ void fwd_product(Ring& q, const Net& net, int rank, i
     for (int k = 0; k < rows; ++k, w += dout, hk += trp) {
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
-        const float wv = w[wo[p]];
+        const float wv = ld_w(w + wo[p]);
         const float4 hv = *reinterpret_cast<const float4*>(hk + ho[p]);
         acc[p].x = fmaf(hv.x, wv, acc[p].x);
         acc[p].y = fmaf(hv.y, wv, acc[p].y);
@@ -303,6 +352,7 @@ __device__ __forceinline__ void fwd_product(Ring& q, const Net& net, int rank, i
 // Cluster c walks row tiles c, c + clusters, ...; every tile starts with a
 // cluster arrive whose wait comes before the tile's first write into another
 // CTA, so none writes into a CTA that has not finished the last tile.
+template <typename W>
 __global__ void __launch_bounds__(kMaxThreads)
 fwd_cluster_kernel(Net net, Tiling t, const float* __restrict__ x, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
@@ -310,8 +360,8 @@ fwd_cluster_kernel(Net net, Tiling t, const float* __restrict__ x, float* __rest
   const int rank = static_cast<int>(cluster.block_rank());
   // partials of layer l at smem + (l & 1) * part_floats: [source rank][column][row]
   const int part_floats = kCluster * t.kw * t.trp;
-  float* h = smem + 2 * part_floats;  // this CTA's slice of the layer input
-  Ring q = make_ring(h + t.kw * t.trp, t, net.n + 1);
+  float* h = smem + 2 * part_floats;  // this CTA's slice of the layer input, as operands
+  Ring<W> q = make_ring<W>(h + t.kw * t.trp, t, net.n + 1);
   const int d0 = net.dims[0];
   const Slice xs = slice_of(d0, rank);
   for (int i = 0; i < t.ns - 1; ++i) issue<false>(q, net, rank);
@@ -321,7 +371,7 @@ fwd_cluster_kernel(Net net, Tiling t, const float* __restrict__ x, float* __rest
     const int nrows = min(t.tr, net.B - row0);
     __syncthreads();  // the last tile's reads of h and the partials are done
     cluster_arrive();
-    load_tile(h, x, d0, xs.c0, xs.cnt, row0, nrows, t.tr, t.trp);
+    load_tile<W>(h, x, d0, xs.c0, xs.cnt, row0, nrows, t.tr, t.trp);
     for (int l = 0; l <= net.n; ++l) {
       const int din = net.dims[l], dout = net.dims[l + 1];
       const bool last = l == net.n;
@@ -392,7 +442,7 @@ fwd_cluster_kernel(Net net, Tiling t, const float* __restrict__ x, float* __rest
         }
         if (!last)
           *reinterpret_cast<float4*>(h + jj * t.trp + rg * RB) =
-              make_float4(v[0], v[1], v[2], v[3]);
+              make_float4(op<W>(v[0]), op<W>(v[1]), op<W>(v[2]), op<W>(v[3]));
       }
     }
   }
@@ -404,11 +454,13 @@ fwd_cluster_kernel(Net net, Tiling t, const float* __restrict__ x, float* __rest
 // fixed butterfly). The leading lane recomputes h at its rows from the
 // pre-activations and mask (loaded before the product), writes dx or
 // d(mask), all-gathers the next g_a into `gnext` of every CTA (l > 0) and
-// keeps h in hs.
+// keeps h in hs, as the dW product's operand. g_a is gathered in float32
+// (the db sums read it) and rounded where the product loads it.
+template <typename W>
 __device__ __forceinline__ void bwd_stage(cg::cluster_group& cluster, const Net& net,
                                           const BwdOut& o, const Tiling& t, int l,
                                           const Slice& ks, int r0, int rows, int kparts,
-                                          const float* w, const float* g, float* gnext,
+                                          const W* w, const float* g, float* gnext,
                                           float* hs, int row0) {
   const int G = t.tr / RB;
   const int din = net.dims[l], dout = net.dims[l + 1];
@@ -432,12 +484,12 @@ __device__ __forceinline__ void bwd_stage(cg::cluster_group& cluster, const Net&
   }
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   if (item < n) {
-    const float* wr = w + (s - r0) * dout;
+    const W* wr = w + (s - r0) * dout;
     const float* gr = g + rg * RB;
 #pragma unroll 4
     for (int j = part; j < dout; j += kparts) {
-      const float wv = wr[j];
-      const float4 gv = *reinterpret_cast<const float4*>(gr + j * t.trp);
+      const float wv = ld_w(wr + j);
+      const float4 gv = op4<W>(*reinterpret_cast<const float4*>(gr + j * t.trp));
       acc.x = fmaf(gv.x, wv, acc.x);
       acc.y = fmaf(gv.y, wv, acc.y);
       acc.z = fmaf(gv.z, wv, acc.z);
@@ -475,7 +527,8 @@ __device__ __forceinline__ void bwd_stage(cg::cluster_group& cluster, const Net&
     }
     ga[r] = act_vjp(act, av[r], gp);
   }
-  *reinterpret_cast<float4*>(hs + s * t.trp + rg * RB) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+  *reinterpret_cast<float4*>(hs + s * t.trp + rg * RB) =
+      make_float4(op<W>(hv[0]), op<W>(hv[1]), op<W>(hv[2]), op<W>(hv[3]));
   if (l > 0)
     all_gather(cluster, gnext, k * t.trp + rg * RB, make_float4(ga[0], ga[1], ga[2], ga[3]));
 }
@@ -483,7 +536,9 @@ __device__ __forceinline__ void bwd_stage(cg::cluster_group& cluster, const Net&
 // This CTA's rows of the dW partial, h[:, rows]^T g_a over the tile's rows:
 // a warp takes DS block rows and 32 DJ outputs j (lane + 32 q), so each
 // shared-memory load feeds several products. `first`: the cluster's first
-// tile, which writes the partial; later tiles add to it.
+// tile, which writes the partial; later tiles add to it. hs holds operands;
+// g_a is rounded here.
+template <typename W>
 __device__ __forceinline__ void dw_rows(const Tiling& t, const Slice& ks, int dout,
                                         const float* hs, const float* g, float* pw,
                                         bool first) {
@@ -509,7 +564,7 @@ __device__ __forceinline__ void dw_rows(const Tiling& t, const Slice& ks, int do
 #pragma unroll
       for (int b = 0; b < DS; ++b) hv[b] = h4[b][r];
 #pragma unroll
-      for (int q = 0; q < DJ; ++q) gv[q] = g4[q][r];
+      for (int q = 0; q < DJ; ++q) gv[q] = op4<W>(g4[q][r]);
 #pragma unroll
       for (int b = 0; b < DS; ++b)
 #pragma unroll
@@ -537,6 +592,7 @@ __device__ __forceinline__ void dw_rows(const Tiling& t, const Slice& ks, int do
 
 // Tiles as in the forward; a cluster's dW and db partials add its tiles in
 // the order it walks them.
+template <typename W>
 __global__ void __launch_bounds__(kMaxThreads)
 bwd_cluster_kernel(Net net, Tiling t, BwdOut o) {
   extern __shared__ __align__(16) float smem[];
@@ -546,7 +602,7 @@ bwd_cluster_kernel(Net net, Tiling t, BwdOut o) {
   // g_a at walk position pos is at smem + (pos & 1) * tile_floats
   const int tile_floats = t.gw * t.trp;
   float* hs = smem + 2 * tile_floats;  // this CTA's slice of the layer input, recomputed
-  Ring q = make_ring(hs + t.kw * t.trp, t, net.n + 1);
+  Ring<W> q = make_ring<W>(hs + t.kw * t.trp, t, net.n + 1);
   const int dlast = net.dims[net.n + 1];
   for (int i = 0; i < t.ns - 1; ++i) issue<true>(q, net, rank);
   const int G = t.tr / RB;
@@ -556,7 +612,7 @@ bwd_cluster_kernel(Net net, Tiling t, BwdOut o) {
     const bool first = tile == cid;
     __syncthreads();  // the last tile's reads of g_a and hs are done
     cluster_arrive();
-    load_tile(smem, o.g, dlast, 0, dlast, row0, nrows, t.tr, t.trp);
+    load_tile<float>(smem, o.g, dlast, 0, dlast, row0, nrows, t.tr, t.trp);
     for (int pos = 0; pos <= net.n; ++pos) {
       const int l = net.n - pos;
       const int din = net.dims[l], dout = net.dims[l + 1];
@@ -566,7 +622,7 @@ bwd_cluster_kernel(Net net, Tiling t, BwdOut o) {
       const int R = stage_rows(q.stage, dout);
       for (int r0 = 0; r0 < max(ks.cnt, 1); r0 += R) {
         const float* src = net.w[l] + (size_t)(ks.c0 + r0) * dout;
-        const float* w = next_stage<true>(q, net, rank, src);
+        const W* w = next_stage<true>(q, net, rank, src);
         const int rows = min(R, ks.cnt - r0);
         if (pos == 0 && r0 == 0) cluster_wait();  // every CTA of the cluster is on this tile
         // lanes per item: the most (up to 32) that keep every item on a thread
@@ -576,7 +632,7 @@ bwd_cluster_kernel(Net net, Tiling t, BwdOut o) {
         bwd_stage(cluster, net, o, t, l, ks, r0, rows, kparts, w, g, gnext, hs, row0);
       }
       __syncthreads();
-      dw_rows(t, ks, dout, hs, g, o.pw[l] + (size_t)cid * din * dout, first);
+      dw_rows<W>(t, ks, dout, hs, g, o.pw[l] + (size_t)cid * din * dout, first);
       // this CTA's share of the db partial: g_a summed over the tile's rows
       if (o.pb[l]) {
         const Slice js = slice_of(dout, rank);
@@ -647,8 +703,9 @@ long long scratch_floats(const Net& net, int clusters) {
 }
 
 // Checks the plan against net (the formulas of launch_plan in fused_mlp.py)
-// and fills the tiling of one direction.
-bool tiling_of(const Net& net, const int* plan, bool bwd, Tiling& t) {
+// and fills the tiling of one direction; wbytes: bytes of a ring element (4
+// float32, 2 bf16).
+bool tiling_of(const Net& net, const int* plan, bool bwd, int wbytes, Tiling& t) {
   const int tr = plan[kPlanTileRows], threads = plan[kPlanThreads];
   if (plan[kPlanCluster] != kCluster || tr < RB || tr > kMaxTileRows || tr % RB) return false;
   const int tiles = plan[kPlanRowTiles], clusters = plan[kPlanClusters];
@@ -678,7 +735,7 @@ bool tiling_of(const Net& net, const int* plan, bool bwd, Tiling& t) {
   if (items > threads) return false;
   const long long floats = bwd ? 2LL * t.gw * t.trp + (long long)t.kw * t.trp
                                : 2LL * kCluster * t.kw * t.trp + (long long)t.kw * t.trp;
-  const long long bytes = 4 * (floats + (long long)t.ns * t.stage);
+  const long long bytes = 4 * floats + (long long)wbytes * t.ns * t.stage;
   return bytes == plan[bwd ? kPlanBwdSmem : kPlanFwdSmem] && bytes <= kSmemMax;
 }
 
@@ -729,12 +786,15 @@ const char* fused_mlp_error(int e) {
                : cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// How many clusters of the forward (backward = 0) or backward kernel the card
-// holds at once with this many threads and bytes of shared memory per CTA.
-// Returns 0 or a cudaError_t.
-int fused_mlp_max_clusters(int backward, int threads, int smem, int* clusters) {
-  const void* kernel = backward ? reinterpret_cast<const void*>(bwd_cluster_kernel)
-                                : reinterpret_cast<const void*>(fwd_cluster_kernel);
+// How many clusters of the forward (backward = 0) or backward kernel, of the
+// float32 (bf16 = 0) or bf16 operands, the card holds at once with this many
+// threads and bytes of shared memory per CTA. Returns 0 or a cudaError_t.
+int fused_mlp_max_clusters(int backward, int bf16, int threads, int smem, int* clusters) {
+  const void* kernel =
+      backward ? (bf16 ? reinterpret_cast<const void*>(bwd_cluster_kernel<__nv_bfloat16>)
+                       : reinterpret_cast<const void*>(bwd_cluster_kernel<float>))
+               : (bf16 ? reinterpret_cast<const void*>(fwd_cluster_kernel<__nv_bfloat16>)
+                       : reinterpret_cast<const void*>(fwd_cluster_kernel<float>));
   *clusters = 0;
   int e = set_smem(kernel, smem);
   if (e == cudaSuccess) {
@@ -747,24 +807,25 @@ int fused_mlp_max_clusters(int backward, int threads, int smem, int* clusters) {
 }
 
 // Returns 0, a cudaError_t, or -1 for arguments or a plan the kernels do not
-// take. w, b, m, a: arrays of device pointers (b and m entries may be null);
-// plan: kPlanLen ints from launch_plan.
-int fused_mlp_fwd(int n_hidden, int B, const int* dims, const int* acts,
+// take. bf16: the bf16-operand instance (else float32). w, b, m, a: arrays of
+// device pointers (b and m entries may be null); plan: kPlanLen ints from
+// launch_plan (for the same operands).
+int fused_mlp_fwd(int n_hidden, int B, const int* dims, const int* acts, int bf16,
                   const void* const* w, const void* const* b, const void* const* m,
                   void* const* a, const void* x, void* out, const int* plan, void* stream) {
   Net net;
   Tiling t;
   if (!fill_net(net, n_hidden, B, dims, acts, w, b, m, a) || !x || !out ||
-      !tiling_of(net, plan, false, t))
+      !tiling_of(net, plan, false, bf16 ? 2 : 4, t))
     return -1;
-  return launch_clusters(fwd_cluster_kernel, plan, plan[kPlanFwdSmem],
-                         static_cast<cudaStream_t>(stream), net, t,
-                         static_cast<const float*>(x), static_cast<float*>(out));
+  const auto kernel = bf16 ? fwd_cluster_kernel<__nv_bfloat16> : fwd_cluster_kernel<float>;
+  return launch_clusters(kernel, plan, plan[kPlanFwdSmem], static_cast<cudaStream_t>(stream),
+                         net, t, static_cast<const float*>(x), static_cast<float*>(out));
 }
 
 // dw: n_hidden + 1 outputs; db, dm: arrays with null where absent; scratch:
 // plan[kPlanScratch] floats (null when that is 0).
-int fused_mlp_bwd(int n_hidden, int B, const int* dims, const int* acts,
+int fused_mlp_bwd(int n_hidden, int B, const int* dims, const int* acts, int bf16,
                   const void* const* w, const void* const* m, void* const* a,
                   const void* x, const void* g, void* dx, void* const* dw,
                   void* const* db, void* const* dm, void* scratch, const int* plan,
@@ -772,7 +833,7 @@ int fused_mlp_bwd(int n_hidden, int B, const int* dims, const int* acts,
   Net net;
   Tiling t;
   if (!fill_net(net, n_hidden, B, dims, acts, w, nullptr, m, a) || !x || !g || !dx ||
-      !tiling_of(net, plan, true, t))
+      !tiling_of(net, plan, true, bf16 ? 2 : 4, t))
     return -1;
   const int parts = plan[kPlanClusters];
   if (parts > 1 && !scratch) return -1;
@@ -817,7 +878,8 @@ int fused_mlp_bwd(int n_hidden, int B, const int* dims, const int* acts,
     }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = launch_clusters(bwd_cluster_kernel, plan, plan[kPlanBwdSmem], s, net, t, o);
+  const auto kernel = bf16 ? bwd_cluster_kernel<__nv_bfloat16> : bwd_cluster_kernel<float>;
+  int e = launch_clusters(kernel, plan, plan[kPlanBwdSmem], s, net, t, o);
   if (e != cudaSuccess || parts == 1) return e;
   sum_partials_kernel<<<ceil_div(sums.start[sums.segs], 256), 256, 0, s>>>(sums);
   return cudaGetLastError();

@@ -7,8 +7,10 @@
 //
 // The step (make_step_impl of prob_mbrl_tpu/ops/pallas/fused_rollout.py,
 // :1079-1129):
-//   policy MLP -> DiagGaussian sample -> max_u * tanh(.) + eps
-//   -> whitened cat(s, a) -> dynamics MLP -> scaled DiagGaussian sample, or
+//   [angle-embedded, input-dropped] s -> policy MLP [-> output nonlinearity]
+//   -> DiagGaussian sample -> max_u * tanh(.) + eps
+//   -> [angle-embedded] cat(s, a), whitened [, input-dropped] -> dynamics MLP
+//      [-> output nonlinearity] -> scaled DiagGaussian sample, or
 //      a GaussianMixtureDensity's straight-through pick of one of its K
 //      scaled components (Gumbel-softmax weights, inverse-CDF hard pick)
 //   -> nxt = s + delta -> the reward on the pre-MM nxt (JAX calls the env's
@@ -30,6 +32,8 @@ constexpr int kMaxU = 4;     // action dims
 constexpr int kMaxTip = 4;   // coordinates of the reward's tip
 constexpr int kTries = 8;    // jitters of the safe Cholesky
 constexpr int kMaxK = 5;     // components of a mixture dynamics head
+// widest MLP input: the dynamics' D + U with every state dim angle-embedded
+constexpr int kMaxX = 2 * kMaxD + kMaxU;
 
 // StepArgs::reward_kind, with d = (M nxt - target) / norm:
 constexpr int kExpQuadReward = 0;  // r = exp(-0.5 (q |d|^2 + r_u |a|^2))
@@ -82,6 +86,14 @@ struct StepArgs {
   float tip[kMaxTip * kMaxD];  // tip = tip_matrix @ nxt, [ntip, D] row-major
   float target[kMaxTip];
   float norm, q_scale, r_scale;
+  // the model options of the policy's MLP ([0]) and the dynamics' ([1]):
+  const float* m_in[2];  // input dropout mask [B, din] (null: none)
+  int out_act[2];        // output nonlinearity (an Act; kIdentity: none)
+  // MLP input k is in_map[net][k] = 3 i + kind of source i (the states, then
+  // the actions for the dynamics): kind 0 the value, 1 its sin, 2 its cos
+  // (ops/angles.py to_complex: the other dims, then sin, then cos); bytes,
+  // as Step is a kernel parameter, with the others within 4 KB
+  signed char in_map[2][kMaxX];
 };
 
 namespace {
@@ -96,6 +108,9 @@ struct Step {
   float act_scale[kMaxU], act_bias[kMaxU];
   float tip[kMaxTip * kMaxD], target[kMaxTip];
   float norm, q_scale, r_scale;
+  const float* m_in[2];
+  int out_act[2];
+  signed char in_map[2][kMaxX];
 };
 
 __device__ __forceinline__ float softplus_f(float y) {
@@ -282,9 +297,22 @@ bool fill_step(Step& st, const StepArgs* a) {
   if (a->reward_kind == kLearnedReward && a->ntip != 0) return false;
   if (!fill_mlp(st.pol, a->pol, a->B) || !fill_mlp(st.dyn, a->dyn, a->B)) return false;
   const int D = a->D, U = a->U, E = head_dims(a->reward_kind, D);
-  if (st.pol.dims[0] != D || st.pol.dims[st.pol.n + 1] != 2 * U
-      || st.dyn.dims[0] != D + U || st.dyn.dims[st.dyn.n + 1] != head_width(a->K, E))
+  if (st.pol.dims[0] < D || st.pol.dims[0] > 2 * D || st.pol.dims[st.pol.n + 1] != 2 * U
+      || st.dyn.dims[0] < D + U || st.dyn.dims[0] > kMaxX
+      || st.dyn.dims[st.dyn.n + 1] != head_width(a->K, E))
     return false;
+  for (int id = 0; id < 2; ++id) {
+    const Net& net = id ? st.dyn : st.pol;
+    const int sources = id ? D + U : D;
+    st.m_in[id] = a->m_in[id];
+    st.out_act[id] = a->out_act[id];
+    if (st.out_act[id] < 0 || st.out_act[id] >= kNumActs) return false;
+    for (int k = 0; k < kMaxX; ++k) {
+      st.in_map[id][k] = a->in_map[id][k];
+      if (k < net.dims[0] && (st.in_map[id][k] < 0 || st.in_map[id][k] >= 3 * sources))
+        return false;
+    }
+  }
   st.B = a->B;
   st.D = D;
   st.U = U;

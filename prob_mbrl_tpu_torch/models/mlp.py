@@ -9,11 +9,14 @@ converting a JAX params tree is a name-for-name copy. ``apply`` maps [...,
 input_dims] to [..., output_dims]; dropout noise carries matching batch dims.
 
 ``compute_dtype`` (e.g. ``'bfloat16'``) runs the linear layers on operands
-rounded to that dtype with float32 accumulation and bias, narrows each hidden
-layer's epilogue back to it, and returns float32; parameters, layer-norm
-statistics and the heads stay float32. The fused kernel
-(``ops.cuda.fused_mlp``) takes none of layer norm, spectral norm and
-``compute_dtype``: they run on the unfused path.
+rounded to that dtype with float32 accumulation and bias; parameters,
+layer-norm statistics and the heads stay float32, and the output is float32.
+The unfused path narrows each hidden layer's epilogue back to it, as JAX's
+XLA path does. The fused kernel (``ops.cuda.fused_mlp``) takes bf16 operands
+with ``fused=True`` and keeps the activations between layers float32, as
+JAX's Pallas kernel does; ``fused=None`` keeps a bf16 MLP on the unfused
+path on every device, so the results of a ``--dtype bfloat16`` driver do not
+depend on the device. The kernel takes neither layer norm nor spectral norm.
 """
 import dataclasses
 import math
@@ -26,8 +29,25 @@ from ..utils.core import resolve_device
 from . import activations as act_lib
 from .dropout import BernoulliDropoutSpec, ConcreteDropoutSpec, DropoutSpec
 
-BF16_KERNEL_ITEM = ('ROADMAP.md Queue 2: bf16 operands in the fused MLP, '
-                    'rows 1-2')
+
+def spectral_weight(p, max_K, iters):
+    """The weight a linear layer's params ``p`` apply: ``p['w']``, or with
+    spectral norm (``sn_u`` in ``p``) ``max_K * sigmoid(sn_scale) * w /
+    sigma``, sigma = u^T w v from ``iters`` power iterations from the stored
+    ``sn_u`` (no gradient through the iterations, differentiable through
+    sigma). A function of the params alone: the fused rollout kernels take
+    it, computed once a launch, as their weight."""
+    w = p['w']
+    if 'sn_u' not in p:
+        return w
+    u, w_ng = p['sn_u'].detach(), w.detach()
+    for _ in range(iters):
+        v = w_ng.T @ u
+        v = v / (torch.linalg.norm(v) + 1e-12)
+        u = w_ng @ v
+        u = u / (torch.linalg.norm(u) + 1e-12)
+    sigma = u @ (w @ v)
+    return max_K * torch.sigmoid(p['sn_scale']) * w / sigma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +75,11 @@ class MLPSpec:
     sn_iters: int = 1
     # The fused CUDA kernel for the whole Linear/activation/mask chain
     # (``ops.cuda.fused_mlp``). None = on for CUDA inputs when the kernel
-    # takes the configuration; True = always (the plain version of the
-    # kernel on CPU inputs), and a configuration the kernel cannot take is
-    # refused when the spec is built; False = the unfused path.
+    # takes the configuration and compute_dtype is None (a bf16 MLP stays
+    # unfused, on every device); True = always, bf16 operands included (the
+    # plain version of the kernel on CPU inputs), and a configuration the
+    # kernel cannot take is refused when the spec is built; False = the
+    # unfused path.
     fused: Optional[bool] = None
 
     def __post_init__(self):
@@ -77,12 +99,9 @@ class MLPSpec:
                                    or self.spectral_norm_output):
             raise ValueError('fused=True but the fused kernel takes neither '
                              'layer norm nor spectral norm')
-        if self.fused is True and self.compute_dtype is not None:
-            raise NotImplementedError(
-                f'fused=True with compute_dtype={self.compute_dtype!r}: the '
-                'fused kernel\'s low-precision operands are not ported yet '
-                f'({BF16_KERNEL_ITEM})')
-        if self.fused is True and not self._kernel_takes_it():
+        if self.fused is True:
+            fm.operand_dtype(self._compute_dtype())  # None or bf16, or raise
+        if self.fused is True and not self._kernel_fits():
             raise ValueError(
                 'fused=True but the fused kernel does not take this MLP: it '
                 f'needs 1 to {fm.MAX_LAYERS - 1} hidden layers, widths <= '
@@ -154,12 +173,17 @@ class MLPSpec:
                              'torch dtype')
         return dt
 
-    def _kernel_takes_it(self):
-        if (self.layer_norm or self.spectral_norm or self.spectral_norm_output
-                or self.compute_dtype is not None):
+    def _kernel_fits(self):
+        """The kernel takes this MLP's layers (widths, activations, no
+        norms), whatever its operands."""
+        if self.layer_norm or self.spectral_norm or self.spectral_norm_output:
             return False
         dims = (self.input_dims,) + self.hidden_dims + (self.output_dims,)
         return fm.fused_mlp_supported(dims, self.nonlin)
+
+    def _kernel_takes_it(self):
+        """``fused=None`` runs the kernel: float32 and ``_kernel_fits``."""
+        return self.compute_dtype is None and self._kernel_fits()
 
     def _use_fused(self, x):
         if self.fused is None:
@@ -187,7 +211,8 @@ class MLPSpec:
             else:
                 masks.append(None)
         h2 = h.reshape(-1, h.shape[-1]).contiguous()
-        out = fm.fused_mlp(h2, ws, bs, masks, self.nonlin)
+        out = fm.fused_mlp(h2, ws, bs, masks, self.nonlin,
+                           self._compute_dtype())
         out = out.reshape(batch_shape + (self.output_dims,))
         if self.output_nonlin is not None:
             out = act_lib.get(self.output_nonlin)(out)
@@ -200,18 +225,7 @@ class MLPSpec:
         cdt = self._compute_dtype()
 
         def linear(p, h):
-            w, b = p['w'], p.get('b')
-            if 'sn_u' in p:
-                # spectral norm: power iterations from the stored vector
-                # with no gradient, differentiable through sigma = u^T w v
-                u, w_ng = p['sn_u'].detach(), w.detach()
-                for _ in range(self.sn_iters):
-                    v = w_ng.T @ u
-                    v = v / (torch.linalg.norm(v) + 1e-12)
-                    u = w_ng @ v
-                    u = u / (torch.linalg.norm(u) + 1e-12)
-                sigma = u @ (w @ v)
-                w = self.sn_max_K * torch.sigmoid(p['sn_scale']) * w / sigma
+            w, b = self.weight(p), p.get('b')
             if cdt is not None:
                 # operands rounded to cdt, products and sums in float32
                 # (a matmul of cdt tensors would round its result to cdt
@@ -248,6 +262,12 @@ class MLPSpec:
         if self.output_nonlin is not None:
             h = act_lib.get(self.output_nonlin)(h)
         return h.float() if cdt is not None else h
+
+    def weight(self, p):
+        """The weight that linear layer params ``p`` apply
+        (``spectral_weight`` with this spec's ``sn_max_K`` and
+        ``sn_iters``)."""
+        return spectral_weight(p, self.sn_max_K, self.sn_iters)
 
     # ---- regularization ---------------------------------------------------
     def regularization_loss(self, params):

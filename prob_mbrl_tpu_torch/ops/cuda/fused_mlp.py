@@ -13,10 +13,18 @@ differentiable inputs: the backward returns ``d(mask) = g_h * act(a)``,
 which carries the straight-through concrete-dropout gradient to
 ``logit_p`` outside the kernel.
 
+``compute_dtype='bfloat16'`` runs the kernels' bf16-operand instances, as
+the Pallas kernel's ``compute_dtype`` does: each product rounds both of its
+operands to bf16 and accumulates in float32 (the forward's ``x W_l``, the
+backward's ``h_l^T g_a`` and ``g_a W_l^T``); bias, activation and its VJP,
+masks, d(mask), db, the saved pre-activations, the activations between
+layers and every output stay float32.
+
 ``fused_mlp`` launches the kernels for CUDA tensors and raises if it cannot.
 For CPU tensors it runs the plain version ``fused_mlp_plain``, whose gradients
-come from autograd; that is the only case in which the plain version stands
-in for a kernel.
+come from autograd (with bf16 operands, from a backward that rounds where
+the kernel does); that is the only case in which the plain version stands in
+for a kernel.
 """
 import collections
 import ctypes
@@ -32,13 +40,16 @@ KERNEL_ACTS = ('relu', 'swish', 'exp', 'sin', 'sinlu', 'tanh', 'identity')
 MAX_LAYERS = 8      # kMaxLayers: linear layers, hidden + output
 MAX_WIDTH = 1000    # kMaxWidth
 
-# launches of each kernel since the last reset_launch_counts()
+# launches of each kernel since the last reset_launch_counts(): the float32
+# instances, and the bf16-operand ones
 LAUNCHES = {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+LAUNCHES_BF16 = {'fused_mlp_fwd_bf16': 0, 'fused_mlp_bwd_bf16': 0}
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
 
 
 def fused_mlp_supported(dims, nonlins):
@@ -77,16 +88,34 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def operand_dtype(compute_dtype):
+    """The kernels' operand dtype for ``compute_dtype``: None (float32) for
+    None or float32, ``torch.bfloat16`` for bf16; raises for any other."""
+    if compute_dtype is None:
+        return None
+    dt = compute_dtype
+    if not isinstance(dt, torch.dtype):
+        dt = getattr(torch, str(compute_dtype), None)
+    if dt == torch.float32:
+        return None
+    if dt != torch.bfloat16:
+        raise ValueError(f'the fused kernels take compute_dtype None, float32 '
+                         f'or bfloat16, not {compute_dtype!r}')
+    return dt
+
+
 @functools.lru_cache(maxsize=None)
-def launch_plan(dims, B):
-    """The kernels' launch plan for an MLP of widths ``dims`` at batch B.
+def launch_plan(dims, B, bf16=False):
+    """The kernels' launch plan for an MLP of widths ``dims`` at batch B,
+    with float32 or (``bf16``) bf16 operands.
 
     ``row_tiles`` tiles of ``tile_rows`` batch rows, walked by ``clusters``
     clusters of ``CLUSTER`` CTAs (cluster c takes tiles c, c + clusters,
     ...; the grid is ``CLUSTER * clusters`` CTAs) of ``threads`` threads.
     CTA r owns rows [r kw, (r + 1) kw) of each W_l, kw = ceil(d_l /
     CLUSTER), and streams them through a ring of ``*_stages`` stages of
-    ``stage`` floats (whole rows, plus 4 for the 16-byte phase). Besides
+    ``stage`` elements (whole rows, plus 4 for the 16-byte phase), each of 4
+    bytes, or of 2 with ``bf16``, whose ring is bf16. Besides
     the ring, a forward CTA holds two sets of partials [CLUSTER, kw, rows]
     and its slice of the layer input [kw, rows]; a backward CTA two
     gathered g_a tiles [d, rows] and its slice of the layer input; rows are
@@ -99,6 +128,7 @@ def launch_plan(dims, B):
     """
     dims = tuple(int(d) for d in dims)
     B = int(B)
+    wb = 2 if bf16 else 4  # bytes of a ring element
     layers = list(zip(dims[:-1], dims[1:]))
     kw = max(_cdiv(d, CLUSTER) for d in dims)
     gw = max(dims[1:])
@@ -118,8 +148,10 @@ def launch_plan(dims, B):
             max(items, groups * gw), 32)))
         fixed_f = 2 * CLUSTER * kw * trp + kw * trp
         fixed_b = 2 * gw * trp + kw * trp
-        ns_f = min(MAX_STAGES, n_stages, (SMEM_MAX // 4 - fixed_f) // stage)
-        ns_b = min(MAX_STAGES, n_stages, (SMEM_MAX // 4 - fixed_b) // stage)
+        ns_f = min(MAX_STAGES, n_stages,
+                   (SMEM_MAX - 4 * fixed_f) // (wb * stage))
+        ns_b = min(MAX_STAGES, n_stages,
+                   (SMEM_MAX - 4 * fixed_b) // (wb * stage))
         if ns_f >= 2 and ns_b >= 2 and items <= threads:
             break
         if tr == ROW_GROUP:
@@ -130,8 +162,8 @@ def launch_plan(dims, B):
     clusters = max(1, min(tiles, TARGET_CLUSTERS, SCRATCH_MAX // per_cluster))
     scratch = 0 if clusters == 1 else clusters * per_cluster
     return Plan(CLUSTER, tr, tiles, clusters, threads, stage,
-                ns_f, 4 * (fixed_f + ns_f * stage),
-                ns_b, 4 * (fixed_b + ns_b * stage), scratch)
+                ns_f, 4 * fixed_f + wb * ns_f * stage,
+                ns_b, 4 * fixed_b + wb * ns_b * stage, scratch)
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +171,86 @@ def launch_plan(dims, B):
 # ---------------------------------------------------------------------------
 
 
-def fused_mlp_plain(x, ws, bs, masks, nonlins):
-    """Plain PyTorch version of ``fused_mlp``, differentiated by autograd."""
+def _operand(t):
+    """t rounded to bf16 (round to nearest even), kept in float32."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _PlainBF16(torch.autograd.Function):
+    """The plain version with bf16 operands: the Pallas kernel's forward
+    (``_fwd_kernel``, ``fused_mlp.py:92-104``) and its backward
+    (``_bwd_kernel``, ``:146-176``), which rounds the operands of each
+    product. Autograd through the forward's rounding would round the
+    cotangents after the products instead; hence this backward."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *flat):
+        nonlins, has_b, has_m = cfg
+        n = len(nonlins)
+        it = iter(flat)
+        ws = [next(it) for _ in range(n + 1)]
+        bs = [next(it) if hb else None for hb in has_b]
+        ms = [next(it) if hm else None for hm in has_m]
+        h, a_res = x, []
+        for i in range(n + 1):
+            a = _operand(h) @ _operand(ws[i])
+            if bs[i] is not None:
+                a = a + bs[i]
+            if i == n:
+                break
+            a_res.append(a)
+            h = get_act(nonlins[i])(a)
+            if ms[i] is not None:
+                h = h * ms[i]
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *ws, *[m for m in ms if m is not None],
+                              *a_res)
+        return a
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        nonlins, has_b, has_m = ctx.cfg
+        n = len(nonlins)
+        it = iter(ctx.saved_tensors)
+        x = next(it)
+        ws = [next(it) for _ in range(n + 1)]
+        ms = [next(it) if hm else None for hm in has_m]
+        a_res = [next(it) for _ in range(n)]
+
+        def mm(a, b):
+            return _operand(a) @ _operand(b)
+
+        posts = [get_act(nl)(a) for nl, a in zip(nonlins, a_res)]
+        hs = [x] + [p if m is None else p * m for p, m in zip(posts, ms)]
+        dws, dbs, dms = [None] * (n + 1), [None] * (n + 1), [None] * n
+        g_a = g
+        for i in range(n, -1, -1):
+            dws[i] = mm(hs[i].T, g_a)
+            if has_b[i]:
+                dbs[i] = g_a.sum(0)
+            g_h = mm(g_a, ws[i].T)
+            if i == 0:
+                break
+            g_post = g_h
+            if ms[i - 1] is not None:
+                dms[i - 1] = g_h * posts[i - 1]
+                g_post = g_h * ms[i - 1]
+            with torch.enable_grad():
+                a = a_res[i - 1].detach().requires_grad_(True)
+                (g_a,) = torch.autograd.grad(get_act(nonlins[i - 1])(a), a,
+                                             g_post)
+        return (None, g_h, *dws, *[d for d in dbs if d is not None],
+                *[d for d in dms if d is not None])
+
+
+def fused_mlp_plain(x, ws, bs, masks, nonlins, compute_dtype=None):
+    """Plain PyTorch version of ``fused_mlp``, differentiated by autograd;
+    with bf16 ``compute_dtype``, ``_PlainBF16``."""
+    if operand_dtype(compute_dtype) is not None:
+        cfg = (tuple(nonlins), tuple(b is not None for b in bs),
+               tuple(m is not None for m in masks))
+        return _PlainBF16.apply(cfg, x, *_flat(ws, bs, masks))
     n = len(ws) - 1
     h = x
     for i in range(n + 1):
@@ -164,13 +274,13 @@ def _lib():
     if not getattr(lib, 'typed', False):
         i, p = ctypes.c_int, ctypes.c_void_p
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-        lib.fused_mlp_fwd.argtypes = [i, i, ip, ip, pp, pp, pp, pp, p, p, ip,
-                                      p]
+        lib.fused_mlp_fwd.argtypes = [i, i, ip, ip, i, pp, pp, pp, pp, p, p,
+                                      ip, p]
         lib.fused_mlp_fwd.restype = i
-        lib.fused_mlp_bwd.argtypes = [i, i, ip, ip, pp, pp, pp, p, p, p, pp,
-                                      pp, pp, p, ip, p]
+        lib.fused_mlp_bwd.argtypes = [i, i, ip, ip, i, pp, pp, pp, p, p, p,
+                                      pp, pp, pp, p, ip, p]
         lib.fused_mlp_bwd.restype = i
-        lib.fused_mlp_max_clusters.argtypes = [i, i, i, ip]
+        lib.fused_mlp_max_clusters.argtypes = [i, i, i, i, ip]
         lib.fused_mlp_max_clusters.restype = i
         lib.fused_mlp_error.argtypes = [i]
         lib.fused_mlp_error.restype = ctypes.c_char_p
@@ -192,10 +302,13 @@ def _raise(lib, name, rc):
                        f'({lib.fused_mlp_error(rc).decode()})')
 
 
-def _check(lib, name, rc):
+def _check(lib, name, rc, bf16=False):
     if rc != 0:
         _raise(lib, name, rc)
-    LAUNCHES[name] += 1
+    if bf16:
+        LAUNCHES_BF16[name + '_bf16'] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _validate(x, ws, bs, masks, nonlins):
@@ -239,43 +352,45 @@ def _validate(x, ws, bs, masks, nonlins):
     return 'cuda'
 
 
-_CLUSTERS = {}  # (device, kernel, threads, smem) -> clusters the card holds
+_CLUSTERS = {}  # (device, kernel, bf16, threads, smem) -> clusters held
 
 
-def max_clusters(device, backward, threads, smem):
-    """Clusters of the forward (or backward) kernel that the card holds at
-    once with ``threads`` threads and ``smem`` bytes of shared memory per
-    CTA (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
-    key = (torch.device(device).index, bool(backward), threads, smem)
+def max_clusters(device, backward, threads, smem, bf16=False):
+    """Clusters of the forward (or backward) kernel, of float32 or
+    (``bf16``) bf16 operands, that the card holds at once with ``threads``
+    threads and ``smem`` bytes of shared memory per CTA
+    (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+    key = (torch.device(device).index, bool(backward), bool(bf16), threads,
+           smem)
     if key not in _CLUSTERS:
         lib = _lib()
         n = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = lib.fused_mlp_max_clusters(int(backward), threads, smem,
-                                            ctypes.byref(n))
+            rc = lib.fused_mlp_max_clusters(int(backward), int(bf16), threads,
+                                            smem, ctypes.byref(n))
         if rc != 0:
             _raise(lib, 'fused_mlp_max_clusters', rc)
         _CLUSTERS[key] = n.value
     return _CLUSTERS[key]
 
 
-def _fits(device, plan, backward):
+def _fits(device, plan, backward, bf16=False):
     """Raises unless the card holds one cluster of the plan's kernel."""
     smem = plan.bwd_smem if backward else plan.fwd_smem
-    if max_clusters(device, backward, plan.threads, smem) < 1:
+    if max_clusters(device, backward, plan.threads, smem, bf16) < 1:
         raise RuntimeError(
             f'the card cannot hold a cluster of {plan.cluster} CTAs of '
             f'{plan.threads} threads and {smem} bytes of shared memory '
             f'({"backward" if backward else "forward"} kernel)')
 
 
-def _fwd_cuda(x, ws, bs, masks, nonlins):
+def _fwd_cuda(x, ws, bs, masks, nonlins, bf16=False):
     lib = _lib()
     n = len(ws) - 1
     B = x.shape[0]
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
-    plan = launch_plan(tuple(dims), B)
-    _fits(x.device, plan, False)
+    plan = launch_plan(tuple(dims), B, bf16)
+    _fits(x.device, plan, False, bf16)
     out = torch.empty((B, dims[-1]), device=x.device, dtype=x.dtype)
     a_res = [torch.empty((B, dims[i + 1]), device=x.device, dtype=x.dtype)
              for i in range(n)]
@@ -283,19 +398,19 @@ def _fwd_cuda(x, ws, bs, masks, nonlins):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_mlp_fwd(
             n, B, _ints(dims), _ints([KERNEL_ACTS.index(a) for a in nonlins]),
-            _ptrs(ws), _ptrs(bs), _ptrs(masks), _ptrs(a_res),
+            int(bf16), _ptrs(ws), _ptrs(bs), _ptrs(masks), _ptrs(a_res),
             x.data_ptr(), out.data_ptr(), _ints(plan), stream)
-    _check(lib, 'fused_mlp_fwd', rc)
+    _check(lib, 'fused_mlp_fwd', rc, bf16)
     return out, a_res
 
 
-def _bwd_cuda(x, ws, has_b, masks, a_res, nonlins, g):
+def _bwd_cuda(x, ws, has_b, masks, a_res, nonlins, g, bf16=False):
     lib = _lib()
     n = len(ws) - 1
     B = x.shape[0]
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
-    plan = launch_plan(tuple(dims), B)
-    _fits(x.device, plan, True)
+    plan = launch_plan(tuple(dims), B, bf16)
+    _fits(x.device, plan, True, bf16)
 
     def empty(*shape):
         return torch.empty(shape, device=x.device, dtype=x.dtype)
@@ -310,17 +425,18 @@ def _bwd_cuda(x, ws, has_b, masks, a_res, nonlins, g):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_mlp_bwd(
             n, B, _ints(dims), _ints([KERNEL_ACTS.index(a) for a in nonlins]),
-            _ptrs(ws), _ptrs(masks), _ptrs(a_res), x.data_ptr(),
+            int(bf16), _ptrs(ws), _ptrs(masks), _ptrs(a_res), x.data_ptr(),
             g.data_ptr(), dx.data_ptr(), _ptrs(dws), _ptrs(dbs), _ptrs(dms),
             None if scratch is None else scratch.data_ptr(), _ints(plan),
             stream)
-    _check(lib, 'fused_mlp_bwd', rc)
+    _check(lib, 'fused_mlp_bwd', rc, bf16)
     return dx, dws, dbs, dms
 
 
 class _FusedMLP(torch.autograd.Function):
     """Autograd wrapper of the kernels (CUDA tensors only): forward is
-    ``fused_mlp_fwd``, backward is ``fused_mlp_bwd``.
+    ``fused_mlp_fwd``, backward is ``fused_mlp_bwd``, of float32 or bf16
+    operands (``cfg``'s last entry).
 
     Gradient inputs are x, the weights, the present biases and the present
     masks, as in the JAX ``custom_vjp``.
@@ -328,13 +444,13 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, x, *flat):
-        nonlins, has_b, has_m = cfg
+        nonlins, has_b, has_m, bf16 = cfg
         n = len(nonlins)
         it = iter(flat)
         ws = [next(it) for _ in range(n + 1)]
         bs = [next(it) if hb else None for hb in has_b]
         ms = [next(it) if hm else None for hm in has_m]
-        out, a_res = _fwd_cuda(x, ws, bs, ms, nonlins)
+        out, a_res = _fwd_cuda(x, ws, bs, ms, nonlins, bf16)
         ctx.cfg = cfg
         ctx.save_for_backward(x, *ws, *[m for m in ms if m is not None],
                               *a_res)
@@ -342,7 +458,7 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        nonlins, has_b, has_m = ctx.cfg
+        nonlins, has_b, has_m, bf16 = ctx.cfg
         n = len(nonlins)
         it = iter(ctx.saved_tensors)
         x = next(it)
@@ -350,12 +466,17 @@ class _FusedMLP(torch.autograd.Function):
         ms = [next(it) if hm else None for hm in has_m]
         a_res = [next(it) for _ in range(n)]
         dx, dws, dbs, dms = _bwd_cuda(x, ws, has_b, ms, a_res, nonlins,
-                                      g.contiguous())
+                                      g.contiguous(), bf16)
         return (None, dx, *dws, *[d for d in dbs if d is not None],
                 *[d for d in dms if d is not None])
 
 
-def fused_mlp(x, ws, bs, masks, nonlins):
+def _flat(ws, bs, masks):
+    return ([*ws] + [b for b in bs if b is not None]
+            + [m for m in masks if m is not None])
+
+
+def fused_mlp(x, ws, bs, masks, nonlins, compute_dtype=None):
     """Fully fused dropout-MLP forward (differentiable).
 
     Args:
@@ -365,14 +486,15 @@ def fused_mlp(x, ws, bs, masks, nonlins):
       masks: n multiplicative post-activation dropout masks ([B, d_{i+1}]) or
         None entries; differentiable inputs.
       nonlins: n activation names from ``KERNEL_ACTS``.
+      compute_dtype: None (float32 operands) or bf16 (``operand_dtype``):
+        each product rounds its operands to bf16 and accumulates in float32.
 
     Returns:
-      [B, d_out] output (before any output nonlinearity).
+      [B, d_out] float32 output (before any output nonlinearity).
     """
+    bf16 = operand_dtype(compute_dtype) is not None
     if _validate(x, ws, bs, masks, nonlins) == 'cpu':
-        return fused_mlp_plain(x, ws, bs, masks, nonlins)
+        return fused_mlp_plain(x, ws, bs, masks, nonlins, compute_dtype)
     cfg = (tuple(nonlins), tuple(b is not None for b in bs),
-           tuple(m is not None for m in masks))
-    flat = ([*ws] + [b for b in bs if b is not None]
-            + [m for m in masks if m is not None])
-    return _FusedMLP.apply(cfg, x, *flat)
+           tuple(m is not None for m in masks), bf16)
+    return _FusedMLP.apply(cfg, x, *_flat(ws, bs, masks))

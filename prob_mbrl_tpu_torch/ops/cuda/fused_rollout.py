@@ -54,6 +54,17 @@ Gumbel-softmax of JAX's head from the pinned noise ``z_pi`` and ``u_cat``
 (``z_normal`` in the place of the diagonal head's ``z``); the plans count its
 rows in the tile (``mixture_rows``, the plans' ``components`` argument).
 
+The model options the kernels take (``walk_options``): spectral norm, whose
+normalized weights (``MLPSpec.weight``, a function of the params alone) are
+computed once a launch and bound as the kernels' weights, the policy's
+gradient chained back to ``w`` and ``sn_scale`` through them; input dropout,
+whose mask multiplies the MLP's input row, built as the hidden layers'
+masks are (``_masks``); an output nonlinearity of either MLP, from the
+kernels' activations (``fm.KERNEL_ACTS``); angle embedding inside either
+model (``pol.angle_dims``, ``reg.angle_dims``: ``[others, sin, cos]`` of
+the named dims, before the dynamics' whitening; ``_in_map``), which widens
+the MLP's input by the angles.
+
 One step: policy -> DiagGaussian sample -> ``max_u * tanh(.) + eps`` ->
 dynamics (whitened input, scaled DiagGaussian sample of the deltas) ->
 ``nxt = s + delta`` -> the reward on the pre-MM ``nxt`` -> the moment-matching
@@ -83,6 +94,7 @@ from ...envs.base import ExpQuadTipReward, QuadTipReward
 from ...envs.jax_lander import LanderReward
 from ...models.densities import DiagGaussianDensity, GaussianMixtureDensity
 from ...models.regressor import DynamicsModel
+from ..angles import complement_dims
 from ...parallel.sharding import mean_all_reduce
 from ...utils.core import tree_leaves, tree_map
 from .. import moment_matching as mm
@@ -94,6 +106,7 @@ MAX_D = 8        # kMaxD of csrc/fused_step.cu: state dims
 MAX_U = 4        # kMaxU: action dims
 MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
 MAX_K = 5        # kMaxK: components of a mixture dynamics head
+MAX_X = 2 * MAX_D + MAX_U  # kMaxX: widest MLP input (embedded angles)
 
 _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
 
@@ -332,10 +345,9 @@ def kernel_refuses(dyn, pol):
         return ('the step kernels take an ExpQuadTipReward whose tip is '
                 'linear in the embedded state (tip_matrix), a '
                 'QuadTipReward, a LanderReward or a learned reward')
-    if pol.angle_dims or reg.angle_dims:
-        return 'angle embedding inside the models is not in the step kernels'
     if type(pol.output_density) is not DiagGaussianDensity:
-        return 'the step kernels take a DiagGaussianDensity policy head only'
+        return ('the step kernels take a DiagGaussianDensity policy head '
+                f'only ({MODEL_OPTIONS_ITEM})')
     head = reg.output_density
     if type(head) not in (DiagGaussianDensity, GaussianMixtureDensity):
         return ('the step kernels take a DiagGaussianDensity or '
@@ -345,9 +357,9 @@ def kernel_refuses(dyn, pol):
         return (f'the step kernels take a mixture head of at most {MAX_K} '
                 f'components, not {K}')
     for spec in (pol.mlp, reg.mlp):
-        if spec.layer_norm or spec.spectral_norm or spec.spectral_norm_output:
-            return ('layer norm and spectral norm are not in the step '
-                    f'kernels ({MODEL_OPTIONS_ITEM})')
+        if spec.layer_norm:
+            return ('layer norm is not in the step kernels '
+                    f'({MODEL_OPTIONS_ITEM})')
         if spec.compute_dtype is not None:
             # JAX's fused_mode keeps bf16 off its fused tiers too
             return (f'compute_dtype={spec.compute_dtype!r} runs on the '
@@ -367,17 +379,24 @@ def kernel_refuses(dyn, pol):
     if len(pol.max_u) not in (1, U) or (pol.min_u is not None
                                         and len(pol.min_u) not in (1, U)):
         return 'action bounds must have 1 or U entries'
-    for spec, din, dout in ((pol.mlp, D, 2 * U), (reg.mlp, D + U,
-                                                   head.n_inputs)):
+    for spec, angles, sources, dout in (
+            (pol.mlp, pol.angle_dims, D, 2 * U),
+            (reg.mlp, reg.angle_dims, D + U, head.n_inputs)):
+        if len(set(angles)) != len(angles) or not all(
+                0 <= int(a) < sources for a in angles):
+            return (f'angle dims {tuple(angles)} must be distinct dims of '
+                    f'the {sources} inputs')
+        din = sources + len(angles)
         dims = (spec.input_dims,) + spec.hidden_dims + (spec.output_dims,)
         if (spec.input_dims, spec.output_dims) != (din, dout):
             return f'MLP dims {dims} do not fit D={D}, U={U}'
-        if spec.input_dropout is not None or spec.output_nonlin is not None:
-            return 'input dropout and output nonlinearities are not taken'
+        if spec.output_nonlin not in (None,) + fm.KERNEL_ACTS:
+            return (f'output nonlinearity {spec.output_nonlin!r} is not in '
+                    f'the kernels\' set {fm.KERNEL_ACTS}')
         if not fm.fused_mlp_supported(dims, spec.nonlin):
             return f'the MLP tile walk does not take dims {dims}'
     if step_plan(_mlp_dims(pol.mlp), _mlp_dims(reg.mlp), D, 2, True,
-                 components=K) is None:
+                 components=K, options=walk_options(dyn, pol)) is None:
         return 'the step kernels\' tiles do not fit in shared memory'
     return None
 
@@ -410,7 +429,8 @@ def _straddling(groups, mesh):
             'that split over the ranks (per-shard MM is then the global MM) '
             'take a fused tier; these take the utils.rollout route with '
             'all-reduced group sums')
-MODEL_OPTIONS_ITEM = 'ROADMAP.md Queue 2: the model options of rows 3-9'
+MODEL_OPTIONS_ITEM = ('ROADMAP.md Queue 2: layer norm and the other policy '
+                      'heads in rows 3-9')
 
 
 def _local_config(cfg, mesh):
@@ -574,8 +594,18 @@ def mixture_rows(dyn_dims, components):
     return dyn_dims[-1] + components + 1 if components else 0
 
 
+def walk_options(dyn, pol):
+    """The walk's layout options of these models (``walk_lay``), hashable:
+    (whether the policy MLP has its own input array, for angle embedding or
+    input dropout; whether either MLP has an output nonlinearity, whose
+    pre-activations the walk keeps)."""
+    pm, dm = pol.mlp, dyn.regressor.mlp
+    return (bool(pol.angle_dims) or pm.input_dropout is not None,
+            any(m.output_nonlin not in (None, 'identity') for m in (pm, dm)))
+
+
 def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
-                 critic_dims=None, components=0):
+                 critic_dims=None, components=0, options=None):
     """(floats, floats of one CTA's policy dW accumulator, floats of the
     policy's dW and db) of the cluster walk's shared memory for tiles of
     ``tile_rows`` rows (``walk_lay`` in ``csrc/cluster_walk.cuh``): the
@@ -587,7 +617,10 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
     MAX_U] rows each); the tile's mask slices of the hidden layers and, with
     ``bwd``, the kept hidden pre-activation slices; the tile's small arrays
     (feature-major, rows padded by 4) and, with a mixture dynamics head of
-    ``components`` K, its rows (``mixture_rows``). With ``critic_dims`` (the
+    ``components`` K, its rows (``mixture_rows``). The MLPs' input arrays
+    have ``MAX_D + MAX_U`` rows, or the widest embedded input's; with
+    ``options`` (``walk_options``) the policy's own input array and the
+    MLPs' output pre-activations besides. With ``critic_dims`` (the
     value update's critic, read in place) its widths count in the exchange
     regions and the layer-input slice, and its slices share the two MLPs'
     room, which grows to the larger of the two."""
@@ -607,7 +640,9 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
     kwmax = max(_cdiv(d, CLUSTER) for dims in walks for d in dims)
     outmax = max(dims[-1] for dims in walks)
     rw = max(CLUSTER * kwmax, max(max(d) for d in walks), CLUSTER * outmax)
-    off += 2 * rw * trp + _r4(kwmax) * trp + 3 * (MAX_D + MAX_U) * trp
+    own_input, out_pre = options or (False, False)
+    nx = max(MAX_D + MAX_U, nets[0][0], nets[1][0])
+    off += 2 * rw * trp + _r4(kwmax) * trp + (4 if own_input else 3) * nx * trp
 
     def slices(*dims_of):
         return (2 if bwd else 1) * sum(_r4(_cdiv(w, CLUSTER)) * trp
@@ -616,6 +651,8 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
 
     off += max(slices(*nets), slices(*walks[2:]))
     off += (TILE_SMALL + mixture_rows(nets[1], components)) * trp
+    if out_pre:
+        off += (nets[0][-1] + nets[1][-1]) * trp
     return off, dw, flat
 
 
@@ -629,14 +666,14 @@ def critic_dw_floats(critic_dims):
 
 
 def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
-                   resident, critic_dims=None, components=0):
+                   resident, critic_dims=None, components=0, options=None):
     """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
     dW accumulator, floats of the policy's dW and db) of a launch (``lay_of``
     in the source): the cluster walk's (``_walk_floats``, with the
     backward's buffers and the critic's widths), then the cluster's
     per-particle arrays (5 D + 6 floats each) and one partial per cluster."""
     off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident, True,
-                                 critic_dims, components)
+                                 critic_dims, components, options)
     return off + _r4(particles * (5 * D + 6)) + clusters * PART, dw, flat
 
 
@@ -659,7 +696,7 @@ def _scratch(T, clusters, resident, dw, flat, critic_dims=None, B=0, D=0,
 
 @functools.lru_cache(maxsize=None)
 def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
-                 critic_dims=None, groups=1, components=0):
+                 critic_dims=None, groups=1, components=0, options=None):
     """The whole-rollout kernel's launch plan for these MLP widths (policy
     ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``, or ``2 (D + 1)``
     with a learned reward, or a mixture head's 2 E K + K + 1 with
@@ -680,7 +717,8 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
     accumulators when not resident; with a critic, its CTAs' dW
     accumulators and its loss's sums; with ``groups`` G > 1 MM groups, the
     exchange of the state cotangent). The groups change nothing else: the
-    grouped resample keeps each group's moments in registers."""
+    grouped resample keeps each group's moments in registers. ``options``:
+    the models' ``walk_options``."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
@@ -692,7 +730,7 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
             clusters = _cdiv(B, P)
             floats, dw, flat = rollout_layout(pol_dims, dyn_dims, D, tr, P,
                                               clusters, resident, critic_dims,
-                                              components)
+                                              components, options)
             if 4 * floats <= SMEM_MAX:
                 return RolloutPlan(CLUSTER, clusters, P, tr, tiles, THREADS,
                                    resident, 4 * floats,
@@ -703,7 +741,7 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
 
 @functools.lru_cache(maxsize=None)
 def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
-                  critic_dims=None, components=0):
+                  critic_dims=None, components=0, options=None):
     """The largest batch that ``rollout_plan`` takes on a card holding
     ``max_clusters`` clusters: ``max_clusters`` times the most particles a
     cluster can walk (at most ``MAX_TILES`` tiles of up to ``MAX_TILE_ROWS``
@@ -714,7 +752,7 @@ def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
             for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP):
                 floats = rollout_layout(pol_dims, dyn_dims, D, tr, tiles * tr,
                                         max_clusters, resident,
-                                        critic_dims, components)[0]
+                                        critic_dims, components, options)[0]
                 if 4 * floats <= SMEM_MAX:
                     best = max(best, tiles * tr)
                     break
@@ -738,14 +776,15 @@ StepPlan = collections.namedtuple('StepPlan', [
 
 
 def step_layout(pol_dims, dyn_dims, tile_rows, resident, backward,
-                components=0):
+                components=0, options=None):
     """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
     dW accumulator, floats of the policy's dW and db) of a step launch
     (``step_lay_of``): the cluster walk's (``_walk_floats``; the backward's
     buffers with ``backward``), then for the backward the tile's gradient
     wrt its pre-MM outputs ([tile_rows, MAX_D + 1], to 4)."""
     off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident,
-                                 backward, components=components)
+                                 backward, components=components,
+                                 options=options)
     return off + (_r4(tile_rows * (MAX_D + 1)) if backward else 0), dw, flat
 
 
@@ -767,7 +806,8 @@ def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat, B=0,
 
 @functools.lru_cache(maxsize=None)
 def step_plan(pol_dims, dyn_dims, D, B, backward,
-              max_clusters=TARGET_CLUSTERS, groups=1, components=0):
+              max_clusters=TARGET_CLUSTERS, groups=1, components=0,
+              options=None):
     """The launch plan of one step kernel (``backward``: ``fused_step_bwd``'s
     walk, else ``fused_step_fwd``) for these MLP widths at batch B, on a card
     that holds ``max_clusters`` clusters at once; None when no tile fits in
@@ -786,13 +826,14 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
     sums (0 for the forward); ``scratch``: floats of device scratch (with
     ``groups`` G > 1 MM groups, the backward's gradient wrt the pre-MM
     outputs besides). ``components``: K of a mixture dynamics head, 0 for a
-    diagonal one."""
+    diagonal one; ``options``: the models' ``walk_options``."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
         fit = next((tr for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP)
                     if 4 * step_layout(pol_dims, dyn_dims, tr, resident,
-                                       backward, components)[0] <= SMEM_MAX),
+                                       backward, components,
+                                       options)[0] <= SMEM_MAX),
                    None)
         if fit is None:
             continue
@@ -800,7 +841,7 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
         tiles = _cdiv(B, tr)
         clusters = min(tiles, max_clusters)
         floats, dw, flat = step_layout(pol_dims, dyn_dims, tr, resident,
-                                       backward, components)
+                                       backward, components, options)
         sum_blocks = _cdiv(B, SUM_THREADS) if backward else 0
         return StepPlan(CLUSTER, clusters, tr, tiles, THREADS, resident,
                         4 * floats, sum_blocks,
@@ -848,7 +889,10 @@ class _StepArgs(ctypes.Structure):
                    ('tip', ctypes.c_float * (MAX_TIP * MAX_D)),
                    ('target', ctypes.c_float * MAX_TIP),
                    ('norm', ctypes.c_float), ('q_scale', ctypes.c_float),
-                   ('r_scale', ctypes.c_float)])
+                   ('r_scale', ctypes.c_float),
+                   ('m_in', ctypes.c_void_p * 2),
+                   ('out_act', ctypes.c_int * 2),
+                   ('in_map', (ctypes.c_byte * MAX_X) * 2)])
 
 
 def _lib():
@@ -936,6 +980,29 @@ def _kernel_tensor(t, device, what):
     return t
 
 
+def _in_map(sources, angles):
+    """``StepArgs::in_map`` of an MLP's input: entry k is 3 i + kind of
+    its source i (kind 0 the value, 1 its sin, 2 its cos), in the layout of
+    ``ops.angles.to_complex``: the other dims in order, then the sines and
+    the cosines of ``angles``."""
+    angles = [int(a) for a in angles]
+    return ([3 * i for i in complement_dims(sources, angles)]
+            + [3 * a + 1 for a in angles] + [3 * a + 2 for a in angles])
+
+
+def _input_mask(spec, params, noise, B):
+    """The input-dropout mask [B, din] (as ``_masks`` builds the hidden
+    layers'), or None without input dropout."""
+    if spec.input_dropout is None:
+        return None
+    if noise is None or 'drop_in' not in noise:
+        raise ValueError('the kernels take input dropout with its pinned '
+                         "noise (noise['drop_in'])")
+    m = spec.input_dropout.mask(params.get('drop_in', {}), noise['drop_in'],
+                                torch.float32, train=False)
+    return m.expand(B, spec.input_dims).contiguous()
+
+
 def _masks(spec, params, noise, B):
     out = []
     for i, (d, w) in enumerate(zip(spec.dropout, spec.hidden_dims)):
@@ -1008,13 +1075,25 @@ class StepKernel:
             keep.append(_kernel_tensor(x, device, what))
             return x.data_ptr()
 
-        def mlp(dst, spec, params, noise, name):
+        def mlp(idx, spec, params, noise, name, angles, sources):
+            dst = a.dyn if idx else a.pol
             n = len(spec.hidden_dims)
             dims = (spec.input_dims,) + spec.hidden_dims + (spec.output_dims,)
             names = [f'linear_{i}' for i in range(n)] + ['linear_out']
-            ws = [params[k]['w'] for k in names]
-            bs = [params[k].get('b') for k in names]
+            raw = [params[k] for k in names]
+            # the weights the layers apply (spectral norm: normalized once a
+            # launch; the policy's gradient is chained back by ``chain``)
+            with torch.no_grad():
+                ws = [spec.weight(p) for p in raw]
+            bs = [p.get('b') for p in raw]
             masks = _masks(spec, params, noise, B)
+            m_in = _input_mask(spec, params, noise, B)
+            a.m_in[idx] = None if m_in is None else t(
+                m_in, f'{name} input mask', (B, dims[0]))
+            a.out_act[idx] = fm.KERNEL_ACTS.index(spec.output_nonlin or
+                                                  'identity')
+            for k, code in enumerate(_in_map(sources, angles)):
+                a.in_map[idx][k] = code
             dst.n = n
             for i, d in enumerate(dims):
                 dst.dims[i] = d
@@ -1027,12 +1106,15 @@ class StepKernel:
             for i, m in enumerate(masks):
                 dst.m[i] = None if m is None else t(
                     m, f'{name} mask {i}', (B, dims[i + 1]))
-            return ws, bs
+            return bs, raw
 
-        self.pol_ws, self.pol_bs = mlp(a.pol, pol.mlp, pol_params['mlp'],
-                                       pol_noise.get('mlp'), 'policy')
-        mlp(a.dyn, reg.mlp, dyn_params['mlp'], dyn_noise.get('mlp'),
-            'dynamics')
+        self.pol_spec = pol.mlp
+        self.pol_bs, self.pol_raw = mlp(
+            0, pol.mlp, pol_params['mlp'], pol_noise.get('mlp'), 'policy',
+            pol.angle_dims, D)
+        mlp(1, reg.mlp, dyn_params['mlp'], dyn_noise.get('mlp'), 'dynamics',
+            reg.angle_dims, D + U)
+        self.options = walk_options(dyn, pol)
         self.pol_dims = list(self.dims[0])
         a.z_pol = t(pol_noise['density']['z'], 'policy density noise', (B, U))
         dn, K = dyn_noise['density'], self.K
@@ -1043,7 +1125,8 @@ class StepKernel:
             a.u_cat = t(dn['u_cat'], 'dynamics mixture noise u_cat', (B, 1))
         else:
             a.z_dyn = t(dn['z'], 'dynamics density noise', (B, E))
-        for k, name, size in (('mx', 'mx', D + U), ('isx', 'iSx', D + U),
+        dx = reg.mlp.input_dims  # D + U and the embedded angles
+        for k, name, size in (('mx', 'mx', dx), ('isx', 'iSx', dx),
                               ('my', 'my', E), ('sy', 'Sy', E)):
             setattr(a, k, t(dyn_stats[name].reshape(-1).contiguous(),
                             f'stats {name}', (size,)))
@@ -1067,11 +1150,45 @@ class StepKernel:
             a.norm, a.q_scale, a.r_scale = rf.norm, rf.q_scale, rf.r_scale
         self._keep = keep
 
+    def grad_inputs(self):
+        """The policy params the kernels' gradients reach, in order: each
+        layer's ``w`` (and ``sn_scale`` under spectral norm), then the
+        present biases."""
+        out = []
+        for raw in self.pol_raw:
+            out += [raw['w'], raw['sn_scale']] if 'sn_u' in raw else [raw['w']]
+        return out + [b for b in self.pol_bs if b is not None]
+
+    def chain(self, dws, dbs):
+        """The gradients of ``grad_inputs`` from the kernels' policy dW
+        (wrt the weights they took) and db: a spectral-norm layer's dW
+        chained back to its ``w`` and ``sn_scale`` with
+        ``torch.autograd.grad`` through ``MLPSpec.weight``."""
+        out = []
+        for raw, g in zip(self.pol_raw, dws):
+            if 'sn_u' not in raw:
+                out.append(g)
+                continue
+            with torch.enable_grad():
+                w = raw['w'].detach().requires_grad_(True)
+                sc = raw['sn_scale'].detach().requires_grad_(True)
+                w_sn = self.pol_spec.weight(dict(raw, w=w, sn_scale=sc))
+                out += torch.autograd.grad(w_sn, (w, sc), g)
+        return out + [d for d in dbs if d is not None]
+
+    def pol_grads(self, pol_params, dws, dbs):
+        """``pol_params``' tree of gradients from the kernels' policy dW
+        and db (``chain``); zeros for the leaves that get none."""
+        return _grads_like(pol_params, {
+            id(p): g for p, g in zip(self.grad_inputs(),
+                                     self.chain(dws, dbs))})
+
     def plans(self):
         """(forward plan, backward plan) on this card (``step_plan``)."""
         clusters = step_max_clusters(_device_index(self.device))
         return tuple(step_plan(*self.dims, self.D, self.B, bwd, clusters,
-                               self.G, self.K) for bwd in (False, True))
+                               self.G, self.K, self.options)
+                     for bwd in (False, True))
 
     def _workspace(self):
         """(forward plan, backward plan, each as C ints, scratch, counters),
@@ -1161,7 +1278,7 @@ class StepKernel:
         """The differentiable step: (nxt, r). Gradients flow to the policy
         weights and biases, the states and eps."""
         self._inputs(states, eps, z_mm, z_rr)
-        flat = self.pol_ws + [b for b in self.pol_bs if b is not None]
+        flat = self.grad_inputs()
         return _FusedStep.apply(self, states, eps, z_mm, z_rr, *flat)
 
 
@@ -1185,8 +1302,7 @@ class _FusedStep(torch.autograd.Function):
         g_states, g_eps, dws, dbs = k.backward(
             states, eps, z_mm, z_rr, *res, g_nxt.contiguous(),
             g_r.contiguous(), want_eps)
-        return (None, g_states, g_eps, None, None, *dws,
-                *[d for d in dbs if d is not None])
+        return (None, g_states, g_eps, None, None, *k.chain(dws, dbs))
 
 
 def make_fused_step(dyn, pol, mm_states, mm_rewards, mm_groups=None):
@@ -1307,7 +1423,7 @@ def rollout_capacity(dyn, pol, device, value_spec=None):
                          dyn.state_dims, max_clusters(_device_index(device)),
                          None if value_spec is None
                          else cr.critic_dims(value_spec),
-                         head_components(dyn))
+                         head_components(dyn), walk_options(dyn, pol))
 
 
 class RolloutKernel:
@@ -1350,7 +1466,8 @@ class RolloutKernel:
         self.plan = rollout_plan(_mlp_dims(pol.mlp),
                                  _mlp_dims(dyn.regressor.mlp), self.D, B,
                                  steps, clusters, critic_dims, self.G,
-                                 head_components(dyn))
+                                 head_components(dyn),
+                                 walk_options(dyn, pol))
         if self.plan is None:
             capacity = rollout_capacity(dyn, pol, device, None if self.critic
                                         is None else value_update.spec)
@@ -1501,8 +1618,8 @@ class _FusedRollout(torch.autograd.Function):
         want_eps = ctx.has_eps and ctx.needs_input_grad[4]
         dws, dbs, g_eps = ctx.rk.backward(ctx.sk, ctx.res, g_loss, g_mret,
                                           want_eps, ctx.cb)
-        return (None, None, None, None, g_eps, None, None, *dws,
-                *[d for d in dbs if d is not None])
+        return (None, None, None, None, g_eps, None, None,
+                *ctx.sk.chain(dws, dbs))
 
 
 def _whole_rollout(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
@@ -1558,7 +1675,7 @@ def make_whole_rollout_loss(dyn, pol, steps, w_t, mm_states, mm_rewards,
         sk = rk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
                      pol_noise, z_mm_t, z_rr_t, action_eps)
         cb = rk.bind_critic(extras)
-        flat = sk.pol_ws + [b for b in sk.pol_bs if b is not None]
+        flat = sk.grad_inputs()
         loss, mret = _FusedRollout.apply(rk, sk, cb, x0, action_eps, z_mm_t,
                                          z_rr_t, *flat)
         return loss, mret, () if cb is None else cb.aux
@@ -1592,9 +1709,7 @@ def make_whole_rollout_value_and_grad(dyn, pol, steps, w_t, mm_states,
                      pol_noise, z_mm_t, z_rr_t, action_eps)
         cb = rk.bind_critic(extras)
         loss, mret, dws, dbs = rk.value_and_grad(sk, cb)
-        by_id = {id(p): g for p, g in zip(sk.pol_ws + sk.pol_bs, dws + dbs)
-                 if p is not None}
-        return (loss, mret, _grads_like(pol_params, by_id),
+        return (loss, mret, sk.pol_grads(pol_params, dws, dbs),
                 () if cb is None else cb.aux)
 
     return fused_vg
@@ -1697,8 +1812,7 @@ class _GridRollout(torch.autograd.Function):
         want_eps = ctx.has_eps and ctx.needs_input_grad[3]
         dws, dbs, g_eps = ctx.gk.backward(ctx.sk, ctx.res, g_disc, g_raw,
                                           g_vret, g_sall, want_eps)
-        return (None, None, None, g_eps, None, None, *dws,
-                *[d for d in dbs if d is not None])
+        return (None, None, None, g_eps, None, None, *ctx.sk.chain(dws, dbs))
 
 
 def make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards, mm_groups=None):
@@ -1728,7 +1842,7 @@ def make_grid_rollout(dyn, pol, steps, mm_states, mm_rewards, mm_groups=None):
         gk = kernels[key]
         sk = gk.bind(pol_params, x0, dyn_params, dyn_stats, dyn_noise,
                      pol_noise, z_mm_t, z_rr_t, action_eps)
-        flat = sk.pol_ws + [b for b in sk.pol_bs if b is not None]
+        flat = sk.grad_inputs()
         return _GridRollout.apply(gk, sk, x0, action_eps, z_mm_t, z_rr_t,
                                   *flat)
 

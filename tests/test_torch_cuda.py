@@ -27,7 +27,12 @@ with a learned reward, grouped MM and the critic refit, their bits, launch
 counts and ``mc_pilco`` on the whole-rollout tier), and ``chip_smoke``'s
 phase 14 cut short: the sequence-model driver's steps and an episode of it,
 model ensembles with a randomized prior, and RAdam and SdLBFGS fits, each
-through the fused MLP against the unfused path.
+through the fused MLP against the unfused path; the fused MLP's bf16
+instances against its plain version with bf16 operands (held by
+``chip_smoke.hold_bf16``) and in a CUDA graph's replays; rows 3-7 with each
+of the model options (spectral norm, input dropout and output
+nonlinearities, angle embedding inside the models) and ``mc_pilco`` with all
+three on the whole-rollout tier.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -56,6 +61,8 @@ along the kernel's own states, and the worst particle in 1000 is left out
 of the norm, each of its entries within the elementwise tolerance
 (``chip_smoke.hold_grid_eps_on_edge``).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1454,3 +1461,112 @@ def test_radam_and_sdlbfgs_fits_match_the_unfused_fit(cuda):
     """``chip_smoke.check_optimisers`` at 5 steps: RAdam and SdLBFGS in
     ``train_regressor``'s steps through the kernels against unfused."""
     cs.check_optimisers('card test', tag='card test', steps=5)
+
+
+# ---- rows 1-2 with bf16 operands, rows 3-9 with the model options ---------
+
+BF16_CASES = [((5, 200, 200, 2), 'relu'), ((6, 200, 200, 10), 'relu'),
+              ((6, 64, 48, 10), 'tanh'), ((6, 64, 48, 10), 'swish'),
+              ((7, 1000, 37, 3), 'sinlu'), ((37, 37, 37), 'exp')]
+
+
+@pytest.mark.parametrize('dims,nonlin', BF16_CASES,
+                         ids=[f'{"x".join(map(str, d))}-{nl}'
+                              for d, nl in BF16_CASES])
+@pytest.mark.parametrize('B', [1, 37, 100, 1030])
+def test_bf16_kernel_matches_the_bf16_plain_version_on_the_card(cuda, dims,
+                                                                nonlin, B):
+    """The bf16 instances (``compute_dtype='bfloat16'``) against
+    ``fused_mlp_plain`` with bf16 operands on the same CUDA tensors, every
+    output held by ``chip_smoke.hold_bf16``; one launch of each bf16
+    instance and none of the float32 ones."""
+    nl = (nonlin,) * (len(dims) - 2)
+    kern = functools.partial(fm.fused_mlp, compute_dtype='bfloat16')
+    plain = functools.partial(fm.fused_mlp_plain, compute_dtype='bfloat16')
+    fm.reset_launch_counts()
+    got = _grads(kern, B, B, dims, nl)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES_BF16 == {'fused_mlp_fwd_bf16': 1,
+                                'fused_mlp_bwd_bf16': 1}
+    assert fm.LAUNCHES == {'fused_mlp_fwd': 0, 'fused_mlp_bwd': 0}
+    ref = _grads(plain, B, B, dims, nl)
+    torch.cuda.synchronize()
+    for i, (a, r) in enumerate(zip(got, ref)):
+        cs.hold_bf16(f'{dims} {nonlin} B={B} output {i}', a, r)
+
+
+def test_bf16_kernels_replay_in_a_cuda_graph(cuda):
+    """A CUDA graph of the bf16 forward and backward (one fit step's
+    launches at the dynamics' widths, B = 100) replays to the bits of eager
+    launches, twice."""
+    x, ws, bs, ms, g = _problem(3, 100, (6, 200, 200, 10))
+    x, ws, bs, ms = (x.detach(), [w.detach() for w in ws],
+                     [b.detach() for b in bs], [m.detach() for m in ms])
+    nl, has_b = ('relu', 'relu'), (True,) * 3
+
+    def run():
+        out, a_res = fm._fwd_cuda(x, ws, bs, ms, nl, True)
+        dx, dws, dbs, dms = fm._bwd_cuda(x, ws, has_b, ms, a_res, nl, g, True)
+        return [out, dx, *dws, *dbs, *dms]
+
+    eager = [v.clone() for v in run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        for v in outs:
+            v.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for u, v in zip(eager, outs):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize('label', list(cs.OPTION_SETS))
+def test_option_rollout_and_step_kernels_match_the_plain_version(cuda,
+                                                                 label):
+    """Rows 3-5 (the whole rollout, with the reward mean-only shortcut) and
+    rows 6-7 (the step) with each model option set of ``chip_smoke``
+    (B1 spectral norm, B2 input dropout and output nonlinearities, B3 angle
+    embedding, all three) against their plain versions at B = 100, with
+    ``chip_smoke``'s tolerances."""
+    opts = cs.OPTION_SETS[label]
+    cs.check_step(100, tag='card test', options=opts)
+    cs.check_rollout(100, True, tag='card test', options=opts)
+
+
+def test_mc_pilco_with_the_options_takes_the_full_tier_on_the_card(cuda):
+    """``mc_pilco`` with B1-B3 in both models at B = 100: the gate names
+    ``'full'``, one ``fused_rollout_vg`` an iteration and nothing else,
+    finite losses; the policy's ``sn_scale`` moves."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    dyn, pol = cs.build_models(5, 1, (10.0,), envs.cartpole_reward(),
+                               options=cs.ALL_OPTIONS)
+    cfg = dict(n_particles=100, steps=15, mm_states=True, mm_rewards=True)
+    assert make_mc_pilco_fn(dyn, pol, MCPILCOConfig(**cfg),
+                            'cuda').tier('cuda') == 'full'
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
+    before = pp['mlp']['linear_0']['sn_scale'].clone()
+    rng = np.random.RandomState(0)
+    pool = torch.tensor(cs.env_states('Cartpole', rng, 40).astype(np.float32),
+                        device='cuda')
+    stats = dyn.fit_stats(*(torch.tensor(a.astype(np.float32), device='cuda')
+                            for a in cs.stats_data('Cartpole', rng)))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    pp, _, metrics, _ = mc_pilco(pool, dyn, pol, 15, dp, stats, pp,
+                                 opt_iters=5, mm_states=True, mm_rewards=True,
+                                 n_particles=100, seed=0, chunk=1)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES['fused_rollout_vg'] == 5
+    assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
+    assert np.all(np.isfinite(metrics['loss']))
+    assert not torch.equal(pp['mlp']['linear_0']['sn_scale'], before)

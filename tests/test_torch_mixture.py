@@ -368,16 +368,20 @@ def test_mlp_option_params_carry_over(name):
 
 def test_mlp_fused_refuses_the_options():
     """``fused=True`` with layer norm or spectral norm raises ValueError as
-    JAX's does; with bf16, NotImplementedError naming the ROADMAP item of
-    the kernel's bf16 operands; ``fused=None`` takes the unfused path for
-    all three, so a CUDA input never reaches the kernel with them."""
+    JAX's does; with bf16 it builds and runs the kernel's bf16 operands
+    (the plain version on CPU inputs, ``tests/test_torch_fused_mlp_bf16.py``
+    holds it against JAX); ``fused=None`` takes the unfused path for all
+    three, so a CUDA input reaches the kernel with bf16 only when asked."""
     for kw in (dict(layer_norm=True), dict(spectral_norm=True),
                dict(spectral_norm_output=True)):
         with pytest.raises(ValueError, match='layer norm nor spectral norm'):
             tm.MLPSpec(3, 2, fused=True, **kw)
         assert not tm.MLPSpec(3, 2, **kw)._kernel_takes_it()
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 2'):
-        tm.MLPSpec(3, 2, fused=True, compute_dtype='bfloat16')
+    spec = tm.MLPSpec(3, 2, (8,), fused=True, compute_dtype='bfloat16')
+    x = torch.randn(5, 3)
+    p = spec.init(torch.Generator().manual_seed(0), device='cpu')
+    assert spec._use_fused(x) and spec._kernel_fits()
+    assert torch.isfinite(spec.apply(p, x)).all()
     assert not tm.MLPSpec(3, 2, compute_dtype='bfloat16')._kernel_takes_it()
     assert tm.MLPSpec(3, 2, compute_dtype=torch.bfloat16)._compute_dtype() \
         is torch.bfloat16
