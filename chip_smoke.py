@@ -99,6 +99,13 @@ Phases (any failure exits non-zero and prints no result line):
      B T, each logged (``held_against``). Each row's time, plain time and
      bound at both K beside the diagonal head's, with the launch plans and
      the particles the card holds.
+  2p. rows 3-9 with the other policy heads: a ``TanhSquashedDensity`` over
+     the Gaussian (its own bound 2 inside the policy's 10) on Cartpole and
+     a ``CategoricalDensity`` on the differentiable lander (U = 2), rows
+     3-7 at B = 100 (3-5 with the reward mean-only shortcut and without)
+     and rows 8-9 at B = 1000, held as in phase 2 (the categorical picks
+     through ``held_against``, ``PickingCategorical``); each row's time,
+     plain time and bound beside the diagonal head's on the same env.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -129,7 +136,8 @@ Phases (any failure exits non-zero and prints no result line):
      5m: the same with a mixture dynamics head of K = 2 (``--dyn_components
      2``): the gate names ``'full'``, one ``fused_rollout_vg`` an iteration
      and nothing else, one iteration compared with the plain path, the ms
-     an iteration beside phase 5's.
+     an iteration beside phase 5's. 5p: the same (30 iterations) with the
+     ``TanhSquashedDensity`` policy head.
   6. the route of ``MCPILCO.loss`` on that tier: a loop of the
      differentiable loss (one forward and one backward kernel per
      iteration), clip and Adam.
@@ -147,23 +155,32 @@ Phases (any failure exits non-zero and prints no result line):
      grid tier, one ``fused_grid_fwd`` and ``_bwd`` and one fused-MLP
      launch each way (the bootstrap) an iteration, no refit, the critic's
      params unmoved; one iteration held against the plain path.
+     7o: the critic's options in rows 3-5's refit (``CRITIC_OPTION_SETS``:
+     angle embedding, concrete input dropout and a swish output; spectral
+     norm of every layer; both): rows 3-5 at B = 100 (no MM) with each set
+     and at B = 1000 (MM) with both, held as phase 2c holds them and timed
+     beside 2c's critic without them; then phase 7's value path with both
+     (the gate's ``'full'``, one ``fused_rollout_vg`` an iteration, v_loss
+     falling, the tiers' ms, one iteration of each against the plain
+     path).
   8. the episode: the torch ``deep_pilco_mm`` driver (``main`` through the
      port's parser with the entry point's settings) on Cartpole into a
      temporary folder under ``build/``, at full width (dynamics and policy
-     [200, 200], fit batch 100, 2000 fit steps, 100 particles, horizon 15,
-     40 control steps) with two cuts: 3 episodes instead of 100 and 200
-     policy iterations an episode instead of 1000. Per episode: E_lml (and
+     [200, 200], fit batch 100, 100 particles, horizon 15, 40 control
+     steps) with three cuts: 2 episodes instead of 100, 1000 fit steps
+     instead of 2000 and 200 policy iterations an episode instead of 1000.
+     Per episode: E_lml (and
      its first- and last-50 means, the last above the first), imagined and
      real return, ms per fit step and per policy iteration; every value
-     finite; launch counts exactly fused-MLP forward 3*(2000 + 40) (a fit
-     step and a control step each launch one), backward 3*2000 and
-     ``fused_rollout_vg`` 3*200, nothing else; the tier the gate names for
+     finite; launch counts exactly fused-MLP forward 2*(1000 + 40) (a fit
+     step and a control step each launch one), backward 2*1000 and
+     ``fused_rollout_vg`` 2*200, nothing else; the tier the gate names for
      the driver's configuration (``'full'``); from the checkpoint, one fit
      step through the kernels against the plain path on the same minibatch
      and noise (loss and every grad, logit_p's among them) and the fit's
      device-busy share over 50 steps under torch.profiler.
   9. the envs: one episode of phase 8's driver, widths and cuts, the fit
-     cut further to 1000 steps (200 policy iterations, 40 control steps,
+     cut further to 300 steps (200 policy iterations, 40 control steps,
      seed 1) on each of
      Pendulum, DoubleCartpole, CartAcrobot, Rendezvous and LunarLander
      (``-e``; the class ``make('LunarLander')`` gives is printed: the
@@ -195,7 +212,7 @@ Phases (any failure exits non-zero and prints no result line):
   10. the with-value driver: one ``deep_pilco_no_mm_with_value`` episode
      with phase 8's widths and cuts (no moment matching, the [200, 200] MSE
      critic refit every policy iteration): launches exact (fused-MLP forward
-     2000 + 40, backward 2000, ``fused_rollout_vg`` 200 with the refit in
+     1000 + 40, backward 1000, ``fused_rollout_vg`` 200 with the refit in
      each, nothing else), every value finite (v_loss too), E_lml rising, one
      fit step held against the plain path; v_loss over the episode and the
      ms a fit step and a policy iteration.
@@ -231,21 +248,21 @@ Phases (any failure exits non-zero and prints no result line):
      busy share over 3 iterations under torch.profiler);
      ``rollout_with_Qvalues`` (3 T + 2 forward launches) held the same way;
      then one episode of ``examples/mbddpg.py --ps_iters 1 --n_rnd_epi 2``
-     at its defaults (2000 fit steps, 120 DDPG iterations, 40 control
+     cut to 1000 fit steps and 40 DDPG iterations (40 control
      steps), launches exact.
   13. the conditional density networks: ``train_model`` (5 steps, batch
      100) of ``density_network_mlp`` and ``mixture_density_network_mlp`` at
      relu [200, 200] on each BNN regression dataset, one fused-MLP forward
      and backward a step, held against the unfused MLP; then the
-     ``bnn_regression`` and ``bnn_regression_2d`` drivers at 1000 steps a
+     ``bnn_regression`` and ``bnn_regression_2d`` drivers at 400 steps a
      model: their hhSinLU MLPs stay off the kernel (no launch), NLL finite,
      ms a step.
   14. the sequence-model driver, ensembles and the optimisers, on rows 1-2:
-     14b one episode of ``transformer_models.main(['--ps_iters', '1'])`` at
-     its defaults (Cartpole, a transformer of 64 wide, 4 layers of 4 heads,
-     the [64, 64] Bernoulli-dropout policy; 400 dynamics, 200 flow and 100
-     policy steps of 25 x0s and T = 16, 40 control steps): launches exactly
-     100 x 16 + the control steps forward and 100 x 16 backward, values
+     14b one episode of ``transformer_models.main`` (``TM_ARGV``; Cartpole,
+     a transformer of 64 wide, 4 layers of 4 heads, the [64, 64]
+     Bernoulli-dropout policy; 200 dynamics, 200 flow and 40 policy steps
+     of 25 x0s and T = 16, 40 control steps): launches exactly 40 x 16 + the
+     control steps forward and 40 x 16 backward, values
      finite, E_lml rising, ms a dyn, flow and pol step; then 14a on its
      trained models one ``pol_step`` with exactly 16 fused-MLP forward and
      16 backward launches, held against the unfused policy on the same
@@ -306,10 +323,12 @@ from prob_mbrl_tpu_torch.examples import deep_pilco_no_mm_with_value as dvm
 from prob_mbrl_tpu_torch.examples import evaluate_policy
 from prob_mbrl_tpu_torch.examples import mbddpg as ddpg_driver
 from prob_mbrl_tpu_torch.examples import transformer_models as tmd
-from prob_mbrl_tpu_torch.models import (DiagGaussianDensity, DynamicsModel,
+from prob_mbrl_tpu_torch.models import (CategoricalDensity,
+                                        DiagGaussianDensity, DynamicsModel,
                                         GaussianMixtureDensity, MLPSpec,
                                         ModelEnsemble, Policy,
-                                        RandomPriorMLP, Regressor, bdropout,
+                                        RandomPriorMLP, Regressor,
+                                        TanhSquashedDensity, bdropout,
                                         bootstrap_masks, cdropout,
                                         density_network_mlp,
                                         make_ensemble_train_fn,
@@ -376,9 +395,9 @@ SEED = 1
 # phase 8, the episode: the deep_pilco_mm driver at its full widths and
 # default fit, with the episodes cut from 100 to 3 and the policy
 # iterations from 1000 to 200
-EPISODES = 3
+EPISODES = 2
 EPISODE_POL_ITERS = 200
-FIT_ITERS = 2000
+FIT_ITERS = 1000
 CONTROL_H = 40
 EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
                 '--pol_opt_iters', str(EPISODE_POL_ITERS),
@@ -390,7 +409,7 @@ BUSY_STEPS = 50  # fit steps under torch.profiler
 # phase 9: one episode of the same driver and cuts on each of these envs, then
 # one on Cartpole with --learn_reward (the rollout kernels' reward kind 3),
 # each fit cut further to ENV_FIT_ITERS steps
-ENV_FIT_ITERS = 1000
+ENV_FIT_ITERS = 300
 ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous',
                     'LunarLander')
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
@@ -407,6 +426,20 @@ OPTION_SETS = {'B1': ('sn',), 'B2': ('drop',), 'B3': ('ang',),
                'B1-B3': ('sn', 'drop', 'ang')}
 ALL_OPTIONS = OPTION_SETS['B1-B3']
 OPTION_ITERS = 30  # phase 5o: the main path with B1-B3
+# phase 2p: the policy heads rows 3-9 take besides the diagonal Gaussian,
+# each on an env with its action dims (a categorical head of one action is
+# degenerate: its one-hot is always 1): the TanhSquashedDensity (its own
+# bound HEAD_MAX_U) on Cartpole, the CategoricalDensity on the
+# differentiable lander (U = 2)
+HEAD_MAX_U = 2.0
+HEAD_ENVS = (('tanh', 'Cartpole'), ('cat', 'JaxLunarLander'))
+HEAD_ITERS = 30  # phase 5p: the main path with the tanh head
+# phase 7o: the critic's model options in the refit (critic_spec): B angle
+# embedding, concrete input dropout 0.1 and a swish output, C spectral norm
+# of every layer, and all of them
+CRITIC_OPTION_SETS = {'B': ('ang', 'drop', 'out'), 'C': ('sn',),
+                      'B+C': ('ang', 'drop', 'out', 'sn')}
+CRITIC_OPTIONS = CRITIC_OPTION_SETS['B+C']
 BF16_ROUTE_ITERS = 10  # phase 3h: phase 3's route on fused bf16 MLPs
 BF16_FIT_STEPS = 100  # phase 3h: train_regressor on a fused bf16 dynamics MLP
 # the bf16 instances' bound: float32 bytes over HBM_BYTES_PER_S, products
@@ -553,13 +586,32 @@ PICKS = {'calls': [], 'T': 1, 'force': {}}
 Pick = collections.namedtuple('Pick', 'cdf margin idx alt')
 
 
+def recorded_pick(soft, u):
+    """The hard pick ``sum_j (u > cumsum(soft)_j)`` of each row, as the
+    heads compute it, recorded in ``PICKS['calls']`` (the cumulative sums,
+    u's distance from the nearest, the pick and the index across that sum)
+    and replaced where ``PICKS['force']`` names this call's rows."""
+    cdf = torch.cumsum(soft, -1)
+    idx = torch.sum((u > cdf).to(torch.int64), -1)
+    gap = (u - cdf).detach()
+    near = gap.abs().argmin(-1)
+    side = torch.gather(gap, -1, near[..., None])[..., 0]
+    t = len(PICKS['calls']) % PICKS['T']
+    PICKS['calls'].append(Pick(cdf.detach(), side.abs(), idx.detach(),
+                               torch.where(side > 0, near, near + 1)))
+    force = {b: j for (c, b), j in PICKS['force'].items() if c == t}
+    if force:
+        idx = idx.clone()
+        for b, j in force.items():
+            idx[b] = j
+    return idx
+
+
 class PickingMixture(GaussianMixtureDensity):
     """The mixture head of the plain versions in phase 2m: samples as
     ``GaussianMixtureDensity`` does (the same operations, so the same
-    bits), records each call's cumulative sums, each particle's distance of
-    u_cat from the nearest of them, its pick and the component across that
-    sum (``PICKS['calls']``), and takes the picks of ``PICKS['force']``
-    (call t of a forward of ``PICKS['T']`` steps) instead of its own."""
+    bits), its pick through ``recorded_pick`` (call t of a forward of
+    ``PICKS['T']`` steps)."""
 
     def sample(self, x, noise, scaling_params=None, sampling_temperature=0.1):
         mean, log_std, logit_pi = self.distribution(x, scaling_params)
@@ -567,26 +619,41 @@ class PickingMixture(GaussianMixtureDensity):
         k_soft = torch.softmax(
             (torch.log_softmax(logit_pi, -1) + noise['z_pi'])
             / sampling_temperature, -1)
-        cdf = torch.cumsum(k_soft, -1)
-        u = noise['u_cat']
-        idx = torch.sum((u > cdf).to(torch.int64), -1)
-        gap = (u - cdf).detach()
-        near = gap.abs().argmin(-1)
-        side = torch.gather(gap, -1, near[..., None])[..., 0]
-        t = len(PICKS['calls']) % PICKS['T']
-        PICKS['calls'].append(Pick(cdf.detach(), side.abs(), idx.detach(),
-                                   torch.where(side > 0, near, near + 1)))
-        force = {b: j for (c, b), j in PICKS['force'].items() if c == t}
-        if force:
-            idx = idx.clone()
-            for b, j in force.items():
-                idx[b] = j
+        idx = recorded_pick(k_soft, noise['u_cat'])
         hard = (idx[..., None] == torch.arange(K, device=idx.device)).to(
             k_soft.dtype)
         k = ((hard - k_soft).detach() + k_soft)[..., None, :]
         samples = torch.sum(mean * k, -1)
         stds = torch.exp(torch.sum(log_std * k, -1))
         return samples + noise['z_normal'] * stds
+
+
+class PickingCategorical(CategoricalDensity):
+    """The categorical policy head of the plain versions in phase 2p:
+    samples as ``CategoricalDensity`` does (the same operations), its pick
+    through ``recorded_pick``."""
+
+    def apply(self, x, noise=None, return_samples=False,
+              sampling_temperature=0.1):
+        if not return_samples:
+            return x[..., :self.output_dims]
+        soft = torch.softmax(
+            (torch.log_softmax(x, -1) + noise['z']) / sampling_temperature,
+            -1)
+        idx = recorded_pick(soft, noise['u_cat'])
+        hard = (idx[..., None] == torch.arange(
+            self.output_dims, device=idx.device)).to(soft.dtype)
+        return (hard - soft).detach() + soft
+
+
+def picking_pol(pol):
+    """``pol`` with a categorical head a ``PickingCategorical`` (any other
+    head as it is): the policy of the plain versions in phase 2p."""
+    d = pol.output_density
+    if not isinstance(d, CategoricalDensity):
+        return pol
+    return dataclasses.replace(pol, output_density=PickingCategorical(
+        d.output_dims))
 
 
 def picking(dyn):
@@ -628,7 +695,7 @@ def pick_variants(plain_outputs, T, what):
                    for t, c in enumerate(ref)
                    for b in torch.nonzero(c.margin < tol)[:, 0].tolist())
     allowed = max(1, ref[0].idx.numel() * T // 1000)
-    log(f'[phase 2m] {what}: {len(edges)} pick(s) on an edge (u_cat within '
+    log(f'[picks] {what}: {len(edges)} pick(s) on an edge (u_cat within '
         f'{tol:.2e} of a cumulative sum, {EDGE_SENS}x the sums\' change '
         f'{sens:.2e} under inputs moved by 1e-6 relative); at most '
         f'{allowed} may be flipped')
@@ -638,7 +705,7 @@ def pick_variants(plain_outputs, T, what):
     for flips in tries:
         PICKS['calls'], PICKS['force'] = [], {(t, b): j
                                               for _, t, b, j in flips}
-        log(f'[phase 2m] {what}: the plain version with '
+        log(f'[picks] {what}: the plain version with '
             + ', '.join(f'step {t} particle {b} on component {j} (u_cat '
                         f'{m:.2e} from the sum)' for m, t, b, j in flips))
         yield plain_outputs()
@@ -657,7 +724,7 @@ def held_against(what, plain_outputs, T, hold_all):
                 first = first or e
                 continue
             if first is not None:
-                log(f'[phase 2m] {what}: held against that variant (as '
+                log(f'[picks] {what}: held against that variant (as '
                     f'drawn: {first})')
             return result
     finally:
@@ -1024,7 +1091,8 @@ def step_problem(B, seed, env='Cartpole', saturated=False, learned=False,
     mm_states = B // G > D
     k = fr.StepKernel(dyn, pol, mm_states, True, pol_params, dyn_params,
                       stats, dyn_noise, pol_noise, B, states.device, groups)
-    plain = fr.make_step_plain(picking(dyn), pol, mm_states, True, groups)
+    plain = fr.make_step_plain(picking(dyn), picking_pol(pol), mm_states,
+                               True, groups)
 
     def kernel(s, e):
         return k(s, e, z_mm, z_rr)
@@ -1260,7 +1328,8 @@ def rollout_problem(B, seed, mean_only=True, T=MAIN_T, env='Cartpole',
     kw = dict(mm_rewards_mean_only=mean_only, mm_groups=groups)
     return (fr.make_fused_loss(*make, mode='full', **kw),
             fr.make_fused_value_and_grad(*make, mode='full', **kw),
-            fr.make_loss_plain(picking(dyn), *make[1:], **kw), pol_params,
+            fr.make_loss_plain(picking(dyn), picking_pol(pol), *make[2:],
+                               **kw), pol_params,
             leaves,
             [x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps],
             (dyn, pol, w_t))
@@ -1535,7 +1604,8 @@ def grid_problem(B, seed, mm_states=True, mm_rewards=True, T=MAIN_T,
         t(rng.randn(T, B, x0.shape[1]))]
     make = (dyn, pol, T, mm_states, mm_rewards, groups)
     return (fr.make_grid_rollout(*make),
-            fr.make_grid_rollout_plain(picking(dyn), *make[1:]),
+            fr.make_grid_rollout_plain(picking(dyn), picking_pol(pol),
+                                       *make[2:]),
             pp, leaves, [x0, z_mm if mm_states else None,
                          z_rr if mm_rewards else None, eps, dyn_params, stats,
                          dyn_noise, pol_noise, w_t, vw_t], cot,
@@ -1812,23 +1882,36 @@ ENTRY_REL = 0.5
 
 
 def critic_spec(D, head='mse', hidden=(200, 200), drop='concrete', H=MAIN_T,
-                tau=1.0, discount=0.9):
+                tau=1.0, discount=0.9, options=()):
     """The critic (a ``Regressor`` on the D states: a plain head for the MSE
     loss, a ``DiagGaussianDensity(1)`` for the NLL) and its TD(H) update
     (``discount`` over H steps, reg_weight 1e-4, Adam VALUE_LR, polyak
-    ``tau``): (V, update)."""
+    ``tau``): (V, update). ``options`` of its MLP: 'ang' angle embedding of
+    state dim 3, 'drop' concrete input dropout 0.1, 'out' a swish output,
+    'sn' spectral norm of every layer (sn_max_K 10, one power iteration)
+    (CRITIC_OPTION_SETS)."""
     density = head == 'nll'
     dropout = {'concrete': cdropout(0.1), 'bernoulli': bdropout(0.1),
                None: None}[drop]
-    V = Regressor(MLPSpec(D, 2 if density else 1, hidden, dropout=dropout),
-                  DiagGaussianDensity(1) if density else None)
+    ang = (3,) if 'ang' in options else ()
+    kw = {}
+    if 'drop' in options:
+        kw['input_dropout'] = cdropout(0.1)
+    if 'out' in options:
+        kw['output_nonlin'] = 'swish'
+    if 'sn' in options:
+        kw.update(spectral_norm=True, spectral_norm_output=True)
+    V = Regressor(MLPSpec(D + len(ang), 2 if density else 1, hidden,
+                          dropout=dropout, **kw),
+                  DiagGaussianDensity(1) if density else None,
+                  angle_dims=ang)
     return V, make_value_update_fn(V, Adam(VALUE_LR), H, discount=discount,
                                    polyak=tau, use_density=density)
 
 
 def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
                    T=MAIN_T, hidden=(200, 200), drop='concrete', groups=None,
-                   components=0):
+                   components=0, coptions=()):
     """Rows 3-5 with the critic of ``critic_spec`` refit in the launch, on
     ``rollout_problem``'s inputs (Cartpole's shapes; states and rewards
     moment-matched with ``mm``, per group of B / groups with ``groups``,
@@ -1837,13 +1920,14 @@ def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
     value-and-grad, plain loss, policy params, policy leaves, the arguments
     after the policy params, the critic's extras (params, target, Adam
     state, stats, noise), (dyn, pol, w_t, update)). The plain loss runs the
-    critic on the unfused MLP; ``components`` as ``rollout_problem``."""
+    critic on the unfused MLP; ``components`` as ``rollout_problem``;
+    ``coptions`` the critic's options (``critic_spec``)."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
         B, seed, False, T, groups=groups, components=components)
     if not mm:
         args = args[:5] + [None, None, args[7]]
     D = args[0].shape[1]
-    V, update = critic_spec(D, head, hidden, drop, H, tau)
+    V, update = critic_spec(D, head, hidden, drop, H, tau, options=coptions)
     update_p = make_value_update_fn(fr.unfused(V), update.optimizer, H,
                                     discount=0.9, polyak=tau,
                                     use_density=head == 'nll')
@@ -1867,7 +1951,8 @@ def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
             fr.make_fused_value_and_grad(*make, mode='full',
                                          value_update=update, w_H=w_H,
                                          mm_groups=groups),
-            fr.make_loss_plain(fr.unfused(picking(dyn)), fr.unfused(pol), T,
+            fr.make_loss_plain(fr.unfused(picking(dyn)),
+                               fr.unfused(picking_pol(pol)), T,
                                w_t, mm, mm, True, groups,
                                value_update=update_p, w_H=w_H),
             pp, leaves, args, extras, (dyn, pol, w_t, update))
@@ -1995,7 +2080,7 @@ def hold_refit(what, got, ref, moved, update, first_count):
 
 
 def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
-                 drop='concrete', groups=None, components=0):
+                 drop='concrete', groups=None, components=0, coptions=()):
     """Rows 3-5 with the critic refit in the launch against the plain
     version at batch B: loss, mean_return, the policy grads and d
     action_eps (``check_rollout``'s tolerances; d action_eps per particle by
@@ -2004,11 +2089,11 @@ def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
     rollout's outputs then held against the plain version in float64
     (``float64``; the refit's against the float32 one, whose Adam step
     ``hold_adam`` measures); ``components`` as ``rollout_problem``, a
-    mixture head held through ``held_against``. Returns the largest error
-    of each row."""
+    mixture head held through ``held_against``; ``coptions`` the critic's
+    options (``critic_spec``). Returns the largest error of each row."""
     kloss, kvg, plain, pp, leaves, args, extras, (_, _, _, update) = \
         critic_problem(B, B + 11, mm, head, H, tau, drop=drop, groups=groups,
-                       components=components)
+                       components=components, coptions=coptions)
     ref_fn = float64(plain) if groups else plain
     got, gaux = critic_outputs(kloss, pp, leaves, args, extras)
     vl, vm, vgrads, vaux = kvg(pp, *args, extras=extras)
@@ -2043,7 +2128,8 @@ def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
     what = (f'critic ({head}, {drop} dropout, H={H}, polyak {tau}) rollout '
             f'B={B} mm {"on" if mm else "off"}'
             + (f' mm_groups={groups}' if groups else '')
-            + (f' mixture K={components}' if components else ''))
+            + (f' mixture K={components}' if components else '')
+            + (f' options {"+".join(coptions)}' if coptions else ''))
 
     def hold_all(outs):
         ref, raux, moved, maux, vref, vraux, vmoved, vmaux = outs
@@ -2105,7 +2191,7 @@ def critic_bytes_flops(B, cdims, D):
             'fused_rollout_vg': (4 * (8 * N + noise + stats + 3), 12 * B * S)}
 
 
-def critic_timings(B, mm, split=False):
+def critic_timings(B, mm, split=False, coptions=()):
     """ms of rows 3-5 with the driver's critic refit in the launch (CUDA
     events around launches in a row, as ``rollout_timings``), of the same
     rows without a critic on the same inputs (``bare_ms``; the reward not
@@ -2113,9 +2199,10 @@ def critic_timings(B, mm, split=False):
     forward with its refit; the backward that and ``torch.autograd.grad``
     less it; row 5 the whole graph), at batch B, T = 15; the bound counts
     the rollout's work and the critic's (``critic_bytes_flops``). With
-    ``split`` it logs row 5's own time split."""
+    ``split`` it logs row 5's own time split; ``coptions`` the critic's
+    options (``critic_spec``)."""
     _, _, plain, pp, leaves, args, extras, (dyn, pol, w_t, update) = \
-        critic_problem(B, 7, mm)
+        critic_problem(B, 7, mm, coptions=coptions)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     w_H = 0.9 ** MAIN_T
     k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, mm, mm, True, False, B,
@@ -2171,13 +2258,15 @@ def phase_critic_kernels():
     """Phase 2c: rows 3-5 with the with-value driver's critic refit in the
     launch, held against the plain version (``check_critic``) at the
     CRITIC_CASES, and timed there beside the same rows without a critic
-    and the card's name and power limit."""
+    and the card's name and power limit. Returns the times {(B, mm):
+    times}."""
     for B, mm in CRITIC_CASES:
         check_critic(B, mm)
     check_critic(MAIN_B, True, groups=GROUPED_CRITIC)
     card = card_line()
+    out = {}
     for B, mm in CRITIC_CASES:
-        tt = critic_timings(B, mm, split=B == MAIN_B)
+        tt = out[(B, mm)] = critic_timings(B, mm, split=B == MAIN_B)
         for name, v in tt.items():
             log(f'[phase 2c] {name} with the critic B={B} T={MAIN_T} MM '
                 f'{"on" if mm else "off"}: kernel {v["ms"]:.4f} ms (CUDA '
@@ -2185,6 +2274,7 @@ def phase_critic_kernels():
                 f'critic {v["bare_ms"]:.4f} ms), plain {v["plain_ms"]:.4f} '
                 f'ms (graph replay), bound {v["bound_ms"]:.6f} ms '
                 f'({v["bound_by"]}); {card}')
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2244,7 +2334,9 @@ def phase_env_kernels(rows, card):
     kernel's own states (``hold_grid_eps_on_edge``). At D = 8 and with a
     learned reward each row's time, its bound and its plain version's time
     beside the D = 5 time of phase 2 (``rows``) from this call and the
-    card's name and power limit (``card``)."""
+    card's name and power limit (``card``). Returns the times of each env
+    timed, {label: times}."""
+    out = {}
     for env, learned in ENV_KERNEL_ENVS:
         check_step(MAIN_B, env, 'phase 2b', learned=learned)
         for mean_only in (True, False):
@@ -2265,8 +2357,9 @@ def phase_env_kernels(rows, card):
         log(f'[phase 2b] {label} launch plans: step B={MAIN_B} {plans}; '
             f'rollout B={MAIN_B} {k_plan(MAIN_B, env, learned)}; grid '
             f'B={GRID_B} {k_plan(GRID_B, env, learned)}')
-        times = {**steps, **rollout_timings(env, False, learned),
-                 **grid_timings(GRID_B, env=env, learned=learned)[0]}
+        times = out[label] = {
+            **steps, **rollout_timings(env, False, learned),
+            **grid_timings(GRID_B, env=env, learned=learned)[0]}
         for name, v in times.items():
             B = GRID_B if name.startswith('fused_grid') else MAIN_B
             log(f'[phase 2b] {name} B={B}: {label} (D={D}, U={U}, reward '
@@ -2276,6 +2369,7 @@ def phase_env_kernels(rows, card):
                 f'(Cartpole {rows[name]["plain_ms"]:.4f}); bound '
                 f'{v["bound_ms"]:.6f} ms ({v["bound_by"]}; Cartpole '
                 f'{rows[name]["bound_ms"]:.6f}); {card}')
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2514,6 +2608,79 @@ def phase_option_kernels(rows, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 2p: the other policy heads in rows 3-9
+# ---------------------------------------------------------------------------
+
+
+def phase_head_kernels(rows, env_rows, card):
+    """Phase 2p: rows 3-9 with each policy head of HEAD_ENVS (the
+    ``TanhSquashedDensity`` on Cartpole, the ``CategoricalDensity`` on the
+    differentiable lander, U = 2) against their plain versions (the
+    tolerances of phase 2; the categorical picks through ``held_against``,
+    at most one pick in 1000 on an edge flipped), rows 3-7 at B = 100 (3-5
+    with the reward mean-only shortcut and without) and rows 8-9 at
+    B = 1000. Each row's time, plain time and bound beside the diagonal
+    head's on the same env from this call (``rows``: Cartpole's, phase 2;
+    ``env_rows``: the lander's, phase 2b) and the card (``card``)."""
+    for head, env in HEAD_ENVS:
+        opts = (head,)
+        dyn, pol = env_models(env, options=opts)[:2]
+        why = fr.kernel_refuses(dyn, pol)
+        if why is not None:
+            raise AssertionError(f'the gate refuses the {head} head: {why}')
+        tag = f'phase 2p {head}'
+        check_step(MAIN_B, env, tag, options=opts)
+        for mean_only in (True, False):
+            check_rollout(MAIN_B, mean_only, env, tag, options=opts)
+        check_grid(GRID_B, True, env, tag, options=opts)
+        steps, plans = step_timings(MAIN_B, env, options=opts)
+        log(f'[{tag}] {env} launch plans: step B={MAIN_B} {plans}; rollout '
+            f'B={MAIN_B} {k_plan(MAIN_B, env, options=opts)}; grid '
+            f'B={GRID_B} {k_plan(GRID_B, env, options=opts)}')
+        times = {**steps, **rollout_timings(env, False, options=opts),
+                 **grid_timings(GRID_B, env=env, options=opts)[0]}
+        base = rows if env == 'Cartpole' else env_rows[env]
+        for name, v in times.items():
+            B = GRID_B if name.startswith('fused_grid') else MAIN_B
+            log(f'[{tag}] {name} B={B}: {env} {head} head kernel '
+                f'{v["ms"]:.4f} ms beside the diagonal head '
+                f'{base[name]["ms"]:.4f} ms; plain {v["plain_ms"]:.4f} ms '
+                f'(diagonal {base[name]["plain_ms"]:.4f}); bound '
+                f'{v["bound_ms"]:.6f} ms ({v["bound_by"]}); {card}')
+
+
+# ---------------------------------------------------------------------------
+# phase 7o: the critic's model options in rows 3-5's refit
+# ---------------------------------------------------------------------------
+
+
+def phase_critic_options(critic_rows, card, iters=VALUE_ITERS):
+    """Phase 7o: the critic with each set of CRITIC_OPTION_SETS (B angle
+    embedding, concrete input dropout and a swish output; C spectral norm of
+    every layer; both) in rows 3-5's refit: ``check_critic`` at B = 100
+    without MM for each set and at B = 1000 with MM for both, both sets'
+    times at phase 2c's cases beside phase 2c's critic without them
+    (``critic_rows``), then phase 7's value path with both
+    (``phase_value_path``: the gate names ``'full'``, one
+    ``fused_rollout_vg`` an iteration and nothing else, v_loss falling, the
+    tiers' ms and one iteration of each against the plain path). Returns the
+    value path's launch counts."""
+    for opts in CRITIC_OPTION_SETS.values():
+        check_critic(MAIN_B, False, tag='phase 7o', coptions=opts)
+    check_critic(GRID_B, True, tag='phase 7o', coptions=CRITIC_OPTIONS)
+    for B, mm in CRITIC_CASES:
+        tt = critic_timings(B, mm, coptions=CRITIC_OPTIONS)
+        for name, v in tt.items():
+            log(f'[phase 7o] {name} with the critic\'s options '
+                f'{"+".join(CRITIC_OPTIONS)} B={B} MM {"on" if mm else "off"}'
+                f': kernel {v["ms"]:.4f} ms beside the critic without them '
+                f'{critic_rows[(B, mm)][name]["ms"]:.4f} ms; plain '
+                f'{v["plain_ms"]:.4f} ms; bound {v["bound_ms"]:.6f} ms '
+                f'({v["bound_by"]}); {card}')
+    return phase_value_path(iters, tag='phase 7o', coptions=CRITIC_OPTIONS)
+
+
+# ---------------------------------------------------------------------------
 # phases 3-7: the routes, the main path among them
 # ---------------------------------------------------------------------------
 
@@ -2546,7 +2713,9 @@ def build_models(D, U, max_u, reward_func, hidden=(200, 200),
     nonlinearities (tanh on the policy, swish on the dynamics), 'ang' angle
     embedding inside the models (the policy's state dim 0, the dynamics'
     state dim 2 and its last action dim), 'bf16' the fused MLP kernel with
-    bf16 operands (``fused=True``)."""
+    bf16 operands (``fused=True``); the policy's head 'tanh' a
+    ``TanhSquashedDensity`` over the Gaussian (its own bound HEAD_MAX_U
+    inside the policy's), 'cat' a ``CategoricalDensity`` of U actions."""
     E = D if reward_func is not None else D + 1
     head = (GaussianMixtureDensity(E, components) if components
             else DiagGaussianDensity(E))
@@ -2567,9 +2736,14 @@ def build_models(D, U, max_u, reward_func, hidden=(200, 200),
                           dropout=cdropout(0.1), nonlin=nonlin, **dkw),
                   head, angle_dims=dang),
         reward_func=reward_func)
-    pol = Policy(MLPSpec(D + len(pang), 2 * U, hidden, dropout=bdropout(0.1),
-                         nonlin=nonlin, **pkw),
-                 DiagGaussianDensity(U), angle_dims=pang, max_u=tuple(max_u))
+    phead = DiagGaussianDensity(U)
+    if 'tanh' in options:
+        phead = TanhSquashedDensity(phead, HEAD_MAX_U)
+    elif 'cat' in options:
+        phead = CategoricalDensity(U)
+    pol = Policy(MLPSpec(D + len(pang), phead.n_inputs, hidden,
+                         dropout=bdropout(0.1), nonlin=nonlin, **pkw),
+                 phead, angle_dims=pang, max_u=tuple(max_u))
     return dyn, pol
 
 
@@ -3013,12 +3187,12 @@ def phase_grouped_paths(capacity):
         fused_step_bwd=T * STEP_ROUTE_ITERS), 'step', B=big, groups=big // 10)
 
 
-def critic_setup(D, seed=SEED, T=MAIN_T):
+def critic_setup(D, seed=SEED, T=MAIN_T, options=()):
     """The Deep-PILCO with-value driver's default critic
     (``examples/deep_pilco_common.py`` ``build_critic``): ``critic_spec``'s
-    MSE critic with H = T and uniform TD weights. Returns (V, update,
-    value_state, stats)."""
-    V, update = critic_spec(D, H=T, discount=None)
+    MSE critic with H = T and uniform TD weights (and its ``options``).
+    Returns (V, update, value_state, stats)."""
+    V, update = critic_spec(D, H=T, discount=None, options=options)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed + 100)
     vp = V.init(gen, device='cuda')
@@ -3082,7 +3256,7 @@ def value_tier_times(setup, opts, state, vstats, n=30, seed=SEED):
 
 
 def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
-                        tier='full'):
+                        tier='full', tag='phase 7'):
     """One iteration with the critic on the same initial states and noise,
     through ``opt`` (on ``tier``: the whole-rollout tier, rows 3 and 4 with
     the refit, or forced to the grid tier, ``value_opts``) and through its
@@ -3140,7 +3314,7 @@ def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
             raise AssertionError(f'non-finite {k} on the kernel path')
         err = float((got[k] - ref[k]).abs().max())
         tol = max(f, 3 * float((moved[k] - ref[k]).abs().max()))
-        log(f'[phase 7] one iteration on tier {tier}, kernel vs plain path: '
+        log(f'[{tag}] one iteration on tier {tier}, kernel vs plain path: '
             f'{k} max abs err {err:.3e} (tolerance {tol:.3e}; plain '
             f'{float(ref[k].abs().max()):.6e} max abs)')
         if err > tol:
@@ -3150,8 +3324,10 @@ def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
                              f'disagree: {bad}')
 
 
-def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
-    """``mc_pilco`` at B = 1000 with the critic of ``critic_setup``, where
+def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B,
+                     tag='phase 7', coptions=()):
+    """``mc_pilco`` at B = 1000 with the critic of ``critic_setup`` (with
+    ``coptions``; the log's ``tag``), where
     the gate must name the whole-rollout tier: the launch counts of the run
     (set to 0 just before it: one ``fused_rollout_vg`` an iteration, the
     refit and the bootstrap in it, nothing else), v_loss falling, the ms an
@@ -3160,7 +3336,8 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
     plain path. Returns the launch counts."""
     setup = main_path_setup(seed)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
-    V, update, state, vstats = critic_setup(x0_pool.shape[-1], seed, T)
+    V, update, state, vstats = critic_setup(x0_pool.shape[-1], seed, T,
+                                            coptions)
     opts = value_opts(setup, V, update, T, B)
     opt = opts['full']
     if opt.tier('cuda') != 'full':
@@ -3181,25 +3358,26 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
     launches = counts()
     if n_steps != iters or int(state['opt_state'].count) != iters:
         raise AssertionError('the run did not take every iteration')
-    report('phase 7', 'mc_pilco with a TD(H) critic (tier full)', iters, t0,
+    report(tag, 'mc_pilco with a TD(H) critic (tier full)', iters, t0,
            stamps, metrics['loss'], metrics['mean_return'], launches,
            expect(fused_rollout_vg=iters), T, B)
     v = metrics['v_loss']
     if not np.all(np.isfinite(v)):
         raise AssertionError('non-finite v_loss on the value path')
     first, last = float(v[:10].mean()), float(v[-10:].mean())
-    log(f'[phase 7] v_loss first {v[0]:.6e} last {v[-1]:.6e} (min '
+    log(f'[{tag}] v_loss first {v[0]:.6e} last {v[-1]:.6e} (min '
         f'{v.min():.6e}, max {v.max():.6e}; first-10 mean {first:.6e}, '
         f'last-10 mean {last:.6e}), all finite')
     if not last < first:
         raise AssertionError('v_loss did not fall on the value path')
     ms = value_tier_times(setup, opts, state, vstats, seed=seed)
-    log(f'[phase 7] an iteration with the critic at B={B} (host clock, '
+    log(f'[{tag}] an iteration with the critic at B={B} (host clock, '
         f'synchronised, median of 30, two runs each in turns): tier full '
         f'{ms["full"]:.3f} ms, forced to tier grid {ms["grid"]:.3f} ms; '
         f'{card_line()}')
     for tier, o in opts.items():
-        compare_value_paths(setup, o, V, state, vstats, seed, T, tier)
+        compare_value_paths(setup, o, V, state, vstats, seed, T, tier, tag)
+    ITER_MS[tag] = ms['full']
     return launches
 
 
@@ -4291,10 +4469,11 @@ DDPG_B = 100  # the driver's --dyn_batch_size, DDPG's minibatch
 DDPG_T = MAIN_T  # the driver's --pred_H, the imagined horizon
 DDPG_ITERS = 20  # iterations timed on the host clock
 DDPG_PROFILED = 3  # iterations under torch.profiler
-DDPG_ARGV = ['--seed', str(SEED), '--ps_iters', '1', '--n_rnd_epi', '2']
+DDPG_ARGV = ['--seed', str(SEED), '--ps_iters', '1', '--n_rnd_epi', '2',
+             '--dyn_opt_iters', '1000', '--fit_iters', '40']
 DENSITY_STEPS = 5  # train_model steps held against the unfused MLP
 DENSITY_BATCH = 100
-BNN_ITERS = 1000  # the BNN regression drivers' steps a model
+BNN_ITERS = 400  # the BNN regression drivers' steps a model
 
 
 def clone_tree(tree):
@@ -4519,10 +4698,10 @@ def phase_ddpg(card):
     """Phase 12: model-based DDPG at the driver's widths (``ddpg_setup``):
     one iteration held against the unfused MLPs and timed, the Q-value
     rollout held the same way, then one episode of the MBDDPG driver
-    (``--ps_iters 1 --n_rnd_epi 2``, every other flag at its default: 2000
-    fit steps, 120 DDPG iterations of T = 15, 40 control steps), its launch
-    counts exact (fused-MLP forward 2000 + 120 * 7 T + the control steps,
-    backward 2000 + 120 * 3 T). Returns the episode's launch counts."""
+    (``DDPG_ARGV``: 1000 fit steps, 40 DDPG iterations of T = 15, every
+    other flag at its default, 40 control steps), its launch
+    counts exact (fused-MLP forward 1000 + 40 * 7 T + the control steps,
+    backward 1000 + 40 * 3 T). Returns the episode's launch counts."""
     models, state, pool, gen = ddpg_setup()
     check_ddpg_iteration(models, state, pool, gen, card)
     check_q_rollout(models, state, pool, gen)
@@ -4654,7 +4833,8 @@ def phase_density(card):
 # phase 14: the sequence-model driver, model ensembles and the optimisers
 # ---------------------------------------------------------------------------
 
-TM_ARGV = ['--seed', str(SEED), '--ps_iters', '1']
+TM_ARGV = ['--seed', str(SEED), '--ps_iters', '1', '--dyn_opt_iters', '200',
+           '--pol_opt_iters', '40']
 TM_PROFILED = 3  # policy steps under torch.profiler
 ENS_K = 5  # members: PETS's ensemble size (Chua et al. 2018)
 ENS_B = 100
@@ -4819,10 +4999,10 @@ def check_tm_steps(setup, card, tag='phase 14a', dump=None):
 
 
 def phase_tm_episode(card, tag='phase 14b', argv=TM_ARGV):
-    """One episode of ``transformer_models.main`` at its defaults (400
-    dynamics steps, 200 flow steps, 100 policy steps of 16 imagined steps,
-    40 control steps): launches exact (fused-MLP forward 100 x 16 + the
-    control steps, backward 100 x 16), every value finite, E_lml rising
+    """One episode of ``transformer_models.main`` (TM_ARGV: 200 dynamics
+    steps, 200 flow steps, 40 policy steps of 16 imagined steps, 40 control
+    steps): launches exact (fused-MLP forward 40 x 16 + the control steps,
+    backward 40 x 16), every value finite, E_lml rising
     over the fit; ms a dyn, flow and pol step (host clock). Returns the
     launch counts and ``main``'s (params, history)."""
     args = tmd.get_parser().parse_args(argv)
@@ -5098,14 +5278,16 @@ def main():
     t = lap('phase 2h', t)
     phase_grouped_kernels(rows, card)
     t = lap('phase 2g', t)
-    phase_critic_kernels()
+    critic_rows = phase_critic_kernels()
     t = lap('phase 2c', t)
-    phase_env_kernels(rows, card)
+    env_rows = phase_env_kernels(rows, card)
     t = lap('phase 2b', t)
     phase_mixture_kernels(rows, card)
     t = lap('phase 2m', t)
     phase_option_kernels(rows, card)
     t = lap('phase 2o', t)
+    phase_head_kernels(rows, env_rows, card)
+    t = lap('phase 2p', t)
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)
     T = MAIN_T
@@ -5155,10 +5337,22 @@ def main():
     log(f'[phase 5o] {ITER_MS["phase 5o"]:.3f} ms an iteration with B1-B3 '
         f'beside phase 5\'s {ITER_MS["phase 5"]:.3f} ms (host clock, this '
         f'call); {card}')
+    # phase 5p: the main path with the tanh-squashed policy head, the same
+    # one launch an iteration and nothing else
+    phase_mc_pilco(HEAD_ITERS, None, 'phase 5p',
+                   expect(fused_rollout_vg=HEAD_ITERS), 'full',
+                   model_options=('tanh',))
+    log(f'[phase 5p] {ITER_MS["phase 5p"]:.3f} ms an iteration with the '
+        f'TanhSquashedDensity head beside phase 5\'s {ITER_MS["phase 5"]:.3f} '
+        f'ms (host clock, this call); {card}')
     phase_grouped_paths(capacity)
     loss_route = phase_loop(LOSS_ITERS, 'loss', 'phase 6', expect(
         fused_rollout_fwd=LOSS_ITERS, fused_rollout_bwd=LOSS_ITERS))
     phase_value_path()
+    phase_critic_options(critic_rows, card)
+    log(f'[phase 7o] {ITER_MS["phase 7o"]:.3f} ms an iteration with the '
+        f'critic\'s options beside phase 7\'s {ITER_MS["phase 7"]:.3f} ms '
+        f'(host clock, median of 30, this call); {card}')
     fixed_critic = phase_fixed_critic()
     t = lap('phases 3-7', t)
     episode = phase_episode()

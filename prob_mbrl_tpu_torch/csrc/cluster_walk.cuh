@@ -35,7 +35,11 @@
 // after the dynamics' whitening (the policy's own input is then a tile
 // array of its own, Lay::xq); an output nonlinearity acts on an MLP's
 // outputs, whose pre-activations Lay::opre keeps for its VJP. Spectral norm
-// needs nothing here: the wrapper binds the normalized weights.
+// needs nothing here: the wrapper binds the normalized weights. The policy's
+// head (StepArgs::pol_head) is a diagonal Gaussian in line, or out of line a
+// TanhSquashedDensity (its own tanh squash before the policy's) or a
+// CategoricalDensity (U logits, the straight-through one-hot of its
+// Gumbel-softmax pick; the tile arrays keep u or y for the VJP, kTU).
 // Data written in the same launch by other CTAs is read with plain loads or
 // cp.async (no __restrict__ const, no __ldg). No atomics on values.
 #pragma once
@@ -330,6 +334,122 @@ __device__ __noinline__ void mix_vjp(const Step& st, const float* hd, const floa
       gt -= glp * m.lp[j];
     }
     X[(o + K) * TRP + r] = gt / m.temp * sigmoid_f(hd[(o + K) * TRP + r]);
+  }
+}
+
+// ---- the policy's other heads, one row --------------------------------------
+
+// A categorical policy head's soft weights of tile row r (its U logits x at
+// kTPout of the tile arrays, its Gumbel noise z at kTZp, zero past nrows) in
+// the plain version's order of operations, each softmax with its max
+// subtracted: lsm = log_softmax(x), p = exp(lsm) = softmax(x), soft =
+// softmax((lsm + z) / head_temp).
+__device__ void cat_soft(const Step& st, const float* ts, int TRP, int r, bool in, float* soft,
+                         float* p) {
+  const int U = st.U;
+  float mx = ts[kTPout * TRP + r];
+  for (int j = 1; j < U; ++j) mx = fmaxf(mx, ts[(kTPout + j) * TRP + r]);
+  float se = 0.f;
+  for (int j = 0; j < U; ++j) se += expf(ts[(kTPout + j) * TRP + r] - mx);
+  const float lse = logf(se);
+  float mv = 0.f;
+  for (int j = 0; j < U; ++j) {
+    const float lsm = (ts[(kTPout + j) * TRP + r] - mx) - lse;
+    p[j] = expf(lsm);
+    soft[j] = (lsm + (in ? ts[(kTZp + j) * TRP + r] : 0.f)) / st.head_temp;
+    mv = j ? fmaxf(mv, soft[j]) : soft[j];
+  }
+  float sv = 0.f;
+  for (int j = 0; j < U; ++j) {
+    soft[j] = expf(soft[j] - mv);
+    sv += soft[j];
+  }
+  for (int j = 0; j < U; ++j) soft[j] = soft[j] / sv;
+}
+
+// The sample of a TanhSquashedDensity or CategoricalDensity policy head
+// (st.pol_head) of a tile, one thread a row: y, then a = act_scale tanh(y) +
+// act_bias (+ eps) into ts[kTAct]. The tanh head keeps its Gaussian sample u
+// = mean + z exp(upper_clip(lsr)) in ts[kTU] (y = head_scale tanh(u) +
+// head_bias); the categorical head its y, the straight-through one-hot of the
+// pick idx = sum_j (u_pol > cumsum(soft)_j) (u_pol at row kTPout + U, which
+// its U-wide MLP output leaves free; U past the last sum: a zero row, as
+// jax.nn.one_hot has it). Out of line, as mix_sample, so that a diagonal
+// head's step keeps its registers.
+__device__ __noinline__ void pol_head_sample(const Step& st, float* ts, int TR, int TRP, int nrows,
+                                             bool eps) {
+  const int U = st.U;
+  for (int r = threadIdx.x; r < TR; r += blockDim.x) {
+    const bool in = r < nrows;
+    float y[kMaxU];
+    if (st.pol_head == kHeadCat) {
+      float soft[kMaxU], p[kMaxU];
+      cat_soft(st, ts, TRP, r, in, soft, p);
+      const float u = in ? ts[(kTPout + U) * TRP + r] : 0.f;
+      float cdf = 0.f;
+      int idx = 0;
+      for (int j = 0; j < U; ++j) {
+        cdf += soft[j];
+        idx += u > cdf ? 1 : 0;
+      }
+      for (int j = 0; j < U; ++j) {
+        y[j] = ((j == idx ? 1.f : 0.f) - soft[j]) + soft[j];
+        ts[(kTU + j) * TRP + r] = y[j];
+      }
+    } else {
+      for (int k = 0; k < U; ++k) {
+        const float mean = ts[(kTPout + k) * TRP + r], lsr = ts[(kTPout + U + k) * TRP + r];
+        const float z = in ? ts[(kTZp + k) * TRP + r] : 0.f;
+        const float u = mean + z * expf(upper_clip(lsr, st.pol_upper));
+        ts[(kTU + k) * TRP + r] = u;
+        y[k] = st.head_scale * tanhf(u) + st.head_bias;
+      }
+    }
+    for (int k = 0; k < U; ++k) {
+      float a = st.act_scale[k] * tanhf(y[k]) + st.act_bias[k];
+      if (eps && in) a += ts[(kTEps + k) * TRP + r];
+      ts[(kTAct + k) * TRP + r] = a;
+    }
+  }
+}
+
+// Its VJP, one thread a row, into Xp (the gradient wrt the policy MLP's
+// outputs) from ts[kTGact]: gy = g_a act_scale (1 - tanh(y)^2); the tanh
+// head gu = gy head_scale (1 - tanh(u)^2), then the Gaussian sample's
+// reparameterisation as a diagonal head's; the categorical head through soft
+// (none through the hard pick): the softmax's VJP over 1 / head_temp, then
+// log_softmax's, U outputs.
+__device__ __noinline__ void pol_head_vjp(const Step& st, const float* ts, float* Xp, int TR,
+                                          int TRP, int nrows) {
+  const int U = st.U;
+  for (int r = threadIdx.x; r < TR; r += blockDim.x) {
+    const bool in = r < nrows;
+    float gy[kMaxU];
+    for (int k = 0; k < U; ++k) {
+      const float ga = ts[(kTGact + k) * TRP + r], u = ts[(kTU + k) * TRP + r];
+      const float ty = tanhf(st.pol_head == kHeadCat ? u : st.head_scale * tanhf(u) + st.head_bias);
+      gy[k] = ga * st.act_scale[k] * (1.f - ty * ty);
+    }
+    if (st.pol_head == kHeadCat) {
+      float soft[kMaxU], p[kMaxU], dot = 0.f, sl = 0.f;
+      cat_soft(st, ts, TRP, r, in, soft, p);
+      for (int j = 0; j < U; ++j) dot += gy[j] * soft[j];
+      for (int j = 0; j < U; ++j) {
+        gy[j] = soft[j] * (gy[j] - dot) / st.head_temp;
+        sl += gy[j];
+      }
+      for (int j = 0; j < U; ++j) Xp[j * TRP + r] = gy[j] - p[j] * sl;
+      continue;
+    }
+    for (int k = 0; k < U; ++k) {
+      const float tu = tanhf(ts[(kTU + k) * TRP + r]);
+      const float gu = gy[k] * st.head_scale * (1.f - tu * tu);
+      const float lsr = ts[(kTPout + U + k) * TRP + r];
+      const float z = in ? ts[(kTZp + k) * TRP + r] : 0.f;
+      Xp[k * TRP + r] = gu;
+      Xp[(U + k) * TRP + r] =
+          (gu * z) * expf(upper_clip(lsr, st.pol_upper)) * sigmoid_f(st.pol_upper - lsr);
+    }
   }
 }
 
@@ -919,6 +1039,8 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
     cp_async4(ts + (kTZp + k) * TRP + r, st.z_pol + (size_t)(row0 + r) * U + k);
     if (eps_t) cp_async4(ts + (kTEps + k) * TRP + r, eps_t + (size_t)(row0 + r) * U + k);
   }
+  if (st.u_pol)  // a categorical head's uniform, where its MLP output leaves a row
+    for (int r = tid; r < nrows; r += nt) cp_async4(ts + (kTPout + U) * TRP + r, st.u_pol + row0 + r);
   const int E = head_dims(st.reward_kind, D), K = st.K;
   for (int e = tid; e < nrows * E; e += nt) {
     const int r = e / E, k = e - r * E;
@@ -942,11 +1064,13 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
     __syncthreads();
   }
   mlp_fwd<kReluOnly>(c, st.pol, 0, c.lay.xq, keep, c.lay.tsm + kTPout * TRP, row0, nrows);
+  const int pw = pol_width(st.pol_head, U);
   if (st.out_act[0] != kIdentity) {
-    out_act_fwd(st, 0, ts + kTPout * TRP, c.sm + c.lay.opre, 2 * U, TR, TRP, nrows);
+    out_act_fwd(st, 0, ts + kTPout * TRP, c.sm + c.lay.opre, pw, TR, TRP, nrows);
     __syncthreads();
   }
-  for (int e = tid; e < TR * U; e += nt) {
+  if (st.pol_head != kHeadDiag) pol_head_sample(st, ts, TR, TRP, nrows, eps_t != nullptr);
+  for (int e = tid; e < TR * U && st.pol_head == kHeadDiag; e += nt) {
     const int r = e / U, k = e - r * U;
     const float mean = ts[(kTPout + k) * TRP + r], lsr = ts[(kTPout + U + k) * TRP + r];
     const float z = r < nrows ? ts[(kTZp + k) * TRP + r] : 0.f;
@@ -974,7 +1098,7 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
   const int dout_off = K ? c.lay.mix : c.lay.tsm + kTDout * TRP;
   mlp_fwd<kReluOnly>(c, st.dyn, 1, c.lay.xd, keep, dout_off, row0, nrows);
   if (st.out_act[1] != kIdentity) {
-    out_act_fwd(st, 1, c.sm + dout_off, c.sm + c.lay.opre + 2 * U * TRP,
+    out_act_fwd(st, 1, c.sm + dout_off, c.sm + c.lay.opre + pw * TRP,
                 st.dyn.dims[st.dyn.n + 1], TR, TRP, nrows);
     __syncthreads();
   }
@@ -1106,7 +1230,8 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   }
   __syncthreads();
   if (st.out_act[1] != kIdentity) {
-    out_act_vjp(st, 1, X, c.sm + c.lay.opre + 2 * U * TRP, st.dyn.dims[st.dyn.n + 1], TR, TRP);
+    out_act_vjp(st, 1, X, c.sm + c.lay.opre + pol_width(st.pol_head, U) * TRP,
+                st.dyn.dims[st.dyn.n + 1], TR, TRP);
     __syncthreads();
   }
   float* gx = const_cast<float*>(mlp_bwd<kReluOnly>(c, st.dyn, 1, row0, nrows, c.lay.xd, nullptr));
@@ -1126,9 +1251,11 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   }
   __syncthreads();
   // a = scale tanh(u) + bias + eps, u = mean + z exp(upper_clip(lsr)): the
-  // policy output's gradient, where the first backward layer reads it
+  // policy output's gradient, where the first backward layer reads it (the
+  // other heads: pol_head_vjp)
   float* Xp = c.region(c.pass + 1);
-  for (int e = tid; e < TR * U; e += nt) {
+  if (st.pol_head != kHeadDiag) pol_head_vjp(st, ts, Xp, TR, TRP, nrows);
+  for (int e = tid; e < TR * U && st.pol_head == kHeadDiag; e += nt) {
     const int r = e / U, k = e - r * U;
     const float ga = ts[(kTGact + k) * TRP + r];
     const float th = tanhf(ts[(kTU + k) * TRP + r]);
@@ -1141,7 +1268,7 @@ __device__ __forceinline__ void step_vjp(Ctx& c, const Step& st, const float* g_
   }
   __syncthreads();
   if (st.out_act[0] != kIdentity) {
-    out_act_vjp(st, 0, Xp, c.sm + c.lay.opre, 2 * U, TR, TRP);
+    out_act_vjp(st, 0, Xp, c.sm + c.lay.opre, pol_width(st.pol_head, U), TR, TRP);
     __syncthreads();
   }
   float* gp = const_cast<float*>(mlp_bwd<kReluOnly>(c, st.pol, 0, row0, nrows, c.lay.xq, dwacc));
@@ -1290,8 +1417,10 @@ long long walk_lay(const Step& st, int TR, int resident, bool bwd, Lay& L,
   const int kw4 = round4(kwmax);
   L.h = static_cast<int>(off);
   off += (long long)kw4 * TRP;
-  // the MLP inputs' arrays: kMaxIn rows, or the widest embedded input's
-  const int nx = max(kMaxIn, max(st.pol.dims[0], st.dyn.dims[0]));
+  // the MLP inputs' arrays: kMaxIn rows, or the widest embedded input's (the
+  // critic's too: its input and its input mask, critic_walk.cuh)
+  const int nx = max(max(kMaxIn, critic ? critic->dims[0] : 0),
+                     max(st.pol.dims[0], st.dyn.dims[0]));
   L.xp = static_cast<int>(off);
   L.xd = static_cast<int>(off + nx * TRP);
   L.gx = static_cast<int>(off + 2 * nx * TRP);

@@ -697,7 +697,9 @@ __device__ void critic_sync(const Ctx& c, const Roll& ro, RollSm& sh) {
 // backward into this CTA's dW accumulator; the cluster's loss to scratch;
 // one barrier; v_loss = the rows' mean + reg_weight times the regulariser
 // (CTA 0), the Adam step and the polyak target over every thread; one more
-// barrier, after which params' is whole for the bootstrap.
+// barrier, after which params' is whole for the bootstrap. Spectral norm adds
+// a barrier before the step (<G, w> over the launch, critic_sn_dots) and one
+// after it (params' normalized weights, critic_sn_refresh).
 template <bool kReluOnly>
 __device__ void critic_refit(Ctx& c, const Step& st, const Roll& ro, RollSm& sh, const Crit& cr,
                              Net& cn) {
@@ -751,6 +753,10 @@ __device__ void critic_refit(Ctx& c, const Step& st, const Roll& ro, RollSm& sh,
       if (gauss) X[TRP + r] = g1;
     }
     __syncthreads();
+    if (a.opts && a.opts->out_act != kIdentity) {
+      critic_out_act(c, cr, nrows, true, X);
+      __syncthreads();
+    }
     mlp_bwd<kReluOnly>(c, cn, kCriticNet, p0 + lp, nrows, c.lay.xp, acc);
     if (tid < 32) {
       float v = 0.f;
@@ -772,8 +778,16 @@ __device__ void critic_refit(Ctx& c, const Step& st, const Roll& ro, RollSm& sh,
     for (int cc = 0; cc < c.lay.clusters; ++cc) v += ro.scratch[c.lay.s_closs + cc];
     *a.v_loss = v / B + sh.creg;
   }
+  if (a.sn) {  // spectral norm: <G, w> over the launch before the step
+    critic_sn_dots(c, cr, ro.scratch + c.lay.s_cdw, sh.red);
+    critic_sync(c, ro, sh);
+  }
   critic_adam(c, cr, ro.scratch + c.lay.s_cdw);
   critic_sync(c, ro, sh);
+  if (a.sn) {  // params' normalized weights, for the bootstrap
+    if (blockIdx.x == 0) critic_sn_refresh(c, cr, sh.red);
+    critic_sync(c, ro, sh);
+  }
 }
 
 // The bootstrap w_H V(s_T) of the cluster's rows under params' (fwd: rows
@@ -811,10 +825,18 @@ __device__ void critic_bootstrap(Ctx& c, const Step& st, const Roll& ro, const C
     }
     __syncthreads();
     if (!bwd) continue;
+    if (a.opts && a.opts->out_act != kIdentity) {
+      critic_out_act(c, cr, nrows, true, X);
+      __syncthreads();
+    }
     const float* gx = mlp_bwd<kReluOnly>(c, cn, kCriticNet, p0 + lp, nrows, c.lay.xp, nullptr);
-    for (int e = tid; e < nrows * D; e += nt) {
-      const int r = e / D, k = e - r * D;
-      rw.GS[(lp + r) * D + k] = gx[k * TRP + r] * a.isx[k];
+    if (a.opts) {  // through the input mask and the angles' embedding
+      critic_option_grad(c, cr, gx, s_T + lp * D, rw.GS + lp * D, nrows);
+    } else {
+      for (int e = tid; e < nrows * D; e += nt) {
+        const int r = e / D, k = e - r * D;
+        rw.GS[(lp + r) * D + k] = gx[k * TRP + r] * a.isx[k];
+      }
     }
     __syncthreads();
   }

@@ -8,7 +8,9 @@
 // The step (make_step_impl of prob_mbrl_tpu/ops/pallas/fused_rollout.py,
 // :1079-1129):
 //   [angle-embedded, input-dropped] s -> policy MLP [-> output nonlinearity]
-//   -> DiagGaussian sample -> max_u * tanh(.) + eps
+//   -> the policy head's sample: DiagGaussian, a TanhSquashedDensity over
+//      it or a CategoricalDensity's straight-through one-hot (StepArgs::
+//      pol_head) -> max_u * tanh(.) + eps
 //   -> [angle-embedded] cat(s, a), whitened [, input-dropped] -> dynamics MLP
 //      [-> output nonlinearity] -> scaled DiagGaussian sample, or
 //      a GaussianMixtureDensity's straight-through pick of one of its K
@@ -46,6 +48,16 @@ constexpr int kLanderReward = 2;
 // head has 2 (D + 1) outputs, and its output D is the reward, r = mean_D +
 // z_D exp(ls_D), sampled like the state deltas but added to nothing
 constexpr int kLearnedReward = 3;
+
+// StepArgs::pol_head, the policy's density (JAX models/densities.py):
+constexpr int kHeadDiag = 0;  // DiagGaussianDensity(U): y = mean + z exp(upper_clip(lsr))
+// TanhSquashedDensity(DiagGaussianDensity(U)): y = head_scale tanh(u) + head_bias
+// of the Gaussian sample u (:206-216)
+constexpr int kHeadTanh = 1;
+// CategoricalDensity(U): the MLP has U outputs x; soft = softmax((log_softmax(x)
+// + z) / head_temp), the hard pick idx = sum_j (u_pol > cumsum(soft)_j) and y =
+// (onehot(idx) - soft) + soft, forward the one-hot, backward through soft (:170-183)
+constexpr int kHeadCat = 2;
 
 }  // namespace
 
@@ -94,6 +106,12 @@ struct StepArgs {
   // (ops/angles.py to_complex: the other dims, then sin, then cos); bytes,
   // as Step is a kernel parameter, with the others within 4 KB
   signed char in_map[2][kMaxX];
+  // the policy's head (kHeadDiag, kHeadTanh or kHeadCat): a TanhSquashedDensity's
+  // own scale and bias (before the Policy's act_scale / act_bias), a
+  // CategoricalDensity's sampling temperature and its uniform [B, 1] (else null)
+  int pol_head;
+  float head_scale, head_bias, head_temp;
+  const float* u_pol;
 };
 
 namespace {
@@ -111,7 +129,16 @@ struct Step {
   const float* m_in[2];
   int out_act[2];
   signed char in_map[2][kMaxX];
+  int pol_head;
+  float head_scale, head_bias, head_temp;
+  const float* u_pol;
 };
+
+// The policy MLP's outputs for U actions: the Gaussian heads' means and raw
+// log-stds (2 U), a categorical head's U logits.
+__host__ __device__ __forceinline__ int pol_width(int pol_head, int U) {
+  return pol_head == kHeadCat ? U : 2 * U;
+}
 
 __device__ __forceinline__ float softplus_f(float y) {
   return y > 20.f ? y : log1pf(expf(y));  // torch.nn.functional.softplus
@@ -297,7 +324,10 @@ bool fill_step(Step& st, const StepArgs* a) {
   if (a->reward_kind == kLearnedReward && a->ntip != 0) return false;
   if (!fill_mlp(st.pol, a->pol, a->B) || !fill_mlp(st.dyn, a->dyn, a->B)) return false;
   const int D = a->D, U = a->U, E = head_dims(a->reward_kind, D);
-  if (st.pol.dims[0] < D || st.pol.dims[0] > 2 * D || st.pol.dims[st.pol.n + 1] != 2 * U
+  if (a->pol_head < kHeadDiag || a->pol_head > kHeadCat) return false;
+  if (a->pol_head == kHeadCat && (!a->u_pol || !(a->head_temp > 0.f))) return false;
+  if (st.pol.dims[0] < D || st.pol.dims[0] > 2 * D
+      || st.pol.dims[st.pol.n + 1] != pol_width(a->pol_head, U)
       || st.dyn.dims[0] < D + U || st.dyn.dims[0] > kMaxX
       || st.dyn.dims[st.dyn.n + 1] != head_width(a->K, E))
     return false;
@@ -344,6 +374,11 @@ bool fill_step(Step& st, const StepArgs* a) {
   st.norm = a->norm;
   st.q_scale = a->q_scale;
   st.r_scale = a->r_scale;
+  st.pol_head = a->pol_head;
+  st.head_scale = a->head_scale;
+  st.head_bias = a->head_bias;
+  st.head_temp = a->head_temp;
+  st.u_pol = a->pol_head == kHeadCat ? a->u_pol : nullptr;
   return true;
 }
 

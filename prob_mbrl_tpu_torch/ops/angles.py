@@ -35,3 +35,13 @@ def to_complex(x, dims):
     others = (torch.cat([x[..., d:d + 1] for d in odims], -1)
               if odims else x[..., :0])
     return torch.cat([others, torch.sin(angles), torch.cos(angles)], -1)
+
+
+def embedding_codes(sources, angles):
+    """Where each input of ``to_complex(x, angles)`` comes from, as the
+    kernels read it: entry k is 3 i + kind of source dim i (kind 0 the
+    value, 1 its sin, 2 its cos), the other dims in order, then the sines
+    and the cosines of ``angles``."""
+    angles = [int(a) for a in angles]
+    return ([3 * i for i in complement_dims(sources, angles)]
+            + [3 * a + 1 for a in angles] + [3 * a + 2 for a in angles])

@@ -65,6 +65,12 @@ model (``pol.angle_dims``, ``reg.angle_dims``: ``[others, sin, cos]`` of
 the named dims, before the dynamics' whitening; ``_in_map``), which widens
 the MLP's input by the angles.
 
+The policy's head (``policy_head``, ``StepArgs::pol_head``) is a
+``DiagGaussianDensity``, a ``TanhSquashedDensity`` over one (its own ``scale
+* tanh(.) + bias`` before the Policy's squash) or a ``CategoricalDensity``,
+whose U-wide MLP output gives the straight-through one-hot of JAX's
+Gumbel-softmax pick from the pinned noise ``z`` and ``u_cat``.
+
 One step: policy -> DiagGaussian sample -> ``max_u * tanh(.) + eps`` ->
 dynamics (whitened input, scaled DiagGaussian sample of the deltas) ->
 ``nxt = s + delta`` -> the reward on the pre-MM ``nxt`` -> the moment-matching
@@ -89,12 +95,14 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...envs.base import ExpQuadTipReward, QuadTipReward
 from ...envs.jax_lander import LanderReward
-from ...models.densities import DiagGaussianDensity, GaussianMixtureDensity
+from ...models.densities import (CategoricalDensity, DiagGaussianDensity,
+                                 GaussianMixtureDensity, TanhSquashedDensity)
 from ...models.regressor import DynamicsModel
-from ..angles import complement_dims
+from ..angles import embedding_codes
 from ...parallel.sharding import mean_all_reduce
 from ...utils.core import tree_leaves, tree_map
 from .. import moment_matching as mm
@@ -119,6 +127,14 @@ _STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
 REWARD_KINDS = (ExpQuadTipReward, QuadTipReward, LanderReward)
 LANDER_KIND = REWARD_KINDS.index(LanderReward)
 LEARNED_KIND = len(REWARD_KINDS)
+
+# the policy heads the kernels take, at the index of their StepArgs::pol_head
+# (csrc/rollout_step.cuh kHeadDiag, kHeadTanh, kHeadCat); a TanhSquashedDensity
+# over a DiagGaussianDensity
+POLICY_HEADS = (DiagGaussianDensity, TanhSquashedDensity, CategoricalDensity)
+# the sampling temperature of a CategoricalDensity policy head: Policy.apply
+# passes none, so the head's default (JAX models/densities.py:171)
+CAT_TEMPERATURE = 0.1
 
 TIERS = ('full', 'remat', 'step', 'grid')
 _FIXED_NOT_GRID = ("a fixed critic's bootstrap is added on the grid tier "
@@ -331,6 +347,45 @@ def make_loss_plain(dyn, pol, steps, w_t, mm_states, mm_rewards, maximize,
     return loss_fn
 
 
+def policy_head_by_hand(pol, out, noise, eps, g_a):
+    """The kernels' policy head on the policy MLP's outputs ``out`` [B,
+    2U or U] (``csrc/cluster_walk.cuh``: a diagonal head in ``step_fwd`` /
+    ``step_vjp``, the others in ``pol_head_sample`` / ``pol_head_vjp``),
+    its gradients written out, in plain PyTorch (no autograd), on the head's
+    noise dict ``noise``: (the actions ``a = scale tanh(y) + bias + eps``,
+    the gradient wrt ``out`` from ``g_a``). The categorical head: ``soft``
+    = softmax((log_softmax(out) + z) / ``CAT_TEMPERATURE``), y =
+    (onehot(idx) - soft) + soft of the pick idx = sum_j (u_cat >
+    cumsum(soft)_j), and the gradient through ``soft`` alone."""
+    kind = policy_head(pol)
+    head, U = pol.output_density, policy_dims(pol)
+    scale = out.new_tensor(pol.scale).expand(U)
+    bias = out.new_tensor(pol.bias).expand(U)
+    if kind == POLICY_HEADS.index(CategoricalDensity):
+        lsm = torch.log_softmax(out, -1)
+        soft = torch.softmax((lsm + noise['z']) / CAT_TEMPERATURE, -1)
+        idx = torch.sum((noise['u_cat'] > torch.cumsum(soft, -1)).long(), -1)
+        hard = (idx[:, None] == torch.arange(U)).to(out.dtype)
+        y = (hard - soft) + soft
+        ty = torch.tanh(y)
+        gy = g_a * scale * (1 - ty * ty)
+        gs = soft * (gy - (gy * soft).sum(-1, keepdim=True)) / CAT_TEMPERATURE
+        g = gs - torch.exp(lsm) * gs.sum(-1, keepdim=True)
+        return scale * ty + bias + eps, g
+    gauss = head.density if kind else head
+    upper = math.log(gauss.max_noise_std)
+    mean, lsr = out[:, :U], out[:, U:]
+    u = mean + noise['z'] * torch.exp(-F.softplus(upper - lsr) + upper)
+    tu = torch.tanh(u)
+    y = head.scale * tu + head.bias if kind else u
+    ty = torch.tanh(y)
+    gy = g_a * scale * (1 - ty * ty)
+    gu = gy * head.scale * (1 - tu * tu) if kind else gy
+    g_ls = ((gu * noise['z']) * torch.exp(-F.softplus(upper - lsr) + upper)
+            * torch.sigmoid(upper - lsr))
+    return scale * ty + bias + eps, torch.cat([gu, g_ls], -1)
+
+
 # ---------------------------------------------------------------------------
 # what the kernels take
 # ---------------------------------------------------------------------------
@@ -345,9 +400,10 @@ def kernel_refuses(dyn, pol):
         return ('the step kernels take an ExpQuadTipReward whose tip is '
                 'linear in the embedded state (tip_matrix), a '
                 'QuadTipReward, a LanderReward or a learned reward')
-    if type(pol.output_density) is not DiagGaussianDensity:
-        return ('the step kernels take a DiagGaussianDensity policy head '
-                f'only ({MODEL_OPTIONS_ITEM})')
+    if policy_head(pol) is None:
+        return ('the step kernels take a DiagGaussianDensity, a '
+                'TanhSquashedDensity over one or a CategoricalDensity policy '
+                'head')
     head = reg.output_density
     if type(head) not in (DiagGaussianDensity, GaussianMixtureDensity):
         return ('the step kernels take a DiagGaussianDensity or '
@@ -358,13 +414,12 @@ def kernel_refuses(dyn, pol):
                 f'components, not {K}')
     for spec in (pol.mlp, reg.mlp):
         if spec.layer_norm:
-            return ('layer norm is not in the step kernels '
-                    f'({MODEL_OPTIONS_ITEM})')
+            return f'layer norm is not in the step kernels: {LAYER_NORM_LIMIT}'
         if spec.compute_dtype is not None:
             # JAX's fused_mode keeps bf16 off its fused tiers too
             return (f'compute_dtype={spec.compute_dtype!r} runs on the '
                     'unfused path; the fused tiers take float32')
-    D, U = dyn.state_dims, pol.output_density.output_dims
+    D, U = dyn.state_dims, policy_dims(pol)
     E = head.output_dims  # D, or D + 1 with a learned reward
     if not (1 <= D <= MAX_D and 1 <= U <= MAX_U):
         return f'the step kernels take D <= {MAX_D}, U <= {MAX_U}'
@@ -380,7 +435,7 @@ def kernel_refuses(dyn, pol):
                                         and len(pol.min_u) not in (1, U)):
         return 'action bounds must have 1 or U entries'
     for spec, angles, sources, dout in (
-            (pol.mlp, pol.angle_dims, D, 2 * U),
+            (pol.mlp, pol.angle_dims, D, pol.output_density.n_inputs),
             (reg.mlp, reg.angle_dims, D + U, head.n_inputs)):
         if len(set(angles)) != len(angles) or not all(
                 0 <= int(a) < sources for a in angles):
@@ -399,6 +454,25 @@ def kernel_refuses(dyn, pol):
                  components=K, options=walk_options(dyn, pol)) is None:
         return 'the step kernels\' tiles do not fit in shared memory'
     return None
+
+
+def policy_head(pol):
+    """``StepArgs::pol_head`` of the policy's density (its index in
+    ``POLICY_HEADS``), or None for a head the kernels do not take (a
+    ``TanhSquashedDensity`` over anything but a ``DiagGaussianDensity``)."""
+    d = pol.output_density
+    kind = next((i for i, h in enumerate(POLICY_HEADS) if type(d) is h), None)
+    if kind == POLICY_HEADS.index(TanhSquashedDensity) and type(
+            d.density) is not DiagGaussianDensity:
+        return None
+    return kind
+
+
+def policy_dims(pol):
+    """U, the actions of the policy's head (a ``TanhSquashedDensity``
+    has them on its base density)."""
+    d = pol.output_density
+    return (d.density if isinstance(d, TanhSquashedDensity) else d).output_dims
 
 
 def reward_kind(rf):
@@ -429,8 +503,8 @@ def _straddling(groups, mesh):
             'that split over the ranks (per-shard MM is then the global MM) '
             'take a fused tier; these take the utils.rollout route with '
             'all-reduced group sums')
-MODEL_OPTIONS_ITEM = ('ROADMAP.md Queue 2: layer norm and the other policy '
-                      'heads in rows 3-9')
+# why no kernel takes layer norm (ROADMAP.md Queue 3, limits of the reference)
+LAYER_NORM_LIMIT = cr.LAYER_NORM_LIMIT
 
 
 def _local_config(cfg, mesh):
@@ -622,8 +696,9 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
     ``options`` (``walk_options``) the policy's own input array and the
     MLPs' output pre-activations besides. With ``critic_dims`` (the
     value update's critic, read in place) its widths count in the exchange
-    regions and the layer-input slice, and its slices share the two MLPs'
-    room, which grows to the larger of the two."""
+    regions, the layer-input slice and the input arrays' rows (its input
+    and input mask use them), and its slices share the two MLPs' room, which
+    grows to the larger of the two."""
     nets = (tuple(pol_dims), tuple(dyn_dims))
     walks = nets + ((tuple(critic_dims),) if critic_dims else ())
     trp = tile_rows + 4
@@ -641,7 +716,7 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
     outmax = max(dims[-1] for dims in walks)
     rw = max(CLUSTER * kwmax, max(max(d) for d in walks), CLUSTER * outmax)
     own_input, out_pre = options or (False, False)
-    nx = max(MAX_D + MAX_U, nets[0][0], nets[1][0])
+    nx = max(MAX_D + MAX_U, *(dims[0] for dims in walks))
     off += 2 * rw * trp + _r4(kwmax) * trp + (4 if own_input else 3) * nx * trp
 
     def slices(*dims_of):
@@ -892,7 +967,11 @@ class _StepArgs(ctypes.Structure):
                    ('r_scale', ctypes.c_float),
                    ('m_in', ctypes.c_void_p * 2),
                    ('out_act', ctypes.c_int * 2),
-                   ('in_map', (ctypes.c_byte * MAX_X) * 2)])
+                   ('in_map', (ctypes.c_byte * MAX_X) * 2),
+                   ('pol_head', ctypes.c_int)]
+                + [(n, ctypes.c_float) for n in ('head_scale', 'head_bias',
+                                                  'head_temp')]
+                + [('u_pol', ctypes.c_void_p)])
 
 
 def _lib():
@@ -980,14 +1059,8 @@ def _kernel_tensor(t, device, what):
     return t
 
 
-def _in_map(sources, angles):
-    """``StepArgs::in_map`` of an MLP's input: entry k is 3 i + kind of
-    its source i (kind 0 the value, 1 its sin, 2 its cos), in the layout of
-    ``ops.angles.to_complex``: the other dims in order, then the sines and
-    the cosines of ``angles``."""
-    angles = [int(a) for a in angles]
-    return ([3 * i for i in complement_dims(sources, angles)]
-            + [3 * a + 1 for a in angles] + [3 * a + 2 for a in angles])
+# StepArgs::in_map of an MLP's input over its sources
+_in_map = embedding_codes
 
 
 def _input_mask(spec, params, noise, B):
@@ -1058,7 +1131,7 @@ class StepKernel:
         self.G = _groups(mm_groups, B)
         self.mm_states, self.mm_rewards = bool(mm_states), bool(mm_rewards)
         reg = dyn.regressor
-        D, U = dyn.state_dims, pol.output_density.output_dims
+        D, U = dyn.state_dims, policy_dims(pol)
         E = reg.output_density.output_dims  # D, or D + 1: a learned reward
         self.B, self.D, self.U, self.device = B, D, U, device
         self.dims = (_mlp_dims(pol.mlp), _mlp_dims(reg.mlp))
@@ -1116,7 +1189,16 @@ class StepKernel:
             reg.angle_dims, D + U)
         self.options = walk_options(dyn, pol)
         self.pol_dims = list(self.dims[0])
-        a.z_pol = t(pol_noise['density']['z'], 'policy density noise', (B, U))
+        pn = pol_noise['density']
+        a.z_pol = t(pn['z'], 'policy density noise', (B, U))
+        a.pol_head = policy_head(pol)
+        head = pol.output_density
+        if isinstance(head, CategoricalDensity):
+            a.u_pol = t(pn['u_cat'], 'policy density noise u_cat', (B, 1))
+            a.head_temp = CAT_TEMPERATURE
+        elif isinstance(head, TanhSquashedDensity):
+            a.head_scale, a.head_bias = head.scale, head.bias
+            head = head.density
         dn, K = dyn_noise['density'], self.K
         a.K = K
         if K:  # a mixture head: its Gaussian, Gumbel and uniform noise
@@ -1130,7 +1212,8 @@ class StepKernel:
                               ('my', 'my', E), ('sy', 'Sy', E)):
             setattr(a, k, t(dyn_stats[name].reshape(-1).contiguous(),
                             f'stats {name}', (size,)))
-        a.pol_upper = math.log(pol.output_density.max_noise_std)
+        # the Gaussian's clip (a categorical head has none)
+        a.pol_upper = math.log(getattr(head, 'max_noise_std', 1.0))
         a.dyn_upper = math.log(reg.output_density.max_noise_std)
         scale, bias = pol.scale, pol.bias
         for k in range(U):
@@ -1452,7 +1535,7 @@ class RolloutKernel:
                               and value_update is None)
         self.r_mm = bool(mm_rewards) and not self.mean_only
         self.D = dyn.state_dims
-        self.U = pol.output_density.output_dims
+        self.U = policy_dims(pol)
         self.pol_dims = list(_mlp_dims(pol.mlp))
         self.critic = None
         critic_dims = None
@@ -1476,6 +1559,8 @@ class RolloutKernel:
                 f'at once, {capacity} particles at these widths: B={B} '
                 'cannot all be resident at once')
         self._plan = (ctypes.c_int * len(self.plan))(*self.plan)
+        if self.critic is not None:
+            self.critic.set_blocks(self.plan.clusters * CLUSTER)
         T = steps
         a = self.args = _RollArgs()
         a.T, a.mm_states, a.mm_rewards = T, self.mm_states, bool(mm_rewards)

@@ -389,21 +389,35 @@ def test_critic_refuses_names_what_the_kernels_do_not_take():
         tG, tv.Adam(LR), T), 5) is None
     mlp = tV.mlp
     for spec, why in (
-            (dataclasses.replace(tV, angle_dims=(2,)), 'angle'),
+            (dataclasses.replace(tV, angle_dims=(2, 2)), 'angle'),
             (tm.Regressor(mlp, tm.DiagGaussianDensity(1)), 'outputs'),
             (tm.Regressor(dataclasses.replace(mlp, output_dims=2,
                                               ), tm.DiagGaussianDensity(2)),
              'DiagGaussianDensity\\(1\\)'),
-            (tm.Regressor(dataclasses.replace(mlp, input_dropout=tm.bdropout(
-                0.1))), 'input dropout'),
-            (tm.Regressor(dataclasses.replace(mlp, output_nonlin='tanh')),
+            (tm.Regressor(dataclasses.replace(mlp, output_nonlin='hhsinlu')),
              'output nonlinearity'),
+            (tm.Regressor(dataclasses.replace(mlp, layer_norm=True)),
+             'layer norm'),
             (tm.Regressor(dataclasses.replace(mlp, nonlin='hhsinlu')),
              'walk does not take'),
             (tm.Regressor(dataclasses.replace(mlp, hidden_dims=(1001,))),
              'walk does not take')):
         assert re.search(why, tcr.critic_refuses(spec)), why
     assert 'inputs' in tcr.critic_refuses(tV, None, 4)
+    # angle embedding (its input widened by the angles), input dropout, an
+    # output nonlinearity of the kernels' set and spectral norm are taken
+    assert 'angle dims' in tcr.critic_refuses(dataclasses.replace(
+        tV, angle_dims=(2,)), None, 5)
+    for spec in (tm.Regressor(dataclasses.replace(mlp, input_dims=6),
+                              angle_dims=(2,)),
+                 tm.Regressor(dataclasses.replace(
+                     mlp, input_dropout=tm.bdropout(0.1))),
+                 tm.Regressor(dataclasses.replace(
+                     mlp, input_dropout=tm.cdropout(0.1))),
+                 tm.Regressor(dataclasses.replace(mlp, output_nonlin='tanh')),
+                 tm.Regressor(dataclasses.replace(
+                     mlp, spectral_norm=True, spectral_norm_output=True))):
+        assert tcr.critic_refuses(spec, None, 5) is None, spec
     assert 'Adam' in tcr.critic_refuses(tV, tv.make_value_update_fn(
         tV, tv.SGD(LR), T, use_density=False))
     assert 'head' in tcr.critic_refuses(tV, tv.make_value_update_fn(

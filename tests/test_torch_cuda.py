@@ -32,7 +32,10 @@ instances against its plain version with bf16 operands (held by
 ``chip_smoke.hold_bf16``) and in a CUDA graph's replays; rows 3-7 with each
 of the model options (spectral norm, input dropout and output
 nonlinearities, angle embedding inside the models) and ``mc_pilco`` with all
-three on the whole-rollout tier.
+three on the whole-rollout tier; rows 3-9 with the TanhSquashedDensity and
+CategoricalDensity policy heads (their bits, and ``mc_pilco`` with each on
+the whole-rollout tier), and rows 3-5 with the critic's options in the
+refit, spectral norm among them (``mc_pilco`` with them at B = 1000).
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -1570,3 +1573,111 @@ def test_mc_pilco_with_the_options_takes_the_full_tier_on_the_card(cuda):
     assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
     assert np.all(np.isfinite(metrics['loss']))
     assert not torch.equal(pp['mlp']['linear_0']['sn_scale'], before)
+
+
+@pytest.mark.parametrize('head,env', list(cs.HEAD_ENVS))
+def test_head_step_rollout_and_grid_kernels_match_the_plain_version(
+        cuda, head, env):
+    """Rows 6-7 and 3-5 at B = 100 and rows 8-9 at B = 1000 with each policy
+    head of ``chip_smoke.HEAD_ENVS`` (the TanhSquashedDensity on Cartpole,
+    the CategoricalDensity on the differentiable lander) against their
+    plain versions, with ``chip_smoke``'s tolerances (a categorical pick on
+    an edge may take its flipped variant, ``held_against``)."""
+    opts = (head,)
+    cs.check_step(100, env, 'card test', options=opts)
+    cs.check_rollout(100, False, env, 'card test', options=opts)
+    cs.check_grid(1000, True, env, 'card test', options=opts)
+
+
+def test_head_kernels_repeat_their_bits(cuda):
+    """Row 5 with the categorical head and rows 6-7 with the tanh head give
+    the same bits launch after launch."""
+    _, kvg, _, pp, _, args, _ = cs.rollout_problem(
+        100, 3, True, env='JaxLunarLander', options=('cat',))
+    a, b = kvg(pp, *args), kvg(pp, *args)
+    step, _, leaves, states, eps, cot, _ = cs.step_problem(
+        100, 5, options=('tanh',))
+    sa = cs.step_outputs(step, leaves, states, eps, cot)
+    sb = cs.step_outputs(step, leaves, states, eps, cot)
+    torch.cuda.synchronize()
+    for u, v in zip([a[0], a[1], *tree_leaves(a[2]), *sa],
+                    [b[0], b[1], *tree_leaves(b[2]), *sb]):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize('head', ['tanh', 'cat'])
+def test_mc_pilco_with_a_policy_head_takes_the_full_tier_on_the_card(cuda,
+                                                                     head):
+    """``mc_pilco`` with a TanhSquashedDensity policy head on Cartpole or a
+    CategoricalDensity one on the lander at B = 100: the gate names
+    ``'full'``, one ``fused_rollout_vg`` an iteration and nothing else,
+    finite losses, the policy moved."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    env = dict(cs.HEAD_ENVS)[head]
+    dyn, pol, D, _ = cs.env_models(env, options=(head,))
+    cfg = dict(n_particles=100, steps=15, mm_states=True, mm_rewards=True)
+    assert make_mc_pilco_fn(dyn, pol, MCPILCOConfig(**cfg),
+                            'cuda').tier('cuda') == 'full'
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
+    before = pp['mlp']['linear_out']['w'].clone()
+    rng = np.random.RandomState(0)
+    pool = torch.tensor(cs.env_states(env, rng, 40).astype(np.float32),
+                        device='cuda')
+    stats = dyn.fit_stats(*(torch.tensor(a.astype(np.float32), device='cuda')
+                            for a in cs.stats_data(env, rng)))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    pp, _, metrics, _ = mc_pilco(pool, dyn, pol, 15, dp, stats, pp,
+                                 opt_iters=5, mm_states=True, mm_rewards=True,
+                                 n_particles=100, seed=0, chunk=1)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES['fused_rollout_vg'] == 5
+    assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
+    assert np.all(np.isfinite(metrics['loss']))
+    assert not torch.equal(pp['mlp']['linear_out']['w'], before)
+
+
+@pytest.mark.parametrize('B,mm,label', [(100, False, 'B'), (100, False, 'C'),
+                                        (100, False, 'B+C'),
+                                        (1000, True, 'B+C')])
+def test_rollout_kernels_with_the_critics_options_match_the_plain_version(
+        cuda, B, mm, label):
+    """Rows 3-5 with the critic of each set of
+    ``chip_smoke.CRITIC_OPTION_SETS`` (B angle embedding, concrete input
+    dropout and a swish output; C spectral norm of every layer; both) refit
+    in the launch against the plain version (``chip_smoke.check_critic``)."""
+    cs.check_critic(B, mm, tag='card test',
+                    coptions=cs.CRITIC_OPTION_SETS[label])
+
+
+def test_mc_pilco_with_the_critics_options_takes_the_full_tier(cuda):
+    """``mc_pilco`` at B = 1000 with the critic of every option: the gate
+    names ``'full'``, one ``fused_rollout_vg`` an iteration with the refit
+    in it, nothing else, v_loss finite, the input dropout's logit_p and the
+    output layer's sn_scale moved by the refit."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import mc_pilco
+    setup = cs.main_path_setup()
+    dyn, pol, dyn_params, pol_params, dyn_stats, pool, init_noise = setup
+    V, update, state, vstats = cs.critic_setup(pool.shape[-1],
+                                               options=cs.CRITIC_OPTIONS)
+    before = state['params']['mlp']['drop_in']['logit_p'].clone()
+    scale = state['params']['mlp']['linear_out']['sn_scale'].clone()
+    assert cs.value_opts(setup, V, update)['full'].tier('cuda') == 'full'
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(
+        pool, dyn, pol, 15, dyn_params, dyn_stats, pol_params, opt_iters=5,
+        mm_states=True, mm_rewards=True, init_state_noise=init_noise,
+        n_particles=1000, seed=0, chunk=1, value_spec=V, value_stats=vstats,
+        value_update_fn=update, value_state=state)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES['fused_rollout_vg'] == 5
+    assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
+    assert np.all(np.isfinite(metrics['v_loss']))
+    assert not torch.equal(state['params']['mlp']['drop_in']['logit_p'],
+                           before)
+    assert not torch.equal(state['params']['mlp']['linear_out']['sn_scale'],
+                           scale)

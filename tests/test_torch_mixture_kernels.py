@@ -383,9 +383,10 @@ def test_the_plans_count_the_mixture_rows():
 
 def test_kernel_refuses_what_the_kernels_do_not_take():
     """A mixture of more than 5 components, and layer norm or a bf16
-    compute_dtype in either MLP, each with its reason; the gate then names
-    no tier and ``MCPILCO`` takes the ``utils.rollout`` route. Spectral
-    norm in either MLP is taken: the gate names ``'full'``."""
+    compute_dtype in either MLP, each with its reason (layer norm's cites
+    JAX's gradient kernels, which refuse it); the gate then names no tier
+    and ``MCPILCO`` takes the ``utils.rollout`` route. Spectral norm in
+    either MLP is taken: the gate names ``'full'``."""
     cfg = tmc.MCPILCOConfig(n_particles=100, steps=15, mm_states=True,
                             mm_rewards=True)
     dyn, pol = _driver_models(['--dyn_components', '6'])
@@ -409,6 +410,7 @@ def test_kernel_refuses_what_the_kernels_do_not_take():
             why = tfr.kernel_refuses(d, p)
             if 'layer_norm' in kw:
                 assert 'layer norm is not in the step kernels' in why, which
+                assert 'captures constants' in why, which
                 assert tfr.fused_mode(cfg, d, p, device='cpu') is None
             else:
                 assert why is None, (kw, which, why)

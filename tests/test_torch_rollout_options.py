@@ -213,16 +213,24 @@ def test_the_input_map_embeds_as_to_complex():
 
 
 def test_the_gate_refuses_what_stays_out():
-    """Layer norm, the other policy heads, angle dims that are not distinct
+    """Layer norm (a limit of the reference: its refusal cites JAX's
+    gradient kernels' capture error), angle dims that are not distinct
     inputs, an output nonlinearity outside the kernels' set, and bf16 keep
-    the gate's refusal, each naming what is left in the ROADMAP item."""
+    the gate's refusal, each with its reason; the other policy heads,
+    TanhSquashedDensity and CategoricalDensity, are taken with every
+    option."""
     dyn, pol = _driver_like('all')
     assert tfr.kernel_refuses(dyn, pol) is None
     ln = dataclasses.replace(pol, mlp=dataclasses.replace(pol.mlp,
                                                           layer_norm=True))
     assert 'layer norm' in tfr.kernel_refuses(dyn, ln)
-    assert tfr.MODEL_OPTIONS_ITEM in tfr.kernel_refuses(dyn, ln)
-    assert 'layer norm' in tfr.MODEL_OPTIONS_ITEM
+    assert tfr.LAYER_NORM_LIMIT in tfr.kernel_refuses(dyn, ln)
+    assert 'captures constants' in tfr.LAYER_NORM_LIMIT
+    for head in (tm.TanhSquashedDensity(tm.DiagGaussianDensity(U), 2.0),
+                 tm.CategoricalDensity(U)):
+        hp = dataclasses.replace(pol, output_density=head, mlp=(
+            dataclasses.replace(pol.mlp, output_dims=head.n_inputs)))
+        assert tfr.kernel_refuses(dyn, hp) is None, head
     bad = dataclasses.replace(pol, angle_dims=(0, 0))
     assert 'distinct' in tfr.kernel_refuses(dyn, bad)
     bad = dataclasses.replace(pol, angle_dims=(7,))
