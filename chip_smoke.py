@@ -106,6 +106,17 @@ Phases (any failure exits non-zero and prints no result line):
      and rows 8-9 at B = 1000, held as in phase 2 (the categorical picks
      through ``held_against``, ``PickingCategorical``); each row's time,
      plain time and bound beside the diagonal head's on the same env.
+  2w. the wide instance of rows 3-9 (``csrc/fused_step_wide.cu``,
+     ``fused_rollout_wide.cu``: D <= 16, U <= 8, a tip of up to 16 rows,
+     each moment-matching site factored and differentiated on a warp) at
+     the JAX package's benchmark shapes (``bench.py`` ``build()``: D = 5,
+     U = 1, a tip of 5 rows, [200, 200]) and at D = 16, U = 8, rows 3-7 at
+     B = 100 and 8-9 at B = 1000, held as in phase 2; grouped MM at D = 16
+     (groups of 50 and 100, against float64); the wide instance on
+     rendezvous's inputs (D = 8, U = 4) against the narrow instance's
+     outputs; each wide row's time, plain time and bound beside the narrow
+     instance's at D = 8, and row 5's time split at D = 8 in both instances
+     and at D = 16 (the moment-matching parts a step).
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -163,6 +174,13 @@ Phases (any failure exits non-zero and prints no result line):
      (the gate's ``'full'``, one ``fused_rollout_vg`` an iteration, v_loss
      falling, the tiers' ms, one iteration of each against the plain
      path).
+  5w. ``mc_pilco`` on the JAX benchmark's workload at D = 16, U = 8, where
+     the gate names ``'full'`` in the wide instance: 30 iterations with one
+     ``fused_rollout_vg`` (wide) launch each and nothing else; 3 more held
+     against the ``utils.rollout`` route (each loss; the params by the lr
+     rule, ``hold_lr``); one iteration against the plain path; then 5
+     iterations of each of the step, loss and grid tiers (their wide
+     kernels' launches for the ``kernels`` line).
   8. the episode: the torch ``deep_pilco_mm`` driver (``main`` through the
      port's parser with the entry point's settings) on Cartpole into a
      temporary folder under ``build/``, at full width (dynamics and policy
@@ -446,6 +464,25 @@ BF16_FIT_STEPS = 100  # phase 3h: train_regressor on a fused bf16 dynamics MLP
 # over the published dense bf16 tensor-core peak
 BF16_FLOP_PER_S = 989e12
 BF16 = ('fused_mlp_fwd_bf16', 'fused_mlp_bwd_bf16')
+# phase 2w: rows 3-9 and grouped MM in the wide instance of the rollout
+# kernels (D <= 16, U <= 8, a tip of up to 16 rows): the JAX package's own
+# benchmark workload (bench.py build(): D = 5, U = 1, [200, 200], its reward
+# exp(-0.5 (|s|^2 + 1e-4 |a|^2)), a tip of 5 rows, which the narrow
+# instance's 4 do not take; envs.state_reward) and the same at D = 16,
+# U = 8; rows 3-7 at B = MAIN_B, 8-9 at GRID_B, grouped at D = 16 in groups
+# of 50 (rows 3-7) and 100 (rows 8-9), every group full rank (B / G > D)
+BENCH_SHAPES = {'Bench5': (5, 1), 'Bench16': (16, 8)}
+WIDE_ENVS = ('Bench5', 'Bench16')
+WIDE_GROUPS = (2, 10)  # groups at B = MAIN_B, at GRID_B
+# the narrow instance's env whose rows phase 2w runs again in the wide one
+WIDE_ON_NARROW = 'Rendezvous'
+# phase 5w: mc_pilco on the wide instance's whole-rollout tier at D = 16,
+# U = 8; WIDE_ROUTE_ITERS of them held against the utils.rollout route; the
+# step, loss and grid tiers' loops (their launch counts) WIDE_LOOP_ITERS each
+WIDE_ITERS = 30
+WIDE_ROUTE_ITERS = 3
+WIDE_LOOP_ITERS = 5
+WIDE_LR = 1e-3  # mc_pilco's Adam
 
 SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_mlp_bwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
@@ -457,7 +494,23 @@ SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_rollout_bwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
            'fused_rollout_vg': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
            'fused_grid_fwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
-           'fused_grid_bwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu'}
+           'fused_grid_bwd': 'prob_mbrl_tpu_torch/csrc/fused_rollout.cu',
+           # the wide instance (phase 2w): the same device code with
+           # WideLimits
+           'fused_step_fwd_wide':
+               'prob_mbrl_tpu_torch/csrc/fused_step_wide.cu',
+           'fused_step_bwd_wide':
+               'prob_mbrl_tpu_torch/csrc/fused_step_wide.cu',
+           'fused_rollout_fwd_wide':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu',
+           'fused_rollout_bwd_wide':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu',
+           'fused_rollout_vg_wide':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu',
+           'fused_grid_fwd_wide':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu',
+           'fused_grid_bwd_wide':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu'}
 REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
             'fused_mlp_bwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247',
             'fused_mlp_fwd_bf16': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
@@ -469,6 +522,8 @@ REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
             'fused_rollout_vg': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:981',
             'fused_grid_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1462',
             'fused_grid_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1542'}
+WIDE_KERNELS = tuple(n for n in SOURCES if n.endswith('_wide'))
+REPLACES.update({n: REPLACES[n[:-len('_wide')]] for n in WIDE_KERNELS})
 
 
 def log(*args):
@@ -951,9 +1006,15 @@ def env_models(env, hidden=(200, 200), nonlin='relu', learned=False,
     kernels' reward kind 3), as the driver builds them with --learn_reward
     or for the Box2D lander, which has no reward function (the
     differentiable lander's D = 8, U = 2). ``components`` K: a mixture
-    dynamics head of K Gaussians; ``options`` as ``build_models``."""
+    dynamics head of K Gaussians; ``options`` as ``build_models``.
+    ``'Bench5'``, ``'Bench16'`` (``BENCH_SHAPES``): the JAX
+    package's benchmark models (bench.py build(), max_u 10) at D, U, with
+    its reward (``envs.state_reward``, a tip of D rows)."""
     if env == 'Cartpole':
         D, U, high, rf = 5, 1, (10.0,), envs.cartpole_reward()
+    elif env in BENCH_SHAPES:
+        D, U = BENCH_SHAPES[env]
+        high, rf = (10.0,), envs.state_reward(D)
     else:
         e = (envs.JaxLunarLander(device='cpu') if env == 'JaxLunarLander'
              else envs.make(env, device='cpu'))
@@ -980,6 +1041,10 @@ def stats_data(env, rng, n=200, learned=False):
     if learned:
         X, Y = stats_data(env, rng, n)
         return X, np.concatenate([Y, rng.randn(n, 1)], 1)
+    if env in BENCH_SHAPES:  # states ~0.5, actions ~5
+        D, U = BENCH_SHAPES[env]
+        return (rng.randn(n, D + U) * ([0.5] * D + [5.0] * U),
+                0.1 * rng.randn(n, D))
     scale = {'Cartpole': [1, 2, 3, 0.7, 0.7, 5],
              'Pendulum': [3, 0.7, 0.7, 2.5],
              'DoubleCartpole': [1, 2, 3, 3, 0.7, 0.7, 0.7, 0.7, 20],
@@ -995,7 +1060,11 @@ def env_states(env, rng, B):
     double cartpole), or rendezvous's positions ~10 and velocities ~1
     (relative-state costs ~10^2 to 10^3; with the untrained policy's forces
     of up to 100 a dim, rewards down to ~-5 10^4), or the lander's states
-    (``'JaxLunarLander'``)."""
+    (``'JaxLunarLander'``), or the benchmark's states ~0.5 a dim
+    (``BENCH_SHAPES``: rewards exp(-0.5 |s|^2) from ~exp(-16) to 1 at
+    D = 16)."""
+    if env in BENCH_SHAPES:
+        return 0.5 * rng.randn(B, BENCH_SHAPES[env][0])
     if env == 'Rendezvous':
         return np.concatenate([10 * rng.randn(B, 4), rng.randn(B, 4)], 1)
     if env == 'JaxLunarLander':
@@ -1425,12 +1494,13 @@ def k_plan(B, env='Cartpole', learned=False, components=0, options=()):
     the models' ``options``), as text."""
     dyn, pol, D, _ = env_models(env, learned=learned, components=components,
                                 options=options)
+    lim = fr.kernel_instance(dyn, pol)
     p = fr.rollout_plan(*net_dims(dyn, pol), D, B, MAIN_T,
-                        fr.max_clusters(torch.cuda.current_device()),
+                        fr.max_clusters(torch.cuda.current_device(), lim),
                         components=components,
-                        options=fr.walk_options(dyn, pol))
-    return (f'{p.clusters} clusters of {p.particles} particles in '
-            f'{p.tiles} tile(s) of {p.tile_rows} rows, weights '
+                        options=fr.walk_options(dyn, pol), lim=lim)
+    return (f'{lim.name} instance, {p.clusters} clusters of {p.particles} '
+            f'particles in {p.tiles} tile(s) of {p.tile_rows} rows, weights '
             f'{"resident" if p.resident else "read in place"}, {p.smem} '
             'bytes of shared memory a CTA')
 
@@ -1481,6 +1551,79 @@ def rollout_bytes_flops(B, T, pol_dims, dyn_dims, D, U, r_mm, K=0):
                                T * f_bwd)}
 
 
+def kernel_states(dyn, pol, w_t, mean_only, pp, args, scale=1.0,
+                  groups=None, T=MAIN_T):
+    """The whole-rollout kernel's own post-MM states s_1 ... s_T [T, B, D]
+    on ``rollout_problem``'s inputs ``args`` (x0 scaled by ``scale``): its
+    forward's residual, the trajectory its gradients are taken along."""
+    x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
+    k = fr.RolloutKernel(dyn, pol, T, w_t, z_mm is not None, True, True,
+                         mean_only, x0.shape[0], x0.device, mm_groups=groups)
+    sk = k.bind(pp, (x0 * scale).contiguous(), dyn_params, stats, dyn_noise,
+                pol_noise, z_mm, z_rr, eps)
+    return k.forward(sk)[2][0][1:]
+
+
+def forced_loss_plain(dyn, pol, w_t, mm_states, mean_only, states,
+                      groups=None, T=MAIN_T):
+    """``fr.make_loss_plain``'s loss (``rollout_problem``'s: rewards
+    moment-matched or mean-only, maximized) along the trajectory ``states``
+    [T, B, D] (a kernel's), as ``forced_grid_plain``: each step from the
+    kernel's s_t, its next state that value through a straight-through
+    term, so every ReLU decides on the kernel's states."""
+    step = fr.make_step_plain(dyn, pol, mm_states, not mean_only, groups)
+    w_list = [float(w) for w in np.asarray(w_t)]
+
+    def loss_fn(pol_params, x0, dyn_params, dyn_stats, dyn_noise, pol_noise,
+                z_mm_t, z_rr_t, action_eps=None, extras=()):
+        t_of = iter(range(T))
+
+        def forced(s, eps, zm, zr):
+            nxt, r = step(pol_params, s, zm, zr, eps, dyn_params, dyn_stats,
+                          dyn_noise, pol_noise)
+            return nxt + (states[next(t_of)] - nxt).detach(), r
+
+        disc, raw, _, _ = fr._rollout(forced, x0, T, w_list, None,
+                                      mean_only, action_eps, z_mm_t, z_rr_t,
+                                      groups)
+        return -disc.mean(), raw.mean(), ()
+
+    return loss_fn
+
+
+def hold_on_edge(what, a, r, rel_tol, moved, B, along):
+    """Hold a gradient summed over B particles of rows 3-5 (``hold``), or,
+    where that fails, as on a ReLU's edge: a pre-activation within the two
+    versions' drift of 0 takes the other branch in one of them and moves
+    one particle's term (~max|r| / B) of a few entries, so at most one
+    entry in 50 lies beyond ``hold``'s tolerance (rel_tol max|r|, or 3
+    max|moved - r|) and none beyond it plus 4 max|r| / B; and elementwise
+    (``hold``) against ``along()``, the plain version along the kernel's own
+    states and the same at x0 moved by 1e-6 relative, where every ReLU
+    decides as the kernel's did. Logs the entries beyond. Returns ``hold``'s
+    (max abs err, err / max|r|, tolerance / max|r|) against the free-running
+    plain version."""
+    try:
+        return hold(what, a, r, rel_tol, moved)
+    except AssertionError as e:
+        first = e
+    scale = float(r.abs().max())
+    tol = max(rel_tol * scale, 3 * float((moved - r).abs().max()))
+    err = (a - r).abs()
+    off = int((err > tol).sum())
+    if off * 50 > a.numel() or float(err.max()) > tol + 4 * scale / B:
+        raise first
+    forced, forced_m = along()
+    hold(f'{what} along the kernel\'s states', a, forced, rel_tol, forced_m)
+    log(f'[phase 2] {what}: {off} of {a.numel()} entries beyond {tol:.3e} '
+        f'(largest {float(err.max()):.3e}, max|plain| {scale:.3e}) against '
+        f'the free-running plain version, a ReLU on its edge: within '
+        f'{float((a - forced).abs().max()):.3e} of the plain version along '
+        'the kernel\'s states')
+    return float(err.max()), float(err.max()) / scale, (
+        tol + 4 * scale / B) / scale
+
+
 def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
                   saturated=False, learned=False, groups=None, components=0,
                   options=()):
@@ -1490,9 +1633,25 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
     plain version in float64, ``float64``; a mixture head through
     ``held_against``; ``options`` as ``step_problem``); the largest error
     of each."""
-    kloss, kvg, plain, pp, leaves, args, _ = rollout_problem(
+    kloss, kvg, plain, pp, leaves, args, models = rollout_problem(
         B, B, mean_only, env=env, saturated=saturated, learned=learned,
         groups=groups, components=components, options=options)
+    # the wide instance's envs: a gradient that fails its hold is held on a
+    # ReLU's edge (hold_on_edge) given the plain version along the kernel's
+    # own states, made when first needed
+    edge = env in BENCH_SHAPES
+    forced = {}
+
+    def along(g):
+        if g not in forced:
+            dyn, pol, w_t = models
+            forced[g] = [rollout_outputs(forced_loss_plain(
+                dyn, pol, w_t, args[5] is not None, mean_only,
+                kernel_states(dyn, pol, w_t, mean_only, pp, args, scale,
+                              groups), groups), pp, leaves, args, scale, g)
+                for scale in (1.0, 1 + 1e-6)]
+        return forced[g]
+
     if groups:
         plain = float64(plain)
     got = rollout_outputs(kloss, pp, leaves, args)
@@ -1536,8 +1695,14 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
                          vmoved)])
         here = {nm: 0.0 for nm in names}
         rel = loose = 0.0
-        for kern, lab, a, r, m in checks:
+        for i, (kern, lab, a, r, m) in enumerate(checks):
             check = hold_rows if eps_by_rows and lab == 'd eps' else hold
+            if edge and lab.startswith('d '):
+                vg = kern == 'fused_rollout_vg'
+                j = labels.index(lab)
+                check = functools.partial(
+                    hold_on_edge, B=B, along=lambda g=(1.0, 0.0) if vg else (
+                        0.7, 1.3), j=j: [o[j] for o in along(g)])
             err, r_err, r_tol = check(f'{env} rollout B={B} {kern} {lab}', a,
                                       r, STEP_TOL, m)
             here[kern] = max(here[kern], err)
@@ -2650,6 +2815,254 @@ def phase_head_kernels(rows, env_rows, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 2w: the wide instance of rows 3-9 and grouped MM
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def forced_instance(lim):
+    """Within it the kernels bind the instance ``lim`` (a ``fr.Limits``,
+    which must take the models) wherever the gate would choose one."""
+    chosen = fr.kernel_instance
+    fr.kernel_instance = lambda dyn, pol: lim
+    try:
+        yield
+    finally:
+        fr.kernel_instance = chosen
+
+
+def wide_against_narrow(env, tag='phase 2w'):
+    """Rows 3-9 of the wide instance on the inputs of ``check_step``,
+    ``check_rollout`` (no mean-only shortcut) and ``check_grid`` at
+    ``env``'s shapes, which the narrow instance takes too: each output held
+    against the narrow instance's (``hold``, STEP_TOL of its max|.|), and
+    every wide kernel launched."""
+    def outputs():
+        kernel, _, leaves, states, eps, cot, _ = step_problem(MAIN_B, MAIN_B,
+                                                              env)
+        outs = {'step': step_outputs(kernel, leaves, states, eps, cot)}
+        kloss, kvg, _, pp, leaves, args, _ = rollout_problem(
+            MAIN_B, MAIN_B, False, env=env)
+        vl, vm, vgrads, _ = kvg(pp, *args)
+        outs['rollout'] = (rollout_outputs(kloss, pp, leaves, args)
+                           + [vl, vm, *grad_leaves(vgrads)])
+        kern, _, pp, leaves, args, cot, _ = grid_problem(GRID_B, GRID_B,
+                                                         env=env)
+        outs['grid'] = grid_outputs(kern, pp, leaves, args, cot)
+        torch.cuda.synchronize()
+        return outs
+
+    narrow = outputs()
+    reset_counts()
+    with forced_instance(fr.WIDE):
+        wide = outputs()
+    idle = [n for n in WIDE_KERNELS if not fr.LAUNCHES_WIDE[n]]
+    if idle:
+        raise AssertionError(f'the wide instance launched no {idle}')
+    for what in narrow:
+        worst = rel = 0.0
+        for i, (a, r) in enumerate(zip(wide[what], narrow[what])):
+            err, r_err, _ = hold(f'{env} {what} output {i}, wide instance '
+                                 'vs narrow', a, r, STEP_TOL)
+            worst, rel = max(worst, err), max(rel, r_err)
+        log(f'[{tag}] {env} {what} (B={GRID_B if what == "grid" else MAIN_B})'
+            f': the wide instance vs the narrow one on the same inputs, max '
+            f'abs diff {worst:.3e} over {len(narrow[what])} outputs (worst '
+            f'{rel:.3e} of an output\'s max|.|, tolerance {STEP_TOL:.0e}) ok')
+
+
+def vg_split(env, lim):
+    """Row 5's own time split at B = MAIN_B on ``env``'s shapes through the
+    instance ``lim``, in ms per launch (``time_split``)."""
+    _, _, _, pp, _, args, (dyn, pol, w_t) = rollout_problem(MAIN_B, 7,
+                                                            env=env)
+    x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
+    with forced_instance(lim):
+        k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, True, True, True, True,
+                             MAIN_B, x0.device)
+        sk = k.bind(pp, x0, dyn_params, stats, dyn_noise, pol_noise, z_mm,
+                    z_rr, eps)
+        return time_split(k, lambda: k.value_and_grad(sk))
+
+
+def phase_wide_kernels(env_rows, card):
+    """Phase 2w: the wide instance of rows 3-9 (D <= 16, U <= 8, a tip of up
+    to 16 rows) against the plain versions (``check_step``,
+    ``check_rollout``, ``check_grid``: ``hold`` and ``hold_rows``) at
+    ``WIDE_ENVS``' shapes, the JAX benchmark's (D = 5, U = 1, a tip of 5
+    rows) and D = 16, U = 8, rows 3-7 at B = MAIN_B and 8-9 at GRID_B;
+    grouped MM at D = 16 (``WIDE_GROUPS``, against the plain version in
+    float64); the wide instance on rendezvous's D = 8, U = 4 inputs against
+    the narrow instance's outputs (``wide_against_narrow``). Then each wide
+    row's time, bound and plain time beside the narrow instance's at D = 8
+    (rendezvous, phase 2b's ``env_rows``) with the card's name and power
+    limit (``card``), and row 5's time split at D = 8 in both instances and
+    at D = 16: its moment-matching parts per step are the factor's and the
+    adjoint's cost. Returns the D = 16 rows for the kernels line, keyed by
+    the wide kernels' names."""
+    worst = {n: 0.0 for n in WIDE_KERNELS}
+
+    def note(here):
+        for n, e in here.items():
+            worst[n + '_wide'] = max(worst[n + '_wide'], e)
+
+    for env in WIDE_ENVS:
+        dyn, pol, D, U = env_models(env)
+        if fr.kernel_instance(dyn, pol) is not fr.WIDE:
+            raise AssertionError(f'{env} (D={D}, U={U}) does not take the '
+                                 'wide instance')
+        note(check_step(MAIN_B, env, 'phase 2w'))
+        for mean_only in (True, False):
+            note(check_rollout(MAIN_B, mean_only, env, 'phase 2w'))
+        note(check_grid(GRID_B, True, env, 'phase 2w'))
+    env, (g_main, g_grid) = WIDE_ENVS[-1], WIDE_GROUPS
+    note(check_step(MAIN_B, env, 'phase 2w', groups=g_main))
+    note(check_rollout(MAIN_B, False, env, 'phase 2w', groups=g_main))
+    note(check_grid(GRID_B, True, env, 'phase 2w', groups=g_grid))
+    wide_against_narrow(WIDE_ON_NARROW)
+    narrow = env_rows[WIDE_ON_NARROW]
+    rows = {}
+    for env in WIDE_ENVS:
+        dyn, _, D, U = env_models(env)
+        steps, plans = step_timings(MAIN_B, env)
+        log(f'[phase 2w] {env} launch plans: step B={MAIN_B} {plans}; '
+            f'rollout B={MAIN_B} {k_plan(MAIN_B, env)}; grid B={GRID_B} '
+            f'{k_plan(GRID_B, env)}')
+        times = {**steps, **rollout_timings(env, False),
+                 **grid_timings(GRID_B, env=env)[0]}
+        for name, v in times.items():
+            B = GRID_B if name.startswith('fused_grid') else MAIN_B
+            n8 = narrow[name]
+            log(f'[phase 2w] {name} B={B}: {env} (D={D}, U={U}, a tip of {D} '
+                f'rows) wide instance {v["ms"]:.4f} ms beside the narrow '
+                f'instance at D=8 ({WIDE_ON_NARROW}, U=4) {n8["ms"]:.4f} ms; '
+                f'plain {v["plain_ms"]:.4f} ms (D=8 {n8["plain_ms"]:.4f}); '
+                f'bound {v["bound_ms"]:.6f} ms ({v["bound_by"]}; D=8 '
+                f'{n8["bound_ms"]:.6f}); {card}')
+        rows = {n + '_wide': v for n, v in times.items()}
+    for name, v in rows.items():
+        v['max_abs_err'] = worst[name]
+    cases = ((WIDE_ON_NARROW, fr.NARROW), (WIDE_ON_NARROW, fr.WIDE),
+             (WIDE_ENVS[-1], fr.WIDE))
+    for env, lim in cases:
+        parts = vg_split(env, lim)
+        D = env_models(env)[2]
+        log_split(f'{env} (D={D}) {lim.name} instance fused_rollout_vg '
+                  f'B={MAIN_B}', parts)
+        log(f'[phase 2w] {env} D={D}, {lim.name} instance: moment matching '
+            f'{1e3 * parts[2] / MAIN_T:.2f} us a step forward (moments, '
+            f'merge, factor, resample) and {1e3 * parts[4] / MAIN_T:.2f} us '
+            f'a step backward (sums, adjoint) in row 5 at B={MAIN_B} '
+            f'(CTA 0\'s clock); {card}')
+    return rows
+
+
+def wide_setup(env='Bench16', seed=SEED):
+    """Phase 5w's models (the JAX benchmark's at ``env``'s D, U), seeded
+    parameters, stats fit to ``stats_data``, an x0 pool of 40 states
+    (``env_states``) and the initial-state noise, as ``main_path_setup``
+    returns them (no env runs at these shapes)."""
+    dyn, pol, D, U = env_models(env)
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device='cuda')
+
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    dyn_params = dyn.init(gen, device='cuda')
+    pol_params = tree_map(lambda p: p.requires_grad_(True),
+                          pol.init(gen, device='cuda'))
+    dyn_stats = dyn.fit_stats(*map(t, stats_data(env, rng)))
+    pool = env_states(env, rng, 40).astype(np.float32)
+    return (dyn, pol, dyn_params, pol_params, dyn_stats, t(pool),
+            1e-2 * pool.std(0))
+
+
+def phase_wide_path(card):
+    """Phase 5w: ``mc_pilco`` on the JAX benchmark's workload at D = 16,
+    U = 8 (``wide_setup``), where the gate names ``'full'`` in the wide
+    instance: WIDE_ITERS iterations with one ``fused_rollout_vg_wide``
+    launch each and nothing else; WIDE_ROUTE_ITERS more held against the
+    same iterations on the ``utils.rollout`` route (each iteration's loss,
+    and the params after them by ``hold_lr``); one iteration's loss and
+    grads against the plain path (``compare_paths``); then the step, loss
+    and grid tiers' loops (``phase_loop``, WIDE_LOOP_ITERS each), whose
+    launches are the other wide kernels'. Returns {kernel: launches} of the
+    run that carries each wide kernel."""
+    T, B = MAIN_T, MAIN_B
+    setup = wide_setup()
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
+                        mm_rewards=True)
+    opt = make_mc_pilco_fn(dyn, pol, cfg, 'cuda')
+    lim = fr.kernel_instance(dyn, pol)
+    if lim is not fr.WIDE or opt.tier('cuda') != 'full':
+        raise AssertionError(f'the gate names {opt.tier("cuda")!r} in the '
+                             f'{getattr(lim, "name", None)} instance for the '
+                             "benchmark at D=16, U=8; expected 'full', wide")
+
+    def run(iters, fused_rollout, pool=x0_pool):
+        stamps = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                         pol_params)
+        params, _, metrics, n = mc_pilco(
+            pool, dyn, pol, T, dyn_params, dyn_stats, start,
+            opt_iters=iters, mm_states=True, mm_rewards=True,
+            init_state_noise=init_noise, n_particles=B, seed=SEED, chunk=1,
+            on_iteration=lambda done, m: stamps.append(time.perf_counter()),
+            fused_rollout=fused_rollout)
+        torch.cuda.synchronize()
+        if n != iters:
+            raise AssertionError(f'{n} steps for {iters} iterations')
+        return params, metrics, counts(), t0, stamps
+
+    _, metrics, launches, t0, stamps = run(WIDE_ITERS, None)
+    report('phase 5w', "mc_pilco on the JAX benchmark's workload at D=16, "
+           'U=8 (the wide instance)', WIDE_ITERS, t0, stamps,
+           metrics['loss'], metrics['mean_return'], launches,
+           expect(fused_rollout_vg_wide=WIDE_ITERS), T, B, 'Bench16')
+    log(f'[phase 5w] tier {opt.tier("cuda")}, {lim.name} instance; '
+        f'{ITER_MS["phase 5w"]:.3f} ms an iteration beside phase 5\'s '
+        f'{ITER_MS.get("phase 5", float("nan")):.3f} (Cartpole, D=5; host '
+        f'clock, this call); {card}')
+    pk, mk = run(WIDE_ROUTE_ITERS, None)[:2]
+    pr, mr, route = run(WIDE_ROUTE_ITERS, False)[:3]
+    pm, mm_ = run(WIDE_ROUTE_ITERS, False, x0_pool * (1 + 1e-6))[:2]
+    if any(route[n] for n in WIDE_KERNELS):
+        raise AssertionError(f'the utils.rollout route launched {route}')
+    for i, (lk, lr_, lm) in enumerate(zip(mk['loss'], mr['loss'],
+                                         mm_['loss'])):
+        hold(f'phase 5w iteration {i} loss', torch.tensor([lk]),
+             torch.tensor([lr_]), 1e-3, torch.tensor([lm]))
+    worst = hold_lr('phase 5w params', flat(pk), flat(pr), flat(pm),
+                    WIDE_ROUTE_ITERS, WIDE_LR, tag='phase 5w')
+    log(f'[phase 5w] {WIDE_ROUTE_ITERS} iterations, kernel vs utils.rollout '
+        f'route: losses {np.asarray(mk["loss"])} vs {np.asarray(mr["loss"])}'
+        f'; params within {worst:.3e} lr a step (at most 2) ok')
+    compare_paths(setup, lambda p, x0, noise, *step: loss_and_grads(
+        opt, p, x0, dyn_params, dyn_stats, noise, *step), 'phase 5w', SEED,
+        T, B)
+    n = WIDE_LOOP_ITERS
+    runs = {'fused_rollout_vg_wide': launches}
+    for tier, kernels in (('step', ('fused_step_fwd_wide',
+                                    'fused_step_bwd_wide')),
+                          ('loss', ('fused_rollout_fwd_wide',
+                                    'fused_rollout_bwd_wide')),
+                          ('grid', ('fused_grid_fwd_wide',
+                                    'fused_grid_bwd_wide'))):
+        per = T * n if tier == 'step' else n
+        got = phase_loop(n, tier, f'phase 5w {tier}',
+                         expect(**{k: per for k in kernels}), setup=setup,
+                         env='Bench16')
+        runs.update({k: got for k in kernels})
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # phase 7o: the critic's model options in rows 3-5's refit
 # ---------------------------------------------------------------------------
 
@@ -2872,7 +3285,8 @@ def main_path_setup(seed=SEED, components=0, model_options=()):
 
 
 def counts():
-    return {**fm.LAUNCHES, **fm.LAUNCHES_BF16, **fr.LAUNCHES}
+    return {**fm.LAUNCHES, **fm.LAUNCHES_BF16, **fr.LAUNCHES,
+            **fr.LAUNCHES_WIDE}
 
 
 @contextlib.contextmanager
@@ -2900,7 +3314,7 @@ def expect(**nonzero):
 
 
 def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
-           T=MAIN_T, B=MAIN_B):
+           T=MAIN_T, B=MAIN_B, env='Cartpole'):
     """Check a run's losses and launch counts and log its iteration time,
     which ``ITER_MS[tag]`` keeps."""
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(rets))):
@@ -2912,7 +3326,7 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
         raise AssertionError(f'launches {launches} on the {tag} run, '
                              f'expected {want}')
     ms_iter = float(np.median(np.diff([t0] + stamps)) * 1e3)
-    log(f'[{tag}] {what}, Cartpole B={B} T={T} [200,200] mm_states '
+    log(f'[{tag}] {what}, {env} B={B} T={T} [200,200] mm_states '
         f'mm_rewards: {iters} iterations in {stamps[-1] - t0:.3f} s; '
         f'launches {launches} (expected {want})')
     log(f'[{tag}] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
@@ -3096,14 +3510,18 @@ def phase_variants():
     sum_tree_timings()
 
 
-def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
+def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B,
+               setup=None, env='Cartpole'):
     """A loop of ``iters`` iterations (x0 draw, loss and grads, clip, Adam)
-    on the main path's setup, with the loss and grads of ``tier``:
-    ``'step'``, ``make_fused_value_and_grad(mode='step')`` (the step
-    kernels); ``'loss'``, ``MCPILCO.loss`` on the whole-rollout tier and
-    autograd (``fused_rollout_fwd`` and ``_bwd``). Returns the launch counts
-    of the loop, set to 0 just before it."""
-    setup = main_path_setup(seed)
+    on the main path's setup (or ``setup``, as ``main_path_setup`` returns
+    it; ``env`` names it in the log), with the loss and grads of ``tier``:
+    ``'step'``,
+    ``make_fused_value_and_grad(mode='step')`` (the step kernels);
+    ``'grid'``, the same with ``mode='grid'`` (the grid kernels);
+    ``'loss'``, ``MCPILCO.loss`` on the whole-rollout tier and autograd
+    (``fused_rollout_fwd`` and ``_bwd``). Returns the launch counts of the
+    loop, set to 0 just before it."""
+    setup = setup or main_path_setup(seed)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
                         mm_rewards=True)
@@ -3112,10 +3530,11 @@ def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
         raise AssertionError(f'the gate names {opt.tier("cuda")!r} for the '
                              'main configuration on this card')
     vg = fr.make_fused_value_and_grad(dyn, pol, T, opt.w_t, True, True, True,
-                                      mode='step')
+                                      mode='grid' if tier == 'grid'
+                                      else 'step')
 
     def loss_grads(p, x0, noise):
-        if tier == 'step':
+        if tier in ('step', 'grid'):
             loss, mret, grads, _ = vg(p, x0, dyn_params, dyn_stats, *noise)
             return loss, mret, tree_leaves(grads)
         loss, mret = opt.loss(p, x0, dyn_params, dyn_stats, noise)
@@ -3143,9 +3562,10 @@ def phase_loop(iters, tier, tag, want, seed=SEED, T=MAIN_T, B=MAIN_B):
         stamps.append(time.perf_counter())
     launches = counts()
     report(tag, {'step': "make_fused_value_and_grad(mode='step')",
+                 'grid': "make_fused_value_and_grad(mode='grid')",
                  'loss': 'MCPILCO.loss + autograd'}[tier] + ' + clip + Adam',
            iters, t0, stamps, torch.stack(losses).cpu().numpy(),
-           torch.stack(rets).cpu().numpy(), launches, want, T, B)
+           torch.stack(rets).cpu().numpy(), launches, want, T, B, env)
     if tier == 'step':
         def kernel_path(p, x0, noise):
             loss, _, grads = loss_grads(p, x0, opt.prepare_noise(noise,
@@ -5244,7 +5664,8 @@ def start(name):
         f'{torch.version.cuda}; TF32 off')
 
     t = time.perf_counter()
-    logs = build.build(['fused_mlp', 'fused_step', 'fused_rollout'])
+    logs = build.build(['fused_mlp', 'fused_step', 'fused_rollout',
+                        'fused_step_wide', 'fused_rollout_wide'])
     log(f'[phase 1] built {list(logs)} in {time.perf_counter() - t:.1f} s')
     t = time.perf_counter()
     lib = native.build_library()
@@ -5288,6 +5709,8 @@ def main():
     t = lap('phase 2o', t)
     phase_head_kernels(rows, env_rows, card)
     t = lap('phase 2p', t)
+    rows.update(phase_wide_kernels(env_rows, card))
+    t = lap('phase 2w', t)
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)
     T = MAIN_T
@@ -5355,6 +5778,8 @@ def main():
         f'(host clock, median of 30, this call); {card}')
     fixed_critic = phase_fixed_critic()
     t = lap('phases 3-7', t)
+    wide_runs = phase_wide_path(card)
+    t = lap('phase 5w', t)
     episode = phase_episode()
     t = lap('phase 8', t)
     phase_env_episodes()
@@ -5369,7 +5794,9 @@ def main():
     t = lap('phase 13', t)
     phase_transformer(card)
     lap('phase 14', t)
-    runs = {'fused_mlp_fwd_bf16': bf16_route, 'fused_mlp_bwd_bf16': bf16_route,
+    # the wide kernels' launches from phase 5w's runs, each under its name
+    runs = {**wide_runs,
+            'fused_mlp_fwd_bf16': bf16_route, 'fused_mlp_bwd_bf16': bf16_route,
             'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': fixed_critic}

@@ -58,16 +58,29 @@ constexpr int kCluster = 8;       // CTAs per cluster (the portable maximum)
 constexpr int RB = 4;             // rows of a row group: one float4 of a feature-major tile
 constexpr int kMaxThreads = 512;  // 128 registers a thread
 constexpr int kMaxTileRows = 128;
+#if !PMBRL_WIDE
 constexpr int kSmemMax = 232448 - 8192;  // dynamic shared memory (the static part is below 8192)
+constexpr int kStaticSmem = 8192;
+#else
+// the wide instance's static part (its sites of 16 x 16, partials of 176
+// floats, grouped MM's sites in shared memory) is below 24576
+constexpr int kStaticSmem = 24576;
+constexpr int kSmemMax = 232448 - kStaticSmem;
+#endif
 constexpr int kStat = 2 * kMaxD + kMaxD * kMaxD;  // m, sd, L of one resample site
 constexpr int kMaxIn = kMaxD + kMaxU;             // the dynamics' input without angle embedding
 constexpr int kTri = kMaxD * (kMaxD + 1) / 2;
 // a cluster's forward partial: n, mean, centred M2 (lower, row-major), centred
 // sums; then the reward's mean, M2, centred sum and plain sum
 constexpr int kFN = 0, kFMean = 1, kFM2 = kFMean + kMaxD, kFSd = kFM2 + kTri,
-              kFR = kFSd + kMaxD, kPartF = 64;
+              kFR = kFSd + kMaxD;
 // a partial of the MM adjoint's sums: sum g, sum g z^T (lower); the reward's two
-constexpr int kBGm = 0, kBGl = kMaxD, kBR = kBGl + kTri, kPartB = 48;
+constexpr int kBGm = 0, kBGl = kMaxD, kBR = kBGl + kTri;
+#if !PMBRL_WIDE
+constexpr int kPartF = 64, kPartB = 48;
+#else
+constexpr int kPartF = 176, kPartB = 156;
+#endif
 constexpr int kPart = kPartF > kPartB ? kPartF : kPartB;
 // the tile's small per-row quantities, [feature][TRP] each; the dynamics
 // head's outputs and noise have room for a learned reward's (kMaxD + 1 a half)
@@ -78,10 +91,16 @@ constexpr int kCriticNet = 2;
 constexpr int kTPout = 0, kTDout = kTPout + 2 * kMaxU, kTU = kTDout + 2 * kMaxE,
               kTAct = kTU + kMaxU, kTNxt = kTAct + kMaxU, kTR = kTNxt + kMaxD,
               kTGnxt = kTR + 1, kTGact = kTGnxt + kMaxD, kTGs = kTGact + kMaxU,
-              kTZp = kTGs + kMaxD, kTEps = kTZp + kMaxU, kTZd = kTEps + kMaxU, kTSmall = 80;
+              kTZp = kTGs + kMaxD, kTEps = kTZp + kMaxU, kTZd = kTEps + kMaxU;
+#if !PMBRL_WIDE
+constexpr int kTSmall = 80;
+#else
+constexpr int kTSmall = 156;
+#endif
 
 static_assert(kFR + 4 <= kPartF && kBR + 2 <= kPartB, "partials");
-static_assert(kTZd + kMaxE <= kTSmall, "tile arrays");
+static_assert(kTZd + kMaxE <= kTSmall && (kTSmall & 3) == 0, "tile arrays");
+static_assert(kPartF % 4 == 0 && kPartB % 4 == 0, "partials");
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ __forceinline__ int round4(int a) { return (a + 3) & ~3; }

@@ -123,7 +123,7 @@ struct StepSm {
 // walks index their fields by layer all through.
 __device__ __forceinline__ void copy_params(const Step& st, const Lay& lay, Step& st_s,
                                             Lay& lay_s) {
-  static_assert(sizeof(StepSm) + sizeof(Step) + sizeof(Lay) <= 8192 - 512, "static smem");
+  static_assert(sizeof(StepSm) + sizeof(Step) + sizeof(Lay) <= kStaticSmem - 512, "static smem");
   static_assert(sizeof(Step) % 4 == 0 && sizeof(Lay) % 4 == 0, "word copies");
   for (int i = threadIdx.x; i < (int)(sizeof(Step) / 4); i += blockDim.x)
     reinterpret_cast<int*>(&st_s)[i] = reinterpret_cast<const int*>(&st)[i];
@@ -348,10 +348,17 @@ step_fwd_kernel(const __grid_constant__ Step st, const __grid_constant__ Lay lay
   __syncthreads();
   merge_parts(parts, nc, D, sh.merged);
   sites_of(sh.merged, D, B, sh.s, sh.r);
+#if PMBRL_WIDE
+  if (tid < 32 && io.mm_states) {  // the whole warp: safe_chol_warp
+    safe_chol_warp(sh.s.S, D, sh.s.L);
+    if (rank == 0 && tid == 0) save_site(sh.s, D, io.stats);
+  }
+#else
   if (tid == 0 && io.mm_states) {
     safe_chol(sh.s.S, D, sh.s.L);
     if (rank == 0) save_site(sh.s, D, io.stats);
   }
+#endif
   if (tid == 32 && io.r_mm) {
     safe_chol(sh.r.S, 1, sh.r.L);
     if (rank == 0) save_site(sh.r, 1, io.stats + kStat);
@@ -429,6 +436,25 @@ step_sums_kernel(const __grid_constant__ Tiles tl, const __grid_constant__ StepG
   }
   __syncthreads();
   float* coef = g.scratch + tl.s_coef;
+#if PMBRL_WIDE
+  if (tid == 0) g.tickets[kTicketSums] = 0;
+  if (tid < 32 && g.mm_states) {  // the whole warp: mm_vjp_coeffs_warp
+    for (int e = tid; e < D * D; e += 32) {
+      const int i = e / D, j = e - i * D;
+      ss.L[e] = g.stats[2 * kMaxD + e];
+      ss.gL[e] = j <= i ? tot[kBGl + i * (i + 1) / 2 + j] : 0.f;
+    }
+    for (int i = tid; i < D; i += 32) {
+      ss.m[i] = g.stats[i];
+      ss.sd[i] = g.stats[kMaxD + i];
+      ss.gm[i] = tot[kBGm + i];
+    }
+    __syncwarp();
+    mm_vjp_coeffs_warp(ss.L, ss.gm, ss.gL, ss.sd, B, D, ss.H, ss.c0);
+    for (int i = tid; i < D * D; i += 32) coef[i] = ss.H[i];
+    for (int i = tid; i < D; i += 32) coef[kMaxD * kMaxD + i] = ss.c0[i];
+  }
+#else
   if (tid == 0) {
     g.tickets[kTicketSums] = 0;
     if (g.mm_states) {
@@ -442,6 +468,7 @@ step_sums_kernel(const __grid_constant__ Tiles tl, const __grid_constant__ StepG
       for (int i = 0; i < D; ++i) coef[kMaxD * kMaxD + i] = ss.c0[i];
     }
   }
+#endif
   if (tid == 32 && g.r_mm) {
     load_site(g.stats + kStat, 1, sr);
     sr.gm[0] = tot[kBR];
@@ -580,7 +607,12 @@ group_fwd_kernel(const __grid_constant__ GroupIo io) {
   const int b0 = (on ? g : 0) * Bg;
   auto x = [&](int q, int k) { return io.nxt_raw[(size_t)(b0 + q) * D + k]; };
   auto r = [&](int q) { return io.r_raw[b0 + q]; };
+#if PMBRL_WIDE
+  __shared__ GroupSite sites[kGroupThreads / 32];  // one group a warp
+  GroupSite& s = sites[threadIdx.x >> 5];
+#else
   GroupSite s;
+#endif
   group_moments(x, r, Bg, D, W, on, io.mm_states, io.r_mm, s);
   if (!on) return;
   group_factor(s, D, io.mm_states, io.r_mm);
@@ -606,9 +638,16 @@ group_bwd_kernel(const __grid_constant__ GroupIo io) {
   auto zs = [&](int q, int k) { return io.z_mm[(size_t)(b0 + q) * D + k]; };
   auto gr = [&](int q) { return io.g_r[b0 + q]; };
   auto zr = [&](int q) { return io.z_rr[b0 + q]; };
+#if PMBRL_WIDE
+  __shared__ GroupSite sites[kGroupThreads / 32];  // one group a warp
+  __shared__ GroupAdjoint adjs[kGroupThreads / 32];
+  GroupSite& s = sites[threadIdx.x >> 5];
+  GroupAdjoint& a = adjs[threadIdx.x >> 5];
+#else
   GroupSite s;
-  if (on) group_load(io.stats + (size_t)g * 2 * kStat, D, s);
   GroupAdjoint a;
+#endif
+  if (on) group_load(io.stats + (size_t)g * 2 * kStat, D, s);
   group_adjoint(gs, zs, gr, zr, Bg, D, W, on, io.mm_states, io.r_mm, s, a);
   if (!on) return;
   for (int q = j; q < Bg; q += W) {

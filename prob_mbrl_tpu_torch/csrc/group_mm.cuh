@@ -28,6 +28,14 @@
 // Bg for B. What bounds it: at D = 5 a group's moments are ~25 sums of Bg
 // rows and ~25 xor butterflies, its factor ~50 multiply-adds a try, all on
 // the group's lanes; latency, not bytes or operations.
+//
+// The wide instance (PMBRL_WIDE, D <= 16): a group's sites of 16 x 16 do not
+// fit a lane's registers, so one warp takes a group (W = 32) and keeps its
+// sites in shared memory (GroupSite, GroupAdjoint: one each a warp, the
+// caller's), lane e % 32 sums entry e of the moments (or of the adjoint's
+// sums) over the group's rows in order straight into them, and the warp
+// factors (safe_chol_warp) and differentiates (mm_vjp_coeffs_warp) it. Every
+// lane of the warp calls these with a warp-uniform group.
 #pragma once
 
 #include "cluster_walk.cuh"
@@ -42,8 +50,9 @@ struct GroupSite {
 };
 
 // Lanes that share a group of Bg particles: the smallest power of 2 >= Bg,
-// at most 32.
+// at most 32 (the wide instance: a warp).
 __host__ __device__ __forceinline__ int group_lanes(int Bg) {
+  if (kWide) return 32;
   int w = 1;
   while (w < Bg && w < 32) w <<= 1;
   return w;
@@ -56,6 +65,7 @@ __device__ __forceinline__ float lanes_sum(float v, int W) {
   return v;
 }
 
+#if !PMBRL_WIDE
 // The moments of a group's Bg rows: x(q, k) is feature k of its row q, r(q)
 // the row's reward; the states' with `states`, the reward's with `reward`.
 // Lane j (of the group's W) takes rows j, j + W, ..., each row's features
@@ -125,6 +135,67 @@ __device__ __forceinline__ void group_factor(GroupSite& g, int D, bool states, b
   if (reward) safe_chol(&g.rS, 1, &g.rL);
 }
 
+#else
+// The moments of a group's Bg rows (the wide instance): x(q, k) is feature
+// k of its row q, r(q) the row's reward. Entry by entry (each mean, then each
+// centred second moment and centred sum about the means), lane j adds rows
+// j, j + 32, ... and a xor butterfly adds the lanes: the narrow instance's
+// sums at W = 32, so the same bits where its groups span a warp. Lane 0
+// writes each sum into g (shared memory).
+template <class X, class R>
+__device__ void group_moments(const X& x, const R& r, int Bg, int D, int W, bool on, bool states,
+                              bool reward, GroupSite& g) {
+  const int lane = threadIdx.x & 31, n = on ? Bg : 0;
+  const int Ds = states ? D : 0, nT = Ds * (Ds + 1) / 2;
+  __syncwarp();  // the warp's last group is read no more
+  for (int k = 0; k < Ds + (reward ? 1 : 0); ++k) {  // uniform in the warp
+    float s = 0.f;
+    for (int q = lane; q < n; q += 32) s += k < Ds ? x(q, k) : r(q);
+    s = lanes_sum(s, 32) / Bg;
+    if (lane == 0) (k < Ds ? g.m[k] : g.rm) = s;
+  }
+  __syncwarp();
+  for (int e = 0; e < nT + Ds + (reward ? 2 : 0); ++e) {  // uniform in the warp
+    float v = 0.f;
+    if (e < nT) {
+      int i, j;
+      tri_of(e, i, j);
+      const float mi = g.m[i], mj = g.m[j];
+      for (int q = lane; q < n; q += 32) v += (x(q, i) - mi) * (x(q, j) - mj);
+    } else if (e < nT + Ds) {
+      const float mi = g.m[e - nT];
+      for (int q = lane; q < n; q += 32) v += x(q, e - nT) - mi;
+    } else {
+      for (int q = lane; q < n; q += 32) {
+        const float d = r(q) - g.rm;
+        v += e == nT + Ds ? d * d : d;
+      }
+    }
+    v = lanes_sum(v, 32);
+    if (lane) continue;
+    if (e < nT) {
+      int i, j;
+      tri_of(e, i, j);
+      g.S[i * D + j] = g.S[j * D + i] = v / (Bg - 1);
+    } else if (e < nT + Ds) {
+      g.sd[e - nT] = v;
+    } else if (e == nT + Ds) {
+      g.rS = v / (Bg - 1);
+    } else {
+      g.rsd = v;
+    }
+  }
+  __syncwarp();
+}
+
+// The safe Cholesky factor of each resampled site, on the warp.
+__device__ __forceinline__ void group_factor(GroupSite& g, int D, bool states, bool reward) {
+  if (states) safe_chol_warp(g.S, D, g.L);
+  if (reward) safe_chol_warp(&g.rS, 1, &g.rL);
+}
+
+#endif
+
 // (m, sd, L) of the resampled sites into dst [2][kStat] (save_site's
 // layout).
 __device__ void group_save(const GroupSite& g, int D, bool states, bool reward, float* dst) {
@@ -143,8 +214,23 @@ __device__ void group_save(const GroupSite& g, int D, bool states, bool reward, 
 }
 
 // group_save's sites back, from device memory written in this launch or an
-// earlier one (loads past L1).
+// earlier one (loads past L1); the wide instance's on the warp.
 __device__ void group_load(const float* src, int D, GroupSite& g) {
+#if PMBRL_WIDE
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the warp's last group is read no more
+  for (int i = lane; i < D; i += 32) {
+    g.m[i] = __ldcg(src + i);
+    g.sd[i] = __ldcg(src + kMaxD + i);
+  }
+  for (int i = lane; i < D * D; i += 32) g.L[i] = __ldcg(src + 2 * kMaxD + i);
+  if (lane == 0) {
+    g.rm = __ldcg(src + kStat);
+    g.rsd = __ldcg(src + kStat + kMaxD);
+    g.rL = __ldcg(src + kStat + 2 * kMaxD);
+  }
+  __syncwarp();
+#else
   for (int i = 0; i < D; ++i) {
     g.m[i] = __ldcg(src + i);
     g.sd[i] = __ldcg(src + kMaxD + i);
@@ -153,6 +239,7 @@ __device__ void group_load(const float* src, int D, GroupSite& g) {
   g.rm = __ldcg(src + kStat);
   g.rsd = __ldcg(src + kStat + kMaxD);
   g.rL = __ldcg(src + kStat + 2 * kMaxD);
+#endif
 }
 
 // Row q of the group resampled: out[k] = m[k] + sum_{j <= k} z[j] L[k, j].
@@ -170,6 +257,7 @@ __device__ __forceinline__ void group_resample_row(const GroupSite& g, int D, co
 // g_m and g_L (lower) of each site over the group's rows and mm_vjp_coeffs
 // with Bg particles: H, c0 of the states into (H, c0), the reward's into
 // (rH, rc0). Called as group_moments.
+#if !PMBRL_WIDE
 struct GroupAdjoint {
   float H[kMaxD * kMaxD], c0[kMaxD], rH, rc0;
 };
@@ -221,6 +309,55 @@ __device__ void group_adjoint(const Gs& gs, const Zs& zs, const Gr& gr, const Zr
     if (on) mm_vjp_coeffs(&site.rL, true, &gm, &gL, &site.rsd, Bg, 1, &a.rH, &a.rc0);
   }
 }
+
+#else
+// The wide instance's: the sums gm, gL (lower, zero above) and the reward's
+// two beside the coefficients, all in shared memory.
+struct GroupAdjoint {
+  float H[kMaxD * kMaxD], c0[kMaxD], gm[kMaxD], gL[kMaxD * kMaxD];
+  float rH, rc0, rgm, rgL;
+};
+
+template <class Gs, class Zs, class Gr, class Zr>
+__device__ void group_adjoint(const Gs& gs, const Zs& zs, const Gr& gr, const Zr& zr, int Bg, int D,
+                              int W, bool on, bool states, bool reward, const GroupSite& site,
+                              GroupAdjoint& a) {
+  const int lane = threadIdx.x & 31, n = on ? Bg : 0;
+  const int Ds = states ? D : 0, nT = Ds * (Ds + 1) / 2;
+  // entry by entry as group_moments: sum g, sum g z^T (lower), the reward's
+  for (int e = 0; e < Ds + nT + (reward ? 2 : 0); ++e) {  // uniform in the warp
+    float v = 0.f;
+    int i = 0, j = 0;
+    if (e < Ds) {
+      for (int q = lane; q < n; q += 32) v += gs(q, e);
+    } else if (e < Ds + nT) {
+      tri_of(e - Ds, i, j);
+      for (int q = lane; q < n; q += 32) v += gs(q, i) * zs(q, j);
+    } else if (e == Ds + nT) {
+      for (int q = lane; q < n; q += 32) v += gr(q);
+    } else {
+      for (int q = lane; q < n; q += 32) v += gr(q) * zr(q);
+    }
+    v = lanes_sum(v, 32);
+    if (lane) continue;
+    if (e < Ds) {
+      a.gm[e] = v;
+    } else if (e < Ds + nT) {
+      a.gL[i * D + j] = v;
+      if (i != j) a.gL[j * D + i] = 0.f;
+    } else if (e == Ds + nT) {
+      a.rgm = v;
+    } else {
+      a.rgL = v;
+    }
+  }
+  __syncwarp();
+  if (!on) return;
+  if (states) mm_vjp_coeffs_warp(site.L, a.gm, a.gL, site.sd, Bg, D, a.H, a.c0);
+  if (reward) mm_vjp_coeffs_warp(&site.rL, &a.rgm, &a.rgL, &site.rsd, Bg, 1, &a.rH, &a.rc0);
+}
+
+#endif
 
 // The gradient wrt a pre-MM row x (raw) of the group: H (x - m) + c0.
 __device__ __forceinline__ void group_vjp_row(const GroupAdjoint& a, const GroupSite& g, int D,

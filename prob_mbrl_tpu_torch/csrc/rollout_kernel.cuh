@@ -57,6 +57,9 @@ struct RollArgs {
 namespace {
 
 constexpr int kMaxTiles = 8;      // row tiles a cluster walks, at most
+// the wide instance's warps of grouped MM (one group a warp at a time, its
+// sites in RollSm)
+constexpr int kMmWarps = 2;
 // kPhases: the sweeps, and whether the resamples are grouped (G > 1)
 constexpr int kFwd = 1, kBwd = 2, kGrp = 4;
 // parts of RollArgs::split
@@ -90,6 +93,10 @@ struct RollSm {
   float closs, creg;  // the critic refit: this cluster's sum of the rows' losses; the regulariser
   float red[32];      // block_sum's warp partials
   unsigned long long last_lap;  // the time split's clock at the last lap
+#if PMBRL_WIDE
+  GroupSite gsite[kMmWarps];    // grouped MM: each MM warp's group
+  GroupAdjoint gadj[kMmWarps];
+#endif
 };
 
 __device__ __forceinline__ unsigned long long globaltimer() {
@@ -265,10 +272,17 @@ __device__ void fwd_moments(const Ctx& c, const Step& st, const Roll& ro, RollSm
   __syncthreads();
   float* stat = ro.stats + (size_t)t * 2 * kStat;
   const bool keeper = c.cid == 0 && c.rank == 0;
+#if PMBRL_WIDE
+  if (warp == 0 && ro.mm_states) {  // the whole warp: safe_chol_warp
+    safe_chol_warp(sh.s.S, D, sh.s.L);
+    if (keeper && lane == 0) save_site(sh.s, D, stat);
+  }
+#else
   if (tid == 0 && ro.mm_states) {
     safe_chol(sh.s.S, D, sh.s.L);
     if (keeper) save_site(sh.s, D, stat);
   }
+#endif
   if (tid == 32 && ro.r_mm) {
     safe_chol(sh.r.S, 1, sh.r.L);
     if (keeper) save_site(sh.r, 1, stat + kStat);
@@ -318,7 +332,12 @@ __device__ void fwd_groups(const Ctx& c, const Step& st, const Roll& ro, RollSm&
   const float* xg = ro.nxt_raw + (size_t)t * B * D;
   const float* rg = ro.r_raw + (size_t)t * B;
   const bool rs = ro.r_mm || ro.mean_only;
+#if PMBRL_WIDE
+  // one group a warp, on the first kMmWarps warps
+  for (int base = warp; warp < kMmWarps && base < gp.ng; base += kMmWarps) {
+#else
   for (int base = warp * per; base < gp.ng; base += nw * per) {  // uniform in the warp
+#endif
     const int gi = base + lane / W;
     const bool on = gi < gp.ng;
     const int b0 = (gp.g0 + (on ? gi : 0)) * Bg;  // the group's first particle
@@ -330,7 +349,11 @@ __device__ void fwd_groups(const Ctx& c, const Step& st, const Roll& ro, RollSm&
       const int p = b0 + q - p0;
       return p >= 0 && p < n ? rw.RR[p] : __ldcg(rg + b0 + q);
     };
+#if PMBRL_WIDE
+    GroupSite& g = sh.gsite[warp];
+#else
     GroupSite g;
+#endif
     group_moments(x, r, Bg, D, W, on, ro.mm_states, rs, g);
     if (!on) continue;
     group_factor(g, D, ro.mm_states, ro.r_mm);
@@ -378,7 +401,11 @@ __device__ void bwd_groups(const Ctx& c, const Step& st, const Roll& ro, RollSm&
   }
   const float* zg = st.z_mm + (size_t)t * B * D;
   const float* zrg = st.z_rr + (size_t)t * B;
+#if PMBRL_WIDE
+  for (int base = warp; warp < kMmWarps && base < gp.ng; base += kMmWarps) {
+#else
   for (int base = warp * per; base < gp.ng; base += nw * per) {  // uniform in the warp
+#endif
     const int gi = base + lane / W;
     const bool on = gi < gp.ng;
     const int b0 = (gp.g0 + (on ? gi : 0)) * Bg;
@@ -391,9 +418,14 @@ __device__ void bwd_groups(const Ctx& c, const Step& st, const Roll& ro, RollSm&
     };
     auto gr = [&](int q) { return reward_cot<kGrid>(ro, t, b0 + q, cu); };
     auto zr = [&](int q) { return own(q) ? rw.ZR[b0 + q - p0] : zrg[b0 + q]; };
+#if PMBRL_WIDE
+    GroupSite& g = sh.gsite[warp];
+    GroupAdjoint& a = sh.gadj[warp];
+#else
     GroupSite g;
-    if (on) group_load(ro.stats + ((size_t)t * ro.G + b0 / Bg) * 2 * kStat, D, g);
     GroupAdjoint a;
+#endif
+    if (on) group_load(ro.stats + ((size_t)t * ro.G + b0 / Bg) * 2 * kStat, D, g);
     group_adjoint(gs, zs, gr, zr, Bg, D, W, on, ro.mm_states, ro.r_mm, g, a);
     if (!on) continue;
     const int j = lane & (W - 1), q1 = min(p0 + n - b0, Bg);
@@ -596,6 +628,22 @@ __device__ void reverse_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh
       sh.tot[e] = v;
     }
     __syncthreads();
+#if PMBRL_WIDE
+    if (warp == 0 && ro.mm_states) {  // the whole warp: mm_vjp_coeffs_warp
+      for (int e = lane; e < D * D; e += 32) {
+        const int i = e / D, j = e - i * D;
+        sh.s.L[e] = sh.stat[2 * kMaxD + e];
+        sh.s.gL[e] = j <= i ? sh.tot[kBGl + i * (i + 1) / 2 + j] : 0.f;
+      }
+      for (int i = lane; i < D; i += 32) {
+        sh.s.m[i] = sh.stat[i];
+        sh.s.sd[i] = sh.stat[kMaxD + i];
+        sh.s.gm[i] = sh.tot[kBGm + i];
+      }
+      __syncwarp();
+      mm_vjp_coeffs_warp(sh.s.L, sh.s.gm, sh.s.gL, sh.s.sd, B, D, sh.s.H, sh.s.c0);
+    }
+#else
     if (tid == 0 && ro.mm_states) {
       load_site(sh.stat, D, sh.s);
       for (int i = 0, e = 0; i < D; ++i) {
@@ -604,6 +652,7 @@ __device__ void reverse_sweep(Ctx& c, const Step& st, const Roll& ro, RollSm& sh
       }
       mm_vjp_coeffs(sh.s.L, true, sh.s.gm, sh.s.gL, sh.s.sd, B, D, sh.s.H, sh.s.c0);
     }
+#endif
     if (tid == 32 && ro.r_mm) {
       load_site(sh.stat + kStat, 1, sh.r);
       sh.r.gm[0] = sh.tot[kBR];
@@ -882,7 +931,7 @@ rollout_kernel(const __grid_constant__ Step st, const __grid_constant__ Roll ro,
   __shared__ Step st_s;
   __shared__ Lay lay_s;
   __shared__ Net cnet_s;  // the critic's, for its walks (critic_net)
-  static_assert(sizeof(RollSm) + sizeof(Step) + sizeof(Lay) + sizeof(Net) <= 8192 - 512,
+  static_assert(sizeof(RollSm) + sizeof(Step) + sizeof(Lay) + sizeof(Net) <= kStaticSmem - 512,
                 "static smem");
   static_assert(sizeof(Step) + sizeof(Roll) + sizeof(Lay) + sizeof(Crit) <= 4096,
                 "kernel parameters");

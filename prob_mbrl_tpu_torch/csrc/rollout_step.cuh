@@ -27,11 +27,41 @@
 
 #include "mlp_tile.cuh"
 
+// The instance of the device code a translation unit compiles: the narrow
+// one (NarrowLimits) unless it defines PMBRL_WIDE 1 before it includes this
+// header (WideLimits, the *_wide.cu units, libraries of their own). Every
+// array and layout below is sized by the instance's limits; the wide one
+// also keeps the policy's squash and the reward's tip and target in device
+// memory (StepArgs below) and factors and differentiates each moment-matching
+// site on a whole warp (safe_chol_warp, chol_vjp_warp).
+#ifndef PMBRL_WIDE
+#define PMBRL_WIDE 0
+#endif
+
 namespace {
 
-constexpr int kMaxD = 8;     // state dims
-constexpr int kMaxU = 4;     // action dims
-constexpr int kMaxTip = 4;   // coordinates of the reward's tip
+struct NarrowLimits {
+  static constexpr int kMaxD = 8;    // state dims
+  static constexpr int kMaxU = 4;    // action dims
+  static constexpr int kMaxTip = 4;  // coordinates of the reward's tip
+};
+
+// D <= 16, U <= 8 and a tip over the whole state
+struct WideLimits {
+  static constexpr int kMaxD = 16;
+  static constexpr int kMaxU = 8;
+  static constexpr int kMaxTip = 16;
+};
+
+#if PMBRL_WIDE
+using Limits = WideLimits;
+#else
+using Limits = NarrowLimits;
+#endif
+constexpr bool kWide = PMBRL_WIDE != 0;
+constexpr int kMaxD = Limits::kMaxD;
+constexpr int kMaxU = Limits::kMaxU;
+constexpr int kMaxTip = Limits::kMaxTip;
 constexpr int kTries = 8;    // jitters of the safe Cholesky
 constexpr int kMaxK = 5;     // components of a mixture dynamics head
 // widest MLP input: the dynamics' D + U with every state dim angle-embedded
@@ -74,6 +104,7 @@ struct MlpArgs {
   const float* m[kMaxLayers];  // hidden-layer masks [B, d] or null
 };
 
+#if !PMBRL_WIDE
 struct StepArgs {
   int B, D, U, ntip;
   int reward_kind;      // kExpQuadReward, kQuadReward, kLanderReward or kLearnedReward
@@ -113,6 +144,48 @@ struct StepArgs {
   float head_scale, head_bias, head_temp;
   const float* u_pol;
 };
+#else
+// The wide instance's: the policy's squash and the tip in device memory.
+struct StepArgs {
+  int B, D, U, ntip;
+  int reward_kind;      // kExpQuadReward, kQuadReward, kLanderReward or kLearnedReward
+  int K;                // components of a mixture dynamics head; 0: diagonal
+  MlpArgs pol, dyn;
+  const float* states;  // [B, D]
+  const float* eps;     // [B, U] or null (zero)
+  const float* z_pol;   // [B, U] policy density noise
+  const float* z_dyn;   // [B, E] dynamics density noise (E = D, or D + 1 with
+                        //   kLearnedReward: the head's outputs); a mixture's
+                        //   z_normal
+  const float* mx;      // [D + U] input whitening: (x - mx) * isx
+  const float* isx;
+  const float* my;      // [E] output scaling: mean * sy + my, log_std + log(sy)
+  const float* sy;
+  const float* z_mm;    // [B, D] standardized MM noise of this step (or null)
+  const float* z_rr;    // [B, 1]
+  const float* z_pi;    // [B, K] a mixture's Gumbel noise (or null)
+  const float* u_cat;   // [B, 1] a mixture's uniform of the hard pick (or null)
+  float pol_upper, dyn_upper;  // log(max_noise_std) of each density
+  // in device memory: act_scale, act_bias [U]; tip = tip_matrix @ nxt,
+  // [ntip, D] row-major; target [ntip] (null with ntip 0)
+  const float *act_scale, *act_bias, *tip, *target;
+  float norm, q_scale, r_scale;
+  // the model options of the policy's MLP ([0]) and the dynamics' ([1]):
+  const float* m_in[2];  // input dropout mask [B, din] (null: none)
+  int out_act[2];        // output nonlinearity (an Act; kIdentity: none)
+  // MLP input k is in_map[net][k] = 3 i + kind of source i (the states, then
+  // the actions for the dynamics): kind 0 the value, 1 its sin, 2 its cos
+  // (ops/angles.py to_complex: the other dims, then sin, then cos); bytes,
+  // as Step is a kernel parameter, with the others within 4 KB
+  signed char in_map[2][kMaxX];
+  // the policy's head (kHeadDiag, kHeadTanh or kHeadCat): a TanhSquashedDensity's
+  // own scale and bias (before the Policy's act_scale / act_bias), a
+  // CategoricalDensity's sampling temperature and its uniform [B, 1] (else null)
+  int pol_head;
+  float head_scale, head_bias, head_temp;
+  const float* u_pol;
+};
+#endif
 
 namespace {
 
@@ -123,8 +196,14 @@ struct Step {
   int B, D, U, ntip, reward_kind, K;
   const float *states, *eps, *z_pol, *z_dyn, *mx, *isx, *my, *sy, *z_mm, *z_rr, *z_pi, *u_cat;
   float pol_upper, dyn_upper;
+#if PMBRL_WIDE
+  // in device memory (StepArgs): Step is a kernel parameter, and a 16 x 16
+  // tip alone would take 1 KB of the 4 KB
+  const float *act_scale, *act_bias, *tip, *target;
+#else
   float act_scale[kMaxU], act_bias[kMaxU];
   float tip[kMaxTip * kMaxD], target[kMaxTip];
+#endif
   float norm, q_scale, r_scale;
   const float* m_in[2];
   int out_act[2];
@@ -289,6 +368,117 @@ __device__ void mm_vjp_coeffs(const float* L, bool ok, const float* gm, const fl
   }
 }
 
+#if PMBRL_WIDE
+// ---- the same on a whole warp (the wide instance) ---------------------------
+// Lane i < D owns row i; every lane of the warp calls them. Each entry takes
+// the one-thread versions' operations in their order: D steps of O(D) work a
+// lane where one thread did O(D^3).
+
+// chol_try with lane i's row of A in registers: column j's pivot comes from
+// lane j by __shfl_sync, L[k, j] of the update from lane k. L (D x D, shared
+// memory) is whole after the closing __syncwarp.
+__device__ bool chol_try_warp(const float* S, int D, float jitter, float tol2, float* L) {
+  const int i = threadIdx.x & 31;
+  float a[kMaxD];
+#pragma unroll
+  for (int k = 0; k < kMaxD; ++k) {
+    const float s = i < D && k < D ? S[i * D + k] : 0.f;
+    a[k] = k == i ? s + jitter : s;
+  }
+  bool ok = true;
+  for (int j = 0; j < D && ok; ++j) {
+    float aj = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxD; ++k)
+      if (k == j) aj = a[k];
+    const float piv2 = __shfl_sync(0xffffffffu, aj, j);
+    if (!(piv2 > tol2)) {
+      ok = false;
+      break;
+    }
+    const float p = sqrtf(piv2);
+    const float lij = i >= j ? aj / p : 0.f;
+    if (i < D) L[i * D + j] = lij;
+#pragma unroll
+    for (int k = 0; k < kMaxD; ++k) {
+      const float lkj = __shfl_sync(0xffffffffu, lij, k);
+      if (k > j && k < D) a[k] -= lij * lkj;
+    }
+  }
+  __syncwarp();
+  return ok;
+}
+
+// safe_chol on a warp: the same scale, tolerance and jitters, NaN when none
+// is ok.
+__device__ bool safe_chol_warp(const float* S, int D, float* L) {
+  float scale = 0.f;
+  for (int i = 0; i < D; ++i) scale += fabsf(S[i * D + i]);
+  scale = scale / D + 1e-30f;
+  const float tol = 1e-5f * sqrtf(scale);
+  const float jitters[kTries] = {1e-12f, 1e-10f, 1e-8f, 1e-6f, 1e-4f, 1e-2f, 1.f, 1e2f};
+  for (int g = 0; g < kTries; ++g)
+    if (chol_try_warp(S, D, jitters[g] * scale, tol * tol, L)) return true;
+  const int i = threadIdx.x & 31;
+  if (i < D)
+    for (int k = 0; k < D; ++k) L[i * D + k] = __int_as_float(0x7fc00000);
+  __syncwarp();
+  return false;
+}
+
+// chol_vjp on a warp, gS (D x D, shared memory, not gL) whole at the end:
+// at column j lane i >= j forms its gc from the columns already done, then
+// every lane adds gp over the rows in order (gc by __shfl_sync), then lane i
+// writes its row's entry and lane j the pivot's share.
+__device__ void chol_vjp_warp(const float* L, const float* gL, int D, float* gS) {
+  const int i = threadIdx.x & 31;
+  if (i < D)
+    for (int k = 0; k < D; ++k) gS[i * D + k] = 0.f;
+  __syncwarp();
+  for (int j = D - 1; j >= 0; --j) {
+    const float p = L[j * D + j];
+    const bool mine = i >= j && i < D;
+    float gc = 0.f;
+    if (mine) {
+      gc = gL[i * D + j];
+      for (int k = j; k < D; ++k) gc -= (gS[i * D + k] + gS[k * D + i]) * L[k * D + j];
+    }
+    float gp = 0.f;
+    for (int q = j; q < D; ++q) gp -= __shfl_sync(0xffffffffu, gc, q) * L[q * D + j] / p;
+    __syncwarp();
+    if (mine) gS[i * D + j] += gc / p;
+    if (i == j) gS[j * D + j] += gp / (2.f * p);
+    __syncwarp();
+  }
+}
+
+// mm_vjp_coeffs on a warp (a factor that failed is NaN, and so is all that
+// follows from it): H (D x D, shared memory) holds chol_vjp's G first, then
+// (G + G^T) / (B - 1) in place; H and c0 whole at the end.
+__device__ void mm_vjp_coeffs_warp(const float* L, const float* gm, const float* gL,
+                                   const float* sd, int B, int D, float* H, float* c0) {
+  const int i = threadIdx.x & 31;
+  chol_vjp_warp(L, gL, D, H);
+  float h[kMaxD];
+#pragma unroll
+  for (int k = 0; k < kMaxD; ++k)
+    h[k] = i < D && k < D ? (H[i * D + k] + H[k * D + i]) / (B - 1) : 0.f;
+  __syncwarp();
+  if (i < D) {
+#pragma unroll
+    for (int k = 0; k < kMaxD; ++k)
+      if (k < D) H[i * D + k] = h[k];
+  }
+  __syncwarp();
+  if (i < D) {
+    float hs = 0.f;
+    for (int k = 0; k < D; ++k) hs += H[i * D + k] * sd[k];
+    c0[i] = (gm[i] - hs) / B;
+  }
+  __syncwarp();
+}
+#endif
+
 // ---- host side ----------------------------------------------------------------
 
 bool fill_mlp(Net& net, const MlpArgs& a, int B) {
@@ -365,12 +555,20 @@ bool fill_step(Step& st, const StepArgs* a) {
   if (st.K && (!st.z_pi || !st.u_cat)) return false;
   st.pol_upper = a->pol_upper;
   st.dyn_upper = a->dyn_upper;
+#if PMBRL_WIDE
+  st.act_scale = a->act_scale;
+  st.act_bias = a->act_bias;
+  st.tip = a->tip;
+  st.target = a->target;
+  if (!st.act_scale || !st.act_bias || (a->ntip && (!st.tip || !st.target))) return false;
+#else
   for (int k = 0; k < kMaxU; ++k) {
     st.act_scale[k] = a->act_scale[k];
     st.act_bias[k] = a->act_bias[k];
   }
   for (int i = 0; i < kMaxTip * kMaxD; ++i) st.tip[i] = a->tip[i];
   for (int j = 0; j < kMaxTip; ++j) st.target[j] = a->target[j];
+#endif
   st.norm = a->norm;
   st.q_scale = a->q_scale;
   st.r_scale = a->r_scale;

@@ -1,7 +1,7 @@
 """Environments (counterpart of ``prob_mbrl_tpu/envs``): the analytic envs,
 the differentiable lunar lander and, where Box2D imports, the Box2D one."""
 from .base import (AnalyticModel, Box, ExpQuadTipReward, GymEnv, Integrator,
-                   QuadTipReward, integrate)
+                   QuadTipReward, integrate, state_reward)
 from .cartpole import Cartpole, CartpoleModel, cartpole_reward
 from .pendulum import Pendulum, PendulumModel, pendulum_reward
 from .double_cartpole import (DoubleCartpole, DoubleCartpoleModel,
@@ -20,7 +20,7 @@ except ImportError:
 
 __all__ = [
     'AnalyticModel', 'Box', 'ExpQuadTipReward', 'GymEnv', 'Integrator',
-    'QuadTipReward', 'integrate', 'Cartpole', 'CartpoleModel',
+    'QuadTipReward', 'integrate', 'state_reward', 'Cartpole', 'CartpoleModel',
     'cartpole_reward', 'Pendulum', 'PendulumModel', 'pendulum_reward',
     'DoubleCartpole', 'DoubleCartpoleModel', 'double_cartpole_reward',
     'CartAcrobot', 'CartAcrobotModel', 'Rendezvous', 'RendezvousModel',

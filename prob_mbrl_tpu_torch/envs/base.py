@@ -333,6 +333,23 @@ class ExpQuadTipReward:
         return torch.exp(-cost)
 
 
+def _whole_state(xa):
+    return xa
+
+
+def state_reward(D, q_scale=1.0, r_scale=1e-4):
+    """exp(-0.5 (q |s|^2 + r |a|^2)) of a D-dim state, as an
+    ``ExpQuadTipReward`` whose tip is the whole state (``tip_matrix`` the
+    identity, target 0, norm 1): the reward closure of the JAX package's
+    ``bench.py`` ``build()`` at the defaults, which the rollout kernels
+    take with a tip of D rows."""
+    eye = tuple(tuple(float(i == j) for j in range(D)) for i in range(D))
+    return ExpQuadTipReward(tip_fn=_whole_state, target_tip=(0.0,) * D,
+                            q_scale=float(q_scale), r_scale=float(r_scale),
+                            raw_size=D, angle_dims=(), norm=1.0,
+                            tip_matrix=eye)
+
+
 @dataclasses.dataclass(frozen=True)
 class QuadTipReward:
     """-(q |delta|^2 + r |u|^2), the non-saturating quadratic cost of a tip

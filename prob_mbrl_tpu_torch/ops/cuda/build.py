@@ -38,6 +38,16 @@ EXTRA_SOURCES = {'fused_rollout': ('fused_rollout_critic_fwd.cu',
                                    'fused_rollout_critic_grouped_bwd.cu',
                                    'fused_rollout_critic_grouped_vg.cu',
                                    'fused_rollout_grouped.cu',
+                                   'fused_rollout_grouped_grid.cu'),
+                 # the wide instance (D <= 16, U <= 8): its grouped rows 3-5
+                 # and 8-9 (it refits no critic)
+                 'fused_rollout_wide': ('fused_rollout_grouped_wide.cu',
+                                        'fused_rollout_grouped_grid_wide.cu')}
+# the sources a library's units include besides the shared headers (the
+# wide instances compile the narrow ones' .cu files with WideLimits)
+INCLUDED = {'fused_step_wide': ('fused_step.cu',),
+            'fused_rollout_wide': ('fused_rollout.cu',
+                                   'fused_rollout_grouped.cu',
                                    'fused_rollout_grouped_grid.cu')}
 
 _LIBS = {}
@@ -64,7 +74,8 @@ def _fresh(name):
     lib = _lib_path(name)
     if not lib.exists():
         return False
-    sources = [*_sources(name), *CSRC.glob('*.cuh')]
+    sources = [*_sources(name), *CSRC.glob('*.cuh'),
+               *(CSRC / f for f in INCLUDED.get(name, ()))]
     return lib.stat().st_mtime >= max(p.stat().st_mtime for p in sources)
 
 

@@ -116,7 +116,54 @@ MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
 MAX_K = 5        # kMaxK: components of a mixture dynamics head
 MAX_X = 2 * MAX_D + MAX_U  # kMaxX: widest MLP input (embedded angles)
 
-_STAT = 2 * MAX_D + MAX_D * MAX_D  # kStat: (m, sd, L) of one resample site
+
+class Limits(collections.namedtuple('Limits', [
+        'name', 'D', 'U', 'tip', 'part', 'part_b', 'tile_small',
+        'static_smem', 'step_lib', 'rollout_lib'])):
+    """An instance of the rollout kernels (rows 3-9 and grouped MM): the
+    limits its device code is compiled with (``csrc/rollout_step.cuh``
+    ``NarrowLimits`` / ``WideLimits``) and the layouts they size
+    (``csrc/cluster_walk.cuh``): ``D``, ``U``, ``tip`` (kMaxD, kMaxU,
+    kMaxTip), the floats of a cluster's partial (kPart) and of a block's
+    partial of the MM adjoint's sums (kPartB), the tile's small rows
+    (kTSmall), the static shared memory it keeps below (kStaticSmem) and
+    its libraries (``build.load``)."""
+    __slots__ = ()
+
+    @property
+    def wide(self):
+        return self.name == 'wide'
+
+    @property
+    def x(self):  # kMaxX: the widest MLP input, every state dim embedded
+        return 2 * self.D + self.U
+
+    @property
+    def stat(self):  # kStat: (m, sd, L) of one resample site
+        return 2 * self.D + self.D * self.D
+
+    @property
+    def coef(self):  # kCoef: H and c0 of one resample site
+        return self.D * self.D + self.D
+
+    @property
+    def smem_max(self):  # kSmemMax: dynamic shared memory of a CTA, bytes
+        return 232448 - self.static_smem
+
+
+# the narrow instance (every env of the registry) and the wide one, which the
+# gate takes where the narrow one does not: D <= 16, U <= 8, a tip over the
+# whole state (a learned reward's head E = D + 1 <= 17); no critic refit
+NARROW = Limits('narrow', MAX_D, MAX_U, MAX_TIP, 64, 48, 80, 8192,
+                'fused_step', 'fused_rollout')
+WIDE = Limits('wide', 16, 8, 16, 176, 156, 156, 24576, 'fused_step_wide',
+              'fused_rollout_wide')
+INSTANCES = (NARROW, WIDE)
+# why the wide instance has no critic refit in rows 3-5
+WIDE_CRITIC = ("the wide instance (D > 8 or U > 4 or a tip of more than 4 "
+               "rows) does not refit a critic inside rows 3-5; a value "
+               "update takes the grid tier, whose refit runs between the "
+               "grid kernels")
 
 # the rewards the kernels take, at the index of their StepArgs::reward_kind
 # (csrc/rollout_step.cuh): kExpQuadReward, exp(-0.5 (q |d|^2 + r |a|^2)), and
@@ -145,11 +192,14 @@ _FIXED_NOT_GRID = ("a fixed critic's bootstrap is added on the grid tier "
 LAUNCHES = {'fused_step_fwd': 0, 'fused_step_bwd': 0, 'fused_rollout_fwd': 0,
             'fused_rollout_bwd': 0, 'fused_rollout_vg': 0,
             'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
+# the wide instance's launches, each under its kernel's name + '_wide'
+LAUNCHES_WIDE = {k + '_wide': 0 for k in LAUNCHES}
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_WIDE):
+        for k in counts:
+            counts[k] = 0
 
 
 def prepare_mm_noise(z, steps, B, mm_groups=None):
@@ -392,7 +442,25 @@ def policy_head_by_hand(pol, out, noise, eps, g_a):
 
 
 def kernel_refuses(dyn, pol):
-    """Why the step kernels cannot take these models, or None if they can."""
+    """Why the step kernels cannot take these models, or None if they can
+    (``kernel_instance`` says which instance does): the narrow instance's
+    reason where it takes them, else the wide instance's, which names its
+    limits."""
+    if _refuses_at(dyn, pol, NARROW) is None:
+        return None
+    return _refuses_at(dyn, pol, WIDE)
+
+
+def kernel_instance(dyn, pol):
+    """The instance of the kernels (a ``Limits``) that takes these models:
+    ``NARROW`` wherever it does, else ``WIDE``; None when neither does."""
+    return next((lim for lim in INSTANCES
+                 if _refuses_at(dyn, pol, lim) is None), None)
+
+
+def _refuses_at(dyn, pol, lim):
+    """Why the instance ``lim`` of the kernels cannot take these models, or
+    None."""
     reg = dyn.regressor
     rf = dyn.reward_func
     kind = reward_kind(rf)
@@ -421,14 +489,16 @@ def kernel_refuses(dyn, pol):
                     'unfused path; the fused tiers take float32')
     D, U = dyn.state_dims, policy_dims(pol)
     E = head.output_dims  # D, or D + 1 with a learned reward
-    if not (1 <= D <= MAX_D and 1 <= U <= MAX_U):
-        return f'the step kernels take D <= {MAX_D}, U <= {MAX_U}'
-    if kind == LANDER_KIND and (D, U) != (8, 2):
-        return f'the lander\'s reward needs D = 8, U = 2, not {D}, {U}'
+    if not (1 <= D <= lim.D and 1 <= U <= lim.U):
+        return (f'the step kernels take D <= {lim.D}, U <= {lim.U} and a '
+                f'tip of at most {lim.tip} rows')
+    if kind == LANDER_KIND and ((D, U) != (8, 2) or lim.wide):
+        return (f'the lander\'s reward needs D = 8, U = 2 (the narrow '
+                f'instance), not {D}, {U}')
     if kind < LANDER_KIND:  # a tip reward
-        if len(rf.tip_matrix) > MAX_TIP or any(len(row) != D
+        if len(rf.tip_matrix) > lim.tip or any(len(row) != D
                                                for row in rf.tip_matrix):
-            return f'tip_matrix must be [<= {MAX_TIP}, {D}]'
+            return f'tip_matrix must be [<= {lim.tip}, {D}]'
         if rf.angle_dims and rf.raw_size == D:
             return 'the reward would angle-embed the states'
     if len(pol.max_u) not in (1, U) or (pol.min_u is not None
@@ -451,7 +521,8 @@ def kernel_refuses(dyn, pol):
         if not fm.fused_mlp_supported(dims, spec.nonlin):
             return f'the MLP tile walk does not take dims {dims}'
     if step_plan(_mlp_dims(pol.mlp), _mlp_dims(reg.mlp), D, 2, True,
-                 components=K, options=walk_options(dyn, pol)) is None:
+                 components=K, options=walk_options(dyn, pol),
+                 lim=lim) is None:
         return 'the step kernels\' tiles do not fit in shared memory'
     return None
 
@@ -605,13 +676,16 @@ def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
     gives ``'full'`` or ``'grid'``. Under a particle ``mesh`` the tier is
     sized on one rank's slice (``refuses``): ``'full'`` or ``'step'``, whose
     value-and-grad ``make_fused_sharded_value_and_grad`` runs on each rank.
-    None of the TPU's VMEM budgets or crossovers is carried over."""
+    None of the TPU's VMEM budgets or crossovers is carried over. The wide
+    instance of the kernels (``kernel_instance``) refits no critic
+    (``WIDE_CRITIC``): a value update there takes ``'grid'``."""
     if refuses(cfg, dyn, pol, value_update, mesh, value_spec) is not None:
         return None
     cfg = _local_config(cfg, mesh)
     fixed = value_update is None and value_spec is not None
-    refit = value_update is not None and cr.critic_refuses(
-        value_update.spec, value_update, dyn.state_dims) is None
+    refit = (value_update is not None and not kernel_instance(dyn, pol).wide
+             and cr.critic_refuses(value_update.spec, value_update,
+                                   dyn.state_dims) is None)
     tier = 'grid' if fixed or (value_update is not None and not refit) \
         else 'full'
     if torch.device(device).type == 'cuda':
@@ -637,6 +711,7 @@ ROW_GROUP = 4          # RB: rows of a row group
 THREADS = 512          # kMaxThreads
 MAX_TILE_ROWS = 128    # kMaxTileRows
 MAX_TILES = 8          # kMaxTiles: row tiles a cluster walks, at most
+# the narrow instance's (Limits: each instance's)
 SMEM_MAX = 232448 - 8192  # kSmemMax: dynamic shared memory of a CTA, bytes
 PART = 64              # kPart: floats of one cluster's partial sums
 TILE_SMALL = 80        # kTSmall: the tile's small per-row arrays
@@ -679,7 +754,7 @@ def walk_options(dyn, pol):
 
 
 def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
-                 critic_dims=None, components=0, options=None):
+                 critic_dims=None, components=0, options=None, lim=NARROW):
     """(floats, floats of one CTA's policy dW accumulator, floats of the
     policy's dW and db) of the cluster walk's shared memory for tiles of
     ``tile_rows`` rows (``walk_lay`` in ``csrc/cluster_walk.cuh``): the
@@ -694,7 +769,8 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
     ``components`` K, its rows (``mixture_rows``). The MLPs' input arrays
     have ``MAX_D + MAX_U`` rows, or the widest embedded input's; with
     ``options`` (``walk_options``) the policy's own input array and the
-    MLPs' output pre-activations besides. With ``critic_dims`` (the
+    MLPs' output pre-activations besides (``MAX_D``, ``MAX_U``, ``TILE_SMALL``:
+    the instance ``lim``'s). With ``critic_dims`` (the
     value update's critic, read in place) its widths count in the exchange
     regions, the layer-input slice and the input arrays' rows (its input
     and input mask use them), and its slices share the two MLPs' room, which
@@ -716,7 +792,7 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
     outmax = max(dims[-1] for dims in walks)
     rw = max(CLUSTER * kwmax, max(max(d) for d in walks), CLUSTER * outmax)
     own_input, out_pre = options or (False, False)
-    nx = max(MAX_D + MAX_U, *(dims[0] for dims in walks))
+    nx = max(lim.D + lim.U, *(dims[0] for dims in walks))
     off += 2 * rw * trp + _r4(kwmax) * trp + (4 if own_input else 3) * nx * trp
 
     def slices(*dims_of):
@@ -725,7 +801,7 @@ def _walk_floats(pol_dims, dyn_dims, tile_rows, resident, bwd,
                                        for w in dims[1:-1])
 
     off += max(slices(*nets), slices(*walks[2:]))
-    off += (TILE_SMALL + mixture_rows(nets[1], components)) * trp
+    off += (lim.tile_small + mixture_rows(nets[1], components)) * trp
     if out_pre:
         off += (nets[0][-1] + nets[1][-1]) * trp
     return off, dw, flat
@@ -741,19 +817,20 @@ def critic_dw_floats(critic_dims):
 
 
 def rollout_layout(pol_dims, dyn_dims, D, tile_rows, particles, clusters,
-                   resident, critic_dims=None, components=0, options=None):
+                   resident, critic_dims=None, components=0, options=None,
+                   lim=NARROW):
     """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
     dW accumulator, floats of the policy's dW and db) of a launch (``lay_of``
     in the source): the cluster walk's (``_walk_floats``, with the
     backward's buffers and the critic's widths), then the cluster's
     per-particle arrays (5 D + 6 floats each) and one partial per cluster."""
     off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident, True,
-                                 critic_dims, components, options)
-    return off + _r4(particles * (5 * D + 6)) + clusters * PART, dw, flat
+                                 critic_dims, components, options, lim)
+    return off + _r4(particles * (5 * D + 6)) + clusters * lim.part, dw, flat
 
 
 def _scratch(T, clusters, resident, dw, flat, critic_dims=None, B=0, D=0,
-             groups=1):
+             groups=1, lim=NARROW):
     """Floats of a launch's device scratch: with several clusters the
     moments' and the MM adjoint's partials and the loss's and the policy's
     dW partials; a streamed plan's CTAs' dW accumulators; with a critic its
@@ -761,7 +838,7 @@ def _scratch(T, clusters, resident, dw, flat, critic_dims=None, B=0, D=0,
     with several clusters, two [B, D] buffers of the state cotangent, which
     the clusters exchange for the groups that straddle them."""
     multi = clusters > 1
-    return ((2 * T * clusters * PART + 2 * clusters + clusters * flat
+    return ((2 * T * clusters * lim.part + 2 * clusters + clusters * flat
              if multi else 0)
             + (0 if resident else clusters * CLUSTER * dw)
             + clusters * CLUSTER * critic_dw_floats(critic_dims)
@@ -771,7 +848,8 @@ def _scratch(T, clusters, resident, dw, flat, critic_dims=None, B=0, D=0,
 
 @functools.lru_cache(maxsize=None)
 def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
-                 critic_dims=None, groups=1, components=0, options=None):
+                 critic_dims=None, groups=1, components=0, options=None,
+                 lim=NARROW):
     """The whole-rollout kernel's launch plan for these MLP widths (policy
     ``D -> ... -> 2U``, dynamics ``D + U -> ... -> 2D``, or ``2 (D + 1)``
     with a learned reward, or a mixture head's 2 E K + K + 1 with
@@ -793,7 +871,7 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
     accumulators and its loss's sums; with ``groups`` G > 1 MM groups, the
     exchange of the state cotangent). The groups change nothing else: the
     grouped resample keeps each group's moments in registers. ``options``:
-    the models' ``walk_options``."""
+    the models' ``walk_options``; ``lim``: the instance of the kernel."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
@@ -805,18 +883,18 @@ def rollout_plan(pol_dims, dyn_dims, D, B, T, max_clusters=TARGET_CLUSTERS,
             clusters = _cdiv(B, P)
             floats, dw, flat = rollout_layout(pol_dims, dyn_dims, D, tr, P,
                                               clusters, resident, critic_dims,
-                                              components, options)
-            if 4 * floats <= SMEM_MAX:
+                                              components, options, lim)
+            if 4 * floats <= lim.smem_max:
                 return RolloutPlan(CLUSTER, clusters, P, tr, tiles, THREADS,
                                    resident, 4 * floats,
                                    _scratch(T, clusters, resident, dw, flat,
-                                            critic_dims, B, D, groups))
+                                            critic_dims, B, D, groups, lim))
     return None
 
 
 @functools.lru_cache(maxsize=None)
 def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
-                  critic_dims=None, components=0, options=None):
+                  critic_dims=None, components=0, options=None, lim=NARROW):
     """The largest batch that ``rollout_plan`` takes on a card holding
     ``max_clusters`` clusters: ``max_clusters`` times the most particles a
     cluster can walk (at most ``MAX_TILES`` tiles of up to ``MAX_TILE_ROWS``
@@ -827,8 +905,9 @@ def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
             for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP):
                 floats = rollout_layout(pol_dims, dyn_dims, D, tr, tiles * tr,
                                         max_clusters, resident,
-                                        critic_dims, components, options)[0]
-                if 4 * floats <= SMEM_MAX:
+                                        critic_dims, components, options,
+                                        lim)[0]
+                if 4 * floats <= lim.smem_max:
                     best = max(best, tiles * tr)
                     break
     return max_clusters * best
@@ -841,7 +920,7 @@ def max_particles(pol_dims, dyn_dims, D, max_clusters=TARGET_CLUSTERS,
 
 SUM_THREADS = 256      # kSumThreads: rows of a block of the MM adjoint's sums
 PART_B = 48            # kPartB: floats of one block's partial of those sums
-COEF = MAX_D * MAX_D + MAX_D  # kCoef: H and c0 of one resample site
+COEF = MAX_D * MAX_D + MAX_D  # kCoef: H and c0 of one resample site (narrow)
 TICKETS = 3            # kTickets: the launches' counters
 
 # field order = the StepPlanField enum of csrc/fused_step.cu
@@ -851,7 +930,7 @@ StepPlan = collections.namedtuple('StepPlan', [
 
 
 def step_layout(pol_dims, dyn_dims, tile_rows, resident, backward,
-                components=0, options=None):
+                components=0, options=None, lim=NARROW):
     """(floats of a CTA's dynamic shared memory, floats of one CTA's policy
     dW accumulator, floats of the policy's dW and db) of a step launch
     (``step_lay_of``): the cluster walk's (``_walk_floats``; the backward's
@@ -859,12 +938,12 @@ def step_layout(pol_dims, dyn_dims, tile_rows, resident, backward,
     wrt its pre-MM outputs ([tile_rows, MAX_D + 1], to 4)."""
     off, dw, flat = _walk_floats(pol_dims, dyn_dims, tile_rows, resident,
                                  backward, components=components,
-                                 options=options)
-    return off + (_r4(tile_rows * (MAX_D + 1)) if backward else 0), dw, flat
+                                 options=options, lim=lim)
+    return off + (_r4(tile_rows * (lim.D + 1)) if backward else 0), dw, flat
 
 
 def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat, B=0,
-                  D=0, groups=1):
+                  D=0, groups=1, lim=NARROW):
     """Floats of device scratch of a step launch: the forward's one partial
     of the moments per cluster; the backward's partials of the MM adjoint's
     sums (one per block), both sites' (H, c0), the clusters' dW partials
@@ -872,8 +951,8 @@ def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat, B=0,
     (streamed plans) and, grouped (G > 1), the gradient wrt the pre-MM
     outputs ([B, D] and [B])."""
     if not backward:
-        return clusters * PART
-    return (sum_blocks * PART_B + 2 * COEF
+        return clusters * lim.part
+    return (sum_blocks * lim.part_b + 2 * lim.coef
             + (clusters * _r4(flat) if clusters > 1 else 0)
             + (0 if resident else clusters * CLUSTER * dw)
             + (B * (D + 1) if groups > 1 else 0))
@@ -882,7 +961,7 @@ def _step_scratch(clusters, sum_blocks, resident, backward, dw, flat, B=0,
 @functools.lru_cache(maxsize=None)
 def step_plan(pol_dims, dyn_dims, D, B, backward,
               max_clusters=TARGET_CLUSTERS, groups=1, components=0,
-              options=None):
+              options=None, lim=NARROW):
     """The launch plan of one step kernel (``backward``: ``fused_step_bwd``'s
     walk, else ``fused_step_fwd``) for these MLP widths at batch B, on a card
     that holds ``max_clusters`` clusters at once; None when no tile fits in
@@ -901,14 +980,15 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
     sums (0 for the forward); ``scratch``: floats of device scratch (with
     ``groups`` G > 1 MM groups, the backward's gradient wrt the pre-MM
     outputs besides). ``components``: K of a mixture dynamics head, 0 for a
-    diagonal one; ``options``: the models' ``walk_options``."""
+    diagonal one; ``options``: the models' ``walk_options``; ``lim``: the
+    instance of the kernels."""
     pol_dims, dyn_dims = tuple(pol_dims), tuple(dyn_dims)
     per = _r4(_cdiv(B, max_clusters))
     for resident in (1, 0):
         fit = next((tr for tr in range(MAX_TILE_ROWS, 0, -ROW_GROUP)
                     if 4 * step_layout(pol_dims, dyn_dims, tr, resident,
-                                       backward, components,
-                                       options)[0] <= SMEM_MAX),
+                                       backward, components, options,
+                                       lim)[0] <= lim.smem_max),
                    None)
         if fit is None:
             continue
@@ -916,12 +996,12 @@ def step_plan(pol_dims, dyn_dims, D, B, backward,
         tiles = _cdiv(B, tr)
         clusters = min(tiles, max_clusters)
         floats, dw, flat = step_layout(pol_dims, dyn_dims, tr, resident,
-                                       backward, components, options)
+                                       backward, components, options, lim)
         sum_blocks = _cdiv(B, SUM_THREADS) if backward else 0
         return StepPlan(CLUSTER, clusters, tr, tiles, THREADS, resident,
                         4 * floats, sum_blocks,
                         _step_scratch(clusters, sum_blocks, resident,
-                                      backward, dw, flat, B, D, groups))
+                                      backward, dw, flat, B, D, groups, lim))
     return None
 
 
@@ -949,39 +1029,60 @@ class _MlpArgs(ctypes.Structure):
                 ('b', ctypes.c_void_p * _ML), ('m', ctypes.c_void_p * _ML)]
 
 
+def _step_fields(lim):
+    """The fields of ``StepArgs`` of the instance ``lim``: the wide one
+    points at the policy's squash, the tip and its target in device
+    memory."""
+    if lim.wide:
+        squash = [(n, ctypes.c_void_p) for n in ('act_scale', 'act_bias',
+                                                  'tip', 'target')]
+    else:
+        squash = [('act_scale', ctypes.c_float * lim.U),
+                  ('act_bias', ctypes.c_float * lim.U),
+                  ('tip', ctypes.c_float * (lim.tip * lim.D)),
+                  ('target', ctypes.c_float * lim.tip)]
+    return ([(n, ctypes.c_int) for n in ('B', 'D', 'U', 'ntip', 'reward_kind',
+                                         'K')]
+            + [('pol', _MlpArgs), ('dyn', _MlpArgs)]
+            + [(n, ctypes.c_void_p) for n in (
+                'states', 'eps', 'z_pol', 'z_dyn', 'mx', 'isx', 'my', 'sy',
+                'z_mm', 'z_rr', 'z_pi', 'u_cat')]
+            + [('pol_upper', ctypes.c_float), ('dyn_upper', ctypes.c_float)]
+            + squash
+            + [('norm', ctypes.c_float), ('q_scale', ctypes.c_float),
+               ('r_scale', ctypes.c_float),
+               ('m_in', ctypes.c_void_p * 2),
+               ('out_act', ctypes.c_int * 2),
+               ('in_map', (ctypes.c_byte * lim.x) * 2),
+               ('pol_head', ctypes.c_int)]
+            + [(n, ctypes.c_float) for n in ('head_scale', 'head_bias',
+                                              'head_temp')]
+            + [('u_pol', ctypes.c_void_p)])
+
+
 class _StepArgs(ctypes.Structure):
-    """Mirror of ``StepArgs`` in ``csrc/rollout_step.cuh``."""
-    _fields_ = ([(n, ctypes.c_int) for n in ('B', 'D', 'U', 'ntip',
-                                              'reward_kind', 'K')]
-                + [('pol', _MlpArgs), ('dyn', _MlpArgs)]
-                + [(n, ctypes.c_void_p) for n in (
-                    'states', 'eps', 'z_pol', 'z_dyn', 'mx', 'isx', 'my',
-                    'sy', 'z_mm', 'z_rr', 'z_pi', 'u_cat')]
-                + [('pol_upper', ctypes.c_float),
-                   ('dyn_upper', ctypes.c_float),
-                   ('act_scale', ctypes.c_float * MAX_U),
-                   ('act_bias', ctypes.c_float * MAX_U),
-                   ('tip', ctypes.c_float * (MAX_TIP * MAX_D)),
-                   ('target', ctypes.c_float * MAX_TIP),
-                   ('norm', ctypes.c_float), ('q_scale', ctypes.c_float),
-                   ('r_scale', ctypes.c_float),
-                   ('m_in', ctypes.c_void_p * 2),
-                   ('out_act', ctypes.c_int * 2),
-                   ('in_map', (ctypes.c_byte * MAX_X) * 2),
-                   ('pol_head', ctypes.c_int)]
-                + [(n, ctypes.c_float) for n in ('head_scale', 'head_bias',
-                                                  'head_temp')]
-                + [('u_pol', ctypes.c_void_p)])
+    """Mirror of ``StepArgs`` in ``csrc/rollout_step.cuh`` (the narrow
+    instance's)."""
+    _fields_ = _step_fields(NARROW)
 
 
-def _lib():
-    lib = build.load('fused_step')
+class _StepArgsWide(ctypes.Structure):
+    """Mirror of the wide instance's ``StepArgs``."""
+    _fields_ = _step_fields(WIDE)
+
+
+def _args_type(lim):
+    return _StepArgsWide if lim.wide else _StepArgs
+
+
+def _lib(lim=NARROW):
+    lib = build.load(lim.step_lib)
     if not getattr(lib, 'typed', False):
         i, p = ctypes.c_int, ctypes.c_void_p
         pp = ctypes.POINTER(ctypes.c_void_p)
         lib.fused_step_args_size.argtypes = []
         lib.fused_step_args_size.restype = i
-        if lib.fused_step_args_size() != ctypes.sizeof(_StepArgs):
+        if lib.fused_step_args_size() != ctypes.sizeof(_args_type(lim)):
             raise RuntimeError('csrc/fused_step.cu StepArgs and its ctypes '
                                'mirror differ in size')
         ip = ctypes.POINTER(i)
@@ -1013,11 +1114,11 @@ class _RollArgs(ctypes.Structure):
                 + [('critic', ctypes.c_void_p)])
 
 
-def _rollout_lib():
-    lib = build.load('fused_rollout')
+def _rollout_lib(lim=NARROW):
+    lib = build.load(lim.rollout_lib)
     if not getattr(lib, 'typed', False):
         i, p = ctypes.c_int, ctypes.c_void_p
-        for fn, mirror in (('fused_rollout_args_size', _StepArgs),
+        for fn, mirror in (('fused_rollout_args_size', _args_type(lim)),
                            ('fused_rollout_roll_size', _RollArgs)):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
@@ -1037,12 +1138,14 @@ def _rollout_lib():
     return lib
 
 
-def _check(lib, name, rc, error=None):
-    """Raise on a failed launch; count a launched one."""
+def _check(lib, name, rc, error=None, lim=NARROW):
+    """Raise on a failed launch; count a launched one (the wide instance's
+    in ``LAUNCHES_WIDE``)."""
+    counted = name + '_wide' if lim.wide else name
     if rc != 0:
         error = getattr(lib, error or name.rsplit('_', 1)[0] + '_error')
-        raise RuntimeError(f'{name} failed: {rc} ({error(rc).decode()})')
-    LAUNCHES[name] += 1
+        raise RuntimeError(f'{counted} failed: {rc} ({error(rc).decode()})')
+    (LAUNCHES_WIDE if lim.wide else LAUNCHES)[counted] += 1
 
 
 def _ptr(t):
@@ -1088,14 +1191,15 @@ def _masks(spec, params, noise, B):
     return out
 
 
-def _clusters_held(lib, query, error, device_index):
+def _clusters_held(lib, query, error, device_index, lim=NARROW):
     """``lib.query``: how many clusters of a kernel's instances the card
-    holds at once with ``THREADS`` threads and ``SMEM_MAX`` bytes of shared
-    memory per CTA (``cudaOccupancyMaxActiveClusters``; no plan asks for
-    more shared memory, so at least as many of any plan fit)."""
+    holds at once with ``THREADS`` threads and the instance's ``smem_max``
+    bytes of shared memory per CTA (``cudaOccupancyMaxActiveClusters``; no
+    plan asks for more shared memory, so at least as many of any plan
+    fit)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = getattr(lib, query)(THREADS, SMEM_MAX, ctypes.byref(n))
+        rc = getattr(lib, query)(THREADS, lim.smem_max, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f'{query} failed: {rc} '
                            f'({getattr(lib, error)(rc).decode()})')
@@ -1103,12 +1207,12 @@ def _clusters_held(lib, query, error, device_index):
 
 
 @functools.lru_cache(maxsize=None)
-def step_max_clusters(device_index):
-    """Clusters of the step kernels the card holds at once, queried once per
-    card (``_clusters_held``). A plan may launch more: the clusters run in
-    turns."""
-    return _clusters_held(_lib(), 'fused_step_max_clusters',
-                          'fused_step_error', device_index)
+def step_max_clusters(device_index, lim=NARROW):
+    """Clusters of the step kernels (the instance ``lim``) the card holds at
+    once, queried once per card (``_clusters_held``). A plan may launch
+    more: the clusters run in turns."""
+    return _clusters_held(_lib(lim), 'fused_step_max_clusters',
+                          'fused_step_error', device_index, lim)
 
 
 class StepKernel:
@@ -1119,7 +1223,10 @@ class StepKernel:
     counters are made at the first launch and kept for every later one (a
     CUDA graph replays them; each launch leaves the counters zero).
     ``__call__`` is the differentiable step. With ``mm_groups`` G > 1 the
-    resamples are per group of B / G contiguous rows."""
+    resamples are per group of B / G contiguous rows. ``lim``: the instance
+    of the kernels that takes the models (``kernel_instance``); the wide
+    one's block points at a small tensor of the policy's squash, the tip
+    and its target (``squash``)."""
 
     def __init__(self, dyn, pol, mm_states, mm_rewards, pol_params,
                  dyn_params, dyn_stats, dyn_noise, pol_noise, B, device,
@@ -1128,6 +1235,7 @@ class StepKernel:
         if why is not None:
             raise ValueError(f'the step kernels do not take these models: '
                              f'{why}')
+        self.lim = kernel_instance(dyn, pol)
         self.G = _groups(mm_groups, B)
         self.mm_states, self.mm_rewards = bool(mm_states), bool(mm_rewards)
         reg = dyn.regressor
@@ -1137,7 +1245,7 @@ class StepKernel:
         self.dims = (_mlp_dims(pol.mlp), _mlp_dims(reg.mlp))
         self.K = head_components(dyn)
         self._work = None
-        a = self.args = _StepArgs()
+        a = self.args = _args_type(self.lim)()
         a.B, a.D, a.U = B, D, U
         keep = []  # the tensors whose pointers the argument block holds
 
@@ -1216,21 +1324,35 @@ class StepKernel:
         a.pol_upper = math.log(getattr(head, 'max_noise_std', 1.0))
         a.dyn_upper = math.log(reg.output_density.max_noise_std)
         scale, bias = pol.scale, pol.bias
-        for k in range(U):
-            a.act_scale[k] = scale[k if len(scale) > 1 else 0]
-            a.act_bias[k] = bias[k if len(bias) > 1 else 0]
+        act_scale = [scale[k if len(scale) > 1 else 0] for k in range(U)]
+        act_bias = [bias[k if len(bias) > 1 else 0] for k in range(U)]
         rf = dyn.reward_func
         a.reward_kind = reward_kind(rf)
+        tip, target = [], []
         if a.reward_kind in (LANDER_KIND, LEARNED_KIND):
             # no tip: ntip 0, norm 1, scales 0
             a.ntip, a.norm = 0, 1.0
         else:
             a.ntip = len(rf.tip_matrix)
-            for j, row in enumerate(rf.tip_matrix):
-                a.target[j] = rf.target_tip[j]
-                for k, v in enumerate(row):
-                    a.tip[j * D + k] = v
+            target = [rf.target_tip[j] for j in range(a.ntip)]
+            tip = [v for row in rf.tip_matrix for v in row]
             a.norm, a.q_scale, a.r_scale = rf.norm, rf.q_scale, rf.r_scale
+        if self.lim.wide:
+            # [act_scale U, act_bias U, target ntip, tip ntip x D]
+            self.squash = torch.tensor(act_scale + act_bias + target + tip,
+                                       dtype=torch.float32, device=device)
+            keep.append(self.squash)
+            p, f = self.squash.data_ptr(), 4
+            a.act_scale, a.act_bias = p, p + f * U
+            a.target = p + f * 2 * U if a.ntip else None
+            a.tip = p + f * (2 * U + a.ntip) if a.ntip else None
+        else:
+            for k in range(U):
+                a.act_scale[k], a.act_bias[k] = act_scale[k], act_bias[k]
+            for j, v in enumerate(target):
+                a.target[j] = v
+            for i, v in enumerate(tip):
+                a.tip[i] = v
         self._keep = keep
 
     def grad_inputs(self):
@@ -1268,9 +1390,9 @@ class StepKernel:
 
     def plans(self):
         """(forward plan, backward plan) on this card (``step_plan``)."""
-        clusters = step_max_clusters(_device_index(self.device))
+        clusters = step_max_clusters(_device_index(self.device), self.lim)
         return tuple(step_plan(*self.dims, self.D, self.B, bwd, clusters,
-                               self.G, self.K, self.options)
+                               self.G, self.K, self.options, self.lim)
                      for bwd in (False, True))
 
     def _workspace(self):
@@ -1310,7 +1432,7 @@ class StepKernel:
         """Launch the forward: (nxt, r, nxt_raw, r_raw, stats); the last
         three are the backward's residuals (stats: the (m, sd, L) of each
         resample of each group, [G, 2, kStat])."""
-        lib = _lib()
+        lib = _lib(self.lim)
         B, D = self.B, self.D
         plan, _, scratch, tickets = self._workspace()
         self._set(states, eps, z_mm, z_rr)
@@ -1318,7 +1440,7 @@ class StepKernel:
         r_raw = torch.empty((B, 1), device=self.device)
         nxt = torch.empty_like(nxt_raw) if self.mm_states else nxt_raw
         r = torch.empty_like(r_raw) if self.mm_rewards else r_raw
-        stats = torch.empty((self.G, 2, _STAT), device=self.device)
+        stats = torch.empty((self.G, 2, self.lim.stat), device=self.device)
         with torch.cuda.device(self.device):
             rc = lib.fused_step_fwd(
                 ctypes.byref(self.args), plan, self.mm_states,
@@ -1326,13 +1448,13 @@ class StepKernel:
                 nxt.data_ptr(), r.data_ptr(), stats.data_ptr(),
                 scratch.data_ptr(), tickets.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
-        _check(lib, 'fused_step_fwd', rc)
+        _check(lib, 'fused_step_fwd', rc, lim=self.lim)
         return nxt, r, nxt_raw, r_raw, stats
 
     def backward(self, states, eps, z_mm, z_rr, nxt_raw, r_raw, stats, g_nxt,
                  g_r, want_eps):
         """Launch the backward: (g_states, g_eps or None, dws, dbs)."""
-        lib = _lib()
+        lib = _lib(self.lim)
         B, D, U = self.B, self.D, self.U
         _, plan, scratch, tickets = self._workspace()
         self._set(states, eps, z_mm, z_rr)
@@ -1354,7 +1476,7 @@ class StepKernel:
                 g_states.data_ptr(), _ptr(g_eps), fm._ptrs(dws),
                 fm._ptrs(dbs), scratch.data_ptr(), tickets.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
-        _check(lib, 'fused_step_bwd', rc)
+        _check(lib, 'fused_step_bwd', rc, lim=self.lim)
         return g_states, g_eps, dws, dbs
 
     def __call__(self, states, eps, z_mm, z_rr):
@@ -1482,12 +1604,12 @@ def make_stepwise_value_and_grad(dyn, pol, steps, w_t, mm_states,
 
 
 @functools.lru_cache(maxsize=None)
-def max_clusters(device_index):
-    """Clusters of the whole-rollout kernel the card holds at once, queried
-    once per card (``_clusters_held``): its cooperative launch needs all of
-    a plan's clusters resident."""
-    return _clusters_held(_rollout_lib(), 'fused_rollout_max_clusters',
-                          'fused_rollout_error', device_index)
+def max_clusters(device_index, lim=NARROW):
+    """Clusters of the whole-rollout kernel (the instance ``lim``) the card
+    holds at once, queried once per card (``_clusters_held``): its
+    cooperative launch needs all of a plan's clusters resident."""
+    return _clusters_held(_rollout_lib(lim), 'fused_rollout_max_clusters',
+                          'fused_rollout_error', device_index, lim)
 
 
 def _device_index(device):
@@ -1499,14 +1621,17 @@ def _device_index(device):
 def rollout_capacity(dyn, pol, device, value_spec=None):
     """How many particles the whole-rollout kernel takes on the card of
     ``device`` for these models' widths (and those of the critic it refits,
-    ``value_spec``): ``max_particles`` with the clusters the card holds at
-    once (``max_clusters``). Its cooperative launch needs every cluster of
-    the plan resident at once."""
+    ``value_spec``): ``max_particles`` of the instance that takes the models
+    (``kernel_instance``) with the clusters the card holds at once
+    (``max_clusters``). Its cooperative launch needs every cluster of the
+    plan resident at once."""
+    lim = kernel_instance(dyn, pol) or NARROW
     return max_particles(_mlp_dims(pol.mlp), _mlp_dims(dyn.regressor.mlp),
-                         dyn.state_dims, max_clusters(_device_index(device)),
+                         dyn.state_dims,
+                         max_clusters(_device_index(device), lim),
                          None if value_spec is None
                          else cr.critic_dims(value_spec),
-                         head_components(dyn), walk_options(dyn, pol))
+                         head_components(dyn), walk_options(dyn, pol), lim)
 
 
 class RolloutKernel:
@@ -1527,6 +1652,9 @@ class RolloutKernel:
         if why is not None:
             raise ValueError(f'the rollout kernels do not take these models: '
                              f'{why}')
+        self.lim = lim = kernel_instance(dyn, pol)
+        if lim.wide and value_update is not None:
+            raise ValueError(WIDE_CRITIC)
         self.dyn, self.pol, self.T, self.B, self.device = (dyn, pol, steps, B,
                                                            device)
         self.G = _groups(mm_groups, B)
@@ -1545,12 +1673,12 @@ class RolloutKernel:
             self._vw = torch.tensor(
                 np.asarray(_value_weights(value_update, steps), np.float32),
                 device=device)
-        clusters = max_clusters(_device_index(device))
+        clusters = max_clusters(_device_index(device), lim)
         self.plan = rollout_plan(_mlp_dims(pol.mlp),
                                  _mlp_dims(dyn.regressor.mlp), self.D, B,
                                  steps, clusters, critic_dims, self.G,
                                  head_components(dyn),
-                                 walk_options(dyn, pol))
+                                 walk_options(dyn, pol), lim)
         if self.plan is None:
             capacity = rollout_capacity(dyn, pol, device, None if self.critic
                                         is None else value_update.spec)
@@ -1583,7 +1711,7 @@ class RolloutKernel:
     def _residuals(self):
         T, B, D = self.T, self.B, self.D
         return (self._empty(T + 1, B, D), self._empty(T, B, D),
-                self._empty(T, B), self._empty(T, self.G, 2, _STAT))
+                self._empty(T, B), self._empty(T, self.G, 2, self.lim.stat))
 
     def bind(self, pol_params, x0, dyn_params, dyn_stats, dyn_noise,
              pol_noise, z_mm_t, z_rr_t, action_eps):
@@ -1642,12 +1770,12 @@ class RolloutKernel:
         for i in range(_ML):
             a.dw[i] = _ptr(dws[i]) if i < len(dws) else None
             a.db[i] = _ptr(dbs[i]) if i < len(dbs) else None
-        lib = _rollout_lib()
+        lib = _rollout_lib(self.lim)
         with torch.cuda.device(self.device):
             rc = getattr(lib, name)(ctypes.byref(sk.args), ctypes.byref(a),
                                     self._plan,
                                     torch.cuda.current_stream().cuda_stream)
-        _check(lib, name, rc, 'fused_rollout_error')
+        _check(lib, name, rc, 'fused_rollout_error', self.lim)
 
     def forward(self, sk, cb=None):
         """Row 3: (loss, mean_return, residuals for ``backward``); with the

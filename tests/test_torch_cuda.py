@@ -35,7 +35,11 @@ nonlinearities, angle embedding inside the models) and ``mc_pilco`` with all
 three on the whole-rollout tier; rows 3-9 with the TanhSquashedDensity and
 CategoricalDensity policy heads (their bits, and ``mc_pilco`` with each on
 the whole-rollout tier), and rows 3-5 with the critic's options in the
-refit, spectral norm among them (``mc_pilco`` with them at B = 1000).
+refit, spectral norm among them (``mc_pilco`` with them at B = 1000);
+the wide instance of rows 3-9 (D <= 16, U <= 8, a tip of up to 16 rows) at
+the JAX benchmark's shapes and at D = 16, U = 8, grouped, against the
+narrow instance on rendezvous's inputs, its bits, and ``mc_pilco`` on the
+benchmark at D = 16 on its whole-rollout tier.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -1681,3 +1685,71 @@ def test_mc_pilco_with_the_critics_options_takes_the_full_tier(cuda):
                            before)
     assert not torch.equal(state['params']['mlp']['linear_out']['sn_scale'],
                            scale)
+
+
+@pytest.mark.parametrize('env', list(cs.WIDE_ENVS))
+def test_wide_step_rollout_and_grid_kernels_match_the_plain_version(cuda,
+                                                                    env):
+    """The wide instance (D <= 16, U <= 8, a tip of up to 16 rows) at
+    ``chip_smoke.WIDE_ENVS``' shapes, the JAX benchmark's (D = 5, U = 1, a
+    tip of 5 rows) and D = 16, U = 8: rows 6-7 and 3-5 at B = 100 and rows
+    8-9 at B = 1000 against their plain versions, with ``chip_smoke``'s
+    tolerances."""
+    dyn, pol, _, _ = cs.env_models(env)
+    assert fr.kernel_instance(dyn, pol) is fr.WIDE
+    cs.check_step(100, env, 'card test')
+    cs.check_rollout(100, False, env, 'card test')
+    cs.check_grid(1000, True, env, 'card test')
+
+
+def test_wide_grouped_kernels_match_the_plain_version(cuda):
+    """Grouped MM in the wide instance at D = 16 (``chip_smoke.
+    WIDE_GROUPS``: groups of 50 at B = 100, of 100 at B = 1000), rows 3-9
+    against the plain version in float64."""
+    g_main, g_grid = cs.WIDE_GROUPS
+    cs.check_step(100, 'Bench16', 'card test', groups=g_main)
+    cs.check_rollout(100, False, 'Bench16', 'card test', groups=g_main)
+    cs.check_grid(1000, True, 'Bench16', 'card test', groups=g_grid)
+
+
+def test_the_wide_instance_matches_the_narrow_one_on_its_inputs(cuda):
+    """Rows 3-9 of the wide instance on rendezvous's D = 8, U = 4 inputs
+    against the narrow instance's outputs (``chip_smoke.
+    wide_against_narrow``), every wide kernel launched."""
+    cs.wide_against_narrow('Rendezvous', 'card test')
+
+
+def test_wide_kernels_repeat_their_bits(cuda):
+    """Row 5 and rows 6-7 of the wide instance at D = 16 give the same bits
+    launch after launch (the warp's factor and adjoint included)."""
+    _, kvg, _, pp, _, args, _ = cs.rollout_problem(100, 3, False,
+                                                   env='Bench16')
+    a, b = kvg(pp, *args), kvg(pp, *args)
+    step, _, leaves, states, eps, cot, _ = cs.step_problem(100, 5, 'Bench16')
+    sa = cs.step_outputs(step, leaves, states, eps, cot)
+    sb = cs.step_outputs(step, leaves, states, eps, cot)
+    torch.cuda.synchronize()
+    for u, v in zip([a[0], a[1], *tree_leaves(a[2]), *sa],
+                    [b[0], b[1], *tree_leaves(b[2]), *sb]):
+        assert torch.equal(u, v)
+
+
+def test_mc_pilco_on_the_benchmark_takes_the_wide_full_tier(cuda):
+    """``mc_pilco`` on the JAX benchmark's workload at D = 16, U = 8: the
+    gate names ``'full'`` in the wide instance, one ``fused_rollout_vg``
+    launch of it an iteration and nothing else."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import mc_pilco
+    setup = cs.wide_setup()
+    dyn, pol, dyn_params, pol_params, dyn_stats, pool, init = setup
+    assert fr.kernel_instance(dyn, pol) is fr.WIDE
+    cfg = cs.MCPILCOConfig(n_particles=100, steps=15, mm_states=True,
+                           mm_rewards=True)
+    assert fr.fused_mode(cfg, dyn, pol, device='cuda') == 'full'
+    cs.reset_counts()
+    _, _, metrics, _ = mc_pilco(pool, dyn, pol, 15, dyn_params, dyn_stats,
+                                pol_params, opt_iters=3, mm_states=True,
+                                mm_rewards=True, init_state_noise=init,
+                                n_particles=100, seed=1, chunk=1)
+    torch.cuda.synchronize()
+    assert cs.counts() == cs.expect(fused_rollout_vg_wide=3)
+    assert np.all(np.isfinite(metrics['loss']))

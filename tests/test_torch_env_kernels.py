@@ -227,9 +227,10 @@ def test_kernel_refuses_any_other_reward_with_its_reason():
     assert tfr.reward_kind(None) == 3
     assert 'MLP dims' in with_reward(None)
 
-    # S must be [<= MAX_TIP, D]: too many rows, or rows of the wrong width
+    # S must be [<= 16, D] (the wide instance's limit): too many rows, or
+    # rows of the wrong width
     S = tenvs.RendezvousReward().tip_matrix
-    Wide = tenvs.RendezvousReward(tip_matrix=S + ((0.0,) * 8,))
+    Wide = tenvs.RendezvousReward(tip_matrix=S + ((0.0,) * 8,) * 13)
     Short = tenvs.RendezvousReward(tip_matrix=tuple(row[:6] for row in S))
     for rf in (Wide, Short):
         assert 'tip_matrix must be' in with_reward(rf)

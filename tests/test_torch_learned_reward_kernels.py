@@ -338,10 +338,13 @@ def test_the_plans_count_the_wider_head():
 
 
 def test_kernel_refuses_a_learned_reward_beyond_its_shapes():
-    """D > 8 (a head of 20) and a head that is not 2 (D + 1) are refused;
-    the learned reward itself is not."""
+    """D > 16 (a head of 36, beyond the wide instance) and a head that is
+    not 2 (D + 1) are refused; the learned reward itself is not, and D = 9
+    takes the wide instance."""
+    dyn, pol = _specs(tm, 17, 1, 1.0)
+    assert 'D <= 16' in tfr.kernel_refuses(dyn, pol)
     dyn, pol = _specs(tm, 9, 1, 1.0)
-    assert 'D <= 8' in tfr.kernel_refuses(dyn, pol)
+    assert tfr.kernel_instance(dyn, pol) is tfr.WIDE
     dyn, pol = _specs(tm, 5, 1, 10.0)
     assert tfr.kernel_refuses(dyn, pol) is None
     reg = dyn.regressor
