@@ -117,6 +117,14 @@ Phases (any failure exits non-zero and prints no result line):
      outputs; each wide row's time, plain time and bound beside the narrow
      instance's at D = 8, and row 5's time split at D = 8 in both instances
      and at D = 16 (the moment-matching parts a step).
+  2cw. rows 3-5 of the wide instance with phase 2c's critic refit in the
+     launch (``csrc/fused_rollout_critic_*_wide.cu``): the JAX benchmark's
+     value variant (bench.py ``mc_pilco_none_B100_value``: D = 5, U = 1, a
+     tip of 5 rows, B = 100, no MM) and B = 1000 with MM, the same at
+     D = 16, U = 8, and there grouped in groups of 50, held as phase 2c
+     holds them (grouped against float64); each case's rows timed beside
+     the same rows without a critic and phase 2c's narrow rows with it, and
+     the critic's part of row 5's own time split.
   3. the route of ``fused_rollout=False``: ``mc_pilco`` with B = 100
      particles, horizon 15, moment matching of states and rewards, on
      dynamics and policy MLPs of [200, 200], every MLP call through the
@@ -174,6 +182,15 @@ Phases (any failure exits non-zero and prints no result line):
      (the gate's ``'full'``, one ``fused_rollout_vg`` an iteration, v_loss
      falling, the tiers' ms, one iteration of each against the plain
      path).
+  7w. the value path on the JAX benchmark's value variant at full width
+     (D = 5, U = 1, B = 100, T = 15, no MM, the with-value driver's critic,
+     H = 15): the gate names ``'full'`` in the wide instance, 20 iterations
+     with one ``fused_rollout_vg`` launch of its critic instance each and
+     nothing else, v_loss falling, the ms an iteration on that tier and
+     forced to ``'grid'`` in turns, one iteration of each tier against the
+     plain path (the refit critic's params by the lr rule); then 3
+     iterations of ``MCPILCO.loss`` + autograd with the critic (rows 3-4's
+     critic instances, for the ``kernels`` line).
   5w. ``mc_pilco`` on the JAX benchmark's workload at D = 16, U = 8, where
      the gate names ``'full'`` in the wide instance: 30 iterations with one
      ``fused_rollout_vg`` (wide) launch each and nothing else; 3 more held
@@ -185,28 +202,28 @@ Phases (any failure exits non-zero and prints no result line):
      port's parser with the entry point's settings) on Cartpole into a
      temporary folder under ``build/``, at full width (dynamics and policy
      [200, 200], fit batch 100, 100 particles, horizon 15, 40 control
-     steps) with three cuts: 2 episodes instead of 100, 1000 fit steps
+     steps) with three cuts: 2 episodes instead of 100, 500 fit steps
      instead of 2000 and 200 policy iterations an episode instead of 1000.
      Per episode: E_lml (and
      its first- and last-50 means, the last above the first), imagined and
      real return, ms per fit step and per policy iteration; every value
-     finite; launch counts exactly fused-MLP forward 2*(1000 + 40) (a fit
-     step and a control step each launch one), backward 2*1000 and
+     finite; launch counts exactly fused-MLP forward 2*(500 + 40) (a fit
+     step and a control step each launch one), backward 2*500 and
      ``fused_rollout_vg`` 2*200, nothing else; the tier the gate names for
      the driver's configuration (``'full'``); from the checkpoint, one fit
      step through the kernels against the plain path on the same minibatch
      and noise (loss and every grad, logit_p's among them) and the fit's
      device-busy share over 50 steps under torch.profiler.
   9. the envs: one episode of phase 8's driver, widths and cuts, the fit
-     cut further to 300 steps (200 policy iterations, 40 control steps,
+     cut further to 150 steps (100 policy iterations, 40 control steps,
      seed 1) on each of
      Pendulum, DoubleCartpole, CartAcrobot, Rendezvous and LunarLander
      (``-e``; the class ``make('LunarLander')`` gives is printed: the
      differentiable lander without Box2D, as the JAX registry has it, else
      the Box2D one): every value finite, E_lml rising within the fit, the
      gate's tier ``'full'`` and launch counts exactly fused-MLP forward
-     1000 + the control steps taken (40, or fewer where the lander's
-     episode ends), backward 1000 and ``fused_rollout_vg`` 200 (on the
+     150 + the control steps taken (40, or fewer where the lander's
+     episode ends), backward 150 and ``fused_rollout_vg`` 100 (on the
      Box2D lander, which has no reward function, the driver learns the
      reward, which row 5 takes as reward kind 3); from the checkpoint one
      fit step (loss and every grad within 1e-4 of its max|plain|) and one
@@ -230,7 +247,7 @@ Phases (any failure exits non-zero and prints no result line):
   10. the with-value driver: one ``deep_pilco_no_mm_with_value`` episode
      with phase 8's widths and cuts (no moment matching, the [200, 200] MSE
      critic refit every policy iteration): launches exact (fused-MLP forward
-     1000 + 40, backward 1000, ``fused_rollout_vg`` 200 with the refit in
+     500 + 40, backward 500, ``fused_rollout_vg`` 200 with the refit in
      each, nothing else), every value finite (v_loss too), E_lml rising, one
      fit step held against the plain path; v_loss over the episode and the
      ms a fit step and a policy iteration.
@@ -252,8 +269,8 @@ Phases (any failure exits non-zero and prints no result line):
      launches and all-reduces exact, losses against phase 3's); 11d the step
      tier on each rank at twice phase 4g's batch (10 iterations, step
      launches exact); 11e one ``deep_pilco_mm --n_devices 2 --dist_backend
-     gloo --mm_groups 10`` episode at phase 8's widths, the fit cut to 200
-     steps and the policy to 100 iterations (launches exact on each rank,
+     gloo --mm_groups 10`` episode at phase 8's widths, the fit cut to 100
+     steps and the policy to 50 iterations (launches exact on each rank,
      E_lml rising, one results folder, written by rank 0 alone). Ranks that
      share a card measure no multi-card speed, and NCCL is not run.
   12. model-based DDPG at the MBDDPG driver's widths (Cartpole, D = 5,
@@ -266,21 +283,21 @@ Phases (any failure exits non-zero and prints no result line):
      busy share over 3 iterations under torch.profiler);
      ``rollout_with_Qvalues`` (3 T + 2 forward launches) held the same way;
      then one episode of ``examples/mbddpg.py --ps_iters 1 --n_rnd_epi 2``
-     cut to 1000 fit steps and 40 DDPG iterations (40 control
+     cut to 500 fit steps and 20 DDPG iterations (40 control
      steps), launches exact.
   13. the conditional density networks: ``train_model`` (5 steps, batch
      100) of ``density_network_mlp`` and ``mixture_density_network_mlp`` at
      relu [200, 200] on each BNN regression dataset, one fused-MLP forward
      and backward a step, held against the unfused MLP; then the
-     ``bnn_regression`` and ``bnn_regression_2d`` drivers at 400 steps a
+     ``bnn_regression`` and ``bnn_regression_2d`` drivers at 200 steps a
      model: their hhSinLU MLPs stay off the kernel (no launch), NLL finite,
      ms a step.
   14. the sequence-model driver, ensembles and the optimisers, on rows 1-2:
      14b one episode of ``transformer_models.main`` (``TM_ARGV``; Cartpole,
      a transformer of 64 wide, 4 layers of 4 heads, the [64, 64]
-     Bernoulli-dropout policy; 200 dynamics, 200 flow and 40 policy steps
-     of 25 x0s and T = 16, 40 control steps): launches exactly 40 x 16 + the
-     control steps forward and 40 x 16 backward, values
+     Bernoulli-dropout policy; 100 dynamics, 200 flow and 20 policy steps
+     of 25 x0s and T = 16, 40 control steps): launches exactly 20 x 16 + the
+     control steps forward and 20 x 16 backward, values
      finite, E_lml rising, ms a dyn, flow and pol step; then 14a on its
      trained models one ``pol_step`` with exactly 16 fused-MLP forward and
      16 backward launches, held against the unfused policy on the same
@@ -300,8 +317,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; rows 6-7 phase 4,
-row 5 phase 5, rows 3-4 phase 6, rows 8-9 phase 7's fixed critic), with
-every count set to 0 just before the run.
+row 5 phase 5, rows 3-4 phase 6, rows 8-9 phase 7's fixed critic; the wide
+instance's phase 5w, its critic instances phase 7w), with every count set
+to 0 just before the run.
 
 ``tools/profile_torch_main_path.py`` breaks a main-path iteration down
 (host split and a torch.profiler trace) on the same setup.
@@ -415,7 +433,7 @@ SEED = 1
 # iterations from 1000 to 200
 EPISODES = 2
 EPISODE_POL_ITERS = 200
-FIT_ITERS = 1000
+FIT_ITERS = 500
 CONTROL_H = 40
 EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
                 '--pol_opt_iters', str(EPISODE_POL_ITERS),
@@ -426,8 +444,10 @@ EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
 BUSY_STEPS = 50  # fit steps under torch.profiler
 # phase 9: one episode of the same driver and cuts on each of these envs, then
 # one on Cartpole with --learn_reward (the rollout kernels' reward kind 3),
-# each fit cut further to ENV_FIT_ITERS steps
-ENV_FIT_ITERS = 300
+# each fit cut further to ENV_FIT_ITERS steps and its policy to ENV_POL_ITERS
+# iterations
+ENV_FIT_ITERS = 150
+ENV_POL_ITERS = 100
 ENV_EPISODE_ENVS = ('Pendulum', 'DoubleCartpole', 'CartAcrobot', 'Rendezvous',
                     'LunarLander')
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL *
@@ -483,6 +503,17 @@ WIDE_ITERS = 30
 WIDE_ROUTE_ITERS = 3
 WIDE_LOOP_ITERS = 5
 WIDE_LR = 1e-3  # mc_pilco's Adam
+# phase 2cw: rows 3-5 of the wide instance with the critic refit, (env, B,
+# MM, groups): the JAX benchmark's value variant (bench.py
+# mc_pilco_none_B100_value: D = 5, B = 100, no MM) and phase 7's B = 1000
+# with MM, the same at D = 16, U = 8, and there grouped in groups of 50
+WIDE_CRITIC_CASES = (('Bench5', MAIN_B, False, None),
+                     ('Bench5', GRID_B, True, None),
+                     ('Bench16', MAIN_B, False, None),
+                     ('Bench16', GRID_B, True, None),
+                     ('Bench16', MAIN_B, True, WIDE_GROUPS[0]))
+WIDE_VALUE_ITERS = 20  # phase 7w: mc_pilco on the benchmark's value variant
+WIDE_VALUE_LOSS_ITERS = 3  # phase 7w: MCPILCO.loss + autograd with the critic
 
 SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_mlp_bwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
@@ -510,7 +541,14 @@ SOURCES = {'fused_mlp_fwd': 'prob_mbrl_tpu_torch/csrc/fused_mlp.cu',
            'fused_grid_fwd_wide':
                'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu',
            'fused_grid_bwd_wide':
-               'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu'}
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_wide.cu',
+           # the wide instance's rows 3-5 with the critic refit (phase 2cw)
+           'fused_rollout_fwd_wide_critic':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_critic_fwd_wide.cu',
+           'fused_rollout_bwd_wide_critic':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_critic_bwd_wide.cu',
+           'fused_rollout_vg_wide_critic':
+               'prob_mbrl_tpu_torch/csrc/fused_rollout_critic_vg_wide.cu'}
 REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
             'fused_mlp_bwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:247',
             'fused_mlp_fwd_bf16': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
@@ -523,7 +561,10 @@ REPLACES = {'fused_mlp_fwd': 'prob_mbrl_tpu/ops/pallas/fused_mlp.py:222',
             'fused_grid_fwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1462',
             'fused_grid_bwd': 'prob_mbrl_tpu/ops/pallas/fused_rollout.py:1542'}
 WIDE_KERNELS = tuple(n for n in SOURCES if n.endswith('_wide'))
+WIDE_CRITIC_KERNELS = tuple(n for n in SOURCES if n.endswith('_wide_critic'))
 REPLACES.update({n: REPLACES[n[:-len('_wide')]] for n in WIDE_KERNELS})
+REPLACES.update({n: REPLACES[n[:-len('_wide_critic')]]
+                 for n in WIDE_CRITIC_KERNELS})
 
 
 def log(*args):
@@ -2076,11 +2117,11 @@ def critic_spec(D, head='mse', hidden=(200, 200), drop='concrete', H=MAIN_T,
 
 def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
                    T=MAIN_T, hidden=(200, 200), drop='concrete', groups=None,
-                   components=0, coptions=()):
+                   components=0, coptions=(), env='Cartpole'):
     """Rows 3-5 with the critic of ``critic_spec`` refit in the launch, on
-    ``rollout_problem``'s inputs (Cartpole's shapes; states and rewards
-    moment-matched with ``mm``, per group of B / groups with ``groups``,
-    else neither), the critic's stats fit to
+    ``rollout_problem``'s inputs (``env``'s shapes, Cartpole's by default;
+    states and rewards moment-matched with ``mm``, per group of B / groups
+    with ``groups``, else neither), the critic's stats fit to
     seeded data and its Adam state fresh: (kernel loss, kernel
     value-and-grad, plain loss, policy params, policy leaves, the arguments
     after the policy params, the critic's extras (params, target, Adam
@@ -2088,7 +2129,7 @@ def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
     critic on the unfused MLP; ``components`` as ``rollout_problem``;
     ``coptions`` the critic's options (``critic_spec``)."""
     _, _, _, pp, leaves, args, (dyn, pol, w_t) = rollout_problem(
-        B, seed, False, T, groups=groups, components=components)
+        B, seed, False, T, env=env, groups=groups, components=components)
     if not mm:
         args = args[:5] + [None, None, args[7]]
     D = args[0].shape[1]
@@ -2105,7 +2146,7 @@ def critic_problem(B, seed, mm=True, head='mse', H=MAIN_T, tau=1.0,
     gen.manual_seed(seed + 50)
     vp = V.init(gen, device='cuda')
     vt = V.init(gen, device='cuda') if tau < 1 else vp
-    vstats = V.fit_stats(t(env_states('Cartpole', rng, 200)),
+    vstats = V.fit_stats(t(env_states(env, rng, 200)),
                          t(rng.randn(200, 1)))
     extras = (vp, vt, update.optimizer.init(vp), vstats,
               V.sample_noise(gen, (B,), device='cuda'))
@@ -2245,7 +2286,8 @@ def hold_refit(what, got, ref, moved, update, first_count):
 
 
 def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
-                 drop='concrete', groups=None, components=0, coptions=()):
+                 drop='concrete', groups=None, components=0, coptions=(),
+                 env='Cartpole'):
     """Rows 3-5 with the critic refit in the launch against the plain
     version at batch B: loss, mean_return, the policy grads and d
     action_eps (``check_rollout``'s tolerances; d action_eps per particle by
@@ -2255,10 +2297,11 @@ def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
     (``float64``; the refit's against the float32 one, whose Adam step
     ``hold_adam`` measures); ``components`` as ``rollout_problem``, a
     mixture head held through ``held_against``; ``coptions`` the critic's
-    options (``critic_spec``). Returns the largest error of each row."""
+    options (``critic_spec``); ``env`` as ``critic_problem``. Returns the
+    largest error of each row."""
     kloss, kvg, plain, pp, leaves, args, extras, (_, _, _, update) = \
         critic_problem(B, B + 11, mm, head, H, tau, drop=drop, groups=groups,
-                       components=components, coptions=coptions)
+                       components=components, coptions=coptions, env=env)
     ref_fn = float64(plain) if groups else plain
     got, gaux = critic_outputs(kloss, pp, leaves, args, extras)
     vl, vm, vgrads, vaux = kvg(pp, *args, extras=extras)
@@ -2290,7 +2333,8 @@ def check_critic(B, mm, head='mse', H=MAIN_T, tau=1.0, tag='phase 2c',
     labels = (['loss', 'mean_return']
               + [f'd pol leaf {i}' for i in range(n)] + ['d eps'])
     names = ['fused_rollout_fwd', 'fused_rollout_bwd', 'fused_rollout_vg']
-    what = (f'critic ({head}, {drop} dropout, H={H}, polyak {tau}) rollout '
+    what = ((f'{env} ' if env != 'Cartpole' else '')
+            + f'critic ({head}, {drop} dropout, H={H}, polyak {tau}) rollout '
             f'B={B} mm {"on" if mm else "off"}'
             + (f' mm_groups={groups}' if groups else '')
             + (f' mixture K={components}' if components else '')
@@ -2356,7 +2400,8 @@ def critic_bytes_flops(B, cdims, D):
             'fused_rollout_vg': (4 * (8 * N + noise + stats + 3), 12 * B * S)}
 
 
-def critic_timings(B, mm, split=False, coptions=()):
+def critic_timings(B, mm, split=False, coptions=(), env='Cartpole',
+                   groups=None):
     """ms of rows 3-5 with the driver's critic refit in the launch (CUDA
     events around launches in a row, as ``rollout_timings``), of the same
     rows without a critic on the same inputs (``bare_ms``; the reward not
@@ -2364,14 +2409,15 @@ def critic_timings(B, mm, split=False, coptions=()):
     forward with its refit; the backward that and ``torch.autograd.grad``
     less it; row 5 the whole graph), at batch B, T = 15; the bound counts
     the rollout's work and the critic's (``critic_bytes_flops``). With
-    ``split`` it logs row 5's own time split; ``coptions`` the critic's
-    options (``critic_spec``)."""
+    ``split`` it logs row 5's own time split and the critic's share of it;
+    ``coptions`` the critic's options (``critic_spec``); ``env`` and
+    ``groups`` as ``critic_problem``."""
     _, _, plain, pp, leaves, args, extras, (dyn, pol, w_t, update) = \
-        critic_problem(B, 7, mm, coptions=coptions)
+        critic_problem(B, 7, mm, coptions=coptions, env=env, groups=groups)
     x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr, eps = args
     w_H = 0.9 ** MAIN_T
     k = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, mm, mm, True, False, B,
-                         x0.device, update, w_H)
+                         x0.device, update, w_H, mm_groups=groups)
     sk = k.bind(pp, x0, dyn_params, stats, dyn_noise, pol_noise, z_mm, z_rr,
                 eps)
     cb = k.bind_critic(extras)
@@ -2379,7 +2425,7 @@ def critic_timings(B, mm, split=False, coptions=()):
     g_loss = torch.ones((), device='cuda')
     g_mret = torch.zeros((), device='cuda')
     bare = fr.RolloutKernel(dyn, pol, MAIN_T, w_t, mm, mm, True, False, B,
-                            x0.device)
+                            x0.device, mm_groups=groups)
     bare_res = bare.forward(sk)[2]
     bare_ms = {
         'fused_rollout_fwd': time_launches(lambda: bare.forward(sk)),
@@ -2414,8 +2460,11 @@ def critic_timings(B, mm, split=False, coptions=()):
         t[name]['bound_ms'], t[name]['bound_by'] = bound(b0 + b1, f0 + f1)
         t[name]['bare_ms'] = bare_ms[name]
     if split:
-        log_split(f'fused_rollout_vg with the critic B={B}',
-                  time_split(k, lambda: k.value_and_grad(sk, cb)))
+        parts = time_split(k, lambda: k.value_and_grad(sk, cb))
+        log_split(f'{env} fused_rollout_vg with the critic B={B}', parts)
+        log(f'[phase 2] {env} fused_rollout_vg with the critic B={B}: the '
+            f'critic\'s part (refit and bootstrap) {parts[-1]:.4f} ms of '
+            f'{sum(parts):.4f} ({100 * parts[-1] / sum(parts):.1f}%)')
     return t
 
 
@@ -2440,6 +2489,53 @@ def phase_critic_kernels():
                 f'ms (graph replay), bound {v["bound_ms"]:.6f} ms '
                 f'({v["bound_by"]}); {card}')
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2cw: rows 3-5 of the wide instance with the critic refit
+# ---------------------------------------------------------------------------
+
+
+def phase_wide_critic_kernels(critic_rows, card):
+    """Phase 2cw: rows 3-5 of the wide instance with the with-value driver's
+    critic (JAX bench.py's value variant's: [200, 200], concrete dropout,
+    MSE, Adam 1e-4, polyak 1, H = 15) refit in the launch, at
+    WIDE_CRITIC_CASES, held against the plain version as phase 2c holds
+    them (``check_critic``; grouped against float64), then each case timed
+    beside the same rows without a critic and phase 2c's narrow rows with
+    the critic (``critic_rows``), with the critic's part of row 5's own
+    time split, the card's name and power limit (``card``). Returns the
+    benchmark's value variant's rows (D = 5, B = 100, no MM) for the
+    kernels line, keyed by the wide critic kernels' names."""
+    worst = {n: 0.0 for n in WIDE_CRITIC_KERNELS}
+    for env, B, mm, groups in WIDE_CRITIC_CASES:
+        dyn, pol, D, U = env_models(env)
+        if fr.kernel_instance(dyn, pol) is not fr.WIDE:
+            raise AssertionError(f'{env} does not take the wide instance')
+        here = check_critic(B, mm, tag='phase 2cw', groups=groups, env=env)
+        for n, e in here.items():
+            worst[n + '_wide_critic'] = max(worst[n + '_wide_critic'], e)
+    rows = {}
+    for env, B, mm, groups in WIDE_CRITIC_CASES:
+        D, U = BENCH_SHAPES[env]
+        tt = critic_timings(B, mm, split=True, env=env, groups=groups)
+        narrow = critic_rows.get((B, mm)) if not groups else None
+        for name, v in tt.items():
+            beside = (f'; the narrow instance with the critic (phase 2c, '
+                      f'Cartpole D=5) {narrow[name]["ms"]:.4f} ms'
+                      if narrow else '')
+            log(f'[phase 2cw] {name} with the critic, {env} (D={D}, U={U}) '
+                f'B={B} T={MAIN_T} MM {"on" if mm else "off"}'
+                + (f' mm_groups={groups}' if groups else '')
+                + f': wide instance {v["ms"]:.4f} ms (CUDA events around '
+                f'{ROLLOUT_LAUNCHES} launches; without a critic '
+                f'{v["bare_ms"]:.4f} ms{beside}), plain {v["plain_ms"]:.4f} '
+                f'ms (graph replay), bound {v["bound_ms"]:.6f} ms '
+                f'({v["bound_by"]}); {card}')
+        if (env, B, mm, groups) == WIDE_CRITIC_CASES[0]:
+            rows = {n + '_wide_critic': dict(v, max_abs_err=worst[
+                n + '_wide_critic'], library_ms=None) for n, v in tt.items()}
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3062,6 +3158,64 @@ def phase_wide_path(card):
     return runs
 
 
+def phase_wide_value_path(card):
+    """Phase 7w: ``mc_pilco`` on JAX bench.py's value variant
+    (``mc_pilco_none_B100_value``: its models at D = 5, U = 1, a tip of 5
+    rows, B = 100, T = 15, no MM; the with-value driver's critic, H = 15)
+    at full width, where the gate names ``'full'`` in the wide instance:
+    ``phase_value_path`` for WIDE_VALUE_ITERS iterations, one
+    ``fused_rollout_vg`` launch of the wide critic instance each (counted
+    as ``fused_rollout_vg_wide``) and nothing else, v_loss
+    falling, the ms an iteration on ``'full'`` and forced to ``'grid'`` in
+    turns, one iteration of each tier against the plain path (the refit
+    critic's params by the lr rule); then WIDE_VALUE_LOSS_ITERS iterations
+    of ``MCPILCO.loss`` + autograd with the critic (one launch each of the
+    wide critic instances of rows 3 and 4, counted as
+    ``fused_rollout_fwd_wide`` and ``_bwd_wide``, and nothing else). Returns
+    {kernel: launches} of the run that carries each wide critic kernel."""
+    T, B = MAIN_T, MAIN_B
+    setup = wide_setup('Bench5')
+    dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
+    if fr.kernel_instance(dyn, pol) is not fr.WIDE:
+        raise AssertionError('the benchmark\'s models do not take the wide '
+                             'instance')
+    launches, opts, (V, state, vstats) = phase_value_path(
+        WIDE_VALUE_ITERS, SEED, T, B, 'phase 7w', setup=setup, mm=False,
+        vg='fused_rollout_vg_wide', lr_rule=True, env='Bench5')
+    log(f'[phase 7w] {ITER_MS["phase 7w"]:.3f} ms an iteration on tier full '
+        f'(the wide instance) beside phase 7\'s {ITER_MS["phase 7"]:.3f} '
+        f'(Cartpole B={GRID_B}, MM; host clock, this call); {card}')
+    opt = opts['full']
+    noise = opt.prepare_noise(opt.sample_noise(
+        seeded_generator('cuda', SEED, 0), x0_pool.shape[-1], 'cuda'), 'cuda')
+    init = torch.tensor(init_noise, device='cuda')
+    carry = (state['params'], state['target'], state['opt_state'])
+    params = [p.requires_grad_(True) for p in tree_leaves(pol_params)]
+    n = WIDE_VALUE_LOSS_ITERS
+    reset_counts()
+    for i in range(n):
+        x0 = opt.sample_x0(x0_pool, seeded_generator('cuda', SEED, i), init)
+        loss, _, aux = opt.loss(pol_params, x0, dyn_params, dyn_stats, noise,
+                                carry, vstats)
+        grads = torch.autograd.grad(loss, params)
+        carry = aux[:3]
+        if not (torch.isfinite(loss) and torch.isfinite(aux[3])
+                and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError('non-finite loss, v_loss or grads on the '
+                                 'phase 7w loss route')
+    torch.cuda.synchronize()
+    loss_launches = counts()
+    want = expect(fused_rollout_fwd_wide=n, fused_rollout_bwd_wide=n)
+    if loss_launches != want:
+        raise AssertionError(f'launches {loss_launches} on the phase 7w loss '
+                             f'route, expected {want}')
+    log(f'[phase 7w] {n} iterations of MCPILCO.loss + autograd with the '
+        f'critic: launches {loss_launches} ok')
+    return {'fused_rollout_vg_wide_critic': launches,
+            'fused_rollout_fwd_wide_critic': loss_launches,
+            'fused_rollout_bwd_wide_critic': loss_launches}
+
+
 # ---------------------------------------------------------------------------
 # phase 7o: the critic's model options in rows 3-5's refit
 # ---------------------------------------------------------------------------
@@ -3090,7 +3244,7 @@ def phase_critic_options(critic_rows, card, iters=VALUE_ITERS):
                 f'{critic_rows[(B, mm)][name]["ms"]:.4f} ms; plain '
                 f'{v["plain_ms"]:.4f} ms; bound {v["bound_ms"]:.6f} ms '
                 f'({v["bound_by"]}); {card}')
-    return phase_value_path(iters, tag='phase 7o', coptions=CRITIC_OPTIONS)
+    return phase_value_path(iters, tag='phase 7o', coptions=CRITIC_OPTIONS)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -3310,11 +3464,11 @@ def reset_counts():
 
 def expect(**nonzero):
     """Launch counts of a run: ``nonzero`` and 0 for every other kernel."""
-    return {n: nonzero.get(n, 0) for n in REPLACES}
+    return {n: nonzero.get(n, 0) for n in counts()}
 
 
 def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
-           T=MAIN_T, B=MAIN_B, env='Cartpole'):
+           T=MAIN_T, B=MAIN_B, env='Cartpole', mm=True):
     """Check a run's losses and launch counts and log its iteration time,
     which ``ITER_MS[tag]`` keeps."""
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(rets))):
@@ -3326,8 +3480,9 @@ def report(tag, what, iters, t0, stamps, losses, rets, launches, want,
         raise AssertionError(f'launches {launches} on the {tag} run, '
                              f'expected {want}')
     ms_iter = float(np.median(np.diff([t0] + stamps)) * 1e3)
-    log(f'[{tag}] {what}, {env} B={B} T={T} [200,200] mm_states '
-        f'mm_rewards: {iters} iterations in {stamps[-1] - t0:.3f} s; '
+    log(f'[{tag}] {what}, {env} B={B} T={T} [200,200] '
+        f'{"mm_states mm_rewards" if mm else "no MM"}: {iters} iterations '
+        f'in {stamps[-1] - t0:.3f} s; '
         f'launches {launches} (expected {want})')
     log(f'[{tag}] mean_return first {rets[0]:.6f} last {rets[-1]:.6f}; '
         f'loss first {losses[0]:.6f} last {losses[-1]:.6f}')
@@ -3621,20 +3776,20 @@ def critic_setup(D, seed=SEED, T=MAIN_T, options=()):
             V.init_stats(device='cuda'))
 
 
-def value_opts(setup, V, update, T=MAIN_T, B=GRID_B):
+def value_opts(setup, V, update, T=MAIN_T, B=GRID_B, mm=True):
     """``MCPILCO`` with the critic at B particles, states and rewards
-    moment-matched: {'full': as the gate makes it (the whole-rollout tier,
-    one ``fused_rollout_vg`` launch with the refit in it), 'grid': the same
-    with its value-and-grad and loss forced to the grid tier
-    (``mode='grid'``: the grid kernels, the refit on the fused MLP and the
-    bootstrap between them), the tier of a critic the kernels refuse}."""
+    moment-matched (or, without ``mm``, neither): {'full': as the gate makes
+    it (the whole-rollout tier, one ``fused_rollout_vg`` launch with the
+    refit in it), 'grid': the same with its value-and-grad and loss forced
+    to the grid tier (``mode='grid'``: the grid kernels, the refit on the
+    fused MLP and the bootstrap between them), the tier of a critic the
+    kernels refuse}."""
     dyn, pol = setup[:2]
-    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=True,
-                        mm_rewards=True)
+    cfg = MCPILCOConfig(n_particles=B, steps=T, mm_states=mm, mm_rewards=mm)
     opts = {'full': make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V, update),
             'grid': make_mc_pilco_fn(dyn, pol, cfg, 'cuda', V, update)}
     opt = opts['grid']
-    args = (dyn, pol, T, opt.w_t, True, True, True)
+    args = (dyn, pol, T, opt.w_t, mm, mm, True)
     kw = dict(value_update=update, w_H=opt.w_H, mode='grid')
     opt.fused_vg = fr.make_fused_value_and_grad(*args, **kw)
     opt.fused_loss = fr.make_fused_loss(*args, **kw)
@@ -3676,7 +3831,7 @@ def value_tier_times(setup, opts, state, vstats, n=30, seed=SEED):
 
 
 def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
-                        tier='full', tag='phase 7'):
+                        tier='full', tag='phase 7', mm=True, lr_rule=False):
     """One iteration with the critic on the same initial states and noise,
     through ``opt`` (on ``tier``: the whole-rollout tier, rows 3 and 4 with
     the refit, or forced to the grid tier, ``value_opts``) and through its
@@ -3692,12 +3847,13 @@ def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
     means. Tolerance: the plain path's own change under a 1e-6 relative move
     of x0 (times 3), at least 1e-4 relative on the three scalars, 1e-3 of
     max|grad| on the grads and 1e-3 of the refit's largest step on the
-    critic's params."""
+    critic's params, or with ``lr_rule`` the critic's params by the lr rule
+    of one Adam step (``hold_lr``). ``mm``: as ``value_opts``."""
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
-    update_p = make_value_update_fn(fr.unfused(V), Adam(1e-4), T, polyak=1.0,
-                                    use_density=False)
+    update_p = make_value_update_fn(fr.unfused(V), Adam(VALUE_LR), T,
+                                    polyak=1.0, use_density=False)
     plain = fr.make_loss_plain(fr.unfused(dyn), fr.unfused(pol), T, opt.w_t,
-                               True, True, True, value_update=update_p,
+                               mm, mm, True, value_update=update_p,
                                w_H=opt.w_H)
     noise = opt.prepare_noise(opt.sample_noise(
         seeded_generator('cuda', seed, 1), x0_pool.shape[-1], 'cuda'), 'cuda')
@@ -3729,6 +3885,14 @@ def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
              'grads': 1e-3 * float(ref['grads'].abs().max()),
              'critic': 1e-3 * float((ref['critic'] - before).abs().max())}
     bad = []
+    if lr_rule:
+        worst = hold_lr(f'{tag} tier {tier} refit critic params',
+                        got['critic'], ref['critic'], moved['critic'], 1,
+                        VALUE_LR, tag=tag)
+        log(f'[{tag}] one iteration on tier {tier}, kernel vs plain path: '
+            f'the refit critic\'s params within {worst:.3e} lr (at most 2) '
+            'ok')
+        del floor['critic']
     for k, f in floor.items():
         if not torch.isfinite(got[k]).all():
             raise AssertionError(f'non-finite {k} on the kernel path')
@@ -3745,20 +3909,24 @@ def compare_value_paths(setup, opt, V, state, vstats, seed=SEED, T=MAIN_T,
 
 
 def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B,
-                     tag='phase 7', coptions=()):
+                     tag='phase 7', coptions=(), setup=None, mm=True,
+                     vg='fused_rollout_vg', lr_rule=False, env='Cartpole'):
     """``mc_pilco`` at B = 1000 with the critic of ``critic_setup`` (with
-    ``coptions``; the log's ``tag``), where
+    ``coptions``; the log's ``tag``) on the main path's setup (or ``setup``,
+    as ``main_path_setup`` returns it, of ``env``; states and rewards
+    moment-matched with ``mm``), where
     the gate must name the whole-rollout tier: the launch counts of the run
-    (set to 0 just before it: one ``fused_rollout_vg`` an iteration, the
+    (set to 0 just before it: one ``vg`` an iteration, the
     refit and the bootstrap in it, nothing else), v_loss falling, the ms an
     iteration on that tier and forced to the grid tier in the same call
     (``value_tier_times``), and one iteration on each of the two against the
-    plain path. Returns the launch counts."""
-    setup = main_path_setup(seed)
+    plain path (``lr_rule`` as ``compare_value_paths``). Returns the launch
+    counts, ``opts`` (``value_opts``) and the critic's (V, state, stats)."""
+    setup = setup or main_path_setup(seed)
     dyn, pol, dyn_params, pol_params, dyn_stats, x0_pool, init_noise = setup
     V, update, state, vstats = critic_setup(x0_pool.shape[-1], seed, T,
                                             coptions)
-    opts = value_opts(setup, V, update, T, B)
+    opts = value_opts(setup, V, update, T, B, mm)
     opt = opts['full']
     if opt.tier('cuda') != 'full':
         raise AssertionError(f'the gate names {opt.tier("cuda")!r} for the '
@@ -3769,7 +3937,7 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B,
     t0 = time.perf_counter()
     pol_params, _, metrics, n_steps = mc_pilco(
         x0_pool, dyn, pol, T, dyn_params, dyn_stats, pol_params,
-        opt_iters=iters, mm_states=True, mm_rewards=True,
+        opt_iters=iters, mm_states=mm, mm_rewards=mm,
         init_state_noise=init_noise, n_particles=B, seed=seed, chunk=1,
         on_iteration=lambda done, m: stamps.append(time.perf_counter()),
         value_spec=V, value_stats=vstats, value_update_fn=update,
@@ -3780,7 +3948,7 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B,
         raise AssertionError('the run did not take every iteration')
     report(tag, 'mc_pilco with a TD(H) critic (tier full)', iters, t0,
            stamps, metrics['loss'], metrics['mean_return'], launches,
-           expect(fused_rollout_vg=iters), T, B)
+           expect(**{vg: iters}), T, B, env, mm)
     v = metrics['v_loss']
     if not np.all(np.isfinite(v)):
         raise AssertionError('non-finite v_loss on the value path')
@@ -3796,9 +3964,10 @@ def phase_value_path(iters=VALUE_ITERS, seed=SEED, T=MAIN_T, B=GRID_B,
         f'{ms["full"]:.3f} ms, forced to tier grid {ms["grid"]:.3f} ms; '
         f'{card_line()}')
     for tier, o in opts.items():
-        compare_value_paths(setup, o, V, state, vstats, seed, T, tier, tag)
+        compare_value_paths(setup, o, V, state, vstats, seed, T, tier, tag,
+                            mm, lr_rule)
     ITER_MS[tag] = ms['full']
-    return launches
+    return launches, opts, (V, state, vstats)
 
 
 def phase_fixed_critic(iters=FIXED_ITERS, seed=SEED, T=MAIN_T, B=GRID_B):
@@ -4073,7 +4242,8 @@ def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS,
     folder = tempfile.mkdtemp(prefix='chip_smoke_episode_', dir=root)
     try:
         argv = argv + ['-o', folder]
-        fit_iters = dpc.get_argument_parser().parse_args(argv).dyn_opt_iters
+        parsed = dpc.get_argument_parser().parse_args(argv)
+        fit_iters, pol_opt_iters = parsed.dyn_opt_iters, parsed.pol_opt_iters
         records = []
         reset_counts()
         torch.cuda.synchronize()
@@ -4100,8 +4270,8 @@ def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS,
                 f'imagined return {r["imagined_return"]:.6f}; real return '
                 f'{r["real_return"]:.6f}; fit '
                 f'{1e3 * r["fit_s"] / fit_iters:.4f} ms a step ({fit_iters} in {r["fit_s"]:.3f} s); policy '
-                f'{1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an iteration '
-                f'({EPISODE_POL_ITERS} in {r["pol_s"]:.3f} s, the optimizer\'s '
+                f'{1e3 * r["pol_s"] / pol_opt_iters:.4f} ms an iteration '
+                f'({pol_opt_iters} in {r["pol_s"]:.3f} s, the optimizer\'s '
                 'build included)')
             if not last > first:
                 raise AssertionError(f'E_lml did not rise in the fit of '
@@ -4131,7 +4301,7 @@ def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS,
         exp = ExperienceDataset()
         exp.load(str(Path(results) / 'experience.pkl'))
         steps = sum(len(ep) for ep in exp.states)
-        pol_iters = episodes * EPISODE_POL_ITERS
+        pol_iters = episodes * pol_opt_iters
         if tier is None:
             route = 2 * args.pred_H * pol_iters
             want = expect(fused_mlp_fwd=episodes * fit_iters + steps + route,
@@ -4238,7 +4408,9 @@ def phase_env_episodes():
 
         _, (r,) = run_episodes(EPISODE_ARGV + ['--ps_iters', '1',
                                                '--dyn_opt_iters',
-                                               str(ENV_FIT_ITERS)] + argv,
+                                               str(ENV_FIT_ITERS),
+                                               '--pol_opt_iters',
+                                               str(ENV_POL_ITERS)] + argv,
                                1, tag, checks, tier=None if route else 'full')
         if route:
             scores = r['pol_metrics']['priority_scores']
@@ -4249,7 +4421,7 @@ def phase_env_episodes():
                 raise AssertionError('the episode\'s priority scores are not '
                                      'finite and positive')
         log(f'[{tag}] fit {1e3 * r["fit_s"] / ENV_FIT_ITERS:.4f} ms a step, '
-            f'policy {1e3 * r["pol_s"] / EPISODE_POL_ITERS:.4f} ms an '
+            f'policy {1e3 * r["pol_s"] / ENV_POL_ITERS:.4f} ms an '
             'iteration')
 
 
@@ -4263,8 +4435,8 @@ SHARD_TIMEOUT = 300  # seconds a call to the ranks may take before it fails
 K8_CASES = ((2, GROUPS_MAIN, True, 0), (4, 2 * GROUPS_MAIN, True, 0),
             (2, None, False, 0), (2, GROUPS_MAIN, True, 2))
 SHARD_ROUTE_ITERS = 5  # phase 11c: iterations of the sharded route
-SHARD_FIT_ITERS = 200  # phase 11e: the episode's fit steps
-SHARD_POL_ITERS = 100  # phase 11e: its policy iterations
+SHARD_FIT_ITERS = 100  # phase 11e: the episode's fit steps
+SHARD_POL_ITERS = 50  # phase 11e: its policy iterations
 
 
 def on_host(tree):
@@ -4890,10 +5062,10 @@ DDPG_T = MAIN_T  # the driver's --pred_H, the imagined horizon
 DDPG_ITERS = 20  # iterations timed on the host clock
 DDPG_PROFILED = 3  # iterations under torch.profiler
 DDPG_ARGV = ['--seed', str(SEED), '--ps_iters', '1', '--n_rnd_epi', '2',
-             '--dyn_opt_iters', '1000', '--fit_iters', '40']
+             '--dyn_opt_iters', '500', '--fit_iters', '20']
 DENSITY_STEPS = 5  # train_model steps held against the unfused MLP
 DENSITY_BATCH = 100
-BNN_ITERS = 400  # the BNN regression drivers' steps a model
+BNN_ITERS = 200  # the BNN regression drivers' steps a model
 
 
 def clone_tree(tree):
@@ -5118,10 +5290,10 @@ def phase_ddpg(card):
     """Phase 12: model-based DDPG at the driver's widths (``ddpg_setup``):
     one iteration held against the unfused MLPs and timed, the Q-value
     rollout held the same way, then one episode of the MBDDPG driver
-    (``DDPG_ARGV``: 1000 fit steps, 40 DDPG iterations of T = 15, every
+    (``DDPG_ARGV``: 500 fit steps, 20 DDPG iterations of T = 15, every
     other flag at its default, 40 control steps), its launch
-    counts exact (fused-MLP forward 1000 + 40 * 7 T + the control steps,
-    backward 1000 + 40 * 3 T). Returns the episode's launch counts."""
+    counts exact (fused-MLP forward 500 + 20 * 7 T + the control steps,
+    backward 500 + 20 * 3 T). Returns the episode's launch counts."""
     models, state, pool, gen = ddpg_setup()
     check_ddpg_iteration(models, state, pool, gen, card)
     check_q_rollout(models, state, pool, gen)
@@ -5253,8 +5425,8 @@ def phase_density(card):
 # phase 14: the sequence-model driver, model ensembles and the optimisers
 # ---------------------------------------------------------------------------
 
-TM_ARGV = ['--seed', str(SEED), '--ps_iters', '1', '--dyn_opt_iters', '200',
-           '--pol_opt_iters', '40']
+TM_ARGV = ['--seed', str(SEED), '--ps_iters', '1', '--dyn_opt_iters', '100',
+           '--pol_opt_iters', '20']
 TM_PROFILED = 3  # policy steps under torch.profiler
 ENS_K = 5  # members: PETS's ensemble size (Chua et al. 2018)
 ENS_B = 100
@@ -5419,10 +5591,10 @@ def check_tm_steps(setup, card, tag='phase 14a', dump=None):
 
 
 def phase_tm_episode(card, tag='phase 14b', argv=TM_ARGV):
-    """One episode of ``transformer_models.main`` (TM_ARGV: 200 dynamics
-    steps, 200 flow steps, 40 policy steps of 16 imagined steps, 40 control
-    steps): launches exact (fused-MLP forward 40 x 16 + the control steps,
-    backward 40 x 16), every value finite, E_lml rising
+    """One episode of ``transformer_models.main`` (TM_ARGV: 100 dynamics
+    steps, 200 flow steps, 20 policy steps of 16 imagined steps, 40 control
+    steps): launches exact (fused-MLP forward 20 x 16 + the control steps,
+    backward 20 x 16), every value finite, E_lml rising
     over the fit; ms a dyn, flow and pol step (host clock). Returns the
     launch counts and ``main``'s (params, history)."""
     args = tmd.get_parser().parse_args(argv)
@@ -5711,6 +5883,8 @@ def main():
     t = lap('phase 2p', t)
     rows.update(phase_wide_kernels(env_rows, card))
     t = lap('phase 2w', t)
+    rows.update(phase_wide_critic_kernels(critic_rows, card))
+    t = lap('phase 2cw', t)
     # each kernel's launches come from the run of the route that carries it:
     # rows 1-2 the episode's (phase 8)
     T = MAIN_T
@@ -5780,6 +5954,8 @@ def main():
     t = lap('phases 3-7', t)
     wide_runs = phase_wide_path(card)
     t = lap('phase 5w', t)
+    wide_critic_runs = phase_wide_value_path(card)
+    t = lap('phase 7w', t)
     episode = phase_episode()
     t = lap('phase 8', t)
     phase_env_episodes()
@@ -5794,14 +5970,16 @@ def main():
     t = lap('phase 13', t)
     phase_transformer(card)
     lap('phase 14', t)
-    # the wide kernels' launches from phase 5w's runs, each under its name
-    runs = {**wide_runs,
+    # the wide kernels' launches from phase 5w's runs, each under its name,
+    # and those with the critic from phase 7w's (its only launches were the
+    # critic instances', counted under the row's name + '_wide')
+    runs = {**wide_critic_runs, **wide_runs,
             'fused_mlp_fwd_bf16': bf16_route, 'fused_mlp_bwd_bf16': bf16_route,
             'fused_mlp': episode, 'fused_step': step, 'fused_rollout_vg':
             main_path, 'fused_rollout_fwd': loss_route,
             'fused_rollout_bwd': loss_route, 'fused_grid': fixed_critic}
-    launches = {n: next(v for k, v in runs.items() if n.startswith(k))[n]
-                for n in REPLACES}
+    launches = {n: next(v for k, v in runs.items() if n.startswith(k))[
+        n.removesuffix('_critic')] for n in REPLACES}
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -115,17 +115,15 @@
 // 3, 4 and 5, from fused_rollout_critic_fwd, _bwd and _vg.cu, grouped from
 // fused_rollout_critic_grouped_fwd, _bwd and _vg.cu; the grouped instances
 // without one, from fused_rollout_grouped.cu (rows 3-5, kind 0-2) and
-// fused_rollout_grouped_grid.cu (rows 8-9, kind 3-4).
-// The wide instance (fused_rollout_wide.cu, which includes this file) has no
-// instances with a critic: the gate refuses its critic refit.
-#if !PMBRL_WIDE
+// fused_rollout_grouped_grid.cu (rows 8-9, kind 3-4). The wide instance
+// (fused_rollout_wide.cu, which includes this file) takes each from its own
+// *_wide.cu unit under a name of its own.
 extern "C" const void* fused_rollout_critic_fwd(int relu);
 extern "C" const void* fused_rollout_critic_bwd(int relu);
 extern "C" const void* fused_rollout_critic_vg(int relu);
 extern "C" const void* fused_rollout_critic_grouped_fwd(int relu);
 extern "C" const void* fused_rollout_critic_grouped_bwd(int relu);
 extern "C" const void* fused_rollout_critic_grouped_vg(int relu);
-#endif
 extern "C" const void* fused_rollout_grouped(int kind, int relu);
 extern "C" const void* fused_rollout_grouped_grid(int kind, int relu);
 
@@ -147,9 +145,6 @@ const Kernel kKernels[2][5] = {
 // The kernel of entry point `kind` (0-4), with a critic (rows 3-5 only) or
 // not, grouped or not.
 const void* kernel_of(bool relu, int kind, bool critic, bool grouped) {
-#if PMBRL_WIDE
-  if (critic) return nullptr;
-#else
   if (critic) {
     using Of = const void* (*)(int);
     const Of of[2][3] = {
@@ -158,7 +153,6 @@ const void* kernel_of(bool relu, int kind, bool critic, bool grouped) {
          fused_rollout_critic_grouped_vg}};
     return kind < 3 ? of[grouped][kind](relu) : nullptr;
   }
-#endif
   if (grouped)
     return kind < 3 ? fused_rollout_grouped(kind, relu) : fused_rollout_grouped_grid(kind, relu);
   return reinterpret_cast<const void*>(kKernels[relu][kind]);
@@ -275,7 +269,6 @@ int fused_rollout_max_clusters(int threads, int smem, int* clusters) {
     const int j = i % 16;
     const void* k = j < 10 ? kernel_of(j / 5, j % 5, false, grouped)
                            : kernel_of((j - 10) / 3, (j - 10) % 3, true, grouped);
-    if (!k) continue;  // the wide instance: no critic
     e = set_smem(k, smem);
     if (e != cudaSuccess) break;
     cudaLaunchAttribute attr[2];

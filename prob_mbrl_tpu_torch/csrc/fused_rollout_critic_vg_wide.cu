@@ -1,0 +1,7 @@
+// The wide instance's row 5 with the value update's critic
+// (fused_rollout_critic_vg.cu compiled with WideLimits): a translation
+// unit of libfused_rollout_wide.so.
+
+#define PMBRL_WIDE 1
+#define fused_rollout_critic_vg fused_rollout_critic_vg_wide
+#include "fused_rollout_critic_vg.cu"

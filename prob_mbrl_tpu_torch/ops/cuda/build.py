@@ -27,28 +27,24 @@ else:
                  / hashlib.sha1(str(CSRC).encode()).hexdigest()[:12])
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# the whole-rollout kernel's instances with a critic, one unit for each of
+# rows 3-5, ungrouped and grouped
+_CRITIC_UNITS = tuple(f'fused_rollout_critic_{g}{row}.cu'
+                      for g in ('', 'grouped_')
+                      for row in ('fwd', 'bwd', 'vg'))
 # the translation units of a library besides csrc/<name>.cu, compiled in
-# parallel with it: the whole-rollout kernel's instances with a critic, one
-# unit for each of rows 3-5, ungrouped and grouped, and its grouped
-# instances without one, rows 3-5 and rows 8-9
-EXTRA_SOURCES = {'fused_rollout': ('fused_rollout_critic_fwd.cu',
-                                   'fused_rollout_critic_bwd.cu',
-                                   'fused_rollout_critic_vg.cu',
-                                   'fused_rollout_critic_grouped_fwd.cu',
-                                   'fused_rollout_critic_grouped_bwd.cu',
-                                   'fused_rollout_critic_grouped_vg.cu',
-                                   'fused_rollout_grouped.cu',
-                                   'fused_rollout_grouped_grid.cu'),
-                 # the wide instance (D <= 16, U <= 8): its grouped rows 3-5
-                 # and 8-9 (it refits no critic)
-                 'fused_rollout_wide': ('fused_rollout_grouped_wide.cu',
-                                        'fused_rollout_grouped_grid_wide.cu')}
+# parallel with it: the critic units and the grouped instances without a
+# critic, rows 3-5 and rows 8-9; the wide instance (D <= 16, U <= 8) has the
+# same units, each compiling the narrow one's with WideLimits
+EXTRA_SOURCES = {'fused_rollout': _CRITIC_UNITS + (
+    'fused_rollout_grouped.cu', 'fused_rollout_grouped_grid.cu')}
+EXTRA_SOURCES['fused_rollout_wide'] = tuple(
+    f.replace('.cu', '_wide.cu') for f in EXTRA_SOURCES['fused_rollout'])
 # the sources a library's units include besides the shared headers (the
 # wide instances compile the narrow ones' .cu files with WideLimits)
 INCLUDED = {'fused_step_wide': ('fused_step.cu',),
             'fused_rollout_wide': ('fused_rollout.cu',
-                                   'fused_rollout_grouped.cu',
-                                   'fused_rollout_grouped_grid.cu')}
+                                   *EXTRA_SOURCES['fused_rollout'])}
 
 _LIBS = {}
 

@@ -28,6 +28,7 @@ writes what it reads: the next iteration may pass this one's outputs back
 in, and they keep their values as JAX's do.
 """
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -66,7 +67,7 @@ def critic_dims(spec):
     return (mlp.input_dims,) + tuple(mlp.hidden_dims) + (mlp.output_dims,)
 
 
-def critic_refuses(value_spec, value_update=None, D=None):
+def critic_refuses(value_spec, value_update=None, D=None, max_x=MAX_X):
     """Why the whole-rollout kernels cannot refit this critic, or None: they
     take a ``Regressor`` whose ``MLPSpec(D + its angle dims, 1 or 2,
     hidden)`` (D the rollout's states) the walk takes (1 to 7 hidden layers
@@ -77,7 +78,8 @@ def critic_refuses(value_spec, value_update=None, D=None):
     ``DiagGaussianDensity(1)`` (NLL), and with ``value_update`` one from
     ``algorithms.value.make_value_update_fn`` whose loss fits the head and
     whose optimizer is its ``Adam``. Layer norm (``LAYER_NORM_LIMIT``) and a
-    compute_dtype stay out."""
+    compute_dtype stay out. ``max_x``: the instance's widest input
+    (``fused_rollout.Limits.x``)."""
     mlp = getattr(value_spec, 'mlp', None)
     if mlp is None or not hasattr(value_spec, 'output_density'):
         return 'the critic must be a Regressor'
@@ -94,8 +96,8 @@ def critic_refuses(value_spec, value_update=None, D=None):
     if D is not None and mlp.input_dims != D + len(angles):
         return (f'the critic takes {mlp.input_dims} inputs, the states have '
                 f'{D} and {len(angles)} angle dims')
-    if mlp.input_dims > MAX_X:
-        return f'the critic takes at most {MAX_X} inputs'
+    if mlp.input_dims > max_x:
+        return f'the critic takes at most {max_x} inputs'
     if type(mlp.input_dropout) not in DROPS:
         return 'the critic\'s input dropout must be Bernoulli or concrete'
     if mlp.output_nonlin not in (None,) + fm.KERNEL_ACTS:
@@ -147,18 +149,23 @@ class _CriticArgs(ctypes.Structure):
                    ('masks', _P), ('opts', _P), ('sn', ctypes.c_int)])
 
 
-class _CriticOpts(ctypes.Structure):
-    """Mirror of ``CriticOpts`` in ``csrc/critic_walk.cuh``."""
-    _fields_ = ([('in_map', ctypes.c_byte * MAX_X)]
-                + [(n, ctypes.c_int) for n in ('out_act', 'in_drop')]
-                + [(n, ctypes.c_float) for n in (
-                    'in_keep', 'in_inv_keep', 'in_scale', 'in_dreg',
-                    'in_inv_temp')]
-                + [('in_u', _P), ('in_uh', _P), ('sn_iters', ctypes.c_int),
-                   ('sn_max_K', ctypes.c_float), ('wn', (_P * _ML) * 2),
-                   ('wq', _P * _ML), ('sn_uv', _P * _ML), ('sn_k', _P),
-                   ('sn_dots', _P), ('sn_scale', (_P * _ML) * 8),
-                   ('sn_u', (_P * _ML) * 8)])
+@functools.lru_cache(maxsize=None)
+def _opts_type(max_x):
+    """Mirror of ``CriticOpts`` in ``csrc/critic_walk.cuh`` for the instance
+    whose kMaxX (``fused_rollout.Limits.x``) is ``max_x``."""
+    return type(f'_CriticOpts{max_x}', (ctypes.Structure,), {'_fields_': (
+        [('in_map', ctypes.c_byte * max_x)]
+        + [(n, ctypes.c_int) for n in ('out_act', 'in_drop')]
+        + [(n, ctypes.c_float) for n in (
+            'in_keep', 'in_inv_keep', 'in_scale', 'in_dreg', 'in_inv_temp')]
+        + [('in_u', _P), ('in_uh', _P), ('sn_iters', ctypes.c_int),
+           ('sn_max_K', ctypes.c_float), ('wn', (_P * _ML) * 2),
+           ('wq', _P * _ML), ('sn_uv', _P * _ML), ('sn_k', _P),
+           ('sn_dots', _P), ('sn_scale', (_P * _ML) * 8),
+           ('sn_u', (_P * _ML) * 8)])})
+
+
+_CriticOpts = _opts_type(MAX_X)  # the narrow instance's
 
 
 def sn_layers(spec):
@@ -240,15 +247,17 @@ def _set_leaves(dst, spec, tree, keep, opts=None, s=0):
 class CriticKernel:
     """The critic's part of one ``RolloutKernel``: the block's constant
     fields (from the value update and ``w_H``). ``bind(extras)`` makes one
-    call's block and its new output tensors."""
+    call's block and its new output tensors. ``max_x``: the kMaxX of the
+    kernels' instance, which sizes its options block (``_opts_type``)."""
 
-    def __init__(self, value_update, w_H, B, device):
+    def __init__(self, value_update, w_H, B, device, max_x=MAX_X):
         spec = value_update.spec
-        why = critic_refuses(spec, value_update)
+        why = critic_refuses(spec, value_update, max_x=max_x)
         if why is not None:
             raise ValueError(f'the rollout kernels do not take this critic: '
                              f'{why}')
         self.spec, self.B, self.device = spec, B, device
+        self._opts_t = _opts_type(max_x)
         mlp = spec.mlp
         a = self._base = _CriticArgs()
         a.n = len(mlp.hidden_dims)
@@ -269,7 +278,7 @@ class CriticKernel:
         # [blocks][MAX_LAYERS] partials of the launch's <G, w> (set_blocks)
         self.dots = None
         if has_options(spec):
-            o = self._opts = _CriticOpts()
+            o = self._opts = self._opts_t()
             sources = mlp.input_dims - len(spec.angle_dims)
             for k, code in enumerate(embedding_codes(sources,
                                                      spec.angle_dims)):
@@ -368,7 +377,7 @@ class CriticKernel:
         if o is not None:
             self._sn_refit(o, params['mlp'], target['mlp'], keep)
             a.opts = self._upload(o, keep)
-            ob = _CriticOpts()
+            ob = self._opts_t()
             ctypes.pointer(ob)[0] = o
             for l in self.sn:
                 ob.wn[0][l] = o.wq[l]
@@ -414,11 +423,11 @@ class CriticKernel:
         o.sn_k, o.sn_dots = k.data_ptr(), self.dots.data_ptr()
 
     def _options(self, mlp_noise, tensor):
-        """This call's options block (a ``_CriticOpts``) with its noise's
+        """This call's options block (``_opts_type``) with its noise's
         input-dropout pointers, or None without options."""
         if self._opts is None:
             return None
-        o = _CriticOpts()
+        o = self._opts_t()
         ctypes.pointer(o)[0] = self._opts
         d = self.spec.mlp.input_dropout
         if d is not None:

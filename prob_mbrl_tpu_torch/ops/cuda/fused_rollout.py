@@ -10,7 +10,8 @@ Counterpart of ``prob_mbrl_tpu/ops/pallas/fused_rollout.py``:
     ``make_fused_value_and_grad`` (one launch, ``fused_vg``, :981);
     ``csrc/fused_rollout.cu`` holds their entry points and says how they
     are laid out (the device code in ``csrc/rollout_kernel.cuh``, the
-    instances that refit a critic in ``csrc/fused_rollout_critic_*.cu``);
+    instances that refit a critic in ``csrc/fused_rollout_critic_*.cu``,
+    the wide instance's in ``csrc/fused_rollout_critic_*_wide.cu``);
   - the step tier (``mode='step'``): ``make_step_impl`` (the step's math),
     ``make_fused_step`` (forward kernel ``_fwd_pallas`` at :1166, backward
     ``_bwd_pallas`` at :1206), ``make_stepwise_loss`` /
@@ -153,17 +154,13 @@ class Limits(collections.namedtuple('Limits', [
 
 # the narrow instance (every env of the registry) and the wide one, which the
 # gate takes where the narrow one does not: D <= 16, U <= 8, a tip over the
-# whole state (a learned reward's head E = D + 1 <= 17); no critic refit
+# whole state (a learned reward's head E = D + 1 <= 17); each refits a critic
+# in rows 3-5 (its options block sized by its kMaxX, Limits.x)
 NARROW = Limits('narrow', MAX_D, MAX_U, MAX_TIP, 64, 48, 80, 8192,
                 'fused_step', 'fused_rollout')
 WIDE = Limits('wide', 16, 8, 16, 176, 156, 156, 24576, 'fused_step_wide',
               'fused_rollout_wide')
 INSTANCES = (NARROW, WIDE)
-# why the wide instance has no critic refit in rows 3-5
-WIDE_CRITIC = ("the wide instance (D > 8 or U > 4 or a tip of more than 4 "
-               "rows) does not refit a critic inside rows 3-5; a value "
-               "update takes the grid tier, whose refit runs between the "
-               "grid kernels")
 
 # the rewards the kernels take, at the index of their StepArgs::reward_kind
 # (csrc/rollout_step.cuh): kExpQuadReward, exp(-0.5 (q |d|^2 + r |a|^2)), and
@@ -192,7 +189,8 @@ _FIXED_NOT_GRID = ("a fixed critic's bootstrap is added on the grid tier "
 LAUNCHES = {'fused_step_fwd': 0, 'fused_step_bwd': 0, 'fused_rollout_fwd': 0,
             'fused_rollout_bwd': 0, 'fused_rollout_vg': 0,
             'fused_grid_fwd': 0, 'fused_grid_bwd': 0}
-# the wide instance's launches, each under its kernel's name + '_wide'
+# the wide instance's launches, each under its kernel's name + '_wide' (as in
+# LAUNCHES, rows 3-5 with a critic count under their row)
 LAUNCHES_WIDE = {k + '_wide': 0 for k in LAUNCHES}
 
 
@@ -676,16 +674,17 @@ def fused_mode(cfg, dyn, pol, value_update=None, mesh=None, value_spec=None,
     gives ``'full'`` or ``'grid'``. Under a particle ``mesh`` the tier is
     sized on one rank's slice (``refuses``): ``'full'`` or ``'step'``, whose
     value-and-grad ``make_fused_sharded_value_and_grad`` runs on each rank.
-    None of the TPU's VMEM budgets or crossovers is carried over. The wide
-    instance of the kernels (``kernel_instance``) refits no critic
-    (``WIDE_CRITIC``): a value update there takes ``'grid'``."""
+    None of the TPU's VMEM budgets or crossovers is carried over. Either
+    instance of the kernels (``kernel_instance``) refits the critic; its
+    input is held to that instance's widest (``Limits.x``)."""
     if refuses(cfg, dyn, pol, value_update, mesh, value_spec) is not None:
         return None
     cfg = _local_config(cfg, mesh)
     fixed = value_update is None and value_spec is not None
-    refit = (value_update is not None and not kernel_instance(dyn, pol).wide
+    refit = (value_update is not None
              and cr.critic_refuses(value_update.spec, value_update,
-                                   dyn.state_dims) is None)
+                                   dyn.state_dims,
+                                   kernel_instance(dyn, pol).x) is None)
     tier = 'grid' if fixed or (value_update is not None and not refit) \
         else 'full'
     if torch.device(device).type == 'cuda':
@@ -1653,8 +1652,6 @@ class RolloutKernel:
             raise ValueError(f'the rollout kernels do not take these models: '
                              f'{why}')
         self.lim = lim = kernel_instance(dyn, pol)
-        if lim.wide and value_update is not None:
-            raise ValueError(WIDE_CRITIC)
         self.dyn, self.pol, self.T, self.B, self.device = (dyn, pol, steps, B,
                                                            device)
         self.G = _groups(mm_groups, B)
@@ -1668,7 +1665,8 @@ class RolloutKernel:
         self.critic = None
         critic_dims = None
         if value_update is not None:
-            self.critic = cr.CriticKernel(value_update, w_H, B, device)
+            self.critic = cr.CriticKernel(value_update, w_H, B, device,
+                                          lim.x)
             critic_dims = cr.critic_dims(value_update.spec)
             self._vw = torch.tensor(
                 np.asarray(_value_weights(value_update, steps), np.float32),

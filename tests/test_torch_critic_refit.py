@@ -435,7 +435,10 @@ def test_the_plan_and_capacity_count_the_critic(monkeypatch):
     clusters); its scratch adds each CTA's critic dW accumulator and one
     loss sum a cluster. A critic wider than the MLPs grows the exchange
     regions and the slices, and so the shared memory, and lowers the
-    capacity."""
+    capacity. The same holds in the wide instance with the critic of JAX
+    bench.py's value variant on D states: at the benchmark's D = 5, U = 1
+    and at D = 16, U = 8 the capacity with the critic is the one without it
+    (4320 and 2880 particles on 15 clusters)."""
     pol, dyn = (5, 200, 200, 2), (6, 200, 200, 10)
     crit = (5, 200, 200, 1)
     cdw = tfr.critic_dw_floats(crit)
@@ -462,6 +465,28 @@ def test_the_plan_and_capacity_count_the_critic(monkeypatch):
     assert tfr.rollout_capacity(dyn_m, pol_m, 'cuda:0', V) == 5760
     W = tm.Regressor(tm.MLPSpec(5, 1, (512, 512)))
     assert tfr.rollout_capacity(dyn_m, pol_m, 'cuda:0', W) < 5760
+    from prob_mbrl_tpu_torch import envs as tenvs
+    for D, U, cap in ((5, 1, 4320), (16, 8, 2880)):
+        pol, dyn, crit = ((D, 200, 200, 2 * U), (D + U, 200, 200, 2 * D),
+                          (D, 200, 200, 1))
+        cdw = tfr.critic_dw_floats(crit)
+        for B in (100, 1000):
+            a = tfr.rollout_plan(pol, dyn, D, B, 15, lim=tfr.WIDE)
+            b = tfr.rollout_plan(pol, dyn, D, B, 15, 15, crit, lim=tfr.WIDE)
+            assert b._replace(scratch=a.scratch) == a
+            assert b.scratch == a.scratch + a.clusters * (8 * cdw + 1)
+        assert tfr.max_particles(pol, dyn, D, 15, crit, lim=tfr.WIDE) == \
+            tfr.max_particles(pol, dyn, D, 15, lim=tfr.WIDE) == cap
+        dyn_m = tm.DynamicsModel(tm.Regressor(
+            tm.MLPSpec(D + U, 2 * D, (200, 200)), tm.DiagGaussianDensity(D)),
+            reward_func=tenvs.state_reward(D))
+        pol_m = tm.Policy(tm.MLPSpec(D, 2 * U, (200, 200)),
+                          tm.DiagGaussianDensity(U), max_u=(10.0,))
+        assert tfr.kernel_instance(dyn_m, pol_m) is tfr.WIDE
+        V = tm.Regressor(tm.MLPSpec(D, 1, (200, 200),
+                                    dropout=tm.cdropout(0.1)))
+        assert tfr.rollout_capacity(dyn_m, pol_m, 'cuda:0', V) == \
+            tfr.rollout_capacity(dyn_m, pol_m, 'cuda:0') == cap
 
 
 def test_the_with_value_driver_takes_the_full_tier(tmp_path, monkeypatch):

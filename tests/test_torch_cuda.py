@@ -39,7 +39,9 @@ refit, spectral norm among them (``mc_pilco`` with them at B = 1000);
 the wide instance of rows 3-9 (D <= 16, U <= 8, a tip of up to 16 rows) at
 the JAX benchmark's shapes and at D = 16, U = 8, grouped, against the
 narrow instance on rendezvous's inputs, its bits, and ``mc_pilco`` on the
-benchmark at D = 16 on its whole-rollout tier.
+benchmark at D = 16 on its whole-rollout tier; rows 3-5 of the wide
+instance with the critic refit in the launch, and ``mc_pilco`` on the
+benchmark's value variant on its whole-rollout tier.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so on a machine without JAX they run with
@@ -1753,3 +1755,53 @@ def test_mc_pilco_on_the_benchmark_takes_the_wide_full_tier(cuda):
     torch.cuda.synchronize()
     assert cs.counts() == cs.expect(fused_rollout_vg_wide=3)
     assert np.all(np.isfinite(metrics['loss']))
+
+
+# ---- rows 3-5 of the wide instance with the critic refit --------------------
+
+
+@pytest.mark.parametrize('env,B,mm,groups', cs.WIDE_CRITIC_CASES)
+def test_wide_rollout_kernels_with_a_critic_match_the_plain_version(
+        cuda, env, B, mm, groups):
+    """Rows 3-5 of the wide instance with the with-value driver's critic
+    refit in the launch (``chip_smoke.WIDE_CRITIC_CASES``: the JAX
+    benchmark's shapes, D = 5, U = 1 and a tip of 5 rows, and D = 16,
+    U = 8; B = 100 without MM and 1000 with it; grouped in groups of 50)
+    against the plain version (``chip_smoke.check_critic``; grouped against
+    float64)."""
+    dyn, pol, _, _ = cs.env_models(env)
+    assert fr.kernel_instance(dyn, pol) is fr.WIDE
+    cs.check_critic(B, mm, tag='card test', groups=groups, env=env)
+
+
+def test_mc_pilco_on_the_benchmarks_value_variant_takes_the_wide_full_tier(
+        cuda):
+    """``mc_pilco`` on JAX bench.py's value variant (its models at D = 5,
+    U = 1, B = 100, no MM, the with-value driver's critic): the gate names
+    ``'full'`` in the wide instance, one ``fused_rollout_vg`` launch of its
+    critic instance an iteration (counted as ``fused_rollout_vg_wide``) and
+    nothing else, each iteration's own
+    finite v_loss, the critic's Adam count at the iterations."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import mc_pilco
+    iters = 3
+    dyn, pol, dyn_params, pol_params, dyn_stats, pool, init = \
+        cs.wide_setup('Bench5')
+    V, update, state, vstats = cs.critic_setup(5)
+    assert fr.kernel_instance(dyn, pol) is fr.WIDE
+    cfg = cs.MCPILCOConfig(n_particles=100, steps=15, mm_states=False,
+                           mm_rewards=False)
+    assert fr.fused_mode(cfg, dyn, pol, update, value_spec=V,
+                         device='cuda') == 'full'
+    cs.reset_counts()
+    _, _, metrics, _ = mc_pilco(
+        pool, dyn, pol, 15, dyn_params, dyn_stats, pol_params,
+        opt_iters=iters, mm_states=False, mm_rewards=False,
+        init_state_noise=init, n_particles=100, seed=1, chunk=1,
+        value_spec=V, value_stats=vstats, value_update_fn=update,
+        value_state=state)
+    torch.cuda.synchronize()
+    assert cs.counts() == cs.expect(fused_rollout_vg_wide=iters)
+    assert np.all(np.isfinite(metrics['loss']))
+    assert len(np.unique(metrics['v_loss'])) == iters
+    assert np.all(np.isfinite(metrics['v_loss']))
+    assert int(state['opt_state'].count) == iters

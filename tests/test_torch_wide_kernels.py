@@ -386,7 +386,8 @@ def test_the_gate_takes_the_benchmark_in_the_wide_instance(D, U,
     T = 15, a tip of D rows) at (5, 1), (12, 4) and (16, 8): the wide
     instance takes it, its plans fit the wide instance's shared memory, and
     the gate names ``'full'`` on the CPU and, on a card holding 15 clusters,
-    on CUDA; a value update takes the grid tier there (``WIDE_CRITIC``)."""
+    on CUDA; so it does with a value update (the critic refit in the wide
+    instance's rows 3-5), whose ``RolloutKernel`` builds there."""
     dyn, pol = _port_specs(D, U, hidden=(200, 200))
     assert tfr.kernel_refuses(dyn, pol) is None
     assert tfr.kernel_instance(dyn, pol) is tfr.WIDE
@@ -401,16 +402,24 @@ def test_the_gate_takes_the_benchmark_in_the_wide_instance(D, U,
     card = torch.device('cuda', 0)
     assert tfr.rollout_capacity(dyn, pol, card) >= 100
     assert tfr.fused_mode(_cfg(), dyn, pol, device=card) == 'full'
-    from test_torch_value import critic_specs
     from prob_mbrl_tpu_torch.algorithms.value import (Adam,
                                                       make_value_update_fn)
-    tV = critic_specs(False)[1]
-    upd = make_value_update_fn(tV, Adam(1e-3), 15, use_density=False)
-    assert tfr.fused_mode(_cfg(), dyn, pol, upd, value_spec=tV,
-                          device='cpu') == 'grid'
-    with pytest.raises(ValueError, match='does not refit a critic'):
-        tfr.RolloutKernel(dyn, pol, 15, np.ones(15), True, True, True, False,
-                          100, torch.device('cpu'), value_update=upd)
+    # the critic of bench.py's value variant (:106-120) on D states
+    tV = tm.Regressor(tm.MLPSpec(D, 1, (200, 200), dropout=tm.cdropout(0.1)))
+    upd = make_value_update_fn(tV, Adam(1e-4), 15, use_density=False,
+                               polyak=1.0)
+    # with MM and without it (the value variant's)
+    for cfg in (_cfg(), _cfg(mm_states=False, mm_rewards=False)):
+        for device in ('cpu', card):
+            assert tfr.fused_mode(cfg, dyn, pol, upd, value_spec=tV,
+                                  device=device) == 'full'
+    monkeypatch.setattr(tfr, '_device_index', lambda device: 0)
+    k = tfr.RolloutKernel(dyn, pol, 15, np.ones(15), True, True, True, False,
+                          100, torch.device('cpu'), value_update=upd,
+                          w_H=0.5)
+    assert k.lim is tfr.WIDE and k.critic is not None
+    assert k.plan == tfr.rollout_plan(*dims, D, 100, 15, 15,
+                                      tfr.cr.critic_dims(tV), lim=tfr.WIDE)
 
 
 def _jax_registry():
@@ -528,3 +537,57 @@ def test_a_wide_argument_block_points_at_its_squash_and_tip(setups):
     np.testing.assert_array_equal(sq[U:2 * U], 0.0)
     np.testing.assert_array_equal(sq[2 * U:2 * U + D], 0.0)
     np.testing.assert_array_equal(sq[2 * U + D:].reshape(D, D), np.eye(D))
+
+
+@pytest.mark.parametrize('lim', ['narrow', 'wide'])
+def test_the_critic_options_block_mirrors_the_c_struct(lim):
+    """``CriticOpts`` (``csrc/critic_walk.cuh``, its ``in_map`` of kMaxX
+    bytes) and the ctypes mirror of each instance (``critic._opts_type``
+    of the instance's ``Limits.x``): the same fields, offsets and size; the
+    critic's input is held to the instance's widest (``critic_refuses``'
+    ``max_x``)."""
+    L = {'narrow': tfr.NARROW, 'wide': tfr.WIDE}[lim]
+    src = (build.CSRC / 'critic_walk.cuh').read_text()
+    c = _c_struct(src, 'CriticOpts', {}, dict(
+        kMaxLayers=tfr.fm.MAX_LAYERS, kMaxX=L.x))
+    mirror = tfr.cr._opts_type(L.x)
+    assert (mirror is tfr.cr._CriticOpts) == (not L.wide)
+    assert [f[0] for f in c._fields_] == [f[0] for f in mirror._fields_]
+    for name, _ in c._fields_:
+        assert getattr(c, name).offset == getattr(mirror, name).offset, name
+        assert getattr(c, name).size == getattr(mirror, name).size, name
+    assert ctypes.sizeof(c) == ctypes.sizeof(mirror)
+    # a critic of every state dim angle-embedded, over the instance's D
+    D = L.D
+    V = tm.Regressor(tm.MLPSpec(2 * D, 1, (16, 16)),
+                     angle_dims=tuple(range(D)))
+    assert tfr.cr.critic_refuses(V, None, D, L.x) is None
+    too_wide = tm.Regressor(tm.MLPSpec(L.x + 1, 1, (16, 16)))
+    assert f'at most {L.x} inputs' in tfr.cr.critic_refuses(too_wide,
+                                                            max_x=L.x)
+
+
+def test_a_fixed_or_refused_critic_on_wide_models_takes_the_grid_tier(
+        monkeypatch):
+    """On the benchmark's models at (16, 8), where the wide instance
+    refits a critic: a fixed critic (``value_spec`` without an update) and
+    a critic the kernels refuse (layer norm) keep the grid tier, on the CPU
+    and on a card holding 15 clusters; the refit critic takes ``'full'``."""
+    from prob_mbrl_tpu_torch.algorithms.value import (Adam,
+                                                      make_value_update_fn)
+    D, U = 16, 8
+    dyn, pol = _port_specs(D, U, hidden=(200, 200))
+    monkeypatch.setattr(tfr, 'max_clusters', lambda *a: 15)
+    card = torch.device('cuda', 0)
+    mlp = tm.MLPSpec(D, 1, (200, 200), dropout=tm.cdropout(0.1))
+    V = tm.Regressor(mlp)
+    refused = tm.Regressor(dataclasses.replace(mlp, layer_norm=True))
+    assert 'layer norm' in tfr.cr.critic_refuses(refused)
+    for device in ('cpu', card):
+        assert tfr.fused_mode(_cfg(), dyn, pol, value_spec=V,
+                              device=device) == 'grid'
+        for spec, tier in ((refused, 'grid'), (V, 'full')):
+            upd = make_value_update_fn(spec, Adam(1e-4), 15,
+                                       use_density=False, polyak=1.0)
+            assert tfr.fused_mode(_cfg(), dyn, pol, upd, value_spec=spec,
+                                  device=device) == tier
