@@ -2,7 +2,9 @@
 # chip_smoke.py alone in a directory (build/alone; must fail), then
 # chip_smoke.py and the card's tests from an unpacked `git archive` of the
 # staged tree in build/final, then rows 1-9's outputs of that tree against
-# an unpacked parent in build/parent, bit for bit.
+# an unpacked parent in build/parent, bit for bit, and rows 3-9's with a
+# mixture head of 2 and 5 components, and the mixture's distances from
+# float64 (both reported; not a failure).
 set -o pipefail
 mkdir -p chiprun_out
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -22,4 +24,11 @@ python3 tools/torch_kernel_outputs.py dump ../change.pt > ../../chiprun_out/fina
 python3 tools/torch_kernel_outputs.py compare ../parent.pt ../change.pt > ../../chiprun_out/final_compare.log 2>&1; rc3=$?
 echo "bits rc=$rc3"
 tail -1 ../../chiprun_out/final_compare.log
+python3 tools/torch_mixture_outputs.py dump ../parent_mix.pt --root ../parent > ../../chiprun_out/final_mix_parent.log 2>&1
+python3 tools/torch_mixture_outputs.py dump ../change_mix.pt > ../../chiprun_out/final_mix_change.log 2>&1
+python3 tools/torch_mixture_outputs.py compare ../parent_mix.pt ../change_mix.pt > ../../chiprun_out/final_mix_compare.log 2>&1
+echo "mixture bits rc=$?"
+tail -1 ../../chiprun_out/final_mix_compare.log
+python3 tools/torch_mixture_precision.py > ../../chiprun_out/final_mix_precision.log 2>&1
+echo "mixture precision rc=$?"
 exit $(( rc || rc2 || rc3 ))

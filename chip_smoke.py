@@ -415,6 +415,10 @@ ROLLOUT_LAUNCHES = 20  # launches timed in a row per rollout kernel
 GROUPS_B100 = (10, 50)
 GROUPS_B1000 = (100, 500)
 GROUPED_CRITIC = 10  # phase 2c's grouped case: rows 3-5 with the critic
+MIXTURE_KS = (2, 5, 8, 16)  # phase 2m: mixture heads on every row
+MIXTURE_BIG_K = 32  # phase 2m: rows 3-5 at B = MAIN_B
+WIDE_MIXTURE_K = 8  # phase 2w: a mixture head at D = 16, U = 8
+MANY_K = 8  # phase 5m: the main path with --dyn_components 8
 GROUPS_MAIN = 10  # phase 5g: the main path with mm_groups
 GROUPED_ROUTE_ITERS = 5  # phase 5g: iterations on the utils.rollout route
 ITER_MS = {}  # ms an iteration of each mc_pilco run, by its tag
@@ -854,7 +858,11 @@ def float64(fn):
     D = 5 has a covariance whose eigenvalues span ~1e-5, and the float32
     plain version's autograd through the group's mean and Cholesky loses
     up to ~4e-3 of a gradient there, where the kernels' adjoint keeps
-    ~2e-6 (PERF.md)."""
+    ~2e-6 (PERF.md). Also the reference of a mixture head's rows (phase
+    2m): the float32 plain version's autograd through the head's pick lost
+    up to 1.7e-3 of a gradient at K = 32 and 8.3e-3 of the grid's d
+    action_eps at D = 16, K = 8, where the kernels kept 1.5e-6 of float64
+    (``tools/torch_mixture_precision.py``)."""
     return lambda *a, **k: fn(*in_float64(a), **in_float64(k))
 
 
@@ -1314,14 +1322,14 @@ def check_step(B, env='Cartpole', tag='phase 2', saturated=False,
                learned=False, groups=None, components=0, options=()):
     """The step kernels against the plain step at batch B on ``env``'s
     shapes (``phase_step_kernels``' tolerance; ``saturated``, ``learned``,
-    ``groups`` and ``components`` as ``step_problem``; grouped, against the
-    plain step in float64, ``float64``; a mixture head through
-    ``held_against``; ``options`` as ``step_problem``); the largest error
-    of each."""
+    ``groups`` and ``components`` as ``step_problem``; grouped or with a
+    mixture head, against the plain step in float64, ``float64``; a mixture
+    head through ``held_against``; ``options`` as ``step_problem``); the
+    largest error of each."""
     kernel, plain, leaves, states, eps, cot, (k, _, _) = step_problem(
         B, seed=B, env=env, saturated=saturated, learned=learned,
         groups=groups, components=components, options=options)
-    if groups:
+    if groups or components:
         plain = functools.partial(plain, f64=True)
     env = env_label(env, learned)
     if groups:
@@ -1670,10 +1678,10 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
                   options=()):
     """The whole-rollout kernels against the plain version at batch B on
     ``env``'s shapes (``phase_rollout_kernels``' tolerance; ``saturated``,
-    ``groups`` and ``components`` as ``step_problem``; grouped, against the
-    plain version in float64, ``float64``; a mixture head through
-    ``held_against``; ``options`` as ``step_problem``); the largest error
-    of each."""
+    ``groups`` and ``components`` as ``step_problem``; grouped or with a
+    mixture head, against the plain version in float64, ``float64``; a
+    mixture head through ``held_against``; ``options`` as
+    ``step_problem``); the largest error of each."""
     kloss, kvg, plain, pp, leaves, args, models = rollout_problem(
         B, B, mean_only, env=env, saturated=saturated, learned=learned,
         groups=groups, components=components, options=options)
@@ -1693,7 +1701,7 @@ def check_rollout(B, mean_only, env='Cartpole', tag='phase 2',
                 for scale in (1.0, 1 + 1e-6)]
         return forced[g]
 
-    if groups:
+    if groups or components:
         plain = float64(plain)
     got = rollout_outputs(kloss, pp, leaves, args)
     vl, vm, vgrads, _ = kvg(pp, *args)
@@ -1974,15 +1982,16 @@ def check_grid(B, mm_rewards, env='Cartpole', tag='phase 2',
     """The grid kernels against the plain grid rollout at batch B on
     ``env``'s shapes, states moment-matched (``phase_grid_kernels``'
     tolerance; ``saturated``, ``learned``, ``groups`` and ``components``
-    as ``step_problem``; grouped, against the plain version in float64,
-    ``float64``; a mixture head through ``held_against``; ``options`` as
-    ``step_problem``); the largest error of each."""
+    as ``step_problem``; grouped or with a mixture head, against the plain
+    version in float64, ``float64``; a mixture head through
+    ``held_against``; ``options`` as ``step_problem``); the largest error
+    of each."""
     names = ['fused_grid_fwd', 'fused_grid_bwd']
     kern, plain, pp, leaves, args, cot, (dyn, pol, _, _) = grid_problem(
         B, B, True, mm_rewards, env=env, saturated=saturated,
         learned=learned, groups=groups, components=components,
         options=options)
-    if groups:
+    if groups or components:
         plain = float64(plain)
     got = grid_outputs(kern, pp, leaves, args, cot)
 
@@ -2638,43 +2647,66 @@ def phase_env_kernels(rows, card):
 # ---------------------------------------------------------------------------
 
 
+def grid_batch(env='Cartpole', components=0):
+    """GRID_B, or the particles the card holds at once at ``env``'s shapes
+    with a mixture head of ``components`` where that is fewer (the grid
+    kernels' cooperative launch needs every cluster resident)."""
+    dyn, pol = env_models(env, components=components)[:2]
+    return min(GRID_B, fr.rollout_capacity(dyn, pol, 'cuda'))
+
+
 def phase_mixture_kernels(rows, card):
     """Rows 3-9 with a ``GaussianMixtureDensity`` dynamics head (the
     kernels' ``StepArgs::K``) against their plain versions, each pick on an
-    edge allowed to differ (``held_against``): Cartpole's shapes with K = 2
-    (``--dyn_components 2``, a head of 23) and K = fr.MAX_K = 5 (a head of
-    56), rows 3-7 at B = 100 (3-5 with the reward mean-only shortcut and
-    without) and rows 8-9 at B = 1000; rows 3-5 at B = 100 with K = 2 and a
-    learned reward (a head of 27), grouped MM (G = 10) and the critic refit
-    (B = 100, no MM, phase 2c's first case). Each row's time, its bound and
-    its plain version's time at both K beside the diagonal head's from
-    this call (``rows``) and the card's name and power limit (``card``)."""
-    for K in (2, fr.MAX_K):
+    edge allowed to differ (``held_against``): Cartpole's shapes with K in
+    MIXTURE_KS (2, 5, 8 and 16: heads of 23, 56, 89 and 177), rows 3-7 at
+    B = 100 (3-5 with the reward mean-only shortcut and without) and rows
+    8-9 at GRID_B or, where the card holds fewer particles at once, that
+    many (``grid_batch``: 960 at K = 16 on an H100); rows 3-5 at B = 100
+    with K = MIXTURE_BIG_K = 32 (a head of 353, without the shortcut), with
+    K = 2 and a learned reward (a head of 27), grouped MM (G = 10) and the
+    critic refit (B = 100, no MM, phase 2c's first case). Each K's capacity
+    and launch plans, and each row's time, its bound and its plain
+    version's time beside K = 5's and the diagonal head's from this call
+    (``rows``), with the card's name and power limit (``card``)."""
+    for K in MIXTURE_KS:
         check_step(MAIN_B, tag='phase 2m', components=K)
         for mean_only in (True, False):
             check_rollout(MAIN_B, mean_only, tag='phase 2m', components=K)
-        check_grid(GRID_B, True, tag='phase 2m', components=K)
+        check_grid(grid_batch(components=K), True, tag='phase 2m',
+                   components=K)
+    check_rollout(MAIN_B, False, tag='phase 2m', components=MIXTURE_BIG_K)
     check_rollout(MAIN_B, False, tag='phase 2m', learned=True, components=2)
     check_rollout(MAIN_B, True, tag='phase 2m', groups=10, components=2)
     check_critic(MAIN_B, False, tag='phase 2m', components=2)
-    for K in (2, fr.MAX_K):
-        steps, plans = step_timings(MAIN_B, components=K)
+    five = {}
+    for K in MIXTURE_KS + (MIXTURE_BIG_K,):
         dyn, pol = env_models('Cartpole', components=K)[:2]
-        log(f'[phase 2m] mixture K={K} launch plans: step B={MAIN_B} '
-            f'{plans}; rollout B={MAIN_B} {k_plan(MAIN_B, components=K)}; '
-            f'grid B={GRID_B} {k_plan(GRID_B, components=K)}; the card '
-            f'holds {fr.rollout_capacity(dyn, pol, "cuda")} particles of '
-            'the whole-rollout kernel at once')
-        times = {**steps, **rollout_timings(split=False, components=K),
-                 **grid_timings(GRID_B, components=K)[0]}
+        Bg = grid_batch(components=K)
+        times = rollout_timings(split=False, components=K)
+        plans = f'rollout B={MAIN_B} {k_plan(MAIN_B, components=K)}'
+        if K != MIXTURE_BIG_K:
+            steps, step_plan = step_timings(MAIN_B, components=K)
+            times = {**steps, **times,
+                     **grid_timings(Bg, components=K)[0]}
+            plans = (f'step B={MAIN_B} {step_plan}; {plans}; grid B={Bg} '
+                     f'{k_plan(Bg, components=K)}')
+        log(f'[phase 2m] mixture K={K} (a head of {11 * K + 1}) launch '
+            f'plans: {plans}; the card holds '
+            f'{fr.rollout_capacity(dyn, pol, "cuda")} particles of the '
+            'whole-rollout kernel at once')
         for name, v in times.items():
-            B = GRID_B if name.startswith('fused_grid') else MAIN_B
+            B = Bg if name.startswith('fused_grid') else MAIN_B
+            beside = (f' (K=5 {five[name]["ms"]:.4f} ms)'
+                      if name in five and K != 5 else '')
             log(f'[phase 2m] {name} B={B}: Cartpole mixture K={K} kernel '
-                f'{v["ms"]:.4f} ms beside the diagonal head '
+                f'{v["ms"]:.4f} ms{beside} beside the diagonal head '
                 f'{rows[name]["ms"]:.4f} ms; plain {v["plain_ms"]:.4f} ms '
                 f'(diagonal {rows[name]["plain_ms"]:.4f}); bound '
                 f'{v["bound_ms"]:.6f} ms ({v["bound_by"]}; diagonal '
                 f'{rows[name]["bound_ms"]:.6f}); {card}')
+        if K == 5:
+            five = times
 
 
 # ---------------------------------------------------------------------------
@@ -2988,7 +3020,10 @@ def phase_wide_kernels(env_rows, card):
     ``WIDE_ENVS``' shapes, the JAX benchmark's (D = 5, U = 1, a tip of 5
     rows) and D = 16, U = 8, rows 3-7 at B = MAIN_B and 8-9 at GRID_B;
     grouped MM at D = 16 (``WIDE_GROUPS``, against the plain version in
-    float64); the wide instance on rendezvous's D = 8, U = 4 inputs against
+    float64); a mixture head of WIDE_MIXTURE_K = 8 components at D = 16
+    (a head of 265; rows 8-9 at ``grid_batch``, the 480 particles an H100
+    holds at once), its times and bounds beside the diagonal head's; the
+    wide instance on rendezvous's D = 8, U = 4 inputs against
     the narrow instance's outputs (``wide_against_narrow``). Then each wide
     row's time, bound and plain time beside the narrow instance's at D = 8
     (rendezvous, phase 2b's ``env_rows``) with the card's name and power
@@ -3015,6 +3050,10 @@ def phase_wide_kernels(env_rows, card):
     note(check_step(MAIN_B, env, 'phase 2w', groups=g_main))
     note(check_rollout(MAIN_B, False, env, 'phase 2w', groups=g_main))
     note(check_grid(GRID_B, True, env, 'phase 2w', groups=g_grid))
+    Km, Bm = WIDE_MIXTURE_K, grid_batch(env, WIDE_MIXTURE_K)
+    note(check_step(MAIN_B, env, 'phase 2w', components=Km))
+    note(check_rollout(MAIN_B, False, env, 'phase 2w', components=Km))
+    note(check_grid(Bm, True, env, 'phase 2w', components=Km))
     wide_against_narrow(WIDE_ON_NARROW)
     narrow = env_rows[WIDE_ON_NARROW]
     rows = {}
@@ -3036,6 +3075,24 @@ def phase_wide_kernels(env_rows, card):
                 f'bound {v["bound_ms"]:.6f} ms ({v["bound_by"]}; D=8 '
                 f'{n8["bound_ms"]:.6f}); {card}')
         rows = {n + '_wide': v for n, v in times.items()}
+    dyn, pol, D, U = env_models(env, components=Km)
+    steps, plans = step_timings(MAIN_B, env, components=Km)
+    log(f'[phase 2w] {env} mixture K={Km} launch plans: step B={MAIN_B} '
+        f'{plans}; rollout B={MAIN_B} {k_plan(MAIN_B, env, components=Km)}; '
+        f'grid B={Bm} {k_plan(Bm, env, components=Km)}; the card holds '
+        f'{fr.rollout_capacity(dyn, pol, "cuda")} particles of the '
+        'whole-rollout kernel at once')
+    times = {**steps, **rollout_timings(env, False, components=Km),
+             **grid_timings(Bm, env=env, components=Km)[0]}
+    for name, v in times.items():
+        grid = name.startswith('fused_grid')
+        B, diag = (Bm if grid else MAIN_B), rows[name + '_wide']
+        log(f'[phase 2w] {name} B={B}: {env} (D={D}, U={U}) mixture K={Km} '
+            f'wide instance {v["ms"]:.4f} ms beside the diagonal head '
+            f'{diag["ms"]:.4f} ms (B={GRID_B if grid else MAIN_B}); '
+            f'plain {v["plain_ms"]:.4f} ms (diagonal '
+            f'{diag["plain_ms"]:.4f}); bound {v["bound_ms"]:.6f} ms '
+            f'({v["bound_by"]}; diagonal {diag["bound_ms"]:.6f}); {card}')
     for name, v in rows.items():
         v['max_abs_err'] = worst[name]
     cases = ((WIDE_ON_NARROW, fr.NARROW), (WIDE_ON_NARROW, fr.WIDE),
@@ -3345,7 +3402,7 @@ def loss_and_grads(opt, pol_params, x0, dyn_params, dyn_stats, noise,
 
 
 def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
-                  groups=None, options=None, plain_kernels=False):
+                  groups=None, options=None, plain_kernels=False, f64=False):
     """One iteration's loss and policy grads on the same initial states and
     noise, through ``kernel_path(pol_params, x0, noise as drawn) -> (loss,
     flat grads)`` and through the plain path (``utils.rollout`` on unfused
@@ -3356,7 +3413,8 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
     MLP's plain version, ``plain_fused_mlp``). The tolerance is the
     plain path's own sensitivity to x0 moved by 1e-6 relative (times 3), at
     least 1e-4 relative on the loss and 1e-3 of max|grad| on the grads.
-    Grouped, the plain path runs in float64 (``float64`` says why), and the
+    Grouped or with ``f64`` (a mixture head), the plain path runs in
+    float64 (``float64`` says why); grouped, the
     float32 plain path's largest distance from it at x0 and at x0 moved by
     +-1e-6 relative (times 3) is one more floor of the tolerance: where the
     rewards lie far in the exp-quadratic's tail (a loss of 1e-12 after
@@ -3380,7 +3438,7 @@ def compare_paths(setup, kernel_path, tag, seed=SEED, T=MAIN_T, B=MAIN_B,
     step = opt_p.sample_step_noise(seeded_generator('cuda', seed, 3), 'cuda')
     extra = () if step is None else (step,)
     lk, gk = kernel_path(pol_params, x0, noise, *extra)
-    cast = in_float64 if groups else (lambda x: x)
+    cast = in_float64 if groups or f64 else (lambda x: x)
     with plain_path():
         lp, gp = loss_and_grads(opt_p, *cast((pol_params, x0, dyn_params,
                                               dyn_stats, noise, *extra)))
@@ -3555,7 +3613,8 @@ def phase_mc_pilco(iters, fused_rollout, tag, want, tier, seed=SEED,
                    init_noise),
                   lambda p, x0, noise, *step: loss_and_grads(
                       opt, p, x0, dyn_params, dyn_stats, noise, *step),
-                  tag, seed, T, B, groups, options, 'bf16' in model_options)
+                  tag, seed, T, B, groups, options, 'bf16' in model_options,
+                  f64=bool(components))
     return launches
 
 
@@ -4433,7 +4492,8 @@ SHARD_TIMEOUT = 300  # seconds a call to the ranks may take before it fails
 # (ranks, mm_groups, moment matching, mixture components: 0 a diagonal
 # head)
 K8_CASES = ((2, GROUPS_MAIN, True, 0), (4, 2 * GROUPS_MAIN, True, 0),
-            (2, None, False, 0), (2, GROUPS_MAIN, True, 2))
+            (2, None, False, 0), (2, GROUPS_MAIN, True, 2),
+            (2, GROUPS_MAIN, True, 8))
 SHARD_ROUTE_ITERS = 5  # phase 11c: iterations of the sharded route
 SHARD_FIT_ITERS = 100  # phase 11e: the episode's fit steps
 SHARD_POL_ITERS = 50  # phase 11e: its policy iterations
@@ -5926,6 +5986,15 @@ def main():
     log(f'[phase 5m] {ITER_MS["phase 5m"]:.3f} ms an iteration with the '
         f'mixture head (K=2, a head of 23) beside phase 5\'s '
         f'{ITER_MS["phase 5"]:.3f} ms (host clock, this call)')
+    # and with --dyn_components MANY_K: still one launch an iteration and
+    # nothing else
+    tag = f'phase 5m K={MANY_K}'
+    phase_mc_pilco(ITERS, None, tag, expect(fused_rollout_vg=ITERS), 'full',
+                   components=MANY_K)
+    log(f'[phase 5m] {ITER_MS[tag]:.3f} ms an iteration with the mixture '
+        f'head (K={MANY_K}, a head of {11 * MANY_K + 1}) beside K=2\'s '
+        f'{ITER_MS["phase 5m"]:.3f} ms and phase 5\'s '
+        f'{ITER_MS["phase 5"]:.3f} ms (host clock, this call); {card}')
     # phase 5o: the main path with the model options B1-B3, the same one
     # launch an iteration and nothing else
     phase_mc_pilco(OPTION_ITERS, None, 'phase 5o',

@@ -232,72 +232,120 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---- a mixture dynamics head, one row -----------------------------------------
 
-// The pick of one row r of a mixture head of K components over E dims (hd:
-// the tile's mixture rows, Lay::mix), in the plain version's order of
-// operations: temp = 0.1 + softplus(lt), lp = logit / temp, soft =
-// softmax((log_softmax(lp) + z_pi) / 0.1), the hard pick idx = sum_j (u_cat
-// > cumsum(soft)_j) (K past the last sum: no component, as jax.nn.one_hot
-// has it), and the straight-through weights k = (hard - soft) + soft; for
-// the backward also pi = softmax(lp), lp and temp.
+// The pick of one row r of a mixture head of K components over E dims, held
+// as the row's scalars (any K: no array sized by K). hd: the tile's mixture
+// rows (Lay::mix), the logits at o = 2 E K, the log temperature at o + K,
+// then z_pi (K rows) and u_cat. In the plain version's order of operations:
+// temp = 0.1 + softplus(lt), lp = logit / temp, soft = softmax((log_softmax(lp)
+// + z_pi) / 0.1), the hard pick idx = sum_j (u_cat > cumsum(soft)_j) (K past
+// the last sum: no component, as jax.nn.one_hot has it), and the
+// straight-through weights k = (hard - soft) + soft; for the backward also pi
+// = softmax(lp). mx and lse are lp's max and log-sum-exp, my and sy those of
+// the second softmax's arguments (sy the sum of their exponentials). A
+// component's quantities come from these by the helpers below, one for each,
+// whether from a cached value or recomputed from hd, so every use has the
+// same operations and bits.
 struct MixRow {
-  float k[kMaxK], soft[kMaxK], pi[kMaxK], lp[kMaxK], temp;
+  const float* hd;
+  int TRP, r, K, o;
+  float temp, mx, lse, my, sy;
+  int idx;
 };
 
-__device__ void mix_pick(const float* hd, int TRP, int r, int K, int E, MixRow& m) {
-  const int o = 2 * E * K;  // the logits' first row; the log temperature at o + K
-  m.temp = 0.1f + softplus_f(hd[(o + K) * TRP + r]);
-  float mx = 0.f;
+__device__ __forceinline__ float mix_at(const MixRow& m, int row) { return m.hd[row * m.TRP + m.r]; }
+
+// lp_j = logit_j / temp
+__device__ __forceinline__ float mix_lp(const MixRow& m, int j) { return mix_at(m, m.o + j) / m.temp; }
+
+// log_softmax(lp)_j
+__device__ __forceinline__ float mix_lsm_of(const MixRow& m, float lp) { return (lp - m.mx) - m.lse; }
+
+// the second softmax's argument (log_softmax(lp)_j + z_pi_j) / 0.1
+__device__ __forceinline__ float mix_y_of(const MixRow& m, int j, float lsm) {
+  return (lsm + mix_at(m, m.o + m.K + 1 + j)) / 0.1f;
+}
+
+__device__ __forceinline__ float mix_soft_of(const MixRow& m, float y) { return expf(y - m.my) / m.sy; }
+
+// the straight-through weight k_j = (hard_j - soft_j) + soft_j
+__device__ __forceinline__ float mix_k_of(const MixRow& m, int j, float soft) {
+  return ((j == m.idx ? 1.f : 0.f) - soft) + soft;
+}
+
+__device__ __forceinline__ float mix_soft(const MixRow& m, int j) {
+  return mix_soft_of(m, mix_y_of(m, j, mix_lsm_of(m, mix_lp(m, j))));
+}
+
+// The row's scalars, with S (K rows of scratch, [j][TRP]) holding each
+// component's lp, then its y, then its soft weight, which it leaves there.
+__device__ void mix_pick(const float* hd, float* S, int TRP, int r, int K, int E, MixRow& m) {
+  m.hd = hd;
+  m.TRP = TRP;
+  m.r = r;
+  m.K = K;
+  m.o = 2 * E * K;
+  m.temp = 0.1f + softplus_f(mix_at(m, m.o + K));
+  float* s = S + r;
+  m.mx = 0.f;
   for (int j = 0; j < K; ++j) {
-    m.lp[j] = hd[(o + j) * TRP + r] / m.temp;
-    mx = j ? fmaxf(mx, m.lp[j]) : m.lp[j];
+    const float lp = mix_lp(m, j);
+    s[j * TRP] = lp;
+    m.mx = j ? fmaxf(m.mx, lp) : lp;
   }
   float se = 0.f;
-  for (int j = 0; j < K; ++j) se += expf(m.lp[j] - mx);
-  const float lse = logf(se);
-  float y[kMaxK], my = 0.f;
+  for (int j = 0; j < K; ++j) se += expf(s[j * TRP] - m.mx);
+  m.lse = logf(se);
+  m.my = 0.f;
   for (int j = 0; j < K; ++j) {
-    const float lsm = (m.lp[j] - mx) - lse;
-    m.pi[j] = expf(lsm);
-    y[j] = (lsm + hd[(o + K + 1 + j) * TRP + r]) / 0.1f;
-    my = j ? fmaxf(my, y[j]) : y[j];
+    const float y = mix_y_of(m, j, mix_lsm_of(m, s[j * TRP]));
+    s[j * TRP] = y;
+    m.my = j ? fmaxf(m.my, y) : y;
   }
-  float sy = 0.f;
-  for (int j = 0; j < K; ++j) {
-    y[j] = expf(y[j] - my);
-    sy += y[j];
-  }
-  const float u = hd[(o + 2 * K + 1) * TRP + r];
+  m.sy = 0.f;
+  for (int j = 0; j < K; ++j) m.sy += expf(s[j * TRP] - m.my);
+  const float u = mix_at(m, m.o + 2 * K + 1);
   float cdf = 0.f;
   int idx = 0;
   for (int j = 0; j < K; ++j) {
-    m.soft[j] = y[j] / sy;
-    cdf += m.soft[j];
+    const float soft = mix_soft_of(m, s[j * TRP]);
+    s[j * TRP] = soft;
+    cdf += soft;
     idx += u > cdf ? 1 : 0;
   }
-  for (int j = 0; j < K; ++j) m.k[j] = ((j == idx ? 1.f : 0.f) - m.soft[j]) + m.soft[j];
+  m.idx = idx;
 }
 
 // The mixture head's sample of a tile, one thread a row (ts: the tile's
-// small arrays, xp: the states, feature-major): the weights k of each row
-// (mix_pick), then mean = sum_j mean_j k_j and std = exp(sum_j ls_j k_j)
-// of each dim, mean_j = mr_j sy + my and ls_j = upper_clip(lsr_j) + log sy,
-// nxt = s + mean + z std; the output D of a learned reward goes to r.
+// small arrays, xp: the states, feature-major; S: K rows of scratch for
+// mix_pick): the weights k of each row, then mean = sum_j mean_j k_j and
+// std = exp(sum_j ls_j k_j) of each dim, mean_j = mr_j sy + my and ls_j =
+// upper_clip(lsr_j) + log sy, nxt = s + mean + z std; the output D of a
+// learned reward goes to r. The sums run over the components in order, in
+// the tile's rows of a diagonal head's outputs (kTDout: mean_e at e, ls_e at
+// kMaxE + e), which a mixture leaves free (its outputs are at Lay::mix).
 // Kept out of line so that a diagonal head's step keeps its registers.
 __device__ __noinline__ void mix_sample(const Step& st, const float* hd, float* ts,
-                                        const float* xp, int TR, int TRP, int nrows) {
+                                        const float* xp, float* S, int TR, int TRP, int nrows) {
   const int D = st.D, K = st.K, E = head_dims(st.reward_kind, D);
   for (int r = threadIdx.x; r < TR; r += blockDim.x) {
     const bool in = r < nrows;
-    MixRow m;
-    if (in) mix_pick(hd, TRP, r, K, E, m);
-    for (int e = 0; e < E; ++e) {
-      float mean = 0.f, ls = 0.f;
-      for (int j = 0; j < K && in; ++j) {
-        const float mr = hd[(e * K + j) * TRP + r], lsr = hd[(E * K + e * K + j) * TRP + r];
-        mean += (mr * st.sy[e] + st.my[e]) * m.k[j];
-        ls += (upper_clip(lsr, st.dyn_upper) + logf(st.sy[e])) * m.k[j];
+    float* mean = ts + kTDout * TRP + r;
+    float* ls = ts + (kTDout + kMaxE) * TRP + r;
+    for (int e = 0; e < E; ++e) mean[e * TRP] = ls[e * TRP] = 0.f;
+    if (in) {
+      MixRow m;
+      mix_pick(hd, S, TRP, r, K, E, m);
+      for (int j = 0; j < K; ++j) {
+        const float k = mix_k_of(m, j, S[j * TRP + r]);
+        for (int e = 0; e < E; ++e) {
+          const float mr = hd[(e * K + j) * TRP + r], lsr = hd[(E * K + e * K + j) * TRP + r];
+          mean[e * TRP] += (mr * st.sy[e] + st.my[e]) * k;
+          ls[e * TRP] += (upper_clip(lsr, st.dyn_upper) + logf(st.sy[e])) * k;
+        }
       }
-      const float v = in ? mean + ts[(kTZd + e) * TRP + r] * expf(ls) : 0.f;
+    }
+    for (int e = 0; e < E; ++e) {
+      const float v = in ? mean[e * TRP] + ts[(kTZd + e) * TRP + r] * expf(ls[e * TRP]) : 0.f;
       if (e < D)
         ts[(kTNxt + e) * TRP + r] = in ? xp[e * TRP + r] + v : 0.f;
       else
@@ -313,46 +361,58 @@ __device__ __noinline__ void mix_sample(const Step& st, const float* hd, float* 
 // weights' cotangent dk_j = sum_e g_e mean_ej + gls_e ls_ej goes through the
 // softmax (and its 1 / 0.1), log_softmax and lp = logit / temp into the
 // logits and, through temp = 0.1 + softplus(lt), into lt (none through the
-// hard pick).
-__device__ __noinline__ void mix_vjp(const Step& st, const float* hd, const float* ts,
-                                     const float* g_r, float* X, int TR, int TRP, int nrows) {
+// hard pick). Scratch: ls_e and then gls_e in the tile's kTDout rows (as
+// mix_sample); X's rows of the logits (o + j) hold the soft weights
+// (mix_pick), then dk, then the log_softmax's cotangent, before their final
+// values.
+__device__ __noinline__ void mix_vjp(const Step& st, const float* hd, float* ts, const float* g_r,
+                                     float* X, int TR, int TRP, int nrows) {
   const int D = st.D, K = st.K, E = head_dims(st.reward_kind, D), o = 2 * E * K;
   for (int r = threadIdx.x; r < TR; r += blockDim.x) {
     if (r >= nrows) {
       for (int i = 0; i <= o + K; ++i) X[i * TRP + r] = 0.f;
       continue;
     }
+    float* S = X + o * TRP;
     MixRow m;
-    mix_pick(hd, TRP, r, K, E, m);
-    float gk[kMaxK];
-    for (int j = 0; j < K; ++j) gk[j] = 0.f;
+    mix_pick(hd, S, TRP, r, K, E, m);
+    float* gls = ts + kTDout * TRP + r;
+    for (int e = 0; e < E; ++e) gls[e * TRP] = 0.f;
+    for (int j = 0; j < K; ++j) {
+      const float k = mix_k_of(m, j, S[j * TRP + r]);
+      for (int e = 0; e < E; ++e)
+        gls[e * TRP] += (upper_clip(hd[(E * K + e * K + j) * TRP + r], st.dyn_upper) + logf(st.sy[e])) * k;
+    }
     for (int e = 0; e < E; ++e) {
       const float g = e < D ? ts[(kTGnxt + e) * TRP + r] : g_r[r];
-      const float lsy = logf(st.sy[e]);
-      float ls = 0.f;
-      for (int j = 0; j < K; ++j)
-        ls += (upper_clip(hd[(E * K + e * K + j) * TRP + r], st.dyn_upper) + lsy) * m.k[j];
-      const float gls = (g * ts[(kTZd + e) * TRP + r]) * expf(ls);
-      for (int j = 0; j < K; ++j) {
-        const float mr = hd[(e * K + j) * TRP + r], lsr = hd[(E * K + e * K + j) * TRP + r];
-        X[(e * K + j) * TRP + r] = g * m.k[j] * st.sy[e];
-        X[(E * K + e * K + j) * TRP + r] = gls * m.k[j] * sigmoid_f(st.dyn_upper - lsr);
-        gk[j] += g * (mr * st.sy[e] + st.my[e]) + gls * (upper_clip(lsr, st.dyn_upper) + lsy);
-      }
+      gls[e * TRP] = (g * ts[(kTZd + e) * TRP + r]) * expf(gls[e * TRP]);
     }
     float dot = 0.f, sl = 0.f, gt = 0.f;
-    for (int j = 0; j < K; ++j) dot += gk[j] * m.soft[j];
-    float glsm[kMaxK];
     for (int j = 0; j < K; ++j) {
-      glsm[j] = m.soft[j] * (gk[j] - dot) / 0.1f;
-      sl += glsm[j];
+      const float soft = S[j * TRP + r], k = mix_k_of(m, j, soft);
+      float gk = 0.f;
+      for (int e = 0; e < E; ++e) {
+        const float g = e < D ? ts[(kTGnxt + e) * TRP + r] : g_r[r];
+        const float lsy = logf(st.sy[e]), ge = gls[e * TRP];
+        const float mr = hd[(e * K + j) * TRP + r], lsr = hd[(E * K + e * K + j) * TRP + r];
+        X[(e * K + j) * TRP + r] = g * k * st.sy[e];
+        X[(E * K + e * K + j) * TRP + r] = ge * k * sigmoid_f(st.dyn_upper - lsr);
+        gk += g * (mr * st.sy[e] + st.my[e]) + ge * (upper_clip(lsr, st.dyn_upper) + lsy);
+      }
+      dot += gk * soft;
+      S[j * TRP + r] = gk;
     }
     for (int j = 0; j < K; ++j) {
-      const float glp = glsm[j] - m.pi[j] * sl;
+      const float glsm = mix_soft(m, j) * (S[j * TRP + r] - dot) / 0.1f;
+      S[j * TRP + r] = glsm;
+      sl += glsm;
+    }
+    for (int j = 0; j < K; ++j) {
+      const float lp = mix_lp(m, j), glp = S[j * TRP + r] - expf(mix_lsm_of(m, lp)) * sl;
       X[(o + j) * TRP + r] = glp / m.temp;
-      gt -= glp * m.lp[j];
+      gt -= glp * lp;
     }
-    X[(o + K) * TRP + r] = gt / m.temp * sigmoid_f(hd[(o + K) * TRP + r]);
+    X[(o + K) * TRP + r] = gt / m.temp * sigmoid_f(mix_at(m, o + K));
   }
 }
 
@@ -1121,7 +1181,9 @@ __device__ void step_fwd(Ctx& c, const Step& st, const float* srows, const float
                 st.dyn.dims[st.dyn.n + 1], TR, TRP, nrows);
     __syncthreads();
   }
-  if (K) mix_sample(st, hd, ts, xp, TR, TRP, nrows);
+  // scratch: the exchange region the dynamics MLP's last layer has read, which
+  // no CTA writes before this one's next cluster barrier
+  if (K) mix_sample(st, hd, ts, xp, c.region(c.pass + 1), TR, TRP, nrows);
   for (int e = tid; e < TR * D && !K; e += nt) {
     const int r = e / D, k = e - r * D;
     const float mr = ts[(kTDout + k) * TRP + r], lsr = ts[(kTDout + E + k) * TRP + r];

@@ -63,7 +63,6 @@ constexpr int kMaxD = Limits::kMaxD;
 constexpr int kMaxU = Limits::kMaxU;
 constexpr int kMaxTip = Limits::kMaxTip;
 constexpr int kTries = 8;    // jitters of the safe Cholesky
-constexpr int kMaxK = 5;     // components of a mixture dynamics head
 // widest MLP input: the dynamics' D + U with every state dim angle-embedded
 constexpr int kMaxX = 2 * kMaxD + kMaxU;
 
@@ -508,7 +507,7 @@ bool fill_step(Step& st, const StepArgs* a) {
   if (!a || a->B < 2 || a->D < 1 || a->D > kMaxD || a->U < 1 || a->U > kMaxU
       || a->ntip < 0 || a->ntip > kMaxTip
       || a->reward_kind < kExpQuadReward || a->reward_kind > kLearnedReward
-      || a->K < 0 || a->K > kMaxK)
+      || a->K < 0)
     return false;
   if (a->reward_kind == kLanderReward && (a->D != 8 || a->U != 2 || a->ntip != 0)) return false;
   if (a->reward_kind == kLearnedReward && a->ntip != 0) return false;

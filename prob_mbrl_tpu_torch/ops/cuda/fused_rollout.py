@@ -48,12 +48,17 @@ A learned reward (``DynamicsModel`` without ``reward_func``) is the kernels'
 reward kind ``LEARNED_KIND``: the dynamics head has 2 (D + 1) outputs and its
 output D is the reward, sampled like a state delta and added to nothing.
 
-A mixture dynamics head (``GaussianMixtureDensity`` of K <= ``MAX_K``
-components, ``StepArgs::K``; 0 for a diagonal head) samples each particle's
-deltas from one of its K scaled components, picked by the straight-through
+A mixture dynamics head (``GaussianMixtureDensity`` of K components,
+``StepArgs::K``; 0 for a diagonal head) samples each particle's deltas from
+one of its K scaled components, picked by the straight-through
 Gumbel-softmax of JAX's head from the pinned noise ``z_pi`` and ``u_cat``
 (``z_normal`` in the place of the diagonal head's ``z``); the plans count its
-rows in the tile (``mixture_rows``, the plans' ``components`` argument).
+rows in the tile (``mixture_rows``, the plans' ``components`` argument). The
+kernels hold a row's pick as its scalars alone, so K is bounded only by the
+room a plan has: the tile's mixture rows and the head's width in the
+exchange regions grow with K, the particles the card holds at once
+(``max_particles``) fall, and a batch beyond them takes the step tier; a K
+whose step tile does not fit is refused with that reason.
 
 The model options the kernels take (``walk_options``): spectral norm, whose
 normalized weights (``MLPSpec.weight``, a function of the params alone) are
@@ -114,7 +119,6 @@ from . import fused_mlp as fm
 MAX_D = 8        # kMaxD of csrc/fused_step.cu: state dims
 MAX_U = 4        # kMaxU: action dims
 MAX_TIP = 4      # kMaxTip: coordinates of the reward's tip
-MAX_K = 5        # kMaxK: components of a mixture dynamics head
 MAX_X = 2 * MAX_D + MAX_U  # kMaxX: widest MLP input (embedded angles)
 
 
@@ -475,9 +479,6 @@ def _refuses_at(dyn, pol, lim):
         return ('the step kernels take a DiagGaussianDensity or '
                 'GaussianMixtureDensity dynamics head only')
     K = head_components(dyn)
-    if K > MAX_K:
-        return (f'the step kernels take a mixture head of at most {MAX_K} '
-                f'components, not {K}')
     for spec in (pol.mlp, reg.mlp):
         if spec.layer_norm:
             return f'layer norm is not in the step kernels: {LAYER_NORM_LIMIT}'
@@ -521,7 +522,11 @@ def _refuses_at(dyn, pol, lim):
     if step_plan(_mlp_dims(pol.mlp), _mlp_dims(reg.mlp), D, 2, True,
                  components=K, options=walk_options(dyn, pol),
                  lim=lim) is None:
-        return 'the step kernels\' tiles do not fit in shared memory'
+        mix = (f'; a mixture head of {K} components is '
+               f'{mixture_rows(_mlp_dims(reg.mlp), K)} rows of a tile'
+               if K else '')
+        return ('the step kernels\' tiles do not fit in shared memory (the '
+                f'{lim.name} instance\'s {lim.smem_max} bytes a CTA{mix})')
     return None
 
 

@@ -22,7 +22,8 @@ against the plain version in float64, their bits and launch counts, and
 ``mc_pilco`` with groups on the whole-rollout tier), K8, row 5 on each
 of two gloo ranks' particle slices with one all-reduce, against the
 unsharded row 5, rows 3-9 with a mixture dynamics head
-(``GaussianMixtureDensity``, K = 2 and 5: ``chip_smoke``'s mixture holds,
+(``GaussianMixtureDensity``, K = 2, 5 and 8, and 8 at D = 16 in the wide
+instance: ``chip_smoke``'s mixture holds,
 with a learned reward, grouped MM and the critic refit, their bits, launch
 counts and ``mc_pilco`` on the whole-rollout tier), and ``chip_smoke``'s
 phase 14 cut short: the sequence-model driver's steps and an episode of it,
@@ -1426,6 +1427,69 @@ def test_mc_pilco_with_a_mixture_head_takes_the_full_tier_on_the_card(cuda):
     cfg = dict(n_particles=100, steps=15, mm_states=True, mm_rewards=True)
     assert make_mc_pilco_fn(dyn, pol, MCPILCOConfig(**cfg),
                             'cuda').tier('cuda') == 'full'
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
+    rng = np.random.RandomState(0)
+    pool = torch.tensor(cs.env_states('Cartpole', rng, 40).astype(np.float32),
+                        device='cuda')
+    stats = dyn.fit_stats(*(torch.tensor(a.astype(np.float32), device='cuda')
+                            for a in cs.stats_data('Cartpole', rng)))
+    fr.reset_launch_counts()
+    fm.reset_launch_counts()
+    _, _, metrics, _ = mc_pilco(pool, dyn, pol, 15, dp, stats, pp,
+                                opt_iters=5, mm_states=True, mm_rewards=True,
+                                n_particles=100, seed=0, chunk=1)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES['fused_rollout_vg'] == 5
+    assert sum(fr.LAUNCHES.values()) == 5 and sum(fm.LAUNCHES.values()) == 0
+    assert np.all(np.isfinite(metrics['loss']))
+
+
+@pytest.mark.parametrize('rows', ['6-7', '3-5', '3-5 mean-only', '8-9',
+                                  'wide 3-9'])
+def test_mixture_of_eight_components_matches_the_plain_versions(cuda, rows):
+    """Rows 3-9 with a mixture head of 8 components (a head of 89)
+    against their plain versions at B =
+    100 (rows 8-9 at 1000), and at D = 16, U = 8 in the wide instance (a
+    head of 265; rows 8-9 at the 480 particles the card holds), each
+    through ``chip_smoke``'s checks (``held_against``: an edge pick may
+    take its flipped variant)."""
+    K = 8
+    if rows == '6-7':
+        cs.check_step(100, tag='test', components=K)
+    elif rows.startswith('3-5'):
+        cs.check_rollout(100, rows.endswith('only'), tag='test',
+                         components=K)
+    elif rows == '8-9':
+        cs.check_grid(cs.grid_batch(components=K), True, tag='test',
+                      components=K)
+    else:
+        env = 'Bench16'
+        cs.check_step(100, env, 'test', components=K)
+        cs.check_rollout(100, False, env, 'test', components=K)
+        cs.check_grid(cs.grid_batch(env, K), True, env, 'test',
+                      components=K)
+
+
+def test_mc_pilco_with_eight_components_takes_the_full_tier(cuda):
+    """``mc_pilco`` with ``--dyn_components 8`` at B = 100 takes the
+    whole-rollout tier: one ``fused_rollout_vg`` an iteration and nothing
+    else, finite losses; the card holds fewer particles than at K = 5, and
+    a batch beyond them takes the step tier."""
+    from prob_mbrl_tpu_torch.algorithms.mc_pilco import (MCPILCOConfig,
+                                                         make_mc_pilco_fn,
+                                                         mc_pilco)
+    dyn, pol = cs.build_models(5, 1, (10.0,), envs.cartpole_reward(),
+                               components=8)
+    five = cs.build_models(5, 1, (10.0,), envs.cartpole_reward(),
+                           components=5)
+    capacity = fr.rollout_capacity(dyn, pol, 'cuda')
+    assert 100 <= capacity < fr.rollout_capacity(*five, 'cuda')
+    cfg = dict(mm_states=True, mm_rewards=True, steps=15)
+    assert make_mc_pilco_fn(dyn, pol, MCPILCOConfig(n_particles=100, **cfg),
+                            'cuda').tier('cuda') == 'full'
+    assert make_mc_pilco_fn(dyn, pol, MCPILCOConfig(
+        n_particles=capacity + 1, **cfg), 'cuda').tier('cuda') == 'step'
     gen = torch.Generator(device='cuda').manual_seed(0)
     dp, pp = dyn.init(gen, device='cuda'), pol.init(gen, device='cuda')
     rng = np.random.RandomState(0)

@@ -382,17 +382,18 @@ def test_the_plans_count_the_mixture_rows():
 
 
 def test_kernel_refuses_what_the_kernels_do_not_take():
-    """A mixture of more than 5 components, and layer norm or a bf16
-    compute_dtype in either MLP, each with its reason (layer norm's cites
-    JAX's gradient kernels, which refuse it); the gate then names no tier
-    and ``MCPILCO`` takes the ``utils.rollout`` route. Spectral norm in
-    either MLP is taken: the gate names ``'full'``."""
+    """Layer norm or a bf16 compute_dtype in either MLP, each with its
+    reason (layer norm's cites JAX's gradient kernels, which refuse it);
+    the gate then names no tier and ``MCPILCO`` takes the ``utils.rollout``
+    route. A mixture of 6 components and spectral norm in either MLP are
+    taken: the gate names ``'full'``."""
     cfg = tmc.MCPILCOConfig(n_particles=100, steps=15, mm_states=True,
                             mm_rewards=True)
     dyn, pol = _driver_models(['--dyn_components', '6'])
-    assert 'at most 5 components' in tfr.kernel_refuses(dyn, pol)
-    assert tfr.fused_mode(cfg, dyn, pol, device='cpu') is None
-    assert tmc.make_mc_pilco_fn(dyn, pol, cfg, 'cpu').mode is None
+    assert tfr.kernel_refuses(dyn, pol) is None
+    assert tfr.head_components(dyn) == 6
+    assert tfr.fused_mode(cfg, dyn, pol, device='cpu') == 'full'
+    assert tmc.make_mc_pilco_fn(dyn, pol, cfg, 'cpu').mode == 'full'
     dyn, pol = _driver_models(['--dtype', 'bfloat16'])
     assert 'compute_dtype' in tfr.kernel_refuses(dyn, pol)
     dyn, pol = _driver_models([])

@@ -458,7 +458,10 @@ def test_every_registry_env_keeps_the_narrow_instance(name):
 
 def test_the_gate_refuses_beyond_the_wide_limits():
     """D = 17, U = 9 and a tip of 17 rows are refused, each reason naming
-    the wide instance's limit; the lander's reward stays narrow."""
+    the wide instance's limit; the lander's reward stays narrow. A mixture
+    head is bounded only by the room of the plans: 6 components at D = 16,
+    U = 8 are taken, and 16 at the drivers' [200, 200] widths, whose tiles
+    do not fit, are refused with that reason."""
     dyn, pol = _port_specs(17, 1)
     assert 'D <= 16' in tfr.kernel_refuses(dyn, pol)
     assert tfr.kernel_instance(dyn, pol) is None
@@ -473,7 +476,13 @@ def test_the_gate_refuses_beyond_the_wide_limits():
     lander = dataclasses.replace(dyn, reward_func=tenvs.lander_reward())
     assert 'D = 8, U = 2' in tfr.kernel_refuses(lander, pol)
     dyn, pol = _port_specs(16, 8, K=6)
-    assert 'at most 5 components' in tfr.kernel_refuses(dyn, pol)
+    assert tfr.kernel_refuses(dyn, pol) is None
+    assert tfr.kernel_instance(dyn, pol) is tfr.WIDE
+    dyn, pol = _port_specs(16, 8, K=16, hidden=(200, 200))
+    why = tfr.kernel_refuses(dyn, pol)
+    assert 'tiles do not fit in shared memory' in why, why
+    assert 'a mixture head of 16 components' in why, why
+    assert tfr.kernel_instance(dyn, pol) is None
 
 
 def test_the_wide_block_mirrors_the_c_struct():
