@@ -5,8 +5,10 @@ against its plain PyTorch version (on Cartpole's shapes, then on those of
 the other envs), drives MC-PILCO policy optimisation on Cartpole at
 full width through the kernels, on each of its routes and with each option
 of the ``utils.rollout`` route (orthogonal mixing, inferred noise,
-non-PEGASUS noise, prioritized replay on the native sum tree), then three
-Deep-PILCO episodes through the driver on Cartpole and one on each of the
+non-PEGASUS noise, prioritized replay on the native sum tree), then two
+Deep-PILCO episodes through the driver on Cartpole, replayed by
+``tools/torch_eval_curves.py`` and summarised by
+``tools/summarize_results.py``, and one on each of the
 other four analytic envs and on the lunar lander, whose run is then
 replayed by ``evaluate_policy``, one on Cartpole learning the reward, and
 one of the with-value driver, whose critic the whole-rollout kernel refits;
@@ -16,7 +18,8 @@ model-based DDPG (an iteration, the Q-value rollout and one episode of its
 driver) and the conditional density networks (``train_model`` and the two
 BNN regression drivers), on rows 1-2; last, the sequence-model driver
 (``transformer_models``: its steps and one episode), model ensembles with a
-randomized prior, and RAdam and SdLBFGS fits, on rows 1-2.
+randomized prior, and RAdam and SdLBFGS fits, on rows 1-2; and the
+MC-PILCO notebook's compute cells.
 
     python3 chip_smoke.py
 
@@ -214,6 +217,14 @@ Phases (any failure exits non-zero and prints no result line):
      step through the kernels against the plain path on the same minibatch
      and noise (loss and every grad, logit_p's among them) and the fit's
      device-busy share over 50 steps under torch.profiler.
+  8r. the run's two policy snapshots replayed on the card by
+     ``tools/torch_eval_curves.py`` (the stochastic policy, 2 replays each,
+     eval seed 1234): eval_curves' JSON schema, 2 finite returns a
+     snapshot, launches exactly one fused-MLP forward a control step
+     replayed (2 x 2 x 40) and nothing else; then
+     ``tools/summarize_results.summarize`` over that curve and phase 8's
+     printed log in a temporary ``runs/`` folder: the collection curve is
+     the driver's real returns, the eval curve the replay's means.
   9. the envs: one episode of phase 8's driver, widths and cuts, the fit
      cut further to 150 steps (100 policy iterations, 40 control steps,
      seed 1) on each of
@@ -314,6 +325,12 @@ Phases (any failure exits non-zero and prints no result line):
      steps on the same dynamics with ``RAdam`` and ``SdLBFGS`` at their
      defaults, 20 each through the kernels, held against unfused, ms a
      step.
+  15n. the MC-PILCO notebook (``notebooks/torch_mc_pilco.ipynb``) on the
+     card at ``tests/test_torch_notebooks.py``'s cut (1 episode of 8
+     control steps, 10 fit steps, 5 policy iterations of 10 particles over
+     4 steps, [16, 16] models), its plotting cells (ids ``plot-*``) left out:
+     the return finite, launches exactly fused-MLP forward 10 + 8, backward
+     10 and ``fused_rollout_vg`` 5.
 
 Each kernel's launches in the ``kernels`` line come from the run of the
 route that carries it (rows 1-2 phase 8, the episode; rows 6-7 phase 4,
@@ -330,8 +347,11 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import importlib
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -439,6 +459,8 @@ EPISODES = 2
 EPISODE_POL_ITERS = 200
 FIT_ITERS = 500
 CONTROL_H = 40
+# phase 8r: each snapshot of phase 8's run replayed this many times
+REPLAY_EVALS = 2
 EPISODE_ARGV = ['--seed', str(SEED), '--ps_iters', str(EPISODES),
                 '--pol_opt_iters', str(EPISODE_POL_ITERS),
                 '--dyn_opt_iters', str(FIT_ITERS), '--dyn_batch_size', '100',
@@ -4307,10 +4329,14 @@ def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS,
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        returns, results = dpc.main(**settings, argv=argv, device='cuda',
-                                    on_episode=records.append)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, text)):
+            returns, results = dpc.main(**settings, argv=argv,
+                                        device='cuda',
+                                        on_episode=records.append)
         torch.cuda.synchronize()
         launches = counts()
+        DRIVER_LOGS[tag] = text.getvalue()
         wall = time.perf_counter() - t0
         if len(records) != episodes or len(returns) != episodes:
             raise AssertionError(f'{len(records)} episodes, expected '
@@ -4379,12 +4405,180 @@ def run_episodes(argv, episodes, tag, checks, settings=dpm.SETTINGS,
         shutil.rmtree(folder, ignore_errors=True)
 
 
+class Tee:
+    """A stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+# the driver's printed output of each ``run_episodes`` run, by its tag
+DRIVER_LOGS = {}
+
+
 def phase_episode():
     """Phase 8: EPISODES full-width Cartpole episodes (``run_episodes``),
-    then ``episode_fit_checks`` on the checkpoint. Returns the launch
-    counts."""
-    return run_episodes(EPISODE_ARGV, EPISODES, 'phase 8',
-                        episode_fit_checks)[0]
+    then ``episode_fit_checks`` and phase 8r (``phase_replay``) on the
+    checkpoint. Returns the launch counts."""
+    def checks(results, args):
+        episode_fit_checks(results, args)
+        phase_replay(results, args, DRIVER_LOGS['phase 8'])
+
+    return run_episodes(EPISODE_ARGV, EPISODES, 'phase 8', checks)[0]
+
+
+def tools_module(name):
+    """The module ``tools/<name>.py`` of this checkout."""
+    tools = str(Path(__file__).resolve().parent / 'tools')
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
+
+
+CURVE_KEYS = {'backend', 'run_dir', 'n_evals', 'curve', 'best_mean'}
+
+
+def phase_replay(results, args, driver_log, tag='phase 8r'):
+    """Phase 8r: ``tools/torch_eval_curves.py``'s stochastic replay of every
+    policy snapshot of the run in ``results`` on the card (REPLAY_EVALS
+    replays each, eval seed 1234): eval_curves' schema, exactly
+    REPLAY_EVALS finite returns a snapshot and one snapshot an episode, and
+    the launches exactly one fused-MLP forward a control step replayed and
+    nothing else; then ``tools/summarize_results.summarize`` over that
+    curve and the driver's printed ``driver_log``, written to a temporary
+    ``runs/`` folder: the collection curve the driver's real returns and
+    the eval curve the replay's means."""
+    tec = tools_module('torch_eval_curves')
+    sr = tools_module('summarize_results')
+    exp = ExperienceDataset()
+    exp.load(str(Path(results) / 'experience.pkl'))
+    snapshots = sum(1 for p in exp.policy_parameters if p)
+    if snapshots != exp.n_episodes() or args.stop_when_done:
+        raise AssertionError(f'{snapshots} snapshots of '
+                             f'{exp.n_episodes()} episodes, stop_when_done '
+                             f'{args.stop_when_done}')
+    runs = Path(tempfile.mkdtemp(prefix='chip_smoke_runs_',
+                                 dir=Path(results).parents[2]))
+    printed = io.StringIO()
+    try:
+        out = runs / 'curves_smoke_mm_s1.json'
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = tec.evaluate(results, REPLAY_EVALS, 1234, 'cuda',
+                                  str(out))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        with open(out) as fh:
+            saved = json.load(fh)
+        curve = saved['curve']
+        if (set(saved) != CURVE_KEYS or saved['backend'] != 'torch'
+                or saved['n_evals'] != REPLAY_EVALS
+                or json.loads(printed.getvalue().splitlines()[-1]) != saved
+                or [c['episode'] for c in curve] != list(range(snapshots))
+                or any(len(c['returns']) != REPLAY_EVALS for c in curve)
+                or not np.all(np.isfinite([c['returns'] for c in curve]))):
+            raise AssertionError(f'[{tag}] the replay\'s JSON: {saved}')
+        steps = snapshots * REPLAY_EVALS * args.control_H
+        want = expect(fused_mlp_fwd=steps)
+        means = [float(np.mean(c['returns'])) for c in curve]
+        log(f'[{tag}] {snapshots} snapshots replayed {REPLAY_EVALS} times '
+            f'each on the card in {wall:.3f} s ({1e3 * wall / steps:.4f} ms '
+            f'a control step of {steps}); mean returns {means}, best_mean '
+            f'{saved["best_mean"]:.6f}; launches {launches} (expected '
+            f'{want})')
+        if launches != want:
+            raise AssertionError('launch counts of the replay differ')
+
+        (runs / 'smoke_mm_s1.log').write_text(driver_log)
+        kept, sr.RUNS = sr.RUNS, str(runs)
+        try:
+            summary = sr.summarize(20.0)
+        finally:
+            sr.RUNS = kept
+        real = [float(x) for x in
+                re.findall(r'real_return=([-\d.]+)', driver_log)]
+        entry = summary.get('smoke_mm_s1', {})
+        if (list(summary) != ['smoke_mm_s1'] or len(real) != EPISODES
+                or entry['collection_returns'] != real
+                or not np.allclose(entry['eval_means'], means)
+                or not np.isfinite(entry['final5_eval_mean'])):
+            raise AssertionError(f'[{tag}] summarize gave {summary}')
+        log(f'[{tag}] summarize_results: collection returns '
+            f'{entry["collection_returns"]}, eval means '
+            f'{entry["eval_means"]}, best eval mean '
+            f'{entry["best_eval_mean"]:.6f}, episodes to 20 '
+            f'{entry["episodes_to_threshold"]}')
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+# phase 15n: tests/test_torch_notebooks.py's cut of the MC-PILCO notebook
+NOTEBOOK = 'notebooks/torch_mc_pilco.ipynb'
+NOTEBOOK_CUT = {
+    r'PS_ITERS = \d+': 'PS_ITERS = 1',
+    r'PRED_H = \d+': 'PRED_H = 4',
+    r'CONTROL_H = \d+': 'CONTROL_H = 8',
+    r'POL_OPT_ITERS = \d+': 'POL_OPT_ITERS = 5',
+    r'DYN_OPT_ITERS = \d+': 'DYN_OPT_ITERS = 10',
+    r'N_PARTICLES = \d+': 'N_PARTICLES = 10',
+    r'\(200, 200\)': '(16, 16)',
+}
+
+
+def phase_notebook(tag='phase 15n'):
+    """Phase 15n: the compute cells of ``notebooks/torch_mc_pilco.ipynb``
+    on the card at ``NOTEBOOK_CUT``, the plotting cells (ids ``plot-*``)
+    left out: DEVICE 'cuda', the returns finite, and the launches exactly
+    one fused-MLP forward a fit step and a control step, one backward a fit
+    step and one ``fused_rollout_vg`` a policy iteration."""
+    nb = json.loads((Path(__file__).resolve().parent / NOTEBOOK).read_text())
+    ns = {'__name__': '__nb__'}
+    ran, left_out = [], []
+    printed = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cell in nb['cells']:
+        if cell['cell_type'] != 'code':
+            continue
+        if cell['id'].startswith('plot-'):
+            left_out.append(cell['id'])
+            continue
+        src = ''.join(cell['source'])
+        for pat, rep in NOTEBOOK_CUT.items():
+            src = re.sub(pat, rep, src)
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            exec(compile(src, f'{NOTEBOOK}:{cell["id"]}', 'exec'), ns)
+        ran.append(cell['id'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    returns = ns['returns']
+    if (ns['DEVICE'] != 'cuda' or len(returns) != 1
+            or not np.all(np.isfinite(returns))
+            or 'episode 0: real return' not in printed.getvalue()):
+        raise AssertionError(f'[{tag}] the notebook gave {returns}')
+    fit, iters = ns['DYN_OPT_ITERS'], ns['POL_OPT_ITERS']
+    steps = sum(len(ep) for ep in ns['exp'].states)
+    want = expect(fused_mlp_fwd=fit + steps, fused_mlp_bwd=fit,
+                  fused_rollout_vg=iters)
+    log(f'[{tag}] {NOTEBOOK}: cells {ran} run on the card, {left_out} left '
+        f'out (plotting); returns {returns} in {wall:.3f} s; launches '
+        f'{launches} (expected {want})')
+    if launches != want:
+        raise AssertionError('launch counts of the notebook differ')
 
 
 def phase_value_episode():
@@ -6038,7 +6232,9 @@ def main():
     phase_density(card)
     t = lap('phase 13', t)
     phase_transformer(card)
-    lap('phase 14', t)
+    t = lap('phase 14', t)
+    phase_notebook()
+    lap('phase 15n', t)
     # the wide kernels' launches from phase 5w's runs, each under its name,
     # and those with the critic from phase 7w's (its only launches were the
     # critic instances', counted under the row's name + '_wide')

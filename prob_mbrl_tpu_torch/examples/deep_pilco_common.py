@@ -4,8 +4,9 @@ points (counterpart of the repo's ``examples/deep_pilco_common.py``).
 Per episode, in the JAX driver's order: a real episode with the stochastic
 host policy -> experience (with the policy params as numpy) -> dynamics stats
 and fit (``utils.train_regressor``) -> initial states from the experience ->
-MC-PILCO policy optimization (``algorithms.mc_pilco``) -> checkpoint, with one
-printed line per episode.
+MC-PILCO policy optimization (``algorithms.mc_pilco``) -> checkpoint, with two
+printed lines per episode: E_lml, the imagined and the real return, then the
+episode's host-clock seconds, ms a fit step and ms a policy iteration.
 
 Randomness: the params, each fit and each policy optimization draw from
 ``torch.Generator``s on the run's device seeded from ``--seed`` (and the
@@ -310,6 +311,7 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
     eval_returns = []
     best = {'return': -np.inf, 'params': None, 'episode': -1}
     for ps_it in range(args.ps_iters):
+        t_ep = time.perf_counter()
         # ---- collect real experience with the current stochastic policy
         # (rank 0 acts, the others take its episode)
         ret = from_lead(apply_controller(
@@ -410,6 +412,12 @@ def run(args, mm_states=False, mm_rewards=False, use_value=False,
                             imagined_return=mean_ret,
                             dyn_metrics=dyn_metrics, pol_metrics=pol_metrics,
                             fit_s=fit_s, pol_s=pol_s))
+        say(f'[{experiment_name}] episode {ps_it} took '
+            f'{time.perf_counter() - t_ep:.3f} s: fit {fit_s:.3f} s '
+            f'({1e3 * fit_s / max(args.dyn_opt_iters, 1):.4f} ms a step), '
+            f'policy {pol_s:.3f} s '
+            f'({1e3 * pol_s / max(args.pol_opt_iters, 1):.4f} ms an '
+            'iteration)')
 
     say(f'[{experiment_name}] best real return {best["return"]:.3f} '
         f'at episode {best["episode"]}')

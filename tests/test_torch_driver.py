@@ -50,6 +50,11 @@ def test_deep_pilco_mm_runs_checkpoints_and_resumes(tmp_path, capsys):
     lines = re.findall(r'\] episode (\d+): E_lml=(\S+) imagined_return=(\S+) '
                        r'real_return=(\S+)', printed)
     assert [int(m[0]) for m in lines] == [0, 1] and len(returns) == 2
+    timed = re.findall(r'\] episode (\d+) took (\S+) s: fit (\S+) s \((\S+) '
+                       r'ms a step\), policy (\S+) s \((\S+) ms an '
+                       r'iteration\)', printed)
+    assert [int(m[0]) for m in timed] == [0, 1]
+    assert all(float(v) > 0 for m in timed for v in m[1:])
     assert all(math.isfinite(float(v)) for m in lines for v in m[1:])
     for r in records:
         e = r['dyn_metrics']['E_lml']

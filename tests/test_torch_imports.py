@@ -2,7 +2,8 @@
 ``chip_smoke.py`` and not the tools that run on the card without JAX
 (``tools/profile_torch_main_path.py``, ``tools/torch_mlp_timings.py``,
 ``tools/torch_cluster_probe.py``, ``tools/torch_rollout_laps.py``,
-``tools/torch_paths_ab.py``)
+``tools/torch_paths_ab.py``, ``tools/torch_eval_curves.py``,
+``tools/torch_learning_table.py``)
 imports JAX or the JAX package ``prob_mbrl_tpu``, and none
 hands the main path to ``torch.compile``. Checked by parsing the sources,
 so nothing of JAX is imported here. The port's entry points run on ``cuda``
@@ -20,7 +21,9 @@ FILES = sorted(PORT.rglob('*.py')) + [
     ROOT / 'tools' / 'torch_mlp_timings.py',
     ROOT / 'tools' / 'torch_cluster_probe.py',
     ROOT / 'tools' / 'torch_rollout_laps.py',
-    ROOT / 'tools' / 'torch_paths_ab.py']
+    ROOT / 'tools' / 'torch_paths_ab.py',
+    ROOT / 'tools' / 'torch_eval_curves.py',
+    ROOT / 'tools' / 'torch_learning_table.py']
 
 
 def _forbidden(name):
